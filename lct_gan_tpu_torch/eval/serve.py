@@ -1,0 +1,38 @@
+"""Serving with fixed weights (`lct_gan_tpu/eval/serve.py:30
+bake_enhance`).
+
+The JAX package bakes the weights into a jitted program; here the
+enhancer's weights are simply held fixed and every call runs under
+`torch.inference_mode()` (no autograd records). Capturing one CUDA graph
+per input shape is later work.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from lct_gan_tpu_torch.models.generator import LctEnhancer
+
+__all__ = ["make_enhance"]
+
+
+def make_enhance(enhancer: LctEnhancer
+                 ) -> Callable[..., torch.Tensor]:
+    """Return `enhance(noisy, lengths=None) -> enhanced [B, T]` on the
+    enhancer's device. `noisy` and `lengths` may be numpy arrays or tensors;
+    the result stays on the device."""
+    enhancer.eval()
+    device = next(enhancer.parameters()).device
+
+    def enhance(noisy, lengths: Optional[object] = None) -> torch.Tensor:
+        with torch.inference_mode():
+            x = torch.as_tensor(noisy, dtype=torch.float32, device=device)
+            ln = None
+            if lengths is not None:
+                ln = torch.as_tensor(lengths, dtype=torch.long, device=device)
+            out, _ = enhancer(x, ln)
+            return out
+
+    return enhance

@@ -1,0 +1,70 @@
+"""Multi-head self-attention with torch.nn.MultiheadAttention's parameters
+(`lct_gan_tpu/models/attention.py:125-229`).
+
+Parameter names are torch's (`in_proj_weight` [3E, E], `in_proj_bias`,
+`out_proj.weight`, `out_proj.bias`) so reference state_dicts load strictly.
+
+Dispatch, as in the JAX package:
+  * S <= 1024: the fused MHSA kernel wrapper (ops/attention.py), which runs
+    the CUDA kernel on the card and its plain version on the CPU;
+  * S > 1024, unbanded: the plain path (the JAX package's jnp path);
+  * a band (`lookback`) at S >= 769 on the card would take the TPU's
+    block-skipping banded kernel, which is not ported yet: it raises.
+    On the CPU the masked plain path serves.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from lct_gan_tpu_torch.ops.attention import (MAX_PALLAS_SEQ, fused_mhsa,
+                                             mhsa_reference)
+
+__all__ = ["MultiHeadSelfAttention", "BANDED_KERNEL_MIN_SEQ"]
+
+# Banded calls at or above this length take the banded kernel in the JAX
+# package (models/attention.py:115).
+BANDED_KERNEL_MIN_SEQ = 769
+
+
+class MultiHeadSelfAttention(nn.Module):
+    def __init__(self, embed_dim: int = 64, num_heads: int = 4):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
+                                                       embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def kernel_params(self):
+        """(in_w [E, 3E], in_b, out_w [E, E], out_b) in the kernels' layout."""
+        return (self.in_proj_weight.t(), self.in_proj_bias,
+                self.out_proj.weight.t(), self.out_proj.bias)
+
+    def forward(self, x: torch.Tensor, lookback: Optional[int] = None,
+                key_bias: Optional[torch.Tensor] = None, *,
+                precise: bool = False) -> torch.Tensor:
+        """x [B, S, E]; lookback: inclusive causal band; key_bias: [B, S]
+        additive per-key bias (0 / -1e30); precise: all-f32 kernel GEMMs."""
+        B, S, E = x.shape
+        if E != self.embed_dim:
+            raise ValueError(f"Expected embed dim {self.embed_dim}, got {E}")
+        params = self.kernel_params()
+        if (lookback is not None and S >= BANDED_KERNEL_MIN_SEQ
+                and x.device.type == "cuda"):
+            raise NotImplementedError(
+                f"banded attention at S={S} >= {BANDED_KERNEL_MIN_SEQ} needs "
+                "the block-skipping banded kernel, which is not ported yet "
+                "(ROADMAP Queue 2 item 3)")
+        if S <= MAX_PALLAS_SEQ:
+            return fused_mhsa(x, *params, num_heads=self.num_heads,
+                              lookback=lookback, key_bias=key_bias,
+                              precise=precise)
+        return mhsa_reference(x, *params, num_heads=self.num_heads,
+                              lookback=lookback, key_bias=key_bias)
