@@ -10,10 +10,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
   kernels  each kernel against its plain PyTorch version on the card, at the
            main path's shapes, in bf16 and precise (all-f32) modes: max|diff|
            against the stated tolerance, kernel / plain / library ms, bound
+           (banded_mhsa at the banded time blocks of the 196,608- and
+           917,504-sample buckets, W = 64, also against fused_mhsa with the
+           same band at S = 772, the crossover witness; both kernels timed
+           with that band at S = 516 and 644)
   enhance  the committed demo weights through load_enhancer + make_enhance:
            B=128 x 2 s (3 FTF launches, 0 MHSA; matches the plain path run
            on the CPU) and one bucketed batch of 163,840 samples with
            lengths (2 FTF launches, 1 MHSA; rows match the CPU plain path)
+  banded   the same weights with max_time_context=64, bucketed batches with
+           lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
+           1 banded launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
+           banded); rows match the CPU plain path
+  stream   StreamingEnhancer(max_time_context=64, 4 s chunks, 0.5 s
+           overlap): a 20 s wave (one call of 8 chunk rows, 3 FTF launches)
+           matches the CPU; a 60 s wave's real-time factor
 
 then the "kernels" summary line and, last, {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -79,6 +90,20 @@ def bound(rows, flops, extra_bytes, mode):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def library_banded_ms(torch, N, L, lookback, mode):
+    """`library_attention_ms` with the band mask, forced onto the
+    memory-efficient backend. Returns (ms, None) or (None, reason)."""
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return library_attention_ms(torch, N, L, lookback, None,
+                                        mode), None
+    except (ImportError, RuntimeError) as exc:  # unsupported or out of
+        torch.cuda.empty_cache()                # memory: record why
+        return None, f"{type(exc).__name__}: {str(exc)[:200]}"
+
+
 def library_attention_ms(torch, N, L, lookback, key_bias, mode):
     """One scaled_dot_product_attention call on the same attention shapes
     (a yardstick only: the port never calls it)."""
@@ -102,6 +127,8 @@ def library_attention_ms(torch, N, L, lookback, key_bias, mode):
 
 def check_kernels(torch, enhancer):
     from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
+    from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
+                                                        banded_mhsa_reference)
     from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
                                            fused_ftf_block)
     from lct_gan_tpu_torch.ops.gru import grouped_gru
@@ -116,7 +143,7 @@ def check_kernels(torch, enhancer):
         return torch.where(pos[None, :] < valid[:, None], 0.0,
                            -1e30).to(torch.float32)
 
-    results = {"fused_ftf_block": [], "fused_mhsa": []}
+    results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": []}
     ftf_cases = [
         # name, block, N, L, key_bias?, lookback  (B=128 x 2 s shapes)
         ("freq", gen.GRUf1, 128 * 129, 33, False, None),
@@ -204,6 +231,77 @@ def check_kernels(torch, enhancer):
                   2)})
         del x, kb
         torch.cuda.empty_cache()
+
+    # Banded time blocks (W = 64) of the 196,608- and 917,504-sample buckets
+    # (adaptive rows 20 and 4; bottleneck S = 772 and 3,588). The key-masked
+    # tails reach past W + 1 frames, so some rows' whole band is masked.
+    W = 64
+    for B, S in ((20, 772), (4, 3588)):
+        N = B * 33
+        x = torch.randn((N, S, 64), generator=g, device="cuda")
+        kb = masked_tail(N, S, S - 200)
+        rows = N * S
+        flops = (rows * (2 * 64 * 192 + 2 * 64 * 64)
+                 + N * 4 * band_pairs(S, W) * 64)
+        extra = sum(p.numel() for p in aparams) * 4 + rows * 4
+        for mode in ("bf16", "precise"):
+            kw = dict(num_heads=4, lookback=W, key_bias=kb,
+                      precise=mode == "precise")
+            out = banded_mhsa(x, *aparams, **kw)
+            torch.cuda.synchronize()
+            ref = banded_mhsa_reference(x, *aparams, **kw)
+            err = (out - ref).abs().max().item()
+            if not (err <= TOL[mode]) or not torch.isfinite(out).all():
+                raise AssertionError(f"banded_mhsa S={S} {mode}: max|diff| "
+                                     f"{err} > {TOL[mode]}")
+            del ref
+            torch.cuda.empty_cache()
+            res = {"case": f"S{S}_W{W}_keybias", "mode": mode, "N": N,
+                   "L": S, "max_abs_err": err, "tol": TOL[mode]}
+            if S <= 1024:
+                # Crossover witness: the MHSA kernel with the same band
+                # computes the same function in O(S^2).
+                mh = fused_mhsa(x, *aparams, **kw)
+                torch.cuda.synchronize()
+                xerr = (out - mh).abs().max().item()
+                if not xerr <= TOL[mode]:
+                    raise AssertionError(f"banded_mhsa vs fused_mhsa S={S} "
+                                         f"{mode}: {xerr} > {TOL[mode]}")
+                del mh
+                res["vs_fused_mhsa_max_abs_err"] = xerr
+                res["fused_mhsa_ms"] = cuda_ms(
+                    torch, lambda: fused_mhsa(x, *aparams, **kw), 3)
+            del out
+            res["ms"] = cuda_ms(torch, lambda: banded_mhsa(x, *aparams, **kw),
+                                5)
+            res["plain_ms"] = cuda_ms(
+                torch, lambda: banded_mhsa_reference(x, *aparams, **kw), 2)
+            torch.cuda.empty_cache()
+            res["bound_ms"], res["bound_by"] = bound(rows, flops, extra, mode)
+            res["library_ms"], why = library_banded_ms(torch, N, S, W, mode)
+            if why:
+                res["library_unavailable"] = why
+            res["flops"] = flops
+            results["banded_mhsa"].append(res)
+            emit({"phase": "kernels", "kernel": "banded_mhsa", **res})
+        del x, kb
+        torch.cuda.empty_cache()
+
+    # Crossover below BANDED_KERNEL_MIN_SEQ (769): the band served by either
+    # kernel at the composed time blocks of the 131,072- and 163,840-sample
+    # buckets (timing only; the path keeps the MHSA kernel there).
+    for B, S in ((31, 516), (25, 644)):
+        N = B * 33
+        x = torch.randn((N, S, 64), generator=g, device="cuda")
+        kb = masked_tail(N, S, S - 130)
+        kw = dict(num_heads=4, lookback=W, key_bias=kb)
+        emit({"phase": "kernels", "crossover": "W=64 bf16", "N": N, "L": S,
+              "banded_mhsa_ms": cuda_ms(
+                  torch, lambda: banded_mhsa(x, *aparams, **kw), 5),
+              "fused_mhsa_ms": cuda_ms(
+                  torch, lambda: fused_mhsa(x, *aparams, **kw), 5)})
+        del x, kb
+    torch.cuda.empty_cache()
     return results
 
 
@@ -211,14 +309,18 @@ def run_counted(torch, enhance, x, lengths, expect):
     """One main-path call with every launch count set to 0 just before and
     read just after; raises unless the counts are `expect`."""
     from lct_gan_tpu_torch.ops.attention import fused_mhsa
+    from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
     from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
 
     fused_ftf_block.launches = 0
     fused_mhsa.launches = 0
-    out = enhance(x, lengths)
-    torch.cuda.synchronize()
+    banded_mhsa.launches = 0
+    out = enhance(x) if lengths is None else enhance(x, lengths)
+    if isinstance(out, torch.Tensor):
+        torch.cuda.synchronize()
     got = {"fused_ftf_block": fused_ftf_block.launches,
-           "fused_mhsa": fused_mhsa.launches}
+           "fused_mhsa": fused_mhsa.launches,
+           "banded_mhsa": banded_mhsa.launches}
     if got != expect:
         raise AssertionError(f"launch counts {got}, expected {expect}")
     return out, got
@@ -231,7 +333,7 @@ def check_enhance(torch, np, card, enhancer):
 
     cpu_enhancer = load_enhancer(CHECKPOINT, device="cpu")
     enhance = make_enhance(enhancer)
-    launches = {"fused_ftf_block": 0, "fused_mhsa": 0}
+    launches = {"fused_ftf_block": 0, "fused_mhsa": 0, "banded_mhsa": 0}
     rng = np.random.default_rng(1)
 
     # Workload 1: B=128 x 2 s seeded noise (the fixed bench workload).
@@ -239,7 +341,8 @@ def check_enhance(torch, np, card, enhancer):
     x = torch.from_numpy(wave).cuda()
     enhance(x)  # warm-up
     out, got = run_counted(torch, enhance, x, None,
-                           {"fused_ftf_block": 3, "fused_mhsa": 0})
+                           {"fused_ftf_block": 3, "fused_mhsa": 0,
+                            "banded_mhsa": 0})
     for k in launches:
         launches[k] += got[k]
     if not torch.isfinite(out).all() or tuple(out.shape) != (128, 2 * SR):
@@ -274,7 +377,8 @@ def check_enhance(torch, np, card, enhancer):
     ln = torch.from_numpy(lens.astype(np.int64)).cuda()
     enhance(x, ln)  # warm-up
     out, got = run_counted(torch, enhance, x, ln,
-                           {"fused_ftf_block": 2, "fused_mhsa": 1})
+                           {"fused_ftf_block": 2, "fused_mhsa": 1,
+                            "banded_mhsa": 0})
     for k in launches:
         launches[k] += got[k]
     if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
@@ -292,6 +396,113 @@ def check_enhance(torch, np, card, enhancer):
           "audio_sec_per_s": float(lens.sum()) / SR / (ms / 1e3),
           "device": card})
     return launches
+
+
+def bucket_batch(np, rng, T, B):
+    """B seeded noise rows of the T-sample bucket with lengths in
+    (7/8 T, T], zero-padded: (wave [B, T] f32, lengths [B] int64)."""
+    from lct_gan_tpu_torch.data import bucket_length
+
+    lens = rng.integers(T - T // 8 + 1, T + 1, size=B).astype(np.int64)
+    if any(bucket_length(int(n)) != T for n in lens):
+        raise AssertionError(f"lengths outside the {T}-sample bucket")
+    wave = np.zeros((B, T), np.float32)
+    for r, n in enumerate(lens):
+        wave[r, :n] = 0.1 * rng.standard_normal(n)
+    return wave, lens
+
+
+def check_banded(torch, np, card):
+    """The banded-causal serving configuration (max_time_context = 64)."""
+    from lct_gan_tpu_torch.convert import load_enhancer
+    from lct_gan_tpu_torch.eval import make_enhance
+    from lct_gan_tpu_torch.ops.gru import grouped_gru
+
+    enhancer = load_enhancer(CHECKPOINT, device="cuda", max_time_context=64)
+    gru = [p.detach() for p in enhancer.gen.GRUt1.kernel_params()[2:6]]
+    cpu_enhancer = load_enhancer(CHECKPOINT, device="cpu",
+                                 max_time_context=64)
+    enhance = make_enhance(enhancer)
+    launches = {"fused_ftf_block": 0, "fused_mhsa": 0, "banded_mhsa": 0}
+    rng = np.random.default_rng(2)
+    for T, rows_checked, expect in (
+            (196608, 2, (2, 0, 1)),
+            (917504, 1, (2, 0, 1)),
+            # routing boundary: S = 644 < 769 stays on the MHSA kernel
+            (163840, 1, (2, 1, 0))):
+        B = 128 * 32000 // T
+        wave, lens = bucket_batch(np, rng, T, B)
+        x = torch.from_numpy(wave).cuda()
+        ln = torch.from_numpy(lens).cuda()
+        enhance(x, ln)  # warm-up
+        out, got = run_counted(torch, enhance, x, ln, dict(zip(
+            ("fused_ftf_block", "fused_mhsa", "banded_mhsa"), expect)))
+        for k in launches:
+            launches[k] += got[k]
+        if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
+            raise AssertionError(f"banded output bad: {tuple(out.shape)}")
+        r = rows_checked
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref_wave, _ = cpu_enhancer(torch.from_numpy(wave[:r]),
+                                       torch.from_numpy(lens[:r]))
+            cpu_s = time.perf_counter() - t0
+        werr = (out[:r].cpu() - ref_wave).abs().max().item()
+        if not werr <= TOL_WAVE:
+            raise AssertionError(f"banded B={B} x {T}: rows vs CPU plain "
+                                 f"path {werr} > {TOL_WAVE}")
+        ms = cuda_ms(torch, lambda: enhance(x, ln), 2)
+        # The composed time block's GRU loop (plain torch, launch-bound on
+        # the host) alone, at this call's time-block shape, under the same
+        # inference mode as the call.
+        S = T // 256 + 4
+        h = torch.randn((B * 33, S, 64), device="cuda")
+        with torch.inference_mode():
+            gru_ms = cuda_ms(torch, lambda: grouped_gru(
+                h, *gru, bidirectional=False), 1)
+        emit({"phase": "banded", "workload": f"bucketed B={B} x {T} samples",
+              "max_time_context": 64, "launches": got,
+              "rows_checked": r, "wave_max_abs_err_vs_cpu": werr,
+              "tol_wave": TOL_WAVE, "cpu_plain_s": cpu_s, "ms_per_call": ms,
+              "audio_sec_per_s": float(lens.sum()) / SR / (ms / 1e3),
+              "time_block_S": S, "composed_gru_ms": gru_ms,
+              "composed_gru_share": gru_ms / ms, "device": card})
+        del x, ln, out, h
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_stream(torch, np, card):
+    """Chunked streaming with the banded configuration, card vs CPU."""
+    from lct_gan_tpu_torch.eval import StreamingEnhancer
+
+    kw = dict(max_time_context=64, chunk_seconds=4.0, overlap_seconds=0.5)
+    se = StreamingEnhancer(CHECKPOINT, **kw)
+    se_cpu = StreamingEnhancer(CHECKPOINT, device="cpu", **kw)
+    rng = np.random.default_rng(3)
+    wave = (0.1 * rng.standard_normal(20 * SR)).astype(np.float32)
+    se(wave)  # warm-up
+    out, got = run_counted(torch, se, wave, None, {
+        "fused_ftf_block": 3, "fused_mhsa": 0, "banded_mhsa": 0})
+    ref = se_cpu(wave)
+    err = float(np.abs(out - ref).max())
+    if out.shape != wave.shape or not np.isfinite(out).all() \
+            or not err <= TOL_WAVE:
+        raise AssertionError(f"stream 20 s vs CPU: {err} (tol {TOL_WAVE}), "
+                             f"shape {out.shape}")
+    long_wave = (0.1 * rng.standard_normal(60 * SR)).astype(np.float32)
+    se(long_wave)  # warm-up (one call of 32 chunk rows)
+    t0 = time.perf_counter()
+    out = se(long_wave)
+    wall = time.perf_counter() - t0
+    if out.shape != long_wave.shape or not np.isfinite(out).all():
+        raise AssertionError("stream 60 s output bad")
+    emit({"phase": "stream", "chunk_seconds": 4.0, "overlap_seconds": 0.5,
+          "max_time_context": 64, "launches_20s": got,
+          "wave_max_abs_err_vs_cpu_20s": err, "tol_wave": TOL_WAVE,
+          "wall_s_60s": wall, "real_time_factor_60s": 60.0 / wall,
+          "device": card})
+    return got
 
 
 def main():
@@ -320,15 +531,24 @@ def main():
     enhancer = load_enhancer(CHECKPOINT, device="cuda")
     kernels = check_kernels(torch, enhancer)
     launches = check_enhance(torch, np, card, enhancer)
+    del enhancer
+    torch.cuda.empty_cache()
+    for phase in (check_banded, check_stream):
+        for k, n in phase(torch, np, card).items():
+            launches[k] += n
 
     summary = []
-    for name, src, replaces in (
+    for name, src, replaces, head_L in (
             ("fused_ftf_block", "lct_gan_tpu_torch/csrc/ftf.cu",
-             "lct_gan_tpu/ops/ftf.py:132"),
+             "lct_gan_tpu/ops/ftf.py:132", 33),
             ("fused_mhsa", "lct_gan_tpu_torch/csrc/mhsa.cu",
-             "lct_gan_tpu/ops/attention.py:125")):
-        head = kernels[name][0] if name == "fused_ftf_block" else next(
-            r for r in kernels[name] if r["L"] == 644 and r["mode"] == "bf16")
+             "lct_gan_tpu/ops/attention.py:125", 644),
+            ("banded_mhsa", "lct_gan_tpu_torch/csrc/banded.cu",
+             "lct_gan_tpu/ops/banded_attention.py:109", 772)):
+        head = next(r for r in kernels[name]
+                    if r["L"] == head_L and r["mode"] == "bf16")
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the path")
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

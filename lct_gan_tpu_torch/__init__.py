@@ -8,10 +8,13 @@ card unless the caller passes `device="cpu"`, and raise when no GPU is
 visible. On CPU tensors every kernel wrapper computes its plain PyTorch
 version; on CUDA tensors it launches its kernel or raises.
 
-The slice ported so far is waveform enhancement with fixed weights:
+Ported so far is the serving side, waveform enhancement with fixed weights:
 
     STFT -> magnitude -> LctGenerator (encoder convs, LayerNorm,
     FTF blocks GRUf1 -> GRUt1 -> GRUf2, decoder) -> compressed mask -> iSTFT
+
+with full or banded-causal time attention (`max_time_context`) at any
+utterance length, and chunked streaming (`eval.StreamingEnhancer`).
 """
 
 __all__ = ["__version__"]

@@ -2,6 +2,7 @@
 
     python -m lct_gan_tpu_torch.bench          # B=128 x 2 s seeded noise
     python -m lct_gan_tpu_torch.bench --full   # 256 seeded 1.5-10 s utterances
+    python -m lct_gan_tpu_torch.bench [--full] --max_time_context 64
 
 The two workloads are the JAX package's `bench.py` `run_fixed` and
 `run_full`: the same batch, the same seeded utterance lengths, the same
@@ -9,6 +10,9 @@ length-sorted adaptive batching (`adaptive_slices(..., 128 * 32000, 128)`)
 and bucket padding with per-row `lengths`, counting true audio seconds.
 Weights are fixed (the committed demo checkpoint by default); each timing
 loop ends in a device synchronize and the median of 3 is reported.
+--max_time_context W serves banded-causal time attention in both workloads
+(the JAX bench's flag); without it the checkpoint's setting applies (full
+attention for the demo weights).
 
 Prints ONE JSON line on stdout, with the card's `nvidia-smi` name and power
 limit under "device"; progress goes to stderr.
@@ -77,8 +81,9 @@ def _timed(fn, sync):
 _GROUPS = (  # lower-case kernel-name fragment -> layer, first match wins
     ("ftf_out_kernel", "FTF block: out-proj + Linear"),
     ("gru_kernel", "FTF block: GRU recurrence"),
+    ("banded_attn_kernel", "banded attention core"),
     ("attn_kernel", "attention core (FTF + MHSA)"),
-    ("proj_kernel", "LN + projections (FTF + MHSA)"),
+    ("proj_kernel", "LN + projections (FTF + MHSA + banded)"),
     ("fft", "STFT / iSTFT FFTs"),
     ("fprop", "encoder / decoder convs"),
     ("dgrad", "encoder / decoder convs"),
@@ -123,8 +128,21 @@ def profile_step(step, sync) -> dict:
             "top_kernels": kernels[:25]}
 
 
+def launches_per_pass(step, sync) -> dict:
+    """Kernel launches of one untimed `step()`, by kernel wrapper (0 each on
+    the CPU, where the wrappers compute their plain versions)."""
+    from lct_gan_tpu_torch.ops import banded_mhsa, fused_ftf_block, fused_mhsa
+
+    wrappers = (fused_ftf_block, fused_mhsa, banded_mhsa)
+    for w in wrappers:
+        w.launches = 0
+    step()
+    sync()
+    return {w.__name__: w.launches for w in wrappers}
+
+
 def run(full: bool, checkpoint: str, device: str,
-        profile_path: str = None) -> dict:
+        profile_path: str = None, max_time_context: int = None) -> dict:
     from lct_gan_tpu_torch.convert import load_enhancer
     from lct_gan_tpu_torch.eval import make_enhance
     from lct_gan_tpu_torch.utils import (gpu_name_and_power_limit,
@@ -132,7 +150,10 @@ def run(full: bool, checkpoint: str, device: str,
 
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    enhance = make_enhance(load_enhancer(checkpoint, device=dev))
+    enhance = make_enhance(load_enhancer(checkpoint, device=dev,
+                                         max_time_context=max_time_context))
+    if max_time_context is not None:
+        log(f"banded time attention: max_time_context={max_time_context}")
     if full:
         host, audio_sec = full_batches()
         batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(ln).to(dev))
@@ -164,7 +185,10 @@ def run(full: bool, checkpoint: str, device: str,
             f"({values[-1]:.1f} audio-s/s)")
     card = gpu_name_and_power_limit() if dev.type == "cuda" else "cpu"
     result = {"metric": metric, "value": sorted(values)[len(values) // 2],
-              "unit": "audio-sec/sec/chip", "reps": values, "device": card}
+              "unit": "audio-sec/sec/chip", "reps": values,
+              "max_time_context": max_time_context,
+              "launches_per_pass": launches_per_pass(step, sync),
+              "device": card}
     if profile_path:
         prof = {**profile_step(step, sync), "metric": metric, "device": card,
                 "audio_sec": audio_sec}
@@ -186,9 +210,13 @@ def main(argv=None):
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="after timing, profile one pass (torch.profiler) "
                          "and write device time by kernel and layer to PATH")
+    ap.add_argument("--max_time_context", type=int, default=None,
+                    help="banded-causal time-attention lookback (frames); "
+                         "default: the checkpoint's (full attention for the "
+                         "demo weights)")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.full, args.checkpoint, args.device,
-                         args.profile)), flush=True)
+                         args.profile, args.max_time_context)), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,22 +2,26 @@
 `infer.py` contract).
 
     python -m lct_gan_tpu_torch.infer --data_root D --checkpoint C \
-        --output_dir O [--exact_lengths] [--pad_outputs]
+        --output_dir O [--exact_lengths] [--pad_outputs] \
+        [--max_time_context W] [--chunk_seconds S [--chunk_overlap V]]
 
 Reads D/noisy_test/<id>.wav for every id of D/<test_scp>, enhances them
 in length-sorted, length-adaptive bucketed batches with per-row `lengths`
 (or one utterance at a time at its exact length with --exact_lengths), and
 writes O/<id>.wav trimmed to its true length (--pad_outputs keeps the
-padded length, as the reference's infer.py does). The checkpoint is a
-generator `.npz` or a reference-format `.pt`; its saved compress_c and
-max_time_context apply unless overridden.
+padded length, as the reference's infer.py does). --max_time_context W
+serves banded-causal time attention (each frame sees the W frames before
+it). --chunk_seconds enhances one utterance at a time in overlapping
+chunks crossfaded over --chunk_overlap seconds (eval/streaming.py), written
+at its true length. The checkpoint is a generator `.npz` or a
+reference-format `.pt`; its saved compress_c and max_time_context apply
+unless overridden.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 import time
 
 
@@ -40,22 +44,22 @@ def parse_args(argv=None):
     p.add_argument("--pad_outputs", action="store_true",
                    help="save padded-length wavs (the reference's quirk)")
     p.add_argument("--chunk_seconds", type=float, default=None,
-                   help="chunked streaming enhancement (not ported yet)")
+                   help="enhance in fixed-size overlapping chunks (bounded "
+                        "memory and batch shapes; for long recordings)")
+    p.add_argument("--chunk_overlap", type=float, default=0.5,
+                   help="crossfade seconds between chunks (at most half a "
+                        "chunk)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.chunk_seconds is not None:
-        sys.exit("--chunk_seconds (chunked streaming) is not ported to the "
-                 "PyTorch package yet; run without it, or use the JAX "
-                 "package's infer.py")
 
     from lct_gan_tpu_torch.convert import load_enhancer
     from lct_gan_tpu_torch.data import (bucketed_batches, load_mono_wave,
                                         read_scp, write_wav)
-    from lct_gan_tpu_torch.eval import make_enhance
+    from lct_gan_tpu_torch.eval import enhance_in_chunks, make_enhance
 
     enhancer = load_enhancer(args.checkpoint, device=args.device,
                              compress_c=args.compress_c,
@@ -70,6 +74,24 @@ def main(argv=None):
     waves = {uid: load_mono_wave(os.path.join(noisy_dir, f"{uid}.wav"),
                                  args.sample_rate)[0] for uid in ids}
     os.makedirs(args.output_dir, exist_ok=True)
+
+    if args.chunk_seconds is not None:
+        def enhance_np(batch):
+            return enhance(batch).cpu().numpy()
+
+        t0 = time.time()
+        total_audio = 0.0
+        for n_done, uid in enumerate(ids, 1):
+            out = enhance_in_chunks(
+                enhance_np, waves[uid], args.sample_rate,
+                chunk_seconds=args.chunk_seconds,
+                overlap_seconds=args.chunk_overlap)
+            write_wav(os.path.join(args.output_dir, f"{uid}.wav"), out,
+                      args.sample_rate)
+            total_audio += out.shape[-1] / args.sample_rate
+            print(f"[{n_done}/{len(ids)}] enhanced (chunked)", flush=True)
+        _done(len(ids), total_audio, time.time() - t0)
+        return
 
     target = (None if args.exact_lengths
               else int(args.target_batch_seconds * args.sample_rate))
@@ -88,7 +110,10 @@ def main(argv=None):
             total_audio += L / args.sample_rate
             n_done += 1
         print(f"[{n_done}/{len(ids)}] enhanced", flush=True)
-    dt = time.time() - t0
+    _done(n_done, total_audio, time.time() - t0)
+
+
+def _done(n_done: int, total_audio: float, dt: float) -> None:
     print(f"Done: {n_done} utterances, {total_audio:.1f}s audio in "
           f"{dt:.1f}s ({total_audio / max(dt, 1e-9):.2f}x realtime)")
 

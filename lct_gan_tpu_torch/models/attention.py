@@ -4,13 +4,14 @@
 Parameter names are torch's (`in_proj_weight` [3E, E], `in_proj_bias`,
 `out_proj.weight`, `out_proj.bias`) so reference state_dicts load strictly.
 
-Dispatch, as in the JAX package:
-  * S <= 1024: the fused MHSA kernel wrapper (ops/attention.py), which runs
-    the CUDA kernel on the card and its plain version on the CPU;
-  * S > 1024, unbanded: the plain path (the JAX package's jnp path);
-  * a band (`lookback`) at S >= 769 on the card would take the TPU's
-    block-skipping banded kernel, which is not ported yet: it raises.
-    On the CPU the masked plain path serves.
+Dispatch, as in the JAX package (`lct_gan_tpu/models/attention.py:180-194`);
+each kernel wrapper runs its CUDA kernel on the card and its plain version on
+the CPU:
+  * a band (`lookback`) at S >= 769: the banded kernel wrapper
+    (ops/banded_attention.py), O(S * W), any S;
+  * otherwise S <= 1024: the fused MHSA kernel wrapper (ops/attention.py),
+    with or without a band;
+  * S > 1024, unbanded: the plain f32 path (the JAX package's jnp path).
 """
 
 from __future__ import annotations
@@ -22,11 +23,14 @@ from torch import nn
 
 from lct_gan_tpu_torch.ops.attention import (MAX_PALLAS_SEQ, fused_mhsa,
                                              mhsa_reference)
+from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
 
 __all__ = ["MultiHeadSelfAttention", "BANDED_KERNEL_MIN_SEQ"]
 
-# Banded calls at or above this length take the banded kernel in the JAX
-# package (models/attention.py:115).
+# Banded calls at or above this length take the banded kernel, as in the
+# JAX package (models/attention.py:115), so routing and launch counts mirror
+# it; the card's own crossover against the MHSA kernel is measured by
+# chip_smoke.py, not acted on.
 BANDED_KERNEL_MIN_SEQ = 769
 
 
@@ -56,12 +60,10 @@ class MultiHeadSelfAttention(nn.Module):
         if E != self.embed_dim:
             raise ValueError(f"Expected embed dim {self.embed_dim}, got {E}")
         params = self.kernel_params()
-        if (lookback is not None and S >= BANDED_KERNEL_MIN_SEQ
-                and x.device.type == "cuda"):
-            raise NotImplementedError(
-                f"banded attention at S={S} >= {BANDED_KERNEL_MIN_SEQ} needs "
-                "the block-skipping banded kernel, which is not ported yet "
-                "(ROADMAP Queue 2 item 3)")
+        if lookback is not None and S >= BANDED_KERNEL_MIN_SEQ:
+            return banded_mhsa(x, *params, num_heads=self.num_heads,
+                               lookback=lookback, key_bias=key_bias,
+                               precise=precise)
         if S <= MAX_PALLAS_SEQ:
             return fused_mhsa(x, *params, num_heads=self.num_heads,
                               lookback=lookback, key_bias=key_bias,

@@ -34,3 +34,5 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (full train-loop drives)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")

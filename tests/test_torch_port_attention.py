@@ -13,6 +13,7 @@ from lct_gan_tpu.ops.attention import fused_mhsa as jax_fused
 from lct_gan_tpu.ops.attention import mhsa_reference as jax_reference
 from lct_gan_tpu_torch.models.attention import MultiHeadSelfAttention
 from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
+from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa_reference
 
 
 def _inputs(seed, N, L, use_kb, E=64):
@@ -81,10 +82,12 @@ def test_module_dispatch_rules():
             want = mhsa_reference(x, in_w, in_b, out_w, out_b,
                                   precise=precise)
             assert torch.equal(got, want)
-        # On the CPU a band at S >= 769 takes the masked plain path.
+        # A band at S >= 769 goes through the banded kernel wrapper: on
+        # the CPU its O(S * W) plain version.
         xl = torch.randn(1, 800, 64)
         got = attn(xl, lookback=8, precise=True)
-        want = mhsa_reference(xl, in_w, in_b, out_w, out_b, lookback=8)
+        want = banded_mhsa_reference(xl, in_w, in_b, out_w, out_b,
+                                     num_heads=4, lookback=8)
         assert torch.equal(got, want)
         # Above 1024 the unbanded attention is the plain f32 path.
         xl = torch.randn(1, 1030, 64)

@@ -116,9 +116,11 @@ def test_infer_cli_contract(tmp_path):
         got, _ = read_wav(os.path.join(out, f"{uid}.wav"))
         assert got.shape == (1, bucket_length(7000))
 
-    with pytest.raises(SystemExit, match="not ported"):
+    # Chunked mode keeps the streaming geometry check: overlap <= chunk/2.
+    with pytest.raises(ValueError, match="at most half the chunk"):
         port_infer.main(common + ["--output_dir", out,
-                                  "--chunk_seconds", "1.0"])
+                                  "--chunk_seconds", "1.0",
+                                  "--chunk_overlap", "0.6"])
 
 
 def test_bench_refuses_a_missing_gpu(monkeypatch):

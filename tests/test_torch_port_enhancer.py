@@ -15,10 +15,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from lct_gan_tpu.models.generator import LCTGeneratorConfig
 from lct_gan_tpu.models.generator import LctEnhancer as JaxEnhancer
 from lct_gan_tpu.ops.dispatch import pallas_override
 from lct_gan_tpu_torch.convert import load_enhancer, read_npz_params
 from lct_gan_tpu_torch.eval import make_enhance
+from lct_gan_tpu_torch.models import attention as port_attention
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(ROOT, "artifacts", "train_demo", "g_params_best.npz")
@@ -64,6 +66,37 @@ def test_enhancer_matches_jax_jnp_path(models, name, B, T, lengths):
         with torch.inference_mode():
             unmasked, _ = port(torch.from_numpy(x))
         assert not torch.allclose(unmasked[2], pw[2])
+
+
+def test_banded_enhancer_matches_jax_jnp_path(monkeypatch):
+    """max_time_context = 64, one row of the 196,608-sample bucket with
+    lengths: bottleneck S = 772 >= 769, so the port's time attention takes
+    the banded kernel wrapper (its plain version here) and the JAX one its
+    blocked jnp path. Found max|diff| 5.4e-7 (mask), 6.7e-8 (waveform)."""
+    T, lengths = 196608, [190000]
+    params, _ = read_npz_params(NPZ)
+    params = jax.tree.map(jnp.asarray, params)
+    jax_enh = JaxEnhancer(gen_cfg=LCTGeneratorConfig(max_time_context=64))
+    x = np.zeros((1, T), np.float32)
+    x[0, :lengths[0]] = 0.1 * np.random.default_rng(9).standard_normal(
+        lengths[0])
+    with pallas_override(None):
+        jw, jm = jax.jit(lambda x, l: jax_enh.apply({"params": params}, x, l))(
+            jnp.asarray(x), jnp.asarray(lengths, jnp.int32))
+    port = load_enhancer(NPZ, device="cpu", precise=True, max_time_context=64)
+    calls = []
+    banded = port_attention.banded_mhsa
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return banded(*a, **k)
+
+    monkeypatch.setattr(port_attention, "banded_mhsa", spy)
+    with torch.inference_mode():
+        pw, pm = port(torch.from_numpy(x), torch.tensor(lengths))
+    assert calls == [(33, 772, 64)]
+    np.testing.assert_allclose(pm.numpy(), np.asarray(jm), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(pw.numpy(), np.asarray(jw), rtol=0, atol=ATOL)
 
 
 def test_serving_bf16_mode_stays_in_the_kernel_band(models):
