@@ -13,7 +13,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            (banded_mhsa at the banded time blocks of the 196,608- and
            917,504-sample buckets, W = 64, also against fused_mhsa with the
            same band at S = 772, the crossover witness; both kernels timed
-           with that band at S = 516 and 644)
+           with that band at S = 516 and 644); fused_ftf_bwd at the B=64 x
+           2 s training shapes (all 15 gradients, relative to each one's
+           largest magnitude), and the save-hidden forward under grad
   enhance  the committed demo weights through load_enhancer + make_enhance:
            B=128 x 2 s (3 FTF launches, 0 MHSA; matches the plain path run
            on the CPU) and one bucketed batch of 163,840 samples with
@@ -25,6 +27,16 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
   stream   StreamingEnhancer(max_time_context=64, 4 s chunks, 0.5 s
            overlap): a 20 s wave (one call of 8 chunk rows, 3 FTF launches)
            matches the CPU; a 60 s wave's real-time factor
+
+  train    the GAN train step (full-width G from the demo weights, seeded
+           MPD and MSD, TrainConfig() defaults) on seeded 2 s batches: launch
+           counts per step (3 FTF forward, 3 FTF backward, 0 MHSA, 0
+           banded), 5 steps at B=8 (finite metrics, all three parameter sets
+           move), two runs from one state bit-equal, the card against the
+           CPU plain step at B=2 (precise: losses, per-tensor gradient
+           correlation), step time at B=8 and B=64 split into enhancer
+           forward, D step, G step and the FTF backward kernels
+  eval     make_eval_step on one bucketed batch with lengths, against the CPU
 
 then the "kernels" summary line and, last, {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -152,6 +164,7 @@ def check_kernels(torch, enhancer):
     ]
     for name, block, N, L, use_kb, lookback in ftf_cases:
         params = [p.detach().contiguous() for p in block.kernel_params()]
+        check_saved_hidden(torch, name, params, N, L, lookback, g)
         D = 2 if block.bidirectional else 1
         x = torch.randn((N, L, 64), generator=g, device="cuda")
         kb = masked_tail(N, L, L - 40) if use_kb else None
@@ -302,6 +315,156 @@ def check_kernels(torch, enhancer):
                   torch, lambda: fused_mhsa(x, *aparams, **kw), 5)})
         del x, kb
     torch.cuda.empty_cache()
+    results["fused_ftf_bwd"] = check_ftf_bwd(torch, gen, g)
+    return results
+
+
+def check_saved_hidden(torch, name, params, N, L, lookback, g):
+    """Under grad the FTF forward keeps the hiddens its kernels write: its
+    output is bit-equal to the no-grad forward's, and the hiddens match the
+    plain forward's."""
+    from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
+                                           ftf_forward_with_hidden,
+                                           fused_ftf_block)
+
+    D = 2 if params[12].shape[0] == 128 else 1
+    x = torch.randn((N, L, 64), generator=g, device="cuda")
+    for mode in ("bf16", "precise"):
+        kw = dict(bidirectional=D == 2, num_heads=4, lookback=lookback,
+                  precise=mode == "precise")
+        with torch.no_grad():
+            plain_out = fused_ftf_block(x, *params, **kw)
+        leaves = [t.detach().clone().requires_grad_() for t in [x] + params]
+        out = fused_ftf_block(*leaves, **kw)
+        if not torch.equal(out.detach(), plain_out):
+            raise AssertionError(f"save-hidden forward {name} {mode}: output "
+                                 "differs from the no-grad forward")
+        del out, leaves
+        _, hid = ftf_forward_with_hidden(x, *params, **kw)
+        _, ref_hid = ftf_block_reference(x, *params, return_hidden=True,
+                                         **kw)
+        err = (hid - ref_hid).abs().max().item()
+        if not err <= TOL[mode]:
+            raise AssertionError(f"saved hid {name} {mode}: max|diff| {err} "
+                                 f"> {TOL[mode]}")
+        emit({"phase": "kernels", "check": "save-hidden forward",
+              "case": name, "mode": mode, "output_bit_equal": True,
+              "hid_max_abs_err": err, "tol": TOL[mode]})
+        del hid, ref_hid
+    del x
+    torch.cuda.empty_cache()
+
+
+def library_attention_bwd_ms(torch, N, L, lookback, mode):
+    """One scaled_dot_product_attention forward + backward on the same
+    [N, 4, L, 16] attention (a yardstick only: the port never calls it)."""
+    F = torch.nn.functional
+    dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((N, 4, L, 16), generator=g, device="cuda",
+                               dtype=dt) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    mask = None
+    if lookback is not None:
+        pos = torch.arange(L, device="cuda")
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] >= pos[:, None] - lookback))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    ms = cuda_ms(torch, fwd_bwd, 5)
+    del q, k, v, do, mask
+    return ms
+
+
+def ftf_bwd_flops(N, L, D, lin_in, lookback):
+    """Useful products of the FTF backward: the forward products it
+    recomputes (qkv, out-proj, Linear, GRU input and hidden projections,
+    attention scores and context) plus two products per GEMM for the
+    gradients, and four per attention pair (dp, dq, dk, dv)."""
+    rows = N * L
+    gemm = 2 * 64 * 192 + 2 * 64 * 64 + 2 * lin_in * 64
+    gru = D * 2 * (2 * 64 * 48)          # grouped W_ih and W_hh per direction
+    return rows * 3 * (gemm + gru) + N * 4 * band_pairs(L, lookback) * 6 * 32
+
+
+def check_ftf_bwd(torch, gen, g):
+    """fused_ftf_bwd against ftf_bwd_reference at the training shapes of
+    B=64 x 2 s, all 15 outputs, both modes."""
+    from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
+    from lct_gan_tpu_torch.ops.ftf_bwd import (ftf_bwd_reference,
+                                               fused_ftf_bwd)
+
+    names = ("dx", "dln1s", "dln1b", "dw_ih", "dw_hh", "db_ih", "db_hh",
+             "dln2s", "dln2b", "din_w", "din_b", "dout_w", "dout_b",
+             "dlin_w", "dlin_b")
+    results = []
+    for name, block, N, L, lookback in (
+            ("freq", gen.GRUf1, 64 * 129, 33, None),
+            ("time", gen.GRUt1, 64 * 33, 129, None),
+            ("time_lookback16", gen.GRUt1, 64 * 33, 129, 16)):
+        params = [p.detach().contiguous() for p in block.kernel_params()]
+        D = 2 if block.bidirectional else 1
+        lin_in = params[12].shape[0]
+        x = torch.randn((N, L, 64), generator=g, device="cuda")
+        rows = N * L
+        for mode in ("bf16", "precise"):
+            kw = dict(bidirectional=D == 2, num_heads=4, lookback=lookback,
+                      precise=mode == "precise")
+            out, hid = ftf_forward_with_hidden(x, *params, **kw)
+            # The LeakyReLU's derivative jumps at comb = 0, and two sum
+            # orders put a comb within rounding noise of 0 on different
+            # sides (a 0.8 * dout jump in that element's gradient). The
+            # cotangent is zeroed within `eps` of the kink, so both
+            # versions compute the same smooth function of their inputs.
+            act = out - x - hid.sum(dim=0).reshape(N, L, 64)
+            comb = torch.where(act >= 0, act, act / 0.2)
+            eps = 5e-2 if mode == "bf16" else 1e-3
+            dout = torch.randn((N, L, 64), generator=g, device="cuda")
+            dout = torch.where(comb.abs() < eps, 0.0, dout)
+            del out, act, comb
+            got = fused_ftf_bwd(x, *params, hid, dout, **kw)
+            torch.cuda.synchronize()
+            want = ftf_bwd_reference(x, *params, hid, dout, **kw)
+            rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+                   for n, a, b in zip(names, got, want)}
+            abs_err = max((a - b).abs().max().item()
+                          for a, b in zip(got, want))
+            bad = {n: e for n, e in rel.items() if not e <= TOL[mode]}
+            if bad or not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"fused_ftf_bwd {name} {mode}: relative "
+                                     f"errors over {TOL[mode]}: {bad}")
+            del got, want
+            torch.cuda.empty_cache()
+            ms = cuda_ms(torch, lambda: fused_ftf_bwd(x, *params, hid, dout,
+                                                      **kw), 3)
+            plain_ms = cuda_ms(torch, lambda: ftf_bwd_reference(
+                x, *params, hid, dout, **kw), 1)
+            torch.cuda.empty_cache()
+            flops = ftf_bwd_flops(N, L, D, lin_in, lookback)
+            nbytes = (rows * 64 * 4 * (2 + D)          # x, dout, hid
+                      + rows * 64 * 4                  # dx
+                      + 2 * sum(p.numel() for p in params) * 4)
+            t_bytes = nbytes / H100_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS[mode]
+            res = {"case": name, "mode": mode, "N": N, "L": L,
+                   "max_abs_err": abs_err, "max_rel_err": max(rel.values()),
+                   "rel_err": rel, "tol": TOL[mode],
+                   "masked_share": (dout == 0).float().mean().item(),
+                   "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": library_attention_bwd_ms(torch, N, L,
+                                                          lookback, mode),
+                   "flops": flops}
+            results.append(res)
+            emit({"phase": "kernels", "kernel": "fused_ftf_bwd", **res})
+            del hid, dout
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
     return results
 
 
@@ -311,16 +474,19 @@ def run_counted(torch, enhance, x, lengths, expect):
     from lct_gan_tpu_torch.ops.attention import fused_mhsa
     from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
     from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
 
     fused_ftf_block.launches = 0
     fused_mhsa.launches = 0
     banded_mhsa.launches = 0
+    fused_ftf_bwd.launches = 0
     out = enhance(x) if lengths is None else enhance(x, lengths)
-    if isinstance(out, torch.Tensor):
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     got = {"fused_ftf_block": fused_ftf_block.launches,
            "fused_mhsa": fused_mhsa.launches,
-           "banded_mhsa": banded_mhsa.launches}
+           "banded_mhsa": banded_mhsa.launches,
+           "fused_ftf_bwd": fused_ftf_bwd.launches}
+    expect = {"fused_ftf_bwd": 0, **expect}
     if got != expect:
         raise AssertionError(f"launch counts {got}, expected {expect}")
     return out, got
@@ -333,7 +499,8 @@ def check_enhance(torch, np, card, enhancer):
 
     cpu_enhancer = load_enhancer(CHECKPOINT, device="cpu")
     enhance = make_enhance(enhancer)
-    launches = {"fused_ftf_block": 0, "fused_mhsa": 0, "banded_mhsa": 0}
+    launches = {"fused_ftf_block": 0, "fused_mhsa": 0, "banded_mhsa": 0,
+                "fused_ftf_bwd": 0}
     rng = np.random.default_rng(1)
 
     # Workload 1: B=128 x 2 s seeded noise (the fixed bench workload).
@@ -505,6 +672,264 @@ def check_stream(torch, np, card):
     return got
 
 
+TOL_LOSS = 1e-4       # card vs CPU step, precise, relative
+MIN_GRAD_CORR = 0.999  # card vs CPU gradients, per tensor
+
+
+def train_batch(np, rng, B):
+    """Seeded noisy / clean 2 s batches, the JAX package's test recipe."""
+    clean = (0.1 * rng.standard_normal((B, 2 * SR))).astype(np.float32)
+    noisy = clean + (0.05 * rng.standard_normal((B, 2 * SR))).astype(
+        np.float32)
+    return noisy, clean
+
+
+def step_grads(torch, cfg, state, noisy, clean):
+    """D and G gradients of one step's losses at the state's parameters,
+    through the step's own loss functions (the G loss against this D)."""
+    from lct_gan_tpu_torch.sigproc.features import (TFFeaturesConfig,
+                                                    compute_tf_features)
+    from lct_gan_tpu_torch.train import (discriminator_step_loss,
+                                         generator_step_loss)
+
+    dev = next(state.enhancer.parameters()).device
+    noisy = torch.from_numpy(noisy).to(dev)
+    clean = torch.from_numpy(clean).to(dev)
+    with torch.no_grad():
+        irm_c = compute_tf_features(noisy, clean, TFFeaturesConfig(
+            c=cfg.compress_c, return_stfts=False))["irm_c"]
+    enhanced, mask_c = state.enhancer(noisy)
+    d_loss = discriminator_step_loss(cfg, state.mpd, state.msd, clean,
+                                     enhanced.detach())
+    d_grads = torch.autograd.grad(d_loss, state.d_params())
+    g_loss, _ = generator_step_loss(cfg, state.mpd, state.msd, enhanced,
+                                    mask_c, irm_c, clean)
+    g_grads = torch.autograd.grad(g_loss, state.g_params())
+    return [t.cpu() for t in d_grads], [t.cpu() for t in g_grads]
+
+
+def timed_steps(torch, cfg, state, np, rng, B, n_warm=2, n_timed=5):
+    """Median step ms over n_timed steps after n_warm, split by the step's
+    phases (CUDA events at its marks)."""
+    import statistics
+
+    from lct_gan_tpu_torch.train import make_train_step
+
+    step = make_train_step(cfg)
+    noisy, clean = train_batch(np, rng, B)
+    noisy, clean = torch.from_numpy(noisy).cuda(), torch.from_numpy(
+        clean).cuda()
+    for _ in range(n_warm):
+        step(state, noisy, clean)
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(n_timed):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(phase):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((phase, ev))
+
+        t0 = time.perf_counter()
+        metrics = step(state, noisy, clean, mark)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        row = {"wall_ms": wall}
+        for (_, a), (phase, b) in zip(events, events[1:]):
+            row[f"{phase}_ms"] = a.elapsed_time(b)
+        rows.append(row)
+        for k, v in metrics.items():
+            if not torch.isfinite(v):
+                raise AssertionError(f"train B={B}: {k} not finite")
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def ftf_bwd_step_ms(torch, state, B):
+    """The three FTF backward launches of one step at batch B, timed alone
+    (the CUDA events cannot isolate them inside autograd)."""
+    from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+
+    gen = state.enhancer.gen
+    g = torch.Generator(device="cuda").manual_seed(5)
+    total = 0.0
+    for block, N, L in ((gen.GRUf1, B * 129, 33), (gen.GRUt1, B * 33, 129),
+                        (gen.GRUf2, B * 129, 33)):
+        params = [p.detach().contiguous() for p in block.kernel_params()]
+        kw = dict(bidirectional=block.bidirectional, num_heads=4,
+                  lookback=None, precise=False)
+        x = torch.randn((N, L, 64), generator=g, device="cuda")
+        dout = torch.randn((N, L, 64), generator=g, device="cuda")
+        _, hid = ftf_forward_with_hidden(x, *params, **kw)
+        total += cuda_ms(torch, lambda: fused_ftf_bwd(x, *params, hid, dout,
+                                                      **kw), 3)
+        del x, dout, hid
+    return total
+
+
+def corr(a, b):
+    """Correlation of two gradient tensors; a one-element tensor counts as
+    correlated when it agrees to 1e-3 relative."""
+    a, b = a.double().flatten(), b.double().flatten()
+    if a.numel() < 2:
+        return float(abs(float(a - b)) <= 1e-3 * abs(float(b)) + 1e-12)
+    a, b = a - a.mean(), b - b.mean()
+    den = float(a.norm() * b.norm())
+    if den == 0.0:
+        return float(float(a.norm()) == float(b.norm()))
+    return float(a @ b) / den
+
+
+def check_train(torch, np, card):
+    """The GAN train step at full width on the card."""
+    import copy
+
+    from lct_gan_tpu_torch.convert import read_npz_params
+    from lct_gan_tpu_torch.ops.attention import fused_mhsa
+    from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
+    from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+    from lct_gan_tpu_torch.train import (TrainConfig, create_state,
+                                         make_train_step)
+
+    cfg = TrainConfig()
+    g_params, _ = read_npz_params(CHECKPOINT)
+
+    def fresh(device, precise=False):
+        return create_state(cfg, torch.Generator().manual_seed(0),
+                            device=device, precise=precise,
+                            g_params=g_params)
+
+    state0 = fresh("cuda")
+    counts = {"enhancer": sum(p.numel() for p in state0.g_params()),
+              "mpd": sum(p.numel() for p in state0.mpd.parameters()),
+              "msd": sum(p.numel() for p in state0.msd.parameters())}
+    if counts != {"enhancer": 135425, "mpd": 785770, "msd": 16924086}:
+        raise AssertionError(f"parameter counts {counts}")
+    step = make_train_step(cfg)
+    rng = np.random.default_rng(7)
+    noisy, clean = train_batch(np, rng, cfg.batch_size)
+
+    # Two runs from one state, one batch: bit-equal metrics and parameters.
+    a, b = copy.deepcopy(state0), copy.deepcopy(state0)
+    ma, mb = step(a, noisy, clean), step(b, noisy, clean)
+    same = all(torch.equal(ma[k], mb[k]) for k in ma) and all(
+        torch.equal(p, q) for p, q in zip(
+            [*a.g_params(), *a.d_params()], [*b.g_params(), *b.d_params()]))
+    if not same:
+        raise AssertionError("two train steps from one state differ")
+    del a, b
+
+    # The counted run: one step of the main path.
+    state = copy.deepcopy(state0)
+    for fn in (fused_ftf_block, fused_ftf_bwd, fused_mhsa, banded_mhsa):
+        fn.launches = 0
+    step(state, noisy, clean)
+    torch.cuda.synchronize()
+    got = {"fused_ftf_block": fused_ftf_block.launches,
+           "fused_ftf_bwd": fused_ftf_bwd.launches,
+           "fused_mhsa": fused_mhsa.launches,
+           "banded_mhsa": banded_mhsa.launches}
+    expect = {"fused_ftf_block": 3, "fused_ftf_bwd": 3, "fused_mhsa": 0,
+              "banded_mhsa": 0}
+    if got != expect:
+        raise AssertionError(f"train step launches {got}, expected {expect}")
+
+    # Four more steps (five in all): finite metrics, every set moves.
+    history = []
+    for _ in range(4):
+        noisy_i, clean_i = train_batch(np, rng, cfg.batch_size)
+        m = step(state, noisy_i, clean_i)
+        history.append({k: float(v) for k, v in m.items()})
+        if not all(np.isfinite(v) for v in history[-1].values()):
+            raise AssertionError(f"train metrics not finite: {history[-1]}")
+    moved = {}
+    for part, old, new in (
+            ("g", state0.g_params(), state.g_params()),
+            ("mpd", list(state0.mpd.parameters()),
+             list(state.mpd.parameters())),
+            ("msd", list(state0.msd.parameters()),
+             list(state.msd.parameters()))):
+        moved[part] = max((p - q).abs().max().item()
+                          for p, q in zip(old, new))
+        if not moved[part] > 0:
+            raise AssertionError(f"{part} parameters did not move")
+    emit({"phase": "train", "check": "B=8 x 2 s, 5 steps",
+          "parameter_counts": counts, "launches_per_step": got,
+          "two_runs_bit_equal": True, "metrics_steps_2_5": history,
+          "max_param_move": moved, "device": card})
+    del state
+
+    # The card against the CPU plain step, precise, B=2 x 2 s.
+    noisy2, clean2 = train_batch(np, np.random.default_rng(8), 2)
+    card_s, cpu_s = fresh("cuda", True), fresh("cpu", True)
+    d_card, g_card = step_grads(torch, cfg, card_s, noisy2, clean2)
+    t0 = time.perf_counter()
+    d_cpu, g_cpu = step_grads(torch, cfg, cpu_s, noisy2, clean2)
+    grad_cpu_s = time.perf_counter() - t0
+    corrs = [corr(x, y) for x, y in zip(d_card + g_card, d_cpu + g_cpu)]
+    if not min(corrs) > MIN_GRAD_CORR:
+        raise AssertionError(f"card vs CPU gradients: min correlation "
+                             f"{min(corrs)} <= {MIN_GRAD_CORR}")
+    m_card = {k: float(v) for k, v in step(card_s, noisy2, clean2).items()}
+    m_cpu = {k: float(v) for k, v in step(cpu_s, noisy2, clean2).items()}
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    if not max(rel.values()) <= TOL_LOSS:
+        raise AssertionError(f"card vs CPU step losses: {rel} > {TOL_LOSS}")
+    emit({"phase": "train", "check": "card vs CPU plain step, precise, "
+          "B=2 x 2 s", "loss_rel_err": rel, "tol_loss": TOL_LOSS,
+          "min_grad_corr": min(corrs), "grad_tensors": len(corrs),
+          "min_corr_tol": MIN_GRAD_CORR, "cpu_grads_s": grad_cpu_s,
+          "metrics_card": m_card})
+    del card_s, cpu_s
+    torch.cuda.empty_cache()
+
+    for B in (8, 64):
+        state = copy.deepcopy(state0)
+        torch.cuda.reset_peak_memory_stats()
+        t = timed_steps(torch, cfg, state, np, rng, B)
+        t["ftf_bwd_ms"] = ftf_bwd_step_ms(torch, state, B)
+        t["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        emit({"phase": "train", "check": f"step time B={B} x 2 s "
+              "(median of 5 after 2 warm-up)", **t,
+              "audio_sec_per_s": B * 2.0 / (t["wall_ms"] / 1e3),
+              "device": card})
+        del state
+        torch.cuda.empty_cache()
+    return got, state0
+
+
+def check_eval(torch, np, card, state):
+    """make_eval_step on one bucketed batch with lengths, card vs CPU."""
+    import copy
+
+    from lct_gan_tpu_torch.train import TrainConfig, make_eval_step
+
+    eval_step = make_eval_step(TrainConfig())
+    rng = np.random.default_rng(9)
+    wave, lens = bucket_batch(np, rng, 65536, 6)
+    clean = (0.8 * wave).astype(np.float32)
+    enh, m = eval_step(state.enhancer, wave, clean, lens)
+    cpu_enhancer = copy.deepcopy(state.enhancer).cpu()
+    enh_cpu, m_cpu = eval_step(cpu_enhancer, wave, clean, lens)
+    werr = (enh.cpu() - enh_cpu).abs().max().item()
+    mr_rel = ((m["mrstft"].cpu() - m_cpu["mrstft"]).abs()
+              / m_cpu["mrstft"].abs()).max().item()
+    si_err = (m["si_sdr"].cpu() - m_cpu["si_sdr"]).abs().max().item()
+    ok = (werr <= TOL_WAVE and mr_rel <= 1e-2 and si_err <= 0.1
+          and torch.isfinite(m["si_sdr"]).all()
+          and tuple(enh.shape) == wave.shape)
+    if not ok:
+        raise AssertionError(f"eval card vs CPU: wave {werr}, mrstft rel "
+                             f"{mr_rel}, si_sdr {si_err}")
+    emit({"phase": "eval", "batch": f"bucketed B=6 x 65536 with lengths",
+          "wave_max_abs_err_vs_cpu": werr, "tol_wave": TOL_WAVE,
+          "mrstft_max_rel_err_vs_cpu": mr_rel, "si_sdr_max_abs_err_db": si_err,
+          "si_sdr_db": m["si_sdr"].tolist(), "device": card})
+
+
 def main():
     import numpy as np
     import torch
@@ -536,6 +961,11 @@ def main():
     for phase in (check_banded, check_stream):
         for k, n in phase(torch, np, card).items():
             launches[k] += n
+    train_launches, state = check_train(torch, np, card)
+    for k, n in train_launches.items():
+        launches[k] += n
+    check_eval(torch, np, card, state)
+    del state
 
     summary = []
     for name, src, replaces, head_L in (
@@ -544,7 +974,9 @@ def main():
             ("fused_mhsa", "lct_gan_tpu_torch/csrc/mhsa.cu",
              "lct_gan_tpu/ops/attention.py:125", 644),
             ("banded_mhsa", "lct_gan_tpu_torch/csrc/banded.cu",
-             "lct_gan_tpu/ops/banded_attention.py:109", 772)):
+             "lct_gan_tpu/ops/banded_attention.py:109", 772),
+            ("fused_ftf_bwd", "lct_gan_tpu_torch/csrc/ftf_bwd.cu",
+             "lct_gan_tpu/ops/ftf_bwd.py:119", 33)):
         head = next(r for r in kernels[name]
                     if r["L"] == head_L and r["mode"] == "bf16")
         if launches[name] <= 0:

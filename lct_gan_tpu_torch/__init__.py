@@ -14,7 +14,12 @@ Ported so far is the serving side, waveform enhancement with fixed weights:
     FTF blocks GRUf1 -> GRUt1 -> GRUf2, decoder) -> compressed mask -> iSTFT
 
 with full or banded-causal time attention (`max_time_context`) at any
-utterance length, and chunked streaming (`eval.StreamingEnhancer`).
+utterance length, and chunked streaming (`eval.StreamingEnhancer`); and the
+GAN train step (`train.make_train_step`, `train.make_eval_step`,
+`train.create_state`): losses, the MPD / MSD discriminators, two AdamW
+optimizers, and gradients through every kernel wrapper (the FTF block's
+backward is its own CUDA kernel). The training loop, checkpoints and the
+train CLI are not ported yet.
 """
 
 __all__ = ["__version__"]

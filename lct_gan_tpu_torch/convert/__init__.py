@@ -1,4 +1,6 @@
-from lct_gan_tpu_torch.convert.weights import (jax_params_to_state_dict,
+from lct_gan_tpu_torch.convert.weights import (jax_disc_params_to_state_dict,
+                                               jax_params_to_state_dict,
                                                load_enhancer, read_npz_params)
 
-__all__ = ["jax_params_to_state_dict", "load_enhancer", "read_npz_params"]
+__all__ = ["jax_disc_params_to_state_dict", "jax_params_to_state_dict",
+           "load_enhancer", "read_npz_params"]

@@ -12,7 +12,16 @@ copy of `lct_gan_tpu/convert/torch_export.py:41-114,199-212`):
   MHA in_proj_kernel [E, 3E]           -> in_proj_weight [3E, E]
   LayerNorm scale / bias               -> weight / bias
 
-plus the `stft.window` periodic Hann buffer. The generator `.npz` format
+plus the `stft.window` periodic Hann buffer; and, for the discriminators
+(`torch_export.py:117-197`):
+
+  WNConv v (k..., in, out), g [out]     -> weight_v [out, in, k...],
+                                           weight_g [out, 1, ...]
+  SNConv kernel, spectral u / v         -> weight_orig [out, in, k...],
+                                           weight_u, weight_v (v permuted
+                                           from (k..., in) to (in, k...))
+
+The generator `.npz` format
 (flat '/'-joined keys with an embedded `__meta_json__`) is read with numpy,
 as `lct_gan_tpu/train/checkpoint.py:85-146` writes it.
 """
@@ -30,13 +39,15 @@ from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                 LctEnhancer)
 from lct_gan_tpu_torch.utils.device import resolve_device
 
-__all__ = ["jax_params_to_state_dict", "read_npz_params", "load_enhancer"]
+__all__ = ["jax_params_to_state_dict", "jax_disc_params_to_state_dict",
+           "read_npz_params", "load_enhancer"]
 
 _NPZ_META_KEY = "__meta_json__"
 
 
 def _f32(x: Any) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+    """A writable, contiguous float32 copy (torch.from_numpy shares it)."""
+    return np.array(x, dtype=np.float32, order="C")
 
 
 def _conv2d(out, prefix, p):
@@ -79,6 +90,66 @@ def _grouped_gru(out, prefix, p):
             out[f"{pfx}.weight_hh_l0{sfx}"] = _f32(w_hh[d, g].T)
             out[f"{pfx}.bias_ih_l0{sfx}"] = _f32(b_ih[d, g])
             out[f"{pfx}.bias_hh_l0{sfx}"] = _f32(b_hh[d, g])
+
+
+def _wn_conv(out, prefix, p, conv1d):
+    v = np.asarray(p["v"])
+    perm, g_shape = ((2, 1, 0), (-1, 1, 1)) if conv1d else \
+        ((3, 2, 0, 1), (-1, 1, 1, 1))
+    out[f"{prefix}.weight_v"] = _f32(np.transpose(v, perm))
+    out[f"{prefix}.weight_g"] = _f32(np.asarray(p["g"]).reshape(g_shape))
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _sn_conv(out, prefix, p, spectral, conv1d):
+    k = np.asarray(p["kernel"])
+    v = np.asarray(spectral["v"])
+    if conv1d:
+        ksz, in_g, _ = k.shape
+        out[f"{prefix}.weight_orig"] = _f32(np.transpose(k, (2, 1, 0)))
+        v_t = v.reshape(ksz, in_g).transpose(1, 0).reshape(-1)
+    else:
+        kh, kw, in_g, _ = k.shape
+        out[f"{prefix}.weight_orig"] = _f32(np.transpose(k, (3, 2, 0, 1)))
+        v_t = v.reshape(kh, kw, in_g).transpose(2, 0, 1).reshape(-1)
+    out[f"{prefix}.weight_u"] = _f32(spectral["u"])
+    out[f"{prefix}.weight_v"] = _f32(v_t)
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _disc_state_dict(params, spectral, subs, conv_names, conv1d):
+    out: Dict[str, np.ndarray] = {}
+    for i, sub_name in enumerate(subs):
+        sub = params[sub_name]
+        ssub = (spectral or {}).get(sub_name)
+        for j, name in enumerate(conv_names):
+            key = (f"discriminators.{i}.conv_post" if name == "conv_post"
+                   else f"discriminators.{i}.convs.{j}")
+            if ssub is not None:
+                _sn_conv(out, key, sub[name], ssub[name], conv1d)
+            else:
+                _wn_conv(out, key, sub[name], conv1d)
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def jax_disc_params_to_state_dict(
+        mpd_params: Mapping[str, Any], msd_params: Mapping[str, Any],
+        spectral: Optional[Mapping[str, Any]] = None,
+        periods=(2, 3, 5, 7, 11), num_scales: int = 3
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """JAX-package MPD and MSD param trees (and, with spectral norm, the
+    'spectral' tree {"mpd": ..., "msd": ...}) -> the port's
+    (MultiPeriodDiscriminator, MultiScaleDiscriminator) state_dicts, the
+    layouts of `export_mpd_state_dict` / `export_msd_state_dict`."""
+    spectral = spectral or {}
+    mpd = _disc_state_dict(
+        mpd_params, spectral.get("mpd"), [f"disc_p{p}" for p in periods],
+        [f"conv{j}" for j in range(5)] + ["conv_post"], conv1d=False)
+    msd = _disc_state_dict(
+        msd_params, spectral.get("msd"),
+        [f"disc_s{i}" for i in range(num_scales)],
+        [f"conv{j}" for j in range(6)] + ["conv_post"], conv1d=True)
+    return mpd, msd
 
 
 def _hann_periodic(n: int) -> np.ndarray:

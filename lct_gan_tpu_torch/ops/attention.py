@@ -8,6 +8,10 @@ tensor it launches the hand-written kernels of `csrc/mhsa.cu` (their bound
 on the H100 and what the simple design does about it are noted there); on
 a CPU tensor it computes `mhsa_reference`, its plain PyTorch version.
 
+It is differentiable: the backward recomputes the f32 `mhsa_reference`
+under autograd, as the JAX package's custom VJP does
+(`lct_gan_tpu/ops/attention.py:244-269`); key_bias is a constant.
+
 Parameter layout is the JAX package's: in_proj_kernel [E, 3E] (the
 transpose of torch's in_proj_weight), out_proj_kernel [E, E].
 """
@@ -21,7 +25,8 @@ import torch
 
 from lct_gan_tpu_torch.ops.gru import round_bf16
 
-__all__ = ["mhsa_reference", "fused_mhsa", "MAX_PALLAS_SEQ"]
+__all__ = ["mhsa_reference", "fused_mhsa", "MAX_PALLAS_SEQ",
+           "RecomputeBackward"]
 
 # Longest sequence the fused kernel serves (its K/V shared-memory tile:
 # 33 floats per key, 135 KB at 1024). Above it the unbanded time attention
@@ -62,21 +67,44 @@ def mhsa_reference(x: torch.Tensor, in_proj_kernel: torch.Tensor,
     return rnd(out) @ rnd(out_proj_kernel) + out_proj_bias
 
 
+class RecomputeBackward(torch.autograd.Function):
+    """Autograd for a kernel wrapper whose backward differentiates its f32
+    plain version: apply(forward, reference, kwargs, key_bias, x, in_w,
+    in_b, out_w, out_b). `forward(x, *params, key_bias=..., **kwargs)` runs
+    the kernel (or the plain version on the CPU); the backward recomputes
+    `reference(..., precise=True)` under autograd. key_bias gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, forward, reference, kwargs, key_bias, x, *params):
+        ctx.reference, ctx.kwargs = reference, kwargs
+        ctx.save_for_backward(x, *params,
+                              *(() if key_bias is None else (key_bias,)))
+        ctx.has_key_bias = key_bias is not None
+        return forward(x, *params, key_bias=key_bias, **kwargs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        key_bias = saved[-1] if ctx.has_key_bias else None
+        primals = saved[:5]
+        kwargs = {k: v for k, v in ctx.kwargs.items() if k != "precise"}
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in primals]
+            out = ctx.reference(*inputs, key_bias=key_bias, precise=True,
+                                **kwargs)
+            grads = torch.autograd.grad(out, inputs, dout)
+        return (None, None, None, None) + tuple(grads)
+
+
 _P = ctypes.c_void_p
 _MHSA_ARGTYPES = ([_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4
                   + [_P])
 
 
-def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
-               in_proj_bias: torch.Tensor, out_proj_kernel: torch.Tensor,
-               out_proj_bias: torch.Tensor, *, num_heads: int = 4,
-               lookback: Optional[int] = None,
-               key_bias: Optional[torch.Tensor] = None,
-               precise: bool = False) -> torch.Tensor:
-    """Fused MHSA over x [N, L, 64] -> [N, L, 64] f32 (4 heads, L <= 1024).
-
-    CPU tensors: `mhsa_reference(..., precise=precise)`. CUDA tensors: the
-    kernels of csrc/mhsa.cu, each call counted in `fused_mhsa.launches`."""
+def _fused_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+                        out_proj_bias, *, num_heads, lookback, key_bias,
+                        precise):
     if x.device.type == "cpu":
         return mhsa_reference(x, in_proj_kernel, in_proj_bias,
                               out_proj_kernel, out_proj_bias,
@@ -114,6 +142,24 @@ def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
     raise_on_error(err, "mhsa", "fused_mhsa kernel launch")
     fused_mhsa.launches += 1
     return out
+
+
+def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
+               in_proj_bias: torch.Tensor, out_proj_kernel: torch.Tensor,
+               out_proj_bias: torch.Tensor, *, num_heads: int = 4,
+               lookback: Optional[int] = None,
+               key_bias: Optional[torch.Tensor] = None,
+               precise: bool = False) -> torch.Tensor:
+    """Fused MHSA over x [N, L, 64] -> [N, L, 64] f32 (4 heads, L <= 1024).
+
+    CPU tensors: `mhsa_reference(..., precise=precise)`. CUDA tensors: the
+    kernels of csrc/mhsa.cu, each call counted in `fused_mhsa.launches`.
+    Differentiable in x and the four parameters (`RecomputeBackward`)."""
+    return RecomputeBackward.apply(
+        _fused_mhsa_forward, mhsa_reference,
+        dict(num_heads=num_heads, lookback=lookback, precise=precise),
+        key_bias, x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+        out_proj_bias)
 
 
 fused_mhsa.launches = 0

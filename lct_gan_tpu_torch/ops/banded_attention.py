@@ -7,7 +7,10 @@ a per-key bias -> softmax -> context -> output projection, for x [N, S,
 E=64] with no upper bound on S. On a CUDA tensor it launches the
 hand-written kernels of `csrc/banded.cu` (their bound on the H100 and what
 the simple design does about it are noted there); on a CPU tensor it
-computes `banded_mhsa_reference`, its plain PyTorch version.
+computes `banded_mhsa_reference`, its plain PyTorch version. The backward
+recomputes the f32 `banded_mhsa_reference` under autograd (linear in S), as
+the JAX package's custom VJP does (`lct_gan_tpu/ops/banded_attention.py:
+243-268`); key_bias is a constant.
 
 The plain version is the JAX package's two-key-block formulation
 (`lct_gan_tpu/models/attention.py::_blocked_banded_attention`): queries in
@@ -25,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from lct_gan_tpu_torch.ops.attention import RecomputeBackward
 from lct_gan_tpu_torch.ops.gru import round_bf16
 
 __all__ = ["banded_mhsa_reference", "banded_mhsa"]
@@ -113,18 +117,9 @@ _BANDED_ARGTYPES = ([_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4
                     + [_P])
 
 
-def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
-                in_proj_bias: torch.Tensor, out_proj_kernel: torch.Tensor,
-                out_proj_bias: torch.Tensor, *, num_heads: int = 4,
-                lookback: int, key_bias: Optional[torch.Tensor] = None,
-                precise: bool = False) -> torch.Tensor:
-    """Banded MHSA over x [N, S, 64] -> [N, S, 64] f32 (4 heads, any S).
-
-    CPU tensors: `banded_mhsa_reference(..., precise=precise)`. CUDA
-    tensors: the kernels of csrc/banded.cu, each call counted in
-    `banded_mhsa.launches`."""
-    if lookback < 0:
-        raise ValueError(f"banded_mhsa: lookback must be >= 0, got {lookback}")
+def _banded_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+                         out_proj_bias, *, num_heads, lookback, key_bias,
+                         precise):
     if x.device.type == "cpu":
         return banded_mhsa_reference(x, in_proj_kernel, in_proj_bias,
                                      out_proj_kernel, out_proj_bias,
@@ -159,6 +154,26 @@ def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
     raise_on_error(err, "banded", "banded_mhsa kernel launch")
     banded_mhsa.launches += 1
     return out
+
+
+def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
+                in_proj_bias: torch.Tensor, out_proj_kernel: torch.Tensor,
+                out_proj_bias: torch.Tensor, *, num_heads: int = 4,
+                lookback: int, key_bias: Optional[torch.Tensor] = None,
+                precise: bool = False) -> torch.Tensor:
+    """Banded MHSA over x [N, S, 64] -> [N, S, 64] f32 (4 heads, any S).
+
+    CPU tensors: `banded_mhsa_reference(..., precise=precise)`. CUDA
+    tensors: the kernels of csrc/banded.cu, each call counted in
+    `banded_mhsa.launches`. Differentiable in x and the four parameters
+    (`RecomputeBackward`)."""
+    if lookback < 0:
+        raise ValueError(f"banded_mhsa: lookback must be >= 0, got {lookback}")
+    return RecomputeBackward.apply(
+        _banded_mhsa_forward, banded_mhsa_reference,
+        dict(num_heads=num_heads, lookback=lookback, precise=precise),
+        key_bias, x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+        out_proj_bias)
 
 
 banded_mhsa.launches = 0

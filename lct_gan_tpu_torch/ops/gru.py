@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["grouped_gru", "round_bf16"]
+__all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16"]
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -29,10 +29,12 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def grouped_gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                b_ih: torch.Tensor, b_hh: torch.Tensor, *,
-                bidirectional: bool, precise: bool = True) -> torch.Tensor:
-    """x [N, L, G*H] -> [N, L, G*H] f32.
+def grouped_gru_hidden(x: torch.Tensor, w_ih: torch.Tensor,
+                       w_hh: torch.Tensor, b_ih: torch.Tensor,
+                       b_hh: torch.Tensor, *, bidirectional: bool,
+                       precise: bool = True) -> torch.Tensor:
+    """Per-direction hidden states of the grouped GRU: x [N, L, G*H] ->
+    [D, N, L, G*H] f32 (D = 2 when bidirectional), unrounded.
 
     precise=False rounds the GEMM operands (x and W_ih; h and W_hh) to bf16
     as the FTF kernel does; accumulation, carries and gates stay f32."""
@@ -42,12 +44,14 @@ def grouped_gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
         raise ValueError(f"Expected {G * H} channels, got {C}")
     rnd = (lambda t: t) if precise else round_bf16
     xg = rnd(x.to(torch.float32)).reshape(N, L, G, H)
-    y = x.new_zeros((N, L, G, H), dtype=torch.float32)
-    for d in range(D if bidirectional else 1):
+    D = D if bidirectional else 1
+    hid = x.new_empty((D, N, L, G, H), dtype=torch.float32)
+    for d in range(D):
         # Hoisted input projection over all steps: [N, L, G, 3H].
         xp = torch.einsum("nlgi,gio->nlgo", xg, rnd(w_ih[d])) + b_ih[d]
         whh = rnd(w_hh[d])
         h = x.new_zeros((N, G, H), dtype=torch.float32)
+        out = hid[d]   # one view per direction: a cheap 2-index write per step
         steps = range(L - 1, -1, -1) if d == 1 else range(L)
         for t in steps:
             hp = torch.einsum("ngh,gho->ngo", rnd(h), whh) + b_hh[d]
@@ -56,5 +60,17 @@ def grouped_gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
             z = torch.sigmoid(xt[..., H:2 * H] + hp[..., H:2 * H])
             n = torch.tanh(xt[..., 2 * H:] + r * hp[..., 2 * H:])
             h = (1.0 - z) * n + z * h
-            y[:, t] += h
-    return y.reshape(N, L, C)
+            out[:, t] = h
+    return hid.reshape(D, N, L, C)
+
+
+def grouped_gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                b_ih: torch.Tensor, b_hh: torch.Tensor, *,
+                bidirectional: bool, precise: bool = True) -> torch.Tensor:
+    """x [N, L, G*H] -> [N, L, G*H] f32: the directions' hiddens summed.
+
+    Differentiable by autograd (the composed time block trains through it).
+    precise=False rounds the GEMM operands as `grouped_gru_hidden` says."""
+    return grouped_gru_hidden(x, w_ih, w_hh, b_ih, b_hh,
+                              bidirectional=bidirectional,
+                              precise=precise).sum(dim=0)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 __all__ = [
     "STFTConfig",
     "hann_window",
+    "reflect_pad",
     "stft",
     "istft",
     "ComplexSTFT",
@@ -99,6 +100,23 @@ def _window(cfg: STFTConfig, device) -> torch.Tensor:
     return torch.from_numpy(_padded_window_np(cfg).copy()).to(device)
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """F.pad(x, (left, right), mode="reflect") over the last axis of
+    [B, T], written as slices, flips and a concatenation: the same values,
+    and a backward without atomics (the CUDA backward of F.pad's reflect
+    mode accumulates with atomicAdd, which makes a train step
+    non-deterministic)."""
+    T = x.shape[-1]
+    if left >= T or right >= T:
+        raise ValueError(f"reflect padding ({left}, {right}) needs more than "
+                         f"{max(left, right)} samples, got {T}")
+    parts = [x[..., 1:left + 1].flip(-1)] if left else []
+    parts.append(x)
+    if right:
+        parts.append(x[..., T - right - 1:T - 1].flip(-1))
+    return torch.cat(parts, dim=-1)
+
+
 def stft(waveform: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
     """Complex STFT of waveforms [B, T] -> complex64 [B, F, N]."""
     cfg = cfg.finalize()
@@ -107,7 +125,10 @@ def stft(waveform: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
     x = waveform.to(torch.float32)
     if cfg.center:
         pad = cfg.n_fft // 2
-        x = F.pad(x[:, None], (pad, pad), mode=cfg.pad_mode)[:, 0]
+        if cfg.pad_mode == "reflect":
+            x = reflect_pad(x, pad, pad)
+        else:
+            x = F.pad(x[:, None], (pad, pad), mode=cfg.pad_mode)[:, 0]
     frames = x.unfold(-1, cfg.n_fft, cfg.hop_length)   # [B, N, n_fft]
     frames = frames * _window(cfg, x.device)
     if cfg.onesided:

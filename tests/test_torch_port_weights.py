@@ -74,9 +74,12 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, lct_gan_tpu_torch, lct_gan_tpu_torch.bench, "
             "lct_gan_tpu_torch.infer, lct_gan_tpu_torch.convert, "
             "lct_gan_tpu_torch.models, lct_gan_tpu_torch.data, "
-            "lct_gan_tpu_torch.eval\n"
+            "lct_gan_tpu_torch.eval, lct_gan_tpu_torch.train, "
+            "lct_gan_tpu_torch.losses, lct_gan_tpu_torch.ops.ftf_bwd, "
+            "lct_gan_tpu_torch.models.discriminators, "
+            "lct_gan_tpu_torch.sigproc.features\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'lct_gan_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lct_gan_tpu')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -96,5 +99,5 @@ def test_sources_import_no_jax():
                 words = line.split()
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0].rstrip(",")
-                    assert top not in ("jax", "jaxlib", "flax",
-                                       "lct_gan_tpu"), (path, line)
+                    assert top not in ("jax", "jaxlib", "flax", "optax",
+                                       "orbax", "lct_gan_tpu"), (path, line)
