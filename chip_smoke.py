@@ -9,7 +9,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
   build    build the CUDA kernels from lct_gan_tpu_torch/csrc (nvcc, sm_90a)
   kernels  each kernel against its plain PyTorch version on the card, at the
            main path's shapes, in bf16 and precise (all-f32) modes: max|diff|
-           against the stated tolerance, kernel / plain / library ms, bound
+           against the stated tolerance, kernel / plain / library ms, bound;
+           the FTF and MHSA lines name the kernel design that ran (tc-bf16:
+           tensor cores; simt-f32: CUDA cores) and the floor set by their
+           exps at the exp rate measured on the card first
+           (ops/probe.py), and MHSA is also timed against one
+           multi_head_attention_forward call
            (banded_mhsa at the banded time blocks of the 196,608- and
            917,504-sample buckets, W = 64, also against fused_mhsa with the
            same band at S = 772, the crossover witness; both kernels timed
@@ -137,6 +142,27 @@ def library_attention_ms(torch, N, L, lookback, key_bias, mode):
     return ms
 
 
+def library_mha_ms(torch, x, params, key_bias, mode):
+    """The whole MHSA function in one PyTorch call:
+    `multi_head_attention_forward` with the same weights and key padding
+    mask (a yardstick only: the port never calls it)."""
+    F = torch.nn.functional
+    dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    in_w, in_b, out_w, out_b = (p.to(dt) for p in params)
+    q = x.to(dt).transpose(0, 1)            # [L, N, E]
+    pad = key_bias != 0                     # True: masked key
+
+    def call():
+        return F.multi_head_attention_forward(
+            q, q, q, 64, 4, in_w.t(), in_b, None, None, False, 0.0,
+            out_w.t(), out_b, training=False, key_padding_mask=pad,
+            need_weights=False)[0]
+
+    ms = cuda_ms(torch, call, 3)
+    del q, pad
+    return ms
+
+
 def check_kernels(torch, enhancer):
     from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
     from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
@@ -144,6 +170,17 @@ def check_kernels(torch, enhancer):
     from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
                                            fused_ftf_block)
     from lct_gan_tpu_torch.ops.gru import grouped_gru
+    from lct_gan_tpu_torch.ops.probe import ex2_rate
+
+    # With head_dim 16 the attention's exps, not its products, set the floor
+    # of a kernel that computes them all: its exp count over the rate of the
+    # special-function units, measured here with the kernels' instruction.
+    exps_per_s = ex2_rate()
+    emit({"phase": "kernels", "probe": "ex2.approx.ftz.f32 rate",
+          "exps_per_s": exps_per_s})
+
+    def exp_floor_ms(n_exps):
+        return n_exps / exps_per_s * 1e3
 
     gen = enhancer.gen
     g = torch.Generator(device="cuda").manual_seed(1234)
@@ -173,11 +210,15 @@ def check_kernels(torch, enhancer):
         flops = rows * (2 * 2 * D * 192 * 16 + 2 * 64 * 192 + 2 * 64 * 64
                         + 2 * lin_in * 64) + N * 4 * band_pairs(L, lookback) * 64
         extra = sum(p.numel() for p in params) * 4 + (rows * 4 if use_kb else 0)
+        # One exp per in-band pair (the max pass needs none) and three per
+        # GRU gate triple (two sigmoids, one tanh).
+        exps = N * 4 * band_pairs(L, lookback) + rows * D * 64 * 3
         for mode in ("bf16", "precise"):
             kw = dict(bidirectional=D == 2, num_heads=4, lookback=lookback,
                       key_bias=kb, precise=mode == "precise")
             out = fused_ftf_block(x, *params, **kw)
             torch.cuda.synchronize()
+            design = fused_ftf_block.design
             ref = ftf_block_reference(x, *params, **kw)
             err = (out - ref).abs().max().item()
             if not (err <= TOL[mode]) or not torch.isfinite(out).all():
@@ -187,9 +228,10 @@ def check_kernels(torch, enhancer):
             plain_ms = cuda_ms(
                 torch, lambda: ftf_block_reference(x, *params, **kw), 2)
             bms, by = bound(rows, flops, extra, mode)
-            res = {"case": name, "mode": mode, "N": N, "L": L,
-                   "max_abs_err": err, "tol": TOL[mode], "ms": ms,
+            res = {"case": name, "mode": mode, "design": design, "N": N,
+                   "L": L, "max_abs_err": err, "tol": TOL[mode], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "exp_floor_ms": exp_floor_ms(exps),
                    "library_ms": library_attention_ms(torch, N, L, lookback,
                                                       kb, mode),
                    "flops": flops}
@@ -210,10 +252,12 @@ def check_kernels(torch, enhancer):
         rows = N * L
         flops = rows * (2 * 64 * 192 + 2 * 64 * 64) + N * 4 * L * L * 64
         extra = sum(p.numel() for p in aparams) * 4 + rows * 4
+        exps = 2 * N * 4 * L * L   # two per pair: the max and sum, then p
         for mode in ("bf16", "precise"):
             kw = dict(num_heads=4, key_bias=kb, precise=mode == "precise")
             out = fused_mhsa(x, *aparams, **kw)
             torch.cuda.synchronize()
+            design = fused_mhsa.design
             ref = mhsa_reference(x, *aparams, **kw)
             err = (out - ref).abs().max().item()
             if not (err <= TOL[mode]) or not torch.isfinite(out).all():
@@ -226,11 +270,14 @@ def check_kernels(torch, enhancer):
                 torch, lambda: mhsa_reference(x, *aparams, **kw), 1)
             torch.cuda.empty_cache()
             bms, by = bound(rows, flops, extra, mode)
-            res = {"case": f"L{L}_keybias", "mode": mode, "N": N, "L": L,
-                   "max_abs_err": err, "tol": TOL[mode], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            res = {"case": f"L{L}_keybias", "mode": mode, "design": design,
+                   "N": N, "L": L, "max_abs_err": err, "tol": TOL[mode],
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "exp_floor_ms": exp_floor_ms(exps),
                    "library_ms": library_attention_ms(torch, N, L, None, kb,
                                                       mode),
+                   "library_mha_ms": library_mha_ms(torch, x, aparams, kb,
+                                                    mode),
                    "flops": flops}
             results["fused_mhsa"].append(res)
             emit({"phase": "kernels", "kernel": "fused_mhsa", **res})
@@ -987,6 +1034,8 @@ def main():
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            **{k: head[k] for k in ("design", "exp_floor_ms",
+                                    "library_mha_ms") if k in head},
             "case": f"{head['case']} {head['mode']}",
             "cases": kernels[name]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -79,6 +79,9 @@ def _timed(fn, sync):
 
 
 _GROUPS = (  # lower-case kernel-name fragment -> layer, first match wins
+    ("gru_tc_kernel", "FTF block: LN1 + GRU (tensor cores)"),
+    ("qkv_tc_kernel", "(FTF: LN2 +) qkv projection (tensor cores)"),
+    ("attn_tc_kernel", "attention + epilogue products (tensor cores)"),
     ("ftf_out_kernel", "FTF block: out-proj + Linear"),
     ("gru_kernel", "FTF block: GRU recurrence"),
     ("banded_attn_kernel", "banded attention core"),

@@ -1,14 +1,17 @@
-// Device code shared by the FTF-block and MHSA kernels (ftf.cu, mhsa.cu).
+// CUDA-core device code shared by the FTF-block forward and backward and
+// the MHSA kernels (ftf.cu, ftf_bwd.cu, mhsa.cu): the forward's precise
+// (all-f32) mode and every stage of the backward. The forward's bf16 mode
+// runs the tensor-core kernels of tc.cuh instead.
 //
 // Widths are those of the LCT generator's bottleneck: C = 64 channels,
 // 4 attention heads of 16, 4 GRU groups of hidden size 16. The Python
 // wrappers check them before a launch.
 //
-// Rounding: `round != 0` is the default (bf16) mode. Every GEMM operand is
-// rounded to bf16 (round-to-nearest-even) exactly where the TPU kernels
-// round it, and products accumulate in f32 -- a bf16 x bf16 product is exact
-// in f32, so this reproduces the TPU's bf16 MXU arithmetic up to the order of
-// the f32 sums. `round == 0` is the all-f32 `precise` mode.
+// Rounding: `round != 0` is the bf16 mode (the backward's). Every GEMM
+// operand is rounded to bf16 (round-to-nearest-even) exactly where the TPU
+// kernels round it, and products accumulate in f32 -- a bf16 x bf16 product
+// is exact in f32, so this reproduces the TPU's bf16 MXU arithmetic up to
+// the order of the f32 sums. `round == 0` is the all-f32 `precise` mode.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,8 +50,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Bound: a tile of 32 rows lives in shared memory and each thread keeps its
 // 32 partial sums in registers; a weight is read once per tile (L1-resident,
 // the weights are at most 48 KB) and each product reads one shared value
-// that the whole warp shares (a broadcast). CUDA-core f32 FMAs; no tensor
-// cores yet.
+// that the whole warp shares (a broadcast). CUDA-core f32 FMAs: all-f32
+// arithmetic has no tensor-core product (TF32 would break precise mode's
+// 1e-3 contract); tc.cuh's qkv_tc_kernel is the bf16 forward's version.
 template <bool GROUPED>
 __global__ void proj_kernel(const float* __restrict__ x,
                             const float* __restrict__ add0,
@@ -131,7 +135,8 @@ __global__ void proj_kernel(const float* __restrict__ x,
 //
 // Bound: O(L^2 * 16) FMAs per head on CUDA cores, with K/V reads that the
 // whole block shares (broadcast). Recomputing the scores in each pass costs
-// 2-3x the score FLOPs but no memory traffic.
+// 2-3x the score FLOPs but no memory traffic. The bf16 forward's version is
+// tc.cuh's attn_tc_kernel (scores and context on tensor cores).
 template <int MODE>
 __global__ void attn_kernel(const float* __restrict__ qkv,
                             const float* __restrict__ key_bias,

@@ -1,26 +1,34 @@
 // FTF block forward for Hopper (sm_90a): the whole function of the TPU
-// kernel `lct_gan_tpu/ops/ftf.py::_ftf_kernel`, as five kernels in a row:
+// kernel `lct_gan_tpu/ops/ftf.py::_ftf_kernel`, with its bf16 rounding
+// points (see common.cuh). Two designs, one per mode; the scratch buffers
+// are allocated by the Python wrapper (lct_gan_tpu_torch/ops/ftf.py).
 //
-//   1. proj_kernel<true>  LN1 + grouped GRU input projection  -> xp  [N*L, D*3C]
-//   2. gru_kernel         the GRU recurrence (both directions) -> hid [D, N*L, C]
-//   3. proj_kernel<false> s = x + sum_d hid; LN2 + qkv        -> qkv [N*L, 3C]
-//   4. attn_kernel<0>     4-head attention, band, key bias    -> ctx [N*L, C]
-//   5. ftf_out_kernel     out-proj, Linear, LeakyReLU(0.2), +s -> out [N*L, C]
+// bf16 (lct_ftf_forward_bf16), every product on tensor cores (tc.cuh):
+//   1. gru_tc_kernel      LN1, grouped input projection and the recurrence
+//                         (both directions)            -> hid [D, N*L, C]
+//   2. qkv_tc_kernel      s = x + g (g = sum_d hid); LN2; qkv
+//                                  -> qkv bf16 [N*L, 3C], s, bf16(g) [N*L, C]
+//   3. attn_tc_kernel<0>  4-head attention (band, key bias), out-proj,
+//                         Linear, LeakyReLU(0.2), +s   -> out [N*L, C]
+// The only intermediates in device memory are values the contract has: the
+// hiddens (unrounded f32: the backward and the save-hidden path read them),
+// q, k, v (rounded to bf16 by the contract), s, and the Linear's bf16(g)
+// (frequency block only). No xp, f32 qkv or context exists. Traffic: ~3.5
+// KB per row (D = 2) or ~2.5 KB (D = 1), against ~7.5 KB for the f32
+// design.
 //
-// Every product of the TPU kernel's body is computed here, with its bf16
-// rounding points (see common.cuh); the scratch buffers are allocated by the
-// Python wrapper (lct_gan_tpu_torch/ops/ftf.py).
+// precise (lct_ftf_forward_f32), all f32 on CUDA cores, five kernels:
+//   proj_kernel<true> -> xp, gru_kernel -> hid, proj_kernel<false> -> qkv,
+//   attn_kernel<0> -> ctx, ftf_out_kernel -> out.
 //
 // Bound on the H100: at the main path's shapes (B=128 x 2 s: N*L = 544,896
 // rows of 64 channels) one block moves ~279 MB of x and out (~83 us at
 // 3.35 TB/s) and does ~45-47 GFLOP of useful products (~46-48 us at the
-// 989 TFLOP/s bf16 rate), so the function is bound by bytes. This simple
-// design is not: it round-trips xp, hid, qkv and ctx through device memory
-// (about 7x the bytes of x) and runs its products on CUDA cores in f32.
-// Keeping a tile of sequences resident through all five stages and moving
-// the products to wgmma is later work.
+// 989 TFLOP/s bf16 rate), so the function is bound by bytes. The bf16
+// design's own floor is its 1.4-2.0 GB of traffic (0.42-0.58 ms); its
+// attention takes one exp per in-band pair (the max pass needs none).
 
-#include "common.cuh"
+#include "tc.cuh"
 
 namespace lct {
 
@@ -28,18 +36,19 @@ __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// The grouped GRU recurrence. One thread per (sequence, direction, group,
-// hidden unit): a group's 16 units are 16 lanes of one warp, which trade the
-// rounded hidden state by shuffles, so the recurrent product h @ W_hh needs
+// The grouped GRU recurrence, all f32. One thread per (sequence, direction,
+// group, hidden unit): a group's 16 units are 16 lanes of one warp, which
+// trade the hidden state by shuffles, so the recurrent product h @ W_hh needs
 // no shared memory and no barrier. Each thread keeps its three 16-entry
 // columns of W_hh (r, z, n) in registers and walks the sequence (backwards
 // for direction 1) in a loop: the sequential axis is inside the thread,
-// sequences and groups run in parallel across the card.
-__global__ void gru_kernel(const float* __restrict__ xp,
-                           const float* __restrict__ w_hh,
-                           const float* __restrict__ b_hh,
-                           float* __restrict__ hid, long long N, int L, int D,
-                           int round) {
+// sequences and groups run in parallel across the card. The register budget
+// keeps 3 blocks (24 warps) resident per SM: the recurrence is latency-bound,
+// and nvcc's own choice (82 registers) fits only 2.
+__global__ void __launch_bounds__(256, 3)
+    gru_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
+               const float* __restrict__ b_hh, float* __restrict__ hid,
+               long long N, int L, int D) {
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   // The total is a multiple of 64 and blocks are too, so a warp is either
   // wholly in range or wholly out: the shuffles below see all 32 lanes.
@@ -53,9 +62,9 @@ __global__ void gru_kernel(const float* __restrict__ xp,
   float wr[H], wz[H], wn[H];
 #pragma unroll
   for (int i = 0; i < H; ++i) {
-    wr[i] = rnd(wp[i * 3 * H + j], round);
-    wz[i] = rnd(wp[i * 3 * H + H + j], round);
-    wn[i] = rnd(wp[i * 3 * H + 2 * H + j], round);
+    wr[i] = wp[i * 3 * H + j];
+    wz[i] = wp[i * 3 * H + H + j];
+    wn[i] = wp[i * 3 * H + 2 * H + j];
   }
   const float* bp = b_hh + (d * G + g) * 3 * H;
   const float br = bp[j], bz = bp[H + j], bn = bp[2 * H + j];
@@ -66,11 +75,10 @@ __global__ void gru_kernel(const float* __restrict__ xp,
   for (int s = 0; s < L; ++s) {
     const int t = d ? L - 1 - s : s;
     const size_t row = (size_t)n * L + t;
-    const float hr = rnd(h, round);
     float ar = 0.f, az = 0.f, an = 0.f;
 #pragma unroll
     for (int i = 0; i < H; ++i) {
-      const float hi = __shfl_sync(0xffffffffu, hr, i, H);
+      const float hi = __shfl_sync(0xffffffffu, h, i, H);
       ar = fmaf(hi, wr[i], ar);
       az = fmaf(hi, wz[i], az);
       an = fmaf(hi, wn[i], an);
@@ -86,21 +94,21 @@ __global__ void gru_kernel(const float* __restrict__ xp,
 
 // a = ctx @ out_w + out_b; comb = [g @ lin_w[:C]] + a @ lin_w[C:] + lin_b
 // (the first term for the frequency block only, lin_in == 2C); out = x + g +
-// LeakyReLU(comb). One thread per output channel, ROWS rows per block.
-__global__ void ftf_out_kernel(const float* __restrict__ x,
-                               const float* __restrict__ hid, int D,
-                               const float* __restrict__ ctx,
-                               const float* __restrict__ out_w,
-                               const float* __restrict__ out_b,
-                               const float* __restrict__ lin_w,
-                               const float* __restrict__ lin_b, int lin_in,
-                               float* __restrict__ out, long long rows,
-                               int round) {
-  __shared__ float gt[ROWS][C];  // g, rounded (Linear operand)
-  __shared__ float at[ROWS][C];  // ctx, then a, rounded
+// LeakyReLU(comb), all f32. One thread per output channel, ROWS rows per
+// block; the register budget keeps 8 blocks resident per SM (nvcc's own
+// choice, 158 registers, fits 6 and was slower despite no spills).
+__global__ void __launch_bounds__(C, 8)
+    ftf_out_kernel(const float* __restrict__ x, const float* __restrict__ hid,
+                   int D, const float* __restrict__ ctx,
+                   const float* __restrict__ out_w,
+                   const float* __restrict__ out_b,
+                   const float* __restrict__ lin_w,
+                   const float* __restrict__ lin_b, int lin_in,
+                   float* __restrict__ out, long long rows) {
+  __shared__ float gt[ROWS][C];  // g (Linear operand)
+  __shared__ float at[ROWS][C];  // ctx, then a
   const long long row0 = (long long)blockIdx.x * ROWS;
   const int c = threadIdx.x;
-  float graw[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const long long row = row0 + r;
@@ -111,9 +119,8 @@ __global__ void ftf_out_kernel(const float* __restrict__ x,
       if (D == 2) g += hid[(size_t)rows * C + o];
       cv = ctx[o];
     }
-    graw[r] = g;
-    gt[r][c] = rnd(g, round);
-    at[r][c] = rnd(cv, round);
+    gt[r][c] = g;
+    at[r][c] = cv;
   }
   __syncthreads();
 
@@ -122,14 +129,14 @@ __global__ void ftf_out_kernel(const float* __restrict__ x,
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
-    const float w = rnd(__ldg(out_w + k * C + c), round);
+    const float w = __ldg(out_w + k * C + c);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(at[r][k], w, acc[r]);
   }
   __syncthreads();
   const float ob = out_b[c];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) at[r][c] = rnd(acc[r] + ob, round);
+  for (int r = 0; r < ROWS; ++r) at[r][c] = acc[r] + ob;
   __syncthreads();
 
 #pragma unroll
@@ -138,7 +145,7 @@ __global__ void ftf_out_kernel(const float* __restrict__ x,
   if (lin_in == 2 * C) {
 #pragma unroll 4
     for (int k = 0; k < C; ++k) {
-      const float w = rnd(__ldg(lin_w + k * C + c), round);
+      const float w = __ldg(lin_w + k * C + c);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(gt[r][k], w, acc[r]);
     }
@@ -146,7 +153,7 @@ __global__ void ftf_out_kernel(const float* __restrict__ x,
   }
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
-    const float w = rnd(__ldg(lw_a + k * C + c), round);
+    const float w = __ldg(lw_a + k * C + c);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(at[r][k], w, acc[r]);
   }
@@ -158,11 +165,223 @@ __global__ void ftf_out_kernel(const float* __restrict__ x,
       float comb = acc[r] + lb;
       comb = comb >= 0.f ? comb : 0.2f * comb;
       const size_t o = (size_t)row * C + c;
-      out[o] = (x[o] + graw[r]) + comb;
+      out[o] = (x[o] + gt[r][c]) + comb;
     }
   }
 }
 
+namespace tc {
+
+constexpr int GS = 16;       // sequences per block: the rows of one m16 tile
+constexpr int TS = 8;        // steps per chunk of staged LN1 rows
+constexpr int GRU_ROWS = 4;  // LN1 rows a warp stages per step (D*GS / warps)
+
+struct GruArgs {
+  const float* x;
+  const float* ln_s;
+  const float* ln_b;
+  const float* w_ih;  // [D, G, H, 3H]
+  const float* w_hh;
+  const float* b_ih;  // [D, G, 3H]
+  const float* b_hh;
+  float* hid;  // [D, N*L, C]
+  long long N;
+  int L;
+  int D;
+};
+
+// Two chunk buffers of LN1 rows, bf16 [2][D][TS][GS][LDS].
+inline size_t gru_smem(int D) {
+  return (size_t)2 * D * TS * GS * LDS * sizeof(__nv_bfloat16);
+}
+
+// The gates from one ex2 and one reciprocal each on the special-function
+// unit: a few f32 ulps from expf / tanhf, far below the bf16 rounding of h
+// that the next step's product takes.
+__device__ __forceinline__ float sigmoid_sfu(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+__device__ __forceinline__ float tanh_sfu(float v) {
+  return fmaf(-2.f, __fdividef(1.f, 1.f + __expf(2.f * v)), 1.f);
+}
+
+// LN1, the grouped input projection and the GRU recurrence in one pass, on
+// tensor cores. A block takes 16 sequences; warp w runs direction w / 4,
+// group w % 4 over them, walking the steps (backwards for direction 1).
+// Per step, with the 16 sequences as the M rows of one m16n8k16 tile:
+//   bf16(n1_t) [16 x 16] @ bf16(W_ih[d, g]) [16 x 48]   6 products
+//   bf16(h)    [16 x 16] @ bf16(W_hh[d, g]) [16 x 48]   6 products
+// W_ih and W_hh stay in registers as B fragments. The r and z gates sum
+// both products in one accumulator started from b_ih + b_hh; n keeps them
+// apart (r multiplies only the hidden part). The accumulator layout is the
+// same in every n8 tile, so the lane that holds r for (sequence, unit) also
+// holds z and n for it, and the gate math needs no exchange; the new h,
+// rounded and packed, is exactly the next step's A fragment, so the hidden
+// state never leaves registers (the f32 carry stays unrounded).
+//
+// LN1 rows (proj_kernel's LayerNorm arithmetic, so the backward's ln_kernel
+// computes the same operand) go to shared memory as bf16 in chunks of TS
+// steps, double-buffered: during each step of chunk c every warp loads
+// GRU_ROWS rows of chunk c + 1, and normalises and stores them after the
+// step's products, so the loads' latency hides under the recurrence's.
+// No xp exists in memory.
+//
+// Bound: the recurrence is sequential in L, so each step's chain (one
+// product, three gates) is latency; across the card it moves x in (once per
+// direction) and the f32 hiddens out.
+__global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* n1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int d = warp >> 2, grp = warp & 3;
+  const int L = a.L, D = a.D;
+  const long long n0 = (long long)blockIdx.x * GS;
+  const size_t NL = (size_t)a.N * L;
+
+  const int dg = d * G + grp;
+  const float* wi = a.w_ih + (size_t)dg * H * (3 * H);
+  const float* wh = a.w_hh + (size_t)dg * H * (3 * H);
+  uint32_t bi[6][2], bh[6][2];
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt) {
+    const int col = nt * 8 + g;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = 2 * t + 8 * k;
+      bi[nt][k] = pack_bf16(wi[r * 3 * H + col], wi[(r + 1) * 3 * H + col]);
+      bh[nt][k] = pack_bf16(wh[r * 3 * H + col], wh[(r + 1) * 3 * H + col]);
+    }
+  }
+  // Biases of this lane's units 8 jh + 2t + e: r and z summed, n apart.
+  float brz[2][2][2], bxn[2][2], bhn[2][2];
+#pragma unroll
+  for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = dg * 3 * H + 8 * jh + 2 * t + e;
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        brz[q][jh][e] = a.b_ih[o + q * H] + a.b_hh[o + q * H];
+      bxn[jh][e] = a.b_ih[o + 2 * H];
+      bhn[jh][e] = a.b_hh[o + 2 * H];
+    }
+  const float ls0 = a.ln_s[lane], ls1 = a.ln_s[lane + 32];
+  const float lb0 = a.ln_b[lane], lb1 = a.ln_b[lane + 32];
+
+  // Row task i of a chunk: direction i / (TS GS), step (i / GS) % TS,
+  // sequence i % GS (D TS GS = nwarps TS GRU_ROWS tasks in all).
+  auto fetch = [&](int cc, int i, float& va, float& vb) {
+    const int dd = i / (TS * GS), step = cc * TS + (i / GS) % TS;
+    const long long n = n0 + i % GS;
+    va = vb = 0.f;
+    if (step < L && n < a.N) {
+      const size_t o = ((size_t)n * L + (dd ? L - 1 - step : step)) * C;
+      va = a.x[o + lane];
+      vb = a.x[o + lane + 32];
+    }
+  };
+  auto put = [&](int cc, int i, float va, float vb) {
+    const float mu = warp_sum(va + vb) * (1.f / C);
+    const float ms = warp_sum(va * va + vb * vb) * (1.f / C);
+    const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
+    va = (va - mu) * rs * ls0 + lb0;
+    vb = (vb - mu) * rs * ls1 + lb1;
+    __nv_bfloat16* dst = n1s + ((size_t)(cc & 1) * D * TS * GS + i) * LDS;
+    dst[lane] = __float2bfloat16_rn(va);
+    dst[lane + 32] = __float2bfloat16_rn(vb);
+  };
+
+  // Chunk 0, 2 GRU_ROWS rows at a time.
+#pragma unroll 1
+  for (int st = 0; st < TS; st += 2) {
+    float va[2 * GRU_ROWS], vb[2 * GRU_ROWS];
+    const int i0 = (st * nwarps + 2 * warp) * GRU_ROWS;
+#pragma unroll
+    for (int k = 0; k < 2 * GRU_ROWS; ++k) fetch(0, i0 + k, va[k], vb[k]);
+#pragma unroll
+    for (int k = 0; k < 2 * GRU_ROWS; ++k) put(0, i0 + k, va[k], vb[k]);
+  }
+  __syncthreads();
+
+  // h[jh][e]: sequence g + 8 (e >> 1), unit 8 jh + 2t + (e & 1): the C
+  // fragment layout of n-tiles jh (r), 2 + jh (z), 4 + jh (n).
+  float h[2][4] = {};
+  uint32_t ha[4] = {0u, 0u, 0u, 0u};
+  const int nchunks = (L + TS - 1) / TS;
+  for (int cc = 0; cc < nchunks; ++cc) {
+    const int c0 = cc * TS, ns = min(TS, L - c0);
+    const bool more = cc + 1 < nchunks;  // then ns == TS
+    const __nv_bfloat16* cur =
+        n1s + (size_t)((cc & 1) * D + d) * TS * GS * LDS + grp * H;
+    for (int st = 0; st < ns; ++st) {
+      float va[GRU_ROWS], vb[GRU_ROWS];
+      const int i0 = (st * nwarps + warp) * GRU_ROWS;
+      if (more) {
+#pragma unroll
+        for (int k = 0; k < GRU_ROWS; ++k)
+          fetch(cc + 1, i0 + k, va[k], vb[k]);
+      }
+      const int tt = d ? L - 1 - (c0 + st) : c0 + st;
+      uint32_t ax[4];
+      load_a(ax, cur + st * GS * LDS, LDS, lane);
+      float ar[2][4], az[2][4], xn[2][4], hn[2][4];
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ar[jh][e] = brz[0][jh][e & 1];
+          az[jh][e] = brz[1][jh][e & 1];
+          xn[jh][e] = bxn[jh][e & 1];
+          hn[jh][e] = bhn[jh][e & 1];
+        }
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh) {
+        mma(ar[jh], ax, bi[jh][0], bi[jh][1]);
+        mma(az[jh], ax, bi[2 + jh][0], bi[2 + jh][1]);
+        mma(xn[jh], ax, bi[4 + jh][0], bi[4 + jh][1]);
+      }
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh) {
+        mma(ar[jh], ha, bh[jh][0], bh[jh][1]);
+        mma(az[jh], ha, bh[2 + jh][0], bh[2 + jh][1]);
+        mma(hn[jh], ha, bh[4 + jh][0], bh[4 + jh][1]);
+      }
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float r = sigmoid_sfu(ar[jh][e]);
+          const float z = sigmoid_sfu(az[jh][e]);
+          const float nn = tanh_sfu(fmaf(r, hn[jh][e], xn[jh][e]));
+          h[jh][e] = (1.f - z) * nn + z * h[jh][e];
+        }
+      ha[0] = pack_bf16(h[0][0], h[0][1]);
+      ha[1] = pack_bf16(h[0][2], h[0][3]);
+      ha[2] = pack_bf16(h[1][0], h[1][1]);
+      ha[3] = pack_bf16(h[1][2], h[1][3]);
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const long long n = n0 + g + 8 * rr;
+          if (n < a.N)
+            *reinterpret_cast<float2*>(
+                a.hid + ((size_t)d * NL + (size_t)n * L + tt) * C + grp * H +
+                8 * jh + 2 * t) = make_float2(h[jh][2 * rr], h[jh][2 * rr + 1]);
+        }
+      if (more) {
+#pragma unroll
+        for (int k = 0; k < GRU_ROWS; ++k) put(cc + 1, i0 + k, va[k], vb[k]);
+      }
+    }
+    __syncthreads();  // chunk cc + 1 is staged; buffer cc & 1 is free
+  }
+}
+
+}  // namespace tc
 }  // namespace lct
 
 #define LCT_CHECK()                              \
@@ -173,9 +392,60 @@ __global__ void ftf_out_kernel(const float* __restrict__ x,
 
 // x, out: [N, L, 64]; w_ih, w_hh: [D, 4, 16, 48]; b_ih, b_hh: [D, 4, 48];
 // in_w: [64, 192]; out_w: [64, 64]; lin_w: [lin_in, 64]; key_bias: [N, L] or
-// null; lookback < 0 means no band. Scratch: xp [N*L, D*192], hid
-// [D, N*L, 64], qkv [N*L, 192], ctx [N*L, 64]. Returns a cudaError_t.
-extern "C" int lct_ftf_forward(
+// null; lookback < 0 means no band. Scratch: hid [D, N*L, 64] f32 (the
+// per-direction hiddens, unrounded), qkv bf16 [N*L, 192], s f32 [N*L, 64]
+// (x + g), and, when lin_in == 128, gb bf16 [N*L, 64] (bf16(g); else
+// null). Returns a cudaError_t.
+extern "C" int lct_ftf_forward_bf16(
+    const float* x, const float* ln1_s, const float* ln1_b,
+    const float* w_ih, const float* w_hh, const float* b_ih,
+    const float* b_hh, const float* ln2_s, const float* ln2_b,
+    const float* in_w, const float* in_b, const float* out_w,
+    const float* out_b, const float* lin_w, const float* lin_b,
+    const float* key_bias, float* hid, void* qkv, float* s, void* gb,
+    float* out, long long N, int L, int D, int lin_in, int lookback,
+    int device, void* stream) {
+  using namespace lct;
+  if ((lin_in == 2 * C) != (gb != nullptr)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = N * L;
+  __nv_bfloat16* q = static_cast<__nv_bfloat16*>(qkv);
+  __nv_bfloat16* g = static_cast<__nv_bfloat16*>(gb);
+
+  const size_t gsmem = tc::gru_smem(D);
+  if ((e = tc::allow_smem(tc::gru_tc_kernel, gsmem)) != cudaSuccess)
+    return (int)e;
+  const tc::GruArgs ga = {x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh, hid,
+                          N, L, D};
+  tc::gru_tc_kernel<<<(unsigned)((N + tc::GS - 1) / tc::GS), D * 4 * 32,
+                      gsmem, st>>>(ga);
+  LCT_CHECK();
+  e = tc::launch_qkv({x, hid, D == 2 ? hid + (size_t)rows * C : nullptr,
+                      ln2_s, ln2_b, in_w, in_b, q, s, g, rows},
+                     st);
+  if (e != cudaSuccess) return (int)e;
+  tc::AttnArgs a = {};
+  a.qkv = q;
+  a.key_bias = key_bias;
+  a.out_w = out_w;
+  a.out_b = out_b;
+  a.out = out;
+  a.N = N;
+  a.L = L;
+  a.lookback = lookback;
+  a.s = s;
+  a.g = g;
+  a.lin_w = lin_w;
+  a.lin_b = lin_b;
+  a.lin_in = lin_in;
+  return (int)tc::launch_attn_tc<0>(a, st);
+}
+
+// The same function in all-f32 arithmetic (precise mode). Scratch: xp
+// [N*L, D*192], hid [D, N*L, 64], qkv [N*L, 192], ctx [N*L, 64], f32.
+extern "C" int lct_ftf_forward_f32(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
     const float* b_hh, const float* ln2_s, const float* ln2_b,
@@ -183,31 +453,31 @@ extern "C" int lct_ftf_forward(
     const float* out_b, const float* lin_w, const float* lin_b,
     const float* key_bias, float* xp, float* hid, float* qkv, float* ctx,
     float* out, long long N, int L, int D, int lin_in, int lookback,
-    int precise, int device, void* stream) {
+    int device, void* stream) {
   using namespace lct;
   cudaSetDevice(device);
   LCT_CHECK();
   cudaStream_t st = (cudaStream_t)stream;
-  const int round = precise ? 0 : 1;
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
 
   proj_kernel<true><<<rblocks, D * 3 * C, 0, st>>>(
       x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
-      round);
+      /*round=*/0);
   LCT_CHECK();
   const long long gthreads = N * D * G * H;
   gru_kernel<<<(unsigned)((gthreads + 255) / 256), 256, 0, st>>>(
-      xp, w_hh, b_hh, hid, N, L, D, round);
+      xp, w_hh, b_hh, hid, N, L, D);
   LCT_CHECK();
   proj_kernel<false><<<rblocks, 3 * C, 0, st>>>(
       x, hid, D == 2 ? hid + (size_t)rows * C : nullptr, ln2_s, ln2_b, in_w,
-      in_b, qkv, rows, 3 * C, round);
+      in_b, qkv, rows, 3 * C, /*round=*/0);
   LCT_CHECK();
-  cudaError_t e = launch_attn<0>(qkv, key_bias, ctx, N, L, lookback, round, st);
+  cudaError_t e =
+      launch_attn<0>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0, st);
   if (e != cudaSuccess) return (int)e;
   ftf_out_kernel<<<rblocks, C, 0, st>>>(x, hid, D, ctx, out_w, out_b, lin_w,
-                                        lin_b, lin_in, out, rows, round);
+                                        lin_b, lin_in, out, rows);
   LCT_CHECK();
   return 0;
 }

@@ -12,8 +12,8 @@
 //   4. attn_bwd_kernel                 softmax VJP ds = p (dp - rowsum(dp p))
 //                                      -> dq, dk, dv
 //   5. dn2_kernel + ln_bwd_kernel      qkv-projection and LN2 backward
-//   6. ln_kernel + proj_kernel<true>   recompute LN1 and xp (bit-equal to the
-//                                      forward's)
+//   6. ln_kernel + proj_kernel<true>   recompute LN1 (bit-equal to the
+//                                      forward's operand) and xp
 //   7. gate_kernel                     hp from the shifted hiddens, the gate
 //                                      factors K1..K5 for every step at once
 //   8. bptt_kernel                     dh_{t-1} = dh_t z_t + (dh_t K123_t) W_hh^T
@@ -24,9 +24,15 @@
 //
 // Rounding (common.cuh): every GEMM operand is rounded to bf16 exactly where
 // the TPU kernel rounds it (its `cd` casts), products accumulate in f32;
-// `precise` keeps everything f32. The hp recompute rounds h_{t-1} and W_hh
-// as the forward's gru_kernel does and sums in its order, so the backward
-// sees the forward's own gate values.
+// `precise` keeps everything f32. The hp and xp recomputes round h_{t-1},
+// n1 and the weights where the forward does and sum in the order of the
+// f32 forward (gru_kernel, proj_kernel), so in precise mode the backward
+// sees the forward's own gate values. The bf16 forward (ftf.cu's
+// gru_tc_kernel) sums on tensor cores in another order and takes its
+// sigmoid and tanh from the special-function unit's exp and reciprocal:
+// there the gates agree to f32 noise, not bit for bit, and so does the qkv
+// the backward recomputes. Both sides of a gradient see the same saved
+// hiddens, so this moves no gradient beyond that noise.
 //
 // Determinism: no atomics. A parameter gradient is a sum over all N*L rows;
 // wgrad_kernel gives each block a fixed chunk of rows and writes its partial
@@ -418,7 +424,8 @@ __global__ void dn2_kernel(const float* __restrict__ dqkv,
 // thread per (row, d, c = g*H + j). hp_{t} = h_{t-1} @ W_hh + b_hh from the
 // saved hiddens shifted by one step (h_{t-1} for the forward direction,
 // h_{t+1} for the backward one, 0 at the sequence's start), computed as
-// gru_kernel computes it: same rounding, same order of sums. Writes
+// the f32 forward's gru_kernel computes it: same rounding, same order of
+// sums (the bf16 forward's gates differ by f32 noise). Writes
 //   K[d, row, 0..4, c] = (K1, K2, K3, K4, K5)
 //     K1 = P hp_n r (1 - r), K2 = (h_prev - n) z (1 - z), K3 = P r,
 //     K4 = P, K5 = z,  with P = (1 - z)(1 - n^2)

@@ -1,50 +1,83 @@
 // Fused multi-head self-attention for Hopper (sm_90a): the function of the
 // TPU kernel `lct_gan_tpu/ops/attention.py::_mhsa_kernel` over x [N, L, 64]
-// (L <= 1024), as three kernels in a row:
+// (L <= 1024), with the TPU kernel's bf16 rounding points (x, in_w; q, k,
+// v; the normalised p; ctx, out_w) and f32 accumulation. Two designs, one
+// per mode:
 //
-//   1. proj_kernel<false> qkv = x @ in_w + in_b            -> qkv [N*L, 192]
-//   2. attn_kernel<1>     4-head softmax attention, band, key bias -> ctx
-//   3. proj_kernel<false> out = ctx @ out_w + out_b          -> out [N*L, 64]
-//
-// with the TPU kernel's bf16 rounding points (x, in_w; q, k, v; the
-// normalised p; ctx, out_w), f32 accumulation (see common.cuh).
+// bf16 (lct_mhsa_forward_bf16), tensor cores (tc.cuh):
+//   1. qkv_tc_kernel       qkv = bf16(x @ in_w + in_b) -> qkv bf16 [N*L, 192]
+//   2. attn_tc_kernel<1>   4-head softmax attention, band, key bias, and
+//                          out = ctx @ out_w + out_b  -> out [N*L, 64]
+// precise (lct_mhsa_forward_f32), all f32 on CUDA cores (common.cuh):
+//   proj_kernel -> qkv f32, attn_kernel<1> -> ctx f32, proj_kernel -> out.
 //
 // Bound on the H100: at the time block of a 163,840-sample bucket (N = 25*33
 // sequences of L = 644) the function moves ~272 MB (~81 us at 3.35 TB/s)
 // and does ~100 GFLOP of products, 88% of them in the L x L scores and
-// context (~101 us at 989 TFLOP/s bf16): it is bound by operations. This
-// simple design runs them on CUDA cores in f32, one query row per thread
-// with K/V of a head in shared memory, and round-trips qkv and ctx through
-// device memory; tensor-core tiles (wgmma) are later work.
+// context (~101 us at 989 TFLOP/s bf16): it is bound by operations. With
+// head_dim 16 the tensor cores are not what sets the pace of the bf16
+// design: the contract rounds the normalised p, which needs the exact row
+// max and sum first, so every in-band pair takes two exps (one per pass
+// over the keys), and the special-function unit (~4.15 T exp/s measured by
+// ops/probe.py) gives a floor of ~0.66 ms at L = 644 (0.53 ms at L = 516). q, k, v cross device
+// memory once, as bf16; the context never does.
 
-#include "common.cuh"
+#include "tc.cuh"
 
 // x, out: [N, L, 64]; in_w: [64, 192]; out_w: [64, 64]; key_bias: [N, L] or
-// null; lookback < 0 means no band. Scratch: qkv [N*L, 192], ctx [N*L, 64].
-// Returns a cudaError_t.
-extern "C" int lct_mhsa_forward(const float* x, const float* in_w,
-                                const float* in_b, const float* out_w,
-                                const float* out_b, const float* key_bias,
-                                float* qkv, float* ctx, float* out,
-                                long long N, int L, int lookback, int precise,
-                                int device, void* stream) {
+// null; lookback < 0 means no band. Scratch: qkv bf16 [N*L, 192]. Returns a
+// cudaError_t.
+extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
+                                     const float* in_b, const float* out_w,
+                                     const float* out_b,
+                                     const float* key_bias, void* qkv,
+                                     float* out, long long N, int L,
+                                     int lookback, int device, void* stream) {
   using namespace lct;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  const int round = precise ? 0 : 1;
+  __nv_bfloat16* q = static_cast<__nv_bfloat16*>(qkv);
+  e = tc::launch_qkv({x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, q,
+                      nullptr, nullptr, N * L},
+                     st);
+  if (e != cudaSuccess) return (int)e;
+  tc::AttnArgs a = {};
+  a.qkv = q;
+  a.key_bias = key_bias;
+  a.out_w = out_w;
+  a.out_b = out_b;
+  a.out = out;
+  a.N = N;
+  a.L = L;
+  a.lookback = lookback;
+  return (int)tc::launch_attn_tc<1>(a, st);
+}
+
+// The same function in all-f32 arithmetic (precise mode). Scratch: qkv
+// [N*L, 192], ctx [N*L, 64], f32.
+extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
+                                    const float* in_b, const float* out_w,
+                                    const float* out_b, const float* key_bias,
+                                    float* qkv, float* ctx, float* out,
+                                    long long N, int L, int lookback,
+                                    int device, void* stream) {
+  using namespace lct;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
 
   proj_kernel<false><<<rblocks, 3 * C, 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
-      round);
+      /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  e = launch_attn<1>(qkv, key_bias, ctx, N, L, lookback, round, st);
+  e = launch_attn<1>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0, st);
   if (e != cudaSuccess) return (int)e;
   proj_kernel<false><<<rblocks, C, 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
-      round);
+      /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return 0;
 }

@@ -1,0 +1,844 @@
+// Tensor-core kernels of the bf16 mode, shared by ftf.cu and mhsa.cu.
+//
+// Every product runs as `mma.sync.aligned.m16n8k16` on bf16 operands with
+// f32 accumulation. The contract already rounds every GEMM operand to bf16
+// (common.cuh), and a bf16 x bf16 product is exact in f32, so this is the
+// arithmetic of the CUDA-core kernels up to the order of the f32 sums.
+// Precise (all-f32) mode keeps the CUDA-core kernels of common.cuh: tensor
+// cores have no f32 product.
+//
+// Fragment layouts (PTX ISA, m16n8k16, g = lane / 4, t = lane % 4):
+//   A 16x16: a[0] (row g, cols 2t, 2t+1), a[1] (row g+8), a[2] (row g,
+//            cols 8+2t, 9+2t), a[3] (row g+8, cols 8+2t, 9+2t)
+//   B 16x8:  b[0] (rows 2t, 2t+1, col g), b[1] (rows 8+2t, 9+2t, col g)
+//   C 16x8:  c[0], c[1] (row g, cols 2t, 2t+1), c[2], c[3] (row g+8)
+// So the C fragments of two neighbouring n8 tiles, rounded and packed, are
+// the A fragment of the next product over those 16 columns: probabilities,
+// contexts and GRU hidden states pass from one product to the next in
+// registers.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace lct {
+namespace tc {
+
+constexpr int LDS = C + 8;        // bf16 row stride of a 64-column tile
+constexpr int LDW = 3 * C + 8;    // bf16 row stride of in_w [64][192]
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two f32 values rounded to bf16 (nearest-even) and packed, `lo` in the low
+// half: the register layout of two neighbouring fragment columns.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += A B on bf16 operands, f32 accumulation.
+__device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// A fragment of rows 0..15, cols 0..15 of a row-major bf16 tile.
+__device__ __forceinline__ void load_a(uint32_t a[4],
+                                       const __nv_bfloat16* base, int ld,
+                                       int lane) {
+  const int mi = lane >> 3, rr = lane & 7;
+  ldsm_x4(a, base + ((mi & 1) * 8 + rr) * ld + (mi >> 1) * 8);
+}
+
+// B fragments of two n8 tiles (b[0..1]: n 0..7, b[2..3]: n 8..15) over
+// k 0..15 from a row-major [n][k] tile (K of the scores q k^T).
+__device__ __forceinline__ void load_b_nk(uint32_t b[4],
+                                          const __nv_bfloat16* base, int ld,
+                                          int lane) {
+  const int mi = lane >> 3, rr = lane & 7;
+  ldsm_x4(b, base + ((mi >> 1) * 8 + rr) * ld + (mi & 1) * 8);
+}
+
+// The same from a row-major [k][n] tile (V, and every weight matrix).
+__device__ __forceinline__ void load_b_kn(uint32_t b[4],
+                                          const __nv_bfloat16* base, int ld,
+                                          int lane) {
+  const int mi = lane >> 3, rr = lane & 7;
+  ldsm_x4_t(b, base + ((mi & 1) * 8 + rr) * ld + (mi >> 1) * 8);
+}
+
+// 16-byte (or, for the key bias, 4-byte) asynchronous copy global ->
+// shared; `valid == false` writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N_PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING) : "memory");
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// dst[r * ld + c] = bf16(src[r * cols + c]) for a [rows][cols] f32 matrix,
+// by the whole block.
+__device__ __forceinline__ void stage_weight(__nv_bfloat16* dst, int ld,
+                                             const float* __restrict__ src,
+                                             int rows, int cols) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x)
+    dst[(i / cols) * ld + i % cols] = __float2bfloat16_rn(__ldg(src + i));
+}
+
+// Blocks of a persistent grid: as many as fit on the card at once, at most
+// `items`.
+template <typename K>
+cudaError_t persistent_grid(K kernel, int threads, size_t smem,
+                            long long items, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return e;
+  long long g = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (unsigned)(g < items ? g : (items > 0 ? items : 1));
+  return cudaSuccess;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// ---------------------------------------------------------------------------
+// qkv = bf16(bf16(in) @ bf16(in_w) + in_b) over rows of 64 channels, stored
+// bf16 [rows, 192]: the contract rounds q, k and v, so this halves their
+// bytes and changes no value.
+//   in = x (+ (add0 + add1)), LayerNorm'ed when ln_s != nullptr with
+//   proj_kernel's arithmetic (common.cuh; ftf_bwd.cu's ln_kernel computes
+//   the same values). For the FTF block it also writes what the attention
+//   kernel's epilogue needs: s = in before the LayerNorm (f32) and
+//   bf16(add0 + add1), the Linear's rounded g.
+// Persistent blocks of 4 warps, in_w staged once per block; each warp owns
+// 16 rows of a 64-row tile (no block barrier inside the tile loop). Bound
+// by bytes: x (and the hiddens) in, q, k, v out.
+constexpr int PROJ_THREADS = 128;
+
+struct ProjArgs {
+  const float* x;
+  const float* add0;
+  const float* add1;
+  const float* ln_s;
+  const float* ln_b;
+  const float* w;     // [64, 192] f32
+  const float* bias;  // [192]
+  __nv_bfloat16* out; // [rows, 192]
+  float* s_out;           // or null: in before the LayerNorm, f32 [rows, 64]
+  __nv_bfloat16* g_out;   // or null: bf16(add0 + add1) [rows, 64]
+  long long rows;
+};
+
+__global__ void __launch_bounds__(PROJ_THREADS)
+    qkv_tc_kernel(ProjArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 ws[C * LDW];
+  __shared__ __align__(16) __nv_bfloat16 as[64 * LDS];
+  stage_weight(ws, LDW, a.w, C, 3 * C);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  __nv_bfloat16* aw = as + warp * 16 * LDS;
+  const float ls0 = a.ln_s ? a.ln_s[lane] : 1.f;
+  const float ls1 = a.ln_s ? a.ln_s[lane + 32] : 1.f;
+  const float lb0 = a.ln_s ? a.ln_b[lane] : 0.f;
+  const float lb1 = a.ln_s ? a.ln_b[lane + 32] : 0.f;
+  const long long tiles = (a.rows + 63) / 64;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * 64 + warp * 16;
+    // 8 rows at a time: every load of a batch is issued before the first
+    // row's LayerNorm.
+#pragma unroll
+    for (int r8 = 0; r8 < 16; r8 += 8) {
+      float va[8], vb[8], ga[8], gb[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const long long row = row0 + r8 + r;
+        va[r] = vb[r] = ga[r] = gb[r] = 0.f;
+        if (row < a.rows) {
+          const size_t o = (size_t)row * C;
+          va[r] = a.x[o + lane];
+          vb[r] = a.x[o + lane + 32];
+          if (a.add0) {
+            ga[r] = a.add1 ? (a.add0[o + lane] + a.add1[o + lane])
+                           : a.add0[o + lane];
+            gb[r] = a.add1 ? (a.add0[o + lane + 32] + a.add1[o + lane + 32])
+                           : a.add0[o + lane + 32];
+            va[r] += ga[r];
+            vb[r] += gb[r];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float p = va[r], q = vb[r];
+        const long long row = row0 + r8 + r;
+        if (row < a.rows) {
+          const size_t o = (size_t)row * C;
+          if (a.s_out) {
+            a.s_out[o + lane] = p;
+            a.s_out[o + lane + 32] = q;
+          }
+          if (a.g_out) {
+            a.g_out[o + lane] = __float2bfloat16_rn(ga[r]);
+            a.g_out[o + lane + 32] = __float2bfloat16_rn(gb[r]);
+          }
+        }
+        if (a.ln_s) {
+          const float mu = warp_sum(p + q) * (1.f / C);
+          const float ms = warp_sum(p * p + q * q) * (1.f / C);
+          const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
+          p = (p - mu) * rs * ls0 + lb0;
+          q = (q - mu) * rs * ls1 + lb1;
+        }
+        aw[(r8 + r) * LDS + lane] = __float2bfloat16_rn(p);
+        aw[(r8 + r) * LDS + lane + 32] = __float2bfloat16_rn(q);
+      }
+    }
+    __syncwarp();
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) load_a(af[kk], aw + kk * 16, LDS, lane);
+#pragma unroll 2
+    for (int np = 0; np < 12; ++np) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t wb[4];
+        load_b_kn(wb, ws + kk * 16 * LDW + np * 16, LDW, lane);
+        mma(acc[0], af[kk], wb[0], wb[1]);
+        mma(acc[1], af[kk], wb[2], wb[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = np * 16 + j * 8 + 2 * t;
+        const float b0 = __ldg(a.bias + col), b1 = __ldg(a.bias + col + 1);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const long long row = row0 + g + 8 * rr;
+          if (row < a.rows)
+            *reinterpret_cast<uint32_t*>(a.out + (size_t)row * (3 * C) +
+                                         col) =
+                pack_bf16(acc[j][2 * rr] + b0, acc[j][2 * rr + 1] + b1);
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+inline cudaError_t launch_qkv(const ProjArgs& a, cudaStream_t st) {
+  unsigned grid = 1;
+  cudaError_t e = persistent_grid(qkv_tc_kernel, PROJ_THREADS, 0,
+                                  (a.rows + 63) / 64, &grid);
+  if (e != cudaSuccess) return e;
+  qkv_tc_kernel<<<grid, PROJ_THREADS, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 4-head attention over bf16 qkv [N*L, 192] with the output projection (and,
+// for the FTF block, the Linear, LeakyReLU and residual) in the epilogue.
+//
+// Work item: one (sequence, tile of 64 or 128 query rows); a persistent grid
+// walks them, the weights staged in shared memory once per block. Each warp
+// owns 16 query rows and all 4 heads, so it holds the whole 64-channel
+// context of its rows for the epilogue's products. K and V stream through
+// two shared-memory tiles of 64 keys (cp.async, double-buffered; a range of
+// at most two tiles is loaded once and kept), so any L <= 1024 fits in a
+// fixed 74 KB (FTF) or, for MHSA, 56 KB (64-row items) or 64 KB (128-row
+// items; attn_smem below); the next item's Q and first tile load
+// under the current item's epilogue. Scores q k^T are one m16n8k16 step per
+// 8 keys (head_dim 16); P @ V is one step per 16 keys, P taken from the
+// score accumulators in registers. Key chunks of 16 outside a warp's band
+// are skipped. A tile whose four chunks all lie inside the band and below L
+// (every tile but the edges) runs a straight-line path with no mask.
+//
+// The contract needs the exact row max m before p is rounded, so the keys
+// are walked twice when they span more than one tile:
+//   MODE 1 (MHSA):  pass A: m and l = sum exp(s - m) online;
+//                   pass B: p = bf16(exp(s - m) / l), ctx = p @ v.
+//                   Two exps per pair.
+//   MODE 0 (FTF):   pass A: m only (no exp);
+//                   pass B: p = exp(s - m), den = sum p, ctx = (bf16(p) @ v)
+//                   / (den + 1e-20). One exp per pair.
+// Keys that fit one tile (the frequency blocks, L = 33) take one walk: the
+// max is exact after it, and MODE 1 keeps its exps in registers.
+// Scores are s = (q . k) / 4 + key_bias; `lookback >= 0` keeps the
+// inclusive band [q - lookback, q]. They are formed in log2 units,
+// s log2(e) = fma(q . k, log2(e) / 4, key_bias log2(e)), so each exp is one
+// ex2 of a difference (FlashAttention's trick; the same function up to f32
+// rounding).
+//
+// Bound: with head_dim 16 the tensor cores are not what sets the pace. MHSA
+// is bound by its exps on the special-function unit (two per pair; ~4.15 T/s
+// on the H100 by ops/probe.py: 0.53 ms at L = 516, N = 1,023); the FTF
+// block's attention by its bytes (q, k, v, s, bf16(g) in, out out: ~1 KB
+// per row).
+constexpr int AT = 64;  // keys per tile
+// Query rows per work item (ROWS, 16 per warp) and the blocks per SM the
+// register budget is set for (MIN_BLOCKS: more resident warps for a few
+// spills). `python -m lct_gan_tpu_torch.tune_attention` builds variants with
+// -D overrides of these macros and times them on the card (PERF.md): FTF
+// items of 64 rows (its sequences are short) at 3 blocks; MHSA items of 128
+// rows (each K/V tile serves twice the rows per load and per barrier) at 2.
+#ifndef LCT_FTF_ATTN_ROWS
+#define LCT_FTF_ATTN_ROWS 64
+#endif
+#ifndef LCT_FTF_ATTN_MIN_BLOCKS
+#define LCT_FTF_ATTN_MIN_BLOCKS 3
+#endif
+#ifndef LCT_MHSA_ATTN_ROWS
+#define LCT_MHSA_ATTN_ROWS 128
+#endif
+#ifndef LCT_MHSA_ATTN_MIN_BLOCKS
+#define LCT_MHSA_ATTN_MIN_BLOCKS 2
+#endif
+template <int MODE>
+struct AttnShape {
+  static constexpr int ROWS =
+      MODE == 1 ? LCT_MHSA_ATTN_ROWS : LCT_FTF_ATTN_ROWS;
+  static constexpr int THREADS = 2 * ROWS;
+  static constexpr int MIN_BLOCKS =
+      MODE == 1 ? LCT_MHSA_ATTN_MIN_BLOCKS : LCT_FTF_ATTN_MIN_BLOCKS;
+  // 16 rows a warp; at least AT threads (load_kv's key-bias copy).
+  static_assert(ROWS % 16 == 0 && 2 * ROWS >= AT && ROWS <= 512, "ROWS");
+};
+constexpr float QK_SCALE2 = 0.25f * LOG2E;
+
+struct KVTile {
+  __nv_bfloat16 k[AT * LDS];
+  __nv_bfloat16 v[AT * LDS];
+  float kb[AT];
+};
+
+struct AttnArgs {
+  const __nv_bfloat16* qkv;  // [N*L, 192]
+  const float* key_bias;     // [N, L] or null
+  const float* out_w;        // [64, 64]
+  const float* out_b;        // [64]
+  float* out;                // [N*L, 64]
+  long long N;
+  int L;
+  int lookback;
+  // MODE 0 only: out = s + LeakyReLU(comb),
+  // comb = [bf16(g) @ lin_w[:64]] + bf16(a) @ lin_w[lin_in - 64:] + lin_b
+  const float* s;            // [N*L, 64] f32: x + g
+  const __nv_bfloat16* g;    // [N*L, 64] bf16(g), lin_in == 128 only
+  const float* lin_w;  // [lin_in, 64]
+  const float* lin_b;  // [64]
+  int lin_in;
+};
+
+template <int MODE>
+constexpr size_t attn_smem() {
+  return 2 * sizeof(KVTile) +
+         sizeof(__nv_bfloat16) * LDS *
+             (AttnShape<MODE>::ROWS + C + (MODE == 0 ? 2 * C : 0));
+}
+
+// One work item: sequence n, query rows [q0, q0 + ROWS), key tiles
+// [kt0, kt0 + nkt) (those some query of the item needs).
+struct Item {
+  long long n;
+  int q0, kt0, nkt;
+  bool resident;  // nkt <= 2: loaded once, kept for both passes
+};
+
+template <int QR>
+__device__ __forceinline__ Item item_at(long long item, int L, int lb) {
+  const int nqt = (L + QR - 1) / QR;
+  Item it;
+  it.n = item / nqt;
+  it.q0 = (int)(item % nqt) * QR;
+  int klo = 0, khi = L;
+  if (lb >= 0) {
+    klo = max(0, it.q0 - lb);
+    khi = min(L, it.q0 + QR);
+  }
+  it.kt0 = klo / AT;
+  it.nkt = (khi + AT - 1) / AT - it.kt0;
+  it.resident = it.nkt <= 2;
+  return it;
+}
+
+template <int QR, int THREADS>
+__device__ __forceinline__ void load_q(const AttnArgs& a, const Item& it,
+                                       __nv_bfloat16* qs, int tid) {
+  const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C);
+  for (int c = tid; c < QR * 8; c += THREADS) {
+    const int r = c >> 3, part = c & 7;
+    const bool ok = it.q0 + r < a.L;
+    cp_async16(qs + r * LDS + part * 8,
+               base + (size_t)(ok ? it.q0 + r : 0) * (3 * C) + part * 8, ok);
+  }
+}
+
+// Load number s of an item: key tile s % nkt into its buffer; V only for
+// pass B (or when the tiles stay resident for both passes).
+template <int THREADS>
+__device__ __forceinline__ void load_kv(const AttnArgs& a, const Item& it,
+                                        KVTile* kv, int s, int tid) {
+  const int i = s % it.nkt;
+  KVTile& b = kv[it.resident ? i : (s & 1)];
+  const bool with_v = it.resident || s >= it.nkt;
+  const int kbase = (it.kt0 + i) * AT;
+  const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C);
+  for (int c = tid; c < AT * 8; c += THREADS) {
+    const int r = c >> 3, part = c & 7;
+    const bool ok = kbase + r < a.L;
+    const __nv_bfloat16* src =
+        base + (size_t)(ok ? kbase + r : 0) * (3 * C) + C + part * 8;
+    cp_async16(b.k + r * LDS + part * 8, src, ok);
+    if (with_v) cp_async16(b.v + r * LDS + part * 8, src + C, ok);
+  }
+  if (tid < AT) {
+    const bool ok = a.key_bias != nullptr && kbase + tid < a.L;
+    cp_async4(b.kb + tid,
+              ok ? a.key_bias + (size_t)it.n * a.L + kbase + tid : a.out_b,
+              ok);
+  }
+}
+
+// Passes of attn_tile: the first walk (row max, and for MODE 1 the sum),
+// the second (p and P @ V), or both at once when the item's keys fit one
+// tile (the max is then exact after the tile, and MODE 1 keeps its exps).
+constexpr int PASS_A = 0, PASS_B = 1, PASS_AB = 2;
+
+// One key tile for one warp's 16 query rows (Q at qw in shared memory),
+// all heads. m, l, o are the warp's running row max, sum and context
+// (C-fragment layout); only they live across tiles, Q fragments and key
+// bias are re-read from shared memory. FULL: all four 16-key chunks are
+// needed and need no mask (`need`, `full`: per-chunk bits).
+template <int MODE, int PASS, bool FULL>
+__device__ __forceinline__ void attn_tile(
+    const KVTile& b, const __nv_bfloat16* qw, unsigned need, unsigned full,
+    int kbase, int L, int lb, const int (&rg)[2], float (&m)[NH][2],
+    float (&l)[NH][2], float (&o)[NH][2][4], int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    uint32_t qa[4];
+    load_a(qa, qw + h * HD, LDS, lane);
+    float sc[4][2][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      if (!FULL && !((need >> kc) & 1u)) continue;
+      uint32_t kf[4];
+      load_b_nk(kf, b.k + kc * 16 * LDS + h * HD, LDS, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float* sj = sc[kc][j];
+        sj[0] = sj[1] = sj[2] = sj[3] = 0.f;
+        mma(sj, qa, kf[2 * j], kf[2 * j + 1]);
+        // key bias of this lane's two score columns, in log2 units
+        const float2 kb = *reinterpret_cast<const float2*>(
+            b.kb + kc * 16 + j * 8 + 2 * t);
+        const float kb0 = kb.x * LOG2E, kb1 = kb.y * LOG2E;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = fmaf(sj[e], QK_SCALE2, (e & 1) ? kb1 : kb0);
+          if (!FULL && !((full >> kc) & 1u)) {
+            const int key = kbase + kc * 16 + j * 8 + 2 * t + (e & 1);
+            const int row = rg[e >> 1];
+            const bool ok =
+                key < L && (lb < 0 || (key <= row && key >= row - lb));
+            v = ok ? v : -INFINITY;
+          }
+          sj[e] = v;
+        }
+      }
+    }
+    if (PASS != PASS_B) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        if (!FULL && !((need >> kc) & 1u)) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[kc][j][e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mnew = fmaxf(m[h][r], quad_max(mx[r]));
+        const float mb = mnew == -INFINITY ? 0.f : mnew;
+        if (MODE == 1) {
+          // PASS_AB: the exps stay in sc for the P @ V below.
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc) {
+            if (!FULL && !((need >> kc) & 1u)) continue;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float e0 = ex2(sc[kc][j][2 * r] - mb);
+              const float e1 = ex2(sc[kc][j][2 * r + 1] - mb);
+              if (PASS == PASS_AB) {
+                sc[kc][j][2 * r] = e0;
+                sc[kc][j][2 * r + 1] = e1;
+              }
+              part[kc] += e0 + e1;
+            }
+          }
+          const float sum = (part[0] + part[1]) + (part[2] + part[3]);
+          if (PASS == PASS_A) {
+            l[h][r] = fmaf(l[h][r], ex2(m[h][r] - mb), sum);
+          } else {
+            const float tot = quad_sum(sum);
+            l[h][r] = tot > 0.f ? 1.f / tot : 0.f;
+          }
+        }
+        m[h][r] = PASS == PASS_A ? mnew : mb;
+      }
+    }
+    if (PASS != PASS_A) {
+      // m is the row max (0 for a row with no key), and for MODE 1 l is
+      // 1 / sum (set between the passes, or above).
+      float part[4][2] = {};
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        if (!FULL && !((need >> kc) & 1u)) continue;
+        float p[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pe;
+            if (MODE == 1) {
+              pe = (PASS == PASS_AB ? sc[kc][j][e]
+                                    : ex2(sc[kc][j][e] - m[h][e >> 1])) *
+                   l[h][e >> 1];
+            } else {
+              pe = ex2(sc[kc][j][e] - m[h][e >> 1]);
+              part[kc][e >> 1] += pe;
+            }
+            p[j][e] = pe;
+          }
+        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
+                                pack_bf16(p[0][2], p[0][3]),
+                                pack_bf16(p[1][0], p[1][1]),
+                                pack_bf16(p[1][2], p[1][3])};
+        uint32_t vf[4];
+        load_b_kn(vf, b.v + kc * 16 * LDS + h * HD, LDS, lane);
+        mma(o[h][0], pa, vf[0], vf[1]);
+        mma(o[h][1], pa, vf[2], vf[3]);
+      }
+      if (MODE == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          l[h][r] += (part[0][r] + part[1][r]) + (part[2][r] + part[3][r]);
+      }
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
+                                  AttnShape<MODE>::MIN_BLOCKS)
+    attn_tc_kernel(AttnArgs a) {
+  constexpr int QR = AttnShape<MODE>::ROWS;
+  constexpr int THREADS = AttnShape<MODE>::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  KVTile* kv = reinterpret_cast<KVTile*>(smem_raw);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(kv + 2);
+  __nv_bfloat16* wo = qs + QR * LDS;  // out_w [64][LDS]
+  __nv_bfloat16* wl = wo + C * LDS;   // MODE 0: lin_w [lin_in][LDS]
+  stage_weight(wo, LDS, a.out_w, C, C);
+  if (MODE == 0) stage_weight(wl, LDS, a.lin_w, a.lin_in, C);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int L = a.L, lb = a.lookback;
+  const long long items = a.N * ((L + QR - 1) / QR);
+
+  long long item = blockIdx.x;
+  if (item < items) {
+    const Item first = item_at<QR>(item, L, lb);
+    load_q<QR, THREADS>(a, first, qs, tid);
+    load_kv<THREADS>(a, first, kv, 0, tid);
+    cp_async_commit();
+  }
+  for (; item < items; item += gridDim.x) {
+    const Item it = item_at<QR>(item, L, lb);
+    const int nload = it.resident ? it.nkt : 2 * it.nkt;
+    const int r0 = it.q0 + warp * 16;  // this warp's first query row
+    const bool active = r0 < L;
+    const int rg[2] = {r0 + g, r0 + g + 8};
+    // Keys this warp's rows need.
+    const int need_lo = lb >= 0 ? r0 - lb : 0;
+    const int need_hi = lb >= 0 ? min(r0 + 15, L - 1) : L - 1;
+
+    float m[NH][2], l[NH][2], o[NH][2][4];
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[h][r] = -INFINITY;
+        l[h][r] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[h][j][e] = 0.f;
+    }
+
+    // One walk when the keys fit one tile, else two (see attn_tile).
+    const int nsteps = it.nkt == 1 ? 1 : 2 * it.nkt;
+    for (int s = 0; s < nsteps; ++s) {
+      if (s + 1 < nload) {
+        load_kv<THREADS>(a, it, kv, s + 1, tid);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (active) {
+        if (s == it.nkt) {  // between the passes
+#pragma unroll
+          for (int h = 0; h < NH; ++h)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              if (m[h][r] == -INFINITY) m[h][r] = 0.f;
+              if (MODE == 1) {
+                const float tot = quad_sum(l[h][r]);
+                l[h][r] = tot > 0.f ? 1.f / tot : 0.f;
+              }
+            }
+        }
+        const KVTile& b = kv[it.resident ? (s % it.nkt) : (s & 1)];
+        const int kbase = (it.kt0 + s % it.nkt) * AT;
+        unsigned need = 0u, full = 0u;
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+          const int ks = kbase + kc * 16, ke = ks + 15;
+          if (ke >= need_lo && ks <= need_hi) need |= 1u << kc;
+          if (ke < L && (lb < 0 || (ke <= r0 && ks >= r0 + 15 - lb)))
+            full |= 1u << kc;
+        }
+        const __nv_bfloat16* qw = qs + warp * 16 * LDS;
+        const bool fast = need == 0xFu && full == 0xFu;
+#define LCT_ATTN_TILE(PASS)                                                 \
+  (fast ? attn_tile<MODE, PASS, true>(b, qw, need, full, kbase, L, lb, rg,  \
+                                      m, l, o, lane)                        \
+        : attn_tile<MODE, PASS, false>(b, qw, need, full, kbase, L, lb, rg, \
+                                       m, l, o, lane))
+        if (it.nkt == 1)
+          LCT_ATTN_TILE(PASS_AB);
+        else if (s >= it.nkt)
+          LCT_ATTN_TILE(PASS_B);
+        else
+          LCT_ATTN_TILE(PASS_A);
+#undef LCT_ATTN_TILE
+      }
+      __syncthreads();  // the buffer is free for the load two steps on
+    }
+    // Q and K/V are free: the next item's first loads run under this
+    // item's epilogue.
+    if (item + gridDim.x < items) {
+      const Item nx = item_at<QR>(item + gridDim.x, L, lb);
+      load_q<QR, THREADS>(a, nx, qs, tid);
+      load_kv<THREADS>(a, nx, kv, 0, tid);
+      cp_async_commit();
+    }
+    if (!active) continue;
+
+    const size_t rowbase = (size_t)it.n * L;
+    // MODE 0: s and bf16(g) at this lane's output elements (row rg[r],
+    // column nt * 8 + 2t), all loads issued before the products; bf16(g)
+    // is loaded as the A fragments of [g @ lin_w[:64]] (k-step kk holds
+    // columns kk * 16 + j * 8 + 2t).
+    float2 sv[8][2];
+    uint32_t gf[4][4];
+    if (MODE == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const size_t off =
+              (rowbase + min(rg[r], L - 1)) * C + nt * 8 + 2 * t;
+          sv[nt][r] = __ldg(reinterpret_cast<const float2*>(a.s + off));
+          if (a.g != nullptr)
+            gf[nt >> 1][2 * (nt & 1) + r] =
+                __ldg(reinterpret_cast<const unsigned*>(a.g + off));
+        }
+    }
+    // ctx (MODE 0: divided by den + 1e-20) as the A fragments of the
+    // output projection's four 16-channel k-steps, one per head.
+    uint32_t ca[NH][4];
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      float den[2] = {1.f, 1.f};
+      if (MODE == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) den[r] = quad_sum(l[h][r]) + 1e-20f;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (MODE == 0) {
+          ca[h][2 * j] = pack_bf16(o[h][j][0] / den[0], o[h][j][1] / den[0]);
+          ca[h][2 * j + 1] =
+              pack_bf16(o[h][j][2] / den[1], o[h][j][3] / den[1]);
+        } else {
+          ca[h][2 * j] = pack_bf16(o[h][j][0], o[h][j][1]);
+          ca[h][2 * j + 1] = pack_bf16(o[h][j][2], o[h][j][3]);
+        }
+      }
+    }
+    float acc[8][4] = {};
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t wf[4];
+        load_b_kn(wf, wo + h * 16 * LDS + np * 16, LDS, lane);
+        mma(acc[2 * np], ca[h], wf[0], wf[1]);
+        mma(acc[2 * np + 1], ca[h], wf[2], wf[3]);
+      }
+    if (MODE == 1) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (rg[r] < L)
+            *reinterpret_cast<float2*>(a.out + (rowbase + rg[r]) * C + col) =
+                make_float2(acc[nt][2 * r] + b0, acc[nt][2 * r + 1] + b1);
+      }
+      continue;
+    }
+    // a = ctx @ out_w + out_b, rounded: the A fragments of the Linear.
+    uint32_t aa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int nt = 2 * kk + j, col = nt * 8 + 2 * t;
+        const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
+        aa[kk][2 * j] = pack_bf16(acc[nt][0] + b0, acc[nt][1] + b1);
+        aa[kk][2 * j + 1] = pack_bf16(acc[nt][2] + b0, acc[nt][3] + b1);
+      }
+    float cb[8][4] = {};
+    const __nv_bfloat16* wla = wl;
+    if (a.lin_in == 2 * C) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t wf[4];
+          load_b_kn(wf, wl + kk * 16 * LDS + np * 16, LDS, lane);
+          mma(cb[2 * np], gf[kk], wf[0], wf[1]);
+          mma(cb[2 * np + 1], gf[kk], wf[2], wf[3]);
+        }
+      wla = wl + C * LDS;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t wf[4];
+        load_b_kn(wf, wla + kk * 16 * LDS + np * 16, LDS, lane);
+        mma(cb[2 * np], aa[kk], wf[0], wf[1]);
+        mma(cb[2 * np + 1], aa[kk], wf[2], wf[3]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      const float b0 = __ldg(a.lin_b + col), b1 = __ldg(a.lin_b + col + 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rg[r] >= L) continue;
+        float c0 = cb[nt][2 * r] + b0, c1 = cb[nt][2 * r + 1] + b1;
+        c0 = c0 >= 0.f ? c0 : 0.2f * c0;
+        c1 = c1 >= 0.f ? c1 : 0.2f * c1;
+        *reinterpret_cast<float2*>(a.out + (rowbase + rg[r]) * C + col) =
+            make_float2(sv[nt][r].x + c0, sv[nt][r].y + c1);
+      }
+    }
+  }
+}
+
+template <int MODE>
+cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st) {
+  constexpr size_t smem = attn_smem<MODE>();
+  cudaError_t e = allow_smem(attn_tc_kernel<MODE>, smem);
+  if (e != cudaSuccess) return e;
+  unsigned grid = 1;
+  constexpr int QR = AttnShape<MODE>::ROWS;
+  constexpr int THREADS = AttnShape<MODE>::THREADS;
+  e = persistent_grid(attn_tc_kernel<MODE>, THREADS, smem,
+                      a.N * ((a.L + QR - 1) / QR), &grid);
+  if (e != cudaSuccess) return e;
+  attn_tc_kernel<MODE><<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+}  // namespace lct

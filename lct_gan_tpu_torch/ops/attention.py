@@ -26,11 +26,11 @@ import torch
 from lct_gan_tpu_torch.ops.gru import round_bf16
 
 __all__ = ["mhsa_reference", "fused_mhsa", "MAX_PALLAS_SEQ",
-           "RecomputeBackward"]
+           "RecomputeBackward", "kernel_design", "mhsa_scratch"]
 
-# Longest sequence the fused kernel serves (its K/V shared-memory tile:
-# 33 floats per key, 135 KB at 1024). Above it the unbanded time attention
-# takes the plain path, as the JAX package's does.
+# Longest sequence the fused kernel serves (the precise kernel's K/V
+# shared-memory tile: 33 floats per key, 135 KB at 1024). Above it the
+# unbanded time attention takes the plain path, as the JAX package's does.
 MAX_PALLAS_SEQ = 1024
 
 
@@ -97,9 +97,29 @@ class RecomputeBackward(torch.autograd.Function):
         return (None, None, None, None) + tuple(grads)
 
 
+def kernel_design(precise: bool) -> str:
+    """The kernel design a mode runs on the card (csrc/ftf.cu, mhsa.cu):
+    bf16 operands on tensor cores, or all-f32 arithmetic on CUDA cores."""
+    return "simt-f32" if precise else "tc-bf16"
+
+
+def mhsa_scratch(rows: int, precise: bool):
+    """(name, shape, dtype) of each scratch tensor the kernels of one mode
+    write, in the C entry point's order: q, k, v as bf16 (the contract
+    rounds them; the context never leaves the kernel), or, precise, qkv
+    and the context in f32."""
+    if not precise:
+        return [("qkv", (rows, 192), torch.bfloat16)]
+    return [("qkv", (rows, 192), torch.float32),
+            ("ctx", (rows, 64), torch.float32)]
+
+
 _P = ctypes.c_void_p
-_MHSA_ARGTYPES = ([_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                  + [_P])
+# lct_mhsa_forward_bf16 / _f32: 6 inputs (key_bias may be null), the
+# scratch tensors of mhsa_scratch, out; N; L, lookback, device; stream.
+_MHSA_ARGTYPES = {
+    False: [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P],
+    True: [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P]}
 
 
 def _fused_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
@@ -130,17 +150,20 @@ def _fused_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
            f32_operand("out_proj_bias", out_proj_bias, (E,), dev),
            None if key_bias is None
            else f32_operand("key_bias", key_bias, (N, L), dev)]
-    qkv = torch.empty((N * L, 3 * E), device=dev, dtype=torch.float32)
-    ctx = torch.empty((N * L, E), device=dev, dtype=torch.float32)
+    precise = bool(precise)
+    scratch = [torch.empty(shape, device=dev, dtype=dtype)
+               for _, shape, dtype in mhsa_scratch(N * L, precise)]
     out = torch.empty((N, L, E), device=dev, dtype=torch.float32)
-    fn = kernel_function("mhsa", "lct_mhsa_forward", _MHSA_ARGTYPES)
+    entry = "lct_mhsa_forward_f32" if precise else "lct_mhsa_forward_bf16"
+    fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise])
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
-             qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(), N, L,
-             -1 if lookback is None else int(lookback), int(bool(precise)),
+             *(t.data_ptr() for t in scratch), out.data_ptr(), N, L,
+             -1 if lookback is None else int(lookback),
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "mhsa", "fused_mhsa kernel launch")
     fused_mhsa.launches += 1
+    fused_mhsa.design = kernel_design(precise)
     return out
 
 
@@ -163,3 +186,4 @@ def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
 
 
 fused_mhsa.launches = 0
+fused_mhsa.design = None   # kernel design of the last launch

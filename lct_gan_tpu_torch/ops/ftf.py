@@ -32,11 +32,11 @@ from typing import Optional
 
 import torch
 
-from lct_gan_tpu_torch.ops.attention import mhsa_reference
+from lct_gan_tpu_torch.ops.attention import kernel_design, mhsa_reference
 from lct_gan_tpu_torch.ops.gru import grouped_gru_hidden, round_bf16
 
 __all__ = ["fused_ftf_block", "ftf_block_reference", "ftf_forward_with_hidden",
-           "FusedFTFFunction", "layer_norm", "MAX_FTF_SEQ"]
+           "FusedFTFFunction", "layer_norm", "ftf_scratch", "MAX_FTF_SEQ"]
 
 # Longest sequence the fused block serves; longer time blocks take the
 # composed path (models/generator.py), as in the JAX package.
@@ -116,8 +116,29 @@ def ftf_block_reference(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
 
 
 _P = ctypes.c_void_p
-_FTF_ARGTYPES = ([_P] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-                 + [_P])
+# lct_ftf_forward_bf16 / _f32: 16 inputs (key_bias may be null), the four
+# scratch slots of ftf_scratch (gb may be null), out; N; L, D, lin_in,
+# lookback, device; stream.
+_FTF_ARGTYPES = [_P] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]
+
+
+def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool):
+    """(name, shape, dtype) of each scratch tensor the kernels of one mode
+    write, in the C entry point's order. bf16 (csrc/ftf.cu, tensor cores):
+    the per-direction hiddens, q, k, v as bf16 (the contract rounds them),
+    s = x + g (f32) and, for the frequency block's Linear (lin_in = 128),
+    bf16(g), else None (a null pointer): the only values the attention
+    kernel's epilogue reads besides q, k, v. precise (CUDA cores, all f32):
+    the GRU input projection, the hiddens, qkv and the attention context."""
+    C = 64
+    hid = ("hid", (D, rows, C), torch.float32)
+    if precise:
+        return [("xp", (rows, D * 3 * C), torch.float32), hid,
+                ("qkv", (rows, 3 * C), torch.float32),
+                ("ctx", (rows, C), torch.float32)]
+    return [hid, ("qkv", (rows, 3 * C), torch.bfloat16),
+            ("s", (rows, C), torch.float32),
+            ("gb", (rows, C), torch.bfloat16) if lin_in == 2 * C else None]
 
 
 def check_kernel_shapes(name: str, x, w_ih, lin_w, num_heads: int,
@@ -185,23 +206,24 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
            f("lin_b", lin_b, (C,), dev),
            None if key_bias is None
            else f("key_bias", key_bias, (N, L), dev)]
-    rows = N * L
-    scratch = [torch.empty(shape, device=dev, dtype=torch.float32)
-               for shape in ((rows, D * 3 * C),    # xp
-                             (D, rows, C),         # hid
-                             (rows, 3 * C),        # qkv
-                             (rows, C))]           # ctx
+    precise = bool(precise)
+    specs = ftf_scratch(N * L, D, lin_in, precise)
+    scratch = [torch.empty(spec[1], device=dev, dtype=spec[2])
+               if spec else None for spec in specs]
     out = torch.empty((N, L, C), device=dev, dtype=torch.float32)
-    fn = kernel_function("ftf", "lct_ftf_forward", _FTF_ARGTYPES)
+    entry = "lct_ftf_forward_f32" if precise else "lct_ftf_forward_bf16"
+    fn = kernel_function("ftf", entry, _FTF_ARGTYPES)
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
-             *(t.data_ptr() for t in scratch), out.data_ptr(),
+             *(None if t is None else t.data_ptr()
+               for t in scratch), out.data_ptr(),
              N, L, D, lin_in, -1 if lookback is None else int(lookback),
-             int(bool(precise)),
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "ftf", "fused_ftf_block kernel launch")
     fused_ftf_block.launches += 1
-    return out, scratch[1]
+    fused_ftf_block.design = kernel_design(precise)
+    return out, next(t for spec, t in zip(specs, scratch)
+                     if spec and spec[0] == "hid")
 
 
 class FusedFTFFunction(torch.autograd.Function):
@@ -275,3 +297,4 @@ def fused_ftf_block(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
 
 
 fused_ftf_block.launches = 0
+fused_ftf_block.design = None   # kernel design of the last launch

@@ -12,7 +12,8 @@ import torch
 from lct_gan_tpu.ops.attention import fused_mhsa as jax_fused
 from lct_gan_tpu.ops.attention import mhsa_reference as jax_reference
 from lct_gan_tpu_torch.models.attention import MultiHeadSelfAttention
-from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
+from lct_gan_tpu_torch.ops.attention import (fused_mhsa, mhsa_reference,
+                                             mhsa_scratch)
 from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa_reference
 
 
@@ -95,3 +96,23 @@ def test_module_dispatch_rules():
         want = mhsa_reference(xl, in_w, in_b, out_w, out_b)
         assert torch.equal(got, want)
     assert fused_mhsa.launches == 0
+
+
+@pytest.mark.parametrize("precise", [False, True])
+def test_kernel_scratch_per_mode(precise):
+    """The wrapper allocates only what the mode's kernels write: q, k, v as
+    bf16 for the tensor-core design (the context stays in registers), qkv
+    and the context in f32 for the all-f32 one. On the CPU nothing is
+    launched and no design is recorded."""
+    got = [(name, shape, dtype) for name, shape, dtype in
+           mhsa_scratch(777, precise)]
+    if precise:
+        assert got == [("qkv", (777, 192), torch.float32),
+                       ("ctx", (777, 64), torch.float32)]
+    else:
+        assert got == [("qkv", (777, 192), torch.bfloat16)]
+    design = fused_mhsa.design
+    x, p, _ = _inputs(2, 2, 8, False)
+    fused_mhsa(torch.from_numpy(x), *map(torch.from_numpy, p),
+               precise=precise)
+    assert fused_mhsa.design == design

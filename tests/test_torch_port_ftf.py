@@ -12,7 +12,9 @@ import torch
 
 from lct_gan_tpu.ops.ftf import ftf_block_reference as jax_reference
 from lct_gan_tpu.ops.ftf import fused_ftf_block as jax_fused
-from lct_gan_tpu_torch.ops.ftf import ftf_block_reference, fused_ftf_block
+from lct_gan_tpu_torch.ops.attention import kernel_design
+from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference, ftf_scratch,
+                                       fused_ftf_block)
 
 ORDER = ("ln1_scale", "ln1_bias", "w_ih", "w_hh", "b_ih", "b_hh",
          "ln2_scale", "ln2_bias", "in_w", "in_b", "out_w", "out_b",
@@ -110,3 +112,27 @@ def test_precise_wrapper_is_the_reference_on_cpu():
     a = fused_ftf_block(*_torch_args(x, p), **kw)
     b = ftf_block_reference(*_torch_args(x, p), **kw)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("precise", [False, True])
+def test_kernel_scratch_per_mode(D, precise):
+    """The wrapper allocates only what the mode's kernels write: in bf16
+    mode the hiddens (f32, kept for the backward), q, k, v in bf16, s = x +
+    g and, for the frequency block (lin_in = 128), bf16(g); the f32 design
+    writes the GRU input projection, the hiddens, qkv and the context. The
+    entries come in the C entry point's order, a None slot standing for the
+    null gb of the time block."""
+    lin_in = 64 * D
+    got = ftf_scratch(1000, D, lin_in, precise)
+    hid = ("hid", (D, 1000, 64), torch.float32)
+    if precise:
+        want = [("xp", (1000, D * 192), torch.float32), hid,
+                ("qkv", (1000, 192), torch.float32),
+                ("ctx", (1000, 64), torch.float32)]
+    else:
+        want = [hid, ("qkv", (1000, 192), torch.bfloat16),
+                ("s", (1000, 64), torch.float32),
+                ("gb", (1000, 64), torch.bfloat16) if D == 2 else None]
+    assert got == want
+    assert kernel_design(precise) == ("simt-f32" if precise else "tc-bf16")
