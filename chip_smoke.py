@@ -20,7 +20,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            same band at S = 772, the crossover witness; both kernels timed
            with that band at S = 516 and 644); fused_ftf_bwd at the B=64 x
            2 s training shapes (all 15 gradients, relative to each one's
-           largest magnitude), and the save-hidden forward under grad
+           largest magnitude; its lines also carry the design, the device
+           ms of each stage, from one torch.profiler pass, and the bytes of
+           scratch a launch allocates), and the
+           save-hidden forward under grad
   enhance  the committed demo weights through load_enhancer + make_enhance:
            B=128 x 2 s (3 FTF launches, 0 MHSA; matches the plain path run
            on the CPU) and one bucketed batch of 163,840 samples with
@@ -90,6 +93,41 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def stage_of(kernel_name):
+    """A profiler kernel name as a stage: the function's name with its
+    template arguments, without namespaces, return type or parameters;
+    the weight-gradient kernels and the reduction of their partials count
+    as one stage, "wgrad"."""
+    import re
+
+    name = kernel_name.split("(", 1)[0]
+    name = re.sub(r"^void\s+", "", name.strip())
+    name = re.sub(r"\b\w+::", "", name)
+    return "wgrad" if name.startswith(("wgrad", "reduce")) else name
+
+
+def stages_ms(torch, fn, reps=3):
+    """Device ms per call of each stage of `fn` (one torch.profiler pass
+    over `reps` calls after one warm-up), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            key = stage_of(evt.key)
+            out[key] = out.get(key, 0.0) + us / reps / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def band_pairs(L, lookback):
@@ -362,7 +400,7 @@ def check_kernels(torch, enhancer):
                   torch, lambda: fused_mhsa(x, *aparams, **kw), 5)})
         del x, kb
     torch.cuda.empty_cache()
-    results["fused_ftf_bwd"] = check_ftf_bwd(torch, gen, g)
+    results["fused_ftf_bwd"] = check_ftf_bwd(torch, gen, g, exp_floor_ms)
     return results
 
 
@@ -437,11 +475,13 @@ def ftf_bwd_flops(N, L, D, lin_in, lookback):
     return rows * 3 * (gemm + gru) + N * 4 * band_pairs(L, lookback) * 6 * 32
 
 
-def check_ftf_bwd(torch, gen, g):
+def check_ftf_bwd(torch, gen, g, exp_floor_ms):
     """fused_ftf_bwd against ftf_bwd_reference at the training shapes of
-    B=64 x 2 s, all 15 outputs, both modes."""
+    B=64 x 2 s, all 15 outputs, both modes; each case's design, device ms
+    per stage (stages_ms), scratch bytes and exp floor."""
     from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
     from lct_gan_tpu_torch.ops.ftf_bwd import (ftf_bwd_reference,
+                                               ftf_bwd_scratch_bytes,
                                                fused_ftf_bwd)
 
     names = ("dx", "dln1s", "dln1b", "dw_ih", "dw_hh", "db_ih", "db_hh",
@@ -474,6 +514,7 @@ def check_ftf_bwd(torch, gen, g):
             del out, act, comb
             got = fused_ftf_bwd(x, *params, hid, dout, **kw)
             torch.cuda.synchronize()
+            design = fused_ftf_bwd.design
             want = ftf_bwd_reference(x, *params, hid, dout, **kw)
             rel = {n: ((a - b).abs().max() / b.abs().max()).item()
                    for n, a, b in zip(names, got, want)}
@@ -487,6 +528,8 @@ def check_ftf_bwd(torch, gen, g):
             torch.cuda.empty_cache()
             ms = cuda_ms(torch, lambda: fused_ftf_bwd(x, *params, hid, dout,
                                                       **kw), 3)
+            stages = stages_ms(torch, lambda: fused_ftf_bwd(
+                x, *params, hid, dout, **kw))
             plain_ms = cuda_ms(torch, lambda: ftf_bwd_reference(
                 x, *params, hid, dout, **kw), 1)
             torch.cuda.empty_cache()
@@ -496,13 +539,21 @@ def check_ftf_bwd(torch, gen, g):
                       + 2 * sum(p.numel() for p in params) * 4)
             t_bytes = nbytes / H100_BYTES_PER_S
             t_ops = flops / PEAK_FLOPS[mode]
-            res = {"case": name, "mode": mode, "N": N, "L": L,
-                   "max_abs_err": abs_err, "max_rel_err": max(rel.values()),
+            # One exp per in-band attention pair and three per GRU unit per
+            # row per direction (two sigmoids, one tanh).
+            exps = N * 4 * band_pairs(L, lookback) + rows * D * 64 * 3
+            res = {"case": name, "mode": mode, "design": design, "N": N,
+                   "L": L, "max_abs_err": abs_err,
+                   "max_rel_err": max(rel.values()),
                    "rel_err": rel, "tol": TOL[mode],
                    "masked_share": (dout == 0).float().mean().item(),
-                   "ms": ms, "plain_ms": plain_ms,
+                   "ms": ms, "stages_ms": stages,
+                   "scratch_bytes": ftf_bwd_scratch_bytes(
+                       N, L, D, lin_in, mode == "precise"),
+                   "plain_ms": plain_ms,
                    "bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "exp_floor_ms": exp_floor_ms(exps),
                    "library_ms": library_attention_bwd_ms(torch, N, L,
                                                           lookback, mode),
                    "flops": flops}

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -204,7 +205,10 @@ def load_enhancer(path: str, device="cuda", *,
     mode. Accepts a generator `.npz` (its embedded train_cfg supplies
     compress_c and max_time_context) or a reference-format `.pt`
     ({'enhancer': state_dict, 'args': {...}}), loaded with strict=True.
-    Explicit compress_c / max_time_context override the file's."""
+    Explicit compress_c / max_time_context override the file's, with a
+    warning when they differ from its training value (they change outputs
+    without changing any parameter shape, as the JAX CLI warns:
+    `infer.py:113-132`)."""
     dev = resolve_device(device)
     if path.endswith(".npz") and os.path.isfile(path):
         params, meta = read_npz_params(path)
@@ -218,8 +222,18 @@ def load_enhancer(path: str, device="cuda", *,
         raise FileNotFoundError(f"no weight file at {path}")
     if compress_c is None:
         compress_c = float(saved.get("compress_c", 0.3))
-    if max_time_context is None and saved.get("max_time_context") is not None:
-        max_time_context = int(saved["max_time_context"])
+    elif ("compress_c" in saved
+          and compress_c != float(saved["compress_c"])):
+        warnings.warn(f"compress_c={compress_c} differs from the "
+                      f"checkpoint's training value {saved['compress_c']}",
+                      stacklevel=2)
+    if max_time_context is None:
+        if saved.get("max_time_context") is not None:
+            max_time_context = int(saved["max_time_context"])
+    elif saved and max_time_context != saved.get("max_time_context"):
+        warnings.warn(f"max_time_context={max_time_context} differs from "
+                      f"the checkpoint's training value "
+                      f"{saved.get('max_time_context')}", stacklevel=2)
     enhancer = LctEnhancer(
         gen_cfg=LCTGeneratorConfig(max_time_context=max_time_context),
         c=compress_c, precise=precise)

@@ -172,7 +172,6 @@ __global__ void __launch_bounds__(C, 8)
 
 namespace tc {
 
-constexpr int GS = 16;       // sequences per block: the rows of one m16 tile
 constexpr int TS = 8;        // steps per chunk of staged LN1 rows
 constexpr int GRU_ROWS = 4;  // LN1 rows a warp stages per step (D*GS / warps)
 
@@ -193,17 +192,6 @@ struct GruArgs {
 // Two chunk buffers of LN1 rows, bf16 [2][D][TS][GS][LDS].
 inline size_t gru_smem(int D) {
   return (size_t)2 * D * TS * GS * LDS * sizeof(__nv_bfloat16);
-}
-
-// The gates from one ex2 and one reciprocal each on the special-function
-// unit: a few f32 ulps from expf / tanhf, far below the bf16 rounding of h
-// that the next step's product takes.
-__device__ __forceinline__ float sigmoid_sfu(float v) {
-  return __fdividef(1.f, 1.f + __expf(-v));
-}
-
-__device__ __forceinline__ float tanh_sfu(float v) {
-  return fmaf(-2.f, __fdividef(1.f, 1.f + __expf(2.f * v)), 1.f);
 }
 
 // LN1, the grouped input projection and the GRU recurrence in one pass, on
@@ -242,32 +230,13 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
   const size_t NL = (size_t)a.N * L;
 
   const int dg = d * G + grp;
-  const float* wi = a.w_ih + (size_t)dg * H * (3 * H);
-  const float* wh = a.w_hh + (size_t)dg * H * (3 * H);
-  uint32_t bi[6][2], bh[6][2];
-#pragma unroll
-  for (int nt = 0; nt < 6; ++nt) {
-    const int col = nt * 8 + g;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int r = 2 * t + 8 * k;
-      bi[nt][k] = pack_bf16(wi[r * 3 * H + col], wi[(r + 1) * 3 * H + col]);
-      bh[nt][k] = pack_bf16(wh[r * 3 * H + col], wh[(r + 1) * 3 * H + col]);
-    }
-  }
-  // Biases of this lane's units 8 jh + 2t + e: r and z summed, n apart.
-  float brz[2][2][2], bxn[2][2], bhn[2][2];
-#pragma unroll
-  for (int jh = 0; jh < 2; ++jh)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int o = dg * 3 * H + 8 * jh + 2 * t + e;
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-        brz[q][jh][e] = a.b_ih[o + q * H] + a.b_hh[o + q * H];
-      bxn[jh][e] = a.b_ih[o + 2 * H];
-      bhn[jh][e] = a.b_hh[o + 2 * H];
-    }
+  GruFrags f;
+  load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, dg, lane);
+  const auto& bi = f.bi;
+  const auto& bh = f.bh;
+  const auto& brz = f.brz;
+  const auto& bxn = f.bxn;
+  const auto& bhn = f.bhn;
   const float ls0 = a.ln_s[lane], ls1 = a.ln_s[lane + 32];
   const float lb0 = a.ln_b[lane], lb1 = a.ln_b[lane + 32];
 

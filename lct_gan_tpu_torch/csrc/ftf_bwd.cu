@@ -1,10 +1,56 @@
 // FTF block backward for Hopper (sm_90a): the whole function of the TPU
-// kernel `lct_gan_tpu/ops/ftf_bwd.py::_ftf_bwd_kernel`, as a row of simple
-// kernels. Inputs: x, dout [N*L, 64], the forward's per-direction hiddens
-// hid [D, N*L, 64] (unrounded f32) and the block's parameters. Outputs: dx
-// and the 14 parameter gradients, f32, GRU gradients in the grouped
-// [D, G, H, 3H] / [D, G, 3H] layout.
+// kernel `lct_gan_tpu/ops/ftf_bwd.py::_ftf_bwd_kernel`. Inputs: x, dout
+// [N*L, 64], the forward's per-direction hiddens hid [D, N*L, 64]
+// (unrounded f32) and the block's parameters. Outputs: dx and the 14
+// parameter gradients, f32, GRU gradients in the grouped [D, G, H, 3H] /
+// [D, G, 3H] layout. Two designs, one per mode.
 //
+// Bound on the H100: at the training shapes (B=64 x 2 s; freq N=8,256 L=33,
+// time N=2,112 L=129: 272,448 rows each) the function reads x, dout and hid
+// and writes dx (1.0-1.3 KB per row), 279-349 MB or 83-104 us at 3.35 TB/s,
+// and does 47-71 GFLOP of useful products (47-71 us at the 989 TFLOP/s bf16
+// rate): in bf16 it is bound by bytes.
+//
+// bf16 (lct_ftf_backward_bf16), every product on tensor cores (tc.cuh's
+// mma.sync m16n8k16 fragments), nine launches:
+//   1. qkv_tc_kernel       LN2 and qkv recomputed; s = x + g, bf16(g)
+//   2. attn_fwd_tc_kernel  the context (bf16) and the softmax's (m, 1/l)
+//   3. comb_bwd_tc_kernel  out-proj, Linear, LeakyReLU backward -> dcomb, da,
+//                          dctx (bf16), dg_lin
+//   4. attn_bwd_tc_kernel  softmax VJP -> dqkv (bf16)
+//   5. dn2_tc_kernel       dn2 = dqkv in_w^T, LN2 backward -> ds; bf16 n2, n1
+//   6. bptt_tc_kernel      GRU projections, gate factors, BPTT -> bf16 dxp,
+//                          dhp, h_prev
+//   7. dn1_tc_kernel       dn1 = dxp W_ih^T, LN1 backward -> dx
+//   8. wgrad_tc_kernel     the 5 weight gradients as A^T B over row chunks
+//   9. reduce_tc_kernel    every partial sum, in block order
+// What holds a simple design back, and what this one does about it:
+//   * Intermediates in device memory. Only values the contract rounds to
+//     bf16 cross a kernel boundary as bf16 (qkv, ctx, a, dcomb, da, dctx,
+//     dqkv, n1, n2, h_prev, dxp, dhp); f32 crosses only where the contract
+//     keeps f32 (s, ds, dg_lin, the softmax statistics). ~3.8 KB per row at
+//     D = 2, against ~13 KB.
+//   * Products on CUDA cores. Every product, the weight gradients included,
+//     is mma.sync on bf16 operands with f32 accumulation: the contract's
+//     arithmetic up to the order of the f32 sums. Weights are staged in
+//     shared memory once per persistent block; row-tile kernels give each of
+//     4 warps 16 whole rows, so the row-wise LayerNorm backward needs no
+//     block barrier.
+//   * Bias and LayerNorm-scale gradients are column sums of unrounded f32
+//     values: each producing kernel keeps them in f32 registers and writes
+//     one partial row per block.
+//   * The attention: one (sequence, head) per block, its rows resident in
+//     shared memory; key chunks outside the band skipped. p is recomputed
+//     from the stored (m, 1/l), the rowsum sum(dp p) taken exactly in a
+//     first walk, then dq by query tiles and dk, dv by key tiles (keys as
+//     the M rows), so no sum crosses a work item.
+//   * The recurrence stays a sequential walk, latency-bound: the gate
+//     factors are computed in the walk itself on tensor cores (as in
+//     ftf.cu's gru_tc_kernel), dhp passes to the carry product in registers,
+//     and each step's loads are issued one step ahead.
+//
+// precise (lct_ftf_backward_f32), all f32 on CUDA cores (common.cuh), the
+// simple design of one kernel per stage:
 //   1. ln_kernel + proj_kernel<false>  recompute s = x + sum_d hid, LN2, qkv
 //   2. attn_kernel<1>                  recompute the context (normalised p)
 //   3. comb_bwd_kernel                 out-proj, Linear, LeakyReLU backward
@@ -21,36 +67,28 @@
 //  10. wgrad_kernel + reduce_kernel    every parameter gradient: per-chunk
 //                                      partial sums over rows, then the chunks
 //                                      summed in a fixed order
+// It round-trips ~20 f32 intermediates per row through device memory and
+// walks the recurrence with one thread per hidden unit. Its kernels keep
+// their bf16 `round` path; only precise mode calls this entry now.
 //
 // Rounding (common.cuh): every GEMM operand is rounded to bf16 exactly where
 // the TPU kernel rounds it (its `cd` casts), products accumulate in f32;
-// `precise` keeps everything f32. The hp and xp recomputes round h_{t-1},
-// n1 and the weights where the forward does and sum in the order of the
-// f32 forward (gru_kernel, proj_kernel), so in precise mode the backward
-// sees the forward's own gate values. The bf16 forward (ftf.cu's
-// gru_tc_kernel) sums on tensor cores in another order and takes its
-// sigmoid and tanh from the special-function unit's exp and reciprocal:
-// there the gates agree to f32 noise, not bit for bit, and so does the qkv
-// the backward recomputes. Both sides of a gradient see the same saved
-// hiddens, so this moves no gradient beyond that noise.
+// `precise` keeps everything f32. The f32 design's hp and xp recomputes
+// round h_{t-1}, n1 and the weights where the forward does and sum in the
+// order of the f32 forward (gru_kernel, proj_kernel), so in precise mode
+// the backward sees the forward's own gate values. The bf16 forward (ftf.cu's
+// gru_tc_kernel) and backward (bptt_tc_kernel) sum on tensor cores and take
+// sigmoid and tanh from the special-function unit's exp and reciprocal: the
+// recomputed gates agree with the forward's to f32 noise, not bit for bit,
+// and so does the qkv the backward recomputes. Both sides of a gradient see
+// the same saved hiddens, so this moves no gradient beyond that noise.
 //
-// Determinism: no atomics. A parameter gradient is a sum over all N*L rows;
-// wgrad_kernel gives each block a fixed chunk of rows and writes its partial
-// sums, and reduce_kernel adds the chunks in index order. The result is the
-// same from run to run for the same shapes.
-//
-// Bound on the H100: at the training shapes (B=64 x 2 s; freq N=8,256 L=33,
-// time N=2,112 L=129: 272,448 rows each) the function reads x, dout and hid
-// and writes dx (1.0-1.3 KB per row), 279-349 MB or 83-104 us at 3.35 TB/s,
-// and does 47-71 GFLOP of useful products (47-71 us at the 989 TFLOP/s bf16
-// rate): in bf16 it is bound by bytes. This simple design is far from that: it
-// round-trips ~20 intermediates of 64-384 floats per row through device
-// memory (~13 KB per row), runs every product on CUDA cores in f32, and
-// walks the recurrence with one thread per hidden unit. Keeping a tile of
-// sequences resident across the stages and moving the products to wgmma is
-// later work.
+// Determinism: no atomics. Every sum over rows is taken by blocks over
+// fixed rows (chunks, persistent tiles, or 16 sequences) and the blocks'
+// partial rows are added in index order. The result is the same from run
+// to run for the same shapes on the same card.
 
-#include "common.cuh"
+#include "tc.cuh"
 
 namespace lct {
 
@@ -706,6 +744,1321 @@ struct Scratch {
   }
 };
 
+// ===========================================================================
+// bf16 mode on tensor cores (lct_ftf_backward_bf16).
+// ===========================================================================
+namespace tc {
+
+constexpr int RT = 4 * 32;          // threads of the row-tile kernels
+constexpr int LDH = HD + 8;         // bf16 row stride of one head's [L][16]
+constexpr int LDI = 3 * H + 8;      // bf16 row stride of W_ih [.., 16][48]
+constexpr int MAX_ROW_BLOCKS = 1024;  // cap of a row-tile kernel's grid
+constexpr int WG_BLOCKS = 528;        // cap of wgrad_tc_kernel's grid
+constexpr int WG_UNITS = 12;          // 16x16 output units per warp, at most
+constexpr int WG_LDA = C + 8, WG_LDB = 3 * C + 8;
+constexpr int WG_STAGE = 64 * (WG_LDA + WG_LDB);  // bf16 per staged tile pair
+constexpr int WG_MAXP = 8;
+
+// A fragment of rows r0..r0+15, cols col..col+15 of a row-major bf16 array
+// in device memory; rows at or past `rows` read as zero.
+__device__ __forceinline__ void ldg_a(uint32_t a[4],
+                                      const __nv_bfloat16* __restrict__ p,
+                                      int ld, long long r0, long long rows,
+                                      int col, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const long long ra = r0 + g, rb = ra + 8;
+  const unsigned* pa =
+      reinterpret_cast<const unsigned*>(p + (size_t)ra * ld + col + 2 * t);
+  const unsigned* pb =
+      reinterpret_cast<const unsigned*>(p + (size_t)rb * ld + col + 2 * t);
+  a[0] = ra < rows ? __ldg(pa) : 0u;
+  a[1] = rb < rows ? __ldg(pb) : 0u;
+  a[2] = ra < rows ? __ldg(pa + 4) : 0u;
+  a[3] = rb < rows ? __ldg(pb + 4) : 0u;
+}
+
+// A fragment of the transpose of a row-major [k][m] bf16 tile in shared
+// memory: A(m, k) = tile[k][m], m and k 0..15 from `base`.
+__device__ __forceinline__ void load_at(uint32_t a[4],
+                                        const __nv_bfloat16* base, int ld,
+                                        int lane) {
+  const int mi = lane >> 3, rr = lane & 7;
+  ldsm_x4_t(a, base + ((mi >> 1) * 8 + rr) * ld + (mi & 1) * 8);
+}
+
+// The lane's f32 values of a 64-column row-major array at the C-fragment
+// positions of 8 n8 tiles: v[nt][r] = (row r0 + g + 8r, cols nt*8 + 2t, +1).
+__device__ __forceinline__ void ldg_c(float2 v[8][2],
+                                      const float* __restrict__ p,
+                                      long long r0, long long rows, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = r0 + g + 8 * r;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      v[nt][r] = row < rows ? __ldg(reinterpret_cast<const float2*>(
+                                  p + (size_t)row * C + nt * 8 + 2 * t))
+                            : make_float2(0.f, 0.f);
+  }
+}
+
+// Stores two values of one row as a bf16 pair (row < rows only).
+__device__ __forceinline__ void st_pair(__nv_bfloat16* p, long long row,
+                                        long long rows, int ld, int col,
+                                        uint32_t v) {
+  if (row < rows)
+    *reinterpret_cast<uint32_t*>(p + (size_t)row * ld + col) = v;
+}
+
+// Column sums of 64 columns held in C-fragment layout by the 4 warps of a
+// block (cs[nt][e]: column nt*8 + 2t + e, summed over the lane's rows),
+// added in a fixed order (lanes, then warps) and written to out[0..63].
+__device__ __forceinline__ void block_colsum64(float (&cs)[8][2], float* red,
+                                               float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = cs[nt][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[warp * C + nt * 8 + 2 * lane + e] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < C) {
+    const int c = threadIdx.x;
+    out[c] = ((red[c] + red[C + c]) + red[2 * C + c]) + red[3 * C + c];
+  }
+  __syncthreads();
+}
+
+// Row-tile kernels: persistent blocks of 4 warps over tiles of 64 rows, each
+// warp owning 16 whole rows (row-wise LayerNorm needs no block barrier);
+// weights staged in shared memory as bf16 once per block. Each block writes
+// its column sums (bias and LayerNorm-scale gradients, in f32) as one
+// partial row; reduce_tc_kernel adds the rows in block order.
+
+// ---------------------------------------------------------------------------
+// Combine layer backward on tensor cores, per 16 rows:
+//   a = bf16(ctx) @ bf16(out_w) + out_b        (stored rounded: dlin_w operand)
+//   comb = [bf16(g) @ bf16(lin_w[:64])] + bf16(a) @ bf16(lin_w[64 or 0:]) + lin_b
+//   dcomb = dout * (comb >= 0 ? 1 : 0.2)       (stored rounded)
+//   dga = bf16(dcomb) @ bf16(lin_w)^T -> dg_lin (frequency block, f32), da
+//   dctx = bf16(da) @ bf16(out_w)^T            (stored rounded)
+// Column sums: dcomb (dlin_b), da (dout_b). lin_w and out_w serve both
+// directions from one staged copy: [k][n] loads forward, [n][k] backward.
+struct CombArgs {
+  const __nv_bfloat16* ctx;  // [rows, 64]
+  const __nv_bfloat16* gb;   // [rows, 64] bf16(g), lin_in == 128 only
+  const float* dout;         // [rows, 64]
+  const float* out_w;
+  const float* out_b;
+  const float* lin_w;        // [lin_in, 64]
+  const float* lin_b;
+  int lin_in;
+  __nv_bfloat16* ab;         // [rows, 64] out: bf16(a)
+  __nv_bfloat16* dcomb;      // [rows, 64] out
+  __nv_bfloat16* da;         // [rows, 64] out
+  __nv_bfloat16* dctx;       // [rows, 64] out
+  float* dglin;              // [rows, 64] out, lin_in == 128 only
+  float* part;               // [grid, 128] out: dlin_b, dout_b partials
+  long long rows;
+};
+
+__global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 wo[C * LDS];
+  __shared__ __align__(16) __nv_bfloat16 wl[2 * C * LDS];
+  __shared__ float red[4 * C];
+  stage_weight(wo, LDS, a.out_w, C, C);
+  stage_weight(wl, LDS, a.lin_w, a.lin_in, C);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool freq = a.lin_in == 2 * C;
+  const long long rows = a.rows;
+  float cs_dc[8][2] = {}, cs_da[8][2] = {};
+  const long long tiles = (rows + 63) / 64;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * 64 + warp * 16;
+    if (r0 >= rows) continue;
+    uint32_t ca[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldg_a(ca[kk], a.ctx, C, r0, rows, kk * 16, lane);
+    float acc[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t wf[4];
+        load_b_kn(wf, wo + kk * 16 * LDS + np * 16, LDS, lane);
+        mma(acc[2 * np], ca[kk], wf[0], wf[1]);
+        mma(acc[2 * np + 1], ca[kk], wf[2], wf[3]);
+      }
+    uint32_t aa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t v =
+            pack_bf16(acc[nt][2 * r] + b0, acc[nt][2 * r + 1] + b1);
+        aa[nt >> 1][2 * (nt & 1) + r] = v;
+        st_pair(a.ab, r0 + g + 8 * r, rows, C, col, v);
+      }
+    }
+    float cb[8][4] = {};
+    const __nv_bfloat16* wla = wl;
+    if (freq) {
+      uint32_t gf[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldg_a(gf[kk], a.gb, C, r0, rows, kk * 16, lane);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t wf[4];
+          load_b_kn(wf, wl + kk * 16 * LDS + np * 16, LDS, lane);
+          mma(cb[2 * np], gf[kk], wf[0], wf[1]);
+          mma(cb[2 * np + 1], gf[kk], wf[2], wf[3]);
+        }
+      wla = wl + C * LDS;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t wf[4];
+        load_b_kn(wf, wla + kk * 16 * LDS + np * 16, LDS, lane);
+        mma(cb[2 * np], aa[kk], wf[0], wf[1]);
+        mma(cb[2 * np + 1], aa[kk], wf[2], wf[3]);
+      }
+    // dcomb, rounded: the A fragments of dga.
+    uint32_t dc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      const float b0 = __ldg(a.lin_b + col), b1 = __ldg(a.lin_b + col + 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long row = r0 + g + 8 * r;
+        const float2 dv =
+            row < rows ? __ldg(reinterpret_cast<const float2*>(
+                             a.dout + (size_t)row * C + col))
+                       : make_float2(0.f, 0.f);
+        const float d0 = dv.x * (cb[nt][2 * r] + b0 >= 0.f ? 1.f : 0.2f);
+        const float d1 = dv.y * (cb[nt][2 * r + 1] + b1 >= 0.f ? 1.f : 0.2f);
+        cs_dc[nt][0] += d0;
+        cs_dc[nt][1] += d1;
+        const uint32_t v = pack_bf16(d0, d1);
+        dc[nt >> 1][2 * (nt & 1) + r] = v;
+        st_pair(a.dcomb, row, rows, C, col, v);
+      }
+    }
+    // dga = dcomb @ lin_w^T: B(k = j, n = m) = lin_w[m][j], a [n][k] load.
+    // Frequency block: columns 0..63 are dg_lin, 64..127 da.
+    if (freq) {
+      float gl[8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t wf[4];
+          load_b_nk(wf, wl + np * 16 * LDS + kk * 16, LDS, lane);
+          mma(gl[2 * np], dc[kk], wf[0], wf[1]);
+          mma(gl[2 * np + 1], dc[kk], wf[2], wf[3]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long row = r0 + g + 8 * r;
+          if (row < rows)
+            *reinterpret_cast<float2*>(a.dglin + (size_t)row * C + nt * 8 +
+                                       2 * t) =
+                make_float2(gl[nt][2 * r], gl[nt][2 * r + 1]);
+        }
+    }
+    const __nv_bfloat16* wld = freq ? wl + C * LDS : wl;
+    float dd[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t wf[4];
+        load_b_nk(wf, wld + np * 16 * LDS + kk * 16, LDS, lane);
+        mma(dd[2 * np], dc[kk], wf[0], wf[1]);
+        mma(dd[2 * np + 1], dc[kk], wf[2], wf[3]);
+      }
+    uint32_t dr[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cs_da[nt][0] += dd[nt][2 * r];
+        cs_da[nt][1] += dd[nt][2 * r + 1];
+        const uint32_t v = pack_bf16(dd[nt][2 * r], dd[nt][2 * r + 1]);
+        dr[nt >> 1][2 * (nt & 1) + r] = v;
+        st_pair(a.da, r0 + g + 8 * r, rows, C, nt * 8 + 2 * t, v);
+      }
+    // dctx = da @ out_w^T: B(k = c', n = c) = out_w[c][c'].
+    float dx[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t wf[4];
+        load_b_nk(wf, wo + np * 16 * LDS + kk * 16, LDS, lane);
+        mma(dx[2 * np], dr[kk], wf[0], wf[1]);
+        mma(dx[2 * np + 1], dr[kk], wf[2], wf[3]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        st_pair(a.dctx, r0 + g + 8 * r, rows, C, nt * 8 + 2 * t,
+                pack_bf16(dx[nt][2 * r], dx[nt][2 * r + 1]));
+  }
+  float* out = a.part + (size_t)blockIdx.x * 2 * C;
+  block_colsum64(cs_dc, red, out);
+  block_colsum64(cs_da, red, out + C);
+}
+
+// ---------------------------------------------------------------------------
+// The qkv projection and LN2 backward, per 16 rows:
+//   dn2 = dqkv @ bf16(in_w)^T                   (12 k-steps of 16)
+//   xh2 = (s - mu) rstd from s = x + g          (LN2 recomputed, f32)
+//   ds = dout + rstd (dxh - mean(dxh) - xh2 mean(dxh xh2)),  dxh = dn2 ln2_s
+// Writes ds (f32), bf16(n2) = bf16(xh2 ln2_s + ln2_b), the din_w operand,
+// and bf16(n1) = bf16(LN1(x)), the GRU stage's input operand (row-wise, so
+// it costs the recurrence nothing). Column sums: dn2 xh2 (dln2_s), dn2
+// (dln2_b).
+struct Dn2Args {
+  const __nv_bfloat16* dqkv;  // [rows, 192]
+  const float* s;             // [rows, 64]
+  const float* dout;
+  const float* x;
+  const float* in_w;          // [64, 192]
+  const float* ln_s;
+  const float* ln_b;
+  const float* ln1_s;
+  const float* ln1_b;
+  __nv_bfloat16* n2;          // [rows, 64] out
+  __nv_bfloat16* n1;          // [rows, 64] out
+  float* ds;                  // [rows, 64] out
+  float* part;                // [grid, 128] out: dln2_s, dln2_b partials
+  long long rows;
+};
+
+// LayerNorm statistics of the two rows a lane holds (C-fragment layout),
+// proj_kernel's fast-variance arithmetic: max(E[x^2] - mu^2, 0), eps 1e-6.
+__device__ __forceinline__ void ln_stats(float2 (&v)[8][2], float mu[2],
+                                         float rs[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s += v[nt][r].x + v[nt][r].y;
+      q += v[nt][r].x * v[nt][r].x + v[nt][r].y * v[nt][r].y;
+    }
+    mu[r] = quad_sum(s) * (1.f / C);
+    const float ms = quad_sum(q) * (1.f / C);
+    rs[r] = rsqrtf(fmaxf(ms - mu[r] * mu[r], 0.f) + 1e-6f);
+  }
+}
+
+// LayerNorm backward of the lane's two rows: returns in d the values
+// rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dy * scale, and adds
+// dy * xh, dy to the column sums.
+__device__ __forceinline__ void ln_bwd_rows(float (&dy)[8][4],
+                                            float2 (&v)[8][2],
+                                            const float mu[2],
+                                            const float rs[2],
+                                            const float* __restrict__ scale,
+                                            float (&cs_s)[8][2],
+                                            float (&cs_b)[8][2], int t) {
+  float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    const float s0 = __ldg(scale + col), s1 = __ldg(scale + col + 1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float x0 = (v[nt][r].x - mu[r]) * rs[r];
+      const float x1 = (v[nt][r].y - mu[r]) * rs[r];
+      const float y0 = dy[nt][2 * r], y1 = dy[nt][2 * r + 1];
+      cs_s[nt][0] += y0 * x0;
+      cs_s[nt][1] += y1 * x1;
+      cs_b[nt][0] += y0;
+      cs_b[nt][1] += y1;
+      m1[r] += y0 * s0 + y1 * s1;
+      m2[r] += y0 * s0 * x0 + y1 * s1 * x1;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m1[r] = quad_sum(m1[r]) * (1.f / C);
+    m2[r] = quad_sum(m2[r]) * (1.f / C);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    const float s0 = __ldg(scale + col), s1 = __ldg(scale + col + 1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float x0 = (v[nt][r].x - mu[r]) * rs[r];
+      const float x1 = (v[nt][r].y - mu[r]) * rs[r];
+      dy[nt][2 * r] = rs[r] * (dy[nt][2 * r] * s0 - m1[r] - x0 * m2[r]);
+      dy[nt][2 * r + 1] =
+          rs[r] * (dy[nt][2 * r + 1] * s1 - m1[r] - x1 * m2[r]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
+  __shared__ __align__(16) __nv_bfloat16 ws[C * LDW];
+  __shared__ float red[4 * C];
+  stage_weight(ws, LDW, a.in_w, C, 3 * C);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long rows = a.rows;
+  float cs_s[8][2] = {}, cs_b[8][2] = {};
+  const long long tiles = (rows + 63) / 64;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * 64 + warp * 16;
+    if (r0 >= rows) continue;
+    float acc[8][4] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < 12; ++kk) {
+      uint32_t af[4];
+      ldg_a(af, a.dqkv, 3 * C, r0, rows, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t wf[4];
+        load_b_nk(wf, ws + np * 16 * LDW + kk * 16, LDW, lane);
+        mma(acc[2 * np], af, wf[0], wf[1]);
+        mma(acc[2 * np + 1], af, wf[2], wf[3]);
+      }
+    }
+    float2 sv[8][2];
+    ldg_c(sv, a.s, r0, rows, lane);
+    float mu[2], rs[2];
+    ln_stats(sv, mu, rs);
+    ln_bwd_rows(acc, sv, mu, rs, a.ln_s, cs_s, cs_b, t);
+    float2 dv[8][2];
+    ldg_c(dv, a.dout, r0, rows, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      const float s0 = __ldg(a.ln_s + col), s1 = __ldg(a.ln_s + col + 1);
+      const float b0 = __ldg(a.ln_b + col), b1 = __ldg(a.ln_b + col + 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long row = r0 + g + 8 * r;
+        if (row >= rows) continue;
+        *reinterpret_cast<float2*>(a.ds + (size_t)row * C + col) =
+            make_float2(dv[nt][r].x + acc[nt][2 * r],
+                        dv[nt][r].y + acc[nt][2 * r + 1]);
+        const float x0 = (sv[nt][r].x - mu[r]) * rs[r];
+        const float x1 = (sv[nt][r].y - mu[r]) * rs[r];
+        *reinterpret_cast<uint32_t*>(a.n2 + (size_t)row * C + col) =
+            pack_bf16(x0 * s0 + b0, x1 * s1 + b1);
+      }
+    }
+    ldg_c(sv, a.x, r0, rows, lane);
+    ln_stats(sv, mu, rs);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      const float s0 = __ldg(a.ln1_s + col), s1 = __ldg(a.ln1_s + col + 1);
+      const float b0 = __ldg(a.ln1_b + col), b1 = __ldg(a.ln1_b + col + 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        st_pair(a.n1, r0 + g + 8 * r, rows, C, col,
+                pack_bf16((sv[nt][r].x - mu[r]) * rs[r] * s0 + b0,
+                          (sv[nt][r].y - mu[r]) * rs[r] * s1 + b1));
+    }
+  }
+  float* out = a.part + (size_t)blockIdx.x * 2 * C;
+  block_colsum64(cs_s, red, out);
+  block_colsum64(cs_b, red, out + C);
+}
+
+// ---------------------------------------------------------------------------
+// The input projection and LN1 backward, per 16 rows:
+//   dn1[:, g*16 + i] = sum_d bf16(dxp[:, d, g, :]) @ bf16(W_ih[d, g])^T
+//   dx = ds + rstd (dxh - mean(dxh) - xh1 mean(dxh xh1)), dxh = dn1 ln1_s
+// LN1 recomputed from x. Column sums: dn1 xh1 (dln1_s), dn1 (dln1_b).
+struct Dn1Args {
+  const __nv_bfloat16* dxp;  // [rows, D*192]
+  const float* x;
+  const float* ds;
+  const float* w_ih;         // [D, G, H, 3H]
+  const float* ln_s;
+  float* dx;                 // [rows, 64] out
+  float* part;               // [grid, 128] out: dln1_s, dln1_b partials
+  long long rows;
+  int D;
+};
+
+__global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
+  __shared__ __align__(16) __nv_bfloat16 wi[2 * G * H * LDI];
+  __shared__ float red[4 * C];
+  const int D = a.D;
+  stage_weight(wi, LDI, a.w_ih, D * G * H, 3 * H);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long rows = a.rows;
+  float cs_s[8][2] = {}, cs_b[8][2] = {};
+  const long long tiles = (rows + 63) / 64;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * 64 + warp * 16;
+    if (r0 >= rows) continue;
+    // n tile 2 grp + jh holds columns grp*16 + 8 jh .. (dn1's layout).
+    float acc[8][4] = {};
+    for (int d = 0; d < D; ++d)
+#pragma unroll
+      for (int grp = 0; grp < G; ++grp)
+#pragma unroll
+        for (int kk = 0; kk < 3; ++kk) {
+          uint32_t af[4], wf[4];
+          ldg_a(af, a.dxp, D * 3 * C, r0, rows,
+                d * 3 * C + grp * 3 * H + kk * 16, lane);
+          // B(k = m, n = i) = W_ih[d, grp][i][m], a [n][k] load.
+          load_b_nk(wf, wi + (d * G + grp) * H * LDI + kk * 16, LDI, lane);
+          mma(acc[2 * grp], af, wf[0], wf[1]);
+          mma(acc[2 * grp + 1], af, wf[2], wf[3]);
+        }
+    float2 xv[8][2];
+    ldg_c(xv, a.x, r0, rows, lane);
+    float mu[2], rs[2];
+    ln_stats(xv, mu, rs);
+    ln_bwd_rows(acc, xv, mu, rs, a.ln_s, cs_s, cs_b, t);
+    float2 dv[8][2];
+    ldg_c(dv, a.ds, r0, rows, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long row = r0 + g + 8 * r;
+        if (row < rows)
+          *reinterpret_cast<float2*>(a.dx + (size_t)row * C + nt * 8 + 2 * t) =
+              make_float2(dv[nt][r].x + acc[nt][2 * r],
+                          dv[nt][r].y + acc[nt][2 * r + 1]);
+      }
+  }
+  float* out = a.part + (size_t)blockIdx.x * 2 * C;
+  block_colsum64(cs_s, red, out);
+  block_colsum64(cs_b, red, out + C);
+}
+
+// ---------------------------------------------------------------------------
+// The GRU backward on tensor cores: the input and hidden projections, the
+// gate factors and BPTT in one pass. A block takes 16 sequences; warp w
+// runs direction w / 4, group w % 4 over them, walking the steps in the
+// order opposite to the forward's (descending for direction 0). Per step,
+// with the 16 sequences as the M rows of one m16n8k16 tile:
+//   xp, hp   bf16(n1_t) @ bf16(W_ih), bf16(h_prev) @ bf16(W_hh)  12 products
+//            (h_prev: the saved hidden one step back in the forward's order,
+//            0 at the sequence's start), gates as gru_tc_kernel forms them
+//   K1 = P hp_n r(1-r), K2 = (h_prev - n) z(1-z), K3 = P r, P = (1-z)(1-n^2)
+//   dh  = carry + dg_t,  dg = ds (+ dg_lin)
+//   dhp = (dh K1, dh K2, dh K3),  dxp = (dh K1, dh K2, dh P)
+//   carry = dh z + bf16(dhp) @ bf16(W_hh)^T                        6 products
+// dhp, rounded and packed, is the carry product's A fragment, so the chain
+// stays in registers. The recurrence is latency-bound (one warp per
+// direction and group of 16 sequences), so a step reads only what it needs
+// (the n1 A fragment, bf16, written by dn2_tc_kernel; h_prev and dg at the
+// C-fragment positions), and the next step's loads are issued before this
+// step's arithmetic. Writes bf16(h_prev), and bf16 dxp and dhp for the
+// weight and input gradients; db_ih and db_hh are the column sums of the
+// unrounded dxp and dhp, one partial row per block.
+struct BpttArgs {
+  const __nv_bfloat16* n1;  // [N*L, 64] bf16(LN1(x))
+  const float* w_ih;   // [D, G, H, 3H]
+  const float* w_hh;
+  const float* b_ih;   // [D, G, 3H]
+  const float* b_hh;
+  const float* hid;    // [D, N*L, 64]
+  const float* ds;     // [N*L, 64]
+  const float* dglin;  // [N*L, 64] or null
+  __nv_bfloat16* hprev;  // [D, N*L, 64] out
+  __nv_bfloat16* dxp;    // [N*L, D*192] out
+  __nv_bfloat16* dhp;    // [N*L, D*192] out
+  float* part;           // [grid, 2*D*192] out: db_ih, db_hh partials
+  long long N;
+  int L;
+  int D;
+};
+
+// One step's inputs for one warp: the n1 A fragment, h_prev and dg in the
+// C-fragment layout [jh][e] (sequence g + 8 (e >> 1), unit 8 jh + 2t +
+// (e & 1) of the warp's group).
+struct StepIn {
+  uint32_t ax[4];
+  float hv[2][4];
+  float dg[2][4];
+};
+
+__global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int d = warp >> 2, grp = warp & 3;
+  const int L = a.L, D = a.D;
+  const long long n0 = (long long)blockIdx.x * GS;
+  const size_t NL = (size_t)a.N * L;
+
+  const int dg = d * G + grp;
+  GruFrags f;
+  load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, dg, lane);
+  const auto& bi = f.bi;
+  const auto& bh = f.bh;
+  const auto& brz = f.brz;
+  const auto& bxn = f.bxn;
+  const auto& bhn = f.bhn;
+  // W_hh^T for the carry: B(k = o, n = j) = W_hh[j][o]; k-step q is gate q.
+  const float* wh = a.w_hh + (size_t)dg * H * (3 * H);
+  uint32_t bt[3][2][2];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int o = q * H + 2 * t + 8 * k, j = jh * 8 + g;
+        bt[q][jh][k] = pack_bf16(wh[j * 3 * H + o], wh[j * 3 * H + o + 1]);
+      }
+
+  // Step s of the walk is t = L-1-s (direction 0) or t = s (direction 1).
+  auto load_step = [&](int s, StepIn& in) {
+    const int tt = d ? s : L - 1 - s;
+    const bool hasp = d ? tt < L - 1 : tt > 0;
+    const int tp = d ? tt + 1 : tt - 1;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long long n = n0 + g + 8 * rr;
+      const bool ok = n < a.N;
+      const size_t row = (size_t)n * L + tt;
+      const unsigned* pa = reinterpret_cast<const unsigned*>(
+          a.n1 + row * C + grp * H + 2 * t);
+      in.ax[rr] = ok ? __ldg(pa) : 0u;
+      in.ax[2 + rr] = ok ? __ldg(pa + 4) : 0u;
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh) {
+        const int col = grp * H + 8 * jh + 2 * t;
+        float2 h = make_float2(0.f, 0.f), dv = make_float2(0.f, 0.f);
+        if (ok) {
+          if (hasp)
+            h = __ldg(reinterpret_cast<const float2*>(
+                a.hid + ((size_t)d * NL + (size_t)n * L + tp) * C + col));
+          dv = __ldg(reinterpret_cast<const float2*>(a.ds + row * C + col));
+          if (a.dglin) {
+            const float2 e2 = __ldg(
+                reinterpret_cast<const float2*>(a.dglin + row * C + col));
+            dv.x += e2.x;
+            dv.y += e2.y;
+          }
+        }
+        in.hv[jh][2 * rr] = h.x;
+        in.hv[jh][2 * rr + 1] = h.y;
+        in.dg[jh][2 * rr] = dv.x;
+        in.dg[jh][2 * rr + 1] = dv.y;
+      }
+    }
+  };
+
+  float carry[2][4] = {};
+  float sr[2][2] = {}, sz[2][2] = {}, sxn[2][2] = {}, shn[2][2] = {};
+  const size_t ldx = (size_t)D * 3 * C;
+  StepIn cur, nxt;
+  load_step(0, cur);
+  for (int s = 0; s < L; ++s) {
+    if (s + 1 < L) load_step(s + 1, nxt);
+    const int tt = d ? s : L - 1 - s;
+    const uint32_t ha[4] = {pack_bf16(cur.hv[0][0], cur.hv[0][1]),
+                            pack_bf16(cur.hv[0][2], cur.hv[0][3]),
+                            pack_bf16(cur.hv[1][0], cur.hv[1][1]),
+                            pack_bf16(cur.hv[1][2], cur.hv[1][3])};
+    float ar[2][4], az[2][4], xn[2][4], hn[2][4];
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ar[jh][e] = brz[0][jh][e & 1];
+        az[jh][e] = brz[1][jh][e & 1];
+        xn[jh][e] = bxn[jh][e & 1];
+        hn[jh][e] = bhn[jh][e & 1];
+      }
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      mma(ar[jh], cur.ax, bi[jh][0], bi[jh][1]);
+      mma(az[jh], cur.ax, bi[2 + jh][0], bi[2 + jh][1]);
+      mma(xn[jh], cur.ax, bi[4 + jh][0], bi[4 + jh][1]);
+      mma(ar[jh], ha, bh[jh][0], bh[jh][1]);
+      mma(az[jh], ha, bh[2 + jh][0], bh[2 + jh][1]);
+      mma(hn[jh], ha, bh[4 + jh][0], bh[4 + jh][1]);
+    }
+    float er[2][4], ez[2][4], en[2][4], ex[2][4];
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float r = sigmoid_sfu(ar[jh][e]);
+        const float z = sigmoid_sfu(az[jh][e]);
+        const float nn = tanh_sfu(fmaf(r, hn[jh][e], xn[jh][e]));
+        const float P = (1.f - z) * (1.f - nn * nn);
+        const float dh = carry[jh][e] + cur.dg[jh][e];
+        er[jh][e] = dh * (P * hn[jh][e] * r * (1.f - r));
+        ez[jh][e] = dh * ((cur.hv[jh][e] - nn) * z * (1.f - z));
+        en[jh][e] = dh * (P * r);
+        ex[jh][e] = dh * P;
+        carry[jh][e] = dh * z;
+        sr[jh][e & 1] += er[jh][e];
+        sz[jh][e & 1] += ez[jh][e];
+        sxn[jh][e & 1] += ex[jh][e];
+        shn[jh][e & 1] += en[jh][e];
+      }
+    uint32_t pr[4], pz[4], pn[4], px[4];
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = 2 * jh + rr;
+        pr[i] = pack_bf16(er[jh][2 * rr], er[jh][2 * rr + 1]);
+        pz[i] = pack_bf16(ez[jh][2 * rr], ez[jh][2 * rr + 1]);
+        pn[i] = pack_bf16(en[jh][2 * rr], en[jh][2 * rr + 1]);
+        px[i] = pack_bf16(ex[jh][2 * rr], ex[jh][2 * rr + 1]);
+      }
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      mma(carry[jh], pr, bt[0][jh][0], bt[0][jh][1]);
+      mma(carry[jh], pz, bt[1][jh][0], bt[1][jh][1]);
+      mma(carry[jh], pn, bt[2][jh][0], bt[2][jh][1]);
+    }
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const long long n = n0 + g + 8 * rr;
+        if (n >= a.N) continue;
+        const int i = 2 * jh + rr;
+        const size_t row = (size_t)n * L + tt;
+        *reinterpret_cast<uint32_t*>(
+            a.hprev + ((size_t)d * NL + row) * C + grp * H + 8 * jh +
+            2 * t) = ha[i];
+        const size_t o = row * ldx + d * 3 * C + grp * 3 * H + 8 * jh + 2 * t;
+        uint32_t* hp = reinterpret_cast<uint32_t*>(a.dhp + o);
+        uint32_t* xp = reinterpret_cast<uint32_t*>(a.dxp + o);
+        hp[0] = pr[i];
+        hp[H / 2] = pz[i];
+        hp[H] = pn[i];
+        xp[0] = pr[i];
+        xp[H / 2] = pz[i];
+        xp[H] = px[i];
+      }
+    cur = nxt;
+  }
+  // Column sums over the block's 16 sequences and all steps.
+  float* out = a.part + (size_t)blockIdx.x * 2 * ldx + d * 3 * C + grp * 3 * H;
+#pragma unroll
+  for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v[4] = {sr[jh][e], sz[jh][e], sxn[jh][e], shn[jh][e]};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 4);
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 8);
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 16);
+      }
+      if (lane < 4) {
+        const int u = 8 * jh + 2 * t + e;
+        out[u] = v[0];              // db_ih: r, z, n
+        out[H + u] = v[1];
+        out[2 * H + u] = v[2];
+        out[ldx + u] = v[0];        // db_hh: r, z, n
+        out[ldx + H + u] = v[1];
+        out[ldx + 2 * H + u] = v[3];
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The attention core, recomputed and differentiated on tensor cores. A work
+// item is one (sequence, head): its q, k, v (and, backward, dctx) rows sit in
+// shared memory as bf16 [L][16] tiles (the whole sequence: L <= 512), one
+// block of up to 4 warps per item, each warp taking 16-row tiles in turn.
+// Scores are formed in log2 units, s log2(e) = (q . k) log2(e) / 4, so each
+// exp is one ex2; key chunks of 16 outside the band are skipped, partial
+// chunks masked.
+//
+// attn_fwd_tc_kernel: per query tile, walk 1 takes the row max m and sum l
+// online, walk 2 p = bf16(exp(s - m) / l) and ctx = p @ v. Writes bf16(ctx)
+// and (m, 1/l) per row and head for the backward.
+// attn_bwd_tc_kernel, with the stored (m, 1/l) giving p again:
+//   query pass: walk 1 rowsum = sum_k p dp (dp = dctx . v, f32), walk 2
+//     ds = bf16(p (dp - rowsum)), dq = ds @ k / 4;
+//   key pass (keys as the M rows): s^T = k q^T, p^T, dp^T = v dctx^T,
+//     dv = p^T @ dctx, dk = ds^T @ q / 4.
+// No sum crosses an item, so nothing is atomic.
+struct HeadArgs {
+  const __nv_bfloat16* qkv;   // [N*L, 192]
+  const __nv_bfloat16* dctx;  // [N*L, 64] (backward)
+  float* stats;               // [N*L, 4, 2]: m (log2 units), 1/l
+  __nv_bfloat16* ctx;         // [N*L, 64] out (forward)
+  __nv_bfloat16* dqkv;        // [N*L, 192] out (backward)
+  int L;
+  int lookback;
+};
+
+__host__ __device__ inline int head_lp(int L) { return (L + 15) / 16 * 16; }
+inline int head_warps(int L) { return L > 48 ? 4 : (L + 15) / 16; }
+inline size_t attn_fwd_smem(int L) {
+  return (size_t)3 * head_lp(L) * LDH * sizeof(__nv_bfloat16);
+}
+inline size_t attn_bwd_smem(int L) {
+  return (size_t)4 * head_lp(L) * LDH * sizeof(__nv_bfloat16) +
+         (size_t)3 * head_lp(L) * sizeof(float);
+}
+
+// Rows [0, Lp) of one head of a [N*L, ld] bf16 array, from column `col`,
+// into a [Lp][LDH] tile (rows >= L zero).
+__device__ __forceinline__ void load_head(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int ld, int col, int L, int Lp) {
+  for (int i = threadIdx.x; i < 2 * Lp; i += blockDim.x) {
+    const int r = i >> 1, part = i & 1;
+    const bool ok = r < L;
+    cp_async16(dst + r * LDH + part * 8,
+               src + (size_t)(ok ? r : 0) * ld + col + part * 8, ok);
+  }
+}
+
+// Scores (log2 units) of the 16 rows of A fragment `qa` against 16 keys at
+// `kb` (a [key][16] tile), masked to -inf: key >= L, or outside the band of
+// the row. Element [j][e]: row rq[e >> 1], key k0 + 8j + 2t + (e & 1).
+__device__ __forceinline__ void scores16(float sc[2][4], const uint32_t qa[4],
+                                         const __nv_bfloat16* kb, int k0,
+                                         const int rq[2], int L, int lb,
+                                         int lane) {
+  const int t = lane & 3;
+  uint32_t kf[4];
+  load_b_nk(kf, kb, LDH, lane);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    mma(sc[j], qa, kf[2 * j], kf[2 * j + 1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1), row = rq[e >> 1];
+      const bool ok = key < L && (lb < 0 || (key <= row && key >= row - lb));
+      sc[j][e] = ok ? sc[j][e] * QK_SCALE2 : -INFINITY;
+    }
+  }
+}
+
+// First and last key chunk of 16 that query rows [q0, q0 + 15] need.
+__device__ __forceinline__ void key_chunks(int q0, int L, int lb, int& kc0,
+                                           int& kc1) {
+  const int lo = lb >= 0 ? max(0, q0 - lb) : 0;
+  const int hi = lb >= 0 ? min(L - 1, q0 + 15) : L - 1;
+  kc0 = lo / 16;
+  kc1 = hi / 16;
+}
+
+__device__ __forceinline__ void pack_a(uint32_t pa[4], const float p[2][4]) {
+  pa[0] = pack_bf16(p[0][0], p[0][1]);
+  pa[1] = pack_bf16(p[0][2], p[0][3]);
+  pa[2] = pack_bf16(p[1][0], p[1][1]);
+  pa[3] = pack_bf16(p[1][2], p[1][3]);
+}
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__global__ void attn_fwd_tc_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = a.L, lb = a.lookback, Lp = head_lp(L);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + Lp * LDH;
+  __nv_bfloat16* Vs = Ks + Lp * LDH;
+  const long long n = blockIdx.x / NH;
+  const int h = blockIdx.x % NH;
+  const size_t rowbase = (size_t)n * L;
+  const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
+  load_head(Qs, src, 3 * C, h * HD, L, Lp);
+  load_head(Ks, src, 3 * C, C + h * HD, L, Lp);
+  load_head(Vs, src, 3 * C, 2 * C + h * HD, L, Lp);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5, g = lane >> 2, t = lane & 3;
+  for (int q0 = warp * 16; q0 < Lp; q0 += nwarps * 16) {
+    const int rq[2] = {q0 + g, q0 + g + 8};
+    uint32_t qa[4];
+    load_a(qa, Qs + q0 * LDH, LDH, lane);
+    int kc0, kc1;
+    key_chunks(q0, L, lb, kc0, kc1);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int kc = kc0; kc <= kc1; ++kc) {
+      float sc[2][4];
+      scores16(sc, qa, Ks + kc * 16 * LDH, kc * 16, rq, L, lb, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mx = quad_max(fmaxf(fmaxf(sc[0][2 * r], sc[0][2 * r + 1]),
+                                        fmaxf(sc[1][2 * r], sc[1][2 * r + 1])));
+        const float mnew = fmaxf(m[r], mx);
+        const float mb = mnew == -INFINITY ? 0.f : mnew;
+        const float part = (ex2(sc[0][2 * r] - mb) + ex2(sc[0][2 * r + 1] - mb)) +
+                           (ex2(sc[1][2 * r] - mb) + ex2(sc[1][2 * r + 1] - mb));
+        l[r] = fmaf(l[r], ex2(m[r] - mb), part);
+        m[r] = mnew;
+      }
+    }
+    float il[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (m[r] == -INFINITY) m[r] = 0.f;
+      const float tot = quad_sum(l[r]);
+      il[r] = tot > 0.f ? 1.f / tot : 0.f;
+    }
+    float o[2][4] = {};
+    for (int kc = kc0; kc <= kc1; ++kc) {
+      float sc[2][4];
+      scores16(sc, qa, Ks + kc * 16 * LDH, kc * 16, rq, L, lb, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = ex2(sc[j][e] - m[e >> 1]) * il[e >> 1];
+      uint32_t pa[4], vf[4];
+      pack_a(pa, sc);
+      load_b_kn(vf, Vs + kc * 16 * LDH, LDH, lane);
+      mma(o[0], pa, vf[0], vf[1]);
+      mma(o[1], pa, vf[2], vf[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rq[r] >= L) continue;
+      const size_t row = rowbase + rq[r];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<uint32_t*>(a.ctx + row * C + h * HD + 8 * j + 2 * t) =
+            pack_bf16(o[j][2 * r], o[j][2 * r + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(a.stats + (row * NH + h) * 2) =
+            make_float2(m[r], il[r]);
+    }
+  }
+}
+
+__global__ void attn_bwd_tc_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = a.L, lb = a.lookback, Lp = head_lp(L);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + Lp * LDH;
+  __nv_bfloat16* Vs = Ks + Lp * LDH;
+  __nv_bfloat16* Os = Vs + Lp * LDH;  // dctx
+  float* ms = reinterpret_cast<float*>(Os + Lp * LDH);
+  float* ils = ms + Lp;
+  float* rss = ils + Lp;
+  const long long n = blockIdx.x / NH;
+  const int h = blockIdx.x % NH;
+  const size_t rowbase = (size_t)n * L;
+  const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
+  load_head(Qs, src, 3 * C, h * HD, L, Lp);
+  load_head(Ks, src, 3 * C, C + h * HD, L, Lp);
+  load_head(Vs, src, 3 * C, 2 * C + h * HD, L, Lp);
+  load_head(Os, a.dctx + rowbase * C, C, h * HD, L, Lp);
+  cp_async_commit();
+  for (int r = threadIdx.x; r < Lp; r += blockDim.x) {
+    float2 st = make_float2(0.f, 0.f);
+    if (r < L) st = *reinterpret_cast<const float2*>(
+                   a.stats + ((rowbase + r) * NH + h) * 2);
+    ms[r] = st.x;
+    ils[r] = st.y;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5, g = lane >> 2, t = lane & 3;
+
+  // Query pass: rowsum, then dq.
+  for (int q0 = warp * 16; q0 < Lp; q0 += nwarps * 16) {
+    const int rq[2] = {q0 + g, q0 + g + 8};
+    const float mr[2] = {ms[rq[0]], ms[rq[1]]};
+    const float ir[2] = {ils[rq[0]], ils[rq[1]]};
+    uint32_t qa[4], oa[4];
+    load_a(qa, Qs + q0 * LDH, LDH, lane);
+    load_a(oa, Os + q0 * LDH, LDH, lane);
+    int kc0, kc1;
+    key_chunks(q0, L, lb, kc0, kc1);
+    // p and dp of one key chunk.
+    auto chunk = [&](int kc, float p[2][4], float dp[2][4]) {
+      scores16(p, qa, Ks + kc * 16 * LDH, kc * 16, rq, L, lb, lane);
+      uint32_t vf[4];
+      load_b_nk(vf, Vs + kc * 16 * LDH, LDH, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+        mma(dp[j], oa, vf[2 * j], vf[2 * j + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[j][e] = bf16r(ex2(p[j][e] - mr[e >> 1]) * ir[e >> 1]);
+      }
+    };
+    float rs[2] = {0.f, 0.f};
+    for (int kc = kc0; kc <= kc1; ++kc) {
+      float p[2][4], dp[2][4];
+      chunk(kc, p, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rs[e >> 1] = fmaf(dp[j][e], p[j][e], rs[e >> 1]);
+    }
+    rs[0] = quad_sum(rs[0]);
+    rs[1] = quad_sum(rs[1]);
+    float dq[2][4] = {};
+    for (int kc = kc0; kc <= kc1; ++kc) {
+      float p[2][4], dp[2][4];
+      chunk(kc, p, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[j][e] = p[j][e] * (dp[j][e] - rs[e >> 1]);
+      uint32_t sa[4], kf[4];
+      pack_a(sa, p);
+      load_b_kn(kf, Ks + kc * 16 * LDH, LDH, lane);
+      mma(dq[0], sa, kf[0], kf[1]);
+      mma(dq[1], sa, kf[2], kf[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (t == 0) rss[rq[r]] = rs[r];
+      if (rq[r] >= L) continue;
+      const size_t row = rowbase + rq[r];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<uint32_t*>(a.dqkv + row * 3 * C + h * HD + 8 * j +
+                                     2 * t) =
+            pack_bf16(dq[j][2 * r] * 0.25f, dq[j][2 * r + 1] * 0.25f);
+    }
+  }
+  __syncthreads();
+
+  // Key pass: the keys as the M rows, dk and dv.
+  for (int k0 = warp * 16; k0 < Lp; k0 += nwarps * 16) {
+    uint32_t ka[4], va[4];
+    load_a(ka, Ks + k0 * LDH, LDH, lane);
+    load_a(va, Vs + k0 * LDH, LDH, lane);
+    const int kr[2] = {k0 + g, k0 + g + 8};
+    const int qc0 = k0 / 16;
+    const int qc1 =
+        lb >= 0 ? min(L - 1, k0 + 15 + lb) / 16 : (L - 1) / 16;
+    float dk[2][4] = {}, dv[2][4] = {};
+    for (int qc = lb >= 0 ? qc0 : 0; qc <= qc1; ++qc) {
+      uint32_t qf[4], of[4];
+      load_b_nk(qf, Qs + qc * 16 * LDH, LDH, lane);
+      load_b_nk(of, Os + qc * 16 * LDH, LDH, lane);
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+        mma(s, ka, qf[2 * j], qf[2 * j + 1]);
+        mma(dp, va, of[2 * j], of[2 * j + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = qc * 16 + 8 * j + 2 * t + (e & 1), key = kr[e >> 1];
+          const bool ok = q < L && key < L &&
+                          (lb < 0 || (key <= q && key >= q - lb));
+          const float pe =
+              ok ? bf16r(ex2(s[e] * QK_SCALE2 - ms[q]) * ils[q]) : 0.f;
+          p[j][e] = pe;
+          ds[j][e] = pe * (dp[e] - rss[q]);
+        }
+      }
+      uint32_t pa[4], sa[4], ob[4], qb[4];
+      pack_a(pa, p);
+      pack_a(sa, ds);
+      load_b_kn(ob, Os + qc * 16 * LDH, LDH, lane);
+      load_b_kn(qb, Qs + qc * 16 * LDH, LDH, lane);
+      mma(dv[0], pa, ob[0], ob[1]);
+      mma(dv[1], pa, ob[2], ob[3]);
+      mma(dk[0], sa, qb[0], qb[1]);
+      mma(dk[1], sa, qb[2], qb[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kr[r] >= L) continue;
+      const size_t row = rowbase + kr[r];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = h * HD + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(a.dqkv + row * 3 * C + C + col) =
+            pack_bf16(dk[j][2 * r] * 0.25f, dk[j][2 * r + 1] * 0.25f);
+        *reinterpret_cast<uint32_t*>(a.dqkv + row * 3 * C + 2 * C + col) =
+            pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradients on tensor cores: out[m, n] = sum over rows of A[row, m]
+// B[row, n], A and B bf16 in device memory (the contract rounds both). Each
+// block takes a fixed chunk of rows and, product after product, stages
+// tiles of 64 rows of A and B in shared memory (cp.async, double-buffered);
+// each warp keeps up to WG_UNITS 16x16 output units in f32 registers, their
+// A^T fragments from ldmatrix.trans. A product's outputs go to the block's
+// partial row; reduce_tc_kernel adds the rows in block order. `grouped`:
+// only the G diagonal [16 x 48] blocks of a [64 x 192] product (the grouped
+// GRU weights, out[g][i][m]). `cs_off >= 0`: also the column sums of B.
+struct WgProd {
+  const __nv_bfloat16* A;
+  const __nv_bfloat16* B;
+  int lda, ldb, acol, bcol;
+  int M, N;      // multiples of 16; M <= 64, N <= 192
+  int grouped;
+  int out_off;   // first output in the partial row
+  int cs_off;    // first column sum in the partial row, or -1
+};
+
+struct WgArgs {
+  WgProd p[WG_MAXP];
+  int np;
+  long long rows;
+  long long chunk;  // rows per block, a multiple of 64
+  int nout;         // floats per partial row
+  float* part;      // [grid, nout]
+};
+
+__global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long r0 = (long long)blockIdx.x * a.chunk;
+  const long long r1 = min(a.rows, r0 + a.chunk);
+  const int ntiles = (int)((r1 - r0 + 63) / 64);
+  float* part = a.part + (size_t)blockIdx.x * a.nout;
+  for (int pi = 0; pi < a.np; ++pi) {
+    const WgProd P = a.p[pi];
+    const int lda = P.M + 8, ldb = P.N + 8;
+    const int nunits = P.grouped ? G * 3 : (P.M / 16) * (P.N / 16);
+    auto stage = [&](int buf, long long rt) {
+      __nv_bfloat16* As = sm + buf * WG_STAGE;
+      __nv_bfloat16* Bs = As + 64 * lda;
+      const int ma = P.M / 8, nb = P.N / 8;
+      for (int i = tid; i < 64 * ma; i += RT) {
+        const int r = i / ma, c8 = i % ma;
+        const long long row = rt + r;
+        const bool ok = row < r1;
+        cp_async16(As + r * lda + c8 * 8,
+                   P.A + (size_t)(ok ? row : r0) * P.lda + P.acol + c8 * 8, ok);
+      }
+      for (int i = tid; i < 64 * nb; i += RT) {
+        const int r = i / nb, c8 = i % nb;
+        const long long row = rt + r;
+        const bool ok = row < r1;
+        cp_async16(Bs + r * ldb + c8 * 8,
+                   P.B + (size_t)(ok ? row : r0) * P.ldb + P.bcol + c8 * 8, ok);
+      }
+    };
+    float acc[WG_UNITS][2][4];
+#pragma unroll
+    for (int u = 0; u < WG_UNITS; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
+    float cs[2] = {0.f, 0.f};
+    stage(0, r0);
+    cp_async_commit();
+    for (int it = 0; it < ntiles; ++it) {
+      if (it + 1 < ntiles) {
+        stage((it + 1) & 1, r0 + (long long)(it + 1) * 64);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const __nv_bfloat16* As = sm + (it & 1) * WG_STAGE;
+      const __nv_bfloat16* Bs = As + 64 * lda;
+#pragma unroll
+      for (int ui = 0; ui < WG_UNITS; ++ui) {
+        const int u = warp + 4 * ui;
+        if (u >= nunits) break;
+        int mt, nc;
+        if (P.grouped) {
+          mt = u / 3;
+          nc = u;  // group mt's columns mt*48 + (u % 3)*16 = u*16
+        } else {
+          mt = u / (P.N / 16);
+          nc = u % (P.N / 16);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t af[4], bf[4];
+          load_at(af, As + kk * 16 * lda + mt * 16, lda, lane);
+          load_b_kn(bf, Bs + kk * 16 * ldb + nc * 16, ldb, lane);
+          mma(acc[ui][0], af, bf[0], bf[1]);
+          mma(acc[ui][1], af, bf[2], bf[3]);
+        }
+      }
+      if (P.cs_off >= 0) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int c = tid + k * RT;
+          if (c < P.N) {
+            float s = 0.f;
+            for (int r = 0; r < 64; ++r) s += __bfloat162float(Bs[r * ldb + c]);
+            cs[k] += s;
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int ui = 0; ui < WG_UNITS; ++ui) {
+      const int u = warp + 4 * ui;
+      if (u >= nunits) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          int o;
+          if (P.grouped) {
+            // out[grp][i][m], m = (u % 3) * 16 + c
+            o = (u / 3) * H * 3 * H + i * 3 * H + (u % 3) * 16 + c;
+          } else {
+            const int mt = u / (P.N / 16), nc = u % (P.N / 16);
+            o = (mt * 16 + i) * P.N + nc * 16 + c;
+          }
+          part[P.out_off + o] = acc[ui][j][e];
+        }
+    }
+    if (P.cs_off >= 0) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = tid + k * RT;
+        if (c < P.N) part[P.cs_off + c] = cs[k];
+      }
+    }
+  }
+}
+
+// out[o] = sum_b part[b * ld + off + o], b in index order, for each of up to
+// 16 segments (blockIdx.y).
+struct RedSeg {
+  const float* part;
+  int nblocks, ld, off, n;
+  float* out;
+};
+struct RedArgs {
+  RedSeg s[16];
+};
+
+__global__ void reduce_tc_kernel(RedArgs a) {
+  const RedSeg S = a.s[blockIdx.y];
+  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < S.n;
+       o += gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int b = 0; b < S.nblocks; ++b) v += S.part[(size_t)b * S.ld + S.off + o];
+    S.out[o] = v;
+  }
+}
+
+// Device memory of one bf16-mode launch, in bytes from one base (each
+// buffer 256-byte aligned). The front region holds qkv, s, the softmax
+// statistics and dctx until the attention and LN2 backward are done; the
+// GRU stage then writes dxp over it.
+struct ScratchTC {
+  __nv_bfloat16 *qkv, *gb, *ctx, *ab, *dcomb, *da, *dctx, *dqkv, *n2, *n1,
+      *hprev, *dxp, *dhp;
+  float *s, *stats, *dglin, *ds, *p_comb, *p_dn2, *p_bptt, *p_dn1, *p_wg;
+  long long total;
+  int grid_rows, grid_wg, nout;
+  long long wg_chunk;
+
+  ScratchTC(unsigned char* base, long long N, int L, int D, int lin_in,
+            int grid_rows_, int grid_wg_) {
+    const long long rows = N * L;
+    grid_rows = grid_rows_;
+    grid_wg = grid_wg_;
+    wg_chunk = (rows + grid_wg - 1) / grid_wg;
+    wg_chunk = (wg_chunk + 63) / 64 * 64;
+    if (wg_chunk < 64) wg_chunk = 64;
+    grid_wg = (int)((rows + wg_chunk - 1) / wg_chunk);
+    if (grid_wg < 1) grid_wg = 1;
+    nout = lin_in * C + C * C + C * 3 * C + 3 * C + 2 * D * G * H * 3 * H;
+    long long off = 0;
+    auto take = [&](long long bytes) {
+      unsigned char* p = base ? base + off : nullptr;
+      off += (bytes + 255) / 256 * 256;
+      return p;
+    };
+    const long long b16 = 2, f32 = 4;
+    // Front region: qkv, s, stats, dctx; later dxp.
+    const long long front0 = off;
+    qkv = (__nv_bfloat16*)take(rows * 3 * C * b16);
+    s = (float*)take(rows * C * f32);
+    stats = (float*)take(rows * NH * 2 * f32);
+    dctx = (__nv_bfloat16*)take(rows * C * b16);
+    const long long front1 = off;
+    off = front0;
+    dxp = (__nv_bfloat16*)take(rows * D * 3 * C * b16);
+    if (off < front1) off = front1;
+    gb = lin_in == 2 * C ? (__nv_bfloat16*)take(rows * C * b16) : nullptr;
+    dglin = lin_in == 2 * C ? (float*)take(rows * C * f32) : nullptr;
+    ctx = (__nv_bfloat16*)take(rows * C * b16);
+    ab = (__nv_bfloat16*)take(rows * C * b16);
+    dcomb = (__nv_bfloat16*)take(rows * C * b16);
+    da = (__nv_bfloat16*)take(rows * C * b16);
+    dqkv = (__nv_bfloat16*)take(rows * 3 * C * b16);
+    n2 = (__nv_bfloat16*)take(rows * C * b16);
+    ds = (float*)take(rows * C * f32);
+    n1 = (__nv_bfloat16*)take(rows * C * b16);
+    hprev = (__nv_bfloat16*)take(D * rows * C * b16);
+    dhp = (__nv_bfloat16*)take(rows * D * 3 * C * b16);
+    p_comb = (float*)take((long long)grid_rows * 2 * C * f32);
+    p_dn2 = (float*)take((long long)grid_rows * 2 * C * f32);
+    p_dn1 = (float*)take((long long)grid_rows * 2 * C * f32);
+    p_bptt = (float*)take((N + GS - 1) / GS * 2 * D * 3 * C * f32);
+    p_wg = (float*)take((long long)grid_wg * nout * f32);
+    total = off;
+  }
+};
+
+// Grid sizes of the bf16 launch on the current device: the row-tile
+// kernels' persistent grid and the weight-gradient grid (both capped, so
+// the partial buffers are bounded).
+inline cudaError_t tc_grids(long long rows, int* grid_rows, int* grid_wg) {
+  const long long tiles = (rows + 63) / 64;
+  unsigned gr = 1, gw = 1;
+  cudaError_t e = persistent_grid(comb_bwd_tc_kernel, RT, 0, tiles, &gr);
+  if (e != cudaSuccess) return e;
+  const size_t wsm = (size_t)2 * WG_STAGE * sizeof(__nv_bfloat16);
+  if ((e = allow_smem(wgrad_tc_kernel, wsm)) != cudaSuccess) return e;
+  e = persistent_grid(wgrad_tc_kernel, RT, wsm, tiles, &gw);
+  if (e != cudaSuccess) return e;
+  *grid_rows = gr < MAX_ROW_BLOCKS ? (int)gr : MAX_ROW_BLOCKS;
+  *grid_wg = gw < WG_BLOCKS ? (int)gw : WG_BLOCKS;
+  return cudaSuccess;
+}
+
+}  // namespace tc
 }  // namespace lct
 
 #define LCT_CHECK()                              \
@@ -729,7 +2082,7 @@ extern "C" long long lct_ftf_backward_scratch_floats(long long N, int L,
 // lct_ftf_forward (ftf.cu), their gradients in the same shapes; scratch:
 // lct_ftf_backward_scratch_floats(N, L, D) floats. lookback < 0 means no
 // band. Returns a cudaError_t.
-extern "C" int lct_ftf_backward(
+extern "C" int lct_ftf_backward_f32(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
     const float* b_hh, const float* ln2_s, const float* ln2_b,
@@ -839,5 +2192,138 @@ extern "C" int lct_ftf_backward(
              db_hh));
   LCT_TRY(wg(WG_DIAG, s.dn1, C, 0, 0, s.xh1, C, 0, 0, C, C, C, dln1_s));
   LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dn1, C, 0, 0, C, 0, C, dln1_b));
+  return 0;
+}
+
+// Bytes of scratch `lct_ftf_backward_bf16` needs for N sequences of length L
+// on the current device (the partial sums' rows follow its grid sizes), or
+// -1 with a CUDA error.
+extern "C" long long lct_ftf_backward_bf16_scratch_bytes(long long N, int L,
+                                                         int D, int lin_in) {
+  int gr = 1, gw = 1;
+  if (lct::tc::tc_grids(N * L, &gr, &gw) != cudaSuccess) return -1;
+  return lct::tc::ScratchTC(nullptr, N, L, D, lin_in, gr, gw).total;
+}
+
+// The same function in bf16 mode on tensor cores: arguments as
+// lct_ftf_backward_f32 without `precise`; scratch:
+// lct_ftf_backward_bf16_scratch_bytes(N, L, D, lin_in) bytes, 256-byte
+// aligned. Nine launches:
+//   qkv_tc_kernel -> attn_fwd_tc_kernel -> comb_bwd_tc_kernel ->
+//   attn_bwd_tc_kernel -> dn2_tc_kernel -> bptt_tc_kernel -> dn1_tc_kernel
+//   (-> dx) -> wgrad_tc_kernel -> reduce_tc_kernel (-> the 14 parameter
+//   gradients).
+extern "C" int lct_ftf_backward_bf16(
+    const float* x, const float* ln1_s, const float* ln1_b,
+    const float* w_ih, const float* w_hh, const float* b_ih,
+    const float* b_hh, const float* ln2_s, const float* ln2_b,
+    const float* in_w, const float* in_b, const float* out_w,
+    const float* out_b, const float* lin_w, const float* lin_b,
+    const float* hid, const float* dout, float* dx, float* dln1_s,
+    float* dln1_b, float* dw_ih, float* dw_hh, float* db_ih, float* db_hh,
+    float* dln2_s, float* dln2_b, float* din_w, float* din_b, float* dout_w,
+    float* dout_b, float* dlin_w, float* dlin_b, void* scratch, long long N,
+    int L, int D, int lin_in, int lookback, int device, void* stream) {
+  using namespace lct;
+  using namespace lct::tc;
+  LCT_TRY(cudaSetDevice(device));
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = N * L;
+  const bool freq = lin_in == 2 * C;
+  int gr = 1, gw = 1;
+  LCT_TRY(tc_grids(rows, &gr, &gw));
+  const ScratchTC s(static_cast<unsigned char*>(scratch), N, L, D, lin_in,
+                    gr, gw);
+  const float* hid1 = D == 2 ? hid + (size_t)rows * C : nullptr;
+
+  // LN2 and qkv recomputed; s = x + g and bf16(g) kept for later stages.
+  LCT_TRY(launch_qkv({x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, s.s,
+                      s.gb, rows},
+                     st));
+  // The attention context and its softmax statistics.
+  const unsigned items = (unsigned)(N * NH);
+  const int athreads = 32 * head_warps(L);
+  HeadArgs ha = {s.qkv, s.dctx, s.stats, s.ctx, s.dqkv, L, lookback};
+  LCT_TRY(allow_smem(attn_fwd_tc_kernel, attn_fwd_smem(L)));
+  attn_fwd_tc_kernel<<<items, athreads, attn_fwd_smem(L), st>>>(ha);
+  LCT_CHECK();
+  // Combine layer and out-projection backward.
+  CombArgs ca = {s.ctx, s.gb, dout, out_w, out_b, lin_w, lin_b, lin_in,
+                 s.ab, s.dcomb, s.da, s.dctx, s.dglin, s.p_comb, rows};
+  comb_bwd_tc_kernel<<<gr, RT, 0, st>>>(ca);
+  LCT_CHECK();
+  // Attention core backward.
+  LCT_TRY(allow_smem(attn_bwd_tc_kernel, attn_bwd_smem(L)));
+  attn_bwd_tc_kernel<<<items, athreads, attn_bwd_smem(L), st>>>(ha);
+  LCT_CHECK();
+  // qkv projection and LN2 backward.
+  Dn2Args na = {s.dqkv, s.s, dout, x, in_w, ln2_s, ln2_b, ln1_s, ln1_b,
+                s.n2, s.n1, s.ds, s.p_dn2, rows};
+  dn2_tc_kernel<<<gr, RT, 0, st>>>(na);
+  LCT_CHECK();
+  // GRU: projections, gate factors and BPTT.
+  BpttArgs ba = {s.n1, w_ih, w_hh, b_ih, b_hh, hid, s.ds,
+                 freq ? s.dglin : nullptr, s.hprev, s.dxp, s.dhp, s.p_bptt,
+                 N, L, D};
+  const unsigned bblocks = (unsigned)((N + GS - 1) / GS);
+  bptt_tc_kernel<<<bblocks, D * 4 * 32, 0, st>>>(ba);
+  LCT_CHECK();
+  // Input projection and LN1 backward: dx.
+  Dn1Args da1 = {s.dxp, x, s.ds, w_ih, ln1_s, dx, s.p_dn1, rows, D};
+  dn1_tc_kernel<<<gr, RT, 0, st>>>(da1);
+  LCT_CHECK();
+
+  // Weight gradients, then every partial sum reduced in block order.
+  const int o_lin = 0, o_out = lin_in * C, o_in = o_out + C * C;
+  const int o_inb = o_in + C * 3 * C, o_ih = o_inb + 3 * C;
+  const int o_hh = o_ih + D * G * H * 3 * H;
+  WgArgs wa = {};
+  int np = 0;
+  auto prod = [&](const __nv_bfloat16* A, int lda, int acol, int M,
+                  const __nv_bfloat16* B, int ldb, int bcol, int Nn,
+                  int grouped, int out_off, int cs_off) {
+    wa.p[np++] = {A, B, lda, ldb, acol, bcol, M, Nn, grouped, out_off,
+                  cs_off};
+  };
+  if (freq) prod(s.gb, C, 0, C, s.dcomb, C, 0, C, 0, o_lin, -1);
+  prod(s.ab, C, 0, C, s.dcomb, C, 0, C, 0, o_lin + (freq ? C * C : 0), -1);
+  prod(s.ctx, C, 0, C, s.da, C, 0, C, 0, o_out, -1);
+  prod(s.n2, C, 0, C, s.dqkv, 3 * C, 0, 3 * C, 0, o_in, o_inb);
+  for (int d = 0; d < D; ++d) {
+    prod(s.n1, C, 0, C, s.dxp, D * 3 * C, d * 3 * C, 3 * C, 1,
+         o_ih + d * G * H * 3 * H, -1);
+    prod(s.hprev + (size_t)d * rows * C, C, 0, C, s.dhp, D * 3 * C,
+         d * 3 * C, 3 * C, 1, o_hh + d * G * H * 3 * H, -1);
+  }
+  wa.np = np;
+  wa.rows = rows;
+  wa.chunk = s.wg_chunk;
+  wa.nout = s.nout;
+  wa.part = s.p_wg;
+  const size_t wsm = (size_t)2 * WG_STAGE * sizeof(__nv_bfloat16);
+  LCT_TRY(allow_smem(wgrad_tc_kernel, wsm));
+  wgrad_tc_kernel<<<s.grid_wg, RT, wsm, st>>>(wa);
+  LCT_CHECK();
+
+  const int nb = (int)bblocks, ldb2 = 2 * D * 3 * C;
+  const int D3C = D * 3 * C, DG = D * G * H * 3 * H;
+  RedArgs ra = {{
+      {s.p_dn1, gr, 2 * C, 0, C, dln1_s},
+      {s.p_dn1, gr, 2 * C, C, C, dln1_b},
+      {s.p_wg, s.grid_wg, s.nout, o_ih, DG, dw_ih},
+      {s.p_wg, s.grid_wg, s.nout, o_hh, DG, dw_hh},
+      {s.p_bptt, nb, ldb2, 0, D3C, db_ih},
+      {s.p_bptt, nb, ldb2, D3C, D3C, db_hh},
+      {s.p_dn2, gr, 2 * C, 0, C, dln2_s},
+      {s.p_dn2, gr, 2 * C, C, C, dln2_b},
+      {s.p_wg, s.grid_wg, s.nout, o_in, C * 3 * C, din_w},
+      {s.p_wg, s.grid_wg, s.nout, o_inb, 3 * C, din_b},
+      {s.p_wg, s.grid_wg, s.nout, o_out, C * C, dout_w},
+      {s.p_comb, gr, 2 * C, C, C, dout_b},
+      {s.p_wg, s.grid_wg, s.nout, o_lin, lin_in * C, dlin_w},
+      {s.p_comb, gr, 2 * C, 0, C, dlin_b},
+  }};
+  reduce_tc_kernel<<<dim3(16, 14), 256, 0, st>>>(ra);
+  LCT_CHECK();
   return 0;
 }

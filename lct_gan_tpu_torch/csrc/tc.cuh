@@ -167,6 +167,62 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The GRU kernels on tensor cores (ftf.cu's gru_tc_kernel, ftf_bwd.cu's
+// bptt_tc_kernel) take 16 sequences per block, the rows of one m16 tile.
+constexpr int GS = 16;
+
+// The gates from one ex2 and one reciprocal each on the special-function
+// unit: a few f32 ulps from expf / tanhf, far below the bf16 rounding of h
+// that the next step's product takes.
+__device__ __forceinline__ float sigmoid_sfu(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+__device__ __forceinline__ float tanh_sfu(float v) {
+  return fmaf(-2.f, __fdividef(1.f, 1.f + __expf(2.f * v)), 1.f);
+}
+
+// One direction and group's GRU weights as a warp of the GRU kernels holds
+// them: the B fragments of W_ih and W_hh [16][48] (k = input unit, n = gate
+// column; n8 tiles 0-1 r, 2-3 z, 4-5 n) and the biases of this lane's units
+// 8 jh + 2t + e, r and z summed, n apart. dg = direction * G + group.
+struct GruFrags {
+  uint32_t bi[6][2], bh[6][2];
+  float brz[2][2][2], bxn[2][2], bhn[2][2];
+};
+
+__device__ __forceinline__ void load_gru_frags(GruFrags& f,
+                                               const float* w_ih,
+                                               const float* w_hh,
+                                               const float* b_ih,
+                                               const float* b_hh, int dg,
+                                               int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* wi = w_ih + (size_t)dg * H * (3 * H);
+  const float* wh = w_hh + (size_t)dg * H * (3 * H);
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt) {
+    const int col = nt * 8 + g;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = 2 * t + 8 * k;
+      f.bi[nt][k] = pack_bf16(wi[r * 3 * H + col], wi[(r + 1) * 3 * H + col]);
+      f.bh[nt][k] = pack_bf16(wh[r * 3 * H + col], wh[(r + 1) * 3 * H + col]);
+    }
+  }
+#pragma unroll
+  for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = dg * 3 * H + 8 * jh + 2 * t + e;
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        f.brz[q][jh][e] = b_ih[o + q * H] + b_hh[o + q * H];
+      f.bxn[jh][e] = b_ih[o + 2 * H];
+      f.bhn[jh][e] = b_hh[o + 2 * H];
+    }
+}
+
 // ---------------------------------------------------------------------------
 // qkv = bf16(bf16(in) @ bf16(in_w) + in_b) over rows of 64 channels, stored
 // bf16 [rows, 192]: the contract rounds q, k and v, so this halves their

@@ -14,10 +14,13 @@ parameter gradients, without re-running the forward recurrence:
   * the GRU weight and bias gradients and the LN1 backward after the loop.
 
 On a CUDA tensor it launches the hand-written kernels of `csrc/ftf_bwd.cu`
-(their bound on the H100 and what the simple design does about it are noted
-there); on a CPU tensor it computes `ftf_bwd_reference`, its plain PyTorch
-version: the same hand-derived backward, rounding every GEMM operand to bf16
-where the TPU kernel does (its `cd` casts, :144-148) unless precise=True.
+(their bound on the H100 and what each design does about it are noted
+there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
+tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
+(`lct_ftf_backward_f32`, `simt-f32`). On a CPU tensor it computes
+`ftf_bwd_reference`, its plain PyTorch version: the same hand-derived
+backward, rounding every GEMM operand to bf16 where the TPU kernel does (its
+`cd` casts, :144-148) unless precise=True.
 
 Layouts are the JAX package's, except `hid`, which is the CUDA forward
 kernel's [D, N*L, C] (the JAX kernel's [N, L, D*C] transposed). GRU
@@ -31,9 +34,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from lct_gan_tpu_torch.ops.attention import kernel_design
 from lct_gan_tpu_torch.ops.gru import round_bf16
 
-__all__ = ["fused_ftf_bwd", "ftf_bwd_reference"]
+__all__ = ["fused_ftf_bwd", "ftf_bwd_reference", "ftf_bwd_scratch_bytes"]
 
 
 def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -192,10 +196,34 @@ def ftf_bwd_reference(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
 
 
 _P = ctypes.c_void_p
-# 17 inputs, 15 gradients, the scratch; N; L, D, lin_in, lookback, precise,
-# device; the stream.
-_BWD_ARGTYPES = ([_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-                 + [_P])
+# 17 inputs, 15 gradients, the scratch; N; L, D, lin_in, lookback, (f32
+# only: precise,) device; the stream.
+_BWD_ARGTYPES = {
+    True: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [_P],
+    False: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]}
+
+
+def ftf_bwd_scratch_bytes(N: int, L: int, D: int, lin_in: int,
+                          precise: bool) -> int:
+    """Bytes of device scratch one `fused_ftf_bwd` launch of this shape
+    takes in a mode: f32 intermediates of every stage (precise), or the
+    tensor-core design's bf16 intermediates and partial sums (bf16; its
+    partial rows follow the current card's grid sizes). Needs the card."""
+    from lct_gan_tpu_torch.ops._build import kernel_function
+
+    if precise:
+        fn = kernel_function("ftf_bwd", "lct_ftf_backward_scratch_floats",
+                             [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+        fn.restype = ctypes.c_longlong
+        return 4 * int(fn(N, L, D))
+    fn = kernel_function("ftf_bwd", "lct_ftf_backward_bf16_scratch_bytes",
+                         [ctypes.c_longlong] + [ctypes.c_int] * 3)
+    fn.restype = ctypes.c_longlong
+    nbytes = int(fn(N, L, D, lin_in))
+    if nbytes < 0:
+        raise RuntimeError("fused_ftf_bwd: the card's grid sizes could not "
+                           "be queried")
+    return nbytes
 
 
 def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
@@ -209,8 +237,9 @@ def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
 
     CPU tensors: `ftf_bwd_reference(..., precise=precise)`. CUDA tensors:
     the kernels of csrc/ftf_bwd.cu, each call counted in
-    `fused_ftf_bwd.launches`. Deterministic: parameter gradients are summed
-    over fixed row chunks, then over the chunks in a fixed order."""
+    `fused_ftf_bwd.launches`, the design recorded in `fused_ftf_bwd.design`.
+    Deterministic: parameter gradients are summed over fixed row chunks,
+    then over the chunks in a fixed order."""
     args = (x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b,
             out_w, out_b, lin_w, lin_b, hid, dout)
     if x.device.type == "cpu":
@@ -238,20 +267,23 @@ def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
     ops = [f32_operand(n, t, s, dev) for n, t, s in zip(names, args, shapes)]
     grads = [torch.empty(s, device=dev, dtype=torch.float32)
              for s in shapes[:15]]
-    size_fn = kernel_function("ftf_bwd", "lct_ftf_backward_scratch_floats",
-                              [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
-    size_fn.restype = ctypes.c_longlong
-    scratch = torch.empty((size_fn(N, L, D),), device=dev,
-                          dtype=torch.float32)
-    fn = kernel_function("ftf_bwd", "lct_ftf_backward", _BWD_ARGTYPES)
+    precise = bool(precise)
+    with torch.cuda.device(dev):
+        nbytes = ftf_bwd_scratch_bytes(N, L, D, lin_in, precise)
+    scratch = torch.empty((nbytes,), device=dev, dtype=torch.uint8)
+    entry = "lct_ftf_backward_f32" if precise else "lct_ftf_backward_bf16"
+    fn = kernel_function("ftf_bwd", entry, _BWD_ARGTYPES[precise])
+    mode = (1,) if precise else ()
     err = fn(*(t.data_ptr() for t in ops), *(t.data_ptr() for t in grads),
              scratch.data_ptr(), N, L, D, lin_in,
-             -1 if lookback is None else int(lookback), int(bool(precise)),
+             -1 if lookback is None else int(lookback), *mode,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "ftf_bwd", "fused_ftf_bwd kernel launch")
     fused_ftf_bwd.launches += 1
+    fused_ftf_bwd.design = kernel_design(precise)
     return tuple(grads)
 
 
 fused_ftf_bwd.launches = 0
+fused_ftf_bwd.design = None   # kernel design of the last launch

@@ -19,7 +19,8 @@ import torch
 from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
                                        ftf_forward_with_hidden,
                                        fused_ftf_block)
-from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd, ftf_bwd_reference
+from lct_gan_tpu_torch.ops.ftf_bwd import (fused_ftf_bwd, ftf_bwd_reference,
+                                           ftf_bwd_scratch_bytes)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +111,53 @@ def test_autograd_on_the_card(card, bidi, lookback):
     ref_grads = torch.autograd.grad((ref * w).sum(), ref_leaves)
     errs = _rel_errs(grads, ref_grads)
     assert max(errs) <= TOL[True], errs
+
+
+@pytest.mark.parametrize("N,L,bidi,lookback", [
+    (1037, 33, True, None),   # frequency block, rows not a multiple of 64
+    (263, 129, False, 16),    # time block with a band, 263 sequences
+])
+def test_bf16_backward_is_deterministic_at_training_like_shapes(
+        card, N, L, bidi, lookback):
+    """Every output, weight gradients included, is bit-equal across two
+    launches (no atomics: partial sums are added in block order) and within
+    bf16 mode's tolerance of the plain version. As in chip_smoke.py, the
+    cotangent is zeroed within 5e-2 of the LeakyReLU's kink, where two sum
+    orders can put a pre-activation on different sides of 0."""
+    params, g = _params(bidi, seed=N + L)
+    x = torch.randn((N, L, 64), generator=g)
+    dout = torch.randn((N, L, 64), generator=g)
+    x, dout, *params = [t.cuda() for t in [x, dout] + params]
+    kw = dict(bidirectional=bidi, num_heads=4, lookback=lookback,
+              precise=False)
+    out, hid = ftf_forward_with_hidden(x, *params, **kw)
+    act = out - x - hid.sum(dim=0).reshape(N, L, 64)
+    comb = torch.where(act >= 0, act, act / 0.2)
+    dout = torch.where(comb.abs() < 5e-2, 0.0, dout)
+    first = fused_ftf_bwd(x, *params, hid, dout, **kw)
+    second = fused_ftf_bwd(x, *params, hid, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    want = ftf_bwd_reference(x, *params, hid, dout, **kw)
+    errs = _rel_errs(first, want)
+    assert max(errs) <= TOL[False], errs
+
+
+@pytest.mark.parametrize("precise", [True, False])
+def test_backward_records_its_design(card, precise):
+    params, g = _params(True, seed=3)
+    x = torch.randn((2, 33, 64), generator=g).cuda()
+    params = [p.cuda() for p in params]
+    kw = dict(bidirectional=True, num_heads=4, precise=precise)
+    _, hid = ftf_forward_with_hidden(x, *params, **kw)
+    fused_ftf_bwd(x, *params, hid, x, **kw)
+    assert fused_ftf_bwd.design == ("simt-f32" if precise else "tc-bf16")
+
+
+def test_bf16_scratch_is_smaller_than_f32(card):
+    bf16 = ftf_bwd_scratch_bytes(1000, 33, 2, 128, precise=False)
+    f32 = ftf_bwd_scratch_bytes(1000, 33, 2, 128, precise=True)
+    assert 0 < bf16 < f32
 
 
 def test_backward_kernel_rejects_other_widths(card):

@@ -4,8 +4,10 @@ package's own exporter; imports pull in no JAX; entry points refuse a
 missing GPU instead of falling back to the CPU."""
 
 import os
+import re
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -42,6 +44,28 @@ def test_npz_meta_is_honoured():
     enh = load_enhancer(NPZ, device="cpu", max_time_context=64,
                         compress_c=0.5)
     assert enh.gen.GRUt1.max_time_context == 64 and enh.c == 0.5
+
+
+@pytest.mark.parametrize("override,warns", [
+    ({}, None),
+    ({"compress_c": 0.3}, None),              # the training value
+    ({"compress_c": 0.5}, r"compress_c=0\.5 differs .* value 0\.3"),
+    ({"max_time_context": 64},
+     r"max_time_context=64 differs .* value None"),
+])
+def test_overriding_the_training_config_warns(override, warns):
+    """An explicit compress_c or max_time_context that differs from the
+    checkpoint's training value changes outputs silently, so it warns (the
+    JAX CLI's rule, infer.py:113-132); one that matches does not."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        load_enhancer(NPZ, device="cpu", **override)
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, UserWarning)]
+    if warns is None:
+        assert msgs == []
+    else:
+        assert len(msgs) == 1 and re.search(warns, msgs[0]), msgs
 
 
 def test_bridge_matches_jax_package_exporter():
