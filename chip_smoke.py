@@ -16,13 +16,16 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            (ops/probe.py), and MHSA is also timed against one
            multi_head_attention_forward call
            (banded_mhsa at the banded time blocks of the 196,608- and
-           917,504-sample buckets, W = 64, also against fused_mhsa with the
-           same band at S = 772, the crossover witness; both kernels timed
-           with that band at S = 516 and 644); fused_ftf_bwd at the B=64 x
+           917,504-sample buckets, W = 64, with its design, device ms per
+           stage, scratch bytes and exp floor, also against fused_mhsa with
+           the same band at S = 772, the crossover witness, whose stages are
+           taken too; both kernels timed with that band at S = 516 and 644);
+           fused_ftf_bwd at the B=64 x
            2 s training shapes (all 15 gradients, relative to each one's
            largest magnitude; its lines also carry the design, the device
            ms of each stage, from one torch.profiler pass, and the bytes of
-           scratch a launch allocates), and the
+           scratch one launch allocates, read from the caching allocator's
+           peak), and the
            save-hidden forward under grad
   enhance  the committed demo weights through load_enhancer + make_enhance:
            B=128 x 2 s (3 FTF launches, 0 MHSA; matches the plain path run
@@ -128,6 +131,19 @@ def stages_ms(torch, fn, reps=3):
             key = stage_of(evt.key)
             out[key] = out.get(key, 0.0) + us / reps / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def scratch_bytes(torch, fn):
+    """Device bytes one call of `fn` allocates beyond what it returns,
+    measured: the caching allocator's peak of allocated bytes during the
+    call, less the bytes still allocated after it with its result held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    torch.cuda.synchronize()
+    nbytes = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del result
+    return nbytes
 
 
 def band_pairs(L, lookback):
@@ -347,6 +363,7 @@ def check_kernels(torch, enhancer):
                       precise=mode == "precise")
             out = banded_mhsa(x, *aparams, **kw)
             torch.cuda.synchronize()
+            design = banded_mhsa.design
             ref = banded_mhsa_reference(x, *aparams, **kw)
             err = (out - ref).abs().max().item()
             if not (err <= TOL[mode]) or not torch.isfinite(out).all():
@@ -354,8 +371,11 @@ def check_kernels(torch, enhancer):
                                      f"{err} > {TOL[mode]}")
             del ref
             torch.cuda.empty_cache()
-            res = {"case": f"S{S}_W{W}_keybias", "mode": mode, "N": N,
-                   "L": S, "max_abs_err": err, "tol": TOL[mode]}
+            res = {"case": f"S{S}_W{W}_keybias", "mode": mode,
+                   "design": design, "N": N, "L": S, "max_abs_err": err,
+                   "tol": TOL[mode],
+                   "scratch_bytes": scratch_bytes(
+                       torch, lambda: banded_mhsa(x, *aparams, **kw))}
             if S <= 1024:
                 # Crossover witness: the MHSA kernel with the same band
                 # computes the same function in O(S^2).
@@ -369,9 +389,17 @@ def check_kernels(torch, enhancer):
                 res["vs_fused_mhsa_max_abs_err"] = xerr
                 res["fused_mhsa_ms"] = cuda_ms(
                     torch, lambda: fused_mhsa(x, *aparams, **kw), 3)
+                res["fused_mhsa_stages_ms"] = stages_ms(
+                    torch, lambda: fused_mhsa(x, *aparams, **kw))
             del out
             res["ms"] = cuda_ms(torch, lambda: banded_mhsa(x, *aparams, **kw),
                                 5)
+            res["stages_ms"] = stages_ms(
+                torch, lambda: banded_mhsa(x, *aparams, **kw))
+            # One exp per in-band pair: the least a kernel that takes the
+            # exact max before it rounds p can spend on the special-function
+            # unit.
+            res["exp_floor_ms"] = exp_floor_ms(N * 4 * band_pairs(S, W))
             res["plain_ms"] = cuda_ms(
                 torch, lambda: banded_mhsa_reference(x, *aparams, **kw), 2)
             torch.cuda.empty_cache()
@@ -481,7 +509,6 @@ def check_ftf_bwd(torch, gen, g, exp_floor_ms):
     per stage (stages_ms), scratch bytes and exp floor."""
     from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
     from lct_gan_tpu_torch.ops.ftf_bwd import (ftf_bwd_reference,
-                                               ftf_bwd_scratch_bytes,
                                                fused_ftf_bwd)
 
     names = ("dx", "dln1s", "dln1b", "dw_ih", "dw_hh", "db_ih", "db_hh",
@@ -548,8 +575,9 @@ def check_ftf_bwd(torch, gen, g, exp_floor_ms):
                    "rel_err": rel, "tol": TOL[mode],
                    "masked_share": (dout == 0).float().mean().item(),
                    "ms": ms, "stages_ms": stages,
-                   "scratch_bytes": ftf_bwd_scratch_bytes(
-                       N, L, D, lin_in, mode == "precise"),
+                   "scratch_bytes": scratch_bytes(
+                       torch, lambda: fused_ftf_bwd(x, *params, hid, dout,
+                                                    **kw)),
                    "plain_ms": plain_ms,
                    "bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1086,7 +1114,8 @@ def main():
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             **{k: head[k] for k in ("design", "exp_floor_ms",
-                                    "library_mha_ms") if k in head},
+                                    "library_mha_ms", "stages_ms",
+                                    "scratch_bytes") if k in head},
             "case": f"{head['case']} {head['mode']}",
             "cases": kernels[name]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

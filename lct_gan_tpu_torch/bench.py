@@ -80,11 +80,13 @@ def _timed(fn, sync):
 
 _GROUPS = (  # lower-case kernel-name fragment -> layer, first match wins
     ("gru_tc_kernel", "FTF block: LN1 + GRU (tensor cores)"),
+    ("banded_tc_kernel", "banded attention, qkv + band + out-proj fused "
+     "(tensor cores)"),
     ("qkv_tc_kernel", "(FTF: LN2 +) qkv projection (tensor cores)"),
     ("attn_tc_kernel", "attention + epilogue products (tensor cores)"),
     ("ftf_out_kernel", "FTF block: out-proj + Linear"),
     ("gru_kernel", "FTF block: GRU recurrence"),
-    ("banded_attn_kernel", "banded attention core"),
+    ("banded_attn_kernel", "banded attention core (precise)"),
     ("attn_kernel", "attention core (FTF + MHSA)"),
     ("proj_kernel", "LN + projections (FTF + MHSA + banded)"),
     ("fft", "STFT / iSTFT FFTs"),

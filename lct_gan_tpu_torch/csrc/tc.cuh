@@ -1,4 +1,6 @@
-// Tensor-core kernels of the bf16 mode, shared by ftf.cu and mhsa.cu.
+// Tensor-core kernels of the bf16 mode, shared by ftf.cu, mhsa.cu and
+// banded.cu (whose fused kernel, and ftf_bwd.cu's, are built from the
+// fragment helpers here).
 //
 // Every product runs as `mma.sync.aligned.m16n8k16` on bf16 operands with
 // f32 accumulation. The contract already rounds every GEMM operand to bf16
@@ -223,6 +225,48 @@ __device__ __forceinline__ void load_gru_frags(GruFrags& f,
     }
 }
 
+// acc = A @ w[:, 0:16] for a 16-row tile A of 64 columns, given as the A
+// fragments of its four 16-column k-steps, and w a bf16 [64][ld] tile in
+// shared memory: the C fragments of two n8 tiles (columns 0-7, 8-15).
+__device__ __forceinline__ void product_16cols(float (&acc)[2][4],
+                                               const uint32_t (&af)[4][4],
+                                               const __nv_bfloat16* w,
+                                               int ld, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t wb[4];
+    load_b_kn(wb, w + kk * 16 * ld, ld, lane);
+    mma(acc[0], af[kk], wb[0], wb[1]);
+    mma(acc[1], af[kk], wb[2], wb[3]);
+  }
+}
+
+// acc = ctx @ out_w for 16 rows: ctx as the A fragments of its four
+// 16-channel k-steps (one per head), out_w staged bf16 [64][LDS]; the C
+// fragments of the eight n8 tiles of the 64 output columns.
+__device__ __forceinline__ void out_projection(float (&acc)[8][4],
+                                               const uint32_t (&ca)[NH][4],
+                                               const __nv_bfloat16* wo,
+                                               int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t wf[4];
+      load_b_kn(wf, wo + h * 16 * LDS + np * 16, LDS, lane);
+      mma(acc[2 * np], ca[h], wf[0], wf[1]);
+      mma(acc[2 * np + 1], ca[h], wf[2], wf[3]);
+    }
+}
+
 // ---------------------------------------------------------------------------
 // qkv = bf16(bf16(in) @ bf16(in_w) + in_b) over rows of 64 channels, stored
 // bf16 [rows, 192]: the contract rounds q, k and v, so this halves their
@@ -322,14 +366,8 @@ __global__ void __launch_bounds__(PROJ_THREADS)
     for (int kk = 0; kk < 4; ++kk) load_a(af[kk], aw + kk * 16, LDS, lane);
 #pragma unroll 2
     for (int np = 0; np < 12; ++np) {
-      float acc[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t wb[4];
-        load_b_kn(wb, ws + kk * 16 * LDW + np * 16, LDW, lane);
-        mma(acc[0], af[kk], wb[0], wb[1]);
-        mma(acc[1], af[kk], wb[2], wb[3]);
-      }
+      float acc[2][4];
+      product_16cols(acc, af, ws + np * 16, LDW, lane);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = np * 16 + j * 8 + 2 * t;
@@ -807,16 +845,8 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
         }
       }
     }
-    float acc[8][4] = {};
-#pragma unroll
-    for (int h = 0; h < NH; ++h)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t wf[4];
-        load_b_kn(wf, wo + h * 16 * LDS + np * 16, LDS, lane);
-        mma(acc[2 * np], ca[h], wf[0], wf[1]);
-        mma(acc[2 * np + 1], ca[h], wf[2], wf[3]);
-      }
+    float acc[8][4];
+    out_projection(acc, ca, wo, lane);
     if (MODE == 1) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {

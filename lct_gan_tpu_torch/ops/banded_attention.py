@@ -6,8 +6,12 @@ of each query q over the keys [q - W, q] of its inclusive causal band, plus
 a per-key bias -> softmax -> context -> output projection, for x [N, S,
 E=64] with no upper bound on S. On a CUDA tensor it launches the
 hand-written kernels of `csrc/banded.cu` (their bound on the H100 and what
-the simple design does about it are noted there); on a CPU tensor it
-computes `banded_mhsa_reference`, its plain PyTorch version. The backward
+each mode's design does about it are noted there): bf16 mode one fused
+tensor-core pass for bands whose scores fit in registers (the library's
+`lct_banded_max_register_lookback` keys back), and the MHSA kernel's
+tensor-core design with the band above that; precise mode three all-f32
+CUDA-core kernels. On a CPU tensor it computes
+`banded_mhsa_reference`, its plain PyTorch version. The backward
 recomputes the f32 `banded_mhsa_reference` under autograd (linear in S), as
 the JAX package's custom VJP does (`lct_gan_tpu/ops/banded_attention.py:
 243-268`); key_bias is a constant.
@@ -28,10 +32,11 @@ from typing import Optional
 
 import torch
 
-from lct_gan_tpu_torch.ops.attention import RecomputeBackward
+from lct_gan_tpu_torch.ops.attention import (RecomputeBackward,
+                                             kernel_design)
 from lct_gan_tpu_torch.ops.gru import round_bf16
 
-__all__ = ["banded_mhsa_reference", "banded_mhsa"]
+__all__ = ["banded_mhsa_reference", "banded_mhsa", "banded_scratch"]
 
 
 def _blocked_banded_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,9 +117,27 @@ def banded_mhsa_reference(x: torch.Tensor, in_proj_kernel: torch.Tensor,
     return rnd(ctx) @ rnd(out_proj_kernel) + out_proj_bias
 
 
+def banded_scratch(rows: int, precise: bool, in_registers: bool = True):
+    """(name, shape, dtype) of each scratch tensor the kernels of one mode
+    write, in the C entry point's order: none for bf16 when the band's
+    scores fit in registers (q, k, v and the context stay on the SM), q, k,
+    v as bf16 for a wider band (`in_registers` false), and, precise, qkv and
+    the context in f32."""
+    if precise:
+        return [("qkv", (rows, 192), torch.float32),
+                ("ctx", (rows, 64), torch.float32)]
+    return [] if in_registers else [("qkv", (rows, 192), torch.bfloat16)]
+
+
 _P = ctypes.c_void_p
-_BANDED_ARGTYPES = ([_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                    + [_P])
+# The C entry point of csrc/banded.cu each mode launches, with its argtypes:
+# 6 inputs (key_bias may be null), the scratch (bf16: qkv or null; f32: qkv,
+# ctx), out; N; S, lookback, device; stream.
+BANDED_ENTRY = {
+    False: ("lct_banded_forward_bf16",
+            [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P]),
+    True: ("lct_banded_forward_f32",
+           [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P])}
 
 
 def _banded_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
@@ -142,17 +165,22 @@ def _banded_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
            f32_operand("out_proj_bias", out_proj_bias, (E,), dev),
            None if key_bias is None
            else f32_operand("key_bias", key_bias, (N, S), dev)]
-    qkv = torch.empty((N * S, 3 * E), device=dev, dtype=torch.float32)
-    ctx = torch.empty((N * S, E), device=dev, dtype=torch.float32)
+    precise = bool(precise)
+    # The library owns the widest band its fused bf16 kernel serves.
+    max_reg_w = kernel_function("banded", "lct_banded_max_register_lookback",
+                                [])()
+    scratch = [torch.empty(shape, device=dev, dtype=dtype) for _, shape, dtype
+               in banded_scratch(N * S, precise, int(lookback) <= max_reg_w)]
+    slots = [t.data_ptr() for t in scratch] or [None]
     out = torch.empty((N, S, E), device=dev, dtype=torch.float32)
-    fn = kernel_function("banded", "lct_banded_forward", _BANDED_ARGTYPES)
-    err = fn(*(None if t is None else t.data_ptr() for t in ops),
-             qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(), N, S,
-             int(lookback), int(bool(precise)),
+    fn = kernel_function("banded", *BANDED_ENTRY[precise])
+    err = fn(*(None if t is None else t.data_ptr() for t in ops), *slots,
+             out.data_ptr(), N, S, int(lookback),
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "banded", "banded_mhsa kernel launch")
     banded_mhsa.launches += 1
+    banded_mhsa.design = kernel_design(precise)
     return out
 
 
@@ -165,7 +193,8 @@ def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
 
     CPU tensors: `banded_mhsa_reference(..., precise=precise)`. CUDA
     tensors: the kernels of csrc/banded.cu, each call counted in
-    `banded_mhsa.launches`. Differentiable in x and the four parameters
+    `banded_mhsa.launches` and its design recorded in
+    `banded_mhsa.design`. Differentiable in x and the four parameters
     (`RecomputeBackward`)."""
     if lookback < 0:
         raise ValueError(f"banded_mhsa: lookback must be >= 0, got {lookback}")
@@ -177,3 +206,4 @@ def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
 
 
 banded_mhsa.launches = 0
+banded_mhsa.design = None   # kernel design of the last launch

@@ -1,9 +1,13 @@
-"""The banded-attention CUDA kernel (lct_gan_tpu_torch/csrc/banded.cu) on the
-card against its plain PyTorch version on the same inputs, at edge shapes
-the serving path does not reach: W = 0 and 1, W above the kernel's 128-row
-query tile (keys staged in several chunks), S below one tile, ragged tails,
-rows whose whole band is key-masked. Also the agreement with the MHSA kernel
-under the same band, and the module's routing on the card.
+"""The banded-attention CUDA kernels (lct_gan_tpu_torch/csrc/banded.cu) on the
+card against their plain PyTorch version on the same inputs, at edge shapes
+the serving path does not reach: W = 0 and 1; W on both sides of the widest
+band whose scores the bf16 kernel keeps in registers (112 keys back; wider
+bands take the MHSA kernel's tensor-core design, and the precise kernel
+stages the keys in several chunks); S below one work item and not a
+multiple of it; one long sequence; ragged tails; rows whose whole band is
+key-masked. Also the design each mode runs, bit-equal bf16 reruns, the
+agreement with the MHSA kernel under the same band, and the module's
+routing on the card.
 
 Skips without a GPU. On a machine with the card (no JAX needed there):
 
@@ -111,3 +115,57 @@ def test_banded_kernel_rejects_other_widths(card):
                                                   (32,))]
     with pytest.raises(ValueError, match="E=64"):
         banded_mhsa(x, *p, num_heads=4, lookback=4)
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("N,S,W,kb_mode", [
+    (2, 40, 64, "tail"),    # S below one work item
+    (2, 777, 64, "tail"),   # S not a multiple of the item's rows
+    (2, 400, 16, None),     # one chunk of halo
+    (2, 500, 112, "tail"),  # the widest band kept in registers
+    (2, 500, 113, "tail"),  # one key wider: the MHSA kernel's design
+    (1, 2500, 200, "tail"),  # the MHSA kernel's design past its L <= 1024
+    (1, 5000, 64, "tail"),  # one long sequence
+])
+def test_banded_kernel_matches_plain_new_shapes(card, N, S, W, kb_mode,
+                                                precise):
+    x, params, kb = _inputs(N, S, kb_mode, seed=S + W)
+    x, kb, *params = _cuda(x, kb, *params)
+    kw = dict(num_heads=4, lookback=W, key_bias=kb, precise=precise)
+    out = banded_mhsa(x, *params, **kw)
+    torch.cuda.synchronize()
+    ref = banded_mhsa_reference(x, *params, **kw)
+    assert out.shape == (N, S, 64) and torch.isfinite(out).all()
+    err = (out - ref).abs().max().item()
+    assert err <= TOL[precise], err
+
+
+@pytest.mark.parametrize("precise", [True, False])
+def test_banded_kernel_records_its_design(card, precise):
+    x, params, kb = _inputs(2, 300, "tail", seed=3)
+    x, kb, *params = _cuda(x, kb, *params)
+    banded_mhsa(x, *params, lookback=64, key_bias=kb, precise=precise)
+    assert banded_mhsa.design == ("simt-f32" if precise else "tc-bf16")
+
+
+@pytest.mark.parametrize("W", [64, 200])
+def test_bf16_launches_are_bit_equal(card, W):
+    x, params, kb = _inputs(3, 1111, "tail", seed=W)
+    x, kb, *params = _cuda(x, kb, *params)
+    kw = dict(num_heads=4, lookback=W, key_bias=kb, precise=False)
+    a = banded_mhsa(x, *params, **kw)
+    b = banded_mhsa(x, *params, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [300, 900])
+def test_bf16_design_agrees_with_mhsa_kernel(card, S):
+    x, params, kb = _inputs(3, S, "tail", seed=S)
+    x, kb, *params = _cuda(x, kb, *params)
+    kw = dict(num_heads=4, lookback=64, key_bias=kb, precise=False)
+    a = banded_mhsa(x, *params, **kw)
+    b = fused_mhsa(x, *params, **kw)
+    torch.cuda.synchronize()
+    assert (a - b).abs().max().item() <= TOL[False]
+

@@ -8,6 +8,9 @@ Found at the six shapes: f32 max |diff| <= 2.4e-7 (tolerance 1e-5); bf16
 mode against the interpret-mode kernel max |diff| <= 7.9e-4 and mean <=
 1.2e-6, where the f32 reference is 6.8e-3 max and 4.6e-4..6.2e-4 mean away."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -22,9 +25,11 @@ from lct_gan_tpu.ops.banded_attention import (
 from lct_gan_tpu.ops.dispatch import pallas_override
 from lct_gan_tpu_torch.models import attention as port_attention
 from lct_gan_tpu_torch.models.attention import MultiHeadSelfAttention
+from lct_gan_tpu_torch.ops import _build
 from lct_gan_tpu_torch.ops.attention import fused_mhsa
-from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
-                                                    banded_mhsa_reference)
+from lct_gan_tpu_torch.ops.banded_attention import (BANDED_ENTRY, banded_mhsa,
+                                                    banded_mhsa_reference,
+                                                    banded_scratch)
 
 
 def _params(seed=0, E=64):
@@ -174,3 +179,48 @@ def test_wrapper_rejects_a_negative_lookback():
     p = [torch.zeros(s) for s in ((64, 192), (192,), (64, 64), (64,))]
     with pytest.raises(ValueError, match="lookback"):
         banded_mhsa(x, *p, lookback=-1)
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("in_registers", [True, False])
+def test_kernel_scratch_per_mode(in_registers, precise):
+    """The wrapper allocates only what the mode's kernels write: nothing for
+    the fused bf16 design (q, k, v and the context stay on the SM), q, k, v
+    as bf16 for a band too wide for its registers (the MHSA kernel's
+    design), qkv and the context in f32 for the all-f32 one. On the CPU
+    nothing is launched and no design is recorded."""
+    got = banded_scratch(777, precise, in_registers)
+    if precise:
+        assert got == [("qkv", (777, 192), torch.float32),
+                       ("ctx", (777, 64), torch.float32)]
+    elif in_registers:
+        assert got == []
+    else:
+        assert got == [("qkv", (777, 192), torch.bfloat16)]
+    design, launches = banded_mhsa.design, banded_mhsa.launches
+    x, _ = _inputs(1, 20, False)
+    banded_mhsa(torch.from_numpy(x), *map(torch.from_numpy, _params()),
+                lookback=64, precise=precise)
+    assert (banded_mhsa.design, banded_mhsa.launches) == (design, launches)
+
+
+def _c_entry_points(source):
+    """{name: parameter count} of the extern "C" functions of csrc/<source>."""
+    with open(os.path.join(_build.CSRC_DIR, source), encoding="utf-8") as f:
+        src = f.read()
+    return {name: len([a for a in args.split(",") if a.strip()])
+            for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                         src)}
+
+
+@pytest.mark.parametrize("precise", [False, True])
+def test_kernel_entry_point_per_mode(precise):
+    """Each mode launches its own C entry point of csrc/banded.cu (as
+    csrc/mhsa.cu is split), declared with as many argtypes as the function
+    has parameters (ctypes does not check them)."""
+    name, argtypes = BANDED_ENTRY[precise]
+    assert name == ("lct_banded_forward_f32" if precise
+                    else "lct_banded_forward_bf16")
+    entries = _c_entry_points("banded.cu")
+    assert entries[name] == len(argtypes)
+    assert entries["lct_banded_max_register_lookback"] == 0

@@ -2,14 +2,16 @@
 far as they go there: the exp-rate probe (lct_gan_tpu_torch/ops/probe.py)
 refuses a CPU device, and every build-time variant of the attention tuner
 (lct_gan_tpu_torch/tune_attention.py) names a macro that csrc/tc.cuh really
-takes, so no variant silently builds the defaults."""
+takes, so no variant silently builds the defaults; likewise every
+arithmetic variant of the banded-error diagnosis
+(lct_gan_tpu_torch/banded_error.py) still edits csrc/banded.cu."""
 
 import os
 import re
 
 import pytest
 
-from lct_gan_tpu_torch import tune_attention
+from lct_gan_tpu_torch import banded_error, tune_attention
 from lct_gan_tpu_torch.ops import _build
 from lct_gan_tpu_torch.ops.probe import ex2_rate
 
@@ -51,3 +53,13 @@ def test_tune_defaults_are_the_committed_shapes():
                            "LCT_MHSA_ATTN_ROWS", "LCT_MHSA_ATTN_MIN_BLOCKS"}
     assert macros["LCT_FTF_ATTN_ROWS"] == "64"
     assert all(int(v) > 0 for v in macros.values())
+
+
+@pytest.mark.parametrize("name", sorted(banded_error.VARIANTS))
+def test_banded_error_variant_edits_the_kernel(name):
+    with open(os.path.join(_build.CSRC_DIR, "banded.cu"),
+              encoding="utf-8") as f:
+        committed = f.read()
+    src = banded_error.variant_source(banded_error.VARIANTS[name])
+    assert src != committed
+    assert "banded_tc_kernel" in src
