@@ -48,6 +48,20 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            correlation), step time at B=8 and B=64 split into enhancer
            forward, D step, G step and the FTF backward kernels
   eval     make_eval_step on one bucketed batch with lengths, against the CPU
+  loop     the training run end to end (train/loop.py::run_training at
+           TrainConfig() defaults, 2 epochs, validation and checkpoints
+           every epoch, STOI on) on a seeded synthetic corpus (32 train
+           utterances of 2.5 s; 6 test ones of 1.5-9.0 s, two of them long
+           enough for the composed time block and fused_mhsa): launch
+           counts (FTF backward 3 per step, FTF forward in training and
+           validation, MHSA in validation), a run of 1 epoch resumed from
+           its last.pt to 2 bit-equal to the uninterrupted run (all three
+           models and both optimizers), best.pt served by the infer CLI;
+           a torch.profiler trace of epoch 1's steps 3-4 (profile_steps);
+           the in-loop step ms against the train phase's bare B=8 step,
+           audio-sec/s and validation seconds per epoch, and the device-idle
+           share of the resumed run's epoch-2 training from a torch.profiler
+           pass
 
 then the "kernels" summary line and, last, {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -1012,6 +1026,7 @@ def check_train(torch, np, card):
     del card_s, cpu_s
     torch.cuda.empty_cache()
 
+    step_ms = {}
     for B in (8, 64):
         state = copy.deepcopy(state0)
         torch.cuda.reset_peak_memory_stats()
@@ -1022,9 +1037,10 @@ def check_train(torch, np, card):
               "(median of 5 after 2 warm-up)", **t,
               "audio_sec_per_s": B * 2.0 / (t["wall_ms"] / 1e3),
               "device": card})
+        step_ms[B] = t["wall_ms"]
         del state
         torch.cuda.empty_cache()
-    return got, state0
+    return got, state0, step_ms
 
 
 def check_eval(torch, np, card, state):
@@ -1054,6 +1070,219 @@ def check_eval(torch, np, card, state):
           "wave_max_abs_err_vs_cpu": werr, "tol_wave": TOL_WAVE,
           "mrstft_max_rel_err_vs_cpu": mr_rel, "si_sdr_max_abs_err_db": si_err,
           "si_sdr_db": m["si_sdr"].tolist(), "device": card})
+
+
+LOOP_TRAIN = 32                               # utterances of 2.5 s
+LOOP_TEST_S = (1.5, 2.7, 4.0, 5.5, 7.0, 9.0)  # 7.0 and 9.0 s: L > 512
+
+
+def write_corpus(np, root):
+    """A seeded synthetic corpus in the repo's layout: root/{clean,noisy}_
+    {train,test}/<id>.wav and root/{train,test}.scp. Clean: two gliding
+    tones with a syllable-rate envelope; noisy: clean plus white noise at
+    about 5 dB SNR."""
+    from lct_gan_tpu_torch.data import write_wav
+
+    rng = np.random.default_rng(21)
+    for split, secs in (("train", (2.5,) * LOOP_TRAIN),
+                        ("test", LOOP_TEST_S)):
+        for sub in ("clean", "noisy"):
+            os.makedirs(os.path.join(root, f"{sub}_{split}"))
+        ids = []
+        for i, sec in enumerate(secs):
+            uid = f"{split}{i:03d}"
+            t = np.arange(int(sec * SR)) / SR
+            f0 = rng.uniform(120.0, 300.0)
+            env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t)
+            clean = env * (0.2 * np.sin(2 * np.pi * f0 * t * (1 + 0.05 * t))
+                           + 0.1 * np.sin(2 * np.pi * 2.7 * f0 * t))
+            noisy = clean + 0.05 * rng.standard_normal(t.size)
+            write_wav(os.path.join(root, f"clean_{split}", f"{uid}.wav"),
+                      clean.astype(np.float32), SR)
+            write_wav(os.path.join(root, f"noisy_{split}", f"{uid}.wav"),
+                      noisy.astype(np.float32), SR)
+            ids.append(uid)
+        with open(os.path.join(root, f"{split}.scp"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+
+
+def same_payload(torch, a, b):
+    """Two checkpoint payloads' models and optimizer states bit-equal."""
+    def eq(x, y):
+        if isinstance(x, torch.Tensor):
+            return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(eq(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(eq, x, y))
+        return x == y
+    keys = ("enhancer", "mpd", "msd", "g_opt", "d_opt", "step", "epoch")
+    return {k: eq(a[k], b[k]) for k in keys}
+
+
+def idle_share(trace_path, span):
+    """Device idleness inside the `span` annotation of a torch.profiler
+    chrome trace, from the union of its kernel, memcpy and memset
+    intervals: the idle share of the span, its length and busy ms, the idle
+    ms before the first device activity (the wait for the first batch) and
+    after the last, and the five longest gaps between."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    win = next(e for e in events if e.get("name") == span
+               and e.get("cat") == "user_annotation")
+    lo, hi = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    busy = sorted((max(lo, float(e["ts"])),
+                   min(hi, float(e["ts"]) + float(e.get("dur", 0))))
+                  for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "ts" in e)
+    merged = []
+    for a, b in busy:
+        if b <= a:
+            continue
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    if not merged:
+        raise AssertionError(f"no device activity inside {span}")
+    total = sum(b - a for a, b in merged)
+    gaps = sorted((b0 - a1) / 1e3 for (_, a1), (b0, _) in
+                  zip(merged, merged[1:]))[::-1]
+    return {"idle_share": 1.0 - total / (hi - lo),
+            "span_ms": (hi - lo) / 1e3, "busy_ms": total / 1e3,
+            "lead_idle_ms": (merged[0][0] - lo) / 1e3,
+            "tail_idle_ms": (hi - merged[-1][1]) / 1e3,
+            "longest_gaps_ms": gaps[:5]}
+
+
+def check_loop(torch, np, card, bare_step_ms):
+    """The training run end to end at TrainConfig() defaults: a 2-epoch
+    run, a 1-epoch run resumed to 2 (bit-equal), best.pt served by the
+    infer CLI."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lct_gan_tpu_torch import infer
+    from lct_gan_tpu_torch.convert import load_enhancer
+    from lct_gan_tpu_torch.data import read_wav
+    from lct_gan_tpu_torch.ops.attention import fused_mhsa
+    from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
+    from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+    from lct_gan_tpu_torch.train import DataConfig, TrainConfig, run_training
+
+    wrappers = (fused_ftf_block, fused_ftf_bwd, fused_mhsa, banded_mhsa)
+    root = tempfile.mkdtemp(prefix="lct_loop_")
+    try:
+        data_root = os.path.join(root, "data")
+        write_corpus(np, data_root)
+        data = DataConfig(data_root=data_root)
+        cfg = TrainConfig(epochs=2, val_interval=1, ckpt_interval=1)
+        kw = dict(device="cuda", compute_pesq=False, compute_stoi=True)
+
+        # The counted run: 2 epochs of the main path.
+        for w in wrappers:
+            w.launches = 0
+        full = run_training(cfg, data, expr_root=os.path.join(root, "a"),
+                            profile_steps=1, **kw)
+        torch.cuda.synchronize()
+        got = {w.__name__: w.launches for w in wrappers}
+        steps = sum(e["steps"] for e in full["epochs"])
+        per_epoch = LOOP_TRAIN // cfg.batch_size
+        if [e["steps"] for e in full["epochs"]] != [per_epoch] * 2:
+            raise AssertionError(f"steps per epoch {full['epochs']}")
+        if not (got["fused_ftf_bwd"] == 3 * steps
+                and got["fused_ftf_block"] > 3 * steps
+                and got["fused_mhsa"] > 0 and got["banded_mhsa"] == 0):
+            raise AssertionError(f"loop launches {got} for {steps} steps")
+        ckpts = os.path.join(full["run_dir"], "ckpts")
+        names = sorted(os.listdir(ckpts))
+        if names != ["best.pt", "epoch_0001.pt", "epoch_0002.pt", "last.pt"]:
+            raise AssertionError(f"checkpoints {names}")
+        with open(os.path.join(full["run_dir"], "profile",
+                               "trace.json")) as f:
+            n_kernels = sum(e.get("cat") == "kernel"
+                            for e in json.load(f)["traceEvents"])
+        if n_kernels == 0:
+            raise AssertionError("profile_steps traced no kernel")
+        for name in ("configs.json", "metrics.csv"):
+            if not os.path.isfile(os.path.join(full["run_dir"], name)):
+                raise AssertionError(f"{name} missing")
+
+        # 1 epoch, then resumed to 2 under a profiler: bit-equal.
+        first = run_training(dataclasses.replace(cfg, epochs=1), data,
+                             expr_root=os.path.join(root, "b"), **kw)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            resumed = run_training(
+                cfg, data, resume=os.path.join(first["run_dir"], "ckpts",
+                                               "last.pt"), **kw)
+        trace = os.path.join(root, "trace.json")
+        prof.export_chrome_trace(trace)
+        idle = idle_share(trace, "train_epoch")
+        if resumed["run_dir"] != first["run_dir"]:
+            raise AssertionError("resume left its run directory")
+        a = torch.load(os.path.join(ckpts, "last.pt"), map_location="cpu",
+                       weights_only=True)
+        b = torch.load(os.path.join(first["run_dir"], "ckpts", "last.pt"),
+                       map_location="cpu", weights_only=True)
+        same = same_payload(torch, a, b)
+        if not all(same.values()):
+            raise AssertionError(f"resumed run differs: {same}")
+        del a, b
+
+        # best.pt through load_enhancer and the infer CLI.
+        best = os.path.join(ckpts, "best.pt")
+        enh = load_enhancer(best, device="cuda")
+        sd = torch.load(best, map_location="cpu",
+                        weights_only=True)["enhancer"]
+        if not all(torch.equal(v.cpu(), sd[k])
+                   for k, v in enh.state_dict().items()):
+            raise AssertionError("load_enhancer(best.pt) weights differ")
+        del enh
+        out_dir = os.path.join(root, "enhanced")
+        t0 = time.perf_counter()
+        infer.main(["--data_root", data_root, "--checkpoint", best,
+                    "--output_dir", out_dir, "--device", "cuda"])
+        infer_s = time.perf_counter() - t0
+        outs = sorted(os.listdir(out_dir))
+        if len(outs) != len(LOOP_TEST_S):
+            raise AssertionError(f"infer wrote {outs}")
+        for i, sec in enumerate(LOOP_TEST_S):
+            wave, sr = read_wav(os.path.join(out_dir, f"test{i:03d}.wav"))
+            if (sr != SR or wave.shape != (1, int(sec * SR))
+                    or not np.isfinite(wave).all()):
+                raise AssertionError(f"infer output {i}: {wave.shape}")
+
+        e2 = full["epochs"][1]
+        emit({"phase": "loop", "config": "TrainConfig() B=8 x 2 s, 2 epochs",
+              "steps_per_epoch": per_epoch, "launches": got,
+              "step_ms_in_loop_median_epoch2": statistics.median(
+                  e2["step_ms"]),
+              "step_ms_in_loop": [e["step_ms"] for e in full["epochs"]],
+              "bare_step_ms_b8": bare_step_ms,
+              "epoch_seconds": [e["seconds"] for e in full["epochs"]],
+              "epoch_audio_sec_per_s": [e["audio_sec_per_s"]
+                                        for e in full["epochs"]],
+              "val_seconds": [e["val_seconds"] for e in full["epochs"]],
+              "ckpt_seconds": [e["ckpt_seconds"] for e in full["epochs"]],
+              "resumed_epoch2_train_profiled": idle,
+              "resumed_epoch2_audio_sec_per_s":
+                  resumed["epochs"][0]["audio_sec_per_s"],
+              "resume_bit_equal": same, "best_epoch": full["best_epoch"],
+              "best_val_mrstft": full["best_val"],
+              "profile_steps_trace_kernels": n_kernels,
+              "infer_outputs": len(outs), "infer_seconds": infer_s,
+              "device": card})
+        return got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -1087,11 +1316,14 @@ def main():
     for phase in (check_banded, check_stream):
         for k, n in phase(torch, np, card).items():
             launches[k] += n
-    train_launches, state = check_train(torch, np, card)
+    train_launches, state, step_ms = check_train(torch, np, card)
     for k, n in train_launches.items():
         launches[k] += n
     check_eval(torch, np, card, state)
     del state
+    torch.cuda.empty_cache()
+    for k, n in check_loop(torch, np, card, step_ms[8]).items():
+        launches[k] += n
 
     summary = []
     for name, src, replaces, head_L in (

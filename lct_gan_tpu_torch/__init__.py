@@ -18,8 +18,11 @@ utterance length, and chunked streaming (`eval.StreamingEnhancer`); and the
 GAN train step (`train.make_train_step`, `train.make_eval_step`,
 `train.create_state`): losses, the MPD / MSD discriminators, two AdamW
 optimizers, and gradients through every kernel wrapper (the FTF block's
-backward is its own CUDA kernel). The training loop, checkpoints and the
-train CLI are not ported yet.
+backward is its own CUDA kernel); and the training run around it: the
+data pipeline (`data.ScpDataset`, `data.batch_iterator`, `data.Prefetcher`),
+validation metrics (`metrics`), `.pt` checkpoints and resume
+(`train.checkpoint`), `train.run_training` and the train CLI
+(`python -m lct_gan_tpu_torch.train_cli`).
 """
 
 __all__ = ["__version__"]

@@ -1,5 +1,6 @@
-"""Weight bridge: JAX-package generator params -> the port's state_dict, and
-`load_enhancer` for both committed weight formats.
+"""Weight bridge: JAX-package generator params <-> the port's state_dict,
+the generator `.npz` both ways, and `load_enhancer` for both committed
+weight formats.
 
 The port's module names are the reference state_dict's, so a JAX param
 tree converts with the reference exporter's layout rules (the port's own
@@ -21,9 +22,11 @@ plus the `stft.window` periodic Hann buffer; and, for the discriminators
                                            weight_u, weight_v (v permuted
                                            from (k..., in) to (in, k...))
 
-The generator `.npz` format
-(flat '/'-joined keys with an embedded `__meta_json__`) is read with numpy,
-as `lct_gan_tpu/train/checkpoint.py:85-146` writes it.
+The reverse, the port's generator state_dict -> the JAX param tree, follows
+the JAX package's importer (`lct_gan_tpu/convert/torch_import.py:
+convert_enhancer`). The generator `.npz` format (flat '/'-joined keys with
+an embedded `__meta_json__`) is read and written with numpy, as
+`lct_gan_tpu/train/checkpoint.py:85-146` does.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
 from lct_gan_tpu_torch.utils.device import resolve_device
 
 __all__ = ["jax_params_to_state_dict", "jax_disc_params_to_state_dict",
-           "read_npz_params", "load_enhancer"]
+           "state_dict_to_jax_params", "read_npz_params",
+           "save_generator_params_npz", "load_enhancer"]
 
 _NPZ_META_KEY = "__meta_json__"
 
@@ -180,6 +184,87 @@ def jax_params_to_state_dict(params: Mapping[str, Any], n_fft: int = 512
     return {k: torch.from_numpy(v) for k, v in out.items()}
 
 
+def _np32(sd: Mapping[str, Any], key: str) -> np.ndarray:
+    v = sd[key]
+    v = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+    return v.astype(np.float32, copy=False)
+
+
+def _jax_conv2d(sd, prefix):
+    return {"kernel": np.ascontiguousarray(
+                _np32(sd, f"{prefix}.weight").transpose(2, 3, 1, 0)),
+            "bias": _np32(sd, f"{prefix}.bias")}
+
+
+def _jax_conv_transpose2d(sd, prefix):
+    w = _np32(sd, f"{prefix}.weight")  # [in, out, kh, kw]
+    return {"kernel": np.ascontiguousarray(
+                w.transpose(2, 3, 0, 1)[::-1, ::-1]),  # HWIO, pre-flipped
+            "bias": _np32(sd, f"{prefix}.bias")}
+
+
+def _jax_dense(sd, prefix):
+    return {"kernel": np.ascontiguousarray(_np32(sd, f"{prefix}.weight").T),
+            "bias": _np32(sd, f"{prefix}.bias")}
+
+
+def _jax_layernorm(sd, prefix):
+    return {"scale": _np32(sd, f"{prefix}.weight"),
+            "bias": _np32(sd, f"{prefix}.bias")}
+
+
+def _jax_mha(sd, prefix):
+    return {"in_proj_kernel": np.ascontiguousarray(
+                _np32(sd, f"{prefix}.in_proj_weight").T),
+            "in_proj_bias": _np32(sd, f"{prefix}.in_proj_bias"),
+            "out_proj_kernel": np.ascontiguousarray(
+                _np32(sd, f"{prefix}.out_proj.weight").T),
+            "out_proj_bias": _np32(sd, f"{prefix}.out_proj.bias")}
+
+
+def _jax_grouped_gru(sd, prefix):
+    """gru1..gru{G} (and their _reverse halves) -> the stacked
+    [directions, G, ...] layout."""
+    groups = 0
+    while f"{prefix}.gru{groups + 1}.weight_ih_l0" in sd:
+        groups += 1
+    dirs = 2 if f"{prefix}.gru1.weight_ih_l0_reverse" in sd else 1
+    out = {}
+    for name, key, t in (("w_ih", "weight_ih", True),
+                         ("w_hh", "weight_hh", True),
+                         ("b_ih", "bias_ih", False),
+                         ("b_hh", "bias_hh", False)):
+        rows = []
+        for d in range(dirs):
+            sfx = "_reverse" if d == 1 else ""
+            rows.append([_np32(sd, f"{prefix}.gru{g + 1}.{key}_l0{sfx}")
+                         for g in range(groups)])
+        arr = np.asarray(rows, dtype=np.float32)
+        out[name] = np.ascontiguousarray(np.swapaxes(arr, -1, -2)) if t \
+            else arr
+    return out
+
+
+def state_dict_to_jax_params(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's LctEnhancer state_dict ('gen.*' keys; the `stft.window`
+    buffer is not a parameter there) -> the JAX package's param tree
+    {"gen": {...}} of float32 numpy arrays."""
+    gen: Dict[str, Any] = {}
+    for name in ("conv1", "conv2", "conv3", "skip2", "skip3", "skip4"):
+        gen[name] = _jax_conv2d(sd, f"gen.{name}")
+    gen["layernorm"] = _jax_layernorm(sd, "gen.layernorm")
+    for name in ("GRUf1", "GRUt1", "GRUf2"):
+        p = f"gen.{name}"
+        gen[name] = {"layernorm1": _jax_layernorm(sd, f"{p}.layernorm1"),
+                     "layernorm2": _jax_layernorm(sd, f"{p}.layernorm2"),
+                     "gru": _jax_grouped_gru(sd, p),
+                     "attn": _jax_mha(sd, f"{p}.attn"),
+                     "lin": _jax_dense(sd, f"{p}.lin")}
+    for name in ("deconv2", "deconv3", "deconv4"):
+        gen[name] = _jax_conv_transpose2d(sd, f"gen.{name}")
+    return {"gen": gen}
+
+
 def read_npz_params(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """A generator .npz -> (nested param dict, embedded meta or {})."""
     nested: Dict[str, Any] = {}
@@ -195,6 +280,37 @@ def read_npz_params(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = z[key]
     return nested, meta
+
+
+def save_generator_params_npz(path: str, enhancer_or_state_dict,
+                              meta: Optional[Mapping[str, Any]] = None
+                              ) -> str:
+    """Write the generator's weights as the JAX package's serving `.npz`:
+    the JAX param tree flattened to '/'-joined keys ('gen/conv1/kernel',
+    ...), with `meta` (e.g. {"train_cfg": ...}, whose compress_c and
+    max_time_context `load_enhancer` honours) embedded as JSON under
+    `__meta_json__`. Accepts an LctEnhancer or its state_dict."""
+    sd = enhancer_or_state_dict
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k in sorted(node):
+            v = node[k]
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = v
+
+    walk(state_dict_to_jax_params(sd), "")
+    if meta is not None:
+        flat[_NPZ_META_KEY] = np.frombuffer(
+            json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+    return path
 
 
 def load_enhancer(path: str, device="cuda", *,

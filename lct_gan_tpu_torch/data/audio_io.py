@@ -1,6 +1,6 @@
-"""Wav read/write, resampling and scp lists in numpy (copies of
-`lct_gan_tpu/data/audio_io.py:39-211` without the native decoder, and
-`lct_gan_tpu/data/dataset.py:23-33`).
+"""Wav read/write, header-only length probe, resampling and scp lists in
+numpy (copies of `lct_gan_tpu/data/audio_io.py:39-211` without the native
+decoder, and `lct_gan_tpu/data/dataset.py:23-33`).
 
 Integer PCM is scaled to [-1, 1) by 1 / 2^(bits-1), as torchaudio does.
 """
@@ -14,8 +14,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["read_wav", "write_wav", "resample", "load_mono_wave",
-           "read_scp"]
+__all__ = ["read_wav", "wav_num_samples", "write_wav", "resample",
+           "load_mono_wave", "read_scp"]
 
 _RIFF = b"RIFF"
 _WAVE = b"WAVE"
@@ -87,6 +87,46 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
         raise ValueError(f"Unsupported wav format 0x{fmt_code:04x}: {path}")
     n_frames = len(x) // channels
     return x[:n_frames * channels].reshape(n_frames, channels).T, sample_rate
+
+
+def wav_num_samples(path: str,
+                    target_sr: Optional[int] = None) -> Tuple[int, int]:
+    """Header-only length probe: (n_frames, sample_rate) without reading
+    the data payload. With target_sr, n_frames is the post-resample frame
+    count (scipy resample_poly's ceil). Drives batch_iterator's
+    sort_by_length bucketing."""
+    with open(path, "rb") as f:
+        header = f.read(12)
+        if len(header) < 12 or header[:4] != _RIFF or header[8:12] != _WAVE:
+            raise ValueError(f"Not a RIFF/WAVE file: {path}")
+        channels = sample_rate = bits = data_size = None
+        while True:
+            chunk_hdr = f.read(8)
+            if len(chunk_hdr) < 8:
+                break
+            cid, csize = struct.unpack("<4sI", chunk_hdr)
+            if cid == _FMT:
+                fmt = f.read(csize)
+                (_fmt_code, channels, sample_rate, _br, _ba,
+                 bits) = struct.unpack("<HHIIHH", fmt[:16])
+                if csize & 1:
+                    f.seek(1, os.SEEK_CUR)
+            elif cid == _DATA:
+                data_size = csize
+                if channels is not None:
+                    break  # fmt already seen; the payload is not needed
+                f.seek(csize + (csize & 1), os.SEEK_CUR)
+            else:
+                f.seek(csize + (csize & 1), os.SEEK_CUR)
+    if channels is None or data_size is None:
+        raise ValueError(f"Missing fmt/data chunk in wav: {path}")
+    n = data_size // ((bits // 8) * channels)
+    if target_sr is not None and target_sr != sample_rate:
+        g = math.gcd(int(target_sr), int(sample_rate))
+        up, down = target_sr // g, sample_rate // g
+        n = -(-(n * up) // down)  # ceil, matching resample_poly
+        return n, target_sr
+    return n, sample_rate
 
 
 def write_wav(path: str, samples: np.ndarray, sample_rate: int,

@@ -101,7 +101,11 @@ def test_import_pulls_in_no_jax():
             "lct_gan_tpu_torch.eval, lct_gan_tpu_torch.train, "
             "lct_gan_tpu_torch.losses, lct_gan_tpu_torch.ops.ftf_bwd, "
             "lct_gan_tpu_torch.models.discriminators, "
-            "lct_gan_tpu_torch.sigproc.features\n"
+            "lct_gan_tpu_torch.sigproc.features, "
+            "lct_gan_tpu_torch.data.dataset, lct_gan_tpu_torch.metrics, "
+            "lct_gan_tpu_torch.utils.config, "
+            "lct_gan_tpu_torch.train.checkpoint, "
+            "lct_gan_tpu_torch.train.loop, lct_gan_tpu_torch.train_cli\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lct_gan_tpu')]\n"
             "print(bad)\n"
@@ -117,6 +121,13 @@ def test_sources_import_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "lct_gan_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    walked = {os.path.relpath(f, ROOT) for f in files}
+    for rel in ("data/dataset.py", "data/pipeline.py", "utils/config.py",
+                "metrics/__init__.py", "metrics/external.py",
+                "metrics/sisdr.py", "metrics/stoi.py", "metrics/fwsegsnr.py",
+                "metrics/pesq_p862.py", "train/checkpoint.py",
+                "train/loop.py", "train_cli.py", "infer.py"):
+        assert os.path.join("lct_gan_tpu_torch", rel) in walked, rel
     for path in files:
         with open(path, encoding="utf-8") as f:
             for line in f:
