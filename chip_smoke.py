@@ -62,6 +62,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            audio-sec/s and validation seconds per epoch, and the device-idle
            share of the resumed run's epoch-2 training from a torch.profiler
            pass
+  export   the export path with the reference-format demo weights:
+           keep_kernels artifacts traced on the card at (128, 32000) and
+           (4, 163840) (3/0/0 and 2/1/0 FTF/MHSA/banded launches per call,
+           counted from the loaded program) and, with max_time_context=64,
+           at (4, 196608) (2/0/1), each against make_enhance on the same
+           input; the first also in a fresh process that imports the
+           package, and timed against make_enhance (the ops' dispatch
+           cost); a portable artifact traced on the CPU at (8, 32000): 0
+           launches and no host copy per call on the card, equal to the CPU
+           plain path, and loaded in a fresh process that imports torch
+           alone; export and load seconds. Then export_cli (4 x 4 s, its
+           artifact enhancing the loop phase's corpus in chunks) and
+           metrics_cli on the result, ModelComparator with
+           make_torch_system on one utterance (PNGs where matplotlib is
+           installed), and bench_serving_latency's rows, one line each
 
 then the "kernels" summary line and, last, {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -1285,6 +1300,336 @@ def check_loop(torch, np, card, bare_step_ms):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Exported program on the card vs make_enhance on the same card and input:
+# the same kernels in the same order, so equal is expected; 1e-5 is far
+# below TOL_WAVE (a wiring fault is O(0.1)). The same program in a fresh
+# process (given this process's cuDNN flags) is held to TOL_WAVE, the
+# enhance phase's band for another order of f32 sums: another process may
+# pick another cuDNN algorithm, and a bf16 kernel operand that lands across
+# a rounding boundary moves the output by up to ~1e-4 (bit equality is
+# reported, not required).
+TOL_EXPORT = 1e-5
+PT_CHECKPOINT = os.path.join(ROOT, "artifacts", "train_demo",
+                             "enhancer_best_reference_format.pt")
+
+
+def program_call(torch, program):
+    """An exported program as `enhance(x) -> enhanced`, under inference
+    mode (as ExportedEnhancer runs it)."""
+    def call(x):
+        with torch.inference_mode():
+            return program(x)[0]
+    return call
+
+
+def memcpy_count(torch, fn):
+    """Host <-> device copies during one call of `fn` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if "Memcpy HtoD" in e.name or "Memcpy DtoH" in e.name]
+    return len(names)
+
+
+def run_in_subprocess(code, *args, timeout=600):
+    """`python3 -c code args` in a fresh process; its last stdout line as
+    JSON. Raises with its stderr when it fails."""
+    import subprocess
+
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"subprocess failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# A keep_kernels artifact in a fresh process that imports the package: the
+# program of the saved input's shape on it, its launches and output.
+LOAD_KEPT = """
+import json, sys
+import numpy as np, torch
+torch.backends.cudnn.deterministic = sys.argv[4] == "True"
+from lct_gan_tpu_torch.export_model import load_exported
+from lct_gan_tpu_torch.ops import banded_mhsa, fused_ftf_block, fused_mhsa
+enh = load_exported(sys.argv[1], device="cuda")
+x = torch.from_numpy(np.load(sys.argv[2])).cuda()
+with torch.inference_mode():
+    out = enh.programs[tuple(x.shape)](x)[0]
+torch.cuda.synchronize()
+np.save(sys.argv[3], out.cpu().numpy())
+print(json.dumps({"launches": [fused_ftf_block.launches, fused_mhsa.launches,
+                               banded_mhsa.launches]}))
+"""
+
+# A portable artifact in a fresh process that imports torch and nothing of
+# this repository.
+LOAD_PORTABLE = """
+import io, json, sys, zipfile
+import numpy as np, torch
+from torch.export.passes import move_to_device_pass
+torch.backends.cudnn.allow_tf32 = False   # the program's convs are f32
+torch.backends.cudnn.deterministic = sys.argv[4] == "True"
+with zipfile.ZipFile(sys.argv[1]) as z:
+    meta = json.loads(z.read("meta.json"))
+    b, t = meta["shapes"][0]
+    program = torch.export.load(io.BytesIO(z.read(f"b{b}_t{t}.pt2")))
+module = move_to_device_pass(program, "cuda").module()
+x = torch.from_numpy(np.load(sys.argv[2])).cuda()
+with torch.inference_mode():
+    out = module(x)[0]
+np.save(sys.argv[3], out.cpu().numpy())
+ours = sorted(m for m in sys.modules if m.split(".")[0] in
+              ("lct_gan_tpu", "lct_gan_tpu_torch", "jax"))
+print(json.dumps({"repo_modules": ours}))
+sys.exit(1 if ours else 0)
+"""
+
+
+def check_export(torch, np, card):
+    """The export path (export_model.py) and the tools around it on the
+    card, with the committed reference-format demo weights."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import statistics
+    import tempfile
+
+    from lct_gan_tpu_torch import bench_serving_latency, export_cli
+    from lct_gan_tpu_torch import metrics_cli
+    from lct_gan_tpu_torch.convert import load_enhancer
+    from lct_gan_tpu_torch.data import read_scp, read_wav, write_wav
+    from lct_gan_tpu_torch.eval import (ModelComparator, enhance_in_chunks,
+                                        make_enhance, make_torch_system)
+    from lct_gan_tpu_torch.export_model import (export_enhancer,
+                                                kernel_op_counts,
+                                                load_exported)
+
+    names = ("fused_ftf_block", "fused_mhsa", "banded_mhsa")
+    launches = {k: 0 for k in names}
+    rng = np.random.default_rng(12)
+    root = tempfile.mkdtemp(prefix="lct_export_")
+    try:
+        # keep_kernels artifacts: (shapes, max_time_context, expected
+        # launches per call (FTF, MHSA, banded) for each shape).
+        for label, shapes, mtc, expects in (
+                ("kept", [(128, 32000), (4, 163840)], None,
+                 [(3, 0, 0), (2, 1, 0)]),
+                ("kept_banded64", [(4, 196608)], 64, [(2, 0, 1)])):
+            enhancer = load_enhancer(PT_CHECKPOINT, device="cuda",
+                                     max_time_context=mtc)
+            enhance = make_enhance(enhancer)
+            path = os.path.join(root, f"{label}.lct.zip")
+            export_s = export_enhancer(path, enhancer, shapes,
+                                       keep_kernels=True)
+            t0 = time.perf_counter()
+            loaded = load_exported(path, device="cuda")
+            load_s = time.perf_counter() - t0
+            for shape, expect in zip(shapes, expects):
+                program = loaded.programs[shape]
+                nodes = kernel_op_counts(program)
+                want_nodes = {k: n for k, n in zip(names, expect) if n}
+                if nodes != want_nodes:
+                    raise AssertionError(f"{label} {shape}: op nodes {nodes}"
+                                         f", expected {want_nodes}")
+                wave = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+                x = torch.from_numpy(wave).cuda()
+                call = program_call(torch, program)
+                call(x)  # warm-up
+                out, got = run_counted(torch, call, x, None,
+                                       dict(zip(names, expect)))
+                for k in names:
+                    launches[k] += got[k]
+                ref = enhance(x)
+                err = (out - ref).abs().max().item()
+                if not (err <= TOL_EXPORT and torch.isfinite(out).all()):
+                    raise AssertionError(f"{label} {shape} vs make_enhance: "
+                                         f"{err} > {TOL_EXPORT}")
+                res = {"phase": "export", "artifact": label,
+                       "max_time_context": mtc, "shape": list(shape),
+                       "op_nodes": nodes, "launches_per_call": got,
+                       "max_abs_err_vs_make_enhance": err,
+                       "bit_equal": bool(torch.equal(out, ref)),
+                       "tol": TOL_EXPORT,
+                       "export_s": export_s[shape], "load_s_all_shapes":
+                           load_s, "device": card}
+                if shape == (128, 32000):
+                    # Custom-op dispatch overhead: the exported program
+                    # against eager make_enhance, alternating.
+                    runs = {"exported_ms": [], "make_enhance_ms": []}
+                    for _ in range(2):
+                        runs["exported_ms"].append(cuda_ms(torch,
+                                                           lambda: call(x), 5))
+                        runs["make_enhance_ms"].append(
+                            cuda_ms(torch, lambda: enhance(x), 5))
+                    res.update({k: statistics.median(v)
+                                for k, v in runs.items()})
+                    res["runs_ms"] = runs
+                    # The same artifact in a fresh process.
+                    np.save(os.path.join(root, "x.npy"), wave)
+                    t0 = time.perf_counter()
+                    sub = run_in_subprocess(
+                        LOAD_KEPT, path, os.path.join(root, "x.npy"),
+                        os.path.join(root, "y.npy"),
+                        str(torch.backends.cudnn.deterministic))
+                    sub_out = np.load(os.path.join(root, "y.npy"))
+                    sub_err = float(np.abs(sub_out - out.cpu().numpy()).max())
+                    if (sub["launches"] != [3, 0, 0]
+                            or not sub_err <= TOL_WAVE):
+                        raise AssertionError(f"fresh-process load: {sub}, "
+                                             f"max|diff| {sub_err}")
+                    res["fresh_process"] = {
+                        "launches": sub["launches"],
+                        "max_abs_err_vs_this_process": sub_err,
+                        "bit_equal": sub_err == 0.0, "tol": TOL_WAVE,
+                        "seconds": time.perf_counter() - t0}
+                emit(res)
+                del x, out, ref
+            del loaded, enhancer, enhance
+            torch.cuda.empty_cache()
+
+        # The portable artifact: traced on the CPU, ATen ops only.
+        enhancer = load_enhancer(PT_CHECKPOINT, device="cpu")
+        path = os.path.join(root, "portable.lct.zip")
+        shape = (8, 32000)
+        export_s = export_enhancer(path, enhancer, [shape])
+        t0 = time.perf_counter()
+        loaded = load_exported(path, device="cuda")
+        load_s = time.perf_counter() - t0
+        program = loaded.programs[shape]
+        if kernel_op_counts(program):
+            raise AssertionError("portable program holds kernel ops")
+        wave = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+        x = torch.from_numpy(wave).cuda()
+        call = program_call(torch, program)
+        call(x)  # warm-up
+        out, got = run_counted(torch, call, x, None,
+                               {k: 0 for k in names})
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref, _ = enhancer(torch.from_numpy(wave))
+            cpu_s = time.perf_counter() - t0
+        err = (out.cpu() - ref).abs().max().item()
+        if not (err <= TOL_WAVE and torch.isfinite(out).all()):
+            raise AssertionError(f"portable on the card vs CPU plain path: "
+                                 f"{err} > {TOL_WAVE}")
+        copies = memcpy_count(torch, lambda: call(x))
+        if copies:
+            raise AssertionError(f"portable call made {copies} host copies")
+        np.save(os.path.join(root, "x8.npy"), wave)
+        t0 = time.perf_counter()
+        sub = run_in_subprocess(LOAD_PORTABLE, path,
+                                os.path.join(root, "x8.npy"),
+                                os.path.join(root, "y8.npy"),
+                                str(torch.backends.cudnn.deterministic))
+        sub_s = time.perf_counter() - t0
+        sub_err = float(np.abs(np.load(os.path.join(root, "y8.npy"))
+                               - out.cpu().numpy()).max())
+        if not sub_err <= TOL_WAVE:
+            raise AssertionError(f"portable artifact: fresh torch-only "
+                                 f"process max|diff| {sub_err}")
+        card_enhance = make_enhance(load_enhancer(PT_CHECKPOINT,
+                                                  device="cuda"))
+        emit({"phase": "export", "artifact": "portable", "shape": list(shape),
+              "launches_per_call": got, "max_abs_err_vs_cpu_plain": err,
+              "tol_wave": TOL_WAVE, "host_copies_per_call": copies,
+              "fresh_torch_only_process": {
+                  "max_abs_err_vs_this_process": sub_err,
+                  "bit_equal": sub_err == 0.0, "seconds": sub_s, **sub},
+              "export_s": export_s[shape], "load_s": load_s,
+              "ms_per_call": cuda_ms(torch, lambda: call(x), 5),
+              "make_enhance_ms_b8": cuda_ms(torch, lambda: card_enhance(x),
+                                            5),
+              "cpu_plain_s": cpu_s, "device": card})
+        del loaded, program, x, out, card_enhance
+        torch.cuda.empty_cache()
+
+        # The CLIs on the loop phase's synthetic corpus: export_cli writes
+        # a keep_kernels artifact of 4 rows x 4 s, which enhances the test
+        # set (1.5-9 s) in 4 s chunks with 0.5 s crossfades
+        # (enhance_in_chunks: up to 3 chunks a wave, padded to 4 rows);
+        # metrics_cli scores the result.
+        data_root = os.path.join(root, "data")
+        write_corpus(np, data_root)
+        cli_path = os.path.join(root, "cli.lct.zip")
+        t0 = time.perf_counter()
+        export_cli.main(["--checkpoint", PT_CHECKPOINT, "--output", cli_path,
+                         "--batch_size", "4", "--seconds", "4",
+                         "--keep_kernels"])
+        cli_export_s = time.perf_counter() - t0
+        exported = load_exported(cli_path, device="cuda")
+        out_dir = os.path.join(root, "enhanced")
+        os.makedirs(out_dir)
+        ids = read_scp(os.path.join(data_root, "test.scp"))
+        for u in ids:
+            wave = read_wav(os.path.join(data_root, "noisy_test",
+                                         f"{u}.wav"))[0][0]
+            write_wav(os.path.join(out_dir, f"{u}.wav"), enhance_in_chunks(
+                exported, wave, SR, 4.0, 0.5), SR)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            metrics_cli.main(["--data_root", data_root, "--enhanced_dir",
+                              out_dir, "--no_pesq"])
+        lines = buf.getvalue().splitlines()
+        if lines[0] != f"Evaluated {len(ids)}/{len(ids)} utterances":
+            raise AssertionError(f"metrics_cli: {lines}")
+        emit({"phase": "export", "tool": "export_cli + metrics_cli",
+              "artifact_shapes": exported.shapes, "chunk_seconds": 4.0,
+              "overlap_seconds": 0.5,
+              "export_cli_s": cli_export_s, "metrics_cli": lines,
+              "device": card})
+        del exported
+
+        # ModelComparator with the port's system on one utterance; PNGs
+        # where matplotlib is installed.
+        plots = importlib.util.find_spec("matplotlib") is not None
+        cmp_dir = os.path.join(root, "compare")
+        result = ModelComparator(
+            {"port": make_torch_system(PT_CHECKPOINT)},
+            plots=plots).process_one_file(
+                os.path.join(data_root, "noisy_test", f"{ids[0]}.wav"),
+                cmp_dir, os.path.join(data_root, "clean_test",
+                                      f"{ids[0]}.wav"))
+        files = sorted(os.listdir(cmp_dir))
+        pngs = (sorted(os.listdir(os.path.join(cmp_dir, "spectrograms")))
+                if plots else [])
+        want = ["clean.wav", "noisy.wav", "port.wav", "port_diff.wav",
+                "port_diff_norm.wav"] + (["spectrograms"] if plots else [])
+        if not (files == want and pngs == (
+                ["all.png", "clean.png", "noisy.png", "port.png",
+                 "port_diff.png"] if plots else [])
+                and all(np.isfinite(result["port"][k])
+                        for k in ("si_sdr", "stoi"))):
+            raise AssertionError(f"ModelComparator: {files}, {pngs}, "
+                                 f"{result}")
+        emit({"phase": "export", "tool": "ModelComparator",
+              "utterance": ids[0], "metrics": {
+                  k: {m: result[k].get(m) for m in ("si_sdr", "pesq", "stoi")}
+                  for k in ("noisy", "port")},
+              "files": files, "spectrograms": pngs if plots
+              else "not written: no matplotlib on this machine",
+              "device": card})
+
+        # The serving-latency tool, as a user runs it; a row per line.
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench_serving_latency.main(["--iters", "5", "--repeats", "3"])
+        report = json.loads(buf.getvalue().strip().splitlines()[-1])
+        for row in report["rows"]:
+            emit({"phase": "export", "tool": "bench_serving_latency",
+                  **row, "device": report["device"]})
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1323,6 +1668,8 @@ def main():
     del state
     torch.cuda.empty_cache()
     for k, n in check_loop(torch, np, card, step_ms[8]).items():
+        launches[k] += n
+    for k, n in check_export(torch, np, card).items():
         launches[k] += n
 
     summary = []

@@ -22,8 +22,17 @@ backward is its own CUDA kernel); and the training run around it: the
 data pipeline (`data.ScpDataset`, `data.batch_iterator`, `data.Prefetcher`),
 validation metrics (`metrics`), `.pt` checkpoints and resume
 (`train.checkpoint`), `train.run_training` and the train CLI
-(`python -m lct_gan_tpu_torch.train_cli`).
+(`python -m lct_gan_tpu_torch.train_cli`); and the export path: the four
+kernels are `torch.library` custom ops (`torch.ops.lct_gan_tpu_torch.*`,
+registered on import), so `export_model.export_enhancer` writes
+`torch.export` programs per bucket shape, portable (ATen ops only) or with
+the CUDA kernels kept, and `export_model.load_exported` serves them; with
+the export CLI (`export_cli`), the metrics CLI (`metrics_cli`), the
+comparison harness (`eval.compare`) and the B = 1 serving-latency tool
+(`bench_serving_latency`).
 """
+
+from lct_gan_tpu_torch import ops  # noqa: F401  (registers the kernel ops)
 
 __all__ = ["__version__"]
 

@@ -16,7 +16,8 @@ already-causal time GRU) this is the serving path for true streaming with
 chunk-level latency.
 
 `enhance_in_chunks` and `_crossfade_ramp` are copies of the JAX package's
-numpy-only functions; `StreamingEnhancer` is built on the port's
+numpy-only functions (their chunk check is `chunk_geometry`, which the
+serving-latency tool shares); `StreamingEnhancer` is built on the port's
 `load_enhancer` + `make_enhance`.
 """
 
@@ -29,13 +30,29 @@ import numpy as np
 from lct_gan_tpu_torch.convert import load_enhancer
 from lct_gan_tpu_torch.eval.serve import make_enhance
 
-__all__ = ["StreamingEnhancer", "enhance_in_chunks"]
+__all__ = ["StreamingEnhancer", "enhance_in_chunks", "chunk_geometry"]
 
 
 def _crossfade_ramp(n: int) -> np.ndarray:
     """Raised-cosine fade-in of length n (fade-out is its mirror)."""
     return (0.5 - 0.5 * np.cos(np.pi * (np.arange(n) + 0.5) / n)).astype(
         np.float32)
+
+
+def chunk_geometry(chunk_seconds: float, overlap_seconds: float,
+                   sample_rate: int = 16000):
+    """(chunk, overlap) in samples; raises ValueError unless the overlap is
+    at most half the chunk."""
+    C = int(chunk_seconds * sample_rate)
+    V = int(overlap_seconds * sample_rate)
+    if V > C // 2:
+        # With hop = C - V < C/2, three or more chunks would overlap each
+        # sample and the fade-in/fade-out pair no longer sums to 1
+        # (amplitude ripple).
+        raise ValueError(
+            f"overlap ({V} samples) must be at most half the chunk "
+            f"({C} samples)")
+    return C, V
 
 
 def enhance_in_chunks(enhance_fn,
@@ -58,15 +75,7 @@ def enhance_in_chunks(enhance_fn,
     """
     wave = np.asarray(wave, dtype=np.float32).reshape(-1)
     T = wave.shape[-1]
-    C = int(chunk_seconds * sample_rate)
-    V = int(overlap_seconds * sample_rate)
-    if V > C // 2:
-        # With hop = C - V < C/2, three or more chunks would overlap each
-        # sample and the fade-in/fade-out pair no longer sums to 1
-        # (amplitude ripple).
-        raise ValueError(
-            f"overlap ({V} samples) must be at most half the chunk "
-            f"({C} samples)")
+    C, V = chunk_geometry(chunk_seconds, overlap_seconds, sample_rate)
     hop = C - V
     if T <= C:
         n_chunks = 1

@@ -1,5 +1,8 @@
-"""Kernels of the port: each wrapper launches its hand-written CUDA kernel on
-a CUDA tensor and computes its plain PyTorch version on a CPU tensor."""
+"""Kernels of the port: each is a `torch.library` custom op in the namespace
+`lct_gan_tpu_torch` (`torch.ops.lct_gan_tpu_torch.fused_ftf_block`,
+`fused_ftf_bwd`, `fused_mhsa`, `banded_mhsa`) whose CUDA kernel launches the
+hand-written CUDA kernel and whose CPU kernel is its plain PyTorch version;
+importing this package registers them."""
 
 from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
 from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,

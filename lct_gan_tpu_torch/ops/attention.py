@@ -8,6 +8,11 @@ tensor it launches the hand-written kernels of `csrc/mhsa.cu` (their bound
 on the H100 and what the simple design does about it are noted there); on
 a CPU tensor it computes `mhsa_reference`, its plain PyTorch version.
 
+The kernel is the `torch.library` operator `lct_gan_tpu_torch::fused_mhsa`
+(`mhsa_op`, `ops/library.py`): every mode is an argument, a fake
+implementation gives its output shape, so `torch.export` traces it as one
+node, and a program that holds the node launches the kernel on the card.
+
 It is differentiable: the backward recomputes the f32 `mhsa_reference`
 under autograd, as the JAX package's custom VJP does
 (`lct_gan_tpu/ops/attention.py:244-269`); key_bias is a constant.
@@ -24,9 +29,11 @@ from typing import Optional
 import torch
 
 from lct_gan_tpu_torch.ops.gru import round_bf16
+from lct_gan_tpu_torch.ops.library import define_op
 
-__all__ = ["mhsa_reference", "fused_mhsa", "MAX_PALLAS_SEQ",
-           "RecomputeBackward", "kernel_design", "mhsa_scratch"]
+__all__ = ["mhsa_reference", "fused_mhsa", "mhsa_op", "mhsa_plain",
+           "MAX_PALLAS_SEQ", "register_recompute_backward",
+           "check_attention_shapes", "kernel_design", "mhsa_scratch"]
 
 # Longest sequence the fused kernel serves (the precise kernel's K/V
 # shared-memory tile: 33 floats per key, 135 KB at 1024). Above it the
@@ -67,34 +74,29 @@ def mhsa_reference(x: torch.Tensor, in_proj_kernel: torch.Tensor,
     return rnd(out) @ rnd(out_proj_kernel) + out_proj_bias
 
 
-class RecomputeBackward(torch.autograd.Function):
-    """Autograd for a kernel wrapper whose backward differentiates its f32
-    plain version: apply(forward, reference, kwargs, key_bias, x, in_w,
-    in_b, out_w, out_b). `forward(x, *params, key_bias=..., **kwargs)` runs
-    the kernel (or the plain version on the CPU); the backward recomputes
-    `reference(..., precise=True)` under autograd. key_bias gets no
-    gradient."""
+def register_recompute_backward(op, reference) -> None:
+    """Autograd of an attention op (x, in_w, in_b, out_w, out_b, key_bias,
+    num_heads, lookback, precise) whose backward differentiates its f32 plain
+    version: the backward recomputes `reference(..., precise=True)` under
+    autograd. key_bias is a constant (no gradient)."""
 
-    @staticmethod
-    def forward(ctx, forward, reference, kwargs, key_bias, x, *params):
-        ctx.reference, ctx.kwargs = reference, kwargs
-        ctx.save_for_backward(x, *params,
-                              *(() if key_bias is None else (key_bias,)))
-        ctx.has_key_bias = key_bias is not None
-        return forward(x, *params, key_bias=key_bias, **kwargs)
+    def setup_context(ctx, inputs, output):
+        x, in_w, in_b, out_w, out_b, key_bias, num_heads, lookback, _ = inputs
+        ctx.save_for_backward(x, in_w, in_b, out_w, out_b, key_bias)
+        ctx.cfg = (num_heads, lookback)
 
-    @staticmethod
     def backward(ctx, dout):
-        saved = ctx.saved_tensors
-        key_bias = saved[-1] if ctx.has_key_bias else None
-        primals = saved[:5]
-        kwargs = {k: v for k, v in ctx.kwargs.items() if k != "precise"}
+        *primals, key_bias = ctx.saved_tensors
+        num_heads, lookback = ctx.cfg
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in primals]
-            out = ctx.reference(*inputs, key_bias=key_bias, precise=True,
-                                **kwargs)
+            out = reference(*inputs, num_heads=num_heads, lookback=lookback,
+                            key_bias=key_bias, precise=True)
             grads = torch.autograd.grad(out, inputs, dout)
-        return (None, None, None, None) + tuple(grads)
+        return (*grads, None, None, None, None)
+
+    torch.library.register_autograd(op, backward,
+                                    setup_context=setup_context)
 
 
 def kernel_design(precise: bool) -> str:
@@ -122,26 +124,44 @@ _MHSA_ARGTYPES = {
     True: [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P]}
 
 
-def _fused_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
-                        out_proj_bias, *, num_heads, lookback, key_bias,
-                        precise):
-    if x.device.type == "cpu":
-        return mhsa_reference(x, in_proj_kernel, in_proj_bias,
-                              out_proj_kernel, out_proj_bias,
-                              num_heads=num_heads, lookback=lookback,
-                              key_bias=key_bias, precise=precise)
+def check_attention_shapes(name: str, x: torch.Tensor, num_heads: int,
+                           max_seq: Optional[int] = None) -> None:
+    """Raise unless the attention kernels take these shapes: E = 64, 4
+    heads and, for the MHSA kernel, L <= max_seq."""
+    N, L, E = x.shape
+    if E != 64 or num_heads != 4:
+        raise ValueError(f"{name} kernel takes E=64 and 4 heads, got "
+                         f"E={E}, num_heads={num_heads}")
+    if max_seq is not None and L > max_seq:
+        raise ValueError(f"{name} kernel takes L <= {max_seq}, got {L}")
+
+
+def mhsa_plain(x: torch.Tensor, in_proj_kernel: torch.Tensor,
+                in_proj_bias: torch.Tensor, out_proj_kernel: torch.Tensor,
+                out_proj_bias: torch.Tensor, key_bias: Optional[torch.Tensor],
+                num_heads: int, lookback: Optional[int],
+                precise: bool) -> torch.Tensor:
+    """The op on the CPU, and its decomposition in a portable export."""
+    return mhsa_reference(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+                          out_proj_bias, num_heads=num_heads,
+                          lookback=lookback, key_bias=key_bias,
+                          precise=precise)
+
+
+def _mhsa_fake(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+               out_proj_bias, key_bias, num_heads, lookback, precise):
+    if x.device.type == "cuda":
+        check_attention_shapes("fused_mhsa", x, num_heads, MAX_PALLAS_SEQ)
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+def _mhsa_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+               out_proj_bias, key_bias, num_heads, lookback, precise):
     from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
                                               raise_on_error)
 
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mhsa: unsupported device {x.device}")
+    check_attention_shapes("fused_mhsa", x, num_heads, MAX_PALLAS_SEQ)
     N, L, E = x.shape
-    if E != 64 or num_heads != 4:
-        raise ValueError("fused_mhsa kernel takes E=64 and 4 heads, got "
-                         f"E={E}, num_heads={num_heads}")
-    if L > MAX_PALLAS_SEQ:
-        raise ValueError(f"fused_mhsa kernel takes L <= {MAX_PALLAS_SEQ}, "
-                         f"got {L}")
     dev = x.device
     ops = [f32_operand("x", x, (N, L, E), dev),
            f32_operand("in_proj_kernel", in_proj_kernel, (E, 3 * E), dev),
@@ -150,7 +170,6 @@ def _fused_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
            f32_operand("out_proj_bias", out_proj_bias, (E,), dev),
            None if key_bias is None
            else f32_operand("key_bias", key_bias, (N, L), dev)]
-    precise = bool(precise)
     scratch = [torch.empty(shape, device=dev, dtype=dtype)
                for _, shape, dtype in mhsa_scratch(N * L, precise)]
     out = torch.empty((N, L, E), device=dev, dtype=torch.float32)
@@ -158,13 +177,17 @@ def _fused_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
     fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise])
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
              *(t.data_ptr() for t in scratch), out.data_ptr(), N, L,
-             -1 if lookback is None else int(lookback),
+             -1 if lookback is None else lookback,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "mhsa", "fused_mhsa kernel launch")
     fused_mhsa.launches += 1
     fused_mhsa.design = kernel_design(precise)
     return out
+
+
+mhsa_op = define_op("fused_mhsa", mhsa_plain, _mhsa_cuda, _mhsa_fake)
+register_recompute_backward(mhsa_op, mhsa_reference)
 
 
 def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
@@ -175,14 +198,15 @@ def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                precise: bool = False) -> torch.Tensor:
     """Fused MHSA over x [N, L, 64] -> [N, L, 64] f32 (4 heads, L <= 1024).
 
-    CPU tensors: `mhsa_reference(..., precise=precise)`. CUDA tensors: the
-    kernels of csrc/mhsa.cu, each call counted in `fused_mhsa.launches`.
-    Differentiable in x and the four parameters (`RecomputeBackward`)."""
-    return RecomputeBackward.apply(
-        _fused_mhsa_forward, mhsa_reference,
-        dict(num_heads=num_heads, lookback=lookback, precise=precise),
-        key_bias, x, in_proj_kernel, in_proj_bias, out_proj_kernel,
-        out_proj_bias)
+    The op `torch.ops.lct_gan_tpu_torch.fused_mhsa`. CPU tensors:
+    `mhsa_reference(..., precise=precise)`. CUDA tensors: the kernels of
+    csrc/mhsa.cu, each launch counted in `fused_mhsa.launches`, from an
+    exported program too. Differentiable in x and the four parameters
+    (`register_recompute_backward`)."""
+    return mhsa_op(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+                   out_proj_bias, key_bias, int(num_heads),
+                   None if lookback is None else int(lookback),
+                   bool(precise))
 
 
 fused_mhsa.launches = 0

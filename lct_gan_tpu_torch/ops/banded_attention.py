@@ -11,10 +11,13 @@ tensor-core pass for bands whose scores fit in registers (the library's
 `lct_banded_max_register_lookback` keys back), and the MHSA kernel's
 tensor-core design with the band above that; precise mode three all-f32
 CUDA-core kernels. On a CPU tensor it computes
-`banded_mhsa_reference`, its plain PyTorch version. The backward
-recomputes the f32 `banded_mhsa_reference` under autograd (linear in S), as
-the JAX package's custom VJP does (`lct_gan_tpu/ops/banded_attention.py:
-243-268`); key_bias is a constant.
+`banded_mhsa_reference`, its plain PyTorch version. The kernel is the
+`torch.library` operator `lct_gan_tpu_torch::banded_mhsa` (`banded_op`,
+`ops/library.py`), every mode an argument, so `torch.export` traces it as
+one node. The
+backward recomputes the f32 `banded_mhsa_reference` under autograd (linear
+in S), as the JAX package's custom VJP does (`lct_gan_tpu/ops/
+banded_attention.py:243-268`); key_bias is a constant.
 
 The plain version is the JAX package's two-key-block formulation
 (`lct_gan_tpu/models/attention.py::_blocked_banded_attention`): queries in
@@ -32,11 +35,14 @@ from typing import Optional
 
 import torch
 
-from lct_gan_tpu_torch.ops.attention import (RecomputeBackward,
-                                             kernel_design)
+from lct_gan_tpu_torch.ops.attention import (check_attention_shapes,
+                                             kernel_design,
+                                             register_recompute_backward)
 from lct_gan_tpu_torch.ops.gru import round_bf16
+from lct_gan_tpu_torch.ops.library import define_op
 
-__all__ = ["banded_mhsa_reference", "banded_mhsa", "banded_scratch"]
+__all__ = ["banded_mhsa_reference", "banded_mhsa", "banded_op",
+           "banded_plain", "banded_scratch"]
 
 
 def _blocked_banded_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,23 +146,32 @@ BANDED_ENTRY = {
            [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P])}
 
 
-def _banded_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
-                         out_proj_bias, *, num_heads, lookback, key_bias,
-                         precise):
-    if x.device.type == "cpu":
-        return banded_mhsa_reference(x, in_proj_kernel, in_proj_bias,
-                                     out_proj_kernel, out_proj_bias,
-                                     num_heads=num_heads, lookback=lookback,
-                                     key_bias=key_bias, precise=precise)
+def banded_plain(x: torch.Tensor, in_proj_kernel: torch.Tensor,
+                  in_proj_bias: torch.Tensor, out_proj_kernel: torch.Tensor,
+                  out_proj_bias: torch.Tensor,
+                  key_bias: Optional[torch.Tensor], num_heads: int,
+                  lookback: int, precise: bool) -> torch.Tensor:
+    """The op on the CPU, and its decomposition in a portable export."""
+    return banded_mhsa_reference(x, in_proj_kernel, in_proj_bias,
+                                 out_proj_kernel, out_proj_bias,
+                                 num_heads=num_heads, lookback=lookback,
+                                 key_bias=key_bias, precise=precise)
+
+
+def _banded_fake(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+                 out_proj_bias, key_bias, num_heads, lookback, precise):
+    if x.device.type == "cuda":
+        check_attention_shapes("banded_mhsa", x, num_heads)
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+def _banded_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+                 out_proj_bias, key_bias, num_heads, lookback, precise):
     from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
                                               raise_on_error)
 
-    if x.device.type != "cuda":
-        raise ValueError(f"banded_mhsa: unsupported device {x.device}")
+    check_attention_shapes("banded_mhsa", x, num_heads)
     N, S, E = x.shape
-    if E != 64 or num_heads != 4:
-        raise ValueError("banded_mhsa kernel takes E=64 and 4 heads, got "
-                         f"E={E}, num_heads={num_heads}")
     dev = x.device
     ops = [f32_operand("x", x, (N, S, E), dev),
            f32_operand("in_proj_kernel", in_proj_kernel, (E, 3 * E), dev),
@@ -165,23 +180,27 @@ def _banded_mhsa_forward(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
            f32_operand("out_proj_bias", out_proj_bias, (E,), dev),
            None if key_bias is None
            else f32_operand("key_bias", key_bias, (N, S), dev)]
-    precise = bool(precise)
     # The library owns the widest band its fused bf16 kernel serves.
     max_reg_w = kernel_function("banded", "lct_banded_max_register_lookback",
                                 [])()
     scratch = [torch.empty(shape, device=dev, dtype=dtype) for _, shape, dtype
-               in banded_scratch(N * S, precise, int(lookback) <= max_reg_w)]
+               in banded_scratch(N * S, precise, lookback <= max_reg_w)]
     slots = [t.data_ptr() for t in scratch] or [None]
     out = torch.empty((N, S, E), device=dev, dtype=torch.float32)
     fn = kernel_function("banded", *BANDED_ENTRY[precise])
     err = fn(*(None if t is None else t.data_ptr() for t in ops), *slots,
-             out.data_ptr(), N, S, int(lookback),
+             out.data_ptr(), N, S, lookback,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "banded", "banded_mhsa kernel launch")
     banded_mhsa.launches += 1
     banded_mhsa.design = kernel_design(precise)
     return out
+
+
+banded_op = define_op("banded_mhsa", banded_plain, _banded_cuda,
+                      _banded_fake)
+register_recompute_backward(banded_op, banded_mhsa_reference)
 
 
 def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
@@ -191,18 +210,17 @@ def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                 precise: bool = False) -> torch.Tensor:
     """Banded MHSA over x [N, S, 64] -> [N, S, 64] f32 (4 heads, any S).
 
-    CPU tensors: `banded_mhsa_reference(..., precise=precise)`. CUDA
-    tensors: the kernels of csrc/banded.cu, each call counted in
-    `banded_mhsa.launches` and its design recorded in
-    `banded_mhsa.design`. Differentiable in x and the four parameters
-    (`RecomputeBackward`)."""
+    The op `torch.ops.lct_gan_tpu_torch.banded_mhsa`. CPU tensors:
+    `banded_mhsa_reference(..., precise=precise)`. CUDA tensors: the
+    kernels of csrc/banded.cu, each launch counted in
+    `banded_mhsa.launches` (from an exported program too) and its design
+    recorded in `banded_mhsa.design`. Differentiable in x and the four
+    parameters (`register_recompute_backward`)."""
     if lookback < 0:
         raise ValueError(f"banded_mhsa: lookback must be >= 0, got {lookback}")
-    return RecomputeBackward.apply(
-        _banded_mhsa_forward, banded_mhsa_reference,
-        dict(num_heads=num_heads, lookback=lookback, precise=precise),
-        key_bias, x, in_proj_kernel, in_proj_bias, out_proj_kernel,
-        out_proj_bias)
+    return banded_op(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
+                     out_proj_bias, key_bias, int(num_heads), int(lookback),
+                     bool(precise))
 
 
 banded_mhsa.launches = 0

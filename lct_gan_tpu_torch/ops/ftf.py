@@ -12,9 +12,13 @@ _ftf_kernel` (API `fused_ftf_block`, :511) for L <= 512. On a CUDA tensor it
 launches the hand-written kernels of `csrc/ftf.cu` (their bound on the H100
 and what the simple design does about it are noted there); on a CPU tensor
 it computes `ftf_block_reference`, its plain PyTorch version, which rounds
-at the kernel's points unless precise=True.
+at the kernel's points unless precise=True. The kernel is the
+`torch.library` operator `lct_gan_tpu_torch::fused_ftf_block` (`ftf_op`,
+-> (out, hid), `ops/library.py`): every mode is an argument and a fake
+implementation gives the output shapes, so `torch.export` traces it as one
+node.
 
-It is differentiable (`FusedFTFFunction`, the JAX package's custom VJP,
+It is differentiable (the op's autograd, the JAX package's custom VJP,
 `lct_gan_tpu/ops/ftf.py:450-504`): under grad the forward keeps the
 per-direction GRU hiddens the kernel writes anyway, and the backward is
 `ops/ftf_bwd.py::fused_ftf_bwd` (the CUDA backward kernel on the card, its
@@ -28,15 +32,18 @@ in_w [C, 3C], out_w [C, C], lin_w [2C or C, C].
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from lct_gan_tpu_torch.ops.attention import kernel_design, mhsa_reference
+from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
 from lct_gan_tpu_torch.ops.gru import grouped_gru_hidden, round_bf16
+from lct_gan_tpu_torch.ops.library import define_op
 
 __all__ = ["fused_ftf_block", "ftf_block_reference", "ftf_forward_with_hidden",
-           "FusedFTFFunction", "layer_norm", "ftf_scratch", "MAX_FTF_SEQ"]
+           "ftf_op", "ftf_plain", "layer_norm", "ftf_scratch",
+           "check_kernel_shapes", "MAX_FTF_SEQ"]
 
 # Longest sequence the fused block serves; longer time blocks take the
 # composed path (models/generator.py), as in the JAX package.
@@ -157,31 +164,40 @@ def check_kernel_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                          f"bidirectional={bidirectional}")
 
 
-def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
-                            ln2_scale, ln2_bias, in_w, in_b, out_w, out_b,
-                            lin_w, lin_b, *, bidirectional: bool,
-                            num_heads: int = 4,
-                            lookback: Optional[int] = None,
-                            key_bias: Optional[torch.Tensor] = None,
-                            precise: bool = False):
-    """The FTF block forward and the per-direction GRU hiddens:
-    (out [N, L, 64], hid [D, N*L, 64]), both f32, hid unrounded.
+def ftf_plain(x: torch.Tensor, ln1_scale: torch.Tensor,
+               ln1_bias: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+               b_ih: torch.Tensor, b_hh: torch.Tensor, ln2_scale: torch.Tensor,
+               ln2_bias: torch.Tensor, in_w: torch.Tensor, in_b: torch.Tensor,
+               out_w: torch.Tensor, out_b: torch.Tensor, lin_w: torch.Tensor,
+               lin_b: torch.Tensor, key_bias: Optional[torch.Tensor],
+               bidirectional: bool, num_heads: int, lookback: Optional[int],
+               precise: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op on the CPU, and its decomposition in a portable export."""
+    return ftf_block_reference(
+        x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale, ln2_bias,
+        in_w, in_b, out_w, out_b, lin_w, lin_b, bidirectional=bidirectional,
+        num_heads=num_heads, lookback=lookback, key_bias=key_bias,
+        precise=precise, return_hidden=True)
 
-    CPU tensors: `ftf_block_reference(..., return_hidden=True)`. CUDA
-    tensors: the kernels of csrc/ftf.cu (`hid` is the scratch their GRU
-    stage writes), each call counted in `fused_ftf_block.launches`."""
-    if x.device.type == "cpu":
-        return ftf_block_reference(
-            x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
-            ln2_bias, in_w, in_b, out_w, out_b, lin_w, lin_b,
-            bidirectional=bidirectional, num_heads=num_heads,
-            lookback=lookback, key_bias=key_bias, precise=precise,
-            return_hidden=True)
+
+def _ftf_fake(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
+              ln2_bias, in_w, in_b, out_w, out_b, lin_w, lin_b, key_bias,
+              bidirectional, num_heads, lookback, precise):
+    if x.device.type == "cuda":
+        check_kernel_shapes("fused_ftf_block", x, w_ih, lin_w, num_heads,
+                            bidirectional)
+    N, L, C = x.shape
+    D = w_ih.shape[0] if bidirectional else 1
+    return (x.new_empty((N, L, C), dtype=torch.float32),
+            x.new_empty((D, N * L, C), dtype=torch.float32))
+
+
+def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
+              ln2_bias, in_w, in_b, out_w, out_b, lin_w, lin_b, key_bias,
+              bidirectional, num_heads, lookback, precise):
     from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
                                               raise_on_error)
 
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ftf_block: unsupported device {x.device}")
     check_kernel_shapes("fused_ftf_block", x, w_ih, lin_w, num_heads,
                         bidirectional)
     N, L, C = x.shape
@@ -206,7 +222,6 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
            f("lin_b", lin_b, (C,), dev),
            None if key_bias is None
            else f("key_bias", key_bias, (N, L), dev)]
-    precise = bool(precise)
     specs = ftf_scratch(N * L, D, lin_in, precise)
     scratch = [torch.empty(spec[1], device=dev, dtype=spec[2])
                if spec else None for spec in specs]
@@ -216,7 +231,7 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
              *(None if t is None else t.data_ptr()
                for t in scratch), out.data_ptr(),
-             N, L, D, lin_in, -1 if lookback is None else int(lookback),
+             N, L, D, lin_in, -1 if lookback is None else lookback,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "ftf", "fused_ftf_block kernel launch")
@@ -226,53 +241,67 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
                      if spec and spec[0] == "hid")
 
 
-class FusedFTFFunction(torch.autograd.Function):
-    """Autograd for the FTF block (`lct_gan_tpu/ops/ftf.py:450-504`).
+def _ftf_setup_context(ctx, inputs, output):
+    """Under grad the forward keeps its inputs and the per-direction
+    hiddens (`lct_gan_tpu/ops/ftf.py:450-504`); with key_bias, which the
+    backward kernel does not take, its inputs and key_bias for a recompute
+    (:468-472, 490-497). `hid` gets no gradient (nor a zero tensor for
+    one: the backward only ever has `out`'s)."""
+    primals, (key_bias, bidirectional, num_heads, lookback, precise) = (
+        inputs[:15], inputs[15:])
+    ctx.cfg = (bidirectional, num_heads, lookback, precise)
+    ctx.has_key_bias = key_bias is not None
+    ctx.save_for_backward(*primals,
+                          output[1] if key_bias is None else key_bias)
+    ctx.mark_non_differentiable(output[1])
+    ctx.set_materialize_grads(False)
 
-    apply(keep_hidden, bidirectional, num_heads, lookback, precise,
-          key_bias, x, *14 params). With keep_hidden (some input needs a
-    gradient) the forward saves its inputs and the per-direction hiddens;
-    without it nothing extra is kept. key_bias is a constant (no gradient).
-    """
 
-    @staticmethod
-    def forward(ctx, keep_hidden, bidirectional, num_heads, lookback,
-                precise, key_bias, x, *params):
-        out, hid = ftf_forward_with_hidden(
-            x, *params, bidirectional=bidirectional, num_heads=num_heads,
-            lookback=lookback, key_bias=key_bias, precise=precise)
-        ctx.cfg = (bidirectional, num_heads, lookback, precise)
-        if keep_hidden:
-            if key_bias is None:
-                ctx.save_for_backward(x, *params, hid)
-            else:
-                # The backward kernel has no key-bias input: recompute
-                # (lct_gan_tpu/ops/ftf.py:468-472, 490-497).
-                ctx.save_for_backward(x, *params, key_bias)
-            ctx.has_key_bias = key_bias is not None
-        return out
+def _ftf_backward(ctx, dout, _dhid):
+    bidirectional, num_heads, lookback, precise = ctx.cfg
+    *primals, last = ctx.saved_tensors
+    if ctx.has_key_bias:
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in primals]
+            out = ftf_block_reference(
+                *inputs, bidirectional=bidirectional, num_heads=num_heads,
+                lookback=lookback, key_bias=last, precise=True)
+            grads = torch.autograd.grad(out, inputs, dout)
+    else:
+        grads = fused_ftf_bwd(*primals, last, dout.contiguous(),
+                              bidirectional=bidirectional,
+                              num_heads=num_heads, lookback=lookback,
+                              precise=precise)
+    return (*grads, None, None, None, None, None)
 
-    @staticmethod
-    def backward(ctx, dout):
-        bidirectional, num_heads, lookback, precise = ctx.cfg
-        saved = ctx.saved_tensors
-        if ctx.has_key_bias:
-            *primals, key_bias = saved
-            with torch.enable_grad():
-                inputs = [t.detach().requires_grad_() for t in primals]
-                out = ftf_block_reference(
-                    *inputs, bidirectional=bidirectional,
-                    num_heads=num_heads, lookback=lookback,
-                    key_bias=key_bias, precise=True)
-                grads = torch.autograd.grad(out, inputs, dout)
-        else:
-            from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
 
-            *primals, hid = saved
-            grads = fused_ftf_bwd(
-                *primals, hid, dout.contiguous(), bidirectional=bidirectional,
-                num_heads=num_heads, lookback=lookback, precise=precise)
-        return (None, None, None, None, None, None) + tuple(grads)
+# The operator -> (out, hid).
+ftf_op = define_op("fused_ftf_block", ftf_plain, _ftf_cuda, _ftf_fake)
+torch.library.register_autograd(ftf_op, _ftf_backward,
+                                setup_context=_ftf_setup_context)
+
+
+def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
+                            ln2_scale, ln2_bias, in_w, in_b, out_w, out_b,
+                            lin_w, lin_b, *, bidirectional: bool,
+                            num_heads: int = 4,
+                            lookback: Optional[int] = None,
+                            key_bias: Optional[torch.Tensor] = None,
+                            precise: bool = False):
+    """The FTF block forward and the per-direction GRU hiddens:
+    (out [N, L, 64], hid [D, N*L, 64]), both f32, hid unrounded: the op
+    `torch.ops.lct_gan_tpu_torch.fused_ftf_block`.
+
+    CPU tensors: `ftf_block_reference(..., return_hidden=True)`. CUDA
+    tensors: the kernels of csrc/ftf.cu (`hid` is the scratch their GRU
+    stage writes), each launch counted in `fused_ftf_block.launches`, from
+    an exported program too. Differentiable in `out` (x and every
+    parameter): under grad the backward is `ops/ftf_bwd.py::fused_ftf_bwd`
+    on the saved hiddens, or, with key_bias, the f32 recompute."""
+    return ftf_op(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
+                  ln2_bias, in_w, in_b, out_w, out_b, lin_w, lin_b, key_bias,
+                  bool(bidirectional), int(num_heads),
+                  None if lookback is None else int(lookback), bool(precise))
 
 
 def fused_ftf_block(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
@@ -284,16 +313,15 @@ def fused_ftf_block(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
     """Fused FTF block over x [N, L, 64] -> [N, L, 64] f32 (L <= 512).
 
     CPU tensors: `ftf_block_reference(..., precise=precise)`. CUDA tensors:
-    the kernels of csrc/ftf.cu, each call counted in
+    the kernels of csrc/ftf.cu, each launch counted in
     `fused_ftf_block.launches`. key_bias: optional [N, L] per-key additive
     bias (0 / -1e30); lookback: optional inclusive causal band.
-    Differentiable in x and every parameter (`FusedFTFFunction`)."""
-    params = (ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
-              ln2_bias, in_w, in_b, out_w, out_b, lin_w, lin_b)
-    keep = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x,) + params)
-    return FusedFTFFunction.apply(keep, bidirectional, num_heads, lookback,
-                                  precise, key_bias, x, *params)
+    Differentiable in x and every parameter (`ftf_forward_with_hidden`)."""
+    return ftf_forward_with_hidden(
+        x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale, ln2_bias,
+        in_w, in_b, out_w, out_b, lin_w, lin_b, bidirectional=bidirectional,
+        num_heads=num_heads, lookback=lookback, key_bias=key_bias,
+        precise=precise)[0]
 
 
 fused_ftf_block.launches = 0

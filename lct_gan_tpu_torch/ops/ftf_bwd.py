@@ -20,7 +20,10 @@ tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
 (`lct_ftf_backward_f32`, `simt-f32`). On a CPU tensor it computes
 `ftf_bwd_reference`, its plain PyTorch version: the same hand-derived
 backward, rounding every GEMM operand to bf16 where the TPU kernel does (its
-`cd` casts, :144-148) unless precise=True.
+`cd` casts, :144-148) unless precise=True. The kernel is the `torch.library`
+operator `lct_gan_tpu_torch::fused_ftf_bwd` (`ftf_bwd_op`, `ops/library.py`),
+every mode an argument; it runs as the FTF operator's backward
+(`ops/ftf.py`).
 
 Layouts are the JAX package's, except `hid`, which is the CUDA forward
 kernel's [D, N*L, C] (the JAX kernel's [N, L, D*C] transposed). GRU
@@ -36,8 +39,10 @@ import torch
 
 from lct_gan_tpu_torch.ops.attention import kernel_design
 from lct_gan_tpu_torch.ops.gru import round_bf16
+from lct_gan_tpu_torch.ops.library import define_op
 
-__all__ = ["fused_ftf_bwd", "ftf_bwd_reference", "ftf_bwd_scratch_bytes"]
+__all__ = ["fused_ftf_bwd", "ftf_bwd_reference", "ftf_bwd_op",
+           "ftf_bwd_plain", "ftf_bwd_scratch_bytes"]
 
 
 def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -226,32 +231,46 @@ def ftf_bwd_scratch_bytes(N: int, L: int, D: int, lin_in: int,
     return nbytes
 
 
-def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
-                  in_w, in_b, out_w, out_b, lin_w, lin_b, hid, dout, *,
-                  bidirectional: bool, num_heads: int = 4,
-                  lookback: Optional[int] = None,
-                  precise: bool = False) -> Tuple[torch.Tensor, ...]:
-    """FTF block backward: x, dout [N, L, 64], hid [D, N*L, 64] (the
-    forward's unrounded per-direction hiddens) -> the 15 gradients of
-    `ftf_bwd_reference`, all f32.
+_GRADS = Tuple[(torch.Tensor,) * 15]
 
-    CPU tensors: `ftf_bwd_reference(..., precise=precise)`. CUDA tensors:
-    the kernels of csrc/ftf_bwd.cu, each call counted in
-    `fused_ftf_bwd.launches`, the design recorded in `fused_ftf_bwd.design`.
-    Deterministic: parameter gradients are summed over fixed row chunks,
-    then over the chunks in a fixed order."""
-    args = (x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b,
-            out_w, out_b, lin_w, lin_b, hid, dout)
-    if x.device.type == "cpu":
-        return ftf_bwd_reference(*args, bidirectional=bidirectional,
-                                 num_heads=num_heads, lookback=lookback,
-                                 precise=precise)
+
+def ftf_bwd_plain(x: torch.Tensor, ln1s: torch.Tensor, ln1b: torch.Tensor,
+                   w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+                   b_hh: torch.Tensor, ln2s: torch.Tensor, ln2b: torch.Tensor,
+                   in_w: torch.Tensor, in_b: torch.Tensor, out_w: torch.Tensor,
+                   out_b: torch.Tensor, lin_w: torch.Tensor,
+                   lin_b: torch.Tensor, hid: torch.Tensor, dout: torch.Tensor,
+                   bidirectional: bool, num_heads: int,
+                   lookback: Optional[int], precise: bool) -> _GRADS:
+    """The op on the CPU."""
+    return ftf_bwd_reference(
+        x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b, out_w,
+        out_b, lin_w, lin_b, hid, dout, bidirectional=bidirectional,
+        num_heads=num_heads, lookback=lookback, precise=precise)
+
+
+def _ftf_bwd_fake(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
+                  in_b, out_w, out_b, lin_w, lin_b, hid, dout, bidirectional,
+                  num_heads, lookback, precise):
+    from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
+
+    if x.device.type == "cuda":
+        check_kernel_shapes("fused_ftf_bwd", x, w_ih, lin_w, num_heads,
+                            bidirectional)
+    return tuple(t.new_empty(t.shape, dtype=torch.float32) for t in (
+        x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b,
+        out_w, out_b, lin_w, lin_b))
+
+
+def _ftf_bwd_cuda(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
+                  in_b, out_w, out_b, lin_w, lin_b, hid, dout, bidirectional,
+                  num_heads, lookback, precise):
     from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
                                               raise_on_error)
     from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
 
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ftf_bwd: unsupported device {x.device}")
+    args = (x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b,
+            out_w, out_b, lin_w, lin_b, hid, dout)
     check_kernel_shapes("fused_ftf_bwd", x, w_ih, lin_w, num_heads,
                         bidirectional)
     N, L, C = x.shape
@@ -267,7 +286,6 @@ def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
     ops = [f32_operand(n, t, s, dev) for n, t, s in zip(names, args, shapes)]
     grads = [torch.empty(s, device=dev, dtype=torch.float32)
              for s in shapes[:15]]
-    precise = bool(precise)
     with torch.cuda.device(dev):
         nbytes = ftf_bwd_scratch_bytes(N, L, D, lin_in, precise)
     scratch = torch.empty((nbytes,), device=dev, dtype=torch.uint8)
@@ -276,13 +294,40 @@ def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
     mode = (1,) if precise else ()
     err = fn(*(t.data_ptr() for t in ops), *(t.data_ptr() for t in grads),
              scratch.data_ptr(), N, L, D, lin_in,
-             -1 if lookback is None else int(lookback), *mode,
+             -1 if lookback is None else lookback, *mode,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "ftf_bwd", "fused_ftf_bwd kernel launch")
     fused_ftf_bwd.launches += 1
     fused_ftf_bwd.design = kernel_design(precise)
     return tuple(grads)
+
+
+# The operator -> the 15 gradients (no autograd of its own).
+ftf_bwd_op = define_op("fused_ftf_bwd", ftf_bwd_plain, _ftf_bwd_cuda,
+                       _ftf_bwd_fake)
+
+
+def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
+                  in_w, in_b, out_w, out_b, lin_w, lin_b, hid, dout, *,
+                  bidirectional: bool, num_heads: int = 4,
+                  lookback: Optional[int] = None,
+                  precise: bool = False) -> Tuple[torch.Tensor, ...]:
+    """FTF block backward: x, dout [N, L, 64], hid [D, N*L, 64] (the
+    forward's unrounded per-direction hiddens) -> the 15 gradients of
+    `ftf_bwd_reference`, all f32: the op
+    `torch.ops.lct_gan_tpu_torch.fused_ftf_bwd`.
+
+    CPU tensors: `ftf_bwd_reference(..., precise=precise)`. CUDA tensors:
+    the kernels of csrc/ftf_bwd.cu, each launch counted in
+    `fused_ftf_bwd.launches`, the design recorded in `fused_ftf_bwd.design`.
+    Deterministic: parameter gradients are summed over fixed row chunks,
+    then over the chunks in a fixed order."""
+    return ftf_bwd_op(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
+                      in_w, in_b, out_w, out_b, lin_w, lin_b, hid, dout,
+                      bool(bidirectional), int(num_heads),
+                      None if lookback is None else int(lookback),
+                      bool(precise))
 
 
 fused_ftf_bwd.launches = 0

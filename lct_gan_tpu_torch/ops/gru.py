@@ -45,23 +45,26 @@ def grouped_gru_hidden(x: torch.Tensor, w_ih: torch.Tensor,
     rnd = (lambda t: t) if precise else round_bf16
     xg = rnd(x.to(torch.float32)).reshape(N, L, G, H)
     D = D if bidirectional else 1
-    hid = x.new_empty((D, N, L, G, H), dtype=torch.float32)
+    hid = []
     for d in range(D):
         # Hoisted input projection over all steps: [N, L, G, 3H].
         xp = torch.einsum("nlgi,gio->nlgo", xg, rnd(w_ih[d])) + b_ih[d]
         whh = rnd(w_hh[d])
         h = x.new_zeros((N, G, H), dtype=torch.float32)
-        out = hid[d]   # one view per direction: a cheap 2-index write per step
-        steps = range(L - 1, -1, -1) if d == 1 else range(L)
-        for t in steps:
+        steps = [None] * L
+        for t in (range(L - 1, -1, -1) if d == 1 else range(L)):
             hp = torch.einsum("ngh,gho->ngo", rnd(h), whh) + b_hh[d]
             xt = xp[:, t]
             r = torch.sigmoid(xt[..., :H] + hp[..., :H])
             z = torch.sigmoid(xt[..., H:2 * H] + hp[..., H:2 * H])
             n = torch.tanh(xt[..., 2 * H:] + r * hp[..., 2 * H:])
             h = (1.0 - z) * n + z * h
-            out[:, t] = h
-    return hid.reshape(D, N, L, C)
+            steps[t] = h
+        # Stacked once, not written step by step into a buffer: no in-place
+        # write, so the loop traces into a functional graph (a portable
+        # export decomposes the kernel ops into this plain version).
+        hid.append(torch.stack(steps, dim=1))
+    return torch.stack(hid).reshape(D, N, L, C)
 
 
 def grouped_gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,

@@ -105,7 +105,10 @@ def test_import_pulls_in_no_jax():
             "lct_gan_tpu_torch.data.dataset, lct_gan_tpu_torch.metrics, "
             "lct_gan_tpu_torch.utils.config, "
             "lct_gan_tpu_torch.train.checkpoint, "
-            "lct_gan_tpu_torch.train.loop, lct_gan_tpu_torch.train_cli\n"
+            "lct_gan_tpu_torch.train.loop, lct_gan_tpu_torch.train_cli, "
+            "lct_gan_tpu_torch.export_model, lct_gan_tpu_torch.export_cli, "
+            "lct_gan_tpu_torch.eval.compare, lct_gan_tpu_torch.metrics_cli, "
+            "lct_gan_tpu_torch.bench_serving_latency\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lct_gan_tpu')]\n"
             "print(bad)\n"
@@ -126,7 +129,9 @@ def test_sources_import_no_jax():
                 "metrics/__init__.py", "metrics/external.py",
                 "metrics/sisdr.py", "metrics/stoi.py", "metrics/fwsegsnr.py",
                 "metrics/pesq_p862.py", "train/checkpoint.py",
-                "train/loop.py", "train_cli.py", "infer.py"):
+                "train/loop.py", "train_cli.py", "infer.py",
+                "export_model.py", "export_cli.py", "eval/compare.py",
+                "metrics_cli.py", "bench_serving_latency.py"):
         assert os.path.join("lct_gan_tpu_torch", rel) in walked, rel
     for path in files:
         with open(path, encoding="utf-8") as f:
