@@ -48,6 +48,16 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            correlation), step time at B=8 and B=64 split into enhancer
            forward, D step, G step and the FTF backward kernels
   eval     make_eval_step on one bucketed batch with lengths, against the CPU
+  parallel data parallelism (parallel/mesh.py) with the same weights and
+           TrainConfig(): 2 ranks sharing the card over gloo (spawned),
+           global B=8 x 2 s (4 rows a rank), 3 steps: the ranks' parameters,
+           buffers and AdamW states bit-equal after every step, 3 FTF
+           forward and 3 FTF backward launches per rank per step, step 1
+           against the 1-rank B=8 step on the card (metrics rtol 2e-4 atol
+           1e-6, parameters rtol 1e-3 atol 1e-5), each rank's step ms and
+           all-reduce ms (CUDA events around the D and G reductions); the
+           tiny parallel.dryrun; NCCL with one card a rank where there are
+           2 cards, else a line saying it was not run
   loop     the training run end to end (train/loop.py::run_training at
            TrainConfig() defaults, 2 epochs, validation and checkpoints
            every epoch, STOI on) on a seeded synthetic corpus (32 train
@@ -61,7 +71,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            the in-loop step ms against the train phase's bare B=8 step,
            audio-sec/s and validation seconds per epoch, and the device-idle
            share of the resumed run's epoch-2 training from a torch.profiler
-           pass
+           pass; the corpus decoded by the native library alone (host ms per
+           utterance, native against numpy, is host time); then
+           train_cli --data_parallel 2 for one epoch (one set of
+           checkpoints, configs.json with 2 devices and the backend,
+           validation within rtol 2e-4 of the 1-rank validation of its
+           best.pt)
   export   the export path with the reference-format demo weights:
            keep_kernels artifacts traced on the card at (128, 32000) and
            (4, 163840) (3/0/0 and 2/1/0 FTF/MHSA/banded launches per call,
@@ -1087,6 +1102,93 @@ def check_eval(torch, np, card, state):
           "si_sdr_db": m["si_sdr"].tolist(), "device": card})
 
 
+PARALLEL_STEPS = 3
+
+
+def check_parallel(torch, np, card):
+    """Data parallelism on the card (parallel/mesh.py): the full-width GAN
+    step over 2 ranks that share the card over gloo, against the 1-rank
+    step; the tiny dry run; NCCL over 2 cards where there are 2."""
+    from lct_gan_tpu_torch.parallel import spawn
+    from lct_gan_tpu_torch.parallel.dryrun import (TOL, StateInit,
+                                                   compare_step1, dryrun,
+                                                   one_rank_steps,
+                                                   rank_steps,
+                                                   seeded_batches)
+    from lct_gan_tpu_torch.train import TrainConfig
+
+    cfg = TrainConfig()
+    init = StateInit(seed=0, g_npz=CHECKPOINT)
+    noisy, clean = seeded_batches(PARALLEL_STEPS, cfg.batch_size,
+                                  cfg.segment_length, seed=11)
+    expect = {"fused_ftf_block": 3, "fused_ftf_bwd": 3, "fused_mhsa": 0,
+              "banded_mhsa": 0}
+
+    def run(device, backend, steps):
+        t0 = time.perf_counter()
+        ranks = spawn(rank_steps, 2, device, backend, cfg, init,
+                      noisy[:steps], clean[:steps])
+        seconds = time.perf_counter() - t0
+        for r in ranks:
+            if r["backend"] != backend:
+                raise AssertionError(f"rank {r['rank']} ran {r['backend']}")
+            if r["launches"] != [expect] * steps:
+                raise AssertionError(f"rank {r['rank']} launches "
+                                     f"{r['launches']}, {expect} a step")
+        return ranks, seconds
+
+    # The counted run: 2 ranks on cuda:0, 3 steps of 4 rows each.
+    ranks, seconds = run("cuda:0", "gloo", PARALLEL_STEPS)
+    ref = one_rank_steps(cfg, init, noisy[:1], clean[:1], "cuda")
+    cmp = compare_step1(ref, ranks, TOL["cuda"])
+    launches = {k: sum(step[k] for r in ranks for step in r["launches"])
+                for k in expect}
+    emit({"phase": "parallel", "check": "2 ranks, gloo, one card shared, "
+          "global B=8 x 2 s (4 rows a rank), TrainConfig(), 3 steps",
+          "rank_devices": [r["device"] for r in ranks],
+          "replicas_bit_equal_after_each_step": [r["replicas_equal"]
+                                                for r in ranks],
+          "launches_per_rank_per_step": ranks[0]["launches"][0],
+          "vs_one_rank_step1": cmp, "metrics": ranks[0]["metrics"],
+          "one_rank_metrics_step1": ref["metrics"][0],
+          "one_rank_step_ms": ref["timing"][0]["step_ms"],
+          "rank_step_ms": [[t["step_ms"] for t in r["timing"]]
+                           for r in ranks],
+          "rank_reduce_ms": [[t["reduce_ms"] for t in r["timing"]]
+                             for r in ranks],
+          "rank_d_reduce_ms": [[t["d_reduce_ms"] for t in r["timing"]]
+                               for r in ranks],
+          "rank_g_reduce_ms": [[t["g_reduce_ms"] for t in r["timing"]]
+                               for r in ranks],
+          "rank_wall_ms": [[t["wall_ms"] for t in r["timing"]]
+                           for r in ranks],
+          "spawn_to_results_s": seconds, "device": card})
+
+    t0 = time.perf_counter()
+    tiny = dryrun(2, "cuda:0", backend="gloo")
+    emit({"phase": "parallel", "check": "parallel.dryrun: 2 ranks, gloo, "
+          "TrainConfig(segment_seconds=0.25), B=4, precise kernels",
+          "vs_one_rank_step1": tiny["compare"],
+          "replicas_bit_equal": [r["replicas_equal"]
+                                 for r in tiny["ranks"]],
+          "launches_per_rank": [r["launches"] for r in tiny["ranks"]],
+          "seconds": time.perf_counter() - t0})
+
+    if torch.cuda.device_count() >= 2:
+        nccl, seconds = run("cuda", "nccl", 1)
+        emit({"phase": "parallel", "check": "2 ranks, nccl, one card each",
+              "rank_devices": [r["device"] for r in nccl],
+              "vs_one_rank_step1": compare_step1(ref, nccl, TOL["cuda"]),
+              "rank_step_ms": [r["timing"][0]["step_ms"] for r in nccl],
+              "rank_reduce_ms": [r["timing"][0]["reduce_ms"] for r in nccl],
+              "spawn_to_results_s": seconds, "device": card})
+    else:
+        # A statement, not a pass: NCCL cannot put two ranks on one card.
+        emit({"phase": "parallel", "nccl_2_rank": "not run: 1 card",
+              "cards": torch.cuda.device_count()})
+    return launches
+
+
 LOOP_TRAIN = 32                               # utterances of 2.5 s
 LOOP_TEST_S = (1.5, 2.7, 4.0, 5.5, 7.0, 9.0)  # 7.0 and 9.0 s: L > 512
 
@@ -1172,10 +1274,105 @@ def idle_share(trace_path, span):
             "longest_gaps_ms": gaps[:5]}
 
 
+def decode_ms(np, data_root):
+    """Host ms per utterance of the native decoder and of its plain numpy
+    version: the loop corpus's 2.5 s noisy train files (16 kHz PCM16), and
+    one 2.5 s 48 kHz float file resampled to 16 kHz."""
+    import statistics
+
+    from lct_gan_tpu_torch.data import write_wav
+    from lct_gan_tpu_torch.data.audio_io import (load_mono_wave,
+                                                 load_mono_wave_numpy)
+
+    folder = os.path.join(data_root, "noisy_train")
+    corpus = [os.path.join(folder, n) for n in sorted(os.listdir(folder))]
+    hi = os.path.join(data_root, "tone48k.wav")
+    t = np.arange(int(2.5 * 48000)) / 48000
+    write_wav(hi, (0.3 * np.sin(2 * np.pi * 440 * t)).astype(np.float32),
+              48000, bits=32)
+    out = {}
+    for label, paths in (("16k_pcm16", corpus), ("48k_f32_to_16k",
+                                                 [hi] * 20)):
+        for route, fn in (("native", load_mono_wave),
+                          ("numpy", load_mono_wave_numpy)):
+            fn(paths[0], SR)   # warm: the library is loaded, scipy imported
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for path in paths:
+                    fn(path, SR)
+                runs.append((time.perf_counter() - t0) * 1e3 / len(paths))
+            out[f"{label}_{route}_ms"] = statistics.median(runs)
+    os.remove(hi)
+    return out
+
+
+def check_loop_parallel(torch, np, card, root, data_root):
+    """train_cli --data_parallel 2 for one epoch on the loop corpus: one set
+    of checkpoints, configs.json with the ranks and the backend, and
+    validation equal to the 1-rank validation of the saved weights."""
+    import csv
+
+    from lct_gan_tpu_torch import train_cli
+    from lct_gan_tpu_torch.convert import load_enhancer
+    from lct_gan_tpu_torch.data import ScpDataset
+    from lct_gan_tpu_torch.train import TrainConfig, make_eval_step, validate
+
+    expr = os.path.join(root, "dp")
+    t0 = time.perf_counter()
+    out = train_cli.main(["--data_root", data_root, "--expr_root", expr,
+                          "--epochs", "1", "--batch_size", "8",
+                          "--val_interval", "1", "--ckpt_interval", "1",
+                          "--log_interval", "1", "--no_pesq",
+                          "--data_parallel", "2", "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    runs = os.listdir(expr)
+    if len(runs) != 1:
+        raise AssertionError(f"data-parallel run directories {runs}")
+    run = os.path.join(expr, runs[0])
+    names = sorted(os.listdir(os.path.join(run, "ckpts")))
+    if names != ["best.pt", "epoch_0001.pt", "last.pt"]:
+        raise AssertionError(f"data-parallel checkpoints {names}")
+    with open(os.path.join(run, "configs.json")) as f:
+        configs = json.load(f)
+    want_backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    if (configs["devices"], configs["backend"]) != (2, want_backend):
+        raise AssertionError(f"configs.json devices {configs['devices']} "
+                             f"backend {configs['backend']}")
+    with open(os.path.join(run, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 1:
+        raise AssertionError(f"metrics.csv rows {rows}")
+    cfg = TrainConfig(epochs=1)
+    enh = load_enhancer(os.path.join(run, "ckpts", "best.pt"),
+                        device="cuda")
+    val_ds = ScpDataset(data_root, "test.scp", "test", sample_rate=SR,
+                        segment_length=None, random_segment=False)
+    one = validate(make_eval_step(cfg), enh, val_ds, cfg, cfg.batch_size,
+                   compute_pesq=False, compute_stoi=True,
+                   adaptive_target_seconds=cfg.val_target_batch_seconds)
+    rel = {}
+    for k in ("val_mrstft", "val_si_sdr", "val_stoi"):
+        got = float(rows[0][k])
+        rel[k] = abs(got - one[k]) / abs(one[k])
+        if not abs(got - one[k]) <= 1e-5 + 2e-4 * abs(one[k]):
+            raise AssertionError(f"2-rank validation {k} {got} vs 1-rank "
+                                 f"{one[k]}")
+    emit({"phase": "loop", "check": "train_cli --data_parallel 2, 1 epoch",
+          "backend": configs["backend"], "devices": configs["devices"],
+          "checkpoints": names, "steps": out["epochs"][0]["steps"],
+          "rank0_step_ms": out["epochs"][0]["step_ms"],
+          "val_rel_err_vs_one_rank": rel, "tol": {"rtol": 2e-4,
+                                                  "atol": 1e-5},
+          "val_metrics": {k: float(rows[0][k]) for k in rel},
+          "seconds": seconds, "device": card})
+
+
 def check_loop(torch, np, card, bare_step_ms):
     """The training run end to end at TrainConfig() defaults: a 2-epoch
     run, a 1-epoch run resumed to 2 (bit-equal), best.pt served by the
-    infer CLI."""
+    infer CLI, the corpus decoded natively; then the same corpus trained
+    on 2 ranks through the train CLI."""
     import dataclasses
     import shutil
     import statistics
@@ -1185,7 +1382,7 @@ def check_loop(torch, np, card, bare_step_ms):
 
     from lct_gan_tpu_torch import infer
     from lct_gan_tpu_torch.convert import load_enhancer
-    from lct_gan_tpu_torch.data import read_wav
+    from lct_gan_tpu_torch.data import load_mono_wave, read_wav
     from lct_gan_tpu_torch.ops.attention import fused_mhsa
     from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
     from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
@@ -1200,14 +1397,22 @@ def check_loop(torch, np, card, bare_step_ms):
         data = DataConfig(data_root=data_root)
         cfg = TrainConfig(epochs=2, val_interval=1, ckpt_interval=1)
         kw = dict(device="cuda", compute_pesq=False, compute_stoi=True)
+        decode = decode_ms(np, data_root)
+        emit({"phase": "loop", "decoder": "host ms per utterance (host "
+              "CPU time, not device time)", **decode, "device": card})
 
         # The counted run: 2 epochs of the main path.
         for w in wrappers:
             w.launches = 0
+        load_mono_wave.native_decodes = load_mono_wave.numpy_decodes = 0
         full = run_training(cfg, data, expr_root=os.path.join(root, "a"),
                             profile_steps=1, **kw)
         torch.cuda.synchronize()
         got = {w.__name__: w.launches for w in wrappers}
+        decodes = {"native": load_mono_wave.native_decodes,
+                   "numpy": load_mono_wave.numpy_decodes}
+        if not (decodes["native"] > 0 and decodes["numpy"] == 0):
+            raise AssertionError(f"loop corpus decodes {decodes}")
         steps = sum(e["steps"] for e in full["epochs"])
         per_epoch = LOOP_TRAIN // cfg.batch_size
         if [e["steps"] for e in full["epochs"]] != [per_epoch] * 2:
@@ -1294,7 +1499,8 @@ def check_loop(torch, np, card, bare_step_ms):
               "best_val_mrstft": full["best_val"],
               "profile_steps_trace_kernels": n_kernels,
               "infer_outputs": len(outs), "infer_seconds": infer_s,
-              "device": card})
+              "decodes": decodes, "device": card})
+        check_loop_parallel(torch, np, card, root, data_root)
         return got
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1667,6 +1873,8 @@ def main():
     check_eval(torch, np, card, state)
     del state
     torch.cuda.empty_cache()
+    for k, n in check_parallel(torch, np, card).items():
+        launches[k] += n
     for k, n in check_loop(torch, np, card, step_ms[8]).items():
         launches[k] += n
     for k, n in check_export(torch, np, card).items():

@@ -1,8 +1,13 @@
-"""Wav read/write, header-only length probe, resampling and scp lists in
-numpy (copies of `lct_gan_tpu/data/audio_io.py:39-211` without the native
-decoder, and `lct_gan_tpu/data/dataset.py:23-33`).
+"""Wav read/write, header-only length probe, resampling and scp lists
+(copies of `lct_gan_tpu/data/audio_io.py:39-236` and
+`lct_gan_tpu/data/dataset.py:23-33`).
 
-Integer PCM is scaled to [-1, 1) by 1 / 2^(bits-1), as torchaudio does.
+`load_mono_wave` decodes through the native C++ library
+(`ops/native/wav_loader.py`), as the JAX package does wherever that library
+builds; a file its parser rejects is read with numpy
+(`load_mono_wave_numpy`, the plain version), which raises on a malformed
+file. Integer PCM is scaled to [-1, 1) by 1 / 2^(bits-1), as torchaudio
+does.
 """
 
 from __future__ import annotations
@@ -10,12 +15,13 @@ from __future__ import annotations
 import math
 import os
 import struct
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 __all__ = ["read_wav", "wav_num_samples", "write_wav", "resample",
-           "load_mono_wave", "read_scp"]
+           "load_mono_wave", "load_mono_wave_numpy", "read_scp"]
 
 _RIFF = b"RIFF"
 _WAVE = b"WAVE"
@@ -167,15 +173,45 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
                          axis=-1).astype(np.float32)
 
 
-def load_mono_wave(path: str, target_sr: Optional[int] = None
-                   ) -> Tuple[np.ndarray, int]:
-    """Load wav -> mono (channel mean) -> optional resample; ([T] f32, sr)."""
+def load_mono_wave_numpy(path: str, target_sr: Optional[int] = None
+                         ) -> Tuple[np.ndarray, int]:
+    """Load wav -> mono (channel mean) -> optional resample; ([T] f32, sr).
+    numpy and scipy's resample_poly: the plain version of the native
+    decoder."""
     x, sr = read_wav(path)
     mono = x.mean(axis=0) if x.shape[0] > 1 else x[0]
     if target_sr is not None and sr != target_sr:
         mono = resample(mono, sr, target_sr)
         sr = target_sr
     return np.ascontiguousarray(mono, dtype=np.float32), sr
+
+
+_count_lock = threading.Lock()
+
+
+def _count(route: str) -> None:
+    with _count_lock:  # decode threads call this concurrently
+        setattr(load_mono_wave, route, getattr(load_mono_wave, route) + 1)
+
+
+def load_mono_wave(path: str, target_sr: Optional[int] = None
+                   ) -> Tuple[np.ndarray, int]:
+    """Load wav -> mono (channel mean) -> optional resample; ([T] f32, sr),
+    decoded natively. A file the native parser rejects goes to
+    `load_mono_wave_numpy`. `load_mono_wave.native_decodes` and
+    `.numpy_decodes` count the route each call took."""
+    from lct_gan_tpu_torch.ops.native.wav_loader import load_mono_wave_native
+
+    out = load_mono_wave_native(path, target_sr or 0)
+    if out is not None:
+        _count("native_decodes")
+        return out
+    _count("numpy_decodes")
+    return load_mono_wave_numpy(path, target_sr)
+
+
+load_mono_wave.native_decodes = 0
+load_mono_wave.numpy_decodes = 0
 
 
 def read_scp(path: str) -> List[str]:

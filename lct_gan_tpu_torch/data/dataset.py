@@ -75,9 +75,11 @@ class ScpDataset:
         """Advance the deterministic crop key (resume-stable data order)."""
         self.epoch = int(epoch)
 
-    def num_samples(self, index: int) -> int:
-        """Post-resample length of the noisy wave, from its header alone."""
-        path = os.path.join(self.noisy_dir, f"{self.utt_ids[index]}.wav")
+    def num_samples(self, index: int, side: str = "noisy") -> int:
+        """Post-resample length of the noisy (or clean) wave, from its
+        header alone."""
+        folder = {"noisy": self.noisy_dir, "clean": self.clean_dir}[side]
+        path = os.path.join(folder, f"{self.utt_ids[index]}.wav")
         n, _ = wav_num_samples(path, self.sample_rate)
         return n
 

@@ -6,7 +6,9 @@ PyTorch).
   * validation and inference batches pad to geometric length buckets with
     explicit `lengths`, length-sorted and sized per bucket;
   * a background thread decodes the next batches and copies them to the
-    device while the current step runs.
+    device while the current step runs;
+  * under data parallelism each rank decodes only its rows of every global
+    batch (`batch_iterator(shard=(rank, world))`).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import queue
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +80,7 @@ def batch_iterator(
     epoch: int = 0,
     num_workers: int = 0,
     lookahead: int = 2,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Dict]:
     """Yield collated numpy batches from a ScpDataset.
 
@@ -95,6 +98,15 @@ def batch_iterator(
     num_workers: > 0 decodes samples on a thread pool, `lookahead` batches
       of decode futures ahead of the consumer; 0 decodes in the caller. The
       batches are the same either way.
+    shard: (rank, world) with world > 1 yields, of every global batch (the
+      batch the call without `shard` yields), only rank r's rows and
+      decodes only those: rows [r*n/W, (r+1)*n/W) of the global batch with
+      its b rows padded to n = ceil(b / W) * W by repeating its last row
+      (length 0). The ranks' rows put together are the global batch, bit
+      for bit: crops stay keyed on (seed, epoch, dataset index), and a
+      bucketed batch pads to the bucket of the global batch's longest wave,
+      read from the wav headers (`num_samples`). Each batch also carries
+      "valid" (its real rows, a prefix) and "global_rows" (b).
     """
     if hasattr(dataset, "set_epoch"):
         dataset.set_epoch(epoch)  # resume-stable segment crops
@@ -111,10 +123,16 @@ def batch_iterator(
     n = len(order)
     end = n - (n % batch_size) if drop_last else n
 
-    def _collate(samples):
+    rank, world = shard if shard is not None else (0, 1)
+    if not 0 <= rank < world:
+        raise ValueError(f"shard {shard}: rank outside the world")
+
+    def _collate(samples, global_pad_to=None):
         pad_to: Optional[int] = None
         if pad_to_segment and dataset.segment_length is not None:
             pad_to = dataset.segment_length
+        elif global_pad_to is not None:
+            pad_to = global_pad_to
         elif bucket:
             mx = max(
                 max(s["noisy"].shape[-1],
@@ -133,6 +151,37 @@ def batch_iterator(
     else:
         slices = [(i, min(i + batch_size, end))
                   for i in range(0, end, batch_size)]
+
+    def _global_bucket(i, j):
+        sides = ["noisy"] + (["clean"] if getattr(dataset, "load_clean",
+                                                  False) else [])
+        return bucket_length(max(dataset.num_samples(int(k), side)
+                                 for k in order[i:j] for side in sides))
+
+    def _rows(i, j):
+        """This rank's dataset indices of global batch order[i:j], and how
+        to finish its collated batch."""
+        if world == 1:
+            return order[i:j], None
+        b = j - i
+        n = -(-b // world) * world
+        lo, hi = i + rank * n // world, i + (rank + 1) * n // world
+        idx = [order[min(p, j - 1)] for p in range(lo, hi)]
+        valid = max(0, min(j, hi) - lo)
+        pad_to = (_global_bucket(i, j)
+                  if bucket and not pad_to_segment else None)
+        return idx, (valid, b, pad_to)
+
+    def _finish(samples, info):
+        if info is None:
+            return _collate(samples)
+        valid, b, pad_to = info
+        out = _collate(samples, pad_to)
+        out["lengths"][valid:] = 0  # padding rows
+        out["valid"] = valid
+        out["global_rows"] = b
+        return out
+
     if num_workers and num_workers > 0:
         ex = ThreadPoolExecutor(max_workers=int(num_workers),
                                 thread_name_prefix="lct-decode")
@@ -147,16 +196,19 @@ def batch_iterator(
                     except StopIteration:
                         exhausted = True
                         break
-                    pending.append([ex.submit(dataset.__getitem__, int(k))
-                                    for k in order[i:j]])
+                    idx, info = _rows(i, j)
+                    pending.append(([ex.submit(dataset.__getitem__, int(k))
+                                     for k in idx], info))
                 if not pending:
                     break
-                yield _collate([f.result() for f in pending.popleft()])
+                futures, info = pending.popleft()
+                yield _finish([f.result() for f in futures], info)
         finally:
             ex.shutdown(wait=False, cancel_futures=True)
     else:
         for i, j in slices:
-            yield _collate([dataset[int(k)] for k in order[i:j]])
+            idx, info = _rows(i, j)
+            yield _finish([dataset[int(k)] for k in idx], info)
 
 
 class Prefetcher:

@@ -1,6 +1,5 @@
 """The epoch loop: experiment dirs, training, validation with metrics,
-checkpoints, CSV logging, resume (`lct_gan_tpu/train/loop.py:51-377`, with
-one `device` in place of the JAX package's mesh).
+checkpoints, CSV logging, resume (`lct_gan_tpu/train/loop.py:51-377`).
 
 The reference's experiment contract (train.py:525-733): a run directory
 <expr_root>/<timestamp>/ holding ckpts/, configs.json and metrics.csv;
@@ -11,6 +10,12 @@ checkpoint tracked by validation MR-STFT; `last` written every epoch,
 Training batches are fixed-shape segments, shuffled and cropped by
 (seed, epoch), decoded and copied to the device by a background
 `Prefetcher`, so a resumed run sees the batches of an uninterrupted one.
+
+Under a data-parallel `mesh` of W > 1 ranks (parallel/mesh.py), run by
+every rank: each rank decodes and trains on its rows of each global batch,
+the train step all-reduces the gradients, validation is sharded the same
+way with its sums all-reduced, and rank 0 alone writes the run directory
+while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -27,13 +32,15 @@ import torch
 
 from lct_gan_tpu_torch.data import Prefetcher, ScpDataset, batch_iterator
 from lct_gan_tpu_torch.metrics.external import pesq_score, stoi_score
+from lct_gan_tpu_torch.parallel.mesh import (Mesh, all_reduce_sum_, barrier,
+                                             broadcast_object,
+                                             broadcast_state_, make_mesh)
 from lct_gan_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from lct_gan_tpu_torch.train.state import TrainConfig, create_state
 from lct_gan_tpu_torch.train.step import make_eval_step, make_train_step
 from lct_gan_tpu_torch.utils import (append_csv_row, ensure_dir,
-                                     now_timestamp, resolve_device,
-                                     to_jsonable, write_json)
+                                     now_timestamp, to_jsonable, write_json)
 
 __all__ = ["DataConfig", "run_training", "validate"]
 
@@ -87,7 +94,8 @@ def validate(eval_step, enhancer, val_ds: ScpDataset, cfg: TrainConfig,
              batch_size: int, compute_pesq: bool = True,
              compute_stoi: bool = True, num_workers: int = 4,
              adaptive_target_seconds: Optional[float] = None,
-             max_batch: int = 128) -> Dict[str, float]:
+             max_batch: int = 128, batch_multiple: int = 1,
+             mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """Full-utterance validation (reference: train.py:285-385).
 
     MR-STFT and SI-SDR on the enhancer's device, length-masked, summed over
@@ -98,10 +106,23 @@ def validate(eval_step, enhancer, val_ds: ScpDataset, cfg: TrainConfig,
 
     adaptive_target_seconds: size each batch by its length bucket (at most
     max_batch rows), holding the padded batch near the target; a tail batch
-    pads its rows up to the bucket's full row count.
+    pads its rows up to the bucket's full row count, rounded up to a
+    multiple of `batch_multiple`.
+
+    mesh: with W > 1 ranks (every rank calls this), each rank runs and
+    scores its rows of each padded global batch (batch_multiple a multiple
+    of W), and the sums and counts are all-reduced in float64: every rank
+    returns the global result.
     """
     adaptive = (int(adaptive_target_seconds * cfg.sample_rate)
                 if adaptive_target_seconds else None)
+    world = 1 if mesh is None else mesh.world
+    shard = (mesh.rank, world) if world > 1 else None
+    if world > 1 and (batch_multiple % world
+                      or (not adaptive and batch_size % world)):
+        raise ValueError(f"validation over {world} ranks needs batch_size "
+                         f"({batch_size}) and batch_multiple "
+                         f"({batch_multiple}) divisible by {world}")
     total_mr = 0.0
     total_si = 0.0
     count = 0
@@ -113,17 +134,19 @@ def validate(eval_step, enhancer, val_ds: ScpDataset, cfg: TrainConfig,
                                     max_batch if adaptive else batch_size,
                                     bucket=True, sort_by_length=True,
                                     adaptive_target_samples=adaptive,
-                                    num_workers=num_workers):
-            b = batch["noisy"].shape[0]
+                                    num_workers=num_workers, shard=shard):
+            # b: this rank's real rows (a prefix of the batch).
+            b = batch.get("valid", batch["noisy"].shape[0])
             if adaptive:
-                # Rows for this bucket: never below the batch's own rows,
-                # never above the validation set.
+                # Rows for this bucket: never below the global batch's own
+                # rows, never above the validation set.
                 bucket = batch["noisy"].shape[1]
-                rows = max(b, min(max_batch, adaptive // bucket,
-                                  len(val_ds)))
+                rows = max(batch.get("global_rows", b),
+                           min(max_batch, adaptive // bucket, len(val_ds)))
+                rows = -(-rows // batch_multiple) * batch_multiple
             else:
                 rows = batch_size
-            padded = _pad_batch_to(batch, rows)
+            padded = _pad_batch_to(batch, rows // world)
             lengths = np.asarray(padded["lengths"])
             enhanced, m = eval_step(enhancer, padded["noisy"],
                                     padded["clean"], lengths)
@@ -156,6 +179,13 @@ def validate(eval_step, enhancer, val_ds: ScpDataset, cfg: TrainConfig,
         if math.isfinite(s):
             total_stoi += s
             n_stoi += 1
+    if world > 1:
+        sums = torch.tensor([total_mr, total_si, count, total_pesq, n_pesq,
+                             total_stoi, n_stoi], dtype=torch.float64,
+                            device=mesh.device)
+        all_reduce_sum_([sums], mesh)
+        (total_mr, total_si, count, total_pesq, n_pesq, total_stoi,
+         n_stoi) = sums.tolist()
 
     return {
         "val_mrstft": total_mr / max(count, 1),
@@ -202,10 +232,18 @@ def run_training(cfg: TrainConfig,
                  device="cuda",
                  compute_pesq: bool = True,
                  compute_stoi: bool = True,
-                 profile_steps: int = 0) -> Dict[str, Any]:
+                 profile_steps: int = 0,
+                 mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """Train LCT-GAN end to end on `device` (the card unless "cpu" is
     asked). `resume`: a checkpoint .pt (e.g. <run_dir>/ckpts/last.pt);
     the run continues in its run directory.
+
+    mesh: this rank's data-parallel mesh (parallel.make_mesh; its device
+    replaces `device`). With W > 1 ranks every rank calls this: batch_size
+    must divide by W, each rank trains on its batch_size / W rows of each
+    global batch, rank 0 writes configs.json (with "devices": W and the
+    backend), metrics.csv, the log lines and the checkpoints, and every
+    rank returns the same summary but its own timings.
 
     profile_steps > 0 writes a torch.profiler trace of steps 3 to
     3 + profile_steps of the first epoch to <run_dir>/profile/trace.json.
@@ -215,7 +253,13 @@ def run_training(cfg: TrainConfig,
     mark to mark, so a step's wait for its batch is in it), val_seconds
     and ckpt_seconds.
     """
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(1, device)
+    dev, world, main = mesh.device, mesh.world, mesh.is_main
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size {cfg.batch_size} must be divisible "
+                         f"by the {world} data-parallel ranks")
+    log = print if main else (lambda *a, **k: None)
     if dev.type == "cuda":
         # Deterministic cuDNN before the first conv of the run, so a
         # resumed run repeats an uninterrupted one bit for bit.
@@ -229,13 +273,15 @@ def run_training(cfg: TrainConfig,
         run_dir = os.path.dirname(ckpt_dir)
         if os.path.basename(ckpt_dir) != "ckpts":
             ckpt_dir = os.path.join(run_dir, "ckpts")
-        print(f"Resuming from: {resume_path}")
-        print(f"Using existing run_dir: {run_dir}")
+        log(f"Resuming from: {resume_path}")
+        log(f"Using existing run_dir: {run_dir}")
     else:
-        run_dir = os.path.join(expr_root, now_timestamp())
+        run_dir = broadcast_object(
+            os.path.join(expr_root, now_timestamp()), mesh)
         ckpt_dir = os.path.join(run_dir, "ckpts")
-    ensure_dir(run_dir)
-    ensure_dir(ckpt_dir)
+    if main:
+        ensure_dir(run_dir)
+        ensure_dir(ckpt_dir)
     configs_path = os.path.join(run_dir, "configs.json")
     metrics_csv = os.path.join(run_dir, "metrics.csv")
 
@@ -250,7 +296,7 @@ def run_training(cfg: TrainConfig,
         random_segment=False)
 
     # ---- State / steps ----
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, mesh)
     eval_step = make_eval_step(cfg)
     start_epoch = 1
     best_val = float("inf")
@@ -260,18 +306,23 @@ def run_training(cfg: TrainConfig,
         start_epoch = int(meta.get("epoch", 0)) + 1
         best_val = float(meta.get("best_val", float("inf")))
         best_epoch = int(meta.get("best_epoch", 0))
-        print(f"Resumed at epoch {start_epoch} "
-              f"(best_val={best_val:.4f} from epoch {best_epoch}).")
+        log(f"Resumed at epoch {start_epoch} "
+            f"(best_val={best_val:.4f} from epoch {best_epoch}).")
     else:
         state = create_state(cfg, device=dev)
-        write_json(configs_path, {
-            "run_dir": run_dir,
-            "created_at": now_timestamp(),
-            "train_cfg": to_jsonable(cfg),
-            "data_cfg": to_jsonable(data),
-            "device": str(dev),
-        })
-        print(f"Saved configs to: {configs_path}")
+        if main:
+            write_json(configs_path, {
+                "run_dir": run_dir,
+                "created_at": now_timestamp(),
+                "train_cfg": to_jsonable(cfg),
+                "data_cfg": to_jsonable(data),
+                "device": str(dev),
+                "devices": world,
+                "backend": mesh.backend,
+            })
+            print(f"Saved configs to: {configs_path}")
+    broadcast_state_(state, mesh)  # rank 0's state on every rank
+    shard = (mesh.rank, world) if world > 1 else None
 
     # ---- Epoch loop (train.py:651-731) ----
     epochs = []
@@ -283,13 +334,13 @@ def run_training(cfg: TrainConfig,
             batch_iterator(train_ds, cfg.batch_size, shuffle=True,
                            drop_last=True, pad_to_segment=True,
                            seed=cfg.seed, epoch=epoch,
-                           num_workers=data.num_workers),
+                           num_workers=data.num_workers, shard=shard),
             depth=data.num_prefetch, device=dev)
         prof = None
         n_steps = 0
         with torch.profiler.record_function("train_epoch"):
             for step_idx, batch in enumerate(it, 1):
-                if (profile_steps and epoch == start_epoch
+                if (profile_steps and main and epoch == start_epoch
                         and step_idx == 3):
                     prof = _start_profile(dev)
                 metrics = train_step(state, batch["noisy"], batch["clean"])
@@ -298,7 +349,7 @@ def run_training(cfg: TrainConfig,
                     _stop_profile(prof, dev, run_dir)
                     prof = None
                 n_steps += 1
-                if step_idx % cfg.log_interval == 0:
+                if main and step_idx % cfg.log_interval == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     print(f"[Epoch {epoch:03d} Step {step_idx:05d}] "
                           f"D_loss={m['d_loss']:.4f} | "
@@ -313,8 +364,8 @@ def run_training(cfg: TrainConfig,
         dt = time.time() - t0
         audio_rate = n_steps * cfg.batch_size * cfg.segment_seconds / dt
         if n_steps:
-            print(f"[Epoch {epoch:03d}] {n_steps} steps in {dt:.1f}s "
-                  f"({audio_rate:.1f} audio-sec/s)")
+            log(f"[Epoch {epoch:03d}] {n_steps} steps in {dt:.1f}s "
+                f"({audio_rate:.1f} audio-sec/s)")
         record = {"epoch": epoch, "steps": n_steps, "seconds": dt,
                   "audio_sec_per_s": audio_rate,
                   "step_ms": clock.intervals_ms(), "val_seconds": None}
@@ -330,7 +381,8 @@ def run_training(cfg: TrainConfig,
                 compute_pesq=compute_pesq, compute_stoi=compute_stoi,
                 num_workers=data.num_workers,
                 adaptive_target_seconds=(cfg.val_target_batch_seconds
-                                         or None))
+                                         or None),
+                batch_multiple=world, mesh=mesh)
             record["val_seconds"] = time.time() - t_val
             msg = (f"[Epoch {epoch:03d}] Val MR-STFT="
                    f"{val_metrics['val_mrstft']:.4f} | "
@@ -339,7 +391,7 @@ def run_training(cfg: TrainConfig,
                 msg += f" | PESQ={val_metrics['val_pesq']:.3f}"
             if math.isfinite(val_metrics["val_stoi"]):
                 msg += f" | STOI={val_metrics['val_stoi']:.4f}"
-            print(msg)
+            log(msg)
             if val_metrics["val_mrstft"] < best_val:
                 best_val = val_metrics["val_mrstft"]
                 best_epoch = epoch
@@ -349,15 +401,18 @@ def run_training(cfg: TrainConfig,
                 "best_epoch": best_epoch, "val_metrics": val_metrics,
                 "train_cfg": to_jsonable(cfg)}
         t_ckpt = time.time()
-        save_checkpoint(ckpt_dir, "last", state, meta)
-        if (epoch % max(cfg.ckpt_interval, 1) == 0) or (epoch == cfg.epochs):
-            save_checkpoint(ckpt_dir, f"epoch_{epoch:04d}", state, meta)
-        if do_val and improved:
-            save_checkpoint(ckpt_dir, "best", state, meta)
-            print(f"New best val MR-STFT: {best_val:.4f} @ epoch "
-                  f"{best_epoch} (saved best)")
+        if main:
+            save_checkpoint(ckpt_dir, "last", state, meta)
+            if ((epoch % max(cfg.ckpt_interval, 1) == 0)
+                    or (epoch == cfg.epochs)):
+                save_checkpoint(ckpt_dir, f"epoch_{epoch:04d}", state, meta)
+            if do_val and improved:
+                save_checkpoint(ckpt_dir, "best", state, meta)
+                print(f"New best val MR-STFT: {best_val:.4f} @ epoch "
+                      f"{best_epoch} (saved best)")
+        barrier(mesh)
         record["ckpt_seconds"] = time.time() - t_ckpt
-        if do_val:
+        if do_val and main:
             append_csv_row(metrics_csv, {
                 "epoch": epoch,
                 **val_metrics,
@@ -366,7 +421,7 @@ def run_training(cfg: TrainConfig,
             })
         epochs.append(record)
 
-    print("Training finished.")
+    log("Training finished.")
     return {"run_dir": run_dir, "best_val": best_val,
             "best_epoch": best_epoch, "epochs": epochs}
 

@@ -19,6 +19,15 @@ exactly the parameters being updated, so the G step leaves nothing in D.
 On the card the step is deterministic: the FTF kernels have no atomics,
 the STFT's reflect pad has an atomic-free backward, and cuDNN is asked for
 deterministic algorithms.
+
+Under data parallelism (`mesh` of W > 1 ranks, each with its rows of the
+global batch) the D gradients are averaged over the ranks before the D
+update, and the G gradients before the global-norm clip, so the clip sees
+the global batch's gradient as in the JAX package's sharded step. Every
+loss is a mean over whole tensors, so with equal splits the mean of the
+ranks' gradients and metrics is the global batch's. The all-reduce is
+explicit: the step takes gradients with `torch.autograd.grad`, which a
+DistributedDataParallel wrapper's hooks would never see.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from lct_gan_tpu_torch.losses import (discriminator_loss,
                                       flatten_logits_lists,
                                       generator_adv_loss, mask_mse_loss,
                                       mr_stft_loss, mr_stft_loss_per_sample)
+from lct_gan_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_
 from lct_gan_tpu_torch.sigproc.features import (TFFeaturesConfig,
                                                 compute_tf_features)
 from lct_gan_tpu_torch.train.state import (GanTrainState, TrainConfig,
@@ -120,14 +130,19 @@ def generator_step_loss(cfg: TrainConfig, mpd, msd, enhanced: torch.Tensor,
                     "adv_loss": adv_loss, "fm_loss": fm_loss}
 
 
-def make_train_step(cfg: TrainConfig) -> Callable:
+def make_train_step(cfg: TrainConfig, mesh: Optional[Mesh] = None
+                    ) -> Callable:
     """`step(state, noisy, clean, mark=None) -> metrics`: one D and one G
     update of `state` in place; metrics {d_loss, g_loss, mr_loss,
     mask_loss, adv_loss, fm_loss} as detached 0-d tensors. noisy, clean:
-    [B, T] arrays or tensors. `mark(phase)`, when given, is called after
-    "forward", "d_step" and "g_step" (a timer hook)."""
+    [B, T] arrays or tensors (this rank's rows under a mesh of W > 1;
+    the metrics are then the mean over the ranks). `mark(phase)`, when
+    given, is called after "forward", "d_step" and "g_step" (a timer hook);
+    with W > 1 also after "d_grad" and "d_reduce" (before "d_step") and
+    "g_grad" and "g_reduce" (before "g_step")."""
     tf_cfg = TFFeaturesConfig(n_fft=512, c=cfg.compress_c,
                               compress_input=False, return_stfts=False)
+    parallel = mesh is not None and mesh.world > 1
 
     def step(state: GanTrainState, noisy, clean,
              mark: Optional[Callable[[str], None]] = None
@@ -148,21 +163,34 @@ def make_train_step(cfg: TrainConfig) -> Callable:
         d_loss = discriminator_step_loss(cfg, mpd, msd, clean,
                                          enhanced.detach())
         d_params = state.d_params()
-        _apply_grads(state.d_opt, d_params,
-                     torch.autograd.grad(d_loss, d_params))
+        d_grads = torch.autograd.grad(d_loss, d_params)
+        if parallel:
+            mark("d_grad")
+            all_reduce_mean_(d_grads, mesh)
+            mark("d_reduce")
+        _apply_grads(state.d_opt, d_params, d_grads)
         mark("d_step")
 
         g_loss, aux = generator_step_loss(cfg, mpd, msd, enhanced, mask_c,
                                           irm_c, clean)
         g_params = state.g_params()
         g_grads = list(torch.autograd.grad(g_loss, g_params))
+        metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+                   **{k: v.detach() for k, v in aux.items()}}
+        if parallel:
+            mark("g_grad")
+            # The metrics ride in the G gradients' buffer: two all-reduces
+            # a step.
+            values = torch.stack([v.float() for v in metrics.values()])
+            all_reduce_mean_([*g_grads, values], mesh)
+            metrics = dict(zip(metrics, values.unbind()))
+            mark("g_reduce")
         if cfg.grad_clip > 0:
             g_grads = clip_by_global_norm(g_grads, cfg.grad_clip)
         _apply_grads(state.g_opt, g_params, g_grads)
         state.step += 1
         mark("g_step")
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                **{k: v.detach() for k, v in aux.items()}}
+        return metrics
 
     return step
 

@@ -1,21 +1,29 @@
-"""Train LCT-GAN (LctEnhancer + MPD/MSD) with the PyTorch port on one GPU.
+"""Train LCT-GAN (LctEnhancer + MPD/MSD) with the PyTorch port.
 
     python -m lct_gan_tpu_torch.train_cli --data_root D [--expr_root E]
         [--epochs N] [--batch_size B] [--resume E/<ts>/ckpts/last.pt]
-        [--device cpu] ...
+        [--data_parallel N] [--device cpu] ...
+
+    torchrun --standalone --nproc_per_node N \
+        -m lct_gan_tpu_torch.train_cli --data_root D ...
 
 The flags are the JAX package's `train.py` (the reference train.py's, plus
 --no_pesq / --no_stoi, spectral-norm and bf16 options), and --device. The
 run directory E/<timestamp>/ holds ckpts/{last,best,epoch_%04d}.pt,
 configs.json and metrics.csv; `python -m lct_gan_tpu_torch.infer
 --checkpoint E/<ts>/ckpts/best.pt` serves the result.
+
+--data_parallel N (default: every visible card, 1 on the CPU) trains on N
+ranks (parallel/mesh.py): started here through `parallel.spawn`, or joined
+when torchrun has set RANK and WORLD_SIZE. Rank r runs on cuda:r with nccl
+when there are N cards; ranks that share a card, and CPU ranks, use gloo.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
-import sys
 
 import numpy as np
 
@@ -103,22 +111,27 @@ def parse_args(argv=None):
 
     # Parallelism and device
     parser.add_argument("--data_parallel", type=int, default=None,
-                        help="Data-parallel size. Only 1 (one device) is "
-                             "ported so far.")
+                        help="Data-parallel ranks (default: all visible "
+                             "cards; 1 on the CPU).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)
 
 
+def _train_rank(mesh, cfg, data, kwargs):
+    """One rank of a spawned data-parallel run."""
+    from lct_gan_tpu_torch.train import run_training
+
+    return run_training(cfg, data, mesh=mesh, **kwargs)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel not in (None, 1):
-        sys.exit(f"--data_parallel {args.data_parallel}: data parallelism is "
-                 "not ported yet (ROADMAP.md Queue 1 item 5); run with one "
-                 "device")
     random.seed(args.seed)
     np.random.seed(args.seed)
 
+    from lct_gan_tpu_torch.parallel import (close_mesh, default_world,
+                                            make_mesh, spawn)
     from lct_gan_tpu_torch.train import DataConfig, TrainConfig, run_training
 
     cfg = TrainConfig(
@@ -155,11 +168,31 @@ def main(argv=None):
         num_prefetch=max(2, args.num_workers),
         num_workers=args.num_workers,
     )
-    return run_training(cfg, data, expr_root=args.expr_root,
-                        resume=args.resume, device=args.device,
-                        compute_pesq=not args.no_pesq,
-                        compute_stoi=not args.no_stoi,
-                        profile_steps=args.profile_steps)
+    kwargs = dict(expr_root=args.expr_root, resume=args.resume,
+                  compute_pesq=not args.no_pesq,
+                  compute_stoi=not args.no_stoi,
+                  profile_steps=args.profile_steps)
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    world = args.data_parallel
+    if world is None:
+        world = (int(os.environ["WORLD_SIZE"]) if torchrun
+                 else default_world(args.device))
+    if world > 1 and cfg.batch_size % world:
+        raise SystemExit(f"--batch_size {cfg.batch_size} does not split "
+                         f"over --data_parallel {world} ranks")
+    if torchrun:
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise SystemExit(f"--data_parallel {world} but torchrun started "
+                             f"{os.environ['WORLD_SIZE']} ranks")
+        mesh = make_mesh(world, args.device)
+        try:
+            return run_training(cfg, data, mesh=mesh, **kwargs)
+        finally:
+            close_mesh(mesh)
+    if world > 1:
+        return spawn(_train_rank, world, args.device, None, cfg, data,
+                     kwargs)[0]
+    return run_training(cfg, data, device=args.device, **kwargs)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ train_cli.py) on the CPU, on a seeded synthetic tree (8 train utterances of
     the run directory's files, a run resumed through the train CLI from
     epoch 1's checkpoint bit-equal to the uninterrupted run, overlapped
     scoring bit-equal to serial scoring, validation invariant to tail-batch
-    padding, the CLI's flags and its refusal of data parallelism. (The
+    padding, the CLI's flags and its refusal of a batch that does not split
+    over --data_parallel ranks. (The
     `profile_steps` trace starts at step 3, past these runs' 2 steps an
     epoch; chip_smoke.py's loop phase checks it on the card.)
 """
@@ -332,9 +333,12 @@ def test_validation_invariant_to_tail_batch_padding(port_state, tree):
 
 @pytest.mark.parametrize("n", ["2", "8"])
 def test_train_cli_refuses_data_parallel(tree, tmp_path, n):
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
+    """A batch that does not split over the ranks is refused before any
+    rank starts or anything is written."""
+    with pytest.raises(SystemExit, match="does not split"):
         train_cli.main(["--data_root", tree, "--expr_root", str(tmp_path),
-                        "--data_parallel", n, "--device", "cpu"])
+                        "--batch_size", "3", "--data_parallel", n,
+                        "--device", "cpu"])
     assert not os.listdir(tmp_path)
 
 

@@ -108,7 +108,10 @@ def test_import_pulls_in_no_jax():
             "lct_gan_tpu_torch.train.loop, lct_gan_tpu_torch.train_cli, "
             "lct_gan_tpu_torch.export_model, lct_gan_tpu_torch.export_cli, "
             "lct_gan_tpu_torch.eval.compare, lct_gan_tpu_torch.metrics_cli, "
-            "lct_gan_tpu_torch.bench_serving_latency\n"
+            "lct_gan_tpu_torch.bench_serving_latency, "
+            "lct_gan_tpu_torch.parallel, lct_gan_tpu_torch.parallel.mesh, "
+            "lct_gan_tpu_torch.parallel.dryrun, lct_gan_tpu_torch.ops.native, "
+            "lct_gan_tpu_torch.ops.native.wav_loader\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lct_gan_tpu')]\n"
             "print(bad)\n"
@@ -131,7 +134,10 @@ def test_sources_import_no_jax():
                 "metrics/pesq_p862.py", "train/checkpoint.py",
                 "train/loop.py", "train_cli.py", "infer.py",
                 "export_model.py", "export_cli.py", "eval/compare.py",
-                "metrics_cli.py", "bench_serving_latency.py"):
+                "metrics_cli.py", "bench_serving_latency.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/dryrun.py", "ops/native/__init__.py",
+                "ops/native/wav_loader.py"):
         assert os.path.join("lct_gan_tpu_torch", rel) in walked, rel
     for path in files:
         with open(path, encoding="utf-8") as f:
