@@ -56,8 +56,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            against the 1-rank B=8 step on the card (metrics rtol 2e-4 atol
            1e-6, parameters rtol 1e-3 atol 1e-5), each rank's step ms and
            all-reduce ms (CUDA events around the D and G reductions); the
-           tiny parallel.dryrun; NCCL with one card a rank where there are
-           2 cards, else a line saying it was not run
+           tiny parallel.dryrun; NCCL with one card a rank (the same 3
+           steps, the same checks) where there are 2 cards, else a line
+           saying it was not run
   loop     the training run end to end (train/loop.py::run_training at
            TrainConfig() defaults, 2 epochs, validation and checkpoints
            every epoch, STOI on) on a seeded synthetic corpus (32 train
@@ -92,6 +93,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            metrics_cli on the result, ModelComparator with
            make_torch_system on one utterance (PNGs where matplotlib is
            installed), and bench_serving_latency's rows, one line each
+  accept   the driver entry point entry.py with the demo weights: fn on a
+           seeded (8, 32000) wave against entry(device="cpu") (TOL_WAVE),
+           3/0/0 FTF/MHSA/banded launches a call, finite on its zeros
+           example, the median ms of 5 calls; then `python -m
+           lct_gan_tpu_torch.acceptance --synthetic` in a subprocess: rc 0,
+           stages 2/3/4/1/5 PASS and the parity gate G SKIP, wall seconds
 
 then the "kernels" summary line and, last, {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -1175,12 +1182,16 @@ def check_parallel(torch, np, card):
           "seconds": time.perf_counter() - t0})
 
     if torch.cuda.device_count() >= 2:
-        nccl, seconds = run("cuda", "nccl", 1)
+        # The gloo run's 3 steps, so that steps 2-3 compare with its own.
+        nccl, seconds = run("cuda", "nccl", PARALLEL_STEPS)
         emit({"phase": "parallel", "check": "2 ranks, nccl, one card each",
               "rank_devices": [r["device"] for r in nccl],
+              "replicas_bit_equal_after_each_step": [r["replicas_equal"]
+                                                    for r in nccl],
               "vs_one_rank_step1": compare_step1(ref, nccl, TOL["cuda"]),
-              "rank_step_ms": [r["timing"][0]["step_ms"] for r in nccl],
-              "rank_reduce_ms": [r["timing"][0]["reduce_ms"] for r in nccl],
+              **{f"rank_{k}": [[t[k] for t in r["timing"]] for r in nccl]
+                 for k in ("step_ms", "reduce_ms", "d_reduce_ms",
+                           "g_reduce_ms")},
               "spawn_to_results_s": seconds, "device": card})
     else:
         # A statement, not a pass: NCCL cannot put two ranks on one card.
@@ -1836,6 +1847,74 @@ def check_export(torch, np, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+ACCEPT_STAGES = {"2": "PASS", "3": "PASS", "4": "PASS", "1": "PASS",
+                 "5": "PASS", "G": "SKIP"}
+
+
+def check_accept(torch, np, card):
+    """The driver entry point (entry.py) on the card against its CPU plain
+    path, then the acceptance driver end to end in a subprocess."""
+    import statistics
+    import subprocess
+    import tempfile
+
+    from lct_gan_tpu_torch.convert import read_npz_params
+    from lct_gan_tpu_torch.entry import entry
+
+    params, _ = read_npz_params(CHECKPOINT)
+    fn, (zeros,) = entry(params=params)
+    cpu_fn, _ = entry(device="cpu", params=params)
+    wave = (0.1 * np.random.default_rng(5).standard_normal(
+        tuple(zeros.shape))).astype(np.float32)
+    x = torch.from_numpy(wave).cuda()
+    fn(x)  # warm-up
+    out, got = run_counted(torch, fn, x, None,
+                           {"fused_ftf_block": 3, "fused_mhsa": 0,
+                            "banded_mhsa": 0})
+    err = (out.cpu() - cpu_fn(torch.from_numpy(wave))).abs().max().item()
+    if not err <= TOL_WAVE:
+        raise AssertionError(f"entry() fn vs CPU plain path: {err} "
+                             f"(tol {TOL_WAVE})")
+    z = fn(zeros)
+    if tuple(z.shape) != (8, 32000) or not torch.isfinite(z).all():
+        raise AssertionError(f"entry() fn on its example: {tuple(z.shape)}")
+    calls = [cuda_ms(torch, lambda: fn(x), 1) for _ in range(5)]
+    emit({"phase": "accept", "check": "entry() fn, demo weights, "
+          "(8, 32000) seeded 0.1 * N(0, 1)", "launches_per_call": got,
+          "wave_max_abs_err_vs_cpu": err, "tol_wave": TOL_WAVE,
+          "example_finite": True, "ms_per_call": calls,
+          "median_ms": statistics.median(calls), "device": card})
+    del fn, cpu_fn, out, z, x, zeros
+    torch.cuda.empty_cache()
+
+    # The parity gate G must SKIP: point LCT_REFERENCE_ROOT at a path that
+    # does not exist, whatever the caller's environment holds.
+    with tempfile.TemporaryDirectory(prefix="lct_accept_") as tmp:
+        env = dict(os.environ,
+                   LCT_REFERENCE_ROOT=os.path.join(tmp, "no-reference"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lct_gan_tpu_torch.acceptance",
+             "--synthetic"], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        verdict = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        verdict = None
+    if proc.returncode != 0 or verdict != {"verdict": "PASS",
+                                           "stages": ACCEPT_STAGES}:
+        raise AssertionError(f"acceptance driver rc {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    emit({"phase": "accept", "check": "python -m lct_gan_tpu_torch."
+          "acceptance --synthetic (device cuda)", "rc": proc.returncode,
+          "stages": verdict["stages"], "wall_s": seconds,
+          "table": [ln for ln in lines if ln.startswith("  [config")],
+          "device": card})
+    return got
+
+
 def main():
     import numpy as np
     import torch
@@ -1878,6 +1957,8 @@ def main():
     for k, n in check_loop(torch, np, card, step_ms[8]).items():
         launches[k] += n
     for k, n in check_export(torch, np, card).items():
+        launches[k] += n
+    for k, n in check_accept(torch, np, card).items():
         launches[k] += n
 
     summary = []

@@ -197,9 +197,10 @@ def _count(route: str) -> None:
 def load_mono_wave(path: str, target_sr: Optional[int] = None
                    ) -> Tuple[np.ndarray, int]:
     """Load wav -> mono (channel mean) -> optional resample; ([T] f32, sr),
-    decoded natively. A file the native parser rejects goes to
-    `load_mono_wave_numpy`. `load_mono_wave.native_decodes` and
-    `.numpy_decodes` count the route each call took."""
+    decoded natively. A file the native parser rejects, and every file when
+    the native library could not be built, goes to `load_mono_wave_numpy`.
+    `load_mono_wave.native_decodes` and `.numpy_decodes` count the route
+    each call took."""
     from lct_gan_tpu_torch.ops.native.wav_loader import load_mono_wave_native
 
     out = load_mono_wave_native(path, target_sr or 0)

@@ -6,8 +6,11 @@
 root (ignored by git), under a name that carries a hash of the source, the
 flags and the host's CPU (`-march=native` code may not run on another
 one): a change to any of them rebuilds, an unchanged tree on the same host
-reuses what is there. A failed build raises with g++'s output; nothing
-falls back to the numpy reader because the library is missing.
+reuses what is there. `build_library` raises with g++'s output when the
+build fails. The decoder then warns once with that output and returns None
+for every file, as the JAX package's binding does, so
+`data/audio_io.py::load_mono_wave` reads with numpy; g++ is not run again
+in that process.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import platform
 import shutil
 import subprocess
 import threading
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -40,6 +44,7 @@ CXX_FLAGS = ["-O3", "-march=native", "-ffast-math", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_build_error: Optional[str] = None   # set once a build failed here
 
 
 def _cpu() -> str:
@@ -92,11 +97,23 @@ def build_library(compiler: str = "g++", build_dir: str = BUILD_DIR) -> str:
     return path
 
 
-def _get_lib() -> ctypes.CDLL:
-    global _lib
+def _get_lib() -> Optional[ctypes.CDLL]:
+    """The library, or None when it could not be built in this process.
+    The first failure warns with the compiler's output; later calls return
+    None without running it again."""
+    global _lib, _build_error
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library())
+        if _lib is None and _build_error is None:
+            try:
+                path = build_library(build_dir=BUILD_DIR)
+            # No compiler, a failed or timed-out compile, or a build
+            # directory it cannot write.
+            except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+                _build_error = str(e)
+                warnings.warn("native wav decoder unavailable, decoding with "
+                              f"numpy: {e}", RuntimeWarning, stacklevel=2)
+                return None
+            lib = ctypes.CDLL(path)
             lib.lct_load_mono_wave.restype = ctypes.c_long
             lib.lct_load_mono_wave.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -111,9 +128,11 @@ def load_mono_wave_native(path: str, target_sr: int = 0
                           ) -> Optional[Tuple[np.ndarray, int]]:
     """Decode, downmix to mono and resample to `target_sr` (0: keep the
     file's rate) natively: ([T] float32, sample rate), or None when the
-    native parser rejects the file (the caller then reads it with numpy,
-    which raises on a malformed file)."""
+    native parser rejects the file or the library could not be built (the
+    caller then reads it with numpy, which raises on a malformed file)."""
     lib = _get_lib()
+    if lib is None:
+        return None
     out_sr = ctypes.c_int(0)
     # The samples stay in a thread-local buffer of the library between the
     # two calls, so both run on this thread.

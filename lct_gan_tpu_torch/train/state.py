@@ -22,7 +22,8 @@ from lct_gan_tpu_torch.models.generator import LCTGeneratorConfig, LctEnhancer
 from lct_gan_tpu_torch.utils.device import resolve_device
 
 __all__ = ["TrainConfig", "GanTrainState", "build_models", "make_optimizers",
-           "clip_by_global_norm", "create_state", "state_from_jax_params"]
+           "clip_by_global_norm", "create_state", "seeded_models",
+           "state_from_jax_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +145,19 @@ def create_state(cfg: TrainConfig,
     `generator` seeds every draw (default: a generator seeded with
     cfg.seed). g_params: optional JAX-package generator param tree (nested
     dicts of arrays, e.g. from `read_npz_params`) to start G from."""
+    enhancer, mpd, msd = seeded_models(cfg, generator, precise=precise,
+                                       g_params=g_params)
+    return _assemble(cfg, enhancer, mpd, msd, device)
+
+
+def seeded_models(cfg: TrainConfig,
+                  generator: Optional[torch.Generator] = None, *,
+                  precise: bool = False,
+                  g_params: Optional[Mapping[str, Any]] = None):
+    """(enhancer, mpd, msd) on the CPU as `create_state` initialises them:
+    every draw from `generator` (default: seeded with cfg.seed), the
+    enhancer's own init under a seed drawn from it; g_params (a JAX-package
+    generator param tree) then loaded with strict=True."""
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     g_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
@@ -154,7 +168,7 @@ def create_state(cfg: TrainConfig,
     if g_params is not None:
         enhancer.load_state_dict(jax_params_to_state_dict(g_params),
                                  strict=True)
-    return _assemble(cfg, enhancer, mpd, msd, device)
+    return enhancer, mpd, msd
 
 
 def state_from_jax_params(cfg: TrainConfig, g_params: Mapping[str, Any],

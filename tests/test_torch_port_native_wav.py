@@ -9,6 +9,8 @@ load_mono_wave through it) on the CPU:
     48 kHz -> 16 kHz file (the numpy route differs by ~3e-4 there);
   * a file the native parser rejects goes to the numpy route, which raises;
   * a missing or failing compiler raises, with the compiler's output;
+  * when the library cannot be built, `load_mono_wave` warns once, runs the
+    compiler once, and decodes every file with numpy;
   * loading the library leaves the process's float mode alone (no
     flush-to-zero).
 """
@@ -96,6 +98,35 @@ def test_a_failing_compiler_raises_with_its_output(tmp_path):
     with pytest.raises(RuntimeError, match="(?s)rc=3.*error: broken"):
         wav_loader.build_library(compiler=str(cxx), build_dir=str(tmp_path))
     assert os.listdir(tmp_path) == ["broken-g++"]   # nothing left behind
+
+
+def test_a_failed_build_falls_back_to_numpy_once_a_process(
+        files, tmp_path, monkeypatch):
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    runs = tmp_path / "runs"
+    cxx = bindir / "g++"
+    cxx.write_text(f"#!/bin/sh\necho run >> {runs}\n"
+                   "echo 'wav_io.cc:1: error: broken' >&2\nexit 3\n")
+    cxx.chmod(0o755)
+    monkeypatch.setenv("PATH", str(bindir))
+    monkeypatch.setattr(wav_loader, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(wav_loader, "_lib", None)
+    monkeypatch.setattr(wav_loader, "_build_error", None)
+    before = (audio_io.load_mono_wave.native_decodes,
+              audio_io.load_mono_wave.numpy_decodes)
+    with pytest.warns(RuntimeWarning, match="error: broken") as caught:
+        got = [audio_io.load_mono_wave(files[name], 16000)
+               for name in ("48k_f32", "stereo_pcm16")]
+    assert len(caught) == 1
+    assert runs.read_text().split() == ["run"]      # g++ ran once
+    for (wave, sr), name in zip(got, ("48k_f32", "stereo_pcm16")):
+        want, want_sr = audio_io.load_mono_wave_numpy(files[name], 16000)
+        assert sr == want_sr == 16000 and wave.dtype == np.float32
+        assert np.array_equal(wave, want)
+    assert (audio_io.load_mono_wave.native_decodes,
+            audio_io.load_mono_wave.numpy_decodes) == (before[0],
+                                                       before[1] + 2)
 
 
 def test_the_library_is_named_by_its_source_and_flags(tmp_path):

@@ -111,7 +111,8 @@ def test_import_pulls_in_no_jax():
             "lct_gan_tpu_torch.bench_serving_latency, "
             "lct_gan_tpu_torch.parallel, lct_gan_tpu_torch.parallel.mesh, "
             "lct_gan_tpu_torch.parallel.dryrun, lct_gan_tpu_torch.ops.native, "
-            "lct_gan_tpu_torch.ops.native.wav_loader\n"
+            "lct_gan_tpu_torch.ops.native.wav_loader, "
+            "lct_gan_tpu_torch.entry, lct_gan_tpu_torch.acceptance\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'lct_gan_tpu')]\n"
             "print(bad)\n"
@@ -137,7 +138,7 @@ def test_sources_import_no_jax():
                 "metrics_cli.py", "bench_serving_latency.py",
                 "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/dryrun.py", "ops/native/__init__.py",
-                "ops/native/wav_loader.py"):
+                "ops/native/wav_loader.py", "entry.py", "acceptance.py"):
         assert os.path.join("lct_gan_tpu_torch", rel) in walked, rel
     for path in files:
         with open(path, encoding="utf-8") as f:
