@@ -20,7 +20,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            stage, scratch bytes and exp floor, also against fused_mhsa with
            the same band at S = 772, the crossover witness, whose stages are
            taken too; both kernels timed with that band at S = 516 and 644);
-           fused_ftf_bwd at the B=64 x
+           fused_grouped_gru (LN1 + the composed time block's GRU, all
+           f32) at the 131,072- and 163,840-sample buckets' time blocks,
+           also against one cuDNN torch.nn.GRU(64, 64) call with
+           block-diagonal weights; fused_ftf_bwd at the B=64 x
            2 s training shapes (all 15 gradients, relative to each one's
            largest magnitude; its lines also carry the design, the device
            ms of each stage, from one torch.profiler pass, and the bytes of
@@ -30,11 +33,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
   enhance  the committed demo weights through load_enhancer + make_enhance:
            B=128 x 2 s (3 FTF launches, 0 MHSA; matches the plain path run
            on the CPU) and one bucketed batch of 163,840 samples with
-           lengths (2 FTF launches, 1 MHSA; rows match the CPU plain path)
+           lengths (2 FTF launches, 1 MHSA, 1 GRU; rows match the CPU plain
+           path)
   banded   the same weights with max_time_context=64, bucketed batches with
            lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
-           1 banded launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
-           banded); rows match the CPU plain path
+           1 banded, 1 GRU launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
+           banded, 1 GRU); rows match the CPU plain path; the composed GRU
+           operator's ms at each call's time block
   stream   StreamingEnhancer(max_time_context=64, 4 s chunks, 0.5 s
            overlap): a 20 s wave (one call of 8 chunk rows, 3 FTF launches)
            matches the CPU; a 60 s wave's real-time factor
@@ -80,9 +85,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            best.pt)
   export   the export path with the reference-format demo weights:
            keep_kernels artifacts traced on the card at (128, 32000) and
-           (4, 163840) (3/0/0 and 2/1/0 FTF/MHSA/banded launches per call,
-           counted from the loaded program) and, with max_time_context=64,
-           at (4, 196608) (2/0/1), each against make_enhance on the same
+           (4, 163840) (3/0/0/0 and 2/1/0/1 FTF/MHSA/banded/GRU launches per
+           call, counted from the loaded program) and, with
+           max_time_context=64, at (4, 196608) (2/0/1/1), each against
+           make_enhance on the same
            input; the first also in a fresh process that imports the
            package, and timed against make_enhance (the ops' dispatch
            cost); a portable artifact traced on the CPU at (8, 32000): 0
@@ -274,7 +280,6 @@ def check_kernels(torch, enhancer):
                                                         banded_mhsa_reference)
     from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
                                            fused_ftf_block)
-    from lct_gan_tpu_torch.ops.gru import grouped_gru
     from lct_gan_tpu_torch.ops.probe import ex2_rate
 
     # With head_dim 16 the attention's exps, not its products, set the floor
@@ -297,7 +302,8 @@ def check_kernels(torch, enhancer):
         return torch.where(pos[None, :] < valid[:, None], 0.0,
                            -1e30).to(torch.float32)
 
-    results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": []}
+    results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": [],
+               "fused_grouped_gru": []}
     ftf_cases = [
         # name, block, N, L, key_bias?, lookback  (B=128 x 2 s shapes)
         ("freq", gen.GRUf1, 128 * 129, 33, False, None),
@@ -387,13 +393,10 @@ def check_kernels(torch, enhancer):
             results["fused_mhsa"].append(res)
             emit({"phase": "kernels", "kernel": "fused_mhsa", **res})
             del out
-        # The composed time block's grouped GRU at the same shape: a plain
-        # torch loop (the port of the JAX package's lax.scan), timed only.
-        gru = [p.detach() for p in gen.GRUt1.kernel_params()[2:6]]
-        emit({"phase": "kernels", "plain": "grouped_gru (composed path)",
-              "N": N, "L": L, "ms": cuda_ms(
-                  torch, lambda: grouped_gru(x, *gru, bidirectional=False),
-                  2)})
+        # The composed time block's LN1 + grouped GRU at the same shape.
+        res = check_grouped_gru(torch, gen.GRUt1, x, exp_floor_ms)
+        results["fused_grouped_gru"].append(res)
+        emit({"phase": "kernels", "kernel": "fused_grouped_gru", **res})
         del x, kb
         torch.cuda.empty_cache()
 
@@ -481,6 +484,70 @@ def check_kernels(torch, enhancer):
     torch.cuda.empty_cache()
     results["fused_ftf_bwd"] = check_ftf_bwd(torch, gen, g, exp_floor_ms)
     return results
+
+
+def library_gru(torch, n1, w_ih, w_hh, b_ih, b_hh):
+    """The grouped GRU as one cuDNN torch.nn.GRU(64, 64) call: the four
+    groups' weights on a block-diagonal (a yardstick only: the port never
+    calls it; TF32 off). Returns (ms, its output on n1)."""
+    G, H = w_ih.shape[1], w_ih.shape[2]
+    gru = torch.nn.GRU(G * H, G * H, batch_first=True).cuda()
+    with torch.no_grad():
+        for w, dst in ((w_ih, gru.weight_ih_l0), (w_hh, gru.weight_hh_l0)):
+            dst.zero_()
+            for k in range(3):       # gates r, z, n
+                for g in range(G):
+                    dst[k * G * H + g * H:k * G * H + (g + 1) * H,
+                        g * H:(g + 1) * H] = w[0, g, :, k * H:(k + 1) * H].t()
+        for b, dst in ((b_ih, gru.bias_ih_l0), (b_hh, gru.bias_hh_l0)):
+            for k in range(3):
+                for g in range(G):
+                    dst[k * G * H + g * H:k * G * H + (g + 1) * H] = \
+                        b[0, g, k * H:(k + 1) * H]
+        out = gru(n1)[0]
+        ms = cuda_ms(torch, lambda: gru(n1), 3)
+    del gru
+    return ms, out
+
+
+def check_grouped_gru(torch, block, x, exp_floor_ms):
+    """fused_grouped_gru (one direction, all f32 in every mode) against its
+    plain version on x [N, L, 64], timed beside its bound, the plain loop
+    and one cuDNN GRU call on the LN1 output."""
+    from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
+                                           grouped_gru_plain, layer_norm)
+
+    params = [p.detach().contiguous() for p in block.kernel_params()[:6]]
+    N, L, _ = x.shape
+    rows = N * L
+    out = fused_grouped_gru(x, *params, bidirectional=False)
+    torch.cuda.synchronize()
+    ref = grouped_gru_plain(x, *params, False)
+    err = (out - ref).abs().max().item()
+    if not (err <= TOL["precise"]) or not torch.isfinite(out).all():
+        raise AssertionError(f"fused_grouped_gru L={L}: max|diff| {err} > "
+                             f"{TOL['precise']}")
+    del ref
+    ms = cuda_ms(torch, lambda: fused_grouped_gru(
+        x, *params, bidirectional=False), 5)
+    plain_ms = cuda_ms(torch, lambda: grouped_gru_plain(x, *params, False), 1)
+    torch.cuda.empty_cache()
+    # Products: the grouped input and hidden projections, 2 x 4 x 16 x 48
+    # multiply-adds each a row; exps: two sigmoids and a tanh a unit.
+    flops = rows * 2 * 2 * 4 * 16 * 48
+    bms, by = bound(rows, flops, sum(p.numel() for p in params) * 4,
+                    "precise")
+    lib_ms, lib_out = library_gru(torch, layer_norm(x, *params[:2]),
+                                  *params[2:])
+    lib_err = (lib_out - out).abs().max().item()
+    del out, lib_out
+    torch.cuda.empty_cache()
+    return {"case": f"L{L}", "mode": "precise", "design": "simt-f32",
+            "N": N, "L": L, "max_abs_err": err, "tol": TOL["precise"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "exp_floor_ms": exp_floor_ms(rows * 64 * 3),
+            "library_ms": lib_ms, "library_max_abs_err": lib_err,
+            "flops": flops}
 
 
 def check_saved_hidden(torch, name, params, N, L, lookback, g):
@@ -652,18 +719,21 @@ def run_counted(torch, enhance, x, lengths, expect):
     from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
     from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
     from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+    from lct_gan_tpu_torch.ops.gru import fused_grouped_gru
 
     fused_ftf_block.launches = 0
     fused_mhsa.launches = 0
     banded_mhsa.launches = 0
     fused_ftf_bwd.launches = 0
+    fused_grouped_gru.launches = 0
     out = enhance(x) if lengths is None else enhance(x, lengths)
     torch.cuda.synchronize()
     got = {"fused_ftf_block": fused_ftf_block.launches,
            "fused_mhsa": fused_mhsa.launches,
            "banded_mhsa": banded_mhsa.launches,
-           "fused_ftf_bwd": fused_ftf_bwd.launches}
-    expect = {"fused_ftf_bwd": 0, **expect}
+           "fused_ftf_bwd": fused_ftf_bwd.launches,
+           "fused_grouped_gru": fused_grouped_gru.launches}
+    expect = {"fused_ftf_bwd": 0, "fused_grouped_gru": 0, **expect}
     if got != expect:
         raise AssertionError(f"launch counts {got}, expected {expect}")
     return out, got
@@ -677,7 +747,7 @@ def check_enhance(torch, np, card, enhancer):
     cpu_enhancer = load_enhancer(CHECKPOINT, device="cpu")
     enhance = make_enhance(enhancer)
     launches = {"fused_ftf_block": 0, "fused_mhsa": 0, "banded_mhsa": 0,
-                "fused_ftf_bwd": 0}
+                "fused_ftf_bwd": 0, "fused_grouped_gru": 0}
     rng = np.random.default_rng(1)
 
     # Workload 1: B=128 x 2 s seeded noise (the fixed bench workload).
@@ -722,7 +792,7 @@ def check_enhance(torch, np, card, enhancer):
     enhance(x, ln)  # warm-up
     out, got = run_counted(torch, enhance, x, ln,
                            {"fused_ftf_block": 2, "fused_mhsa": 1,
-                            "banded_mhsa": 0})
+                            "banded_mhsa": 0, "fused_grouped_gru": 1})
     for k in launches:
         launches[k] += got[k]
     if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
@@ -760,27 +830,29 @@ def check_banded(torch, np, card):
     """The banded-causal serving configuration (max_time_context = 64)."""
     from lct_gan_tpu_torch.convert import load_enhancer
     from lct_gan_tpu_torch.eval import make_enhance
-    from lct_gan_tpu_torch.ops.gru import grouped_gru
+    from lct_gan_tpu_torch.ops.gru import fused_grouped_gru
 
     enhancer = load_enhancer(CHECKPOINT, device="cuda", max_time_context=64)
-    gru = [p.detach() for p in enhancer.gen.GRUt1.kernel_params()[2:6]]
+    gru = [p.detach() for p in enhancer.gen.GRUt1.kernel_params()[:6]]
     cpu_enhancer = load_enhancer(CHECKPOINT, device="cpu",
                                  max_time_context=64)
     enhance = make_enhance(enhancer)
-    launches = {"fused_ftf_block": 0, "fused_mhsa": 0, "banded_mhsa": 0}
+    names = ("fused_ftf_block", "fused_mhsa", "banded_mhsa",
+             "fused_grouped_gru")
+    launches = {k: 0 for k in names}
     rng = np.random.default_rng(2)
     for T, rows_checked, expect in (
-            (196608, 2, (2, 0, 1)),
-            (917504, 1, (2, 0, 1)),
+            (196608, 2, (2, 0, 1, 1)),
+            (917504, 1, (2, 0, 1, 1)),
             # routing boundary: S = 644 < 769 stays on the MHSA kernel
-            (163840, 1, (2, 1, 0))):
+            (163840, 1, (2, 1, 0, 1))):
         B = 128 * 32000 // T
         wave, lens = bucket_batch(np, rng, T, B)
         x = torch.from_numpy(wave).cuda()
         ln = torch.from_numpy(lens).cuda()
         enhance(x, ln)  # warm-up
-        out, got = run_counted(torch, enhance, x, ln, dict(zip(
-            ("fused_ftf_block", "fused_mhsa", "banded_mhsa"), expect)))
+        out, got = run_counted(torch, enhance, x, ln,
+                               dict(zip(names, expect)))
         for k in launches:
             launches[k] += got[k]
         if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
@@ -796,14 +868,13 @@ def check_banded(torch, np, card):
             raise AssertionError(f"banded B={B} x {T}: rows vs CPU plain "
                                  f"path {werr} > {TOL_WAVE}")
         ms = cuda_ms(torch, lambda: enhance(x, ln), 2)
-        # The composed time block's GRU loop (plain torch, launch-bound on
-        # the host) alone, at this call's time-block shape, under the same
-        # inference mode as the call.
+        # The composed time block's LN1 + GRU operator alone, at this
+        # call's time-block shape, under the same inference mode as the call.
         S = T // 256 + 4
         h = torch.randn((B * 33, S, 64), device="cuda")
         with torch.inference_mode():
-            gru_ms = cuda_ms(torch, lambda: grouped_gru(
-                h, *gru, bidirectional=False), 1)
+            gru_ms = cuda_ms(torch, lambda: fused_grouped_gru(
+                h, *gru, bidirectional=False), 3)
         emit({"phase": "banded", "workload": f"bucketed B={B} x {T} samples",
               "max_time_context": 64, "launches": got,
               "rows_checked": r, "wave_max_abs_err_vs_cpu": werr,
@@ -1398,9 +1469,11 @@ def check_loop(torch, np, card, bare_step_ms):
     from lct_gan_tpu_torch.ops.banded_attention import banded_mhsa
     from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
     from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+    from lct_gan_tpu_torch.ops.gru import fused_grouped_gru
     from lct_gan_tpu_torch.train import DataConfig, TrainConfig, run_training
 
-    wrappers = (fused_ftf_block, fused_ftf_bwd, fused_mhsa, banded_mhsa)
+    wrappers = (fused_ftf_block, fused_ftf_bwd, fused_mhsa, banded_mhsa,
+                fused_grouped_gru)
     root = tempfile.mkdtemp(prefix="lct_loop_")
     try:
         data_root = os.path.join(root, "data")
@@ -1430,7 +1503,9 @@ def check_loop(torch, np, card, bare_step_ms):
             raise AssertionError(f"steps per epoch {full['epochs']}")
         if not (got["fused_ftf_bwd"] == 3 * steps
                 and got["fused_ftf_block"] > 3 * steps
-                and got["fused_mhsa"] > 0 and got["banded_mhsa"] == 0):
+                and got["fused_mhsa"] > 0 and got["banded_mhsa"] == 0
+                # each composed validation call: one MHSA, one GRU
+                and got["fused_grouped_gru"] == got["fused_mhsa"]):
             raise AssertionError(f"loop launches {got} for {steps} steps")
         ckpts = os.path.join(full["run_dir"], "ckpts")
         names = sorted(os.listdir(ckpts))
@@ -1629,17 +1704,18 @@ def check_export(torch, np, card):
                                                 kernel_op_counts,
                                                 load_exported)
 
-    names = ("fused_ftf_block", "fused_mhsa", "banded_mhsa")
+    names = ("fused_ftf_block", "fused_mhsa", "banded_mhsa",
+             "fused_grouped_gru")
     launches = {k: 0 for k in names}
     rng = np.random.default_rng(12)
     root = tempfile.mkdtemp(prefix="lct_export_")
     try:
         # keep_kernels artifacts: (shapes, max_time_context, expected
-        # launches per call (FTF, MHSA, banded) for each shape).
+        # launches per call (FTF, MHSA, banded, GRU) for each shape).
         for label, shapes, mtc, expects in (
                 ("kept", [(128, 32000), (4, 163840)], None,
-                 [(3, 0, 0), (2, 1, 0)]),
-                ("kept_banded64", [(4, 196608)], 64, [(2, 0, 1)])):
+                 [(3, 0, 0, 0), (2, 1, 0, 1)]),
+                ("kept_banded64", [(4, 196608)], 64, [(2, 0, 1, 1)])):
             enhancer = load_enhancer(PT_CHECKPOINT, device="cuda",
                                      max_time_context=mtc)
             enhance = make_enhance(enhancer)
@@ -1962,17 +2038,20 @@ def main():
         launches[k] += n
 
     summary = []
-    for name, src, replaces, head_L in (
+    for name, src, replaces, head_L, head_mode in (
             ("fused_ftf_block", "lct_gan_tpu_torch/csrc/ftf.cu",
-             "lct_gan_tpu/ops/ftf.py:132", 33),
+             "lct_gan_tpu/ops/ftf.py:132", 33, "bf16"),
             ("fused_mhsa", "lct_gan_tpu_torch/csrc/mhsa.cu",
-             "lct_gan_tpu/ops/attention.py:125", 644),
+             "lct_gan_tpu/ops/attention.py:125", 644, "bf16"),
             ("banded_mhsa", "lct_gan_tpu_torch/csrc/banded.cu",
-             "lct_gan_tpu/ops/banded_attention.py:109", 772),
+             "lct_gan_tpu/ops/banded_attention.py:109", 772, "bf16"),
             ("fused_ftf_bwd", "lct_gan_tpu_torch/csrc/ftf_bwd.cu",
-             "lct_gan_tpu/ops/ftf_bwd.py:119", 33)):
+             "lct_gan_tpu/ops/ftf_bwd.py:119", 33, "bf16"),
+            # a lax.scan in the JAX package, not a Pallas kernel
+            ("fused_grouped_gru", "lct_gan_tpu_torch/csrc/ftf.cu",
+             "lct_gan_tpu/ops/gru.py:28", 644, "precise")):
         head = next(r for r in kernels[name]
-                    if r["L"] == head_L and r["mode"] == "bf16")
+                    if r["L"] == head_L and r["mode"] == head_mode)
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the path")
         summary.append({
@@ -1983,7 +2062,8 @@ def main():
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             **{k: head[k] for k in ("design", "exp_floor_ms",
                                     "library_mha_ms", "stages_ms",
-                                    "scratch_bytes") if k in head},
+                                    "scratch_bytes", "library_max_abs_err")
+               if k in head},
             "case": f"{head['case']} {head['mode']}",
             "cases": kernels[name]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -85,17 +85,18 @@ _GROUPS = (  # lower-case kernel-name fragment -> layer, first match wins
     ("qkv_tc_kernel", "(FTF: LN2 +) qkv projection (tensor cores)"),
     ("attn_tc_kernel", "attention + epilogue products (tensor cores)"),
     ("ftf_out_kernel", "FTF block: out-proj + Linear"),
-    ("gru_kernel", "FTF block: GRU recurrence"),
+    ("gru_kernel", "GRU recurrence (FTF block + composed block)"),
     ("banded_attn_kernel", "banded attention core (precise)"),
     ("attn_kernel", "attention core (FTF + MHSA)"),
-    ("proj_kernel", "LN + projections (FTF + MHSA + banded)"),
+    ("proj_kernel", "LN + projections (FTF + MHSA + banded + composed "
+     "GRU)"),
     ("fft", "STFT / iSTFT FFTs"),
     ("fprop", "encoder / decoder convs"),
     ("dgrad", "encoder / decoder convs"),
     ("conv", "encoder / decoder convs"),
     ("nchwtonhwc", "encoder / decoder convs"),
     ("nhwctonchw", "encoder / decoder convs"),
-    ("gemm", "plain GEMMs (composed GRU, Linear)"),
+    ("gemm", "plain GEMMs (composed block's Linear)"),
 )
 
 
@@ -136,9 +137,10 @@ def profile_step(step, sync) -> dict:
 def launches_per_pass(step, sync) -> dict:
     """Kernel launches of one untimed `step()`, by kernel wrapper (0 each on
     the CPU, where the wrappers compute their plain versions)."""
-    from lct_gan_tpu_torch.ops import banded_mhsa, fused_ftf_block, fused_mhsa
+    from lct_gan_tpu_torch.ops import (banded_mhsa, fused_ftf_block,
+                                       fused_grouped_gru, fused_mhsa)
 
-    wrappers = (fused_ftf_block, fused_mhsa, banded_mhsa)
+    wrappers = (fused_ftf_block, fused_mhsa, banded_mhsa, fused_grouped_gru)
     for w in wrappers:
         w.launches = 0
     step()

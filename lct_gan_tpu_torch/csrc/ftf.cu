@@ -20,6 +20,8 @@
 // precise (lct_ftf_forward_f32), all f32 on CUDA cores, five kernels:
 //   proj_kernel<true> -> xp, gru_kernel -> hid, proj_kernel<false> -> qkv,
 //   attn_kernel<0> -> ctx, ftf_out_kernel -> out.
+//   lct_grouped_gru_f32 runs the first two alone: LN1 and the grouped GRU
+//   of the composed time block above L = 512 (ops/gru.py).
 //
 // Bound on the H100: at the main path's shapes (B=128 x 2 s: N*L = 544,896
 // rows of 64 channels) one block moves ~279 MB of x and out (~83 us at
@@ -410,6 +412,39 @@ extern "C" int lct_ftf_forward_bf16(
   a.lin_b = lin_b;
   a.lin_in = lin_in;
   return (int)tc::launch_attn_tc<0>(a, st);
+}
+
+// LN1 and the grouped GRU alone, all f32: the composed time block above
+// L = 512, where the fused block's attention stops (ops/gru.py,
+// fused_grouped_gru; it replaces no TPU kernel: the JAX package runs this
+// recurrence as one lax.scan, lct_gan_tpu/ops/gru.py:28). The first two
+// launches of lct_ftf_forward_f32, unchanged: proj_kernel<true> -> xp,
+// gru_kernel -> hid; gru_kernel loops over any L. x: [N, L, 64]; w_ih, w_hh:
+// [D, 4, 16, 48]; b_ih, b_hh: [D, 4, 48]. Scratch xp [N*L, D*192] f32; out
+// hid [D, N*L, 64] f32, the per-direction hiddens (the caller sums them).
+// Bound: the recurrence is sequential in L, one dependent step per frame;
+// across the card the two launches move x in, xp out and back, hid out.
+// Returns a cudaError_t.
+extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
+                                   const float* ln1_b, const float* w_ih,
+                                   const float* w_hh, const float* b_ih,
+                                   const float* b_hh, float* xp, float* hid,
+                                   long long N, int L, int D, int device,
+                                   void* stream) {
+  using namespace lct;
+  cudaSetDevice(device);
+  LCT_CHECK();
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = N * L;
+  proj_kernel<true><<<(unsigned)((rows + ROWS - 1) / ROWS), D * 3 * C, 0,
+                      st>>>(x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih,
+                            xp, rows, D * 3 * C, /*round=*/0);
+  LCT_CHECK();
+  const long long gthreads = N * D * G * H;
+  gru_kernel<<<(unsigned)((gthreads + 255) / 256), 256, 0, st>>>(
+      xp, w_hh, b_hh, hid, N, L, D);
+  LCT_CHECK();
+  return 0;
 }
 
 // The same function in all-f32 arithmetic (precise mode). Scratch: xp

@@ -3,8 +3,10 @@ bake_enhance`).
 
 The JAX package bakes the weights into a jitted program; here the
 enhancer's weights are simply held fixed and every call runs under
-`torch.inference_mode()` (no autograd records). Capturing one CUDA graph
-per input shape is later work.
+`torch.inference_mode()` (no autograd records). No CUDA graph is
+captured: each FTF block is a few kernel launches at any length (the fused
+block up to L = 512; above it the composed block, whose LN1 and GRU
+recurrence are one operator, `ops/gru.py::fused_grouped_gru`).
 """
 
 from __future__ import annotations

@@ -45,6 +45,7 @@ from lct_gan_tpu_torch.data.pipeline import bucket_length
 from lct_gan_tpu_torch.ops.attention import mhsa_plain
 from lct_gan_tpu_torch.ops.banded_attention import banded_plain
 from lct_gan_tpu_torch.ops.ftf import ftf_plain
+from lct_gan_tpu_torch.ops.gru import grouped_gru_plain
 from lct_gan_tpu_torch.ops.library import NAMESPACE
 from lct_gan_tpu_torch.utils.device import disable_tf32, resolve_device
 
@@ -80,7 +81,8 @@ def _plain_decompositions():
     ns = getattr(torch.ops, NAMESPACE)
     return {ns.fused_ftf_block.default: ftf_plain,
             ns.fused_mhsa.default: mhsa_plain,
-            ns.banded_mhsa.default: banded_plain}
+            ns.banded_mhsa.default: banded_plain,
+            ns.fused_grouped_gru.default: grouped_gru_plain}
 
 
 def kernel_op_counts(program) -> Dict[str, int]:

@@ -11,9 +11,11 @@ noisy_mag and mask [B, 1, F, T], FTF blocks [B, T, F, C]. The convolutions
 run in NCHW with H = time, W = frequency (the reference's geometry).
 
 Every FTF block with L <= 512 goes through `fused_ftf_block` (the CUDA kernel
-on the card); a longer time block takes the composed path: LayerNorm ->
-grouped GRU (plain torch loop) -> LayerNorm -> MultiHeadSelfAttention (the
-MHSA kernel up to L = 1024) -> Linear -> LeakyReLU, as in the JAX package.
+on the card); a longer time block takes the composed path: LayerNorm and the
+grouped GRU in one f32 operator (`fused_grouped_gru`, the CUDA kernels on the
+card) -> LayerNorm -> MultiHeadSelfAttention (the MHSA kernel up to L = 1024,
+the banded one from BANDED_KERNEL_MIN_SEQ with a band) -> Linear ->
+LeakyReLU, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from lct_gan_tpu_torch.models.attention import MultiHeadSelfAttention
 from lct_gan_tpu_torch.models.gru import GRUGroup, stack_groups
 from lct_gan_tpu_torch.models.layers import LayerNorm
 from lct_gan_tpu_torch.ops.ftf import MAX_FTF_SEQ, fused_ftf_block
-from lct_gan_tpu_torch.ops.gru import grouped_gru
+from lct_gan_tpu_torch.ops.gru import fused_grouped_gru
 from lct_gan_tpu_torch.sigproc import (STFTConfig, apply_mask, hann_window,
                                        istft, magnitude, stft)
 from lct_gan_tpu_torch.utils.device import disable_tf32
@@ -104,10 +106,10 @@ class _FTFBlock(nn.Module):
                 seq, *params, bidirectional=self.bidirectional,
                 num_heads=self.num_heads, lookback=lookback,
                 key_bias=key_bias, precise=self.precise)
-        # Composed path: the GRU is the port of the JAX package's lax.scan
-        # (f32, outside any kernel).
-        seq_gru = grouped_gru(self.layernorm1(seq), *params[2:6],
-                              bidirectional=self.bidirectional)
+        # Composed path: LN1 and the GRU, the counterpart of the JAX
+        # package's lax.scan, f32 in every mode.
+        seq_gru = fused_grouped_gru(seq, *params[:6],
+                                    bidirectional=self.bidirectional)
         seq = seq + seq_gru
         attn_out = self.attn(self.layernorm2(seq), lookback=lookback,
                              key_bias=key_bias, precise=self.precise)

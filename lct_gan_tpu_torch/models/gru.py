@@ -6,7 +6,7 @@ one per channel group, named gru1..gruG directly under the FTF block
 parameters under those names (torch layout: weight_ih_l0 [3H, H], gate order
 r, z, n; `_reverse` for the backward direction); `stack_groups` turns a
 block's groups into the stacked [D, G, H, 3H] / [D, G, 3H] arrays that the
-kernel and `ops.gru.grouped_gru` take.
+kernels and `ops.gru` take.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ __all__ = ["GRUGroup", "stack_groups"]
 
 class GRUGroup(nn.Module):
     """Parameters of one single-layer torch.nn.GRU(H, H) (no forward: the
-    recurrence runs in the FTF kernel or in ops.gru.grouped_gru)."""
+    recurrence runs in the FTF kernel or in ops.gru.fused_grouped_gru)."""
 
     def __init__(self, hidden_size: int, bidirectional: bool):
         super().__init__()

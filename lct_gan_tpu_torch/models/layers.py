@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from lct_gan_tpu_torch.ops.ftf import layer_norm
+from lct_gan_tpu_torch.ops.gru import layer_norm
 
 __all__ = ["LayerNorm"]
 

@@ -38,24 +38,17 @@ import torch
 
 from lct_gan_tpu_torch.ops.attention import kernel_design, mhsa_reference
 from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
-from lct_gan_tpu_torch.ops.gru import grouped_gru_hidden, round_bf16
+from lct_gan_tpu_torch.ops.gru import (grouped_gru_hidden, layer_norm,
+                                       round_bf16)
 from lct_gan_tpu_torch.ops.library import define_op
 
 __all__ = ["fused_ftf_block", "ftf_block_reference", "ftf_forward_with_hidden",
-           "ftf_op", "ftf_plain", "layer_norm", "ftf_scratch",
+           "ftf_op", "ftf_plain", "ftf_scratch",
            "check_kernel_shapes", "MAX_FTF_SEQ"]
 
 # Longest sequence the fused block serves; longer time blocks take the
 # composed path (models/generator.py), as in the JAX package.
 MAX_FTF_SEQ = 512
-
-
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    """flax LayerNorm math (fast-variance form) over the last axis."""
-    mu = x.mean(dim=-1, keepdim=True)
-    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
 def _ftf_attention(n2, in_w, in_b, out_w, out_b, num_heads, lookback,

@@ -11,16 +11,37 @@ multiplies the projected hidden state):
 
 Params are stacked [D, G, H, 3H] / [D, G, 3H] (D = 2 when bidirectional);
 the two directions' outputs are summed. This is the plain version inside
-the FTF block's reference (ops/ftf.py) and, on the card, the composed path
-of the time block above L = 512 -- the counterpart of the lax.scan that the
-JAX package runs outside any Pallas kernel.
+the FTF block's reference (ops/ftf.py).
+
+`fused_grouped_gru` is LN1 and the grouped GRU of the composed time block
+above L = 512 (models/generator.py), where the fused block's attention
+stops: the counterpart of the lax.scan that the JAX package runs outside
+any Pallas kernel. It is the `torch.library` operator
+`lct_gan_tpu_torch::fused_grouped_gru` (`gru_op`, `ops/library.py`). On a
+CUDA tensor it launches the all-f32 kernels of `csrc/ftf.cu`
+(`lct_grouped_gru_f32`: the precise FTF forward's LN1 + input projection
+and its recurrence, one launch each); on a CPU tensor it computes
+`grouped_gru_plain`. Its backward differentiates the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-__all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16"]
+from lct_gan_tpu_torch.ops.library import define_op
+
+__all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16", "layer_norm",
+           "grouped_gru_plain", "fused_grouped_gru", "gru_op"]
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """flax LayerNorm math (fast-variance form) over the last axis."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -77,3 +98,100 @@ def grouped_gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     return grouped_gru_hidden(x, w_ih, w_hh, b_ih, b_hh,
                               bidirectional=bidirectional,
                               precise=precise).sum(dim=0)
+
+
+def grouped_gru_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, w_ih: torch.Tensor,
+                      w_hh: torch.Tensor, b_ih: torch.Tensor,
+                      b_hh: torch.Tensor, bidirectional: bool) -> torch.Tensor:
+    """The op on the CPU, and its decomposition in a portable export: LN1
+    (eps 1e-6), then the all-f32 grouped GRU, x [N, L, G*H] -> [N, L, G*H]."""
+    return grouped_gru(layer_norm(x, ln_scale, ln_bias), w_ih, w_hh, b_ih,
+                       b_hh, bidirectional=bidirectional, precise=True)
+
+
+def _check_gru_shapes(x: torch.Tensor, w_ih: torch.Tensor) -> None:
+    """Raise unless the kernels take these shapes: C = 64, 4 groups of 16."""
+    if x.shape[-1] != 64 or tuple(w_ih.shape[1:]) != (4, 16, 48):
+        raise ValueError("fused_grouped_gru kernel takes C=64 and 4 GRU "
+                         f"groups of 16, got x {tuple(x.shape)}, w_ih "
+                         f"{tuple(w_ih.shape)}")
+
+
+def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
+    if x.device.type == "cuda":
+        _check_gru_shapes(x, w_ih)
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+_P = ctypes.c_void_p
+# lct_grouped_gru_f32: 7 inputs, xp, hid; N; L, D, device; stream.
+_GRU_ARGTYPES = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P]
+
+
+def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
+    from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
+                                              raise_on_error)
+
+    _check_gru_shapes(x, w_ih)
+    N, L, C = x.shape
+    D = 2 if bidirectional else 1
+    dev = x.device
+    f = f32_operand
+    ops = [f("x", x, (N, L, C), dev), f("ln_scale", ln_scale, (C,), dev),
+           f("ln_bias", ln_bias, (C,), dev),
+           f("w_ih", w_ih, (D, 4, 16, 48), dev),
+           f("w_hh", w_hh, (D, 4, 16, 48), dev),
+           f("b_ih", b_ih, (D, 4, 48), dev), f("b_hh", b_hh, (D, 4, 48), dev)]
+    xp = torch.empty((N * L, D * 3 * C), device=dev, dtype=torch.float32)
+    hid = torch.empty((D, N * L, C), device=dev, dtype=torch.float32)
+    fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES)
+    err = fn(*(t.data_ptr() for t in ops), xp.data_ptr(), hid.data_ptr(),
+             N, L, D,
+             dev.index if dev.index is not None else torch.cuda.current_device(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(err, "ftf", "fused_grouped_gru kernel launch")
+    fused_grouped_gru.launches += 1
+    out = hid[0] if D == 1 else hid[0] + hid[1]
+    return out.view(N, L, C)
+
+
+def _gru_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7])
+    ctx.bidirectional = inputs[7]
+
+
+def _gru_backward(ctx, dout):
+    """The plain version's gradients, recomputed under autograd (the
+    composed block trains as the plain loop does)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        out = grouped_gru_plain(*inputs, ctx.bidirectional)
+        grads = torch.autograd.grad(out, inputs, dout)
+    return (*grads, None)
+
+
+gru_op = define_op("fused_grouped_gru", grouped_gru_plain, _gru_cuda,
+                   _gru_fake)
+torch.library.register_autograd(gru_op, _gru_backward,
+                                setup_context=_gru_setup_context)
+
+
+def fused_grouped_gru(x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, w_ih: torch.Tensor,
+                      w_hh: torch.Tensor, b_ih: torch.Tensor,
+                      b_hh: torch.Tensor, *,
+                      bidirectional: bool) -> torch.Tensor:
+    """LN1 and the grouped GRU over x [N, L, 64] -> [N, L, 64] f32, any L:
+    the op `torch.ops.lct_gan_tpu_torch.fused_grouped_gru`.
+
+    CPU tensors: `grouped_gru_plain`. CUDA tensors: the f32 kernels of
+    csrc/ftf.cu (C = 64 and 4 groups of 16, else it raises), each launch
+    counted in `fused_grouped_gru.launches`, from an exported program too.
+    Differentiable in x and the six parameters (the plain version's
+    gradients, recomputed)."""
+    return gru_op(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh,
+                  bool(bidirectional))
+
+
+fused_grouped_gru.launches = 0

@@ -44,7 +44,8 @@ from lct_gan_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
 from lct_gan_tpu_torch.models.generator import (FreqGRUBlock,
                                                 LCTGeneratorConfig,
                                                 LctEnhancer, TimeGRUBlock)
-from lct_gan_tpu_torch.ops import ftf_block_reference, mhsa_reference
+from lct_gan_tpu_torch.ops import (ftf_block_reference, grouped_gru_plain,
+                                   mhsa_reference)
 from lct_gan_tpu_torch.ops.ftf import MAX_FTF_SEQ
 from lct_gan_tpu_torch.train import TrainConfig, create_state, make_train_step
 
@@ -83,6 +84,8 @@ def plain_ops(monkeypatch):
     that FlopCounterMode sees inside them."""
     monkeypatch.setattr(generator_module, "fused_ftf_block",
                         ftf_block_reference)
+    monkeypatch.setattr(generator_module, "fused_grouped_gru",
+                        grouped_gru_plain)
     monkeypatch.setattr(attention_module, "fused_mhsa", mhsa_reference)
 
 

@@ -21,6 +21,7 @@ from lct_gan_tpu.ops.dispatch import pallas_override
 from lct_gan_tpu_torch.convert import load_enhancer, read_npz_params
 from lct_gan_tpu_torch.eval import make_enhance
 from lct_gan_tpu_torch.models import attention as port_attention
+from lct_gan_tpu_torch.models import generator as port_generator
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(ROOT, "artifacts", "train_demo", "g_params_best.npz")
@@ -42,22 +43,34 @@ CASES = [
     ("fixed_2x1s", 2, 16000, None),
     ("bucketed_lengths", 3, 20480, [20480, 17000, 9001]),
     # bottleneck T = 516 > 512: the time block takes the composed path
-    # (grouped GRU loop, then the MHSA wrapper).
+    # (the LN1 + grouped GRU operator, then the MHSA wrapper).
     ("composed_time_block", 1, 131072, None),
 ]
 
 
 @pytest.mark.parametrize("name,B,T,lengths", CASES)
-def test_enhancer_matches_jax_jnp_path(models, name, B, T, lengths):
+def test_enhancer_matches_jax_jnp_path(models, monkeypatch, name, B, T,
+                                       lengths):
     jax_fn, port = models
     x = (0.1 * np.random.default_rng(B * T).standard_normal((B, T))
          ).astype(np.float32)
     with pallas_override(None):
         jw, jm = jax_fn(jnp.asarray(x), None if lengths is None
                         else jnp.asarray(lengths, jnp.int32))
+    calls = []
+    gru_op = port_generator.fused_grouped_gru
+
+    def spy(seq, *a, **k):
+        calls.append(tuple(seq.shape))
+        return gru_op(seq, *a, **k)
+
+    monkeypatch.setattr(port_generator, "fused_grouped_gru", spy)
     with torch.inference_mode():
         pw, pm = port(torch.from_numpy(x), None if lengths is None
                       else torch.tensor(lengths))
+    # Only the composed time block runs the LN1 + GRU operator.
+    assert calls == ([(33, 516, 64)] if name == "composed_time_block"
+                     else [])
     assert pm.shape == jm.shape and pw.shape == jw.shape == (B, T)
     np.testing.assert_allclose(pm.numpy(), np.asarray(jm), rtol=0, atol=ATOL)
     np.testing.assert_allclose(pw.numpy(), np.asarray(jw), rtol=0, atol=ATOL)
