@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed S]
 
 Phases, each printing one JSON line (any failure raises, exit code != 0):
 
@@ -35,6 +35,25 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            on the CPU) and one bucketed batch of 163,840 samples with
            lengths (2 FTF launches, 1 MHSA, 1 GRU; rows match the CPU plain
            path)
+  widths   the four forward kernels (FTF block, MHSA, banded, the composed
+           GRU) at every num_heads and GRU group count dividing 64, against
+           their plain versions on the card, bf16 and precise (the GRU f32),
+           at small N: the FTF block (frequency L = 33; time L = 129 with
+           key bias and a band of 16) at each head count with 4 groups, each
+           group count with 4 heads, and (2, 2), (8, 8); MHSA at L = 516 and
+           banded at S = 772, W = 64 at each head count; the GRU at L = 516
+           at each group count; then, at the main path's shapes (several
+           items a block), heads 1, 2, 4, 8 and 64 (each padded head width)
+           for the FTF time block (N = 4,224), MHSA (L = 644, N = 825) and
+           banded (N = 660); each case's max|diff|, ms, plain ms, bound
+           (useful and padded products) and library ms (SDPA, one
+           multi_head_attention_forward, one cuDNN GRU; or why none).
+           Then enhancers with random
+           weights from --seed at (heads, groups) = (8, 8) and (2, 2), B=128
+           x 2 s (3 FTF launches), and at (8, 8) 4 x 163,840 samples (2 FTF,
+           1 MHSA, 1 GRU) and, with max_time_context=64, 4 x 196,608 (2 FTF,
+           1 banded, 1 GRU), each against the plain path on the card (the
+           ops' plain versions under a dispatch mode)
   banded   the same weights with max_time_context=64, bucketed batches with
            lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
            1 banded, 1 GRU launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
@@ -218,7 +237,7 @@ def bound(rows, flops, extra_bytes, mode):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_banded_ms(torch, N, L, lookback, mode):
+def library_banded_ms(torch, N, L, lookback, mode, num_heads=4):
     """`library_attention_ms` with the band mask, forced onto the
     memory-efficient backend. Returns (ms, None) or (None, reason)."""
     try:
@@ -226,20 +245,21 @@ def library_banded_ms(torch, N, L, lookback, mode):
 
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             return library_attention_ms(torch, N, L, lookback, None,
-                                        mode), None
+                                        mode, num_heads), None
     except (ImportError, RuntimeError) as exc:  # unsupported or out of
         torch.cuda.empty_cache()                # memory: record why
         return None, f"{type(exc).__name__}: {str(exc)[:200]}"
 
 
-def library_attention_ms(torch, N, L, lookback, key_bias, mode):
+def library_attention_ms(torch, N, L, lookback, key_bias, mode,
+                         num_heads=4):
     """One scaled_dot_product_attention call on the same attention shapes
     (a yardstick only: the port never calls it)."""
     F = torch.nn.functional
     dt = torch.bfloat16 if mode == "bf16" else torch.float32
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((N, 4, L, 16), generator=g, device="cuda",
-                           dtype=dt) for _ in range(3))
+    q, k, v = (torch.randn((N, num_heads, L, 64 // num_heads), generator=g,
+                           device="cuda", dtype=dt) for _ in range(3))
     mask = None
     if key_bias is not None:
         mask = key_bias[:, None, None, :].to(dt)
@@ -253,10 +273,10 @@ def library_attention_ms(torch, N, L, lookback, key_bias, mode):
     return ms
 
 
-def library_mha_ms(torch, x, params, key_bias, mode):
+def library_mha_ms(torch, x, params, key_bias, mode, num_heads=4):
     """The whole MHSA function in one PyTorch call:
-    `multi_head_attention_forward` with the same weights and key padding
-    mask (a yardstick only: the port never calls it)."""
+    `multi_head_attention_forward` with the same weights, head count and
+    key padding mask (a yardstick only: the port never calls it)."""
     F = torch.nn.functional
     dt = torch.bfloat16 if mode == "bf16" else torch.float32
     in_w, in_b, out_w, out_b = (p.to(dt) for p in params)
@@ -265,7 +285,7 @@ def library_mha_ms(torch, x, params, key_bias, mode):
 
     def call():
         return F.multi_head_attention_forward(
-            q, q, q, 64, 4, in_w.t(), in_b, None, None, False, 0.0,
+            q, q, q, 64, num_heads, in_w.t(), in_b, None, None, False, 0.0,
             out_w.t(), out_b, training=False, key_padding_mask=pad,
             need_weights=False)[0]
 
@@ -810,6 +830,320 @@ def check_enhance(torch, np, card, enhancer):
           "audio_sec_per_s": float(lens.sum()) / SR / (ms / 1e3),
           "device": card})
     return launches
+
+
+# Every head count and GRU group count the kernels take at C = 64.
+WIDTHS = (1, 2, 4, 8, 16, 32, 64)
+# Heads whose head widths are each padded width of the attention kernels
+# once (64, 32, 16, 8 channels), and 64 heads (8, in 16 rounds of four).
+MAIN_HEADS = (1, 2, 4, 8, 64)
+
+
+def plain_route(torch):
+    """A dispatch mode under which each kernel op of the port computes its
+    plain PyTorch version on the tensors' own device: the plain path on the
+    card (no kernel launches, no count moves)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from lct_gan_tpu_torch.export_model import _plain_decompositions
+
+    table = _plain_decompositions()
+
+    class PlainRoute(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return table.get(func, func)(*args, **(kwargs or {}))
+
+    return PlainRoute()
+
+
+def seeded_enhancer(torch, seed, num_heads, gru_groups, max_time_context=None):
+    """An enhancer at these widths with its modules' own random init under
+    `seed` (no trained weights exist at other widths), on the card."""
+    from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
+                                                    LctEnhancer)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        enhancer = LctEnhancer(gen_cfg=LCTGeneratorConfig(
+            num_heads=num_heads, gru_groups=gru_groups,
+            max_time_context=max_time_context))
+    return enhancer.cuda().eval()
+
+
+def library_or_reason(torch, fn):
+    """(ms, None) from one yardstick call, or (None, why) where the library
+    cannot take the shapes (unsupported, or out of memory)."""
+    try:
+        return fn(), None
+    except RuntimeError as exc:
+        torch.cuda.empty_cache()
+        return None, f"{type(exc).__name__}: {str(exc)[:200]}"
+
+
+def by_rows(torch, plain, n_rows, row_bytes, budget=4 << 30):
+    """The plain version over row chunks (`plain(lo, hi)`) whose
+    intermediates (`row_bytes` a row) stay under `budget`, concatenated:
+    each sequence's result depends on its own row alone."""
+    step = max(1, budget // row_bytes)
+    return lambda: torch.cat([plain(i, min(i + step, n_rows))
+                              for i in range(0, n_rows, step)])
+
+
+def width_case(torch, kernel, name, fn, plain, mode, shape, flops, padded,
+               extra, exps, exps_per_s, nh, G, library):
+    """One kernel at one width against its plain version on the same inputs
+    on the card: max|diff| within TOL[mode], kernel and plain ms, the bound
+    by the kernels table's formula on the useful products (`bound_ms`) and
+    on the products the kernel issues with its padded widths
+    (`padded_bound_ms`), and the library's time (`library()`: (ms, why not),
+    and optionally its max|diff| from the kernel)."""
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (out - ref).abs().max().item()
+    if not (err <= TOL[mode]) or not torch.isfinite(out).all():
+        raise AssertionError(f"{kernel} {name} heads={nh} groups={G} {mode}: "
+                             f"max|diff| {err} > {TOL[mode]}")
+    del out, ref
+    torch.cuda.empty_cache()
+    N, L = shape
+    rows = N * L
+    bms, by = bound(rows, flops, extra, mode)
+    pbms, pby = bound(rows, padded, extra, mode)
+    res = {"case": f"widths {name} h{nh} g{G}", "mode": mode,
+           "num_heads": nh, "gru_groups": G, "N": N, "L": L, "rows": rows,
+           "max_abs_err": err, "tol": TOL[mode],
+           "ms": cuda_ms(torch, fn, 3), "plain_ms": cuda_ms(torch, plain, 1),
+           "bound_ms": bms, "bound_by": by, "padded_bound_ms": pbms,
+           "padded_bound_by": pby, "flops": flops, "padded_flops": padded}
+    lib = library()
+    res["library_ms"] = lib[0]
+    if lib[1] is not None:
+        res["library_unavailable"] = lib[1]
+    if len(lib) > 2:
+        res["library_max_abs_err"] = lib[2]
+    if exps:
+        res["exp_floor_ms"] = exps / exps_per_s * 1e3
+    emit({"phase": "widths", "kernel": kernel, **res})
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_widths(torch, np, card, seed):
+    """The four forward kernels at every head and GRU group count that
+    divides 64, against their plain versions on the card in both modes, at
+    small N; the attention kernels again at each padded head width (heads
+    1, 2, 4, 8 and 64) at the main path's shapes, where a block takes more
+    than one work item; then the enhancer end to end at (heads, groups) =
+    (8, 8) and (2, 2), B = 128 x 2 s, and at (8, 8) one composed and one
+    banded call, against the plain path on the card. Random weights from
+    `seed`."""
+    from lct_gan_tpu_torch.eval import make_enhance
+    from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
+    from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
+                                                        banded_mhsa_reference)
+    from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
+                                           fused_ftf_block)
+    from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
+                                           grouped_gru_plain, gru_slot,
+                                           layer_norm)
+    from lct_gan_tpu_torch.ops.probe import ex2_rate
+
+    t0 = time.perf_counter()
+    exps_per_s = ex2_rate()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": [],
+               "fused_grouped_gru": []}
+
+    def tail(N, L, n_valid_min):
+        valid = torch.randint(n_valid_min, L + 1, (N,), generator=g,
+                              device="cuda")
+        pos = torch.arange(L, device="cuda")
+        return torch.where(pos[None, :] < valid[:, None], 0.0,
+                           -1e30).to(torch.float32)
+
+    def head_flops(N, pairs, hd):
+        """Attention products: (useful, issued). A head's scores take
+        m16n8k16 steps of 16 channels and its context n8 tiles of 8."""
+        nh = 64 // hd
+        return (N * nh * pairs * hd * 4,
+                N * nh * pairs * 2 * (max(hd, 16) + max(hd, 8)))
+
+    def ftf_cases(nh, G, name, block, N, L, lookback):
+        params = [p.detach().contiguous() for p in block.kernel_params()]
+        D = 2 if block.bidirectional else 1
+        x = torch.randn((N, L, 64), generator=g, device="cuda")
+        kb = tail(N, L, L - 40) if D == 1 else None
+        rows, lin_in, hd = N * L, params[12].shape[0], 64 // nh
+        pairs_n = band_pairs(L, lookback)
+        attn, attn_pad = head_flops(N, pairs_n, hd)
+        rest = rows * (2 * 64 * 192 + 2 * 64 * 64 + 2 * lin_in * 64)
+        gru = rows * 4 * D * 192 * (64 // G)
+        gru_pad = rows * 4 * D * 192 * gru_slot(G)
+        extra = (sum(p.numel() for p in params) * 4
+                 + (rows * 4 if kb is not None else 0))
+        exps = N * nh * pairs_n + rows * D * 64 * 3
+        for mode in ("bf16", "precise"):
+            kw = dict(bidirectional=D == 2, num_heads=nh, lookback=lookback,
+                      precise=mode == "precise")
+
+            def plain(lo, hi):
+                return ftf_block_reference(
+                    x[lo:hi], *params,
+                    key_bias=None if kb is None else kb[lo:hi], **kw)
+
+            results["fused_ftf_block"].append(width_case(
+                torch, "fused_ftf_block", name,
+                lambda: fused_ftf_block(x, *params, key_bias=kb, **kw),
+                by_rows(torch, plain, N, 16 * nh * L * L), mode, (N, L),
+                rest + gru + attn, rest + gru_pad + attn_pad, extra, exps,
+                exps_per_s, nh, G, lambda: library_or_reason(
+                    torch, lambda: library_attention_ms(
+                        torch, N, L, lookback, kb, mode, nh))))
+        del x, kb
+
+    def attention_cases(nh, kernel, N, L, lookback):
+        attn_mod = seeded_enhancer(torch, seed, nh, 4).gen.GRUt1.attn
+        aparams = [p.detach().contiguous() for p in attn_mod.kernel_params()]
+        fn, ref = {"fused_mhsa": (fused_mhsa, mhsa_reference),
+                   "banded_mhsa": (banded_mhsa, banded_mhsa_reference)}[kernel]
+        x = torch.randn((N, L, 64), generator=g, device="cuda")
+        kb = tail(N, L, L - 130)
+        rows = N * L
+        pairs_n = band_pairs(L, lookback)
+        attn, attn_pad = head_flops(N, pairs_n, 64 // nh)
+        proj = rows * (2 * 64 * 192 + 2 * 64 * 64)
+        # MHSA: two exps a pair (max and sum, then p); banded: one.
+        exps = (2 if lookback is None else 1) * N * nh * pairs_n
+        extra = sum(p.numel() for p in aparams) * 4 + rows * 4
+        for mode in ("bf16", "precise"):
+            kw = dict(num_heads=nh, precise=mode == "precise")
+            if lookback is not None:
+                kw["lookback"] = lookback
+                library = lambda: library_banded_ms(  # noqa: E731
+                    torch, N, L, lookback, mode, nh)
+            else:
+                library = lambda: library_or_reason(  # noqa: E731
+                    torch, lambda: library_mha_ms(torch, x, aparams, kb,
+                                                  mode, nh))
+
+            def plain(lo, hi):
+                return ref(x[lo:hi], *aparams, key_bias=kb[lo:hi], **kw)
+
+            results[kernel].append(width_case(
+                torch, kernel, f"L{L}_N{N}_keybias" + (
+                    f"_W{lookback}" if lookback is not None else ""),
+                lambda: fn(x, *aparams, key_bias=kb, **kw),
+                by_rows(torch, plain, N, 16 * nh * L * L), mode, (N, L),
+                proj + attn, proj + attn_pad, extra, exps, exps_per_s, nh, 4,
+                library))
+        del x, kb
+
+    # FTF forward: every head count at 4 groups, every group count at 4
+    # heads, and (2, 2), (8, 8); the frequency and the time block.
+    pairs = sorted({(nh, 4) for nh in WIDTHS} | {(4, G) for G in WIDTHS}
+                   | {(2, 2), (8, 8)})
+    for nh, G in pairs:
+        gen = seeded_enhancer(torch, seed, nh, G).gen
+        ftf_cases(nh, G, "freq", gen.GRUf1, 512, 33, None)
+        ftf_cases(nh, G, "time_keybias_lookback16", gen.GRUt1, 128, 129, 16)
+
+    # MHSA (L = 516) and banded (S = 772, W = 64) at every head count.
+    for nh in WIDTHS:
+        attention_cases(nh, "fused_mhsa", 33, 516, None)
+        attention_cases(nh, "banded_mhsa", 33, 772, 64)
+
+    # Each padded head width (64, 32, 16, 8; 8 again in 16 rounds) at the
+    # main path's shapes (the B = 128 x 2 s time block, the 163,840-sample
+    # bucket's MHSA, the 196,608-sample W = 64 call's banded attention):
+    # several items a block, so the persistent loop and the loads of the
+    # next item run.
+    for nh in MAIN_HEADS:
+        gen = seeded_enhancer(torch, seed, nh, 4).gen
+        ftf_cases(nh, 4, "time_keybias_lookback16_main", gen.GRUt1, 4224,
+                  129, 16)
+        attention_cases(nh, "fused_mhsa", 825, 644, None)
+        attention_cases(nh, "banded_mhsa", 660, 772, 64)
+
+    # The composed time block's LN1 + GRU (all f32) at every group count,
+    # beside one cuDNN GRU over the same LN1 (block-diagonal weights).
+    N, L = 33, 516
+    for G in WIDTHS:
+        block = seeded_enhancer(torch, seed, 4, G).gen.GRUt1
+        params = [p.detach().contiguous() for p in block.kernel_params()[:6]]
+        x = torch.randn((N, L, 64), generator=g, device="cuda")
+        rows = N * L
+
+        def gru_fn():
+            return fused_grouped_gru(x, *params, bidirectional=False)
+
+        def library():
+            lib_ms, lib_out = library_gru(
+                torch, layer_norm(x, *params[:2]), *params[2:])
+            return lib_ms, None, (lib_out - gru_fn()).abs().max().item()
+
+        results["fused_grouped_gru"].append(width_case(
+            torch, "fused_grouped_gru", f"L{L}", gru_fn,
+            lambda: grouped_gru_plain(x, *params, False), "precise", (N, L),
+            rows * 4 * 192 * (64 // G), rows * 4 * 192 * gru_slot(G),
+            sum(p.numel() for p in params) * 4, rows * 64 * 3, exps_per_s,
+            4, G, library))
+        del x
+    kernel_s = time.perf_counter() - t0
+
+    # The enhancer end to end, each call against the plain path on the card.
+    launches = {k: 0 for k in ("fused_ftf_block", "fused_mhsa",
+                               "banded_mhsa", "fused_ftf_bwd",
+                               "fused_grouped_gru")}
+    rng = np.random.default_rng(seed + 16)
+    calls = [((8, 8, None), 128, 2 * SR, False, (3, 0, 0, 0)),
+             ((2, 2, None), 128, 2 * SR, False, (3, 0, 0, 0)),
+             ((8, 8, None), 4, 163840, True, (2, 1, 0, 1)),
+             ((8, 8, 64), 4, 196608, True, (2, 0, 1, 1))]
+    for (nh, G, mtc), B, T, bucketed, expect in calls:
+        enhancer = seeded_enhancer(torch, seed, nh, G, mtc)
+        enhance = make_enhance(enhancer)
+        if bucketed:
+            wave, lens = bucket_batch(np, rng, T, B)
+            ln = torch.from_numpy(lens).cuda()
+        else:
+            wave = (0.1 * rng.standard_normal((B, T))).astype(np.float32)
+            ln = None
+        x = torch.from_numpy(wave).cuda()
+        enhance(x) if ln is None else enhance(x, ln)  # warm-up
+        out, got = run_counted(torch, enhance, x, ln, dict(zip(
+            ("fused_ftf_block", "fused_mhsa", "banded_mhsa",
+             "fused_grouped_gru"), expect)))
+        for k in launches:
+            launches[k] += got[k]
+        if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
+            raise AssertionError(f"widths enhancer output bad: "
+                                 f"{tuple(out.shape)}")
+        with torch.inference_mode():
+            mask = enhancer(x, ln)[1]
+            with plain_route(torch):
+                ref_wave, ref_mask = enhancer(x, ln)
+        werr = (out - ref_wave).abs().max().item()
+        merr = (mask - ref_mask).abs().max().item()
+        if not (werr <= TOL_WAVE and merr <= TOL_MASK):
+            raise AssertionError(
+                f"widths enhancer heads={nh} groups={G} B={B} x {T}: wave "
+                f"{werr} (tol {TOL_WAVE}), mask {merr} (tol {TOL_MASK}) "
+                "against the plain path on the card")
+        call = (lambda: enhance(x)) if ln is None else (lambda: enhance(x, ln))
+        emit({"phase": "widths", "workload": f"B={B} x {T} samples" + (
+                  " bucketed" if bucketed else ""),
+              "num_heads": nh, "gru_groups": G, "max_time_context": mtc,
+              "seed": seed, "launches": got,
+              "wave_max_abs_err_vs_plain_on_card": werr,
+              "mask_max_abs_err_vs_plain_on_card": merr,
+              "tol_wave": TOL_WAVE, "tol_mask": TOL_MASK,
+              "ms_per_call": cuda_ms(torch, call, 3), "device": card})
+        del enhancer, enhance, x, ln, out, mask, ref_wave, ref_mask
+        torch.cuda.empty_cache()
+    emit({"phase": "widths", "kernel_cases_s": kernel_s,
+          "seconds": time.perf_counter() - t0})
+    return results, launches
 
 
 def bucket_batch(np, rng, T, B):
@@ -1992,9 +2326,16 @@ def check_accept(torch, np, card):
 
 
 def main():
+    import argparse
+
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the widths phase's random weights and "
+                         "inputs")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA GPU visible")
     sys.path.insert(0, ROOT)
@@ -2019,6 +2360,11 @@ def main():
     launches = check_enhance(torch, np, card, enhancer)
     del enhancer
     torch.cuda.empty_cache()
+    width_cases, width_launches = check_widths(torch, np, card, args.seed)
+    for k, rows in width_cases.items():
+        kernels[k].extend(rows)
+    for k, n in width_launches.items():
+        launches[k] += n
     for phase in (check_banded, check_stream):
         for k, n in phase(torch, np, card).items():
             launches[k] += n

@@ -39,10 +39,11 @@ VARIANTS = {
     "div": [("inv[hh][r] = tot > 0.f ? 1.f / tot : 0.f;",
              "inv[hh][r] = tot > 0.f ? tot : 1.f;", 1),
             (" * iv[", " / iv[", 8)],
-    "expf": [("fmaf(sj[e], tc::QK_SCALE2,\n"
+    "expf": [("fmaf(sj[e], scale2,\n"
               "                             ((e & 1) ? kb[j].y : kb[j].x) "
               "* tc::LOG2E)",
-              "fmaf(sj[e], 0.25f, (e & 1) ? kb[j].y : kb[j].x)", 1),
+              "fmaf(sj[e], inv_sqrt_hd(hd), (e & 1) ? kb[j].y : kb[j].x)",
+              1),
              ("tc::ex2(sc[hh][c][j][e] - mx[hh][e >> 1])",
               "expf(sc[hh][c][j][e] - mx[hh][e >> 1])", 1)],
 }

@@ -10,7 +10,7 @@
 //
 // bf16 (lct_banded_forward_bf16), tensor cores (tc.cuh):
 //   banded_tc_kernel<NCH>   one fused pass per work item: qkv projection,
-//                           4-head softmax attention over the band, output
+//                           C/hd-head softmax attention over the band, output
 //                           projection; q, k, v and the context never leave
 //                           the SM.
 //   W > MAX_REG_W (the band's scores no longer fit in registers):
@@ -38,7 +38,7 @@
 // an item that starts a sequence or the block's range projects its halo
 // too, staged through the same rows (the TPU kernel recomputes its previous
 // tile every time). Each warp then takes its 16
-// query rows through the four heads, two at a time: it scores them against
+// query rows through the heads, two at a time: it scores them against
 // the W + 16 keys its band can reach (NCH chunks of 16; the scores stay in
 // registers), masks only the chunks that cross the band's edges or the
 // sequence start, takes the exact row max, one ex2 per pair in log2 units,
@@ -49,6 +49,12 @@
 // source, against the measured time; PERF.md), with 8 warps per SM (255
 // registers a thread): the dependent steps of each warp's softmax, more
 // than a pipe or device memory, set its pace.
+//
+// Heads: any num_heads dividing 64. The kernels are built per padded head
+// width (head_pad in common.cuh): 16, 32 (two k-steps a score) or 64 (four,
+// one head a pass) with every head unrolled, or 8 for hd <= 8, whose heads
+// take masked fragments (tc.cuh's q_mask, v_mask) in a loop, two at a time,
+// their context summed in f32 and rounded once for the output projection.
 
 #include <limits.h>
 
@@ -64,33 +70,38 @@ namespace lct {
 // and scores each query only against those, so the work is O(S * W) for any
 // S. A warp walks the union of its 32 rows' bands in step (W + 32 keys), so
 // every K/V read from shared memory is a broadcast; each row keeps its own
-// keys by a test.
-constexpr int BT = 128;   // query rows per block, one per thread
-constexpr int BKC = 256;  // key rows staged in shared memory at a time
+// keys by a test. Heads of hd channels are staged HDP wide (head_pad: 8 for
+// hd <= 8, zero past hd, which adds nothing to a score or a context).
+constexpr int BT = 128;  // query rows per block, one per thread
+// Key rows staged in shared memory at a time: 32 KB of K and V for any head.
+template <int HDP>
+struct BandKeys {
+  static constexpr int BKC = HDP <= 16 ? 256 : 4096 / HDP;
+};
 
 // One pass over the staged keys [c0, c1) that the warp's rows can reach,
 // [wk0, wk1]: PASS 0 takes the row max, PASS 1 the softmax denominator,
 // PASS 2 accumulates the context with p = exp(s - m) / den.
-template <int PASS>
+template <int PASS, int HDP>
 __device__ __forceinline__ void band_pass(const float* Ks, const float* Vs,
                                           const float* kb, int c0, int c1,
                                           int wk0, int wk1, int q, int W,
-                                          bool live, const float (&qv)[HD],
-                                          float& m, float& den,
-                                          float (&acc)[HD]) {
+                                          bool live, float scale,
+                                          const float (&qv)[HDP], float& m,
+                                          float& den, float (&acc)[HDP]) {
   const int a = max(c0, wk0), b = min(c1 - 1, wk1);
   for (int k = a; k <= b; ++k) {
-    const float4* kr = reinterpret_cast<const float4*>(Ks + (k - c0) * HD);
+    const float4* kr = reinterpret_cast<const float4*>(Ks + (k - c0) * HDP);
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < HD / 4; ++i) {
+    for (int i = 0; i < HDP / 4; ++i) {
       const float4 kk = kr[i];
       s = fmaf(qv[4 * i], kk.x, s);
       s = fmaf(qv[4 * i + 1], kk.y, s);
       s = fmaf(qv[4 * i + 2], kk.z, s);
       s = fmaf(qv[4 * i + 3], kk.w, s);
     }
-    s = s * 0.25f + kb[k - c0];
+    s = s * scale + kb[k - c0];
     if (!(live && k >= q - W && k <= q)) continue;
     if (PASS == 0) {
       m = fmaxf(m, s);
@@ -98,9 +109,9 @@ __device__ __forceinline__ void band_pass(const float* Ks, const float* Vs,
       den += expf(s - m);
     } else {
       const float p = expf(s - m) / den;
-      const float4* vr = reinterpret_cast<const float4*>(Vs + (k - c0) * HD);
+      const float4* vr = reinterpret_cast<const float4*>(Vs + (k - c0) * HDP);
 #pragma unroll
-      for (int i = 0; i < HD / 4; ++i) {
+      for (int i = 0; i < HDP / 4; ++i) {
         const float4 vv = vr[i];
         acc[4 * i] = fmaf(p, vv.x, acc[4 * i]);
         acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
@@ -111,24 +122,30 @@ __device__ __forceinline__ void band_pass(const float* Ks, const float* Vs,
   }
 }
 
-// qkv [N*S, 3C] -> ctx [N*S, C]. Block b covers sequence n, head h and query
-// rows [t0, t0 + BT) with b = (n * NH + h) * ntiles + t0 / BT. The keys the
-// tile can reach, [max(0, t0 - W), min(S, t0 + BT)), are staged BKC rows at
-// a time: with W <= BKC - BT (W <= 128) they fit at once and are loaded
-// once; a wider band reloads each chunk in each of the three passes, so
-// shared memory stays 33 KB for any W.
+// qkv [N*S, 3C] -> ctx [N*S, C], C / hd heads. Block b covers sequence n,
+// head h and query rows [t0, t0 + BT) with b = (n * nh + h) * ntiles + t0 /
+// BT. The keys the tile can reach, [max(0, t0 - W), min(S, t0 + BT)), are
+// staged BKC rows at a time: with W <= BKC - BT they fit at once and are
+// loaded once; a wider band reloads each chunk in each of the three
+// passes, so shared memory stays 33 KB for any W.
+template <int HDP>
 __global__ void __launch_bounds__(BT)
     banded_attn_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ key_bias,
-                       float* __restrict__ ctx, int S, int W, int ntiles) {
-  __shared__ __align__(16) float Ks[BKC * HD];
-  __shared__ __align__(16) float Vs[BKC * HD];
+                       float* __restrict__ ctx, int S, int W, int ntiles,
+                       int hd_rt) {
+  constexpr int BKC = BandKeys<HDP>::BKC;
+  __shared__ __align__(16) float Ks[BKC * HDP];
+  __shared__ __align__(16) float Vs[BKC * HDP];
   __shared__ float kb[BKC];
+  const int hd = HDP >= 16 ? HDP : hd_rt;
+  const int nh = C / hd;
+  const float scale = inv_sqrt_hd(hd);
   const int tid = threadIdx.x;
   const int tile = (int)(blockIdx.x % (unsigned)ntiles);
   const long long seq_head = blockIdx.x / (unsigned)ntiles;
-  const long long n = seq_head / NH;
-  const int h = (int)(seq_head % NH);
+  const long long n = seq_head / nh;
+  const int h = (int)(seq_head % nh);
   const float* base = qkv + (size_t)n * S * (3 * C);
   const int t0 = tile * BT;
   const int q = t0 + tid;
@@ -137,61 +154,81 @@ __global__ void __launch_bounds__(BT)
   const int warp0 = t0 + (tid & ~31);
   const int wk0 = max(0, warp0 - W), wk1 = min(S - 1, warp0 + 31);
 
-  float qv[HD];
+  float qv[HDP];
   if (live) {
-    const float4* qp =
-        reinterpret_cast<const float4*>(base + (size_t)q * 3 * C + h * HD);
+    const float* qp = base + (size_t)q * 3 * C + h * hd;
+    if (HDP >= 16) {
 #pragma unroll
-    for (int i = 0; i < HD / 4; ++i) {
-      const float4 t = qp[i];
-      qv[4 * i] = t.x;
-      qv[4 * i + 1] = t.y;
-      qv[4 * i + 2] = t.z;
-      qv[4 * i + 3] = t.w;
+      for (int i = 0; i < HDP / 4; ++i) {
+        const float4 t = reinterpret_cast<const float4*>(qp)[i];
+        qv[4 * i] = t.x;
+        qv[4 * i + 1] = t.y;
+        qv[4 * i + 2] = t.z;
+        qv[4 * i + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < HDP; ++d) qv[d] = d < hd ? qp[d] : 0.f;
     }
   } else {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qv[d] = 0.f;
+    for (int d = 0; d < HDP; ++d) qv[d] = 0.f;
   }
 
-  float m = -INFINITY, den = 0.f, acc[HD];
+  float m = -INFINITY, den = 0.f, acc[HDP];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < HDP; ++d) acc[d] = 0.f;
   const int nchunks = (kend - kbeg + BKC - 1) / BKC;
   for (int pass = 0; pass < 3; ++pass) {
     for (int c = 0; c < nchunks; ++c) {
       const int c0 = kbeg + c * BKC, c1 = min(kend, c0 + BKC);
       if (nchunks > 1 || pass == 0) {
         __syncthreads();  // the previous chunk's readers are done
-        for (int i = tid; i < (c1 - c0) * (HD / 4); i += BT) {
-          const int r = i / (HD / 4), part = i % (HD / 4);
-          const float* row = base + (size_t)(c0 + r) * 3 * C + h * HD + 4 * part;
-          *reinterpret_cast<float4*>(Ks + r * HD + 4 * part) =
-              *reinterpret_cast<const float4*>(row + C);
-          *reinterpret_cast<float4*>(Vs + r * HD + 4 * part) =
-              *reinterpret_cast<const float4*>(row + 2 * C);
+        if (HDP >= 16) {
+          for (int i = tid; i < (c1 - c0) * (HDP / 4); i += BT) {
+            const int r = i / (HDP / 4), part = i % (HDP / 4);
+            const float* row =
+                base + (size_t)(c0 + r) * 3 * C + h * hd + 4 * part;
+            *reinterpret_cast<float4*>(Ks + r * HDP + 4 * part) =
+                *reinterpret_cast<const float4*>(row + C);
+            *reinterpret_cast<float4*>(Vs + r * HDP + 4 * part) =
+                *reinterpret_cast<const float4*>(row + 2 * C);
+          }
+        } else {
+          for (int i = tid; i < (c1 - c0) * HDP; i += BT) {
+            const int r = i / HDP, d = i % HDP;
+            const float* row = base + (size_t)(c0 + r) * 3 * C + h * hd + d;
+            Ks[i] = d < hd ? row[C] : 0.f;
+            Vs[i] = d < hd ? row[2 * C] : 0.f;
+          }
         }
         for (int r = tid; r < c1 - c0; r += BT)
           kb[r] = key_bias ? key_bias[(size_t)n * S + c0 + r] : 0.f;
         __syncthreads();
       }
       if (pass == 0)
-        band_pass<0>(Ks, Vs, kb, c0, c1, wk0, wk1, q, W, live, qv, m, den,
-                     acc);
+        band_pass<0, HDP>(Ks, Vs, kb, c0, c1, wk0, wk1, q, W, live, scale,
+                          qv, m, den, acc);
       else if (pass == 1)
-        band_pass<1>(Ks, Vs, kb, c0, c1, wk0, wk1, q, W, live, qv, m, den,
-                     acc);
+        band_pass<1, HDP>(Ks, Vs, kb, c0, c1, wk0, wk1, q, W, live, scale,
+                          qv, m, den, acc);
       else
-        band_pass<2>(Ks, Vs, kb, c0, c1, wk0, wk1, q, W, live, qv, m, den,
-                     acc);
+        band_pass<2, HDP>(Ks, Vs, kb, c0, c1, wk0, wk1, q, W, live, scale,
+                          qv, m, den, acc);
     }
   }
   if (!live) return;
-  float4* o = reinterpret_cast<float4*>(ctx + ((size_t)n * S + q) * C + h * HD);
+  float* o = ctx + ((size_t)n * S + q) * C + h * hd;
+  if (HDP >= 16) {
 #pragma unroll
-  for (int i = 0; i < HD / 4; ++i)
-    o[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                       acc[4 * i + 3]);
+    for (int i = 0; i < HDP / 4; ++i)
+      reinterpret_cast<float4*>(o)[i] = make_float4(
+          acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int d = 0; d < HDP; ++d)
+      if (d < hd) o[d] = acc[d];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -226,6 +263,7 @@ struct BandedArgs {
   long long N;
   int S;
   int lookback;
+  int hd;  // head width: C / num_heads
 };
 
 // NCH = ceil(W / 16) + 1 key chunks per warp: the halo of 16 (NCH - 1) rows
@@ -305,11 +343,31 @@ __device__ __forceinline__ void project_kv(const uint32_t (&af)[4][4],
   }
 }
 
-template <int NCH>
+// The context of n8 tile nt, element e, summed over the NACC accumulators.
+template <int NACC, int NT>
+__device__ __forceinline__ float acc_sum(const float (&o)[NACC][NT][4],
+                                         int nt, int e) {
+  return NACC > 1 ? o[0][nt][e] + o[NACC - 1][nt][e] : o[0][nt][e];
+}
+
+// HDP: the padded head width (head_pad): 16, 32 or 64, or 8 for any hd <=
+// 8 (the true width a.hd at run time, each head a masked fragment as in
+// tc.cuh's attention).
+template <int NCH, int HDP>
 __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
     banded_tc_kernel(BandedArgs a) {
   constexpr int HALO = BandShape<NCH>::HALO, KR = BandShape<NCH>::KR;
   constexpr int NW = BQ / 16, HALO_TILES = HALO / 16;
+  // A head's 16-channel k-steps and n8 tiles of context, the heads a warp
+  // takes at once, and its context accumulators (even and odd chunks, but
+  // one for the wider heads: their tiles give the chains enough to do).
+  constexpr int KS = HDP >= 16 ? HDP / 16 : 1;
+  constexpr int NT = HDP >= 16 ? HDP / 8 : 1;
+  constexpr int HPW = HDP == 64 ? 1 : HP;
+  constexpr int NACC = HDP > 16 ? 1 : 2;
+  const int hd = HDP >= 16 ? HDP : a.hd;
+  const int nh = C / hd;
+  const float scale2 = tc::qk_scale2(hd);
   using tc::LDS;
   using tc::LDW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -375,21 +433,21 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
     for (int i = 0; i < KB_PER_THREAD; ++i)
       if (tid + i * BQ_THREADS < nkb)
         kbs[(kb0 + tid + i * BQ_THREADS + KR) % KR] = kbv[i];
-    // q, rounded: the C fragments of head h's two n8 tiles are the A
-    // fragment of its scores.
-    uint32_t qa[NH][4];
+    // q, rounded: the C fragments of each 16-channel k-step's two n8 tiles
+    // are the A fragment of the scores over those channels.
+    uint32_t qa[C / 16][4];
 #pragma unroll
-    for (int h = 0; h < NH; ++h) {
+    for (int kk = 0; kk < C / 16; ++kk) {
       float acc[2][4];
-      tc::product_16cols(acc, own, ws + h * HD, LDW, lane);
-      const int col = h * HD + 2 * t;
+      tc::product_16cols(acc, own, ws + kk * 16, LDW, lane);
+      const int col = kk * 16 + 2 * t;
       const float b00 = __ldg(a.in_b + col), b01 = __ldg(a.in_b + col + 1);
       const float b10 = __ldg(a.in_b + col + 8);
       const float b11 = __ldg(a.in_b + col + 9);
-      qa[h][0] = tc::pack_bf16(acc[0][0] + b00, acc[0][1] + b01);
-      qa[h][1] = tc::pack_bf16(acc[0][2] + b00, acc[0][3] + b01);
-      qa[h][2] = tc::pack_bf16(acc[1][0] + b10, acc[1][1] + b11);
-      qa[h][3] = tc::pack_bf16(acc[1][2] + b10, acc[1][3] + b11);
+      qa[kk][0] = tc::pack_bf16(acc[0][0] + b00, acc[0][1] + b01);
+      qa[kk][1] = tc::pack_bf16(acc[0][2] + b00, acc[0][3] + b01);
+      qa[kk][2] = tc::pack_bf16(acc[1][0] + b10, acc[1][1] + b11);
+      qa[kk][3] = tc::pack_bf16(acc[1][2] + b10, acc[1][3] + b11);
     }
     project_kv(own, ws, a.in_b, ks, vs, r0 % KR, lane);
     if (fresh) {
@@ -433,12 +491,38 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
       slot[c] = (r0 - 16 * (NCH - 1 - c) + KR) % KR;
-    uint32_t ca[NH][4];
+    uint32_t ca[C / 16][4];
+    float cx[HDP == 8 ? 8 : 1][4] = {};  // HDP = 8: all heads' context
+    // Heads h0 .. h0 + HPW - 1 through the softmax (unrolled for a fixed
+    // head count, a loop over the C / hd heads for HDP = 8).
+#pragma unroll (HDP == 16 ? 2 : 1)
+    for (int h0 = 0; h0 < nh; h0 += HPW) {
+      // Their q fragments (KS k-steps each; HDP = 8: the head's k-step,
+      // masked to its channels) and first channel in K and V.
+      uint32_t qh[HPW][KS][4];
+      int col0[HPW];
 #pragma unroll
-    for (int h0 = 0; h0 < NH; h0 += HP) {
-      // Scores of heads h0 .. h0 + HP - 1 in log2 units, s log2(e) =
-      // (q . k) log2(e) / 4 + key_bias log2(e); -inf outside the band.
-      float sc[HP][NCH][2][4];
+      for (int hh = 0; hh < HPW; ++hh) {
+        const int h = h0 + hh;
+        if (HDP >= 16) {
+          col0[hh] = h * HDP;
+#pragma unroll
+          for (int ki = 0; ki < KS; ++ki)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) qh[hh][ki][i] = qa[h * KS + ki][i];
+        } else {
+          col0[hh] = (h * hd) & ~15;
+#pragma unroll
+          for (int kk = 0; kk < C / 16; ++kk)
+            if (kk == col0[hh] / 16)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) qh[hh][0][i] = qa[kk][i];
+          tc::q_mask(qh[hh][0], h, hd, lane);
+        }
+      }
+      // Scores in log2 units, s log2(e) = (q . k) log2(e) / sqrt(hd) +
+      // key_bias log2(e); -inf outside the band.
+      float sc[HPW][NCH][2][4];
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         if (!((need >> c) & 1u)) continue;
@@ -446,17 +530,22 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
             *reinterpret_cast<const float2*>(kbs + slot[c] + 2 * t),
             *reinterpret_cast<const float2*>(kbs + slot[c] + 8 + 2 * t)};
 #pragma unroll
-        for (int hh = 0; hh < HP; ++hh) {
-          uint32_t kf[4];
-          tc::load_b_nk(kf, ks + slot[c] * LDS + (h0 + hh) * HD, LDS, lane);
+        for (int hh = 0; hh < HPW; ++hh) {
+          uint32_t kf[KS][4];
+#pragma unroll
+          for (int ki = 0; ki < KS; ++ki)
+            tc::load_b_nk(kf[ki], ks + slot[c] * LDS + col0[hh] + ki * 16,
+                          LDS, lane);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             float* sj = sc[hh][c][j];
             sj[0] = sj[1] = sj[2] = sj[3] = 0.f;
-            tc::mma(sj, qa[h0 + hh], kf[2 * j], kf[2 * j + 1]);
+#pragma unroll
+            for (int ki = 0; ki < KS; ++ki)
+              tc::mma(sj, qh[hh][ki], kf[ki][2 * j], kf[ki][2 * j + 1]);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              float v = fmaf(sj[e], tc::QK_SCALE2,
+              float v = fmaf(sj[e], scale2,
                              ((e & 1) ? kb[j].y : kb[j].x) * tc::LOG2E);
               if (!((full >> c) & 1u)) {
                 const int d = g + 8 * (e >> 1) - (j * 8 + 2 * t + (e & 1)) +
@@ -470,9 +559,9 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
       }
       // The exact row max (a chunk's four values of a row first, then
       // across chunks: short chains), one ex2 per pair, the row sum.
-      float mx[HP][2], sum[HP][2], inv[HP][2];
+      float mx[HPW][2], sum[HPW][2], inv[HPW][2];
 #pragma unroll
-      for (int hh = 0; hh < HP; ++hh) {
+      for (int hh = 0; hh < HPW; ++hh) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           float m = -INFINITY;
@@ -488,7 +577,7 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
         }
       }
 #pragma unroll
-      for (int hh = 0; hh < HP; ++hh) {
+      for (int hh = 0; hh < HPW; ++hh) {
         sum[hh][0] = sum[hh][1] = 0.f;
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
@@ -505,17 +594,18 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
         }
       }
 #pragma unroll
-      for (int hh = 0; hh < HP; ++hh)
+      for (int hh = 0; hh < HPW; ++hh)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float tot = tc::quad_sum(sum[hh][r]);
           inv[hh][r] = tot > 0.f ? 1.f / tot : 0.f;
         }
       // p = bf16(e / l) as the A fragment of P @ V, chunk by chunk, into
-      // two accumulators (even and odd chunks: half the chain).
+      // NACC accumulators (even and odd chunks: half the chain).
 #pragma unroll
-      for (int hh = 0; hh < HP; ++hh) {
-        float o[2][2][4] = {};
+      for (int hh = 0; hh < HPW; ++hh) {
+        const int h = h0 + hh;
+        float o[NACC][NT][4] = {};
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           if (!((need >> c) & 1u)) continue;
@@ -527,19 +617,54 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
               tc::pack_bf16(p[1][0] * iv[0], p[1][1] * iv[0]),
               tc::pack_bf16(p[1][2] * iv[1], p[1][3] * iv[1])};
           uint32_t vf[4];
-          tc::load_b_kn(vf, vs + slot[c] * LDS + (h0 + hh) * HD, LDS, lane);
-          tc::mma(o[c & 1][0], pa, vf[0], vf[1]);
-          tc::mma(o[c & 1][1], pa, vf[2], vf[3]);
-        }
-        uint32_t* cah = ca[h0 + hh];
+          if (HDP >= 16) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          cah[2 * j] = tc::pack_bf16(o[0][j][0] + o[1][j][0],
-                                     o[0][j][1] + o[1][j][1]);
-          cah[2 * j + 1] = tc::pack_bf16(o[0][j][2] + o[1][j][2],
-                                         o[0][j][3] + o[1][j][3]);
+            for (int ki = 0; ki < KS; ++ki) {
+              tc::load_b_kn(vf, vs + slot[c] * LDS + col0[hh] + ki * 16, LDS,
+                            lane);
+              tc::mma(o[c % NACC][2 * ki], pa, vf[0], vf[1]);
+              tc::mma(o[c % NACC][2 * ki + 1], pa, vf[2], vf[3]);
+            }
+          } else {
+            // The head's n8 tile of V, the other heads' columns zeroed.
+            tc::load_b_kn(vf, vs + slot[c] * LDS + col0[hh], LDS, lane);
+            const int nt = (h * hd) >> 3;
+            const uint32_t vm = tc::v_mask(h, hd, lane);
+            tc::mma(o[c % NACC][0], pa, ((nt & 1) ? vf[2] : vf[0]) & vm,
+                    ((nt & 1) ? vf[3] : vf[1]) & vm);
+          }
+        }
+        if (HDP >= 16) {
+#pragma unroll
+          for (int ki = 0; ki < KS; ++ki)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              uint32_t* cah = ca[h * KS + ki];
+              const int nt = 2 * ki + j;
+              cah[2 * j] = tc::pack_bf16(acc_sum(o, nt, 0), acc_sum(o, nt, 1));
+              cah[2 * j + 1] =
+                  tc::pack_bf16(acc_sum(o, nt, 2), acc_sum(o, nt, 3));
+            }
+        } else {
+          const int nt = (h * hd) >> 3;
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (q == nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                cx[HDP == 8 ? q : 0][e] += acc_sum(o, 0, e);
         }
       }
+    }
+    if (HDP == 8) {
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float* v = cx[HDP == 8 ? 2 * kk + j : 0];
+          ca[kk][2 * j] = tc::pack_bf16(v[0], v[1]);
+          ca[kk][2 * j + 1] = tc::pack_bf16(v[2], v[3]);
+        }
     }
 
     // out = bf16(ctx) @ bf16(out_w) + out_b, f32.
@@ -561,37 +686,65 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
   }
 }
 
-template <int NCH>
+template <int NCH, int HDP>
 cudaError_t launch_banded_tc(const BandedArgs& a, cudaStream_t st) {
   constexpr size_t smem = BandShape<NCH>::SMEM;
-  cudaError_t e = tc::allow_smem(banded_tc_kernel<NCH>, smem);
+  cudaError_t e = tc::allow_smem(banded_tc_kernel<NCH, HDP>, smem);
   if (e != cudaSuccess) return e;
   unsigned grid = 1;
-  e = tc::persistent_grid(banded_tc_kernel<NCH>, BQ_THREADS, smem,
+  e = tc::persistent_grid(banded_tc_kernel<NCH, HDP>, BQ_THREADS, smem,
                           a.N * ((a.S + BQ - 1) / BQ), &grid);
   if (e != cudaSuccess) return e;
-  banded_tc_kernel<NCH><<<grid, BQ_THREADS, smem, st>>>(a);
+  banded_tc_kernel<NCH, HDP><<<grid, BQ_THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// banded_tc_kernel<NCH, HDP> for NCH = ceil(W / 16) + 1 chunks.
+template <int HDP>
+cudaError_t launch_banded_hd(const BandedArgs& a, cudaStream_t st) {
+  switch ((a.lookback + 15) / 16 + 1) {
+    case 1: return launch_banded_tc<1, HDP>(a, st);
+    case 2: return launch_banded_tc<2, HDP>(a, st);
+    case 3: return launch_banded_tc<3, HDP>(a, st);
+    case 4: return launch_banded_tc<4, HDP>(a, st);
+    case 5: return launch_banded_tc<5, HDP>(a, st);
+    case 6: return launch_banded_tc<6, HDP>(a, st);
+    case 7: return launch_banded_tc<7, HDP>(a, st);
+    default: return launch_banded_tc<MAX_CHUNKS, HDP>(a, st);
+  }
+}
+
+template <int HDP>
+cudaError_t launch_banded_f32(const float* qkv, const float* key_bias,
+                              float* ctx, long long N, int S, int lookback,
+                              int hd, cudaStream_t st) {
+  const int ntiles = (S + BT - 1) / BT;
+  const long long ablocks = N * (C / hd) * ntiles;
+  banded_attn_kernel<HDP><<<(unsigned)ablocks, BT, 0, st>>>(
+      qkv, key_bias, ctx, S, lookback, ntiles, hd);
   return cudaGetLastError();
 }
 
 }  // namespace lct
 
 // x, out: [N, S, 64]; in_w: [64, 192]; out_w: [64, 64]; key_bias: [N, S] or
-// null; lookback >= 0. Scratch: none for lookback <= MAX_REG_W, else qkv
-// bf16 [N*S, 192]. Returns a cudaError_t.
+// null; lookback >= 0; num_heads divides 64. Scratch: none for lookback <=
+// MAX_REG_W, else qkv bf16 [N*S, 192]. Returns a cudaError_t.
 extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
                                        const float* in_b, const float* out_w,
                                        const float* out_b,
                                        const float* key_bias, void* qkv,
                                        float* out, long long N, int S,
-                                       int lookback, int device,
-                                       void* stream) {
+                                       int lookback, int num_heads,
+                                       int device, void* stream) {
   using namespace lct;
-  if (lookback < 0 || N < 0 || S < 0) return (int)cudaErrorInvalidValue;
+  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 || C % num_heads)
+    return (int)cudaErrorInvalidValue;
   if (N * S == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
+  const int hd = C / num_heads;
   if (lookback > MAX_REG_W) {
     if (qkv == nullptr) return (int)cudaErrorInvalidValue;
     __nv_bfloat16* q = static_cast<__nv_bfloat16*>(qkv);
@@ -608,19 +761,16 @@ extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
     a.N = N;
     a.L = S;
     a.lookback = lookback;
+    a.hd = hd;
     return (int)tc::launch_attn_tc<1>(a, st);
   }
   const BandedArgs a = {x, in_w, in_b, out_w, out_b, key_bias, out,
-                        N, S, lookback};
-  switch ((lookback + 15) / 16 + 1) {
-    case 1: return (int)launch_banded_tc<1>(a, st);
-    case 2: return (int)launch_banded_tc<2>(a, st);
-    case 3: return (int)launch_banded_tc<3>(a, st);
-    case 4: return (int)launch_banded_tc<4>(a, st);
-    case 5: return (int)launch_banded_tc<5>(a, st);
-    case 6: return (int)launch_banded_tc<6>(a, st);
-    case 7: return (int)launch_banded_tc<7>(a, st);
-    default: return (int)launch_banded_tc<MAX_CHUNKS>(a, st);
+                        N, S, lookback, hd};
+  switch (head_pad(hd)) {
+    case 8: return (int)launch_banded_hd<8>(a, st);
+    case 16: return (int)launch_banded_hd<16>(a, st);
+    case 32: return (int)launch_banded_hd<32>(a, st);
+    default: return (int)launch_banded_hd<64>(a, st);
   }
 }
 
@@ -635,16 +785,17 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
                                       const float* out_b,
                                       const float* key_bias, float* qkv,
                                       float* ctx, float* out, long long N,
-                                      int S, int lookback, int device,
-                                      void* stream) {
+                                      int S, int lookback, int num_heads,
+                                      int device, void* stream) {
   using namespace lct;
-  if (lookback < 0 || N < 0 || S < 0) return (int)cudaErrorInvalidValue;
+  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 || C % num_heads)
+    return (int)cudaErrorInvalidValue;
   const long long rows = N * S;
   if (rows == 0) return 0;
-  const int ntiles = (S + BT - 1) / BT;
-  const long long ablocks = N * NH * ntiles;
+  const int hd = C / num_heads;
   const long long rblocks = (rows + ROWS - 1) / ROWS;
-  if (ablocks > INT_MAX || rblocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (rblocks > INT_MAX || N * num_heads * ((S + BT - 1) / BT) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -653,9 +804,20 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
       /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  banded_attn_kernel<<<(unsigned)ablocks, BT, 0, st>>>(qkv, key_bias, ctx, S,
-                                                       lookback, ntiles);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  switch (head_pad(hd)) {
+    case 8:
+      e = launch_banded_f32<8>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+      break;
+    case 16:
+      e = launch_banded_f32<16>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+      break;
+    case 32:
+      e = launch_banded_f32<32>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+      break;
+    default:
+      e = launch_banded_f32<64>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+  }
+  if (e != cudaSuccess) return (int)e;
   proj_kernel<false><<<(unsigned)rblocks, C, 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
       /*round=*/0);

@@ -3,9 +3,14 @@
 // (all-f32) mode and every stage of the backward. The forward's bf16 mode
 // runs the tensor-core kernels of tc.cuh instead.
 //
-// Widths are those of the LCT generator's bottleneck: C = 64 channels,
-// 4 attention heads of 16, 4 GRU groups of hidden size 16. The Python
-// wrappers check them before a launch.
+// Widths: C = 64 channels (the LCT generator's bottleneck), split into
+// attention heads of hd = C / num_heads and GRU groups of C / groups for
+// every divisor of 64; the Python wrappers check them before a launch. The
+// kernels are templated on a padded width and take the true one at run
+// time: attention on the head width (8 for any hd <= 8, else 16, 32 or 64),
+// the GRU on its slot width (16: groups of 16 or, packed block-diagonally,
+// narrower; 64: one dense group, or two of 32 packed). ftf_bwd.cu keeps
+// its own fixed widths.
 //
 // Rounding: `round != 0` is the bf16 mode (the backward's). Every GEMM
 // operand is rounded to bf16 (round-to-nearest-even) exactly where the TPU
@@ -22,11 +27,22 @@
 namespace lct {
 
 constexpr int C = 64;     // channels = attention embed dim
-constexpr int NH = 4;     // attention heads
-constexpr int HD = 16;    // head dim
-constexpr int G = 4;      // GRU groups
-constexpr int H = 16;     // GRU hidden size per group
 constexpr int ROWS = 32;  // rows per block in the row-GEMM kernels
+
+// 1 / sqrt(hd), the attention's score scale, for every head width of C.
+__host__ __device__ constexpr float inv_sqrt_hd(int hd) {
+  return hd == 1    ? 1.f
+         : hd == 2  ? 0.70710678118654752f  // 1 / sqrt(2)
+         : hd == 4  ? 1.f / 2
+         : hd == 8  ? 0.35355339059327376f  // 1 / sqrt(8)
+         : hd == 16 ? 1.f / 4
+         : hd == 32 ? 0.17677669529663688f  // 1 / sqrt(32)
+                    : 1.f / 8;
+}
+
+// The padded head width a kernel instance is built for: 8 for any hd <= 8
+// (the true width at run time), else hd itself.
+__host__ __device__ constexpr int head_pad(int hd) { return hd <= 8 ? 8 : hd; }
 
 __device__ __forceinline__ float rnd(float v, int round) {
   return round ? __bfloat162float(__float2bfloat16_rn(v)) : v;
@@ -43,9 +59,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 //
 // in = x (+ (add0 + add1)), optionally LayerNorm'ed (ln_s != nullptr;
 // fast-variance form max(0, E[x^2] - mu^2), eps 1e-6), then rounded.
-// GROUPED: the grouped GRU input projection. Column c = d*192 + g*48 + j
-// reads the 16 inputs of group g and W = w_ih [D, G, 16, 48]; otherwise W
-// is dense [64, M].
+// GROUPED: the grouped GRU input projection over slots of GW channels.
+// Column c = d*3C + g*3GW + j reads the GW inputs of slot g and W = w_ih
+// [D, C/GW, GW, 3GW] (the groups packed into slots, ops/gru.py::
+// pack_gru_slots); otherwise W is dense [64, M].
 //
 // Bound: a tile of 32 rows lives in shared memory and each thread keeps its
 // 32 partial sums in registers; a weight is read once per tile (L1-resident,
@@ -53,7 +70,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // that the whole warp shares (a broadcast). CUDA-core f32 FMAs: all-f32
 // arithmetic has no tensor-core product (TF32 would break precise mode's
 // 1e-3 contract); tc.cuh's qkv_tc_kernel is the bf16 forward's version.
-template <bool GROUPED>
+template <bool GROUPED, int GW = 16>
 __global__ void proj_kernel(const float* __restrict__ x,
                             const float* __restrict__ add0,
                             const float* __restrict__ add1,
@@ -95,14 +112,14 @@ __global__ void proj_kernel(const float* __restrict__ x,
 
   const int c = tid;
   if (c >= M) return;
-  constexpr int K = GROUPED ? H : C;
+  constexpr int K = GROUPED ? GW : C;
   int koff = 0, wstride = M;
   const float* wp = W + c;
   if (GROUPED) {
-    const int d = c / (3 * C), g = (c % (3 * C)) / (3 * H), j = c % (3 * H);
-    koff = g * H;
-    wp = W + (size_t)(d * G + g) * H * (3 * H) + j;
-    wstride = 3 * H;
+    const int d = c / (3 * C), g = (c % (3 * C)) / (3 * GW), j = c % (3 * GW);
+    koff = g * GW;
+    wp = W + (size_t)(d * (C / GW) + g) * GW * (3 * GW) + j;
+    wstride = 3 * GW;
   }
   float acc[ROWS];
 #pragma unroll
@@ -122,108 +139,159 @@ __global__ void proj_kernel(const float* __restrict__ x,
 }
 
 // Multi-head self-attention core over qkv [N*L, 3C] -> ctx [N*L, C] (ctx not
-// yet rounded: its consumer rounds it as a GEMM operand).
+// yet rounded: its consumer rounds it as a GEMM operand), C / hd heads of
+// hd channels.
 //
-// One block per (sequence, head); K and V of that head (rounded) and the
-// per-key bias sit in dynamic shared memory (33 floats per key: 85 KB at
-// L = 644), one query row per thread. Scores are q.k * 1/4 + key_bias[k];
+// One block per (sequence, head), one query row per thread. For heads of
+// at most 16 channels, K and V of that head (rounded, HDP floats a key,
+// zero past hd) and the per-key bias sit in dynamic shared memory (33
+// floats per key at HDP = 16: 85 KB at L = 644); wider heads would not fit
+// (129 floats per key at hd = 64), so their K and V rows are read from
+// device memory where they lie: every lane of a warp reads the same key
+// row, one cached transaction. Scores are q.k / sqrt(hd) + key_bias[k];
 // `lookback >= 0` keeps only keys in the inclusive band [q - lookback, q].
 // The softmax subtracts the exact row max (a first pass over the keys), so
 // the probabilities round to bf16 at the same values as on the TPU:
 //   MODE 0 (FTF kernel):  p = exp(s - m) rounded, ctx = (p @ v) / (sum p + 1e-20)
 //   MODE 1 (MHSA kernel): p = exp(s - m) / sum, rounded, ctx = p @ v
 //
-// Bound: O(L^2 * 16) FMAs per head on CUDA cores, with K/V reads that the
+// Bound: O(L^2 * hd) FMAs per head on CUDA cores, with K/V reads that the
 // whole block shares (broadcast). Recomputing the scores in each pass costs
 // 2-3x the score FLOPs but no memory traffic. The bf16 forward's version is
 // tc.cuh's attn_tc_kernel (scores and context on tensor cores).
-template <int MODE>
+template <int MODE, int HDP>
 __global__ void attn_kernel(const float* __restrict__ qkv,
                             const float* __restrict__ key_bias,
                             float* __restrict__ ctx, int L, int lookback,
-                            int round) {
+                            int round, int hd_rt) {
+  constexpr bool STAGE = HDP <= 16;
   extern __shared__ float sm[];
-  float* Ks = sm;                // [L][HD]
-  float* Vs = sm + L * HD;       // [L][HD]
-  float* kb = sm + 2 * L * HD;   // [L]
-  const long long n = blockIdx.x / NH;
-  const int h = blockIdx.x % NH;
+  float* Ks = sm;                // [L][HDP]
+  float* Vs = sm + L * HDP;      // [L][HDP]
+  float* kb = sm + 2 * L * HDP;  // [L]
+  const int hd = HDP >= 16 ? HDP : hd_rt;
+  const int nh = C / hd;
+  const long long n = blockIdx.x / nh;
+  const int h = blockIdx.x % nh;
+  const float scale = inv_sqrt_hd(hd);
   const float* base = qkv + (size_t)n * L * (3 * C);
-  for (int i = threadIdx.x; i < L * HD; i += blockDim.x) {
-    const int t = i / HD, d = i % HD;
-    Ks[i] = rnd(base[(size_t)t * 3 * C + C + h * HD + d], round);
-    Vs[i] = rnd(base[(size_t)t * 3 * C + 2 * C + h * HD + d], round);
+  if (STAGE) {
+    for (int i = threadIdx.x; i < L * HDP; i += blockDim.x) {
+      const int t = i / HDP, d = i % HDP;
+      if (HDP == 8 && d >= hd) {
+        Ks[i] = Vs[i] = 0.f;
+        continue;
+      }
+      Ks[i] = rnd(base[(size_t)t * 3 * C + C + h * hd + d], round);
+      Vs[i] = rnd(base[(size_t)t * 3 * C + 2 * C + h * hd + d], round);
+    }
+    for (int t = threadIdx.x; t < L; t += blockDim.x)
+      kb[t] = key_bias ? key_bias[(size_t)n * L + t] : 0.f;
+    __syncthreads();
   }
-  for (int t = threadIdx.x; t < L; t += blockDim.x)
-    kb[t] = key_bias ? key_bias[(size_t)n * L + t] : 0.f;
-  __syncthreads();
+  // Key k's row of K (or V: + C), its stride, and its bias.
+  auto krow = [&](int k) {
+    return STAGE ? Ks + k * HDP : base + (size_t)k * 3 * C + C + h * hd;
+  };
+  auto kval = [&](float v) { return STAGE ? v : rnd(v, round); };
+  auto kbias = [&](int k) {
+    return STAGE ? kb[k] : (key_bias ? key_bias[(size_t)n * L + k] : 0.f);
+  };
+  const int voff = STAGE ? L * HDP : C;  // V's row from K's
 
   for (int q = threadIdx.x; q < L; q += blockDim.x) {
-    float qv[HD];
+    float qv[HDP];
 #pragma unroll
-    for (int d = 0; d < HD; ++d)
-      qv[d] = rnd(base[(size_t)q * 3 * C + h * HD + d], round);
+    for (int d = 0; d < HDP; ++d)
+      qv[d] = HDP == 8 && d >= hd
+                  ? 0.f
+                  : rnd(base[(size_t)q * 3 * C + h * hd + d], round);
     int k0 = 0, k1 = L - 1;
     if (lookback >= 0) {
       k0 = max(0, q - lookback);
       k1 = q;
     }
     auto score = [&](int k) {
-      const float* kr = Ks + k * HD;
+      const float* kr = krow(k);
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) s = fmaf(qv[d], kr[d], s);
-      return s * 0.25f + kb[k];
+      for (int d = 0; d < HDP; ++d) s = fmaf(qv[d], kval(kr[d]), s);
+      return s * scale + kbias(k);
     };
     float m = -INFINITY;
     for (int k = k0; k <= k1; ++k) m = fmaxf(m, score(k));
-    float acc[HD];
+    float acc[HDP];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+    for (int d = 0; d < HDP; ++d) acc[d] = 0.f;
     float den = 0.f;
     if (MODE == 0) {
       for (int k = k0; k <= k1; ++k) {
         const float p = expf(score(k) - m);
         den += p;
         const float pr = rnd(p, round);
-        const float* vr = Vs + k * HD;
+        const float* vr = krow(k) + voff;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] = fmaf(pr, vr[d], acc[d]);
+        for (int d = 0; d < HDP; ++d) acc[d] = fmaf(pr, kval(vr[d]), acc[d]);
       }
       den += 1e-20f;
     } else {
       for (int k = k0; k <= k1; ++k) den += expf(score(k) - m);
       for (int k = k0; k <= k1; ++k) {
         const float pr = rnd(expf(score(k) - m) / den, round);
-        const float* vr = Vs + k * HD;
+        const float* vr = krow(k) + voff;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] = fmaf(pr, vr[d], acc[d]);
+        for (int d = 0; d < HDP; ++d) acc[d] = fmaf(pr, kval(vr[d]), acc[d]);
       }
       den = 1.f;
     }
-    float* o = ctx + ((size_t)n * L + q) * C + h * HD;
+    float* o = ctx + ((size_t)n * L + q) * C + h * hd;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = acc[d] / den;
+    for (int d = 0; d < HDP; ++d)
+      if (HDP != 8 || d < hd) o[d] = acc[d] / den;
   }
 }
 
-// Launch attn_kernel<MODE> for N sequences of length L.
-template <int MODE>
-cudaError_t launch_attn(const float* qkv, const float* key_bias, float* ctx,
-                        long long N, int L, int lookback, int round,
-                        cudaStream_t st) {
-  const size_t smem = (size_t)(2 * HD + 1) * L * sizeof(float);
+template <int MODE, int HDP>
+cudaError_t launch_attn_hd(const float* qkv, const float* key_bias,
+                           float* ctx, long long N, int L, int lookback,
+                           int round, int hd, cudaStream_t st) {
+  const size_t smem =
+      HDP <= 16 ? (size_t)(2 * HDP + 1) * L * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_kernel<MODE, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
   int threads = ((L + 31) / 32) * 32;
   if (threads > 256) threads = 256;
-  attn_kernel<MODE><<<(unsigned)(N * NH), threads, smem, st>>>(
-      qkv, key_bias, ctx, L, lookback, round);
+  attn_kernel<MODE, HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
+      qkv, key_bias, ctx, L, lookback, round, hd);
   return cudaGetLastError();
+}
+
+// Launch attn_kernel<MODE, head_pad(hd)> for N sequences of length L and
+// heads of hd channels.
+template <int MODE>
+cudaError_t launch_attn(const float* qkv, const float* key_bias, float* ctx,
+                        long long N, int L, int lookback, int round, int hd,
+                        cudaStream_t st) {
+  switch (head_pad(hd)) {
+    case 8:
+      return launch_attn_hd<MODE, 8>(qkv, key_bias, ctx, N, L, lookback,
+                                     round, hd, st);
+    case 16:
+      return launch_attn_hd<MODE, 16>(qkv, key_bias, ctx, N, L, lookback,
+                                      round, hd, st);
+    case 32:
+      return launch_attn_hd<MODE, 32>(qkv, key_bias, ctx, N, L, lookback,
+                                      round, hd, st);
+    case 64:
+      return launch_attn_hd<MODE, 64>(qkv, key_bias, ctx, N, L, lookback,
+                                      round, hd, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace lct

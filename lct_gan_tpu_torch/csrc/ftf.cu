@@ -8,7 +8,7 @@
 //                         (both directions)            -> hid [D, N*L, C]
 //   2. qkv_tc_kernel      s = x + g (g = sum_d hid); LN2; qkv
 //                                  -> qkv bf16 [N*L, 3C], s, bf16(g) [N*L, C]
-//   3. attn_tc_kernel<0>  4-head attention (band, key bias), out-proj,
+//   3. attn_tc_kernel<0>  C/hd-head attention (band, key bias), out-proj,
 //                         Linear, LeakyReLU(0.2), +s   -> out [N*L, C]
 // The only intermediates in device memory are values the contract has: the
 // hiddens (unrounded f32: the backward and the save-hidden path read them),
@@ -22,6 +22,17 @@
 //   attn_kernel<0> -> ctx, ftf_out_kernel -> out.
 //   lct_grouped_gru_f32 runs the first two alone: LN1 and the grouped GRU
 //   of the composed time block above L = 512 (ops/gru.py).
+//
+// Widths: any num_heads and any GRU group count that divide C = 64. The
+// GRU kernels run over slots of 16 units (gru_tc_kernel<1>, gru_kernel,
+// proj_kernel<true, 16>) or one dense slot of 64 (gru_tc_kernel<4>,
+// gru_dense_kernel, proj_kernel<true, 64>), the TPU kernel's packing
+// (lct_gan_tpu/ops/ftf.py:331): 4 groups of 16 and 1 group of 64 are
+// slots as they are; the caller packs narrower groups block-diagonally
+// into slots of 16, and 2 groups of 32 into one of 64 (ops/gru.py::
+// pack_gru_slots; exact: the entries off the blocks are 0 and add
+// nothing). The entry points take the GRU weights in slots: w [D, slots,
+// W, 3W], b [D, slots, 3W], slots = 4 (W = 16) or 1 (W = 64).
 //
 // Bound on the H100: at the main path's shapes (B=128 x 2 s: N*L = 544,896
 // rows of 64 channels) one block moves ~279 MB of x and out (~83 us at
@@ -38,8 +49,9 @@ __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// The grouped GRU recurrence, all f32. One thread per (sequence, direction,
-// group, hidden unit): a group's 16 units are 16 lanes of one warp, which
+// The grouped GRU recurrence over slots of 16 units, all f32. One thread
+// per (sequence, direction, slot, hidden unit): a slot's 16 units are 16
+// lanes of one warp, which
 // trade the hidden state by shuffles, so the recurrent product h @ W_hh needs
 // no shared memory and no barrier. Each thread keeps its three 16-entry
 // columns of W_hh (r, z, n) in registers and walks the sequence (backwards
@@ -51,6 +63,7 @@ __global__ void __launch_bounds__(256, 3)
     gru_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
                const float* __restrict__ b_hh, float* __restrict__ hid,
                long long N, int L, int D) {
+  constexpr int H = 16, G = C / H;  // slots of 16 units
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   // The total is a multiple of 64 and blocks are too, so a warp is either
   // wholly in range or wholly out: the shuffles below see all 32 lanes.
@@ -93,6 +106,67 @@ __global__ void __launch_bounds__(256, 3)
     hid[((size_t)d * NL + row) * C + g * H + j] = h;
   }
 }
+
+// The same recurrence over one dense slot of 64 units (groups of 32 or
+// 64), all f32. A block takes one direction and DS sequences, one thread
+// per (sequence, unit); W_hh of the direction sits in shared memory (48
+// KB, read by consecutive units: no bank conflict) and each step's hidden
+// state is traded through a double buffer of shared memory, one barrier a
+// step. Bound: latency, as gru_kernel.
+constexpr int DS = 4;  // sequences per block of gru_dense_kernel
+
+inline size_t gru_dense_smem() {
+  return (size_t)(C * 3 * C + 2 * DS * C) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(DS * C)
+    gru_dense_kernel(const float* __restrict__ xp,
+                     const float* __restrict__ w_hh,
+                     const float* __restrict__ b_hh, float* __restrict__ hid,
+                     long long N, int L, int D) {
+  extern __shared__ float gsm[];
+  float* wsh = gsm;              // W_hh[d] [64][192]
+  float* hs = gsm + C * 3 * C;   // h [2][DS][64]
+  const int d = blockIdx.y, u = threadIdx.x % C, sq = threadIdx.x / C;
+  const long long n = (long long)blockIdx.x * DS + sq;
+  const bool live = n < N;
+  const float* wp = w_hh + (size_t)d * C * (3 * C);
+  for (int i = threadIdx.x; i < C * 3 * C; i += blockDim.x) wsh[i] = wp[i];
+  hs[sq * C + u] = 0.f;
+  const float* bp = b_hh + d * 3 * C;
+  const float br = bp[u], bz = bp[C + u], bn = bp[2 * C + u];
+  const size_t xstride = (size_t)D * 3 * C;
+  const size_t NL = (size_t)N * L;
+  __syncthreads();
+
+  float h = 0.f;
+  for (int s = 0; s < L; ++s) {
+    const int t = d ? L - 1 - s : s;
+    const float* hp = hs + (s & 1) * DS * C + sq * C;
+    float ar = 0.f, az = 0.f, an = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < C; ++i) {
+      const float hi = hp[i];
+      ar = fmaf(hi, wsh[i * 3 * C + u], ar);
+      az = fmaf(hi, wsh[i * 3 * C + C + u], az);
+      an = fmaf(hi, wsh[i * 3 * C + 2 * C + u], an);
+    }
+    if (live) {
+      const size_t row = (size_t)n * L + t;
+      const float* xr = xp + row * xstride + d * 3 * C;
+      const float r = sigmoidf_(xr[u] + (ar + br));
+      const float z = sigmoidf_(xr[C + u] + (az + bz));
+      const float nn = tanhf(xr[2 * C + u] + r * (an + bn));
+      h = (1.f - z) * nn + z * h;
+      hid[((size_t)d * NL + row) * C + u] = h;
+    }
+    hs[((s + 1) & 1) * DS * C + sq * C + u] = h;
+    __syncthreads();
+  }
+}
+
+// The slot width of the GRU kernels for `slots` slots (4 or 1).
+inline int gru_slot(int slots) { return C / slots; }
 
 // a = ctx @ out_w + out_b; comb = [g @ lin_w[:C]] + a @ lin_w[C:] + lin_b
 // (the first term for the frequency block only, lin_in == 2C); out = x + g +
@@ -181,9 +255,9 @@ struct GruArgs {
   const float* x;
   const float* ln_s;
   const float* ln_b;
-  const float* w_ih;  // [D, G, H, 3H]
+  const float* w_ih;  // slots [D, C/W, W, 3W] (gru_weights)
   const float* w_hh;
-  const float* b_ih;  // [D, G, 3H]
+  const float* b_ih;  // [D, C/W, 3W]
   const float* b_hh;
   float* hid;  // [D, N*L, C]
   long long N;
@@ -191,17 +265,25 @@ struct GruArgs {
   int D;
 };
 
-// Two chunk buffers of LN1 rows, bf16 [2][D][TS][GS][LDS].
+// Two chunk buffers of LN1 rows, bf16 [2][D][TS][GS][LDS], and for KS > 1
+// two buffers of the hidden state, bf16 [2][D][GS][LDS].
+template <int KS>
 inline size_t gru_smem(int D) {
-  return (size_t)2 * D * TS * GS * LDS * sizeof(__nv_bfloat16);
+  return (size_t)2 * D * (TS + (KS > 1 ? 1 : 0)) * GS * LDS *
+         sizeof(__nv_bfloat16);
 }
 
 // LN1, the grouped input projection and the GRU recurrence in one pass, on
-// tensor cores. A block takes 16 sequences; warp w runs direction w / 4,
-// group w % 4 over them, walking the steps (backwards for direction 1).
+// tensor cores. A block takes 16 sequences; warp w runs direction w / 4 and
+// the 16 units 16 (w % 4) .. over them, walking the steps (backwards for
+// direction 1). KS = 1: slots of 16 units, warp w's units are slot w % 4.
 // Per step, with the 16 sequences as the M rows of one m16n8k16 tile:
 //   bf16(n1_t) [16 x 16] @ bf16(W_ih[d, g]) [16 x 48]   6 products
 //   bf16(h)    [16 x 16] @ bf16(W_hh[d, g]) [16 x 48]   6 products
+// KS = 4: one dense slot of 64 units; each product takes the slot's 64
+// inputs as 4 k-steps (24 + 24 products a step), and the four warps of a
+// direction trade their units' bf16 h through shared memory, one block
+// barrier a step (double-buffered).
 // W_ih and W_hh stay in registers as B fragments. The r and z gates sum
 // both products in one accumulator started from b_ih + b_hh; n keeps them
 // apart (r multiplies only the hidden part). The accumulator layout is the
@@ -220,20 +302,34 @@ inline size_t gru_smem(int D) {
 // Bound: the recurrence is sequential in L, so each step's chain (one
 // product, three gates) is latency; across the card it moves x in (once per
 // direction) and the f32 hiddens out.
+template <int KS>
+struct GruFragsOf {
+  using type = GruFragsDense;
+};
+template <>
+struct GruFragsOf<1> {
+  using type = GruFrags;
+};
+
+template <int KS>
 __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* n1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int d = warp >> 2, grp = warp & 3;
+  const int d = warp >> 2, grp = warp & 3;  // grp: the warp's 16 units
   const int L = a.L, D = a.D;
   const long long n0 = (long long)blockIdx.x * GS;
   const size_t NL = (size_t)a.N * L;
+  __nv_bfloat16* hx = n1s + (size_t)2 * D * TS * GS * LDS;  // KS > 1
 
-  const int dg = d * G + grp;
-  GruFrags f;
-  load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, dg, lane);
+  typename GruFragsOf<KS>::type f;
+  if constexpr (KS == 1)
+    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, d * (C / 16) + grp,
+                   lane);
+  else
+    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, d, grp, lane);
   const auto& bi = f.bi;
   const auto& bh = f.bh;
   const auto& brz = f.brz;
@@ -280,13 +376,14 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
   // h[jh][e]: sequence g + 8 (e >> 1), unit 8 jh + 2t + (e & 1): the C
   // fragment layout of n-tiles jh (r), 2 + jh (z), 4 + jh (n).
   float h[2][4] = {};
-  uint32_t ha[4] = {0u, 0u, 0u, 0u};
+  uint32_t ha[KS][4] = {};
   const int nchunks = (L + TS - 1) / TS;
   for (int cc = 0; cc < nchunks; ++cc) {
     const int c0 = cc * TS, ns = min(TS, L - c0);
     const bool more = cc + 1 < nchunks;  // then ns == TS
-    const __nv_bfloat16* cur =
-        n1s + (size_t)((cc & 1) * D + d) * TS * GS * LDS + grp * H;
+    const __nv_bfloat16* cur = n1s +
+                               (size_t)((cc & 1) * D + d) * TS * GS * LDS +
+                               (KS == 1 ? grp * 16 : 0);
     for (int st = 0; st < ns; ++st) {
       float va[GRU_ROWS], vb[GRU_ROWS];
       const int i0 = (st * nwarps + warp) * GRU_ROWS;
@@ -296,8 +393,10 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
           fetch(cc + 1, i0 + k, va[k], vb[k]);
       }
       const int tt = d ? L - 1 - (c0 + st) : c0 + st;
-      uint32_t ax[4];
-      load_a(ax, cur + st * GS * LDS, LDS, lane);
+      uint32_t ax[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        load_a(ax[kk], cur + st * GS * LDS + kk * 16, LDS, lane);
       float ar[2][4], az[2][4], xn[2][4], hn[2][4];
 #pragma unroll
       for (int jh = 0; jh < 2; ++jh)
@@ -308,17 +407,31 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
           xn[jh][e] = bxn[jh][e & 1];
           hn[jh][e] = bhn[jh][e & 1];
         }
+      if constexpr (KS == 1) {
 #pragma unroll
-      for (int jh = 0; jh < 2; ++jh) {
-        mma(ar[jh], ax, bi[jh][0], bi[jh][1]);
-        mma(az[jh], ax, bi[2 + jh][0], bi[2 + jh][1]);
-        mma(xn[jh], ax, bi[4 + jh][0], bi[4 + jh][1]);
-      }
+        for (int jh = 0; jh < 2; ++jh) {
+          mma(ar[jh], ax[0], bi[jh][0], bi[jh][1]);
+          mma(az[jh], ax[0], bi[2 + jh][0], bi[2 + jh][1]);
+          mma(xn[jh], ax[0], bi[4 + jh][0], bi[4 + jh][1]);
+        }
 #pragma unroll
-      for (int jh = 0; jh < 2; ++jh) {
-        mma(ar[jh], ha, bh[jh][0], bh[jh][1]);
-        mma(az[jh], ha, bh[2 + jh][0], bh[2 + jh][1]);
-        mma(hn[jh], ha, bh[4 + jh][0], bh[4 + jh][1]);
+        for (int jh = 0; jh < 2; ++jh) {
+          mma(ar[jh], ha[0], bh[jh][0], bh[jh][1]);
+          mma(az[jh], ha[0], bh[2 + jh][0], bh[2 + jh][1]);
+          mma(hn[jh], ha[0], bh[4 + jh][0], bh[4 + jh][1]);
+        }
+      } else {
+#pragma unroll
+        for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            mma(ar[jh], ax[kk], bi[jh][kk][0], bi[jh][kk][1]);
+            mma(az[jh], ax[kk], bi[2 + jh][kk][0], bi[2 + jh][kk][1]);
+            mma(xn[jh], ax[kk], bi[4 + jh][kk][0], bi[4 + jh][kk][1]);
+            mma(ar[jh], ha[kk], bh[jh][kk][0], bh[jh][kk][1]);
+            mma(az[jh], ha[kk], bh[2 + jh][kk][0], bh[2 + jh][kk][1]);
+            mma(hn[jh], ha[kk], bh[4 + jh][kk][0], bh[4 + jh][kk][1]);
+          }
       }
 #pragma unroll
       for (int jh = 0; jh < 2; ++jh)
@@ -329,10 +442,28 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
           const float nn = tanh_sfu(fmaf(r, hn[jh][e], xn[jh][e]));
           h[jh][e] = (1.f - z) * nn + z * h[jh][e];
         }
-      ha[0] = pack_bf16(h[0][0], h[0][1]);
-      ha[1] = pack_bf16(h[0][2], h[0][3]);
-      ha[2] = pack_bf16(h[1][0], h[1][1]);
-      ha[3] = pack_bf16(h[1][2], h[1][3]);
+      if constexpr (KS == 1) {
+        ha[0][0] = pack_bf16(h[0][0], h[0][1]);
+        ha[0][1] = pack_bf16(h[0][2], h[0][3]);
+        ha[0][2] = pack_bf16(h[1][0], h[1][1]);
+        ha[0][3] = pack_bf16(h[1][2], h[1][3]);
+      } else {
+        // This warp's units into the step's buffer, then all 64 back as
+        // the A fragments of the next step's hidden product.
+        __nv_bfloat16* hb =
+            hx + ((size_t)((c0 + st) & 1) * D + d) * GS * LDS;
+#pragma unroll
+        for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            *reinterpret_cast<uint32_t*>(hb + (g + 8 * rr) * LDS + grp * 16 +
+                                         8 * jh + 2 * t) =
+                pack_bf16(h[jh][2 * rr], h[jh][2 * rr + 1]);
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          load_a(ha[kk], hb + kk * 16, LDS, lane);
+      }
 #pragma unroll
       for (int jh = 0; jh < 2; ++jh)
 #pragma unroll
@@ -340,7 +471,7 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
           const long long n = n0 + g + 8 * rr;
           if (n < a.N)
             *reinterpret_cast<float2*>(
-                a.hid + ((size_t)d * NL + (size_t)n * L + tt) * C + grp * H +
+                a.hid + ((size_t)d * NL + (size_t)n * L + tt) * C + grp * 16 +
                 8 * jh + 2 * t) = make_float2(h[jh][2 * rr], h[jh][2 * rr + 1]);
         }
       if (more) {
@@ -352,7 +483,59 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
   }
 }
 
+template <int KS>
+cudaError_t launch_gru_tc(const GruArgs& a, cudaStream_t st) {
+  const size_t smem = gru_smem<KS>(a.D);
+  cudaError_t e = allow_smem(gru_tc_kernel<KS>, smem);
+  if (e != cudaSuccess) return e;
+  gru_tc_kernel<KS><<<(unsigned)((a.N + GS - 1) / GS), a.D * 4 * 32, smem,
+                      st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
+
+// LN1's input projection and the recurrence in all-f32 arithmetic, over
+// `slots` GRU slots: xp [N*L, D*3C], hid [D, N*L, C].
+inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
+                                  const float* ln1_b, const float* w_ih,
+                                  const float* w_hh, const float* b_ih,
+                                  const float* b_hh, int slots, float* xp,
+                                  float* hid, long long N, int L, int D,
+                                  cudaStream_t st) {
+  const long long rows = N * L;
+  const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  if (gru_slot(slots) == 16) {
+    proj_kernel<true, 16><<<rblocks, D * 3 * C, 0, st>>>(
+        x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
+        /*round=*/0);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const long long gthreads = N * D * C;
+    gru_kernel<<<(unsigned)((gthreads + 255) / 256), 256, 0, st>>>(
+        xp, w_hh, b_hh, hid, N, L, D);
+    return cudaGetLastError();
+  }
+  proj_kernel<true, C><<<rblocks, D * 3 * C, 0, st>>>(
+      x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
+      /*round=*/0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t smem = gru_dense_smem();
+  e = cudaFuncSetAttribute(gru_dense_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  gru_dense_kernel<<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D), DS * C,
+                     smem, st>>>(xp, w_hh, b_hh, hid, N, L, D);
+  return cudaGetLastError();
+}
+
+// num_heads divides C; the GRU weights come in 4 slots of 16 or 1 of 64.
+inline bool widths_ok(int num_heads, int slots) {
+  return num_heads > 0 && C % num_heads == 0 && (slots == 4 || slots == 1);
+}
+
 }  // namespace lct
 
 #define LCT_CHECK()                              \
@@ -361,12 +544,13 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
-// x, out: [N, L, 64]; w_ih, w_hh: [D, 4, 16, 48]; b_ih, b_hh: [D, 4, 48];
-// in_w: [64, 192]; out_w: [64, 64]; lin_w: [lin_in, 64]; key_bias: [N, L] or
-// null; lookback < 0 means no band. Scratch: hid [D, N*L, 64] f32 (the
+// x, out: [N, L, 64]; w_ih, w_hh: [D, slots, W, 3W]; b_ih, b_hh: [D,
+// slots, 3W] (W = 64 / slots, slots = 4 or 1); in_w: [64, 192]; out_w:
+// [64, 64]; lin_w: [lin_in, 64]; key_bias: [N, L] or null; lookback < 0
+// means no band; num_heads divides 64. Scratch: hid [D, N*L, 64] f32 (the
 // per-direction hiddens, unrounded), qkv bf16 [N*L, 192], s f32 [N*L, 64]
-// (x + g), and, when lin_in == 128, gb bf16 [N*L, 64] (bf16(g); else
-// null). Returns a cudaError_t.
+// (x + g), when lin_in == 128 gb bf16 [N*L, 64] (bf16(g); else null).
+// Returns a cudaError_t.
 extern "C" int lct_ftf_forward_bf16(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -375,9 +559,10 @@ extern "C" int lct_ftf_forward_bf16(
     const float* out_b, const float* lin_w, const float* lin_b,
     const float* key_bias, float* hid, void* qkv, float* s, void* gb,
     float* out, long long N, int L, int D, int lin_in, int lookback,
-    int device, void* stream) {
+    int num_heads, int slots, int device, void* stream) {
   using namespace lct;
-  if ((lin_in == 2 * C) != (gb != nullptr)) return (int)cudaErrorInvalidValue;
+  if ((lin_in == 2 * C) != (gb != nullptr) || !widths_ok(num_heads, slots))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -385,14 +570,11 @@ extern "C" int lct_ftf_forward_bf16(
   __nv_bfloat16* q = static_cast<__nv_bfloat16*>(qkv);
   __nv_bfloat16* g = static_cast<__nv_bfloat16*>(gb);
 
-  const size_t gsmem = tc::gru_smem(D);
-  if ((e = tc::allow_smem(tc::gru_tc_kernel, gsmem)) != cudaSuccess)
-    return (int)e;
-  const tc::GruArgs ga = {x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh, hid,
-                          N, L, D};
-  tc::gru_tc_kernel<<<(unsigned)((N + tc::GS - 1) / tc::GS), D * 4 * 32,
-                      gsmem, st>>>(ga);
-  LCT_CHECK();
+  const tc::GruArgs ga = {x,    ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                          b_hh, hid,   N,     L,    D};
+  e = gru_slot(slots) == 16 ? tc::launch_gru_tc<1>(ga, st)
+                            : tc::launch_gru_tc<4>(ga, st);
+  if (e != cudaSuccess) return (int)e;
   e = tc::launch_qkv({x, hid, D == 2 ? hid + (size_t)rows * C : nullptr,
                       ln2_s, ln2_b, in_w, in_b, q, s, g, rows},
                      st);
@@ -411,40 +593,34 @@ extern "C" int lct_ftf_forward_bf16(
   a.lin_w = lin_w;
   a.lin_b = lin_b;
   a.lin_in = lin_in;
+  a.hd = C / num_heads;
   return (int)tc::launch_attn_tc<0>(a, st);
 }
 
 // LN1 and the grouped GRU alone, all f32: the composed time block above
 // L = 512, where the fused block's attention stops (ops/gru.py,
 // fused_grouped_gru; it replaces no TPU kernel: the JAX package runs this
-// recurrence as one lax.scan, lct_gan_tpu/ops/gru.py:28). The first two
-// launches of lct_ftf_forward_f32, unchanged: proj_kernel<true> -> xp,
-// gru_kernel -> hid; gru_kernel loops over any L. x: [N, L, 64]; w_ih, w_hh:
-// [D, 4, 16, 48]; b_ih, b_hh: [D, 4, 48]. Scratch xp [N*L, D*192] f32; out
-// hid [D, N*L, 64] f32, the per-direction hiddens (the caller sums them).
-// Bound: the recurrence is sequential in L, one dependent step per frame;
-// across the card the two launches move x in, xp out and back, hid out.
-// Returns a cudaError_t.
+// recurrence as one lax.scan, lct_gan_tpu/ops/gru.py:28). The same GRU
+// launches as lct_ftf_forward_f32: proj_kernel<true> -> xp, gru_kernel
+// (or gru_dense_kernel) -> hid; the recurrence loops over any L. x: [N, L,
+// 64]; the GRU weights in slots, as lct_ftf_forward_bf16's. Scratch xp
+// [N*L, D*192] f32; out hid [D, N*L, 64]
+// f32, the per-direction hiddens (the caller sums them). Bound: the
+// recurrence is sequential in L, one dependent step per frame; across the
+// card the launches move x in, xp out and back, hid out. Returns a
+// cudaError_t.
 extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
                                    const float* ln1_b, const float* w_ih,
                                    const float* w_hh, const float* b_ih,
                                    const float* b_hh, float* xp, float* hid,
-                                   long long N, int L, int D, int device,
-                                   void* stream) {
+                                   long long N, int L, int D, int slots,
+                                   int device, void* stream) {
   using namespace lct;
+  if (!widths_ok(1, slots)) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long rows = N * L;
-  proj_kernel<true><<<(unsigned)((rows + ROWS - 1) / ROWS), D * 3 * C, 0,
-                      st>>>(x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih,
-                            xp, rows, D * 3 * C, /*round=*/0);
-  LCT_CHECK();
-  const long long gthreads = N * D * G * H;
-  gru_kernel<<<(unsigned)((gthreads + 255) / 256), 256, 0, st>>>(
-      xp, w_hh, b_hh, hid, N, L, D);
-  LCT_CHECK();
-  return 0;
+  return (int)launch_gru_f32(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh, slots,
+                             xp, hid, N, L, D, (cudaStream_t)stream);
 }
 
 // The same function in all-f32 arithmetic (precise mode). Scratch: xp
@@ -457,28 +633,24 @@ extern "C" int lct_ftf_forward_f32(
     const float* out_b, const float* lin_w, const float* lin_b,
     const float* key_bias, float* xp, float* hid, float* qkv, float* ctx,
     float* out, long long N, int L, int D, int lin_in, int lookback,
-    int device, void* stream) {
+    int num_heads, int slots, int device, void* stream) {
   using namespace lct;
+  if (!widths_ok(num_heads, slots)) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
 
-  proj_kernel<true><<<rblocks, D * 3 * C, 0, st>>>(
-      x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
-      /*round=*/0);
-  LCT_CHECK();
-  const long long gthreads = N * D * G * H;
-  gru_kernel<<<(unsigned)((gthreads + 255) / 256), 256, 0, st>>>(
-      xp, w_hh, b_hh, hid, N, L, D);
-  LCT_CHECK();
+  cudaError_t e = launch_gru_f32(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
+                                 slots, xp, hid, N, L, D, st);
+  if (e != cudaSuccess) return (int)e;
   proj_kernel<false><<<rblocks, 3 * C, 0, st>>>(
       x, hid, D == 2 ? hid + (size_t)rows * C : nullptr, ln2_s, ln2_b, in_w,
       in_b, qkv, rows, 3 * C, /*round=*/0);
   LCT_CHECK();
-  cudaError_t e =
-      launch_attn<0>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0, st);
+  e = launch_attn<0>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
+                     C / num_heads, st);
   if (e != cudaSuccess) return (int)e;
   ftf_out_kernel<<<rblocks, C, 0, st>>>(x, hid, D, ctx, out_w, out_b, lin_w,
                                         lin_b, lin_in, out, rows);

@@ -92,6 +92,14 @@
 
 namespace lct {
 
+// The backward's widths: 4 attention heads of 16 and 4 GRU groups of 16
+// (ops/ftf_bwd.py refuses others; the forward kernels take every divisor
+// of 64).
+constexpr int NH = 4;
+constexpr int HD = 16;
+constexpr int G = 4;
+constexpr int H = 16;
+
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
 }
@@ -748,6 +756,8 @@ struct Scratch {
 // bf16 mode on tensor cores (lct_ftf_backward_bf16).
 // ===========================================================================
 namespace tc {
+
+constexpr float QK_SCALE2 = 0.25f * LOG2E;  // log2(e) / sqrt(HD)
 
 constexpr int RT = 4 * 32;          // threads of the row-tile kernels
 constexpr int LDH = HD + 8;         // bf16 row stride of one head's [L][16]
@@ -2113,7 +2123,8 @@ extern "C" int lct_ftf_backward_f32(
   proj_kernel<false><<<rblocks, 3 * C, 0, st>>>(
       x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, rows, 3 * C, round);
   LCT_CHECK();
-  LCT_TRY(launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, round, st));
+  LCT_TRY(
+      launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, round, HD, st));
 
   // 3. combine layer and out-proj backward.
   comb_bwd_kernel<<<rblocks, C, 0, st>>>(

@@ -6,10 +6,13 @@
 //
 // bf16 (lct_mhsa_forward_bf16), tensor cores (tc.cuh):
 //   1. qkv_tc_kernel       qkv = bf16(x @ in_w + in_b) -> qkv bf16 [N*L, 192]
-//   2. attn_tc_kernel<1>   4-head softmax attention, band, key bias, and
+//   2. attn_tc_kernel<1>   C/hd-head softmax attention, band, key bias, and
 //                          out = ctx @ out_w + out_b  -> out [N*L, 64]
 // precise (lct_mhsa_forward_f32), all f32 on CUDA cores (common.cuh):
 //   proj_kernel -> qkv f32, attn_kernel<1> -> ctx f32, proj_kernel -> out.
+//
+// Any num_heads dividing 64 (heads of hd = 64 / num_heads channels; the
+// kernels' head widths: tc.cuh, common.cuh).
 //
 // Bound on the H100: at the time block of a 163,840-sample bucket (N = 25*33
 // sequences of L = 644) the function moves ~272 MB (~81 us at 3.35 TB/s)
@@ -25,15 +28,17 @@
 #include "tc.cuh"
 
 // x, out: [N, L, 64]; in_w: [64, 192]; out_w: [64, 64]; key_bias: [N, L] or
-// null; lookback < 0 means no band. Scratch: qkv bf16 [N*L, 192]. Returns a
-// cudaError_t.
+// null; lookback < 0 means no band; num_heads divides 64. Scratch: qkv
+// bf16 [N*L, 192]. Returns a cudaError_t.
 extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
                                      const float* in_b, const float* out_w,
                                      const float* out_b,
                                      const float* key_bias, void* qkv,
                                      float* out, long long N, int L,
-                                     int lookback, int device, void* stream) {
+                                     int lookback, int num_heads, int device,
+                                     void* stream) {
   using namespace lct;
+  if (num_heads <= 0 || C % num_heads) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -51,6 +56,7 @@ extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
   a.N = N;
   a.L = L;
   a.lookback = lookback;
+  a.hd = C / num_heads;
   return (int)tc::launch_attn_tc<1>(a, st);
 }
 
@@ -61,8 +67,9 @@ extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
                                     const float* out_b, const float* key_bias,
                                     float* qkv, float* ctx, float* out,
                                     long long N, int L, int lookback,
-                                    int device, void* stream) {
+                                    int num_heads, int device, void* stream) {
   using namespace lct;
+  if (num_heads <= 0 || C % num_heads) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -73,7 +80,8 @@ extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
       /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  e = launch_attn<1>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0, st);
+  e = launch_attn<1>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
+                     C / num_heads, st);
   if (e != cudaSuccess) return (int)e;
   proj_kernel<false><<<rblocks, C, 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,

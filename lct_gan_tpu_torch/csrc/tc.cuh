@@ -184,10 +184,13 @@ __device__ __forceinline__ float tanh_sfu(float v) {
   return fmaf(-2.f, __fdividef(1.f, 1.f + __expf(2.f * v)), 1.f);
 }
 
-// One direction and group's GRU weights as a warp of the GRU kernels holds
+// One direction and slot's GRU weights as a warp of the GRU kernels holds
 // them: the B fragments of W_ih and W_hh [16][48] (k = input unit, n = gate
 // column; n8 tiles 0-1 r, 2-3 z, 4-5 n) and the biases of this lane's units
-// 8 jh + 2t + e, r and z summed, n apart. dg = direction * G + group.
+// 8 jh + 2t + e, r and z summed, n apart. The weights are slots of 16
+// units, [D, C/16, 16, 48] (groups of 16, or narrower groups packed
+// block-diagonally by ops/gru.py::pack_gru_slots); dg = direction * (C/16) +
+// slot.
 struct GruFrags {
   uint32_t bi[6][2], bh[6][2];
   float brz[2][2][2], bxn[2][2], bhn[2][2];
@@ -199,6 +202,7 @@ __device__ __forceinline__ void load_gru_frags(GruFrags& f,
                                                const float* b_ih,
                                                const float* b_hh, int dg,
                                                int lane) {
+  constexpr int H = 16;
   const int g = lane >> 2, t = lane & 3;
   const float* wi = w_ih + (size_t)dg * H * (3 * H);
   const float* wh = w_hh + (size_t)dg * H * (3 * H);
@@ -225,6 +229,52 @@ __device__ __forceinline__ void load_gru_frags(GruFrags& f,
     }
 }
 
+// The same for one direction's dense group of all 64 units (slot width 64:
+// one group of 64, or two of 32 packed block-diagonally), [D, 1, 64, 192]:
+// a warp holds its 16 units 16 u .. 16 u + 15 of each gate, over the four
+// 16-input k-steps of W_ih and W_hh (bi[nt][kk]).
+struct GruFragsDense {
+  uint32_t bi[6][4][2], bh[6][4][2];
+  float brz[2][2][2], bxn[2][2], bhn[2][2];
+};
+
+__device__ __forceinline__ void load_gru_frags(GruFragsDense& f,
+                                               const float* w_ih,
+                                               const float* w_hh,
+                                               const float* b_ih,
+                                               const float* b_hh, int d,
+                                               int u, int lane) {
+  constexpr int W = C;
+  const int g = lane >> 2, t = lane & 3;
+  const float* wi = w_ih + (size_t)d * W * (3 * W);
+  const float* wh = w_hh + (size_t)d * W * (3 * W);
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt) {
+    const int col = (nt >> 1) * W + 16 * u + (nt & 1) * 8 + g;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int r = kk * 16 + 2 * t + 8 * k;
+        f.bi[nt][kk][k] =
+            pack_bf16(wi[r * 3 * W + col], wi[(r + 1) * 3 * W + col]);
+        f.bh[nt][kk][k] =
+            pack_bf16(wh[r * 3 * W + col], wh[(r + 1) * 3 * W + col]);
+      }
+  }
+#pragma unroll
+  for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = d * 3 * W + 16 * u + 8 * jh + 2 * t + e;
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        f.brz[q][jh][e] = b_ih[o + q * W] + b_hh[o + q * W];
+      f.bxn[jh][e] = b_ih[o + 2 * W];
+      f.bhn[jh][e] = b_hh[o + 2 * W];
+    }
+}
+
 // acc = A @ w[:, 0:16] for a 16-row tile A of 64 columns, given as the A
 // fragments of its four 16-column k-steps, and w a bf16 [64][ld] tile in
 // shared memory: the C fragments of two n8 tiles (columns 0-7, 8-15).
@@ -246,10 +296,10 @@ __device__ __forceinline__ void product_16cols(float (&acc)[2][4],
 }
 
 // acc = ctx @ out_w for 16 rows: ctx as the A fragments of its four
-// 16-channel k-steps (one per head), out_w staged bf16 [64][LDS]; the C
-// fragments of the eight n8 tiles of the 64 output columns.
+// 16-channel k-steps, out_w staged bf16 [64][LDS]; the C fragments of the
+// eight n8 tiles of the 64 output columns.
 __device__ __forceinline__ void out_projection(float (&acc)[8][4],
-                                               const uint32_t (&ca)[NH][4],
+                                               const uint32_t (&ca)[C / 16][4],
                                                const __nv_bfloat16* wo,
                                                int lane) {
 #pragma unroll
@@ -257,14 +307,39 @@ __device__ __forceinline__ void out_projection(float (&acc)[8][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 #pragma unroll
-  for (int h = 0; h < NH; ++h)
+  for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t wf[4];
-      load_b_kn(wf, wo + h * 16 * LDS + np * 16, LDS, lane);
-      mma(acc[2 * np], ca[h], wf[0], wf[1]);
-      mma(acc[2 * np + 1], ca[h], wf[2], wf[3]);
+      load_b_kn(wf, wo + kk * 16 * LDS + np * 16, LDS, lane);
+      mma(acc[2 * np], ca[kk], wf[0], wf[1]);
+      mma(acc[2 * np + 1], ca[kk], wf[2], wf[3]);
     }
+}
+
+// Heads narrower than a fragment (hd <= 8, the attention kernels' padded
+// width 8) are exact through zero masks, since entries off a head's block
+// contribute nothing: head h's scores take the A fragment of its 16-channel
+// k-step with every column outside [h hd, h hd + hd) zeroed (q_mask), and
+// its context takes the B fragment of V's n8 tile with the other heads'
+// columns zeroed (v_mask; a lane holds column g of the tile).
+__device__ __forceinline__ void q_mask(uint32_t (&a)[4], int h, int hd,
+                                       int lane) {
+  const int lo = (h * hd) & 15, hi = lo + hd, t = lane & 3;
+  auto pair = [&](int c) {
+    return (c >= lo && c < hi ? 0xFFFFu : 0u) |
+           (c + 1 >= lo && c + 1 < hi ? 0xFFFF0000u : 0u);
+  };
+  const uint32_t m0 = pair(2 * t), m1 = pair(8 + 2 * t);
+  a[0] &= m0;
+  a[1] &= m0;
+  a[2] &= m1;
+  a[3] &= m1;
+}
+
+__device__ __forceinline__ uint32_t v_mask(int h, int hd, int lane) {
+  const int c = (((h * hd) >> 3) << 3) + (lane >> 2);
+  return c >= h * hd && c < h * hd + hd ? 0xFFFFFFFFu : 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -396,22 +471,32 @@ inline cudaError_t launch_qkv(const ProjArgs& a, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// 4-head attention over bf16 qkv [N*L, 192] with the output projection (and,
-// for the FTF block, the Linear, LeakyReLU and residual) in the epilogue.
+// Multi-head attention (C / hd heads of hd channels) over bf16 qkv [N*L,
+// 192] with the output projection (and, for the FTF block, the Linear,
+// LeakyReLU and residual) in the epilogue.
 //
 // Work item: one (sequence, tile of 64 or 128 query rows); a persistent grid
 // walks them, the weights staged in shared memory once per block. Each warp
-// owns 16 query rows and all 4 heads, so it holds the whole 64-channel
+// owns 16 query rows and all heads, so it holds the whole 64-channel
 // context of its rows for the epilogue's products. K and V stream through
 // two shared-memory tiles of 64 keys (cp.async, double-buffered; a range of
 // at most two tiles is loaded once and kept), so any L <= 1024 fits in a
 // fixed 74 KB (FTF) or, for MHSA, 56 KB (64-row items) or 64 KB (128-row
 // items; attn_smem below); the next item's Q and first tile load
 // under the current item's epilogue. Scores q k^T are one m16n8k16 step per
-// 8 keys (head_dim 16); P @ V is one step per 16 keys, P taken from the
-// score accumulators in registers. Key chunks of 16 outside a warp's band
-// are skipped. A tile whose four chunks all lie inside the band and below L
-// (every tile but the edges) runs a straight-line path with no mask.
+// 8 keys and 16 head channels; P @ V is one step per 16 keys and 8 head
+// channels, P taken from the score accumulators in registers. The kernel
+// is built per padded head width HDP: 16, 32 or 64 (hd = HDP, every head's
+// state in registers through one walk over the keys), or 8 for any hd <= 8
+// (the true width at run time): a head then takes one masked fragment of
+// its 16-channel k-step (q_mask) and its n8 tile of V (v_mask), and the
+// C / hd heads go through the keys in rounds of four, each round walking
+// the keys as the heads of a wider instance do, with its heads' row max and
+// sum in registers (the context of all 64 channels stays in registers
+// across the rounds; a resident item's keys load once). Key chunks of 16
+// outside a warp's band are skipped. A tile whose four chunks all lie
+// inside the band and below L (every tile but the edges) runs a
+// straight-line path with no mask.
 //
 // The contract needs the exact row max m before p is rounded, so the keys
 // are walked twice when they span more than one tile:
@@ -423,11 +508,11 @@ inline cudaError_t launch_qkv(const ProjArgs& a, cudaStream_t st) {
 //                   / (den + 1e-20). One exp per pair.
 // Keys that fit one tile (the frequency blocks, L = 33) take one walk: the
 // max is exact after it, and MODE 1 keeps its exps in registers.
-// Scores are s = (q . k) / 4 + key_bias; `lookback >= 0` keeps the
+// Scores are s = (q . k) / sqrt(hd) + key_bias; `lookback >= 0` keeps the
 // inclusive band [q - lookback, q]. They are formed in log2 units,
-// s log2(e) = fma(q . k, log2(e) / 4, key_bias log2(e)), so each exp is one
-// ex2 of a difference (FlashAttention's trick; the same function up to f32
-// rounding).
+// s log2(e) = fma(q . k, log2(e) / sqrt(hd), key_bias log2(e)), so each exp
+// is one ex2 of a difference (FlashAttention's trick; the same function up
+// to f32 rounding).
 //
 // Bound: with head_dim 16 the tensor cores are not what sets the pace. MHSA
 // is bound by its exps on the special-function unit (two per pair; ~4.15 T/s
@@ -463,7 +548,10 @@ struct AttnShape {
   // 16 rows a warp; at least AT threads (load_kv's key-bias copy).
   static_assert(ROWS % 16 == 0 && 2 * ROWS >= AT && ROWS <= 512, "ROWS");
 };
-constexpr float QK_SCALE2 = 0.25f * LOG2E;
+// log2(e) / sqrt(hd): the score scale in log2 units.
+__host__ __device__ constexpr float qk_scale2(int hd) {
+  return inv_sqrt_hd(hd) * LOG2E;
+}
 
 struct KVTile {
   __nv_bfloat16 k[AT * LDS];
@@ -487,6 +575,7 @@ struct AttnArgs {
   const float* lin_w;  // [lin_in, 64]
   const float* lin_b;  // [64]
   int lin_in;
+  int hd;  // head width: C / num_heads
 };
 
 template <int MODE>
@@ -564,39 +653,63 @@ __device__ __forceinline__ void load_kv(const AttnArgs& a, const Item& it,
 // tile (the max is then exact after the tile, and MODE 1 keeps its exps).
 constexpr int PASS_A = 0, PASS_B = 1, PASS_AB = 2;
 
+// The heads of a padded head width HDP as attn_tile takes them: KS
+// 16-channel k-steps of a head's scores, NHW heads whose row max and sum a
+// warp keeps through one round over the keys (all of them for HDP >= 16).
+template <int HDP>
+struct HeadShape {
+  static constexpr int KS = HDP >= 16 ? HDP / 16 : 1;
+  static constexpr int NHW = HDP >= 16 ? C / HDP : 4;
+};
+
 // One key tile for one warp's 16 query rows (Q at qw in shared memory),
-// all heads. m, l, o are the warp's running row max, sum and context
-// (C-fragment layout); only they live across tiles, Q fragments and key
-// bias are re-read from shared memory. FULL: all four 16-key chunks are
-// needed and need no mask (`need`, `full`: per-chunk bits).
-template <int MODE, int PASS, bool FULL>
+// heads h0 .. h0 + NHW - 1 (h0 = 0 but for HDP = 8). m, l are the warp's
+// running row max and sum of those heads, o its context over all 64
+// channels (C-fragment layout, n8 tile nt = channels 8 nt ..); only they
+// live across tiles, Q fragments and key bias are re-read from shared
+// memory. FULL: all four 16-key chunks are needed and need no mask
+// (`need`, `full`: per-chunk bits).
+template <int MODE, int PASS, bool FULL, int HDP>
 __device__ __forceinline__ void attn_tile(
     const KVTile& b, const __nv_bfloat16* qw, unsigned need, unsigned full,
-    int kbase, int L, int lb, const int (&rg)[2], float (&m)[NH][2],
-    float (&l)[NH][2], float (&o)[NH][2][4], int lane) {
+    int kbase, int L, int lb, const int (&rg)[2],
+    float (&m)[HeadShape<HDP>::NHW][2], float (&l)[HeadShape<HDP>::NHW][2],
+    float (&o)[8][4], int lane, int h0, int hd) {
+  constexpr int KS = HeadShape<HDP>::KS, NHW = HeadShape<HDP>::NHW;
   const int t = lane & 3;
+  const float scale2 = qk_scale2(HDP >= 16 ? HDP : hd);
 #pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    uint32_t qa[4];
-    load_a(qa, qw + h * HD, LDS, lane);
+  for (int hh = 0; hh < NHW; ++hh) {
+    const int h = h0 + hh;
+    // The head's first channel (HDP >= 16), or its 16-channel k-step's.
+    const int col0 = HDP >= 16 ? hh * HDP : ((h * hd) & ~15);
+    uint32_t qa[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      load_a(qa[ks], qw + col0 + ks * 16, LDS, lane);
+    if (HDP == 8) q_mask(qa[0], h, hd, lane);
     float sc[4][2][4];
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       if (!FULL && !((need >> kc) & 1u)) continue;
-      uint32_t kf[4];
-      load_b_nk(kf, b.k + kc * 16 * LDS + h * HD, LDS, lane);
+      uint32_t kf[KS][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        load_b_nk(kf[ks], b.k + kc * 16 * LDS + col0 + ks * 16, LDS, lane);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float* sj = sc[kc][j];
         sj[0] = sj[1] = sj[2] = sj[3] = 0.f;
-        mma(sj, qa, kf[2 * j], kf[2 * j + 1]);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          mma(sj, qa[ks], kf[ks][2 * j], kf[ks][2 * j + 1]);
         // key bias of this lane's two score columns, in log2 units
         const float2 kb = *reinterpret_cast<const float2*>(
             b.kb + kc * 16 + j * 8 + 2 * t);
         const float kb0 = kb.x * LOG2E, kb1 = kb.y * LOG2E;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float v = fmaf(sj[e], QK_SCALE2, (e & 1) ? kb1 : kb0);
+          float v = fmaf(sj[e], scale2, (e & 1) ? kb1 : kb0);
           if (!FULL && !((full >> kc) & 1u)) {
             const int key = kbase + kc * 16 + j * 8 + 2 * t + (e & 1);
             const int row = rg[e >> 1];
@@ -621,7 +734,7 @@ __device__ __forceinline__ void attn_tile(
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float mnew = fmaxf(m[h][r], quad_max(mx[r]));
+        const float mnew = fmaxf(m[hh][r], quad_max(mx[r]));
         const float mb = mnew == -INFINITY ? 0.f : mnew;
         if (MODE == 1) {
           // PASS_AB: the exps stay in sc for the P @ V below.
@@ -642,13 +755,13 @@ __device__ __forceinline__ void attn_tile(
           }
           const float sum = (part[0] + part[1]) + (part[2] + part[3]);
           if (PASS == PASS_A) {
-            l[h][r] = fmaf(l[h][r], ex2(m[h][r] - mb), sum);
+            l[hh][r] = fmaf(l[hh][r], ex2(m[hh][r] - mb), sum);
           } else {
             const float tot = quad_sum(sum);
-            l[h][r] = tot > 0.f ? 1.f / tot : 0.f;
+            l[hh][r] = tot > 0.f ? 1.f / tot : 0.f;
           }
         }
-        m[h][r] = PASS == PASS_A ? mnew : mb;
+        m[hh][r] = PASS == PASS_A ? mnew : mb;
       }
     }
     if (PASS != PASS_A) {
@@ -666,10 +779,10 @@ __device__ __forceinline__ void attn_tile(
             float pe;
             if (MODE == 1) {
               pe = (PASS == PASS_AB ? sc[kc][j][e]
-                                    : ex2(sc[kc][j][e] - m[h][e >> 1])) *
-                   l[h][e >> 1];
+                                    : ex2(sc[kc][j][e] - m[hh][e >> 1])) *
+                   l[hh][e >> 1];
             } else {
-              pe = ex2(sc[kc][j][e] - m[h][e >> 1]);
+              pe = ex2(sc[kc][j][e] - m[hh][e >> 1]);
               part[kc][e >> 1] += pe;
             }
             p[j][e] = pe;
@@ -679,25 +792,42 @@ __device__ __forceinline__ void attn_tile(
                                 pack_bf16(p[1][0], p[1][1]),
                                 pack_bf16(p[1][2], p[1][3])};
         uint32_t vf[4];
-        load_b_kn(vf, b.v + kc * 16 * LDS + h * HD, LDS, lane);
-        mma(o[h][0], pa, vf[0], vf[1]);
-        mma(o[h][1], pa, vf[2], vf[3]);
+        if (HDP >= 16) {
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            load_b_kn(vf, b.v + kc * 16 * LDS + col0 + ks * 16, LDS, lane);
+            const int nt = col0 / 8 + 2 * ks;
+            mma(o[nt], pa, vf[0], vf[1]);
+            mma(o[nt + 1], pa, vf[2], vf[3]);
+          }
+        } else {
+          // The head's n8 tile of V, the other heads' columns zeroed.
+          load_b_kn(vf, b.v + kc * 16 * LDS + col0, LDS, lane);
+          const int nt = (h * hd) >> 3;
+          const uint32_t vm = v_mask(h, hd, lane);
+          const uint32_t v0 = ((nt & 1) ? vf[2] : vf[0]) & vm;
+          const uint32_t v1 = ((nt & 1) ? vf[3] : vf[1]) & vm;
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (q == nt) mma(o[q], pa, v0, v1);
+        }
       }
       if (MODE == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          l[h][r] += (part[0][r] + part[1][r]) + (part[2][r] + part[3][r]);
+          l[hh][r] += (part[0][r] + part[1][r]) + (part[2][r] + part[3][r]);
       }
     }
   }
 }
 
-template <int MODE>
+template <int MODE, int HDP>
 __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
                                   AttnShape<MODE>::MIN_BLOCKS)
     attn_tc_kernel(AttnArgs a) {
   constexpr int QR = AttnShape<MODE>::ROWS;
   constexpr int THREADS = AttnShape<MODE>::THREADS;
+  constexpr int NHW = HeadShape<HDP>::NHW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   KVTile* kv = reinterpret_cast<KVTile*>(smem_raw);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(kv + 2);
@@ -710,6 +840,9 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
   const int g = lane >> 2, t = lane & 3;
   const int L = a.L, lb = a.lookback;
   const long long items = a.N * ((L + QR - 1) / QR);
+  // Rounds of NHW heads an item takes (one but for HDP = 8).
+  const int hd = HDP >= 16 ? HDP : a.hd;
+  const int rounds = HDP >= 16 ? 1 : C / hd / NHW;
 
   long long item = blockIdx.x;
   if (item < items) {
@@ -720,7 +853,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
   }
   for (; item < items; item += gridDim.x) {
     const Item it = item_at<QR>(item, L, lb);
-    const int nload = it.resident ? it.nkt : 2 * it.nkt;
+    const int nload = it.resident ? it.nkt : rounds * 2 * it.nkt;
     const int r0 = it.q0 + warp * 16;  // this warp's first query row
     const bool active = r0 < L;
     const int rg[2] = {r0 + g, r0 + g + 8};
@@ -728,25 +861,46 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
     const int need_lo = lb >= 0 ? r0 - lb : 0;
     const int need_hi = lb >= 0 ? min(r0 + 15, L - 1) : L - 1;
 
-    float m[NH][2], l[NH][2], o[NH][2][4];
+    float m[NHW][2], l[NHW][2], o[8][4];
 #pragma unroll
-    for (int h = 0; h < NH; ++h) {
+    for (int h = 0; h < NHW; ++h)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         m[h][r] = -INFINITY;
         l[h][r] = 0.f;
       }
+    // MODE 0, HDP = 8: a round's heads' context divided by den + 1e-20
+    // (for HDP >= 16 the epilogue divides).
+    auto end_round = [&](int h0) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int hh = 0; hh < NHW; ++hh) {
+        const int c0 = (h0 + hh) * hd;
+        float den[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[h][j][e] = 0.f;
-    }
+        for (int r = 0; r < 2; ++r) den[r] = quad_sum(l[hh][r]) + 1e-20f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = nt * 8 + 2 * t + (e & 1);
+            if (col >= c0 && col < c0 + hd) o[nt][e] /= den[e >> 1];
+          }
+      }
+    };
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
 
-    // One walk when the keys fit one tile, else two (see attn_tile).
+    // One walk when the keys fit one tile, else two (see attn_tile); a
+    // round of heads is one walk or two.
     const int nsteps = it.nkt == 1 ? 1 : 2 * it.nkt;
-    for (int s = 0; s < nsteps; ++s) {
-      if (s + 1 < nload) {
-        load_kv<THREADS>(a, it, kv, s + 1, tid);
+    for (int S = 0; S < rounds * nsteps; ++S) {
+      const int s = rounds == 1 ? S : S % nsteps;  // the step in its round
+      const int h0 = rounds == 1 ? 0 : S / nsteps * NHW;
+      if (S + 1 < nload) {
+        load_kv<THREADS>(a, it, kv, rounds == 1 ? S + 1 : (S + 1) % nsteps,
+                         tid);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -754,9 +908,19 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
       }
       __syncthreads();
       if (active) {
+        if (HDP == 8 && s == 0 && S > 0) {  // a new round of heads
+          if (MODE == 0) end_round(h0 - NHW);
+#pragma unroll
+          for (int h = 0; h < NHW; ++h)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              m[h][r] = -INFINITY;
+              l[h][r] = 0.f;
+            }
+        }
         if (s == it.nkt) {  // between the passes
 #pragma unroll
-          for (int h = 0; h < NH; ++h)
+          for (int h = 0; h < NHW; ++h)
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               if (m[h][r] == -INFINITY) m[h][r] = 0.f;
@@ -778,11 +942,11 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
         }
         const __nv_bfloat16* qw = qs + warp * 16 * LDS;
         const bool fast = need == 0xFu && full == 0xFu;
-#define LCT_ATTN_TILE(PASS)                                                 \
-  (fast ? attn_tile<MODE, PASS, true>(b, qw, need, full, kbase, L, lb, rg,  \
-                                      m, l, o, lane)                        \
-        : attn_tile<MODE, PASS, false>(b, qw, need, full, kbase, L, lb, rg, \
-                                       m, l, o, lane))
+#define LCT_ATTN_TILE(PASS)                                                  \
+  (fast ? attn_tile<MODE, PASS, true, HDP>(b, qw, need, full, kbase, L, lb,  \
+                                           rg, m, l, o, lane, h0, hd)        \
+        : attn_tile<MODE, PASS, false, HDP>(b, qw, need, full, kbase, L, lb, \
+                                            rg, m, l, o, lane, h0, hd))
         if (it.nkt == 1)
           LCT_ATTN_TILE(PASS_AB);
         else if (s >= it.nkt)
@@ -793,6 +957,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
       }
       __syncthreads();  // the buffer is free for the load two steps on
     }
+    if (HDP == 8 && MODE == 0 && active) end_round((rounds - 1) * NHW);
     // Q and K/V are free: the next item's first loads run under this
     // item's epilogue.
     if (item + gridDim.x < items) {
@@ -823,25 +988,27 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
                 __ldg(reinterpret_cast<const unsigned*>(a.g + off));
         }
     }
-    // ctx (MODE 0: divided by den + 1e-20) as the A fragments of the
-    // output projection's four 16-channel k-steps, one per head.
-    uint32_t ca[NH][4];
+    // ctx (MODE 0: divided by den + 1e-20, here for HDP >= 16) as the A
+    // fragments of the output projection's four 16-channel k-steps.
+    uint32_t ca[C / 16][4];
 #pragma unroll
-    for (int h = 0; h < NH; ++h) {
+    for (int kk = 0; kk < C / 16; ++kk) {
+      const bool div = MODE == 0 && HDP >= 16;
       float den[2] = {1.f, 1.f};
-      if (MODE == 0) {
+      if (div) {
+        const int hh = HDP >= 16 ? kk * 16 / HDP : 0;  // the k-step's head
 #pragma unroll
-        for (int r = 0; r < 2; ++r) den[r] = quad_sum(l[h][r]) + 1e-20f;
+        for (int r = 0; r < 2; ++r) den[r] = quad_sum(l[hh][r]) + 1e-20f;
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        if (MODE == 0) {
-          ca[h][2 * j] = pack_bf16(o[h][j][0] / den[0], o[h][j][1] / den[0]);
-          ca[h][2 * j + 1] =
-              pack_bf16(o[h][j][2] / den[1], o[h][j][3] / den[1]);
+        const float* oj = o[2 * kk + j];
+        if (div) {
+          ca[kk][2 * j] = pack_bf16(oj[0] / den[0], oj[1] / den[0]);
+          ca[kk][2 * j + 1] = pack_bf16(oj[2] / den[1], oj[3] / den[1]);
         } else {
-          ca[h][2 * j] = pack_bf16(o[h][j][0], o[h][j][1]);
-          ca[h][2 * j + 1] = pack_bf16(o[h][j][2], o[h][j][3]);
+          ca[kk][2 * j] = pack_bf16(oj[0], oj[1]);
+          ca[kk][2 * j + 1] = pack_bf16(oj[2], oj[3]);
         }
       }
     }
@@ -911,19 +1078,31 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
   }
 }
 
-template <int MODE>
-cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st) {
+template <int MODE, int HDP>
+cudaError_t launch_attn_tc_hd(const AttnArgs& a, cudaStream_t st) {
   constexpr size_t smem = attn_smem<MODE>();
-  cudaError_t e = allow_smem(attn_tc_kernel<MODE>, smem);
+  cudaError_t e = allow_smem(attn_tc_kernel<MODE, HDP>, smem);
   if (e != cudaSuccess) return e;
   unsigned grid = 1;
   constexpr int QR = AttnShape<MODE>::ROWS;
   constexpr int THREADS = AttnShape<MODE>::THREADS;
-  e = persistent_grid(attn_tc_kernel<MODE>, THREADS, smem,
+  e = persistent_grid(attn_tc_kernel<MODE, HDP>, THREADS, smem,
                       a.N * ((a.L + QR - 1) / QR), &grid);
   if (e != cudaSuccess) return e;
-  attn_tc_kernel<MODE><<<grid, THREADS, smem, st>>>(a);
+  attn_tc_kernel<MODE, HDP><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// attn_tc_kernel<MODE, head_pad(a.hd)>.
+template <int MODE>
+cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st) {
+  switch (head_pad(a.hd)) {
+    case 8: return launch_attn_tc_hd<MODE, 8>(a, st);
+    case 16: return launch_attn_tc_hd<MODE, 16>(a, st);
+    case 32: return launch_attn_tc_hd<MODE, 32>(a, st);
+    case 64: return launch_attn_tc_hd<MODE, 64>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc

@@ -15,7 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
-from lct_gan_tpu_torch.models.generator import LctEnhancer
+from lct_gan_tpu_torch.models.generator import LctEnhancer, check_card_widths
 
 __all__ = ["make_enhance"]
 
@@ -24,9 +24,12 @@ def make_enhance(enhancer: LctEnhancer
                  ) -> Callable[..., torch.Tensor]:
     """Return `enhance(noisy, lengths=None) -> enhanced [B, T]` on the
     enhancer's device. `noisy` and `lengths` may be numpy arrays or tensors;
-    the result stays on the device."""
+    the result stays on the device. On the card the enhancer's widths must
+    be the kernels' (`check_card_widths`: enc_channels[-1] = 64, num_heads
+    and gru_groups dividing 64); it raises here otherwise."""
     enhancer.eval()
     device = next(enhancer.parameters()).device
+    check_card_widths(enhancer.gen.cfg, device, training=False)
 
     def enhance(noisy, lengths: Optional[object] = None) -> torch.Tensor:
         with torch.inference_mode():

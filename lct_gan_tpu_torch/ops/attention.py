@@ -3,7 +3,8 @@
 `fused_mhsa` replaces the TPU kernel `lct_gan_tpu/ops/attention.py::
 _mhsa_kernel` (API `fused_mhsa`, :275): qkv projection -> per-head scores
 with an optional inclusive causal band and a per-key bias -> softmax ->
-context -> output projection, for x [N, L, E=64], L <= 1024. On a CUDA
+context -> output projection, for x [N, L, E=64] in any number of heads
+that divides 64 (`ops/library.py::KERNEL_WIDTHS`), L <= 1024. On a CUDA
 tensor it launches the hand-written kernels of `csrc/mhsa.cu` (their bound
 on the H100 and what the simple design does about it are noted there); on
 a CPU tensor it computes `mhsa_reference`, its plain PyTorch version.
@@ -29,7 +30,7 @@ from typing import Optional
 import torch
 
 from lct_gan_tpu_torch.ops.gru import round_bf16
-from lct_gan_tpu_torch.ops.library import define_op
+from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
 __all__ = ["mhsa_reference", "fused_mhsa", "mhsa_op", "mhsa_plain",
            "MAX_PALLAS_SEQ", "register_recompute_backward",
@@ -105,33 +106,34 @@ def kernel_design(precise: bool) -> str:
     return "simt-f32" if precise else "tc-bf16"
 
 
-def mhsa_scratch(rows: int, precise: bool):
+def mhsa_scratch(rows: int, precise: bool, C: int = 64):
     """(name, shape, dtype) of each scratch tensor the kernels of one mode
     write, in the C entry point's order: q, k, v as bf16 (the contract
     rounds them; the context never leaves the kernel), or, precise, qkv
-    and the context in f32."""
+    and the context in f32 (C channels, any head count)."""
     if not precise:
-        return [("qkv", (rows, 192), torch.bfloat16)]
-    return [("qkv", (rows, 192), torch.float32),
-            ("ctx", (rows, 64), torch.float32)]
+        return [("qkv", (rows, 3 * C), torch.bfloat16)]
+    return [("qkv", (rows, 3 * C), torch.float32),
+            ("ctx", (rows, C), torch.float32)]
 
 
 _P = ctypes.c_void_p
 # lct_mhsa_forward_bf16 / _f32: 6 inputs (key_bias may be null), the
-# scratch tensors of mhsa_scratch, out; N; L, lookback, device; stream.
+# scratch tensors of mhsa_scratch, out; N; L, lookback, num_heads, device;
+# stream.
 _MHSA_ARGTYPES = {
-    False: [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P],
-    True: [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P]}
+    False: [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
+    True: [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]}
 
 
 def check_attention_shapes(name: str, x: torch.Tensor, num_heads: int,
                            max_seq: Optional[int] = None) -> None:
-    """Raise unless the attention kernels take these shapes: E = 64, 4
-    heads and, for the MHSA kernel, L <= max_seq."""
+    """Raise unless the attention kernels take these shapes: E = 64 in
+    num_heads heads (any divisor of 64) and, for the MHSA kernel, L <=
+    max_seq."""
     N, L, E = x.shape
-    if E != 64 or num_heads != 4:
-        raise ValueError(f"{name} kernel takes E=64 and 4 heads, got "
-                         f"E={E}, num_heads={num_heads}")
+    check_kernel_widths(f"{name} kernel", E, num_heads=num_heads,
+                        names=("E", "num_heads", None))
     if max_seq is not None and L > max_seq:
         raise ValueError(f"{name} kernel takes L <= {max_seq}, got {L}")
 
@@ -171,13 +173,13 @@ def _mhsa_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
            None if key_bias is None
            else f32_operand("key_bias", key_bias, (N, L), dev)]
     scratch = [torch.empty(shape, device=dev, dtype=dtype)
-               for _, shape, dtype in mhsa_scratch(N * L, precise)]
+               for _, shape, dtype in mhsa_scratch(N * L, precise, E)]
     out = torch.empty((N, L, E), device=dev, dtype=torch.float32)
     entry = "lct_mhsa_forward_f32" if precise else "lct_mhsa_forward_bf16"
     fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise])
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
              *(t.data_ptr() for t in scratch), out.data_ptr(), N, L,
-             -1 if lookback is None else lookback,
+             -1 if lookback is None else lookback, num_heads,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "mhsa", "fused_mhsa kernel launch")
@@ -196,7 +198,8 @@ def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                lookback: Optional[int] = None,
                key_bias: Optional[torch.Tensor] = None,
                precise: bool = False) -> torch.Tensor:
-    """Fused MHSA over x [N, L, 64] -> [N, L, 64] f32 (4 heads, L <= 1024).
+    """Fused MHSA over x [N, L, 64] -> [N, L, 64] f32 (num_heads dividing
+    64, L <= 1024).
 
     The op `torch.ops.lct_gan_tpu_torch.fused_mhsa`. CPU tensors:
     `mhsa_reference(..., precise=precise)`. CUDA tensors: the kernels of

@@ -123,27 +123,28 @@ def banded_mhsa_reference(x: torch.Tensor, in_proj_kernel: torch.Tensor,
     return rnd(ctx) @ rnd(out_proj_kernel) + out_proj_bias
 
 
-def banded_scratch(rows: int, precise: bool, in_registers: bool = True):
+def banded_scratch(rows: int, precise: bool, in_registers: bool = True,
+                   C: int = 64):
     """(name, shape, dtype) of each scratch tensor the kernels of one mode
     write, in the C entry point's order: none for bf16 when the band's
     scores fit in registers (q, k, v and the context stay on the SM), q, k,
     v as bf16 for a wider band (`in_registers` false), and, precise, qkv and
-    the context in f32."""
+    the context in f32 (C channels, any head count)."""
     if precise:
-        return [("qkv", (rows, 192), torch.float32),
-                ("ctx", (rows, 64), torch.float32)]
-    return [] if in_registers else [("qkv", (rows, 192), torch.bfloat16)]
+        return [("qkv", (rows, 3 * C), torch.float32),
+                ("ctx", (rows, C), torch.float32)]
+    return [] if in_registers else [("qkv", (rows, 3 * C), torch.bfloat16)]
 
 
 _P = ctypes.c_void_p
 # The C entry point of csrc/banded.cu each mode launches, with its argtypes:
 # 6 inputs (key_bias may be null), the scratch (bf16: qkv or null; f32: qkv,
-# ctx), out; N; S, lookback, device; stream.
+# ctx), out; N; S, lookback, num_heads, device; stream.
 BANDED_ENTRY = {
     False: ("lct_banded_forward_bf16",
-            [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P]),
+            [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]),
     True: ("lct_banded_forward_f32",
-           [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P])}
+           [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P])}
 
 
 def banded_plain(x: torch.Tensor, in_proj_kernel: torch.Tensor,
@@ -184,12 +185,12 @@ def _banded_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
     max_reg_w = kernel_function("banded", "lct_banded_max_register_lookback",
                                 [])()
     scratch = [torch.empty(shape, device=dev, dtype=dtype) for _, shape, dtype
-               in banded_scratch(N * S, precise, lookback <= max_reg_w)]
+               in banded_scratch(N * S, precise, lookback <= max_reg_w, E)]
     slots = [t.data_ptr() for t in scratch] or [None]
     out = torch.empty((N, S, E), device=dev, dtype=torch.float32)
     fn = kernel_function("banded", *BANDED_ENTRY[precise])
     err = fn(*(None if t is None else t.data_ptr() for t in ops), *slots,
-             out.data_ptr(), N, S, lookback,
+             out.data_ptr(), N, S, lookback, num_heads,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "banded", "banded_mhsa kernel launch")
@@ -208,7 +209,8 @@ def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                 out_proj_bias: torch.Tensor, *, num_heads: int = 4,
                 lookback: int, key_bias: Optional[torch.Tensor] = None,
                 precise: bool = False) -> torch.Tensor:
-    """Banded MHSA over x [N, S, 64] -> [N, S, 64] f32 (4 heads, any S).
+    """Banded MHSA over x [N, S, 64] -> [N, S, 64] f32 (num_heads dividing
+    64, any S).
 
     The op `torch.ops.lct_gan_tpu_torch.banded_mhsa`. CPU tensors:
     `banded_mhsa_reference(..., precise=precise)`. CUDA tensors: the

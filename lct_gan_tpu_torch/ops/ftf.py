@@ -1,6 +1,6 @@
 """The whole FTF transformer block as one call, forward and backward.
 
-    pre-LN -> grouped GRU (+residual) -> pre-LN -> 4-head self-attention
+    pre-LN -> grouped GRU (+residual) -> pre-LN -> multi-head attention
     -> Linear -> LeakyReLU(0.2) (+residual)
 
 over x [N, L, C=64]: the frequency blocks (bidirectional GRU, Linear [2C, C]
@@ -26,7 +26,10 @@ plain version on the CPU). A call with `key_bias` instead recomputes through
 the f32 `ftf_block_reference` under autograd, as the JAX package does.
 
 Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
-in_w [C, 3C], out_w [C, C], lin_w [2C or C, C].
+in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward kernels take C
+= 64 in any num_heads and any G that divide 64 (`ops/library.py::
+KERNEL_WIDTHS`); the backward kernel 4 heads and 4 groups
+(`ops/ftf_bwd.py::check_backward_shapes`).
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ import torch
 from lct_gan_tpu_torch.ops.attention import kernel_design, mhsa_reference
 from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
 from lct_gan_tpu_torch.ops.gru import (grouped_gru_hidden, layer_norm,
-                                       round_bf16)
-from lct_gan_tpu_torch.ops.library import define_op
+                                       pack_gru_slots, round_bf16)
+from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
 __all__ = ["fused_ftf_block", "ftf_block_reference", "ftf_forward_with_hidden",
            "ftf_op", "ftf_plain", "ftf_scratch",
@@ -116,21 +119,22 @@ def ftf_block_reference(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
 
 
 _P = ctypes.c_void_p
-# lct_ftf_forward_bf16 / _f32: 16 inputs (key_bias may be null), the four
-# scratch slots of ftf_scratch (gb may be null), out; N; L, D, lin_in,
-# lookback, device; stream.
-_FTF_ARGTYPES = [_P] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]
+# lct_ftf_forward_bf16 / _f32: 16 inputs (the GRU's in pack_gru_slots'
+# layout; key_bias may be null), the four scratch slots of ftf_scratch (gb
+# may be null), out; N; L, D, lin_in, lookback, num_heads, GRU slots,
+# device; stream.
+_FTF_ARGTYPES = [_P] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]
 
 
-def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool):
+def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool, C: int = 64):
     """(name, shape, dtype) of each scratch tensor the kernels of one mode
     write, in the C entry point's order. bf16 (csrc/ftf.cu, tensor cores):
     the per-direction hiddens, q, k, v as bf16 (the contract rounds them),
-    s = x + g (f32) and, for the frequency block's Linear (lin_in = 128),
+    s = x + g (f32) and, for the frequency block's Linear (lin_in = 2C),
     bf16(g), else None (a null pointer): the only values the attention
     kernel's epilogue reads besides q, k, v. precise (CUDA cores, all f32):
-    the GRU input projection, the hiddens, qkv and the attention context."""
-    C = 64
+    the GRU input projection, the hiddens, qkv and the attention context.
+    The sizes follow C alone: no head or group count changes them."""
     hid = ("hid", (D, rows, C), torch.float32)
     if precise:
         return [("xp", (rows, D * 3 * C), torch.float32), hid,
@@ -143,13 +147,15 @@ def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool):
 
 def check_kernel_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                         bidirectional: bool) -> None:
-    """Raise unless the FTF kernels (forward and backward) take these
-    shapes: C = 64, 4 heads, 4 GRU groups of 16, L <= 512, lin_w rows
-    matching the block type."""
+    """Raise unless the FTF forward kernels take these shapes: C = 64,
+    num_heads and G GRU groups of 64 / G each dividing 64 (w_ih [D, G,
+    64 / G, 3 * 64 / G]), L <= 512, lin_w rows matching the block type."""
     N, L, C = x.shape
-    if C != 64 or num_heads != 4 or tuple(w_ih.shape[1:]) != (4, 16, 48):
-        raise ValueError(f"{name} kernel takes C=64, 4 heads and 4 GRU "
-                         "groups of 16")
+    G = w_ih.shape[1]
+    check_kernel_widths(f"{name} kernel", C, num_heads=num_heads, groups=G)
+    if tuple(w_ih.shape[1:]) != (G, C // G, 3 * (C // G)):
+        raise ValueError(f"{name} kernel takes w_ih [D, {G}, {C // G}, "
+                         f"{3 * (C // G)}], got {tuple(w_ih.shape)}")
     if L > MAX_FTF_SEQ:
         raise ValueError(f"{name} kernel takes L <= {MAX_FTF_SEQ}, got {L}")
     if lin_w.shape[0] != (2 * C if bidirectional else C):
@@ -195,16 +201,18 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
                         bidirectional)
     N, L, C = x.shape
     D = 2 if bidirectional else 1
+    G = w_ih.shape[1]
+    H = C // G
     lin_in = lin_w.shape[0]
     dev = x.device
     f = f32_operand
     ops = [f("x", x, (N, L, C), dev),
            f("ln1_scale", ln1_scale, (C,), dev),
            f("ln1_bias", ln1_bias, (C,), dev),
-           f("w_ih", w_ih, (D, 4, 16, 48), dev),
-           f("w_hh", w_hh, (D, 4, 16, 48), dev),
-           f("b_ih", b_ih, (D, 4, 48), dev),
-           f("b_hh", b_hh, (D, 4, 48), dev),
+           f("w_ih", w_ih, (D, G, H, 3 * H), dev),
+           f("w_hh", w_hh, (D, G, H, 3 * H), dev),
+           f("b_ih", b_ih, (D, G, 3 * H), dev),
+           f("b_hh", b_hh, (D, G, 3 * H), dev),
            f("ln2_scale", ln2_scale, (C,), dev),
            f("ln2_bias", ln2_bias, (C,), dev),
            f("in_w", in_w, (C, 3 * C), dev),
@@ -215,7 +223,8 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
            f("lin_b", lin_b, (C,), dev),
            None if key_bias is None
            else f("key_bias", key_bias, (N, L), dev)]
-    specs = ftf_scratch(N * L, D, lin_in, precise)
+    ops[3:7] = pack_gru_slots(*ops[3:7])
+    specs = ftf_scratch(N * L, D, lin_in, precise, C)
     scratch = [torch.empty(spec[1], device=dev, dtype=spec[2])
                if spec else None for spec in specs]
     out = torch.empty((N, L, C), device=dev, dtype=torch.float32)
@@ -225,6 +234,7 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
              *(None if t is None else t.data_ptr()
                for t in scratch), out.data_ptr(),
              N, L, D, lin_in, -1 if lookback is None else lookback,
+             num_heads, ops[3].shape[1],
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "ftf", "fused_ftf_block kernel launch")

@@ -17,7 +17,9 @@ On a CUDA tensor it launches the hand-written kernels of `csrc/ftf_bwd.cu`
 (their bound on the H100 and what each design does about it are noted
 there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
 tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
-(`lct_ftf_backward_f32`, `simt-f32`). On a CPU tensor it computes
+(`lct_ftf_backward_f32`, `simt-f32`), at 4 heads and 4 GRU groups only
+(`check_backward_shapes`; the forward kernels take every divisor of 64).
+On a CPU tensor it computes
 `ftf_bwd_reference`, its plain PyTorch version: the same hand-derived
 backward, rounding every GEMM operand to bf16 where the TPU kernel does (its
 `cd` casts, :144-148) unless precise=True. The kernel is the `torch.library`
@@ -42,7 +44,8 @@ from lct_gan_tpu_torch.ops.gru import round_bf16
 from lct_gan_tpu_torch.ops.library import define_op
 
 __all__ = ["fused_ftf_bwd", "ftf_bwd_reference", "ftf_bwd_op",
-           "ftf_bwd_plain", "ftf_bwd_scratch_bytes"]
+           "ftf_bwd_plain", "ftf_bwd_scratch_bytes", "check_backward_shapes",
+           "BACKWARD_WIDTHS"]
 
 
 def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -249,14 +252,31 @@ def ftf_bwd_plain(x: torch.Tensor, ln1s: torch.Tensor, ln1b: torch.Tensor,
         num_heads=num_heads, lookback=lookback, precise=precise)
 
 
+# The widths csrc/ftf_bwd.cu is built for: 4 heads of 16, 4 GRU groups of
+# 16 (the forward kernels take every divisor of 64).
+BACKWARD_WIDTHS = (4, 4)
+
+
+def check_backward_shapes(name: str, x, w_ih, lin_w, num_heads: int,
+                          bidirectional: bool) -> None:
+    """Raise unless the FTF backward kernel takes these shapes: the
+    forward's (`ops/ftf.py::check_kernel_shapes`) at 4 heads and 4 GRU
+    groups of 16."""
+    from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
+
+    check_kernel_shapes(name, x, w_ih, lin_w, num_heads, bidirectional)
+    if (num_heads, w_ih.shape[1]) != BACKWARD_WIDTHS:
+        raise ValueError(f"{name} kernel takes {BACKWARD_WIDTHS[0]} heads "
+                         f"and {BACKWARD_WIDTHS[1]} GRU groups, got "
+                         f"num_heads={num_heads}, groups={w_ih.shape[1]}")
+
+
 def _ftf_bwd_fake(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
                   in_b, out_w, out_b, lin_w, lin_b, hid, dout, bidirectional,
                   num_heads, lookback, precise):
-    from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
-
     if x.device.type == "cuda":
-        check_kernel_shapes("fused_ftf_bwd", x, w_ih, lin_w, num_heads,
-                            bidirectional)
+        check_backward_shapes("fused_ftf_bwd", x, w_ih, lin_w, num_heads,
+                              bidirectional)
     return tuple(t.new_empty(t.shape, dtype=torch.float32) for t in (
         x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b,
         out_w, out_b, lin_w, lin_b))
@@ -267,12 +287,11 @@ def _ftf_bwd_cuda(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
                   num_heads, lookback, precise):
     from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
                                               raise_on_error)
-    from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
 
     args = (x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b,
             out_w, out_b, lin_w, lin_b, hid, dout)
-    check_kernel_shapes("fused_ftf_bwd", x, w_ih, lin_w, num_heads,
-                        bidirectional)
+    check_backward_shapes("fused_ftf_bwd", x, w_ih, lin_w, num_heads,
+                          bidirectional)
     N, L, C = x.shape
     D = 2 if bidirectional else 1
     lin_in = lin_w.shape[0]

@@ -22,6 +22,10 @@ CUDA tensor it launches the all-f32 kernels of `csrc/ftf.cu`
 (`lct_grouped_gru_f32`: the precise FTF forward's LN1 + input projection
 and its recurrence, one launch each); on a CPU tensor it computes
 `grouped_gru_plain`. Its backward differentiates the plain version.
+
+The CUDA kernels take C = 64 channels in any number of groups that divides
+64 (`ops/library.py::KERNEL_WIDTHS`): they run slots of 16 units or one of
+64 (`gru_slot`), and `pack_gru_slots` packs other group counts into them.
 """
 
 from __future__ import annotations
@@ -30,10 +34,12 @@ import ctypes
 
 import torch
 
-from lct_gan_tpu_torch.ops.library import define_op
+from lct_gan_tpu_torch.ops.library import (KERNEL_C, check_kernel_widths,
+                                           define_op)
 
 __all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16", "layer_norm",
-           "grouped_gru_plain", "fused_grouped_gru", "gru_op"]
+           "grouped_gru_plain", "fused_grouped_gru", "gru_op", "gru_slot",
+           "pack_gru_slots"]
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -111,11 +117,45 @@ def grouped_gru_plain(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def _check_gru_shapes(x: torch.Tensor, w_ih: torch.Tensor) -> None:
-    """Raise unless the kernels take these shapes: C = 64, 4 groups of 16."""
-    if x.shape[-1] != 64 or tuple(w_ih.shape[1:]) != (4, 16, 48):
-        raise ValueError("fused_grouped_gru kernel takes C=64 and 4 GRU "
-                         f"groups of 16, got x {tuple(x.shape)}, w_ih "
+    """Raise unless the kernels take these shapes: C = 64 in G groups of
+    64 / G (G dividing 64), w_ih [D, G, 64 / G, 3 * 64 / G]."""
+    C = x.shape[-1]
+    G = w_ih.shape[1]
+    check_kernel_widths("fused_grouped_gru kernel", C, groups=G)
+    if tuple(w_ih.shape[1:]) != (G, C // G, 3 * (C // G)):
+        raise ValueError(f"fused_grouped_gru kernel takes w_ih [D, {G}, "
+                         f"{C // G}, {3 * (C // G)}], got "
                          f"{tuple(w_ih.shape)}")
+
+
+def gru_slot(groups: int) -> int:
+    """The width of the slots the GRU kernels run `groups` groups in:
+    16 units for 4 groups or more, one slot of 64 for 1 or 2."""
+    return 16 if groups >= 4 else KERNEL_C
+
+
+def pack_gru_slots(w_ih, w_hh, b_ih, b_hh):
+    """G groups' GRU weights [D, G, H, 3H] / [D, G, 3H] packed into the
+    kernels' slots of W = gru_slot(G) units: [D, 64 / W, W, 3W] /
+    [D, 64 / W, 3W], the groups of a slot on its block diagonal (the TPU
+    kernel's packing, lct_gan_tpu/ops/ftf.py:331). Exact: the entries off
+    the blocks are 0 and add nothing. Returned as they are where the groups
+    are slots already (4 groups, or 1)."""
+    D, G, H, _ = w_ih.shape
+    W = gru_slot(G)
+    if H == W:
+        return w_ih, w_hh, b_ih, b_hh
+    k, S = W // H, G * H // W          # groups a slot, slots
+    eye = torch.eye(k, dtype=w_ih.dtype, device=w_ih.device)
+
+    def mat(w):   # [D, S, k, H in, gate, H unit] -> [D, S, k*H, gate, k*H]
+        return (w.reshape(D, S, k, H, 3, 1, H)
+                * eye.view(1, 1, k, 1, 1, k, 1)).reshape(D, S, W, 3 * W)
+
+    def vec(b):   # [D, S, k, gate, H] -> [D, S, gate, k*H]
+        return b.reshape(D, S, k, 3, H).transpose(2, 3).reshape(D, S, 3 * W)
+
+    return mat(w_ih), mat(w_hh), vec(b_ih), vec(b_hh)
 
 
 def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
@@ -125,8 +165,9 @@ def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
 
 
 _P = ctypes.c_void_p
-# lct_grouped_gru_f32: 7 inputs, xp, hid; N; L, D, device; stream.
-_GRU_ARGTYPES = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [_P]
+# lct_grouped_gru_f32: 7 inputs (the GRU's in pack_gru_slots' layout), xp,
+# hid; N; L, D, slots, device; stream.
+_GRU_ARGTYPES = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]
 
 
 def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
@@ -136,18 +177,22 @@ def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
     _check_gru_shapes(x, w_ih)
     N, L, C = x.shape
     D = 2 if bidirectional else 1
+    G = w_ih.shape[1]
+    H = C // G
     dev = x.device
     f = f32_operand
     ops = [f("x", x, (N, L, C), dev), f("ln_scale", ln_scale, (C,), dev),
            f("ln_bias", ln_bias, (C,), dev),
-           f("w_ih", w_ih, (D, 4, 16, 48), dev),
-           f("w_hh", w_hh, (D, 4, 16, 48), dev),
-           f("b_ih", b_ih, (D, 4, 48), dev), f("b_hh", b_hh, (D, 4, 48), dev)]
+           f("w_ih", w_ih, (D, G, H, 3 * H), dev),
+           f("w_hh", w_hh, (D, G, H, 3 * H), dev),
+           f("b_ih", b_ih, (D, G, 3 * H), dev),
+           f("b_hh", b_hh, (D, G, 3 * H), dev)]
+    ops[3:] = pack_gru_slots(*ops[3:])
     xp = torch.empty((N * L, D * 3 * C), device=dev, dtype=torch.float32)
     hid = torch.empty((D, N * L, C), device=dev, dtype=torch.float32)
     fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES)
     err = fn(*(t.data_ptr() for t in ops), xp.data_ptr(), hid.data_ptr(),
-             N, L, D,
+             N, L, D, ops[3].shape[1],
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "ftf", "fused_grouped_gru kernel launch")
@@ -186,8 +231,9 @@ def fused_grouped_gru(x: torch.Tensor, ln_scale: torch.Tensor,
     the op `torch.ops.lct_gan_tpu_torch.fused_grouped_gru`.
 
     CPU tensors: `grouped_gru_plain`. CUDA tensors: the f32 kernels of
-    csrc/ftf.cu (C = 64 and 4 groups of 16, else it raises), each launch
-    counted in `fused_grouped_gru.launches`, from an exported program too.
+    csrc/ftf.cu (C = 64 in any group count dividing 64, else it raises;
+    `check_kernel_widths`), each launch counted in
+    `fused_grouped_gru.launches`, from an exported program too.
     Differentiable in x and the six parameters (the plain version's
     gradients, recomputed)."""
     return gru_op(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh,

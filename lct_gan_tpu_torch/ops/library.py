@@ -8,15 +8,27 @@ counts the launch), and a fake implementation gives the output shapes, so
 `torch.export` traces the operator as one node. The kernels are
 registered on the dispatcher directly (`Library.impl`), the thinnest
 route from a call to the Python kernel: each launch pays one dispatch.
+
+The widths every CUDA kernel takes live here too (`KERNEL_C`,
+`KERNEL_WIDTHS`, `check_kernel_widths`): each operator's checks and the
+model layer's (`models/generator.py::check_card_widths`) call the one
+check.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NAMESPACE", "define_op"]
+__all__ = ["NAMESPACE", "define_op", "KERNEL_C", "KERNEL_WIDTHS",
+           "check_kernel_widths"]
 
 NAMESPACE = "lct_gan_tpu_torch"
+
+# The widths the CUDA kernels take: C = 64 channels, split into any number
+# of attention heads or GRU groups that divides 64 (the JAX package's
+# kernels read both from their shapes).
+KERNEL_C = 64
+KERNEL_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 
@@ -31,3 +43,21 @@ def define_op(name: str, plain, cuda, fake):
     _LIB.impl(name, cuda, "CUDA")
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
     return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def check_kernel_widths(what: str, C: int, *, num_heads=None, groups=None,
+                        names=("C", "num_heads", "GRU groups"),
+                        hint: str = "") -> None:
+    """Raise unless the CUDA kernels take C channels in `num_heads` heads
+    and `groups` GRU groups (each checked when given). The message says
+    "<what> takes ..." and names the three widths `names` (a kernel's own
+    argument names, or the flags a user sets), then `hint`."""
+    c_name, heads_name, groups_name = names
+    if C != KERNEL_C:
+        raise ValueError(f"{what} takes {c_name}={KERNEL_C} channels, got "
+                         f"{c_name}={C}{hint}")
+    for name, n in ((heads_name, num_heads), (groups_name, groups)):
+        if n is not None and n not in KERNEL_WIDTHS:
+            raise ValueError(f"{what} takes {name} in {KERNEL_WIDTHS} "
+                             f"(divisors of {KERNEL_C}), got {name} {n}"
+                             f"{hint}")

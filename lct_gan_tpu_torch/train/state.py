@@ -18,7 +18,8 @@ from lct_gan_tpu_torch.convert.weights import (jax_disc_params_to_state_dict,
                                                jax_params_to_state_dict)
 from lct_gan_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
                                                      MultiScaleDiscriminator)
-from lct_gan_tpu_torch.models.generator import LCTGeneratorConfig, LctEnhancer
+from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
+                                                LctEnhancer, check_card_widths)
 from lct_gan_tpu_torch.utils.device import resolve_device
 
 __all__ = ["TrainConfig", "GanTrainState", "build_models", "make_optimizers",
@@ -128,6 +129,9 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor],
 
 
 def _assemble(cfg, enhancer, mpd, msd, device):
+    # Before anything moves: the card trains only the widths its backward
+    # kernel takes (raises on the device argument, with or without a card).
+    check_card_widths(enhancer.gen.cfg, device, training=True)
     dev = resolve_device(device)
     enhancer, mpd, msd = enhancer.to(dev), mpd.to(dev), msd.to(dev)
     d_params = [*mpd.parameters(), *msd.parameters()]

@@ -112,7 +112,7 @@ def test_fake_gives_the_output_shape_and_holds_cuda_to_the_width():
         x, p = _inputs(51, 4, 600, 1, C=32)
         assert OPS.fused_grouped_gru(torch.empty(x.shape), *(
             torch.empty(t.shape) for t in p), False).shape == (4, 600, 32)
-        with pytest.raises(ValueError, match="C=64 and 4 GRU groups"):
+        with pytest.raises(ValueError, match="takes C=64 channels"):
             OPS.fused_grouped_gru(
                 torch.empty(x.shape, device="cuda"),
                 *(torch.empty(t.shape, device="cuda") for t in p), False)
