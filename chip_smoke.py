@@ -71,6 +71,20 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            CPU plain step at B=2 (precise: losses, per-tensor gradient
            correlation), step time at B=8 and B=64 split into enhancer
            forward, D step, G step and the FTF backward kernels
+  train_widths  training at heads and GRU groups other than 4 and 4: the
+           FTF backward kernel against its plain version on the card, all 15
+           gradients, both modes, at every (heads, groups) pair of the
+           widths phase (frequency block L = 33, time block L = 129 with
+           lookback 16, small N), then at the B=64 x 2 s training shapes at
+           heads 1, 2, 8 (4 groups) and groups 1, 2, 8 (4 heads), timed
+           with stages, scratch, plain and library (SDPA forward +
+           backward) ms; create_state + make_train_step with seeded
+           weights at (8, 8) and (2, 2), B=8 x 2 s: 3 FTF forward and 3
+           backward launches a step over three steps, finite metrics, two
+           runs from one state bit-equal, one step against the plain path
+           on the card (losses; precise also every tensor's change); then
+           train_cli --num_heads 8 --gru_groups 8 for one epoch on the loop
+           phase's corpus, in a subprocess
   eval     make_eval_step on one bucketed batch with lengths, against the CPU
   parallel data parallelism (parallel/mesh.py) with the same weights and
            TrainConfig(): 2 ranks sharing the card over gloo (spawned),
@@ -606,14 +620,16 @@ def check_saved_hidden(torch, name, params, N, L, lookback, g):
     torch.cuda.empty_cache()
 
 
-def library_attention_bwd_ms(torch, N, L, lookback, mode):
+def library_attention_bwd_ms(torch, N, L, lookback, mode, num_heads=4):
     """One scaled_dot_product_attention forward + backward on the same
-    [N, 4, L, 16] attention (a yardstick only: the port never calls it)."""
+    [N, num_heads, L, 64 / num_heads] attention (a yardstick only: the port
+    never calls it)."""
     F = torch.nn.functional
     dt = torch.bfloat16 if mode == "bf16" else torch.float32
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn((N, 4, L, 16), generator=g, device="cuda",
-                               dtype=dt) for _ in range(4))
+    q, k, v, do = (torch.randn((N, num_heads, L, 64 // num_heads),
+                               generator=g, device="cuda", dtype=dt)
+                   for _ in range(4))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     mask = None
     if lookback is not None:
@@ -630,28 +646,107 @@ def library_attention_bwd_ms(torch, N, L, lookback, mode):
     return ms
 
 
-def ftf_bwd_flops(N, L, D, lin_in, lookback):
+def ftf_bwd_flops(N, L, D, lin_in, lookback, groups=4):
     """Useful products of the FTF backward: the forward products it
     recomputes (qkv, out-proj, Linear, GRU input and hidden projections,
     attention scores and context) plus two products per GEMM for the
-    gradients, and four per attention pair (dp, dq, dk, dv)."""
+    gradients, and four per attention pair (dp, dq, dk, dv), each over the
+    64 channels of all heads together."""
     rows = N * L
     gemm = 2 * 64 * 192 + 2 * 64 * 64 + 2 * lin_in * 64
-    gru = D * 2 * (2 * 64 * 48)          # grouped W_ih and W_hh per direction
-    return rows * 3 * (gemm + gru) + N * 4 * band_pairs(L, lookback) * 6 * 32
+    # grouped W_ih and W_hh per direction: 64 inputs to 3 * 64 / G units
+    gru = D * 2 * (2 * 64 * 3 * (64 // groups))
+    return rows * 3 * (gemm + gru) + N * band_pairs(L, lookback) * 6 * 2 * 64
 
 
-def check_ftf_bwd(torch, gen, g, exp_floor_ms):
-    """fused_ftf_bwd against ftf_bwd_reference at the training shapes of
-    B=64 x 2 s, all 15 outputs, both modes; each case's design, device ms
-    per stage (stages_ms), scratch bytes and exp floor."""
+BWD_NAMES = ("dx", "dln1s", "dln1b", "dw_ih", "dw_hh", "db_ih", "db_hh",
+             "dln2s", "dln2b", "din_w", "din_b", "dout_w", "dout_b",
+             "dlin_w", "dlin_b")
+
+
+def ftf_bwd_case(torch, name, x, params, D, lookback, mode, g,
+                 exp_floor_ms, num_heads=4, groups=4, timed=True):
+    """fused_ftf_bwd against ftf_bwd_reference on the card, all 15
+    outputs within TOL[mode] of each one's largest magnitude; its ms,
+    bound and library time (with `timed`, also the plain version's ms,
+    device ms per stage and scratch bytes). Returns the case's record."""
     from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
     from lct_gan_tpu_torch.ops.ftf_bwd import (ftf_bwd_reference,
                                                fused_ftf_bwd)
 
-    names = ("dx", "dln1s", "dln1b", "dw_ih", "dw_hh", "db_ih", "db_hh",
-             "dln2s", "dln2b", "din_w", "din_b", "dout_w", "dout_b",
-             "dlin_w", "dlin_b")
+    N, L, _ = x.shape
+    rows = N * L
+    lin_in = params[12].shape[0]
+    kw = dict(bidirectional=D == 2, num_heads=num_heads, lookback=lookback,
+              precise=mode == "precise")
+    out, hid = ftf_forward_with_hidden(x, *params, **kw)
+    # The LeakyReLU's derivative jumps at comb = 0, and two sum orders put
+    # a comb within rounding noise of 0 on different sides (a 0.8 * dout
+    # jump in that element's gradient). The cotangent is zeroed within
+    # `eps` of the kink, so both versions compute the same smooth function
+    # of their inputs.
+    act = out - x - hid.sum(dim=0).reshape(N, L, 64)
+    comb = torch.where(act >= 0, act, act / 0.2)
+    eps = 5e-2 if mode == "bf16" else 1e-3
+    dout = torch.randn((N, L, 64), generator=g, device="cuda")
+    dout = torch.where(comb.abs() < eps, 0.0, dout)
+    del out, act, comb
+    got = fused_ftf_bwd(x, *params, hid, dout, **kw)
+    torch.cuda.synchronize()
+    design = fused_ftf_bwd.design
+    want = ftf_bwd_reference(x, *params, hid, dout, **kw)
+    rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+           for n, a, b in zip(BWD_NAMES, got, want)}
+    abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    bad = {n: e for n, e in rel.items() if not e <= TOL[mode]}
+    if bad or not all(torch.isfinite(t).all() for t in got):
+        raise AssertionError(f"fused_ftf_bwd {name} heads={num_heads} "
+                             f"groups={groups} {mode}: relative errors "
+                             f"over {TOL[mode]}: {bad}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    def call():
+        return fused_ftf_bwd(x, *params, hid, dout, **kw)
+
+    ms = cuda_ms(torch, call, 3)
+    flops = ftf_bwd_flops(N, L, D, lin_in, lookback, groups)
+    nbytes = (rows * 64 * 4 * (2 + D)          # x, dout, hid
+              + rows * 64 * 4                  # dx
+              + 2 * sum(p.numel() for p in params) * 4)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[mode]
+    # One exp per in-band attention pair and head, three per GRU unit per
+    # row per direction (two sigmoids, one tanh).
+    exps = N * num_heads * band_pairs(L, lookback) + rows * D * 64 * 3
+    lib = library_or_reason(torch, lambda: library_attention_bwd_ms(
+        torch, N, L, lookback, mode, num_heads))
+    res = {"case": name, "mode": mode, "design": design,
+           "num_heads": num_heads, "gru_groups": groups, "N": N, "L": L,
+           "max_abs_err": abs_err, "max_rel_err": max(rel.values()),
+           "rel_err": rel, "tol": TOL[mode],
+           "masked_share": (dout == 0).float().mean().item(), "ms": ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "exp_floor_ms": exp_floor_ms(exps), "library_ms": lib[0],
+           "flops": flops}
+    if lib[1] is not None:
+        res["library_unavailable"] = lib[1]
+    if timed:
+        res["stages_ms"] = stages_ms(torch, call)
+        res["scratch_bytes"] = scratch_bytes(torch, call)
+        res["plain_ms"] = cuda_ms(torch, lambda: ftf_bwd_reference(
+            x, *params, hid, dout, **kw), 1)
+    del hid, dout
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_ftf_bwd(torch, gen, g, exp_floor_ms):
+    """fused_ftf_bwd against ftf_bwd_reference at the training shapes of
+    B=64 x 2 s (4 heads, 4 GRU groups), all 15 outputs, both modes; each
+    case's design, device ms per stage (stages_ms), scratch bytes and exp
+    floor."""
     results = []
     for name, block, N, L, lookback in (
             ("freq", gen.GRUf1, 64 * 129, 33, None),
@@ -659,74 +754,12 @@ def check_ftf_bwd(torch, gen, g, exp_floor_ms):
             ("time_lookback16", gen.GRUt1, 64 * 33, 129, 16)):
         params = [p.detach().contiguous() for p in block.kernel_params()]
         D = 2 if block.bidirectional else 1
-        lin_in = params[12].shape[0]
         x = torch.randn((N, L, 64), generator=g, device="cuda")
-        rows = N * L
         for mode in ("bf16", "precise"):
-            kw = dict(bidirectional=D == 2, num_heads=4, lookback=lookback,
-                      precise=mode == "precise")
-            out, hid = ftf_forward_with_hidden(x, *params, **kw)
-            # The LeakyReLU's derivative jumps at comb = 0, and two sum
-            # orders put a comb within rounding noise of 0 on different
-            # sides (a 0.8 * dout jump in that element's gradient). The
-            # cotangent is zeroed within `eps` of the kink, so both
-            # versions compute the same smooth function of their inputs.
-            act = out - x - hid.sum(dim=0).reshape(N, L, 64)
-            comb = torch.where(act >= 0, act, act / 0.2)
-            eps = 5e-2 if mode == "bf16" else 1e-3
-            dout = torch.randn((N, L, 64), generator=g, device="cuda")
-            dout = torch.where(comb.abs() < eps, 0.0, dout)
-            del out, act, comb
-            got = fused_ftf_bwd(x, *params, hid, dout, **kw)
-            torch.cuda.synchronize()
-            design = fused_ftf_bwd.design
-            want = ftf_bwd_reference(x, *params, hid, dout, **kw)
-            rel = {n: ((a - b).abs().max() / b.abs().max()).item()
-                   for n, a, b in zip(names, got, want)}
-            abs_err = max((a - b).abs().max().item()
-                          for a, b in zip(got, want))
-            bad = {n: e for n, e in rel.items() if not e <= TOL[mode]}
-            if bad or not all(torch.isfinite(t).all() for t in got):
-                raise AssertionError(f"fused_ftf_bwd {name} {mode}: relative "
-                                     f"errors over {TOL[mode]}: {bad}")
-            del got, want
-            torch.cuda.empty_cache()
-            ms = cuda_ms(torch, lambda: fused_ftf_bwd(x, *params, hid, dout,
-                                                      **kw), 3)
-            stages = stages_ms(torch, lambda: fused_ftf_bwd(
-                x, *params, hid, dout, **kw))
-            plain_ms = cuda_ms(torch, lambda: ftf_bwd_reference(
-                x, *params, hid, dout, **kw), 1)
-            torch.cuda.empty_cache()
-            flops = ftf_bwd_flops(N, L, D, lin_in, lookback)
-            nbytes = (rows * 64 * 4 * (2 + D)          # x, dout, hid
-                      + rows * 64 * 4                  # dx
-                      + 2 * sum(p.numel() for p in params) * 4)
-            t_bytes = nbytes / H100_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS[mode]
-            # One exp per in-band attention pair and three per GRU unit per
-            # row per direction (two sigmoids, one tanh).
-            exps = N * 4 * band_pairs(L, lookback) + rows * D * 64 * 3
-            res = {"case": name, "mode": mode, "design": design, "N": N,
-                   "L": L, "max_abs_err": abs_err,
-                   "max_rel_err": max(rel.values()),
-                   "rel_err": rel, "tol": TOL[mode],
-                   "masked_share": (dout == 0).float().mean().item(),
-                   "ms": ms, "stages_ms": stages,
-                   "scratch_bytes": scratch_bytes(
-                       torch, lambda: fused_ftf_bwd(x, *params, hid, dout,
-                                                    **kw)),
-                   "plain_ms": plain_ms,
-                   "bound_ms": max(t_bytes, t_ops) * 1e3,
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "exp_floor_ms": exp_floor_ms(exps),
-                   "library_ms": library_attention_bwd_ms(torch, N, L,
-                                                          lookback, mode),
-                   "flops": flops}
+            res = ftf_bwd_case(torch, name, x, params, D, lookback, mode, g,
+                               exp_floor_ms)
             results.append(res)
             emit({"phase": "kernels", "kernel": "fused_ftf_bwd", **res})
-            del hid, dout
-            torch.cuda.empty_cache()
         del x
         torch.cuda.empty_cache()
     return results
@@ -840,14 +873,16 @@ MAIN_HEADS = (1, 2, 4, 8, 64)
 
 
 def plain_route(torch):
-    """A dispatch mode under which each kernel op of the port computes its
-    plain PyTorch version on the tensors' own device: the plain path on the
-    card (no kernel launches, no count moves)."""
+    """A dispatch mode under which each kernel op of the port, the FTF
+    backward's too, computes its plain PyTorch version on the tensors' own
+    device: the plain path on the card (no kernel launches, no count
+    moves), for serving and for a train step."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from lct_gan_tpu_torch.export_model import _plain_decompositions
+    from lct_gan_tpu_torch.ops.ftf_bwd import ftf_bwd_op, ftf_bwd_plain
 
-    table = _plain_decompositions()
+    table = {**_plain_decompositions(), ftf_bwd_op: ftf_bwd_plain}
 
     class PlainRoute(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1483,6 +1518,277 @@ def check_train(torch, np, card):
         del state
         torch.cuda.empty_cache()
     return got, state0, step_ms
+
+
+# The train_widths phase's step against the plain path on the card, the
+# same state and batch.
+#   Losses, relative: precise, sum order only (as TOL_LOSS); bf16, a sum
+#   order that moves a rounded operand by one bf16 ulp in a few elements
+#   of a mean over thousands.
+#   The step's gradients, read back as AdamW's first moment: in precise
+#   mode each tensor's correlation with the plain step's above
+#   MIN_GRAD_CORR, as the train phase holds the card against the CPU.
+#   The parameter changes, in precise mode: at most TOL_STEP_OFF_SHARE of
+#   all elements may move by more than TOL_STEP_OFF_LR * lr from the plain
+#   step's change. AdamW's first step is lr * g / (|g| + eps), so f32 noise
+#   in a gradient within ~eps of 0 moves that element by up to 2 lr (found:
+#   one GRU bias element of 24 at 0.19 lr); a wiring fault moves most of a
+#   tensor.
+#   Not held: the key third of each attention in-projection bias, on which
+#   the loss does not depend (softmax ignores a shift shared by every key),
+#   so its gradient is rounding noise in both paths.
+#   bf16 mode holds the losses; its gradients and changes are read (both
+#   paths round at the same places but sum in other orders, so a gradient
+#   within bf16 noise of 0 may flip, and AdamW makes a flip a 2 lr change).
+TOL_STEP_LOSS = {"precise": 1e-4, "bf16": 1e-3}
+TOL_STEP_OFF_LR = 1e-2
+TOL_STEP_OFF_SHARE = 1e-3
+# Widths of the phase's steps and entry-point run.
+TRAIN_WIDTHS = ((8, 8), (2, 2))
+
+
+def named_state_params(state):
+    """(name, parameter, its optimizer) of a GAN train state's models."""
+    return [(f"{part}.{n}", p, opt) for part, mod, opt in (
+        ("enhancer", state.enhancer, state.g_opt),
+        ("mpd", state.mpd, state.d_opt), ("msd", state.msd, state.d_opt))
+        for n, p in mod.named_parameters()]
+
+
+def held_parts(name, t):
+    """A tensor's held and unheld parts: (key, slice, held?); the key third
+    of an attention in-projection bias is not held."""
+    if not name.endswith("attn.in_proj_bias"):
+        return [(name, slice(None), True)]
+    E = t.shape[0] // 3
+    return [(f"{name}.{c}", slice(j * E, (j + 1) * E), c != "k")
+            for j, c in enumerate("qkv")]
+
+
+def step_vs_plain(torch, cfg, step, state0, noisy, clean):
+    """One step from copies of `state0` through the kernels and through
+    `plain_route`; the readings the phase holds (see TOL_STEP_*)."""
+    import copy
+
+    a, b = copy.deepcopy(state0), copy.deepcopy(state0)
+    before = {n: p.detach().clone() for n, p, _ in named_state_params(state0)}
+    ma = {k: float(v) for k, v in step(a, noisy, clean).items()}
+    with plain_route(torch):
+        mb = {k: float(v) for k, v in step(b, noisy, clean).items()}
+    pa = {n: (p, opt) for n, p, opt in named_state_params(a)}
+    pb = {n: (p, opt) for n, p, opt in named_state_params(b)}
+    corrs, unheld_corrs, change_rel = {}, {}, {}
+    off, total, off_max = 0, 0, 0.0
+    for n, p0 in before.items():
+        (p_a, opt_a), (p_b, opt_b) = pa[n], pb[n]
+        lr = cfg.lr_g if n.startswith("enhancer.") else cfg.lr_d
+        ga = opt_a.state[p_a]["exp_avg"]
+        gb = opt_b.state[p_b]["exp_avg"]
+        d, dr = p_a.detach() - p0, p_b.detach() - p0
+        for key, sl, held in held_parts(n, p0):
+            c = corr(ga[sl], gb[sl])
+            if not held:
+                unheld_corrs[key] = c
+                continue
+            corrs[key] = c
+            den = dr[sl].norm().item()
+            change_rel[key] = (d[sl] - dr[sl]).norm().item() / den if den \
+                else float((d[sl] - dr[sl]).norm().item() > 0)
+            diff = (d[sl] - dr[sl]).abs() / lr
+            off += int((diff > TOL_STEP_OFF_LR).sum())
+            total += diff.numel()
+            off_max = max(off_max, diff.max().item())
+    del a, b
+    worst_corr = min(corrs, key=corrs.get)
+    worst_change = max(change_rel, key=change_rel.get)
+    return {"loss_rel_err": {k: abs(ma[k] - mb[k]) / abs(mb[k]) for k in mb},
+            "min_grad_corr": corrs[worst_corr],
+            "min_grad_corr_tensor": worst_corr,
+            "unheld_min_grad_corr": min(unheld_corrs.values()),
+            "worst_change_rel_err": change_rel[worst_change],
+            "worst_change_tensor": worst_change,
+            "changes_off_share": off / total, "changes_off": off,
+            "elements": total, "max_change_diff_in_lr": off_max,
+            "tensors": len(corrs)}
+
+
+def check_train_widths(torch, np, card, seed):
+    """Training at heads and GRU groups other than 4 and 4:
+    (a) fused_ftf_bwd against ftf_bwd_reference at every (heads, groups)
+        pair of the widths phase, both modes, the frequency block (L = 33)
+        and the time block with lookback 16 (L = 129) at small N;
+    (b) the B = 64 x 2 s training shapes (freq N = 8,256, L = 33; time N =
+        2,112, L = 129) at heads 1, 2, 8 (padded head widths 64, 32, 8)
+        with 4 groups and groups 1, 2, 8 with 4 heads, timed;
+    (c) create_state + make_train_step at (8, 8) and (2, 2), seeded weights,
+        B = 8 x 2 s: three counted steps with finite losses, two runs from
+        one state bit-equal, one step against the same step on the plain
+        path on the card (precise: losses and every tensor's change; bf16:
+        losses);
+    (d) `train_cli --num_heads 8 --gru_groups 8` for one epoch on the loop
+        phase's synthetic corpus, in a subprocess.
+    Returns (kernel case records, launches of the counted steps)."""
+    import copy
+    import shutil
+    import subprocess
+    import tempfile
+
+    from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+    from lct_gan_tpu_torch.ops.probe import ex2_rate
+    from lct_gan_tpu_torch.train import (TrainConfig, create_state,
+                                         make_train_step,
+                                         read_checkpoint_meta)
+
+    t0 = time.perf_counter()
+    exps_per_s = ex2_rate()
+
+    def exp_floor_ms(n_exps):
+        return n_exps / exps_per_s * 1e3
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    cases = []
+
+    def run_case(nh, G, name, block, N, L, lookback, timed):
+        params = [p.detach().contiguous() for p in block.kernel_params()]
+        D = 2 if block.bidirectional else 1
+        x = torch.randn((N, L, 64), generator=g, device="cuda")
+        for mode in ("bf16", "precise"):
+            res = ftf_bwd_case(torch, f"widths {name} h{nh} g{G}", x, params,
+                               D, lookback, mode, g, exp_floor_ms, nh, G,
+                               timed)
+            cases.append(res)
+            emit({"phase": "train_widths", "kernel": "fused_ftf_bwd", **res})
+        del x
+        torch.cuda.empty_cache()
+
+    # (a) every pair of the widths phase, small N.
+    pairs = sorted({(nh, 4) for nh in WIDTHS} | {(4, G) for G in WIDTHS}
+                   | {(2, 2), (8, 8)})
+    for nh, G in pairs:
+        gen = seeded_enhancer(torch, seed, nh, G).gen
+        run_case(nh, G, "freq", gen.GRUf1, 256, 33, None, False)
+        run_case(nh, G, "time_lookback16", gen.GRUt1, 64, 129, 16, False)
+    small_s = time.perf_counter() - t0
+
+    # (b) the B = 64 x 2 s training shapes.
+    for nh, G in ((1, 4), (2, 4), (8, 4), (4, 1), (4, 2), (4, 8)):
+        gen = seeded_enhancer(torch, seed, nh, G).gen
+        run_case(nh, G, "freq", gen.GRUf1, 64 * 129, 33, None, True)
+        run_case(nh, G, "time", gen.GRUt1, 64 * 33, 129, None, True)
+    shapes_s = time.perf_counter() - t0 - small_s
+
+    # (c) the train step at other widths.
+    launches = {"fused_ftf_block": 0, "fused_ftf_bwd": 0}
+    rng = np.random.default_rng(seed + 18)
+    for nh, G in TRAIN_WIDTHS:
+        cfg = TrainConfig(num_heads=nh, gru_groups=G)
+        step = make_train_step(cfg)
+
+        def fresh(precise):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                return create_state(cfg, torch.Generator().manual_seed(seed),
+                                    device="cuda", precise=precise)
+
+        state0 = fresh(False)
+        gen = state0.enhancer.gen
+        if (gen.cfg.num_heads, gen.cfg.gru_groups) != (nh, G):
+            raise AssertionError(f"train_widths state widths {gen.cfg}")
+        noisy, clean = train_batch(np, rng, cfg.batch_size)
+        a, b = copy.deepcopy(state0), copy.deepcopy(state0)
+        ma, mb = step(a, noisy, clean), step(b, noisy, clean)
+        if not (all(torch.equal(ma[k], mb[k]) for k in ma) and all(
+                torch.equal(p, q) for p, q in zip(
+                    [*a.g_params(), *a.d_params()],
+                    [*b.g_params(), *b.d_params()]))):
+            raise AssertionError(f"train_widths ({nh}, {G}): two steps from "
+                                 "one state differ")
+        del a, b
+        # The counted run: three steps of the main path at these widths.
+        state = copy.deepcopy(state0)
+        for fn in (fused_ftf_block, fused_ftf_bwd):
+            fn.launches = 0
+        history = []
+        for _ in range(3):
+            m = step(state, *train_batch(np, rng, cfg.batch_size))
+            history.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        got = {"fused_ftf_block": fused_ftf_block.launches,
+               "fused_ftf_bwd": fused_ftf_bwd.launches}
+        if got != {"fused_ftf_block": 9, "fused_ftf_bwd": 9}:
+            raise AssertionError(f"train_widths ({nh}, {G}): launches in 3 "
+                                 f"steps {got}, expected 9 and 9")
+        for k in launches:
+            launches[k] += got[k]
+        if not all(np.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"train_widths ({nh}, {G}): metrics not "
+                                 f"finite: {history}")
+        del state
+        # One step against the plain path on the card, in each mode.
+        compared = {}
+        for mode, st0 in (("bf16", state0), ("precise", fresh(True))):
+            r = step_vs_plain(torch, cfg, step, st0, noisy, clean)
+            compared[mode] = r
+            rel = r["loss_rel_err"]
+            if not max(rel.values()) <= TOL_STEP_LOSS[mode]:
+                raise AssertionError(
+                    f"train_widths ({nh}, {G}) {mode}: step losses vs the "
+                    f"plain path on the card {rel} > {TOL_STEP_LOSS[mode]}")
+            if mode == "precise" and not (
+                    r["min_grad_corr"] > MIN_GRAD_CORR
+                    and r["changes_off_share"] <= TOL_STEP_OFF_SHARE):
+                raise AssertionError(
+                    f"train_widths ({nh}, {G}) precise: step vs the plain "
+                    f"path on the card: {r}")
+        emit({"phase": "train_widths", "check": "B=8 x 2 s steps",
+              "num_heads": nh, "gru_groups": G, "seed": seed,
+              "launches_3_steps": got, "two_runs_bit_equal": True,
+              "metrics_3_steps": history, "vs_plain_on_card": compared,
+              "tol": {"loss": TOL_STEP_LOSS, "grad_corr": MIN_GRAD_CORR,
+                      "off_lr": TOL_STEP_OFF_LR,
+                      "off_share": TOL_STEP_OFF_SHARE},
+              "device": card})
+        del state0
+        torch.cuda.empty_cache()
+    steps_s = time.perf_counter() - t0 - small_s - shapes_s
+
+    # (d) the entry point at 8 heads and 8 groups, one epoch.
+    root = tempfile.mkdtemp(prefix="lct_train_widths_")
+    try:
+        data_root = os.path.join(root, "data")
+        write_corpus(np, data_root)
+        expr = os.path.join(root, "expr")
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lct_gan_tpu_torch.train_cli",
+             "--data_root", data_root, "--expr_root", expr, "--epochs", "1",
+             "--batch_size", "8", "--val_interval", "1", "--ckpt_interval",
+             "1", "--log_interval", "1", "--no_pesq", "--num_heads", "8",
+             "--gru_groups", "8", "--data_parallel", "1", "--device",
+             "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f"train_cli --num_heads 8 --gru_groups 8 "
+                                 f"failed (rc {proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        runs = os.listdir(expr)
+        best = os.path.join(expr, runs[0], "ckpts", "best.pt")
+        meta = read_checkpoint_meta(best)
+        widths = (meta["train_cfg"]["num_heads"],
+                  meta["train_cfg"]["gru_groups"])
+        if len(runs) != 1 or widths != (8, 8):
+            raise AssertionError(f"train_cli run {runs}, best.pt widths "
+                                 f"{widths}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_widths", "check": "train_cli --num_heads 8 "
+          "--gru_groups 8, 1 epoch", "rc": proc.returncode,
+          "best_pt_widths": widths, "seconds": cli_s, "device": card})
+    emit({"phase": "train_widths", "small_cases_s": small_s,
+          "training_shapes_s": shapes_s, "steps_s": steps_s,
+          "seconds": time.perf_counter() - t0})
+    return cases, launches
 
 
 def check_eval(torch, np, card, state):
@@ -2371,6 +2677,11 @@ def main():
     train_launches, state, step_ms = check_train(torch, np, card)
     for k, n in train_launches.items():
         launches[k] += n
+    bwd_cases, step_launches = check_train_widths(torch, np, card,
+                                                  args.seed)
+    kernels["fused_ftf_bwd"].extend(bwd_cases)
+    for k, n in step_launches.items():
+        launches[k] += n
     check_eval(torch, np, card, state)
     del state
     torch.cuda.empty_cache()
@@ -2397,7 +2708,9 @@ def main():
             ("fused_grouped_gru", "lct_gan_tpu_torch/csrc/ftf.cu",
              "lct_gan_tpu/ops/gru.py:28", 644, "precise")):
         head = next(r for r in kernels[name]
-                    if r["L"] == head_L and r["mode"] == head_mode)
+                    if r["L"] == head_L and r["mode"] == head_mode
+                    and r.get("num_heads", 4) == 4
+                    and r.get("gru_groups", 4) == 4)
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the path")
         summary.append({

@@ -9,8 +9,7 @@
 // kernels are templated on a padded width and take the true one at run
 // time: attention on the head width (8 for any hd <= 8, else 16, 32 or 64),
 // the GRU on its slot width (16: groups of 16 or, packed block-diagonally,
-// narrower; 64: one dense group, or two of 32 packed). ftf_bwd.cu keeps
-// its own fixed widths.
+// narrower; 64: one dense group, or two of 32 packed).
 //
 // Rounding: `round != 0` is the bf16 mode (the backward's). Every GEMM
 // operand is rounded to bf16 (round-to-nearest-even) exactly where the TPU
@@ -43,6 +42,14 @@ __host__ __device__ constexpr float inv_sqrt_hd(int hd) {
 // The padded head width a kernel instance is built for: 8 for any hd <= 8
 // (the true width at run time), else hd itself.
 __host__ __device__ constexpr int head_pad(int hd) { return hd <= 8 ? 8 : hd; }
+
+// The slot width of the GRU kernels for `slots` slots (4 or 1).
+inline int gru_slot(int slots) { return C / slots; }
+
+// num_heads divides C; the GRU weights come in 4 slots of 16 or 1 of 64.
+inline bool widths_ok(int num_heads, int slots) {
+  return num_heads > 0 && C % num_heads == 0 && (slots == 4 || slots == 1);
+}
 
 __device__ __forceinline__ float rnd(float v, int round) {
   return round ? __bfloat162float(__float2bfloat16_rn(v)) : v;

@@ -165,9 +165,6 @@ __global__ void __launch_bounds__(DS * C)
   }
 }
 
-// The slot width of the GRU kernels for `slots` slots (4 or 1).
-inline int gru_slot(int slots) { return C / slots; }
-
 // a = ctx @ out_w + out_b; comb = [g @ lin_w[:C]] + a @ lin_w[C:] + lin_b
 // (the first term for the frequency block only, lin_in == 2C); out = x + g +
 // LeakyReLU(comb), all f32. One thread per output channel, ROWS rows per
@@ -302,15 +299,6 @@ inline size_t gru_smem(int D) {
 // Bound: the recurrence is sequential in L, so each step's chain (one
 // product, three gates) is latency; across the card it moves x in (once per
 // direction) and the f32 hiddens out.
-template <int KS>
-struct GruFragsOf {
-  using type = GruFragsDense;
-};
-template <>
-struct GruFragsOf<1> {
-  using type = GruFrags;
-};
-
 template <int KS>
 __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -529,11 +517,6 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
   gru_dense_kernel<<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D), DS * C,
                      smem, st>>>(xp, w_hh, b_hh, hid, N, L, D);
   return cudaGetLastError();
-}
-
-// num_heads divides C; the GRU weights come in 4 slots of 16 or 1 of 64.
-inline bool widths_ok(int num_heads, int slots) {
-  return num_heads > 0 && C % num_heads == 0 && (slots == 4 || slots == 1);
 }
 
 }  // namespace lct

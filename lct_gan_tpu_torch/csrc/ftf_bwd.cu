@@ -1,9 +1,9 @@
 // FTF block backward for Hopper (sm_90a): the whole function of the TPU
 // kernel `lct_gan_tpu/ops/ftf_bwd.py::_ftf_bwd_kernel`. Inputs: x, dout
 // [N*L, 64], the forward's per-direction hiddens hid [D, N*L, 64]
-// (unrounded f32) and the block's parameters. Outputs: dx and the 14
-// parameter gradients, f32, GRU gradients in the grouped [D, G, H, 3H] /
-// [D, G, 3H] layout. Two designs, one per mode.
+// (unrounded f32) and the block's parameters, the GRU's in slots. Outputs:
+// dx and the 14 parameter gradients, f32, the GRU's in the slot layout
+// [D, 64/W, W, 3W] / [D, 64/W, 3W]. Two designs, one per mode.
 //
 // Bound on the H100: at the training shapes (B=64 x 2 s; freq N=8,256 L=33,
 // time N=2,112 L=129: 272,448 rows each) the function reads x, dout and hid
@@ -62,7 +62,8 @@
 //                                      forward's operand) and xp
 //   7. gate_kernel                     hp from the shifted hiddens, the gate
 //                                      factors K1..K5 for every step at once
-//   8. bptt_kernel                     dh_{t-1} = dh_t z_t + (dh_t K123_t) W_hh^T
+//   8. bptt_kernel (bptt_dense_kernel  dh_{t-1} = dh_t z_t + (dh_t K123_t) W_hh^T
+//      for one slot of 64)
 //   9. dn1_kernel + ln_bwd_kernel      input-projection and LN1 backward -> dx
 //  10. wgrad_kernel + reduce_kernel    every parameter gradient: per-chunk
 //                                      partial sums over rows, then the chunks
@@ -87,18 +88,24 @@
 // fixed rows (chunks, persistent tiles, or 16 sequences) and the blocks'
 // partial rows are added in index order. The result is the same from run
 // to run for the same shapes on the same card.
+//
+// Widths: any num_heads and any GRU group count that divide C = 64, as the
+// forward kernels (ftf.cu). The attention kernels are built per padded
+// head width HDP (common.cuh's head_pad: 8 for any hd <= 8, else 16, 32,
+// 64) and take the true width at run time; their score scale is 1 /
+// sqrt(hd) of the true head. The GRU kernels are built per slot width W:
+// 16 (4 slots: groups of 16, or narrower ones packed block-diagonally) or
+// 64 (one dense slot: one group of 64, or two of 32). The caller packs the
+// GRU weights into slots (ops/gru.py::pack_gru_slots) and takes the
+// slot-layout gradients apart again (ops/gru.py::unpack_gru_slot_grads):
+// the entries off a slot's blocks are zero in the forward, so the
+// gradients on the blocks are the grouped ones. Heads narrower than a k16
+// step take their 16-channel k-step and n8 tile masked to their channels
+// (tc.cuh's q_mask and v_mask), as the TPU kernel's zero blocks do.
 
 #include "tc.cuh"
 
 namespace lct {
-
-// The backward's widths: 4 attention heads of 16 and 4 GRU groups of 16
-// (ops/ftf_bwd.py refuses others; the forward kernels take every divisor
-// of 64).
-constexpr int NH = 4;
-constexpr int HD = 16;
-constexpr int G = 4;
-constexpr int H = 16;
 
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
@@ -320,55 +327,86 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   }
 }
 
-// The attention core's backward. One block per (sequence, head): Q, K, V
-// and dctx of that head (rounded) in dynamic shared memory, 67 floats per
-// position (137 KB at L = 512).
+// The attention core's backward. One block per (sequence, head), heads of
+// hd = C / nh channels; the kernel is built per padded head width HDP (8
+// for any hd <= 8, else hd). For heads of at most 16 channels, Q, K, V and
+// dctx of that head (rounded, HDP floats a position, zero past hd) sit in
+// dynamic shared memory, 4 HDP + 3 floats per position (137 KB at HDP =
+// 16, L = 512); wider heads would not fit, so their rows are read from
+// device memory where they lie (as common.cuh's attn_kernel does), and
+// only the per-query statistics are staged.
 //   pass A, one thread per query q: the row max m_q and sum den_q, the
 //     normalised p (rounded), dp = dctx_q . v_k, rowsum_q = sum_k dp p, and
-//     dq = 1/4 sum_k round(p (dp - rowsum_q)) k_k;
-//   pass B, one thread per key k: dk = 1/4 sum_q round(ds) q_q and
+//     dq = sum_k round(p (dp - rowsum_q)) k_k / sqrt(hd);
+//   pass B, one thread per key k: dk = sum_q round(ds) q_q / sqrt(hd) and
 //     dv = sum_q p dctx_q over the queries whose band holds k, recomputing
 //     p and dp from the stored m, den and rowsum (bit-equal to pass A's).
 // Keys outside a query's band are never visited (p = 0 there).
+template <int HDP>
 __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
                                 const float* __restrict__ dctx,
                                 float* __restrict__ dqkv, int L, int lookback,
-                                int round) {
+                                int round, int hd_rt) {
+  constexpr bool STAGE = HDP <= 16;
   extern __shared__ float sm[];
   float* Qs = sm;
-  float* Ks = sm + L * HD;
-  float* Vs = sm + 2 * L * HD;
-  float* Ds = sm + 3 * L * HD;
-  float* mq = sm + 4 * L * HD;
+  float* Ks = sm + L * HDP;
+  float* Vs = sm + 2 * L * HDP;
+  float* Ds = sm + 3 * L * HDP;
+  float* mq = sm + (STAGE ? 4 * L * HDP : 0);
   float* dq_den = mq + L;
   float* rsum = dq_den + L;
-  const long long n = blockIdx.x / NH;
-  const int h = blockIdx.x % NH;
+  const int hd = HDP >= 16 ? HDP : hd_rt;
+  const int nh = C / hd;
+  const long long n = blockIdx.x / nh;
+  const int h = blockIdx.x % nh;
+  const float scale = inv_sqrt_hd(hd);
   const float* base = qkv + (size_t)n * L * (3 * C);
   const float* dbase = dctx + (size_t)n * L * C;
-  for (int i = threadIdx.x; i < L * HD; i += blockDim.x) {
-    const int t = i / HD, d = i % HD;
-    Qs[i] = rnd(base[(size_t)t * 3 * C + h * HD + d], round);
-    Ks[i] = rnd(base[(size_t)t * 3 * C + C + h * HD + d], round);
-    Vs[i] = rnd(base[(size_t)t * 3 * C + 2 * C + h * HD + d], round);
-    Ds[i] = rnd(dbase[(size_t)t * C + h * HD + d], round);
+  if (STAGE) {
+    for (int i = threadIdx.x; i < L * HDP; i += blockDim.x) {
+      const int t = i / HDP, d = i % HDP;
+      if (HDP == 8 && d >= hd) {
+        Qs[i] = Ks[i] = Vs[i] = Ds[i] = 0.f;
+        continue;
+      }
+      Qs[i] = rnd(base[(size_t)t * 3 * C + h * hd + d], round);
+      Ks[i] = rnd(base[(size_t)t * 3 * C + C + h * hd + d], round);
+      Vs[i] = rnd(base[(size_t)t * 3 * C + 2 * C + h * hd + d], round);
+      Ds[i] = rnd(dbase[(size_t)t * C + h * hd + d], round);
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  // Position t's row of Q (K: + C, V: + 2C) and of dctx, staged or where
+  // it lies; val rounds what is read from device memory.
+  auto qrow = [&](int t) {
+    return STAGE ? Qs + t * HDP : base + (size_t)t * 3 * C + h * hd;
+  };
+  auto krow = [&](int t) {
+    return STAGE ? Ks + t * HDP : base + (size_t)t * 3 * C + C + h * hd;
+  };
+  auto vrow = [&](int t) {
+    return STAGE ? Vs + t * HDP : base + (size_t)t * 3 * C + 2 * C + h * hd;
+  };
+  auto drow = [&](int t) {
+    return STAGE ? Ds + t * HDP : dbase + (size_t)t * C + h * hd;
+  };
+  auto val = [&](float v) { return STAGE ? v : rnd(v, round); };
 
   auto score = [&](int q, int k) {
-    const float* qr = Qs + q * HD;
-    const float* kr = Ks + k * HD;
+    const float* qr = qrow(q);
+    const float* kr = krow(k);
     float s = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) s = fmaf(qr[d], kr[d], s);
-    return s * 0.25f;
+    for (int d = 0; d < HDP; ++d) s = fmaf(val(qr[d]), val(kr[d]), s);
+    return s * scale;
   };
   auto dprod = [&](int q, int k) {
-    const float* dr = Ds + q * HD;
-    const float* vr = Vs + k * HD;
+    const float* dr = drow(q);
+    const float* vr = vrow(k);
     float s = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) s = fmaf(dr[d], vr[d], s);
+    for (int d = 0; d < HDP; ++d) s = fmaf(val(dr[d]), val(vr[d]), s);
     return s;
   };
 
@@ -387,19 +425,20 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
       const float p = rnd(expf(score(q, k) - m) / den, round);
       rs = fmaf(dprod(q, k), p, rs);
     }
-    float acc[HD];
+    float acc[HDP];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+    for (int d = 0; d < HDP; ++d) acc[d] = 0.f;
     for (int k = k0; k <= k1; ++k) {
       const float p = rnd(expf(score(q, k) - m) / den, round);
       const float ds = rnd(p * (dprod(q, k) - rs), round);
-      const float* kr = Ks + k * HD;
+      const float* kr = krow(k);
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
+      for (int d = 0; d < HDP; ++d) acc[d] = fmaf(ds, val(kr[d]), acc[d]);
     }
-    float* o = dqkv + ((size_t)n * L + q) * 3 * C + h * HD;
+    float* o = dqkv + ((size_t)n * L + q) * 3 * C + h * hd;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = rnd(acc[d] * 0.25f, round);
+    for (int d = 0; d < HDP; ++d)
+      if (HDP != 8 || d < hd) o[d] = rnd(acc[d] * scale, round);
     mq[q] = m;
     dq_den[q] = den;
     rsum[q] = rs;
@@ -412,26 +451,69 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
       q0 = k;
       q1 = min(L - 1, k + lookback);
     }
-    float dk[HD], dv[HD];
+    float dk[HDP], dv[HDP];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dk[d] = dv[d] = 0.f;
+    for (int d = 0; d < HDP; ++d) dk[d] = dv[d] = 0.f;
     for (int q = q0; q <= q1; ++q) {
       const float p = rnd(expf(score(q, k) - mq[q]) / dq_den[q], round);
       const float ds = rnd(p * (dprod(q, k) - rsum[q]), round);
-      const float* qr = Qs + q * HD;
-      const float* dr = Ds + q * HD;
+      const float* qr = qrow(q);
+      const float* dr = drow(q);
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dk[d] = fmaf(ds, qr[d], dk[d]);
-        dv[d] = fmaf(p, dr[d], dv[d]);
+      for (int d = 0; d < HDP; ++d) {
+        dk[d] = fmaf(ds, val(qr[d]), dk[d]);
+        dv[d] = fmaf(p, val(dr[d]), dv[d]);
       }
     }
-    float* o = dqkv + ((size_t)n * L + k) * 3 * C + h * HD;
+    float* o = dqkv + ((size_t)n * L + k) * 3 * C + h * hd;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      o[C + d] = rnd(dk[d] * 0.25f, round);
+    for (int d = 0; d < HDP; ++d) {
+      if (HDP == 8 && d >= hd) continue;
+      o[C + d] = rnd(dk[d] * scale, round);
       o[2 * C + d] = rnd(dv[d], round);
     }
+  }
+}
+
+template <int HDP>
+cudaError_t launch_attn_bwd_hd(const float* qkv, const float* dctx,
+                               float* dqkv, long long N, int L, int lookback,
+                               int round, int hd, cudaStream_t st) {
+  const size_t smem =
+      (size_t)((HDP <= 16 ? 4 * HDP : 0) + 3) * L * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_bwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  int threads = ((L + 31) / 32) * 32;
+  if (threads > 256) threads = 256;
+  attn_bwd_kernel<HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
+      qkv, dctx, dqkv, L, lookback, round, hd);
+  return cudaGetLastError();
+}
+
+// attn_bwd_kernel<head_pad(hd)> for N sequences of length L.
+inline cudaError_t launch_attn_bwd(const float* qkv, const float* dctx,
+                                   float* dqkv, long long N, int L,
+                                   int lookback, int round, int hd,
+                                   cudaStream_t st) {
+  switch (head_pad(hd)) {
+    case 8:
+      return launch_attn_bwd_hd<8>(qkv, dctx, dqkv, N, L, lookback, round,
+                                   hd, st);
+    case 16:
+      return launch_attn_bwd_hd<16>(qkv, dctx, dqkv, N, L, lookback, round,
+                                    hd, st);
+    case 32:
+      return launch_attn_bwd_hd<32>(qkv, dctx, dqkv, N, L, lookback, round,
+                                    hd, st);
+    case 64:
+      return launch_attn_bwd_hd<64>(qkv, dctx, dqkv, N, L, lookback, round,
+                                    hd, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -466,50 +548,53 @@ __global__ void dn2_kernel(const float* __restrict__ dqkv,
   }
 }
 
-// The GRU's gate factors for every (row, direction, unit) at once. One
-// thread per (row, d, c = g*H + j). hp_{t} = h_{t-1} @ W_hh + b_hh from the
-// saved hiddens shifted by one step (h_{t-1} for the forward direction,
-// h_{t+1} for the backward one, 0 at the sequence's start), computed as
-// the f32 forward's gru_kernel computes it: same rounding, same order of
-// sums (the bf16 forward's gates differ by f32 noise). Writes
+// The GRU's gate factors for every (row, direction, unit) at once, over
+// slots of W units (16 or 64). One thread per (row, d, c = g*W + j).
+// hp_{t} = h_{t-1} @ W_hh + b_hh from the saved hiddens shifted by one step
+// (h_{t-1} for the forward direction, h_{t+1} for the backward one, 0 at
+// the sequence's start), computed as the f32 forward's gru_kernel computes
+// it: same rounding, same order of sums (the bf16 forward's gates differ by
+// f32 noise). Writes
 //   K[d, row, 0..4, c] = (K1, K2, K3, K4, K5)
 //     K1 = P hp_n r (1 - r), K2 = (h_prev - n) z (1 - z), K3 = P r,
 //     K4 = P, K5 = z,  with P = (1 - z)(1 - n^2)
 // and hpv[d, row, c] = round(h_prev), the operand of dW_hh.
+template <int W>
 __global__ void gate_kernel(const float* __restrict__ xp,
                             const float* __restrict__ hid,
                             const float* __restrict__ w_hh,
                             const float* __restrict__ b_hh,
                             float* __restrict__ K, float* __restrict__ hpv,
                             long long N, int L, int D, int round) {
+  constexpr int S = C / W;  // slots
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long NL = N * L;
   if (tid >= NL * D * C) return;
   const int c = tid % C;
   const int d = (tid / C) % D;
   const long long row = tid / ((long long)C * D);
-  const int g = c / H, j = c % H;
+  const int g = c / W, j = c % W;
   const int t = row % L;
   const bool has_prev = d ? (t < L - 1) : (t > 0);
   const long long prow = d ? row + 1 : row - 1;
   const float* hp_row =
-      has_prev ? hid + ((size_t)d * NL + prow) * C + g * H : nullptr;
+      has_prev ? hid + ((size_t)d * NL + prow) * C + g * W : nullptr;
 
-  const float* wp = w_hh + (size_t)(d * G + g) * H * (3 * H);
+  const float* wp = w_hh + (size_t)(d * S + g) * W * (3 * W);
   float ar = 0.f, az = 0.f, an = 0.f;
 #pragma unroll
-  for (int i = 0; i < H; ++i) {
+  for (int i = 0; i < W; ++i) {
     const float hi = has_prev ? rnd(hp_row[i], round) : 0.f;
-    ar = fmaf(hi, rnd(wp[i * 3 * H + j], round), ar);
-    az = fmaf(hi, rnd(wp[i * 3 * H + H + j], round), az);
-    an = fmaf(hi, rnd(wp[i * 3 * H + 2 * H + j], round), an);
+    ar = fmaf(hi, rnd(wp[i * 3 * W + j], round), ar);
+    az = fmaf(hi, rnd(wp[i * 3 * W + W + j], round), az);
+    an = fmaf(hi, rnd(wp[i * 3 * W + 2 * W + j], round), an);
   }
-  const float* bp = b_hh + (d * G + g) * 3 * H;
-  const float* xr = xp + (size_t)row * D * 3 * C + d * 3 * C + g * 3 * H;
+  const float* bp = b_hh + (d * S + g) * 3 * W;
+  const float* xr = xp + (size_t)row * D * 3 * C + d * 3 * C + g * 3 * W;
   const float r = sigmoidf_(xr[j] + (ar + bp[j]));
-  const float z = sigmoidf_(xr[H + j] + (az + bp[H + j]));
-  const float hpn = an + bp[2 * H + j];
-  const float nn = tanhf(xr[2 * H + j] + r * hpn);
+  const float z = sigmoidf_(xr[W + j] + (az + bp[W + j]));
+  const float hpn = an + bp[2 * W + j];
+  const float nn = tanhf(xr[2 * W + j] + r * hpn);
   const float hprev = has_prev ? hp_row[j] : 0.f;
   const float P = (1.f - z) * (1.f - nn * nn);
   float* kp = K + ((size_t)d * NL + row) * 5 * C + c;
@@ -521,10 +606,11 @@ __global__ void gate_kernel(const float* __restrict__ xp,
   hpv[((size_t)d * NL + row) * C + c] = rnd(hprev, round);
 }
 
-// BPTT through the saved gate factors. One thread per (sequence, direction,
-// group, unit j), as in gru_kernel: a group's 16 units are 16 lanes of one
-// warp that trade the rounded dhp values by shuffles. The forward direction
-// walks t descending, the backward direction ascending:
+// BPTT through the saved gate factors over slots of 16 units. One thread
+// per (sequence, direction, slot, unit j), as in gru_kernel: a slot's 16
+// units are 16 lanes of one warp that trade the rounded dhp values by
+// shuffles. The forward direction walks t descending, the backward
+// direction ascending:
 //   dh  = carry + dg[t]
 //   dhp = (dh K1, dh K2, dh K3),  dxp = (dh K1, dh K2, dh K4)  (written out)
 //   carry = dh K5 + sum_{gate, k} round(dhp[gate, k]) W_hh[g, j, gate*H + k]
@@ -533,6 +619,7 @@ __global__ void bptt_kernel(const float* __restrict__ K,
                             const float* __restrict__ w_hh,
                             float* __restrict__ dxp, float* __restrict__ dhp,
                             long long N, int L, int D, int round) {
+  constexpr int H = 16, G = C / H;  // slots of 16 units
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   // The total is a multiple of 64 and blocks are too, so a warp is either
   // wholly in range or wholly out: the shuffles below see all 32 lanes.
@@ -579,23 +666,112 @@ __global__ void bptt_kernel(const float* __restrict__ K,
   }
 }
 
-// dn1[row, g*H + i] = sum_d sum_m round(dxp[row, d, g, m]) W_ih[d, g, i, m].
-// One thread per (row, channel).
+// The same walk over one dense slot of 64 units (groups of 32 or 64). A
+// block takes one direction and DS sequences, one thread per (sequence,
+// unit j), as gru_dense_kernel: W_hh of the direction sits rounded and
+// transposed in shared memory (wt[gate*64 + k][j], read by consecutive
+// units: no bank conflict), and each step's rounded dhp is traded through a
+// double buffer of shared memory, one barrier a step. Bound: latency.
+constexpr int DS = 4;  // sequences per block of bptt_dense_kernel
+
+inline size_t bptt_dense_smem() {
+  return (size_t)(3 * C * C + 2 * DS * 3 * C) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(DS * C)
+    bptt_dense_kernel(const float* __restrict__ K,
+                      const float* __restrict__ dg,
+                      const float* __restrict__ w_hh,
+                      float* __restrict__ dxp, float* __restrict__ dhp,
+                      long long N, int L, int D, int round) {
+  extern __shared__ float bsm[];
+  float* wt = bsm;              // [3C][C]: wt[o * C + j] = W_hh[d][j][o]
+  float* es = bsm + 3 * C * C;  // rounded dhp [2][DS][3C]
+  const int d = blockIdx.y, j = threadIdx.x % C, sq = threadIdx.x / C;
+  const long long n = (long long)blockIdx.x * DS + sq;
+  const bool live = n < N;
+  const float* wp = w_hh + (size_t)d * C * (3 * C);
+  for (int i = threadIdx.x; i < C * 3 * C; i += blockDim.x)
+    wt[(i % (3 * C)) * C + i / (3 * C)] = rnd(wp[i], round);
+  __syncthreads();
+  const long long NL = N * L;
+  const size_t xstride = (size_t)D * 3 * C;
+  float carry = 0.f;
+  for (int s = 0; s < L; ++s) {
+    const int t = d ? s : L - 1 - s;
+    const long long row = n * L + t;
+    const float* kp = K + ((size_t)d * NL + row) * 5 * C + j;
+    float dh = 0.f, er = 0.f, ez = 0.f, en = 0.f;
+    if (live) {
+      dh = carry + dg[(size_t)row * C + j];
+      er = dh * kp[0];
+      ez = dh * kp[C];
+      en = dh * kp[2 * C];
+      const size_t o = (size_t)row * xstride + d * 3 * C + j;
+      dxp[o] = er;
+      dxp[o + C] = ez;
+      dxp[o + 2 * C] = dh * kp[3 * C];
+      dhp[o] = er;
+      dhp[o + C] = ez;
+      dhp[o + 2 * C] = en;
+    }
+    float* eb = es + (s & 1) * DS * 3 * C + sq * 3 * C;
+    eb[j] = rnd(er, round);
+    eb[C + j] = rnd(ez, round);
+    eb[2 * C + j] = rnd(en, round);
+    __syncthreads();
+    float acc = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < C; ++k) {
+      acc = fmaf(eb[k], wt[k * C + j], acc);
+      acc = fmaf(eb[C + k], wt[(C + k) * C + j], acc);
+      acc = fmaf(eb[2 * C + k], wt[(2 * C + k) * C + j], acc);
+    }
+    if (live) carry = dh * kp[4 * C] + acc;
+  }
+}
+
+// BPTT over `slots` slots (4 of 16 units or 1 of 64).
+inline cudaError_t launch_bptt(const float* K, const float* dg,
+                               const float* w_hh, float* dxp, float* dhp,
+                               long long N, int L, int D, int slots,
+                               int round, cudaStream_t st) {
+  if (gru_slot(slots) == 16) {
+    const long long bthreads = N * D * C;
+    bptt_kernel<<<(unsigned)((bthreads + 255) / 256), 256, 0, st>>>(
+        K, dg, w_hh, dxp, dhp, N, L, D, round);
+    return cudaGetLastError();
+  }
+  const size_t smem = bptt_dense_smem();
+  cudaError_t e = cudaFuncSetAttribute(
+      bptt_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  bptt_dense_kernel<<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D),
+                      DS * C, smem, st>>>(K, dg, w_hh, dxp, dhp, N, L, D,
+                                          round);
+  return cudaGetLastError();
+}
+
+// dn1[row, g*W + i] = sum_d sum_m round(dxp[row, d, g, m]) W_ih[d, g, i, m]
+// over slots of W units. One thread per (row, channel).
+template <int W>
 __global__ void dn1_kernel(const float* __restrict__ dxp,
                            const float* __restrict__ w_ih,
                            float* __restrict__ dn1, long long rows, int D,
                            int round) {
+  constexpr int S = C / W;  // slots
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= rows * C) return;
   const int c = tid % C;
   const long long row = tid / C;
-  const int g = c / H, i = c % H;
+  const int g = c / W, i = c % W;
   float acc = 0.f;
   for (int d = 0; d < D; ++d) {
-    const float* e = dxp + (size_t)row * D * 3 * C + d * 3 * C + g * 3 * H;
-    const float* w = w_ih + ((size_t)(d * G + g) * H + i) * 3 * H;
+    const float* e = dxp + (size_t)row * D * 3 * C + d * 3 * C + g * 3 * W;
+    const float* w = w_ih + ((size_t)(d * S + g) * W + i) * 3 * W;
 #pragma unroll 8
-    for (int m = 0; m < 3 * H; ++m)
+    for (int m = 0; m < 3 * W; ++m)
       acc = fmaf(rnd(e[m], round), rnd(__ldg(w + m), round), acc);
   }
   dn1[(size_t)row * C + c] = acc;
@@ -606,6 +782,8 @@ __global__ void dn1_kernel(const float* __restrict__ dxp,
 //   WG_DENSE    o = i * J + j                   -> (i, j)        A^T B
 //   WG_GROUPED  o = ((d*G + g)*H + i)*3H + m     -> (d*adir? + g*H + i,
 //                                                   d*3C + g*3H + m)
+//               (GRU slots of H = 16 units, G = 4 a direction; the one
+//               dense slot of 64 is WG_DENSE per direction)
 //   WG_DIAG     o = c                           -> (c, c)        sum A*B
 //   WG_COLSUM   o = c                           -> (-, c)        sum B
 // Each block sums a fixed chunk of rows into its own partial row; no atomics.
@@ -661,6 +839,7 @@ __global__ void __launch_bounds__(WG_THREADS)
           ac = o / J;
           bc = o % J;
         } else if (mode == WG_GROUPED) {
+          constexpr int H = 16, G = C / H;
           const int m = o % (3 * H), i = (o / (3 * H)) % H;
           const int g = (o / (3 * H * H)) % G, d = o / (3 * H * H * G);
           ac = (adir ? d * C : 0) + g * H + i;
@@ -757,11 +936,7 @@ struct Scratch {
 // ===========================================================================
 namespace tc {
 
-constexpr float QK_SCALE2 = 0.25f * LOG2E;  // log2(e) / sqrt(HD)
-
 constexpr int RT = 4 * 32;          // threads of the row-tile kernels
-constexpr int LDH = HD + 8;         // bf16 row stride of one head's [L][16]
-constexpr int LDI = 3 * H + 8;      // bf16 row stride of W_ih [.., 16][48]
 constexpr int MAX_ROW_BLOCKS = 1024;  // cap of a row-tile kernel's grid
 constexpr int WG_BLOCKS = 528;        // cap of wgrad_tc_kernel's grid
 constexpr int WG_UNITS = 12;          // 16x16 output units per warp, at most
@@ -1201,15 +1376,18 @@ __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// The input projection and LN1 backward, per 16 rows:
-//   dn1[:, g*16 + i] = sum_d bf16(dxp[:, d, g, :]) @ bf16(W_ih[d, g])^T
+// The input projection and LN1 backward, per 16 rows, over GRU slots of W
+// = 16 KS units (KS = 1: 4 slots of 16; KS = 4: one dense slot of 64):
+//   dn1[:, g*W + i] = sum_d bf16(dxp[:, d, g, :]) @ bf16(W_ih[d, g])^T
 //   dx = ds + rstd (dxh - mean(dxh) - xh1 mean(dxh xh1)), dxh = dn1 ln1_s
 // LN1 recomputed from x. Column sums: dn1 xh1 (dln1_s), dn1 (dln1_b).
+// W_ih is staged as bf16 [D*64][3W + 8]: static shared memory for KS = 1
+// (14 KB), dynamic for KS = 4 (51 KB; dn1_smem).
 struct Dn1Args {
   const __nv_bfloat16* dxp;  // [rows, D*192]
   const float* x;
   const float* ds;
-  const float* w_ih;         // [D, G, H, 3H]
+  const float* w_ih;         // slots [D, 64/W, W, 3W]
   const float* ln_s;
   float* dx;                 // [rows, 64] out
   float* part;               // [grid, 128] out: dln1_s, dln1_b partials
@@ -1217,11 +1395,28 @@ struct Dn1Args {
   int D;
 };
 
+template <int KS>
+__host__ __device__ constexpr int dn1_ldi() { return 3 * 16 * KS + 8; }
+
+template <int KS>
+inline size_t dn1_smem() {
+  return KS == 1 ? 0 : (size_t)2 * C * dn1_ldi<KS>() * sizeof(__nv_bfloat16);
+}
+
+template <int KS>
 __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
-  __shared__ __align__(16) __nv_bfloat16 wi[2 * G * H * LDI];
+  constexpr int W = 16 * KS, S = C / W, LDI = dn1_ldi<KS>();
+  __nv_bfloat16* wi;
+  if constexpr (KS == 1) {
+    __shared__ __align__(16) __nv_bfloat16 wst[2 * C * LDI];
+    wi = wst;
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    wi = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  }
   __shared__ float red[4 * C];
   const int D = a.D;
-  stage_weight(wi, LDI, a.w_ih, D * G * H, 3 * H);
+  stage_weight(wi, LDI, a.w_ih, D * C, 3 * W);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1231,20 +1426,26 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long r0 = tile * 64 + warp * 16;
     if (r0 >= rows) continue;
-    // n tile 2 grp + jh holds columns grp*16 + 8 jh .. (dn1's layout).
+    // n tile 2 (slot KS + np) + jh holds columns slot*W + np*16 + 8 jh ..
+    // (dn1's layout).
     float acc[8][4] = {};
     for (int d = 0; d < D; ++d)
 #pragma unroll
-      for (int grp = 0; grp < G; ++grp)
+      for (int sl = 0; sl < S; ++sl)
 #pragma unroll
-        for (int kk = 0; kk < 3; ++kk) {
-          uint32_t af[4], wf[4];
+        for (int kk = 0; kk < 3 * KS; ++kk) {
+          uint32_t af[4];
           ldg_a(af, a.dxp, D * 3 * C, r0, rows,
-                d * 3 * C + grp * 3 * H + kk * 16, lane);
-          // B(k = m, n = i) = W_ih[d, grp][i][m], a [n][k] load.
-          load_b_nk(wf, wi + (d * G + grp) * H * LDI + kk * 16, LDI, lane);
-          mma(acc[2 * grp], af, wf[0], wf[1]);
-          mma(acc[2 * grp + 1], af, wf[2], wf[3]);
+                d * 3 * C + sl * 3 * W + kk * 16, lane);
+#pragma unroll
+          for (int np = 0; np < KS; ++np) {
+            // B(k = m, n = i) = W_ih[d, slot][i][m], a [n][k] load.
+            uint32_t wf[4];
+            load_b_nk(wf, wi + ((d * S + sl) * W + np * 16) * LDI + kk * 16,
+                      LDI, lane);
+            mma(acc[2 * (sl * KS + np)], af, wf[0], wf[1]);
+            mma(acc[2 * (sl * KS + np) + 1], af, wf[2], wf[3]);
+          }
         }
     float2 xv[8][2];
     ldg_c(xv, a.x, r0, rows, lane);
@@ -1272,9 +1473,10 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
 // ---------------------------------------------------------------------------
 // The GRU backward on tensor cores: the input and hidden projections, the
 // gate factors and BPTT in one pass. A block takes 16 sequences; warp w
-// runs direction w / 4, group w % 4 over them, walking the steps in the
-// order opposite to the forward's (descending for direction 0). Per step,
-// with the 16 sequences as the M rows of one m16n8k16 tile:
+// runs direction w / 4 and the 16 units 16 (w % 4) .. over them, walking
+// the steps in the order opposite to the forward's (descending for
+// direction 0). KS = 1: slots of 16 units, warp w's units are slot w % 4.
+// Per step, with the 16 sequences as the M rows of one m16n8k16 tile:
 //   xp, hp   bf16(n1_t) @ bf16(W_ih), bf16(h_prev) @ bf16(W_hh)  12 products
 //            (h_prev: the saved hidden one step back in the forward's order,
 //            0 at the sequence's start), gates as gru_tc_kernel forms them
@@ -1287,14 +1489,24 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
 // direction and group of 16 sequences), so a step reads only what it needs
 // (the n1 A fragment, bf16, written by dn2_tc_kernel; h_prev and dg at the
 // C-fragment positions), and the next step's loads are issued before this
-// step's arithmetic. Writes bf16(h_prev), and bf16 dxp and dhp for the
-// weight and input gradients; db_ih and db_hh are the column sums of the
-// unrounded dxp and dhp, one partial row per block.
+// step's arithmetic.
+// KS = 4: one dense slot of 64 units (gru_tc_kernel<4>'s layout,
+// GruFragsDense): the projections take the slot's 64 inputs as 4 k-steps
+// (24 + 24 products a step, h_prev's A fragments of all 64 units read from
+// the saved hiddens), and the carry needs every unit's dhp: the four warps
+// of a direction trade their units' bf16 dhp through shared memory, one
+// block barrier a step (double-buffered), and take W_hh^T's B fragments
+// from a bf16 copy staged there (24 products a step). The weights' 96
+// fragment registers leave no room to load a step ahead: its loads are
+// issued at the step's start.
+// Writes bf16(h_prev), and bf16 dxp and dhp for the weight and input
+// gradients; db_ih and db_hh are the column sums of the unrounded dxp and
+// dhp, one partial row per block.
 struct BpttArgs {
   const __nv_bfloat16* n1;  // [N*L, 64] bf16(LN1(x))
-  const float* w_ih;   // [D, G, H, 3H]
+  const float* w_ih;   // slots [D, 64/W, W, 3W]
   const float* w_hh;
-  const float* b_ih;   // [D, G, 3H]
+  const float* b_ih;   // [D, 64/W, 3W]
   const float* b_hh;
   const float* hid;    // [D, N*L, 64]
   const float* ds;     // [N*L, 64]
@@ -1308,46 +1520,72 @@ struct BpttArgs {
   int D;
 };
 
-// One step's inputs for one warp: the n1 A fragment, h_prev and dg in the
-// C-fragment layout [jh][e] (sequence g + 8 (e >> 1), unit 8 jh + 2t +
-// (e & 1) of the warp's group).
+// One step's inputs for one warp: the n1 A fragments, h_prev and dg in
+// the C-fragment layout [jh][e] (sequence g + 8 (e >> 1), unit 8 jh + 2t +
+// (e & 1) of the warp's 16), and for KS > 1 h_prev's A fragments over the
+// slot's 64 units.
+template <int KS>
 struct StepIn {
-  uint32_t ax[4];
+  uint32_t ax[KS][4];
   float hv[2][4];
   float dg[2][4];
+  uint32_t ha[KS > 1 ? KS : 1][4];
 };
 
-__global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
+// Shared memory of bptt_tc_kernel<4>: W_hh bf16 [D][64][LDW] and the dhp
+// exchange [2][D][GS][LDW].
+inline size_t bptt_tc_smem(int D) {
+  return (size_t)D * (C + 2 * GS) * LDW * sizeof(__nv_bfloat16);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(256, KS == 1 ? 2 : 1)
+    bptt_tc_kernel(BpttArgs a) {
+  constexpr int W = 16 * KS;  // slot width
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int d = warp >> 2, grp = warp & 3;
+  const int d = warp >> 2, grp = warp & 3;  // grp: the warp's 16 units
   const int L = a.L, D = a.D;
   const long long n0 = (long long)blockIdx.x * GS;
   const size_t NL = (size_t)a.N * L;
+  // The warp's units: channels 16 grp .., in the gate-major slot layout at
+  // column slot * 3W + gate * W + u0 of a direction's 3C.
+  const int scol = KS == 1 ? grp * 3 * W : 16 * grp;
 
-  const int dg = d * G + grp;
-  GruFrags f;
-  load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, dg, lane);
+  typename GruFragsOf<KS>::type f;
+  uint32_t bt[3][2][2];  // KS = 1: W_hh^T's B fragments for the carry
+  __nv_bfloat16* whs = nullptr;  // KS = 4: W_hh staged, then the exchange
+  __nv_bfloat16* ex = nullptr;
+  if constexpr (KS == 1) {
+    const int dg = d * (C / 16) + grp;
+    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, dg, lane);
+    // W_hh^T for the carry: B(k = o, n = j) = W_hh[j][o]; k-step q is gate q.
+    const float* wh = a.w_hh + (size_t)dg * W * (3 * W);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int o = q * W + 2 * t + 8 * k, j = jh * 8 + g;
+          bt[q][jh][k] = pack_bf16(wh[j * 3 * W + o], wh[j * 3 * W + o + 1]);
+        }
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    whs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+    ex = whs + (size_t)D * C * LDW;
+    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, d, grp, lane);
+    stage_weight(whs, LDW, a.w_hh, D * C, 3 * C);
+    __syncthreads();
+  }
   const auto& bi = f.bi;
   const auto& bh = f.bh;
   const auto& brz = f.brz;
   const auto& bxn = f.bxn;
   const auto& bhn = f.bhn;
-  // W_hh^T for the carry: B(k = o, n = j) = W_hh[j][o]; k-step q is gate q.
-  const float* wh = a.w_hh + (size_t)dg * H * (3 * H);
-  uint32_t bt[3][2][2];
-#pragma unroll
-  for (int q = 0; q < 3; ++q)
-#pragma unroll
-    for (int jh = 0; jh < 2; ++jh)
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int o = q * H + 2 * t + 8 * k, j = jh * 8 + g;
-        bt[q][jh][k] = pack_bf16(wh[j * 3 * H + o], wh[j * 3 * H + o + 1]);
-      }
 
   // Step s of the walk is t = L-1-s (direction 0) or t = s (direction 1).
-  auto load_step = [&](int s, StepIn& in) {
+  auto load_step = [&](int s, StepIn<KS>& in) {
     const int tt = d ? s : L - 1 - s;
     const bool hasp = d ? tt < L - 1 : tt > 0;
     const int tp = d ? tt + 1 : tt - 1;
@@ -1356,18 +1594,20 @@ __global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
       const long long n = n0 + g + 8 * rr;
       const bool ok = n < a.N;
       const size_t row = (size_t)n * L + tt;
-      const unsigned* pa = reinterpret_cast<const unsigned*>(
-          a.n1 + row * C + grp * H + 2 * t);
-      in.ax[rr] = ok ? __ldg(pa) : 0u;
-      in.ax[2 + rr] = ok ? __ldg(pa + 4) : 0u;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const unsigned* pa = reinterpret_cast<const unsigned*>(
+            a.n1 + row * C + (KS == 1 ? grp * 16 : kk * 16) + 2 * t);
+        in.ax[kk][rr] = ok ? __ldg(pa) : 0u;
+        in.ax[kk][2 + rr] = ok ? __ldg(pa + 4) : 0u;
+      }
+      const float* hrow = a.hid + ((size_t)d * NL + (size_t)n * L + tp) * C;
 #pragma unroll
       for (int jh = 0; jh < 2; ++jh) {
-        const int col = grp * H + 8 * jh + 2 * t;
+        const int col = grp * 16 + 8 * jh + 2 * t;
         float2 h = make_float2(0.f, 0.f), dv = make_float2(0.f, 0.f);
         if (ok) {
-          if (hasp)
-            h = __ldg(reinterpret_cast<const float2*>(
-                a.hid + ((size_t)d * NL + (size_t)n * L + tp) * C + col));
+          if (hasp) h = __ldg(reinterpret_cast<const float2*>(hrow + col));
           dv = __ldg(reinterpret_cast<const float2*>(a.ds + row * C + col));
           if (a.dglin) {
             const float2 e2 = __ldg(
@@ -1381,21 +1621,38 @@ __global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
         in.dg[jh][2 * rr] = dv.x;
         in.dg[jh][2 * rr + 1] = dv.y;
       }
+      if constexpr (KS > 1) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+          for (int jh = 0; jh < 2; ++jh) {
+            float2 h = make_float2(0.f, 0.f);
+            if (ok && hasp)
+              h = __ldg(reinterpret_cast<const float2*>(
+                  hrow + kk * 16 + 8 * jh + 2 * t));
+            in.ha[kk][2 * jh + rr] = pack_bf16(h.x, h.y);
+          }
+      }
     }
   };
 
   float carry[2][4] = {};
   float sr[2][2] = {}, sz[2][2] = {}, sxn[2][2] = {}, shn[2][2] = {};
   const size_t ldx = (size_t)D * 3 * C;
-  StepIn cur, nxt;
-  load_step(0, cur);
+  StepIn<KS> cur, nxt;
+  if constexpr (KS == 1) load_step(0, cur);
   for (int s = 0; s < L; ++s) {
-    if (s + 1 < L) load_step(s + 1, nxt);
+    if constexpr (KS == 1) {
+      if (s + 1 < L) load_step(s + 1, nxt);
+    } else {
+      load_step(s, cur);
+    }
     const int tt = d ? s : L - 1 - s;
-    const uint32_t ha[4] = {pack_bf16(cur.hv[0][0], cur.hv[0][1]),
-                            pack_bf16(cur.hv[0][2], cur.hv[0][3]),
-                            pack_bf16(cur.hv[1][0], cur.hv[1][1]),
-                            pack_bf16(cur.hv[1][2], cur.hv[1][3])};
+    // bf16(h_prev) of the warp's own units: A fragment (KS = 1) and output.
+    const uint32_t hown[4] = {pack_bf16(cur.hv[0][0], cur.hv[0][1]),
+                              pack_bf16(cur.hv[0][2], cur.hv[0][3]),
+                              pack_bf16(cur.hv[1][0], cur.hv[1][1]),
+                              pack_bf16(cur.hv[1][2], cur.hv[1][3])};
     float ar[2][4], az[2][4], xn[2][4], hn[2][4];
 #pragma unroll
     for (int jh = 0; jh < 2; ++jh)
@@ -1406,16 +1663,30 @@ __global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
         xn[jh][e] = bxn[jh][e & 1];
         hn[jh][e] = bhn[jh][e & 1];
       }
+    if constexpr (KS == 1) {
 #pragma unroll
-    for (int jh = 0; jh < 2; ++jh) {
-      mma(ar[jh], cur.ax, bi[jh][0], bi[jh][1]);
-      mma(az[jh], cur.ax, bi[2 + jh][0], bi[2 + jh][1]);
-      mma(xn[jh], cur.ax, bi[4 + jh][0], bi[4 + jh][1]);
-      mma(ar[jh], ha, bh[jh][0], bh[jh][1]);
-      mma(az[jh], ha, bh[2 + jh][0], bh[2 + jh][1]);
-      mma(hn[jh], ha, bh[4 + jh][0], bh[4 + jh][1]);
+      for (int jh = 0; jh < 2; ++jh) {
+        mma(ar[jh], cur.ax[0], bi[jh][0], bi[jh][1]);
+        mma(az[jh], cur.ax[0], bi[2 + jh][0], bi[2 + jh][1]);
+        mma(xn[jh], cur.ax[0], bi[4 + jh][0], bi[4 + jh][1]);
+        mma(ar[jh], hown, bh[jh][0], bh[jh][1]);
+        mma(az[jh], hown, bh[2 + jh][0], bh[2 + jh][1]);
+        mma(hn[jh], hown, bh[4 + jh][0], bh[4 + jh][1]);
+      }
+    } else {
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          mma(ar[jh], cur.ax[kk], bi[jh][kk][0], bi[jh][kk][1]);
+          mma(az[jh], cur.ax[kk], bi[2 + jh][kk][0], bi[2 + jh][kk][1]);
+          mma(xn[jh], cur.ax[kk], bi[4 + jh][kk][0], bi[4 + jh][kk][1]);
+          mma(ar[jh], cur.ha[kk], bh[jh][kk][0], bh[jh][kk][1]);
+          mma(az[jh], cur.ha[kk], bh[2 + jh][kk][0], bh[2 + jh][kk][1]);
+          mma(hn[jh], cur.ha[kk], bh[4 + jh][kk][0], bh[4 + jh][kk][1]);
+        }
     }
-    float er[2][4], ez[2][4], en[2][4], ex[2][4];
+    float er[2][4], ez[2][4], en[2][4], exv[2][4];
 #pragma unroll
     for (int jh = 0; jh < 2; ++jh)
 #pragma unroll
@@ -1428,11 +1699,11 @@ __global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
         er[jh][e] = dh * (P * hn[jh][e] * r * (1.f - r));
         ez[jh][e] = dh * ((cur.hv[jh][e] - nn) * z * (1.f - z));
         en[jh][e] = dh * (P * r);
-        ex[jh][e] = dh * P;
+        exv[jh][e] = dh * P;
         carry[jh][e] = dh * z;
         sr[jh][e & 1] += er[jh][e];
         sz[jh][e & 1] += ez[jh][e];
-        sxn[jh][e & 1] += ex[jh][e];
+        sxn[jh][e & 1] += exv[jh][e];
         shn[jh][e & 1] += en[jh][e];
       }
     uint32_t pr[4], pz[4], pn[4], px[4];
@@ -1444,13 +1715,43 @@ __global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
         pr[i] = pack_bf16(er[jh][2 * rr], er[jh][2 * rr + 1]);
         pz[i] = pack_bf16(ez[jh][2 * rr], ez[jh][2 * rr + 1]);
         pn[i] = pack_bf16(en[jh][2 * rr], en[jh][2 * rr + 1]);
-        px[i] = pack_bf16(ex[jh][2 * rr], ex[jh][2 * rr + 1]);
+        px[i] = pack_bf16(exv[jh][2 * rr], exv[jh][2 * rr + 1]);
       }
+    if constexpr (KS == 1) {
 #pragma unroll
-    for (int jh = 0; jh < 2; ++jh) {
-      mma(carry[jh], pr, bt[0][jh][0], bt[0][jh][1]);
-      mma(carry[jh], pz, bt[1][jh][0], bt[1][jh][1]);
-      mma(carry[jh], pn, bt[2][jh][0], bt[2][jh][1]);
+      for (int jh = 0; jh < 2; ++jh) {
+        mma(carry[jh], pr, bt[0][jh][0], bt[0][jh][1]);
+        mma(carry[jh], pz, bt[1][jh][0], bt[1][jh][1]);
+        mma(carry[jh], pn, bt[2][jh][0], bt[2][jh][1]);
+      }
+    } else {
+      // This warp's units' dhp into the step's buffer (row: sequence,
+      // column gate * 64 + unit), then all 64 units' as A fragments.
+      __nv_bfloat16* hb = ex + ((size_t)(s & 1) * D + d) * GS * LDW;
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = 2 * jh + rr;
+          uint32_t* dst = reinterpret_cast<uint32_t*>(
+              hb + (g + 8 * rr) * LDW + 16 * grp + 8 * jh + 2 * t);
+          dst[0] = pr[i];
+          dst[C / 2] = pz[i];
+          dst[C] = pn[i];
+        }
+      __syncthreads();
+      const __nv_bfloat16* wd = whs + (size_t)(d * C + 16 * grp) * LDW;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t af[4], wf[4];
+          load_a(af, hb + q * C + kk * 16, LDW, lane);
+          // B(k = o, n = j) = W_hh[j][q*64 + o], a [n][k] load.
+          load_b_nk(wf, wd + q * C + kk * 16, LDW, lane);
+          mma(carry[0], af, wf[0], wf[1]);
+          mma(carry[1], af, wf[2], wf[3]);
+        }
     }
 #pragma unroll
     for (int jh = 0; jh < 2; ++jh)
@@ -1461,22 +1762,22 @@ __global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
         const int i = 2 * jh + rr;
         const size_t row = (size_t)n * L + tt;
         *reinterpret_cast<uint32_t*>(
-            a.hprev + ((size_t)d * NL + row) * C + grp * H + 8 * jh +
-            2 * t) = ha[i];
-        const size_t o = row * ldx + d * 3 * C + grp * 3 * H + 8 * jh + 2 * t;
+            a.hprev + ((size_t)d * NL + row) * C + grp * 16 + 8 * jh +
+            2 * t) = hown[i];
+        const size_t o = row * ldx + d * 3 * C + scol + 8 * jh + 2 * t;
         uint32_t* hp = reinterpret_cast<uint32_t*>(a.dhp + o);
         uint32_t* xp = reinterpret_cast<uint32_t*>(a.dxp + o);
         hp[0] = pr[i];
-        hp[H / 2] = pz[i];
-        hp[H] = pn[i];
+        hp[W / 2] = pz[i];
+        hp[W] = pn[i];
         xp[0] = pr[i];
-        xp[H / 2] = pz[i];
-        xp[H] = px[i];
+        xp[W / 2] = pz[i];
+        xp[W] = px[i];
       }
-    cur = nxt;
+    if constexpr (KS == 1) cur = nxt;
   }
   // Column sums over the block's 16 sequences and all steps.
-  float* out = a.part + (size_t)blockIdx.x * 2 * ldx + d * 3 * C + grp * 3 * H;
+  float* out = a.part + (size_t)blockIdx.x * 2 * ldx + d * 3 * C + scol;
 #pragma unroll
   for (int jh = 0; jh < 2; ++jh)
 #pragma unroll
@@ -1491,85 +1792,220 @@ __global__ void __launch_bounds__(256, 2) bptt_tc_kernel(BpttArgs a) {
       if (lane < 4) {
         const int u = 8 * jh + 2 * t + e;
         out[u] = v[0];              // db_ih: r, z, n
-        out[H + u] = v[1];
-        out[2 * H + u] = v[2];
+        out[W + u] = v[1];
+        out[2 * W + u] = v[2];
         out[ldx + u] = v[0];        // db_hh: r, z, n
-        out[ldx + H + u] = v[1];
-        out[ldx + 2 * H + u] = v[3];
+        out[ldx + W + u] = v[1];
+        out[ldx + 2 * W + u] = v[3];
       }
     }
 }
 
+template <int KS>
+cudaError_t launch_bptt_tc(const BpttArgs& a, cudaStream_t st) {
+  const size_t smem = KS == 1 ? 0 : bptt_tc_smem(a.D);
+  cudaError_t e = allow_smem(bptt_tc_kernel<KS>, smem);
+  if (e != cudaSuccess) return e;
+  bptt_tc_kernel<KS><<<(unsigned)((a.N + GS - 1) / GS), a.D * 4 * 32, smem,
+                       st>>>(a);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // The attention core, recomputed and differentiated on tensor cores. A work
-// item is one (sequence, head): its q, k, v (and, backward, dctx) rows sit in
-// shared memory as bf16 [L][16] tiles (the whole sequence: L <= 512), one
+// item is one sequence and TW channels of q, k, v (and, backward, dctx):
+// one head of hd = HDP channels (HDP = 16, 32 or 64), or for HDP = 8 the
+// 16 / hd heads of a 16-channel k-step, taken in turn. Its rows sit in
+// shared memory as bf16 [L][TW] tiles (the whole sequence: L <= 512), one
 // block of up to 4 warps per item, each warp taking 16-row tiles in turn.
-// Scores are formed in log2 units, s log2(e) = (q . k) log2(e) / 4, so each
+// A head's scores take its KS = TW / 16 k-steps (HDP = 8: its k-step with
+// the other heads' channels zeroed, q_mask), its products over channels
+// the head's n8 tiles (HDP = 8: the one holding it, v_mask): the masks
+// make a narrow head exact, as the TPU kernel's zero blocks do. Scores are
+// formed in log2 units, s log2(e) = (q . k) log2(e) / sqrt(hd), so each
 // exp is one ex2; key chunks of 16 outside the band are skipped, partial
 // chunks masked.
 //
-// attn_fwd_tc_kernel: per query tile, walk 1 takes the row max m and sum l
-// online, walk 2 p = bf16(exp(s - m) / l) and ctx = p @ v. Writes bf16(ctx)
-// and (m, 1/l) per row and head for the backward.
+// attn_fwd_tc_kernel: per query tile and head, walk 1 takes the row max m
+// and sum l online, walk 2 p = bf16(exp(s - m) / l) and ctx = p @ v.
+// Writes bf16(ctx) and (m, 1/l) per row and head for the backward.
 // attn_bwd_tc_kernel, with the stored (m, 1/l) giving p again:
 //   query pass: walk 1 rowsum = sum_k p dp (dp = dctx . v, f32), walk 2
-//     ds = bf16(p (dp - rowsum)), dq = ds @ k / 4;
+//     ds = bf16(p (dp - rowsum)), dq = ds @ k / sqrt(hd);
 //   key pass (keys as the M rows): s^T = k q^T, p^T, dp^T = v dctx^T,
-//     dv = p^T @ dctx, dk = ds^T @ q / 4.
-// No sum crosses an item, so nothing is atomic.
+//     dv = p^T @ dctx, dk = ds^T @ q / sqrt(hd).
+// No sum crosses an item, so nothing is atomic. Four [L][72] tiles of a
+// 64-channel head would not fit at L = 512 (295 KB), so HDP = 64 keeps two
+// resident at a time (SPLIT): K, V for the query pass, whose Q and dctx A
+// fragments are read from device memory, then Q, dctx for the key pass,
+// whose K and V fragments are.
 struct HeadArgs {
   const __nv_bfloat16* qkv;   // [N*L, 192]
   const __nv_bfloat16* dctx;  // [N*L, 64] (backward)
-  float* stats;               // [N*L, 4, 2]: m (log2 units), 1/l
+  float* stats;               // [N*L, C/hd, 2]: m (log2 units), 1/l
   __nv_bfloat16* ctx;         // [N*L, 64] out (forward)
   __nv_bfloat16* dqkv;        // [N*L, 192] out (backward)
   int L;
   int lookback;
+  int hd;                     // head width: C / num_heads
+};
+
+// A work item's shape for padded head width HDP: TW channels staged per
+// row (row stride LD), KS 16-channel k-steps of a head's scores.
+template <int HDP>
+struct ItemShape {
+  static constexpr int TW = HDP >= 16 ? HDP : 16;
+  static constexpr int KS = TW / 16;
+  static constexpr int LD = TW + 8;
+  static constexpr bool SPLIT = HDP == 64;  // the backward's two phases
 };
 
 __host__ __device__ inline int head_lp(int L) { return (L + 15) / 16 * 16; }
 inline int head_warps(int L) { return L > 48 ? 4 : (L + 15) / 16; }
-inline size_t attn_fwd_smem(int L) {
-  return (size_t)3 * head_lp(L) * LDH * sizeof(__nv_bfloat16);
+// Heads a work item takes in turn.
+__host__ __device__ inline int item_heads(int HDP, int hd) {
+  return HDP >= 16 ? 1 : 16 / hd;
 }
-inline size_t attn_bwd_smem(int L) {
-  return (size_t)4 * head_lp(L) * LDH * sizeof(__nv_bfloat16) +
-         (size_t)3 * head_lp(L) * sizeof(float);
+template <int HDP>
+inline size_t attn_fwd_smem(int L) {
+  return (size_t)3 * head_lp(L) * ItemShape<HDP>::LD * sizeof(__nv_bfloat16);
+}
+template <int HDP>
+inline size_t attn_bwd_smem(int L, int hd) {
+  using S = ItemShape<HDP>;
+  return (size_t)(S::SPLIT ? 2 : 4) * head_lp(L) * S::LD *
+             sizeof(__nv_bfloat16) +
+         (size_t)3 * item_heads(HDP, hd) * head_lp(L) * sizeof(float);
 }
 
-// Rows [0, Lp) of one head of a [N*L, ld] bf16 array, from column `col`,
-// into a [Lp][LDH] tile (rows >= L zero).
+// Rows [0, Lp) of TW channels of a [N*L, ld] bf16 array, from column
+// `col`, into a [Lp][TW + 8] tile (rows >= L zero).
+template <int TW>
 __device__ __forceinline__ void load_head(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           int ld, int col, int L, int Lp) {
-  for (int i = threadIdx.x; i < 2 * Lp; i += blockDim.x) {
-    const int r = i >> 1, part = i & 1;
+  constexpr int P = TW / 8, LD = TW + 8;
+  for (int i = threadIdx.x; i < P * Lp; i += blockDim.x) {
+    const int r = i / P, part = i % P;
     const bool ok = r < L;
-    cp_async16(dst + r * LDH + part * 8,
+    cp_async16(dst + r * LD + part * 8,
                src + (size_t)(ok ? r : 0) * ld + col + part * 8, ok);
   }
 }
 
-// Scores (log2 units) of the 16 rows of A fragment `qa` against 16 keys at
-// `kb` (a [key][16] tile), masked to -inf: key >= L, or outside the band of
-// the row. Element [j][e]: row rq[e >> 1], key k0 + 8j + 2t + (e & 1).
-__device__ __forceinline__ void scores16(float sc[2][4], const uint32_t qa[4],
+// The A fragments of a 16-row tile over KS k-steps from a staged tile.
+template <int KS>
+__device__ __forceinline__ void load_a_ks(uint32_t (&a)[KS][4],
+                                          const __nv_bfloat16* base, int ld,
+                                          int lane) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_a(a[ks], base + ks * 16, ld, lane);
+}
+
+// The same from device memory (rows r0 .. of `rows`; past them zero).
+template <int KS>
+__device__ __forceinline__ void ldg_a_ks(uint32_t (&a)[KS][4],
+                                         const __nv_bfloat16* p, int ld,
+                                         long long r0, long long rows,
+                                         int col, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldg_a(a[ks], p, ld, r0, rows, col + ks * 16, lane);
+}
+
+// A head's copy of a tile's A fragments: for HDP = 8 its k-step masked to
+// its channels, else the fragments as they are.
+template <int HDP, int KS>
+__device__ __forceinline__ void head_a(uint32_t (&dst)[KS][4],
+                                       const uint32_t (&src)[KS][4], int h,
+                                       int hd, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[ks][i] = src[ks][i];
+  if (HDP == 8) q_mask(dst[0], h, hd, lane);
+}
+
+// acc (n8 tiles over the item's TW channels) += A @ B, B the [k][n] tile at
+// `b` (16 rows of TW channels, row stride LD): a 16-channel k-step of P @ V,
+// dq = ds @ k, dv = p^T @ dctx or dk = ds^T @ q. For HDP = 8 only head h's
+// n8 tile, its other heads' channels zeroed (v_mask).
+template <int HDP>
+__device__ __forceinline__ void head_product(
+    float (&acc)[ItemShape<HDP>::TW / 8][4], const uint32_t (&pa)[4],
+    const __nv_bfloat16* b, int h, int hd, int lane) {
+  using S = ItemShape<HDP>;
+  if constexpr (HDP >= 16) {
+#pragma unroll
+    for (int ks = 0; ks < S::KS; ++ks) {
+      uint32_t bf[4];
+      load_b_kn(bf, b + ks * 16, S::LD, lane);
+      mma(acc[2 * ks], pa, bf[0], bf[1]);
+      mma(acc[2 * ks + 1], pa, bf[2], bf[3]);
+    }
+  } else {
+    uint32_t bf[4];
+    load_b_kn(bf, b, S::LD, lane);
+    const uint32_t vm = v_mask(h, hd, lane);
+    if (((h * hd) & 15) >> 3) {
+      mma(acc[1], pa, bf[2] & vm, bf[3] & vm);
+    } else {
+      mma(acc[0], pa, bf[0] & vm, bf[1] & vm);
+    }
+  }
+}
+
+// acc0 += A0 @ B0 and acc1 += A1 @ B1 (head_product twice), both B tiles
+// loaded before the products: dv and dk of the key pass.
+template <int HDP>
+__device__ __forceinline__ void head_product2(
+    float (&acc0)[ItemShape<HDP>::TW / 8][4], const uint32_t (&a0)[4],
+    const __nv_bfloat16* b0, float (&acc1)[ItemShape<HDP>::TW / 8][4],
+    const uint32_t (&a1)[4], const __nv_bfloat16* b1, int h, int hd,
+    int lane) {
+  using S = ItemShape<HDP>;
+  if constexpr (HDP >= 16) {
+#pragma unroll
+    for (int ks = 0; ks < S::KS; ++ks) {
+      uint32_t f0[4], f1[4];
+      load_b_kn(f0, b0 + ks * 16, S::LD, lane);
+      load_b_kn(f1, b1 + ks * 16, S::LD, lane);
+      mma(acc0[2 * ks], a0, f0[0], f0[1]);
+      mma(acc0[2 * ks + 1], a0, f0[2], f0[3]);
+      mma(acc1[2 * ks], a1, f1[0], f1[1]);
+      mma(acc1[2 * ks + 1], a1, f1[2], f1[3]);
+    }
+  } else {
+    head_product<HDP>(acc0, a0, b0, h, hd, lane);
+    head_product<HDP>(acc1, a1, b1, h, hd, lane);
+  }
+}
+
+// Scores (log2 units) of the 16 rows of A fragments `qa` (the head's
+// k-steps) against 16 keys at `kb` (a [key][TW] tile), masked to -inf:
+// key >= L, or outside the band of the row. Element [j][e]: row rq[e >> 1],
+// key k0 + 8j + 2t + (e & 1).
+template <int KS, int LD>
+__device__ __forceinline__ void scores16(float (&sc)[2][4],
+                                         const uint32_t (&qa)[KS][4],
                                          const __nv_bfloat16* kb, int k0,
                                          const int rq[2], int L, int lb,
-                                         int lane) {
+                                         float scale2, int lane) {
   const int t = lane & 3;
-  uint32_t kf[4];
-  load_b_nk(kf, kb, LDH, lane);
+  uint32_t kf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_b_nk(kf[ks], kb + ks * 16, LD, lane);
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-    mma(sc[j], qa, kf[2 * j], kf[2 * j + 1]);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma(sc[j], qa[ks], kf[ks][2 * j], kf[ks][2 * j + 1]);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = k0 + 8 * j + 2 * t + (e & 1), row = rq[e >> 1];
       const bool ok = key < L && (lb < 0 || (key <= row && key >= row - lb));
-      sc[j][e] = ok ? sc[j][e] * QK_SCALE2 : -INFINITY;
+      sc[j][e] = ok ? sc[j][e] * scale2 : -INFINITY;
     }
   }
 }
@@ -1594,109 +2030,150 @@ __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The bf16 pairs of 16 rows' TW-channel outputs (C-fragment layout, n8
+// tile j = channels 8j ..), times `scale`, at column `col` of rows rowbase
+// + r0 .. of a [N*L, ld] array (rows >= L skipped).
+template <int NT>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, int ld,
+                                           size_t rowbase, int r0, int L,
+                                           int col, const float (&o)[NT][4],
+                                           float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = r0 + g + 8 * r;
+    if (q >= L) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<uint32_t*>(out + (rowbase + q) * ld + col + 8 * j +
+                                   2 * t) =
+          pack_bf16(o[j][2 * r] * scale, o[j][2 * r + 1] * scale);
+  }
+}
+
+template <int HDP>
 __global__ void attn_fwd_tc_kernel(HeadArgs a) {
+  using S = ItemShape<HDP>;
+  constexpr int TW = S::TW, KS = S::KS, LD = S::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int L = a.L, lb = a.lookback, Lp = head_lp(L);
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + Lp * LDH;
-  __nv_bfloat16* Vs = Ks + Lp * LDH;
-  const long long n = blockIdx.x / NH;
-  const int h = blockIdx.x % NH;
+  __nv_bfloat16* Ks = Qs + Lp * LD;
+  __nv_bfloat16* Vs = Ks + Lp * LD;
+  const int hd = HDP >= 16 ? HDP : a.hd;
+  const int nh = C / hd, hpi = item_heads(HDP, hd);
+  const float scale2 = qk_scale2(hd);
+  const long long n = blockIdx.x / (C / TW);
+  const int c0 = (blockIdx.x % (C / TW)) * TW;  // the item's first channel
   const size_t rowbase = (size_t)n * L;
   const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
-  load_head(Qs, src, 3 * C, h * HD, L, Lp);
-  load_head(Ks, src, 3 * C, C + h * HD, L, Lp);
-  load_head(Vs, src, 3 * C, 2 * C + h * HD, L, Lp);
+  load_head<TW>(Qs, src, 3 * C, c0, L, Lp);
+  load_head<TW>(Ks, src, 3 * C, C + c0, L, Lp);
+  load_head<TW>(Vs, src, 3 * C, 2 * C + c0, L, Lp);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5, g = lane >> 2, t = lane & 3;
+  const int nwarps = blockDim.x >> 5, t = lane & 3;
   for (int q0 = warp * 16; q0 < Lp; q0 += nwarps * 16) {
-    const int rq[2] = {q0 + g, q0 + g + 8};
-    uint32_t qa[4];
-    load_a(qa, Qs + q0 * LDH, LDH, lane);
+    const int rq[2] = {q0 + (lane >> 2), q0 + (lane >> 2) + 8};
+    uint32_t qt[KS][4];
+    load_a_ks<KS>(qt, Qs + q0 * LD, LD, lane);
     int kc0, kc1;
     key_chunks(q0, L, lb, kc0, kc1);
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    for (int kc = kc0; kc <= kc1; ++kc) {
-      float sc[2][4];
-      scores16(sc, qa, Ks + kc * 16 * LDH, kc * 16, rq, L, lb, lane);
+    float o[TW / 8][4] = {};
+    for (int hh = 0; hh < hpi; ++hh) {
+      const int h = c0 / hd + hh;
+      uint32_t qa[KS][4];
+      head_a<HDP, KS>(qa, qt, h, hd, lane);
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      for (int kc = kc0; kc <= kc1; ++kc) {
+        float sc[2][4];
+        scores16<KS, LD>(sc, qa, Ks + kc * 16 * LD, kc * 16, rq, L, lb,
+                         scale2, lane);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mx =
+              quad_max(fmaxf(fmaxf(sc[0][2 * r], sc[0][2 * r + 1]),
+                             fmaxf(sc[1][2 * r], sc[1][2 * r + 1])));
+          const float mnew = fmaxf(m[r], mx);
+          const float mb = mnew == -INFINITY ? 0.f : mnew;
+          const float part =
+              (ex2(sc[0][2 * r] - mb) + ex2(sc[0][2 * r + 1] - mb)) +
+              (ex2(sc[1][2 * r] - mb) + ex2(sc[1][2 * r + 1] - mb));
+          l[r] = fmaf(l[r], ex2(m[r] - mb), part);
+          m[r] = mnew;
+        }
+      }
+      float il[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float mx = quad_max(fmaxf(fmaxf(sc[0][2 * r], sc[0][2 * r + 1]),
-                                        fmaxf(sc[1][2 * r], sc[1][2 * r + 1])));
-        const float mnew = fmaxf(m[r], mx);
-        const float mb = mnew == -INFINITY ? 0.f : mnew;
-        const float part = (ex2(sc[0][2 * r] - mb) + ex2(sc[0][2 * r + 1] - mb)) +
-                           (ex2(sc[1][2 * r] - mb) + ex2(sc[1][2 * r + 1] - mb));
-        l[r] = fmaf(l[r], ex2(m[r] - mb), part);
-        m[r] = mnew;
+        if (m[r] == -INFINITY) m[r] = 0.f;
+        const float tot = quad_sum(l[r]);
+        il[r] = tot > 0.f ? 1.f / tot : 0.f;
       }
+      for (int kc = kc0; kc <= kc1; ++kc) {
+        float sc[2][4];
+        scores16<KS, LD>(sc, qa, Ks + kc * 16 * LD, kc * 16, rq, L, lb,
+                         scale2, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[j][e] = ex2(sc[j][e] - m[e >> 1]) * il[e >> 1];
+        uint32_t pa[4];
+        pack_a(pa, sc);
+        head_product<HDP>(o, pa, Vs + kc * 16 * LD, h, hd, lane);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rq[r] < L && t == 0)
+          *reinterpret_cast<float2*>(a.stats +
+                                     ((rowbase + rq[r]) * nh + h) * 2) =
+              make_float2(m[r], il[r]);
     }
-    float il[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (m[r] == -INFINITY) m[r] = 0.f;
-      const float tot = quad_sum(l[r]);
-      il[r] = tot > 0.f ? 1.f / tot : 0.f;
-    }
-    float o[2][4] = {};
-    for (int kc = kc0; kc <= kc1; ++kc) {
-      float sc[2][4];
-      scores16(sc, qa, Ks + kc * 16 * LDH, kc * 16, rq, L, lb, lane);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[j][e] = ex2(sc[j][e] - m[e >> 1]) * il[e >> 1];
-      uint32_t pa[4], vf[4];
-      pack_a(pa, sc);
-      load_b_kn(vf, Vs + kc * 16 * LDH, LDH, lane);
-      mma(o[0], pa, vf[0], vf[1]);
-      mma(o[1], pa, vf[2], vf[3]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rq[r] >= L) continue;
-      const size_t row = rowbase + rq[r];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        *reinterpret_cast<uint32_t*>(a.ctx + row * C + h * HD + 8 * j + 2 * t) =
-            pack_bf16(o[j][2 * r], o[j][2 * r + 1]);
-      if (t == 0)
-        *reinterpret_cast<float2*>(a.stats + (row * NH + h) * 2) =
-            make_float2(m[r], il[r]);
-    }
+    store_rows<TW / 8>(a.ctx, C, rowbase, q0, L, c0, o, 1.f, lane);
   }
 }
 
+template <int HDP>
 __global__ void attn_bwd_tc_kernel(HeadArgs a) {
+  using S = ItemShape<HDP>;
+  constexpr int TW = S::TW, KS = S::KS, LD = S::LD;
+  constexpr bool SPLIT = S::SPLIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int L = a.L, lb = a.lookback, Lp = head_lp(L);
+  const int hd = HDP >= 16 ? HDP : a.hd;
+  const int nh = C / hd, hpi = item_heads(HDP, hd);
+  const float scale2 = qk_scale2(hd), scale = inv_sqrt_hd(hd);
+  // Tiles [Lp][LD]: Q, K, V, dctx; SPLIT: K, V in the query pass, then Q,
+  // dctx in their place for the key pass.
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + Lp * LDH;
-  __nv_bfloat16* Vs = Ks + Lp * LDH;
-  __nv_bfloat16* Os = Vs + Lp * LDH;  // dctx
-  float* ms = reinterpret_cast<float*>(Os + Lp * LDH);
-  float* ils = ms + Lp;
-  float* rss = ils + Lp;
-  const long long n = blockIdx.x / NH;
-  const int h = blockIdx.x % NH;
+  __nv_bfloat16* Ks = Qs + (SPLIT ? 0 : 1) * Lp * LD;
+  __nv_bfloat16* Vs = Qs + (SPLIT ? 1 : 2) * Lp * LD;
+  __nv_bfloat16* Os = Qs + (SPLIT ? 1 : 3) * Lp * LD;  // dctx
+  float* ms = reinterpret_cast<float*>(Qs + (SPLIT ? 2 : 4) * Lp * LD);
+  float* ils = ms + hpi * Lp;  // [hpi][Lp] each
+  float* rss = ils + hpi * Lp;
+  const long long n = blockIdx.x / (C / TW);
+  const int c0 = (blockIdx.x % (C / TW)) * TW;  // the item's first channel
   const size_t rowbase = (size_t)n * L;
   const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
-  load_head(Qs, src, 3 * C, h * HD, L, Lp);
-  load_head(Ks, src, 3 * C, C + h * HD, L, Lp);
-  load_head(Vs, src, 3 * C, 2 * C + h * HD, L, Lp);
-  load_head(Os, a.dctx + rowbase * C, C, h * HD, L, Lp);
+  const __nv_bfloat16* dsrc = a.dctx + rowbase * C;
+  if (!SPLIT) load_head<TW>(Qs, src, 3 * C, c0, L, Lp);
+  load_head<TW>(Ks, src, 3 * C, C + c0, L, Lp);
+  load_head<TW>(Vs, src, 3 * C, 2 * C + c0, L, Lp);
+  if (!SPLIT) load_head<TW>(Os, dsrc, C, c0, L, Lp);
   cp_async_commit();
-  for (int r = threadIdx.x; r < Lp; r += blockDim.x) {
-    float2 st = make_float2(0.f, 0.f);
-    if (r < L) st = *reinterpret_cast<const float2*>(
-                   a.stats + ((rowbase + r) * NH + h) * 2);
-    ms[r] = st.x;
-    ils[r] = st.y;
-  }
+  for (int hh = 0; hh < hpi; ++hh)
+    for (int r = threadIdx.x; r < Lp; r += blockDim.x) {
+      float2 st = make_float2(0.f, 0.f);
+      if (r < L)
+        st = *reinterpret_cast<const float2*>(
+            a.stats + ((rowbase + r) * nh + c0 / hd + hh) * 2);
+      ms[hh * Lp + r] = st.x;
+      ils[hh * Lp + r] = st.y;
+    }
   cp_async_wait<0>();
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1705,121 +2182,181 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
   // Query pass: rowsum, then dq.
   for (int q0 = warp * 16; q0 < Lp; q0 += nwarps * 16) {
     const int rq[2] = {q0 + g, q0 + g + 8};
-    const float mr[2] = {ms[rq[0]], ms[rq[1]]};
-    const float ir[2] = {ils[rq[0]], ils[rq[1]]};
-    uint32_t qa[4], oa[4];
-    load_a(qa, Qs + q0 * LDH, LDH, lane);
-    load_a(oa, Os + q0 * LDH, LDH, lane);
+    uint32_t qt[KS][4], ot[KS][4];
+    if constexpr (SPLIT) {
+      ldg_a_ks<KS>(qt, src, 3 * C, q0, L, c0, lane);
+      ldg_a_ks<KS>(ot, dsrc, C, q0, L, c0, lane);
+    } else {
+      load_a_ks<KS>(qt, Qs + q0 * LD, LD, lane);
+      load_a_ks<KS>(ot, Os + q0 * LD, LD, lane);
+    }
     int kc0, kc1;
     key_chunks(q0, L, lb, kc0, kc1);
-    // p and dp of one key chunk.
-    auto chunk = [&](int kc, float p[2][4], float dp[2][4]) {
-      scores16(p, qa, Ks + kc * 16 * LDH, kc * 16, rq, L, lb, lane);
-      uint32_t vf[4];
-      load_b_nk(vf, Vs + kc * 16 * LDH, LDH, lane);
+    float dq[TW / 8][4];  // zeroed before the first head's walk 2
+    for (int hh = 0; hh < hpi; ++hh) {
+      const int h = c0 / hd + hh;
+      const float mr[2] = {ms[hh * Lp + rq[0]], ms[hh * Lp + rq[1]]};
+      const float ir[2] = {ils[hh * Lp + rq[0]], ils[hh * Lp + rq[1]]};
+      uint32_t qa[KS][4], oa[KS][4];
+      head_a<HDP, KS>(qa, qt, h, hd, lane);
+      head_a<HDP, KS>(oa, ot, h, hd, lane);
+      // p and dp of one key chunk.
+      auto chunk = [&](int kc, float (&p)[2][4], float (&dp)[2][4]) {
+        scores16<KS, LD>(p, qa, Ks + kc * 16 * LD, kc * 16, rq, L, lb,
+                         scale2, lane);
+        uint32_t vf[KS][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-        mma(dp[j], oa, vf[2 * j], vf[2 * j + 1]);
+        for (int ks = 0; ks < KS; ++ks)
+          load_b_nk(vf[ks], Vs + kc * 16 * LD + ks * 16, LD, lane);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[j][e] = bf16r(ex2(p[j][e] - mr[e >> 1]) * ir[e >> 1]);
+        for (int j = 0; j < 2; ++j) {
+          dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            mma(dp[j], oa[ks], vf[ks][2 * j], vf[ks][2 * j + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[j][e] = bf16r(ex2(p[j][e] - mr[e >> 1]) * ir[e >> 1]);
+        }
+      };
+      float rs[2] = {0.f, 0.f};
+      for (int kc = kc0; kc <= kc1; ++kc) {
+        float p[2][4], dp[2][4];
+        chunk(kc, p, dp);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            rs[e >> 1] = fmaf(dp[j][e], p[j][e], rs[e >> 1]);
       }
-    };
-    float rs[2] = {0.f, 0.f};
-    for (int kc = kc0; kc <= kc1; ++kc) {
-      float p[2][4], dp[2][4];
-      chunk(kc, p, dp);
+      rs[0] = quad_sum(rs[0]);
+      rs[1] = quad_sum(rs[1]);
+      if (hh == 0) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < TW / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) rs[e >> 1] = fmaf(dp[j][e], p[j][e], rs[e >> 1]);
+          for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+      }
+      for (int kc = kc0; kc <= kc1; ++kc) {
+        float p[2][4], dp[2][4];
+        chunk(kc, p, dp);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[j][e] = p[j][e] * (dp[j][e] - rs[e >> 1]);
+        uint32_t sa[4];
+        pack_a(sa, p);
+        head_product<HDP>(dq, sa, Ks + kc * 16 * LD, h, hd, lane);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (t == 0) rss[hh * Lp + rq[r]] = rs[r];
     }
-    rs[0] = quad_sum(rs[0]);
-    rs[1] = quad_sum(rs[1]);
-    float dq[2][4] = {};
-    for (int kc = kc0; kc <= kc1; ++kc) {
-      float p[2][4], dp[2][4];
-      chunk(kc, p, dp);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[j][e] = p[j][e] * (dp[j][e] - rs[e >> 1]);
-      uint32_t sa[4], kf[4];
-      pack_a(sa, p);
-      load_b_kn(kf, Ks + kc * 16 * LDH, LDH, lane);
-      mma(dq[0], sa, kf[0], kf[1]);
-      mma(dq[1], sa, kf[2], kf[3]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (t == 0) rss[rq[r]] = rs[r];
-      if (rq[r] >= L) continue;
-      const size_t row = rowbase + rq[r];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        *reinterpret_cast<uint32_t*>(a.dqkv + row * 3 * C + h * HD + 8 * j +
-                                     2 * t) =
-            pack_bf16(dq[j][2 * r] * 0.25f, dq[j][2 * r + 1] * 0.25f);
-    }
+    store_rows<TW / 8>(a.dqkv, 3 * C, rowbase, q0, L, c0, dq, scale, lane);
   }
   __syncthreads();
+  if constexpr (SPLIT) {  // K, V are done with: Q and dctx in their place
+    load_head<TW>(Qs, src, 3 * C, c0, L, Lp);
+    load_head<TW>(Os, dsrc, C, c0, L, Lp);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
 
   // Key pass: the keys as the M rows, dk and dv.
   for (int k0 = warp * 16; k0 < Lp; k0 += nwarps * 16) {
-    uint32_t ka[4], va[4];
-    load_a(ka, Ks + k0 * LDH, LDH, lane);
-    load_a(va, Vs + k0 * LDH, LDH, lane);
+    uint32_t kt[KS][4], vt[KS][4];
+    if constexpr (SPLIT) {
+      ldg_a_ks<KS>(kt, src, 3 * C, k0, L, C + c0, lane);
+      ldg_a_ks<KS>(vt, src, 3 * C, k0, L, 2 * C + c0, lane);
+    } else {
+      load_a_ks<KS>(kt, Ks + k0 * LD, LD, lane);
+      load_a_ks<KS>(vt, Vs + k0 * LD, LD, lane);
+    }
     const int kr[2] = {k0 + g, k0 + g + 8};
     const int qc0 = k0 / 16;
     const int qc1 =
         lb >= 0 ? min(L - 1, k0 + 15 + lb) / 16 : (L - 1) / 16;
-    float dk[2][4] = {}, dv[2][4] = {};
-    for (int qc = lb >= 0 ? qc0 : 0; qc <= qc1; ++qc) {
-      uint32_t qf[4], of[4];
-      load_b_nk(qf, Qs + qc * 16 * LDH, LDH, lane);
-      load_b_nk(of, Os + qc * 16 * LDH, LDH, lane);
-      float p[2][4], ds[2][4];
+    float dk[TW / 8][4] = {}, dv[TW / 8][4] = {};
+    for (int hh = 0; hh < hpi; ++hh) {
+      const int h = c0 / hd + hh;
+      const float* mh = ms + hh * Lp;
+      const float* ih = ils + hh * Lp;
+      const float* rh = rss + hh * Lp;
+      uint32_t ka[KS][4], va[KS][4];
+      head_a<HDP, KS>(ka, kt, h, hd, lane);
+      head_a<HDP, KS>(va, vt, h, hd, lane);
+      for (int qc = lb >= 0 ? qc0 : 0; qc <= qc1; ++qc) {
+        uint32_t qf[KS][4], of[KS][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-        mma(s, ka, qf[2 * j], qf[2 * j + 1]);
-        mma(dp, va, of[2 * j], of[2 * j + 1]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = qc * 16 + 8 * j + 2 * t + (e & 1), key = kr[e >> 1];
-          const bool ok = q < L && key < L &&
-                          (lb < 0 || (key <= q && key >= q - lb));
-          const float pe =
-              ok ? bf16r(ex2(s[e] * QK_SCALE2 - ms[q]) * ils[q]) : 0.f;
-          p[j][e] = pe;
-          ds[j][e] = pe * (dp[e] - rss[q]);
+        for (int ks = 0; ks < KS; ++ks) {
+          load_b_nk(qf[ks], Qs + qc * 16 * LD + ks * 16, LD, lane);
+          load_b_nk(of[ks], Os + qc * 16 * LD + ks * 16, LD, lane);
         }
-      }
-      uint32_t pa[4], sa[4], ob[4], qb[4];
-      pack_a(pa, p);
-      pack_a(sa, ds);
-      load_b_kn(ob, Os + qc * 16 * LDH, LDH, lane);
-      load_b_kn(qb, Qs + qc * 16 * LDH, LDH, lane);
-      mma(dv[0], pa, ob[0], ob[1]);
-      mma(dv[1], pa, ob[2], ob[3]);
-      mma(dk[0], sa, qb[0], qb[1]);
-      mma(dk[1], sa, qb[2], qb[3]);
-    }
+        float p[2][4], ds[2][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (kr[r] >= L) continue;
-      const size_t row = rowbase + kr[r];
+        for (int j = 0; j < 2; ++j) {
+          float sj[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = h * HD + 8 * j + 2 * t;
-        *reinterpret_cast<uint32_t*>(a.dqkv + row * 3 * C + C + col) =
-            pack_bf16(dk[j][2 * r] * 0.25f, dk[j][2 * r + 1] * 0.25f);
-        *reinterpret_cast<uint32_t*>(a.dqkv + row * 3 * C + 2 * C + col) =
-            pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
+          for (int ks = 0; ks < KS; ++ks) {
+            mma(sj, ka[ks], qf[ks][2 * j], qf[ks][2 * j + 1]);
+            mma(dp, va[ks], of[ks][2 * j], of[ks][2 * j + 1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = qc * 16 + 8 * j + 2 * t + (e & 1), key = kr[e >> 1];
+            const bool ok = q < L && key < L &&
+                            (lb < 0 || (key <= q && key >= q - lb));
+            const float pe =
+                ok ? bf16r(ex2(sj[e] * scale2 - mh[q]) * ih[q]) : 0.f;
+            p[j][e] = pe;
+            ds[j][e] = pe * (dp[e] - rh[q]);
+          }
+        }
+        uint32_t pa[4], sa[4];
+        pack_a(pa, p);
+        pack_a(sa, ds);
+        head_product2<HDP>(dv, pa, Os + qc * 16 * LD, dk, sa,
+                           Qs + qc * 16 * LD, h, hd, lane);
       }
     }
+    store_rows<TW / 8>(a.dqkv, 3 * C, rowbase, k0, L, C + c0, dk, scale,
+                       lane);
+    store_rows<TW / 8>(a.dqkv, 3 * C, rowbase, k0, L, 2 * C + c0, dv, 1.f,
+                       lane);
+  }
+}
+
+// The attention's forward recompute, then later its backward, for N
+// sequences: attn_*_tc_kernel<head_pad(hd)>, one block per work item.
+template <int HDP>
+cudaError_t launch_head_hd(const HeadArgs& a, long long N, bool backward,
+                           cudaStream_t st) {
+  const unsigned items = (unsigned)(N * (C / ItemShape<HDP>::TW));
+  const int threads = 32 * head_warps(a.L);
+  if (!backward) {
+    const size_t smem = attn_fwd_smem<HDP>(a.L);
+    cudaError_t e = allow_smem(attn_fwd_tc_kernel<HDP>, smem);
+    if (e != cudaSuccess) return e;
+    attn_fwd_tc_kernel<HDP><<<items, threads, smem, st>>>(a);
+    return cudaGetLastError();
+  }
+  const size_t smem = attn_bwd_smem<HDP>(a.L, a.hd);
+  cudaError_t e = allow_smem(attn_bwd_tc_kernel<HDP>, smem);
+  if (e != cudaSuccess) return e;
+  attn_bwd_tc_kernel<HDP><<<items, threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_head(const HeadArgs& a, long long N, bool backward,
+                               cudaStream_t st) {
+  switch (head_pad(a.hd)) {
+    case 8: return launch_head_hd<8>(a, N, backward, st);
+    case 16: return launch_head_hd<16>(a, N, backward, st);
+    case 32: return launch_head_hd<32>(a, N, backward, st);
+    case 64: return launch_head_hd<64>(a, N, backward, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -1831,8 +2368,9 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
 // each warp keeps up to WG_UNITS 16x16 output units in f32 registers, their
 // A^T fragments from ldmatrix.trans. A product's outputs go to the block's
 // partial row; reduce_tc_kernel adds the rows in block order. `grouped`:
-// only the G diagonal [16 x 48] blocks of a [64 x 192] product (the grouped
-// GRU weights, out[g][i][m]). `cs_off >= 0`: also the column sums of B.
+// only the 4 diagonal [16 x 48] blocks of a [64 x 192] product (the GRU
+// weights in slots of 16, out[slot][i][m]; one dense slot of 64 is a dense
+// product). `cs_off >= 0`: also the column sums of B.
 struct WgProd {
   const __nv_bfloat16* A;
   const __nv_bfloat16* B;
@@ -1853,6 +2391,7 @@ struct WgArgs {
 };
 
 __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
+  constexpr int H = 16, G = C / H;  // `grouped`: GRU slots of 16 units
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -2002,8 +2541,9 @@ struct ScratchTC {
   int grid_rows, grid_wg, nout;
   long long wg_chunk;
 
+  // nh heads; GRU slots of W units.
   ScratchTC(unsigned char* base, long long N, int L, int D, int lin_in,
-            int grid_rows_, int grid_wg_) {
+            int nh, int W, int grid_rows_, int grid_wg_) {
     const long long rows = N * L;
     grid_rows = grid_rows_;
     grid_wg = grid_wg_;
@@ -2012,7 +2552,7 @@ struct ScratchTC {
     if (wg_chunk < 64) wg_chunk = 64;
     grid_wg = (int)((rows + wg_chunk - 1) / wg_chunk);
     if (grid_wg < 1) grid_wg = 1;
-    nout = lin_in * C + C * C + C * 3 * C + 3 * C + 2 * D * G * H * 3 * H;
+    nout = lin_in * C + C * C + C * 3 * C + 3 * C + 2 * D * C * 3 * W;
     long long off = 0;
     auto take = [&](long long bytes) {
       unsigned char* p = base ? base + off : nullptr;
@@ -2024,7 +2564,7 @@ struct ScratchTC {
     const long long front0 = off;
     qkv = (__nv_bfloat16*)take(rows * 3 * C * b16);
     s = (float*)take(rows * C * f32);
-    stats = (float*)take(rows * NH * 2 * f32);
+    stats = (float*)take(rows * nh * 2 * f32);
     dctx = (__nv_bfloat16*)take(rows * C * b16);
     const long long front1 = off;
     off = front0;
@@ -2082,16 +2622,21 @@ inline cudaError_t tc_grids(long long rows, int* grid_rows, int* grid_wg) {
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
-// Floats of scratch `lct_ftf_backward` needs for N sequences of length L.
+// Floats of scratch `lct_ftf_backward_f32` needs for N sequences of length
+// L (the same at every width), or -1 for widths the kernels do not take.
 extern "C" long long lct_ftf_backward_scratch_floats(long long N, int L,
-                                                     int D) {
+                                                     int D, int num_heads,
+                                                     int slots) {
+  if (!lct::widths_ok(num_heads, slots)) return -1;
   return lct::Scratch(nullptr, N * L, D).total;
 }
 
 // x, dout, dx: [N, L, 64]; hid: [D, N*L, 64]; parameters as in
-// lct_ftf_forward (ftf.cu), their gradients in the same shapes; scratch:
-// lct_ftf_backward_scratch_floats(N, L, D) floats. lookback < 0 means no
-// band. Returns a cudaError_t.
+// lct_ftf_forward (ftf.cu), the GRU's in `slots` slots ([D, slots, W, 3W] /
+// [D, slots, 3W], W = 64 / slots, slots = 4 or 1), their gradients in the
+// same shapes; num_heads divides 64; scratch:
+// lct_ftf_backward_scratch_floats(N, L, D, num_heads, slots) floats.
+// lookback < 0 means no band. Returns a cudaError_t.
 extern "C" int lct_ftf_backward_f32(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -2102,14 +2647,16 @@ extern "C" int lct_ftf_backward_f32(
     float* dln1_b, float* dw_ih, float* dw_hh, float* db_ih, float* db_hh,
     float* dln2_s, float* dln2_b, float* din_w, float* din_b, float* dout_w,
     float* dout_b, float* dlin_w, float* dlin_b, float* scratch, long long N,
-    int L, int D, int lin_in, int lookback, int precise, int device,
-    void* stream) {
+    int L, int D, int lin_in, int lookback, int precise, int num_heads,
+    int slots, int device, void* stream) {
   using namespace lct;
+  if (!widths_ok(num_heads, slots)) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   cudaStream_t st = (cudaStream_t)stream;
   const int round = precise ? 0 : 1;
   const long long rows = N * L;
+  const int hd = C / num_heads, W = gru_slot(slots);
   Scratch s(scratch, rows, D);
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
   const unsigned wblocks = (unsigned)((rows + 7) / 8);  // a warp per row
@@ -2124,7 +2671,7 @@ extern "C" int lct_ftf_backward_f32(
       x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, rows, 3 * C, round);
   LCT_CHECK();
   LCT_TRY(
-      launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, round, HD, st));
+      launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, round, hd, st));
 
   // 3. combine layer and out-proj backward.
   comb_bwd_kernel<<<rblocks, C, 0, st>>>(
@@ -2133,16 +2680,8 @@ extern "C" int lct_ftf_backward_f32(
   LCT_CHECK();
 
   // 4. attention core backward.
-  const size_t smem = (size_t)(4 * HD + 3) * L * sizeof(float);
-  if (smem > 48 * 1024)
-    LCT_TRY(cudaFuncSetAttribute(attn_bwd_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem));
-  int athreads = ((L + 31) / 32) * 32;
-  if (athreads > 256) athreads = 256;
-  attn_bwd_kernel<<<(unsigned)(N * NH), athreads, smem, st>>>(
-      s.qkv, s.dctx, s.dqkv, L, lookback, round);
-  LCT_CHECK();
+  LCT_TRY(launch_attn_bwd(s.qkv, s.dctx, s.dqkv, N, L, lookback, round, hd,
+                          st));
 
   // 5. qkv projection and LN2 backward: ds, and dg = ds (+ dg_lin).
   dn2_kernel<<<rblocks, C, 0, st>>>(s.dqkv, in_w, s.dn2, rows, round);
@@ -2157,22 +2696,35 @@ extern "C" int lct_ftf_backward_f32(
   ln_kernel<<<wblocks, 256, 0, st>>>(x, nullptr, nullptr, ln1_s, ln1_b, s.n1,
                                      s.xh1, s.rs1, rows);
   LCT_CHECK();
-  proj_kernel<true><<<rblocks, D * 3 * C, 0, st>>>(
-      x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-      round);
-  LCT_CHECK();
   const long long gthreads = rows * D * C;
-  gate_kernel<<<(unsigned)((gthreads + 255) / 256), 256, 0, st>>>(
-      s.xp, hid, w_hh, b_hh, s.K, s.hpv, N, L, D, round);
+  const unsigned gblocks = (unsigned)((gthreads + 255) / 256);
+  if (W == 16) {
+    proj_kernel<true, 16><<<rblocks, D * 3 * C, 0, st>>>(
+        x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
+        round);
+    LCT_CHECK();
+    gate_kernel<16><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
+                                             s.hpv, N, L, D, round);
+  } else {
+    proj_kernel<true, C><<<rblocks, D * 3 * C, 0, st>>>(
+        x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
+        round);
+    LCT_CHECK();
+    gate_kernel<C><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
+                                            s.hpv, N, L, D, round);
+  }
   LCT_CHECK();
-  const long long bthreads = N * D * G * H;
-  bptt_kernel<<<(unsigned)((bthreads + 255) / 256), 256, 0, st>>>(
-      s.K, dg, w_hh, s.dxp, s.dhp, N, L, D, round);
-  LCT_CHECK();
+  LCT_TRY(launch_bptt(s.K, dg, w_hh, s.dxp, s.dhp, N, L, D, slots, round,
+                      st));
 
   // 9. input projection and LN1 backward: dx.
-  dn1_kernel<<<(unsigned)((rows * C + 255) / 256), 256, 0, st>>>(
-      s.dxp, w_ih, s.dn1, rows, D, round);
+  const unsigned cblocks = (unsigned)((rows * C + 255) / 256);
+  if (W == 16)
+    dn1_kernel<16><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D,
+                                            round);
+  else
+    dn1_kernel<C><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D,
+                                           round);
   LCT_CHECK();
   ln_bwd_kernel<<<wblocks, 256, 0, st>>>(s.dn1, s.xh1, s.rs1, ln1_s, s.ds,
                                          nullptr, dx, nullptr, rows);
@@ -2193,10 +2745,21 @@ extern "C" int lct_ftf_backward_f32(
              C * 3 * C, C, 3 * C, din_w));
   LCT_TRY(wg(WG_DIAG, s.dn2, C, 0, 0, s.xh2, C, 0, 0, C, C, C, dln2_s));
   LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dn2, C, 0, 0, C, 0, C, dln2_b));
-  LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, round, s.dxp, D3C, round, 0,
-             D * G * H * 3 * H, C, D3C, dw_ih));
-  LCT_TRY(wg(WG_GROUPED, s.hpv, C, rows * C, 0, s.dhp, D3C, round, 0,
-             D * G * H * 3 * H, D * C, D3C, dw_hh));
+  if (W == 16) {
+    LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, round, s.dxp, D3C, round, 0,
+               D * C * 3 * W, C, D3C, dw_ih));
+    LCT_TRY(wg(WG_GROUPED, s.hpv, C, rows * C, 0, s.dhp, D3C, round, 0,
+               D * C * 3 * W, D * C, D3C, dw_hh));
+  } else {
+    // One dense slot a direction: the products are dense [64 x 192].
+    for (int d = 0; d < D; ++d) {
+      LCT_TRY(wg(WG_DENSE, s.n1, C, 0, round, s.dxp + d * 3 * C, D3C, round,
+                 3 * C, C * 3 * C, C, 3 * C, dw_ih + (size_t)d * C * 3 * C));
+      LCT_TRY(wg(WG_DENSE, s.hpv + (size_t)d * rows * C, C, 0, 0,
+                 s.dhp + d * 3 * C, D3C, round, 3 * C, C * 3 * C, C, 3 * C,
+                 dw_hh + (size_t)d * C * 3 * C));
+    }
+  }
   LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dxp, D3C, 0, 0, D3C, 0, D3C,
              db_ih));
   LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dhp, D3C, 0, 0, D3C, 0, D3C,
@@ -2207,19 +2770,26 @@ extern "C" int lct_ftf_backward_f32(
 }
 
 // Bytes of scratch `lct_ftf_backward_bf16` needs for N sequences of length L
-// on the current device (the partial sums' rows follow its grid sizes), or
-// -1 with a CUDA error.
+// at these widths on the current device (the softmax statistics grow with
+// the head count, the GRU weights' partial sums with the slot width, the
+// partial sums' rows follow the device's grid sizes), or -1 with a CUDA
+// error or for widths the kernels do not take.
 extern "C" long long lct_ftf_backward_bf16_scratch_bytes(long long N, int L,
-                                                         int D, int lin_in) {
+                                                         int D, int lin_in,
+                                                         int num_heads,
+                                                         int slots) {
+  if (!lct::widths_ok(num_heads, slots)) return -1;
   int gr = 1, gw = 1;
   if (lct::tc::tc_grids(N * L, &gr, &gw) != cudaSuccess) return -1;
-  return lct::tc::ScratchTC(nullptr, N, L, D, lin_in, gr, gw).total;
+  return lct::tc::ScratchTC(nullptr, N, L, D, lin_in, num_heads,
+                            lct::gru_slot(slots), gr, gw)
+      .total;
 }
 
 // The same function in bf16 mode on tensor cores: arguments as
 // lct_ftf_backward_f32 without `precise`; scratch:
-// lct_ftf_backward_bf16_scratch_bytes(N, L, D, lin_in) bytes, 256-byte
-// aligned. Nine launches:
+// lct_ftf_backward_bf16_scratch_bytes(N, L, D, lin_in, num_heads, slots)
+// bytes, 256-byte aligned. Nine launches:
 //   qkv_tc_kernel -> attn_fwd_tc_kernel -> comb_bwd_tc_kernel ->
 //   attn_bwd_tc_kernel -> dn2_tc_kernel -> bptt_tc_kernel -> dn1_tc_kernel
 //   (-> dx) -> wgrad_tc_kernel -> reduce_tc_kernel (-> the 14 parameter
@@ -2234,17 +2804,20 @@ extern "C" int lct_ftf_backward_bf16(
     float* dln1_b, float* dw_ih, float* dw_hh, float* db_ih, float* db_hh,
     float* dln2_s, float* dln2_b, float* din_w, float* din_b, float* dout_w,
     float* dout_b, float* dlin_w, float* dlin_b, void* scratch, long long N,
-    int L, int D, int lin_in, int lookback, int device, void* stream) {
+    int L, int D, int lin_in, int lookback, int num_heads, int slots,
+    int device, void* stream) {
   using namespace lct;
   using namespace lct::tc;
+  if (!widths_ok(num_heads, slots)) return (int)cudaErrorInvalidValue;
   LCT_TRY(cudaSetDevice(device));
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
   const bool freq = lin_in == 2 * C;
+  const int W = gru_slot(slots);
   int gr = 1, gw = 1;
   LCT_TRY(tc_grids(rows, &gr, &gw));
   const ScratchTC s(static_cast<unsigned char*>(scratch), N, L, D, lin_in,
-                    gr, gw);
+                    num_heads, W, gr, gw);
   const float* hid1 = D == 2 ? hid + (size_t)rows * C : nullptr;
 
   // LN2 and qkv recomputed; s = x + g and bf16(g) kept for later stages.
@@ -2252,21 +2825,16 @@ extern "C" int lct_ftf_backward_bf16(
                       s.gb, rows},
                      st));
   // The attention context and its softmax statistics.
-  const unsigned items = (unsigned)(N * NH);
-  const int athreads = 32 * head_warps(L);
-  HeadArgs ha = {s.qkv, s.dctx, s.stats, s.ctx, s.dqkv, L, lookback};
-  LCT_TRY(allow_smem(attn_fwd_tc_kernel, attn_fwd_smem(L)));
-  attn_fwd_tc_kernel<<<items, athreads, attn_fwd_smem(L), st>>>(ha);
-  LCT_CHECK();
+  HeadArgs ha = {s.qkv, s.dctx, s.stats, s.ctx, s.dqkv, L, lookback,
+                 C / num_heads};
+  LCT_TRY(launch_head(ha, N, /*backward=*/false, st));
   // Combine layer and out-projection backward.
   CombArgs ca = {s.ctx, s.gb, dout, out_w, out_b, lin_w, lin_b, lin_in,
                  s.ab, s.dcomb, s.da, s.dctx, s.dglin, s.p_comb, rows};
   comb_bwd_tc_kernel<<<gr, RT, 0, st>>>(ca);
   LCT_CHECK();
   // Attention core backward.
-  LCT_TRY(allow_smem(attn_bwd_tc_kernel, attn_bwd_smem(L)));
-  attn_bwd_tc_kernel<<<items, athreads, attn_bwd_smem(L), st>>>(ha);
-  LCT_CHECK();
+  LCT_TRY(launch_head(ha, N, /*backward=*/true, st));
   // qkv projection and LN2 backward.
   Dn2Args na = {s.dqkv, s.s, dout, x, in_w, ln2_s, ln2_b, ln1_s, ln1_b,
                 s.n2, s.n1, s.ds, s.p_dn2, rows};
@@ -2276,18 +2844,24 @@ extern "C" int lct_ftf_backward_bf16(
   BpttArgs ba = {s.n1, w_ih, w_hh, b_ih, b_hh, hid, s.ds,
                  freq ? s.dglin : nullptr, s.hprev, s.dxp, s.dhp, s.p_bptt,
                  N, L, D};
-  const unsigned bblocks = (unsigned)((N + GS - 1) / GS);
-  bptt_tc_kernel<<<bblocks, D * 4 * 32, 0, st>>>(ba);
-  LCT_CHECK();
+  LCT_TRY(W == 16 ? launch_bptt_tc<1>(ba, st) : launch_bptt_tc<4>(ba, st));
   // Input projection and LN1 backward: dx.
   Dn1Args da1 = {s.dxp, x, s.ds, w_ih, ln1_s, dx, s.p_dn1, rows, D};
-  dn1_tc_kernel<<<gr, RT, 0, st>>>(da1);
+  if (W == 16) {
+    dn1_tc_kernel<1><<<gr, RT, 0, st>>>(da1);
+  } else {
+    LCT_TRY(allow_smem(dn1_tc_kernel<4>, dn1_smem<4>()));
+    dn1_tc_kernel<4><<<gr, RT, dn1_smem<4>(), st>>>(da1);
+  }
   LCT_CHECK();
 
-  // Weight gradients, then every partial sum reduced in block order.
+  // Weight gradients, then every partial sum reduced in block order. The
+  // GRU's: slots of 16 as the diagonal blocks of a grouped product, one
+  // dense slot of 64 as a dense one.
+  const int DG = D * C * 3 * W;  // GRU weight gradient floats
   const int o_lin = 0, o_out = lin_in * C, o_in = o_out + C * C;
   const int o_inb = o_in + C * 3 * C, o_ih = o_inb + 3 * C;
-  const int o_hh = o_ih + D * G * H * 3 * H;
+  const int o_hh = o_ih + DG;
   WgArgs wa = {};
   int np = 0;
   auto prod = [&](const __nv_bfloat16* A, int lda, int acol, int M,
@@ -2300,11 +2874,12 @@ extern "C" int lct_ftf_backward_bf16(
   prod(s.ab, C, 0, C, s.dcomb, C, 0, C, 0, o_lin + (freq ? C * C : 0), -1);
   prod(s.ctx, C, 0, C, s.da, C, 0, C, 0, o_out, -1);
   prod(s.n2, C, 0, C, s.dqkv, 3 * C, 0, 3 * C, 0, o_in, o_inb);
+  const int grouped = W == 16 ? 1 : 0;
   for (int d = 0; d < D; ++d) {
-    prod(s.n1, C, 0, C, s.dxp, D * 3 * C, d * 3 * C, 3 * C, 1,
-         o_ih + d * G * H * 3 * H, -1);
+    prod(s.n1, C, 0, C, s.dxp, D * 3 * C, d * 3 * C, 3 * C, grouped,
+         o_ih + d * C * 3 * W, -1);
     prod(s.hprev + (size_t)d * rows * C, C, 0, C, s.dhp, D * 3 * C,
-         d * 3 * C, 3 * C, 1, o_hh + d * G * H * 3 * H, -1);
+         d * 3 * C, 3 * C, grouped, o_hh + d * C * 3 * W, -1);
   }
   wa.np = np;
   wa.rows = rows;
@@ -2316,8 +2891,8 @@ extern "C" int lct_ftf_backward_bf16(
   wgrad_tc_kernel<<<s.grid_wg, RT, wsm, st>>>(wa);
   LCT_CHECK();
 
-  const int nb = (int)bblocks, ldb2 = 2 * D * 3 * C;
-  const int D3C = D * 3 * C, DG = D * G * H * 3 * H;
+  const int nb = (int)((N + GS - 1) / GS), ldb2 = 2 * D * 3 * C;
+  const int D3C = D * 3 * C;
   RedArgs ra = {{
       {s.p_dn1, gr, 2 * C, 0, C, dln1_s},
       {s.p_dn1, gr, 2 * C, C, C, dln1_b},

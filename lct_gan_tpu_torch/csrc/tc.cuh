@@ -275,6 +275,17 @@ __device__ __forceinline__ void load_gru_frags(GruFragsDense& f,
     }
 }
 
+// The fragments of a GRU kernel built for KS k-steps a slot: slots of 16
+// (KS = 1) or one dense slot of 64 (KS = 4).
+template <int KS>
+struct GruFragsOf {
+  using type = GruFragsDense;
+};
+template <>
+struct GruFragsOf<1> {
+  using type = GruFrags;
+};
+
 // acc = A @ w[:, 0:16] for a 16-row tile A of 64 columns, given as the A
 // fragments of its four 16-column k-steps, and w a bf16 [64][ld] tile in
 // shared memory: the C fragments of two n8 tiles (columns 0-7, 8-15).

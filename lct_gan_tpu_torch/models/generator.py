@@ -17,10 +17,10 @@ card) -> LayerNorm -> MultiHeadSelfAttention (the MHSA kernel up to L = 1024,
 the banded one from BANDED_KERNEL_MIN_SEQ with a band) -> Linear ->
 LeakyReLU, as in the JAX package.
 
-On the card the kernels take a 64-channel bottleneck (enc_channels[-1] =
-64) in any num_heads and gru_groups that divide 64, and training takes 4
-and 4 (the FTF backward kernel's widths): `check_card_widths` refuses
-anything else before a model runs there.
+On the card the kernels, forward and backward, take a 64-channel
+bottleneck (enc_channels[-1] = 64) in any num_heads and gru_groups that
+divide 64: `check_card_widths` refuses anything else before a model runs or
+trains there.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ from lct_gan_tpu_torch.models.attention import MultiHeadSelfAttention
 from lct_gan_tpu_torch.models.gru import GRUGroup, stack_groups
 from lct_gan_tpu_torch.models.layers import LayerNorm
 from lct_gan_tpu_torch.ops.ftf import MAX_FTF_SEQ, fused_ftf_block
-from lct_gan_tpu_torch.ops.ftf_bwd import BACKWARD_WIDTHS
 from lct_gan_tpu_torch.ops.gru import fused_grouped_gru
 from lct_gan_tpu_torch.ops.library import check_kernel_widths
 from lct_gan_tpu_torch.sigproc import (STFTConfig, apply_mask, hann_window,
@@ -74,22 +73,18 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
     """Raise unless the CUDA kernels run `cfg` on `device`, decided from the
     device argument alone (no card is queried): a bottleneck of
     enc_channels[-1] = 64 channels in num_heads heads and gru_groups
-    groups that divide 64, and for training 4 and 4. Nothing is refused on
-    the CPU, whose plain path takes every width."""
+    groups that divide 64, for serving and training alike (`training`
+    only words the hint). Nothing is refused on the CPU, whose plain path
+    takes every width."""
     if torch.device(device).type != "cuda":
         return
     check_kernel_widths("the CUDA path", cfg.enc_channels[-1],
                         num_heads=cfg.num_heads, groups=cfg.gru_groups,
                         names=("enc_channels[-1]", "--num_heads",
                                "--gru_groups"),
-                        hint="; run this configuration with device='cpu'")
-    if training and (cfg.num_heads, cfg.gru_groups) != BACKWARD_WIDTHS:
-        heads, groups = BACKWARD_WIDTHS
-        raise ValueError(
-            f"training on the card takes --num_heads {heads} and "
-            f"--gru_groups {groups} (the FTF backward kernel's widths), got "
-            f"--num_heads {cfg.num_heads} --gru_groups {cfg.gru_groups}; "
-            "train these widths with --device cpu (the card serves them)")
+                        hint=("; train this configuration with --device cpu"
+                              if training else
+                              "; run this configuration with device='cpu'"))
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:

@@ -26,10 +26,9 @@ plain version on the CPU). A call with `key_bias` instead recomputes through
 the f32 `ftf_block_reference` under autograd, as the JAX package does.
 
 Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
-in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward kernels take C
-= 64 in any num_heads and any G that divide 64 (`ops/library.py::
-KERNEL_WIDTHS`); the backward kernel 4 heads and 4 groups
-(`ops/ftf_bwd.py::check_backward_shapes`).
+in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward and backward
+kernels take C = 64 in any num_heads and any G that divide 64
+(`ops/library.py::KERNEL_WIDTHS`).
 """
 
 from __future__ import annotations

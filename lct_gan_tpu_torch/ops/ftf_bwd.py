@@ -17,9 +17,12 @@ On a CUDA tensor it launches the hand-written kernels of `csrc/ftf_bwd.cu`
 (their bound on the H100 and what each design does about it are noted
 there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
 tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
-(`lct_ftf_backward_f32`, `simt-f32`), at 4 heads and 4 GRU groups only
-(`check_backward_shapes`; the forward kernels take every divisor of 64).
-On a CPU tensor it computes
+(`lct_ftf_backward_f32`, `simt-f32`), at C = 64 in any number of heads and
+GRU groups that divides 64, as the forward kernels (`check_backward_shapes`,
+`ops/library.py::check_kernel_widths`). The wrapper packs the GRU weights
+into the kernels' slots (`ops/gru.py::pack_gru_slots`) and takes the
+gradients apart again (`unpack_gru_slot_grads`). On a CPU tensor it
+computes
 `ftf_bwd_reference`, its plain PyTorch version: the same hand-derived
 backward, rounding every GEMM operand to bf16 where the TPU kernel does (its
 `cd` casts, :144-148) unless precise=True. The kernel is the `torch.library`
@@ -40,12 +43,12 @@ from typing import Optional, Tuple
 import torch
 
 from lct_gan_tpu_torch.ops.attention import kernel_design
-from lct_gan_tpu_torch.ops.gru import round_bf16
-from lct_gan_tpu_torch.ops.library import define_op
+from lct_gan_tpu_torch.ops.gru import (gru_slot, pack_gru_slots,
+                                       round_bf16, unpack_gru_slot_grads)
+from lct_gan_tpu_torch.ops.library import KERNEL_C, define_op
 
 __all__ = ["fused_ftf_bwd", "ftf_bwd_reference", "ftf_bwd_op",
-           "ftf_bwd_plain", "ftf_bwd_scratch_bytes", "check_backward_shapes",
-           "BACKWARD_WIDTHS"]
+           "ftf_bwd_plain", "ftf_bwd_scratch_bytes", "check_backward_shapes"]
 
 
 def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -205,32 +208,38 @@ def ftf_bwd_reference(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
 
 _P = ctypes.c_void_p
 # 17 inputs, 15 gradients, the scratch; N; L, D, lin_in, lookback, (f32
-# only: precise,) device; the stream.
+# only: precise,) num_heads, slots, device; the stream.
 _BWD_ARGTYPES = {
-    True: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [_P],
-    False: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]}
+    True: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [_P],
+    False: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]}
 
 
 def ftf_bwd_scratch_bytes(N: int, L: int, D: int, lin_in: int,
-                          precise: bool) -> int:
+                          precise: bool, num_heads: int = 4,
+                          groups: int = 4) -> int:
     """Bytes of device scratch one `fused_ftf_bwd` launch of this shape
     takes in a mode: f32 intermediates of every stage (precise), or the
-    tensor-core design's bf16 intermediates and partial sums (bf16; its
-    partial rows follow the current card's grid sizes). Needs the card."""
+    tensor-core design's bf16 intermediates and partial sums (bf16: the
+    softmax statistics grow with num_heads, the GRU weights' partial sums
+    with the slot width of `groups`, its partial rows follow the current
+    card's grid sizes). Needs the card."""
     from lct_gan_tpu_torch.ops._build import kernel_function
 
+    slots = KERNEL_C // gru_slot(groups)
     if precise:
         fn = kernel_function("ftf_bwd", "lct_ftf_backward_scratch_floats",
-                             [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+                             [ctypes.c_longlong] + [ctypes.c_int] * 4)
         fn.restype = ctypes.c_longlong
-        return 4 * int(fn(N, L, D))
-    fn = kernel_function("ftf_bwd", "lct_ftf_backward_bf16_scratch_bytes",
-                         [ctypes.c_longlong] + [ctypes.c_int] * 3)
-    fn.restype = ctypes.c_longlong
-    nbytes = int(fn(N, L, D, lin_in))
+        nbytes = 4 * int(fn(N, L, D, num_heads, slots))
+    else:
+        fn = kernel_function("ftf_bwd", "lct_ftf_backward_bf16_scratch_bytes",
+                             [ctypes.c_longlong] + [ctypes.c_int] * 5)
+        fn.restype = ctypes.c_longlong
+        nbytes = int(fn(N, L, D, lin_in, num_heads, slots))
     if nbytes < 0:
-        raise RuntimeError("fused_ftf_bwd: the card's grid sizes could not "
-                           "be queried")
+        raise RuntimeError("fused_ftf_bwd: no scratch size for these "
+                           f"widths (num_heads={num_heads}, groups={groups}) "
+                           "or the card's grid sizes could not be queried")
     return nbytes
 
 
@@ -252,23 +261,15 @@ def ftf_bwd_plain(x: torch.Tensor, ln1s: torch.Tensor, ln1b: torch.Tensor,
         num_heads=num_heads, lookback=lookback, precise=precise)
 
 
-# The widths csrc/ftf_bwd.cu is built for: 4 heads of 16, 4 GRU groups of
-# 16 (the forward kernels take every divisor of 64).
-BACKWARD_WIDTHS = (4, 4)
-
-
 def check_backward_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                           bidirectional: bool) -> None:
     """Raise unless the FTF backward kernel takes these shapes: the
-    forward's (`ops/ftf.py::check_kernel_shapes`) at 4 heads and 4 GRU
-    groups of 16."""
+    forward's (`ops/ftf.py::check_kernel_shapes`: C = 64 in any num_heads
+    and GRU group count that divides 64, through `ops/library.py::
+    check_kernel_widths`)."""
     from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
 
     check_kernel_shapes(name, x, w_ih, lin_w, num_heads, bidirectional)
-    if (num_heads, w_ih.shape[1]) != BACKWARD_WIDTHS:
-        raise ValueError(f"{name} kernel takes {BACKWARD_WIDTHS[0]} heads "
-                         f"and {BACKWARD_WIDTHS[1]} GRU groups, got "
-                         f"num_heads={num_heads}, groups={w_ih.shape[1]}")
 
 
 def _ftf_bwd_fake(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
@@ -294,31 +295,38 @@ def _ftf_bwd_cuda(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
                           bidirectional)
     N, L, C = x.shape
     D = 2 if bidirectional else 1
+    G = w_ih.shape[1]
+    H = C // G
     lin_in = lin_w.shape[0]
     dev = x.device
-    shapes = ((N, L, C), (C,), (C,), (D, 4, 16, 48), (D, 4, 16, 48),
-              (D, 4, 48), (D, 4, 48), (C,), (C,), (C, 3 * C), (3 * C,),
-              (C, C), (C,), (lin_in, C), (C,), (D, N * L, C), (N, L, C))
+    shapes = ((N, L, C), (C,), (C,), (D, G, H, 3 * H), (D, G, H, 3 * H),
+              (D, G, 3 * H), (D, G, 3 * H), (C,), (C,), (C, 3 * C),
+              (3 * C,), (C, C), (C,), (lin_in, C), (C,), (D, N * L, C),
+              (N, L, C))
     names = ("x", "ln1_scale", "ln1_bias", "w_ih", "w_hh", "b_ih", "b_hh",
              "ln2_scale", "ln2_bias", "in_w", "in_b", "out_w", "out_b",
              "lin_w", "lin_b", "hid", "dout")
     ops = [f32_operand(n, t, s, dev) for n, t, s in zip(names, args, shapes)]
-    grads = [torch.empty(s, device=dev, dtype=torch.float32)
-             for s in shapes[:15]]
+    ops[3:7] = pack_gru_slots(*ops[3:7])
+    slots = ops[3].shape[1]
+    grads = [torch.empty(t.shape, device=dev, dtype=torch.float32)
+             for t in ops[:15]]
     with torch.cuda.device(dev):
-        nbytes = ftf_bwd_scratch_bytes(N, L, D, lin_in, precise)
+        nbytes = ftf_bwd_scratch_bytes(N, L, D, lin_in, precise, num_heads,
+                                       G)
     scratch = torch.empty((nbytes,), device=dev, dtype=torch.uint8)
     entry = "lct_ftf_backward_f32" if precise else "lct_ftf_backward_bf16"
     fn = kernel_function("ftf_bwd", entry, _BWD_ARGTYPES[precise])
     mode = (1,) if precise else ()
     err = fn(*(t.data_ptr() for t in ops), *(t.data_ptr() for t in grads),
              scratch.data_ptr(), N, L, D, lin_in,
-             -1 if lookback is None else lookback, *mode,
+             -1 if lookback is None else lookback, *mode, num_heads, slots,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "ftf_bwd", "fused_ftf_bwd kernel launch")
     fused_ftf_bwd.launches += 1
     fused_ftf_bwd.design = kernel_design(precise)
+    grads[3:7] = unpack_gru_slot_grads(*grads[3:7], G)
     return tuple(grads)
 
 
@@ -333,8 +341,9 @@ def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
                   lookback: Optional[int] = None,
                   precise: bool = False) -> Tuple[torch.Tensor, ...]:
     """FTF block backward: x, dout [N, L, 64], hid [D, N*L, 64] (the
-    forward's unrounded per-direction hiddens) -> the 15 gradients of
-    `ftf_bwd_reference`, all f32: the op
+    forward's unrounded per-direction hiddens), num_heads heads and G GRU
+    groups (w_ih [D, G, 64/G, 3*64/G]), each dividing 64 -> the 15
+    gradients of `ftf_bwd_reference`, all f32: the op
     `torch.ops.lct_gan_tpu_torch.fused_ftf_bwd`.
 
     CPU tensors: `ftf_bwd_reference(..., precise=precise)`. CUDA tensors:

@@ -25,7 +25,9 @@ and its recurrence, one launch each); on a CPU tensor it computes
 
 The CUDA kernels take C = 64 channels in any number of groups that divides
 64 (`ops/library.py::KERNEL_WIDTHS`): they run slots of 16 units or one of
-64 (`gru_slot`), and `pack_gru_slots` packs other group counts into them.
+64 (`gru_slot`), and `pack_gru_slots` packs other group counts into them
+(`unpack_gru_slot_grads` takes the FTF backward's slot-layout gradients
+apart again).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from lct_gan_tpu_torch.ops.library import (KERNEL_C, check_kernel_widths,
 
 __all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16", "layer_norm",
            "grouped_gru_plain", "fused_grouped_gru", "gru_op", "gru_slot",
-           "pack_gru_slots"]
+           "pack_gru_slots", "unpack_gru_slot_grads"]
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -156,6 +158,31 @@ def pack_gru_slots(w_ih, w_hh, b_ih, b_hh):
         return b.reshape(D, S, k, 3, H).transpose(2, 3).reshape(D, S, 3 * W)
 
     return mat(w_ih), mat(w_hh), vec(b_ih), vec(b_hh)
+
+
+def unpack_gru_slot_grads(dw_ih, dw_hh, db_ih, db_hh, groups: int):
+    """The inverse of `pack_gru_slots` for gradients: slot-layout weight
+    gradients [D, 64 / W, W, 3W] / bias gradients [D, 64 / W, 3W] (W =
+    gru_slot(groups)) back to the grouped [D, G, H, 3H] / [D, G, 3H]. A
+    weight gradient keeps each group's diagonal block of its slot; the
+    entries off the blocks belong to no parameter (the packed weight is 0
+    there) and are dropped. A bias gradient leaves the gate-major order of
+    its slot. Returned as they are where the groups are slots already."""
+    D, S, W, _ = dw_ih.shape
+    H = S * W // groups
+    if H == W:
+        return dw_ih, dw_hh, db_ih, db_hh
+    k = W // H                          # groups a slot
+
+    def mat(w):   # [D, S, k in, H in, gate, k out, H unit] -> diagonal
+        w = w.reshape(D, S, k, H, 3, k, H).diagonal(dim1=2, dim2=5)
+        return w.permute(0, 1, 5, 2, 3, 4).reshape(D, groups, H, 3 * H)
+
+    def vec(b):   # [D, S, gate, k, H] -> [D, S, k, gate, H]
+        return b.reshape(D, S, 3, k, H).transpose(2, 3).reshape(
+            D, groups, 3 * H)
+
+    return mat(dw_ih), mat(dw_hh), vec(db_ih), vec(db_hh)
 
 
 def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):

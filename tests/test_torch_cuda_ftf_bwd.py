@@ -1,8 +1,9 @@
 """The FTF-block backward CUDA kernel (lct_gan_tpu_torch/csrc/ftf_bwd.cu) on
 the card against its plain PyTorch version on the same inputs, at edge
 shapes the training path does not reach: N = 1, L = 1, lookback = 0, row
-counts that are not a multiple of any block size; plus determinism, the
-save-hidden forward, and autograd through the block on the card.
+counts that are not a multiple of any block size, at 4 heads and 4 GRU
+groups and at other (heads, groups) pairs dividing 64; plus determinism,
+the save-hidden forward, and autograd through the block on the card.
 
 Skips without a GPU. On a machine with the card (no JAX needed there):
 
@@ -88,6 +89,68 @@ def test_backward_kernel_matches_plain(card, N, L, bidi, lookback, precise):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _params_widths(bidi, seed, G):
+    """_params at G GRU groups of 64 / G units."""
+    g = torch.Generator().manual_seed(seed)
+    D, H = (2 if bidi else 1), 64 // G
+
+    def u(*s, b=0.25):
+        return b * (2 * torch.rand(s, generator=g) - 1)
+
+    return [1 + 0.1 * u(64), 0.1 * u(64), u(D, G, H, 3 * H),
+            u(D, G, H, 3 * H), u(D, G, 3 * H), u(D, G, 3 * H),
+            1 + 0.1 * u(64), 0.1 * u(64), u(64, 192), 0.1 * u(192),
+            u(64, 64), 0.1 * u(64), u(128 if bidi else 64, 64),
+            0.1 * u(64)], g
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("nh,G", [
+    (1, 1),    # one 64-channel head (the backward's split attention), one
+               # dense GRU slot of 64
+    (2, 2),    # heads of 32; two groups of 32 packed into one slot
+    (8, 8),    # heads of 8 (masked k-steps); groups of 8 packed into 16s
+    (64, 4),   # heads of 1, sixteen to a k-step
+    (16, 64),  # heads of 4; groups of one unit
+])
+@pytest.mark.parametrize("N,L,bidi,lookback", [
+    (1, 1, True, None),
+    (3, 33, True, None),
+    (37, 9, True, None),     # 333 rows: ragged in every row tiling
+    (5, 129, False, 16),
+    (1, 512, False, None),   # the longest sequence: the most shared memory
+])
+def test_backward_kernel_matches_plain_at_every_width(card, N, L, bidi,
+                                                      lookback, nh, G,
+                                                      precise):
+    """Every padded head width (64, 32, 8 and 8 in rounds) and both GRU
+    slot widths, against the plain version, and two launches bit-equal. In
+    bf16 the cotangent is zeroed within 5e-2 of the LeakyReLU's kink, as in
+    chip_smoke.py."""
+    params, g = _params_widths(bidi, seed=N * 1000 + L + G, G=G)
+    x = torch.randn((N, L, 64), generator=g)
+    dout = torch.randn((N, L, 64), generator=g)
+    x, dout, *params = [t.cuda() for t in [x, dout] + params]
+    kw = dict(bidirectional=bidi, num_heads=nh, lookback=lookback,
+              precise=precise)
+    out, hid = ftf_forward_with_hidden(x, *params, **kw)
+    if not precise:
+        act = out - x - hid.sum(dim=0).reshape(N, L, 64)
+        comb = torch.where(act >= 0, act, act / 0.2)
+        dout = torch.where(comb.abs() < 5e-2, 0.0, dout)
+    before = fused_ftf_bwd.launches
+    got = fused_ftf_bwd(x, *params, hid, dout, **kw)
+    torch.cuda.synchronize()
+    assert fused_ftf_bwd.launches == before + 1
+    want = ftf_bwd_reference(x, *params, hid, dout, **kw)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert all(torch.isfinite(t).all() for t in got)
+    errs = _rel_errs(got, want)
+    assert max(errs) <= TOL[precise], errs
+    again = fused_ftf_bwd(x, *params, hid, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("bidi,lookback", [(True, None), (False, 7)])
 def test_autograd_on_the_card(card, bidi, lookback):
     """Under grad the forward keeps the kernel's hiddens (its output is
@@ -158,6 +221,11 @@ def test_bf16_scratch_is_smaller_than_f32(card):
     bf16 = ftf_bwd_scratch_bytes(1000, 33, 2, 128, precise=False)
     f32 = ftf_bwd_scratch_bytes(1000, 33, 2, 128, precise=True)
     assert 0 < bf16 < f32
+    # 64 heads keep 16x the softmax statistics of 4; a dense GRU slot 4x
+    # the partial sums of the GRU weight gradients.
+    assert ftf_bwd_scratch_bytes(1000, 33, 2, 128, False, 64, 4) > bf16
+    assert ftf_bwd_scratch_bytes(1000, 33, 2, 128, False, 4, 1) > bf16
+    assert ftf_bwd_scratch_bytes(1000, 33, 2, 128, True, 64, 1) == f32
 
 
 def test_backward_kernel_rejects_other_widths(card):

@@ -53,7 +53,7 @@ from lct_gan_tpu_torch.ops.banded_attention import (BANDED_ENTRY,
                                                     banded_mhsa_reference)
 from lct_gan_tpu_torch.ops.ftf import (_FTF_ARGTYPES, check_kernel_shapes,
                                        ftf_block_reference, fused_ftf_block)
-from lct_gan_tpu_torch.ops.ftf_bwd import check_backward_shapes
+from lct_gan_tpu_torch.ops.ftf_bwd import _BWD_ARGTYPES, check_backward_shapes
 from lct_gan_tpu_torch.ops.gru import (_GRU_ARGTYPES, _check_gru_shapes,
                                        fused_grouped_gru, grouped_gru,
                                        gru_slot, pack_gru_slots)
@@ -303,11 +303,20 @@ def test_kernel_checks_take_every_divisor_pair():
 
 
 def test_backward_check_takes_only_4_heads_and_4_groups():
+    """The backward kernel's check now takes every (heads, groups) pair of
+    divisors of 64 at C = 64, as the forward's, and refuses 3 heads or 3
+    groups (the name is kept from when it took 4 and 4 alone)."""
     x, lin_w = torch.zeros((2, 5, 64)), torch.zeros((128, 64))
-    check_backward_shapes("b", x, torch.zeros((2, 4, 16, 48)), lin_w, 4,
-                          True)
-    with pytest.raises(ValueError, match="4 heads and 4 GRU groups"):
-        check_backward_shapes("b", x, torch.zeros((2, 2, 32, 96)), lin_w, 2,
+    for G in KERNEL_WIDTHS:
+        H = 64 // G
+        for nh in KERNEL_WIDTHS:
+            check_backward_shapes("b", x, torch.zeros((2, G, H, 3 * H)),
+                                  lin_w, nh, True)
+    with pytest.raises(ValueError, match="num_heads"):
+        check_backward_shapes("b", x, torch.zeros((2, 4, 16, 48)), lin_w, 3,
+                              True)
+    with pytest.raises(ValueError, match="GRU groups"):
+        check_backward_shapes("b", x, torch.zeros((2, 3, 21, 63)), lin_w, 4,
                               True)
 
 
@@ -321,29 +330,34 @@ def test_c48_is_refused_on_the_card_naming_enc_channels(training):
 
 
 def test_card_widths_are_decided_from_the_device_argument():
-    """Serving on the card takes every divisor pair, training 4 and 4; the
-    CPU takes everything. No card is queried."""
+    """Serving and training on the card take every divisor pair; the CPU
+    takes everything; 3 groups or 3 heads is refused on the card for both,
+    naming the flag. No card is queried."""
     for nh in KERNEL_WIDTHS:
         for G in KERNEL_WIDTHS:
             cfg = LCTGeneratorConfig(num_heads=nh, gru_groups=G)
             check_card_widths(cfg, torch.device("cuda", 0), training=False)
             check_card_widths(cfg, "cpu", training=True)
-            if (nh, G) == (4, 4):
-                check_card_widths(cfg, "cuda", training=True)
-            else:
-                with pytest.raises(ValueError,
-                                   match="--num_heads 4 and --gru_groups 4"):
-                    check_card_widths(cfg, "cuda:0", training=True)
-    with pytest.raises(ValueError, match="--gru_groups"):
-        check_card_widths(LCTGeneratorConfig(gru_groups=3), "cuda",
-                          training=False)
+            check_card_widths(cfg, "cuda", training=True)
+            check_card_widths(cfg, "cuda:0", training=True)
+    for training in (False, True):
+        with pytest.raises(ValueError, match="--gru_groups"):
+            check_card_widths(LCTGeneratorConfig(gru_groups=3), "cuda",
+                              training=training)
+        with pytest.raises(ValueError, match="--num_heads"):
+            check_card_widths(LCTGeneratorConfig(num_heads=3), "cuda:0",
+                              training=training)
 
 
 def test_training_state_refuses_other_widths_before_the_card():
-    """create_state raises on the device argument alone: the flag message,
-    not the missing-GPU error a width it takes would meet here."""
-    with pytest.raises(ValueError, match="--num_heads 2 --gru_groups 2"):
+    """create_state at (2, 2) on "cuda" raises no width error: it gets as
+    far as the device, where this machine's missing GPU stops it (on a
+    machine with a card it trains). 3 groups is still refused on the
+    device argument alone, before the card, naming the flag."""
+    with pytest.raises(RuntimeError, match="no CUDA GPU is visible"):
         create_state(TrainConfig(num_heads=2, gru_groups=2), device="cuda")
+    with pytest.raises(ValueError, match="--gru_groups"):
+        create_state(TrainConfig(num_heads=2, gru_groups=3), device="cuda")
 
 
 def _c_params(source):
@@ -363,8 +377,11 @@ def _c_params(source):
     ("mhsa.cu", "lct_mhsa_forward_f32", _MHSA_ARGTYPES[True]),
     ("banded.cu", BANDED_ENTRY[False][0], BANDED_ENTRY[False][1]),
     ("banded.cu", BANDED_ENTRY[True][0], BANDED_ENTRY[True][1]),
+    ("ftf_bwd.cu", "lct_ftf_backward_bf16", _BWD_ARGTYPES[False]),
+    ("ftf_bwd.cu", "lct_ftf_backward_f32", _BWD_ARGTYPES[True]),
 ])
 def test_entry_points_take_the_widths(source, entry, argtypes):
-    """Each forward entry point is declared with as many argtypes as it has
-    parameters (ctypes does not check them), the widths among them."""
+    """Each forward and backward entry point is declared with as many
+    argtypes as it has parameters (ctypes does not check them), the widths
+    among them."""
     assert _c_params(source)[entry] == len(argtypes)
