@@ -54,6 +54,24 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            1 MHSA, 1 GRU) and, with max_time_context=64, 4 x 196,608 (2 FTF,
            1 banded, 1 GRU), each against the plain path on the card (the
            ops' plain versions under a dispatch mode)
+  channels the four forward kernels at bottleneck widths C = 16, 32, 48, 96
+           and 128 (their libraries built in one parallel batch, -DLCT_C;
+           48 and 96 padded to 64 and 128 by the wrappers): every head
+           count and GRU group count dividing C against the plain versions
+           on the card at small N, both modes (the FTF block: frequency,
+           time with key bias, time with lookback 16; MHSA at L = 516;
+           banded at S = 772, W = 64; the composed GRU at L = 516, f32);
+           at C = 32 and 128 with 4 heads and 4 groups the main path's
+           shapes (FTF frequency N = 16,512 x 33 and time N = 4,224 x 129
+           with key bias and W = 16, MHSA N = 825 x 644, banded N = 660 x
+           772, GRU N = 825 x 644), timed with the bound and the library
+           call; LctEnhancer at enc_channels (8, 16, 32) and (32, 64, 128)
+           with random weights from --seed, B = 128 x 2 s (3 FTF launches),
+           and at (32, 64, 128) 4 x 163,840 samples (2 FTF, 1 MHSA, 1 GRU)
+           and with max_time_context=64 4 x 196,608 (2 FTF, 1 banded, 1
+           GRU), against the plain path on the card (worst row's relative
+           L2 error); the refusals: a train state and an FTF block under
+           grad at C != 64 (before any launch), serving at C = 40
   banded   the same weights with max_time_context=64, bucketed batches with
            lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
            1 banded, 1 GRU launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
@@ -243,15 +261,15 @@ def band_pairs(L, lookback):
     return sum(min(q, lookback) + 1 for q in range(L))
 
 
-def bound(rows, flops, extra_bytes, mode):
-    nbytes = 2 * rows * 64 * 4 + extra_bytes   # x read + out written
+def bound(rows, flops, extra_bytes, mode, C=64):
+    nbytes = 2 * rows * C * 4 + extra_bytes   # x read + out written
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[mode]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_banded_ms(torch, N, L, lookback, mode, num_heads=4):
+def library_banded_ms(torch, N, L, lookback, mode, num_heads=4, C=64):
     """`library_attention_ms` with the band mask, forced onto the
     memory-efficient backend. Returns (ms, None) or (None, reason)."""
     try:
@@ -259,20 +277,20 @@ def library_banded_ms(torch, N, L, lookback, mode, num_heads=4):
 
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             return library_attention_ms(torch, N, L, lookback, None,
-                                        mode, num_heads), None
+                                        mode, num_heads, C), None
     except (ImportError, RuntimeError) as exc:  # unsupported or out of
         torch.cuda.empty_cache()                # memory: record why
         return None, f"{type(exc).__name__}: {str(exc)[:200]}"
 
 
 def library_attention_ms(torch, N, L, lookback, key_bias, mode,
-                         num_heads=4):
+                         num_heads=4, C=64):
     """One scaled_dot_product_attention call on the same attention shapes
     (a yardstick only: the port never calls it)."""
     F = torch.nn.functional
     dt = torch.bfloat16 if mode == "bf16" else torch.float32
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((N, num_heads, L, 64 // num_heads), generator=g,
+    q, k, v = (torch.randn((N, num_heads, L, C // num_heads), generator=g,
                            device="cuda", dtype=dt) for _ in range(3))
     mask = None
     if key_bias is not None:
@@ -299,7 +317,8 @@ def library_mha_ms(torch, x, params, key_bias, mode, num_heads=4):
 
     def call():
         return F.multi_head_attention_forward(
-            q, q, q, 64, num_heads, in_w.t(), in_b, None, None, False, 0.0,
+            q, q, q, q.shape[-1], num_heads, in_w.t(), in_b, None, None,
+            False, 0.0,
             out_w.t(), out_b, training=False, key_padding_mask=pad,
             need_weights=False)[0]
 
@@ -925,29 +944,32 @@ def by_rows(torch, plain, n_rows, row_bytes, budget=4 << 30):
 
 
 def width_case(torch, kernel, name, fn, plain, mode, shape, flops, padded,
-               extra, exps, exps_per_s, nh, G, library):
+               extra, exps, exps_per_s, nh, G, library, C=64,
+               phase="widths"):
     """One kernel at one width against its plain version on the same inputs
     on the card: max|diff| within TOL[mode], kernel and plain ms, the bound
     by the kernels table's formula on the useful products (`bound_ms`) and
     on the products the kernel issues with its padded widths
     (`padded_bound_ms`), and the library's time (`library()`: (ms, why not),
-    and optionally its max|diff| from the kernel)."""
+    and optionally its max|diff| from the kernel). C: the channel width."""
     out = fn()
     torch.cuda.synchronize()
     ref = plain()
     err = (out - ref).abs().max().item()
     if not (err <= TOL[mode]) or not torch.isfinite(out).all():
-        raise AssertionError(f"{kernel} {name} heads={nh} groups={G} {mode}: "
-                             f"max|diff| {err} > {TOL[mode]}")
+        raise AssertionError(f"{kernel} {name} C={C} heads={nh} groups={G} "
+                             f"{mode}: max|diff| {err} > {TOL[mode]}")
+    rel = err / max(ref.abs().max().item(), 1e-30)
     del out, ref
     torch.cuda.empty_cache()
     N, L = shape
     rows = N * L
-    bms, by = bound(rows, flops, extra, mode)
-    pbms, pby = bound(rows, padded, extra, mode)
-    res = {"case": f"widths {name} h{nh} g{G}", "mode": mode,
+    bms, by = bound(rows, flops, extra, mode, C)
+    pbms, pby = bound(rows, padded, extra, mode, C)
+    res = {"case": f"{phase} {name} h{nh} g{G}" + (
+               "" if C == 64 else f" C{C}"), "mode": mode, "C": C,
            "num_heads": nh, "gru_groups": G, "N": N, "L": L, "rows": rows,
-           "max_abs_err": err, "tol": TOL[mode],
+           "max_abs_err": err, "rel_err": rel, "tol": TOL[mode],
            "ms": cuda_ms(torch, fn, 3), "plain_ms": cuda_ms(torch, plain, 1),
            "bound_ms": bms, "bound_by": by, "padded_bound_ms": pbms,
            "padded_bound_by": pby, "flops": flops, "padded_flops": padded}
@@ -959,7 +981,7 @@ def width_case(torch, kernel, name, fn, plain, mode, shape, flops, padded,
         res["library_max_abs_err"] = lib[2]
     if exps:
         res["exp_floor_ms"] = exps / exps_per_s * 1e3
-    emit({"phase": "widths", "kernel": kernel, **res})
+    emit({"phase": phase, "kernel": kernel, **res})
     torch.cuda.empty_cache()
     return res
 
@@ -1178,6 +1200,379 @@ def check_widths(torch, np, card, seed):
         torch.cuda.empty_cache()
     emit({"phase": "widths", "kernel_cases_s": kernel_s,
           "seconds": time.perf_counter() - t0})
+    return results, launches
+
+
+# Bottleneck widths the forward kernels take besides 64 (each builds its
+# own libraries), the two of them timed at the main path's shapes, and the
+# enhancers driven end to end.
+CHANNELS = (16, 32, 48, 96, 128)
+MAIN_CHANNELS = (32, 128)
+CHANNEL_ENHANCERS = ((8, 16, 32), (32, 64, 128))
+# Enhancer on the card against the plain path on the card, both bf16 mode:
+# the worst row's relative L2 error of the wave. Both round the same
+# operands; f32 sum order moves an intermediate across a bf16 rounding
+# boundary now and then (the widths phase's enhancers: max |diff| of the
+# wave within TOL_WAVE = 1e-2 of a ~0.1-scale wave), and a wiring fault is
+# O(1).
+TOL_REL_L2 = 1e-2
+
+
+def channel_pairs(C):
+    """(heads, groups) pairs at C that run every divisor of C as a head
+    count and as a group count once: the divisors against themselves
+    reversed."""
+    from lct_gan_tpu_torch.ops.library import divisors
+
+    d = divisors(C)
+    return list(zip(d, reversed(d)))
+
+
+def seeded_blocks(torch, seed, C, nh, G):
+    """A frequency and a time FTF block of C channels with their modules'
+    own random init under `seed`, on the card."""
+    from lct_gan_tpu_torch.models.generator import (FreqGRUBlock,
+                                                    TimeGRUBlock)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        f = FreqGRUBlock(channels=C, num_heads=nh, groups=G, precise=False)
+        t = TimeGRUBlock(channels=C, num_heads=nh, groups=G, precise=False)
+    return f.cuda().eval(), t.cuda().eval()
+
+
+def worst_row_rel_l2(torch, out, ref):
+    """max over rows of ||out - ref|| / ||ref|| (rows of [B, ...])."""
+    d = (out - ref).flatten(1).norm(dim=1)
+    return (d / ref.flatten(1).norm(dim=1).clamp_min(1e-30)).max().item()
+
+
+def check_channels(torch, np, card, seed):
+    """The four forward kernels at every bottleneck width C of CHANNELS
+    other than 64 (C = 48 and 96 padded to 64 and 128 by the wrappers):
+    every head count and every GRU group count dividing C against the plain
+    versions on the card at small N, both modes (the composed GRU f32);
+    then at C = 32 and 128 (4 heads, 4 groups) the main path's shapes,
+    timed, with the bound and the library call; the enhancer end to end at
+    enc_channels (8, 16, 32) and (32, 64, 128) against the plain path on the
+    card, with launch counts; and the card's refusals: training at C != 64
+    (before any launch) and serving at C = 40. Random weights from `seed`.
+    Returns (kernel cases by kernel, launches by kernel)."""
+    from lct_gan_tpu_torch.eval import make_enhance
+    from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
+                                                    LctEnhancer)
+    from lct_gan_tpu_torch.ops._build import build_all
+    from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
+    from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
+                                                        banded_mhsa_reference)
+    from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
+                                           fused_ftf_block)
+    from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
+                                           grouped_gru_plain, gru_slot,
+                                           layer_norm)
+    from lct_gan_tpu_torch.ops.padding import kernel_width
+    from lct_gan_tpu_torch.ops.probe import ex2_rate
+    from lct_gan_tpu_torch.train.state import TrainConfig, build_models
+    from lct_gan_tpu_torch.train.state import _assemble
+
+    t0 = time.perf_counter()
+    build_s = build_all(verbose=True, widths=CHANNELS)
+    emit({"phase": "channels", "build_seconds": build_s,
+          "widths": list(CHANNELS)})
+    exps_per_s = ex2_rate()
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": [],
+               "fused_grouped_gru": []}
+
+    def tail(N, L, n_valid_min):
+        valid = torch.randint(n_valid_min, L + 1, (N,), generator=g,
+                              device="cuda")
+        pos = torch.arange(L, device="cuda")
+        return torch.where(pos[None, :] < valid[:, None], 0.0,
+                           -1e30).to(torch.float32)
+
+    def small_case(kernel, C, nh, G, name, mode, fn, plain):
+        out = fn()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        if not (err <= TOL[mode]) or not torch.isfinite(out).all():
+            raise AssertionError(f"channels {kernel} {name} C={C} heads={nh} "
+                                 f"groups={G} {mode}: max|diff| {err} > "
+                                 f"{TOL[mode]}")
+        return {"kernel": kernel, "case": name, "C": C, "num_heads": nh,
+                "gru_groups": G, "mode": mode, "max_abs_err": err,
+                "rel_err": rel}
+
+    # Every head count and group count of each width at small N.
+    small = []
+    n_cases = 0
+    for C in CHANNELS:
+        worst = {}
+        for nh, G in channel_pairs(C):
+            fblk, tblk = seeded_blocks(torch, seed + C + nh, C, nh, G)
+            cases = [("freq", fblk, 96, 33, False, None),
+                     ("time_keybias", tblk, 32, 129, True, None),
+                     ("time_lookback16", tblk, 32, 129, False, 16)]
+            for name, blk, N, L, with_kb, lb in cases:
+                params = [p.detach().contiguous()
+                          for p in blk.kernel_params()]
+                x = torch.randn((N, L, C), generator=g, device="cuda")
+                kb = tail(N, L, L - 40) if with_kb else None
+                for mode in ("bf16", "precise"):
+                    kw = dict(bidirectional=blk.bidirectional, num_heads=nh,
+                              lookback=lb, precise=mode == "precise")
+                    small.append(small_case(
+                        "fused_ftf_block", C, nh, G, name, mode,
+                        lambda: fused_ftf_block(x, *params, key_bias=kb,
+                                                **kw),
+                        lambda: ftf_block_reference(x, *params, key_bias=kb,
+                                                    **kw)))
+            aparams = [p.detach().contiguous()
+                       for p in tblk.attn.kernel_params()]
+            for kernel, fn, ref, L, lb in (
+                    ("fused_mhsa", fused_mhsa, mhsa_reference, 516, None),
+                    ("banded_mhsa", banded_mhsa, banded_mhsa_reference, 772,
+                     64)):
+                x = torch.randn((6, L, C), generator=g, device="cuda")
+                kb = tail(6, L, L - 130)
+                for mode in ("bf16", "precise"):
+                    kw = dict(num_heads=nh, precise=mode == "precise")
+                    if lb is not None:
+                        kw["lookback"] = lb
+                    small.append(small_case(
+                        kernel, C, nh, G, f"L{L}", mode,
+                        lambda: fn(x, *aparams, key_bias=kb, **kw),
+                        lambda: ref(x, *aparams, key_bias=kb, **kw)))
+            gparams = [p.detach().contiguous()
+                       for p in tblk.kernel_params()[:6]]
+            x = torch.randn((6, 516, C), generator=g, device="cuda")
+            small.append(small_case(
+                "fused_grouped_gru", C, nh, G, "L516", "precise",
+                lambda: fused_grouped_gru(x, *gparams, bidirectional=False),
+                lambda: grouped_gru_plain(x, *gparams, False)))
+            del fblk, tblk, x
+        for r in small[n_cases:]:
+            key = (r["kernel"], r["mode"])
+            if r["max_abs_err"] >= worst.get(key, {}).get("max_abs_err", -1):
+                worst[key] = r
+        emit({"phase": "channels", "C": C, "kernel_width": kernel_width(C),
+              "pairs": channel_pairs(C), "cases": len(small) - n_cases,
+              "worst": list(worst.values()), "tol": TOL})
+        n_cases = len(small)
+        torch.cuda.empty_cache()
+    small_s = time.perf_counter() - t0
+
+    # C = 32 and 128 at the main path's shapes, 4 heads and 4 groups.
+    def head_flops(N, pairs, hd, C):
+        nh = C // hd
+        return (N * nh * pairs * hd * 4,
+                N * nh * pairs * 2 * (max(hd, 16) + max(hd, 8)))
+
+    for C in MAIN_CHANNELS:
+        nh = G = 4
+        hd = C // nh
+        fblk, tblk = seeded_blocks(torch, seed + C, C, nh, G)
+        for name, blk, N, L, lb in (("freq_main", fblk, 16512, 33, None),
+                                    ("time_keybias_lookback16_main", tblk,
+                                     4224, 129, 16)):
+            params = [p.detach().contiguous() for p in blk.kernel_params()]
+            D = 2 if blk.bidirectional else 1
+            x = torch.randn((N, L, C), generator=g, device="cuda")
+            kb = tail(N, L, L - 40) if D == 1 else None
+            rows, lin_in = N * L, params[12].shape[0]
+            pairs_n = band_pairs(L, lb)
+            attn, attn_pad = head_flops(N, pairs_n, hd, C)
+            rest = rows * (2 * C * 3 * C + 2 * C * C + 2 * lin_in * C)
+            gru = rows * 4 * D * 3 * C * (C // G)
+            gru_pad = rows * 4 * D * 3 * C * gru_slot(G, C)
+            extra = (sum(p.numel() for p in params) * 4
+                     + (rows * 4 if kb is not None else 0))
+            exps = N * nh * pairs_n + rows * D * C * 3
+            for mode in ("bf16", "precise"):
+                kw = dict(bidirectional=D == 2, num_heads=nh, lookback=lb,
+                          precise=mode == "precise")
+
+                def plain(lo, hi):
+                    return ftf_block_reference(
+                        x[lo:hi], *params,
+                        key_bias=None if kb is None else kb[lo:hi], **kw)
+
+                results["fused_ftf_block"].append(width_case(
+                    torch, "fused_ftf_block", name,
+                    lambda: fused_ftf_block(x, *params, key_bias=kb, **kw),
+                    by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
+                    mode, (N, L), rest + gru + attn, rest + gru_pad + attn_pad,
+                    extra, exps, exps_per_s, nh, G,
+                    lambda: library_or_reason(
+                        torch, lambda: library_attention_ms(
+                            torch, N, L, lb, kb, mode, nh, C)),
+                    C=C, phase="channels"))
+            del x, kb
+        aparams = [p.detach().contiguous()
+                   for p in tblk.attn.kernel_params()]
+        for kernel, fn, ref, N, L, lb in (
+                ("fused_mhsa", fused_mhsa, mhsa_reference, 825, 644, None),
+                ("banded_mhsa", banded_mhsa, banded_mhsa_reference, 660, 772,
+                 64)):
+            x = torch.randn((N, L, C), generator=g, device="cuda")
+            kb = tail(N, L, L - 130)
+            rows = N * L
+            pairs_n = band_pairs(L, lb)
+            attn, attn_pad = head_flops(N, pairs_n, hd, C)
+            proj = rows * (2 * C * 3 * C + 2 * C * C)
+            exps = (2 if lb is None else 1) * N * nh * pairs_n
+            extra = sum(p.numel() for p in aparams) * 4 + rows * 4
+            for mode in ("bf16", "precise"):
+                kw = dict(num_heads=nh, precise=mode == "precise")
+                if lb is not None:
+                    kw["lookback"] = lb
+                    library = lambda: library_banded_ms(  # noqa: E731
+                        torch, N, L, lb, mode, nh, C)
+                else:
+                    library = lambda: library_or_reason(  # noqa: E731
+                        torch, lambda: library_mha_ms(torch, x, aparams, kb,
+                                                      mode, nh))
+
+                def plain(lo, hi):
+                    return ref(x[lo:hi], *aparams, key_bias=kb[lo:hi], **kw)
+
+                results[kernel].append(width_case(
+                    torch, kernel, f"L{L}_N{N}_keybias" + (
+                        f"_W{lb}" if lb is not None else ""),
+                    lambda: fn(x, *aparams, key_bias=kb, **kw),
+                    by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
+                    mode, (N, L), proj + attn, proj + attn_pad, extra, exps,
+                    exps_per_s, nh, G, library, C=C, phase="channels"))
+            del x, kb
+        gparams = [p.detach().contiguous() for p in tblk.kernel_params()[:6]]
+        N, L = 825, 644
+        x = torch.randn((N, L, C), generator=g, device="cuda")
+        rows = N * L
+
+        def gru_fn():
+            return fused_grouped_gru(x, *gparams, bidirectional=False)
+
+        def library():
+            lib_ms, lib_out = library_gru(
+                torch, layer_norm(x, *gparams[:2]), *gparams[2:])
+            return lib_ms, None, (lib_out - gru_fn()).abs().max().item()
+
+        results["fused_grouped_gru"].append(width_case(
+            torch, "fused_grouped_gru", f"L{L}", gru_fn,
+            lambda: grouped_gru_plain(x, *gparams, False), "precise", (N, L),
+            rows * 4 * 3 * C * (C // G), rows * 4 * 3 * C * gru_slot(G, C),
+            sum(p.numel() for p in gparams) * 4, rows * C * 3, exps_per_s,
+            nh, G, library, C=C, phase="channels"))
+        del x, fblk, tblk
+        torch.cuda.empty_cache()
+    main_s = time.perf_counter() - t0 - small_s
+
+    # The enhancer end to end at two other widths, each call against the
+    # plain path on the card.
+    launches = {k: 0 for k in ("fused_ftf_block", "fused_mhsa",
+                               "banded_mhsa", "fused_ftf_bwd",
+                               "fused_grouped_gru")}
+    rng = np.random.default_rng(seed + 18)
+
+    def enhancer_at(enc, mtc=None):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed + enc[-1])
+            return LctEnhancer(gen_cfg=LCTGeneratorConfig(
+                enc_channels=enc, dec_channels=enc[::-1],
+                max_time_context=mtc)).cuda().eval()
+
+    calls = [((8, 16, 32), None, 128, 2 * SR, False, (3, 0, 0, 0)),
+             ((32, 64, 128), None, 128, 2 * SR, False, (3, 0, 0, 0)),
+             ((32, 64, 128), None, 4, 163840, True, (2, 1, 0, 1)),
+             ((32, 64, 128), 64, 4, 196608, True, (2, 0, 1, 1))]
+    for enc, mtc, B, T, bucketed, expect in calls:
+        enhancer = enhancer_at(enc, mtc)
+        enhance = make_enhance(enhancer)
+        if bucketed:
+            wave, lens = bucket_batch(np, rng, T, B)
+            ln = torch.from_numpy(lens).cuda()
+        else:
+            wave = (0.1 * rng.standard_normal((B, T))).astype(np.float32)
+            ln = None
+        x = torch.from_numpy(wave).cuda()
+        enhance(x) if ln is None else enhance(x, ln)  # warm-up
+        out, got = run_counted(torch, enhance, x, ln, dict(zip(
+            ("fused_ftf_block", "fused_mhsa", "banded_mhsa",
+             "fused_grouped_gru"), expect)))
+        for k in launches:
+            launches[k] += got[k]
+        if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
+            raise AssertionError(f"channels enhancer output bad: "
+                                 f"{tuple(out.shape)}")
+        with torch.inference_mode():
+            mask = enhancer(x, ln)[1]
+            with plain_route(torch):
+                ref_wave, ref_mask = enhancer(x, ln)
+        rel = worst_row_rel_l2(torch, out, ref_wave)
+        werr = (out - ref_wave).abs().max().item()
+        merr = (mask - ref_mask).abs().max().item()
+        if not (rel <= TOL_REL_L2 and werr <= TOL_WAVE and merr <= TOL_MASK):
+            raise AssertionError(
+                f"channels enhancer enc_channels={enc} B={B} x {T}: worst "
+                f"row rel L2 {rel} (tol {TOL_REL_L2}), wave {werr} (tol "
+                f"{TOL_WAVE}), mask {merr} (tol {TOL_MASK}) against the "
+                "plain path on the card")
+        call = (lambda: enhance(x)) if ln is None else (lambda: enhance(x, ln))
+        emit({"phase": "channels", "workload": f"B={B} x {T} samples" + (
+                  " bucketed" if bucketed else ""),
+              "enc_channels": list(enc), "num_heads": 4, "gru_groups": 4,
+              "max_time_context": mtc, "seed": seed, "launches": got,
+              "wave_worst_row_rel_l2_vs_plain_on_card": rel,
+              "tol_rel_l2": TOL_REL_L2,
+              "wave_max_abs_err_vs_plain_on_card": werr,
+              "mask_max_abs_err_vs_plain_on_card": merr,
+              "tol_wave": TOL_WAVE, "tol_mask": TOL_MASK,
+              "ms_per_call": cuda_ms(torch, call, 3), "device": card})
+        del enhancer, enhance, x, ln, out, mask, ref_wave, ref_mask
+        torch.cuda.empty_cache()
+
+    # Refusals on the card: training at C = 128 (the state, and a block
+    # under grad before any launch), serving at C = 40.
+    refused = []
+    cfg = TrainConfig()
+    _, mpd, msd = build_models(cfg)
+    try:
+        _assemble(cfg, enhancer_at((32, 64, 128)).cpu(), mpd, msd, "cuda")
+    except ValueError as exc:
+        if "enc_channels" not in str(exc):
+            raise
+        refused.append(("train state (32, 64, 128)", str(exc)))
+    else:
+        raise AssertionError("a train state at enc_channels (32, 64, 128) "
+                             "was built on the card")
+    blk = seeded_blocks(torch, seed, 48, 4, 4)[0]
+    params = [p.detach().clone().requires_grad_()
+              for p in blk.kernel_params()]
+    fused_ftf_block.launches = 0
+    try:
+        fused_ftf_block(torch.randn((4, 33, 48), device="cuda"), *params,
+                        bidirectional=True, num_heads=4)
+    except ValueError as exc:
+        if fused_ftf_block.launches != 0 or "enc_channels" not in str(exc):
+            raise
+        refused.append(("fused_ftf_block under grad, C = 48", str(exc)))
+    else:
+        raise AssertionError("fused_ftf_block ran under grad at C = 48")
+    try:
+        make_enhance(enhancer_at((16, 32, 40)))
+    except ValueError as exc:
+        if "enc_channels" not in str(exc):
+            raise
+        refused.append(("serve (16, 32, 40)", str(exc)))
+    else:
+        raise AssertionError("make_enhance took enc_channels (16, 32, 40) "
+                             "on the card")
+    emit({"phase": "channels", "refused": refused})
+    emit({"phase": "channels", "small_cases": len(small),
+          "small_cases_s": small_s, "main_cases_s": main_s,
+          "build_seconds": build_s, "seconds": time.perf_counter() - t0})
     return results, launches
 
 
@@ -2639,8 +3034,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the widths phase's random weights and "
-                         "inputs")
+                    help="seed of the widths and channels phases' random "
+                         "weights and inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA GPU visible")
@@ -2670,6 +3065,12 @@ def main():
     for k, rows in width_cases.items():
         kernels[k].extend(rows)
     for k, n in width_launches.items():
+        launches[k] += n
+    channel_cases, channel_launches = check_channels(torch, np, card,
+                                                     args.seed)
+    for k, rows in channel_cases.items():
+        kernels[k].extend(rows)
+    for k, n in channel_launches.items():
         launches[k] += n
     for phase in (check_banded, check_stream):
         for k, n in phase(torch, np, card).items():
@@ -2710,7 +3111,7 @@ def main():
         head = next(r for r in kernels[name]
                     if r["L"] == head_L and r["mode"] == head_mode
                     and r.get("num_heads", 4) == 4
-                    and r.get("gru_groups", 4) == 4)
+                    and r.get("gru_groups", 4) == 4 and r.get("C", 64) == 64)
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the path")
         summary.append({

@@ -1,6 +1,6 @@
 // Banded-causal multi-head self-attention for Hopper (sm_90a): the function
 // of the TPU kernel `lct_gan_tpu/ops/banded_attention.py::_banded_kernel`
-// over x [N, S, 64] with no upper bound on S, with the TPU kernel's bf16
+// over x [N, S, C] with no upper bound on S, with the TPU kernel's bf16
 // rounding points (x, in_w; q, k, v; the normalised p; ctx, out_w) and f32
 // accumulation. Each query q attends the keys of its inclusive band
 // [q - W, q] ∩ [0, S) with a per-key bias; out-of-band keys are skipped
@@ -13,19 +13,22 @@
 //                           C/hd-head softmax attention over the band, output
 //                           projection; q, k, v and the context never leave
 //                           the SM.
-//   W > MAX_REG_W (the band's scores no longer fit in registers):
-//   qkv_tc_kernel -> qkv bf16 [N*S, 192], then attn_tc_kernel<1> with the
+//   W > MAX_REG_W (the band's scores no longer fit in registers), and every
+//   band at C = 128 (in_w, out_w and the key ring pass the 227 KB of shared
+//   memory a block may hold):
+//   qkv_tc_kernel -> qkv bf16 [N*S, 3C], then attn_tc_kernel<1> with the
 //   band (mhsa.cu's kernel: it streams key tiles and skips those outside
 //   the band, for any S).
 // precise (lct_banded_forward_f32), all f32 on CUDA cores (common.cuh):
 //   proj_kernel -> qkv f32, banded_attn_kernel -> ctx f32, proj_kernel -> out.
 //
-// Bound on the H100: at the banded time block of the 196,608-sample bucket
-// (N = 20*33 sequences of S = 772, W = 64) the function moves ~261 MB (x in,
-// out back; ~78 us at 3.35 TB/s) and does ~25 GFLOP of useful products, 82%
-// of them in the qkv and output projections (~25 us at 989 TFLOP/s bf16):
-// it is bound by bytes. Its one exp per in-band pair (127 M) takes ~31 us
-// at the ~4.15 T/s that ops/probe.py measures for ex2.
+// Bound on the H100 at C = 64: at the banded time block of the
+// 196,608-sample bucket (N = 20*33 sequences of S = 772, W = 64) the
+// function moves ~261 MB (x in, out back; ~78 us at 3.35 TB/s) and does
+// ~25 GFLOP of useful products, 82% of them in the qkv and output
+// projections (~25 us at 989 TFLOP/s bf16): it is bound by bytes. Its one
+// exp per in-band pair (127 M) takes ~31 us at the ~4.15 T/s that
+// ops/probe.py measures for ex2.
 //
 // The bf16 design keeps device memory to x in and out back. Work item: one
 // (sequence, tile of BQ query rows); each block of a persistent grid walks a
@@ -50,11 +53,12 @@
 // registers a thread): the dependent steps of each warp's softmax, more
 // than a pipe or device memory, set its pace.
 //
-// Heads: any num_heads dividing 64. The kernels are built per padded head
-// width (head_pad in common.cuh): 16, 32 (two k-steps a score) or 64 (four,
-// one head a pass) with every head unrolled, or 8 for hd <= 8, whose heads
-// take masked fragments (tc.cuh's q_mask, v_mask) in a loop, two at a time,
-// their context summed in f32 and rounded once for the output projection.
+// Heads: any num_heads dividing C_MODEL (run at head_width, common.cuh).
+// The kernels are built per padded head width (head_pad in common.cuh):
+// 16, 32 (two k-steps a score) or 64 (four, one head a pass) with every head
+// unrolled, or 8 for hd <= 8, whose heads take masked fragments (tc.cuh's
+// q_mask, v_mask) in a loop, two at a time, their context summed in f32 and
+// rounded once for the output projection.
 
 #include <limits.h>
 
@@ -122,9 +126,9 @@ __device__ __forceinline__ void band_pass(const float* Ks, const float* Vs,
   }
 }
 
-// qkv [N*S, 3C] -> ctx [N*S, C], C / hd heads. Block b covers sequence n,
-// head h and query rows [t0, t0 + BT) with b = (n * nh + h) * ntiles + t0 /
-// BT. The keys the tile can reach, [max(0, t0 - W), min(S, t0 + BT)), are
+// qkv [N*S, 3C] -> ctx [N*S, C], C / hd heads (scaled by 1 / sqrt(hd_true)
+// where PADDED). Block b covers sequence n, head h and query rows [t0, t0 +
+// BT) with b = (n * nh + h) * ntiles + t0 / BT. The keys the tile can reach, [max(0, t0 - W), min(S, t0 + BT)), are
 // staged BKC rows at a time: with W <= BKC - BT they fit at once and are
 // loaded once; a wider band reloads each chunk in each of the three
 // passes, so shared memory stays 33 KB for any W.
@@ -133,14 +137,14 @@ __global__ void __launch_bounds__(BT)
     banded_attn_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ key_bias,
                        float* __restrict__ ctx, int S, int W, int ntiles,
-                       int hd_rt) {
+                       int hd_rt, int hd_true) {
   constexpr int BKC = BandKeys<HDP>::BKC;
   __shared__ __align__(16) float Ks[BKC * HDP];
   __shared__ __align__(16) float Vs[BKC * HDP];
   __shared__ float kb[BKC];
   const int hd = HDP >= 16 ? HDP : hd_rt;
   const int nh = C / hd;
-  const float scale = inv_sqrt_hd(hd);
+  const float scale = head_scale(hd, hd_true);
   const int tid = threadIdx.x;
   const int tile = (int)(blockIdx.x % (unsigned)ntiles);
   const long long seq_head = blockIdx.x / (unsigned)ntiles;
@@ -235,7 +239,8 @@ __global__ void __launch_bounds__(BT)
 // bf16 mode: one fused tensor-core pass (see the note at the top).
 //
 // Query rows per work item, 16 per warp: 64-row items fit two blocks per SM
-// (89 KB of shared memory at W <= 64, up to 255 registers a thread);
+// (89 KB of shared memory at W <= 64 and C = 64, up to 255 registers a
+// thread);
 // 128-row items, one block per SM, were 3-7% slower at S = 772 and at most
 // 5% faster at S = 3,588 (PERF.md).
 constexpr int BQ = 64;
@@ -248,22 +253,24 @@ constexpr int XLD = C + 8;  // f32 row stride of the staged x rows
 // budget with its spills 19%: PERF.md).
 constexpr int HP = 2;
 // The widest band whose scores a warp keeps in registers: MAX_CHUNKS chunks
-// of 16 keys (64 f32 scores a thread). Wider bands take attn_tc_kernel<1>.
+// of 16 keys (64 f32 scores a thread). Wider bands take attn_tc_kernel<1>,
+// and so does every band at C = 128 (no fused kernel there: -1).
 constexpr int MAX_CHUNKS = 8;
-constexpr int MAX_REG_W = 16 * (MAX_CHUNKS - 1);
+constexpr int MAX_REG_W = C <= 64 ? 16 * (MAX_CHUNKS - 1) : -1;
 
 struct BandedArgs {
-  const float* x;         // [N, S, 64]
-  const float* in_w;      // [64, 192]
-  const float* in_b;      // [192]
-  const float* out_w;     // [64, 64]
-  const float* out_b;     // [64]
+  const float* x;         // [N, S, C]
+  const float* in_w;      // [C, 3C]
+  const float* in_b;      // [3C]
+  const float* out_w;     // [C, C]
+  const float* out_b;     // [C]
   const float* key_bias;  // [N, S] or null
-  float* out;             // [N, S, 64]
+  float* out;             // [N, S, C]
   long long N;
   int S;
   int lookback;
   int hd;  // head width: C / num_heads
+  int hd_true;  // its true channels (the score scale's width; PADDED only)
 };
 
 // NCH = ceil(W / 16) + 1 key chunks per warp: the halo of 16 (NCH - 1) rows
@@ -287,23 +294,24 @@ struct BandShape {
 __device__ __forceinline__ void stage_rows(float* xw,
                                            const float* __restrict__ xn,
                                            int row0, int S, int lane) {
+  constexpr int PL = tc::PIECES_LOG2 + 1;  // log2 of C / 4, f32 pieces a row
   for (int c = lane; c < 16 * (C / 4); c += 32) {
-    const int r = c >> 4, part = c & 15, row = row0 + r;
+    const int r = c >> PL, part = c & ((1 << PL) - 1), row = row0 + r;
     const bool ok = row >= 0 && row < S;
     tc::cp_async16(xw + r * XLD + part * 4,
                    xn + (size_t)(ok ? row : 0) * C + part * 4, ok);
   }
 }
 
-// The A fragments (four 16-column k-steps) of the 16 x rows a warp staged,
-// rounded to bf16.
-__device__ __forceinline__ void staged_frags(uint32_t (&af)[4][4],
+// The A fragments (C / 16 16-column k-steps) of the 16 x rows a warp
+// staged, rounded to bf16.
+__device__ __forceinline__ void staged_frags(uint32_t (&af)[C / 16][4],
                                              const float* xw, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const float* p0 = xw + g * XLD + 2 * t;
   const float* p1 = p0 + 8 * XLD;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < C / 16; ++kk) {
     const float2 a0 = *reinterpret_cast<const float2*>(p0 + kk * 16);
     const float2 a1 = *reinterpret_cast<const float2*>(p1 + kk * 16);
     const float2 a2 = *reinterpret_cast<const float2*>(p0 + kk * 16 + 8);
@@ -315,9 +323,9 @@ __device__ __forceinline__ void staged_frags(uint32_t (&af)[4][4],
   }
 }
 
-// k and v of 16 key rows from their x fragments: bf16(x @ in_w[:, 64:192]
+// k and v of 16 key rows from their x fragments: bf16(x @ in_w[:, C:3C]
 // + in_b), stored at rows [r0, r0 + 16) of ks and vs.
-__device__ __forceinline__ void project_kv(const uint32_t (&af)[4][4],
+__device__ __forceinline__ void project_kv(const uint32_t (&af)[C / 16][4],
                                            const __nv_bfloat16* ws,
                                            const float* __restrict__ in_b,
                                            __nv_bfloat16* ks,
@@ -325,13 +333,13 @@ __device__ __forceinline__ void project_kv(const uint32_t (&af)[4][4],
                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int np = 0; np < 8; ++np) {
+  for (int np = 0; np < C / 8; ++np) {
     float acc[2][4];
     tc::product_16cols(acc, af, ws + C + np * 16, tc::LDW, lane);
-    __nv_bfloat16* dst = np < 4 ? ks : vs;
+    __nv_bfloat16* dst = np < C / 16 ? ks : vs;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int col = (np & 3) * 16 + j * 8 + 2 * t;
+      const int col = (np & (C / 16 - 1)) * 16 + j * 8 + 2 * t;
       const float b0 = __ldg(in_b + C + np * 16 + j * 8 + 2 * t);
       const float b1 = __ldg(in_b + C + np * 16 + j * 8 + 2 * t + 1);
 #pragma unroll
@@ -350,9 +358,9 @@ __device__ __forceinline__ float acc_sum(const float (&o)[NACC][NT][4],
   return NACC > 1 ? o[0][nt][e] + o[NACC - 1][nt][e] : o[0][nt][e];
 }
 
-// HDP: the padded head width (head_pad): 16, 32 or 64, or 8 for any hd <=
-// 8 (the true width a.hd at run time, each head a masked fragment as in
-// tc.cuh's attention).
+// HDP: the padded head width (head_pad): 16, 32 or 64 (at most C <= 64),
+// or 8 for any hd <= 8 (the true width a.hd at run time, each head a masked
+// fragment as in tc.cuh's attention).
 template <int NCH, int HDP>
 __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
     banded_tc_kernel(BandedArgs a) {
@@ -363,11 +371,11 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
   // one for the wider heads: their tiles give the chains enough to do).
   constexpr int KS = HDP >= 16 ? HDP / 16 : 1;
   constexpr int NT = HDP >= 16 ? HDP / 8 : 1;
-  constexpr int HPW = HDP == 64 ? 1 : HP;
+  constexpr int HPW = HDP == 64 || HDP == C ? 1 : HP;
   constexpr int NACC = HDP > 16 ? 1 : 2;
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd;
-  const float scale2 = tc::qk_scale2(hd);
+  const float scale2 = tc::qk_scale2(hd, a.hd_true);
   using tc::LDS;
   using tc::LDW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -408,7 +416,7 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
     // previous item, and, for a fresh item, halo tiles warp, warp + NW, ...
     // (k, v), staged in turn in the same rows; the loads of the first halo
     // tile and of the new key bias are in flight across the barrier.
-    uint32_t own[4][4];
+    uint32_t own[C / 16][4];
     tc::cp_async_wait<0>();
     __syncwarp();
     staged_frags(own, xw, lane);
@@ -457,7 +465,7 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
           stage_rows(xw, xn, k0 + 16 * h, S, lane);
           tc::cp_async_commit();
         }
-        uint32_t halo[4][4];
+        uint32_t halo[C / 16][4];
         tc::cp_async_wait<0>();
         __syncwarp();
         staged_frags(halo, xw, lane);
@@ -492,7 +500,7 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
     for (int c = 0; c < NCH; ++c)
       slot[c] = (r0 - 16 * (NCH - 1 - c) + KR) % KR;
     uint32_t ca[C / 16][4];
-    float cx[HDP == 8 ? 8 : 1][4] = {};  // HDP = 8: all heads' context
+    float cx[HDP == 8 ? C / 8 : 1][4] = {};  // HDP = 8: all heads' context
     // Heads h0 .. h0 + HPW - 1 through the softmax (unrolled for a fixed
     // head count, a loop over the C / hd heads for HDP = 8).
 #pragma unroll (HDP == 16 ? 2 : 1)
@@ -648,7 +656,7 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
         } else {
           const int nt = (h * hd) >> 3;
 #pragma unroll
-          for (int q = 0; q < 8; ++q)
+          for (int q = 0; q < C / 8; ++q)
             if (q == nt)
 #pragma unroll
               for (int e = 0; e < 4; ++e)
@@ -668,11 +676,11 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
     }
 
     // out = bf16(ctx) @ bf16(out_w) + out_b, f32.
-    float acc[8][4];
+    float acc[C / 8][4];
     tc::out_projection(acc, ca, wo, lane);
     const size_t rowbase = (size_t)n * S;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < C / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
 #pragma unroll
@@ -717,19 +725,19 @@ cudaError_t launch_banded_hd(const BandedArgs& a, cudaStream_t st) {
 template <int HDP>
 cudaError_t launch_banded_f32(const float* qkv, const float* key_bias,
                               float* ctx, long long N, int S, int lookback,
-                              int hd, cudaStream_t st) {
+                              int hd, int hd_true, cudaStream_t st) {
   const int ntiles = (S + BT - 1) / BT;
   const long long ablocks = N * (C / hd) * ntiles;
   banded_attn_kernel<HDP><<<(unsigned)ablocks, BT, 0, st>>>(
-      qkv, key_bias, ctx, S, lookback, ntiles, hd);
+      qkv, key_bias, ctx, S, lookback, ntiles, hd, hd_true);
   return cudaGetLastError();
 }
 
 }  // namespace lct
 
-// x, out: [N, S, 64]; in_w: [64, 192]; out_w: [64, 64]; key_bias: [N, S] or
-// null; lookback >= 0; num_heads divides 64. Scratch: none for lookback <=
-// MAX_REG_W, else qkv bf16 [N*S, 192]. Returns a cudaError_t.
+// x, out: [N, S, C]; in_w: [C, 3C]; out_w: [C, C]; key_bias: [N, S] or
+// null; lookback >= 0; num_heads divides C_MODEL. Scratch: none for
+// lookback <= MAX_REG_W, else qkv bf16 [N*S, 3C]. Returns a cudaError_t.
 extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
                                        const float* in_b, const float* out_w,
                                        const float* out_b,
@@ -738,13 +746,14 @@ extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
                                        int lookback, int num_heads,
                                        int device, void* stream) {
   using namespace lct;
-  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 || C % num_heads)
+  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 ||
+      C_MODEL % num_heads)
     return (int)cudaErrorInvalidValue;
   if (N * S == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  const int hd = C / num_heads;
+  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
   if (lookback > MAX_REG_W) {
     if (qkv == nullptr) return (int)cudaErrorInvalidValue;
     __nv_bfloat16* q = static_cast<__nv_bfloat16*>(qkv);
@@ -762,16 +771,24 @@ extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
     a.L = S;
     a.lookback = lookback;
     a.hd = hd;
+    a.hd_true = hdt;
     return (int)tc::launch_attn_tc<1>(a, st);
   }
-  const BandedArgs a = {x, in_w, in_b, out_w, out_b, key_bias, out,
-                        N, S, lookback, hd};
-  switch (head_pad(hd)) {
-    case 8: return (int)launch_banded_hd<8>(a, st);
-    case 16: return (int)launch_banded_hd<16>(a, st);
-    case 32: return (int)launch_banded_hd<32>(a, st);
-    default: return (int)launch_banded_hd<64>(a, st);
+  if constexpr (C <= 64) {
+    const BandedArgs a = {x, in_w, in_b, out_w, out_b, key_bias, out,
+                          N, S, lookback, hd, hdt};
+    switch (head_pad(hd)) {
+      case 8: return (int)launch_banded_hd<8>(a, st);
+      case 16: return (int)launch_banded_hd<16>(a, st);
+      case 32:
+        if constexpr (C >= 32) return (int)launch_banded_hd<32>(a, st);
+        break;
+      case 64:
+        if constexpr (C >= 64) return (int)launch_banded_hd<64>(a, st);
+        break;
+    }
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The widest band lct_banded_forward_bf16 serves from registers, with no
@@ -779,7 +796,7 @@ extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
 extern "C" int lct_banded_max_register_lookback() { return lct::MAX_REG_W; }
 
 // The same function in all-f32 arithmetic (precise mode). Scratch: qkv
-// [N*S, 192], ctx [N*S, 64], f32.
+// [N*S, 3C], ctx [N*S, C], f32.
 extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
                                       const float* in_b, const float* out_w,
                                       const float* out_b,
@@ -788,37 +805,51 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
                                       int S, int lookback, int num_heads,
                                       int device, void* stream) {
   using namespace lct;
-  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 || C % num_heads)
+  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 ||
+      C_MODEL % num_heads)
     return (int)cudaErrorInvalidValue;
   const long long rows = N * S;
   if (rows == 0) return 0;
-  const int hd = C / num_heads;
+  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
   const long long rblocks = (rows + ROWS - 1) / ROWS;
-  if (rblocks > INT_MAX || N * num_heads * ((S + BT - 1) / BT) > INT_MAX)
+  if (rblocks > INT_MAX || N * (C / hd) * ((S + BT - 1) / BT) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
 
-  proj_kernel<false><<<(unsigned)rblocks, 3 * C, 0, st>>>(
+  proj_kernel<false><<<(unsigned)rblocks, row_threads(3 * C), 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
       /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = cudaErrorInvalidValue;
   switch (head_pad(hd)) {
     case 8:
-      e = launch_banded_f32<8>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+      e = launch_banded_f32<8>(qkv, key_bias, ctx, N, S, lookback, hd, hdt,
+                               st);
       break;
     case 16:
-      e = launch_banded_f32<16>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+      e = launch_banded_f32<16>(qkv, key_bias, ctx, N, S, lookback, hd, hdt,
+                                st);
       break;
     case 32:
-      e = launch_banded_f32<32>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+      if constexpr (C >= 32)
+        e = launch_banded_f32<32>(qkv, key_bias, ctx, N, S, lookback, hd,
+                                  hdt, st);
       break;
-    default:
-      e = launch_banded_f32<64>(qkv, key_bias, ctx, N, S, lookback, hd, st);
+    case 64:
+      if constexpr (C >= 64)
+        e = launch_banded_f32<64>(qkv, key_bias, ctx, N, S, lookback, hd,
+                                  hdt, st);
+      break;
+    case 128:
+      if constexpr (C >= 128)
+        e = launch_banded_f32<128>(qkv, key_bias, ctx, N, S, lookback, hd,
+                                   hdt, st);
+      break;
   }
   if (e != cudaSuccess) return (int)e;
-  proj_kernel<false><<<(unsigned)rblocks, C, 0, st>>>(
+  proj_kernel<false><<<(unsigned)rblocks, row_threads(C), 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
       /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -23,16 +23,21 @@
 //   lct_grouped_gru_f32 runs the first two alone: LN1 and the grouped GRU
 //   of the composed time block above L = 512 (ops/gru.py).
 //
-// Widths: any num_heads and any GRU group count that divide C = 64. The
-// GRU kernels run over slots of 16 units (gru_tc_kernel<1>, gru_kernel,
-// proj_kernel<true, 16>) or one dense slot of 64 (gru_tc_kernel<4>,
-// gru_dense_kernel, proj_kernel<true, 64>), the TPU kernel's packing
-// (lct_gan_tpu/ops/ftf.py:331): 4 groups of 16 and 1 group of 64 are
-// slots as they are; the caller packs narrower groups block-diagonally
-// into slots of 16, and 2 groups of 32 into one of 64 (ops/gru.py::
-// pack_gru_slots; exact: the entries off the blocks are 0 and add
-// nothing). The entry points take the GRU weights in slots: w [D, slots,
-// W, 3W], b [D, slots, 3W], slots = 4 (W = 16) or 1 (W = 64).
+// Widths: any num_heads and any GRU group count that divide C_MODEL (the
+// library's bottleneck width, common.cuh; the kernels run at C). The GRU
+// kernels run over slots of 16 units (gru_tc_kernel<1>, gru_kernel,
+// proj_kernel<true, 16>) or dense slots of W = C, or 64 at C = 128
+// (gru_tc_kernel<W / 16>, gru_dense_kernel<W>, proj_kernel<true, W>), the
+// TPU kernel's packing (lct_gan_tpu/ops/ftf.py:331): groups of 16 and
+// groups of W are slots as they are; the caller packs narrower groups
+// block-diagonally into slots of 16, and wider ones into those of W
+// (ops/gru.py::pack_gru_slots; exact: the entries off the blocks are 0 and
+// add nothing). The entry points take the GRU weights in slots: w [D,
+// slots, W, 3W], b [D, slots, 3W], slots = C / W. One slot of 128 (a group
+// of 128, or of 96 padded) would take 192 fragment registers a lane in
+// gru_tc_kernel: the bf16 mode runs it on CUDA cores with the same
+// rounding points (proj_kernel<true, 128> with round, gru_dense_kernel<
+// true, 128>).
 //
 // Bound on the H100: at the main path's shapes (B=128 x 2 s: N*L = 544,896
 // rows of 64 channels) one block moves ~279 MB of x and out (~83 us at
@@ -65,13 +70,17 @@ __global__ void __launch_bounds__(256, 3)
                long long N, int L, int D) {
   constexpr int H = 16, G = C / H;  // slots of 16 units
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // The total is a multiple of 64 and blocks are too, so a warp is either
-  // wholly in range or wholly out: the shuffles below see all 32 lanes.
-  if (tid >= N * D * G * H) return;
+  // For C >= 32 the total is a multiple of 32 and blocks are too, so a warp
+  // is either wholly in range or wholly out: the shuffles below see all 32
+  // lanes. At C = 16 a warp may hang over the end: its lanes past it run
+  // sequence 0 and store nothing.
+  const bool live = C % 32 == 0 || tid < N * D * G * H;
+  if (C % 32 == 0 ? tid >= N * D * G * H : (tid & ~31LL) >= N * D * G * H)
+    return;
   const int j = tid % H;
   const int g = (tid / H) % G;
   const int d = (tid / (G * H)) % D;
-  const long long n = tid / ((long long)G * H * D);
+  const long long n = live ? tid / ((long long)G * H * D) : 0;
 
   const float* wp = w_hh + (size_t)(d * G + g) * H * (3 * H);
   float wr[H], wz[H], wn[H];
@@ -103,38 +112,47 @@ __global__ void __launch_bounds__(256, 3)
     const float z = sigmoidf_(xr[H + j] + (az + bz));
     const float nn = tanhf(xr[2 * H + j] + r * (an + bn));
     h = (1.f - z) * nn + z * h;
-    hid[((size_t)d * NL + row) * C + g * H + j] = h;
+    if (live) hid[((size_t)d * NL + row) * C + g * H + j] = h;
   }
 }
 
-// The same recurrence over one dense slot of 64 units (groups of 32 or
-// 64), all f32. A block takes one direction and DS sequences, one thread
-// per (sequence, unit); W_hh of the direction sits in shared memory (48
-// KB, read by consecutive units: no bank conflict) and each step's hidden
+// The same recurrence over dense slots of SW units (wider groups, packed
+// block-diagonally): one slot of C, or at C = 128 two of 64; all f32, or
+// with ROUND the bf16 mode's products (bf16(h) @ bf16(W_hh), f32
+// accumulation; C = 128's bf16 GRU with one slot of 128). A block takes one
+// direction and DS sequences, one thread per (sequence, unit); W_hh of the
+// direction sits in shared memory (48 KB at C = 64, 192 KB at C = SW =
+// 128; read by consecutive units: no bank conflict) and each step's hidden
 // state is traded through a double buffer of shared memory, one barrier a
 // step. Bound: latency, as gru_kernel.
 constexpr int DS = 4;  // sequences per block of gru_dense_kernel
 
+template <int SW>
 inline size_t gru_dense_smem() {
-  return (size_t)(C * 3 * C + 2 * DS * C) * sizeof(float);
+  return (size_t)(C * 3 * SW + 2 * DS * C) * sizeof(float);
 }
 
+template <bool ROUND, int SW>
 __global__ void __launch_bounds__(DS * C)
     gru_dense_kernel(const float* __restrict__ xp,
                      const float* __restrict__ w_hh,
                      const float* __restrict__ b_hh, float* __restrict__ hid,
                      long long N, int L, int D) {
+  constexpr bool ONE = SW == C;  // one slot
   extern __shared__ float gsm[];
-  float* wsh = gsm;              // W_hh[d] [64][192]
-  float* hs = gsm + C * 3 * C;   // h [2][DS][64]
+  float* wsh = gsm;               // W_hh[d] [C / SW][SW][3 SW]
+  float* hs = gsm + C * 3 * SW;   // h [2][DS][C] (ROUND: rounded)
   const int d = blockIdx.y, u = threadIdx.x % C, sq = threadIdx.x / C;
+  const int sl = ONE ? 0 : u / SW, j = ONE ? u : u % SW;  // slot, its unit
   const long long n = (long long)blockIdx.x * DS + sq;
   const bool live = n < N;
-  const float* wp = w_hh + (size_t)d * C * (3 * C);
-  for (int i = threadIdx.x; i < C * 3 * C; i += blockDim.x) wsh[i] = wp[i];
+  const float* wp = w_hh + (size_t)d * C * (3 * SW);
+  for (int i = threadIdx.x; i < C * 3 * SW; i += blockDim.x)
+    wsh[i] = rnd(wp[i], ROUND);
   hs[sq * C + u] = 0.f;
-  const float* bp = b_hh + d * 3 * C;
-  const float br = bp[u], bz = bp[C + u], bn = bp[2 * C + u];
+  const float* bp = b_hh + d * 3 * C + sl * 3 * SW;
+  const float br = bp[j], bz = bp[SW + j], bn = bp[2 * SW + j];
+  const float* ws = wsh + sl * SW * 3 * SW;  // the slot's W_hh
   const size_t xstride = (size_t)D * 3 * C;
   const size_t NL = (size_t)N * L;
   __syncthreads();
@@ -142,25 +160,25 @@ __global__ void __launch_bounds__(DS * C)
   float h = 0.f;
   for (int s = 0; s < L; ++s) {
     const int t = d ? L - 1 - s : s;
-    const float* hp = hs + (s & 1) * DS * C + sq * C;
+    const float* hp = hs + (s & 1) * DS * C + sq * C + sl * SW;
     float ar = 0.f, az = 0.f, an = 0.f;
 #pragma unroll 8
-    for (int i = 0; i < C; ++i) {
+    for (int i = 0; i < SW; ++i) {
       const float hi = hp[i];
-      ar = fmaf(hi, wsh[i * 3 * C + u], ar);
-      az = fmaf(hi, wsh[i * 3 * C + C + u], az);
-      an = fmaf(hi, wsh[i * 3 * C + 2 * C + u], an);
+      ar = fmaf(hi, ws[i * 3 * SW + j], ar);
+      az = fmaf(hi, ws[i * 3 * SW + SW + j], az);
+      an = fmaf(hi, ws[i * 3 * SW + 2 * SW + j], an);
     }
     if (live) {
       const size_t row = (size_t)n * L + t;
-      const float* xr = xp + row * xstride + d * 3 * C;
-      const float r = sigmoidf_(xr[u] + (ar + br));
-      const float z = sigmoidf_(xr[C + u] + (az + bz));
-      const float nn = tanhf(xr[2 * C + u] + r * (an + bn));
+      const float* xr = xp + row * xstride + d * 3 * C + sl * 3 * SW;
+      const float r = sigmoidf_(xr[j] + (ar + br));
+      const float z = sigmoidf_(xr[SW + j] + (az + bz));
+      const float nn = tanhf(xr[2 * SW + j] + r * (an + bn));
       h = (1.f - z) * nn + z * h;
       hid[((size_t)d * NL + row) * C + u] = h;
     }
-    hs[((s + 1) & 1) * DS * C + sq * C + u] = h;
+    hs[((s + 1) & 1) * DS * C + sq * C + u] = rnd(h, ROUND);
     __syncthreads();
   }
 }
@@ -168,9 +186,10 @@ __global__ void __launch_bounds__(DS * C)
 // a = ctx @ out_w + out_b; comb = [g @ lin_w[:C]] + a @ lin_w[C:] + lin_b
 // (the first term for the frequency block only, lin_in == 2C); out = x + g +
 // LeakyReLU(comb), all f32. One thread per output channel, ROWS rows per
-// block; the register budget keeps 8 blocks resident per SM (nvcc's own
-// choice, 158 registers, fits 6 and was slower despite no spills).
-__global__ void __launch_bounds__(C, 8)
+// block; the register budget keeps 8 blocks resident per SM at C = 64
+// (nvcc's own choice, 158 registers, fits 6 and was slower despite no
+// spills), 4 at C = 128 (the same registers a thread).
+__global__ void __launch_bounds__(C, C > 64 ? 8 * 64 / C : 8)
     ftf_out_kernel(const float* __restrict__ x, const float* __restrict__ hid,
                    int D, const float* __restrict__ ctx,
                    const float* __restrict__ out_w,
@@ -245,14 +264,16 @@ __global__ void __launch_bounds__(C, 8)
 
 namespace tc {
 
-constexpr int TS = 8;        // steps per chunk of staged LN1 rows
-constexpr int GRU_ROWS = 4;  // LN1 rows a warp stages per step (D*GS / warps)
+constexpr int TS = 8;  // steps per chunk of staged LN1 rows
+// LN1 rows a warp stages per step (D GS / warps, C / 16 warps a direction).
+constexpr int GRU_ROWS = 256 / C;
+constexpr int WPD_LOG2 = PIECES_LOG2 - 1;  // log2 of C / 16
 
 struct GruArgs {
   const float* x;
   const float* ln_s;
   const float* ln_b;
-  const float* w_ih;  // slots [D, C/W, W, 3W] (gru_weights)
+  const float* w_ih;  // slots [D, C/W, W, 3W] (pack_gru_slots)
   const float* w_hh;
   const float* b_ih;  // [D, C/W, 3W]
   const float* b_hh;
@@ -262,8 +283,15 @@ struct GruArgs {
   int D;
 };
 
+// Whether gru_tc_kernel<KS> takes one direction a block (dense slots at
+// C = 128) rather than all of them.
+__host__ __device__ constexpr bool split_directions(int KS) {
+  return C > 64 && KS > 1;
+}
+
 // Two chunk buffers of LN1 rows, bf16 [2][D][TS][GS][LDS], and for KS > 1
-// two buffers of the hidden state, bf16 [2][D][GS][LDS].
+// two buffers of the hidden state, bf16 [2][D][GS][LDS] (D: directions a
+// block).
 template <int KS>
 inline size_t gru_smem(int D) {
   return (size_t)2 * D * (TS + (KS > 1 ? 1 : 0)) * GS * LDS *
@@ -271,16 +299,20 @@ inline size_t gru_smem(int D) {
 }
 
 // LN1, the grouped input projection and the GRU recurrence in one pass, on
-// tensor cores. A block takes 16 sequences; warp w runs direction w / 4 and
-// the 16 units 16 (w % 4) .. over them, walking the steps (backwards for
-// direction 1). KS = 1: slots of 16 units, warp w's units are slot w % 4.
-// Per step, with the 16 sequences as the M rows of one m16n8k16 tile:
+// tensor cores. A block takes 16 sequences; with P = C / 16 warps a
+// direction, warp w runs direction w / P and the 16 units 16 (w % P) ..
+// over them, walking the steps (backwards for direction 1). KS = 1: slots
+// of 16 units, warp w's units are slot w % P. Per step, with the 16
+// sequences as the M rows of one m16n8k16 tile:
 //   bf16(n1_t) [16 x 16] @ bf16(W_ih[d, g]) [16 x 48]   6 products
 //   bf16(h)    [16 x 16] @ bf16(W_hh[d, g]) [16 x 48]   6 products
-// KS = 4: one dense slot of 64 units; each product takes the slot's 64
-// inputs as 4 k-steps (24 + 24 products a step), and the four warps of a
-// direction trade their units' bf16 h through shared memory, one block
-// barrier a step (double-buffered).
+// KS > 1: dense slots of W = 16 KS units (one of C <= 64, or two of 64 at
+// C = 128); each product takes the slot's W inputs as KS k-steps (6 KS + 6
+// KS products a step), and the P warps of a direction trade their units'
+// bf16 h through shared memory, one block barrier a step (double-buffered).
+// At C = 128 a block then takes one direction (blockIdx.y): 8 warps of 96
+// fragment registers each, where both directions' 16 warps would leave a
+// thread 128 registers.
 // W_ih and W_hh stay in registers as B fragments. The r and z gates sum
 // both products in one accumulator started from b_ih + b_hh; n keeps them
 // apart (r multiplies only the hidden part). The accumulator layout is the
@@ -300,64 +332,76 @@ inline size_t gru_smem(int D) {
 // product, three gates) is latency; across the card it moves x in (once per
 // direction) and the f32 hiddens out.
 template <int KS>
-__global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
+__global__ void __launch_bounds__(split_directions(KS) ? 2 * C : 4 * C)
+    gru_tc_kernel(GruArgs a) {
+  constexpr bool SPLIT = split_directions(KS);
+  constexpr int SLOTS = C / (16 * KS);  // KS > 1: dense slots a direction
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* n1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int d = warp >> 2, grp = warp & 3;  // grp: the warp's 16 units
-  const int L = a.L, D = a.D;
+  // grp: the warp's 16 units; d its direction, dl that within the block
+  const int d = SPLIT ? (int)blockIdx.y : warp >> WPD_LOG2;
+  const int grp = warp & ((1 << WPD_LOG2) - 1), dl = SPLIT ? 0 : d;
+  const int L = a.L, D = SPLIT ? 1 : a.D;  // directions in the block
   const long long n0 = (long long)blockIdx.x * GS;
   const size_t NL = (size_t)a.N * L;
   __nv_bfloat16* hx = n1s + (size_t)2 * D * TS * GS * LDS;  // KS > 1
+  // KS > 1: the first unit of the warp's slot
+  const int slot0 = SLOTS == 1 ? 0 : (grp / KS) * 16 * KS;
 
   typename GruFragsOf<KS>::type f;
   if constexpr (KS == 1)
     load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, d * (C / 16) + grp,
                    lane);
   else
-    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, d, grp, lane);
+    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh,
+                   SLOTS == 1 ? d : d * SLOTS + grp / KS,
+                   SLOTS == 1 ? grp : grp % KS, lane);
   const auto& bi = f.bi;
   const auto& bh = f.bh;
   const auto& brz = f.brz;
   const auto& bxn = f.bxn;
   const auto& bhn = f.bhn;
-  const float ls0 = a.ln_s[lane], ls1 = a.ln_s[lane + 32];
-  const float lb0 = a.ln_b[lane], lb1 = a.ln_b[lane + 32];
+  float ls[CPL], lb[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    ls[i] = lane_holds(lane, i) ? a.ln_s[lane + 32 * i] : 0.f;
+    lb[i] = lane_holds(lane, i) ? a.ln_b[lane + 32 * i] : 0.f;
+  }
 
   // Row task i of a chunk: direction i / (TS GS), step (i / GS) % TS,
   // sequence i % GS (D TS GS = nwarps TS GRU_ROWS tasks in all).
-  auto fetch = [&](int cc, int i, float& va, float& vb) {
-    const int dd = i / (TS * GS), step = cc * TS + (i / GS) % TS;
+  auto fetch = [&](int cc, int i, float (&v)[CPL]) {
+    const int dd = SPLIT ? d : i / (TS * GS), step = cc * TS + (i / GS) % TS;
     const long long n = n0 + i % GS;
-    va = vb = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) v[j] = 0.f;
     if (step < L && n < a.N) {
       const size_t o = ((size_t)n * L + (dd ? L - 1 - step : step)) * C;
-      va = a.x[o + lane];
-      vb = a.x[o + lane + 32];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        if (lane_holds(lane, j)) v[j] = a.x[o + lane + 32 * j];
     }
   };
-  auto put = [&](int cc, int i, float va, float vb) {
-    const float mu = warp_sum(va + vb) * (1.f / C);
-    const float ms = warp_sum(va * va + vb * vb) * (1.f / C);
-    const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
-    va = (va - mu) * rs * ls0 + lb0;
-    vb = (vb - mu) * rs * ls1 + lb1;
+  auto put = [&](int cc, int i, float (&v)[CPL]) {
+    ln_row(v, ls, lb);
     __nv_bfloat16* dst = n1s + ((size_t)(cc & 1) * D * TS * GS + i) * LDS;
-    dst[lane] = __float2bfloat16_rn(va);
-    dst[lane + 32] = __float2bfloat16_rn(vb);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+      if (lane_holds(lane, j)) dst[lane + 32 * j] = __float2bfloat16_rn(v[j]);
   };
 
   // Chunk 0, 2 GRU_ROWS rows at a time.
 #pragma unroll 1
   for (int st = 0; st < TS; st += 2) {
-    float va[2 * GRU_ROWS], vb[2 * GRU_ROWS];
+    float v[2 * GRU_ROWS][CPL];
     const int i0 = (st * nwarps + 2 * warp) * GRU_ROWS;
 #pragma unroll
-    for (int k = 0; k < 2 * GRU_ROWS; ++k) fetch(0, i0 + k, va[k], vb[k]);
+    for (int k = 0; k < 2 * GRU_ROWS; ++k) fetch(0, i0 + k, v[k]);
 #pragma unroll
-    for (int k = 0; k < 2 * GRU_ROWS; ++k) put(0, i0 + k, va[k], vb[k]);
+    for (int k = 0; k < 2 * GRU_ROWS; ++k) put(0, i0 + k, v[k]);
   }
   __syncthreads();
 
@@ -370,15 +414,14 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
     const int c0 = cc * TS, ns = min(TS, L - c0);
     const bool more = cc + 1 < nchunks;  // then ns == TS
     const __nv_bfloat16* cur = n1s +
-                               (size_t)((cc & 1) * D + d) * TS * GS * LDS +
-                               (KS == 1 ? grp * 16 : 0);
+                               (size_t)((cc & 1) * D + dl) * TS * GS * LDS +
+                               (KS == 1 ? grp * 16 : slot0);
     for (int st = 0; st < ns; ++st) {
-      float va[GRU_ROWS], vb[GRU_ROWS];
+      float v[GRU_ROWS][CPL];
       const int i0 = (st * nwarps + warp) * GRU_ROWS;
       if (more) {
 #pragma unroll
-        for (int k = 0; k < GRU_ROWS; ++k)
-          fetch(cc + 1, i0 + k, va[k], vb[k]);
+        for (int k = 0; k < GRU_ROWS; ++k) fetch(cc + 1, i0 + k, v[k]);
       }
       const int tt = d ? L - 1 - (c0 + st) : c0 + st;
       uint32_t ax[KS][4];
@@ -436,10 +479,10 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
         ha[0][2] = pack_bf16(h[1][0], h[1][1]);
         ha[0][3] = pack_bf16(h[1][2], h[1][3]);
       } else {
-        // This warp's units into the step's buffer, then all 64 back as
+        // This warp's units into the step's buffer, then all C back as
         // the A fragments of the next step's hidden product.
         __nv_bfloat16* hb =
-            hx + ((size_t)((c0 + st) & 1) * D + d) * GS * LDS;
+            hx + ((size_t)((c0 + st) & 1) * D + dl) * GS * LDS;
 #pragma unroll
         for (int jh = 0; jh < 2; ++jh)
 #pragma unroll
@@ -450,7 +493,7 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
         __syncthreads();
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk)
-          load_a(ha[kk], hb + kk * 16, LDS, lane);
+          load_a(ha[kk], hb + slot0 + kk * 16, LDS, lane);
       }
 #pragma unroll
       for (int jh = 0; jh < 2; ++jh)
@@ -464,7 +507,7 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
         }
       if (more) {
 #pragma unroll
-        for (int k = 0; k < GRU_ROWS; ++k) put(cc + 1, i0 + k, va[k], vb[k]);
+        for (int k = 0; k < GRU_ROWS; ++k) put(cc + 1, i0 + k, v[k]);
       }
     }
     __syncthreads();  // chunk cc + 1 is staged; buffer cc & 1 is free
@@ -473,18 +516,48 @@ __global__ void __launch_bounds__(256) gru_tc_kernel(GruArgs a) {
 
 template <int KS>
 cudaError_t launch_gru_tc(const GruArgs& a, cudaStream_t st) {
-  const size_t smem = gru_smem<KS>(a.D);
+  constexpr bool SPLIT = split_directions(KS);
+  const int D = SPLIT ? 1 : a.D;  // directions a block
+  const size_t smem = gru_smem<KS>(D);
   cudaError_t e = allow_smem(gru_tc_kernel<KS>, smem);
   if (e != cudaSuccess) return e;
-  gru_tc_kernel<KS><<<(unsigned)((a.N + GS - 1) / GS), a.D * 4 * 32, smem,
-                      st>>>(a);
+  gru_tc_kernel<KS><<<dim3((unsigned)((a.N + GS - 1) / GS), SPLIT ? a.D : 1),
+                      D * (C / 16) * 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+// Dense slots of SW units: LN1's input projection, then the recurrence.
+template <bool ROUND, int SW>
+inline cudaError_t launch_gru_dense(const float* x, const float* ln1_s,
+                                    const float* ln1_b, const float* w_ih,
+                                    const float* w_hh, const float* b_ih,
+                                    const float* b_hh, float* xp, float* hid,
+                                    long long N, int L, int D,
+                                    cudaStream_t st) {
+  const long long rows = N * L;
+  const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  proj_kernel<true, SW><<<rblocks, row_threads(D * 3 * C), 0, st>>>(
+      x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
+      /*round=*/ROUND ? 1 : 0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t smem = gru_dense_smem<SW>();
+  e = cudaFuncSetAttribute(gru_dense_kernel<ROUND, SW>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  gru_dense_kernel<ROUND, SW>
+      <<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D), DS * C, smem,
+         st>>>(xp, w_hh, b_hh, hid, N, L, D);
+  return cudaGetLastError();
+}
+
 // LN1's input projection and the recurrence in all-f32 arithmetic, over
-// `slots` GRU slots: xp [N*L, D*3C], hid [D, N*L, C].
+// `slots` GRU slots: xp [N*L, D*3C], hid [D, N*L, C]. ROUND: the bf16
+// mode's rounding points instead (the dense slot of C = 128 only).
+template <bool ROUND = false>
 inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
                                   const float* ln1_b, const float* w_ih,
                                   const float* w_hh, const float* b_ih,
@@ -493,8 +566,9 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
                                   cudaStream_t st) {
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
-  if (gru_slot(slots) == 16) {
-    proj_kernel<true, 16><<<rblocks, D * 3 * C, 0, st>>>(
+  const unsigned threads = row_threads(D * 3 * C);
+  if (!ROUND && gru_slot(slots) == 16) {
+    proj_kernel<true, 16><<<rblocks, threads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
         /*round=*/0);
     cudaError_t e = cudaGetLastError();
@@ -504,19 +578,13 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
         xp, w_hh, b_hh, hid, N, L, D);
     return cudaGetLastError();
   }
-  proj_kernel<true, C><<<rblocks, D * 3 * C, 0, st>>>(
-      x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
-      /*round=*/0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const size_t smem = gru_dense_smem();
-  e = cudaFuncSetAttribute(gru_dense_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  gru_dense_kernel<<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D), DS * C,
-                     smem, st>>>(xp, w_hh, b_hh, hid, N, L, D);
-  return cudaGetLastError();
+  if constexpr (!ROUND && C > 64) {
+    if (gru_slot(slots) == 64)
+      return launch_gru_dense<false, 64>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                                         b_hh, xp, hid, N, L, D, st);
+  }
+  return launch_gru_dense<ROUND, C>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
+                                    xp, hid, N, L, D, st);
 }
 
 }  // namespace lct
@@ -527,12 +595,14 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
-// x, out: [N, L, 64]; w_ih, w_hh: [D, slots, W, 3W]; b_ih, b_hh: [D,
-// slots, 3W] (W = 64 / slots, slots = 4 or 1); in_w: [64, 192]; out_w:
-// [64, 64]; lin_w: [lin_in, 64]; key_bias: [N, L] or null; lookback < 0
-// means no band; num_heads divides 64. Scratch: hid [D, N*L, 64] f32 (the
-// per-direction hiddens, unrounded), qkv bf16 [N*L, 192], s f32 [N*L, 64]
-// (x + g), when lin_in == 128 gb bf16 [N*L, 64] (bf16(g); else null).
+// x, out: [N, L, C]; w_ih, w_hh: [D, slots, W, 3W]; b_ih, b_hh: [D,
+// slots, 3W] (W = C / slots, slots = C / 16 or 1); in_w: [C, 3C]; out_w:
+// [C, C]; lin_w: [lin_in, C]; key_bias: [N, L] or null; lookback < 0
+// means no band; num_heads divides C_MODEL (heads of C_MODEL / num_heads
+// true channels at head_width of it, common.cuh). Scratch: hid [D, N*L, C]
+// f32 (the per-direction hiddens, unrounded), qkv bf16 [N*L, 3C], s f32
+// [N*L, C] (x + g), when lin_in == 2C gb bf16 [N*L, C] (bf16(g); else
+// null), for the dense slot at C = 128 xp f32 [N*L, D*3C] (else null).
 // Returns a cudaError_t.
 extern "C" int lct_ftf_forward_bf16(
     const float* x, const float* ln1_s, const float* ln1_b,
@@ -541,10 +611,11 @@ extern "C" int lct_ftf_forward_bf16(
     const float* in_w, const float* in_b, const float* out_w,
     const float* out_b, const float* lin_w, const float* lin_b,
     const float* key_bias, float* hid, void* qkv, float* s, void* gb,
-    float* out, long long N, int L, int D, int lin_in, int lookback,
-    int num_heads, int slots, int device, void* stream) {
+    float* xp, float* out, long long N, int L, int D, int lin_in,
+    int lookback, int num_heads, int slots, int device, void* stream) {
   using namespace lct;
-  if ((lin_in == 2 * C) != (gb != nullptr) || !widths_ok(num_heads, slots))
+  if ((lin_in == 2 * C) != (gb != nullptr) || !widths_ok(num_heads, slots) ||
+      (C > 64 && slots == 1) != (xp != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -555,8 +626,18 @@ extern "C" int lct_ftf_forward_bf16(
 
   const tc::GruArgs ga = {x,    ln1_s, ln1_b, w_ih, w_hh, b_ih,
                           b_hh, hid,   N,     L,    D};
-  e = gru_slot(slots) == 16 ? tc::launch_gru_tc<1>(ga, st)
-                            : tc::launch_gru_tc<4>(ga, st);
+  if (gru_slot(slots) == 16) {
+    e = tc::launch_gru_tc<1>(ga, st);
+  } else {
+    if constexpr (C <= 64) {
+      e = tc::launch_gru_tc<C / 16>(ga, st);
+    } else if (gru_slot(slots) == 64) {
+      e = tc::launch_gru_tc<4>(ga, st);
+    } else {
+      e = launch_gru_f32<true>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
+                               slots, xp, hid, N, L, D, st);
+    }
+  }
   if (e != cudaSuccess) return (int)e;
   e = tc::launch_qkv({x, hid, D == 2 ? hid + (size_t)rows * C : nullptr,
                       ln2_s, ln2_b, in_w, in_b, q, s, g, rows},
@@ -576,7 +657,8 @@ extern "C" int lct_ftf_forward_bf16(
   a.lin_w = lin_w;
   a.lin_b = lin_b;
   a.lin_in = lin_in;
-  a.hd = C / num_heads;
+  a.hd_true = C_MODEL / num_heads;
+  a.hd = head_width(a.hd_true);
   return (int)tc::launch_attn_tc<0>(a, st);
 }
 
@@ -586,8 +668,8 @@ extern "C" int lct_ftf_forward_bf16(
 // recurrence as one lax.scan, lct_gan_tpu/ops/gru.py:28). The same GRU
 // launches as lct_ftf_forward_f32: proj_kernel<true> -> xp, gru_kernel
 // (or gru_dense_kernel) -> hid; the recurrence loops over any L. x: [N, L,
-// 64]; the GRU weights in slots, as lct_ftf_forward_bf16's. Scratch xp
-// [N*L, D*192] f32; out hid [D, N*L, 64]
+// C]; the GRU weights in slots, as lct_ftf_forward_bf16's. Scratch xp
+// [N*L, D*3C] f32; out hid [D, N*L, C]
 // f32, the per-direction hiddens (the caller sums them). Bound: the
 // recurrence is sequential in L, one dependent step per frame; across the
 // card the launches move x in, xp out and back, hid out. Returns a
@@ -607,7 +689,7 @@ extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
 }
 
 // The same function in all-f32 arithmetic (precise mode). Scratch: xp
-// [N*L, D*192], hid [D, N*L, 64], qkv [N*L, 192], ctx [N*L, 64], f32.
+// [N*L, D*3C], hid [D, N*L, C], qkv [N*L, 3C], ctx [N*L, C], f32.
 extern "C" int lct_ftf_forward_f32(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -628,12 +710,13 @@ extern "C" int lct_ftf_forward_f32(
   cudaError_t e = launch_gru_f32(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
                                  slots, xp, hid, N, L, D, st);
   if (e != cudaSuccess) return (int)e;
-  proj_kernel<false><<<rblocks, 3 * C, 0, st>>>(
+  proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
       x, hid, D == 2 ? hid + (size_t)rows * C : nullptr, ln2_s, ln2_b, in_w,
       in_b, qkv, rows, 3 * C, /*round=*/0);
   LCT_CHECK();
+  const int hdt = C_MODEL / num_heads;
   e = launch_attn<0>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
-                     C / num_heads, st);
+                     head_width(hdt), hdt, st);
   if (e != cudaSuccess) return (int)e;
   ftf_out_kernel<<<rblocks, C, 0, st>>>(x, hid, D, ctx, out_w, out_b, lin_w,
                                         lin_b, lin_in, out, rows);

@@ -360,7 +360,7 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
   const int nh = C / hd;
   const long long n = blockIdx.x / nh;
   const int h = blockIdx.x % nh;
-  const float scale = inv_sqrt_hd(hd);
+  const float scale = head_scale(hd, hd);
   const float* base = qkv + (size_t)n * L * (3 * C);
   const float* dbase = dctx + (size_t)n * L * C;
   if (STAGE) {
@@ -2062,7 +2062,7 @@ __global__ void attn_fwd_tc_kernel(HeadArgs a) {
   __nv_bfloat16* Vs = Ks + Lp * LD;
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd, hpi = item_heads(HDP, hd);
-  const float scale2 = qk_scale2(hd);
+  const float scale2 = qk_scale2(hd, hd);
   const long long n = blockIdx.x / (C / TW);
   const int c0 = (blockIdx.x % (C / TW)) * TW;  // the item's first channel
   const size_t rowbase = (size_t)n * L;
@@ -2145,7 +2145,7 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
   const int L = a.L, lb = a.lookback, Lp = head_lp(L);
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd, hpi = item_heads(HDP, hd);
-  const float scale2 = qk_scale2(hd), scale = inv_sqrt_hd(hd);
+  const float scale2 = qk_scale2(hd, hd), scale = head_scale(hd, hd);
   // Tiles [Lp][LD]: Q, K, V, dctx; SPLIT: K, V in the query pass, then Q,
   // dctx in their place for the key pass.
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -2671,7 +2671,7 @@ extern "C" int lct_ftf_backward_f32(
       x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, rows, 3 * C, round);
   LCT_CHECK();
   LCT_TRY(
-      launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, round, hd, st));
+      launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, round, hd, hd, st));
 
   // 3. combine layer and out-proj backward.
   comb_bwd_kernel<<<rblocks, C, 0, st>>>(

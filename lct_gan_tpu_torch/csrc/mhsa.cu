@@ -1,21 +1,22 @@
 // Fused multi-head self-attention for Hopper (sm_90a): the function of the
-// TPU kernel `lct_gan_tpu/ops/attention.py::_mhsa_kernel` over x [N, L, 64]
+// TPU kernel `lct_gan_tpu/ops/attention.py::_mhsa_kernel` over x [N, L, C]
 // (L <= 1024), with the TPU kernel's bf16 rounding points (x, in_w; q, k,
 // v; the normalised p; ctx, out_w) and f32 accumulation. Two designs, one
 // per mode:
 //
 // bf16 (lct_mhsa_forward_bf16), tensor cores (tc.cuh):
-//   1. qkv_tc_kernel       qkv = bf16(x @ in_w + in_b) -> qkv bf16 [N*L, 192]
+//   1. qkv_tc_kernel       qkv = bf16(x @ in_w + in_b) -> qkv bf16 [N*L, 3C]
 //   2. attn_tc_kernel<1>   C/hd-head softmax attention, band, key bias, and
-//                          out = ctx @ out_w + out_b  -> out [N*L, 64]
+//                          out = ctx @ out_w + out_b  -> out [N*L, C]
 // precise (lct_mhsa_forward_f32), all f32 on CUDA cores (common.cuh):
 //   proj_kernel -> qkv f32, attn_kernel<1> -> ctx f32, proj_kernel -> out.
 //
-// Any num_heads dividing 64 (heads of hd = 64 / num_heads channels; the
-// kernels' head widths: tc.cuh, common.cuh).
+// Any num_heads dividing C_MODEL (heads of hd = C_MODEL / num_heads
+// channels, run at head_width(hd); the kernels' head widths: tc.cuh,
+// common.cuh).
 //
-// Bound on the H100: at the time block of a 163,840-sample bucket (N = 25*33
-// sequences of L = 644) the function moves ~272 MB (~81 us at 3.35 TB/s)
+// Bound on the H100 at C = 64: at the time block of a 163,840-sample bucket
+// (N = 25*33 sequences of L = 644) the function moves ~272 MB (~81 us at 3.35 TB/s)
 // and does ~100 GFLOP of products, 88% of them in the L x L scores and
 // context (~101 us at 989 TFLOP/s bf16): it is bound by operations. With
 // head_dim 16 the tensor cores are not what sets the pace of the bf16
@@ -27,9 +28,9 @@
 
 #include "tc.cuh"
 
-// x, out: [N, L, 64]; in_w: [64, 192]; out_w: [64, 64]; key_bias: [N, L] or
-// null; lookback < 0 means no band; num_heads divides 64. Scratch: qkv
-// bf16 [N*L, 192]. Returns a cudaError_t.
+// x, out: [N, L, C]; in_w: [C, 3C]; out_w: [C, C]; key_bias: [N, L] or
+// null; lookback < 0 means no band; num_heads divides C_MODEL. Scratch: qkv
+// bf16 [N*L, 3C]. Returns a cudaError_t.
 extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
                                      const float* in_b, const float* out_w,
                                      const float* out_b,
@@ -38,7 +39,7 @@ extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
                                      int lookback, int num_heads, int device,
                                      void* stream) {
   using namespace lct;
-  if (num_heads <= 0 || C % num_heads) return (int)cudaErrorInvalidValue;
+  if (num_heads <= 0 || C_MODEL % num_heads) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -56,12 +57,13 @@ extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
   a.N = N;
   a.L = L;
   a.lookback = lookback;
-  a.hd = C / num_heads;
+  a.hd_true = C_MODEL / num_heads;
+  a.hd = head_width(a.hd_true);
   return (int)tc::launch_attn_tc<1>(a, st);
 }
 
 // The same function in all-f32 arithmetic (precise mode). Scratch: qkv
-// [N*L, 192], ctx [N*L, 64], f32.
+// [N*L, 3C], ctx [N*L, C], f32.
 extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
                                     const float* in_b, const float* out_w,
                                     const float* out_b, const float* key_bias,
@@ -69,21 +71,22 @@ extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
                                     long long N, int L, int lookback,
                                     int num_heads, int device, void* stream) {
   using namespace lct;
-  if (num_heads <= 0 || C % num_heads) return (int)cudaErrorInvalidValue;
+  if (num_heads <= 0 || C_MODEL % num_heads) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
 
-  proj_kernel<false><<<rblocks, 3 * C, 0, st>>>(
+  proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
       /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int hdt = C_MODEL / num_heads;
   e = launch_attn<1>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
-                     C / num_heads, st);
+                     head_width(hdt), hdt, st);
   if (e != cudaSuccess) return (int)e;
-  proj_kernel<false><<<rblocks, C, 0, st>>>(
+  proj_kernel<false><<<rblocks, row_threads(C), 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
       /*round=*/0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -27,8 +27,10 @@
 namespace lct {
 namespace tc {
 
-constexpr int LDS = C + 8;        // bf16 row stride of a 64-column tile
-constexpr int LDW = 3 * C + 8;    // bf16 row stride of in_w [64][192]
+constexpr int LDS = C + 8;        // bf16 row stride of a C-column tile
+constexpr int LDW = 3 * C + 8;    // bf16 row stride of in_w [C][3C]
+// log2 of C / 8: the 16-byte pieces of a bf16 row of C channels.
+constexpr int PIECES_LOG2 = C == 16 ? 1 : C == 32 ? 2 : C == 64 ? 3 : 4;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -229,30 +231,33 @@ __device__ __forceinline__ void load_gru_frags(GruFrags& f,
     }
 }
 
-// The same for one direction's dense group of all 64 units (slot width 64:
-// one group of 64, or two of 32 packed block-diagonally), [D, 1, 64, 192]:
-// a warp holds its 16 units 16 u .. 16 u + 15 of each gate, over the four
-// 16-input k-steps of W_ih and W_hh (bi[nt][kk]).
+// The same for a dense slot of W = 16 KS units (one group of W, or narrower
+// ones packed block-diagonally; W = C, or 64 at C = 128), [D, C / W, W,
+// 3W], dg = direction * (C / W) + slot: a warp holds its 16 units 16 u ..
+// 16 u + 15 of each gate, over the KS 16-input k-steps of W_ih and W_hh
+// (bi[nt][kk]). Built for W <= 64 (96 fragment registers at 64).
+template <int KS>
 struct GruFragsDense {
-  uint32_t bi[6][4][2], bh[6][4][2];
+  uint32_t bi[6][KS][2], bh[6][KS][2];
   float brz[2][2][2], bxn[2][2], bhn[2][2];
 };
 
-__device__ __forceinline__ void load_gru_frags(GruFragsDense& f,
+template <int KS>
+__device__ __forceinline__ void load_gru_frags(GruFragsDense<KS>& f,
                                                const float* w_ih,
                                                const float* w_hh,
                                                const float* b_ih,
-                                               const float* b_hh, int d,
+                                               const float* b_hh, int dg,
                                                int u, int lane) {
-  constexpr int W = C;
+  constexpr int W = 16 * KS;
   const int g = lane >> 2, t = lane & 3;
-  const float* wi = w_ih + (size_t)d * W * (3 * W);
-  const float* wh = w_hh + (size_t)d * W * (3 * W);
+  const float* wi = w_ih + (size_t)dg * W * (3 * W);
+  const float* wh = w_hh + (size_t)dg * W * (3 * W);
 #pragma unroll
   for (int nt = 0; nt < 6; ++nt) {
     const int col = (nt >> 1) * W + 16 * u + (nt & 1) * 8 + g;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         const int r = kk * 16 + 2 * t + 8 * k;
@@ -266,7 +271,7 @@ __device__ __forceinline__ void load_gru_frags(GruFragsDense& f,
   for (int jh = 0; jh < 2; ++jh)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int o = d * 3 * W + 16 * u + 8 * jh + 2 * t + e;
+      const int o = dg * 3 * W + 16 * u + 8 * jh + 2 * t + e;
 #pragma unroll
       for (int q = 0; q < 2; ++q)
         f.brz[q][jh][e] = b_ih[o + q * W] + b_hh[o + q * W];
@@ -276,21 +281,21 @@ __device__ __forceinline__ void load_gru_frags(GruFragsDense& f,
 }
 
 // The fragments of a GRU kernel built for KS k-steps a slot: slots of 16
-// (KS = 1) or one dense slot of 64 (KS = 4).
+// (KS = 1) or dense slots of 16 KS (C, or 64 at C = 128).
 template <int KS>
 struct GruFragsOf {
-  using type = GruFragsDense;
+  using type = GruFragsDense<KS>;
 };
 template <>
 struct GruFragsOf<1> {
   using type = GruFrags;
 };
 
-// acc = A @ w[:, 0:16] for a 16-row tile A of 64 columns, given as the A
-// fragments of its four 16-column k-steps, and w a bf16 [64][ld] tile in
+// acc = A @ w[:, 0:16] for a 16-row tile A of C columns, given as the A
+// fragments of its C / 16 16-column k-steps, and w a bf16 [C][ld] tile in
 // shared memory: the C fragments of two n8 tiles (columns 0-7, 8-15).
 __device__ __forceinline__ void product_16cols(float (&acc)[2][4],
-                                               const uint32_t (&af)[4][4],
+                                               const uint32_t (&af)[C / 16][4],
                                                const __nv_bfloat16* w,
                                                int ld, int lane) {
 #pragma unroll
@@ -298,7 +303,7 @@ __device__ __forceinline__ void product_16cols(float (&acc)[2][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < C / 16; ++kk) {
     uint32_t wb[4];
     load_b_kn(wb, w + kk * 16 * ld, ld, lane);
     mma(acc[0], af[kk], wb[0], wb[1]);
@@ -306,21 +311,21 @@ __device__ __forceinline__ void product_16cols(float (&acc)[2][4],
   }
 }
 
-// acc = ctx @ out_w for 16 rows: ctx as the A fragments of its four
-// 16-channel k-steps, out_w staged bf16 [64][LDS]; the C fragments of the
-// eight n8 tiles of the 64 output columns.
-__device__ __forceinline__ void out_projection(float (&acc)[8][4],
+// acc = ctx @ out_w for 16 rows: ctx as the A fragments of its C / 16
+// 16-channel k-steps, out_w staged bf16 [C][LDS]; the C fragments of the
+// C / 8 n8 tiles of the C output columns.
+__device__ __forceinline__ void out_projection(float (&acc)[C / 8][4],
                                                const uint32_t (&ca)[C / 16][4],
                                                const __nv_bfloat16* wo,
                                                int lane) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < C / 16; ++np) {
       uint32_t wf[4];
       load_b_kn(wf, wo + kk * 16 * LDS + np * 16, LDS, lane);
       mma(acc[2 * np], ca[kk], wf[0], wf[1]);
@@ -354,8 +359,8 @@ __device__ __forceinline__ uint32_t v_mask(int h, int hd, int lane) {
 }
 
 // ---------------------------------------------------------------------------
-// qkv = bf16(bf16(in) @ bf16(in_w) + in_b) over rows of 64 channels, stored
-// bf16 [rows, 192]: the contract rounds q, k and v, so this halves their
+// qkv = bf16(bf16(in) @ bf16(in_w) + in_b) over rows of C channels, stored
+// bf16 [rows, 3C]: the contract rounds q, k and v, so this halves their
 // bytes and changes no value.
 //   in = x (+ (add0 + add1)), LayerNorm'ed when ln_s != nullptr with
 //   proj_kernel's arithmetic (common.cuh; ftf_bwd.cu's ln_kernel computes
@@ -364,8 +369,11 @@ __device__ __forceinline__ uint32_t v_mask(int h, int hd, int lane) {
 //   bf16(add0 + add1), the Linear's rounded g.
 // Persistent blocks of 4 warps, in_w staged once per block; each warp owns
 // 16 rows of a 64-row tile (no block barrier inside the tile loop). Bound
-// by bytes: x (and the hiddens) in, q, k, v out.
+// by bytes: x (and the hiddens) in, q, k, v out. At C = 128 in_w (98 KB as
+// bf16) passes the 48 KB of static shared memory: dynamic there.
 constexpr int PROJ_THREADS = 128;
+constexpr size_t QKV_SMEM =
+    sizeof(__nv_bfloat16) * (C * LDW + 64 * LDS);
 
 struct ProjArgs {
   const float* x;
@@ -373,23 +381,32 @@ struct ProjArgs {
   const float* add1;
   const float* ln_s;
   const float* ln_b;
-  const float* w;     // [64, 192] f32
-  const float* bias;  // [192]
-  __nv_bfloat16* out; // [rows, 192]
-  float* s_out;           // or null: in before the LayerNorm, f32 [rows, 64]
-  __nv_bfloat16* g_out;   // or null: bf16(add0 + add1) [rows, 64]
+  const float* w;     // [C, 3C] f32
+  const float* bias;  // [3C]
+  __nv_bfloat16* out; // [rows, 3C]
+  float* s_out;           // or null: in before the LayerNorm, f32 [rows, C]
+  __nv_bfloat16* g_out;   // or null: bf16(add0 + add1) [rows, C]
   long long rows;
 };
 
 __global__ void __launch_bounds__(PROJ_THREADS)
     qkv_tc_kernel(ProjArgs a) {
+#if LCT_C > 64
+  extern __shared__ __align__(16) unsigned char qkv_smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(qkv_smem);
+  __nv_bfloat16* as = ws + C * LDW;
+#else
   __shared__ __align__(16) __nv_bfloat16 ws[C * LDW];
   __shared__ __align__(16) __nv_bfloat16 as[64 * LDS];
+#endif
   stage_weight(ws, LDW, a.w, C, 3 * C);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   __nv_bfloat16* aw = as + warp * 16 * LDS;
+#if LCT_C == 64
+  // C = 64: two channels a lane (lane, lane + 32), the statements its
+  // instances were built and timed with.
   const float ls0 = a.ln_s ? a.ln_s[lane] : 1.f;
   const float ls1 = a.ln_s ? a.ln_s[lane + 32] : 1.f;
   const float lb0 = a.ln_s ? a.ln_b[lane] : 0.f;
@@ -446,12 +463,78 @@ __global__ void __launch_bounds__(PROJ_THREADS)
         aw[(r8 + r) * LDS + lane + 32] = __float2bfloat16_rn(q);
       }
     }
-    __syncwarp();
-    uint32_t af[4][4];
+#else
+  // Any other C: CPL channels a lane (lane + 32 i), the same steps.
+  float ls[CPL], lb[CPL];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) load_a(af[kk], aw + kk * 16, LDS, lane);
+  for (int i = 0; i < CPL; ++i)
+    ls[i] = a.ln_s ? (lane_holds(lane, i) ? a.ln_s[lane + 32 * i] : 0.f)
+                   : 1.f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+    lb[i] = a.ln_s ? (lane_holds(lane, i) ? a.ln_b[lane + 32 * i] : 0.f)
+                   : 0.f;
+  const long long tiles = (a.rows + 63) / 64;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * 64 + warp * 16;
+    // 8 rows at a time: every load of a batch is issued before the first
+    // row's LayerNorm.
+#pragma unroll
+    for (int r8 = 0; r8 < 16; r8 += 8) {
+      float v[8][CPL], gv[8][CPL];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const long long row = row0 + r8 + r;
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) v[r][i] = gv[r][i] = 0.f;
+        if (row < a.rows) {
+          const size_t o = (size_t)row * C + lane;
+#pragma unroll
+          for (int i = 0; i < CPL; ++i)
+            if (lane_holds(lane, i)) v[r][i] = a.x[o + 32 * i];
+          if (a.add0) {
+#pragma unroll
+            for (int i = 0; i < CPL; ++i)
+              if (lane_holds(lane, i))
+                gv[r][i] = a.add1 ? (a.add0[o + 32 * i] + a.add1[o + 32 * i])
+                                  : a.add0[o + 32 * i];
+#pragma unroll
+            for (int i = 0; i < CPL; ++i) v[r][i] += gv[r][i];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const long long row = row0 + r8 + r;
+        if (row < a.rows) {
+          const size_t o = (size_t)row * C + lane;
+          if (a.s_out) {
+#pragma unroll
+            for (int i = 0; i < CPL; ++i)
+              if (lane_holds(lane, i)) a.s_out[o + 32 * i] = v[r][i];
+          }
+          if (a.g_out) {
+#pragma unroll
+            for (int i = 0; i < CPL; ++i)
+              if (lane_holds(lane, i))
+                a.g_out[o + 32 * i] = __float2bfloat16_rn(gv[r][i]);
+          }
+        }
+        if (a.ln_s) ln_row(v[r], ls, lb);
+#pragma unroll
+        for (int i = 0; i < CPL; ++i)
+          if (lane_holds(lane, i))
+            aw[(r8 + r) * LDS + lane + 32 * i] = __float2bfloat16_rn(v[r][i]);
+      }
+    }
+#endif
+    __syncwarp();
+    uint32_t af[C / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      load_a(af[kk], aw + kk * 16, LDS, lane);
 #pragma unroll 2
-    for (int np = 0; np < 12; ++np) {
+    for (int np = 0; np < 3 * C / 16; ++np) {
       float acc[2][4];
       product_16cols(acc, af, ws + np * 16, LDW, lane);
 #pragma unroll
@@ -474,36 +557,39 @@ __global__ void __launch_bounds__(PROJ_THREADS)
 
 inline cudaError_t launch_qkv(const ProjArgs& a, cudaStream_t st) {
   unsigned grid = 1;
-  cudaError_t e = persistent_grid(qkv_tc_kernel, PROJ_THREADS, 0,
-                                  (a.rows + 63) / 64, &grid);
+  constexpr size_t smem = LCT_C > 64 ? QKV_SMEM : 0;
+  cudaError_t e = allow_smem(qkv_tc_kernel, smem);
   if (e != cudaSuccess) return e;
-  qkv_tc_kernel<<<grid, PROJ_THREADS, 0, st>>>(a);
+  e = persistent_grid(qkv_tc_kernel, PROJ_THREADS, smem, (a.rows + 63) / 64,
+                      &grid);
+  if (e != cudaSuccess) return e;
+  qkv_tc_kernel<<<grid, PROJ_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // Multi-head attention (C / hd heads of hd channels) over bf16 qkv [N*L,
-// 192] with the output projection (and, for the FTF block, the Linear,
+// 3C] with the output projection (and, for the FTF block, the Linear,
 // LeakyReLU and residual) in the epilogue.
 //
 // Work item: one (sequence, tile of 64 or 128 query rows); a persistent grid
 // walks them, the weights staged in shared memory once per block. Each warp
-// owns 16 query rows and all heads, so it holds the whole 64-channel
+// owns 16 query rows and all heads, so it holds the whole C-channel
 // context of its rows for the epilogue's products. K and V stream through
 // two shared-memory tiles of 64 keys (cp.async, double-buffered; a range of
 // at most two tiles is loaded once and kept), so any L <= 1024 fits in a
 // fixed 74 KB (FTF) or, for MHSA, 56 KB (64-row items) or 64 KB (128-row
-// items; attn_smem below); the next item's Q and first tile load
+// items; attn_smem below; at C = 64); the next item's Q and first tile load
 // under the current item's epilogue. Scores q k^T are one m16n8k16 step per
 // 8 keys and 16 head channels; P @ V is one step per 16 keys and 8 head
 // channels, P taken from the score accumulators in registers. The kernel
-// is built per padded head width HDP: 16, 32 or 64 (hd = HDP, every head's
+// is built per padded head width HDP: 16 .. C (hd = HDP, every head's
 // state in registers through one walk over the keys), or 8 for any hd <= 8
 // (the true width at run time): a head then takes one masked fragment of
 // its 16-channel k-step (q_mask) and its n8 tile of V (v_mask), and the
-// C / hd heads go through the keys in rounds of four, each round walking
-// the keys as the heads of a wider instance do, with its heads' row max and
-// sum in registers (the context of all 64 channels stays in registers
+// C / hd heads go through the keys in rounds of four (two at C = 16), each
+// round walking the keys as the heads of a wider instance do, with its
+// heads' row max and sum in registers (the context of all C channels stays in registers
 // across the rounds; a resident item's keys load once). Key chunks of 16
 // outside a warp's band are skipped. A tile whose four chunks all lie
 // inside the band and below L (every tile but the edges) runs a
@@ -537,6 +623,8 @@ constexpr int AT = 64;  // keys per tile
 // -D overrides of these macros and times them on the card (PERF.md): FTF
 // items of 64 rows (its sequences are short) at 3 blocks; MHSA items of 128
 // rows (each K/V tile serves twice the rows per load and per barrier) at 2.
+// At C = 128 the context and the epilogue's tiles double: one block an SM,
+// the whole register file's share a thread.
 #ifndef LCT_FTF_ATTN_ROWS
 #define LCT_FTF_ATTN_ROWS 64
 #endif
@@ -555,13 +643,15 @@ struct AttnShape {
       MODE == 1 ? LCT_MHSA_ATTN_ROWS : LCT_FTF_ATTN_ROWS;
   static constexpr int THREADS = 2 * ROWS;
   static constexpr int MIN_BLOCKS =
-      MODE == 1 ? LCT_MHSA_ATTN_MIN_BLOCKS : LCT_FTF_ATTN_MIN_BLOCKS;
+      C > 64 ? 1
+             : MODE == 1 ? LCT_MHSA_ATTN_MIN_BLOCKS : LCT_FTF_ATTN_MIN_BLOCKS;
   // 16 rows a warp; at least AT threads (load_kv's key-bias copy).
   static_assert(ROWS % 16 == 0 && 2 * ROWS >= AT && ROWS <= 512, "ROWS");
 };
-// log2(e) / sqrt(hd): the score scale in log2 units.
-__host__ __device__ constexpr float qk_scale2(int hd) {
-  return inv_sqrt_hd(hd) * LOG2E;
+// log2(e) / sqrt(hd): the score scale in log2 units (head_scale: hd_true
+// where PADDED).
+__host__ __device__ constexpr float qk_scale2(int hd, int hd_true) {
+  return head_scale(hd, hd_true) * LOG2E;
 }
 
 struct KVTile {
@@ -571,22 +661,23 @@ struct KVTile {
 };
 
 struct AttnArgs {
-  const __nv_bfloat16* qkv;  // [N*L, 192]
+  const __nv_bfloat16* qkv;  // [N*L, 3C]
   const float* key_bias;     // [N, L] or null
-  const float* out_w;        // [64, 64]
-  const float* out_b;        // [64]
-  float* out;                // [N*L, 64]
+  const float* out_w;        // [C, C]
+  const float* out_b;        // [C]
+  float* out;                // [N*L, C]
   long long N;
   int L;
   int lookback;
   // MODE 0 only: out = s + LeakyReLU(comb),
-  // comb = [bf16(g) @ lin_w[:64]] + bf16(a) @ lin_w[lin_in - 64:] + lin_b
-  const float* s;            // [N*L, 64] f32: x + g
-  const __nv_bfloat16* g;    // [N*L, 64] bf16(g), lin_in == 128 only
-  const float* lin_w;  // [lin_in, 64]
-  const float* lin_b;  // [64]
+  // comb = [bf16(g) @ lin_w[:C]] + bf16(a) @ lin_w[lin_in - C:] + lin_b
+  const float* s;            // [N*L, C] f32: x + g
+  const __nv_bfloat16* g;    // [N*L, C] bf16(g), lin_in == 2C only
+  const float* lin_w;  // [lin_in, C]
+  const float* lin_b;  // [C]
   int lin_in;
   int hd;  // head width: C / num_heads
+  int hd_true;  // its true channels (the score scale's width; PADDED only)
 };
 
 template <int MODE>
@@ -625,8 +716,8 @@ template <int QR, int THREADS>
 __device__ __forceinline__ void load_q(const AttnArgs& a, const Item& it,
                                        __nv_bfloat16* qs, int tid) {
   const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C);
-  for (int c = tid; c < QR * 8; c += THREADS) {
-    const int r = c >> 3, part = c & 7;
+  for (int c = tid; c < QR << PIECES_LOG2; c += THREADS) {
+    const int r = c >> PIECES_LOG2, part = c & ((1 << PIECES_LOG2) - 1);
     const bool ok = it.q0 + r < a.L;
     cp_async16(qs + r * LDS + part * 8,
                base + (size_t)(ok ? it.q0 + r : 0) * (3 * C) + part * 8, ok);
@@ -643,8 +734,8 @@ __device__ __forceinline__ void load_kv(const AttnArgs& a, const Item& it,
   const bool with_v = it.resident || s >= it.nkt;
   const int kbase = (it.kt0 + i) * AT;
   const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C);
-  for (int c = tid; c < AT * 8; c += THREADS) {
-    const int r = c >> 3, part = c & 7;
+  for (int c = tid; c < AT << PIECES_LOG2; c += THREADS) {
+    const int r = c >> PIECES_LOG2, part = c & ((1 << PIECES_LOG2) - 1);
     const bool ok = kbase + r < a.L;
     const __nv_bfloat16* src =
         base + (size_t)(ok ? kbase + r : 0) * (3 * C) + C + part * 8;
@@ -670,7 +761,7 @@ constexpr int PASS_A = 0, PASS_B = 1, PASS_AB = 2;
 template <int HDP>
 struct HeadShape {
   static constexpr int KS = HDP >= 16 ? HDP / 16 : 1;
-  static constexpr int NHW = HDP >= 16 ? C / HDP : 4;
+  static constexpr int NHW = HDP >= 16 ? C / HDP : C >= 32 ? 4 : C / 8;
 };
 
 // One key tile for one warp's 16 query rows (Q at qw in shared memory),
@@ -679,16 +770,18 @@ struct HeadShape {
 // channels (C-fragment layout, n8 tile nt = channels 8 nt ..); only they
 // live across tiles, Q fragments and key bias are re-read from shared
 // memory. FULL: all four 16-key chunks are needed and need no mask
-// (`need`, `full`: per-chunk bits).
+// (`need`, `full`: per-chunk bits). pscale2: the padded heads' scale in
+// log2 units, taken once a kernel (PADDED only).
 template <int MODE, int PASS, bool FULL, int HDP>
 __device__ __forceinline__ void attn_tile(
     const KVTile& b, const __nv_bfloat16* qw, unsigned need, unsigned full,
     int kbase, int L, int lb, const int (&rg)[2],
     float (&m)[HeadShape<HDP>::NHW][2], float (&l)[HeadShape<HDP>::NHW][2],
-    float (&o)[8][4], int lane, int h0, int hd) {
+    float (&o)[C / 8][4], int lane, int h0, int hd, float pscale2) {
   constexpr int KS = HeadShape<HDP>::KS, NHW = HeadShape<HDP>::NHW;
   const int t = lane & 3;
-  const float scale2 = qk_scale2(HDP >= 16 ? HDP : hd);
+  const float scale2 =
+      PADDED ? pscale2 : qk_scale2(HDP >= 16 ? HDP : hd, 0);
 #pragma unroll
   for (int hh = 0; hh < NHW; ++hh) {
     const int h = h0 + hh;
@@ -819,7 +912,7 @@ __device__ __forceinline__ void attn_tile(
           const uint32_t v0 = ((nt & 1) ? vf[2] : vf[0]) & vm;
           const uint32_t v1 = ((nt & 1) ? vf[3] : vf[1]) & vm;
 #pragma unroll
-          for (int q = 0; q < 8; ++q)
+          for (int q = 0; q < C / 8; ++q)
             if (q == nt) mma(o[q], pa, v0, v1);
         }
       }
@@ -842,7 +935,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   KVTile* kv = reinterpret_cast<KVTile*>(smem_raw);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(kv + 2);
-  __nv_bfloat16* wo = qs + QR * LDS;  // out_w [64][LDS]
+  __nv_bfloat16* wo = qs + QR * LDS;  // out_w [C][LDS]
   __nv_bfloat16* wl = wo + C * LDS;   // MODE 0: lin_w [lin_in][LDS]
   stage_weight(wo, LDS, a.out_w, C, C);
   if (MODE == 0) stage_weight(wl, LDS, a.lin_w, a.lin_in, C);
@@ -854,6 +947,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
   // Rounds of NHW heads an item takes (one but for HDP = 8).
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int rounds = HDP >= 16 ? 1 : C / hd / NHW;
+  const float pscale2 = PADDED ? qk_scale2(hd, a.hd_true) : 0.f;
 
   long long item = blockIdx.x;
   if (item < items) {
@@ -872,7 +966,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
     const int need_lo = lb >= 0 ? r0 - lb : 0;
     const int need_hi = lb >= 0 ? min(r0 + 15, L - 1) : L - 1;
 
-    float m[NHW][2], l[NHW][2], o[8][4];
+    float m[NHW][2], l[NHW][2], o[C / 8][4];
 #pragma unroll
     for (int h = 0; h < NHW; ++h)
 #pragma unroll
@@ -890,7 +984,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
 #pragma unroll
         for (int r = 0; r < 2; ++r) den[r] = quad_sum(l[hh][r]) + 1e-20f;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = nt * 8 + 2 * t + (e & 1);
@@ -899,7 +993,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
       }
     };
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
 
@@ -955,9 +1049,11 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
         const bool fast = need == 0xFu && full == 0xFu;
 #define LCT_ATTN_TILE(PASS)                                                  \
   (fast ? attn_tile<MODE, PASS, true, HDP>(b, qw, need, full, kbase, L, lb,  \
-                                           rg, m, l, o, lane, h0, hd)        \
+                                           rg, m, l, o, lane, h0, hd,        \
+                                           pscale2)                          \
         : attn_tile<MODE, PASS, false, HDP>(b, qw, need, full, kbase, L, lb, \
-                                            rg, m, l, o, lane, h0, hd))
+                                            rg, m, l, o, lane, h0, hd,       \
+                                            pscale2))
         if (it.nkt == 1)
           LCT_ATTN_TILE(PASS_AB);
         else if (s >= it.nkt)
@@ -982,13 +1078,13 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
     const size_t rowbase = (size_t)it.n * L;
     // MODE 0: s and bf16(g) at this lane's output elements (row rg[r],
     // column nt * 8 + 2t), all loads issued before the products; bf16(g)
-    // is loaded as the A fragments of [g @ lin_w[:64]] (k-step kk holds
+    // is loaded as the A fragments of [g @ lin_w[:C]] (k-step kk holds
     // columns kk * 16 + j * 8 + 2t).
-    float2 sv[8][2];
-    uint32_t gf[4][4];
+    float2 sv[C / 8][2];
+    uint32_t gf[C / 16][4];
     if (MODE == 0) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const size_t off =
@@ -1000,7 +1096,7 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
         }
     }
     // ctx (MODE 0: divided by den + 1e-20, here for HDP >= 16) as the A
-    // fragments of the output projection's four 16-channel k-steps.
+    // fragments of the output projection's C / 16 16-channel k-steps.
     uint32_t ca[C / 16][4];
 #pragma unroll
     for (int kk = 0; kk < C / 16; ++kk) {
@@ -1023,11 +1119,11 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
         }
       }
     }
-    float acc[8][4];
+    float acc[C / 8][4];
     out_projection(acc, ca, wo, lane);
     if (MODE == 1) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < C / 8; ++nt) {
         const int col = nt * 8 + 2 * t;
         const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
 #pragma unroll
@@ -1039,9 +1135,9 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
       continue;
     }
     // a = ctx @ out_w + out_b, rounded: the A fragments of the Linear.
-    uint32_t aa[4][4];
+    uint32_t aa[C / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int nt = 2 * kk + j, col = nt * 8 + 2 * t;
@@ -1049,13 +1145,13 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
         aa[kk][2 * j] = pack_bf16(acc[nt][0] + b0, acc[nt][1] + b1);
         aa[kk][2 * j + 1] = pack_bf16(acc[nt][2] + b0, acc[nt][3] + b1);
       }
-    float cb[8][4] = {};
+    float cb[C / 8][4] = {};
     const __nv_bfloat16* wla = wl;
     if (a.lin_in == 2 * C) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
+        for (int np = 0; np < C / 16; ++np) {
           uint32_t wf[4];
           load_b_kn(wf, wl + kk * 16 * LDS + np * 16, LDS, lane);
           mma(cb[2 * np], gf[kk], wf[0], wf[1]);
@@ -1064,16 +1160,16 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
       wla = wl + C * LDS;
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < C / 16; ++np) {
         uint32_t wf[4];
         load_b_kn(wf, wla + kk * 16 * LDS + np * 16, LDS, lane);
         mma(cb[2 * np], aa[kk], wf[0], wf[1]);
         mma(cb[2 * np + 1], aa[kk], wf[2], wf[3]);
       }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < C / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       const float b0 = __ldg(a.lin_b + col), b1 = __ldg(a.lin_b + col + 1);
 #pragma unroll
@@ -1104,16 +1200,24 @@ cudaError_t launch_attn_tc_hd(const AttnArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// attn_tc_kernel<MODE, head_pad(a.hd)>.
+// attn_tc_kernel<MODE, head_pad(a.hd)>: instances for the padded widths
+// up to C.
 template <int MODE>
 cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st) {
   switch (head_pad(a.hd)) {
     case 8: return launch_attn_tc_hd<MODE, 8>(a, st);
     case 16: return launch_attn_tc_hd<MODE, 16>(a, st);
-    case 32: return launch_attn_tc_hd<MODE, 32>(a, st);
-    case 64: return launch_attn_tc_hd<MODE, 64>(a, st);
-    default: return cudaErrorInvalidValue;
+    case 32:
+      if constexpr (C >= 32) return launch_attn_tc_hd<MODE, 32>(a, st);
+      break;
+    case 64:
+      if constexpr (C >= 64) return launch_attn_tc_hd<MODE, 64>(a, st);
+      break;
+    case 128:
+      if constexpr (C >= 128) return launch_attn_tc_hd<MODE, 128>(a, st);
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tc

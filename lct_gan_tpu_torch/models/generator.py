@@ -17,9 +17,10 @@ card) -> LayerNorm -> MultiHeadSelfAttention (the MHSA kernel up to L = 1024,
 the banded one from BANDED_KERNEL_MIN_SEQ with a band) -> Linear ->
 LeakyReLU, as in the JAX package.
 
-On the card the kernels, forward and backward, take a 64-channel
-bottleneck (enc_channels[-1] = 64) in any num_heads and gru_groups that
-divide 64: `check_card_widths` refuses anything else before a model runs or
+On the card the forward kernels serve a bottleneck of enc_channels[-1] in
+`ops/library.py::CHANNELS` (16, 32, 48, 64, 96, 128), in any num_heads and
+gru_groups that divide it; the FTF backward kernel trains 64 channels
+alone: `check_card_widths` refuses anything else before a model runs or
 trains there.
 """
 
@@ -37,7 +38,8 @@ from lct_gan_tpu_torch.models.gru import GRUGroup, stack_groups
 from lct_gan_tpu_torch.models.layers import LayerNorm
 from lct_gan_tpu_torch.ops.ftf import MAX_FTF_SEQ, fused_ftf_block
 from lct_gan_tpu_torch.ops.gru import fused_grouped_gru
-from lct_gan_tpu_torch.ops.library import check_kernel_widths
+from lct_gan_tpu_torch.ops.library import (CHANNELS, TRAIN_C,
+                                           check_kernel_widths)
 from lct_gan_tpu_torch.sigproc import (STFTConfig, apply_mask, hann_window,
                                        istft, magnitude, stft)
 from lct_gan_tpu_torch.utils.device import disable_tf32
@@ -72,10 +74,11 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
                       training: bool) -> None:
     """Raise unless the CUDA kernels run `cfg` on `device`, decided from the
     device argument alone (no card is queried): a bottleneck of
-    enc_channels[-1] = 64 channels in num_heads heads and gru_groups
-    groups that divide 64, for serving and training alike (`training`
-    only words the hint). Nothing is refused on the CPU, whose plain path
-    takes every width."""
+    enc_channels[-1] channels in num_heads heads and gru_groups groups that
+    divide it, where enc_channels[-1] is one of CHANNELS for serving and
+    TRAIN_C = 64 for training (the FTF backward kernel's only width). The
+    message names enc_channels and the widths taken. Nothing is refused on
+    the CPU, whose plain path takes every width."""
     if torch.device(device).type != "cuda":
         return
     check_kernel_widths("the CUDA path", cfg.enc_channels[-1],
@@ -84,7 +87,8 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
                                "--gru_groups"),
                         hint=("; train this configuration with --device cpu"
                               if training else
-                              "; run this configuration with device='cpu'"))
+                              "; run this configuration with device='cpu'"),
+                        channels=(TRAIN_C,) if training else CHANNELS)
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:

@@ -3,11 +3,17 @@ calls them.
 
 Each `lct_gan_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for sm_90a
 into its own shared library with a plain C interface, loaded with ctypes
-(no PyTorch headers, so a build takes seconds, not minutes). All sources
-build in parallel, one nvcc process each. Libraries go to `build/` at the
-repository root (ignored by git), under a name that carries a hash of every
-file in `csrc/`: a change to any source or header rebuilds, an unchanged
-tree reuses what is there.
+(no PyTorch headers, so a build takes seconds, not minutes). Libraries go
+to `build/` at the repository root (ignored by git), under a name that
+carries a hash of every file in `csrc/`: a change to any source or header
+rebuilds, an unchanged tree reuses what is there.
+
+One set of libraries a bottleneck width C (`ops/library.py::CHANNELS`):
+C = 64, the default, builds every source as it always has
+(`lib<name>-<hash>.so`); any other C builds only the forward sources
+(`FORWARD_SOURCES`) with -DLCT_C=<C> into `lib<name>-c<C>-<hash>.so`, at
+its first use. All sources of all the widths asked for build in one
+parallel batch, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -20,12 +26,13 @@ import subprocess
 import sys
 import threading
 import time
-from typing import Dict
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
 __all__ = ["load_library", "build_all", "kernel_function", "raise_on_error",
-           "f32_operand", "CSRC_DIR", "BUILD_DIR"]
+           "f32_operand", "build_command", "library_path", "library_sources",
+           "CSRC_DIR", "BUILD_DIR", "DEFAULT_C", "FORWARD_SOURCES"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -33,9 +40,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+DEFAULT_C = 64
+# The sources the serving path launches: every width builds these.
+FORWARD_SOURCES = ("banded", "ftf", "mhsa")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -60,70 +70,105 @@ def _sources():
     return sorted(n[:-3] for n in os.listdir(CSRC_DIR) if n.endswith(".cu"))
 
 
-def build_all(verbose: bool = False) -> float:
-    """Build (if needed) and load every csrc/*.cu library. Returns the
-    seconds spent; raises with nvcc's stderr when a build fails."""
+def library_sources(C: int = DEFAULT_C) -> List[str]:
+    """The csrc/*.cu sources of width C's libraries: all of them at the
+    default width, the forward ones at any other."""
+    from lct_gan_tpu_torch.ops.library import CHANNELS
+
+    if C not in CHANNELS:
+        raise ValueError(f"no CUDA libraries for C={C}: the kernels take C "
+                         f"in {CHANNELS}")
+    names = _sources()
+    return names if C == DEFAULT_C else [n for n in names
+                                         if n in FORWARD_SOURCES]
+
+
+def library_path(name: str, C: int, tag: str) -> str:
+    """Where csrc/<name>.cu's library of width C lives under `tag` (the
+    hash of csrc/ and the flags)."""
+    width = "" if C == DEFAULT_C else f"-c{C}"
+    return os.path.join(BUILD_DIR, f"lib{name}{width}-{tag}.so")
+
+
+def build_command(name: str, C: int, out: str, nvcc: str = "nvcc",
+                  verbose: bool = False) -> List[str]:
+    """The nvcc command that builds csrc/<name>.cu for width C into `out`:
+    the default width's command is the one it has always been, any other
+    adds -DLCT_C=<C>."""
+    width = [] if C == DEFAULT_C else [f"-DLCT_C={C}"]
+    return [nvcc, *NVCC_FLAGS, *width, "-I", CSRC_DIR,
+            *(["-Xptxas", "-v"] if verbose else []),
+            "-o", out, os.path.join(CSRC_DIR, f"{name}.cu")]
+
+
+def build_all(verbose: bool = False,
+              widths: Iterable[int] = (DEFAULT_C,)) -> float:
+    """Build (if needed) and load the libraries of every width in `widths`
+    (default: 64's, every csrc/*.cu), all in one parallel batch. Returns
+    the seconds spent; raises with nvcc's stderr when a build fails."""
     with _lock:
         t0 = time.perf_counter()
-        names = [n for n in _sources() if n not in _libs]
-        if not names:
+        todo = [(n, C) for C in dict.fromkeys(widths)
+                for n in library_sources(C) if (n, C) not in _libs]
+        if not todo:
             return 0.0
         tag = _source_hash()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        paths = {n: os.path.join(BUILD_DIR, f"lib{n}-{tag}.so") for n in names}
+        paths = {k: library_path(*k, tag) for k in todo}
         procs = {}
-        for n in names:
-            if os.path.isfile(paths[n]):
+        for k in todo:
+            if os.path.isfile(paths[k]):
                 continue
-            tmp = f"{paths[n]}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR,
-                   *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", tmp, os.path.join(CSRC_DIR, f"{n}.cu")]
-            procs[n] = (tmp, subprocess.Popen(
+            tmp = f"{paths[k]}.{os.getpid()}.tmp"
+            cmd = build_command(*k, tmp, _nvcc(), verbose)
+            procs[k] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
         errors = []
-        for n, (tmp, proc) in procs.items():
+        for (n, C), (tmp, proc) in procs.items():
             out, err = proc.communicate()
+            what = f"csrc/{n}.cu" + ("" if C == DEFAULT_C else f" (C={C})")
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for csrc/{n}.cu "
+                errors.append(f"nvcc failed for {what} "
                               f"(rc={proc.returncode}):\n{err}{out}")
                 continue
             if verbose and (err or out):
-                print(f"[nvcc csrc/{n}.cu]\n{err}{out}", file=sys.stderr,
+                print(f"[nvcc {what}]\n{err}{out}", file=sys.stderr,
                       flush=True)
-            os.replace(tmp, paths[n])
+            os.replace(tmp, paths[(n, C)])
         if errors:
             raise RuntimeError("\n".join(errors))
-        for n in names:
-            _libs[n] = ctypes.CDLL(paths[n])
+        for k in todo:
+            _libs[k] = ctypes.CDLL(paths[k])
         return time.perf_counter() - t0
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, building all sources first if
-    this process has not loaded them yet."""
-    if name not in _libs:
-        build_all()
-    return _libs[name]
+def load_library(name: str, C: int = DEFAULT_C) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu at width C, building that
+    width's sources first if this process has not loaded them yet."""
+    if (name, C) not in _libs:
+        build_all(widths=(C,))
+    return _libs[(name, C)]
 
 
-def kernel_function(lib_name: str, fn_name: str, argtypes):
-    """A C entry point of csrc/<lib_name>.cu with its argtypes declared
-    (ctypes.c_void_p for every pointer and the stream, or ctypes would pass
-    them as 32-bit ints)."""
-    fn = getattr(load_library(lib_name), fn_name)
+def kernel_function(lib_name: str, fn_name: str, argtypes,
+                    C: int = DEFAULT_C):
+    """A C entry point of csrc/<lib_name>.cu's width-C library with its
+    argtypes declared (ctypes.c_void_p for every pointer and the stream, or
+    ctypes would pass them as 32-bit ints)."""
+    fn = getattr(load_library(lib_name, C), fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
 
-def raise_on_error(err: int, lib_name: str, what: str) -> None:
+def raise_on_error(err: int, lib_name: str, what: str,
+                   C: int = DEFAULT_C) -> None:
     """Raise if a C entry point returned a CUDA error (a refused launch
     never runs, and a later synchronize would not report it)."""
     if err == 0:
         return
-    fn = load_library(lib_name).lct_error_string
+    fn = load_library(lib_name, C).lct_error_string
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     raise RuntimeError(f"{what}: CUDA error {err} ({fn(err).decode()})")

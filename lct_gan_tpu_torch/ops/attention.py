@@ -3,11 +3,13 @@
 `fused_mhsa` replaces the TPU kernel `lct_gan_tpu/ops/attention.py::
 _mhsa_kernel` (API `fused_mhsa`, :275): qkv projection -> per-head scores
 with an optional inclusive causal band and a per-key bias -> softmax ->
-context -> output projection, for x [N, L, E=64] in any number of heads
-that divides 64 (`ops/library.py::KERNEL_WIDTHS`), L <= 1024. On a CUDA
-tensor it launches the hand-written kernels of `csrc/mhsa.cu` (their bound
-on the H100 and what the simple design does about it are noted there); on
-a CPU tensor it computes `mhsa_reference`, its plain PyTorch version.
+context -> output projection, for x [N, L, E] with E of `ops/library.py::
+CHANNELS`, in any number of heads that divides E, L <= 1024 (E = 48 and 96
+padded to 64 and 128 with zero channels and heads, exact:
+`ops/padding.py`). On a CUDA tensor it launches the hand-written kernels
+of `csrc/mhsa.cu` (their bound on the H100 and what the simple design does
+about it are noted there); on a CPU tensor it computes `mhsa_reference`,
+its plain PyTorch version.
 
 The kernel is the `torch.library` operator `lct_gan_tpu_torch::fused_mhsa`
 (`mhsa_op`, `ops/library.py`): every mode is an argument, a fake
@@ -29,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from lct_gan_tpu_torch.ops import padding
 from lct_gan_tpu_torch.ops.gru import round_bf16
 from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
@@ -128,9 +131,9 @@ _MHSA_ARGTYPES = {
 
 def check_attention_shapes(name: str, x: torch.Tensor, num_heads: int,
                            max_seq: Optional[int] = None) -> None:
-    """Raise unless the attention kernels take these shapes: E = 64 in
-    num_heads heads (any divisor of 64) and, for the MHSA kernel, L <=
-    max_seq."""
+    """Raise unless the attention kernels take these shapes: E of the
+    channel set in num_heads heads (any divisor of E) and, for the MHSA
+    kernel, L <= max_seq."""
     N, L, E = x.shape
     check_kernel_widths(f"{name} kernel", E, num_heads=num_heads,
                         names=("E", "num_heads", None))
@@ -157,6 +160,24 @@ def _mhsa_fake(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
     return x.new_empty(x.shape, dtype=torch.float32)
 
 
+def pad_attention(ops, num_heads: int):
+    """The attention wrappers' operands (x, in_w, in_b, out_w, out_b, ...)
+    padded for the kernels' width where E is 48 or 96 (`ops/padding.py`:
+    x's channels first, zeros after; each head widened to a power of two),
+    and whether the kernels' output has channels past E's."""
+    x = ops[0]
+    E = x.shape[-1]
+    hidx = padding.head_map(E, num_heads)
+    if hidx is None:
+        return ops, False
+    EK = padding.kernel_width(E)
+    cidx = torch.arange(E)
+    return [padding.pad_last(x, cidx, EK),
+            *padding.pad_in_proj(ops[1], ops[2], cidx, hidx, EK),
+            *padding.pad_out_proj(ops[3], ops[4], hidx, cidx, EK),
+            *ops[5:]], True
+
+
 def _mhsa_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
                out_proj_bias, key_bias, num_heads, lookback, precise):
     from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
@@ -172,20 +193,22 @@ def _mhsa_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
            f32_operand("out_proj_bias", out_proj_bias, (E,), dev),
            None if key_bias is None
            else f32_operand("key_bias", key_bias, (N, L), dev)]
+    ops, padded = pad_attention(ops, num_heads)
+    EK = ops[0].shape[-1]
     scratch = [torch.empty(shape, device=dev, dtype=dtype)
-               for _, shape, dtype in mhsa_scratch(N * L, precise, E)]
-    out = torch.empty((N, L, E), device=dev, dtype=torch.float32)
+               for _, shape, dtype in mhsa_scratch(N * L, precise, EK)]
+    out = torch.empty((N, L, EK), device=dev, dtype=torch.float32)
     entry = "lct_mhsa_forward_f32" if precise else "lct_mhsa_forward_bf16"
-    fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise])
+    fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise], E)
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
              *(t.data_ptr() for t in scratch), out.data_ptr(), N, L,
              -1 if lookback is None else lookback, num_heads,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "mhsa", "fused_mhsa kernel launch")
+    raise_on_error(err, "mhsa", "fused_mhsa kernel launch", E)
     fused_mhsa.launches += 1
     fused_mhsa.design = kernel_design(precise)
-    return out
+    return out[..., :E].contiguous() if padded else out
 
 
 mhsa_op = define_op("fused_mhsa", mhsa_plain, _mhsa_cuda, _mhsa_fake)
@@ -198,8 +221,8 @@ def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                lookback: Optional[int] = None,
                key_bias: Optional[torch.Tensor] = None,
                precise: bool = False) -> torch.Tensor:
-    """Fused MHSA over x [N, L, 64] -> [N, L, 64] f32 (num_heads dividing
-    64, L <= 1024).
+    """Fused MHSA over x [N, L, E] -> [N, L, E] f32 (E of the channel set,
+    num_heads dividing E, L <= 1024).
 
     The op `torch.ops.lct_gan_tpu_torch.fused_mhsa`. CPU tensors:
     `mhsa_reference(..., precise=precise)`. CUDA tensors: the kernels of

@@ -4,12 +4,15 @@
 _banded_kernel` (API `banded_mhsa`, :274): qkv projection -> per-head scores
 of each query q over the keys [q - W, q] of its inclusive causal band, plus
 a per-key bias -> softmax -> context -> output projection, for x [N, S,
-E=64] with no upper bound on S. On a CUDA tensor it launches the
+E] (E of `ops/library.py::CHANNELS`, in any number of heads that divides
+it; 48 and 96 padded as `fused_mhsa` pads them) with no upper bound on S.
+On a CUDA tensor it launches the
 hand-written kernels of `csrc/banded.cu` (their bound on the H100 and what
 each mode's design does about it are noted there): bf16 mode one fused
 tensor-core pass for bands whose scores fit in registers (the library's
-`lct_banded_max_register_lookback` keys back), and the MHSA kernel's
-tensor-core design with the band above that; precise mode three all-f32
+`lct_banded_max_register_lookback` keys back; none at E = 96 and 128), and
+the MHSA kernel's tensor-core design with the band above that; precise
+mode three all-f32
 CUDA-core kernels. On a CPU tensor it computes
 `banded_mhsa_reference`, its plain PyTorch version. The kernel is the
 `torch.library` operator `lct_gan_tpu_torch::banded_mhsa` (`banded_op`,
@@ -36,7 +39,7 @@ from typing import Optional
 import torch
 
 from lct_gan_tpu_torch.ops.attention import (check_attention_shapes,
-                                             kernel_design,
+                                             kernel_design, pad_attention,
                                              register_recompute_backward)
 from lct_gan_tpu_torch.ops.gru import round_bf16
 from lct_gan_tpu_torch.ops.library import define_op
@@ -181,22 +184,24 @@ def _banded_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
            f32_operand("out_proj_bias", out_proj_bias, (E,), dev),
            None if key_bias is None
            else f32_operand("key_bias", key_bias, (N, S), dev)]
+    ops, padded = pad_attention(ops, num_heads)
+    EK = ops[0].shape[-1]
     # The library owns the widest band its fused bf16 kernel serves.
     max_reg_w = kernel_function("banded", "lct_banded_max_register_lookback",
-                                [])()
+                                [], E)()
     scratch = [torch.empty(shape, device=dev, dtype=dtype) for _, shape, dtype
-               in banded_scratch(N * S, precise, lookback <= max_reg_w, E)]
+               in banded_scratch(N * S, precise, lookback <= max_reg_w, EK)]
     slots = [t.data_ptr() for t in scratch] or [None]
-    out = torch.empty((N, S, E), device=dev, dtype=torch.float32)
-    fn = kernel_function("banded", *BANDED_ENTRY[precise])
+    out = torch.empty((N, S, EK), device=dev, dtype=torch.float32)
+    fn = kernel_function("banded", *BANDED_ENTRY[precise], E)
     err = fn(*(None if t is None else t.data_ptr() for t in ops), *slots,
              out.data_ptr(), N, S, lookback, num_heads,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "banded", "banded_mhsa kernel launch")
+    raise_on_error(err, "banded", "banded_mhsa kernel launch", E)
     banded_mhsa.launches += 1
     banded_mhsa.design = kernel_design(precise)
-    return out
+    return out[..., :E].contiguous() if padded else out
 
 
 banded_op = define_op("banded_mhsa", banded_plain, _banded_cuda,
@@ -209,8 +214,8 @@ def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                 out_proj_bias: torch.Tensor, *, num_heads: int = 4,
                 lookback: int, key_bias: Optional[torch.Tensor] = None,
                 precise: bool = False) -> torch.Tensor:
-    """Banded MHSA over x [N, S, 64] -> [N, S, 64] f32 (num_heads dividing
-    64, any S).
+    """Banded MHSA over x [N, S, E] -> [N, S, E] f32 (E of the channel
+    set, num_heads dividing E, any S).
 
     The op `torch.ops.lct_gan_tpu_torch.banded_mhsa`. CPU tensors:
     `banded_mhsa_reference(..., precise=precise)`. CUDA tensors: the

@@ -3,7 +3,7 @@
     pre-LN -> grouped GRU (+residual) -> pre-LN -> multi-head attention
     -> Linear -> LeakyReLU(0.2) (+residual)
 
-over x [N, L, C=64]: the frequency blocks (bidirectional GRU, Linear [2C, C]
+over x [N, L, C]: the frequency blocks (bidirectional GRU, Linear [2C, C]
 on concat(gru, attn)) and the time block (causal GRU, Linear [C, C] on the
 attention, optional band and per-key bias).
 
@@ -26,9 +26,11 @@ plain version on the CPU). A call with `key_bias` instead recomputes through
 the f32 `ftf_block_reference` under autograd, as the JAX package does.
 
 Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
-in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward and backward
-kernels take C = 64 in any num_heads and any G that divide 64
-(`ops/library.py::KERNEL_WIDTHS`).
+in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward kernels take
+every C of `ops/library.py::CHANNELS` in any num_heads and any G that
+divide C (C = 48 and 96 padded to 64 and 128 with zero channels, exact:
+`ops/padding.py`); the backward kernel takes C = 64 (`TRAIN_C`) alone, and
+a call under grad on the card at another C raises before any launch.
 """
 
 from __future__ import annotations
@@ -38,14 +40,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from lct_gan_tpu_torch.ops import padding
 from lct_gan_tpu_torch.ops.attention import kernel_design, mhsa_reference
-from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+from lct_gan_tpu_torch.ops.ftf_bwd import check_backward_shapes, fused_ftf_bwd
 from lct_gan_tpu_torch.ops.gru import (grouped_gru_hidden, layer_norm,
                                        pack_gru_slots, round_bf16)
 from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
 __all__ = ["fused_ftf_block", "ftf_block_reference", "ftf_forward_with_hidden",
-           "ftf_op", "ftf_plain", "ftf_scratch",
+           "ftf_op", "ftf_plain", "ftf_scratch", "kernel_operands",
            "check_kernel_shapes", "MAX_FTF_SEQ"]
 
 # Longest sequence the fused block serves; longer time blocks take the
@@ -118,37 +121,45 @@ def ftf_block_reference(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
 
 
 _P = ctypes.c_void_p
-# lct_ftf_forward_bf16 / _f32: 16 inputs (the GRU's in pack_gru_slots'
-# layout; key_bias may be null), the four scratch slots of ftf_scratch (gb
-# may be null), out; N; L, D, lin_in, lookback, num_heads, GRU slots,
-# device; stream.
-_FTF_ARGTYPES = [_P] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]
+# lct_ftf_forward_bf16 / _f32 by mode (precise): 16 inputs (the GRU's in
+# pack_gru_slots' layout; key_bias may be null), the scratch slots of
+# ftf_scratch (bf16: four, gb may be null, then xp, null but for C = 128's
+# dense GRU slot; f32: four), out; N; L, D, lin_in, lookback, num_heads,
+# GRU slots, device; stream.
+_FTF_ARGTYPES = {
+    False: [_P] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P],
+    True: [_P] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]}
 
 
-def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool, C: int = 64):
+def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool, C: int = 64,
+                slots: int = 0):
     """(name, shape, dtype) of each scratch tensor the kernels of one mode
-    write, in the C entry point's order. bf16 (csrc/ftf.cu, tensor cores):
-    the per-direction hiddens, q, k, v as bf16 (the contract rounds them),
-    s = x + g (f32) and, for the frequency block's Linear (lin_in = 2C),
-    bf16(g), else None (a null pointer): the only values the attention
-    kernel's epilogue reads besides q, k, v. precise (CUDA cores, all f32):
-    the GRU input projection, the hiddens, qkv and the attention context.
-    The sizes follow C alone: no head or group count changes them."""
+    write, in the C entry point's order, for the kernels' width C (a power
+    of two). bf16 (csrc/ftf.cu, tensor cores): the per-direction hiddens,
+    q, k, v as bf16 (the contract rounds them), s = x + g (f32) and, for the
+    frequency block's Linear (lin_in = 2C), bf16(g), else None (a null
+    pointer): the only values the attention kernel's epilogue reads besides
+    q, k, v; at C = 128 with one dense GRU slot (`slots` = 1) also the GRU
+    input projection, which that slot's CUDA-core recurrence reads. precise
+    (CUDA cores, all f32): the GRU input projection, the hiddens, qkv and
+    the attention context. No head count changes the sizes."""
     hid = ("hid", (D, rows, C), torch.float32)
+    xp = ("xp", (rows, D * 3 * C), torch.float32)
     if precise:
-        return [("xp", (rows, D * 3 * C), torch.float32), hid,
-                ("qkv", (rows, 3 * C), torch.float32),
+        return [xp, hid, ("qkv", (rows, 3 * C), torch.float32),
                 ("ctx", (rows, C), torch.float32)]
     return [hid, ("qkv", (rows, 3 * C), torch.bfloat16),
             ("s", (rows, C), torch.float32),
-            ("gb", (rows, C), torch.bfloat16) if lin_in == 2 * C else None]
+            ("gb", (rows, C), torch.bfloat16) if lin_in == 2 * C else None,
+            *([xp] if C > 64 and slots == 1 else [])]
 
 
 def check_kernel_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                         bidirectional: bool) -> None:
-    """Raise unless the FTF forward kernels take these shapes: C = 64,
-    num_heads and G GRU groups of 64 / G each dividing 64 (w_ih [D, G,
-    64 / G, 3 * 64 / G]), L <= 512, lin_w rows matching the block type."""
+    """Raise unless the FTF forward kernels take these shapes: C of the
+    channel set, num_heads and G GRU groups of C / G each dividing C (w_ih
+    [D, G, C / G, 3 * C / G]), L <= 512, lin_w rows matching the block
+    type."""
     N, L, C = x.shape
     G = w_ih.shape[1]
     check_kernel_widths(f"{name} kernel", C, num_heads=num_heads, groups=G)
@@ -178,6 +189,28 @@ def ftf_plain(x: torch.Tensor, ln1_scale: torch.Tensor,
         precise=precise, return_hidden=True)
 
 
+def kernel_operands(ops, num_heads: int):
+    """The FTF kernels' operands from the block's (x, the 14 parameters,
+    key_bias): at C = 48 or 96 padded to the kernels' width with zero
+    channels and heads (`ops/padding.py`), then the GRU weights packed into
+    slots. Returns (operands, cidx): cidx [C] the output channels that are
+    the block's (None: all)."""
+    C, G = ops[0].shape[-1], ops[3].shape[1]
+    CK, cidx = padding.kernel_width(C), padding.channel_map(C, G)
+    ops = list(ops)
+    if cidx is not None:  # zero channels up to CK, exact
+        hidx = padding.head_map(C, num_heads)
+        ops[:15] = [padding.pad_last(ops[0], cidx, CK),
+                    *padding.pad_ln(*ops[1:3], cidx, CK),
+                    *padding.pad_gru(*ops[3:7], C),
+                    *padding.pad_ln(*ops[7:9], cidx, CK),
+                    *padding.pad_in_proj(*ops[9:11], cidx, hidx, CK),
+                    *padding.pad_out_proj(*ops[11:13], hidx, cidx, CK),
+                    *padding.pad_lin(*ops[13:15], cidx, CK)]
+    ops[3:7] = pack_gru_slots(*ops[3:7])
+    return ops, cidx
+
+
 def _ftf_fake(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
               ln2_bias, in_w, in_b, out_w, out_b, lin_w, lin_b, key_bias,
               bidirectional, num_heads, lookback, precise):
@@ -204,6 +237,7 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
     H = C // G
     lin_in = lin_w.shape[0]
     dev = x.device
+    CK = padding.kernel_width(C)
     f = f32_operand
     ops = [f("x", x, (N, L, C), dev),
            f("ln1_scale", ln1_scale, (C,), dev),
@@ -222,25 +256,32 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
            f("lin_b", lin_b, (C,), dev),
            None if key_bias is None
            else f("key_bias", key_bias, (N, L), dev)]
-    ops[3:7] = pack_gru_slots(*ops[3:7])
-    specs = ftf_scratch(N * L, D, lin_in, precise, C)
+    ops, cidx = kernel_operands(ops, num_heads)
+    slots = ops[3].shape[1]
+    specs = ftf_scratch(N * L, D, lin_in // C * CK, precise, CK, slots)
     scratch = [torch.empty(spec[1], device=dev, dtype=spec[2])
                if spec else None for spec in specs]
-    out = torch.empty((N, L, C), device=dev, dtype=torch.float32)
+    if not precise and len(scratch) == 4:
+        scratch.append(None)  # no xp
+    out = torch.empty((N, L, CK), device=dev, dtype=torch.float32)
     entry = "lct_ftf_forward_f32" if precise else "lct_ftf_forward_bf16"
-    fn = kernel_function("ftf", entry, _FTF_ARGTYPES)
+    fn = kernel_function("ftf", entry, _FTF_ARGTYPES[precise], C)
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
              *(None if t is None else t.data_ptr()
                for t in scratch), out.data_ptr(),
-             N, L, D, lin_in, -1 if lookback is None else lookback,
-             num_heads, ops[3].shape[1],
+             N, L, D, lin_in // C * CK, -1 if lookback is None else lookback,
+             num_heads, slots,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "ftf", "fused_ftf_block kernel launch")
+    raise_on_error(err, "ftf", "fused_ftf_block kernel launch", C)
     fused_ftf_block.launches += 1
     fused_ftf_block.design = kernel_design(precise)
-    return out, next(t for spec, t in zip(specs, scratch)
-                     if spec and spec[0] == "hid")
+    hid = next(t for spec, t in zip(specs, scratch)
+               if spec and spec[0] == "hid")
+    if cidx is not None:
+        cidx = cidx.to(dev)
+        out, hid = out.index_select(-1, cidx), hid.index_select(-1, cidx)
+    return out, hid
 
 
 def _ftf_setup_context(ctx, inputs, output):
@@ -291,7 +332,7 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
                             key_bias: Optional[torch.Tensor] = None,
                             precise: bool = False):
     """The FTF block forward and the per-direction GRU hiddens:
-    (out [N, L, 64], hid [D, N*L, 64]), both f32, hid unrounded: the op
+    (out [N, L, C], hid [D, N*L, C]), both f32, hid unrounded: the op
     `torch.ops.lct_gan_tpu_torch.fused_ftf_block`.
 
     CPU tensors: `ftf_block_reference(..., return_hidden=True)`. CUDA
@@ -299,7 +340,17 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
     stage writes), each launch counted in `fused_ftf_block.launches`, from
     an exported program too. Differentiable in `out` (x and every
     parameter): under grad the backward is `ops/ftf_bwd.py::fused_ftf_bwd`
-    on the saved hiddens, or, with key_bias, the f32 recompute."""
+    on the saved hiddens, or, with key_bias, the f32 recompute. On the
+    card the backward kernel's widths are checked before the forward
+    launches (`check_backward_shapes`: C = 64 alone)."""
+    if (x.device.type == "cuda" and key_bias is None
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, ln1_scale, ln1_bias, w_ih,
+                                              w_hh, b_ih, b_hh, ln2_scale,
+                                              ln2_bias, in_w, in_b, out_w,
+                                              out_b, lin_w, lin_b))):
+        check_backward_shapes("fused_ftf_block under grad", x, w_ih, lin_w,
+                              num_heads, bidirectional)
     return ftf_op(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
                   ln2_bias, in_w, in_b, out_w, out_b, lin_w, lin_b, key_bias,
                   bool(bidirectional), int(num_heads),
@@ -312,7 +363,7 @@ def fused_ftf_block(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
                     num_heads: int = 4, lookback: Optional[int] = None,
                     key_bias: Optional[torch.Tensor] = None,
                     precise: bool = False) -> torch.Tensor:
-    """Fused FTF block over x [N, L, 64] -> [N, L, 64] f32 (L <= 512).
+    """Fused FTF block over x [N, L, C] -> [N, L, C] f32 (L <= 512).
 
     CPU tensors: `ftf_block_reference(..., precise=precise)`. CUDA tensors:
     the kernels of csrc/ftf.cu, each launch counted in

@@ -17,9 +17,10 @@ On a CUDA tensor it launches the hand-written kernels of `csrc/ftf_bwd.cu`
 (their bound on the H100 and what each design does about it are noted
 there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
 tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
-(`lct_ftf_backward_f32`, `simt-f32`), at C = 64 in any number of heads and
-GRU groups that divides 64, as the forward kernels (`check_backward_shapes`,
-`ops/library.py::check_kernel_widths`). The wrapper packs the GRU weights
+(`lct_ftf_backward_f32`, `simt-f32`), at C = 64 (`ops/library.py::
+TRAIN_C`: no other width builds it) in any number of heads and GRU groups
+that divides 64 (`check_backward_shapes`, `ops/library.py::
+check_kernel_widths`). The wrapper packs the GRU weights
 into the kernels' slots (`ops/gru.py::pack_gru_slots`) and takes the
 gradients apart again (`unpack_gru_slot_grads`). On a CPU tensor it
 computes
@@ -45,7 +46,8 @@ import torch
 from lct_gan_tpu_torch.ops.attention import kernel_design
 from lct_gan_tpu_torch.ops.gru import (gru_slot, pack_gru_slots,
                                        round_bf16, unpack_gru_slot_grads)
-from lct_gan_tpu_torch.ops.library import KERNEL_C, define_op
+from lct_gan_tpu_torch.ops.library import (TRAIN_C, check_kernel_widths,
+                                           define_op)
 
 __all__ = ["fused_ftf_bwd", "ftf_bwd_reference", "ftf_bwd_op",
            "ftf_bwd_plain", "ftf_bwd_scratch_bytes", "check_backward_shapes"]
@@ -225,7 +227,7 @@ def ftf_bwd_scratch_bytes(N: int, L: int, D: int, lin_in: int,
     card's grid sizes). Needs the card."""
     from lct_gan_tpu_torch.ops._build import kernel_function
 
-    slots = KERNEL_C // gru_slot(groups)
+    slots = TRAIN_C // gru_slot(groups)
     if precise:
         fn = kernel_function("ftf_bwd", "lct_ftf_backward_scratch_floats",
                              [ctypes.c_longlong] + [ctypes.c_int] * 4)
@@ -263,12 +265,16 @@ def ftf_bwd_plain(x: torch.Tensor, ln1s: torch.Tensor, ln1b: torch.Tensor,
 
 def check_backward_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                           bidirectional: bool) -> None:
-    """Raise unless the FTF backward kernel takes these shapes: the
-    forward's (`ops/ftf.py::check_kernel_shapes`: C = 64 in any num_heads
-    and GRU group count that divides 64, through `ops/library.py::
+    """Raise unless the FTF backward kernel takes these shapes: C = 64
+    (TRAIN_C; the message names enc_channels, the width a user sets) and
+    the forward's (`ops/ftf.py::check_kernel_shapes`: any num_heads and GRU
+    group count that divides C, through `ops/library.py::
     check_kernel_widths`)."""
     from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
 
+    check_kernel_widths(f"{name} kernel", x.shape[-1], channels=(TRAIN_C,),
+                        hint=" (the bottleneck, enc_channels[-1]: the FTF "
+                             "backward kernel trains 64 channels alone)")
     check_kernel_shapes(name, x, w_ih, lin_w, num_heads, bidirectional)
 
 

@@ -23,11 +23,14 @@ CUDA tensor it launches the all-f32 kernels of `csrc/ftf.cu`
 and its recurrence, one launch each); on a CPU tensor it computes
 `grouped_gru_plain`. Its backward differentiates the plain version.
 
-The CUDA kernels take C = 64 channels in any number of groups that divides
-64 (`ops/library.py::KERNEL_WIDTHS`): they run slots of 16 units or one of
-64 (`gru_slot`), and `pack_gru_slots` packs other group counts into them
+The CUDA kernels take C channels for every C of `ops/library.py::
+CHANNELS`, in any number of groups that divides C: they run slots of 16
+units, or dense ones of C (of 64 at C = 128; `gru_slot`), and
+`pack_gru_slots` packs other group counts into them
 (`unpack_gru_slot_grads` takes the FTF backward's slot-layout gradients
-apart again).
+apart again). At C = 48 and 96 the wrapper first widens each group to a
+power of two with zero channels and units (`ops/padding.py`; exact), so
+the kernels run at 64 and 128.
 """
 
 from __future__ import annotations
@@ -36,12 +39,12 @@ import ctypes
 
 import torch
 
-from lct_gan_tpu_torch.ops.library import (KERNEL_C, check_kernel_widths,
-                                           define_op)
+from lct_gan_tpu_torch.ops import padding
+from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
 __all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16", "layer_norm",
            "grouped_gru_plain", "fused_grouped_gru", "gru_op", "gru_slot",
-           "pack_gru_slots", "unpack_gru_slot_grads"]
+           "pack_gru_slots", "unpack_gru_slot_grads", "gru_kernel_operands"]
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -119,8 +122,8 @@ def grouped_gru_plain(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def _check_gru_shapes(x: torch.Tensor, w_ih: torch.Tensor) -> None:
-    """Raise unless the kernels take these shapes: C = 64 in G groups of
-    64 / G (G dividing 64), w_ih [D, G, 64 / G, 3 * 64 / G]."""
+    """Raise unless the kernels take these shapes: C of the channel set in
+    G groups of C / G (G dividing C), w_ih [D, G, C / G, 3 * C / G]."""
     C = x.shape[-1]
     G = w_ih.shape[1]
     check_kernel_widths("fused_grouped_gru kernel", C, groups=G)
@@ -130,21 +133,25 @@ def _check_gru_shapes(x: torch.Tensor, w_ih: torch.Tensor) -> None:
                          f"{tuple(w_ih.shape)}")
 
 
-def gru_slot(groups: int) -> int:
-    """The width of the slots the GRU kernels run `groups` groups in:
-    16 units for 4 groups or more, one slot of 64 for 1 or 2."""
-    return 16 if groups >= 4 else KERNEL_C
+def gru_slot(groups: int, C: int = 64) -> int:
+    """The width of the slots the GRU kernels run `groups` groups of C
+    channels in (C a power of two, the kernels' width): 16 units for
+    groups of 16 or fewer, else one dense slot of C, or at C = 128 slots
+    of 64 for groups of 64 or fewer (the tensor-core recurrence's register
+    budget)."""
+    width = C // groups
+    return 16 if width <= 16 else 64 if C > 64 and width <= 64 else C
 
 
 def pack_gru_slots(w_ih, w_hh, b_ih, b_hh):
-    """G groups' GRU weights [D, G, H, 3H] / [D, G, 3H] packed into the
-    kernels' slots of W = gru_slot(G) units: [D, 64 / W, W, 3W] /
-    [D, 64 / W, 3W], the groups of a slot on its block diagonal (the TPU
-    kernel's packing, lct_gan_tpu/ops/ftf.py:331). Exact: the entries off
-    the blocks are 0 and add nothing. Returned as they are where the groups
-    are slots already (4 groups, or 1)."""
+    """G groups' GRU weights [D, G, H, 3H] / [D, G, 3H] (C = G H a power of
+    two) packed into the kernels' slots of W = gru_slot(G, C) units: [D,
+    C / W, W, 3W] / [D, C / W, 3W], the groups of a slot on its block
+    diagonal (the TPU kernel's packing, lct_gan_tpu/ops/ftf.py:331).
+    Exact: the entries off the blocks are 0 and add nothing. Returned as
+    they are where the groups are slots already (groups of 16, or 1)."""
     D, G, H, _ = w_ih.shape
-    W = gru_slot(G)
+    W = gru_slot(G, G * H)
     if H == W:
         return w_ih, w_hh, b_ih, b_hh
     k, S = W // H, G * H // W          # groups a slot, slots
@@ -162,8 +169,8 @@ def pack_gru_slots(w_ih, w_hh, b_ih, b_hh):
 
 def unpack_gru_slot_grads(dw_ih, dw_hh, db_ih, db_hh, groups: int):
     """The inverse of `pack_gru_slots` for gradients: slot-layout weight
-    gradients [D, 64 / W, W, 3W] / bias gradients [D, 64 / W, 3W] (W =
-    gru_slot(groups)) back to the grouped [D, G, H, 3H] / [D, G, 3H]. A
+    gradients [D, C / W, W, 3W] / bias gradients [D, C / W, 3W] (W =
+    gru_slot(groups, C)) back to the grouped [D, G, H, 3H] / [D, G, 3H]. A
     weight gradient keeps each group's diagonal block of its slot; the
     entries off the blocks belong to no parameter (the packed weight is 0
     there) and are dropped. A bias gradient leaves the gate-major order of
@@ -183,6 +190,23 @@ def unpack_gru_slot_grads(dw_ih, dw_hh, db_ih, db_hh, groups: int):
             D, groups, 3 * H)
 
     return mat(dw_ih), mat(dw_hh), vec(db_ih), vec(db_hh)
+
+
+def gru_kernel_operands(ops):
+    """The GRU kernels' operands from (x, ln_scale, ln_bias, w_ih, w_hh,
+    b_ih, b_hh): at C = 48 or 96 padded to the kernels' width with zero
+    channels and units (`ops/padding.py`), then packed into slots. Returns
+    (operands, idx): idx [C] the output channels that are x's (None:
+    all)."""
+    C, G = ops[0].shape[-1], ops[3].shape[1]
+    CK, idx = padding.kernel_width(C), padding.channel_map(C, G)
+    ops = list(ops)
+    if idx is not None:
+        ops = [padding.pad_last(ops[0], idx, CK),
+               *padding.pad_ln(*ops[1:3], idx, CK),
+               *padding.pad_gru(*ops[3:], C)]
+    ops[3:] = pack_gru_slots(*ops[3:])
+    return ops, idx
 
 
 def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
@@ -214,17 +238,20 @@ def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
            f("w_hh", w_hh, (D, G, H, 3 * H), dev),
            f("b_ih", b_ih, (D, G, 3 * H), dev),
            f("b_hh", b_hh, (D, G, 3 * H), dev)]
-    ops[3:] = pack_gru_slots(*ops[3:])
-    xp = torch.empty((N * L, D * 3 * C), device=dev, dtype=torch.float32)
-    hid = torch.empty((D, N * L, C), device=dev, dtype=torch.float32)
-    fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES)
+    ops, idx = gru_kernel_operands(ops)
+    CK = ops[0].shape[-1]
+    xp = torch.empty((N * L, D * 3 * CK), device=dev, dtype=torch.float32)
+    hid = torch.empty((D, N * L, CK), device=dev, dtype=torch.float32)
+    fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES, C)
     err = fn(*(t.data_ptr() for t in ops), xp.data_ptr(), hid.data_ptr(),
              N, L, D, ops[3].shape[1],
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "ftf", "fused_grouped_gru kernel launch")
+    raise_on_error(err, "ftf", "fused_grouped_gru kernel launch", C)
     fused_grouped_gru.launches += 1
     out = hid[0] if D == 1 else hid[0] + hid[1]
+    if idx is not None:
+        out = out.index_select(-1, idx.to(dev))
     return out.view(N, L, C)
 
 
@@ -254,13 +281,13 @@ def fused_grouped_gru(x: torch.Tensor, ln_scale: torch.Tensor,
                       w_hh: torch.Tensor, b_ih: torch.Tensor,
                       b_hh: torch.Tensor, *,
                       bidirectional: bool) -> torch.Tensor:
-    """LN1 and the grouped GRU over x [N, L, 64] -> [N, L, 64] f32, any L:
+    """LN1 and the grouped GRU over x [N, L, C] -> [N, L, C] f32, any L:
     the op `torch.ops.lct_gan_tpu_torch.fused_grouped_gru`.
 
     CPU tensors: `grouped_gru_plain`. CUDA tensors: the f32 kernels of
-    csrc/ftf.cu (C = 64 in any group count dividing 64, else it raises;
-    `check_kernel_widths`), each launch counted in
-    `fused_grouped_gru.launches`, from an exported program too.
+    csrc/ftf.cu (C of `ops/library.py::CHANNELS` in any group count
+    dividing C, else it raises; `check_kernel_widths`), each launch
+    counted in `fused_grouped_gru.launches`, from an exported program too.
     Differentiable in x and the six parameters (the plain version's
     gradients, recomputed)."""
     return gru_op(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh,

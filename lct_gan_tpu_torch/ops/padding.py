@@ -1,0 +1,138 @@
+"""Zero padding that carries a bottleneck width which is not a power of two
+(C = 48 or 96) to the CUDA kernels, which run at the next power of two.
+
+A library built for C channels (`ops/_build.py`, -DLCT_C=<C>) runs its
+kernels at CK = `kernel_width(C)` channels and divides every LayerNorm by
+the true C (`csrc/common.cuh`). The wrappers widen what they hand it:
+
+  * each GRU group of gw channels to gw' = the next power of two, so group
+    g's channels sit at [g gw', g gw' + gw) of the CK-wide rows and the
+    CK / gw' groups (the last ones all zero) pack into the kernels' slots;
+  * each attention head of hd channels to hd' = the next power of two, its
+    q, k and v at [h hd', h hd' + hd) of each CK-wide section, the heads
+    past num_heads all zero; the kernels take the true hd for the score
+    scale 1 / sqrt(hd).
+
+Exact in both modes: a zero channel adds 0 to every product and every
+LayerNorm sum, a GRU unit with zero weights and biases stays 0 (r = z =
+1/2, n = tanh(0) = 0), and a zero head's context is 0 whatever its
+probabilities. The padded output channels come out 0 and are dropped.
+
+A power-of-two C needs none of this: `channel_map` and `head_map` return
+None there and the wrappers hand the tensors over as they are.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+__all__ = ["kernel_width", "channel_map", "head_map", "padded_groups",
+           "pad_last", "pad_gru", "pad_ln", "pad_in_proj", "pad_out_proj",
+           "pad_lin"]
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << (int(v) - 1).bit_length()
+
+
+def kernel_width(C: int) -> int:
+    """The channel count the kernels of width C run at (csrc/common.cuh)."""
+    return _pow2_ceil(C)
+
+
+@functools.lru_cache(maxsize=None)
+def _map(C: int, parts: int) -> Optional[torch.Tensor]:
+    width = C // parts
+    step = _pow2_ceil(width)
+    if step == width and kernel_width(C) == C:
+        return None
+    idx = torch.arange(C)
+    return (idx // width) * step + idx % width
+
+
+def channel_map(C: int, groups: int) -> Optional[torch.Tensor]:
+    """Where each of the C true channels sits in a CK-wide row when the GRU
+    runs `groups` groups (a LongTensor [C] on the CPU), or None when C is a
+    power of two (no padding)."""
+    return _map(C, groups)
+
+
+def head_map(C: int, num_heads: int) -> Optional[torch.Tensor]:
+    """Where each of the C channels of q (or k, v, the context) sits in a
+    CK-wide section when the attention runs `num_heads` heads, or None."""
+    return _map(C, num_heads)
+
+
+def padded_groups(C: int, groups: int) -> int:
+    """The GRU group count of the padded rows: CK / gw'."""
+    return kernel_width(C) // _pow2_ceil(C // groups)
+
+
+def _on(idx: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return idx.to(t.device)
+
+
+def pad_last(t: torch.Tensor, idx: torch.Tensor, width: int) -> torch.Tensor:
+    """t [..., C] as [..., width], t's channels at `idx`, zeros elsewhere."""
+    out = t.new_zeros((*t.shape[:-1], width))
+    return out.index_copy_(-1, _on(idx, t), t)
+
+
+def pad_ln(scale: torch.Tensor, bias: torch.Tensor, idx: torch.Tensor,
+           width: int):
+    return pad_last(scale, idx, width), pad_last(bias, idx, width)
+
+
+def pad_gru(w_ih, w_hh, b_ih, b_hh, C: int):
+    """G groups' weights [D, G, gw, 3gw] / [D, G, 3gw] as the padded groups'
+    [D, G', gw', 3gw'] / [D, G', 3gw']: each group's inputs and units (per
+    gate) widened with zeros, the groups past G zero."""
+    D, G, gw, _ = w_ih.shape
+    G2, gw2 = padded_groups(C, G), _pow2_ceil(gw)
+
+    def mat(w):
+        out = w.new_zeros((D, G2, gw2, 3, gw2))
+        out[:, :G, :gw, :, :gw] = w.reshape(D, G, gw, 3, gw)
+        return out.reshape(D, G2, gw2, 3 * gw2)
+
+    def vec(b):
+        out = b.new_zeros((D, G2, 3, gw2))
+        out[:, :G, :, :gw] = b.reshape(D, G, 3, gw)
+        return out.reshape(D, G2, 3 * gw2)
+
+    return mat(w_ih), mat(w_hh), vec(b_ih), vec(b_hh)
+
+
+def pad_in_proj(in_w: torch.Tensor, in_b: torch.Tensor,
+                rows: torch.Tensor, heads: torch.Tensor, width: int):
+    """in_w [C, 3C], in_b [3C] as [CK, 3CK], [3CK]: input rows at `rows`,
+    each of the q, k, v sections' columns at `heads`."""
+    C = in_w.shape[0]
+    cols = torch.cat([heads + s * width for s in range(3)])
+    w = in_w.new_zeros((C, 3 * width)).index_copy_(1, _on(cols, in_w), in_w)
+    w = pad_last(w.t(), rows, width).t().contiguous()
+    return w, pad_last(in_b, cols, 3 * width)
+
+
+def pad_out_proj(out_w: torch.Tensor, out_b: torch.Tensor,
+                 heads: torch.Tensor, cols: torch.Tensor, width: int):
+    """out_w [C, C] (context rows, channel columns), out_b [C] as [CK, CK],
+    [CK]: rows at `heads`, columns at `cols`."""
+    w = pad_last(out_w, cols, width)
+    w = pad_last(w.t(), heads, width).t().contiguous()
+    return w, pad_last(out_b, cols, width)
+
+
+def pad_lin(lin_w: torch.Tensor, lin_b: torch.Tensor, idx: torch.Tensor,
+            width: int):
+    """lin_w [k C, C] (k = 2: g then the attention; or 1), lin_b [C] as
+    [k CK, CK], [CK], every C-block of rows and the columns at `idx`."""
+    C = lin_w.shape[1]
+    k = lin_w.shape[0] // C
+    rows = torch.cat([idx + i * width for i in range(k)])
+    w = pad_last(lin_w, idx, width)
+    w = pad_last(w.t(), rows, k * width).t().contiguous()
+    return w, pad_last(lin_b, idx, width)

@@ -110,10 +110,11 @@ def test_module_routes_the_band_to_the_banded_kernel(card):
 
 
 def test_banded_kernel_rejects_other_widths(card):
-    x = torch.zeros((1, 10, 32), device="cuda")
-    p = [torch.zeros(s, device="cuda") for s in ((32, 96), (96,), (32, 32),
-                                                  (32,))]
-    with pytest.raises(ValueError, match="E=64"):
+    """40 channels lie outside the kernels' channel set."""
+    x = torch.zeros((1, 10, 40), device="cuda")
+    p = [torch.zeros(s, device="cuda") for s in ((40, 120), (120,), (40, 40),
+                                                  (40,))]
+    with pytest.raises(ValueError, match="got E=40"):
         banded_mhsa(x, *p, num_heads=4, lookback=4)
 
 

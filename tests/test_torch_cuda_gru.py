@@ -93,9 +93,10 @@ def test_gradients_on_the_card_are_the_plain_versions(card, D):
 
 
 def test_wrong_width_raises_on_the_card(card):
-    x, p = _inputs(2, 600, 1, seed=7)
-    with pytest.raises(ValueError, match="takes C=64 channels"):
-        fused_grouped_gru(x[..., :32], p[0][:32], p[1][:32],
-                          p[2][:, :2].contiguous(), p[3][:, :2].contiguous(),
-                          p[4][:, :2].contiguous(), p[5][:, :2].contiguous(),
-                          bidirectional=False)
+    """40 channels (2 groups of 20) lie outside the kernels' channel set."""
+    x = torch.zeros((2, 600, 40), device="cuda")
+    p = [torch.zeros(s, device="cuda") for s in
+         ((40,), (40,), (1, 2, 20, 60), (1, 2, 20, 60), (1, 2, 60),
+          (1, 2, 60))]
+    with pytest.raises(ValueError, match="takes C in .*got C=40"):
+        fused_grouped_gru(x, *p, bidirectional=False)

@@ -107,12 +107,12 @@ def test_fake_gives_the_output_shape_and_holds_cuda_to_the_width():
             out = OPS.fused_grouped_gru(x, *p, False)
             assert out.shape == (4, 600, 64) and out.dtype == torch.float32
             assert out.device.type == dev
-        # 32 channels in 2 groups: the plain version takes it, the kernel
-        # does not.
-        x, p = _inputs(51, 4, 600, 1, C=32)
+        # 40 channels in 2 groups: the plain version takes it, the kernel
+        # does not (40 is outside its channel set).
+        x, p = _inputs(51, 4, 600, 1, C=40)
         assert OPS.fused_grouped_gru(torch.empty(x.shape), *(
-            torch.empty(t.shape) for t in p), False).shape == (4, 600, 32)
-        with pytest.raises(ValueError, match="takes C=64 channels"):
+            torch.empty(t.shape) for t in p), False).shape == (4, 600, 40)
+        with pytest.raises(ValueError, match="takes C in .*got C=40"):
             OPS.fused_grouped_gru(
                 torch.empty(x.shape, device="cuda"),
                 *(torch.empty(t.shape, device="cuda") for t in p), False)

@@ -40,13 +40,14 @@ from lct_gan_tpu.train.step import make_train_step as jax_make_train_step
 from lct_gan_tpu_torch.ops.ftf import ftf_block_reference
 from lct_gan_tpu_torch.ops.ftf_bwd import ftf_bwd_reference
 from lct_gan_tpu_torch.ops.gru import pack_gru_slots, unpack_gru_slot_grads
-from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
+from lct_gan_tpu_torch.ops.library import divisors
 from lct_gan_tpu_torch.train import (TrainConfig, make_train_step,
                                      state_from_jax_params)
 
 from test_torch_port_ftf import ORDER, make_params
 
 WIDTHS = [(8, 8), (2, 2), (1, 1), (16, 4)]
+KERNEL_WIDTHS = divisors(64)   # the head and group counts at C = 64
 BWD_CASES = [(True, None), (False, 5)]   # frequency block; time, band 5
 METRICS = ("d_loss", "g_loss", "mr_loss", "mask_loss", "adv_loss", "fm_loss")
 

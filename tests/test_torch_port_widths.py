@@ -57,10 +57,11 @@ from lct_gan_tpu_torch.ops.ftf_bwd import _BWD_ARGTYPES, check_backward_shapes
 from lct_gan_tpu_torch.ops.gru import (_GRU_ARGTYPES, _check_gru_shapes,
                                        fused_grouped_gru, grouped_gru,
                                        gru_slot, pack_gru_slots)
-from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
+from lct_gan_tpu_torch.ops.library import divisors
 from lct_gan_tpu_torch.train.state import TrainConfig, create_state
 
 WIDTHS = [(1, 1), (2, 2), (8, 8), (16, 64)]
+KERNEL_WIDTHS = divisors(64)   # the head and group counts at C = 64
 ORDER = ("ln1_scale", "ln1_bias", "w_ih", "w_hh", "b_ih", "b_hh",
          "ln2_scale", "ln2_bias", "in_w", "in_b", "out_w", "out_b",
          "lin_w", "lin_b")
@@ -281,7 +282,8 @@ def test_enhancer_matches_jax(nh, G):
 
 def test_kernel_checks_take_every_divisor_pair():
     """The forward kernels' checks take every (heads, groups) pair of
-    divisors of 64 at C = 64, and refuse other counts and other C."""
+    divisors of 64 at C = 64, and refuse other counts and a C outside the
+    channel set (40; 48 is in it since the kernels were built per width)."""
     x = torch.zeros((2, 5, 64))
     for G in KERNEL_WIDTHS:
         H = 64 // G
@@ -295,11 +297,13 @@ def test_kernel_checks_take_every_divisor_pair():
         check_attention_shapes("a", x, 3)
     with pytest.raises(ValueError, match="GRU groups"):
         _check_gru_shapes(x, torch.zeros((1, 3, 21, 63)))
-    with pytest.raises(ValueError, match="E=64"):
-        check_attention_shapes("a", torch.zeros((2, 5, 48)), 4)
-    with pytest.raises(ValueError, match="C=64"):
-        _check_gru_shapes(torch.zeros((2, 5, 48)),
-                          torch.zeros((1, 4, 12, 36)))
+    check_attention_shapes("a", torch.zeros((2, 5, 48)), 4)
+    _check_gru_shapes(torch.zeros((2, 5, 48)), torch.zeros((1, 4, 12, 36)))
+    with pytest.raises(ValueError, match="got E=40"):
+        check_attention_shapes("a", torch.zeros((2, 5, 40)), 4)
+    with pytest.raises(ValueError, match="got C=40"):
+        _check_gru_shapes(torch.zeros((2, 5, 40)),
+                          torch.zeros((1, 4, 10, 30)))
 
 
 def test_backward_check_takes_only_4_heads_and_4_groups():
@@ -322,11 +326,19 @@ def test_backward_check_takes_only_4_heads_and_4_groups():
 
 @pytest.mark.parametrize("training", [False, True])
 def test_c48_is_refused_on_the_card_naming_enc_channels(training):
+    """Training refuses C = 48 on the card (the backward kernel takes 64
+    alone); serving takes it since the forward kernels were built per
+    width, and refuses C = 40 instead, outside the channel set."""
     cfg = LCTGeneratorConfig(enc_channels=(16, 32, 48),
                              dec_channels=(48, 32, 16))
+    c40 = LCTGeneratorConfig(enc_channels=(16, 32, 40),
+                             dec_channels=(40, 32, 16))
+    refused = cfg if training else c40
     with pytest.raises(ValueError, match=r"enc_channels"):
-        check_card_widths(cfg, "cuda", training=training)
-    check_card_widths(cfg, "cpu", training=training)  # the plain path runs
+        check_card_widths(refused, "cuda", training=training)
+    if not training:
+        check_card_widths(cfg, "cuda", training=False)
+    check_card_widths(refused, "cpu", training=training)  # the plain path
 
 
 def test_card_widths_are_decided_from_the_device_argument():
@@ -370,8 +382,8 @@ def _c_params(source):
 
 
 @pytest.mark.parametrize("source,entry,argtypes", [
-    ("ftf.cu", "lct_ftf_forward_bf16", _FTF_ARGTYPES),
-    ("ftf.cu", "lct_ftf_forward_f32", _FTF_ARGTYPES),
+    ("ftf.cu", "lct_ftf_forward_bf16", _FTF_ARGTYPES[False]),
+    ("ftf.cu", "lct_ftf_forward_f32", _FTF_ARGTYPES[True]),
     ("ftf.cu", "lct_grouped_gru_f32", _GRU_ARGTYPES),
     ("mhsa.cu", "lct_mhsa_forward_bf16", _MHSA_ARGTYPES[False]),
     ("mhsa.cu", "lct_mhsa_forward_f32", _MHSA_ARGTYPES[True]),
