@@ -1,18 +1,20 @@
 // FTF block backward for Hopper (sm_90a): the whole function of the TPU
 // kernel `lct_gan_tpu/ops/ftf_bwd.py::_ftf_bwd_kernel`. Inputs: x, dout
-// [N*L, 64], the forward's per-direction hiddens hid [D, N*L, 64]
-// (unrounded f32) and the block's parameters, the GRU's in slots. Outputs:
-// dx and the 14 parameter gradients, f32, the GRU's in the slot layout
-// [D, 64/W, W, 3W] / [D, 64/W, 3W]. Two designs, one per mode.
+// [N*L, C], the forward's per-direction hiddens hid [D, N*L, C] (unrounded
+// f32) and the block's parameters, the GRU's in slots. Outputs: dx and the
+// 14 parameter gradients, f32, the GRU's in the slot layout [D, C/W, W, 3W]
+// / [D, C/W, 3W]. Two designs, one per mode. C is the library's kernel
+// width (common.cuh: -DLCT_C=<C>, 64 when unset; 48 and 96 run at 64 and
+// 128 on operands the wrapper pads, ops/padding.py).
 //
 // Bound on the H100: at the training shapes (B=64 x 2 s; freq N=8,256 L=33,
-// time N=2,112 L=129: 272,448 rows each) the function reads x, dout and hid
-// and writes dx (1.0-1.3 KB per row), 279-349 MB or 83-104 us at 3.35 TB/s,
-// and does 47-71 GFLOP of useful products (47-71 us at the 989 TFLOP/s bf16
-// rate): in bf16 it is bound by bytes.
+// time N=2,112 L=129: 272,448 rows each) and C = 64 the function reads x,
+// dout and hid and writes dx (1.0-1.3 KB per row), 279-349 MB or 83-104 us
+// at 3.35 TB/s, and does 47-71 GFLOP of useful products (47-71 us at the
+// 989 TFLOP/s bf16 rate): in bf16 it is bound by bytes. Both scale with C.
 //
 // bf16 (lct_ftf_backward_bf16), every product on tensor cores (tc.cuh's
-// mma.sync m16n8k16 fragments), nine launches:
+// mma.sync m16n8k16 fragments), nine launches (ten at one head of 128):
 //   1. qkv_tc_kernel       LN2 and qkv recomputed; s = x + g, bf16(g)
 //   2. attn_fwd_tc_kernel  the context (bf16) and the softmax's (m, 1/l)
 //   3. comb_bwd_tc_kernel  out-proj, Linear, LeakyReLU backward -> dcomb, da,
@@ -29,7 +31,7 @@
 //     bf16 cross a kernel boundary as bf16 (qkv, ctx, a, dcomb, da, dctx,
 //     dqkv, n1, n2, h_prev, dxp, dhp); f32 crosses only where the contract
 //     keeps f32 (s, ds, dg_lin, the softmax statistics). ~3.8 KB per row at
-//     D = 2, against ~13 KB.
+//     D = 2 and C = 64, against ~13 KB.
 //   * Products on CUDA cores. Every product, the weight gradients included,
 //     is mma.sync on bf16 operands with f32 accumulation: the contract's
 //     arithmetic up to the order of the f32 sums. Weights are staged in
@@ -43,11 +45,14 @@
 //     shared memory; key chunks outside the band skipped. p is recomputed
 //     from the stored (m, 1/l), the rowsum sum(dp p) taken exactly in a
 //     first walk, then dq by query tiles and dk, dv by key tiles (keys as
-//     the M rows), so no sum crosses a work item.
+//     the M rows), so no sum crosses a work item. A head of 128 channels
+//     would not fit resident: it streams 64-row blocks (attn_*_wide_kernel).
 //   * The recurrence stays a sequential walk, latency-bound: the gate
 //     factors are computed in the walk itself on tensor cores (as in
 //     ftf.cu's gru_tc_kernel), dhp passes to the carry product in registers,
-//     and each step's loads are issued one step ahead.
+//     and each step's loads are issued one step ahead. A dense slot of 128
+//     units (C = 128 in one group, or 96 padded) runs on CUDA cores with the
+//     same rounding points (bptt_simt_kernel), as ftf.cu's forward does.
 //
 // precise (lct_ftf_backward_f32), all f32 on CUDA cores (common.cuh), the
 // simple design of one kernel per stage:
@@ -63,45 +68,51 @@
 //   7. gate_kernel                     hp from the shifted hiddens, the gate
 //                                      factors K1..K5 for every step at once
 //   8. bptt_kernel (bptt_dense_kernel  dh_{t-1} = dh_t z_t + (dh_t K123_t) W_hh^T
-//      for one slot of 64)
+//      for dense slots)
 //   9. dn1_kernel + ln_bwd_kernel      input-projection and LN1 backward -> dx
 //  10. wgrad_kernel + reduce_kernel    every parameter gradient: per-chunk
 //                                      partial sums over rows, then the chunks
 //                                      summed in a fixed order
 // It round-trips ~20 f32 intermediates per row through device memory and
-// walks the recurrence with one thread per hidden unit. Its kernels keep
-// their bf16 `round` path; only precise mode calls this entry now.
+// walks the recurrence with one thread per hidden unit.
 //
 // Rounding (common.cuh): every GEMM operand is rounded to bf16 exactly where
 // the TPU kernel rounds it (its `cd` casts), products accumulate in f32;
 // `precise` keeps everything f32. The f32 design's hp and xp recomputes
-// round h_{t-1}, n1 and the weights where the forward does and sum in the
-// order of the f32 forward (gru_kernel, proj_kernel), so in precise mode
-// the backward sees the forward's own gate values. The bf16 forward (ftf.cu's
-// gru_tc_kernel) and backward (bptt_tc_kernel) sum on tensor cores and take
-// sigmoid and tanh from the special-function unit's exp and reciprocal: the
-// recomputed gates agree with the forward's to f32 noise, not bit for bit,
-// and so does the qkv the backward recomputes. Both sides of a gradient see
-// the same saved hiddens, so this moves no gradient beyond that noise.
+// sum in the order of the f32 forward (gru_kernel, proj_kernel), so in
+// precise mode the backward sees the forward's own gate values. The bf16
+// forward (ftf.cu's gru_tc_kernel) and backward (bptt_tc_kernel) sum on
+// tensor cores and take sigmoid and tanh from the special-function unit's
+// exp and reciprocal: the recomputed gates agree with the forward's to f32
+// noise, not bit for bit, and so does the qkv the backward recomputes.
+// Both sides of a gradient see the same saved hiddens, so this moves no
+// gradient beyond that noise.
 //
 // Determinism: no atomics. Every sum over rows is taken by blocks over
 // fixed rows (chunks, persistent tiles, or 16 sequences) and the blocks'
 // partial rows are added in index order. The result is the same from run
 // to run for the same shapes on the same card.
 //
-// Widths: any num_heads and any GRU group count that divide C = 64, as the
-// forward kernels (ftf.cu). The attention kernels are built per padded
-// head width HDP (common.cuh's head_pad: 8 for any hd <= 8, else 16, 32,
-// 64) and take the true width at run time; their score scale is 1 /
-// sqrt(hd) of the true head. The GRU kernels are built per slot width W:
-// 16 (4 slots: groups of 16, or narrower ones packed block-diagonally) or
-// 64 (one dense slot: one group of 64, or two of 32). The caller packs the
-// GRU weights into slots (ops/gru.py::pack_gru_slots) and takes the
-// slot-layout gradients apart again (ops/gru.py::unpack_gru_slot_grads):
-// the entries off a slot's blocks are zero in the forward, so the
-// gradients on the blocks are the grouped ones. Heads narrower than a k16
-// step take their 16-channel k-step and n8 tile masked to their channels
-// (tc.cuh's q_mask and v_mask), as the TPU kernel's zero blocks do.
+// Widths: any num_heads and any GRU group count that divide C_MODEL, as
+// the forward kernels (ftf.cu). The attention kernels are built per padded
+// head width HDP (common.cuh's head_pad: 8 for any hd <= 8, else 16 .. C)
+// and take the true width at run time; their score scale is 1 / sqrt of the
+// true head width. The GRU kernels are built per slot width W (ops/gru.py::
+// gru_slot): 16 (C / 16 slots: groups of 16, or narrower ones packed
+// block-diagonally), C (one dense slot, C <= 64) or at C = 128 64 (two
+// dense slots) and 128 (one). The caller packs the GRU weights into slots
+// (ops/gru.py::pack_gru_slots) and takes the slot-layout gradients apart
+// again (ops/gru.py::unpack_gru_slot_grads): the entries off a slot's
+// blocks are zero in the forward, so the gradients on the blocks are the
+// grouped ones. Heads narrower than a k16 step take their 16-channel k-step
+// and n8 tile masked to their channels (tc.cuh's q_mask and v_mask), as the
+// TPU kernel's zero blocks do. Every LayerNorm, forward and backward,
+// divides by the true channel count C_MODEL: at 48 and 96 the padded
+// channels hold zeros in x, dout, hid and every weight, so they add nothing
+// to a true channel's value or gradient (ops/padding.py), and the wrapper
+// drops their dx and gradients.
+
+#include <type_traits>
 
 #include "tc.cuh"
 
@@ -126,6 +137,7 @@ __global__ void ln_kernel(const float* __restrict__ x,
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // the whole warp leaves together
   const size_t o = (size_t)row * C;
+#if LCT_C == 64
   float a = x[o + lane], c = x[o + lane + 32];
   if (add0) {
     a += add1 ? (add0[o + lane] + add1[o + lane]) : add0[o + lane];
@@ -140,6 +152,34 @@ __global__ void ln_kernel(const float* __restrict__ x,
   y[o + lane + 32] = hc * s[lane + 32] + b[lane + 32];
   xhat[o + lane] = ha;
   xhat[o + lane + 32] = hc;
+#else
+  // CPL channels a lane (lane + 32 i), the sums over the C_MODEL true
+  // channels (a padded one holds 0; its xhat is dropped with its gradient).
+  float v[CPL];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const size_t k = o + lane + 32 * i;
+    v[i] = 0.f;
+    if (lane_holds(lane, i)) {
+      v[i] = x[k];
+      if (add0) v[i] += add1 ? (add0[k] + add1[k]) : add0[k];
+    }
+    s1 += v[i];
+    s2 += v[i] * v[i];
+  }
+  const float mu = warp_sum(s1) * (1.f / C_MODEL);
+  const float ms = warp_sum(s2) * (1.f / C_MODEL);
+  const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    if (!lane_holds(lane, i)) continue;
+    const int c = lane + 32 * i;
+    const float h = (v[i] - mu) * rs;
+    y[o + c] = h * s[c] + b[c];
+    xhat[o + c] = h;
+  }
+#endif
   if (lane == 0) rstd[row] = rs;
 }
 
@@ -159,6 +199,7 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const size_t o = (size_t)row * C;
+#if LCT_C == 64
   const float da = dy[o + lane] * scale[lane];
   const float dc = dy[o + lane + 32] * scale[lane + 32];
   const float xa = xhat[o + lane], xc = xhat[o + lane + 32];
@@ -173,6 +214,31 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
     out2[o + lane] = oa + extra[o + lane];
     out2[o + lane + 32] = oc + extra[o + lane + 32];
   }
+#else
+  // CPL channels a lane; means over the C_MODEL true channels (a padded
+  // channel's scale is 0, so its dxh adds nothing).
+  float dv[CPL], xv[CPL];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int c = lane + 32 * i;
+    dv[i] = lane_holds(lane, i) ? dy[o + c] * scale[c] : 0.f;
+    xv[i] = lane_holds(lane, i) ? xhat[o + c] : 0.f;
+    s1 += dv[i];
+    s2 += dv[i] * xv[i];
+  }
+  const float m1 = warp_sum(s1) * (1.f / C_MODEL);
+  const float m2 = warp_sum(s2) * (1.f / C_MODEL);
+  const float rs = rstd[row];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    if (!lane_holds(lane, i)) continue;
+    const int c = lane + 32 * i;
+    const float ov = base[o + c] + rs * (dv[i] - m1 - xv[i] * m2);
+    out[o + c] = ov;
+    if (out2) out2[o + c] = ov + extra[o + c];
+  }
+#endif
 }
 
 // The combine layer's backward over ROWS rows per block, one thread per
@@ -182,8 +248,8 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
 //   dcomb = dout * (comb >= 0 ? 1 : 0.2)
 //   dga   = dcomb @ lin_w^T  -> dg_lin = dga[:, :C] (frequency block), da
 //   dctx  = da @ out_w^T
-// Writes ga = [g | a] (rounded: the Linear's gradient operands), dcomb and
-// da (unrounded: their column sums are the bias gradients), dg_lin, dctx.
+// Writes ga = [g | a] (the Linear's gradient operands), dcomb and da
+// (their column sums are the bias gradients), dg_lin, dctx.
 __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
                                 const float* __restrict__ ctx,
                                 const float* __restrict__ dout,
@@ -195,11 +261,10 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
                                 float* __restrict__ dcomb,
                                 float* __restrict__ da,
                                 float* __restrict__ dglin,
-                                float* __restrict__ dctx, long long rows,
-                                int round) {
-  __shared__ float t0[ROWS][C];  // ctx rounded, then dcomb rounded
-  __shared__ float t1[ROWS][C];  // a rounded, then da rounded
-  __shared__ float t2[ROWS][C];  // g rounded (frequency block)
+                                float* __restrict__ dctx, long long rows) {
+  __shared__ float t0[ROWS][C];  // ctx, then dcomb
+  __shared__ float t1[ROWS][C];  // a, then da
+  __shared__ float t2[ROWS][C];  // g (frequency block)
   const long long row0 = (long long)blockIdx.x * ROWS;
   const int c = threadIdx.x;
   const bool freq = lin_in == 2 * C;
@@ -213,8 +278,8 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
       if (D == 2) g += hid[(size_t)rows * C + o];
       cv = ctx[o];
     }
-    t2[r][c] = rnd(g, round);
-    t0[r][c] = rnd(cv, round);
+    t2[r][c] = g;
+    t0[r][c] = cv;
   }
   __syncthreads();
 
@@ -223,14 +288,14 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
-    const float w = rnd(__ldg(out_w + k * C + c), round);
+    const float w = __ldg(out_w + k * C + c);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t0[r][k], w, acc[r]);
   }
   const float ob = out_b[c];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    const float a = rnd(acc[r] + ob, round);
+    const float a = acc[r] + ob;
     t1[r][c] = a;
     const long long row = row0 + r;
     if (row < rows) {
@@ -250,7 +315,7 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   if (freq) {
 #pragma unroll 4
     for (int k = 0; k < C; ++k) {
-      const float w = rnd(__ldg(lin_w + k * C + c), round);
+      const float w = __ldg(lin_w + k * C + c);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t2[r][k], w, acc[r]);
     }
@@ -258,7 +323,7 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   }
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
-    const float w = rnd(__ldg(lw_a + k * C + c), round);
+    const float w = __ldg(lw_a + k * C + c);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t1[r][k], w, acc[r]);
   }
@@ -274,7 +339,7 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
       dc = dout[o] * (comb >= 0.f ? 1.f : 0.2f);
       dcomb[o] = dc;
     }
-    t0[r][c] = rnd(dc, round);
+    t0[r][c] = dc;
   }
   __syncthreads();
 
@@ -286,14 +351,14 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   for (int r = 0; r < ROWS; ++r) acc[r] = acc2[r] = 0.f;
 #pragma unroll 4
   for (int j = 0; j < C; ++j) {
-    const float w = rnd(__ldg(lin_w + c * C + j), round);
+    const float w = __ldg(lin_w + c * C + j);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t0[r][j], w, acc[r]);
   }
   if (freq) {
 #pragma unroll 4
     for (int j = 0; j < C; ++j) {
-      const float w = rnd(__ldg(lin_w + (C + c) * C + j), round);
+      const float w = __ldg(lin_w + (C + c) * C + j);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc2[r] = fmaf(t0[r][j], w, acc2[r]);
     }
@@ -307,7 +372,7 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
       da[o] = dav;
       if (freq) dglin[o] = acc[r];
     }
-    t1[r][c] = rnd(dav, round);
+    t1[r][c] = dav;
   }
   __syncthreads();
 
@@ -316,7 +381,7 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
-    const float w = rnd(__ldg(out_w + c * C + k), round);
+    const float w = __ldg(out_w + c * C + k);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t1[r][k], w, acc[r]);
   }
@@ -328,8 +393,10 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
 }
 
 // The attention core's backward. One block per (sequence, head), heads of
-// hd = C / nh channels; the kernel is built per padded head width HDP (8
-// for any hd <= 8, else hd). For heads of at most 16 channels, Q, K, V and
+// hd = C / nh channels (the kernels' padded head width; the score scale is
+// 1 / sqrt(hd_true), common.cuh's head_scale); the kernel is built per
+// padded head width HDP (8 for any hd <= 8, else hd). For heads of at most
+// 16 channels, Q, K, V and
 // dctx of that head (rounded, HDP floats a position, zero past hd) sit in
 // dynamic shared memory, 4 HDP + 3 floats per position (137 KB at HDP =
 // 16, L = 512); wider heads would not fit, so their rows are read from
@@ -342,11 +409,18 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
 //     dv = sum_q p dctx_q over the queries whose band holds k, recomputing
 //     p and dp from the stored m, den and rowsum (bit-equal to pass A's).
 // Keys outside a query's band are never visited (p = 0 there).
+//
+// It keeps a run-time `round` (the bf16 rounding points; its only caller,
+// precise mode, passes 0) that the other kernels of this mode dropped: nvcc
+// allocates this kernel's registers around it, and without it gave 80,
+// 125, 220 registers at HDP = 8, 16, 32 (74, 116, 168 with it) and spilled
+// 1,684 bytes at HDP = 64 (204 with it); pinned at the former counts, it
+// spilled 12-356 bytes.
 template <int HDP>
 __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
                                 const float* __restrict__ dctx,
                                 float* __restrict__ dqkv, int L, int lookback,
-                                int round, int hd_rt) {
+                                int round, int hd_rt, int hd_true) {
   constexpr bool STAGE = HDP <= 16;
   extern __shared__ float sm[];
   float* Qs = sm;
@@ -360,7 +434,7 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
   const int nh = C / hd;
   const long long n = blockIdx.x / nh;
   const int h = blockIdx.x % nh;
-  const float scale = head_scale(hd, hd);
+  const float scale = head_scale(hd, hd_true);
   const float* base = qkv + (size_t)n * L * (3 * C);
   const float* dbase = dctx + (size_t)n * L * C;
   if (STAGE) {
@@ -478,7 +552,7 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
 template <int HDP>
 cudaError_t launch_attn_bwd_hd(const float* qkv, const float* dctx,
                                float* dqkv, long long N, int L, int lookback,
-                               int round, int hd, cudaStream_t st) {
+                               int hd, int hd_true, cudaStream_t st) {
   const size_t smem =
       (size_t)((HDP <= 16 ? 4 * HDP : 0) + 3) * L * sizeof(float);
   if (smem > 48 * 1024) {
@@ -490,39 +564,46 @@ cudaError_t launch_attn_bwd_hd(const float* qkv, const float* dctx,
   int threads = ((L + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   attn_bwd_kernel<HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
-      qkv, dctx, dqkv, L, lookback, round, hd);
+      qkv, dctx, dqkv, L, lookback, /*round=*/0, hd, hd_true);
   return cudaGetLastError();
 }
 
-// attn_bwd_kernel<head_pad(hd)> for N sequences of length L.
+// attn_bwd_kernel<head_pad(hd)> for N sequences of length L: instances for
+// the padded widths up to C.
 inline cudaError_t launch_attn_bwd(const float* qkv, const float* dctx,
                                    float* dqkv, long long N, int L,
-                                   int lookback, int round, int hd,
+                                   int lookback, int hd, int hd_true,
                                    cudaStream_t st) {
   switch (head_pad(hd)) {
     case 8:
-      return launch_attn_bwd_hd<8>(qkv, dctx, dqkv, N, L, lookback, round,
-                                   hd, st);
+      return launch_attn_bwd_hd<8>(qkv, dctx, dqkv, N, L, lookback, hd,
+                                   hd_true, st);
     case 16:
-      return launch_attn_bwd_hd<16>(qkv, dctx, dqkv, N, L, lookback, round,
-                                    hd, st);
+      return launch_attn_bwd_hd<16>(qkv, dctx, dqkv, N, L, lookback, hd,
+                                    hd_true, st);
+#if LCT_C > 16  // C >= 32
     case 32:
-      return launch_attn_bwd_hd<32>(qkv, dctx, dqkv, N, L, lookback, round,
-                                    hd, st);
+      return launch_attn_bwd_hd<32>(qkv, dctx, dqkv, N, L, lookback, hd,
+                                    hd_true, st);
+#endif
+#if LCT_C > 32  // C >= 64
     case 64:
-      return launch_attn_bwd_hd<64>(qkv, dctx, dqkv, N, L, lookback, round,
-                                    hd, st);
-    default:
-      return cudaErrorInvalidValue;
+      return launch_attn_bwd_hd<64>(qkv, dctx, dqkv, N, L, lookback, hd,
+                                    hd_true, st);
+#endif
+#if LCT_C > 64  // C = 128
+    case 128:
+      return launch_attn_bwd_hd<128>(qkv, dctx, dqkv, N, L, lookback, hd,
+                                     hd_true, st);
+#endif
   }
+  return cudaErrorInvalidValue;
 }
 
-// dn2 = dqkv @ in_w^T over ROWS rows per block, one thread per channel c
-// (dqkv is stored rounded).
+// dn2 = dqkv @ in_w^T over ROWS rows per block, one thread per channel c.
 __global__ void dn2_kernel(const float* __restrict__ dqkv,
                            const float* __restrict__ in_w,
-                           float* __restrict__ dn2, long long rows,
-                           int round) {
+                           float* __restrict__ dn2, long long rows) {
   __shared__ float tile[ROWS][3 * C];
   const long long row0 = (long long)blockIdx.x * ROWS;
   const int c = threadIdx.x;
@@ -537,7 +618,7 @@ __global__ void dn2_kernel(const float* __restrict__ dqkv,
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int m = 0; m < 3 * C; ++m) {
-    const float w = rnd(__ldg(in_w + c * 3 * C + m), round);
+    const float w = __ldg(in_w + c * 3 * C + m);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(tile[r][m], w, acc[r]);
   }
@@ -549,23 +630,23 @@ __global__ void dn2_kernel(const float* __restrict__ dqkv,
 }
 
 // The GRU's gate factors for every (row, direction, unit) at once, over
-// slots of W units (16 or 64). One thread per (row, d, c = g*W + j).
+// slots of W units (16, 64 or C). One thread per (row, d, c = g*W + j).
 // hp_{t} = h_{t-1} @ W_hh + b_hh from the saved hiddens shifted by one step
 // (h_{t-1} for the forward direction, h_{t+1} for the backward one, 0 at
 // the sequence's start), computed as the f32 forward's gru_kernel computes
-// it: same rounding, same order of sums (the bf16 forward's gates differ by
-// f32 noise). Writes
+// it: same order of sums (the bf16 forward's gates differ by f32 noise).
+// Writes
 //   K[d, row, 0..4, c] = (K1, K2, K3, K4, K5)
 //     K1 = P hp_n r (1 - r), K2 = (h_prev - n) z (1 - z), K3 = P r,
 //     K4 = P, K5 = z,  with P = (1 - z)(1 - n^2)
-// and hpv[d, row, c] = round(h_prev), the operand of dW_hh.
+// and hpv[d, row, c] = h_prev, the operand of dW_hh.
 template <int W>
 __global__ void gate_kernel(const float* __restrict__ xp,
                             const float* __restrict__ hid,
                             const float* __restrict__ w_hh,
                             const float* __restrict__ b_hh,
                             float* __restrict__ K, float* __restrict__ hpv,
-                            long long N, int L, int D, int round) {
+                            long long N, int L, int D) {
   constexpr int S = C / W;  // slots
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long NL = N * L;
@@ -584,10 +665,10 @@ __global__ void gate_kernel(const float* __restrict__ xp,
   float ar = 0.f, az = 0.f, an = 0.f;
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    const float hi = has_prev ? rnd(hp_row[i], round) : 0.f;
-    ar = fmaf(hi, rnd(wp[i * 3 * W + j], round), ar);
-    az = fmaf(hi, rnd(wp[i * 3 * W + W + j], round), az);
-    an = fmaf(hi, rnd(wp[i * 3 * W + 2 * W + j], round), an);
+    const float hi = has_prev ? hp_row[i] : 0.f;
+    ar = fmaf(hi, wp[i * 3 * W + j], ar);
+    az = fmaf(hi, wp[i * 3 * W + W + j], az);
+    an = fmaf(hi, wp[i * 3 * W + 2 * W + j], an);
   }
   const float* bp = b_hh + (d * S + g) * 3 * W;
   const float* xr = xp + (size_t)row * D * 3 * C + d * 3 * C + g * 3 * W;
@@ -603,31 +684,34 @@ __global__ void gate_kernel(const float* __restrict__ xp,
   kp[2 * C] = P * r;
   kp[3 * C] = P;
   kp[4 * C] = z;
-  hpv[((size_t)d * NL + row) * C + c] = rnd(hprev, round);
+  hpv[((size_t)d * NL + row) * C + c] = hprev;
 }
 
 // BPTT through the saved gate factors over slots of 16 units. One thread
 // per (sequence, direction, slot, unit j), as in gru_kernel: a slot's 16
-// units are 16 lanes of one warp that trade the rounded dhp values by
-// shuffles. The forward direction walks t descending, the backward
-// direction ascending:
+// units are 16 lanes of one warp that trade the dhp values by shuffles. The
+// forward direction walks t descending, the backward direction ascending:
 //   dh  = carry + dg[t]
 //   dhp = (dh K1, dh K2, dh K3),  dxp = (dh K1, dh K2, dh K4)  (written out)
-//   carry = dh K5 + sum_{gate, k} round(dhp[gate, k]) W_hh[g, j, gate*H + k]
+//   carry = dh K5 + sum_{gate, k} dhp[gate, k] W_hh[g, j, gate*H + k]
 __global__ void bptt_kernel(const float* __restrict__ K,
                             const float* __restrict__ dg,
                             const float* __restrict__ w_hh,
                             float* __restrict__ dxp, float* __restrict__ dhp,
-                            long long N, int L, int D, int round) {
+                            long long N, int L, int D) {
   constexpr int H = 16, G = C / H;  // slots of 16 units
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // The total is a multiple of 64 and blocks are too, so a warp is either
-  // wholly in range or wholly out: the shuffles below see all 32 lanes.
-  if (tid >= N * D * G * H) return;
+  // For C >= 32 the total is a multiple of 32 and blocks are too, so a warp
+  // is either wholly in range or wholly out: the shuffles below see all 32
+  // lanes. At C = 16 a warp may hang over the end: its lanes past it run
+  // sequence 0 and store nothing.
+  const long long total = N * D * G * H;
+  const bool live = C % 32 == 0 || tid < total;
+  if (C % 32 == 0 ? tid >= total : (tid & ~31LL) >= total) return;
   const int j = tid % H;
   const int g = (tid / H) % G;
   const int d = (tid / (G * H)) % D;
-  const long long n = tid / ((long long)G * H * D);
+  const long long n = live ? tid / ((long long)G * H * D) : 0;
   const long long NL = N * L;
   const int c = g * H + j;
 
@@ -635,9 +719,9 @@ __global__ void bptt_kernel(const float* __restrict__ K,
   float wr[H], wz[H], wn[H];
 #pragma unroll
   for (int k = 0; k < H; ++k) {
-    wr[k] = rnd(wp[k], round);
-    wz[k] = rnd(wp[H + k], round);
-    wn[k] = rnd(wp[2 * H + k], round);
+    wr[k] = wp[k];
+    wz[k] = wp[H + k];
+    wn[k] = wp[2 * H + k];
   }
   const size_t xstride = (size_t)D * 3 * C;
   float carry = 0.f;
@@ -648,118 +732,146 @@ __global__ void bptt_kernel(const float* __restrict__ K,
     const float dh = carry + dg[(size_t)row * C + c];
     const float er = dh * kp[0], ez = dh * kp[C], en = dh * kp[2 * C];
     const size_t o = (size_t)row * xstride + d * 3 * C + g * 3 * H + j;
-    dxp[o] = er;
-    dxp[o + H] = ez;
-    dxp[o + 2 * H] = dh * kp[3 * C];
-    dhp[o] = er;
-    dhp[o + H] = ez;
-    dhp[o + 2 * H] = en;
-    const float rr = rnd(er, round), rz = rnd(ez, round), rn = rnd(en, round);
+    if (live) {
+      dxp[o] = er;
+      dxp[o + H] = ez;
+      dxp[o + 2 * H] = dh * kp[3 * C];
+      dhp[o] = er;
+      dhp[o + H] = ez;
+      dhp[o + 2 * H] = en;
+    }
     float acc = 0.f;
 #pragma unroll
     for (int k = 0; k < H; ++k) {
-      acc = fmaf(__shfl_sync(0xffffffffu, rr, k, H), wr[k], acc);
-      acc = fmaf(__shfl_sync(0xffffffffu, rz, k, H), wz[k], acc);
-      acc = fmaf(__shfl_sync(0xffffffffu, rn, k, H), wn[k], acc);
+      acc = fmaf(__shfl_sync(0xffffffffu, er, k, H), wr[k], acc);
+      acc = fmaf(__shfl_sync(0xffffffffu, ez, k, H), wz[k], acc);
+      acc = fmaf(__shfl_sync(0xffffffffu, en, k, H), wn[k], acc);
     }
     carry = dh * kp[4 * C] + acc;
   }
 }
 
-// The same walk over one dense slot of 64 units (groups of 32 or 64). A
-// block takes one direction and DS sequences, one thread per (sequence,
-// unit j), as gru_dense_kernel: W_hh of the direction sits rounded and
-// transposed in shared memory (wt[gate*64 + k][j], read by consecutive
-// units: no bank conflict), and each step's rounded dhp is traded through a
-// double buffer of shared memory, one barrier a step. Bound: latency.
+// The same walk over dense slots of SW units: one slot of C (groups of 32
+// or 64 at C = 64, one group of C), or at C = 128 two of 64. A block takes
+// one direction and DS sequences, one thread per (sequence, unit u = slot
+// sl, unit j of it), as gru_dense_kernel: W_hh of the direction sits
+// transposed in shared memory (wt[sl][gate*SW + k][j], read by consecutive
+// units: no bank conflict; 192 KB at SW = C = 128), and each step's dhp is
+// traded through a double buffer of shared memory, one barrier a step.
+// Bound: latency. Like attn_bwd_kernel it keeps its run-time `round`
+// (precise mode passes 0): without it nvcc gave it one register more than
+// the 31 of C = 64's instance.
 constexpr int DS = 4;  // sequences per block of bptt_dense_kernel
 
+template <int SW>
 inline size_t bptt_dense_smem() {
-  return (size_t)(3 * C * C + 2 * DS * 3 * C) * sizeof(float);
+  return (size_t)(3 * C * SW + 2 * DS * 3 * C) * sizeof(float);
 }
 
+template <int SW>
 __global__ void __launch_bounds__(DS * C)
     bptt_dense_kernel(const float* __restrict__ K,
                       const float* __restrict__ dg,
                       const float* __restrict__ w_hh,
                       float* __restrict__ dxp, float* __restrict__ dhp,
                       long long N, int L, int D, int round) {
+  constexpr bool ONE = SW == C;  // one slot
   extern __shared__ float bsm[];
-  float* wt = bsm;              // [3C][C]: wt[o * C + j] = W_hh[d][j][o]
-  float* es = bsm + 3 * C * C;  // rounded dhp [2][DS][3C]
-  const int d = blockIdx.y, j = threadIdx.x % C, sq = threadIdx.x / C;
+  float* wt = bsm;               // [C / SW][3 SW][SW]
+  float* es = bsm + 3 * C * SW;  // dhp [2][DS][3C], slot-major
+  const int d = blockIdx.y, u = threadIdx.x % C, sq = threadIdx.x / C;
+  const int j = ONE ? u : u % SW;
+  const int eo = ONE ? 0 : u / SW * 3 * SW;  // the slot's first dhp column
   const long long n = (long long)blockIdx.x * DS + sq;
   const bool live = n < N;
-  const float* wp = w_hh + (size_t)d * C * (3 * C);
-  for (int i = threadIdx.x; i < C * 3 * C; i += blockDim.x)
-    wt[(i % (3 * C)) * C + i / (3 * C)] = rnd(wp[i], round);
+  const float* wp = w_hh + (size_t)d * C * (3 * SW);
+  for (int i = threadIdx.x; i < C * 3 * SW; i += blockDim.x) {
+    if (ONE) {
+      wt[(i % (3 * C)) * C + i / (3 * C)] = rnd(wp[i], round);
+    } else {  // i = (slot unit r) * 3SW + o
+      const int r = i / (3 * SW), o = i % (3 * SW);
+      wt[(r / SW * 3 * SW + o) * SW + r % SW] = rnd(wp[i], round);
+    }
+  }
   __syncthreads();
   const long long NL = N * L;
   const size_t xstride = (size_t)D * 3 * C;
+  const float* ws = wt + (size_t)eo * SW;  // the slot's transposed W_hh
   float carry = 0.f;
   for (int s = 0; s < L; ++s) {
     const int t = d ? s : L - 1 - s;
     const long long row = n * L + t;
-    const float* kp = K + ((size_t)d * NL + row) * 5 * C + j;
+    const float* kp = K + ((size_t)d * NL + row) * 5 * C + u;
     float dh = 0.f, er = 0.f, ez = 0.f, en = 0.f;
     if (live) {
-      dh = carry + dg[(size_t)row * C + j];
+      dh = carry + dg[(size_t)row * C + u];
       er = dh * kp[0];
       ez = dh * kp[C];
       en = dh * kp[2 * C];
-      const size_t o = (size_t)row * xstride + d * 3 * C + j;
+      const size_t o = (size_t)row * xstride + d * 3 * C + eo + j;
       dxp[o] = er;
-      dxp[o + C] = ez;
-      dxp[o + 2 * C] = dh * kp[3 * C];
+      dxp[o + SW] = ez;
+      dxp[o + 2 * SW] = dh * kp[3 * C];
       dhp[o] = er;
-      dhp[o + C] = ez;
-      dhp[o + 2 * C] = en;
+      dhp[o + SW] = ez;
+      dhp[o + 2 * SW] = en;
     }
-    float* eb = es + (s & 1) * DS * 3 * C + sq * 3 * C;
+    float* eb = es + (s & 1) * DS * 3 * C + sq * 3 * C + eo;
     eb[j] = rnd(er, round);
-    eb[C + j] = rnd(ez, round);
-    eb[2 * C + j] = rnd(en, round);
+    eb[SW + j] = rnd(ez, round);
+    eb[2 * SW + j] = rnd(en, round);
     __syncthreads();
     float acc = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < C; ++k) {
-      acc = fmaf(eb[k], wt[k * C + j], acc);
-      acc = fmaf(eb[C + k], wt[(C + k) * C + j], acc);
-      acc = fmaf(eb[2 * C + k], wt[(2 * C + k) * C + j], acc);
+    for (int k = 0; k < SW; ++k) {
+      acc = fmaf(eb[k], ws[k * SW + j], acc);
+      acc = fmaf(eb[SW + k], ws[(SW + k) * SW + j], acc);
+      acc = fmaf(eb[2 * SW + k], ws[(2 * SW + k) * SW + j], acc);
     }
     if (live) carry = dh * kp[4 * C] + acc;
   }
 }
 
-// BPTT over `slots` slots (4 of 16 units or 1 of 64).
-inline cudaError_t launch_bptt(const float* K, const float* dg,
-                               const float* w_hh, float* dxp, float* dhp,
-                               long long N, int L, int D, int slots,
-                               int round, cudaStream_t st) {
-  if (gru_slot(slots) == 16) {
-    const long long bthreads = N * D * C;
-    bptt_kernel<<<(unsigned)((bthreads + 255) / 256), 256, 0, st>>>(
-        K, dg, w_hh, dxp, dhp, N, L, D, round);
-    return cudaGetLastError();
-  }
-  const size_t smem = bptt_dense_smem();
+template <int SW>
+cudaError_t launch_bptt_dense(const float* K, const float* dg,
+                              const float* w_hh, float* dxp, float* dhp,
+                              long long N, int L, int D, cudaStream_t st) {
+  const size_t smem = bptt_dense_smem<SW>();
   cudaError_t e = cudaFuncSetAttribute(
-      bptt_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bptt_dense_kernel<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  bptt_dense_kernel<<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D),
-                      DS * C, smem, st>>>(K, dg, w_hh, dxp, dhp, N, L, D,
-                                          round);
+  bptt_dense_kernel<SW><<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D),
+                          DS * C, smem, st>>>(K, dg, w_hh, dxp, dhp, N, L,
+                                              D, /*round=*/0);
   return cudaGetLastError();
 }
 
-// dn1[row, g*W + i] = sum_d sum_m round(dxp[row, d, g, m]) W_ih[d, g, i, m]
-// over slots of W units. One thread per (row, channel).
+// BPTT over `slots` slots (C / 16 of 16 units, one of C, or at C = 128 two
+// of 64).
+inline cudaError_t launch_bptt(const float* K, const float* dg,
+                               const float* w_hh, float* dxp, float* dhp,
+                               long long N, int L, int D, int slots,
+                               cudaStream_t st) {
+  if (gru_slot(slots) == 16) {
+    const long long bthreads = N * D * C;
+    bptt_kernel<<<(unsigned)((bthreads + 255) / 256), 256, 0, st>>>(
+        K, dg, w_hh, dxp, dhp, N, L, D);
+    return cudaGetLastError();
+  }
+#if LCT_C > 64
+  if (gru_slot(slots) == 64)
+    return launch_bptt_dense<64>(K, dg, w_hh, dxp, dhp, N, L, D, st);
+#endif
+  return launch_bptt_dense<C>(K, dg, w_hh, dxp, dhp, N, L, D, st);
+}
+
+// dn1[row, g*W + i] = sum_d sum_m dxp[row, d, g, m] W_ih[d, g, i, m] over
+// slots of W units. One thread per (row, channel).
 template <int W>
 __global__ void dn1_kernel(const float* __restrict__ dxp,
                            const float* __restrict__ w_ih,
-                           float* __restrict__ dn1, long long rows, int D,
-                           int round) {
+                           float* __restrict__ dn1, long long rows, int D) {
   constexpr int S = C / W;  // slots
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= rows * C) return;
@@ -771,8 +883,7 @@ __global__ void dn1_kernel(const float* __restrict__ dxp,
     const float* e = dxp + (size_t)row * D * 3 * C + d * 3 * C + g * 3 * W;
     const float* w = w_ih + ((size_t)(d * S + g) * W + i) * 3 * W;
 #pragma unroll 8
-    for (int m = 0; m < 3 * W; ++m)
-      acc = fmaf(rnd(e[m], round), rnd(__ldg(w + m), round), acc);
+    for (int m = 0; m < 3 * W; ++m) acc = fmaf(e[m], __ldg(w + m), acc);
   }
   dn1[(size_t)row * C + c] = acc;
 }
@@ -782,27 +893,28 @@ __global__ void dn1_kernel(const float* __restrict__ dxp,
 //   WG_DENSE    o = i * J + j                   -> (i, j)        A^T B
 //   WG_GROUPED  o = ((d*G + g)*H + i)*3H + m     -> (d*adir? + g*H + i,
 //                                                   d*3C + g*3H + m)
-//               (GRU slots of H = 16 units, G = 4 a direction; the one
-//               dense slot of 64 is WG_DENSE per direction)
+//               (GRU slots of H = 16 units, G = C / 16 a direction; a
+//               dense slot is WG_DENSE per direction and slot)
 //   WG_DIAG     o = c                           -> (c, c)        sum A*B
 //   WG_COLSUM   o = c                           -> (-, c)        sum B
 // Each block sums a fixed chunk of rows into its own partial row; no atomics.
-// A and B sub-tiles of WG_TR rows are staged in shared memory (at most 128
-// and 384 columns); each thread owns up to WG_MAXK outputs.
+// A and B sub-tiles of WG_TR rows are staged in shared memory (at most 2C
+// and 6C columns); each thread owns up to WG_MAXK outputs, so one launch
+// writes at most WG_OUT of them (Wgrad::dense splits a larger product).
 enum { WG_DENSE = 0, WG_GROUPED = 1, WG_DIAG = 2, WG_COLSUM = 3 };
 constexpr int WG_THREADS = 256;
-constexpr int WG_TR = 16;
-constexpr int WG_MAXK = 48;  // 256 * 48 = 12,288 = the largest (in_w) grad
+constexpr int WG_TR = C > 64 ? 8 : 16;  // the staged pair within 48 KB
+constexpr int WG_MAXK = 48;  // 256 * 48 = 12,288 = C = 64's largest (in_w) grad
+constexpr int WG_OUT = WG_THREADS * WG_MAXK;
 constexpr int WG_MAX_BLOCKS = 264;
 constexpr int WG_ACOLS = 2 * C;
 constexpr int WG_BCOLS = 6 * C;
 
 __global__ void __launch_bounds__(WG_THREADS)
     wgrad_kernel(const float* __restrict__ A, int lda, long long adir,
-                 int ra, const float* __restrict__ B, int ldb, int rb,
-                 int mode, int J, int nout, int acols, int bcols,
-                 long long rows, long long chunk_rows,
-                 float* __restrict__ partial) {
+                 const float* __restrict__ B, int ldb, int mode, int J,
+                 int nout, int acols, int bcols, long long rows,
+                 long long chunk_rows, float* __restrict__ partial) {
   __shared__ float As[WG_TR][WG_ACOLS];
   __shared__ float Bs[WG_TR][WG_BCOLS];
   const long long r0 = (long long)blockIdx.x * chunk_rows;
@@ -817,17 +929,15 @@ __global__ void __launch_bounds__(WG_THREADS)
       const int rr = i / acols, col = i % acols;
       const long long row = rt + rr;
       float v = 0.f;
-      if (row < r1) {
+      if (row < r1)
         v = adir ? A[(col / C) * adir + row * lda + col % C]
                  : A[row * lda + col];
-        v = rnd(v, ra);
-      }
       As[rr][col] = v;
     }
     for (int i = tid; i < WG_TR * bcols; i += WG_THREADS) {
       const int rr = i / bcols, col = i % bcols;
       const long long row = rt + rr;
-      Bs[rr][col] = row < r1 ? rnd(B[row * ldb + col], rb) : 0.f;
+      Bs[rr][col] = row < r1 ? B[row * ldb + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -883,23 +993,37 @@ struct Wgrad {
   cudaStream_t st;
 
   // A: nullptr for WG_COLSUM. adir: element offset between directions of A
-  // (WG_GROUPED with A = [D, rows, C]), else 0.
+  // (WG_GROUPED with A = [D, rows, C]), else 0. nout <= WG_OUT.
   cudaError_t operator()(int mode, const float* A, int lda, long long adir,
-                         int ra, const float* B, int ldb, int rb, int J,
-                         int nout, int acols, int bcols, float* out) const {
+                         const float* B, int ldb, int J, int nout, int acols,
+                         int bcols, float* out) const {
     long long nchunks = (rows + WG_TR - 1) / WG_TR;
     if (nchunks > WG_MAX_BLOCKS) nchunks = WG_MAX_BLOCKS;
     long long chunk = (rows + nchunks - 1) / nchunks;
     chunk = (chunk + WG_TR - 1) / WG_TR * WG_TR;
     const int nblocks = (int)((rows + chunk - 1) / chunk);
     wgrad_kernel<<<nblocks, WG_THREADS, 0, st>>>(
-        A, lda, adir, ra, B, ldb, rb, mode, J, nout, acols, bcols, rows,
-        chunk, partial);
+        A, lda, adir, B, ldb, mode, J, nout, acols, bcols, rows, chunk,
+        partial);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     reduce_kernel<<<(nout + 255) / 256, 256, 0, st>>>(partial, nblocks, nout,
                                                        out);
     return cudaGetLastError();
+  }
+
+  // WG_DENSE over A's `acols` columns and B's J: out [acols, J], in
+  // launches of whole rows of at most WG_OUT outputs (one at C = 64).
+  cudaError_t dense(const float* A, int lda, const float* B, int ldb, int J,
+                    int acols, float* out) const {
+    const int step = WG_OUT / J;
+    for (int i0 = 0; i0 < acols; i0 += step) {
+      const int n = acols - i0 < step ? acols - i0 : step;
+      cudaError_t e = (*this)(WG_DENSE, A + i0, lda, 0, B, ldb, J, n * J, n,
+                              J, out + (size_t)i0 * J);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
   }
 };
 
@@ -942,7 +1066,13 @@ constexpr int WG_BLOCKS = 528;        // cap of wgrad_tc_kernel's grid
 constexpr int WG_UNITS = 12;          // 16x16 output units per warp, at most
 constexpr int WG_LDA = C + 8, WG_LDB = 3 * C + 8;
 constexpr int WG_STAGE = 64 * (WG_LDA + WG_LDB);  // bf16 per staged tile pair
-constexpr int WG_MAXP = 8;
+// Products a wgrad_tc_kernel launch takes (C = 128 splits its larger
+// products into pieces of at most 4 WG_UNITS units).
+constexpr int WG_MAXP = C > 64 ? 32 : 8;
+// Column sums a thread of wgrad_tc_kernel takes (3C columns at most).
+constexpr int WG_CS = (3 * C + RT - 1) / RT;
+// log2 of the warps of a direction in bptt_tc_kernel (C / 16).
+constexpr int WPD_LOG2 = PIECES_LOG2 - 1;
 
 // A fragment of rows r0..r0+15, cols col..col+15 of a row-major bf16 array
 // in device memory; rows at or past `rows` read as zero.
@@ -971,9 +1101,10 @@ __device__ __forceinline__ void load_at(uint32_t a[4],
   ldsm_x4_t(a, base + ((mi >> 1) * 8 + rr) * ld + (mi & 1) * 8);
 }
 
-// The lane's f32 values of a 64-column row-major array at the C-fragment
-// positions of 8 n8 tiles: v[nt][r] = (row r0 + g + 8r, cols nt*8 + 2t, +1).
-__device__ __forceinline__ void ldg_c(float2 v[8][2],
+// The lane's f32 values of a C-column row-major array at the C-fragment
+// positions of C / 8 n8 tiles: v[nt][r] = (row r0 + g + 8r, cols nt*8 + 2t,
+// +1).
+__device__ __forceinline__ void ldg_c(float2 (&v)[C / 8][2],
                                       const float* __restrict__ p,
                                       long long r0, long long rows, int lane) {
   const int g = lane >> 2, t = lane & 3;
@@ -981,7 +1112,7 @@ __device__ __forceinline__ void ldg_c(float2 v[8][2],
   for (int r = 0; r < 2; ++r) {
     const long long row = r0 + g + 8 * r;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < C / 8; ++nt)
       v[nt][r] = row < rows ? __ldg(reinterpret_cast<const float2*>(
                                   p + (size_t)row * C + nt * 8 + 2 * t))
                             : make_float2(0.f, 0.f);
@@ -996,14 +1127,14 @@ __device__ __forceinline__ void st_pair(__nv_bfloat16* p, long long row,
     *reinterpret_cast<uint32_t*>(p + (size_t)row * ld + col) = v;
 }
 
-// Column sums of 64 columns held in C-fragment layout by the 4 warps of a
+// Column sums of C columns held in C-fragment layout by the 4 warps of a
 // block (cs[nt][e]: column nt*8 + 2t + e, summed over the lane's rows),
-// added in a fixed order (lanes, then warps) and written to out[0..63].
-__device__ __forceinline__ void block_colsum64(float (&cs)[8][2], float* red,
-                                               float* out) {
+// added in a fixed order (lanes, then warps) and written to out[0..C-1].
+__device__ __forceinline__ void block_colsum(float (&cs)[C / 8][2],
+                                             float* red, float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float v = cs[nt][e];
@@ -1029,33 +1160,44 @@ __device__ __forceinline__ void block_colsum64(float (&cs)[8][2], float* red,
 // ---------------------------------------------------------------------------
 // Combine layer backward on tensor cores, per 16 rows:
 //   a = bf16(ctx) @ bf16(out_w) + out_b        (stored rounded: dlin_w operand)
-//   comb = [bf16(g) @ bf16(lin_w[:64])] + bf16(a) @ bf16(lin_w[64 or 0:]) + lin_b
+//   comb = [bf16(g) @ bf16(lin_w[:C])] + bf16(a) @ bf16(lin_w[C or 0:]) + lin_b
 //   dcomb = dout * (comb >= 0 ? 1 : 0.2)       (stored rounded)
 //   dga = bf16(dcomb) @ bf16(lin_w)^T -> dg_lin (frequency block, f32), da
 //   dctx = bf16(da) @ bf16(out_w)^T            (stored rounded)
 // Column sums: dcomb (dlin_b), da (dout_b). lin_w and out_w serve both
 // directions from one staged copy: [k][n] loads forward, [n][k] backward.
+// At C = 128 the weights (104 KB as bf16) pass the 48 KB of static shared
+// memory: dynamic there.
 struct CombArgs {
-  const __nv_bfloat16* ctx;  // [rows, 64]
-  const __nv_bfloat16* gb;   // [rows, 64] bf16(g), lin_in == 128 only
-  const float* dout;         // [rows, 64]
+  const __nv_bfloat16* ctx;  // [rows, C]
+  const __nv_bfloat16* gb;   // [rows, C] bf16(g), lin_in == 2C only
+  const float* dout;         // [rows, C]
   const float* out_w;
   const float* out_b;
-  const float* lin_w;        // [lin_in, 64]
+  const float* lin_w;        // [lin_in, C]
   const float* lin_b;
   int lin_in;
-  __nv_bfloat16* ab;         // [rows, 64] out: bf16(a)
-  __nv_bfloat16* dcomb;      // [rows, 64] out
-  __nv_bfloat16* da;         // [rows, 64] out
-  __nv_bfloat16* dctx;       // [rows, 64] out
-  float* dglin;              // [rows, 64] out, lin_in == 128 only
-  float* part;               // [grid, 128] out: dlin_b, dout_b partials
+  __nv_bfloat16* ab;         // [rows, C] out: bf16(a)
+  __nv_bfloat16* dcomb;      // [rows, C] out
+  __nv_bfloat16* da;         // [rows, C] out
+  __nv_bfloat16* dctx;       // [rows, C] out
+  float* dglin;              // [rows, C] out, lin_in == 2C only
+  float* part;               // [grid, 2C] out: dlin_b, dout_b partials
   long long rows;
 };
 
+constexpr size_t COMB_SMEM =
+    LCT_C > 64 ? sizeof(__nv_bfloat16) * 3 * C * LDS : 0;
+
 __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
+#if LCT_C > 64
+  extern __shared__ __align__(16) unsigned char comb_smem[];
+  __nv_bfloat16* wo = reinterpret_cast<__nv_bfloat16*>(comb_smem);
+  __nv_bfloat16* wl = wo + C * LDS;
+#else
   __shared__ __align__(16) __nv_bfloat16 wo[C * LDS];
   __shared__ __align__(16) __nv_bfloat16 wl[2 * C * LDS];
+#endif
   __shared__ float red[4 * C];
   stage_weight(wo, LDS, a.out_w, C, C);
   stage_weight(wl, LDS, a.lin_w, a.lin_in, C);
@@ -1064,27 +1206,27 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
   const int g = lane >> 2, t = lane & 3;
   const bool freq = a.lin_in == 2 * C;
   const long long rows = a.rows;
-  float cs_dc[8][2] = {}, cs_da[8][2] = {};
+  float cs_dc[C / 8][2] = {}, cs_da[C / 8][2] = {};
   const long long tiles = (rows + 63) / 64;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long r0 = tile * 64 + warp * 16;
     if (r0 >= rows) continue;
-    uint32_t ca[4][4];
+    uint32_t ca[C / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldg_a(ca[kk], a.ctx, C, r0, rows, kk * 16, lane);
-    float acc[8][4] = {};
+    for (int kk = 0; kk < C / 16; ++kk) ldg_a(ca[kk], a.ctx, C, r0, rows, kk * 16, lane);
+    float acc[C / 8][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < C / 16; ++np) {
         uint32_t wf[4];
         load_b_kn(wf, wo + kk * 16 * LDS + np * 16, LDS, lane);
         mma(acc[2 * np], ca[kk], wf[0], wf[1]);
         mma(acc[2 * np + 1], ca[kk], wf[2], wf[3]);
       }
-    uint32_t aa[4][4];
+    uint32_t aa[C / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < C / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
 #pragma unroll
@@ -1095,17 +1237,17 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
         st_pair(a.ab, r0 + g + 8 * r, rows, C, col, v);
       }
     }
-    float cb[8][4] = {};
+    float cb[C / 8][4] = {};
     const __nv_bfloat16* wla = wl;
     if (freq) {
-      uint32_t gf[4][4];
+      uint32_t gf[C / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < C / 16; ++kk)
         ldg_a(gf[kk], a.gb, C, r0, rows, kk * 16, lane);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
+        for (int np = 0; np < C / 16; ++np) {
           uint32_t wf[4];
           load_b_kn(wf, wl + kk * 16 * LDS + np * 16, LDS, lane);
           mma(cb[2 * np], gf[kk], wf[0], wf[1]);
@@ -1114,18 +1256,18 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
       wla = wl + C * LDS;
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < C / 16; ++np) {
         uint32_t wf[4];
         load_b_kn(wf, wla + kk * 16 * LDS + np * 16, LDS, lane);
         mma(cb[2 * np], aa[kk], wf[0], wf[1]);
         mma(cb[2 * np + 1], aa[kk], wf[2], wf[3]);
       }
     // dcomb, rounded: the A fragments of dga.
-    uint32_t dc[4][4];
+    uint32_t dc[C / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < C / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       const float b0 = __ldg(a.lin_b + col), b1 = __ldg(a.lin_b + col + 1);
 #pragma unroll
@@ -1145,20 +1287,20 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
       }
     }
     // dga = dcomb @ lin_w^T: B(k = j, n = m) = lin_w[m][j], a [n][k] load.
-    // Frequency block: columns 0..63 are dg_lin, 64..127 da.
+    // Frequency block: columns 0..C-1 are dg_lin, C..2C-1 da.
     if (freq) {
-      float gl[8][4] = {};
+      float gl[C / 8][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
+        for (int np = 0; np < C / 16; ++np) {
           uint32_t wf[4];
           load_b_nk(wf, wl + np * 16 * LDS + kk * 16, LDS, lane);
           mma(gl[2 * np], dc[kk], wf[0], wf[1]);
           mma(gl[2 * np + 1], dc[kk], wf[2], wf[3]);
         }
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const long long row = r0 + g + 8 * r;
@@ -1169,19 +1311,19 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
         }
     }
     const __nv_bfloat16* wld = freq ? wl + C * LDS : wl;
-    float dd[8][4] = {};
+    float dd[C / 8][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < C / 16; ++np) {
         uint32_t wf[4];
         load_b_nk(wf, wld + np * 16 * LDS + kk * 16, LDS, lane);
         mma(dd[2 * np], dc[kk], wf[0], wf[1]);
         mma(dd[2 * np + 1], dc[kk], wf[2], wf[3]);
       }
-    uint32_t dr[4][4];
+    uint32_t dr[C / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         cs_da[nt][0] += dd[nt][2 * r];
@@ -1191,31 +1333,31 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
         st_pair(a.da, r0 + g + 8 * r, rows, C, nt * 8 + 2 * t, v);
       }
     // dctx = da @ out_w^T: B(k = c', n = c) = out_w[c][c'].
-    float dx[8][4] = {};
+    float dx[C / 8][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < C / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < C / 16; ++np) {
         uint32_t wf[4];
         load_b_nk(wf, wo + np * 16 * LDS + kk * 16, LDS, lane);
         mma(dx[2 * np], dr[kk], wf[0], wf[1]);
         mma(dx[2 * np + 1], dr[kk], wf[2], wf[3]);
       }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         st_pair(a.dctx, r0 + g + 8 * r, rows, C, nt * 8 + 2 * t,
                 pack_bf16(dx[nt][2 * r], dx[nt][2 * r + 1]));
   }
   float* out = a.part + (size_t)blockIdx.x * 2 * C;
-  block_colsum64(cs_dc, red, out);
-  block_colsum64(cs_da, red, out + C);
+  block_colsum(cs_dc, red, out);
+  block_colsum(cs_da, red, out + C);
 }
 
 // ---------------------------------------------------------------------------
 // The qkv projection and LN2 backward, per 16 rows:
-//   dn2 = dqkv @ bf16(in_w)^T                   (12 k-steps of 16)
+//   dn2 = dqkv @ bf16(in_w)^T                   (3C / 16 k-steps of 16)
 //   xh2 = (s - mu) rstd from s = x + g          (LN2 recomputed, f32)
 //   ds = dout + rstd (dxh - mean(dxh) - xh2 mean(dxh xh2)),  dxh = dn2 ln2_s
 // Writes ds (f32), bf16(n2) = bf16(xh2 ln2_s + ln2_b), the din_w operand,
@@ -1223,53 +1365,55 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
 // it costs the recurrence nothing). Column sums: dn2 xh2 (dln2_s), dn2
 // (dln2_b).
 struct Dn2Args {
-  const __nv_bfloat16* dqkv;  // [rows, 192]
-  const float* s;             // [rows, 64]
+  const __nv_bfloat16* dqkv;  // [rows, 3C]
+  const float* s;             // [rows, C]
   const float* dout;
   const float* x;
-  const float* in_w;          // [64, 192]
+  const float* in_w;          // [C, 3C]
   const float* ln_s;
   const float* ln_b;
   const float* ln1_s;
   const float* ln1_b;
-  __nv_bfloat16* n2;          // [rows, 64] out
-  __nv_bfloat16* n1;          // [rows, 64] out
-  float* ds;                  // [rows, 64] out
-  float* part;                // [grid, 128] out: dln2_s, dln2_b partials
+  __nv_bfloat16* n2;          // [rows, C] out
+  __nv_bfloat16* n1;          // [rows, C] out
+  float* ds;                  // [rows, C] out
+  float* part;                // [grid, 2C] out: dln2_s, dln2_b partials
   long long rows;
 };
 
 // LayerNorm statistics of the two rows a lane holds (C-fragment layout),
-// proj_kernel's fast-variance arithmetic: max(E[x^2] - mu^2, 0), eps 1e-6.
-__device__ __forceinline__ void ln_stats(float2 (&v)[8][2], float mu[2],
+// proj_kernel's fast-variance arithmetic: max(E[x^2] - mu^2, 0), eps 1e-6,
+// over the C_MODEL true channels (a padded one holds 0).
+__device__ __forceinline__ void ln_stats(float2 (&v)[C / 8][2], float mu[2],
                                          float rs[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float s = 0.f, q = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < C / 8; ++nt) {
       s += v[nt][r].x + v[nt][r].y;
       q += v[nt][r].x * v[nt][r].x + v[nt][r].y * v[nt][r].y;
     }
-    mu[r] = quad_sum(s) * (1.f / C);
-    const float ms = quad_sum(q) * (1.f / C);
+    mu[r] = quad_sum(s) * (1.f / C_MODEL);
+    const float ms = quad_sum(q) * (1.f / C_MODEL);
     rs[r] = rsqrtf(fmaxf(ms - mu[r] * mu[r], 0.f) + 1e-6f);
   }
 }
 
 // LayerNorm backward of the lane's two rows: returns in d the values
-// rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dy * scale, and adds
+// rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dy * scale, the means
+// over the C_MODEL true channels (a padded channel's scale is 0), and adds
 // dy * xh, dy to the column sums.
-__device__ __forceinline__ void ln_bwd_rows(float (&dy)[8][4],
-                                            float2 (&v)[8][2],
+__device__ __forceinline__ void ln_bwd_rows(float (&dy)[C / 8][4],
+                                            float2 (&v)[C / 8][2],
                                             const float mu[2],
                                             const float rs[2],
                                             const float* __restrict__ scale,
-                                            float (&cs_s)[8][2],
-                                            float (&cs_b)[8][2], int t) {
+                                            float (&cs_s)[C / 8][2],
+                                            float (&cs_b)[C / 8][2], int t) {
   float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < C / 8; ++nt) {
     const int col = nt * 8 + 2 * t;
     const float s0 = __ldg(scale + col), s1 = __ldg(scale + col + 1);
 #pragma unroll
@@ -1287,11 +1431,11 @@ __device__ __forceinline__ void ln_bwd_rows(float (&dy)[8][4],
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    m1[r] = quad_sum(m1[r]) * (1.f / C);
-    m2[r] = quad_sum(m2[r]) * (1.f / C);
+    m1[r] = quad_sum(m1[r]) * (1.f / C_MODEL);
+    m2[r] = quad_sum(m2[r]) * (1.f / C_MODEL);
   }
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < C / 8; ++nt) {
     const int col = nt * 8 + 2 * t;
     const float s0 = __ldg(scale + col), s1 = __ldg(scale + col + 1);
 #pragma unroll
@@ -1305,41 +1449,50 @@ __device__ __forceinline__ void ln_bwd_rows(float (&dy)[8][4],
   }
 }
 
+constexpr size_t DN2_SMEM = LCT_C > 64 ? sizeof(__nv_bfloat16) * C * LDW : 0;
+
 __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
+#if LCT_C > 64
+  extern __shared__ __align__(16) unsigned char dn2_smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(dn2_smem);
+#else
   __shared__ __align__(16) __nv_bfloat16 ws[C * LDW];
+#endif
   __shared__ float red[4 * C];
   stage_weight(ws, LDW, a.in_w, C, 3 * C);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const long long rows = a.rows;
-  float cs_s[8][2] = {}, cs_b[8][2] = {};
+  float cs_s[C / 8][2] = {}, cs_b[C / 8][2] = {};
   const long long tiles = (rows + 63) / 64;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long r0 = tile * 64 + warp * 16;
     if (r0 >= rows) continue;
-    float acc[8][4] = {};
+    float acc[C / 8][4] = {};
 #pragma unroll 4
-    for (int kk = 0; kk < 12; ++kk) {
+    for (int kk = 0; kk < 3 * C / 16; ++kk) {
       uint32_t af[4];
       ldg_a(af, a.dqkv, 3 * C, r0, rows, kk * 16, lane);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < C / 16; ++np) {
         uint32_t wf[4];
         load_b_nk(wf, ws + np * 16 * LDW + kk * 16, LDW, lane);
         mma(acc[2 * np], af, wf[0], wf[1]);
         mma(acc[2 * np + 1], af, wf[2], wf[3]);
       }
     }
-    float2 sv[8][2];
+    float2 sv[C / 8][2];
     ldg_c(sv, a.s, r0, rows, lane);
     float mu[2], rs[2];
     ln_stats(sv, mu, rs);
     ln_bwd_rows(acc, sv, mu, rs, a.ln_s, cs_s, cs_b, t);
-    float2 dv[8][2];
+#if LCT_C == 64
+    float2 dv[C / 8][2];
     ldg_c(dv, a.dout, r0, rows, lane);
+#endif
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < C / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       const float s0 = __ldg(a.ln_s + col), s1 = __ldg(a.ln_s + col + 1);
       const float b0 = __ldg(a.ln_b + col), b1 = __ldg(a.ln_b + col + 1);
@@ -1347,9 +1500,15 @@ __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
       for (int r = 0; r < 2; ++r) {
         const long long row = r0 + g + 8 * r;
         if (row >= rows) continue;
+#if LCT_C == 64
+        const float2 d2 = dv[nt][r];
+#else
+        // Loaded where it is used: C / 8 float2 pairs fewer live registers.
+        const float2 d2 = __ldg(
+            reinterpret_cast<const float2*>(a.dout + (size_t)row * C + col));
+#endif
         *reinterpret_cast<float2*>(a.ds + (size_t)row * C + col) =
-            make_float2(dv[nt][r].x + acc[nt][2 * r],
-                        dv[nt][r].y + acc[nt][2 * r + 1]);
+            make_float2(d2.x + acc[nt][2 * r], d2.y + acc[nt][2 * r + 1]);
         const float x0 = (sv[nt][r].x - mu[r]) * rs[r];
         const float x1 = (sv[nt][r].y - mu[r]) * rs[r];
         *reinterpret_cast<uint32_t*>(a.n2 + (size_t)row * C + col) =
@@ -1359,7 +1518,7 @@ __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
     ldg_c(sv, a.x, r0, rows, lane);
     ln_stats(sv, mu, rs);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < C / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
       const float s0 = __ldg(a.ln1_s + col), s1 = __ldg(a.ln1_s + col + 1);
       const float b0 = __ldg(a.ln1_b + col), b1 = __ldg(a.ln1_b + col + 1);
@@ -1371,26 +1530,28 @@ __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
     }
   }
   float* out = a.part + (size_t)blockIdx.x * 2 * C;
-  block_colsum64(cs_s, red, out);
-  block_colsum64(cs_b, red, out + C);
+  block_colsum(cs_s, red, out);
+  block_colsum(cs_b, red, out + C);
 }
 
 // ---------------------------------------------------------------------------
 // The input projection and LN1 backward, per 16 rows, over GRU slots of W
-// = 16 KS units (KS = 1: 4 slots of 16; KS = 4: one dense slot of 64):
+// = 16 KS units (KS = 1: C / 16 slots of 16; else dense slots of W: one of
+// C, or at C = 128 two of 64 (KS = 4) or one of 128 (KS = 8)):
 //   dn1[:, g*W + i] = sum_d bf16(dxp[:, d, g, :]) @ bf16(W_ih[d, g])^T
 //   dx = ds + rstd (dxh - mean(dxh) - xh1 mean(dxh xh1)), dxh = dn1 ln1_s
 // LN1 recomputed from x. Column sums: dn1 xh1 (dln1_s), dn1 (dln1_b).
-// W_ih is staged as bf16 [D*64][3W + 8]: static shared memory for KS = 1
-// (14 KB), dynamic for KS = 4 (51 KB; dn1_smem).
+// W_ih is staged as bf16 [D*C][3W + 8]: static shared memory for KS = 1
+// (14 KB at C = 64), dynamic for dense slots (51 KB at C = 64, up to 196
+// KB at KS = 8; dn1_smem).
 struct Dn1Args {
-  const __nv_bfloat16* dxp;  // [rows, D*192]
+  const __nv_bfloat16* dxp;  // [rows, D*3C]
   const float* x;
   const float* ds;
-  const float* w_ih;         // slots [D, 64/W, W, 3W]
+  const float* w_ih;         // slots [D, C/W, W, 3W]
   const float* ln_s;
-  float* dx;                 // [rows, 64] out
-  float* part;               // [grid, 128] out: dln1_s, dln1_b partials
+  float* dx;                 // [rows, C] out
+  float* part;               // [grid, 2C] out: dln1_s, dln1_b partials
   long long rows;
   int D;
 };
@@ -1421,14 +1582,14 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const long long rows = a.rows;
-  float cs_s[8][2] = {}, cs_b[8][2] = {};
+  float cs_s[C / 8][2] = {}, cs_b[C / 8][2] = {};
   const long long tiles = (rows + 63) / 64;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long r0 = tile * 64 + warp * 16;
     if (r0 >= rows) continue;
     // n tile 2 (slot KS + np) + jh holds columns slot*W + np*16 + 8 jh ..
     // (dn1's layout).
-    float acc[8][4] = {};
+    float acc[C / 8][4] = {};
     for (int d = 0; d < D; ++d)
 #pragma unroll
       for (int sl = 0; sl < S; ++sl)
@@ -1447,35 +1608,49 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
             mma(acc[2 * (sl * KS + np) + 1], af, wf[2], wf[3]);
           }
         }
-    float2 xv[8][2];
+    float2 xv[C / 8][2];
     ldg_c(xv, a.x, r0, rows, lane);
     float mu[2], rs[2];
     ln_stats(xv, mu, rs);
     ln_bwd_rows(acc, xv, mu, rs, a.ln_s, cs_s, cs_b, t);
-    float2 dv[8][2];
+#if LCT_C == 64
+    float2 dv[C / 8][2];
     ldg_c(dv, a.ds, r0, rows, lane);
+#endif
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const long long row = r0 + g + 8 * r;
+#if LCT_C == 64
         if (row < rows)
           *reinterpret_cast<float2*>(a.dx + (size_t)row * C + nt * 8 + 2 * t) =
               make_float2(dv[nt][r].x + acc[nt][2 * r],
                           dv[nt][r].y + acc[nt][2 * r + 1]);
+#else
+        // ds loaded where it is used, as in dn2_tc_kernel.
+        if (row < rows) {
+          float2* o = reinterpret_cast<float2*>(a.dx + (size_t)row * C +
+                                                nt * 8 + 2 * t);
+          const float2 d2 = __ldg(reinterpret_cast<const float2*>(
+              a.ds + (size_t)row * C + nt * 8 + 2 * t));
+          *o = make_float2(d2.x + acc[nt][2 * r], d2.y + acc[nt][2 * r + 1]);
+        }
+#endif
       }
   }
   float* out = a.part + (size_t)blockIdx.x * 2 * C;
-  block_colsum64(cs_s, red, out);
-  block_colsum64(cs_b, red, out + C);
+  block_colsum(cs_s, red, out);
+  block_colsum(cs_b, red, out + C);
 }
 
 // ---------------------------------------------------------------------------
 // The GRU backward on tensor cores: the input and hidden projections, the
-// gate factors and BPTT in one pass. A block takes 16 sequences; warp w
-// runs direction w / 4 and the 16 units 16 (w % 4) .. over them, walking
-// the steps in the order opposite to the forward's (descending for
-// direction 0). KS = 1: slots of 16 units, warp w's units are slot w % 4.
+// gate factors and BPTT in one pass. A block takes 16 sequences; with P =
+// C / 16 warps a direction, warp w runs direction w / P and the 16 units
+// 16 (w % P) .. over them, walking the steps in the order opposite to the
+// forward's (descending for direction 0). KS = 1: slots of 16 units, warp
+// w's units are slot w % P.
 // Per step, with the 16 sequences as the M rows of one m16n8k16 tile:
 //   xp, hp   bf16(n1_t) @ bf16(W_ih), bf16(h_prev) @ bf16(W_hh)  12 products
 //            (h_prev: the saved hidden one step back in the forward's order,
@@ -1490,31 +1665,33 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
 // (the n1 A fragment, bf16, written by dn2_tc_kernel; h_prev and dg at the
 // C-fragment positions), and the next step's loads are issued before this
 // step's arithmetic.
-// KS = 4: one dense slot of 64 units (gru_tc_kernel<4>'s layout,
-// GruFragsDense): the projections take the slot's 64 inputs as 4 k-steps
-// (24 + 24 products a step, h_prev's A fragments of all 64 units read from
-// the saved hiddens), and the carry needs every unit's dhp: the four warps
-// of a direction trade their units' bf16 dhp through shared memory, one
-// block barrier a step (double-buffered), and take W_hh^T's B fragments
-// from a bf16 copy staged there (24 products a step). The weights' 96
+// KS > 1: dense slots of W = 16 KS units (gru_tc_kernel<KS>'s layout,
+// GruFragsDense; one slot of C <= 64, or at C = 128 two of 64): the
+// projections take the slot's W inputs as KS k-steps (6 KS + 6 KS products
+// a step, h_prev's A fragments of the slot's units read from the saved
+// hiddens), and the carry needs every unit's dhp of the slot: the warps of
+// a direction trade their units' bf16 dhp through shared memory, one block
+// barrier a step (double-buffered), and take W_hh^T's B fragments from a
+// bf16 copy staged there (6 KS products a step). At KS = 4 the weights' 96
 // fragment registers leave no room to load a step ahead: its loads are
-// issued at the step's start.
+// issued at the step's start; at C = 128 a block then takes one direction
+// (blockIdx.y), as ftf.cu's gru_tc_kernel does.
 // Writes bf16(h_prev), and bf16 dxp and dhp for the weight and input
 // gradients; db_ih and db_hh are the column sums of the unrounded dxp and
 // dhp, one partial row per block.
 struct BpttArgs {
-  const __nv_bfloat16* n1;  // [N*L, 64] bf16(LN1(x))
-  const float* w_ih;   // slots [D, 64/W, W, 3W]
+  const __nv_bfloat16* n1;  // [N*L, C] bf16(LN1(x))
+  const float* w_ih;   // slots [D, C/W, W, 3W]
   const float* w_hh;
-  const float* b_ih;   // [D, 64/W, 3W]
+  const float* b_ih;   // [D, C/W, 3W]
   const float* b_hh;
-  const float* hid;    // [D, N*L, 64]
-  const float* ds;     // [N*L, 64]
-  const float* dglin;  // [N*L, 64] or null
-  __nv_bfloat16* hprev;  // [D, N*L, 64] out
-  __nv_bfloat16* dxp;    // [N*L, D*192] out
-  __nv_bfloat16* dhp;    // [N*L, D*192] out
-  float* part;           // [grid, 2*D*192] out: db_ih, db_hh partials
+  const float* hid;    // [D, N*L, C]
+  const float* ds;     // [N*L, C]
+  const float* dglin;  // [N*L, C] or null
+  __nv_bfloat16* hprev;  // [D, N*L, C] out
+  __nv_bfloat16* dxp;    // [N*L, D*3C] out
+  __nv_bfloat16* dhp;    // [N*L, D*3C] out
+  float* part;           // [grid, 2*D*3C] out: db_ih, db_hh partials
   long long N;
   int L;
   int D;
@@ -1523,7 +1700,7 @@ struct BpttArgs {
 // One step's inputs for one warp: the n1 A fragments, h_prev and dg in
 // the C-fragment layout [jh][e] (sequence g + 8 (e >> 1), unit 8 jh + 2t +
 // (e & 1) of the warp's 16), and for KS > 1 h_prev's A fragments over the
-// slot's 64 units.
+// slot's W units.
 template <int KS>
 struct StepIn {
   uint32_t ax[KS][4];
@@ -1532,29 +1709,49 @@ struct StepIn {
   uint32_t ha[KS > 1 ? KS : 1][4];
 };
 
-// Shared memory of bptt_tc_kernel<4>: W_hh bf16 [D][64][LDW] and the dhp
-// exchange [2][D][GS][LDW].
-inline size_t bptt_tc_smem(int D) {
-  return (size_t)D * (C + 2 * GS) * LDW * sizeof(__nv_bfloat16);
+// Shared memory of bptt_tc_kernel<KS > 1>: W_hh bf16 [Db][C][LDW] (rows:
+// the slots' units, columns gate * W + input unit) and the dhp exchange
+// [2][Db][GS][LDW] (columns slot * 3W + gate * W + unit), Db the directions
+// a block takes.
+inline size_t bptt_tc_smem(int Db) {
+  return (size_t)Db * (C + 2 * GS) * LDW * sizeof(__nv_bfloat16);
+}
+
+// Whether bptt_tc_kernel<KS> takes one direction a block (dense slots at
+// C = 128: 8 warps of 96 fragment registers each) rather than all of them.
+__host__ __device__ constexpr bool bptt_split(int KS) {
+  return C > 64 && KS > 1;
+}
+__host__ __device__ constexpr int bptt_threads(int KS) {
+  return (bptt_split(KS) ? 1 : 2) * (C / 16) * 32;
 }
 
 template <int KS>
-__global__ void __launch_bounds__(256, KS == 1 ? 2 : 1)
+__global__ void __launch_bounds__(bptt_threads(KS),
+                                  KS == 1 && C <= 64 ? 2 : 1)
     bptt_tc_kernel(BpttArgs a) {
-  constexpr int W = 16 * KS;  // slot width
+  constexpr bool SPLIT = bptt_split(KS);
+  constexpr int W = 16 * KS;       // slot width
+  constexpr int SLOTS = C / W;     // KS > 1: dense slots a direction
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int d = warp >> 2, grp = warp & 3;  // grp: the warp's 16 units
+  // grp: the warp's 16 units; d its direction, dl that within the block
+  const int d = SPLIT ? (int)blockIdx.y : warp >> WPD_LOG2;
+  const int grp = warp & ((1 << WPD_LOG2) - 1), dl = SPLIT ? 0 : d;
   const int L = a.L, D = a.D;
+  const int Db = SPLIT ? 1 : D;  // directions in the block
   const long long n0 = (long long)blockIdx.x * GS;
   const size_t NL = (size_t)a.N * L;
+  // KS > 1: the first unit of the warp's slot, its 16 units' place in it.
+  const int slot0 = SLOTS == 1 ? 0 : (grp / KS) * W;
+  const int u16 = 16 * (SLOTS == 1 ? grp : grp % KS);
   // The warp's units: channels 16 grp .., in the gate-major slot layout at
-  // column slot * 3W + gate * W + u0 of a direction's 3C.
-  const int scol = KS == 1 ? grp * 3 * W : 16 * grp;
+  // column slot * 3W + gate * W + u of a direction's 3C.
+  const int scol = KS == 1 ? grp * 3 * W : slot0 * 3 + u16;
 
   typename GruFragsOf<KS>::type f;
   uint32_t bt[3][2][2];  // KS = 1: W_hh^T's B fragments for the carry
-  __nv_bfloat16* whs = nullptr;  // KS = 4: W_hh staged, then the exchange
+  __nv_bfloat16* whs = nullptr;  // KS > 1: W_hh staged, then the exchange
   __nv_bfloat16* ex = nullptr;
   if constexpr (KS == 1) {
     const int dg = d * (C / 16) + grp;
@@ -1573,9 +1770,12 @@ __global__ void __launch_bounds__(256, KS == 1 ? 2 : 1)
   } else {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     whs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    ex = whs + (size_t)D * C * LDW;
-    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh, d, grp, lane);
-    stage_weight(whs, LDW, a.w_hh, D * C, 3 * C);
+    ex = whs + (size_t)Db * C * LDW;
+    load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh,
+                   SLOTS == 1 ? d : d * SLOTS + grp / KS,
+                   SLOTS == 1 ? grp : grp % KS, lane);
+    stage_weight(whs, LDW, a.w_hh + (SPLIT ? (size_t)d * C * 3 * W : 0),
+                 Db * C, 3 * W);
     __syncthreads();
   }
   const auto& bi = f.bi;
@@ -1597,7 +1797,7 @@ __global__ void __launch_bounds__(256, KS == 1 ? 2 : 1)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         const unsigned* pa = reinterpret_cast<const unsigned*>(
-            a.n1 + row * C + (KS == 1 ? grp * 16 : kk * 16) + 2 * t);
+            a.n1 + row * C + (KS == 1 ? grp * 16 : slot0 + kk * 16) + 2 * t);
         in.ax[kk][rr] = ok ? __ldg(pa) : 0u;
         in.ax[kk][2 + rr] = ok ? __ldg(pa + 4) : 0u;
       }
@@ -1629,7 +1829,7 @@ __global__ void __launch_bounds__(256, KS == 1 ? 2 : 1)
             float2 h = make_float2(0.f, 0.f);
             if (ok && hasp)
               h = __ldg(reinterpret_cast<const float2*>(
-                  hrow + kk * 16 + 8 * jh + 2 * t));
+                  hrow + slot0 + kk * 16 + 8 * jh + 2 * t));
             in.ha[kk][2 * jh + rr] = pack_bf16(h.x, h.y);
           }
       }
@@ -1726,29 +1926,31 @@ __global__ void __launch_bounds__(256, KS == 1 ? 2 : 1)
       }
     } else {
       // This warp's units' dhp into the step's buffer (row: sequence,
-      // column gate * 64 + unit), then all 64 units' as A fragments.
-      __nv_bfloat16* hb = ex + ((size_t)(s & 1) * D + d) * GS * LDW;
+      // column slot * 3W + gate * W + unit), then all the slot's W units'
+      // as A fragments.
+      __nv_bfloat16* hb = ex + ((size_t)(s & 1) * Db + dl) * GS * LDW;
 #pragma unroll
       for (int jh = 0; jh < 2; ++jh)
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const int i = 2 * jh + rr;
           uint32_t* dst = reinterpret_cast<uint32_t*>(
-              hb + (g + 8 * rr) * LDW + 16 * grp + 8 * jh + 2 * t);
+              hb + (g + 8 * rr) * LDW + scol + 8 * jh + 2 * t);
           dst[0] = pr[i];
-          dst[C / 2] = pz[i];
-          dst[C] = pn[i];
+          dst[W / 2] = pz[i];
+          dst[W] = pn[i];
         }
       __syncthreads();
-      const __nv_bfloat16* wd = whs + (size_t)(d * C + 16 * grp) * LDW;
+      const __nv_bfloat16* wd = whs + (size_t)(dl * C + 16 * grp) * LDW;
+      const __nv_bfloat16* hs = hb + slot0 * 3;
 #pragma unroll
       for (int q = 0; q < 3; ++q)
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           uint32_t af[4], wf[4];
-          load_a(af, hb + q * C + kk * 16, LDW, lane);
-          // B(k = o, n = j) = W_hh[j][q*64 + o], a [n][k] load.
-          load_b_nk(wf, wd + q * C + kk * 16, LDW, lane);
+          load_a(af, hs + q * W + kk * 16, LDW, lane);
+          // B(k = o, n = j) = W_hh[slot][j][q*W + o], a [n][k] load.
+          load_b_nk(wf, wd + q * W + kk * 16, LDW, lane);
           mma(carry[0], af, wf[0], wf[1]);
           mma(carry[1], af, wf[2], wf[3]);
         }
@@ -1803,13 +2005,156 @@ __global__ void __launch_bounds__(256, KS == 1 ? 2 : 1)
 
 template <int KS>
 cudaError_t launch_bptt_tc(const BpttArgs& a, cudaStream_t st) {
-  const size_t smem = KS == 1 ? 0 : bptt_tc_smem(a.D);
+  constexpr bool SPLIT = bptt_split(KS);
+  const int Db = SPLIT ? 1 : a.D;
+  const size_t smem = KS == 1 ? 0 : bptt_tc_smem(Db);
   cudaError_t e = allow_smem(bptt_tc_kernel<KS>, smem);
   if (e != cudaSuccess) return e;
-  bptt_tc_kernel<KS><<<(unsigned)((a.N + GS - 1) / GS), a.D * 4 * 32, smem,
-                       st>>>(a);
+  bptt_tc_kernel<KS><<<dim3((unsigned)((a.N + GS - 1) / GS),
+                            SPLIT ? (unsigned)a.D : 1u),
+                       Db * (C / 16) * 32, smem, st>>>(a);
   return cudaGetLastError();
 }
+
+#if LCT_C > 64
+// bf16 mode, one dense GRU slot of C = 128 units (a group of 128, or of 96
+// padded) on CUDA cores: on tensor cores a warp would hold 192 fragment
+// registers (ftf.cu runs this slot's forward on CUDA cores too).
+// bptt_tc_kernel's function, outputs and rounding points: a block takes
+// one direction and DS sequences, a thread one (sequence, unit j), walking
+// the steps as bptt_tc_kernel does. W_ih and W_hh, rounded to bf16, sit in
+// shared memory as [C][SIMT_LD] (an odd word stride: the carry's reads of
+// W_hh's row j by consecutive j fall in distinct banks); each step the
+// block's bf16(n1_t) and bf16(h_prev) rows, then its bf16(dhp), are traded
+// through shared memory, two barriers a step. Per step and thread: 3 x 128
+// products each for xp, hp and the carry, summed in the f32 order of
+// proj_kernel and gate_kernel. Bound: latency (a sequential walk).
+constexpr int SIMT_LD = 3 * C + 2;
+
+inline size_t bptt_simt_smem() {
+  return (size_t)2 * C * SIMT_LD * sizeof(__nv_bfloat16) +
+         (size_t)DS * 5 * C * sizeof(float);
+}
+
+__global__ void __launch_bounds__(DS * C) bptt_simt_kernel(BpttArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* wis = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* whs = wis + C * SIMT_LD;
+  float* xs = reinterpret_cast<float*>(whs + C * SIMT_LD);  // [DS][C] n1
+  float* hs = xs + DS * C;                                  // [DS][C] h_prev
+  float* es = hs + DS * C;                                  // [DS][3C] dhp
+  const int d = blockIdx.y, j = threadIdx.x % C, sq = threadIdx.x / C;
+  const long long n = (long long)blockIdx.x * DS + sq;
+  const bool live = n < a.N;
+  const int L = a.L, D = a.D;
+  const size_t NL = (size_t)a.N * L, ldx = (size_t)D * 3 * C;
+  stage_weight(wis, SIMT_LD, a.w_ih + (size_t)d * C * 3 * C, C, 3 * C);
+  stage_weight(whs, SIMT_LD, a.w_hh + (size_t)d * C * 3 * C, C, 3 * C);
+  const float* bi = a.b_ih + d * 3 * C;
+  const float* bh = a.b_hh + d * 3 * C;
+  const float bir = bi[j], biz = bi[C + j], bin = bi[2 * C + j];
+  const float bhr = bh[j], bhz = bh[C + j], bhn = bh[2 * C + j];
+  float* xr = xs + sq * C;
+  float* hr = hs + sq * C;
+  float* er_s = es + sq * 3 * C;
+  float carry = 0.f, sr = 0.f, sz = 0.f, sxn = 0.f, shn = 0.f;
+  for (int s = 0; s < L; ++s) {
+    const int tt = d ? s : L - 1 - s;
+    const bool hasp = d ? tt < L - 1 : tt > 0;
+    const size_t row = (size_t)(live ? n : 0) * L + tt;
+    const size_t prow = (size_t)(live ? n : 0) * L + (d ? tt + 1 : tt - 1);
+    float hp = 0.f, dg = 0.f;
+    if (live) {
+      xr[j] = __bfloat162float(a.n1[row * C + j]);
+      if (hasp) hp = a.hid[((size_t)d * NL + prow) * C + j];
+      dg = a.ds[row * C + j];
+      if (a.dglin) dg += a.dglin[row * C + j];
+    } else {
+      xr[j] = 0.f;
+    }
+    hr[j] = rnd(hp, 1);
+    __syncthreads();
+    float xa = 0.f, xz = 0.f, xn = 0.f, ha = 0.f, hz = 0.f, hn = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < C; ++i) {
+      const float xi = xr[i], hi = hr[i];
+      const __nv_bfloat16* wi = wis + i * SIMT_LD + j;
+      const __nv_bfloat16* wh = whs + i * SIMT_LD + j;
+      xa = fmaf(xi, __bfloat162float(wi[0]), xa);
+      xz = fmaf(xi, __bfloat162float(wi[C]), xz);
+      xn = fmaf(xi, __bfloat162float(wi[2 * C]), xn);
+      ha = fmaf(hi, __bfloat162float(wh[0]), ha);
+      hz = fmaf(hi, __bfloat162float(wh[C]), hz);
+      hn = fmaf(hi, __bfloat162float(wh[2 * C]), hn);
+    }
+    const float r = sigmoidf_((xa + bir) + (ha + bhr));
+    const float z = sigmoidf_((xz + biz) + (hz + bhz));
+    const float hpn = hn + bhn;
+    const float nn = tanhf((xn + bin) + r * hpn);
+    const float P = (1.f - z) * (1.f - nn * nn);
+    const float dh = carry + dg;
+    const float er = dh * (P * hpn * r * (1.f - r));
+    const float ez = dh * ((hp - nn) * z * (1.f - z));
+    const float en = dh * (P * r);
+    const float ex = dh * P;
+    if (live) {
+      sr += er;
+      sz += ez;
+      sxn += ex;
+      shn += en;
+      a.hprev[((size_t)d * NL + row) * C + j] = __float2bfloat16_rn(hp);
+      const size_t o = row * ldx + d * 3 * C + j;
+      a.dhp[o] = __float2bfloat16_rn(er);
+      a.dhp[o + C] = __float2bfloat16_rn(ez);
+      a.dhp[o + 2 * C] = __float2bfloat16_rn(en);
+      a.dxp[o] = __float2bfloat16_rn(er);
+      a.dxp[o + C] = __float2bfloat16_rn(ez);
+      a.dxp[o + 2 * C] = __float2bfloat16_rn(ex);
+    }
+    er_s[j] = rnd(er, 1);
+    er_s[C + j] = rnd(ez, 1);
+    er_s[2 * C + j] = rnd(en, 1);
+    __syncthreads();
+    float acc = 0.f;
+    const __nv_bfloat16* wj = whs + j * SIMT_LD;
+#pragma unroll 8
+    for (int o = 0; o < 3 * C; ++o)
+      acc = fmaf(er_s[o], __bfloat162float(wj[o]), acc);
+    carry = dh * z + acc;
+  }
+  // Column sums over the block's sequences, in sequence order.
+  __syncthreads();
+  float* red = xs;  // [4][DS][C] over xs, hs, es
+  red[(0 * DS + sq) * C + j] = sr;
+  red[(1 * DS + sq) * C + j] = sz;
+  red[(2 * DS + sq) * C + j] = sxn;
+  red[(3 * DS + sq) * C + j] = shn;
+  __syncthreads();
+  if (sq != 0) return;
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = red[(k * DS) * C + j];
+    for (int q = 1; q < DS; ++q) v[k] += red[(k * DS + q) * C + j];
+  }
+  float* out = a.part + (size_t)blockIdx.x * 2 * ldx + d * 3 * C;
+  out[j] = v[0];              // db_ih: r, z, n
+  out[C + j] = v[1];
+  out[2 * C + j] = v[2];
+  out[ldx + j] = v[0];        // db_hh: r, z, n
+  out[ldx + C + j] = v[1];
+  out[ldx + 2 * C + j] = v[3];
+}
+
+inline cudaError_t launch_bptt_simt(const BpttArgs& a, cudaStream_t st) {
+  const size_t smem = bptt_simt_smem();
+  cudaError_t e = allow_smem(bptt_simt_kernel, smem);
+  if (e != cudaSuccess) return e;
+  bptt_simt_kernel<<<dim3((unsigned)((a.N + DS - 1) / DS), (unsigned)a.D),
+                     DS * C, smem, st>>>(a);
+  return cudaGetLastError();
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // The attention core, recomputed and differentiated on tensor cores. A work
@@ -1838,16 +2183,19 @@ cudaError_t launch_bptt_tc(const BpttArgs& a, cudaStream_t st) {
 // 64-channel head would not fit at L = 512 (295 KB), so HDP = 64 keeps two
 // resident at a time (SPLIT): K, V for the query pass, whose Q and dctx A
 // fragments are read from device memory, then Q, dctx for the key pass,
-// whose K and V fragments are.
+// whose K and V fragments are. One [L][136] tile of a 128-channel head
+// takes 139 KB at L = 512: HDP = 128 streams (attn_*_wide_kernel below).
 struct HeadArgs {
-  const __nv_bfloat16* qkv;   // [N*L, 192]
-  const __nv_bfloat16* dctx;  // [N*L, 64] (backward)
+  const __nv_bfloat16* qkv;   // [N*L, 3C]
+  const __nv_bfloat16* dctx;  // [N*L, C] (backward)
   float* stats;               // [N*L, C/hd, 2]: m (log2 units), 1/l
-  __nv_bfloat16* ctx;         // [N*L, 64] out (forward)
-  __nv_bfloat16* dqkv;        // [N*L, 192] out (backward)
+  __nv_bfloat16* ctx;         // [N*L, C] out (forward)
+  __nv_bfloat16* dqkv;        // [N*L, 3C] out (backward)
   int L;
   int lookback;
-  int hd;                     // head width: C / num_heads
+  int hd;                     // head width the kernels run: C / heads
+  int hd_true;                // its true channels (PADDED: the scale's)
+  float* rsum;                // [N*L, C/hd] sum(dp p) (HDP = 128 only)
 };
 
 // A work item's shape for padded head width HDP: TW channels staged per
@@ -2062,7 +2410,7 @@ __global__ void attn_fwd_tc_kernel(HeadArgs a) {
   __nv_bfloat16* Vs = Ks + Lp * LD;
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd, hpi = item_heads(HDP, hd);
-  const float scale2 = qk_scale2(hd, hd);
+  const float scale2 = qk_scale2(hd, a.hd_true);
   const long long n = blockIdx.x / (C / TW);
   const int c0 = (blockIdx.x % (C / TW)) * TW;  // the item's first channel
   const size_t rowbase = (size_t)n * L;
@@ -2145,7 +2493,8 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
   const int L = a.L, lb = a.lookback, Lp = head_lp(L);
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd, hpi = item_heads(HDP, hd);
-  const float scale2 = qk_scale2(hd, hd), scale = head_scale(hd, hd);
+  const float scale2 = qk_scale2(hd, a.hd_true);
+  const float scale = head_scale(hd, a.hd_true);
   // Tiles [Lp][LD]: Q, K, V, dctx; SPLIT: K, V in the query pass, then Q,
   // dctx in their place for the key pass.
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -2328,6 +2677,373 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
   }
 }
 
+#if LCT_C > 64
+// ---------------------------------------------------------------------------
+// A head of 128 channels (C = 128 in one head, or 96 padded to it), whose
+// rows would not fit resident: work items of 64 rows (4 warps of 16), the
+// other side of the products streamed through shared memory in blocks of
+// 64 rows ([64][136] bf16 tiles, cp.async), every fragment taken from the
+// staged tiles, 16 channels at a time, so a warp holds only its outputs.
+//   attn_fwd_wide_kernel  item = 64 queries; K blocks (walk 1: m, l), then
+//                         K and V blocks (walk 2: ctx); writes ctx, (m, 1/l)
+//   attn_dq_wide_kernel   item = 64 queries with their dctx; K, V blocks
+//                         (walk 1: rowsum = sum p dp, walk 2: dq); writes
+//                         dq and the rowsum (HeadArgs::rsum)
+//   attn_dkv_wide_kernel  item = 64 keys with their V; Q and dctx blocks with
+//                         their (m, 1/l, rowsum): dk, dv
+// The arithmetic is attn_fwd_tc_kernel's and attn_bwd_tc_kernel's; blocks
+// and chunks of 16 outside the band are skipped. Each streamed block is
+// read once per item and walk: K and V of a sequence about L / 64 times
+// (two walks), from L2.
+constexpr int WB = 64;                       // rows of an item or a block
+constexpr int WLD = 128 + 8;                 // row stride of a staged tile
+constexpr int WTILE = WB * WLD;              // bf16 of one staged tile
+
+// acc[j] (j: the two n8 tiles of 16 columns) = A @ B^T over the 128
+// channels: A the warp's 16 rows of a staged tile, B 16 rows of another
+// ([n][k] loads); rows of A and B at a and b.
+__device__ __forceinline__ void wide_dot16(float (&acc)[2][4],
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t af[4], bf[4];
+    load_a(af, a + ks * 16, WLD, lane);
+    load_b_nk(bf, b + ks * 16, WLD, lane);
+    mma(acc[0], af, bf[0], bf[1]);
+    mma(acc[1], af, bf[2], bf[3]);
+  }
+}
+
+// out[16 n8 tiles] += P @ B: P the A fragment of 16 rows over 16 staged rows
+// (k), B those rows' 128 channels ([k][n] loads) at b.
+__device__ __forceinline__ void wide_product(float (&out)[16][4],
+                                             const uint32_t (&pa)[4],
+                                             const __nv_bfloat16* b,
+                                             int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t bf[4];
+    load_b_kn(bf, b + ks * 16, WLD, lane);
+    mma(out[2 * ks], pa, bf[0], bf[1]);
+    mma(out[2 * ks + 1], pa, bf[2], bf[3]);
+  }
+}
+
+// Rows [r0, r0 + 64) of 128 channels from column `col` of a [N*L, ld] bf16
+// array of one sequence (`src` its row 0) into a staged tile, rows past L
+// zero.
+__device__ __forceinline__ void load_wide(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int ld,
+                                          int col, int r0, int L) {
+  load_head<128>(dst, src + (size_t)r0 * ld, ld, col, min(WB, L - r0), WB);
+}
+
+// Masks sc (scores of rows rq against 16 keys from k0, C-fragment layout)
+// to -inf outside [0, L) and the band, in log2 units otherwise.
+__device__ __forceinline__ void wide_mask(float (&sc)[2][4], int k0,
+                                          const int (&rq)[2], int L, int lb,
+                                          float scale2, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1), row = rq[e >> 1];
+      const bool ok = key < L && (lb < 0 || (key <= row && key >= row - lb));
+      sc[j][e] = ok ? sc[j][e] * scale2 : -INFINITY;
+    }
+}
+
+// The blocks of 64 keys that queries [q0, q0 + 64) need.
+__device__ __forceinline__ void wide_key_blocks(int q0, int L, int lb,
+                                                int& b0, int& b1) {
+  b0 = (lb >= 0 ? max(0, q0 - lb) : 0) / WB;
+  b1 = (lb >= 0 ? min(L - 1, q0 + WB - 1) : L - 1) / WB;
+}
+
+__global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + WTILE;
+  __nv_bfloat16* Vs = Ks + WTILE;
+  const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
+  const float scale2 = qk_scale2(128, a.hd_true);
+  const long long n = blockIdx.x / nqb;
+  const int q0b = (int)(blockIdx.x % nqb) * WB;
+  const size_t rowbase = (size_t)n * L;
+  const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = q0b + warp * 16;
+  const bool active = r0 < L;
+  const int rq[2] = {r0 + (lane >> 2), r0 + (lane >> 2) + 8};
+  int kc0 = 0, kc1 = -1, b0, b1;
+  if (active) key_chunks(r0, L, lb, kc0, kc1);
+  wide_key_blocks(q0b, L, lb, b0, b1);
+  load_wide(Qs, src, 3 * C, 0, q0b, L);
+  const __nv_bfloat16* qw = Qs + warp * 16 * WLD;
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[16][4] = {};
+  for (int walk = 0; walk < 2; ++walk) {
+    if (walk == 1) {
+      float il[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (m[r] == -INFINITY) m[r] = 0.f;
+        const float tot = quad_sum(l[r]);
+        il[r] = tot > 0.f ? 1.f / tot : 0.f;
+      }
+      l[0] = il[0];
+      l[1] = il[1];
+    }
+    for (int kb = b0; kb <= b1; ++kb) {
+      __syncthreads();  // the previous block's readers are done
+      load_wide(Ks, src, 3 * C, C, kb * WB, L);
+      if (walk == 1) load_wide(Vs, src, 3 * C, 2 * C, kb * WB, L);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (!active) continue;
+      for (int c = 0; c < 4; ++c) {
+        const int kc = kb * 4 + c;
+        if (kc < kc0 || kc > kc1) continue;
+        float sc[2][4];
+        wide_dot16(sc, qw, Ks + c * 16 * WLD, lane);
+        wide_mask(sc, kc * 16, rq, L, lb, scale2, lane);
+        if (walk == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float mx =
+                quad_max(fmaxf(fmaxf(sc[0][2 * r], sc[0][2 * r + 1]),
+                               fmaxf(sc[1][2 * r], sc[1][2 * r + 1])));
+            const float mnew = fmaxf(m[r], mx);
+            const float mb = mnew == -INFINITY ? 0.f : mnew;
+            const float part =
+                (ex2(sc[0][2 * r] - mb) + ex2(sc[0][2 * r + 1] - mb)) +
+                (ex2(sc[1][2 * r] - mb) + ex2(sc[1][2 * r + 1] - mb));
+            l[r] = fmaf(l[r], ex2(m[r] - mb), part);
+            m[r] = mnew;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[j][e] = ex2(sc[j][e] - m[e >> 1]) * l[e >> 1];
+          uint32_t pa[4];
+          pack_a(pa, sc);
+          wide_product(o, pa, Vs + c * 16 * WLD, lane);
+        }
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (rq[r] < L && t == 0)
+      *reinterpret_cast<float2*>(a.stats + (rowbase + rq[r]) * 2) =
+          make_float2(m[r], l[r]);
+  store_rows<16>(a.ctx, C, rowbase, r0, L, 0, o, 1.f, lane);
+}
+
+__global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Os = Qs + WTILE;  // dctx
+  __nv_bfloat16* Ks = Os + WTILE;
+  __nv_bfloat16* Vs = Ks + WTILE;
+  const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
+  const float scale2 = qk_scale2(128, a.hd_true);
+  const float scale = head_scale(128, a.hd_true);
+  const long long n = blockIdx.x / nqb;
+  const int q0b = (int)(blockIdx.x % nqb) * WB;
+  const size_t rowbase = (size_t)n * L;
+  const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = q0b + warp * 16;
+  const bool active = r0 < L;
+  const int rq[2] = {r0 + (lane >> 2), r0 + (lane >> 2) + 8};
+  int kc0 = 0, kc1 = -1, b0, b1;
+  if (active) key_chunks(r0, L, lb, kc0, kc1);
+  wide_key_blocks(q0b, L, lb, b0, b1);
+  load_wide(Qs, src, 3 * C, 0, q0b, L);
+  load_wide(Os, a.dctx + rowbase * C, C, 0, q0b, L);
+  float mr[2] = {0.f, 0.f}, ir[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (active && rq[r] < L) {
+      const float2 st = *reinterpret_cast<const float2*>(
+          a.stats + (rowbase + rq[r]) * 2);
+      mr[r] = st.x;
+      ir[r] = st.y;
+    }
+  const __nv_bfloat16* qw = Qs + warp * 16 * WLD;
+  const __nv_bfloat16* ow = Os + warp * 16 * WLD;
+
+  float rs[2] = {0.f, 0.f};
+  float dq[16][4] = {};
+  for (int walk = 0; walk < 2; ++walk) {
+    if (walk == 1) {
+      rs[0] = quad_sum(rs[0]);
+      rs[1] = quad_sum(rs[1]);
+    }
+    for (int kb = b0; kb <= b1; ++kb) {
+      __syncthreads();
+      load_wide(Ks, src, 3 * C, C, kb * WB, L);
+      load_wide(Vs, src, 3 * C, 2 * C, kb * WB, L);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (!active) continue;
+      for (int c = 0; c < 4; ++c) {
+        const int kc = kb * 4 + c;
+        if (kc < kc0 || kc > kc1) continue;
+        float p[2][4], dp[2][4];
+        wide_dot16(p, qw, Ks + c * 16 * WLD, lane);
+        wide_mask(p, kc * 16, rq, L, lb, scale2, lane);
+        wide_dot16(dp, ow, Vs + c * 16 * WLD, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[j][e] = bf16r(ex2(p[j][e] - mr[e >> 1]) * ir[e >> 1]);
+        if (walk == 0) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              rs[e >> 1] = fmaf(dp[j][e], p[j][e], rs[e >> 1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[j][e] = p[j][e] * (dp[j][e] - rs[e >> 1]);
+          uint32_t sa[4];
+          pack_a(sa, p);
+          wide_product(dq, sa, Ks + c * 16 * WLD, lane);
+        }
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (rq[r] < L && t == 0) a.rsum[rowbase + rq[r]] = rs[r];
+  store_rows<16>(a.dqkv, 3 * C, rowbase, r0, L, 0, dq, scale, lane);
+}
+
+__global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + WTILE;
+  __nv_bfloat16* Qs = Vs + WTILE;
+  __nv_bfloat16* Os = Qs + WTILE;  // dctx
+  float* mq = reinterpret_cast<float*>(Os + WTILE);  // [3][WB]: m, 1/l, rs
+  const int L = a.L, lb = a.lookback, nkb = (L + WB - 1) / WB;
+  const float scale2 = qk_scale2(128, a.hd_true);
+  const float scale = head_scale(128, a.hd_true);
+  const long long n = blockIdx.x / nkb;
+  const int k0b = (int)(blockIdx.x % nkb) * WB;
+  const size_t rowbase = (size_t)n * L;
+  const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = k0b + warp * 16;
+  const bool active = k0 < L;
+  const int kr[2] = {k0 + g, k0 + g + 8};
+  // The queries that see some key of the item, and of the warp's keys.
+  const int b0 = lb >= 0 ? k0b / WB : 0;
+  const int b1 = (lb >= 0 ? min(L - 1, k0b + WB - 1 + lb) : L - 1) / WB;
+  const int qc0 = lb >= 0 ? k0 / 16 : 0;
+  const int qc1 = (lb >= 0 ? min(L - 1, k0 + 15 + lb) : L - 1) / 16;
+  load_wide(Ks, src, 3 * C, C, k0b, L);
+  load_wide(Vs, src, 3 * C, 2 * C, k0b, L);
+  const __nv_bfloat16* kw = Ks + warp * 16 * WLD;
+  const __nv_bfloat16* vw = Vs + warp * 16 * WLD;
+
+  float dk[16][4] = {}, dv[16][4] = {};
+  for (int qb = b0; qb <= b1; ++qb) {
+    __syncthreads();
+    load_wide(Qs, src, 3 * C, 0, qb * WB, L);
+    load_wide(Os, a.dctx + rowbase * C, C, 0, qb * WB, L);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < WB; i += blockDim.x) {
+      const int q = qb * WB + i;
+      float2 st = make_float2(0.f, 0.f);
+      float r = 0.f;
+      if (q < L) {
+        st = *reinterpret_cast<const float2*>(a.stats + (rowbase + q) * 2);
+        r = a.rsum[rowbase + q];
+      }
+      mq[i] = st.x;
+      mq[WB + i] = st.y;
+      mq[2 * WB + i] = r;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    for (int c = 0; c < 4; ++c) {
+      const int qc = qb * 4 + c;
+      if (qc < qc0 || qc > qc1) continue;
+      // Keys as the M rows: s^T = k q^T, dp^T = v dctx^T.
+      float sj[2][4], dp[2][4];
+      wide_dot16(sj, kw, Qs + c * 16 * WLD, lane);
+      wide_dot16(dp, vw, Os + c * 16 * WLD, lane);
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = c * 16 + 8 * j + 2 * t + (e & 1);
+          const int q = qb * WB + qi, key = kr[e >> 1];
+          const bool ok =
+              q < L && key < L && (lb < 0 || (key <= q && key >= q - lb));
+          const float pe = ok ? bf16r(ex2(sj[j][e] * scale2 - mq[qi]) *
+                                      mq[WB + qi])
+                              : 0.f;
+          p[j][e] = pe;
+          ds[j][e] = pe * (dp[j][e] - mq[2 * WB + qi]);
+        }
+      uint32_t pa[4], sa[4];
+      pack_a(pa, p);
+      pack_a(sa, ds);
+      wide_product(dv, pa, Os + c * 16 * WLD, lane);
+      wide_product(dk, sa, Qs + c * 16 * WLD, lane);
+    }
+  }
+  if (!active) return;
+  store_rows<16>(a.dqkv, 3 * C, rowbase, k0, L, C, dk, scale, lane);
+  store_rows<16>(a.dqkv, 3 * C, rowbase, k0, L, 2 * C, dv, 1.f, lane);
+}
+
+// The 128-channel head's forward recompute, or its backward (two launches),
+// for N sequences: one block per 64-row item.
+inline cudaError_t launch_head_wide(const HeadArgs& a, long long N,
+                                    bool backward, cudaStream_t st) {
+  const unsigned items = (unsigned)(N * ((a.L + WB - 1) / WB));
+  const size_t tile = (size_t)WTILE * sizeof(__nv_bfloat16);
+  if (!backward) {
+    cudaError_t e = allow_smem(attn_fwd_wide_kernel, 3 * tile);
+    if (e != cudaSuccess) return e;
+    attn_fwd_wide_kernel<<<items, 128, 3 * tile, st>>>(a);
+    return cudaGetLastError();
+  }
+  cudaError_t e = allow_smem(attn_dq_wide_kernel, 4 * tile);
+  if (e != cudaSuccess) return e;
+  attn_dq_wide_kernel<<<items, 128, 4 * tile, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const size_t smem = 4 * tile + 3 * WB * sizeof(float);
+  if ((e = allow_smem(attn_dkv_wide_kernel, smem)) != cudaSuccess) return e;
+  attn_dkv_wide_kernel<<<items, 128, smem, st>>>(a);
+  return cudaGetLastError();
+}
+#endif
+
 // The attention's forward recompute, then later its backward, for N
 // sequences: attn_*_tc_kernel<head_pad(hd)>, one block per work item.
 template <int HDP>
@@ -2354,10 +3070,17 @@ inline cudaError_t launch_head(const HeadArgs& a, long long N, bool backward,
   switch (head_pad(a.hd)) {
     case 8: return launch_head_hd<8>(a, N, backward, st);
     case 16: return launch_head_hd<16>(a, N, backward, st);
+#if LCT_C > 16  // C >= 32
     case 32: return launch_head_hd<32>(a, N, backward, st);
+#endif
+#if LCT_C > 32  // C >= 64
     case 64: return launch_head_hd<64>(a, N, backward, st);
-    default: return cudaErrorInvalidValue;
+#endif
+#if LCT_C > 64
+    case 128: return launch_head_wide(a, N, backward, st);
+#endif
   }
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -2368,14 +3091,15 @@ inline cudaError_t launch_head(const HeadArgs& a, long long N, bool backward,
 // each warp keeps up to WG_UNITS 16x16 output units in f32 registers, their
 // A^T fragments from ldmatrix.trans. A product's outputs go to the block's
 // partial row; reduce_tc_kernel adds the rows in block order. `grouped`:
-// only the 4 diagonal [16 x 48] blocks of a [64 x 192] product (the GRU
-// weights in slots of 16, out[slot][i][m]; one dense slot of 64 is a dense
-// product). `cs_off >= 0`: also the column sums of B.
+// only the C / 16 diagonal [16 x 48] blocks of a [C x 3C] product (the GRU
+// weights in slots of 16, out[slot][i][m]; a dense slot is a dense
+// product). `cs_off >= 0`: also the column sums of B. The caller splits a
+// product of more than 4 WG_UNITS 16x16 units into pieces of whole rows.
 struct WgProd {
   const __nv_bfloat16* A;
   const __nv_bfloat16* B;
   int lda, ldb, acol, bcol;
-  int M, N;      // multiples of 16; M <= 64, N <= 192
+  int M, N;      // multiples of 16; M <= C, N <= 3C
   int grouped;
   int out_off;   // first output in the partial row
   int cs_off;    // first column sum in the partial row, or -1
@@ -2430,7 +3154,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
-    float cs[2] = {0.f, 0.f};
+    float cs[WG_CS] = {};
     stage(0, r0);
     cp_async_commit();
     for (int it = 0; it < ntiles; ++it) {
@@ -2467,7 +3191,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
       }
       if (P.cs_off >= 0) {
 #pragma unroll
-        for (int k = 0; k < 2; ++k) {
+        for (int k = 0; k < WG_CS; ++k) {
           const int c = tid + k * RT;
           if (c < P.N) {
             float s = 0.f;
@@ -2500,7 +3224,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
     }
     if (P.cs_off >= 0) {
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
+      for (int k = 0; k < WG_CS; ++k) {
         const int c = tid + k * RT;
         if (c < P.N) part[P.cs_off + c] = cs[k];
       }
@@ -2529,6 +3253,10 @@ __global__ void reduce_tc_kernel(RedArgs a) {
   }
 }
 
+// Sequences a block of the bf16 GRU stage takes: bptt_tc_kernel's GS, or
+// the CUDA-core walk's DS for a dense slot of 128.
+inline int bptt_seqs(int W) { return W > 64 ? DS : GS; }
+
 // Device memory of one bf16-mode launch, in bytes from one base (each
 // buffer 256-byte aligned). The front region holds qkv, s, the softmax
 // statistics and dctx until the attention and LN2 backward are done; the
@@ -2536,12 +3264,13 @@ __global__ void reduce_tc_kernel(RedArgs a) {
 struct ScratchTC {
   __nv_bfloat16 *qkv, *gb, *ctx, *ab, *dcomb, *da, *dctx, *dqkv, *n2, *n1,
       *hprev, *dxp, *dhp;
-  float *s, *stats, *dglin, *ds, *p_comb, *p_dn2, *p_bptt, *p_dn1, *p_wg;
+  float *s, *stats, *dglin, *ds, *p_comb, *p_dn2, *p_bptt, *p_dn1, *p_wg,
+      *rsum;
   long long total;
   int grid_rows, grid_wg, nout;
   long long wg_chunk;
 
-  // nh heads; GRU slots of W units.
+  // nh heads as the kernels run them (C / hd); GRU slots of W units.
   ScratchTC(unsigned char* base, long long N, int L, int D, int lin_in,
             int nh, int W, int grid_rows_, int grid_wg_) {
     const long long rows = N * L;
@@ -2585,8 +3314,11 @@ struct ScratchTC {
     p_comb = (float*)take((long long)grid_rows * 2 * C * f32);
     p_dn2 = (float*)take((long long)grid_rows * 2 * C * f32);
     p_dn1 = (float*)take((long long)grid_rows * 2 * C * f32);
-    p_bptt = (float*)take((N + GS - 1) / GS * 2 * D * 3 * C * f32);
+    p_bptt = (float*)take((N + bptt_seqs(W) - 1) / bptt_seqs(W) * 2 * D * 3 *
+                          C * f32);
     p_wg = (float*)take((long long)grid_wg * nout * f32);
+    // The 128-channel head's rowsums (attn_dq_wide_kernel) at C = 128.
+    rsum = C > 64 ? (float*)take(rows * nh * f32) : nullptr;
     total = off;
   }
 };
@@ -2597,7 +3329,9 @@ struct ScratchTC {
 inline cudaError_t tc_grids(long long rows, int* grid_rows, int* grid_wg) {
   const long long tiles = (rows + 63) / 64;
   unsigned gr = 1, gw = 1;
-  cudaError_t e = persistent_grid(comb_bwd_tc_kernel, RT, 0, tiles, &gr);
+  cudaError_t e = allow_smem(comb_bwd_tc_kernel, COMB_SMEM);
+  if (e != cudaSuccess) return e;
+  e = persistent_grid(comb_bwd_tc_kernel, RT, COMB_SMEM, tiles, &gr);
   if (e != cudaSuccess) return e;
   const size_t wsm = (size_t)2 * WG_STAGE * sizeof(__nv_bfloat16);
   if ((e = allow_smem(wgrad_tc_kernel, wsm)) != cudaSuccess) return e;
@@ -2623,7 +3357,8 @@ inline cudaError_t tc_grids(long long rows, int* grid_rows, int* grid_wg) {
   } while (0)
 
 // Floats of scratch `lct_ftf_backward_f32` needs for N sequences of length
-// L (the same at every width), or -1 for widths the kernels do not take.
+// L (the same at every head and group count), or -1 for widths the kernels
+// do not take.
 extern "C" long long lct_ftf_backward_scratch_floats(long long N, int L,
                                                      int D, int num_heads,
                                                      int slots) {
@@ -2631,12 +3366,14 @@ extern "C" long long lct_ftf_backward_scratch_floats(long long N, int L,
   return lct::Scratch(nullptr, N * L, D).total;
 }
 
-// x, dout, dx: [N, L, 64]; hid: [D, N*L, 64]; parameters as in
+// x, dout, dx: [N, L, C]; hid: [D, N*L, C]; parameters as in
 // lct_ftf_forward (ftf.cu), the GRU's in `slots` slots ([D, slots, W, 3W] /
-// [D, slots, 3W], W = 64 / slots, slots = 4 or 1), their gradients in the
-// same shapes; num_heads divides 64; scratch:
-// lct_ftf_backward_scratch_floats(N, L, D, num_heads, slots) floats.
-// lookback < 0 means no band. Returns a cudaError_t.
+// [D, slots, 3W], W = C / slots: slots = C / 16, 1, or at C = 128 2), their
+// gradients in the same shapes; num_heads divides C_MODEL (heads of
+// C_MODEL / num_heads true channels at head_width of it, common.cuh);
+// scratch: lct_ftf_backward_scratch_floats(N, L, D, num_heads, slots)
+// floats. lookback < 0 means no band. All f32 (precise mode). Returns a
+// cudaError_t.
 extern "C" int lct_ftf_backward_f32(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -2647,16 +3384,16 @@ extern "C" int lct_ftf_backward_f32(
     float* dln1_b, float* dw_ih, float* dw_hh, float* db_ih, float* db_hh,
     float* dln2_s, float* dln2_b, float* din_w, float* din_b, float* dout_w,
     float* dout_b, float* dlin_w, float* dlin_b, float* scratch, long long N,
-    int L, int D, int lin_in, int lookback, int precise, int num_heads,
-    int slots, int device, void* stream) {
+    int L, int D, int lin_in, int lookback, int num_heads, int slots,
+    int device, void* stream) {
   using namespace lct;
   if (!widths_ok(num_heads, slots)) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   cudaStream_t st = (cudaStream_t)stream;
-  const int round = precise ? 0 : 1;
   const long long rows = N * L;
-  const int hd = C / num_heads, W = gru_slot(slots);
+  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
+  const int W = gru_slot(slots);
   Scratch s(scratch, rows, D);
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
   const unsigned wblocks = (unsigned)((rows + 7) / 8);  // a warp per row
@@ -2667,24 +3404,25 @@ extern "C" int lct_ftf_backward_f32(
   ln_kernel<<<wblocks, 256, 0, st>>>(x, hid, hid1, ln2_s, ln2_b, s.n2, s.xh2,
                                      s.rs2, rows);
   LCT_CHECK();
-  proj_kernel<false><<<rblocks, 3 * C, 0, st>>>(
-      x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, rows, 3 * C, round);
+  proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
+      x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, rows, 3 * C,
+      /*round=*/0);
   LCT_CHECK();
-  LCT_TRY(
-      launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, round, hd, hd, st));
+  LCT_TRY(launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, /*round=*/0,
+                         hd, hdt, st));
 
   // 3. combine layer and out-proj backward.
-  comb_bwd_kernel<<<rblocks, C, 0, st>>>(
-      hid, D, s.ctx, dout, out_w, out_b, lin_w, lin_b, lin_in, s.ga, s.dcomb,
-      s.da, s.dglin, s.dctx, rows, round);
+  comb_bwd_kernel<<<rblocks, C, 0, st>>>(hid, D, s.ctx, dout, out_w, out_b,
+                                         lin_w, lin_b, lin_in, s.ga, s.dcomb,
+                                         s.da, s.dglin, s.dctx, rows);
   LCT_CHECK();
 
   // 4. attention core backward.
-  LCT_TRY(launch_attn_bwd(s.qkv, s.dctx, s.dqkv, N, L, lookback, round, hd,
+  LCT_TRY(launch_attn_bwd(s.qkv, s.dctx, s.dqkv, N, L, lookback, hd, hdt,
                           st));
 
   // 5. qkv projection and LN2 backward: ds, and dg = ds (+ dg_lin).
-  dn2_kernel<<<rblocks, C, 0, st>>>(s.dqkv, in_w, s.dn2, rows, round);
+  dn2_kernel<<<rblocks, C, 0, st>>>(s.dqkv, in_w, s.dn2, rows);
   LCT_CHECK();
   ln_bwd_kernel<<<wblocks, 256, 0, st>>>(s.dn2, s.xh2, s.rs2, ln2_s, dout,
                                          freq ? s.dglin : nullptr, s.ds,
@@ -2698,33 +3436,45 @@ extern "C" int lct_ftf_backward_f32(
   LCT_CHECK();
   const long long gthreads = rows * D * C;
   const unsigned gblocks = (unsigned)((gthreads + 255) / 256);
+  const unsigned pthreads = row_threads(D * 3 * C);
   if (W == 16) {
-    proj_kernel<true, 16><<<rblocks, D * 3 * C, 0, st>>>(
+    proj_kernel<true, 16><<<rblocks, pthreads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-        round);
+        /*round=*/0);
     LCT_CHECK();
     gate_kernel<16><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
-                                             s.hpv, N, L, D, round);
-  } else {
-    proj_kernel<true, C><<<rblocks, D * 3 * C, 0, st>>>(
+                                             s.hpv, N, L, D);
+#if LCT_C > 64
+  } else if (W == 64) {
+    proj_kernel<true, 64><<<rblocks, pthreads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-        round);
+        /*round=*/0);
+    LCT_CHECK();
+    gate_kernel<64><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
+                                             s.hpv, N, L, D);
+#endif
+  } else {
+    proj_kernel<true, C><<<rblocks, pthreads, 0, st>>>(
+        x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
+        /*round=*/0);
     LCT_CHECK();
     gate_kernel<C><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
-                                            s.hpv, N, L, D, round);
+                                            s.hpv, N, L, D);
   }
   LCT_CHECK();
-  LCT_TRY(launch_bptt(s.K, dg, w_hh, s.dxp, s.dhp, N, L, D, slots, round,
-                      st));
+  LCT_TRY(launch_bptt(s.K, dg, w_hh, s.dxp, s.dhp, N, L, D, slots, st));
 
   // 9. input projection and LN1 backward: dx.
   const unsigned cblocks = (unsigned)((rows * C + 255) / 256);
-  if (W == 16)
-    dn1_kernel<16><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D,
-                                            round);
-  else
-    dn1_kernel<C><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D,
-                                           round);
+  if (W == 16) {
+    dn1_kernel<16><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
+#if LCT_C > 64
+  } else if (W == 64) {
+    dn1_kernel<64><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
+#endif
+  } else {
+    dn1_kernel<C><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
+  }
   LCT_CHECK();
   ln_bwd_kernel<<<wblocks, 256, 0, st>>>(s.dn1, s.xh1, s.rs1, ln1_s, s.ds,
                                          nullptr, dx, nullptr, rows);
@@ -2733,39 +3483,36 @@ extern "C" int lct_ftf_backward_f32(
   // 10. parameter gradients.
   const Wgrad wg{s.partial, rows, st};
   const int D3C = D * 3 * C;
-  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dcomb, C, 0, 0, C, 0, C, dlin_b));
-  LCT_TRY(wg(WG_DENSE, s.ga, lin_in, 0, 0, s.dcomb, C, round, C, lin_in * C,
-             lin_in, C, dlin_w));
-  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.da, C, 0, 0, C, 0, C, dout_b));
-  LCT_TRY(wg(WG_DENSE, s.ctx, C, 0, round, s.da, C, round, C, C * C, C, C,
-             dout_w));
-  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dqkv, 3 * C, 0, 0, 3 * C, 0,
-             3 * C, din_b));
-  LCT_TRY(wg(WG_DENSE, s.n2, C, 0, round, s.dqkv, 3 * C, 0, 3 * C,
-             C * 3 * C, C, 3 * C, din_w));
-  LCT_TRY(wg(WG_DIAG, s.dn2, C, 0, 0, s.xh2, C, 0, 0, C, C, C, dln2_s));
-  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dn2, C, 0, 0, C, 0, C, dln2_b));
+  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dcomb, C, 0, C, 0, C, dlin_b));
+  LCT_TRY(wg.dense(s.ga, lin_in, s.dcomb, C, C, lin_in, dlin_w));
+  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.da, C, 0, C, 0, C, dout_b));
+  LCT_TRY(wg.dense(s.ctx, C, s.da, C, C, C, dout_w));
+  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dqkv, 3 * C, 0, 3 * C, 0, 3 * C,
+             din_b));
+  LCT_TRY(wg.dense(s.n2, C, s.dqkv, 3 * C, 3 * C, C, din_w));
+  LCT_TRY(wg(WG_DIAG, s.dn2, C, 0, s.xh2, C, 0, C, C, C, dln2_s));
+  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dn2, C, 0, C, 0, C, dln2_b));
   if (W == 16) {
-    LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, round, s.dxp, D3C, round, 0,
-               D * C * 3 * W, C, D3C, dw_ih));
-    LCT_TRY(wg(WG_GROUPED, s.hpv, C, rows * C, 0, s.dhp, D3C, round, 0,
-               D * C * 3 * W, D * C, D3C, dw_hh));
+    LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, s.dxp, D3C, 0, D * C * 3 * W, C, D3C,
+               dw_ih));
+    LCT_TRY(wg(WG_GROUPED, s.hpv, C, rows * C, s.dhp, D3C, 0, D * C * 3 * W,
+               D * C, D3C, dw_hh));
   } else {
-    // One dense slot a direction: the products are dense [64 x 192].
-    for (int d = 0; d < D; ++d) {
-      LCT_TRY(wg(WG_DENSE, s.n1, C, 0, round, s.dxp + d * 3 * C, D3C, round,
-                 3 * C, C * 3 * C, C, 3 * C, dw_ih + (size_t)d * C * 3 * C));
-      LCT_TRY(wg(WG_DENSE, s.hpv + (size_t)d * rows * C, C, 0, 0,
-                 s.dhp + d * 3 * C, D3C, round, 3 * C, C * 3 * C, C, 3 * C,
-                 dw_hh + (size_t)d * C * 3 * C));
-    }
+    // Dense slots: the products are dense [W x 3W] per direction and slot.
+    for (int d = 0; d < D; ++d)
+      for (int sl = 0; sl < C / W; ++sl) {
+        const size_t o = (size_t)(d * (C / W) + sl) * W * 3 * W;
+        const int col = d * 3 * C + sl * 3 * W;
+        LCT_TRY(wg.dense(s.n1 + sl * W, C, s.dxp + col, D3C, 3 * W, W,
+                         dw_ih + o));
+        LCT_TRY(wg.dense(s.hpv + (size_t)d * rows * C + sl * W, C,
+                         s.dhp + col, D3C, 3 * W, W, dw_hh + o));
+      }
   }
-  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dxp, D3C, 0, 0, D3C, 0, D3C,
-             db_ih));
-  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dhp, D3C, 0, 0, D3C, 0, D3C,
-             db_hh));
-  LCT_TRY(wg(WG_DIAG, s.dn1, C, 0, 0, s.xh1, C, 0, 0, C, C, C, dln1_s));
-  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, 0, s.dn1, C, 0, 0, C, 0, C, dln1_b));
+  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dxp, D3C, 0, D3C, 0, D3C, db_ih));
+  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dhp, D3C, 0, D3C, 0, D3C, db_hh));
+  LCT_TRY(wg(WG_DIAG, s.dn1, C, 0, s.xh1, C, 0, C, C, C, dln1_s));
+  LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dn1, C, 0, C, 0, C, dln1_b));
   return 0;
 }
 
@@ -2781,19 +3528,21 @@ extern "C" long long lct_ftf_backward_bf16_scratch_bytes(long long N, int L,
   if (!lct::widths_ok(num_heads, slots)) return -1;
   int gr = 1, gw = 1;
   if (lct::tc::tc_grids(N * L, &gr, &gw) != cudaSuccess) return -1;
-  return lct::tc::ScratchTC(nullptr, N, L, D, lin_in, num_heads,
+  const int hd = lct::head_width(lct::C_MODEL / num_heads);
+  return lct::tc::ScratchTC(nullptr, N, L, D, lin_in, lct::C / hd,
                             lct::gru_slot(slots), gr, gw)
       .total;
 }
 
 // The same function in bf16 mode on tensor cores: arguments as
-// lct_ftf_backward_f32 without `precise`; scratch:
+// lct_ftf_backward_f32; scratch:
 // lct_ftf_backward_bf16_scratch_bytes(N, L, D, lin_in, num_heads, slots)
 // bytes, 256-byte aligned. Nine launches:
 //   qkv_tc_kernel -> attn_fwd_tc_kernel -> comb_bwd_tc_kernel ->
 //   attn_bwd_tc_kernel -> dn2_tc_kernel -> bptt_tc_kernel -> dn1_tc_kernel
 //   (-> dx) -> wgrad_tc_kernel -> reduce_tc_kernel (-> the 14 parameter
-//   gradients).
+//   gradients); a head of 128 channels takes attn_*_wide_kernel (one more
+//   launch), a dense GRU slot of 128 bptt_simt_kernel.
 extern "C" int lct_ftf_backward_bf16(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -2814,10 +3563,11 @@ extern "C" int lct_ftf_backward_bf16(
   const long long rows = N * L;
   const bool freq = lin_in == 2 * C;
   const int W = gru_slot(slots);
+  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
   int gr = 1, gw = 1;
   LCT_TRY(tc_grids(rows, &gr, &gw));
   const ScratchTC s(static_cast<unsigned char*>(scratch), N, L, D, lin_in,
-                    num_heads, W, gr, gw);
+                    C / hd, W, gr, gw);
   const float* hid1 = D == 2 ? hid + (size_t)rows * C : nullptr;
 
   // LN2 and qkv recomputed; s = x + g and bf16(g) kept for later stages.
@@ -2826,61 +3576,92 @@ extern "C" int lct_ftf_backward_bf16(
                      st));
   // The attention context and its softmax statistics.
   HeadArgs ha = {s.qkv, s.dctx, s.stats, s.ctx, s.dqkv, L, lookback,
-                 C / num_heads};
+                 hd, hdt, s.rsum};
   LCT_TRY(launch_head(ha, N, /*backward=*/false, st));
   // Combine layer and out-projection backward.
   CombArgs ca = {s.ctx, s.gb, dout, out_w, out_b, lin_w, lin_b, lin_in,
                  s.ab, s.dcomb, s.da, s.dctx, s.dglin, s.p_comb, rows};
-  comb_bwd_tc_kernel<<<gr, RT, 0, st>>>(ca);
+  comb_bwd_tc_kernel<<<gr, RT, COMB_SMEM, st>>>(ca);
   LCT_CHECK();
   // Attention core backward.
   LCT_TRY(launch_head(ha, N, /*backward=*/true, st));
   // qkv projection and LN2 backward.
   Dn2Args na = {s.dqkv, s.s, dout, x, in_w, ln2_s, ln2_b, ln1_s, ln1_b,
                 s.n2, s.n1, s.ds, s.p_dn2, rows};
-  dn2_tc_kernel<<<gr, RT, 0, st>>>(na);
+  LCT_TRY(allow_smem(dn2_tc_kernel, DN2_SMEM));
+  dn2_tc_kernel<<<gr, RT, DN2_SMEM, st>>>(na);
   LCT_CHECK();
   // GRU: projections, gate factors and BPTT.
   BpttArgs ba = {s.n1, w_ih, w_hh, b_ih, b_hh, hid, s.ds,
                  freq ? s.dglin : nullptr, s.hprev, s.dxp, s.dhp, s.p_bptt,
                  N, L, D};
-  LCT_TRY(W == 16 ? launch_bptt_tc<1>(ba, st) : launch_bptt_tc<4>(ba, st));
+  if (W == 16) {
+    LCT_TRY(launch_bptt_tc<1>(ba, st));
+  } else {
+#if LCT_C > 64
+    LCT_TRY(W == 64 ? launch_bptt_tc<4>(ba, st) : launch_bptt_simt(ba, st));
+#else
+    LCT_TRY(launch_bptt_tc<C / 16>(ba, st));
+#endif
+  }
   // Input projection and LN1 backward: dx.
   Dn1Args da1 = {s.dxp, x, s.ds, w_ih, ln1_s, dx, s.p_dn1, rows, D};
+  auto dn1 = [&](auto ks) {
+    constexpr int KS = decltype(ks)::value;
+    cudaError_t e = allow_smem(dn1_tc_kernel<KS>, dn1_smem<KS>());
+    if (e != cudaSuccess) return e;
+    dn1_tc_kernel<KS><<<gr, RT, dn1_smem<KS>(), st>>>(da1);
+    return cudaGetLastError();
+  };
   if (W == 16) {
     dn1_tc_kernel<1><<<gr, RT, 0, st>>>(da1);
+    LCT_CHECK();
+  } else if (W == C) {
+    LCT_TRY(dn1(std::integral_constant<int, C / 16>{}));
   } else {
-    LCT_TRY(allow_smem(dn1_tc_kernel<4>, dn1_smem<4>()));
-    dn1_tc_kernel<4><<<gr, RT, dn1_smem<4>(), st>>>(da1);
+#if LCT_C > 64
+    LCT_TRY(dn1(std::integral_constant<int, 4>{}));
+#endif
   }
-  LCT_CHECK();
 
   // Weight gradients, then every partial sum reduced in block order. The
-  // GRU's: slots of 16 as the diagonal blocks of a grouped product, one
-  // dense slot of 64 as a dense one.
+  // GRU's: slots of 16 as the diagonal blocks of a grouped product, dense
+  // slots as dense ones.
   const int DG = D * C * 3 * W;  // GRU weight gradient floats
   const int o_lin = 0, o_out = lin_in * C, o_in = o_out + C * C;
   const int o_inb = o_in + C * 3 * C, o_ih = o_inb + 3 * C;
   const int o_hh = o_ih + DG;
   WgArgs wa = {};
   int np = 0;
+  // A product, in pieces of whole rows of at most 4 WG_UNITS units each
+  // (one piece at C = 64).
   auto prod = [&](const __nv_bfloat16* A, int lda, int acol, int M,
                   const __nv_bfloat16* B, int ldb, int bcol, int Nn,
                   int grouped, int out_off, int cs_off) {
-    wa.p[np++] = {A, B, lda, ldb, acol, bcol, M, Nn, grouped, out_off,
-                  cs_off};
+    const int mstep = grouped ? M : 16 * (4 * WG_UNITS / (Nn / 16));
+    for (int m0 = 0; m0 < M; m0 += mstep, ++np)
+      if (np < WG_MAXP)
+        wa.p[np] = {A, B, lda, ldb, acol + m0, bcol,
+                    M - m0 < mstep ? M - m0 : mstep, Nn, grouped,
+                    out_off + m0 * Nn, m0 == 0 ? cs_off : -1};
   };
   if (freq) prod(s.gb, C, 0, C, s.dcomb, C, 0, C, 0, o_lin, -1);
   prod(s.ab, C, 0, C, s.dcomb, C, 0, C, 0, o_lin + (freq ? C * C : 0), -1);
   prod(s.ctx, C, 0, C, s.da, C, 0, C, 0, o_out, -1);
   prod(s.n2, C, 0, C, s.dqkv, 3 * C, 0, 3 * C, 0, o_in, o_inb);
   const int grouped = W == 16 ? 1 : 0;
-  for (int d = 0; d < D; ++d) {
-    prod(s.n1, C, 0, C, s.dxp, D * 3 * C, d * 3 * C, 3 * C, grouped,
-         o_ih + d * C * 3 * W, -1);
-    prod(s.hprev + (size_t)d * rows * C, C, 0, C, s.dhp, D * 3 * C,
-         d * 3 * C, 3 * C, grouped, o_hh + d * C * 3 * W, -1);
-  }
+  const int SL = grouped ? 1 : C / W;  // products a direction, ih or hh
+  const int PM = grouped ? C : W;      // their rows
+  for (int d = 0; d < D; ++d)
+    for (int sl = 0; sl < SL; ++sl) {
+      const int off = d * C * 3 * W + sl * W * 3 * W;
+      prod(s.n1, C, sl * W, PM, s.dxp, D * 3 * C, d * 3 * C + sl * 3 * W,
+           grouped ? 3 * C : 3 * W, grouped, o_ih + off, -1);
+      prod(s.hprev + (size_t)d * rows * C, C, sl * W, PM, s.dhp, D * 3 * C,
+           d * 3 * C + sl * 3 * W, grouped ? 3 * C : 3 * W, grouped,
+           o_hh + off, -1);
+    }
+  if (np > WG_MAXP) return (int)cudaErrorInvalidValue;
   wa.np = np;
   wa.rows = rows;
   wa.chunk = s.wg_chunk;
@@ -2891,7 +3672,8 @@ extern "C" int lct_ftf_backward_bf16(
   wgrad_tc_kernel<<<s.grid_wg, RT, wsm, st>>>(wa);
   LCT_CHECK();
 
-  const int nb = (int)((N + GS - 1) / GS), ldb2 = 2 * D * 3 * C;
+  const int nb = (int)((N + bptt_seqs(W) - 1) / bptt_seqs(W));
+  const int ldb2 = 2 * D * 3 * C;
   const int D3C = D * 3 * C;
   RedArgs ra = {{
       {s.p_dn1, gr, 2 * C, 0, C, dln1_s},

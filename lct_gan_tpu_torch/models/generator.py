@@ -17,11 +17,10 @@ card) -> LayerNorm -> MultiHeadSelfAttention (the MHSA kernel up to L = 1024,
 the banded one from BANDED_KERNEL_MIN_SEQ with a band) -> Linear ->
 LeakyReLU, as in the JAX package.
 
-On the card the forward kernels serve a bottleneck of enc_channels[-1] in
-`ops/library.py::CHANNELS` (16, 32, 48, 64, 96, 128), in any num_heads and
-gru_groups that divide it; the FTF backward kernel trains 64 channels
-alone: `check_card_widths` refuses anything else before a model runs or
-trains there.
+On the card the kernels serve and train a bottleneck of enc_channels[-1]
+in `ops/library.py::CHANNELS` (16, 32, 48, 64, 96, 128), in any num_heads
+and gru_groups that divide it: `check_card_widths` refuses anything else
+before a model runs or trains there.
 """
 
 from __future__ import annotations
@@ -38,8 +37,7 @@ from lct_gan_tpu_torch.models.gru import GRUGroup, stack_groups
 from lct_gan_tpu_torch.models.layers import LayerNorm
 from lct_gan_tpu_torch.ops.ftf import MAX_FTF_SEQ, fused_ftf_block
 from lct_gan_tpu_torch.ops.gru import fused_grouped_gru
-from lct_gan_tpu_torch.ops.library import (CHANNELS, TRAIN_C,
-                                           check_kernel_widths)
+from lct_gan_tpu_torch.ops.library import check_kernel_widths
 from lct_gan_tpu_torch.sigproc import (STFTConfig, apply_mask, hann_window,
                                        istft, magnitude, stft)
 from lct_gan_tpu_torch.utils.device import disable_tf32
@@ -75,10 +73,10 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
     """Raise unless the CUDA kernels run `cfg` on `device`, decided from the
     device argument alone (no card is queried): a bottleneck of
     enc_channels[-1] channels in num_heads heads and gru_groups groups that
-    divide it, where enc_channels[-1] is one of CHANNELS for serving and
-    TRAIN_C = 64 for training (the FTF backward kernel's only width). The
-    message names enc_channels and the widths taken. Nothing is refused on
-    the CPU, whose plain path takes every width."""
+    divide it, where enc_channels[-1] is one of CHANNELS, for serving and
+    training alike (the FTF backward kernel takes every width the forward
+    does). The message names enc_channels and the widths taken. Nothing is
+    refused on the CPU, whose plain path takes every width."""
     if torch.device(device).type != "cuda":
         return
     check_kernel_widths("the CUDA path", cfg.enc_channels[-1],
@@ -87,8 +85,7 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
                                "--gru_groups"),
                         hint=("; train this configuration with --device cpu"
                               if training else
-                              "; run this configuration with device='cpu'"),
-                        channels=(TRAIN_C,) if training else CHANNELS)
+                              "; run this configuration with device='cpu'"))
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:

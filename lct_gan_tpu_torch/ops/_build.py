@@ -10,10 +10,11 @@ rebuilds, an unchanged tree reuses what is there.
 
 One set of libraries a bottleneck width C (`ops/library.py::CHANNELS`):
 C = 64, the default, builds every source as it always has
-(`lib<name>-<hash>.so`); any other C builds only the forward sources
-(`FORWARD_SOURCES`) with -DLCT_C=<C> into `lib<name>-c<C>-<hash>.so`, at
-its first use. All sources of all the widths asked for build in one
-parallel batch, one nvcc process each.
+(`lib<name>-<hash>.so`); any other C builds with -DLCT_C=<C> into
+`lib<name>-c<C>-<hash>.so` the forward sources (`FORWARD_SOURCES`) at its
+first use, and the FTF backward's (`BACKWARD_SOURCES`) at its first
+backward, so serving alone never builds the backward. All sources of all
+the widths asked for build in one parallel batch, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import torch
 
 __all__ = ["load_library", "build_all", "kernel_function", "raise_on_error",
            "f32_operand", "build_command", "library_path", "library_sources",
-           "CSRC_DIR", "BUILD_DIR", "DEFAULT_C", "FORWARD_SOURCES"]
+           "CSRC_DIR", "BUILD_DIR", "DEFAULT_C", "FORWARD_SOURCES",
+           "BACKWARD_SOURCES"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -43,6 +45,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DEFAULT_C = 64
 # The sources the serving path launches: every width builds these.
 FORWARD_SOURCES = ("banded", "ftf", "mhsa")
+# The training path's own: a width other than 64 builds it at its first
+# backward.
+BACKWARD_SOURCES = ("ftf_bwd",)
 
 _lock = threading.Lock()
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
@@ -70,17 +75,18 @@ def _sources():
     return sorted(n[:-3] for n in os.listdir(CSRC_DIR) if n.endswith(".cu"))
 
 
-def library_sources(C: int = DEFAULT_C) -> List[str]:
+def library_sources(C: int = DEFAULT_C, backward: bool = False) -> List[str]:
     """The csrc/*.cu sources of width C's libraries: all of them at the
-    default width, the forward ones at any other."""
+    default width, the forward ones at any other, with `backward` also the
+    FTF backward's."""
     from lct_gan_tpu_torch.ops.library import CHANNELS
 
     if C not in CHANNELS:
         raise ValueError(f"no CUDA libraries for C={C}: the kernels take C "
                          f"in {CHANNELS}")
     names = _sources()
-    return names if C == DEFAULT_C else [n for n in names
-                                         if n in FORWARD_SOURCES]
+    wanted = FORWARD_SOURCES + (BACKWARD_SOURCES if backward else ())
+    return names if C == DEFAULT_C else [n for n in names if n in wanted]
 
 
 def library_path(name: str, C: int, tag: str) -> str:
@@ -102,14 +108,16 @@ def build_command(name: str, C: int, out: str, nvcc: str = "nvcc",
 
 
 def build_all(verbose: bool = False,
-              widths: Iterable[int] = (DEFAULT_C,)) -> float:
+              widths: Iterable[int] = (DEFAULT_C,),
+              backward: bool = False) -> float:
     """Build (if needed) and load the libraries of every width in `widths`
-    (default: 64's, every csrc/*.cu), all in one parallel batch. Returns
-    the seconds spent; raises with nvcc's stderr when a build fails."""
+    (default: 64's, every csrc/*.cu; with `backward` every width's FTF
+    backward too), all in one parallel batch. Returns the seconds spent;
+    raises with nvcc's stderr when a build fails."""
     with _lock:
         t0 = time.perf_counter()
         todo = [(n, C) for C in dict.fromkeys(widths)
-                for n in library_sources(C) if (n, C) not in _libs]
+                for n in library_sources(C, backward) if (n, C) not in _libs]
         if not todo:
             return 0.0
         tag = _source_hash()
@@ -145,9 +153,10 @@ def build_all(verbose: bool = False,
 
 def load_library(name: str, C: int = DEFAULT_C) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu at width C, building that
-    width's sources first if this process has not loaded them yet."""
+    width's sources first if this process has not loaded them yet (the
+    forward ones, and the backward's when `name` is one of them)."""
     if (name, C) not in _libs:
-        build_all(widths=(C,))
+        build_all(widths=(C,), backward=name in BACKWARD_SOURCES)
     return _libs[(name, C)]
 
 

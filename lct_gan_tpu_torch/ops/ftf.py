@@ -26,11 +26,11 @@ plain version on the CPU). A call with `key_bias` instead recomputes through
 the f32 `ftf_block_reference` under autograd, as the JAX package does.
 
 Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
-in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward kernels take
-every C of `ops/library.py::CHANNELS` in any num_heads and any G that
-divide C (C = 48 and 96 padded to 64 and 128 with zero channels, exact:
-`ops/padding.py`); the backward kernel takes C = 64 (`TRAIN_C`) alone, and
-a call under grad on the card at another C raises before any launch.
+in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward and backward
+kernels take every C of `ops/library.py::CHANNELS` in any num_heads and any
+G that divide C (C = 48 and 96 padded to 64 and 128 with zero channels,
+exact: `ops/padding.py`); a call on the card at another C raises before any
+launch, under grad too.
 """
 
 from __future__ import annotations
@@ -342,7 +342,7 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
     parameter): under grad the backward is `ops/ftf_bwd.py::fused_ftf_bwd`
     on the saved hiddens, or, with key_bias, the f32 recompute. On the
     card the backward kernel's widths are checked before the forward
-    launches (`check_backward_shapes`: C = 64 alone)."""
+    launches (`check_backward_shapes`: C of the channel set)."""
     if (x.device.type == "cuda" and key_bias is None
             and torch.is_grad_enabled()
             and any(t.requires_grad for t in (x, ln1_scale, ln1_bias, w_ih,

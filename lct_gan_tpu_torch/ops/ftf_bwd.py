@@ -17,12 +17,16 @@ On a CUDA tensor it launches the hand-written kernels of `csrc/ftf_bwd.cu`
 (their bound on the H100 and what each design does about it are noted
 there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
 tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
-(`lct_ftf_backward_f32`, `simt-f32`), at C = 64 (`ops/library.py::
-TRAIN_C`: no other width builds it) in any number of heads and GRU groups
-that divides 64 (`check_backward_shapes`, `ops/library.py::
-check_kernel_widths`). The wrapper packs the GRU weights
-into the kernels' slots (`ops/gru.py::pack_gru_slots`) and takes the
-gradients apart again (`unpack_gru_slot_grads`). On a CPU tensor it
+(`lct_ftf_backward_f32`, `simt-f32`), at every C of `ops/library.py::
+CHANNELS` (each width's library built at its first backward, `ops/_build.py`)
+in any number of heads and GRU groups that divides C
+(`check_backward_shapes`, `ops/library.py::check_kernel_widths`). The
+wrapper hands the kernels the forward's operands (`ops/ftf.py::
+kernel_operands`: at C = 48 and 96 zero-padded to 64 and 128, the GRU
+weights packed into the kernels' slots), the hiddens and the cotangent
+padded alike, and takes the gradients apart again
+(`ops/gru.py::unpack_gru_slot_grads`, then the inverses of the pads,
+`ops/padding.py::unpad_*`; exact, as that module says). On a CPU tensor it
 computes
 `ftf_bwd_reference`, its plain PyTorch version: the same hand-derived
 backward, rounding every GEMM operand to bf16 where the TPU kernel does (its
@@ -43,14 +47,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from lct_gan_tpu_torch.ops import padding
 from lct_gan_tpu_torch.ops.attention import kernel_design
-from lct_gan_tpu_torch.ops.gru import (gru_slot, pack_gru_slots,
-                                       round_bf16, unpack_gru_slot_grads)
-from lct_gan_tpu_torch.ops.library import (TRAIN_C, check_kernel_widths,
-                                           define_op)
+from lct_gan_tpu_torch.ops.gru import (gru_slot, round_bf16,
+                                       unpack_gru_slot_grads)
+from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
 __all__ = ["fused_ftf_bwd", "ftf_bwd_reference", "ftf_bwd_op",
-           "ftf_bwd_plain", "ftf_bwd_scratch_bytes", "check_backward_shapes"]
+           "ftf_bwd_plain", "ftf_bwd_scratch_bytes", "check_backward_shapes",
+           "true_gradients"]
 
 
 def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -209,35 +214,42 @@ def ftf_bwd_reference(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
 
 
 _P = ctypes.c_void_p
-# 17 inputs, 15 gradients, the scratch; N; L, D, lin_in, lookback, (f32
-# only: precise,) num_heads, slots, device; the stream.
-_BWD_ARGTYPES = {
-    True: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [_P],
-    False: [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]}
+# lct_ftf_backward_bf16 and _f32 alike: 17 inputs, 15 gradients, the
+# scratch; N; L, D, lin_in, lookback, num_heads, slots, device; the stream.
+_BWD_ARGTYPES = [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]
+
+
+def _kernel_slots(C: int, groups: int) -> int:
+    """GRU slots the kernels of width C run `groups` groups in (their
+    padded group count at C = 48 and 96)."""
+    CK = padding.kernel_width(C)
+    return CK // gru_slot(padding.padded_groups(C, groups), CK)
 
 
 def ftf_bwd_scratch_bytes(N: int, L: int, D: int, lin_in: int,
                           precise: bool, num_heads: int = 4,
-                          groups: int = 4) -> int:
+                          groups: int = 4, C: int = 64) -> int:
     """Bytes of device scratch one `fused_ftf_bwd` launch of this shape
-    takes in a mode: f32 intermediates of every stage (precise), or the
-    tensor-core design's bf16 intermediates and partial sums (bf16: the
-    softmax statistics grow with num_heads, the GRU weights' partial sums
-    with the slot width of `groups`, its partial rows follow the current
-    card's grid sizes). Needs the card."""
+    takes in a mode, for a block of C channels (lin_in = 2C or C) in
+    num_heads heads and `groups` GRU groups: f32 intermediates of every
+    stage (precise), or the tensor-core design's bf16 intermediates and
+    partial sums (bf16: the softmax statistics grow with the head count,
+    the GRU weights' partial sums with the slot width, its partial rows
+    follow the current card's grid sizes). Needs the card."""
     from lct_gan_tpu_torch.ops._build import kernel_function
 
-    slots = TRAIN_C // gru_slot(groups)
+    slots = _kernel_slots(C, groups)
     if precise:
         fn = kernel_function("ftf_bwd", "lct_ftf_backward_scratch_floats",
-                             [ctypes.c_longlong] + [ctypes.c_int] * 4)
+                             [ctypes.c_longlong] + [ctypes.c_int] * 4, C)
         fn.restype = ctypes.c_longlong
         nbytes = 4 * int(fn(N, L, D, num_heads, slots))
     else:
         fn = kernel_function("ftf_bwd", "lct_ftf_backward_bf16_scratch_bytes",
-                             [ctypes.c_longlong] + [ctypes.c_int] * 5)
+                             [ctypes.c_longlong] + [ctypes.c_int] * 5, C)
         fn.restype = ctypes.c_longlong
-        nbytes = int(fn(N, L, D, lin_in, num_heads, slots))
+        nbytes = int(fn(N, L, D, lin_in // C * padding.kernel_width(C),
+                        num_heads, slots))
     if nbytes < 0:
         raise RuntimeError("fused_ftf_bwd: no scratch size for these "
                            f"widths (num_heads={num_heads}, groups={groups}) "
@@ -265,16 +277,15 @@ def ftf_bwd_plain(x: torch.Tensor, ln1s: torch.Tensor, ln1b: torch.Tensor,
 
 def check_backward_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                           bidirectional: bool) -> None:
-    """Raise unless the FTF backward kernel takes these shapes: C = 64
-    (TRAIN_C; the message names enc_channels, the width a user sets) and
-    the forward's (`ops/ftf.py::check_kernel_shapes`: any num_heads and GRU
-    group count that divides C, through `ops/library.py::
-    check_kernel_widths`)."""
+    """Raise unless the FTF backward kernel takes these shapes: the
+    forward's (`ops/ftf.py::check_kernel_shapes`: C of the channel set, any
+    num_heads and GRU group count that divides C, through `ops/library.py::
+    check_kernel_widths`); a C outside the set is refused naming
+    enc_channels, the width a user sets."""
     from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
 
-    check_kernel_widths(f"{name} kernel", x.shape[-1], channels=(TRAIN_C,),
-                        hint=" (the bottleneck, enc_channels[-1]: the FTF "
-                             "backward kernel trains 64 channels alone)")
+    check_kernel_widths(f"{name} kernel", x.shape[-1],
+                        hint=" (the bottleneck, enc_channels[-1])")
     check_kernel_shapes(name, x, w_ih, lin_w, num_heads, bidirectional)
 
 
@@ -289,11 +300,30 @@ def _ftf_bwd_fake(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
         out_w, out_b, lin_w, lin_b))
 
 
+def true_gradients(grads, C: int, groups: int, num_heads: int):
+    """The 15 gradients of the padded block (`ops/ftf.py::kernel_operands`'s
+    operands, the GRU's already out of its slots) at the true block's
+    channels: the inverse of each pad (`ops/padding.py::unpad_*`), or the
+    gradients as they are where C needs no padding."""
+    cidx = padding.channel_map(C, groups)
+    if cidx is None:
+        return tuple(grads)
+    CK, hidx = padding.kernel_width(C), padding.head_map(C, num_heads)
+    return (padding.unpad_last(grads[0], cidx),
+            *padding.unpad_ln(*grads[1:3], cidx),
+            *padding.unpad_gru(*grads[3:7], C, groups),
+            *padding.unpad_ln(*grads[7:9], cidx),
+            *padding.unpad_in_proj(*grads[9:11], cidx, hidx, CK),
+            *padding.unpad_out_proj(*grads[11:13], hidx, cidx),
+            *padding.unpad_lin(*grads[13:15], cidx, CK))
+
+
 def _ftf_bwd_cuda(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
                   in_b, out_w, out_b, lin_w, lin_b, hid, dout, bidirectional,
                   num_heads, lookback, precise):
     from lct_gan_tpu_torch.ops._build import (f32_operand, kernel_function,
                                               raise_on_error)
+    from lct_gan_tpu_torch.ops.ftf import kernel_operands
 
     args = (x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w, in_b,
             out_w, out_b, lin_w, lin_b, hid, dout)
@@ -313,27 +343,33 @@ def _ftf_bwd_cuda(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
              "ln2_scale", "ln2_bias", "in_w", "in_b", "out_w", "out_b",
              "lin_w", "lin_b", "hid", "dout")
     ops = [f32_operand(n, t, s, dev) for n, t, s in zip(names, args, shapes)]
-    ops[3:7] = pack_gru_slots(*ops[3:7])
-    slots = ops[3].shape[1]
+    CK = padding.kernel_width(C)
+    # The forward's operands at the kernels' width (C = 48, 96 padded), the
+    # GRU packed into slots; hid and dout padded as x is.
+    kops, cidx = kernel_operands([*ops[:15], None], num_heads)
+    kops = kops[:15] + [ops[15], ops[16]]
+    if cidx is not None:
+        kops[15:] = [padding.pad_last(t, cidx, CK) for t in ops[15:]]
+    slots = kops[3].shape[1]
     grads = [torch.empty(t.shape, device=dev, dtype=torch.float32)
-             for t in ops[:15]]
+             for t in kops[:15]]
     with torch.cuda.device(dev):
         nbytes = ftf_bwd_scratch_bytes(N, L, D, lin_in, precise, num_heads,
-                                       G)
+                                       G, C)
     scratch = torch.empty((nbytes,), device=dev, dtype=torch.uint8)
     entry = "lct_ftf_backward_f32" if precise else "lct_ftf_backward_bf16"
-    fn = kernel_function("ftf_bwd", entry, _BWD_ARGTYPES[precise])
-    mode = (1,) if precise else ()
-    err = fn(*(t.data_ptr() for t in ops), *(t.data_ptr() for t in grads),
-             scratch.data_ptr(), N, L, D, lin_in,
-             -1 if lookback is None else lookback, *mode, num_heads, slots,
+    fn = kernel_function("ftf_bwd", entry, _BWD_ARGTYPES, C)
+    err = fn(*(t.data_ptr() for t in kops), *(t.data_ptr() for t in grads),
+             scratch.data_ptr(), N, L, D, lin_in // C * CK,
+             -1 if lookback is None else lookback, num_heads, slots,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "ftf_bwd", "fused_ftf_bwd kernel launch")
+    raise_on_error(err, "ftf_bwd", "fused_ftf_bwd kernel launch", C)
     fused_ftf_bwd.launches += 1
     fused_ftf_bwd.design = kernel_design(precise)
-    grads[3:7] = unpack_gru_slot_grads(*grads[3:7], G)
-    return tuple(grads)
+    grads[3:7] = unpack_gru_slot_grads(*grads[3:7],
+                                       padding.padded_groups(C, G))
+    return true_gradients(grads, C, G, num_heads)
 
 
 # The operator -> the 15 gradients (no autograd of its own).
@@ -346,14 +382,15 @@ def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
                   bidirectional: bool, num_heads: int = 4,
                   lookback: Optional[int] = None,
                   precise: bool = False) -> Tuple[torch.Tensor, ...]:
-    """FTF block backward: x, dout [N, L, 64], hid [D, N*L, 64] (the
+    """FTF block backward: x, dout [N, L, C], hid [D, N*L, C] (the
     forward's unrounded per-direction hiddens), num_heads heads and G GRU
-    groups (w_ih [D, G, 64/G, 3*64/G]), each dividing 64 -> the 15
-    gradients of `ftf_bwd_reference`, all f32: the op
+    groups (w_ih [D, G, C/G, 3*C/G]), each dividing C -> the 15 gradients
+    of `ftf_bwd_reference`, all f32: the op
     `torch.ops.lct_gan_tpu_torch.fused_ftf_bwd`.
 
     CPU tensors: `ftf_bwd_reference(..., precise=precise)`. CUDA tensors:
-    the kernels of csrc/ftf_bwd.cu, each launch counted in
+    the kernels of csrc/ftf_bwd.cu (C of `ops/library.py::CHANNELS`, else
+    it raises before any launch), each launch counted in
     `fused_ftf_bwd.launches`, the design recorded in `fused_ftf_bwd.design`.
     Deterministic: parameter gradients are summed over fixed row chunks,
     then over the chunks in a fixed order."""

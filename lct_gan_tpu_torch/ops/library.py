@@ -9,26 +9,25 @@ counts the launch), and a fake implementation gives the output shapes, so
 registered on the dispatcher directly (`Library.impl`), the thinnest
 route from a call to the Python kernel: each launch pays one dispatch.
 
-The widths every CUDA kernel takes live here too (`CHANNELS`, `TRAIN_C`,
-`divisors`, `check_kernel_widths`): each operator's checks and the model
-layer's (`models/generator.py::check_card_widths`) call the one check.
+The widths every CUDA kernel takes live here too (`CHANNELS`, `divisors`,
+`check_kernel_widths`): each operator's checks and the model layer's
+(`models/generator.py::check_card_widths`) call the one check.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NAMESPACE", "define_op", "CHANNELS", "TRAIN_C", "divisors",
+__all__ = ["NAMESPACE", "define_op", "CHANNELS", "divisors",
            "check_kernel_widths"]
 
 NAMESPACE = "lct_gan_tpu_torch"
 
-# The bottleneck widths the forward CUDA kernels take (each builds its own
-# libraries, ops/_build.py), split into any number of attention heads or
-# GRU groups that divides C (the JAX package's kernels read all three from
-# their shapes). The FTF backward kernel takes TRAIN_C alone.
+# The bottleneck widths the CUDA kernels take, forward and backward (each
+# builds its own libraries, ops/_build.py), split into any number of
+# attention heads or GRU groups that divides C (the JAX package's kernels
+# read all three from their shapes).
 CHANNELS = (16, 32, 48, 64, 96, 128)
-TRAIN_C = 64
 
 
 def divisors(C: int) -> tuple:
@@ -53,15 +52,15 @@ def define_op(name: str, plain, cuda, fake):
 
 def check_kernel_widths(what: str, C: int, *, num_heads=None, groups=None,
                         names=("C", "num_heads", "GRU groups"),
-                        hint: str = "", channels=CHANNELS) -> None:
-    """Raise unless the CUDA kernels take C channels (one of `channels`:
-    the forward's set, or (TRAIN_C,) for the backward) in `num_heads` heads
-    and `groups` GRU groups (each checked when given: a divisor of C). The
-    message says "<what> takes ..." and names the three widths `names` (a
-    kernel's own argument names, or the flags a user sets), then `hint`."""
+                        hint: str = "") -> None:
+    """Raise unless the CUDA kernels take C channels (one of CHANNELS) in
+    `num_heads` heads and `groups` GRU groups (each checked when given: a
+    divisor of C). The message says "<what> takes ..." and names the three
+    widths `names` (a kernel's own argument names, or the flags a user
+    sets), then `hint`."""
     c_name, heads_name, groups_name = names
-    if C not in channels:
-        raise ValueError(f"{what} takes {c_name} in {tuple(channels)}, got "
+    if C not in CHANNELS:
+        raise ValueError(f"{what} takes {c_name} in {CHANNELS}, got "
                          f"{c_name}={C}{hint}")
     for name, n in ((heads_name, num_heads), (groups_name, groups)):
         if n is not None and n not in divisors(C):

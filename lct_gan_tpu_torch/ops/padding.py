@@ -18,6 +18,22 @@ LayerNorm sum, a GRU unit with zero weights and biases stays 0 (r = z =
 1/2, n = tanh(0) = 0), and a zero head's context is 0 whatever its
 probabilities. The padded output channels come out 0 and are dropped.
 
+The backward (`ops/ftf_bwd.py`) takes the same padded operands, the
+forward's padded hiddens (0 on every padded unit) and the cotangent padded
+with zeros, and gathers the 15 gradients back to the true channels with
+the inverse of each `pad_*` (`unpad_*`: every true entry from the one place
+its pad put it, the rest dropped). That is exact: each pad places every
+true entry at one position with weight 1 and fixes the others at 0, so the
+gradient of the true block is the padded block's gradient read at those
+positions; and nothing leaks from a padded position into a true one. A
+padded channel's cotangent and weights are 0, so its products add 0 to
+every true gradient; a padded GRU unit's dh (nonzero: it carries the
+LayerNorm backward's value there, bounded, as r = z = 1/2 and n = 0 keep
+its factors finite) reaches a true unit only through W_hh and W_ih entries
+that are 0; the LayerNorm backward's means run over the C true channels,
+where a padded channel's scale, and so its term, is 0. The padded
+positions' own dx and gradients are the dropped part.
+
 A power-of-two C needs none of this: `channel_map` and `head_map` return
 None there and the wrappers hand the tensors over as they are.
 """
@@ -31,7 +47,8 @@ import torch
 
 __all__ = ["kernel_width", "channel_map", "head_map", "padded_groups",
            "pad_last", "pad_gru", "pad_ln", "pad_in_proj", "pad_out_proj",
-           "pad_lin"]
+           "pad_lin", "unpad_last", "unpad_gru", "unpad_ln", "unpad_in_proj",
+           "unpad_out_proj", "unpad_lin"]
 
 
 def _pow2_ceil(v: int) -> int:
@@ -136,3 +153,57 @@ def pad_lin(lin_w: torch.Tensor, lin_b: torch.Tensor, idx: torch.Tensor,
     w = pad_last(lin_w, idx, width)
     w = pad_last(w.t(), rows, k * width).t().contiguous()
     return w, pad_last(lin_b, idx, width)
+
+
+# The inverses, for gradients: each returns the true entries of a padded
+# tensor from where the matching pad_* put them (the padded ones dropped).
+
+def unpad_last(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t [..., width] -> [..., C]: the channels at `idx`."""
+    return t.index_select(-1, _on(idx, t))
+
+
+def unpad_ln(dscale: torch.Tensor, dbias: torch.Tensor, idx: torch.Tensor):
+    return unpad_last(dscale, idx), unpad_last(dbias, idx)
+
+
+def unpad_gru(dw_ih, dw_hh, db_ih, db_hh, C: int, groups: int):
+    """pad_gru's inverse: [D, G', gw', 3gw'] / [D, G', 3gw'] -> the G =
+    `groups` groups' [D, G, gw, 3gw] / [D, G, 3gw] (gw = C / G)."""
+    D, G2, gw2, _ = dw_ih.shape
+    gw = C // groups
+
+    def mat(w):
+        return w.reshape(D, G2, gw2, 3, gw2)[:, :groups, :gw, :, :gw] \
+            .reshape(D, groups, gw, 3 * gw)
+
+    def vec(b):
+        return b.reshape(D, G2, 3, gw2)[:, :groups, :, :gw].reshape(
+            D, groups, 3 * gw)
+
+    return mat(dw_ih), mat(dw_hh), vec(db_ih), vec(db_hh)
+
+
+def unpad_in_proj(din_w: torch.Tensor, din_b: torch.Tensor,
+                  rows: torch.Tensor, heads: torch.Tensor, width: int):
+    """pad_in_proj's inverse: [CK, 3CK], [3CK] -> [C, 3C], [3C]."""
+    cols = _on(torch.cat([heads + s * width for s in range(3)]), din_w)
+    w = din_w.index_select(0, _on(rows, din_w)).index_select(1, cols)
+    return w, din_b.index_select(0, cols)
+
+
+def unpad_out_proj(dout_w: torch.Tensor, dout_b: torch.Tensor,
+                   heads: torch.Tensor, cols: torch.Tensor):
+    """pad_out_proj's inverse: [CK, CK], [CK] -> [C, C], [C]."""
+    w = dout_w.index_select(0, _on(heads, dout_w)).index_select(
+        1, _on(cols, dout_w))
+    return w, unpad_last(dout_b, cols)
+
+
+def unpad_lin(dlin_w: torch.Tensor, dlin_b: torch.Tensor, idx: torch.Tensor,
+              width: int):
+    """pad_lin's inverse: [k CK, CK], [CK] -> [k C, C], [C]."""
+    k = dlin_w.shape[0] // width
+    rows = _on(torch.cat([idx + i * width for i in range(k)]), dlin_w)
+    w = dlin_w.index_select(0, rows).index_select(1, _on(idx, dlin_w))
+    return w, unpad_last(dlin_b, idx)

@@ -1,7 +1,8 @@
-"""The four forward kernels at bottleneck widths other than 64 (csrc/ftf.cu,
-mhsa.cu, banded.cu built per width, -DLCT_C; C = 48 and 96 zero-padded to
-64 and 128 by the wrappers) on the card against their plain PyTorch
-versions on the same inputs, at the edges of their shapes: one sequence,
+"""The four forward kernels and the FTF backward at bottleneck widths other
+than 64 (csrc/ftf.cu, mhsa.cu, banded.cu, ftf_bwd.cu built per width,
+-DLCT_C; C = 48 and 96 zero-padded to 64 and 128 by the wrappers) on the
+card against their plain PyTorch versions on the same inputs, at the edges
+of their shapes: one sequence,
 one step, the longest fused length, a ragged sequence count (the f32 GRU's
 warps hang over the end at C = 16), bands of 0 and past the fused banded
 kernel's reach, and the widths where the routes change (a dense GRU slot
@@ -23,6 +24,10 @@ the sequence: at C = 96 and 128 the kernel and the plain version end up
 0.02-0.10 apart (max; mean 4e-5 .. 5e-3) while each is 0.04-0.14 (max;
 mean 0.005-0.011) from f32, and precise mode agrees to 1.5e-5 (my chip
 runs, NVIDIA H100 80GB HBM3, 700.00 W). A wiring fault is O(1) from f32.
+The backward's 15 gradients are held as chip_smoke.py holds them, each
+relative to its largest magnitude, the cotangent zeroed near the
+LeakyReLU's kink; in bf16 a gradient past the band may instead show that
+it is as accurate as the plain version's, against the f32 plain backward.
 """
 
 import pytest
@@ -31,7 +36,9 @@ import torch
 from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
 from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
                                                     banded_mhsa_reference)
-from lct_gan_tpu_torch.ops.ftf import ftf_block_reference, fused_ftf_block
+from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference, fused_ftf_block,
+                                       ftf_forward_with_hidden)
+from lct_gan_tpu_torch.ops.ftf_bwd import ftf_bwd_plain, fused_ftf_bwd
 from lct_gan_tpu_torch.ops.gru import fused_grouped_gru, grouped_gru_plain
 
 pytestmark = pytest.mark.cuda
@@ -49,7 +56,7 @@ def card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from lct_gan_tpu_torch.ops._build import build_all
 
-    build_all(verbose=True, widths=WIDTHS)
+    build_all(verbose=True, widths=WIDTHS, backward=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -155,3 +162,43 @@ def test_banded_at_every_route(card, C, nh, G, S, W, mode):
     torch.cuda.synchronize()
     _close(got, banded_mhsa_reference(x, *p, **kw), mode,
            f"banded C={C} heads={nh} S={S} W={W}")
+
+
+@pytest.mark.parametrize("mode", ["bf16", "precise"])
+@pytest.mark.parametrize("N,L", [(1, 1), (5, 17), (2, 512)])
+@pytest.mark.parametrize("kind", ["freq", "time_lookback"])
+@pytest.mark.parametrize("C,nh,G", ROUTES)
+def test_ftf_backward_at_every_route(card, C, nh, G, kind, N, L, mode):
+    g = torch.Generator().manual_seed(C * 1000 + nh * 10 + G + L + 7)
+    D = 2 if kind == "freq" else 1
+    x = torch.randn((N, L, C), generator=g).cuda()
+    params = [p.cuda() for p in _ftf_params(g, C, G, D)]
+    lookback = 3 if kind == "time_lookback" else None
+    precise = mode == "precise"
+    out, hid = ftf_forward_with_hidden(x, *params, bidirectional=D == 2,
+                                       num_heads=nh, lookback=lookback,
+                                       precise=precise)
+    act = out - x - hid.sum(dim=0).reshape(N, L, C)
+    comb = torch.where(act >= 0, act, act / 0.2)
+    dout = torch.randn((N, L, C), generator=g).cuda()
+    dout = torch.where(comb.abs() < (1e-3 if precise else 5e-2), 0.0, dout)
+    args = (x, *params, hid, dout, D == 2, nh, lookback)
+    before = fused_ftf_bwd.launches
+    got = fused_ftf_bwd(*args[:17], bidirectional=D == 2, num_heads=nh,
+                        lookback=lookback, precise=precise)
+    torch.cuda.synchronize()
+    assert fused_ftf_bwd.launches == before + 1
+    want = ftf_bwd_plain(*args, precise)
+    ref32 = ftf_bwd_plain(*args, True) if not precise else want
+    what = f"FTF backward C={C} heads={nh} groups={G} {kind} N={N} L={L}"
+    for i, (a, b, r) in enumerate(zip(got, want, ref32)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), (what, i)
+        scale = max(b.abs().max().item(), 1e-30)
+        if (a - b).abs().max().item() <= TOL[mode] * scale:
+            continue
+        assert not precise, (what, i, (a - b).abs().max().item() / scale)
+        dk, dp = (a - r).abs(), (b - r).abs()
+        assert dk.max() <= 2 * dp.max() and dk.mean() <= 2 * dp.mean(), (
+            f"{what} gradient {i}: |kernel - f32| max {dk.max().item()} "
+            f"mean {dk.mean().item()} against the plain version's "
+            f"{dp.max().item()} / {dp.mean().item()}")

@@ -54,6 +54,7 @@ from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
                                                     banded_mhsa_reference)
 from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference, fused_ftf_block,
                                        kernel_operands)
+from lct_gan_tpu_torch.ops.ftf_bwd import check_backward_shapes
 from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru, grouped_gru,
                                        grouped_gru_plain, gru_kernel_operands)
 from lct_gan_tpu_torch.ops.library import CHANNELS, divisors
@@ -300,45 +301,50 @@ def test_zero_padded_gru_units_compute_the_same_gru(C, G):
 
 
 def test_card_widths_take_the_channel_set():
-    """Serving on the card takes every C of the channel set with every
-    divisor pair of heads and groups; C = 40 and 144 are refused naming
-    enc_channels; training takes C = 64 alone (48 refused, naming
-    enc_channels). Decided from the device argument: no card is
-    queried."""
+    """Serving and training on the card take every C of the channel set
+    with every divisor pair of heads and groups; C = 40 and 144 are refused
+    for both, naming enc_channels and the set. Decided from the device
+    argument: no card is queried."""
     def cfg(C, nh=4, G=4):
         return LCTGeneratorConfig(enc_channels=(16, 32, C),
                                   dec_channels=(C, 32, 16), num_heads=nh,
                                   gru_groups=G)
 
-    for C in CHANNELS:
-        for nh in divisors(C):
-            for G in divisors(C):
-                check_card_widths(cfg(C, nh, G), "cuda", training=False)
-    for C in (40, 144):
-        with pytest.raises(ValueError, match=r"enc_channels.*got "
-                                             rf"enc_channels\[-1\]={C}"):
-            check_card_widths(cfg(C), "cuda:0", training=False)
-        check_card_widths(cfg(C), "cpu", training=False)
-    with pytest.raises(ValueError, match=r"enc_channels\[-1\] in \(64,\)"):
-        check_card_widths(cfg(48, 3, 3), torch.device("cuda", 0),
-                          training=True)
-    check_card_widths(cfg(48, 3, 3), "cpu", training=True)
-    check_card_widths(cfg(64, 8, 2), "cuda", training=True)
+    for training in (False, True):
+        for C in CHANNELS:
+            for nh in divisors(C):
+                for G in divisors(C):
+                    check_card_widths(cfg(C, nh, G), "cuda",
+                                      training=training)
+        for C in (40, 144):
+            with pytest.raises(ValueError, match=(
+                    r"enc_channels\[-1\] in \(16, 32, 48, 64, 96, 128\), "
+                    rf"got enc_channels\[-1\]={C}")):
+                check_card_widths(cfg(C), "cuda:0", training=training)
+            check_card_widths(cfg(C), "cpu", training=training)
+    check_card_widths(cfg(48, 3, 3), torch.device("cuda", 0), training=True)
 
 
 def test_grad_on_the_card_is_refused_before_any_launch():
-    """fused_ftf_block under grad on a CUDA tensor at C != 64 raises in the
-    backward kernel's check (naming enc_channels) before the forward
-    launches; the check is on shapes alone (fake CUDA tensors)."""
+    """fused_ftf_block under grad on a CUDA tensor at a C outside the
+    channel set (40) raises in the backward kernel's check (naming
+    enc_channels) before the forward launches; on shapes alone (fake CUDA
+    tensors). The same check takes C = 48 at 3 heads and 3 groups."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    x, p, kb, kw = _ftf_inputs(48, 3, 3, "freq")
+    _, _, _, kw = _ftf_inputs(48, 3, 3, "freq")
+    shapes = {C: [_ftf_params(np.random.default_rng(0), True, G, C)[k].shape
+                  for k in ORDER] for C, G in ((40, 4), (48, 3))}
     with FakeTensorMode():
-        xs = torch.empty(x.shape, device="cuda")
-        ps = [torch.empty(p[k].shape, device="cuda").requires_grad_()
-              for k in ORDER]
-        with pytest.raises(ValueError, match="enc_channels"):
+        xs = torch.empty((12, 17, 40), device="cuda")
+        ps = [torch.empty(s, device="cuda").requires_grad_()
+              for s in shapes[40]]
+        with pytest.raises(ValueError, match=r"C=40.*enc_channels"):
             fused_ftf_block(xs, *ps, precise=False, **kw)
+    x48 = torch.zeros((12, 17, 48), device="meta")
+    check_backward_shapes("fused_ftf_block under grad", x48,
+                          torch.zeros(shapes[48][2], device="meta"),
+                          torch.zeros(shapes[48][12], device="meta"), 3, True)
 
 
 def test_per_width_build_command():
@@ -361,6 +367,8 @@ def test_per_width_build_command():
         assert cmd[:len(_build.NVCC_FLAGS) + 1] == ["nvcc",
                                                     *_build.NVCC_FLAGS]
         assert _build.library_sources(C) == ["banded", "ftf", "mhsa"]
+        assert _build.library_sources(C, backward=True) == [
+            "banded", "ftf", "ftf_bwd", "mhsa"]
         path = _build.library_path("ftf", C, tag)
         assert path.endswith(f"/libftf-c{C}-{tag}.so")
         paths.add(path)

@@ -326,19 +326,18 @@ def test_backward_check_takes_only_4_heads_and_4_groups():
 
 @pytest.mark.parametrize("training", [False, True])
 def test_c48_is_refused_on_the_card_naming_enc_channels(training):
-    """Training refuses C = 48 on the card (the backward kernel takes 64
-    alone); serving takes it since the forward kernels were built per
-    width, and refuses C = 40 instead, outside the channel set."""
+    """C = 48 was refused on the card while a kernel lacked that width (the
+    name is kept from then); serving and training both take it now that
+    the forward and backward kernels are built per width, and refuse C =
+    40 instead, outside the channel set, naming enc_channels."""
     cfg = LCTGeneratorConfig(enc_channels=(16, 32, 48),
                              dec_channels=(48, 32, 16))
     c40 = LCTGeneratorConfig(enc_channels=(16, 32, 40),
                              dec_channels=(40, 32, 16))
-    refused = cfg if training else c40
     with pytest.raises(ValueError, match=r"enc_channels"):
-        check_card_widths(refused, "cuda", training=training)
-    if not training:
-        check_card_widths(cfg, "cuda", training=False)
-    check_card_widths(refused, "cpu", training=training)  # the plain path
+        check_card_widths(c40, "cuda", training=training)
+    check_card_widths(cfg, "cuda", training=training)
+    check_card_widths(c40, "cpu", training=training)  # the plain path
 
 
 def test_card_widths_are_decided_from_the_device_argument():
@@ -389,8 +388,8 @@ def _c_params(source):
     ("mhsa.cu", "lct_mhsa_forward_f32", _MHSA_ARGTYPES[True]),
     ("banded.cu", BANDED_ENTRY[False][0], BANDED_ENTRY[False][1]),
     ("banded.cu", BANDED_ENTRY[True][0], BANDED_ENTRY[True][1]),
-    ("ftf_bwd.cu", "lct_ftf_backward_bf16", _BWD_ARGTYPES[False]),
-    ("ftf_bwd.cu", "lct_ftf_backward_f32", _BWD_ARGTYPES[True]),
+    ("ftf_bwd.cu", "lct_ftf_backward_bf16", _BWD_ARGTYPES),
+    ("ftf_bwd.cu", "lct_ftf_backward_f32", _BWD_ARGTYPES),
 ])
 def test_entry_points_take_the_widths(source, entry, argtypes):
     """Each forward and backward entry point is declared with as many
