@@ -23,9 +23,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            the same band at S = 772, the crossover witness, whose stages are
            taken too; both kernels timed with that band at S = 516 and 644);
            fused_grouped_gru (LN1 + the composed time block's GRU, all
-           f32) at the 131,072- and 163,840-sample buckets' time blocks,
-           also against one cuDNN torch.nn.GRU(64, 64) call with
-           block-diagonal weights; fused_ftf_bwd at the B=64 x
+           f32, one launch; within TOL_GRU = 1e-5) at the 131,072- and
+           163,840-sample buckets' time blocks and the banded
+           917,504-sample call's (N = 132, L = 3,588), each with its
+           sequential floor (the same call on one sequence), also against
+           one cuDNN torch.nn.GRU(64, 64) call with block-diagonal weights,
+           and one sequence of each slot kind the kernel runs; fused_ftf_bwd at the B=64 x
            2 s training shapes (all 15 gradients, relative to each one's
            largest magnitude; its lines also carry the design, the device
            ms of each stage, from one torch.profiler pass, and the bytes of
@@ -194,11 +197,21 @@ SR = 16000
 #     one bf16 ulp (2^-8 relative). 3e-2 is the JAX package's own band for
 #     its bf16 kernel (tests/test_pallas_ftf.py); a wiring fault is O(1).
 TOL = {"precise": 1e-3, "bf16": 3e-2}
+# fused_grouped_gru against grouped_gru_plain, both all f32 in every mode:
+# only the sums' order and a few ulps of the kernel's ex2 / reciprocal
+# gates differ, and the GRU's gates keep them from growing along L.
+TOL_GRU = 1e-5
 # Enhancer on the card (kernels) vs on the CPU (plain path), both bf16 mode:
 # the mask is a sigmoid in [0, 1], the waveform ~0.1 * N(0, 1) input times a
 # decompressed mask (d(m^(1/0.3)) <= 3.4 dm).
 TOL_MASK = 2e-2
 TOL_WAVE = 1e-2
+
+
+def tol_of(kernel, mode):
+    """The tolerance a kernel's cases are held to in `mode`."""
+    return TOL_GRU if kernel == "fused_grouped_gru" else TOL[mode]
+
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "precise": 67e12}   # tensor-core bf16; f32
@@ -467,6 +480,16 @@ def check_kernels(torch, enhancer):
         emit({"phase": "kernels", "kernel": "fused_grouped_gru", **res})
         del x, kb
         torch.cuda.empty_cache()
+    # ... and at the banded 917,504-sample call's time block (4 rows x 33,
+    # S = 3,588): few chains, each 3,588 steps long.
+    x = torch.randn((132, 3588, 64), generator=g, device="cuda")
+    res = check_grouped_gru(torch, gen.GRUt1, x, exp_floor_ms)
+    results["fused_grouped_gru"].append(res)
+    emit({"phase": "kernels", "kernel": "fused_grouped_gru", **res})
+    del x
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "fused_grouped_gru",
+          **check_gru_chains(torch, g)})
 
     # Banded time blocks (W = 64) of the 196,608- and 917,504-sample buckets
     # (adaptive rows 20 and 4; bottleneck S = 772 and 3,588). The key-masked
@@ -578,11 +601,54 @@ def library_gru(torch, n1, w_ih, w_hh, b_ih, b_hh):
     return ms, out
 
 
+def gru_kernel_slot(C, groups):
+    """The slot width fused_grouped_gru's kernel runs `groups` groups of C
+    channels in: each group's width once the wrapper has padded it to a
+    power of two (ops/padding.py), or 16 holding narrower groups."""
+    from lct_gan_tpu_torch.ops.padding import kernel_width, padded_groups
+
+    return max(16, kernel_width(C) // padded_groups(C, groups))
+
+
+def check_gru_chains(torch, g, L=516):
+    """fused_grouped_gru on one sequence of L steps (one block: nothing
+    overlaps its steps) for each slot kind the kernel runs: 16 (C = 64, 4
+    groups), 32 (2 groups), a dense 64 (1 group), two of 64 and one of 128
+    at C = 128, each within TOL_GRU of the plain version. Returns the
+    measured ms and ns a step of each."""
+    from lct_gan_tpu_torch.ops.gru import fused_grouped_gru, grouped_gru_plain
+
+    chains = []
+    for C, G in ((64, 4), (64, 2), (64, 1), (128, 2), (128, 1)):
+        H = C // G
+
+        def u(*s):
+            return 0.25 * (2 * torch.rand(s, generator=g, device="cuda") - 1)
+
+        params = [1 + 0.1 * u(C), 0.1 * u(C), u(1, G, H, 3 * H),
+                  u(1, G, H, 3 * H), u(1, G, 3 * H), u(1, G, 3 * H)]
+        x = torch.randn((1, L, C), generator=g, device="cuda")
+        out = fused_grouped_gru(x, *params, bidirectional=False)
+        torch.cuda.synchronize()
+        err = (out - grouped_gru_plain(x, *params, False)).abs().max().item()
+        if not (err <= TOL_GRU) or not torch.isfinite(out).all():
+            raise AssertionError(f"fused_grouped_gru chain C={C} groups={G}: "
+                                 f"max|diff| {err} > {TOL_GRU}")
+        ms = cuda_ms(torch, lambda: fused_grouped_gru(
+            x, *params, bidirectional=False), 5)
+        chains.append({"C": C, "groups": G, "slot": gru_kernel_slot(C, G),
+                       "max_abs_err": err, "ms": ms, "step_ns": ms * 1e6 / L})
+    return {"case": f"chains N1 L{L}", "mode": "precise", "tol": TOL_GRU,
+            "chains": chains}
+
+
 def check_grouped_gru(torch, block, x, exp_floor_ms):
     """fused_grouped_gru (one direction, all f32 in every mode) against its
-    plain version on x [N, L, 64], timed beside its bound, the plain loop
-    and one cuDNN GRU call on the LN1 output."""
-    from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
+    plain version on x [N, L, 64] within TOL_GRU, timed beside its bound,
+    its sequential floor (measured: the same call on x's first sequence,
+    one block, whose L steps nothing overlaps), the plain loop and one
+    cuDNN GRU call on the LN1 output."""
+    from lct_gan_tpu_torch.ops.gru import (GRU_DESIGN, fused_grouped_gru,
                                            grouped_gru_plain, layer_norm)
 
     params = [p.detach().contiguous() for p in block.kernel_params()[:6]]
@@ -592,12 +658,15 @@ def check_grouped_gru(torch, block, x, exp_floor_ms):
     torch.cuda.synchronize()
     ref = grouped_gru_plain(x, *params, False)
     err = (out - ref).abs().max().item()
-    if not (err <= TOL["precise"]) or not torch.isfinite(out).all():
-        raise AssertionError(f"fused_grouped_gru L={L}: max|diff| {err} > "
-                             f"{TOL['precise']}")
+    if not (err <= TOL_GRU) or not torch.isfinite(out).all():
+        raise AssertionError(f"fused_grouped_gru N={N} L={L}: max|diff| "
+                             f"{err} > {TOL_GRU}")
     del ref
     ms = cuda_ms(torch, lambda: fused_grouped_gru(
         x, *params, bidirectional=False), 5)
+    x1 = x[:1].contiguous()
+    seq_floor_ms = cuda_ms(torch, lambda: fused_grouped_gru(
+        x1, *params, bidirectional=False), 5)
     plain_ms = cuda_ms(torch, lambda: grouped_gru_plain(x, *params, False), 1)
     torch.cuda.empty_cache()
     # Products: the grouped input and hidden projections, 2 x 4 x 16 x 48
@@ -610,9 +679,10 @@ def check_grouped_gru(torch, block, x, exp_floor_ms):
     lib_err = (lib_out - out).abs().max().item()
     del out, lib_out
     torch.cuda.empty_cache()
-    return {"case": f"L{L}", "mode": "precise", "design": "simt-f32",
-            "N": N, "L": L, "max_abs_err": err, "tol": TOL["precise"],
+    return {"case": f"L{L}", "mode": "precise", "design": GRU_DESIGN,
+            "N": N, "L": L, "max_abs_err": err, "tol": TOL_GRU,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "seq_floor_ms": seq_floor_ms,
             "exp_floor_ms": exp_floor_ms(rows * 64 * 3),
             "library_ms": lib_ms, "library_max_abs_err": lib_err,
             "flops": flops}
@@ -971,9 +1041,10 @@ def width_case(torch, kernel, name, fn, plain, mode, shape, flops, padded,
     torch.cuda.synchronize()
     ref = plain()
     err = (out - ref).abs().max().item()
-    if not (err <= TOL[mode]) or not torch.isfinite(out).all():
+    tol = tol_of(kernel, mode)
+    if not (err <= tol) or not torch.isfinite(out).all():
         raise AssertionError(f"{kernel} {name} C={C} heads={nh} groups={G} "
-                             f"{mode}: max|diff| {err} > {TOL[mode]}")
+                             f"{mode}: max|diff| {err} > {tol}")
     rel = err / max(ref.abs().max().item(), 1e-30)
     del out, ref
     torch.cuda.empty_cache()
@@ -984,7 +1055,7 @@ def width_case(torch, kernel, name, fn, plain, mode, shape, flops, padded,
     res = {"case": f"{phase} {name} h{nh} g{G}" + (
                "" if C == 64 else f" C{C}"), "mode": mode, "C": C,
            "num_heads": nh, "gru_groups": G, "N": N, "L": L, "rows": rows,
-           "max_abs_err": err, "rel_err": rel, "tol": TOL[mode],
+           "max_abs_err": err, "rel_err": rel, "tol": tol,
            "ms": cuda_ms(torch, fn, 3), "plain_ms": cuda_ms(torch, plain, 1),
            "bound_ms": bms, "bound_by": by, "padded_bound_ms": pbms,
            "padded_bound_by": pby, "flops": flops, "padded_flops": padded}
@@ -1157,7 +1228,8 @@ def check_widths(torch, np, card, seed):
         results["fused_grouped_gru"].append(width_case(
             torch, "fused_grouped_gru", f"L{L}", gru_fn,
             lambda: grouped_gru_plain(x, *params, False), "precise", (N, L),
-            rows * 4 * 192 * (64 // G), rows * 4 * 192 * gru_slot(G),
+            rows * 4 * 192 * (64 // G),
+            rows * 4 * 192 * gru_kernel_slot(64, G),
             sum(p.numel() for p in params) * 4, rows * 64 * 3, exps_per_s,
             4, G, library))
         del x
@@ -1313,10 +1385,11 @@ def check_channels(torch, np, card, seed):
         ref = plain()
         err = (out - ref).abs().max().item()
         rel = err / max(ref.abs().max().item(), 1e-30)
-        if not (err <= TOL[mode]) or not torch.isfinite(out).all():
+        tol = tol_of(kernel, mode)
+        if not (err <= tol) or not torch.isfinite(out).all():
             raise AssertionError(f"channels {kernel} {name} C={C} heads={nh} "
                                  f"groups={G} {mode}: max|diff| {err} > "
-                                 f"{TOL[mode]}")
+                                 f"{tol}")
         return {"kernel": kernel, "case": name, "C": C, "num_heads": nh,
                 "gru_groups": G, "mode": mode, "max_abs_err": err,
                 "rel_err": rel}
@@ -1478,7 +1551,8 @@ def check_channels(torch, np, card, seed):
         results["fused_grouped_gru"].append(width_case(
             torch, "fused_grouped_gru", f"L{L}", gru_fn,
             lambda: grouped_gru_plain(x, *gparams, False), "precise", (N, L),
-            rows * 4 * 3 * C * (C // G), rows * 4 * 3 * C * gru_slot(G, C),
+            rows * 4 * 3 * C * (C // G),
+            rows * 4 * 3 * C * gru_kernel_slot(C, G),
             sum(p.numel() for p in gparams) * 4, rows * C * 3, exps_per_s,
             nh, G, library, C=C, phase="channels"))
         del x, fblk, tblk

@@ -20,8 +20,10 @@
 // precise (lct_ftf_forward_f32), all f32 on CUDA cores, five kernels:
 //   proj_kernel<true> -> xp, gru_kernel -> hid, proj_kernel<false> -> qkv,
 //   attn_kernel<0> -> ctx, ftf_out_kernel -> out.
-//   lct_grouped_gru_f32 runs the first two alone: LN1 and the grouped GRU
-//   of the composed time block above L = 512 (ops/gru.py).
+//
+// lct_grouped_gru_f32 is LN1 and the grouped GRU of the composed time block
+// above L = 512 (ops/gru.py), all f32, in one launch of its own design
+// (gru_f32_kernel, below): no xp in device memory.
 //
 // Widths: any num_heads and any GRU group count that divide C_MODEL (the
 // library's bottleneck width, common.cuh; the kernels run at C). The GRU
@@ -587,6 +589,481 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
                                     xp, hid, N, L, D, st);
 }
 
+// ---------------------------------------------------------------------------
+// LN1, the grouped input projection and the recurrence of the composed time
+// block above L = 512, all f32, in one launch (lct_grouped_gru_f32;
+// ops/gru.py::fused_grouped_gru). It replaces no TPU kernel: the JAX package
+// runs this GRU as one lax.scan outside any Pallas kernel
+// (lct_gan_tpu/ops/gru.py:28).
+//
+// Bound on the H100 at (N, L) = (1,023, 516), C = 64, one direction: the
+// function moves x in and the hiddens out once, 270 MB (0.081 ms at 3.35
+// TB/s), and does 6.5 GFLOP of f32 products (0.097 ms at 67 TFLOP/s). Its
+// sequential floor is L times the latency of one step's dependent chain.
+// Estimated from this design's instructions for a slot of 16 (cycles, SM
+// clock): the barrier and four broadcast 16-byte loads of h (~35), 48 FMAs
+// in six chains of 8 (~50), the r gate (add, ex2, add, reciprocal: ~45),
+// n's multiply-add and tanh (~50), the new h and its store (~30): ~210
+// cycles, 0.055 ms at L = 516 at 1,980 MHz; a dense slot of 64 adds 48
+// FMAs, one shuffle level and a named barrier, ~280. Slots of 32 and 128
+// are not counted. chip_smoke.py measures the floor instead of counting
+// it: the same call on one sequence (one block), and one sequence of each
+// slot kind (check_gru_chains).
+//
+// What held the two-kernel design (proj_kernel<true> -> xp -> gru_kernel,
+// the precise FTF forward's, which keeps it) 15-17x from its bound, and what
+// this design does about each:
+//   1. xp [N L, 3C] f32 went to device memory and back (2 x 405 MB at the
+//      shape above): here it lives only in a shared-memory ring of two
+//      chunks of TS = 16 steps; device traffic is x in once, the hiddens out
+//      once.
+//   2. every step loaded its xp from device memory after the previous
+//      step's h existed: here x arrives by cp.async a chunk ahead of its
+//      LN1, and LN1 and the projection of chunk c + 1 run in producer warps
+//      while consumer warps walk chunk c. A step reads only registers and
+//      shared memory.
+//   3. the dense slots ended each step with a block barrier: here a step
+//      synchronises only the warps of its own slot (a named barrier with a
+//      count; one warp's __syncwarp for slots of 16 and 32); the block meets
+//      once a chunk.
+//   4. chains are few at the banded long shape (132 sequences x 4 slots):
+//      one block takes one sequence and direction, so all 132 SMs walk, and
+//      the step's chain is kept short (no load, split accumulators, the
+//      gates on the special-function unit). More chains a thread would
+//      shorten nothing there: with one sequence a SM the chain is the floor.
+//
+// Block: one sequence (blockIdx.x) and direction (blockIdx.y).
+//   consumers (CONS threads): thread (unit u, k-part kq) keeps W_hh[KP of
+//     the slot's inputs][its unit's r, z, n] in registers (KP = 16 for
+//     slots of 16, else 32: 48 or 96 floats; KS = W / KP lanes a unit,
+//     partial sums added by an xor shuffle) and walks the steps; h of each
+//     step goes to the hidden ring, which is also the next step's operand.
+//     A slot of 128 reads W_hh from shared memory (192 KB), one lane a
+//     unit: 3 x 128 x 128 floats do not fit in registers.
+//   producers (PT threads): cp.async of chunk c + 2's x rows, LN1 in place
+//     (a warp a row, ln_row) and the projection of chunk c + 1 into the xp
+//     ring (slots of 16: a unit a thread, its W_ih columns in registers;
+//     dense slots: an xp column of all TS rows at a time, W_ih read through
+//     L1), and the hidden ring of chunk c - 1 out to device memory as
+//     16-byte stores.
+// Gates: sigmoid and tanh from one ex2 and one reciprocal each (tc.cuh), a
+// few f32 ulps from expf / tanhf.
+namespace gruf {
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+constexpr int PRODUCER_BARRIER = 15;  // named barrier id; slots use 1, 2
+
+__host__ __device__ constexpr int warps32(int threads) {
+  return (threads + 31) / 32 * 32;
+}
+
+// One instance per slot width W (16, 32, 64, 128 = C).
+template <int W>
+struct Cfg {
+  static constexpr bool WSMEM = W > 64;  // W_hh in shared memory
+  // Inputs a consumer lane takes (its W_hh rows in registers: 3 KP floats)
+  // and lanes a unit.
+  static constexpr int KP = WSMEM ? W : W < 32 ? W : 32;
+  static constexpr int KS = W / KP;
+  static constexpr int SLOTS = C / W;
+  static constexpr int W3 = 3 * W;
+  static constexpr int TS = WSMEM ? 4 : 16;  // steps a chunk
+  static constexpr int CONS = warps32(C * KS);
+  // Producers: slots of 16 one unit a thread (its W_ih columns in
+  // registers); dense slots one xp column of all TS rows a thread at a
+  // time (W_ih read through L1), 96 to 192 threads.
+  static constexpr int PT = W == 16 ? warps32(C) : W == 128 ? 128
+                            : 3 * C < 192 ? 3 * C : 192;
+  static constexpr int PW = PT / 32;  // producer warps
+  static constexpr int THREADS = CONS + PT;
+  // Shared memory, floats: xp ring [2][TS][3C], hidden ring [2][TS][C], x
+  // ring [2][TS][C] (LN1 in place), a zero row (h before the first step),
+  // W_hh of the direction [C][3W] (WSMEM).
+  static constexpr int XP = 2 * TS * 3 * C, HS = 2 * TS * C, XR = 2 * TS * C;
+  static constexpr int WH = WSMEM ? C * W3 : 0;
+  static constexpr size_t SMEM = (size_t)(XP + HS + XR + C + WH) * 4;
+  static_assert(C % W == 0 && TS % 4 == 0 &&
+                    (W * KS <= 32 || SLOTS <= 2) && SMEM <= 232448,
+                "gru_f32_kernel configuration");
+};
+
+struct Args {
+  const float* x;  // [N, L, C]
+  const float* ln_s;
+  const float* ln_b;
+  const float* w_ih;  // grouped [D, G, H, 3H], H = C / G a power of two
+  const float* w_hh;
+  const float* b_ih;  // [D, G, 3H]
+  const float* b_hh;
+  float* hid;  // [D, N*L, C]
+  long long N;
+  int L;
+  int G;
+};
+
+// Entry (input channel i, unit u, gate) of direction d's weights in grouped
+// layout w [D, G, H, 3H], as a slot holding u sees it: 0 where i and u lie
+// in different groups (a slot of 16 holding several narrower groups is
+// block-diagonal; the entries off the blocks add nothing). A dense slot is
+// one group (H = W).
+__device__ __forceinline__ float grouped_w(const float* w, int d, int G,
+                                           int i, int u, int gate) {
+  const int H = C / G, g = u / H;
+  if (i / H != g) return 0.f;
+  return w[(((size_t)d * G + g) * H + i % H) * 3 * H + gate * H + u % H];
+}
+
+__device__ __forceinline__ float grouped_b(const float* b, int d, int G,
+                                           int u, int gate) {
+  const int H = C / G;
+  return b[((size_t)d * G + u / H) * 3 * H + gate * H + u % H];
+}
+
+template <int W>
+__device__ __forceinline__ void consume(const Args& a, float* sm, int tid) {
+  using K = Cfg<W>;
+  constexpr int TS = K::TS, KS = K::KS, W3 = K::W3;
+  const float* xps = sm;
+  float* hss = sm + K::XP;
+  const float* zr = hss + K::HS + K::XR;
+  const float* whs = zr + C;
+  const int d = blockIdx.y, L = a.L;
+  const int uu = tid / KS, kq = tid % KS;
+  const bool live = uu < C;        // C = 16: the warp's upper half idles
+  const int u = live ? uu : 0;     // (walking unit 0, storing nothing)
+  const int s = u / W, j = u % W;
+  constexpr int KP = K::KP, NW = K::WSMEM ? 1 : KP;
+  float wr[NW], wz[NW], wn[NW];
+  if constexpr (!K::WSMEM) {
+#pragma unroll
+    for (int i = 0; i < KP; ++i) {
+      const int ii = s * W + kq * KP + i;
+      wr[i] = grouped_w(a.w_hh, d, a.G, ii, u, 0);
+      wz[i] = grouped_w(a.w_hh, d, a.G, ii, u, 1);
+      wn[i] = grouped_w(a.w_hh, d, a.G, ii, u, 2);
+    }
+  }
+  const float br = grouped_b(a.b_hh, d, a.G, u, 0);
+  const float bz = grouped_b(a.b_hh, d, a.G, u, 1);
+  const float bn = grouped_b(a.b_hh, d, a.G, u, 2);
+  __syncthreads();  // the producers' chunk 0 and the shared W_hh
+
+  float h = 0.f;
+  const int nchunks = (L + TS - 1) / TS;
+  for (int c = 0; c < nchunks; ++c) {
+    const int ns = min(TS, L - c * TS);
+    const float* xpc = xps + (size_t)(c & 1) * TS * 3 * C + s * W3 + j;
+    float* hsc = hss + (c & 1) * TS * C;
+    const float* prev = c == 0 ? zr : hss + ((c - 1) & 1) * TS * C +
+                                          (TS - 1) * C;
+    for (int st = 0; st < ns; ++st) {
+      const float* xr = xpc + st * 3 * C;
+      const float xr0 = xr[0], xz0 = xr[W], xn0 = xr[2 * W];
+      float ar0 = 0.f, ar1 = 0.f, az0 = 0.f, az1 = 0.f, an0 = 0.f, an1 = 0.f;
+      if constexpr (!K::WSMEM) {
+        const float4* hp =
+            reinterpret_cast<const float4*>(prev + s * W + kq * KP);
+        float4 hv[KP / 4];
+#pragma unroll
+        for (int q = 0; q < KP / 4; ++q) hv[q] = hp[q];
+#pragma unroll
+        for (int q = 0; q < KP / 4; ++q) {
+          ar0 = fmaf(hv[q].x, wr[4 * q], ar0);
+          az0 = fmaf(hv[q].x, wz[4 * q], az0);
+          an0 = fmaf(hv[q].x, wn[4 * q], an0);
+          ar1 = fmaf(hv[q].y, wr[4 * q + 1], ar1);
+          az1 = fmaf(hv[q].y, wz[4 * q + 1], az1);
+          an1 = fmaf(hv[q].y, wn[4 * q + 1], an1);
+          ar0 = fmaf(hv[q].z, wr[4 * q + 2], ar0);
+          az0 = fmaf(hv[q].z, wz[4 * q + 2], az0);
+          an0 = fmaf(hv[q].z, wn[4 * q + 2], an0);
+          ar1 = fmaf(hv[q].w, wr[4 * q + 3], ar1);
+          az1 = fmaf(hv[q].w, wz[4 * q + 3], az1);
+          an1 = fmaf(hv[q].w, wn[4 * q + 3], an1);
+        }
+      } else {
+        const float4* hp = reinterpret_cast<const float4*>(prev);
+        const float* wp = whs + j;
+#pragma unroll 2
+        for (int q = 0; q < W / 4; ++q) {
+          const float4 hv = hp[q];
+          const float* w0 = wp + 4 * q * W3;
+          ar0 = fmaf(hv.x, w0[0], ar0);
+          az0 = fmaf(hv.x, w0[W], az0);
+          an0 = fmaf(hv.x, w0[2 * W], an0);
+          ar1 = fmaf(hv.y, w0[W3], ar1);
+          az1 = fmaf(hv.y, w0[W3 + W], az1);
+          an1 = fmaf(hv.y, w0[W3 + 2 * W], an1);
+          ar0 = fmaf(hv.z, w0[2 * W3], ar0);
+          az0 = fmaf(hv.z, w0[2 * W3 + W], az0);
+          an0 = fmaf(hv.z, w0[2 * W3 + 2 * W], an0);
+          ar1 = fmaf(hv.w, w0[3 * W3], ar1);
+          az1 = fmaf(hv.w, w0[3 * W3 + W], az1);
+          an1 = fmaf(hv.w, w0[3 * W3 + 2 * W], an1);
+        }
+      }
+      float ar = ar0 + ar1, az = az0 + az1, an = an0 + an1;
+#pragma unroll
+      for (int o = KS / 2; o > 0; o >>= 1) {
+        ar += __shfl_xor_sync(0xffffffffu, ar, o);
+        az += __shfl_xor_sync(0xffffffffu, az, o);
+        an += __shfl_xor_sync(0xffffffffu, an, o);
+      }
+      if (kq == 0 && live) {
+        const float r = tc::sigmoid_sfu(xr0 + (ar + br));
+        const float z = tc::sigmoid_sfu(xz0 + (az + bz));
+        const float nn = tc::tanh_sfu(xn0 + r * (an + bn));
+        h = (1.f - z) * nn + z * h;
+        hsc[st * C + u] = h;
+      }
+      if constexpr (W * KS <= 32)
+        __syncwarp();  // the slot is this warp's
+      else
+        named_sync(1 + s, W * KS);
+      prev = hsc + st * C;
+    }
+    __syncthreads();  // chunk c walked; chunk c + 1's xp is in its ring
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
+  using K = Cfg<W>;
+  constexpr int TS = K::TS, PT = K::PT, PW = K::PW, W3 = K::W3;
+  float* xps = sm;
+  const float* hss = sm + K::XP;
+  float* xrs = sm + K::XP + K::HS;
+  const int d = blockIdx.y, L = a.L;
+  const long long n = blockIdx.x;
+  const size_t NL = (size_t)a.N * L;
+  const int pw = p >> 5, lane = p & 31;
+  const int nchunks = (L + TS - 1) / TS;
+  auto time_of = [&](int step) { return d ? L - 1 - step : step; };
+
+  float ls[CPL], lb[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    ls[i] = lane_holds(lane, i) ? a.ln_s[lane + 32 * i] : 0.f;
+    lb[i] = lane_holds(lane, i) ? a.ln_b[lane + 32 * i] : 0.f;
+  }
+  // Slots of 16: producer p projects unit p (all three gates), its W_ih
+  // columns and biases in registers.
+  constexpr int NW = W == 16 ? 16 : 1;
+  float wi[3][NW], bi[3];
+  const int pu = p < C ? p : 0, ps = pu / 16, pj = pu % 16;
+  if constexpr (W == 16) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        wi[g][k] = grouped_w(a.w_ih, d, a.G, ps * 16 + k, pu, g);
+#pragma unroll
+    for (int g = 0; g < 3; ++g) bi[g] = grouped_b(a.b_ih, d, a.G, pu, g);
+  }
+
+  // x rows of chunk cc into x ring cc & 1 (zeros past L).
+  auto fetch = [&](int cc) {
+    float* dst = xrs + (cc & 1) * TS * C;
+    for (int i = p; i < TS * C / 4; i += PT) {
+      const int st = i / (C / 4), q = i % (C / 4), step = cc * TS + st;
+      float* dp = dst + st * C + 4 * q;
+      if (step < L)
+        cp_async16(dp, a.x + ((size_t)n * L + time_of(step)) * C + 4 * q);
+      else
+        *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    cp_async_commit();
+  };
+  // LN1 in place over chunk cc's rows, a warp a row (proj_kernel's
+  // LayerNorm arithmetic).
+  auto normalize = [&](int cc) {
+    float* rows = xrs + (cc & 1) * TS * C;
+#pragma unroll
+    for (int st = pw; st < TS; st += PW) {
+      float v[CPL];
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        v[i] = lane_holds(lane, i) ? rows[st * C + lane + 32 * i] : 0.f;
+      ln_row(v, ls, lb);
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        if (lane_holds(lane, i)) rows[st * C + lane + 32 * i] = v[i];
+    }
+  };
+  // xp of chunk cc into xp ring cc & 1: [TS][3C], slot s's columns at
+  // s 3W + gate W + unit.
+  auto project = [&](int cc) {
+    const float* n1 = xrs + (cc & 1) * TS * C;
+    float* out = xps + (size_t)(cc & 1) * TS * 3 * C;
+    if constexpr (W == 16) {
+      constexpr int RG = 4;  // rows at a time
+      if (p >= C) return;
+#pragma unroll 1
+      for (int r0 = 0; r0 < TS; r0 += RG) {
+        float acc[3][RG];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int rr = 0; rr < RG; ++rr) acc[g][rr] = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int rr = 0; rr < RG; ++rr) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                n1 + (r0 + rr) * C + ps * 16 + 4 * q);
+#pragma unroll
+            for (int g = 0; g < 3; ++g) {
+              float t = fmaf(v.x, wi[g][4 * q], acc[g][rr]);
+              t = fmaf(v.y, wi[g][4 * q + 1], t);
+              t = fmaf(v.z, wi[g][4 * q + 2], t);
+              acc[g][rr] = fmaf(v.w, wi[g][4 * q + 3], t);
+            }
+          }
+#pragma unroll
+        for (int rr = 0; rr < RG; ++rr)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            out[(r0 + rr) * 3 * C + ps * 48 + g * 16 + pj] =
+                acc[g][rr] + bi[g];
+      }
+    } else {
+      // Column o = s 3W + gate W + unit of slot s (group s), all TS rows.
+#pragma unroll 1
+      for (int o = p; o < 3 * C; o += PT) {
+        const int s = o / W3;
+        const float* wp =
+            a.w_ih + (size_t)(d * K::SLOTS + s) * W * W3 + o % W3;
+        const float* nr = n1 + s * W;
+        float acc[TS];
+#pragma unroll
+        for (int r = 0; r < TS; ++r) acc[r] = 0.f;
+#pragma unroll 2
+        for (int k = 0; k < W; k += 4) {
+          float w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) w[e] = __ldg(wp + (size_t)(k + e) * W3);
+#pragma unroll
+          for (int r = 0; r < TS; ++r) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(nr + r * C + k);
+            float t = fmaf(v.x, w[0], acc[r]);
+            t = fmaf(v.y, w[1], t);
+            t = fmaf(v.z, w[2], t);
+            acc[r] = fmaf(v.w, w[3], t);
+          }
+        }
+        const float b =
+            __ldg(a.b_ih + (size_t)(d * K::SLOTS + s) * W3 + o % W3);
+#pragma unroll
+        for (int r = 0; r < TS; ++r) out[r * 3 * C + o] = acc[r] + b;
+      }
+    }
+  };
+  // Chunk cc's hiddens from the hidden ring to hid, 16 bytes a store.
+  auto store_hid = [&](int cc) {
+    const float* src = hss + (cc & 1) * TS * C;
+    const int ns = min(TS, L - cc * TS);
+    for (int i = p; i < ns * C / 4; i += PT) {
+      const int st = i / (C / 4), q = i % (C / 4);
+      const size_t row = (size_t)n * L + time_of(cc * TS + st);
+      *reinterpret_cast<float4*>(a.hid + ((size_t)d * NL + row) * C + 4 * q) =
+          *reinterpret_cast<const float4*>(src + st * C + 4 * q);
+    }
+  };
+
+  fetch(0);
+  cp_async_wait_all();
+  named_sync(PRODUCER_BARRIER, PT);
+  normalize(0);
+  named_sync(PRODUCER_BARRIER, PT);
+  if (nchunks > 1) fetch(1);
+  project(0);
+  __syncthreads();  // chunk 0's xp is in its ring
+  for (int c = 0; c < nchunks; ++c) {
+    if (c > 0) store_hid(c - 1);
+    if (c + 1 < nchunks) {
+      cp_async_wait_all();  // chunk c + 1's rows have landed
+      named_sync(PRODUCER_BARRIER, PT);
+      normalize(c + 1);
+      named_sync(PRODUCER_BARRIER, PT);
+      // into x ring c & 1: chunk c's rows, projected before the last
+      // block barrier
+      if (c + 2 < nchunks) fetch(c + 2);
+      project(c + 1);
+    }
+    __syncthreads();
+  }
+  store_hid(nchunks - 1);
+}
+
+template <int W>
+__global__ void __launch_bounds__(Cfg<W>::THREADS)
+    gru_f32_kernel(Args a) {
+  using K = Cfg<W>;
+  extern __shared__ __align__(16) float gru_sm[];
+  float* zr = gru_sm + K::XP + K::HS + K::XR;
+  for (int i = threadIdx.x; i < C; i += blockDim.x) zr[i] = 0.f;
+  if constexpr (K::WSMEM) {
+    // one group: the grouped layout is the slot's
+    const float4* src =
+        reinterpret_cast<const float4*>(a.w_hh + (size_t)blockIdx.y * K::WH);
+    float4* dst = reinterpret_cast<float4*>(zr + C);
+    for (int i = threadIdx.x; i < K::WH / 4; i += blockDim.x) dst[i] = src[i];
+  }
+  // Warp-uniform roles: each meets the block barrier once before its loop
+  // and once a chunk.
+  if (threadIdx.x < K::CONS)
+    consume<W>(a, gru_sm, threadIdx.x);
+  else
+    produce<W>(a, gru_sm, threadIdx.x - K::CONS);
+}
+
+template <int W>
+cudaError_t launch(const Args& a, int D, cudaStream_t st) {
+  using K = Cfg<W>;
+  cudaError_t e = tc::allow_smem(gru_f32_kernel<W>, K::SMEM);
+  if (e != cudaSuccess) return e;
+  gru_f32_kernel<W><<<dim3((unsigned)a.N, (unsigned)D), K::THREADS, K::SMEM,
+                      st>>>(a);
+  return cudaGetLastError();
+}
+
+// The instance for `groups` groups of H = C / groups units: slots of W =
+// H, or of 16 holding 16 / H groups where H < 16. A template, so that only
+// the instances of the library's C are built.
+template <int CC = C>
+cudaError_t launch_groups(const Args& a, int D, cudaStream_t st) {
+  const int H = C / a.G;
+  if (H <= 16) return launch<16>(a, D, st);
+  if constexpr (CC >= 32)
+    if (H == 32) return launch<32>(a, D, st);
+  if constexpr (CC >= 64)
+    if (H == 64) return launch<64>(a, D, st);
+  if constexpr (CC == 128)
+    if (H == 128) return launch<CC>(a, D, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace gruf
+
 }  // namespace lct
 
 #define LCT_CHECK()                              \
@@ -662,30 +1139,30 @@ extern "C" int lct_ftf_forward_bf16(
   return (int)tc::launch_attn_tc<0>(a, st);
 }
 
-// LN1 and the grouped GRU alone, all f32: the composed time block above
-// L = 512, where the fused block's attention stops (ops/gru.py,
-// fused_grouped_gru; it replaces no TPU kernel: the JAX package runs this
-// recurrence as one lax.scan, lct_gan_tpu/ops/gru.py:28). The same GRU
-// launches as lct_ftf_forward_f32: proj_kernel<true> -> xp, gru_kernel
-// (or gru_dense_kernel) -> hid; the recurrence loops over any L. x: [N, L,
-// C]; the GRU weights in slots, as lct_ftf_forward_bf16's. Scratch xp
-// [N*L, D*3C] f32; out hid [D, N*L, C]
-// f32, the per-direction hiddens (the caller sums them). Bound: the
-// recurrence is sequential in L, one dependent step per frame; across the
-// card the launches move x in, xp out and back, hid out. Returns a
-// cudaError_t.
+// LN1 and the grouped GRU alone, all f32, in one launch of gru_f32_kernel
+// (gruf, above): the composed time block above L = 512, where the fused
+// block's attention stops (ops/gru.py, fused_grouped_gru). x: [N, L, C];
+// the GRU weights grouped, w [D, groups, H, 3H], b [D, groups, 3H], H = C /
+// groups a power of two (the caller pads other widths, ops/padding.py); out
+// hid [D, N*L, C] f32, the per-direction hiddens (the caller sums them). No
+// scratch. Returns a cudaError_t.
 extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
                                    const float* ln1_b, const float* w_ih,
                                    const float* w_hh, const float* b_ih,
-                                   const float* b_hh, float* xp, float* hid,
-                                   long long N, int L, int D, int slots,
+                                   const float* b_hh, float* hid,
+                                   long long N, int L, int D, int groups,
                                    int device, void* stream) {
   using namespace lct;
-  if (!widths_ok(1, slots)) return (int)cudaErrorInvalidValue;
+  const int H = groups > 0 ? C / groups : 0;
+  if (H < 1 || H * groups != C || (H & (H - 1)) != 0 || N < 0 || L < 1 ||
+      D < 1 || D > 2)
+    return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
-  return (int)launch_gru_f32(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh, slots,
-                             xp, hid, N, L, D, (cudaStream_t)stream);
+  if (N == 0) return 0;
+  const gruf::Args a = {x,    ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                        b_hh, hid,   N,     L,    groups};
+  return (int)gruf::launch_groups(a, D, (cudaStream_t)stream);
 }
 
 // The same function in all-f32 arithmetic (precise mode). Scratch: xp

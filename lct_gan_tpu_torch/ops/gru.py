@@ -18,17 +18,21 @@ above L = 512 (models/generator.py), where the fused block's attention
 stops: the counterpart of the lax.scan that the JAX package runs outside
 any Pallas kernel. It is the `torch.library` operator
 `lct_gan_tpu_torch::fused_grouped_gru` (`gru_op`, `ops/library.py`). On a
-CUDA tensor it launches the all-f32 kernels of `csrc/ftf.cu`
-(`lct_grouped_gru_f32`: the precise FTF forward's LN1 + input projection
-and its recurrence, one launch each); on a CPU tensor it computes
-`grouped_gru_plain`. Its backward differentiates the plain version.
+CUDA tensor it launches one all-f32 kernel of `csrc/ftf.cu`
+(`lct_grouped_gru_f32`, `gru_f32_kernel`: LN1, the input projection and
+the recurrence in one pass, producer warps staging x and xp in shared
+memory a chunk ahead of the consumer warps' steps; design `GRU_DESIGN`);
+on a CPU tensor it computes `grouped_gru_plain`. Its backward
+differentiates the plain version.
 
 The CUDA kernels take C channels for every C of `ops/library.py::
-CHANNELS`, in any number of groups that divides C: they run slots of 16
-units, or dense ones of C (of 64 at C = 128; `gru_slot`), and
+CHANNELS`, in any number of groups that divides C. The FTF kernels run
+slots of 16 units, or dense ones of C (of 64 at C = 128; `gru_slot`), and
 `pack_gru_slots` packs other group counts into them
 (`unpack_gru_slot_grads` takes the FTF backward's slot-layout gradients
-apart again). At C = 48 and 96 the wrapper first widens each group to a
+apart again); `fused_grouped_gru`'s kernel takes the groups as they are
+(slots of each group's width, or of 16 holding narrower groups, built in
+the kernel). At C = 48 and 96 the wrapper first widens each group to a
 power of two with zero channels and units (`ops/padding.py`; exact), so
 the kernels run at 64 and 128.
 """
@@ -44,7 +48,12 @@ from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
 __all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16", "layer_norm",
            "grouped_gru_plain", "fused_grouped_gru", "gru_op", "gru_slot",
-           "pack_gru_slots", "unpack_gru_slot_grads", "gru_kernel_operands"]
+           "pack_gru_slots", "unpack_gru_slot_grads", "gru_kernel_operands",
+           "GRU_DESIGN"]
+
+# The design `fused_grouped_gru` runs on the card: warp-specialised, all
+# f32 on CUDA cores, one launch (csrc/ftf.cu, gru_f32_kernel).
+GRU_DESIGN = "ws-f32"
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -193,11 +202,11 @@ def unpack_gru_slot_grads(dw_ih, dw_hh, db_ih, db_hh, groups: int):
 
 
 def gru_kernel_operands(ops):
-    """The GRU kernels' operands from (x, ln_scale, ln_bias, w_ih, w_hh,
-    b_ih, b_hh): at C = 48 or 96 padded to the kernels' width with zero
-    channels and units (`ops/padding.py`), then packed into slots. Returns
-    (operands, idx): idx [C] the output channels that are x's (None:
-    all)."""
+    """The composed GRU kernel's operands from (x, ln_scale, ln_bias, w_ih,
+    w_hh, b_ih, b_hh): at C = 48 or 96 padded to the kernels' width with
+    zero channels and units (`ops/padding.py`), the groups a power of two
+    wide; elsewhere as they are. Returns (operands, idx): idx [C] the
+    output channels that are x's (None: all)."""
     C, G = ops[0].shape[-1], ops[3].shape[1]
     CK, idx = padding.kernel_width(C), padding.channel_map(C, G)
     ops = list(ops)
@@ -205,7 +214,6 @@ def gru_kernel_operands(ops):
         ops = [padding.pad_last(ops[0], idx, CK),
                *padding.pad_ln(*ops[1:3], idx, CK),
                *padding.pad_gru(*ops[3:], C)]
-    ops[3:] = pack_gru_slots(*ops[3:])
     return ops, idx
 
 
@@ -216,9 +224,9 @@ def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
 
 
 _P = ctypes.c_void_p
-# lct_grouped_gru_f32: 7 inputs (the GRU's in pack_gru_slots' layout), xp,
-# hid; N; L, D, slots, device; stream.
-_GRU_ARGTYPES = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]
+# lct_grouped_gru_f32: 7 inputs (the GRU's grouped), hid; N; L, D, groups,
+# device; stream.
+_GRU_ARGTYPES = [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]
 
 
 def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
@@ -240,10 +248,9 @@ def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
            f("b_hh", b_hh, (D, G, 3 * H), dev)]
     ops, idx = gru_kernel_operands(ops)
     CK = ops[0].shape[-1]
-    xp = torch.empty((N * L, D * 3 * CK), device=dev, dtype=torch.float32)
     hid = torch.empty((D, N * L, CK), device=dev, dtype=torch.float32)
     fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES, C)
-    err = fn(*(t.data_ptr() for t in ops), xp.data_ptr(), hid.data_ptr(),
+    err = fn(*(t.data_ptr() for t in ops), hid.data_ptr(),
              N, L, D, ops[3].shape[1],
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
@@ -284,10 +291,10 @@ def fused_grouped_gru(x: torch.Tensor, ln_scale: torch.Tensor,
     """LN1 and the grouped GRU over x [N, L, C] -> [N, L, C] f32, any L:
     the op `torch.ops.lct_gan_tpu_torch.fused_grouped_gru`.
 
-    CPU tensors: `grouped_gru_plain`. CUDA tensors: the f32 kernels of
-    csrc/ftf.cu (C of `ops/library.py::CHANNELS` in any group count
-    dividing C, else it raises; `check_kernel_widths`), each launch
-    counted in `fused_grouped_gru.launches`, from an exported program too.
+    CPU tensors: `grouped_gru_plain`. CUDA tensors: one launch of the f32
+    kernel of csrc/ftf.cu (C of `ops/library.py::CHANNELS` in any group
+    count dividing C, else it raises; `check_kernel_widths`), counted in
+    `fused_grouped_gru.launches`, from an exported program too.
     Differentiable in x and the six parameters (the plain version's
     gradients, recomputed)."""
     return gru_op(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh,
