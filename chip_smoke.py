@@ -7,8 +7,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 
   device   require CUDA; print the card's nvidia-smi name and power limit
   build    build the CUDA kernels from lct_gan_tpu_torch/csrc (nvcc, sm_90a)
-           at every bottleneck width, forward and backward, in one parallel
-           batch (one nvcc process a source and width)
+           at every kernel width (16, 32, 64, 128), forward and backward, in
+           one parallel batch (one nvcc process a source and width); the
+           kernel width 64 instances' ptxas registers and spills beside the
+           reference's (lct_gan_tpu_torch/ptxas_c64.json: before the true
+           width and the score scale became launch arguments)
   kernels  each kernel against its plain PyTorch version on the card, at the
            main path's shapes, in bf16 and precise (all-f32) modes: max|diff|
            against the stated tolerance, kernel / plain / library ms, bound;
@@ -59,25 +62,31 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            1 MHSA, 1 GRU) and, with max_time_context=64, 4 x 196,608 (2 FTF,
            1 banded, 1 GRU), each against the plain path on the card (the
            ops' plain versions under a dispatch mode)
-  channels the four forward kernels at bottleneck widths C = 16, 32, 48, 96
-           and 128 (their libraries built per width, -DLCT_C; 48 and 96
-           padded to 64 and 128 by the wrappers): every head
-           count and GRU group count dividing C against the plain versions
-           on the card at small N, both modes (the FTF block: frequency,
-           time with key bias, time with lookback 16; MHSA at L = 516;
-           banded at S = 772, W = 64; the composed GRU at L = 516, f32);
-           at C = 32 and 128 with 4 heads and 4 groups the main path's
-           shapes (FTF frequency N = 16,512 x 33 and time N = 4,224 x 129
-           with key bias and W = 16, MHSA N = 825 x 644, banded N = 660 x
-           772, GRU N = 825 x 644), timed with the bound and the library
-           call; LctEnhancer at enc_channels (8, 16, 32) and (32, 64, 128)
-           with random weights from --seed, B = 128 x 2 s (3 FTF launches),
-           and at (32, 64, 128) 4 x 163,840 samples (2 FTF, 1 MHSA, 1 GRU)
-           and with max_time_context=64 4 x 196,608 (2 FTF, 1 banded, 1
-           GRU), against the plain path on the card (worst row's relative
-           L2 error); training taken at other widths (a train state at
-           (32, 64, 128), an FTF block under grad at C = 48), serving and
-           a train state at C = 40 refused before any launch
+  channels the four forward kernels at bottleneck widths C = 16, 32, 48, 96,
+           128 and 8, 24, 40, 50, 80 (libraries built per kernel width,
+           -DLCT_C; the wrappers pad every other C to the kernel width of
+           its padded layout: 8 to 16, 24 to 32, 40 and 48 to 64, 50, 80
+           and 96 to 128): every head count and GRU group count dividing C
+           against the plain versions on the card at small N, both modes
+           (the FTF block: frequency, time with key bias, time with
+           lookback 16; MHSA at L = 516; banded at S = 772, W = 64; the
+           composed GRU at L = 516, f32); at C = 32, 40, 80 and 128 with 4
+           heads and 4 groups the main path's shapes (FTF frequency N =
+           16,512 x 33 and time N = 4,224 x 129 with key bias and W = 16,
+           MHSA N = 825 x 644, banded N = 660 x 772, GRU N = 825 x 644),
+           timed with the bound, the library call and the wrapper's
+           padding ms; LctEnhancer at enc_channels (8, 16, 32) and (32, 64,
+           128), and (16, 32, 40) at 4 heads and groups and (16, 32, 50) at
+           5 (kernel width 128), with random weights from --seed, B = 128 x
+           2 s (3 FTF launches), and at (32, 64, 128), (16, 32, 40) and
+           (16, 32, 50) 4 x 163,840 samples (2 FTF, 1 MHSA, 1 GRU) and with
+           max_time_context=64 4 x 196,608 (2 FTF, 1 banded, 1 GRU),
+           against the plain path on the card (worst row's relative L2
+           error); training taken at other widths (train states at (32,
+           64, 128) and (16, 32, 40), FTF blocks under grad at C = 48 and
+           50), serving and a train state refused before any launch at
+           (16, 32, 100) with 5 heads and groups (a layout of 160 channels)
+           and (16, 32, 144)
   banded   the same weights with max_time_context=64, bucketed batches with
            lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
            1 banded, 1 GRU launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
@@ -109,18 +118,19 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            on the card (losses; precise also every tensor's change); then
            train_cli --num_heads 8 --gru_groups 8 for one epoch on the loop
            phase's corpus, in a subprocess
-  train_channels  training at bottleneck widths C = 16, 32, 48, 96, 128:
-           the FTF backward against its plain version on the card, all 15
-           gradients, both
-           modes, at 3-4 (heads, groups) pairs a width (frequency block L =
-           33, time block L = 129 with lookback 16, small N), then at the
-           B=64 x 2 s training shapes at C = 32 and 128 (timed with stages,
+  train_channels  training at bottleneck widths C = 16, 32, 48, 96, 128
+           and 8, 24, 40, 50, 80: the FTF backward against its plain
+           version on the card, all 15 gradients, both modes, at 3-4
+           (heads, groups) pairs a width of the first five and every head
+           and group count of the others (frequency block L = 33, time
+           block L = 129 with lookback 16, small N), then at the B=64 x 2 s
+           training shapes at C = 32, 40, 80 and 128 (timed with stages,
            scratch, plain and library ms); make_train_step on states
            assembled around enhancers at enc_channels (8, 16, 32), (12, 24,
-           48), (32, 64, 128), B=8 x 2 s: 3 FTF forward and 3 backward
-           launches a step over three steps, finite metrics, one step
-           against the plain path on the card (losses; precise also every
-           tensor's change)
+           48), (32, 64, 128), (16, 32, 40) and (16, 32, 50) at 5 heads and
+           groups, B=8 x 2 s: 3 FTF forward and 3 backward launches a step
+           over three steps, finite metrics, one step against the plain
+           path on the card (losses; precise also every tensor's change)
   eval     make_eval_step on one bucketed batch with lengths, against the CPU
   parallel data parallelism (parallel/mesh.py) with the same weights and
            TrainConfig(): 2 ranks sharing the card over gloo (spawned),
@@ -187,6 +197,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "artifacts", "train_demo",
                           "g_params_best.npz")
+# Registers and spills of the kernel width 64 instances before the true
+# width and the score scale became launch arguments (ptxas_report).
+PTXAS_REFERENCE = os.path.join(ROOT, "lct_gan_tpu_torch", "ptxas_c64.json")
 SR = 16000
 
 # Kernel vs plain version on the same inputs, both on the card.
@@ -605,9 +618,9 @@ def gru_kernel_slot(C, groups):
     """The slot width fused_grouped_gru's kernel runs `groups` groups of C
     channels in: each group's width once the wrapper has padded it to a
     power of two (ops/padding.py), or 16 holding narrower groups."""
-    from lct_gan_tpu_torch.ops.padding import kernel_width, padded_groups
+    from lct_gan_tpu_torch.ops.padding import head_width
 
-    return max(16, kernel_width(C) // padded_groups(C, groups))
+    return max(16, head_width(C // groups))
 
 
 def check_gru_chains(torch, g, L=516):
@@ -1030,13 +1043,14 @@ def by_rows(torch, plain, n_rows, row_bytes, budget=4 << 30):
 
 def width_case(torch, kernel, name, fn, plain, mode, shape, flops, padded,
                extra, exps, exps_per_s, nh, G, library, C=64,
-               phase="widths"):
+               phase="widths", info=None):
     """One kernel at one width against its plain version on the same inputs
     on the card: max|diff| within TOL[mode], kernel and plain ms, the bound
     by the kernels table's formula on the useful products (`bound_ms`) and
     on the products the kernel issues with its padded widths
     (`padded_bound_ms`), and the library's time (`library()`: (ms, why not),
-    and optionally its max|diff| from the kernel). C: the channel width."""
+    and optionally its max|diff| from the kernel). C: the channel width;
+    `info`: more fields for the case's record."""
     out = fn()
     torch.cuda.synchronize()
     ref = plain()
@@ -1067,6 +1081,7 @@ def width_case(torch, kernel, name, fn, plain, mode, shape, flops, padded,
         res["library_max_abs_err"] = lib[2]
     if exps:
         res["exp_floor_ms"] = exps / exps_per_s * 1e3
+    res.update(info or {})
     emit({"phase": phase, "kernel": kernel, **res})
     torch.cuda.empty_cache()
     return res
@@ -1290,12 +1305,15 @@ def check_widths(torch, np, card, seed):
     return results, launches
 
 
-# Bottleneck widths the forward kernels take besides 64 (each builds its
-# own libraries), the two of them timed at the main path's shapes, and the
-# enhancers driven end to end.
+# Bottleneck widths the kernels take besides 64: the multiples of 16 up to
+# 128 with their own kernel width or padded to the next power of two
+# (CHANNELS), and widths whose padded layout runs below the narrowest
+# kernel or past the next power of two above C (ANY_CHANNELS: 8 at 16, 24
+# at 32 in 3 heads of 8, 40 at 64, 50 at 128 in 5 heads or groups of 10,
+# 80 at 128); those timed at the main path's shapes (4 heads, 4 groups).
 CHANNELS = (16, 32, 48, 96, 128)
-MAIN_CHANNELS = (32, 128)
-CHANNEL_ENHANCERS = ((8, 16, 32), (32, 64, 128))
+ANY_CHANNELS = (8, 24, 40, 50, 80)
+MAIN_CHANNELS = (32, 40, 80, 128)
 # Enhancer on the card against the plain path on the card, both bf16 mode:
 # the worst row's relative L2 error of the wave. Both round the same
 # operands; f32 sum order moves an intermediate across a bf16 rounding
@@ -1308,11 +1326,27 @@ TOL_REL_L2 = 1e-2
 def channel_pairs(C):
     """(heads, groups) pairs at C that run every divisor of C as a head
     count and as a group count once: the divisors against themselves
-    reversed."""
-    from lct_gan_tpu_torch.ops.library import divisors
+    reversed (each pair one the card takes: ops/library.py::card_takes)."""
+    from lct_gan_tpu_torch.ops.library import card_takes, divisors
 
     d = divisors(C)
-    return list(zip(d, reversed(d)))
+    pairs = list(zip(d, reversed(d)))
+    if not all(card_takes(C, nh, G) for nh, G in pairs):
+        raise AssertionError(f"C = {C}: a pair the card does not take")
+    return pairs
+
+
+def host_pad_ms(torch, fn, reps=5):
+    """Wall ms of one call of a wrapper's padding `fn` (its operands to the
+    kernel width, device copies finished): what a width whose padded
+    layout is not C pays before each launch."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
 
 
 def seeded_blocks(torch, seed, C, nh, G):
@@ -1335,38 +1369,42 @@ def worst_row_rel_l2(torch, out, ref):
 
 
 def check_channels(torch, np, card, seed):
-    """The four forward kernels at every bottleneck width C of CHANNELS
-    other than 64 (C = 48 and 96 padded to 64 and 128 by the wrappers):
-    every head count and every GRU group count dividing C against the plain
-    versions on the card at small N, both modes (the composed GRU f32);
-    then at C = 32 and 128 (4 heads, 4 groups) the main path's shapes,
-    timed, with the bound and the library call; the enhancer end to end at
-    enc_channels (8, 16, 32) and (32, 64, 128) against the plain path on the
-    card, with launch counts; training taken at C = 128 (a train state) and
-    48 (a block under grad); serving and training refused at C = 40.
-    Random weights from `seed`. Returns (kernel cases by kernel, launches
-    by kernel)."""
+    """The four forward kernels at every bottleneck width C of CHANNELS and
+    ANY_CHANNELS (each padded by the wrappers to the kernel width of its
+    layout): every head count and every GRU group count dividing C against
+    the plain versions on the card at small N, both modes (the composed GRU
+    f32); then at MAIN_CHANNELS (4 heads, 4 groups) the main path's shapes,
+    timed, with the bound, the library call and the wrappers' padding ms;
+    the enhancer end to end at enc_channels (8, 16, 32), (32, 64, 128),
+    (16, 32, 40) and (16, 32, 50) at 5 heads and groups against the plain
+    path on the card, with launch counts; training taken at (32, 64, 128)
+    and (16, 32, 40) (train states), 48 and 50 (blocks under grad); serving
+    and training refused at (16, 32, 100) in 5 heads and groups and at
+    (16, 32, 144). Random weights from `seed`. Returns (kernel cases by
+    kernel, launches by kernel)."""
     from lct_gan_tpu_torch.eval import make_enhance
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
     from lct_gan_tpu_torch.ops._build import build_all
-    from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
+    from lct_gan_tpu_torch.ops.attention import (fused_mhsa, mhsa_reference,
+                                                 pad_attention)
     from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
                                                         banded_mhsa_reference)
     from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
-                                           fused_ftf_block)
+                                           fused_ftf_block, kernel_operands)
     from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
                                            grouped_gru_plain, gru_slot,
-                                           layer_norm)
-    from lct_gan_tpu_torch.ops.padding import kernel_width
+                                           gru_kernel_operands, layer_norm)
+    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
+    from lct_gan_tpu_torch.ops.padding import head_width, kernel_width
     from lct_gan_tpu_torch.ops.probe import ex2_rate
     from lct_gan_tpu_torch.train.state import TrainConfig, build_models
     from lct_gan_tpu_torch.train.state import _assemble
 
     t0 = time.perf_counter()
-    build_s = build_all(verbose=True, widths=CHANNELS)
+    build_s = build_all(verbose=True, widths=KERNEL_WIDTHS)
     emit({"phase": "channels", "build_seconds": build_s,
-          "widths": list(CHANNELS)})
+          "kernel_widths": list(KERNEL_WIDTHS)})
     exps_per_s = ex2_rate()
     g = torch.Generator(device="cuda").manual_seed(seed + 18)
     results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": [],
@@ -1397,7 +1435,7 @@ def check_channels(torch, np, card, seed):
     # Every head count and group count of each width at small N.
     small = []
     n_cases = 0
-    for C in CHANNELS:
+    for C in CHANNELS + ANY_CHANNELS:
         worst = {}
         for nh, G in channel_pairs(C):
             fblk, tblk = seeded_blocks(torch, seed + C + nh, C, nh, G)
@@ -1446,22 +1484,28 @@ def check_channels(torch, np, card, seed):
             key = (r["kernel"], r["mode"])
             if r["max_abs_err"] >= worst.get(key, {}).get("max_abs_err", -1):
                 worst[key] = r
-        emit({"phase": "channels", "C": C, "kernel_width": kernel_width(C),
+        emit({"phase": "channels", "C": C,
+              "kernel_width": {f"{nh},{G}": kernel_width(C, nh, G)
+                               for nh, G in channel_pairs(C)},
               "pairs": channel_pairs(C), "cases": len(small) - n_cases,
               "worst": list(worst.values()), "tol": TOL})
         n_cases = len(small)
         torch.cuda.empty_cache()
     small_s = time.perf_counter() - t0
 
-    # C = 32 and 128 at the main path's shapes, 4 heads and 4 groups.
-    def head_flops(N, pairs, hd, C):
-        nh = C // hd
-        return (N * nh * pairs * hd * 4,
-                N * nh * pairs * 2 * (max(hd, 16) + max(hd, 8)))
+    # MAIN_CHANNELS at the main path's shapes, 4 heads and 4 groups. The
+    # padded products count the heads and slots the kernels run at the
+    # kernel width (CK, CA, CG: the block's, the attention's, the GRU's).
+    def head_flops(N, pairs, hd, CA):
+        hdp = head_width(hd)
+        return (N * (CA // hdp) * pairs * hd * 4,
+                N * (CA // hdp) * pairs * 2 * (max(hdp, 16) + max(hdp, 8)))
 
     for C in MAIN_CHANNELS:
         nh = G = 4
         hd = C // nh
+        CK = kernel_width(C, nh, G)
+        CA, CG = kernel_width(C, num_heads=nh), kernel_width(C, groups=G)
         fblk, tblk = seeded_blocks(torch, seed + C, C, nh, G)
         for name, blk, N, L, lb in (("freq_main", fblk, 16512, 33, None),
                                     ("time_keybias_lookback16_main", tblk,
@@ -1472,13 +1516,17 @@ def check_channels(torch, np, card, seed):
             kb = tail(N, L, L - 40) if D == 1 else None
             rows, lin_in = N * L, params[12].shape[0]
             pairs_n = band_pairs(L, lb)
-            attn, attn_pad = head_flops(N, pairs_n, hd, C)
+            attn, _ = head_flops(N, pairs_n, hd, C)
+            _, attn_pad = head_flops(N, pairs_n, hd, CK)
             rest = rows * (2 * C * 3 * C + 2 * C * C + 2 * lin_in * C)
+            rest_pad = rows * CK * CK * (6 + 2 + 2 * lin_in // C)
             gru = rows * 4 * D * 3 * C * (C // G)
-            gru_pad = rows * 4 * D * 3 * C * gru_slot(G, C)
+            gru_pad = rows * 4 * D * 3 * CK * gru_slot(G, CK)
             extra = (sum(p.numel() for p in params) * 4
                      + (rows * 4 if kb is not None else 0))
             exps = N * nh * pairs_n + rows * D * C * 3
+            pad_ms = host_pad_ms(torch, lambda: kernel_operands(
+                [x, *params, kb], nh))
             for mode in ("bf16", "precise"):
                 kw = dict(bidirectional=D == 2, num_heads=nh, lookback=lb,
                           precise=mode == "precise")
@@ -1488,16 +1536,19 @@ def check_channels(torch, np, card, seed):
                         x[lo:hi], *params,
                         key_bias=None if kb is None else kb[lo:hi], **kw)
 
-                results["fused_ftf_block"].append(width_case(
+                res = width_case(
                     torch, "fused_ftf_block", name,
                     lambda: fused_ftf_block(x, *params, key_bias=kb, **kw),
                     by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
-                    mode, (N, L), rest + gru + attn, rest + gru_pad + attn_pad,
-                    extra, exps, exps_per_s, nh, G,
+                    mode, (N, L), rest + gru + attn,
+                    rest_pad + gru_pad + attn_pad, extra, exps, exps_per_s,
+                    nh, G,
                     lambda: library_or_reason(
                         torch, lambda: library_attention_ms(
                             torch, N, L, lb, kb, mode, nh, C)),
-                    C=C, phase="channels"))
+                    C=C, phase="channels",
+                    info=dict(kernel_width=CK, host_pad_ms=pad_ms))
+                results["fused_ftf_block"].append(res)
             del x, kb
         aparams = [p.detach().contiguous()
                    for p in tblk.attn.kernel_params()]
@@ -1509,10 +1560,14 @@ def check_channels(torch, np, card, seed):
             kb = tail(N, L, L - 130)
             rows = N * L
             pairs_n = band_pairs(L, lb)
-            attn, attn_pad = head_flops(N, pairs_n, hd, C)
+            attn, _ = head_flops(N, pairs_n, hd, C)
+            _, attn_pad = head_flops(N, pairs_n, hd, CA)
             proj = rows * (2 * C * 3 * C + 2 * C * C)
+            proj_pad = rows * 8 * CA * CA
             exps = (2 if lb is None else 1) * N * nh * pairs_n
             extra = sum(p.numel() for p in aparams) * 4 + rows * 4
+            pad_ms = host_pad_ms(torch, lambda: pad_attention(
+                [x, *aparams, kb], nh))
             for mode in ("bf16", "precise"):
                 kw = dict(num_heads=nh, precise=mode == "precise")
                 if lb is not None:
@@ -1527,13 +1582,15 @@ def check_channels(torch, np, card, seed):
                 def plain(lo, hi):
                     return ref(x[lo:hi], *aparams, key_bias=kb[lo:hi], **kw)
 
-                results[kernel].append(width_case(
+                res = width_case(
                     torch, kernel, f"L{L}_N{N}_keybias" + (
                         f"_W{lb}" if lb is not None else ""),
                     lambda: fn(x, *aparams, key_bias=kb, **kw),
                     by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
-                    mode, (N, L), proj + attn, proj + attn_pad, extra, exps,
-                    exps_per_s, nh, G, library, C=C, phase="channels"))
+                    mode, (N, L), proj + attn, proj_pad + attn_pad, extra,
+                    exps, exps_per_s, nh, G, library, C=C, phase="channels",
+                    info=dict(kernel_width=CA, host_pad_ms=pad_ms))
+                results[kernel].append(res)
             del x, kb
         gparams = [p.detach().contiguous() for p in tblk.kernel_params()[:6]]
         N, L = 825, 644
@@ -1548,37 +1605,45 @@ def check_channels(torch, np, card, seed):
                 torch, layer_norm(x, *gparams[:2]), *gparams[2:])
             return lib_ms, None, (lib_out - gru_fn()).abs().max().item()
 
-        results["fused_grouped_gru"].append(width_case(
+        pad_ms = host_pad_ms(torch, lambda: gru_kernel_operands(
+            [x, *gparams]))
+        res = width_case(
             torch, "fused_grouped_gru", f"L{L}", gru_fn,
             lambda: grouped_gru_plain(x, *gparams, False), "precise", (N, L),
             rows * 4 * 3 * C * (C // G),
-            rows * 4 * 3 * C * gru_kernel_slot(C, G),
+            rows * 4 * 3 * CG * gru_kernel_slot(C, G),
             sum(p.numel() for p in gparams) * 4, rows * C * 3, exps_per_s,
-            nh, G, library, C=C, phase="channels"))
+            nh, G, library, C=C, phase="channels",
+            info=dict(kernel_width=CG, host_pad_ms=pad_ms))
+        results["fused_grouped_gru"].append(res)
         del x, fblk, tblk
         torch.cuda.empty_cache()
     main_s = time.perf_counter() - t0 - small_s
 
-    # The enhancer end to end at two other widths, each call against the
-    # plain path on the card.
+    # The enhancer end to end at other widths, each call against the plain
+    # path on the card.
     launches = {k: 0 for k in ("fused_ftf_block", "fused_mhsa",
                                "banded_mhsa", "fused_ftf_bwd",
                                "fused_grouped_gru")}
     rng = np.random.default_rng(seed + 18)
 
-    def enhancer_at(enc, mtc=None):
+    def enhancer_at(enc, mtc=None, nh=4, G=4):
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed + enc[-1])
             return LctEnhancer(gen_cfg=LCTGeneratorConfig(
-                enc_channels=enc, dec_channels=enc[::-1],
-                max_time_context=mtc)).cuda().eval()
+                enc_channels=enc, dec_channels=enc[::-1], num_heads=nh,
+                gru_groups=G, max_time_context=mtc)).cuda().eval()
 
-    calls = [((8, 16, 32), None, 128, 2 * SR, False, (3, 0, 0, 0)),
-             ((32, 64, 128), None, 128, 2 * SR, False, (3, 0, 0, 0)),
-             ((32, 64, 128), None, 4, 163840, True, (2, 1, 0, 1)),
-             ((32, 64, 128), 64, 4, 196608, True, (2, 0, 1, 1))]
-    for enc, mtc, B, T, bucketed, expect in calls:
-        enhancer = enhancer_at(enc, mtc)
+    # (enc_channels, heads, groups): the serving batch (the fused path), a
+    # bucketed call through the composed path and a banded W = 64 one.
+    calls = [((8, 16, 32), 4, 4, None, 128, 2 * SR, False, (3, 0, 0, 0))]
+    for enc, nh, G in (((32, 64, 128), 4, 4), ((16, 32, 40), 4, 4),
+                       ((16, 32, 50), 5, 5)):
+        calls += [(enc, nh, G, None, 128, 2 * SR, False, (3, 0, 0, 0)),
+                  (enc, nh, G, None, 4, 163840, True, (2, 1, 0, 1)),
+                  (enc, nh, G, 64, 4, 196608, True, (2, 0, 1, 1))]
+    for enc, nh, G, mtc, B, T, bucketed, expect in calls:
+        enhancer = enhancer_at(enc, mtc, nh, G)
         enhance = make_enhance(enhancer)
         if bucketed:
             wave, lens = bucket_batch(np, rng, T, B)
@@ -1612,7 +1677,8 @@ def check_channels(torch, np, card, seed):
         call = (lambda: enhance(x)) if ln is None else (lambda: enhance(x, ln))
         emit({"phase": "channels", "workload": f"B={B} x {T} samples" + (
                   " bucketed" if bucketed else ""),
-              "enc_channels": list(enc), "num_heads": 4, "gru_groups": 4,
+              "enc_channels": list(enc), "num_heads": nh, "gru_groups": G,
+              "kernel_width": kernel_width(enc[-1], nh, G),
               "max_time_context": mtc, "seed": seed, "launches": got,
               "wave_worst_row_rel_l2_vs_plain_on_card": rel,
               "tol_rel_l2": TOL_REL_L2,
@@ -1623,48 +1689,58 @@ def check_channels(torch, np, card, seed):
         del enhancer, enhance, x, ln, out, mask, ref_wave, ref_mask
         torch.cuda.empty_cache()
 
-    # Training at other widths is taken on the card since the backward was
-    # built per width: a train state at C = 128, a block under grad at C =
-    # 48 (its forward launch; the backward runs in the train_channels
-    # phase). Serving and training at C = 40 are refused, before the card.
+    # Training at other widths is taken on the card since the backward
+    # takes every width the forward does: train states at C = 128 and 40,
+    # blocks under grad at C = 48 and 50 (5 heads and groups; their forward
+    # launch: the backward runs in the train_channels phase). Serving and
+    # training are refused before the card where the padded layout passes
+    # 128 channels: (16, 32, 100) at 5 heads and groups (160) and (16, 32,
+    # 144) (256).
     accepted, refused = [], []
     cfg = TrainConfig()
     _, mpd, msd = build_models(cfg)
-    state = _assemble(cfg, enhancer_at((32, 64, 128)).cpu(), mpd, msd,
-                      "cuda")
-    accepted.append("train state (32, 64, 128)")
-    del state
-    blk = seeded_blocks(torch, seed, 48, 4, 4)[0]
-    params = [p.detach().clone().requires_grad_()
-              for p in blk.kernel_params()]
-    fused_ftf_block.launches = 0
-    out = fused_ftf_block(torch.randn((4, 33, 48), device="cuda"), *params,
-                          bidirectional=True, num_heads=4)
-    torch.cuda.synchronize()
-    if not (fused_ftf_block.launches == 1 and out.requires_grad
-            and torch.isfinite(out).all()):
-        raise AssertionError("fused_ftf_block under grad at C = 48: "
-                             f"{fused_ftf_block.launches} launches")
-    accepted.append("fused_ftf_block under grad, C = 48")
-    del out, params, blk
-    try:
-        make_enhance(enhancer_at((16, 32, 40)))
-    except ValueError as exc:
-        if "enc_channels" not in str(exc):
-            raise
-        refused.append(("serve (16, 32, 40)", str(exc)))
-    else:
-        raise AssertionError("make_enhance took enc_channels (16, 32, 40) "
-                             "on the card")
-    try:
-        _assemble(cfg, enhancer_at((16, 32, 40)).cpu(), mpd, msd, "cuda")
-    except ValueError as exc:
-        if "enc_channels" not in str(exc):
-            raise
-        refused.append(("train state (16, 32, 40)", str(exc)))
-    else:
-        raise AssertionError("a train state at enc_channels (16, 32, 40) "
-                             "was built on the card")
+    for enc in ((32, 64, 128), (16, 32, 40)):
+        state = _assemble(cfg, enhancer_at(enc).cpu(), mpd, msd, "cuda")
+        accepted.append(f"train state {enc}")
+        del state
+    for C, nh in ((48, 4), (50, 5)):
+        blk = seeded_blocks(torch, seed, C, nh, nh)[0]
+        params = [p.detach().clone().requires_grad_()
+                  for p in blk.kernel_params()]
+        fused_ftf_block.launches = 0
+        out = fused_ftf_block(torch.randn((4, 33, C), device="cuda"),
+                              *params, bidirectional=True, num_heads=nh)
+        torch.cuda.synchronize()
+        if not (fused_ftf_block.launches == 1 and out.requires_grad
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"fused_ftf_block under grad at C = {C}: "
+                                 f"{fused_ftf_block.launches} launches")
+        accepted.append(f"fused_ftf_block under grad, C = {C}, {nh} heads "
+                        f"and groups")
+        del out, params, blk
+    for enc, nh, need in (((16, 32, 100), 5, 160), ((16, 32, 144), 4, 256)):
+        names = ("enc_channels", "--num_heads", "--gru_groups",
+                 f"needs {need} channels")
+        for what, act in (
+                ("serve", lambda: make_enhance(enhancer_at(enc, None, nh,
+                                                           nh))),
+                ("train state", lambda: _assemble(
+                    cfg, enhancer_at(enc, None, nh, nh).cpu(), mpd, msd,
+                    "cuda"))):
+            fused_ftf_block.launches = 0
+            try:
+                act()
+            except ValueError as exc:
+                if not all(n in str(exc) for n in names):
+                    raise
+                refused.append((f"{what} {enc}, {nh} heads and groups",
+                                str(exc)))
+            else:
+                raise AssertionError(f"{what} took enc_channels {enc} at "
+                                     f"{nh} heads and groups on the card")
+            if fused_ftf_block.launches:
+                raise AssertionError(f"{what} {enc}: a launch before the "
+                                     "refusal")
     emit({"phase": "channels", "accepted": accepted, "refused": refused})
     emit({"phase": "channels", "small_cases": len(small),
           "small_cases_s": small_s, "main_cases_s": main_s,
@@ -2306,18 +2382,23 @@ TRAIN_CHANNEL_PAIRS = {16: ((4, 4), (1, 1), (2, 8)),
                        48: ((4, 4), (1, 1), (3, 3), (48, 2)),
                        96: ((4, 4), (1, 1), (2, 2), (32, 12)),
                        128: ((4, 4), (1, 1), (2, 8), (128, 128))}
-TRAIN_CHANNEL_ENHANCERS = ((8, 16, 32), (12, 24, 48), (32, 64, 128))
+# ANY_CHANNELS' widths take every head and group count (channel_pairs).
+# The enhancers trained: (enc_channels, heads, groups).
+TRAIN_CHANNEL_ENHANCERS = (((8, 16, 32), 4, 4), ((12, 24, 48), 4, 4),
+                           ((32, 64, 128), 4, 4), ((16, 32, 40), 4, 4),
+                           ((16, 32, 50), 5, 5))
 
 
 def check_train_channels(torch, np, card, seed):
     """Training at bottleneck widths other than 64:
     (a) fused_ftf_bwd against ftf_bwd_reference at every C of CHANNELS,
         both modes, at the (heads, groups) pairs of TRAIN_CHANNEL_PAIRS,
-        the frequency block (L = 33) and the time block with lookback 16
-        (L = 129) at small N (the backward's libraries of those widths
+        and at every C of ANY_CHANNELS at each of its channel_pairs, the
+        frequency block (L = 33) and the time block with lookback 16 (L =
+        129) at small N (the backward's libraries of every kernel width
         built first if they are not, in one parallel batch);
     (b) the B = 64 x 2 s training shapes (freq N = 8,256, L = 33; time N =
-        2,112, L = 129) at C = 32 and 128, 4 heads and 4 groups, timed with
+        2,112, L = 129) at MAIN_CHANNELS, 4 heads and 4 groups, timed with
         stages, scratch, plain and library (SDPA forward + backward) ms;
     (c) make_train_step on states assembled (`train/state.py::_assemble`)
         around enhancers at enc_channels TRAIN_CHANNEL_ENHANCERS with
@@ -2329,14 +2410,15 @@ def check_train_channels(torch, np, card, seed):
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
     from lct_gan_tpu_torch.ops._build import build_all
+    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
     from lct_gan_tpu_torch.ops.probe import ex2_rate
     from lct_gan_tpu_torch.train import TrainConfig, make_train_step
     from lct_gan_tpu_torch.train.state import _assemble, build_models
 
     t0 = time.perf_counter()
-    build_s = build_all(verbose=True, widths=CHANNELS, backward=True)
+    build_s = build_all(verbose=True, widths=KERNEL_WIDTHS, backward=True)
     emit({"phase": "train_channels", "backward_build_seconds": build_s,
-          "widths": list(CHANNELS), "device": card})
+          "kernel_widths": list(KERNEL_WIDTHS), "device": card})
     exps_per_s = ex2_rate()
 
     def exp_floor_ms(n_exps):
@@ -2359,17 +2441,18 @@ def check_train_channels(torch, np, card, seed):
         del x
         torch.cuda.empty_cache()
 
-    # (a) every width of the set, small N.
+    # (a) every width, small N.
     t1 = time.perf_counter()
-    for C in CHANNELS:
-        for nh, G in TRAIN_CHANNEL_PAIRS[C]:
+    for C in CHANNELS + ANY_CHANNELS:
+        for nh, G in TRAIN_CHANNEL_PAIRS.get(C) or channel_pairs(C):
             freq, tblk = seeded_blocks(torch, seed, C, nh, G)
             run_case(C, nh, G, "freq", freq, 256, 33, None, False)
             run_case(C, nh, G, "time_lookback16", tblk, 64, 129, 16, False)
             del freq, tblk
     small_s = time.perf_counter() - t1
+    n_small = len(cases)
 
-    # (b) the B = 64 x 2 s training shapes at C = 32 and 128.
+    # (b) the B = 64 x 2 s training shapes at MAIN_CHANNELS.
     t1 = time.perf_counter()
     for C in MAIN_CHANNELS:
         freq, tblk = seeded_blocks(torch, seed, C, 4, 4)
@@ -2384,13 +2467,14 @@ def check_train_channels(torch, np, card, seed):
     step = make_train_step(cfg)
     launches = {"fused_ftf_block": 0, "fused_ftf_bwd": 0}
     rng = np.random.default_rng(seed + 19)
-    for enc in TRAIN_CHANNEL_ENHANCERS:
+    for enc, nh, G in TRAIN_CHANNEL_ENHANCERS:
         def fresh(precise):
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(seed + enc[-1])
                 enhancer = LctEnhancer(
                     gen_cfg=LCTGeneratorConfig(enc_channels=enc,
-                                               dec_channels=enc[::-1]),
+                                               dec_channels=enc[::-1],
+                                               num_heads=nh, gru_groups=G),
                     c=cfg.compress_c, precise=precise)
             _, mpd, msd = build_models(
                 cfg, generator=torch.Generator().manual_seed(seed))
@@ -2404,7 +2488,7 @@ def check_train_channels(torch, np, card, seed):
         for k in launches:
             launches[k] += got[k]
         emit({"phase": "train_channels", "check": "B=8 x 2 s steps",
-              "enc_channels": list(enc), "num_heads": 4, "gru_groups": 4,
+              "enc_channels": list(enc), "num_heads": nh, "gru_groups": G,
               "seed": seed, "launches_3_steps": got,
               "metrics_3_steps": history, "vs_plain_on_card": compared,
               "tol": STEP_TOL, "device": card})
@@ -2412,7 +2496,7 @@ def check_train_channels(torch, np, card, seed):
         torch.cuda.empty_cache()
     steps_s = time.perf_counter() - t1
     emit({"phase": "train_channels", "backward_build_seconds": build_s,
-          "small_cases": 4 * sum(len(v) for v in TRAIN_CHANNEL_PAIRS.values()),
+          "small_cases": n_small,
           "small_cases_s": small_s, "training_shapes_s": shapes_s,
           "steps_s": steps_s, "seconds": time.perf_counter() - t0})
     return cases, launches
@@ -3258,6 +3342,36 @@ def check_accept(torch, np, card):
     return got
 
 
+def ptxas_c64():
+    """The kernel width 64 instances' registers and spills from this run's
+    verbose build (ops/_build.py::BUILD_LOGS) beside the reference's
+    (PTXAS_REFERENCE, ptxas_report's JSON of the tree before the true width
+    and the score scale became launch arguments): every instance, and
+    those whose counts differ. Empty where the libraries were built before
+    this run."""
+    from lct_gan_tpu_torch.ops import _build
+    from lct_gan_tpu_torch.ptxas_report import instance_names
+
+    now = {}
+    for (_, width), log in _build.BUILD_LOGS.items():
+        if width == _build.DEFAULT_C:
+            now.update(_build.ptxas_usage(log))
+    plain = instance_names(now) if now else {}
+    now = {plain[k]: v for k, v in now.items()}
+    with open(PTXAS_REFERENCE, encoding="utf-8") as f:
+        ref = json.load(f)["kernels"]
+    changed = {k: {"reference": ref.get(k), "now": now.get(k)}
+               for k in sorted(set(ref) | set(now))
+               if ref.get(k) != now.get(k)}
+    spills = sorted(k for k, v in now.items()
+                    if v["spill_stores"] and not (ref.get(k) or {}).get(
+                        "spill_stores"))
+    return {"ptxas_c64_instances": len(now),
+            "ptxas_c64_reference_instances": len(ref),
+            "ptxas_c64_changed": changed, "ptxas_c64_new_spills": spills,
+            "ptxas_c64": now}
+
+
 def main():
     import argparse
 
@@ -3274,6 +3388,7 @@ def main():
     sys.path.insert(0, ROOT)
     from lct_gan_tpu_torch.convert import load_enhancer
     from lct_gan_tpu_torch.ops._build import build_all
+    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
     from lct_gan_tpu_torch.utils import (disable_tf32,
                                          gpu_name_and_power_limit)
 
@@ -3285,11 +3400,14 @@ def main():
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # Every width's libraries, the backward's too, in one parallel batch
-    # (the channels and train_channels phases then find them built).
-    build_s = build_all(verbose=True, widths=(64, *CHANNELS), backward=True)
+    # Every kernel width's libraries, the backward's too, in one parallel
+    # batch (the channels and train_channels phases then find them built),
+    # and the width 64 instances' registers and spills against the
+    # reference's.
+    build_s = build_all(verbose=True, widths=KERNEL_WIDTHS, backward=True)
     emit({"phase": "build", "seconds": build_s,
-          "widths": [64, *CHANNELS]})
+          "kernel_widths": list(KERNEL_WIDTHS)})
+    emit({"phase": "build", **ptxas_c64()})
 
     enhancer = load_enhancer(CHECKPOINT, device="cuda")
     kernels = check_kernels(torch, enhancer)

@@ -134,7 +134,7 @@ def run(variants: bool, checkpoint: str) -> dict:
             calls = {}
             for name, lib in libs.items():
                 def call(lib=lib):
-                    _build._libs["banded"] = lib
+                    _build._libs[("banded", _build.DEFAULT_C)] = lib
                     return banded_mhsa(x, *aparams, **kw)
                 calls[name] = call
             if S <= 1024:
@@ -149,7 +149,7 @@ def run(variants: bool, checkpoint: str) -> dict:
                 rows.append(row)
                 print(json.dumps(row), flush=True)
                 del d
-            _build._libs["banded"] = libs["committed"]
+            _build._libs[("banded", _build.DEFAULT_C)] = libs["committed"]
             del x, kb, ref
             torch.cuda.empty_cache()
     return {"device": card, "variants": sorted(libs), "rows": len(rows)}

@@ -53,7 +53,8 @@
 // registers a thread): the dependent steps of each warp's softmax, more
 // than a pipe or device memory, set its pace.
 //
-// Heads: any num_heads dividing C_MODEL (run at head_width, common.cuh).
+// Heads: any num_heads dividing the true width c_true <= C (run at
+// head_width, common.cuh), the score scale from the caller.
 // The kernels are built per padded head width (head_pad in common.cuh):
 // 16, 32 (two k-steps a score) or 64 (four, one head a pass) with every head
 // unrolled, or 8 for hd <= 8, whose heads take masked fragments (tc.cuh's
@@ -126,25 +127,25 @@ __device__ __forceinline__ void band_pass(const float* Ks, const float* Vs,
   }
 }
 
-// qkv [N*S, 3C] -> ctx [N*S, C], C / hd heads (scaled by 1 / sqrt(hd_true)
-// where PADDED). Block b covers sequence n, head h and query rows [t0, t0 +
-// BT) with b = (n * nh + h) * ntiles + t0 / BT. The keys the tile can reach, [max(0, t0 - W), min(S, t0 + BT)), are
-// staged BKC rows at a time: with W <= BKC - BT they fit at once and are
-// loaded once; a wider band reloads each chunk in each of the three
-// passes, so shared memory stays 33 KB for any W.
+// qkv [N*S, 3C] -> ctx [N*S, C], C / hd heads (scores scaled by `scale`).
+// Block b covers sequence n, head h and query rows [t0, t0 + BT) with b =
+// (n * nh + h) * ntiles + t0 / BT. The keys the tile can reach,
+// [max(0, t0 - W), min(S, t0 + BT)), are staged BKC rows at a time: with
+// W <= BKC - BT they fit at once and are loaded once; a wider band reloads
+// each chunk in each of the three passes, so shared memory stays 33 KB for
+// any W.
 template <int HDP>
 __global__ void __launch_bounds__(BT)
     banded_attn_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ key_bias,
                        float* __restrict__ ctx, int S, int W, int ntiles,
-                       int hd_rt, int hd_true) {
+                       int hd_rt, float scale) {
   constexpr int BKC = BandKeys<HDP>::BKC;
   __shared__ __align__(16) float Ks[BKC * HDP];
   __shared__ __align__(16) float Vs[BKC * HDP];
   __shared__ float kb[BKC];
   const int hd = HDP >= 16 ? HDP : hd_rt;
   const int nh = C / hd;
-  const float scale = head_scale(hd, hd_true);
   const int tid = threadIdx.x;
   const int tile = (int)(blockIdx.x % (unsigned)ntiles);
   const long long seq_head = blockIdx.x / (unsigned)ntiles;
@@ -269,8 +270,8 @@ struct BandedArgs {
   long long N;
   int S;
   int lookback;
-  int hd;  // head width: C / num_heads
-  int hd_true;  // its true channels (the score scale's width; PADDED only)
+  int hd;  // head width the kernels run: a power of two
+  float scale2;  // the score scale in log2 units (tc::qk_scale2)
 };
 
 // NCH = ceil(W / 16) + 1 key chunks per warp: the halo of 16 (NCH - 1) rows
@@ -375,7 +376,7 @@ __global__ void __launch_bounds__(BQ_THREADS, MIN_BLOCKS)
   constexpr int NACC = HDP > 16 ? 1 : 2;
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd;
-  const float scale2 = tc::qk_scale2(hd, a.hd_true);
+  const float scale2 = a.scale2;
   using tc::LDS;
   using tc::LDW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -725,35 +726,38 @@ cudaError_t launch_banded_hd(const BandedArgs& a, cudaStream_t st) {
 template <int HDP>
 cudaError_t launch_banded_f32(const float* qkv, const float* key_bias,
                               float* ctx, long long N, int S, int lookback,
-                              int hd, int hd_true, cudaStream_t st) {
+                              int hd, float scale, cudaStream_t st) {
   const int ntiles = (S + BT - 1) / BT;
   const long long ablocks = N * (C / hd) * ntiles;
   banded_attn_kernel<HDP><<<(unsigned)ablocks, BT, 0, st>>>(
-      qkv, key_bias, ctx, S, lookback, ntiles, hd, hd_true);
+      qkv, key_bias, ctx, S, lookback, ntiles, hd, scale);
   return cudaGetLastError();
 }
 
 }  // namespace lct
 
 // x, out: [N, S, C]; in_w: [C, 3C]; out_w: [C, C]; key_bias: [N, S] or
-// null; lookback >= 0; num_heads divides C_MODEL. Scratch: none for
-// lookback <= MAX_REG_W, else qkv bf16 [N*S, 3C]. Returns a cudaError_t.
+// null; lookback >= 0; c_true true channels (the rest of each row zero) in
+// num_heads heads, scale their score scale (the f32 rounding of 1 /
+// sqrt(c_true / num_heads)). Scratch: none for lookback <= MAX_REG_W, else
+// qkv bf16 [N*S, 3C]. Returns a cudaError_t.
 extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
                                        const float* in_b, const float* out_w,
                                        const float* out_b,
                                        const float* key_bias, void* qkv,
                                        float* out, long long N, int S,
-                                       int lookback, int num_heads,
+                                       int lookback, int c_true,
+                                       int num_heads, float scale,
                                        int device, void* stream) {
   using namespace lct;
-  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 ||
-      C_MODEL % num_heads)
+  if (lookback < 0 || N < 0 || S < 0 || !widths_ok(c_true, num_heads, 1))
     return (int)cudaErrorInvalidValue;
   if (N * S == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
+  const int hd = head_width(c_true / num_heads);
+  const float scale2 = tc::qk_scale2(scale);
   if (lookback > MAX_REG_W) {
     if (qkv == nullptr) return (int)cudaErrorInvalidValue;
     __nv_bfloat16* q = static_cast<__nv_bfloat16*>(qkv);
@@ -771,12 +775,12 @@ extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
     a.L = S;
     a.lookback = lookback;
     a.hd = hd;
-    a.hd_true = hdt;
+    a.scale2 = scale2;
     return (int)tc::launch_attn_tc<1>(a, st);
   }
   if constexpr (C <= 64) {
     const BandedArgs a = {x, in_w, in_b, out_w, out_b, key_bias, out,
-                          N, S, lookback, hd, hdt};
+                          N, S, lookback, hd, scale2};
     switch (head_pad(hd)) {
       case 8: return (int)launch_banded_hd<8>(a, st);
       case 16: return (int)launch_banded_hd<16>(a, st);
@@ -795,22 +799,22 @@ extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
 // scratch (the Python wrapper reads it to size the scratch).
 extern "C" int lct_banded_max_register_lookback() { return lct::MAX_REG_W; }
 
-// The same function in all-f32 arithmetic (precise mode). Scratch: qkv
-// [N*S, 3C], ctx [N*S, C], f32.
+// The same function in all-f32 arithmetic (precise mode), arguments as
+// lct_banded_forward_bf16's. Scratch: qkv [N*S, 3C], ctx [N*S, C], f32.
 extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
                                       const float* in_b, const float* out_w,
                                       const float* out_b,
                                       const float* key_bias, float* qkv,
                                       float* ctx, float* out, long long N,
-                                      int S, int lookback, int num_heads,
-                                      int device, void* stream) {
+                                      int S, int lookback, int c_true,
+                                      int num_heads, float scale, int device,
+                                      void* stream) {
   using namespace lct;
-  if (lookback < 0 || N < 0 || S < 0 || num_heads <= 0 ||
-      C_MODEL % num_heads)
+  if (lookback < 0 || N < 0 || S < 0 || !widths_ok(c_true, num_heads, 1))
     return (int)cudaErrorInvalidValue;
   const long long rows = N * S;
   if (rows == 0) return 0;
-  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
+  const int hd = head_width(c_true / num_heads);
   const long long rblocks = (rows + ROWS - 1) / ROWS;
   if (rblocks > INT_MAX || N * (C / hd) * ((S + BT - 1) / BT) > INT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -820,38 +824,38 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
 
   proj_kernel<false><<<(unsigned)rblocks, row_threads(3 * C), 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
-      /*round=*/0);
+      /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   e = cudaErrorInvalidValue;
   switch (head_pad(hd)) {
     case 8:
-      e = launch_banded_f32<8>(qkv, key_bias, ctx, N, S, lookback, hd, hdt,
+      e = launch_banded_f32<8>(qkv, key_bias, ctx, N, S, lookback, hd, scale,
                                st);
       break;
     case 16:
-      e = launch_banded_f32<16>(qkv, key_bias, ctx, N, S, lookback, hd, hdt,
+      e = launch_banded_f32<16>(qkv, key_bias, ctx, N, S, lookback, hd, scale,
                                 st);
       break;
     case 32:
       if constexpr (C >= 32)
         e = launch_banded_f32<32>(qkv, key_bias, ctx, N, S, lookback, hd,
-                                  hdt, st);
+                                  scale, st);
       break;
     case 64:
       if constexpr (C >= 64)
         e = launch_banded_f32<64>(qkv, key_bias, ctx, N, S, lookback, hd,
-                                  hdt, st);
+                                  scale, st);
       break;
     case 128:
       if constexpr (C >= 128)
         e = launch_banded_f32<128>(qkv, key_bias, ctx, N, S, lookback, hd,
-                                   hdt, st);
+                                   scale, st);
       break;
   }
   if (e != cudaSuccess) return (int)e;
   proj_kernel<false><<<(unsigned)rblocks, row_threads(C), 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
-      /*round=*/0);
+      /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return 0;
 }

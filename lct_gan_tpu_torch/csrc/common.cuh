@@ -3,21 +3,24 @@
 // (all-f32) mode and every stage of the backward. The forward's bf16 mode
 // runs the tensor-core kernels of tc.cuh instead.
 //
-// Widths: the library is built for one bottleneck width C_MODEL = LCT_C
-// (-DLCT_C=<C>, ops/_build.py; 64 when unset) and runs at C, the smallest
-// power of two >= C_MODEL (48 -> 64, 96 -> 128; else C_MODEL itself). Where
-// they differ the Python wrappers pad (ops/padding.py): each GRU group and
-// each attention head is widened with zero channels to a power of two,
-// which is exact (a zero channel adds 0 to every product, a zero-weight GRU
-// unit stays 0), and every LayerNorm divides by C_MODEL, the true channel
-// count, so the zeros leave its mean and variance as they are. Heads of hd
-// = C_MODEL / num_heads channels run at the padded width head_width(hd)
-// with the true scale 1 / sqrt(hd). The kernels are templated on a padded
-// head width and take the true one at run time: attention on the head width
-// (8 for any hd <= 8, else 16 .. C), the GRU on its slot width (16: groups
-// of 16 or, packed block-diagonally, narrower; dense slots of C, or of 64
-// at C = 128: wider groups packed); the Python wrappers check the widths
-// before a launch.
+// Widths: the library is built for one kernel width C = LCT_C (16, 32,
+// 64 or 128; -DLCT_C=<C>, ops/_build.py; 64 when unset): the channels a
+// row holds in every kernel. The model's true bottleneck width c_true <= C
+// arrives at run time with each launch, and so do the heads and the score
+// scale. The Python wrappers pick C from the true width, the head count
+// and the group count (ops/padding.py::kernel_width) and pad to it: each
+// GRU group and each attention head is widened with zero channels to a
+// power of two, which is exact (a zero channel adds 0 to every product, a
+// zero-weight GRU unit stays 0), and every LayerNorm divides by c_true, the
+// true channel count (the `inv_c` argument, 1 / c_true), so the zeros leave
+// its mean and variance as they are. Heads of hd = c_true / num_heads
+// channels run at the padded width head_width(hd) with the score scale the
+// wrapper computes, the f32 rounding of 1 / sqrt(hd) (the JAX package's).
+// The kernels are templated on a padded head width and take the true one at
+// run time: attention on the head width (8 for any hd <= 8, else 16 .. C),
+// the GRU on its slot width (16: groups of 16 or, packed block-diagonally,
+// narrower; dense slots of C, or of 64 at C = 128: wider groups packed);
+// the Python wrappers check the widths before a launch.
 //
 // Rounding: `round != 0` is the bf16 mode (the backward's). Every GEMM
 // operand is rounded to bf16 (round-to-nearest-even) exactly where the TPU
@@ -42,45 +45,9 @@ __host__ __device__ constexpr int pow2_ceil(int v) {
   return v <= 1 ? 1 : 2 * pow2_ceil((v + 1) / 2);
 }
 
-constexpr int C_MODEL = LCT_C;            // the model's bottleneck width
-constexpr int C = pow2_ceil(C_MODEL);     // channels the kernels run at
-constexpr bool PADDED = C != C_MODEL;     // the wrappers pad to C
+constexpr int C = LCT_C;  // channels the kernels run at (the kernel width)
 constexpr int ROWS = 32;  // rows per block in the row-GEMM kernels
-static_assert(C >= 16 && C <= 128 && C_MODEL % 16 == 0, "LCT_C");
-
-// 1 / sqrt(hd) for a power of two hd <= 64: the short chain of selects
-// that a head width known only at run time (hd <= 8) costs the C = 64
-// instances.
-__host__ __device__ constexpr float inv_sqrt_pow2(int hd) {
-  return hd == 1    ? 1.f
-         : hd == 2  ? 0.70710678118654752f  // 1 / sqrt(2)
-         : hd == 4  ? 1.f / 2
-         : hd == 8  ? 0.35355339059327376f  // 1 / sqrt(8)
-         : hd == 16 ? 1.f / 4
-         : hd == 32 ? 0.17677669529663688f  // 1 / sqrt(32)
-                    : 1.f / 8;
-}
-
-// 1 / sqrt(hd), the attention's score scale, for every head width of the
-// channel set (16, 32, 48, 64, 96, 128 and their divisors), each value the
-// f32 rounding of the exact one.
-__host__ __device__ constexpr float inv_sqrt_hd(int hd) {
-  return hd == 128  ? 0.08838834764831843f  // 1 / sqrt(128)
-         : hd == 3  ? 0.57735026918962584f  // 1 / sqrt(3)
-         : hd == 6  ? 0.40824829046386307f  // 1 / sqrt(6)
-         : hd == 12 ? 0.28867513459481292f  // 1 / sqrt(12)
-         : hd == 24 ? 0.20412414523193154f  // 1 / sqrt(24)
-         : hd == 48 ? 0.14433756729740646f  // 1 / sqrt(48)
-         : hd == 96 ? 0.10206207261596577f  // 1 / sqrt(96)
-                    : inv_sqrt_pow2(hd);
-}
-
-// The score scale of a head the kernels run hd wide: 1 / sqrt of its true
-// width hd_true where the wrappers padded it (PADDED), else of hd.
-__host__ __device__ constexpr float head_scale(int hd, int hd_true) {
-  return PADDED ? inv_sqrt_hd(hd_true)
-                : C > 64 ? inv_sqrt_hd(hd) : inv_sqrt_pow2(hd);
-}
+static_assert(C == 16 || C == 32 || C == 64 || C == 128, "LCT_C");
 
 // The width a head of hd true channels runs at (the wrappers pad it there).
 __host__ __device__ constexpr int head_width(int hd) { return pow2_ceil(hd); }
@@ -93,10 +60,13 @@ __host__ __device__ constexpr int head_pad(int hd) { return hd <= 8 ? 8 : hd; }
 // C = 128 also 2: slots of 64).
 inline int gru_slot(int slots) { return C / slots; }
 
-// num_heads divides C_MODEL; the GRU weights come in C / 16 slots of 16,
-// 1 of C, or at C = 128 2 of 64.
-inline bool widths_ok(int num_heads, int slots) {
-  return num_heads > 0 && C_MODEL % num_heads == 0 &&
+// c_true channels (at most C) in num_heads heads, whose padded heads fit
+// C; the GRU weights come in C / 16 slots of 16, 1 of C, or at C = 128 2
+// of 64.
+inline bool widths_ok(int c_true, int num_heads, int slots) {
+  return c_true > 0 && c_true <= C && num_heads > 0 &&
+         c_true % num_heads == 0 &&
+         num_heads * head_width(c_true / num_heads) <= C &&
          (slots == C / 16 || slots == 1 || (C > 64 && slots == C / 64));
 }
 
@@ -119,11 +89,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // LayerNorm of one row that a warp holds, CPL values a lane (lane_holds;
-// the rest 0): fast-variance form max(0, E[x^2] - mu^2) over the C_MODEL
-// true channels, eps 1e-6; s and b are the lane's scale and bias (0 on a
-// padded channel, which so stays 0).
+// the rest 0): fast-variance form max(0, E[x^2] - mu^2) over the true
+// channels (inv_c = 1 / their count), eps 1e-6; s and b are the lane's
+// scale and bias (0 on a padded channel, which so stays 0).
 __device__ __forceinline__ void ln_row(float (&v)[CPL], const float (&s)[CPL],
-                                       const float (&b)[CPL]) {
+                                       const float (&b)[CPL], float inv_c) {
   float s1, s2;
   if constexpr (CPL == 2) {
     s1 = v[0] + v[1];
@@ -137,8 +107,8 @@ __device__ __forceinline__ void ln_row(float (&v)[CPL], const float (&s)[CPL],
       s2 += v[i] * v[i];
     }
   }
-  const float mu = warp_sum(s1) * (1.f / C_MODEL);
-  const float ms = warp_sum(s2) * (1.f / C_MODEL);
+  const float mu = warp_sum(s1) * inv_c;
+  const float ms = warp_sum(s2) * inv_c;
   const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
 #pragma unroll
   for (int i = 0; i < CPL; ++i) v[i] = (v[i] - mu) * rs * s[i] + b[i];
@@ -161,7 +131,8 @@ inline unsigned row_threads(int M) { return (unsigned)((M + 31) / 32 * 32); }
 // whole warps, row_threads).
 //
 // in = x (+ (add0 + add1)), optionally LayerNorm'ed (ln_s != nullptr;
-// fast-variance form max(0, E[x^2] - mu^2), eps 1e-6), then rounded.
+// fast-variance form max(0, E[x^2] - mu^2) over 1 / inv_c true channels,
+// eps 1e-6), then rounded.
 // GROUPED: the grouped GRU input projection over slots of GW channels.
 // Column c = d*3C + g*3GW + j reads the GW inputs of slot g and W = w_ih
 // [D, C/GW, GW, 3GW] (the groups packed into slots, ops/gru.py::
@@ -182,7 +153,7 @@ __global__ void LCT_PROJ_BOUNDS proj_kernel(const float* __restrict__ x,
                             const float* __restrict__ W,
                             const float* __restrict__ bias,
                             float* __restrict__ out, long long rows, int M,
-                            int round) {
+                            int round, float inv_c) {
   __shared__ float tile[ROWS][C];
   const long long row0 = (long long)blockIdx.x * ROWS;
   const int tid = threadIdx.x;
@@ -211,7 +182,7 @@ __global__ void LCT_PROJ_BOUNDS proj_kernel(const float* __restrict__ x,
         ls[i] = lane_holds(lane, i) ? ln_s[lane + 32 * i] : 0.f;
         lb[i] = lane_holds(lane, i) ? ln_b[lane + 32 * i] : 0.f;
       }
-      ln_row(v, ls, lb);
+      ln_row(v, ls, lb, inv_c);
     }
 #pragma unroll
     for (int i = 0; i < CPL; ++i)
@@ -249,8 +220,8 @@ __global__ void LCT_PROJ_BOUNDS proj_kernel(const float* __restrict__ x,
 
 // Multi-head self-attention core over qkv [N*L, 3C] -> ctx [N*L, C] (ctx not
 // yet rounded: its consumer rounds it as a GEMM operand), C / hd heads of
-// hd channels (the scale is 1 / sqrt(hd_true): hd itself but where the
-// wrappers padded the heads, PADDED).
+// hd channels, scores scaled by `scale` (1 / sqrt of the true head width,
+// from the wrapper).
 //
 // One block per (sequence, head), one query row per thread. For heads of
 // at most 16 channels, K and V of that head (rounded, HDP floats a key,
@@ -273,7 +244,7 @@ template <int MODE, int HDP>
 __global__ void attn_kernel(const float* __restrict__ qkv,
                             const float* __restrict__ key_bias,
                             float* __restrict__ ctx, int L, int lookback,
-                            int round, int hd_rt, int hd_true) {
+                            int round, int hd_rt, float scale) {
   constexpr bool STAGE = HDP <= 16;
   extern __shared__ float sm[];
   float* Ks = sm;                // [L][HDP]
@@ -283,7 +254,6 @@ __global__ void attn_kernel(const float* __restrict__ qkv,
   const int nh = C / hd;
   const long long n = blockIdx.x / nh;
   const int h = blockIdx.x % nh;
-  const float scale = head_scale(hd, hd_true);
   const float* base = qkv + (size_t)n * L * (3 * C);
   if (STAGE) {
     for (int i = threadIdx.x; i < L * HDP; i += blockDim.x) {
@@ -364,7 +334,7 @@ __global__ void attn_kernel(const float* __restrict__ qkv,
 template <int MODE, int HDP>
 cudaError_t launch_attn_hd(const float* qkv, const float* key_bias,
                            float* ctx, long long N, int L, int lookback,
-                           int round, int hd, int hd_true, cudaStream_t st) {
+                           int round, int hd, float scale, cudaStream_t st) {
   const size_t smem =
       HDP <= 16 ? (size_t)(2 * HDP + 1) * L * sizeof(float) : 0;
   if (smem > 48 * 1024) {
@@ -376,38 +346,38 @@ cudaError_t launch_attn_hd(const float* qkv, const float* key_bias,
   int threads = ((L + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   attn_kernel<MODE, HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
-      qkv, key_bias, ctx, L, lookback, round, hd, hd_true);
+      qkv, key_bias, ctx, L, lookback, round, hd, scale);
   return cudaGetLastError();
 }
 
 // Launch attn_kernel<MODE, head_pad(hd)> for N sequences of length L and
-// heads of hd channels (hd_true of them real: the score scale's width).
+// heads of hd channels (scores scaled by `scale`).
 // Instances exist for the padded widths up to C.
 template <int MODE>
 cudaError_t launch_attn(const float* qkv, const float* key_bias, float* ctx,
                         long long N, int L, int lookback, int round, int hd,
-                        int hd_true, cudaStream_t st) {
+                        float scale, cudaStream_t st) {
   switch (head_pad(hd)) {
     case 8:
       return launch_attn_hd<MODE, 8>(qkv, key_bias, ctx, N, L, lookback,
-                                     round, hd, hd_true, st);
+                                     round, hd, scale, st);
     case 16:
       return launch_attn_hd<MODE, 16>(qkv, key_bias, ctx, N, L, lookback,
-                                      round, hd, hd_true, st);
+                                      round, hd, scale, st);
     case 32:
       if constexpr (C >= 32)
         return launch_attn_hd<MODE, 32>(qkv, key_bias, ctx, N, L, lookback,
-                                        round, hd, hd_true, st);
+                                        round, hd, scale, st);
       break;
     case 64:
       if constexpr (C >= 64)
         return launch_attn_hd<MODE, 64>(qkv, key_bias, ctx, N, L, lookback,
-                                        round, hd, hd_true, st);
+                                        round, hd, scale, st);
       break;
     case 128:
       if constexpr (C >= 128)
         return launch_attn_hd<MODE, 128>(qkv, key_bias, ctx, N, L, lookback,
-                                         round, hd, hd_true, st);
+                                         round, hd, scale, st);
       break;
   }
   return cudaErrorInvalidValue;

@@ -25,8 +25,9 @@
 // above L = 512 (ops/gru.py), all f32, in one launch of its own design
 // (gru_f32_kernel, below): no xp in device memory.
 //
-// Widths: any num_heads and any GRU group count that divide C_MODEL (the
-// library's bottleneck width, common.cuh; the kernels run at C). The GRU
+// Widths: any true width c_true <= C (common.cuh; the kernels run at the
+// library's kernel width C) in any num_heads and any GRU group count that
+// the wrappers padded to C (ops/padding.py). The GRU
 // kernels run over slots of 16 units (gru_tc_kernel<1>, gru_kernel,
 // proj_kernel<true, 16>) or dense slots of W = C, or 64 at C = 128
 // (gru_tc_kernel<W / 16>, gru_dense_kernel<W>, proj_kernel<true, W>), the
@@ -36,7 +37,7 @@
 // (ops/gru.py::pack_gru_slots; exact: the entries off the blocks are 0 and
 // add nothing). The entry points take the GRU weights in slots: w [D,
 // slots, W, 3W], b [D, slots, 3W], slots = C / W. One slot of 128 (a group
-// of 128, or of 96 padded) would take 192 fragment registers a lane in
+// of 128, or of 65-127 padded) would take 192 fragment registers a lane in
 // gru_tc_kernel: the bf16 mode runs it on CUDA cores with the same
 // rounding points (proj_kernel<true, 128> with round, gru_dense_kernel<
 // true, 128>).
@@ -283,6 +284,7 @@ struct GruArgs {
   long long N;
   int L;
   int D;
+  float inv_c;  // 1 / the true channel count (LN1's)
 };
 
 // Whether gru_tc_kernel<KS> takes one direction a block (dense slots at
@@ -333,7 +335,13 @@ inline size_t gru_smem(int D) {
 // Bound: the recurrence is sequential in L, so each step's chain (one
 // product, three gates) is latency; across the card it moves x in (once per
 // direction) and the f32 hiddens out.
-template <int KS>
+//
+// PADDED: the rows hold fewer true channels than C, and LN1 divides by
+// their count (a.inv_c). Rows of C true channels take the instance that
+// divides by the constant 1 / C: with the divisor a kernel argument, nvcc
+// gave the C = 64 slots of 16 134 registers a thread, not 116, which fits
+// one block of 256 threads an SM instead of two.
+template <int KS, bool PADDED>
 __global__ void __launch_bounds__(split_directions(KS) ? 2 * C : 4 * C)
     gru_tc_kernel(GruArgs a) {
   constexpr bool SPLIT = split_directions(KS);
@@ -388,7 +396,7 @@ __global__ void __launch_bounds__(split_directions(KS) ? 2 * C : 4 * C)
     }
   };
   auto put = [&](int cc, int i, float (&v)[CPL]) {
-    ln_row(v, ls, lb);
+    ln_row(v, ls, lb, PADDED ? a.inv_c : 1.f / C);
     __nv_bfloat16* dst = n1s + ((size_t)(cc & 1) * D * TS * GS + i) * LDS;
 #pragma unroll
     for (int j = 0; j < CPL; ++j)
@@ -516,16 +524,24 @@ __global__ void __launch_bounds__(split_directions(KS) ? 2 * C : 4 * C)
   }
 }
 
-template <int KS>
-cudaError_t launch_gru_tc(const GruArgs& a, cudaStream_t st) {
+template <int KS, bool PADDED>
+cudaError_t launch_gru_tc_as(const GruArgs& a, cudaStream_t st) {
   constexpr bool SPLIT = split_directions(KS);
   const int D = SPLIT ? 1 : a.D;  // directions a block
   const size_t smem = gru_smem<KS>(D);
-  cudaError_t e = allow_smem(gru_tc_kernel<KS>, smem);
+  cudaError_t e = allow_smem(gru_tc_kernel<KS, PADDED>, smem);
   if (e != cudaSuccess) return e;
-  gru_tc_kernel<KS><<<dim3((unsigned)((a.N + GS - 1) / GS), SPLIT ? a.D : 1),
-                      D * (C / 16) * 32, smem, st>>>(a);
+  gru_tc_kernel<KS, PADDED>
+      <<<dim3((unsigned)((a.N + GS - 1) / GS), SPLIT ? a.D : 1),
+         D * (C / 16) * 32, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// gru_tc_kernel<KS, c_true < C>.
+template <int KS>
+cudaError_t launch_gru_tc(const GruArgs& a, int c_true, cudaStream_t st) {
+  return c_true < C ? launch_gru_tc_as<KS, true>(a, st)
+                    : launch_gru_tc_as<KS, false>(a, st);
 }
 
 }  // namespace tc
@@ -536,13 +552,13 @@ inline cudaError_t launch_gru_dense(const float* x, const float* ln1_s,
                                     const float* ln1_b, const float* w_ih,
                                     const float* w_hh, const float* b_ih,
                                     const float* b_hh, float* xp, float* hid,
-                                    long long N, int L, int D,
+                                    long long N, int L, int D, float inv_c,
                                     cudaStream_t st) {
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
   proj_kernel<true, SW><<<rblocks, row_threads(D * 3 * C), 0, st>>>(
       x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
-      /*round=*/ROUND ? 1 : 0);
+      /*round=*/ROUND ? 1 : 0, inv_c);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const size_t smem = gru_dense_smem<SW>();
@@ -565,14 +581,14 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
                                   const float* w_hh, const float* b_ih,
                                   const float* b_hh, int slots, float* xp,
                                   float* hid, long long N, int L, int D,
-                                  cudaStream_t st) {
+                                  float inv_c, cudaStream_t st) {
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
   const unsigned threads = row_threads(D * 3 * C);
   if (!ROUND && gru_slot(slots) == 16) {
     proj_kernel<true, 16><<<rblocks, threads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
-        /*round=*/0);
+        /*round=*/0, inv_c);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     const long long gthreads = N * D * C;
@@ -583,10 +599,10 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
   if constexpr (!ROUND && C > 64) {
     if (gru_slot(slots) == 64)
       return launch_gru_dense<false, 64>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
-                                         b_hh, xp, hid, N, L, D, st);
+                                         b_hh, xp, hid, N, L, D, inv_c, st);
   }
   return launch_gru_dense<ROUND, C>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
-                                    xp, hid, N, L, D, st);
+                                    xp, hid, N, L, D, inv_c, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -717,6 +733,7 @@ struct Args {
   long long N;
   int L;
   int G;
+  float inv_c;  // 1 / the true channel count (LN1's)
 };
 
 // Entry (input channel i, unit u, gate) of direction d's weights in grouped
@@ -902,7 +919,7 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
 #pragma unroll
       for (int i = 0; i < CPL; ++i)
         v[i] = lane_holds(lane, i) ? rows[st * C + lane + 32 * i] : 0.f;
-      ln_row(v, ls, lb);
+      ln_row(v, ls, lb, a.inv_c);
 #pragma unroll
       for (int i = 0; i < CPL; ++i)
         if (lane_holds(lane, i)) rows[st * C + lane + 32 * i] = v[i];
@@ -1075,8 +1092,10 @@ cudaError_t launch_groups(const Args& a, int D, cudaStream_t st) {
 // x, out: [N, L, C]; w_ih, w_hh: [D, slots, W, 3W]; b_ih, b_hh: [D,
 // slots, 3W] (W = C / slots, slots = C / 16 or 1); in_w: [C, 3C]; out_w:
 // [C, C]; lin_w: [lin_in, C]; key_bias: [N, L] or null; lookback < 0
-// means no band; num_heads divides C_MODEL (heads of C_MODEL / num_heads
-// true channels at head_width of it, common.cuh). Scratch: hid [D, N*L, C]
+// means no band; c_true true channels (the LayerNorms' count; the rest of
+// each row zero), num_heads dividing it (heads of c_true / num_heads true
+// channels at head_width of it, common.cuh), scale their score scale (the
+// f32 rounding of 1 / sqrt(c_true / num_heads)). Scratch: hid [D, N*L, C]
 // f32 (the per-direction hiddens, unrounded), qkv bf16 [N*L, 3C], s f32
 // [N*L, C] (x + g), when lin_in == 2C gb bf16 [N*L, C] (bf16(g); else
 // null), for the dense slot at C = 128 xp f32 [N*L, D*3C] (else null).
@@ -1089,9 +1108,11 @@ extern "C" int lct_ftf_forward_bf16(
     const float* out_b, const float* lin_w, const float* lin_b,
     const float* key_bias, float* hid, void* qkv, float* s, void* gb,
     float* xp, float* out, long long N, int L, int D, int lin_in,
-    int lookback, int num_heads, int slots, int device, void* stream) {
+    int lookback, int c_true, int num_heads, float scale, int slots,
+    int device, void* stream) {
   using namespace lct;
-  if ((lin_in == 2 * C) != (gb != nullptr) || !widths_ok(num_heads, slots) ||
+  if ((lin_in == 2 * C) != (gb != nullptr) ||
+      !widths_ok(c_true, num_heads, slots) ||
       (C > 64 && slots == 1) != (xp != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
@@ -1100,24 +1121,25 @@ extern "C" int lct_ftf_forward_bf16(
   const long long rows = N * L;
   __nv_bfloat16* q = static_cast<__nv_bfloat16*>(qkv);
   __nv_bfloat16* g = static_cast<__nv_bfloat16*>(gb);
+  const float inv_c = 1.f / c_true;
 
   const tc::GruArgs ga = {x,    ln1_s, ln1_b, w_ih, w_hh, b_ih,
-                          b_hh, hid,   N,     L,    D};
+                          b_hh, hid,   N,     L,    D,    inv_c};
   if (gru_slot(slots) == 16) {
-    e = tc::launch_gru_tc<1>(ga, st);
+    e = tc::launch_gru_tc<1>(ga, c_true, st);
   } else {
     if constexpr (C <= 64) {
-      e = tc::launch_gru_tc<C / 16>(ga, st);
+      e = tc::launch_gru_tc<C / 16>(ga, c_true, st);
     } else if (gru_slot(slots) == 64) {
-      e = tc::launch_gru_tc<4>(ga, st);
+      e = tc::launch_gru_tc<4>(ga, c_true, st);
     } else {
       e = launch_gru_f32<true>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
-                               slots, xp, hid, N, L, D, st);
+                               slots, xp, hid, N, L, D, inv_c, st);
     }
   }
   if (e != cudaSuccess) return (int)e;
   e = tc::launch_qkv({x, hid, D == 2 ? hid + (size_t)rows * C : nullptr,
-                      ln2_s, ln2_b, in_w, in_b, q, s, g, rows},
+                      ln2_s, ln2_b, in_w, in_b, q, s, g, rows, inv_c},
                      st);
   if (e != cudaSuccess) return (int)e;
   tc::AttnArgs a = {};
@@ -1134,8 +1156,8 @@ extern "C" int lct_ftf_forward_bf16(
   a.lin_w = lin_w;
   a.lin_b = lin_b;
   a.lin_in = lin_in;
-  a.hd_true = C_MODEL / num_heads;
-  a.hd = head_width(a.hd_true);
+  a.hd = head_width(c_true / num_heads);
+  a.scale2 = tc::qk_scale2(scale);
   return (int)tc::launch_attn_tc<0>(a, st);
 }
 
@@ -1143,30 +1165,32 @@ extern "C" int lct_ftf_forward_bf16(
 // (gruf, above): the composed time block above L = 512, where the fused
 // block's attention stops (ops/gru.py, fused_grouped_gru). x: [N, L, C];
 // the GRU weights grouped, w [D, groups, H, 3H], b [D, groups, 3H], H = C /
-// groups a power of two (the caller pads other widths, ops/padding.py); out
-// hid [D, N*L, C] f32, the per-direction hiddens (the caller sums them). No
-// scratch. Returns a cudaError_t.
+// groups a power of two (the caller pads other widths, ops/padding.py), of
+// which c_true channels are true (LN1's count); out hid [D, N*L, C] f32,
+// the per-direction hiddens (the caller sums them). No scratch. Returns a
+// cudaError_t.
 extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
                                    const float* ln1_b, const float* w_ih,
                                    const float* w_hh, const float* b_ih,
                                    const float* b_hh, float* hid,
                                    long long N, int L, int D, int groups,
-                                   int device, void* stream) {
+                                   int c_true, int device, void* stream) {
   using namespace lct;
   const int H = groups > 0 ? C / groups : 0;
   if (H < 1 || H * groups != C || (H & (H - 1)) != 0 || N < 0 || L < 1 ||
-      D < 1 || D > 2)
+      D < 1 || D > 2 || c_true < 1 || c_true > C)
     return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   if (N == 0) return 0;
   const gruf::Args a = {x,    ln1_s, ln1_b, w_ih, w_hh, b_ih,
-                        b_hh, hid,   N,     L,    groups};
+                        b_hh, hid,   N,     L,    groups, 1.f / c_true};
   return (int)gruf::launch_groups(a, D, (cudaStream_t)stream);
 }
 
-// The same function in all-f32 arithmetic (precise mode). Scratch: xp
-// [N*L, D*3C], hid [D, N*L, C], qkv [N*L, 3C], ctx [N*L, C], f32.
+// The same function in all-f32 arithmetic (precise mode), arguments as
+// lct_ftf_forward_bf16's. Scratch: xp [N*L, D*3C], hid [D, N*L, C], qkv
+// [N*L, 3C], ctx [N*L, C], f32.
 extern "C" int lct_ftf_forward_f32(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -1175,25 +1199,26 @@ extern "C" int lct_ftf_forward_f32(
     const float* out_b, const float* lin_w, const float* lin_b,
     const float* key_bias, float* xp, float* hid, float* qkv, float* ctx,
     float* out, long long N, int L, int D, int lin_in, int lookback,
-    int num_heads, int slots, int device, void* stream) {
+    int c_true, int num_heads, float scale, int slots, int device,
+    void* stream) {
   using namespace lct;
-  if (!widths_ok(num_heads, slots)) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(c_true, num_heads, slots)) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  const float inv_c = 1.f / c_true;
 
   cudaError_t e = launch_gru_f32(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
-                                 slots, xp, hid, N, L, D, st);
+                                 slots, xp, hid, N, L, D, inv_c, st);
   if (e != cudaSuccess) return (int)e;
   proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
       x, hid, D == 2 ? hid + (size_t)rows * C : nullptr, ln2_s, ln2_b, in_w,
-      in_b, qkv, rows, 3 * C, /*round=*/0);
+      in_b, qkv, rows, 3 * C, /*round=*/0, inv_c);
   LCT_CHECK();
-  const int hdt = C_MODEL / num_heads;
   e = launch_attn<0>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
-                     head_width(hdt), hdt, st);
+                     head_width(c_true / num_heads), scale, st);
   if (e != cudaSuccess) return (int)e;
   ftf_out_kernel<<<rblocks, C, 0, st>>>(x, hid, D, ctx, out_w, out_b, lin_w,
                                         lin_b, lin_in, out, rows);

@@ -4,8 +4,8 @@
 // f32) and the block's parameters, the GRU's in slots. Outputs: dx and the
 // 14 parameter gradients, f32, the GRU's in the slot layout [D, C/W, W, 3W]
 // / [D, C/W, 3W]. Two designs, one per mode. C is the library's kernel
-// width (common.cuh: -DLCT_C=<C>, 64 when unset; 48 and 96 run at 64 and
-// 128 on operands the wrapper pads, ops/padding.py).
+// width (common.cuh: -DLCT_C=<C>, 64 when unset); a true width c_true < C
+// runs on operands the wrapper pads, ops/padding.py.
 //
 // Bound on the H100: at the training shapes (B=64 x 2 s; freq N=8,256 L=33,
 // time N=2,112 L=129: 272,448 rows each) and C = 64 the function reads x,
@@ -51,7 +51,7 @@
 //     factors are computed in the walk itself on tensor cores (as in
 //     ftf.cu's gru_tc_kernel), dhp passes to the carry product in registers,
 //     and each step's loads are issued one step ahead. A dense slot of 128
-//     units (C = 128 in one group, or 96 padded) runs on CUDA cores with the
+//     units (one group of 128, or of 65-127 padded) runs on CUDA cores with the
 //     same rounding points (bptt_simt_kernel), as ftf.cu's forward does.
 //
 // precise (lct_ftf_backward_f32), all f32 on CUDA cores (common.cuh), the
@@ -93,11 +93,12 @@
 // partial rows are added in index order. The result is the same from run
 // to run for the same shapes on the same card.
 //
-// Widths: any num_heads and any GRU group count that divide C_MODEL, as
-// the forward kernels (ftf.cu). The attention kernels are built per padded
-// head width HDP (common.cuh's head_pad: 8 for any hd <= 8, else 16 .. C)
-// and take the true width at run time; their score scale is 1 / sqrt of the
-// true head width. The GRU kernels are built per slot width W (ops/gru.py::
+// Widths: any true width c_true <= C in any num_heads and any GRU group
+// count the wrapper padded to C, as the forward kernels (ftf.cu). The
+// attention kernels are built per padded head width HDP (common.cuh's
+// head_pad: 8 for any hd <= 8, else 16 .. C) and take the true width at run
+// time; their score scale (1 / sqrt of the true head width) comes from the
+// caller. The GRU kernels are built per slot width W (ops/gru.py::
 // gru_slot): 16 (C / 16 slots: groups of 16, or narrower ones packed
 // block-diagonally), C (one dense slot, C <= 64) or at C = 128 64 (two
 // dense slots) and 128 (one). The caller packs the GRU weights into slots
@@ -107,7 +108,7 @@
 // grouped ones. Heads narrower than a k16 step take their 16-channel k-step
 // and n8 tile masked to their channels (tc.cuh's q_mask and v_mask), as the
 // TPU kernel's zero blocks do. Every LayerNorm, forward and backward,
-// divides by the true channel count C_MODEL: at 48 and 96 the padded
+// divides by the true channel count c_true (inv_c = 1 / c_true): the padded
 // channels hold zeros in x, dout, hid and every weight, so they add nothing
 // to a true channel's value or gradient (ops/padding.py), and the wrapper
 // drops their dx and gradients.
@@ -124,14 +125,14 @@ __device__ __forceinline__ float sigmoidf_(float v) {
 
 // LayerNorm rows of in = x (+ add0 (+ add1)), one warp per row: y, xhat and
 // rstd (the arithmetic of proj_kernel's LayerNorm, so y is bit-equal to the
-// operand the forward rounded).
+// operand the forward rounded), over 1 / inv_c true channels.
 __global__ void ln_kernel(const float* __restrict__ x,
                           const float* __restrict__ add0,
                           const float* __restrict__ add1,
                           const float* __restrict__ s,
                           const float* __restrict__ b, float* __restrict__ y,
                           float* __restrict__ xhat, float* __restrict__ rstd,
-                          long long rows) {
+                          long long rows, float inv_c) {
   const long long row =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -144,8 +145,8 @@ __global__ void ln_kernel(const float* __restrict__ x,
     c += add1 ? (add0[o + lane + 32] + add1[o + lane + 32])
               : add0[o + lane + 32];
   }
-  const float mu = warp_sum(a + c) * (1.f / C);
-  const float ms = warp_sum(a * a + c * c) * (1.f / C);
+  const float mu = warp_sum(a + c) * inv_c;
+  const float ms = warp_sum(a * a + c * c) * inv_c;
   const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
   const float ha = (a - mu) * rs, hc = (c - mu) * rs;
   y[o + lane] = ha * s[lane] + b[lane];
@@ -153,8 +154,8 @@ __global__ void ln_kernel(const float* __restrict__ x,
   xhat[o + lane] = ha;
   xhat[o + lane + 32] = hc;
 #else
-  // CPL channels a lane (lane + 32 i), the sums over the C_MODEL true
-  // channels (a padded one holds 0; its xhat is dropped with its gradient).
+  // CPL channels a lane (lane + 32 i), the sums over the true channels (a
+  // padded one holds 0; its xhat is dropped with its gradient).
   float v[CPL];
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -168,8 +169,8 @@ __global__ void ln_kernel(const float* __restrict__ x,
     s1 += v[i];
     s2 += v[i] * v[i];
   }
-  const float mu = warp_sum(s1) * (1.f / C_MODEL);
-  const float ms = warp_sum(s2) * (1.f / C_MODEL);
+  const float mu = warp_sum(s1) * inv_c;
+  const float ms = warp_sum(s2) * inv_c;
   const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
@@ -184,8 +185,8 @@ __global__ void ln_kernel(const float* __restrict__ x,
 }
 
 // out = base + LN backward of dy:  rstd (dxh - mean(dxh) - xhat mean(dxh
-// xhat)), dxh = dy * scale; out2 = out + extra when out2 is given. One warp
-// per row.
+// xhat)), dxh = dy * scale, the means over 1 / inv_c true channels; out2 =
+// out + extra when out2 is given. One warp per row.
 __global__ void ln_bwd_kernel(const float* __restrict__ dy,
                               const float* __restrict__ xhat,
                               const float* __restrict__ rstd,
@@ -193,7 +194,8 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
                               const float* __restrict__ base,
                               const float* __restrict__ extra,
                               float* __restrict__ out,
-                              float* __restrict__ out2, long long rows) {
+                              float* __restrict__ out2, long long rows,
+                              float inv_c) {
   const long long row =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -203,8 +205,8 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
   const float da = dy[o + lane] * scale[lane];
   const float dc = dy[o + lane + 32] * scale[lane + 32];
   const float xa = xhat[o + lane], xc = xhat[o + lane + 32];
-  const float m1 = warp_sum(da + dc) * (1.f / C);
-  const float m2 = warp_sum(da * xa + dc * xc) * (1.f / C);
+  const float m1 = warp_sum(da + dc) * inv_c;
+  const float m2 = warp_sum(da * xa + dc * xc) * inv_c;
   const float rs = rstd[row];
   const float oa = base[o + lane] + rs * (da - m1 - xa * m2);
   const float oc = base[o + lane + 32] + rs * (dc - m1 - xc * m2);
@@ -215,8 +217,8 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
     out2[o + lane + 32] = oc + extra[o + lane + 32];
   }
 #else
-  // CPL channels a lane; means over the C_MODEL true channels (a padded
-  // channel's scale is 0, so its dxh adds nothing).
+  // CPL channels a lane; means over the true channels (a padded channel's
+  // scale is 0, so its dxh adds nothing).
   float dv[CPL], xv[CPL];
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -227,8 +229,8 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
     s1 += dv[i];
     s2 += dv[i] * xv[i];
   }
-  const float m1 = warp_sum(s1) * (1.f / C_MODEL);
-  const float m2 = warp_sum(s2) * (1.f / C_MODEL);
+  const float m1 = warp_sum(s1) * inv_c;
+  const float m2 = warp_sum(s2) * inv_c;
   const float rs = rstd[row];
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
@@ -393,8 +395,8 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
 }
 
 // The attention core's backward. One block per (sequence, head), heads of
-// hd = C / nh channels (the kernels' padded head width; the score scale is
-// 1 / sqrt(hd_true), common.cuh's head_scale); the kernel is built per
+// hd = C / nh channels (the kernels' padded head width; the score scale
+// `scale` is 1 / sqrt of the true head width); the kernel is built per
 // padded head width HDP (8 for any hd <= 8, else hd). For heads of at most
 // 16 channels, Q, K, V and
 // dctx of that head (rounded, HDP floats a position, zero past hd) sit in
@@ -420,7 +422,7 @@ template <int HDP>
 __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
                                 const float* __restrict__ dctx,
                                 float* __restrict__ dqkv, int L, int lookback,
-                                int round, int hd_rt, int hd_true) {
+                                int round, int hd_rt, float scale) {
   constexpr bool STAGE = HDP <= 16;
   extern __shared__ float sm[];
   float* Qs = sm;
@@ -434,7 +436,6 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
   const int nh = C / hd;
   const long long n = blockIdx.x / nh;
   const int h = blockIdx.x % nh;
-  const float scale = head_scale(hd, hd_true);
   const float* base = qkv + (size_t)n * L * (3 * C);
   const float* dbase = dctx + (size_t)n * L * C;
   if (STAGE) {
@@ -552,7 +553,7 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
 template <int HDP>
 cudaError_t launch_attn_bwd_hd(const float* qkv, const float* dctx,
                                float* dqkv, long long N, int L, int lookback,
-                               int hd, int hd_true, cudaStream_t st) {
+                               int hd, float scale, cudaStream_t st) {
   const size_t smem =
       (size_t)((HDP <= 16 ? 4 * HDP : 0) + 3) * L * sizeof(float);
   if (smem > 48 * 1024) {
@@ -564,7 +565,7 @@ cudaError_t launch_attn_bwd_hd(const float* qkv, const float* dctx,
   int threads = ((L + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   attn_bwd_kernel<HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
-      qkv, dctx, dqkv, L, lookback, /*round=*/0, hd, hd_true);
+      qkv, dctx, dqkv, L, lookback, /*round=*/0, hd, scale);
   return cudaGetLastError();
 }
 
@@ -572,29 +573,29 @@ cudaError_t launch_attn_bwd_hd(const float* qkv, const float* dctx,
 // the padded widths up to C.
 inline cudaError_t launch_attn_bwd(const float* qkv, const float* dctx,
                                    float* dqkv, long long N, int L,
-                                   int lookback, int hd, int hd_true,
+                                   int lookback, int hd, float scale,
                                    cudaStream_t st) {
   switch (head_pad(hd)) {
     case 8:
       return launch_attn_bwd_hd<8>(qkv, dctx, dqkv, N, L, lookback, hd,
-                                   hd_true, st);
+                                   scale, st);
     case 16:
       return launch_attn_bwd_hd<16>(qkv, dctx, dqkv, N, L, lookback, hd,
-                                    hd_true, st);
+                                    scale, st);
 #if LCT_C > 16  // C >= 32
     case 32:
       return launch_attn_bwd_hd<32>(qkv, dctx, dqkv, N, L, lookback, hd,
-                                    hd_true, st);
+                                    scale, st);
 #endif
 #if LCT_C > 32  // C >= 64
     case 64:
       return launch_attn_bwd_hd<64>(qkv, dctx, dqkv, N, L, lookback, hd,
-                                    hd_true, st);
+                                    scale, st);
 #endif
 #if LCT_C > 64  // C = 128
     case 128:
       return launch_attn_bwd_hd<128>(qkv, dctx, dqkv, N, L, lookback, hd,
-                                     hd_true, st);
+                                     scale, st);
 #endif
   }
   return cudaErrorInvalidValue;
@@ -1379,13 +1380,14 @@ struct Dn2Args {
   float* ds;                  // [rows, C] out
   float* part;                // [grid, 2C] out: dln2_s, dln2_b partials
   long long rows;
+  float inv_c;                // 1 / the true channel count
 };
 
 // LayerNorm statistics of the two rows a lane holds (C-fragment layout),
 // proj_kernel's fast-variance arithmetic: max(E[x^2] - mu^2, 0), eps 1e-6,
-// over the C_MODEL true channels (a padded one holds 0).
+// over the 1 / inv_c true channels (a padded one holds 0).
 __device__ __forceinline__ void ln_stats(float2 (&v)[C / 8][2], float mu[2],
-                                         float rs[2]) {
+                                         float rs[2], float inv_c) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float s = 0.f, q = 0.f;
@@ -1394,23 +1396,24 @@ __device__ __forceinline__ void ln_stats(float2 (&v)[C / 8][2], float mu[2],
       s += v[nt][r].x + v[nt][r].y;
       q += v[nt][r].x * v[nt][r].x + v[nt][r].y * v[nt][r].y;
     }
-    mu[r] = quad_sum(s) * (1.f / C_MODEL);
-    const float ms = quad_sum(q) * (1.f / C_MODEL);
+    mu[r] = quad_sum(s) * inv_c;
+    const float ms = quad_sum(q) * inv_c;
     rs[r] = rsqrtf(fmaxf(ms - mu[r] * mu[r], 0.f) + 1e-6f);
   }
 }
 
 // LayerNorm backward of the lane's two rows: returns in d the values
 // rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dy * scale, the means
-// over the C_MODEL true channels (a padded channel's scale is 0), and adds
-// dy * xh, dy to the column sums.
+// over the 1 / inv_c true channels (a padded channel's scale is 0), and
+// adds dy * xh, dy to the column sums.
 __device__ __forceinline__ void ln_bwd_rows(float (&dy)[C / 8][4],
                                             float2 (&v)[C / 8][2],
                                             const float mu[2],
                                             const float rs[2],
                                             const float* __restrict__ scale,
                                             float (&cs_s)[C / 8][2],
-                                            float (&cs_b)[C / 8][2], int t) {
+                                            float (&cs_b)[C / 8][2], int t,
+                                            float inv_c) {
   float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
 #pragma unroll
   for (int nt = 0; nt < C / 8; ++nt) {
@@ -1431,8 +1434,8 @@ __device__ __forceinline__ void ln_bwd_rows(float (&dy)[C / 8][4],
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    m1[r] = quad_sum(m1[r]) * (1.f / C_MODEL);
-    m2[r] = quad_sum(m2[r]) * (1.f / C_MODEL);
+    m1[r] = quad_sum(m1[r]) * inv_c;
+    m2[r] = quad_sum(m2[r]) * inv_c;
   }
 #pragma unroll
   for (int nt = 0; nt < C / 8; ++nt) {
@@ -1485,8 +1488,8 @@ __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
     float2 sv[C / 8][2];
     ldg_c(sv, a.s, r0, rows, lane);
     float mu[2], rs[2];
-    ln_stats(sv, mu, rs);
-    ln_bwd_rows(acc, sv, mu, rs, a.ln_s, cs_s, cs_b, t);
+    ln_stats(sv, mu, rs, a.inv_c);
+    ln_bwd_rows(acc, sv, mu, rs, a.ln_s, cs_s, cs_b, t, a.inv_c);
 #if LCT_C == 64
     float2 dv[C / 8][2];
     ldg_c(dv, a.dout, r0, rows, lane);
@@ -1516,7 +1519,7 @@ __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
       }
     }
     ldg_c(sv, a.x, r0, rows, lane);
-    ln_stats(sv, mu, rs);
+    ln_stats(sv, mu, rs, a.inv_c);
 #pragma unroll
     for (int nt = 0; nt < C / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
@@ -1554,6 +1557,7 @@ struct Dn1Args {
   float* part;               // [grid, 2C] out: dln1_s, dln1_b partials
   long long rows;
   int D;
+  float inv_c;               // 1 / the true channel count
 };
 
 template <int KS>
@@ -1611,8 +1615,8 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
     float2 xv[C / 8][2];
     ldg_c(xv, a.x, r0, rows, lane);
     float mu[2], rs[2];
-    ln_stats(xv, mu, rs);
-    ln_bwd_rows(acc, xv, mu, rs, a.ln_s, cs_s, cs_b, t);
+    ln_stats(xv, mu, rs, a.inv_c);
+    ln_bwd_rows(acc, xv, mu, rs, a.ln_s, cs_s, cs_b, t, a.inv_c);
 #if LCT_C == 64
     float2 dv[C / 8][2];
     ldg_c(dv, a.ds, r0, rows, lane);
@@ -2017,8 +2021,8 @@ cudaError_t launch_bptt_tc(const BpttArgs& a, cudaStream_t st) {
 }
 
 #if LCT_C > 64
-// bf16 mode, one dense GRU slot of C = 128 units (a group of 128, or of 96
-// padded) on CUDA cores: on tensor cores a warp would hold 192 fragment
+// bf16 mode, one dense GRU slot of C = 128 units (a group of 128, or of
+// 65-127 padded) on CUDA cores: on tensor cores a warp would hold 192 fragment
 // registers (ftf.cu runs this slot's forward on CUDA cores too).
 // bptt_tc_kernel's function, outputs and rounding points: a block takes
 // one direction and DS sequences, a thread one (sequence, unit j), walking
@@ -2193,8 +2197,9 @@ struct HeadArgs {
   __nv_bfloat16* dqkv;        // [N*L, 3C] out (backward)
   int L;
   int lookback;
-  int hd;                     // head width the kernels run: C / heads
-  int hd_true;                // its true channels (PADDED: the scale's)
+  int hd;                     // head width the kernels run: a power of two
+  float scale;                // the score scale, 1 / sqrt(true head width)
+  float scale2;               // the same in log2 units (qk_scale2)
   float* rsum;                // [N*L, C/hd] sum(dp p) (HDP = 128 only)
 };
 
@@ -2410,7 +2415,7 @@ __global__ void attn_fwd_tc_kernel(HeadArgs a) {
   __nv_bfloat16* Vs = Ks + Lp * LD;
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd, hpi = item_heads(HDP, hd);
-  const float scale2 = qk_scale2(hd, a.hd_true);
+  const float scale2 = a.scale2;
   const long long n = blockIdx.x / (C / TW);
   const int c0 = (blockIdx.x % (C / TW)) * TW;  // the item's first channel
   const size_t rowbase = (size_t)n * L;
@@ -2493,8 +2498,8 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
   const int L = a.L, lb = a.lookback, Lp = head_lp(L);
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int nh = C / hd, hpi = item_heads(HDP, hd);
-  const float scale2 = qk_scale2(hd, a.hd_true);
-  const float scale = head_scale(hd, a.hd_true);
+  const float scale2 = a.scale2;
+  const float scale = a.scale;
   // Tiles [Lp][LD]: Q, K, V, dctx; SPLIT: K, V in the query pass, then Q,
   // dctx in their place for the key pass.
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -2679,7 +2684,7 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
 
 #if LCT_C > 64
 // ---------------------------------------------------------------------------
-// A head of 128 channels (C = 128 in one head, or 96 padded to it), whose
+// A head of 128 channels (one head of 128, or of 65-127 padded), whose
 // rows would not fit resident: work items of 64 rows (4 warps of 16), the
 // other side of the products streamed through shared memory in blocks of
 // 64 rows ([64][136] bf16 tiles, cp.async), every fragment taken from the
@@ -2771,7 +2776,7 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
   __nv_bfloat16* Ks = Qs + WTILE;
   __nv_bfloat16* Vs = Ks + WTILE;
   const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
-  const float scale2 = qk_scale2(128, a.hd_true);
+  const float scale2 = a.scale2;
   const long long n = blockIdx.x / nqb;
   const int q0b = (int)(blockIdx.x % nqb) * WB;
   const size_t rowbase = (size_t)n * L;
@@ -2857,8 +2862,8 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
   __nv_bfloat16* Ks = Os + WTILE;
   __nv_bfloat16* Vs = Ks + WTILE;
   const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
-  const float scale2 = qk_scale2(128, a.hd_true);
-  const float scale = head_scale(128, a.hd_true);
+  const float scale2 = a.scale2;
+  const float scale = a.scale;
   const long long n = blockIdx.x / nqb;
   const int q0b = (int)(blockIdx.x % nqb) * WB;
   const size_t rowbase = (size_t)n * L;
@@ -2945,8 +2950,8 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
   __nv_bfloat16* Os = Qs + WTILE;  // dctx
   float* mq = reinterpret_cast<float*>(Os + WTILE);  // [3][WB]: m, 1/l, rs
   const int L = a.L, lb = a.lookback, nkb = (L + WB - 1) / WB;
-  const float scale2 = qk_scale2(128, a.hd_true);
-  const float scale = head_scale(128, a.hd_true);
+  const float scale2 = a.scale2;
+  const float scale = a.scale;
   const long long n = blockIdx.x / nkb;
   const int k0b = (int)(blockIdx.x % nkb) * WB;
   const size_t rowbase = (size_t)n * L;
@@ -3360,20 +3365,23 @@ inline cudaError_t tc_grids(long long rows, int* grid_rows, int* grid_wg) {
 // L (the same at every head and group count), or -1 for widths the kernels
 // do not take.
 extern "C" long long lct_ftf_backward_scratch_floats(long long N, int L,
-                                                     int D, int num_heads,
+                                                     int D, int c_true,
+                                                     int num_heads,
                                                      int slots) {
-  if (!lct::widths_ok(num_heads, slots)) return -1;
+  if (!lct::widths_ok(c_true, num_heads, slots)) return -1;
   return lct::Scratch(nullptr, N * L, D).total;
 }
 
 // x, dout, dx: [N, L, C]; hid: [D, N*L, C]; parameters as in
 // lct_ftf_forward (ftf.cu), the GRU's in `slots` slots ([D, slots, W, 3W] /
 // [D, slots, 3W], W = C / slots: slots = C / 16, 1, or at C = 128 2), their
-// gradients in the same shapes; num_heads divides C_MODEL (heads of
-// C_MODEL / num_heads true channels at head_width of it, common.cuh);
-// scratch: lct_ftf_backward_scratch_floats(N, L, D, num_heads, slots)
-// floats. lookback < 0 means no band. All f32 (precise mode). Returns a
-// cudaError_t.
+// gradients in the same shapes; c_true true channels (the LayerNorms'
+// count; the rest of each row zero), num_heads dividing it (heads of
+// c_true / num_heads true channels at head_width of it, common.cuh), scale
+// their score scale (the f32 rounding of 1 / sqrt(c_true / num_heads));
+// scratch: lct_ftf_backward_scratch_floats(N, L, D, c_true, num_heads,
+// slots) floats. lookback < 0 means no band. All f32 (precise mode).
+// Returns a cudaError_t.
 extern "C" int lct_ftf_backward_f32(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -3384,15 +3392,16 @@ extern "C" int lct_ftf_backward_f32(
     float* dln1_b, float* dw_ih, float* dw_hh, float* db_ih, float* db_hh,
     float* dln2_s, float* dln2_b, float* din_w, float* din_b, float* dout_w,
     float* dout_b, float* dlin_w, float* dlin_b, float* scratch, long long N,
-    int L, int D, int lin_in, int lookback, int num_heads, int slots,
-    int device, void* stream) {
+    int L, int D, int lin_in, int lookback, int c_true, int num_heads,
+    float scale, int slots, int device, void* stream) {
   using namespace lct;
-  if (!widths_ok(num_heads, slots)) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(c_true, num_heads, slots)) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
-  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
+  const int hd = head_width(c_true / num_heads);
+  const float inv_c = 1.f / c_true;
   const int W = gru_slot(slots);
   Scratch s(scratch, rows, D);
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
@@ -3402,14 +3411,14 @@ extern "C" int lct_ftf_backward_f32(
 
   // 1-2. recompute LN2, qkv and the attention context.
   ln_kernel<<<wblocks, 256, 0, st>>>(x, hid, hid1, ln2_s, ln2_b, s.n2, s.xh2,
-                                     s.rs2, rows);
+                                     s.rs2, rows, inv_c);
   LCT_CHECK();
   proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
       x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, rows, 3 * C,
-      /*round=*/0);
+      /*round=*/0, inv_c);
   LCT_CHECK();
   LCT_TRY(launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, /*round=*/0,
-                         hd, hdt, st));
+                         hd, scale, st));
 
   // 3. combine layer and out-proj backward.
   comb_bwd_kernel<<<rblocks, C, 0, st>>>(hid, D, s.ctx, dout, out_w, out_b,
@@ -3418,7 +3427,7 @@ extern "C" int lct_ftf_backward_f32(
   LCT_CHECK();
 
   // 4. attention core backward.
-  LCT_TRY(launch_attn_bwd(s.qkv, s.dctx, s.dqkv, N, L, lookback, hd, hdt,
+  LCT_TRY(launch_attn_bwd(s.qkv, s.dctx, s.dqkv, N, L, lookback, hd, scale,
                           st));
 
   // 5. qkv projection and LN2 backward: ds, and dg = ds (+ dg_lin).
@@ -3426,13 +3435,13 @@ extern "C" int lct_ftf_backward_f32(
   LCT_CHECK();
   ln_bwd_kernel<<<wblocks, 256, 0, st>>>(s.dn2, s.xh2, s.rs2, ln2_s, dout,
                                          freq ? s.dglin : nullptr, s.ds,
-                                         freq ? s.dgt : nullptr, rows);
+                                         freq ? s.dgt : nullptr, rows, inv_c);
   LCT_CHECK();
   const float* dg = freq ? s.dgt : s.ds;
 
   // 6-8. GRU: LN1 and xp, the gate factors, BPTT.
   ln_kernel<<<wblocks, 256, 0, st>>>(x, nullptr, nullptr, ln1_s, ln1_b, s.n1,
-                                     s.xh1, s.rs1, rows);
+                                     s.xh1, s.rs1, rows, inv_c);
   LCT_CHECK();
   const long long gthreads = rows * D * C;
   const unsigned gblocks = (unsigned)((gthreads + 255) / 256);
@@ -3440,7 +3449,7 @@ extern "C" int lct_ftf_backward_f32(
   if (W == 16) {
     proj_kernel<true, 16><<<rblocks, pthreads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-        /*round=*/0);
+        /*round=*/0, inv_c);
     LCT_CHECK();
     gate_kernel<16><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
                                              s.hpv, N, L, D);
@@ -3448,7 +3457,7 @@ extern "C" int lct_ftf_backward_f32(
   } else if (W == 64) {
     proj_kernel<true, 64><<<rblocks, pthreads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-        /*round=*/0);
+        /*round=*/0, inv_c);
     LCT_CHECK();
     gate_kernel<64><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
                                              s.hpv, N, L, D);
@@ -3456,7 +3465,7 @@ extern "C" int lct_ftf_backward_f32(
   } else {
     proj_kernel<true, C><<<rblocks, pthreads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-        /*round=*/0);
+        /*round=*/0, inv_c);
     LCT_CHECK();
     gate_kernel<C><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
                                             s.hpv, N, L, D);
@@ -3477,7 +3486,7 @@ extern "C" int lct_ftf_backward_f32(
   }
   LCT_CHECK();
   ln_bwd_kernel<<<wblocks, 256, 0, st>>>(s.dn1, s.xh1, s.rs1, ln1_s, s.ds,
-                                         nullptr, dx, nullptr, rows);
+                                         nullptr, dx, nullptr, rows, inv_c);
   LCT_CHECK();
 
   // 10. parameter gradients.
@@ -3523,12 +3532,13 @@ extern "C" int lct_ftf_backward_f32(
 // error or for widths the kernels do not take.
 extern "C" long long lct_ftf_backward_bf16_scratch_bytes(long long N, int L,
                                                          int D, int lin_in,
+                                                         int c_true,
                                                          int num_heads,
                                                          int slots) {
-  if (!lct::widths_ok(num_heads, slots)) return -1;
+  if (!lct::widths_ok(c_true, num_heads, slots)) return -1;
   int gr = 1, gw = 1;
   if (lct::tc::tc_grids(N * L, &gr, &gw) != cudaSuccess) return -1;
-  const int hd = lct::head_width(lct::C_MODEL / num_heads);
+  const int hd = lct::head_width(c_true / num_heads);
   return lct::tc::ScratchTC(nullptr, N, L, D, lin_in, lct::C / hd,
                             lct::gru_slot(slots), gr, gw)
       .total;
@@ -3536,8 +3546,8 @@ extern "C" long long lct_ftf_backward_bf16_scratch_bytes(long long N, int L,
 
 // The same function in bf16 mode on tensor cores: arguments as
 // lct_ftf_backward_f32; scratch:
-// lct_ftf_backward_bf16_scratch_bytes(N, L, D, lin_in, num_heads, slots)
-// bytes, 256-byte aligned. Nine launches:
+// lct_ftf_backward_bf16_scratch_bytes(N, L, D, lin_in, c_true, num_heads,
+// slots) bytes, 256-byte aligned. Nine launches:
 //   qkv_tc_kernel -> attn_fwd_tc_kernel -> comb_bwd_tc_kernel ->
 //   attn_bwd_tc_kernel -> dn2_tc_kernel -> bptt_tc_kernel -> dn1_tc_kernel
 //   (-> dx) -> wgrad_tc_kernel -> reduce_tc_kernel (-> the 14 parameter
@@ -3553,17 +3563,18 @@ extern "C" int lct_ftf_backward_bf16(
     float* dln1_b, float* dw_ih, float* dw_hh, float* db_ih, float* db_hh,
     float* dln2_s, float* dln2_b, float* din_w, float* din_b, float* dout_w,
     float* dout_b, float* dlin_w, float* dlin_b, void* scratch, long long N,
-    int L, int D, int lin_in, int lookback, int num_heads, int slots,
-    int device, void* stream) {
+    int L, int D, int lin_in, int lookback, int c_true, int num_heads,
+    float scale, int slots, int device, void* stream) {
   using namespace lct;
   using namespace lct::tc;
-  if (!widths_ok(num_heads, slots)) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(c_true, num_heads, slots)) return (int)cudaErrorInvalidValue;
   LCT_TRY(cudaSetDevice(device));
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
   const bool freq = lin_in == 2 * C;
   const int W = gru_slot(slots);
-  const int hdt = C_MODEL / num_heads, hd = head_width(hdt);
+  const int hd = head_width(c_true / num_heads);
+  const float inv_c = 1.f / c_true;
   int gr = 1, gw = 1;
   LCT_TRY(tc_grids(rows, &gr, &gw));
   const ScratchTC s(static_cast<unsigned char*>(scratch), N, L, D, lin_in,
@@ -3572,11 +3583,11 @@ extern "C" int lct_ftf_backward_bf16(
 
   // LN2 and qkv recomputed; s = x + g and bf16(g) kept for later stages.
   LCT_TRY(launch_qkv({x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, s.s,
-                      s.gb, rows},
+                      s.gb, rows, inv_c},
                      st));
   // The attention context and its softmax statistics.
   HeadArgs ha = {s.qkv, s.dctx, s.stats, s.ctx, s.dqkv, L, lookback,
-                 hd, hdt, s.rsum};
+                 hd, scale, qk_scale2(scale), s.rsum};
   LCT_TRY(launch_head(ha, N, /*backward=*/false, st));
   // Combine layer and out-projection backward.
   CombArgs ca = {s.ctx, s.gb, dout, out_w, out_b, lin_w, lin_b, lin_in,
@@ -3587,7 +3598,7 @@ extern "C" int lct_ftf_backward_bf16(
   LCT_TRY(launch_head(ha, N, /*backward=*/true, st));
   // qkv projection and LN2 backward.
   Dn2Args na = {s.dqkv, s.s, dout, x, in_w, ln2_s, ln2_b, ln1_s, ln1_b,
-                s.n2, s.n1, s.ds, s.p_dn2, rows};
+                s.n2, s.n1, s.ds, s.p_dn2, rows, inv_c};
   LCT_TRY(allow_smem(dn2_tc_kernel, DN2_SMEM));
   dn2_tc_kernel<<<gr, RT, DN2_SMEM, st>>>(na);
   LCT_CHECK();
@@ -3605,7 +3616,7 @@ extern "C" int lct_ftf_backward_bf16(
 #endif
   }
   // Input projection and LN1 backward: dx.
-  Dn1Args da1 = {s.dxp, x, s.ds, w_ih, ln1_s, dx, s.p_dn1, rows, D};
+  Dn1Args da1 = {s.dxp, x, s.ds, w_ih, ln1_s, dx, s.p_dn1, rows, D, inv_c};
   auto dn1 = [&](auto ks) {
     constexpr int KS = decltype(ks)::value;
     cudaError_t e = allow_smem(dn1_tc_kernel<KS>, dn1_smem<KS>());

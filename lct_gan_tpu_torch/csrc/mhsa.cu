@@ -11,9 +11,9 @@
 // precise (lct_mhsa_forward_f32), all f32 on CUDA cores (common.cuh):
 //   proj_kernel -> qkv f32, attn_kernel<1> -> ctx f32, proj_kernel -> out.
 //
-// Any num_heads dividing C_MODEL (heads of hd = C_MODEL / num_heads
-// channels, run at head_width(hd); the kernels' head widths: tc.cuh,
-// common.cuh).
+// Any true width c_true <= C in any num_heads dividing it (heads of hd =
+// c_true / num_heads channels, run at head_width(hd); the kernels' head
+// widths: tc.cuh, common.cuh), the score scale from the caller.
 //
 // Bound on the H100 at C = 64: at the time block of a 163,840-sample bucket
 // (N = 25*33 sequences of L = 644) the function moves ~272 MB (~81 us at 3.35 TB/s)
@@ -29,17 +29,19 @@
 #include "tc.cuh"
 
 // x, out: [N, L, C]; in_w: [C, 3C]; out_w: [C, C]; key_bias: [N, L] or
-// null; lookback < 0 means no band; num_heads divides C_MODEL. Scratch: qkv
-// bf16 [N*L, 3C]. Returns a cudaError_t.
+// null; lookback < 0 means no band; c_true true channels (the rest of each
+// row zero) in num_heads heads, scale their score scale (the f32 rounding
+// of 1 / sqrt(c_true / num_heads)). Scratch: qkv bf16 [N*L, 3C]. Returns a
+// cudaError_t.
 extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
                                      const float* in_b, const float* out_w,
                                      const float* out_b,
                                      const float* key_bias, void* qkv,
                                      float* out, long long N, int L,
-                                     int lookback, int num_heads, int device,
-                                     void* stream) {
+                                     int lookback, int c_true, int num_heads,
+                                     float scale, int device, void* stream) {
   using namespace lct;
-  if (num_heads <= 0 || C_MODEL % num_heads) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(c_true, num_heads, 1)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -57,21 +59,22 @@ extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
   a.N = N;
   a.L = L;
   a.lookback = lookback;
-  a.hd_true = C_MODEL / num_heads;
-  a.hd = head_width(a.hd_true);
+  a.hd = head_width(c_true / num_heads);
+  a.scale2 = tc::qk_scale2(scale);
   return (int)tc::launch_attn_tc<1>(a, st);
 }
 
-// The same function in all-f32 arithmetic (precise mode). Scratch: qkv
-// [N*L, 3C], ctx [N*L, C], f32.
+// The same function in all-f32 arithmetic (precise mode), arguments as
+// lct_mhsa_forward_bf16's. Scratch: qkv [N*L, 3C], ctx [N*L, C], f32.
 extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
                                     const float* in_b, const float* out_w,
                                     const float* out_b, const float* key_bias,
                                     float* qkv, float* ctx, float* out,
                                     long long N, int L, int lookback,
-                                    int num_heads, int device, void* stream) {
+                                    int c_true, int num_heads, float scale,
+                                    int device, void* stream) {
   using namespace lct;
-  if (num_heads <= 0 || C_MODEL % num_heads) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(c_true, num_heads, 1)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -80,15 +83,14 @@ extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
 
   proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
-      /*round=*/0);
+      /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int hdt = C_MODEL / num_heads;
   e = launch_attn<1>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
-                     head_width(hdt), hdt, st);
+                     head_width(c_true / num_heads), scale, st);
   if (e != cudaSuccess) return (int)e;
   proj_kernel<false><<<rblocks, row_threads(C), 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
-      /*round=*/0);
+      /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return 0;
 }

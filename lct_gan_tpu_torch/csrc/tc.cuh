@@ -363,10 +363,10 @@ __device__ __forceinline__ uint32_t v_mask(int h, int hd, int lane) {
 // bf16 [rows, 3C]: the contract rounds q, k and v, so this halves their
 // bytes and changes no value.
 //   in = x (+ (add0 + add1)), LayerNorm'ed when ln_s != nullptr with
-//   proj_kernel's arithmetic (common.cuh; ftf_bwd.cu's ln_kernel computes
-//   the same values). For the FTF block it also writes what the attention
-//   kernel's epilogue needs: s = in before the LayerNorm (f32) and
-//   bf16(add0 + add1), the Linear's rounded g.
+//   proj_kernel's arithmetic over 1 / inv_c true channels (common.cuh;
+//   ftf_bwd.cu's ln_kernel computes the same values). For the FTF block it
+//   also writes what the attention kernel's epilogue needs: s = in before
+//   the LayerNorm (f32) and bf16(add0 + add1), the Linear's rounded g.
 // Persistent blocks of 4 warps, in_w staged once per block; each warp owns
 // 16 rows of a 64-row tile (no block barrier inside the tile loop). Bound
 // by bytes: x (and the hiddens) in, q, k, v out. At C = 128 in_w (98 KB as
@@ -387,6 +387,7 @@ struct ProjArgs {
   float* s_out;           // or null: in before the LayerNorm, f32 [rows, C]
   __nv_bfloat16* g_out;   // or null: bf16(add0 + add1) [rows, C]
   long long rows;
+  float inv_c;            // 1 / the true channel count (the LayerNorm's)
 };
 
 __global__ void __launch_bounds__(PROJ_THREADS)
@@ -453,8 +454,8 @@ __global__ void __launch_bounds__(PROJ_THREADS)
           }
         }
         if (a.ln_s) {
-          const float mu = warp_sum(p + q) * (1.f / C);
-          const float ms = warp_sum(p * p + q * q) * (1.f / C);
+          const float mu = warp_sum(p + q) * a.inv_c;
+          const float ms = warp_sum(p * p + q * q) * a.inv_c;
           const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
           p = (p - mu) * rs * ls0 + lb0;
           q = (q - mu) * rs * ls1 + lb1;
@@ -520,7 +521,7 @@ __global__ void __launch_bounds__(PROJ_THREADS)
                 a.g_out[o + 32 * i] = __float2bfloat16_rn(gv[r][i]);
           }
         }
-        if (a.ln_s) ln_row(v[r], ls, lb);
+        if (a.ln_s) ln_row(v[r], ls, lb, a.inv_c);
 #pragma unroll
         for (int i = 0; i < CPL; ++i)
           if (lane_holds(lane, i))
@@ -648,11 +649,9 @@ struct AttnShape {
   // 16 rows a warp; at least AT threads (load_kv's key-bias copy).
   static_assert(ROWS % 16 == 0 && 2 * ROWS >= AT && ROWS <= 512, "ROWS");
 };
-// log2(e) / sqrt(hd): the score scale in log2 units (head_scale: hd_true
-// where PADDED).
-__host__ __device__ constexpr float qk_scale2(int hd, int hd_true) {
-  return head_scale(hd, hd_true) * LOG2E;
-}
+// The score scale in log2 units, from the wrapper's scale (the f32
+// rounding of 1 / sqrt of the true head width), taken on the host.
+inline float qk_scale2(float scale) { return scale * LOG2E; }
 
 struct KVTile {
   __nv_bfloat16 k[AT * LDS];
@@ -676,8 +675,8 @@ struct AttnArgs {
   const float* lin_w;  // [lin_in, C]
   const float* lin_b;  // [C]
   int lin_in;
-  int hd;  // head width: C / num_heads
-  int hd_true;  // its true channels (the score scale's width; PADDED only)
+  int hd;  // head width the kernels run: a power of two
+  float scale2;  // the score scale in log2 units (qk_scale2)
 };
 
 template <int MODE>
@@ -770,18 +769,16 @@ struct HeadShape {
 // channels (C-fragment layout, n8 tile nt = channels 8 nt ..); only they
 // live across tiles, Q fragments and key bias are re-read from shared
 // memory. FULL: all four 16-key chunks are needed and need no mask
-// (`need`, `full`: per-chunk bits). pscale2: the padded heads' scale in
-// log2 units, taken once a kernel (PADDED only).
+// (`need`, `full`: per-chunk bits). scale2: the score scale in log2 units
+// (AttnArgs).
 template <int MODE, int PASS, bool FULL, int HDP>
 __device__ __forceinline__ void attn_tile(
     const KVTile& b, const __nv_bfloat16* qw, unsigned need, unsigned full,
     int kbase, int L, int lb, const int (&rg)[2],
     float (&m)[HeadShape<HDP>::NHW][2], float (&l)[HeadShape<HDP>::NHW][2],
-    float (&o)[C / 8][4], int lane, int h0, int hd, float pscale2) {
+    float (&o)[C / 8][4], int lane, int h0, int hd, float scale2) {
   constexpr int KS = HeadShape<HDP>::KS, NHW = HeadShape<HDP>::NHW;
   const int t = lane & 3;
-  const float scale2 =
-      PADDED ? pscale2 : qk_scale2(HDP >= 16 ? HDP : hd, 0);
 #pragma unroll
   for (int hh = 0; hh < NHW; ++hh) {
     const int h = h0 + hh;
@@ -947,7 +944,6 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
   // Rounds of NHW heads an item takes (one but for HDP = 8).
   const int hd = HDP >= 16 ? HDP : a.hd;
   const int rounds = HDP >= 16 ? 1 : C / hd / NHW;
-  const float pscale2 = PADDED ? qk_scale2(hd, a.hd_true) : 0.f;
 
   long long item = blockIdx.x;
   if (item < items) {
@@ -1050,10 +1046,10 @@ __global__ void __launch_bounds__(AttnShape<MODE>::THREADS,
 #define LCT_ATTN_TILE(PASS)                                                  \
   (fast ? attn_tile<MODE, PASS, true, HDP>(b, qw, need, full, kbase, L, lb,  \
                                            rg, m, l, o, lane, h0, hd,        \
-                                           pscale2)                          \
+                                           a.scale2)                         \
         : attn_tile<MODE, PASS, false, HDP>(b, qw, need, full, kbase, L, lb, \
                                             rg, m, l, o, lane, h0, hd,       \
-                                            pscale2))
+                                            a.scale2))
         if (it.nkt == 1)
           LCT_ATTN_TILE(PASS_AB);
         else if (s >= it.nkt)

@@ -25,9 +25,9 @@ def make_enhance(enhancer: LctEnhancer
     """Return `enhance(noisy, lengths=None) -> enhanced [B, T]` on the
     enhancer's device. `noisy` and `lengths` may be numpy arrays or tensors;
     the result stays on the device. On the card the enhancer's widths must
-    be the kernels' (`check_card_widths`: enc_channels[-1] in CHANNELS,
-    16 .. 128, num_heads and gru_groups dividing it); it raises here
-    otherwise."""
+    be the kernels' (`check_card_widths`: num_heads and gru_groups
+    dividing enc_channels[-1], their padded layout within 128 channels);
+    it raises here otherwise."""
     enhancer.eval()
     device = next(enhancer.parameters()).device
     check_card_widths(enhancer.gen.cfg, device, training=False)

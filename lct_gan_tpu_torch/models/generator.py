@@ -18,8 +18,9 @@ the banded one from BANDED_KERNEL_MIN_SEQ with a band) -> Linear ->
 LeakyReLU, as in the JAX package.
 
 On the card the kernels serve and train a bottleneck of enc_channels[-1]
-in `ops/library.py::CHANNELS` (16, 32, 48, 64, 96, 128), in any num_heads
-and gru_groups that divide it: `check_card_widths` refuses anything else
+channels in any num_heads and gru_groups that divide it whose padded layout
+(each head and group widened to a power of two) fits 128 channels
+(`ops/library.py::card_takes`): `check_card_widths` refuses anything else
 before a model runs or trains there.
 """
 
@@ -73,10 +74,11 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
     """Raise unless the CUDA kernels run `cfg` on `device`, decided from the
     device argument alone (no card is queried): a bottleneck of
     enc_channels[-1] channels in num_heads heads and gru_groups groups that
-    divide it, where enc_channels[-1] is one of CHANNELS, for serving and
-    training alike (the FTF backward kernel takes every width the forward
-    does). The message names enc_channels and the widths taken. Nothing is
-    refused on the CPU, whose plain path takes every width."""
+    divide it, whose padded layout fits the widest kernel
+    (`ops/library.py::card_takes`), for serving and training alike (the FTF
+    backward kernel takes every width the forward does). The message names
+    enc_channels, --num_heads and --gru_groups. Nothing is refused on the
+    CPU, whose plain path takes every width."""
     if torch.device(device).type != "cuda":
         return
     check_kernel_widths("the CUDA path", cfg.enc_channels[-1],

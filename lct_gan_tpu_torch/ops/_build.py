@@ -8,13 +8,16 @@ to `build/` at the repository root (ignored by git), under a name that
 carries a hash of every file in `csrc/`: a change to any source or header
 rebuilds, an unchanged tree reuses what is there.
 
-One set of libraries a bottleneck width C (`ops/library.py::CHANNELS`):
-C = 64, the default, builds every source as it always has
-(`lib<name>-<hash>.so`); any other C builds with -DLCT_C=<C> into
-`lib<name>-c<C>-<hash>.so` the forward sources (`FORWARD_SOURCES`) at its
-first use, and the FTF backward's (`BACKWARD_SOURCES`) at its first
-backward, so serving alone never builds the backward. All sources of all
-the widths asked for build in one parallel batch, one nvcc process each.
+One set of libraries a kernel width CK (`ops/library.py::KERNEL_WIDTHS`:
+16, 32, 64, 128), which every bottleneck width whose padded layout needs it
+shares (`ops/padding.py::kernel_width`; the true width, the heads and the
+score scale are arguments of each launch): CK = 64, the default, builds
+every source as it always has (`lib<name>-<hash>.so`); any other CK builds
+with -DLCT_C=<CK> into `lib<name>-c<CK>-<hash>.so` the forward sources
+(`FORWARD_SOURCES`) at its first use, and the FTF backward's
+(`BACKWARD_SOURCES`) at its first backward, so serving alone never builds
+the backward. All sources of all the widths asked for build in one parallel
+batch, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -34,7 +38,7 @@ import torch
 __all__ = ["load_library", "build_all", "kernel_function", "raise_on_error",
            "f32_operand", "build_command", "library_path", "library_sources",
            "CSRC_DIR", "BUILD_DIR", "DEFAULT_C", "FORWARD_SOURCES",
-           "BACKWARD_SOURCES"]
+           "BACKWARD_SOURCES", "BUILD_LOGS", "ptxas_usage"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -51,6 +55,8 @@ BACKWARD_SOURCES = ("ftf_bwd",)
 
 _lock = threading.Lock()
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
+# nvcc's output of each verbose build of this process, by (source, width).
+BUILD_LOGS: Dict[Tuple[str, int], str] = {}
 
 
 def _nvcc() -> str:
@@ -76,31 +82,31 @@ def _sources():
 
 
 def library_sources(C: int = DEFAULT_C, backward: bool = False) -> List[str]:
-    """The csrc/*.cu sources of width C's libraries: all of them at the
-    default width, the forward ones at any other, with `backward` also the
-    FTF backward's."""
-    from lct_gan_tpu_torch.ops.library import CHANNELS
+    """The csrc/*.cu sources of kernel width C's libraries: all of them at
+    the default width, the forward ones at any other, with `backward` also
+    the FTF backward's."""
+    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
 
-    if C not in CHANNELS:
-        raise ValueError(f"no CUDA libraries for C={C}: the kernels take C "
-                         f"in {CHANNELS}")
+    if C not in KERNEL_WIDTHS:
+        raise ValueError(f"no CUDA libraries for kernel width C={C}: they "
+                         f"are built for {KERNEL_WIDTHS}")
     names = _sources()
     wanted = FORWARD_SOURCES + (BACKWARD_SOURCES if backward else ())
     return names if C == DEFAULT_C else [n for n in names if n in wanted]
 
 
 def library_path(name: str, C: int, tag: str) -> str:
-    """Where csrc/<name>.cu's library of width C lives under `tag` (the
-    hash of csrc/ and the flags)."""
+    """Where csrc/<name>.cu's library of kernel width C lives under `tag`
+    (the hash of csrc/ and the flags)."""
     width = "" if C == DEFAULT_C else f"-c{C}"
     return os.path.join(BUILD_DIR, f"lib{name}{width}-{tag}.so")
 
 
 def build_command(name: str, C: int, out: str, nvcc: str = "nvcc",
                   verbose: bool = False) -> List[str]:
-    """The nvcc command that builds csrc/<name>.cu for width C into `out`:
-    the default width's command is the one it has always been, any other
-    adds -DLCT_C=<C>."""
+    """The nvcc command that builds csrc/<name>.cu for kernel width C into
+    `out`: the default width's command is the one it has always been, any
+    other adds -DLCT_C=<C>."""
     width = [] if C == DEFAULT_C else [f"-DLCT_C={C}"]
     return [nvcc, *NVCC_FLAGS, *width, "-I", CSRC_DIR,
             *(["-Xptxas", "-v"] if verbose else []),
@@ -110,10 +116,12 @@ def build_command(name: str, C: int, out: str, nvcc: str = "nvcc",
 def build_all(verbose: bool = False,
               widths: Iterable[int] = (DEFAULT_C,),
               backward: bool = False) -> float:
-    """Build (if needed) and load the libraries of every width in `widths`
-    (default: 64's, every csrc/*.cu; with `backward` every width's FTF
-    backward too), all in one parallel batch. Returns the seconds spent;
-    raises with nvcc's stderr when a build fails."""
+    """Build (if needed) and load the libraries of every kernel width in
+    `widths` (default: 64's, every csrc/*.cu; with `backward` every width's
+    FTF backward too), all in one parallel batch. Returns the seconds spent;
+    raises with nvcc's stderr when a build fails. With `verbose` nvcc
+    reports each kernel's registers and spills (-Xptxas -v): printed to
+    stderr and kept in BUILD_LOGS[(name, width)]."""
     with _lock:
         t0 = time.perf_counter()
         todo = [(n, C) for C in dict.fromkeys(widths)
@@ -141,6 +149,7 @@ def build_all(verbose: bool = False,
                               f"(rc={proc.returncode}):\n{err}{out}")
                 continue
             if verbose and (err or out):
+                BUILD_LOGS[(n, C)] = err + out
                 print(f"[nvcc {what}]\n{err}{out}", file=sys.stderr,
                       flush=True)
             os.replace(tmp, paths[(n, C)])
@@ -151,9 +160,32 @@ def build_all(verbose: bool = False,
         return time.perf_counter() - t0
 
 
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} of every entry
+    function in nvcc's -Xptxas -v output `log` (mangled names)."""
+    usage: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
+    return {k: v for k, v in usage.items() if "registers" in v}
+
+
 def load_library(name: str, C: int = DEFAULT_C) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu at width C, building that
-    width's sources first if this process has not loaded them yet (the
+    """The loaded library of csrc/<name>.cu at kernel width C, building
+    that width's sources first if this process has not loaded them yet (the
     forward ones, and the backward's when `name` is one of them)."""
     if (name, C) not in _libs:
         build_all(widths=(C,), backward=name in BACKWARD_SOURCES)
@@ -162,9 +194,10 @@ def load_library(name: str, C: int = DEFAULT_C) -> ctypes.CDLL:
 
 def kernel_function(lib_name: str, fn_name: str, argtypes,
                     C: int = DEFAULT_C):
-    """A C entry point of csrc/<lib_name>.cu's width-C library with its
-    argtypes declared (ctypes.c_void_p for every pointer and the stream, or
-    ctypes would pass them as 32-bit ints)."""
+    """A C entry point of csrc/<lib_name>.cu's library of kernel width C
+    with its argtypes declared (ctypes.c_void_p for every pointer and the
+    stream, ctypes.c_float for a float, or ctypes would pass them as
+    32-bit ints)."""
     fn = getattr(load_library(lib_name, C), fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int

@@ -3,9 +3,10 @@
 `fused_mhsa` replaces the TPU kernel `lct_gan_tpu/ops/attention.py::
 _mhsa_kernel` (API `fused_mhsa`, :275): qkv projection -> per-head scores
 with an optional inclusive causal band and a per-key bias -> softmax ->
-context -> output projection, for x [N, L, E] with E of `ops/library.py::
-CHANNELS`, in any number of heads that divides E, L <= 1024 (E = 48 and 96
-padded to 64 and 128 with zero channels and heads, exact:
+context -> output projection, for x [N, L, E] in any number of heads that
+divides E whose padded layout fits the widest kernel
+(`ops/library.py::card_takes`), L <= 1024 (E padded to the attention's
+kernel width with zero channels and heads where it is not E, exact:
 `ops/padding.py`). On a CUDA tensor it launches the hand-written kernels
 of `csrc/mhsa.cu` (their bound on the H100 and what the simple design does
 about it are noted there); on a CPU tensor it computes `mhsa_reference`,
@@ -36,6 +37,7 @@ from lct_gan_tpu_torch.ops.gru import round_bf16
 from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 
 __all__ = ["mhsa_reference", "fused_mhsa", "mhsa_op", "mhsa_plain",
+           "ATTN_WIDTHS", "BLOCK_WIDTHS",
            "MAX_PALLAS_SEQ", "register_recompute_backward",
            "check_attention_shapes", "kernel_design", "mhsa_scratch"]
 
@@ -121,19 +123,25 @@ def mhsa_scratch(rows: int, precise: bool, C: int = 64):
 
 
 _P = ctypes.c_void_p
+# The widths of an attention launch after its pointers, N and the sequence
+# shape: the true E, num_heads and the score scale (`padding.score_scale`);
+# an FTF block's (ops/ftf.py, ops/ftf_bwd.py) also its GRU slots.
+ATTN_WIDTHS = [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+BLOCK_WIDTHS = ATTN_WIDTHS + [ctypes.c_int]
 # lct_mhsa_forward_bf16 / _f32: 6 inputs (key_bias may be null), the
-# scratch tensors of mhsa_scratch, out; N; L, lookback, num_heads, device;
+# scratch tensors of mhsa_scratch, out; N; L, lookback; the widths; device;
 # stream.
 _MHSA_ARGTYPES = {
-    False: [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
-    True: [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]}
+    precise: [_P] * (9 if precise else 8) + [ctypes.c_longlong]
+    + [ctypes.c_int] * 2 + ATTN_WIDTHS + [ctypes.c_int, _P]
+    for precise in (False, True)}
 
 
 def check_attention_shapes(name: str, x: torch.Tensor, num_heads: int,
                            max_seq: Optional[int] = None) -> None:
-    """Raise unless the attention kernels take these shapes: E of the
-    channel set in num_heads heads (any divisor of E) and, for the MHSA
-    kernel, L <= max_seq."""
+    """Raise unless the attention kernels take these shapes: E channels in
+    num_heads heads (any divisor of E) whose padded layout fits the widest
+    kernel and, for the MHSA kernel, L <= max_seq."""
     N, L, E = x.shape
     check_kernel_widths(f"{name} kernel", E, num_heads=num_heads,
                         names=("E", "num_heads", None))
@@ -162,15 +170,16 @@ def _mhsa_fake(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
 
 def pad_attention(ops, num_heads: int):
     """The attention wrappers' operands (x, in_w, in_b, out_w, out_b, ...)
-    padded for the kernels' width where E is 48 or 96 (`ops/padding.py`:
-    x's channels first, zeros after; each head widened to a power of two),
-    and whether the kernels' output has channels past E's."""
+    padded to the attention's own kernel width (heads only) where it is not
+    E (`ops/padding.py`: x's channels first, zeros after; each head widened
+    to a power of two), and whether the kernels' output has channels past
+    E's."""
     x = ops[0]
     E = x.shape[-1]
-    hidx = padding.head_map(E, num_heads)
+    EK = padding.kernel_width(E, num_heads=num_heads)
+    hidx = padding.head_map(E, num_heads, EK)
     if hidx is None:
         return ops, False
-    EK = padding.kernel_width(E)
     cidx = torch.arange(E)
     return [padding.pad_last(x, cidx, EK),
             *padding.pad_in_proj(ops[1], ops[2], cidx, hidx, EK),
@@ -199,13 +208,14 @@ def _mhsa_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
                for _, shape, dtype in mhsa_scratch(N * L, precise, EK)]
     out = torch.empty((N, L, EK), device=dev, dtype=torch.float32)
     entry = "lct_mhsa_forward_f32" if precise else "lct_mhsa_forward_bf16"
-    fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise], E)
+    fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise], EK)
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
              *(t.data_ptr() for t in scratch), out.data_ptr(), N, L,
-             -1 if lookback is None else lookback, num_heads,
+             -1 if lookback is None else lookback, E, num_heads,
+             padding.score_scale(E // num_heads),
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "mhsa", "fused_mhsa kernel launch", E)
+    raise_on_error(err, "mhsa", "fused_mhsa kernel launch", EK)
     fused_mhsa.launches += 1
     fused_mhsa.design = kernel_design(precise)
     return out[..., :E].contiguous() if padded else out
@@ -221,8 +231,8 @@ def fused_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                lookback: Optional[int] = None,
                key_bias: Optional[torch.Tensor] = None,
                precise: bool = False) -> torch.Tensor:
-    """Fused MHSA over x [N, L, E] -> [N, L, E] f32 (E of the channel set,
-    num_heads dividing E, L <= 1024).
+    """Fused MHSA over x [N, L, E] -> [N, L, E] f32 (num_heads dividing E,
+    their padded layout within the widest kernel, L <= 1024).
 
     The op `torch.ops.lct_gan_tpu_torch.fused_mhsa`. CPU tensors:
     `mhsa_reference(..., precise=precise)`. CUDA tensors: the kernels of

@@ -4,13 +4,14 @@
 _banded_kernel` (API `banded_mhsa`, :274): qkv projection -> per-head scores
 of each query q over the keys [q - W, q] of its inclusive causal band, plus
 a per-key bias -> softmax -> context -> output projection, for x [N, S,
-E] (E of `ops/library.py::CHANNELS`, in any number of heads that divides
-it; 48 and 96 padded as `fused_mhsa` pads them) with no upper bound on S.
+E] (in any number of heads that divides E whose padded layout fits the
+widest kernel, padded as `fused_mhsa` pads them) with no upper bound on S.
 On a CUDA tensor it launches the
 hand-written kernels of `csrc/banded.cu` (their bound on the H100 and what
 each mode's design does about it are noted there): bf16 mode one fused
 tensor-core pass for bands whose scores fit in registers (the library's
-`lct_banded_max_register_lookback` keys back; none at E = 96 and 128), and
+`lct_banded_max_register_lookback` keys back; none at a kernel width of
+128), and
 the MHSA kernel's tensor-core design with the band above that; precise
 mode three all-f32
 CUDA-core kernels. On a CPU tensor it computes
@@ -38,7 +39,9 @@ from typing import Optional
 
 import torch
 
-from lct_gan_tpu_torch.ops.attention import (check_attention_shapes,
+from lct_gan_tpu_torch.ops import padding
+from lct_gan_tpu_torch.ops.attention import (ATTN_WIDTHS,
+                                             check_attention_shapes,
                                              kernel_design, pad_attention,
                                              register_recompute_backward)
 from lct_gan_tpu_torch.ops.gru import round_bf16
@@ -142,12 +145,14 @@ def banded_scratch(rows: int, precise: bool, in_registers: bool = True,
 _P = ctypes.c_void_p
 # The C entry point of csrc/banded.cu each mode launches, with its argtypes:
 # 6 inputs (key_bias may be null), the scratch (bf16: qkv or null; f32: qkv,
-# ctx), out; N; S, lookback, num_heads, device; stream.
+# ctx), out; N; S, lookback; the widths (E, num_heads, score scale);
+# device; stream.
 BANDED_ENTRY = {
-    False: ("lct_banded_forward_bf16",
-            [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]),
-    True: ("lct_banded_forward_f32",
-           [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P])}
+    precise: ("lct_banded_forward_f32" if precise
+              else "lct_banded_forward_bf16",
+              [_P] * (9 if precise else 8) + [ctypes.c_longlong]
+              + [ctypes.c_int] * 2 + ATTN_WIDTHS + [ctypes.c_int, _P])
+    for precise in (False, True)}
 
 
 def banded_plain(x: torch.Tensor, in_proj_kernel: torch.Tensor,
@@ -188,17 +193,18 @@ def _banded_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
     EK = ops[0].shape[-1]
     # The library owns the widest band its fused bf16 kernel serves.
     max_reg_w = kernel_function("banded", "lct_banded_max_register_lookback",
-                                [], E)()
+                                [], EK)()
     scratch = [torch.empty(shape, device=dev, dtype=dtype) for _, shape, dtype
                in banded_scratch(N * S, precise, lookback <= max_reg_w, EK)]
     slots = [t.data_ptr() for t in scratch] or [None]
     out = torch.empty((N, S, EK), device=dev, dtype=torch.float32)
-    fn = kernel_function("banded", *BANDED_ENTRY[precise], E)
+    fn = kernel_function("banded", *BANDED_ENTRY[precise], EK)
     err = fn(*(None if t is None else t.data_ptr() for t in ops), *slots,
-             out.data_ptr(), N, S, lookback, num_heads,
+             out.data_ptr(), N, S, lookback, E, num_heads,
+             padding.score_scale(E // num_heads),
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "banded", "banded_mhsa kernel launch", E)
+    raise_on_error(err, "banded", "banded_mhsa kernel launch", EK)
     banded_mhsa.launches += 1
     banded_mhsa.design = kernel_design(precise)
     return out[..., :E].contiguous() if padded else out
@@ -214,8 +220,8 @@ def banded_mhsa(x: torch.Tensor, in_proj_kernel: torch.Tensor,
                 out_proj_bias: torch.Tensor, *, num_heads: int = 4,
                 lookback: int, key_bias: Optional[torch.Tensor] = None,
                 precise: bool = False) -> torch.Tensor:
-    """Banded MHSA over x [N, S, E] -> [N, S, E] f32 (E of the channel
-    set, num_heads dividing E, any S).
+    """Banded MHSA over x [N, S, E] -> [N, S, E] f32 (num_heads dividing
+    E, their padded layout within the widest kernel, any S).
 
     The op `torch.ops.lct_gan_tpu_torch.banded_mhsa`. CPU tensors:
     `banded_mhsa_reference(..., precise=precise)`. CUDA tensors: the

@@ -27,9 +27,10 @@ the f32 `ftf_block_reference` under autograd, as the JAX package does.
 
 Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
 in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward and backward
-kernels take every C of `ops/library.py::CHANNELS` in any num_heads and any
-G that divide C (C = 48 and 96 padded to 64 and 128 with zero channels,
-exact: `ops/padding.py`); a call on the card at another C raises before any
+kernels take every C in any num_heads and any G that divide C whose padded
+layout fits the widest kernel (`ops/library.py::card_takes`: channels,
+heads and groups zero-padded to the kernel width of 16 .. 128, exact:
+`ops/padding.py`); a call on the card at other widths raises before any
 launch, under grad too.
 """
 
@@ -41,7 +42,8 @@ from typing import Optional, Tuple
 import torch
 
 from lct_gan_tpu_torch.ops import padding
-from lct_gan_tpu_torch.ops.attention import kernel_design, mhsa_reference
+from lct_gan_tpu_torch.ops.attention import (BLOCK_WIDTHS, kernel_design,
+                                             mhsa_reference)
 from lct_gan_tpu_torch.ops.ftf_bwd import check_backward_shapes, fused_ftf_bwd
 from lct_gan_tpu_torch.ops.gru import (grouped_gru_hidden, layer_norm,
                                        pack_gru_slots, round_bf16)
@@ -124,11 +126,13 @@ _P = ctypes.c_void_p
 # lct_ftf_forward_bf16 / _f32 by mode (precise): 16 inputs (the GRU's in
 # pack_gru_slots' layout; key_bias may be null), the scratch slots of
 # ftf_scratch (bf16: four, gb may be null, then xp, null but for C = 128's
-# dense GRU slot; f32: four), out; N; L, D, lin_in, lookback, num_heads,
-# GRU slots, device; stream.
+# dense GRU slot; f32: four), out; N; L, D, lin_in, lookback; the widths
+# (BLOCK_WIDTHS: the true C, num_heads, the score scale, GRU slots);
+# device; stream.
 _FTF_ARGTYPES = {
-    False: [_P] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P],
-    True: [_P] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]}
+    precise: [_P] * (21 if precise else 22) + [ctypes.c_longlong]
+    + [ctypes.c_int] * 4 + BLOCK_WIDTHS + [ctypes.c_int, _P]
+    for precise in (False, True)}
 
 
 def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool, C: int = 64,
@@ -156,10 +160,11 @@ def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool, C: int = 64,
 
 def check_kernel_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                         bidirectional: bool) -> None:
-    """Raise unless the FTF forward kernels take these shapes: C of the
-    channel set, num_heads and G GRU groups of C / G each dividing C (w_ih
-    [D, G, C / G, 3 * C / G]), L <= 512, lin_w rows matching the block
-    type."""
+    """Raise unless the FTF forward kernels take these shapes: C channels
+    in num_heads heads and G GRU groups of C / G (w_ih [D, G, C / G, 3 * C /
+    G]), each dividing C, whose padded layout fits the widest kernel
+    (`ops/library.py::check_kernel_widths`), L <= 512, lin_w rows matching
+    the block type."""
     N, L, C = x.shape
     G = w_ih.shape[1]
     check_kernel_widths(f"{name} kernel", C, num_heads=num_heads, groups=G)
@@ -191,18 +196,20 @@ def ftf_plain(x: torch.Tensor, ln1_scale: torch.Tensor,
 
 def kernel_operands(ops, num_heads: int):
     """The FTF kernels' operands from the block's (x, the 14 parameters,
-    key_bias): at C = 48 or 96 padded to the kernels' width with zero
-    channels and heads (`ops/padding.py`), then the GRU weights packed into
-    slots. Returns (operands, cidx): cidx [C] the output channels that are
-    the block's (None: all)."""
+    key_bias): padded to the kernel width of C, num_heads and the G GRU
+    groups with zero channels, units and heads where it is not C
+    (`ops/padding.py`), then the GRU weights packed into slots. Returns
+    (operands, cidx): cidx [C] the output channels that are the block's
+    (None: all)."""
     C, G = ops[0].shape[-1], ops[3].shape[1]
-    CK, cidx = padding.kernel_width(C), padding.channel_map(C, G)
+    CK = padding.kernel_width(C, num_heads, G)
+    cidx = padding.channel_map(C, G, CK)
     ops = list(ops)
     if cidx is not None:  # zero channels up to CK, exact
-        hidx = padding.head_map(C, num_heads)
+        hidx = padding.head_map(C, num_heads, CK)
         ops[:15] = [padding.pad_last(ops[0], cidx, CK),
                     *padding.pad_ln(*ops[1:3], cidx, CK),
-                    *padding.pad_gru(*ops[3:7], C),
+                    *padding.pad_gru(*ops[3:7], C, CK),
                     *padding.pad_ln(*ops[7:9], cidx, CK),
                     *padding.pad_in_proj(*ops[9:11], cidx, hidx, CK),
                     *padding.pad_out_proj(*ops[11:13], hidx, cidx, CK),
@@ -237,7 +244,7 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
     H = C // G
     lin_in = lin_w.shape[0]
     dev = x.device
-    CK = padding.kernel_width(C)
+    CK = padding.kernel_width(C, num_heads, G)
     f = f32_operand
     ops = [f("x", x, (N, L, C), dev),
            f("ln1_scale", ln1_scale, (C,), dev),
@@ -265,15 +272,15 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
         scratch.append(None)  # no xp
     out = torch.empty((N, L, CK), device=dev, dtype=torch.float32)
     entry = "lct_ftf_forward_f32" if precise else "lct_ftf_forward_bf16"
-    fn = kernel_function("ftf", entry, _FTF_ARGTYPES[precise], C)
+    fn = kernel_function("ftf", entry, _FTF_ARGTYPES[precise], CK)
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
              *(None if t is None else t.data_ptr()
                for t in scratch), out.data_ptr(),
              N, L, D, lin_in // C * CK, -1 if lookback is None else lookback,
-             num_heads, slots,
+             C, num_heads, padding.score_scale(C // num_heads), slots,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "ftf", "fused_ftf_block kernel launch", C)
+    raise_on_error(err, "ftf", "fused_ftf_block kernel launch", CK)
     fused_ftf_block.launches += 1
     fused_ftf_block.design = kernel_design(precise)
     hid = next(t for spec, t in zip(specs, scratch)
@@ -342,7 +349,7 @@ def ftf_forward_with_hidden(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
     parameter): under grad the backward is `ops/ftf_bwd.py::fused_ftf_bwd`
     on the saved hiddens, or, with key_bias, the f32 recompute. On the
     card the backward kernel's widths are checked before the forward
-    launches (`check_backward_shapes`: C of the channel set)."""
+    launches (`check_backward_shapes`: the widths the forward takes)."""
     if (x.device.type == "cuda" and key_bias is None
             and torch.is_grad_enabled()
             and any(t.requires_grad for t in (x, ln1_scale, ln1_bias, w_ih,

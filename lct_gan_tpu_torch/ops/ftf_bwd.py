@@ -17,13 +17,14 @@ On a CUDA tensor it launches the hand-written kernels of `csrc/ftf_bwd.cu`
 (their bound on the H100 and what each design does about it are noted
 there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
 tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
-(`lct_ftf_backward_f32`, `simt-f32`), at every C of `ops/library.py::
-CHANNELS` (each width's library built at its first backward, `ops/_build.py`)
-in any number of heads and GRU groups that divides C
-(`check_backward_shapes`, `ops/library.py::check_kernel_widths`). The
+(`lct_ftf_backward_f32`, `simt-f32`), at every C in any number of heads
+and GRU groups that divides C whose padded layout fits the widest kernel
+(`check_backward_shapes`, `ops/library.py::check_kernel_widths`; each
+kernel width's library built at its first backward, `ops/_build.py`). The
 wrapper hands the kernels the forward's operands (`ops/ftf.py::
-kernel_operands`: at C = 48 and 96 zero-padded to 64 and 128, the GRU
-weights packed into the kernels' slots), the hiddens and the cotangent
+kernel_operands`: zero-padded to the block's kernel width where it is not
+C, the GRU weights packed into the kernels' slots), the hiddens and the
+cotangent
 padded alike, and takes the gradients apart again
 (`ops/gru.py::unpack_gru_slot_grads`, then the inverses of the pads,
 `ops/padding.py::unpad_*`; exact, as that module says). On a CPU tensor it
@@ -48,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from lct_gan_tpu_torch.ops import padding
-from lct_gan_tpu_torch.ops.attention import kernel_design
+from lct_gan_tpu_torch.ops.attention import BLOCK_WIDTHS, kernel_design
 from lct_gan_tpu_torch.ops.gru import (gru_slot, round_bf16,
                                        unpack_gru_slot_grads)
 from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
@@ -215,15 +216,17 @@ def ftf_bwd_reference(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
 
 _P = ctypes.c_void_p
 # lct_ftf_backward_bf16 and _f32 alike: 17 inputs, 15 gradients, the
-# scratch; N; L, D, lin_in, lookback, num_heads, slots, device; the stream.
-_BWD_ARGTYPES = [_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]
+# scratch; N; L, D, lin_in, lookback; the widths (the true C, num_heads,
+# the score scale, slots); device; the stream.
+_BWD_ARGTYPES = ([_P] * 33 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                 + BLOCK_WIDTHS + [ctypes.c_int, _P])
 
 
-def _kernel_slots(C: int, groups: int) -> int:
-    """GRU slots the kernels of width C run `groups` groups in (their
-    padded group count at C = 48 and 96)."""
-    CK = padding.kernel_width(C)
-    return CK // gru_slot(padding.padded_groups(C, groups), CK)
+def _kernel_slots(C: int, groups: int, num_heads: int) -> int:
+    """GRU slots the kernels run `groups` groups of the block's C channels
+    in at its kernel width (the padded group count where that is not C)."""
+    CK = padding.kernel_width(C, num_heads, groups)
+    return CK // gru_slot(padding.padded_groups(C, groups, CK), CK)
 
 
 def ftf_bwd_scratch_bytes(N: int, L: int, D: int, lin_in: int,
@@ -238,18 +241,18 @@ def ftf_bwd_scratch_bytes(N: int, L: int, D: int, lin_in: int,
     follow the current card's grid sizes). Needs the card."""
     from lct_gan_tpu_torch.ops._build import kernel_function
 
-    slots = _kernel_slots(C, groups)
+    slots = _kernel_slots(C, groups, num_heads)
+    CK = padding.kernel_width(C, num_heads, groups)
     if precise:
         fn = kernel_function("ftf_bwd", "lct_ftf_backward_scratch_floats",
-                             [ctypes.c_longlong] + [ctypes.c_int] * 4, C)
+                             [ctypes.c_longlong] + [ctypes.c_int] * 5, CK)
         fn.restype = ctypes.c_longlong
-        nbytes = 4 * int(fn(N, L, D, num_heads, slots))
+        nbytes = 4 * int(fn(N, L, D, C, num_heads, slots))
     else:
         fn = kernel_function("ftf_bwd", "lct_ftf_backward_bf16_scratch_bytes",
-                             [ctypes.c_longlong] + [ctypes.c_int] * 5, C)
+                             [ctypes.c_longlong] + [ctypes.c_int] * 6, CK)
         fn.restype = ctypes.c_longlong
-        nbytes = int(fn(N, L, D, lin_in // C * padding.kernel_width(C),
-                        num_heads, slots))
+        nbytes = int(fn(N, L, D, lin_in // C * CK, C, num_heads, slots))
     if nbytes < 0:
         raise RuntimeError("fused_ftf_bwd: no scratch size for these "
                            f"widths (num_heads={num_heads}, groups={groups}) "
@@ -278,13 +281,14 @@ def ftf_bwd_plain(x: torch.Tensor, ln1s: torch.Tensor, ln1b: torch.Tensor,
 def check_backward_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                           bidirectional: bool) -> None:
     """Raise unless the FTF backward kernel takes these shapes: the
-    forward's (`ops/ftf.py::check_kernel_shapes`: C of the channel set, any
-    num_heads and GRU group count that divides C, through `ops/library.py::
-    check_kernel_widths`); a C outside the set is refused naming
-    enc_channels, the width a user sets."""
+    forward's (`ops/ftf.py::check_kernel_shapes`: any num_heads and GRU
+    group count that divides C whose padded layout fits the widest kernel,
+    through `ops/library.py::check_kernel_widths`); widths it does not take
+    are refused naming enc_channels, the width a user sets."""
     from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
 
-    check_kernel_widths(f"{name} kernel", x.shape[-1],
+    check_kernel_widths(f"{name} kernel", x.shape[-1], num_heads=num_heads,
+                        groups=w_ih.shape[1],
                         hint=" (the bottleneck, enc_channels[-1])")
     check_kernel_shapes(name, x, w_ih, lin_w, num_heads, bidirectional)
 
@@ -305,10 +309,11 @@ def true_gradients(grads, C: int, groups: int, num_heads: int):
     operands, the GRU's already out of its slots) at the true block's
     channels: the inverse of each pad (`ops/padding.py::unpad_*`), or the
     gradients as they are where C needs no padding."""
-    cidx = padding.channel_map(C, groups)
+    CK = padding.kernel_width(C, num_heads, groups)
+    cidx = padding.channel_map(C, groups, CK)
     if cidx is None:
         return tuple(grads)
-    CK, hidx = padding.kernel_width(C), padding.head_map(C, num_heads)
+    hidx = padding.head_map(C, num_heads, CK)
     return (padding.unpad_last(grads[0], cidx),
             *padding.unpad_ln(*grads[1:3], cidx),
             *padding.unpad_gru(*grads[3:7], C, groups),
@@ -343,9 +348,9 @@ def _ftf_bwd_cuda(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
              "ln2_scale", "ln2_bias", "in_w", "in_b", "out_w", "out_b",
              "lin_w", "lin_b", "hid", "dout")
     ops = [f32_operand(n, t, s, dev) for n, t, s in zip(names, args, shapes)]
-    CK = padding.kernel_width(C)
-    # The forward's operands at the kernels' width (C = 48, 96 padded), the
-    # GRU packed into slots; hid and dout padded as x is.
+    CK = padding.kernel_width(C, num_heads, G)
+    # The forward's operands at the kernels' width (padded where it is not
+    # C), the GRU packed into slots; hid and dout padded as x is.
     kops, cidx = kernel_operands([*ops[:15], None], num_heads)
     kops = kops[:15] + [ops[15], ops[16]]
     if cidx is not None:
@@ -358,17 +363,18 @@ def _ftf_bwd_cuda(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b, in_w,
                                        G, C)
     scratch = torch.empty((nbytes,), device=dev, dtype=torch.uint8)
     entry = "lct_ftf_backward_f32" if precise else "lct_ftf_backward_bf16"
-    fn = kernel_function("ftf_bwd", entry, _BWD_ARGTYPES, C)
+    fn = kernel_function("ftf_bwd", entry, _BWD_ARGTYPES, CK)
     err = fn(*(t.data_ptr() for t in kops), *(t.data_ptr() for t in grads),
              scratch.data_ptr(), N, L, D, lin_in // C * CK,
-             -1 if lookback is None else lookback, num_heads, slots,
+             -1 if lookback is None else lookback, C, num_heads,
+             padding.score_scale(C // num_heads), slots,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "ftf_bwd", "fused_ftf_bwd kernel launch", C)
+    raise_on_error(err, "ftf_bwd", "fused_ftf_bwd kernel launch", CK)
     fused_ftf_bwd.launches += 1
     fused_ftf_bwd.design = kernel_design(precise)
     grads[3:7] = unpack_gru_slot_grads(*grads[3:7],
-                                       padding.padded_groups(C, G))
+                                       padding.padded_groups(C, G, CK))
     return true_gradients(grads, C, G, num_heads)
 
 
@@ -389,8 +395,8 @@ def fused_ftf_bwd(x, ln1s, ln1b, w_ih, w_hh, b_ih, b_hh, ln2s, ln2b,
     `torch.ops.lct_gan_tpu_torch.fused_ftf_bwd`.
 
     CPU tensors: `ftf_bwd_reference(..., precise=precise)`. CUDA tensors:
-    the kernels of csrc/ftf_bwd.cu (C of `ops/library.py::CHANNELS`, else
-    it raises before any launch), each launch counted in
+    the kernels of csrc/ftf_bwd.cu (the widths the forward takes, else it
+    raises before any launch), each launch counted in
     `fused_ftf_bwd.launches`, the design recorded in `fused_ftf_bwd.design`.
     Deterministic: parameter gradients are summed over fixed row chunks,
     then over the chunks in a fixed order."""

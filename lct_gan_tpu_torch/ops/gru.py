@@ -25,16 +25,18 @@ memory a chunk ahead of the consumer warps' steps; design `GRU_DESIGN`);
 on a CPU tensor it computes `grouped_gru_plain`. Its backward
 differentiates the plain version.
 
-The CUDA kernels take C channels for every C of `ops/library.py::
-CHANNELS`, in any number of groups that divides C. The FTF kernels run
+The CUDA kernels take C channels in any number of groups that divides C,
+where the groups' padded layout fits the widest kernel
+(`ops/library.py::card_takes`). The FTF kernels run
 slots of 16 units, or dense ones of C (of 64 at C = 128; `gru_slot`), and
 `pack_gru_slots` packs other group counts into them
 (`unpack_gru_slot_grads` takes the FTF backward's slot-layout gradients
 apart again); `fused_grouped_gru`'s kernel takes the groups as they are
 (slots of each group's width, or of 16 holding narrower groups, built in
-the kernel). At C = 48 and 96 the wrapper first widens each group to a
-power of two with zero channels and units (`ops/padding.py`; exact), so
-the kernels run at 64 and 128.
+the kernel). Where C is not a power of two from 16 the wrapper first
+widens each group to a power of two with zero channels and units
+(`ops/padding.py`; exact), so the kernels run at the GRU's own kernel
+width (`ops/padding.py::kernel_width(C, groups=G)`, 16 .. 128).
 """
 
 from __future__ import annotations
@@ -131,8 +133,9 @@ def grouped_gru_plain(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def _check_gru_shapes(x: torch.Tensor, w_ih: torch.Tensor) -> None:
-    """Raise unless the kernels take these shapes: C of the channel set in
-    G groups of C / G (G dividing C), w_ih [D, G, C / G, 3 * C / G]."""
+    """Raise unless the kernels take these shapes: C channels in G groups
+    of C / G (G dividing C) whose padded layout fits the widest kernel,
+    w_ih [D, G, C / G, 3 * C / G]."""
     C = x.shape[-1]
     G = w_ih.shape[1]
     check_kernel_widths("fused_grouped_gru kernel", C, groups=G)
@@ -203,17 +206,19 @@ def unpack_gru_slot_grads(dw_ih, dw_hh, db_ih, db_hh, groups: int):
 
 def gru_kernel_operands(ops):
     """The composed GRU kernel's operands from (x, ln_scale, ln_bias, w_ih,
-    w_hh, b_ih, b_hh): at C = 48 or 96 padded to the kernels' width with
-    zero channels and units (`ops/padding.py`), the groups a power of two
-    wide; elsewhere as they are. Returns (operands, idx): idx [C] the
+    w_hh, b_ih, b_hh): padded to the GRU's own kernel width (groups only:
+    the attention after it takes its own) with zero channels and units
+    (`ops/padding.py`), the groups a power of two wide, where that width is
+    not C; elsewhere as they are. Returns (operands, idx): idx [C] the
     output channels that are x's (None: all)."""
     C, G = ops[0].shape[-1], ops[3].shape[1]
-    CK, idx = padding.kernel_width(C), padding.channel_map(C, G)
+    CK = padding.kernel_width(C, groups=G)
+    idx = padding.channel_map(C, G, CK)
     ops = list(ops)
     if idx is not None:
         ops = [padding.pad_last(ops[0], idx, CK),
                *padding.pad_ln(*ops[1:3], idx, CK),
-               *padding.pad_gru(*ops[3:], C)]
+               *padding.pad_gru(*ops[3:], C, CK)]
     return ops, idx
 
 
@@ -225,8 +230,8 @@ def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
 
 _P = ctypes.c_void_p
 # lct_grouped_gru_f32: 7 inputs (the GRU's grouped), hid; N; L, D, groups,
-# device; stream.
-_GRU_ARGTYPES = [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P]
+# the true C, device; stream.
+_GRU_ARGTYPES = [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]
 
 
 def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
@@ -249,12 +254,12 @@ def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
     ops, idx = gru_kernel_operands(ops)
     CK = ops[0].shape[-1]
     hid = torch.empty((D, N * L, CK), device=dev, dtype=torch.float32)
-    fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES, C)
+    fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES, CK)
     err = fn(*(t.data_ptr() for t in ops), hid.data_ptr(),
-             N, L, D, ops[3].shape[1],
+             N, L, D, ops[3].shape[1], C,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "ftf", "fused_grouped_gru kernel launch", C)
+    raise_on_error(err, "ftf", "fused_grouped_gru kernel launch", CK)
     fused_grouped_gru.launches += 1
     out = hid[0] if D == 1 else hid[0] + hid[1]
     if idx is not None:
@@ -292,8 +297,9 @@ def fused_grouped_gru(x: torch.Tensor, ln_scale: torch.Tensor,
     the op `torch.ops.lct_gan_tpu_torch.fused_grouped_gru`.
 
     CPU tensors: `grouped_gru_plain`. CUDA tensors: one launch of the f32
-    kernel of csrc/ftf.cu (C of `ops/library.py::CHANNELS` in any group
-    count dividing C, else it raises; `check_kernel_widths`), counted in
+    kernel of csrc/ftf.cu (any C in any group count dividing C whose
+    padded layout fits the widest kernel, else it raises;
+    `check_kernel_widths`), counted in
     `fused_grouped_gru.launches`, from an exported program too.
     Differentiable in x and the six parameters (the plain version's
     gradients, recomputed)."""

@@ -9,25 +9,30 @@ counts the launch), and a fake implementation gives the output shapes, so
 registered on the dispatcher directly (`Library.impl`), the thinnest
 route from a call to the Python kernel: each launch pays one dispatch.
 
-The widths every CUDA kernel takes live here too (`CHANNELS`, `divisors`,
-`check_kernel_widths`): each operator's checks and the model layer's
-(`models/generator.py::check_card_widths`) call the one check.
+The widths every CUDA kernel takes live here too (`KERNEL_WIDTHS`,
+`divisors`, `check_kernel_widths`): each operator's checks and the model
+layer's (`models/generator.py::check_card_widths`) call the one check.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["NAMESPACE", "define_op", "CHANNELS", "divisors",
-           "check_kernel_widths"]
+from lct_gan_tpu_torch.ops.padding import kernel_width, layout_width
+
+__all__ = ["NAMESPACE", "define_op", "KERNEL_WIDTHS", "divisors",
+           "card_takes", "check_kernel_widths"]
 
 NAMESPACE = "lct_gan_tpu_torch"
 
-# The bottleneck widths the CUDA kernels take, forward and backward (each
-# builds its own libraries, ops/_build.py), split into any number of
-# attention heads or GRU groups that divides C (the JAX package's kernels
-# read all three from their shapes).
-CHANNELS = (16, 32, 48, 64, 96, 128)
+# The kernel widths the CUDA libraries are built for, forward and backward
+# (one set of libraries each, ops/_build.py). Any bottleneck width C in any
+# number of attention heads and GRU groups that divides it runs at the one
+# its padded layout fits (ops/padding.py::kernel_width), up to the widest
+# (the JAX package's kernels read all three from their shapes).
+KERNEL_WIDTHS = (16, 32, 64, 128)
 
 
 def divisors(C: int) -> tuple:
@@ -50,19 +55,44 @@ def define_op(name: str, plain, cuda, fake):
     return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
+@functools.lru_cache(maxsize=None)
+def card_takes(C: int, num_heads: int = 1, groups: int = 1) -> bool:
+    """Whether the CUDA kernels take C channels in num_heads heads and
+    `groups` GRU groups: both divide C and the padded layout's kernel width
+    (ops/padding.py::kernel_width) is one of KERNEL_WIDTHS."""
+    return (C >= 1 and num_heads >= 1 and groups >= 1
+            and C % num_heads == 0 and C % groups == 0
+            and kernel_width(C, num_heads, groups) <= KERNEL_WIDTHS[-1])
+
+
 def check_kernel_widths(what: str, C: int, *, num_heads=None, groups=None,
                         names=("C", "num_heads", "GRU groups"),
                         hint: str = "") -> None:
-    """Raise unless the CUDA kernels take C channels (one of CHANNELS) in
-    `num_heads` heads and `groups` GRU groups (each checked when given: a
-    divisor of C). The message says "<what> takes ..." and names the three
-    widths `names` (a kernel's own argument names, or the flags a user
-    sets), then `hint`."""
+    """Raise unless the CUDA kernels take C channels in `num_heads` heads
+    and `groups` GRU groups (each checked when given, as 1 when not:
+    `card_takes`): a count that does not divide C is refused by its name,
+    a layout wider than the widest kernel by all three. The message says
+    "<what> takes ..." and names the widths `names` (a kernel's own
+    argument names, or the flags a user sets; None for one it has not),
+    then `hint`."""
+    nh, G = (1 if n is None else n for n in (num_heads, groups))
+    if card_takes(C, nh, G):
+        return
     c_name, heads_name, groups_name = names
-    if C not in CHANNELS:
-        raise ValueError(f"{what} takes {c_name} in {CHANNELS}, got "
-                         f"{c_name}={C}{hint}")
+    if C < 1:
+        raise ValueError(f"{what} takes {c_name} >= 1, got {c_name}={C}"
+                         f"{hint}")
     for name, n in ((heads_name, num_heads), (groups_name, groups)):
         if n is not None and n not in divisors(C):
             raise ValueError(f"{what} takes {name} in {divisors(C)} "
                              f"(divisors of {C}), got {name} {n}{hint}")
+    given = [f"{c_name}={C}"] + [
+        f"{name} {n}" for name, n in ((heads_name, num_heads),
+                                      (groups_name, groups))
+        if name is not None and n is not None]
+    top = KERNEL_WIDTHS[-1]
+    raise ValueError(
+        f"{what} takes widths whose padded layout fits {top} channels, got "
+        f"{', '.join(given)}: the padded layout needs "
+        f"{layout_width(C, nh, G)} channels "
+        f"(> {top}){hint}")

@@ -1,17 +1,26 @@
-"""Zero padding that carries a bottleneck width which is not a power of two
-(C = 48 or 96) to the CUDA kernels, which run at the next power of two.
+"""Zero padding that carries any bottleneck width C, split into any
+num_heads attention heads and G GRU groups, to the CUDA kernels, which run
+at a power of two: the kernel width CK = `kernel_width(C, num_heads, G)`.
 
-A library built for C channels (`ops/_build.py`, -DLCT_C=<C>) runs its
-kernels at CK = `kernel_width(C)` channels and divides every LayerNorm by
-the true C (`csrc/common.cuh`). The wrappers widen what they hand it:
+A library built for the kernel width CK (`ops/_build.py`, -DLCT_C=<CK>; CK
+in 16, 32, 64, 128) takes the true C, the head count and the score scale at
+run time, and divides every LayerNorm by the true C (`csrc/common.cuh`).
+The wrappers widen what they hand it:
 
   * each GRU group of gw channels to gw' = the next power of two, so group
     g's channels sit at [g gw', g gw' + gw) of the CK-wide rows and the
     CK / gw' groups (the last ones all zero) pack into the kernels' slots;
-  * each attention head of hd channels to hd' = the next power of two, its
-    q, k and v at [h hd', h hd' + hd) of each CK-wide section, the heads
-    past num_heads all zero; the kernels take the true hd for the score
-    scale 1 / sqrt(hd).
+  * each attention head of hd channels to hd' = `head_width(hd)`, its q, k
+    and v at [h hd', h hd' + hd) of each CK-wide section, the heads past
+    num_heads all zero; the kernels take the true head's score scale,
+    `score_scale(hd)`.
+
+So CK is the smallest power of two, at least 16 (the kernels' narrowest
+tile), that holds C, G gw' and num_heads hd': G gw' and num_heads hd' may
+pass the next power of two above C (C = 50 in 5 groups or heads of 10 needs
+80 channels, so runs at 128). The FTF block takes one CK for its GRU and
+its attention; the composed path's GRU (groups only) and attention (heads
+only) each take their own, as the tensors between them are unpadded.
 
 Exact in both modes: a zero channel adds 0 to every product and every
 LayerNorm sum, a GRU unit with zero weights and biases stays 0 (r = z =
@@ -34,8 +43,9 @@ that are 0; the LayerNorm backward's means run over the C true channels,
 where a padded channel's scale, and so its term, is 0. The padded
 positions' own dx and gradients are the dropped part.
 
-A power-of-two C needs none of this: `channel_map` and `head_map` return
-None there and the wrappers hand the tensors over as they are.
+Where CK = C (C a power of two from 16, so every divisor is too) nothing
+moves: `channel_map` and `head_map` return None and the wrappers hand the
+tensors over as they are.
 """
 
 from __future__ import annotations
@@ -43,49 +53,86 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["kernel_width", "channel_map", "head_map", "padded_groups",
+__all__ = ["MIN_KERNEL_WIDTH", "layout_width", "kernel_width", "head_width",
+           "score_scale", "channel_map", "head_map", "padded_groups",
            "pad_last", "pad_gru", "pad_ln", "pad_in_proj", "pad_out_proj",
            "pad_lin", "unpad_last", "unpad_gru", "unpad_ln", "unpad_in_proj",
            "unpad_out_proj", "unpad_lin"]
+
+# The narrowest kernel width: one 16-column tensor-core tile.
+MIN_KERNEL_WIDTH = 16
 
 
 def _pow2_ceil(v: int) -> int:
     return 1 << (int(v) - 1).bit_length()
 
 
-def kernel_width(C: int) -> int:
-    """The channel count the kernels of width C run at (csrc/common.cuh)."""
-    return _pow2_ceil(C)
+def head_width(hd: int) -> int:
+    """The width a head (or GRU group) of hd channels runs at: the next
+    power of two (csrc/common.cuh's head_width)."""
+    return _pow2_ceil(hd)
 
 
 @functools.lru_cache(maxsize=None)
-def _map(C: int, parts: int) -> Optional[torch.Tensor]:
-    width = C // parts
-    step = _pow2_ceil(width)
-    if step == width and kernel_width(C) == C:
+def layout_width(C: int, num_heads: int = 1, groups: int = 1) -> int:
+    """Channels the padded layout of C channels in num_heads heads and
+    `groups` GRU groups spans: the widest of C, the groups widened to
+    powers of two and the heads widened alike."""
+    return max(C, groups * head_width(C // groups),
+               num_heads * head_width(C // num_heads))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_width(C: int, num_heads: int = 1, groups: int = 1) -> int:
+    """The kernel width CK that C channels in num_heads heads and `groups`
+    GRU groups run at: the padded layout rounded up to a power of two, at
+    least MIN_KERNEL_WIDTH (the library's -DLCT_C, csrc/common.cuh)."""
+    return max(MIN_KERNEL_WIDTH,
+               _pow2_ceil(layout_width(C, num_heads, groups)))
+
+
+@functools.lru_cache(maxsize=None)
+def score_scale(hd: int) -> float:
+    """The attention's score scale for heads of hd true channels, as the
+    kernels take it: the f32 rounding of 1 / sqrt(hd), the JAX package's
+    `1.0 / float(np.sqrt(hd))` applied to f32 scores."""
+    return float(np.float32(1.0 / np.sqrt(hd)))
+
+
+@functools.lru_cache(maxsize=None)
+def _map(C: int, parts: int, width: int) -> Optional[torch.Tensor]:
+    if width == C:
         return None
+    step = C // parts
     idx = torch.arange(C)
-    return (idx // width) * step + idx % width
+    return (idx // step) * head_width(step) + idx % step
 
 
-def channel_map(C: int, groups: int) -> Optional[torch.Tensor]:
-    """Where each of the C true channels sits in a CK-wide row when the GRU
-    runs `groups` groups (a LongTensor [C] on the CPU), or None when C is a
-    power of two (no padding)."""
-    return _map(C, groups)
+def channel_map(C: int, groups: int,
+                width: Optional[int] = None) -> Optional[torch.Tensor]:
+    """Where each of the C true channels sits in a `width`-wide row (default:
+    the GRU's own kernel width) when the GRU runs `groups` groups (a
+    LongTensor [C] on the CPU), or None when the row is C wide (nothing
+    moves)."""
+    return _map(C, groups, width or kernel_width(C, groups=groups))
 
 
-def head_map(C: int, num_heads: int) -> Optional[torch.Tensor]:
+def head_map(C: int, num_heads: int,
+             width: Optional[int] = None) -> Optional[torch.Tensor]:
     """Where each of the C channels of q (or k, v, the context) sits in a
-    CK-wide section when the attention runs `num_heads` heads, or None."""
-    return _map(C, num_heads)
+    `width`-wide section (default: the attention's own kernel width) when
+    the attention runs `num_heads` heads, or None."""
+    return _map(C, num_heads, width or kernel_width(C, num_heads=num_heads))
 
 
-def padded_groups(C: int, groups: int) -> int:
-    """The GRU group count of the padded rows: CK / gw'."""
-    return kernel_width(C) // _pow2_ceil(C // groups)
+def padded_groups(C: int, groups: int, width: Optional[int] = None) -> int:
+    """The GRU group count of the padded rows, `width` / gw' (default: the
+    GRU's own kernel width)."""
+    return ((width or kernel_width(C, groups=groups))
+            // head_width(C // groups))
 
 
 def _on(idx: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -103,12 +150,13 @@ def pad_ln(scale: torch.Tensor, bias: torch.Tensor, idx: torch.Tensor,
     return pad_last(scale, idx, width), pad_last(bias, idx, width)
 
 
-def pad_gru(w_ih, w_hh, b_ih, b_hh, C: int):
+def pad_gru(w_ih, w_hh, b_ih, b_hh, C: int, width: Optional[int] = None):
     """G groups' weights [D, G, gw, 3gw] / [D, G, 3gw] as the padded groups'
-    [D, G', gw', 3gw'] / [D, G', 3gw']: each group's inputs and units (per
-    gate) widened with zeros, the groups past G zero."""
+    [D, G', gw', 3gw'] / [D, G', 3gw'] of a `width`-wide row (default: the
+    GRU's own kernel width): each group's inputs and units (per gate)
+    widened with zeros, the groups past G zero."""
     D, G, gw, _ = w_ih.shape
-    G2, gw2 = padded_groups(C, G), _pow2_ceil(gw)
+    G2, gw2 = padded_groups(C, G, width), head_width(gw)
 
     def mat(w):
         out = w.new_zeros((D, G2, gw2, 3, gw2))

@@ -157,6 +157,7 @@ def run(rounds: int, reps: int, checkpoint: str) -> dict:
     with torch.no_grad():
         for name, lib, call, plain in cases(gen, g):
             default_lib = _build.load_library(lib)
+            key = (lib, _build.DEFAULT_C)  # the loaded library's slot
             names = [DEFAULT] + [v for v, (vl, _) in VARIANTS.items()
                                  if vl == lib]
             use = {DEFAULT: default_lib,
@@ -165,7 +166,7 @@ def run(rounds: int, reps: int, checkpoint: str) -> dict:
             errs, times = {}, {v: [] for v in names}
             try:
                 for v in names:
-                    _build._libs[lib] = use[v]
+                    _build._libs[key] = use[v]
                     errs[v] = (call() - ref).abs().max().item()
                     if not errs[v] <= TOL_BF16:
                         raise AssertionError(f"{name} {v}: max|diff| "
@@ -174,10 +175,10 @@ def run(rounds: int, reps: int, checkpoint: str) -> dict:
                 torch.cuda.empty_cache()
                 for r in range(rounds):
                     for v in (names if r % 2 == 0 else names[::-1]):
-                        _build._libs[lib] = use[v]
+                        _build._libs[key] = use[v]
                         times[v].append(cuda_ms(call, reps))
             finally:
-                _build._libs[lib] = default_lib
+                _build._libs[key] = default_lib
             med = {v: sorted(t)[len(t) // 2] for v, t in times.items()}
             emit({"case": name, "max_abs_err": errs, "ms": times,
                   "median_ms": med, "device": card})

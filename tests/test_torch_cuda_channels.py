@@ -1,13 +1,15 @@
 """The four forward kernels and the FTF backward at bottleneck widths other
-than 64 (csrc/ftf.cu, mhsa.cu, banded.cu, ftf_bwd.cu built per width,
--DLCT_C; C = 48 and 96 zero-padded to 64 and 128 by the wrappers) on the
-card against their plain PyTorch versions on the same inputs, at the edges
-of their shapes: one sequence,
+than 64 (csrc/ftf.cu, mhsa.cu, banded.cu, ftf_bwd.cu built per kernel
+width, -DLCT_C; other widths zero-padded by the wrappers to the kernel
+width of their layout: 48 and 40 to 64, 96, 50 and 80 to 128, 24 to 32, 8
+to 16) on the card against their plain PyTorch versions on the same inputs,
+at the edges of their shapes: one sequence,
 one step, the longest fused length, a ragged sequence count (the f32 GRU's
 warps hang over the end at C = 16), bands of 0 and past the fused banded
 kernel's reach, and the widths where the routes change (a dense GRU slot
 of C at C <= 64, of 64 on tensor cores and of 128 on CUDA cores at C =
-128; heads padded to a power of two).
+128; heads padded to a power of two; heads and groups past num_heads and
+gru_groups, where the layout passes the next power of two above C).
 
 Skips without a GPU. On a machine with the card (no JAX needed there):
 
@@ -44,10 +46,11 @@ from lct_gan_tpu_torch.ops.gru import fused_grouped_gru, grouped_gru_plain
 pytestmark = pytest.mark.cuda
 
 TOL = {"bf16": 3e-2, "precise": 1e-3}
-WIDTHS = (16, 32, 48, 96, 128)
+WIDTHS = (16, 32, 64, 128)    # the kernel widths (ops/library.py)
 # (C, heads, groups): the routes each width takes.
 ROUTES = [(16, 2, 1), (16, 16, 16), (32, 1, 1), (48, 3, 16), (48, 16, 2),
-          (96, 6, 4), (96, 32, 1), (128, 1, 2), (128, 8, 128)]
+          (96, 6, 4), (96, 32, 1), (128, 1, 2), (128, 8, 128),
+          (8, 2, 2), (24, 3, 3), (40, 4, 4), (50, 5, 5), (80, 4, 4)]
 
 
 @pytest.fixture(scope="module")

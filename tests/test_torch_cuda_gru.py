@@ -34,9 +34,9 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from lct_gan_tpu_torch.ops._build import build_all
-    from lct_gan_tpu_torch.ops.library import CHANNELS
+    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
 
-    build_all(verbose=True, widths=(64, *CHANNELS))
+    build_all(verbose=True, widths=KERNEL_WIDTHS)
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -138,10 +138,14 @@ def test_gradients_on_the_card_are_the_plain_versions(card, D):
 
 
 def test_wrong_width_raises_on_the_card(card):
-    """40 channels (2 groups of 20) lie outside the kernels' channel set."""
-    x = torch.zeros((2, 600, 40), device="cuda")
+    """144 channels (2 groups of 72, widened to 128 each) pass the widest
+    kernel, 128 channels; refused before any launch."""
+    x = torch.zeros((2, 600, 144), device="cuda")
     p = [torch.zeros(s, device="cuda") for s in
-         ((40,), (40,), (1, 2, 20, 60), (1, 2, 20, 60), (1, 2, 60),
-          (1, 2, 60))]
-    with pytest.raises(ValueError, match="takes C in .*got C=40"):
+         ((144,), (144,), (1, 2, 72, 216), (1, 2, 72, 216), (1, 2, 216),
+          (1, 2, 216))]
+    before = fused_grouped_gru.launches
+    with pytest.raises(ValueError,
+                       match="fits 128 channels, got C=144.*needs 256"):
         fused_grouped_gru(x, *p, bidirectional=False)
+    assert fused_grouped_gru.launches == before

@@ -4,7 +4,8 @@ same seeded numpy inputs, at (C, num_heads, gru_groups) in CASES (heads of
 32 .. 3 channels, groups of 64 .. 3 units, C = 48 and 96 among them), the
 operands the CUDA wrappers hand the kernels at C = 48 and 96 (zero-padded
 to 64 and 128), the width checks the card's entry points make, and the
-per-width build command.
+per-kernel-width build command (tests/test_torch_port_any_width.py takes
+the widths whose padded layout passes the next power of two).
 
 Tolerances, as in test_torch_port_widths.py:
   f32 (precise): the port's plain version against the JAX package's f32
@@ -57,7 +58,7 @@ from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference, fused_ftf_block,
 from lct_gan_tpu_torch.ops.ftf_bwd import check_backward_shapes
 from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru, grouped_gru,
                                        grouped_gru_plain, gru_kernel_operands)
-from lct_gan_tpu_torch.ops.library import CHANNELS, divisors
+from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS, card_takes, divisors
 
 from test_torch_port_widths import (ORDER, _attn_params, _ftf_params, _j,
                                     _key_bias, _t)
@@ -197,9 +198,9 @@ def _kernel_layer_norm(C):
 def _kernel_heads(C, nh, in_w, in_b):
     """(head count the kernels run, in_w, in_b with q scaled so that the
     plain version's 1 / sqrt(padded width) is the kernels' 1 / sqrt(true
-    width))."""
-    CK, hd = padding.kernel_width(C), C // nh
-    hdp = padding.kernel_width(hd)     # csrc/common.cuh's head_width
+    width)), for padded in_w [CK, 3 CK]."""
+    CK, hd = in_w.shape[1] // 3, C // nh
+    hdp = padding.head_width(hd)       # csrc/common.cuh's head_width
     r = float(hdp / hd) ** 0.5
     in_w, in_b = in_w.clone(), in_b.clone()
     in_w[:, :CK] *= r
@@ -227,7 +228,7 @@ def test_padded_ftf_operands_are_the_same_block(monkeypatch, C, nh, G, kind):
                                          precise=True, return_hidden=True,
                                          **kw)
     ops, cidx = kernel_operands([*targs, _t(kb)], nh)
-    CK = padding.kernel_width(C)
+    CK = padding.kernel_width(C, nh, G)
     assert cidx is not None and ops[0].shape[-1] == CK
     nhk, ops[9], ops[10] = _kernel_heads(C, nh, ops[9], ops[10])
     monkeypatch.setattr(ftf_ops, "layer_norm", _kernel_layer_norm(C))
@@ -271,7 +272,7 @@ def test_padded_attention_and_gru_operands(monkeypatch, C, nh, G):
     monkeypatch.setattr(gru_ops, "layer_norm", _kernel_layer_norm(C))
     got = gru_ops.grouped_gru_plain(*ops, True)
     torch.testing.assert_close(got[..., idx], want, rtol=0, atol=1e-5)
-    pad = _padded_channels(idx, padding.kernel_width(C))
+    pad = _padded_channels(idx, padding.kernel_width(C, groups=G))
     assert got[..., pad].abs().max() == 0
 
 
@@ -289,7 +290,7 @@ def test_zero_padded_gru_units_compute_the_same_gru(C, G):
          for s in ((2, G, H, 3 * H), (2, G, H, 3 * H), (2, G, 3 * H),
                    (2, G, 3 * H))]
     x = torch.from_numpy(rng.standard_normal((3, 7, C)).astype(np.float32))
-    CK, idx = padding.kernel_width(C), padding.channel_map(C, G)
+    CK, idx = padding.kernel_width(C, groups=G), padding.channel_map(C, G)
     packed = gru_ops.pack_gru_slots(*padding.pad_gru(*w, C))
     W = packed[0].shape[2]
     assert W in (16, 64, CK) and packed[0].shape[1] == CK // W
@@ -301,56 +302,68 @@ def test_zero_padded_gru_units_compute_the_same_gru(C, G):
 
 
 def test_card_widths_take_the_channel_set():
-    """Serving and training on the card take every C of the channel set
-    with every divisor pair of heads and groups; C = 40 and 144 are refused
-    for both, naming enc_channels and the set. Decided from the device
-    argument: no card is queried."""
+    """Serving and training on the card take every C whose padded layout
+    fits 128 channels, with every such divisor pair of heads and groups
+    (the name is kept from when a set of six widths was taken): C = 40, 48
+    and 96 among them; (100, 5, 5) and C = 144 are refused for both, naming
+    enc_channels, the flags and the channels the layout needs. Decided
+    from the device argument: no card is queried."""
     def cfg(C, nh=4, G=4):
         return LCTGeneratorConfig(enc_channels=(16, 32, C),
                                   dec_channels=(C, 32, 16), num_heads=nh,
                                   gru_groups=G)
 
     for training in (False, True):
-        for C in CHANNELS:
+        for C in (8, 16, 32, 40, 48, 50, 64, 96, 128):
             for nh in divisors(C):
                 for G in divisors(C):
-                    check_card_widths(cfg(C, nh, G), "cuda",
-                                      training=training)
-        for C in (40, 144):
+                    if card_takes(C, nh, G):
+                        check_card_widths(cfg(C, nh, G), "cuda",
+                                          training=training)
+        for C, nh, G, need in ((100, 5, 5, 160), (144, 4, 4, 256)):
             with pytest.raises(ValueError, match=(
-                    r"enc_channels\[-1\] in \(16, 32, 48, 64, 96, 128\), "
-                    rf"got enc_channels\[-1\]={C}")):
-                check_card_widths(cfg(C), "cuda:0", training=training)
-            check_card_widths(cfg(C), "cpu", training=training)
+                    rf"padded layout fits 128 channels, got "
+                    rf"enc_channels\[-1\]={C}, --num_heads {nh}, "
+                    rf"--gru_groups {G}: the padded layout needs {need} "
+                    rf"channels \(> 128\)")):
+                check_card_widths(cfg(C, nh, G), "cuda:0", training=training)
+            check_card_widths(cfg(C, nh, G), "cpu", training=training)
     check_card_widths(cfg(48, 3, 3), torch.device("cuda", 0), training=True)
+    check_card_widths(cfg(40), torch.device("cuda", 0), training=True)
 
 
 def test_grad_on_the_card_is_refused_before_any_launch():
-    """fused_ftf_block under grad on a CUDA tensor at a C outside the
-    channel set (40) raises in the backward kernel's check (naming
-    enc_channels) before the forward launches; on shapes alone (fake CUDA
-    tensors). The same check takes C = 48 at 3 heads and 3 groups."""
+    """fused_ftf_block under grad on a CUDA tensor at widths whose padded
+    layout passes 128 channels ((100, 5, 5): 160) raises in the backward
+    kernel's check (naming enc_channels) before the forward launches; on
+    shapes alone (fake CUDA tensors). The same check takes C = 48 at 3
+    heads and 3 groups, 40 at 4 and 4, and 50 at 5 and 5."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    _, _, _, kw = _ftf_inputs(48, 3, 3, "freq")
+    kw = dict(bidirectional=True, lookback=None)
     shapes = {C: [_ftf_params(np.random.default_rng(0), True, G, C)[k].shape
-                  for k in ORDER] for C, G in ((40, 4), (48, 3))}
+                  for k in ORDER] for C, G in ((100, 5), (48, 3), (40, 4),
+                                               (50, 5))}
     with FakeTensorMode():
-        xs = torch.empty((12, 17, 40), device="cuda")
+        xs = torch.empty((12, 17, 100), device="cuda")
         ps = [torch.empty(s, device="cuda").requires_grad_()
-              for s in shapes[40]]
-        with pytest.raises(ValueError, match=r"C=40.*enc_channels"):
-            fused_ftf_block(xs, *ps, precise=False, **kw)
-    x48 = torch.zeros((12, 17, 48), device="meta")
-    check_backward_shapes("fused_ftf_block under grad", x48,
-                          torch.zeros(shapes[48][2], device="meta"),
-                          torch.zeros(shapes[48][12], device="meta"), 3, True)
+              for s in shapes[100]]
+        with pytest.raises(ValueError,
+                           match=r"C=100.*160 channels.*enc_channels"):
+            fused_ftf_block(xs, *ps, precise=False, num_heads=5, **kw)
+    for C, nh in ((48, 3), (40, 4), (50, 5)):
+        check_backward_shapes(
+            "fused_ftf_block under grad",
+            torch.zeros((12, 17, C), device="meta"),
+            torch.zeros(shapes[C][2], device="meta"),
+            torch.zeros(shapes[C][12], device="meta"), nh, True)
 
 
 def test_per_width_build_command():
-    """C = 64 builds every source with the command, flags and library path
-    it always had; any other C builds the forward sources with -DLCT_C=<C>
-    into a library of its own. No nvcc is needed to say so."""
+    """Kernel width 64 builds every source with the command, flags and
+    library path it always had; any other kernel width builds the forward
+    sources with -DLCT_C=<width> into a library of its own, and no other
+    width has libraries (48 runs at 64). No nvcc is needed to say so."""
     tag = "0123456789abcdef"
     cmd64 = _build.build_command("ftf", 64, "out.so", "nvcc")
     assert cmd64 == ["nvcc", *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
@@ -359,7 +372,7 @@ def test_per_width_build_command():
     assert _build.library_sources(64) == sorted(
         ("banded", "ftf", "ftf_bwd", "mhsa", "probe"))
     paths = {_build.library_path("ftf", 64, tag)}
-    for C in CHANNELS:
+    for C in KERNEL_WIDTHS:
         if C == 64:
             continue
         cmd = _build.build_command("mhsa", C, "o.so", "nvcc", verbose=True)
@@ -372,6 +385,7 @@ def test_per_width_build_command():
         path = _build.library_path("ftf", C, tag)
         assert path.endswith(f"/libftf-c{C}-{tag}.so")
         paths.add(path)
-    assert len(paths) == len(CHANNELS)
-    with pytest.raises(ValueError, match="C=40"):
-        _build.library_sources(40)
+    assert len(paths) == len(KERNEL_WIDTHS)
+    for C in (40, 48, 256):
+        with pytest.raises(ValueError, match=f"C={C}"):
+            _build.library_sources(C)

@@ -107,12 +107,13 @@ def test_fake_gives_the_output_shape_and_holds_cuda_to_the_width():
             out = OPS.fused_grouped_gru(x, *p, False)
             assert out.shape == (4, 600, 64) and out.dtype == torch.float32
             assert out.device.type == dev
-        # 40 channels in 2 groups: the plain version takes it, the kernel
-        # does not (40 is outside its channel set).
-        x, p = _inputs(51, 4, 600, 1, C=40)
+        # 144 channels in 9 groups of 16: the plain version takes it, the
+        # kernel does not (144 channels run at 256, past the widest, 128).
+        x, p = _inputs(51, 4, 600, 1, C=144)
         assert OPS.fused_grouped_gru(torch.empty(x.shape), *(
-            torch.empty(t.shape) for t in p), False).shape == (4, 600, 40)
-        with pytest.raises(ValueError, match="takes C in .*got C=40"):
+            torch.empty(t.shape) for t in p), False).shape == (4, 600, 144)
+        with pytest.raises(ValueError,
+                           match="fits 128 channels, got C=144.*needs 256"):
             OPS.fused_grouped_gru(
                 torch.empty(x.shape, device="cuda"),
                 *(torch.empty(t.shape, device="cuda") for t in p), False)

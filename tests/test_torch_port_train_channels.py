@@ -165,7 +165,7 @@ def test_padded_backward_route_is_the_plain_backward(monkeypatch, C, nh, G,
     want = ftf_bwd_reference(tx, *tp, hid, tw, num_heads=nh, **kw)
 
     kops, cidx = kernel_operands([tx, *tp, None], nh)
-    CK = padding.kernel_width(C)
+    CK = padding.kernel_width(C, nh, G)
     assert cidx is not None and kops[0].shape[-1] == CK
     nhk, kops[9], kops[10] = _kernel_heads(C, nh, kops[9], kops[10])
     monkeypatch.setattr(ftf_bwd_ops, "_ln_fwd", _kernel_ln(C)[0])
@@ -174,11 +174,11 @@ def test_padded_backward_route_is_the_plain_backward(monkeypatch, C, nh, G,
                                  padding.pad_last(tw, cidx, CK),
                                  num_heads=nhk, **kw))
     # q was scaled by r = sqrt(padded / true head width): its gradient by r.
-    r = float(padding.kernel_width(C // nh) / (C // nh)) ** 0.5
+    r = float(padding.head_width(C // nh) / (C // nh)) ** 0.5
     got[9][:, :CK] *= r
     got[10][:CK] *= r
     got[3:7] = unpack_gru_slot_grads(*got[3:7],
-                                     padding.padded_groups(C, G))
+                                     padding.padded_groups(C, G, CK))
     got = true_gradients(got, C, G, nh)
     assert len(got) == len(want) == 15
     for a, b in zip(got, want):

@@ -282,8 +282,9 @@ def test_enhancer_matches_jax(nh, G):
 
 def test_kernel_checks_take_every_divisor_pair():
     """The forward kernels' checks take every (heads, groups) pair of
-    divisors of 64 at C = 64, and refuse other counts and a C outside the
-    channel set (40; 48 is in it since the kernels were built per width)."""
+    divisors of 64 at C = 64, and refuse other counts and widths whose
+    padded layout passes 128 channels (144 in 4 heads or groups; 48 and 40
+    are taken since the kernels take the true width at run time)."""
     x = torch.zeros((2, 5, 64))
     for G in KERNEL_WIDTHS:
         H = 64 // G
@@ -299,11 +300,13 @@ def test_kernel_checks_take_every_divisor_pair():
         _check_gru_shapes(x, torch.zeros((1, 3, 21, 63)))
     check_attention_shapes("a", torch.zeros((2, 5, 48)), 4)
     _check_gru_shapes(torch.zeros((2, 5, 48)), torch.zeros((1, 4, 12, 36)))
-    with pytest.raises(ValueError, match="got E=40"):
-        check_attention_shapes("a", torch.zeros((2, 5, 40)), 4)
-    with pytest.raises(ValueError, match="got C=40"):
-        _check_gru_shapes(torch.zeros((2, 5, 40)),
-                          torch.zeros((1, 4, 10, 30)))
+    check_attention_shapes("a", torch.zeros((2, 5, 40)), 4)
+    _check_gru_shapes(torch.zeros((2, 5, 40)), torch.zeros((1, 4, 10, 30)))
+    with pytest.raises(ValueError, match="got E=144"):
+        check_attention_shapes("a", torch.zeros((2, 5, 144)), 4)
+    with pytest.raises(ValueError, match="got C=144"):
+        _check_gru_shapes(torch.zeros((2, 5, 144)),
+                          torch.zeros((1, 4, 36, 108)))
 
 
 def test_backward_check_takes_only_4_heads_and_4_groups():
@@ -327,17 +330,21 @@ def test_backward_check_takes_only_4_heads_and_4_groups():
 @pytest.mark.parametrize("training", [False, True])
 def test_c48_is_refused_on_the_card_naming_enc_channels(training):
     """C = 48 was refused on the card while a kernel lacked that width (the
-    name is kept from then); serving and training both take it now that
-    the forward and backward kernels are built per width, and refuse C =
-    40 instead, outside the channel set, naming enc_channels."""
+    name is kept from then); serving and training both take it, and 40,
+    now that the kernels take the true width at run time, and refuse C =
+    144 instead, whose padded layout passes 128 channels, naming
+    enc_channels."""
     cfg = LCTGeneratorConfig(enc_channels=(16, 32, 48),
                              dec_channels=(48, 32, 16))
     c40 = LCTGeneratorConfig(enc_channels=(16, 32, 40),
                              dec_channels=(40, 32, 16))
+    c144 = LCTGeneratorConfig(enc_channels=(16, 32, 144),
+                              dec_channels=(144, 32, 16))
     with pytest.raises(ValueError, match=r"enc_channels"):
-        check_card_widths(c40, "cuda", training=training)
+        check_card_widths(c144, "cuda", training=training)
     check_card_widths(cfg, "cuda", training=training)
-    check_card_widths(c40, "cpu", training=training)  # the plain path
+    check_card_widths(c40, "cuda", training=training)
+    check_card_widths(c144, "cpu", training=training)  # the plain path
 
 
 def test_card_widths_are_decided_from_the_device_argument():
