@@ -260,26 +260,55 @@ def stage_of(kernel_name):
     return "wgrad" if name.startswith(("wgrad", "reduce")) else name
 
 
-def stages_ms(torch, fn, reps=3):
-    """Device ms per call of each stage of `fn` (one torch.profiler pass
-    over `reps` calls after one warm-up), largest first."""
+def stage_profile(torch, fn, prefix="", reps=3):
+    """{prefix + "stages_ms": device ms per call of each stage of `fn`,
+    largest first, or None; prefix + "stages_coverage": the share of the
+    calls' device time (CUDA events around `reps` calls, unprofiled) the
+    stages add up to}. One torch.profiler pass over `reps` calls after one
+    warm-up. The profiler can lose kernels (late in a long run on the H100
+    it kept from none to all of a pass's), so a pass counts only if each
+    stage shows a multiple of `reps` launches and its stages cover 85% to
+    110% of the events' ms (below 100%: idle between launches); up to
+    three passes, else stages_ms is None and the coverage the best
+    pass's."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0:
-            key = stage_of(evt.key)
-            out[key] = out.get(key, 0.0) + us / reps / 1e3
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+    event_ms = start.elapsed_time(end) / reps
+    best = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, counts = {}, {}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            if us > 0:
+                key = stage_of(evt.key)
+                out[key] = out.get(key, 0.0) + us / reps / 1e3
+                counts[key] = counts.get(key, 0) + evt.count
+        coverage = sum(out.values()) / event_ms
+        if abs(coverage - 1) < abs(best - 1):
+            best = coverage
+        if (out and all(n % reps == 0 for n in counts.values())
+                and 0.85 <= coverage <= 1.1):
+            return {prefix + "stages_ms": dict(
+                        sorted(out.items(), key=lambda kv: -kv[1])),
+                    prefix + "stages_coverage": coverage}
+    return {prefix + "stages_ms": None, prefix + "stages_coverage": best}
 
 
 def scratch_bytes(torch, fn):
@@ -547,13 +576,14 @@ def check_kernels(torch, enhancer):
                 res["vs_fused_mhsa_max_abs_err"] = xerr
                 res["fused_mhsa_ms"] = cuda_ms(
                     torch, lambda: fused_mhsa(x, *aparams, **kw), 3)
-                res["fused_mhsa_stages_ms"] = stages_ms(
-                    torch, lambda: fused_mhsa(x, *aparams, **kw))
+                res.update(stage_profile(
+                    torch, lambda: fused_mhsa(x, *aparams, **kw),
+                    "fused_mhsa_"))
             del out
             res["ms"] = cuda_ms(torch, lambda: banded_mhsa(x, *aparams, **kw),
                                 5)
-            res["stages_ms"] = stages_ms(
-                torch, lambda: banded_mhsa(x, *aparams, **kw))
+            res.update(stage_profile(
+                torch, lambda: banded_mhsa(x, *aparams, **kw)))
             # One exp per in-band pair: the least a kernel that takes the
             # exact max before it rounds p can spend on the special-function
             # unit.
@@ -850,7 +880,7 @@ def ftf_bwd_case(torch, name, x, params, D, lookback, mode, g,
     if lib[1] is not None:
         res["library_unavailable"] = lib[1]
     if timed:
-        res["stages_ms"] = stages_ms(torch, call)
+        res.update(stage_profile(torch, call))
         res["scratch_bytes"] = scratch_bytes(torch, call)
         res["plain_ms"] = cuda_ms(torch, lambda: ftf_bwd_reference(
             x, *params, hid, dout, **kw), 1)
@@ -1368,6 +1398,176 @@ def worst_row_rel_l2(torch, out, ref):
     return (d / ref.flatten(1).norm(dim=1).clamp_min(1e-30)).max().item()
 
 
+def key_tail(torch, g, N, L, n_valid_min):
+    """A [N, L] key bias of 0 on each row's first valid keys (a seeded
+    count from n_valid_min to L) and -1e30 on the rest."""
+    valid = torch.randint(n_valid_min, L + 1, (N,), generator=g,
+                          device="cuda")
+    pos = torch.arange(L, device="cuda")
+    return torch.where(pos[None, :] < valid[:, None], 0.0,
+                       -1e30).to(torch.float32)
+
+
+def main_shape_cases(torch, g, seed, C, nh, G, exps_per_s, results, phase,
+                     profile=False):
+    """The four forward kernels at C channels in nh heads and G groups at
+    the main path's shapes against their plain versions on the card, both
+    modes (the composed GRU f32), timed beside the bound, the library call
+    and the wrappers' padding ms (width_case); appended to
+    results[kernel]. The padded products count the heads and slots the
+    kernels run at the kernel width (CK, CA, CG: the block's, the
+    attention's, the GRU's). With `profile`, the bf16 and GRU cases also
+    carry `stages_ms` (device ms a call of each kernel the call launches,
+    or None where the profiler lost kernels) and `stages_coverage`
+    (stage_profile)."""
+
+    def staged(fn, want, **info):
+        if profile and want:
+            info.update(stage_profile(torch, fn))
+        return info
+
+    from lct_gan_tpu_torch.ops.attention import (fused_mhsa, mhsa_reference,
+                                                 pad_attention)
+    from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
+                                                        banded_mhsa_reference)
+    from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
+                                           fused_ftf_block, kernel_operands)
+    from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
+                                           grouped_gru_plain, gru_slot,
+                                           gru_kernel_operands, layer_norm)
+    from lct_gan_tpu_torch.ops.padding import head_width, kernel_width
+
+    def tail(N, L, n_valid_min):
+        return key_tail(torch, g, N, L, n_valid_min)
+
+    def head_flops(N, pairs, hd, CA):
+        hdp = head_width(hd)
+        return (N * (CA // hdp) * pairs * hd * 4,
+                N * (CA // hdp) * pairs * 2 * (max(hdp, 16) + max(hdp, 8)))
+
+    hd = C // nh
+    CK = kernel_width(C, nh, G)
+    CA, CG = kernel_width(C, num_heads=nh), kernel_width(C, groups=G)
+    fblk, tblk = seeded_blocks(torch, seed + C, C, nh, G)
+    for name, blk, N, L, lb in (("freq_main", fblk, 16512, 33, None),
+                                ("time_keybias_lookback16_main", tblk,
+                                 4224, 129, 16)):
+        params = [p.detach().contiguous() for p in blk.kernel_params()]
+        D = 2 if blk.bidirectional else 1
+        x = torch.randn((N, L, C), generator=g, device="cuda")
+        kb = tail(N, L, L - 40) if D == 1 else None
+        rows, lin_in = N * L, params[12].shape[0]
+        pairs_n = band_pairs(L, lb)
+        attn, _ = head_flops(N, pairs_n, hd, C)
+        _, attn_pad = head_flops(N, pairs_n, hd, CK)
+        rest = rows * (2 * C * 3 * C + 2 * C * C + 2 * lin_in * C)
+        rest_pad = rows * CK * CK * (6 + 2 + 2 * lin_in // C)
+        gru = rows * 4 * D * 3 * C * (C // G)
+        gru_pad = rows * 4 * D * 3 * CK * gru_slot(G, CK)
+        extra = (sum(p.numel() for p in params) * 4
+                 + (rows * 4 if kb is not None else 0))
+        exps = N * nh * pairs_n + rows * D * C * 3
+        pad_ms = host_pad_ms(torch, lambda: kernel_operands(
+            [x, *params, kb], nh))
+        for mode in ("bf16", "precise"):
+            kw = dict(bidirectional=D == 2, num_heads=nh, lookback=lb,
+                      precise=mode == "precise")
+
+            def plain(lo, hi):
+                return ftf_block_reference(
+                    x[lo:hi], *params,
+                    key_bias=None if kb is None else kb[lo:hi], **kw)
+
+            def call():
+                return fused_ftf_block(x, *params, key_bias=kb, **kw)
+
+            res = width_case(
+                torch, "fused_ftf_block", name, call,
+                by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
+                mode, (N, L), rest + gru + attn,
+                rest_pad + gru_pad + attn_pad, extra, exps, exps_per_s,
+                nh, G,
+                lambda: library_or_reason(
+                    torch, lambda: library_attention_ms(
+                        torch, N, L, lb, kb, mode, nh, C)),
+                C=C, phase=phase,
+                info=staged(call, mode == "bf16", kernel_width=CK,
+                            host_pad_ms=pad_ms))
+            results["fused_ftf_block"].append(res)
+        del x, kb
+    aparams = [p.detach().contiguous()
+               for p in tblk.attn.kernel_params()]
+    for kernel, fn, ref, N, L, lb in (
+            ("fused_mhsa", fused_mhsa, mhsa_reference, 825, 644, None),
+            ("banded_mhsa", banded_mhsa, banded_mhsa_reference, 660, 772,
+             64)):
+        x = torch.randn((N, L, C), generator=g, device="cuda")
+        kb = tail(N, L, L - 130)
+        rows = N * L
+        pairs_n = band_pairs(L, lb)
+        attn, _ = head_flops(N, pairs_n, hd, C)
+        _, attn_pad = head_flops(N, pairs_n, hd, CA)
+        proj = rows * (2 * C * 3 * C + 2 * C * C)
+        proj_pad = rows * 8 * CA * CA
+        exps = (2 if lb is None else 1) * N * nh * pairs_n
+        extra = sum(p.numel() for p in aparams) * 4 + rows * 4
+        pad_ms = host_pad_ms(torch, lambda: pad_attention(
+            [x, *aparams, kb], nh))
+        for mode in ("bf16", "precise"):
+            kw = dict(num_heads=nh, precise=mode == "precise")
+            if lb is not None:
+                kw["lookback"] = lb
+                library = lambda: library_banded_ms(  # noqa: E731
+                    torch, N, L, lb, mode, nh, C)
+            else:
+                library = lambda: library_or_reason(  # noqa: E731
+                    torch, lambda: library_mha_ms(torch, x, aparams, kb,
+                                                  mode, nh))
+
+            def plain(lo, hi):
+                return ref(x[lo:hi], *aparams, key_bias=kb[lo:hi], **kw)
+
+            def call():
+                return fn(x, *aparams, key_bias=kb, **kw)
+
+            res = width_case(
+                torch, kernel, f"L{L}_N{N}_keybias" + (
+                    f"_W{lb}" if lb is not None else ""), call,
+                by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
+                mode, (N, L), proj + attn, proj_pad + attn_pad, extra,
+                exps, exps_per_s, nh, G, library, C=C, phase=phase,
+                info=staged(call, mode == "bf16", kernel_width=CA,
+                            host_pad_ms=pad_ms))
+            results[kernel].append(res)
+        del x, kb
+    gparams = [p.detach().contiguous() for p in tblk.kernel_params()[:6]]
+    N, L = 825, 644
+    x = torch.randn((N, L, C), generator=g, device="cuda")
+    rows = N * L
+
+    def gru_fn():
+        return fused_grouped_gru(x, *gparams, bidirectional=False)
+
+    def library():
+        lib_ms, lib_out = library_gru(
+            torch, layer_norm(x, *gparams[:2]), *gparams[2:])
+        return lib_ms, None, (lib_out - gru_fn()).abs().max().item()
+
+    pad_ms = host_pad_ms(torch, lambda: gru_kernel_operands(
+        [x, *gparams]))
+    res = width_case(
+        torch, "fused_grouped_gru", f"L{L}", gru_fn,
+        lambda: grouped_gru_plain(x, *gparams, False), "precise", (N, L),
+        rows * 4 * 3 * C * (C // G),
+        rows * 4 * 3 * CG * gru_kernel_slot(C, G),
+        sum(p.numel() for p in gparams) * 4, rows * C * 3, exps_per_s,
+        nh, G, library, C=C, phase=phase,
+        info=staged(gru_fn, True, kernel_width=CG, host_pad_ms=pad_ms))
+    results["fused_grouped_gru"].append(res)
+    del x, fblk, tblk
+    torch.cuda.empty_cache()
+
+
 def check_channels(torch, np, card, seed):
     """The four forward kernels at every bottleneck width C of CHANNELS and
     ANY_CHANNELS (each padded by the wrappers to the kernel width of its
@@ -1378,25 +1578,23 @@ def check_channels(torch, np, card, seed):
     the enhancer end to end at enc_channels (8, 16, 32), (32, 64, 128),
     (16, 32, 40) and (16, 32, 50) at 5 heads and groups against the plain
     path on the card, with launch counts; training taken at (32, 64, 128)
-    and (16, 32, 40) (train states), 48 and 50 (blocks under grad); serving
-    and training refused at (16, 32, 100) in 5 heads and groups and at
-    (16, 32, 144). Random weights from `seed`. Returns (kernel cases by
-    kernel, launches by kernel)."""
+    and (16, 32, 40) (train states), 48 and 50 (blocks under grad);
+    training refused (and serving taken: their layouts fit 256 channels)
+    at (16, 32, 100) in 5 heads and groups and at (16, 32, 144). Random
+    weights from `seed`. Returns (kernel cases by kernel, launches by
+    kernel)."""
     from lct_gan_tpu_torch.eval import make_enhance
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
     from lct_gan_tpu_torch.ops._build import build_all
-    from lct_gan_tpu_torch.ops.attention import (fused_mhsa, mhsa_reference,
-                                                 pad_attention)
+    from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
     from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
                                                         banded_mhsa_reference)
     from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
-                                           fused_ftf_block, kernel_operands)
-    from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
-                                           grouped_gru_plain, gru_slot,
-                                           gru_kernel_operands, layer_norm)
+                                           fused_ftf_block)
+    from lct_gan_tpu_torch.ops.gru import fused_grouped_gru, grouped_gru_plain
     from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
-    from lct_gan_tpu_torch.ops.padding import head_width, kernel_width
+    from lct_gan_tpu_torch.ops.padding import kernel_width
     from lct_gan_tpu_torch.ops.probe import ex2_rate
     from lct_gan_tpu_torch.train.state import TrainConfig, build_models
     from lct_gan_tpu_torch.train.state import _assemble
@@ -1411,26 +1609,10 @@ def check_channels(torch, np, card, seed):
                "fused_grouped_gru": []}
 
     def tail(N, L, n_valid_min):
-        valid = torch.randint(n_valid_min, L + 1, (N,), generator=g,
-                              device="cuda")
-        pos = torch.arange(L, device="cuda")
-        return torch.where(pos[None, :] < valid[:, None], 0.0,
-                           -1e30).to(torch.float32)
+        return key_tail(torch, g, N, L, n_valid_min)
 
-    def small_case(kernel, C, nh, G, name, mode, fn, plain):
-        out = fn()
-        torch.cuda.synchronize()
-        ref = plain()
-        err = (out - ref).abs().max().item()
-        rel = err / max(ref.abs().max().item(), 1e-30)
-        tol = tol_of(kernel, mode)
-        if not (err <= tol) or not torch.isfinite(out).all():
-            raise AssertionError(f"channels {kernel} {name} C={C} heads={nh} "
-                                 f"groups={G} {mode}: max|diff| {err} > "
-                                 f"{tol}")
-        return {"kernel": kernel, "case": name, "C": C, "num_heads": nh,
-                "gru_groups": G, "mode": mode, "max_abs_err": err,
-                "rel_err": rel}
+    def small_case(*args):
+        return small_kernel_case(torch, "channels", *args)
 
     # Every head count and group count of each width at small N.
     small = []
@@ -1493,131 +1675,10 @@ def check_channels(torch, np, card, seed):
         torch.cuda.empty_cache()
     small_s = time.perf_counter() - t0
 
-    # MAIN_CHANNELS at the main path's shapes, 4 heads and 4 groups. The
-    # padded products count the heads and slots the kernels run at the
-    # kernel width (CK, CA, CG: the block's, the attention's, the GRU's).
-    def head_flops(N, pairs, hd, CA):
-        hdp = head_width(hd)
-        return (N * (CA // hdp) * pairs * hd * 4,
-                N * (CA // hdp) * pairs * 2 * (max(hdp, 16) + max(hdp, 8)))
-
+    # MAIN_CHANNELS at the main path's shapes, 4 heads and 4 groups.
     for C in MAIN_CHANNELS:
-        nh = G = 4
-        hd = C // nh
-        CK = kernel_width(C, nh, G)
-        CA, CG = kernel_width(C, num_heads=nh), kernel_width(C, groups=G)
-        fblk, tblk = seeded_blocks(torch, seed + C, C, nh, G)
-        for name, blk, N, L, lb in (("freq_main", fblk, 16512, 33, None),
-                                    ("time_keybias_lookback16_main", tblk,
-                                     4224, 129, 16)):
-            params = [p.detach().contiguous() for p in blk.kernel_params()]
-            D = 2 if blk.bidirectional else 1
-            x = torch.randn((N, L, C), generator=g, device="cuda")
-            kb = tail(N, L, L - 40) if D == 1 else None
-            rows, lin_in = N * L, params[12].shape[0]
-            pairs_n = band_pairs(L, lb)
-            attn, _ = head_flops(N, pairs_n, hd, C)
-            _, attn_pad = head_flops(N, pairs_n, hd, CK)
-            rest = rows * (2 * C * 3 * C + 2 * C * C + 2 * lin_in * C)
-            rest_pad = rows * CK * CK * (6 + 2 + 2 * lin_in // C)
-            gru = rows * 4 * D * 3 * C * (C // G)
-            gru_pad = rows * 4 * D * 3 * CK * gru_slot(G, CK)
-            extra = (sum(p.numel() for p in params) * 4
-                     + (rows * 4 if kb is not None else 0))
-            exps = N * nh * pairs_n + rows * D * C * 3
-            pad_ms = host_pad_ms(torch, lambda: kernel_operands(
-                [x, *params, kb], nh))
-            for mode in ("bf16", "precise"):
-                kw = dict(bidirectional=D == 2, num_heads=nh, lookback=lb,
-                          precise=mode == "precise")
-
-                def plain(lo, hi):
-                    return ftf_block_reference(
-                        x[lo:hi], *params,
-                        key_bias=None if kb is None else kb[lo:hi], **kw)
-
-                res = width_case(
-                    torch, "fused_ftf_block", name,
-                    lambda: fused_ftf_block(x, *params, key_bias=kb, **kw),
-                    by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
-                    mode, (N, L), rest + gru + attn,
-                    rest_pad + gru_pad + attn_pad, extra, exps, exps_per_s,
-                    nh, G,
-                    lambda: library_or_reason(
-                        torch, lambda: library_attention_ms(
-                            torch, N, L, lb, kb, mode, nh, C)),
-                    C=C, phase="channels",
-                    info=dict(kernel_width=CK, host_pad_ms=pad_ms))
-                results["fused_ftf_block"].append(res)
-            del x, kb
-        aparams = [p.detach().contiguous()
-                   for p in tblk.attn.kernel_params()]
-        for kernel, fn, ref, N, L, lb in (
-                ("fused_mhsa", fused_mhsa, mhsa_reference, 825, 644, None),
-                ("banded_mhsa", banded_mhsa, banded_mhsa_reference, 660, 772,
-                 64)):
-            x = torch.randn((N, L, C), generator=g, device="cuda")
-            kb = tail(N, L, L - 130)
-            rows = N * L
-            pairs_n = band_pairs(L, lb)
-            attn, _ = head_flops(N, pairs_n, hd, C)
-            _, attn_pad = head_flops(N, pairs_n, hd, CA)
-            proj = rows * (2 * C * 3 * C + 2 * C * C)
-            proj_pad = rows * 8 * CA * CA
-            exps = (2 if lb is None else 1) * N * nh * pairs_n
-            extra = sum(p.numel() for p in aparams) * 4 + rows * 4
-            pad_ms = host_pad_ms(torch, lambda: pad_attention(
-                [x, *aparams, kb], nh))
-            for mode in ("bf16", "precise"):
-                kw = dict(num_heads=nh, precise=mode == "precise")
-                if lb is not None:
-                    kw["lookback"] = lb
-                    library = lambda: library_banded_ms(  # noqa: E731
-                        torch, N, L, lb, mode, nh, C)
-                else:
-                    library = lambda: library_or_reason(  # noqa: E731
-                        torch, lambda: library_mha_ms(torch, x, aparams, kb,
-                                                      mode, nh))
-
-                def plain(lo, hi):
-                    return ref(x[lo:hi], *aparams, key_bias=kb[lo:hi], **kw)
-
-                res = width_case(
-                    torch, kernel, f"L{L}_N{N}_keybias" + (
-                        f"_W{lb}" if lb is not None else ""),
-                    lambda: fn(x, *aparams, key_bias=kb, **kw),
-                    by_rows(torch, plain, N, 16 * nh * L * L + 64 * C * L),
-                    mode, (N, L), proj + attn, proj_pad + attn_pad, extra,
-                    exps, exps_per_s, nh, G, library, C=C, phase="channels",
-                    info=dict(kernel_width=CA, host_pad_ms=pad_ms))
-                results[kernel].append(res)
-            del x, kb
-        gparams = [p.detach().contiguous() for p in tblk.kernel_params()[:6]]
-        N, L = 825, 644
-        x = torch.randn((N, L, C), generator=g, device="cuda")
-        rows = N * L
-
-        def gru_fn():
-            return fused_grouped_gru(x, *gparams, bidirectional=False)
-
-        def library():
-            lib_ms, lib_out = library_gru(
-                torch, layer_norm(x, *gparams[:2]), *gparams[2:])
-            return lib_ms, None, (lib_out - gru_fn()).abs().max().item()
-
-        pad_ms = host_pad_ms(torch, lambda: gru_kernel_operands(
-            [x, *gparams]))
-        res = width_case(
-            torch, "fused_grouped_gru", f"L{L}", gru_fn,
-            lambda: grouped_gru_plain(x, *gparams, False), "precise", (N, L),
-            rows * 4 * 3 * C * (C // G),
-            rows * 4 * 3 * CG * gru_kernel_slot(C, G),
-            sum(p.numel() for p in gparams) * 4, rows * C * 3, exps_per_s,
-            nh, G, library, C=C, phase="channels",
-            info=dict(kernel_width=CG, host_pad_ms=pad_ms))
-        results["fused_grouped_gru"].append(res)
-        del x, fblk, tblk
-        torch.cuda.empty_cache()
+        main_shape_cases(torch, g, seed, C, 4, 4, exps_per_s, results,
+                         "channels")
     main_s = time.perf_counter() - t0 - small_s
 
     # The enhancer end to end at other widths, each call against the plain
@@ -1689,13 +1750,13 @@ def check_channels(torch, np, card, seed):
         del enhancer, enhance, x, ln, out, mask, ref_wave, ref_mask
         torch.cuda.empty_cache()
 
-    # Training at other widths is taken on the card since the backward
-    # takes every width the forward does: train states at C = 128 and 40,
-    # blocks under grad at C = 48 and 50 (5 heads and groups; their forward
-    # launch: the backward runs in the train_channels phase). Serving and
-    # training are refused before the card where the padded layout passes
-    # 128 channels: (16, 32, 100) at 5 heads and groups (160) and (16, 32,
-    # 144) (256).
+    # Training at other widths is taken on the card up to the backward's
+    # widest kernel width: train states at C = 128 and 40, blocks under grad
+    # at C = 48 and 50 (5 heads and groups; their forward launch: the
+    # backward runs in the train_channels phase). Training is refused
+    # before the card where the padded layout passes 128 channels, and
+    # serving taken there (up to 256: the width256 phase runs them):
+    # (16, 32, 100) at 5 heads and groups (160) and (16, 32, 144) (256).
     accepted, refused = [], []
     cfg = TrainConfig()
     _, mpd, msd = build_models(cfg)
@@ -1720,13 +1781,13 @@ def check_channels(torch, np, card, seed):
         del out, params, blk
     for enc, nh, need in (((16, 32, 100), 5, 160), ((16, 32, 144), 4, 256)):
         names = ("enc_channels", "--num_heads", "--gru_groups",
-                 f"needs {need} channels")
+                 f"needs {need} channels", "fits 128 channels")
+        make_enhance(enhancer_at(enc, None, nh, nh))
+        accepted.append(f"serve {enc}, {nh} heads and groups")
         for what, act in (
-                ("serve", lambda: make_enhance(enhancer_at(enc, None, nh,
-                                                           nh))),
                 ("train state", lambda: _assemble(
                     cfg, enhancer_at(enc, None, nh, nh).cpu(), mpd, msd,
-                    "cuda"))):
+                    "cuda")),):
             fused_ftf_block.launches = 0
             try:
                 act()
@@ -1745,6 +1806,286 @@ def check_channels(torch, np, card, seed):
     emit({"phase": "channels", "small_cases": len(small),
           "small_cases_s": small_s, "main_cases_s": main_s,
           "build_seconds": build_s, "seconds": time.perf_counter() - t0})
+    return results, launches
+
+
+# Kernel width 256: at C = 256 (heads, groups) pairs that run each GRU slot
+# width of the kernels (16, 32 packed into 64, 64, 128, the cluster's 256)
+# and each padded head width (8 .. 256) once, the three padded layouts
+# that run at 256, and the main path's pairs.
+W256_PAIRS = ((1, 16), (2, 8), (4, 4), (8, 2), (16, 1), (32, 32), (64, 64))
+W256_PADDED = ((100, 5, 5), (120, 3, 3), (144, 4, 4))
+W256_MAIN = ((4, 4), (1, 1))
+W256_ENC = (64, 128, 256)
+
+
+def small_kernel_case(torch, phase, kernel, C, nh, G, name, mode, fn, plain):
+    """One kernel call against its plain version on the same inputs on the
+    card: raises unless max|diff| is within the kernel's tolerance and the
+    output finite; returns the case's record."""
+    out = fn()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (out - ref).abs().max().item()
+    rel = err / max(ref.abs().max().item(), 1e-30)
+    tol = tol_of(kernel, mode)
+    if not (err <= tol) or not torch.isfinite(out).all():
+        raise AssertionError(f"{phase} {kernel} {name} C={C} heads={nh} "
+                             f"groups={G} {mode}: max|diff| {err} > {tol}")
+    return {"kernel": kernel, "case": name, "C": C, "num_heads": nh,
+            "gru_groups": G, "mode": mode, "max_abs_err": err,
+            "rel_err": rel}
+
+
+def build_usage(width):
+    """{kernel: registers and spill bytes} of kernel width `width`'s
+    libraries from this process's verbose build (ops/_build.py::
+    BUILD_LOGS), demangled; empty where they were built before."""
+    from lct_gan_tpu_torch.ops import _build
+    from lct_gan_tpu_torch.ptxas_report import instance_names
+
+    now = {}
+    for (_, w), log in _build.BUILD_LOGS.items():
+        if w == width:
+            now.update(_build.ptxas_usage(log))
+    names = instance_names(now) if now else {}
+    return {names[k]: v for k, v in now.items()}
+
+
+def check_width256(torch, np, card, seed):
+    """Serving at kernel width 256 (bottleneck layouts of 129 to 256
+    channels): the four forward kernels against their plain versions on
+    the card at small N, both modes (the composed GRU f32), at C = 256 in
+    W256_PAIRS (every GRU slot width, the group of 256 through the
+    thread-block-cluster kernel, and every head width) and at the padded
+    layouts W256_PADDED; then at the main path's shapes for (256, 4, 4)
+    and (256, 1, 1), timed beside the bound, the library call and the
+    padding ms; the enhancer at enc_channels W256_ENC end to end against
+    the plain path on the card, with launch counts: B = 128 x 2 s, one
+    163,840-sample bucket call and a W = 64 banded call at 4 heads and
+    groups, and the bucket call at 1 head and 1 group (its composed GRU the
+    cluster kernel); last, training at kernel width 256 refused by name
+    before any launch, and serving a layout past 256. Random weights from
+    `seed`. Returns (kernel cases by kernel, launches by kernel)."""
+    from lct_gan_tpu_torch.eval import make_enhance
+    from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
+                                                    LctEnhancer)
+    from lct_gan_tpu_torch.ops._build import build_all
+    from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
+    from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
+                                                        banded_mhsa_reference)
+    from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
+                                           fused_ftf_block)
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+    from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
+                                           grouped_gru_plain, gru_slot)
+    from lct_gan_tpu_torch.ops.padding import head_width, kernel_width
+    from lct_gan_tpu_torch.ops.probe import ex2_rate
+    from lct_gan_tpu_torch.train.state import (TrainConfig, _assemble,
+                                               build_models)
+
+    t0 = time.perf_counter()
+    build_s = build_all(verbose=True, widths=(256,))
+    usage = build_usage(256)
+    emit({"phase": "width256", "build_seconds": build_s,
+          "instances": len(usage),
+          "spills": {k: v for k, v in usage.items()
+                     if v.get("spill_stores") or v.get("spill_loads")},
+          "registers": {k: v["registers"] for k, v in usage.items()}})
+    g = torch.Generator(device="cuda").manual_seed(seed + 22)
+    results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": [],
+               "fused_grouped_gru": []}
+    launches = {k: 0 for k in ("fused_ftf_block", "fused_mhsa",
+                               "banded_mhsa", "fused_ftf_bwd",
+                               "fused_grouped_gru")}
+    seconds = {"build": build_s}
+
+    t = time.perf_counter()
+    small = []
+    layouts = [(256, nh, G) for nh, G in W256_PAIRS] + list(W256_PADDED)
+    for C, nh, G in layouts:
+        if kernel_width(C, nh, G) != 256:
+            raise AssertionError(f"({C}, {nh}, {G}) is not at width 256")
+        n0 = len(small)
+        fblk, tblk = seeded_blocks(torch, seed + C + nh + G, C, nh, G)
+        for name, blk, N, L, with_kb, lb in (
+                ("freq", fblk, 24, 33, False, None),
+                ("time_keybias", tblk, 8, 129, True, None),
+                ("time_lookback16", tblk, 8, 129, False, 16)):
+            params = [p.detach().contiguous()
+                      for p in blk.kernel_params()]
+            x = torch.randn((N, L, C), generator=g, device="cuda")
+            kb = key_tail(torch, g, N, L, L - 40) if with_kb else None
+            for mode in ("bf16", "precise"):
+                kw = dict(bidirectional=blk.bidirectional, num_heads=nh,
+                          lookback=lb, precise=mode == "precise")
+                small.append(small_kernel_case(
+                    torch, "width256", "fused_ftf_block", C, nh, G, name,
+                    mode,
+                    lambda: fused_ftf_block(x, *params, key_bias=kb,
+                                            **kw),
+                    lambda: ftf_block_reference(x, *params, key_bias=kb,
+                                                **kw)))
+        aparams = [p.detach().contiguous()
+                   for p in tblk.attn.kernel_params()]
+        for kernel, fn, ref, L, lb in (
+                ("fused_mhsa", fused_mhsa, mhsa_reference, 516, None),
+                ("banded_mhsa", banded_mhsa, banded_mhsa_reference, 772,
+                 64)):
+            x = torch.randn((3, L, C), generator=g, device="cuda")
+            kb = key_tail(torch, g, 3, L, L - 130)
+            for mode in ("bf16", "precise"):
+                kw = dict(num_heads=nh, precise=mode == "precise")
+                if lb is not None:
+                    kw["lookback"] = lb
+                small.append(small_kernel_case(
+                    torch, "width256", kernel, C, nh, G, f"L{L}", mode,
+                    lambda: fn(x, *aparams, key_bias=kb, **kw),
+                    lambda: ref(x, *aparams, key_bias=kb, **kw)))
+        gparams = [p.detach().contiguous()
+                   for p in tblk.kernel_params()[:6]]
+        x = torch.randn((5, 516, C), generator=g, device="cuda")
+        small.append(small_kernel_case(
+            torch, "width256", "fused_grouped_gru", C, nh, G, "L516",
+            "precise",
+            lambda: fused_grouped_gru(x, *gparams, bidirectional=False),
+            lambda: grouped_gru_plain(x, *gparams, False)))
+        worst = {}
+        for r in small[n0:]:
+            key = f"{r['kernel']} {r['mode']}"
+            if r["max_abs_err"] >= worst.get(key, {}).get(
+                    "max_abs_err", -1):
+                worst[key] = r
+        emit({"phase": "width256", "C": C, "num_heads": nh,
+              "gru_groups": G, "kernel_width": kernel_width(C, nh, G),
+              "ftf_gru_slot": gru_slot(
+                  256 // head_width(C // G), 256),
+              "head_width": head_width(C // nh),
+              "cases": len(small) - n0,
+              "worst": {k: (v["max_abs_err"], v["rel_err"])
+                        for k, v in worst.items()}, "tol": TOL,
+              "tol_gru": TOL_GRU})
+        del fblk, tblk, x
+        torch.cuda.empty_cache()
+    seconds["small"] = time.perf_counter() - t
+    emit({"phase": "width256", "small_cases": len(small),
+          "seconds": seconds["small"]})
+
+    t = time.perf_counter()
+    exps_per_s = ex2_rate()
+    for nh, G in W256_MAIN:
+        main_shape_cases(torch, g, seed, 256, nh, G, exps_per_s, results,
+                         "width256", profile=True)
+    seconds["main"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(seed + 22)
+    # (heads, groups, max_time_context, B, T, bucketed, launches: FTF,
+    # MHSA, banded, composed GRU)
+    calls = [(4, 4, None, 128, 2 * SR, False, (3, 0, 0, 0)),
+             (4, 4, None, 4, 163840, True, (2, 1, 0, 1)),
+             (4, 4, 64, 4, 196608, True, (2, 0, 1, 1)),
+             (1, 1, None, 4, 163840, True, (2, 1, 0, 1))]
+    for nh, G, mtc, B, T, bucketed, expect in calls:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed + 256 + nh)
+            enhancer = LctEnhancer(gen_cfg=LCTGeneratorConfig(
+                enc_channels=W256_ENC, dec_channels=W256_ENC[::-1],
+                num_heads=nh, gru_groups=G,
+                max_time_context=mtc)).cuda().eval()
+        enhance = make_enhance(enhancer)
+        if bucketed:
+            wave, lens = bucket_batch(np, rng, T, B)
+            ln = torch.from_numpy(lens).cuda()
+        else:
+            wave = (0.1 * rng.standard_normal((B, T))).astype(np.float32)
+            ln = None
+        x = torch.from_numpy(wave).cuda()
+        enhance(x) if ln is None else enhance(x, ln)  # warm-up
+        out, got = run_counted(torch, enhance, x, ln, dict(zip(
+            ("fused_ftf_block", "fused_mhsa", "banded_mhsa",
+             "fused_grouped_gru"), expect)))
+        for k in launches:
+            launches[k] += got[k]
+        if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
+            raise AssertionError(f"width256 enhancer output bad: "
+                                 f"{tuple(out.shape)}")
+        with torch.inference_mode():
+            mask = enhancer(x, ln)[1]
+            with plain_route(torch):
+                ref_wave, ref_mask = enhancer(x, ln)
+        rel = worst_row_rel_l2(torch, out, ref_wave)
+        werr = (out - ref_wave).abs().max().item()
+        merr = (mask - ref_mask).abs().max().item()
+        if not (rel <= TOL_REL_L2 and werr <= TOL_WAVE
+                and merr <= TOL_MASK):
+            raise AssertionError(
+                f"width256 enhancer {nh} heads {G} groups B={B} x {T}: "
+                f"worst row rel L2 {rel} (tol {TOL_REL_L2}), wave {werr} "
+                f"(tol {TOL_WAVE}), mask {merr} (tol {TOL_MASK}) against "
+                "the plain path on the card")
+        call = ((lambda: enhance(x)) if ln is None
+                else (lambda: enhance(x, ln)))
+        emit({"phase": "width256", "workload": f"B={B} x {T} samples" + (
+                  " bucketed" if bucketed else ""),
+              "enc_channels": list(W256_ENC), "num_heads": nh,
+              "gru_groups": G, "kernel_width": 256,
+              "max_time_context": mtc, "seed": seed, "launches": got,
+              "wave_worst_row_rel_l2_vs_plain_on_card": rel,
+              "tol_rel_l2": TOL_REL_L2,
+              "wave_max_abs_err_vs_plain_on_card": werr,
+              "mask_max_abs_err_vs_plain_on_card": merr,
+              "tol_wave": TOL_WAVE, "tol_mask": TOL_MASK,
+              "ms_per_call": cuda_ms(torch, call, 2),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "device": card})
+        del enhancer, enhance, x, ln, out, mask, ref_wave, ref_mask
+        torch.cuda.empty_cache()
+    seconds["enhance"] = time.perf_counter() - t
+
+    refused = []
+    cfg = TrainConfig()
+    _, mpd, msd = build_models(cfg)
+    enc_cfg = LCTGeneratorConfig(enc_channels=W256_ENC,
+                                 dec_channels=W256_ENC[::-1])
+    fblk = seeded_blocks(torch, seed, 256, 4, 4)[0]
+    params = [p.detach().clone().requires_grad_()
+              for p in fblk.kernel_params()]
+    x = torch.randn((4, 33, 256), device="cuda")
+    past = LCTGeneratorConfig(enc_channels=(64, 128, 272),
+                              dec_channels=(272, 128, 64))
+    for what, act, names in (
+            ("train state (64, 128, 256)",
+             lambda: _assemble(cfg, LctEnhancer(gen_cfg=enc_cfg), mpd,
+                               msd, "cuda"),
+             ("enc_channels[-1]=256", "fits 128 channels",
+              "needs 256 channels")),
+            ("fused_ftf_block under grad, C = 256",
+             lambda: fused_ftf_block(x, *params, bidirectional=True,
+                                     num_heads=4),
+             ("C=256", "fits 128 channels", "enc_channels")),
+            ("serve (64, 128, 272)",
+             lambda: make_enhance(LctEnhancer(gen_cfg=past).cuda()),
+             ("enc_channels[-1]=272", "fits 256 channels",
+              "needs 512 channels"))):
+        fused_ftf_block.launches = fused_ftf_bwd.launches = 0
+        try:
+            act()
+        except ValueError as exc:
+            if not all(n in str(exc) for n in names):
+                raise
+            refused.append((what, str(exc)))
+        else:
+            raise AssertionError(f"{what} was taken on the card")
+        torch.cuda.synchronize()
+        if fused_ftf_block.launches or fused_ftf_bwd.launches:
+            raise AssertionError(f"{what}: a launch before the refusal")
+    emit({"phase": "width256", "refused": refused})
+    del fblk, params, x
+    torch.cuda.empty_cache()
+
+    emit({"phase": "width256", "seconds": time.perf_counter() - t0,
+          "steps_s": seconds})
     return results, launches
 
 
@@ -2410,15 +2751,15 @@ def check_train_channels(torch, np, card, seed):
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
     from lct_gan_tpu_torch.ops._build import build_all
-    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
+    from lct_gan_tpu_torch.ops.library import BACKWARD_WIDTHS
     from lct_gan_tpu_torch.ops.probe import ex2_rate
     from lct_gan_tpu_torch.train import TrainConfig, make_train_step
     from lct_gan_tpu_torch.train.state import _assemble, build_models
 
     t0 = time.perf_counter()
-    build_s = build_all(verbose=True, widths=KERNEL_WIDTHS, backward=True)
+    build_s = build_all(verbose=True, widths=BACKWARD_WIDTHS, backward=True)
     emit({"phase": "train_channels", "backward_build_seconds": build_s,
-          "kernel_widths": list(KERNEL_WIDTHS), "device": card})
+          "kernel_widths": list(BACKWARD_WIDTHS), "device": card})
     exps_per_s = ex2_rate()
 
     def exp_floor_ms(n_exps):
@@ -3350,14 +3691,8 @@ def ptxas_c64():
     those whose counts differ. Empty where the libraries were built before
     this run."""
     from lct_gan_tpu_torch.ops import _build
-    from lct_gan_tpu_torch.ptxas_report import instance_names
 
-    now = {}
-    for (_, width), log in _build.BUILD_LOGS.items():
-        if width == _build.DEFAULT_C:
-            now.update(_build.ptxas_usage(log))
-    plain = instance_names(now) if now else {}
-    now = {plain[k]: v for k, v in now.items()}
+    now = build_usage(_build.DEFAULT_C)
     with open(PTXAS_REFERENCE, encoding="utf-8") as f:
         ref = json.load(f)["kernels"]
     changed = {k: {"reference": ref.get(k), "now": now.get(k)}
@@ -3388,7 +3723,7 @@ def main():
     sys.path.insert(0, ROOT)
     from lct_gan_tpu_torch.convert import load_enhancer
     from lct_gan_tpu_torch.ops._build import build_all
-    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
+    from lct_gan_tpu_torch.ops.library import BACKWARD_WIDTHS, KERNEL_WIDTHS
     from lct_gan_tpu_torch.utils import (disable_tf32,
                                          gpu_name_and_power_limit)
 
@@ -3400,13 +3735,15 @@ def main():
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # Every kernel width's libraries, the backward's too, in one parallel
-    # batch (the channels and train_channels phases then find them built),
-    # and the width 64 instances' registers and spills against the
-    # reference's.
-    build_s = build_all(verbose=True, widths=KERNEL_WIDTHS, backward=True)
+    # Every kernel width's libraries, the backward's too (up to 128), in one
+    # parallel batch (the channels, width256 and train_channels phases then
+    # find them built), and the width 64 instances' registers and spills
+    # against the reference's.
+    build_s = build_all(verbose=True, widths=KERNEL_WIDTHS,
+                        backward=BACKWARD_WIDTHS)
     emit({"phase": "build", "seconds": build_s,
-          "kernel_widths": list(KERNEL_WIDTHS)})
+          "kernel_widths": list(KERNEL_WIDTHS),
+          "backward_widths": list(BACKWARD_WIDTHS)})
     emit({"phase": "build", **ptxas_c64()})
 
     enhancer = load_enhancer(CHECKPOINT, device="cuda")
@@ -3424,6 +3761,10 @@ def main():
     for k, rows in channel_cases.items():
         kernels[k].extend(rows)
     for k, n in channel_launches.items():
+        launches[k] += n
+    # Kept apart: the kernels line's kernel width 256 entries read them.
+    w256_cases, w256_launches = check_width256(torch, np, card, args.seed)
+    for k, n in w256_launches.items():
         launches[k] += n
     for phase in (check_banded, check_stream):
         for k, n in phase(torch, np, card).items():
@@ -3479,6 +3820,33 @@ def main():
                if k in head},
             "case": f"{head['case']} {head['mode']}",
             "cases": kernels[name]})
+    # The kernel width 256 instances (C = 256, 4 heads and groups, at the
+    # main path's shapes), their launches from the width256 phase's
+    # enhancer calls.
+    for name, src, replaces, head_L, head_mode in (
+            ("fused_ftf_block", "lct_gan_tpu_torch/csrc/ftf.cu",
+             "lct_gan_tpu/ops/ftf.py:132", 33, "bf16"),
+            ("fused_mhsa", "lct_gan_tpu_torch/csrc/mhsa.cu",
+             "lct_gan_tpu/ops/attention.py:125", 644, "bf16"),
+            ("banded_mhsa", "lct_gan_tpu_torch/csrc/banded.cu",
+             "lct_gan_tpu/ops/banded_attention.py:109", 772, "bf16"),
+            ("fused_grouped_gru", "lct_gan_tpu_torch/csrc/ftf.cu",
+             "lct_gan_tpu/ops/gru.py:28", 644, "precise")):
+        head = next(r for r in w256_cases[name]
+                    if r["L"] == head_L and r["mode"] == head_mode
+                    and r["num_heads"] == 4 and r["gru_groups"] == 4)
+        if w256_launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched at kernel "
+                                 "width 256 on the path")
+        summary.append({
+            "name": f"{name} (kernel width 256)", "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": w256_launches[name],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "case": f"{head['case']} {head['mode']}",
+            "cases": w256_cases[name]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "device": card})
     emit({"kernels": summary})

@@ -14,13 +14,18 @@
 //                           projection; q, k, v and the context never leave
 //                           the SM.
 //   W > MAX_REG_W (the band's scores no longer fit in registers), and every
-//   band at C = 128 (in_w, out_w and the key ring pass the 227 KB of shared
-//   memory a block may hold):
+//   band at C = 128 and 256 (in_w, out_w and the key ring pass the 227 KB
+//   of shared memory a block may hold):
 //   qkv_tc_kernel -> qkv bf16 [N*S, 3C], then attn_tc_kernel<1> with the
 //   band (mhsa.cu's kernel: it streams key tiles and skips those outside
-//   the band, for any S).
+//   the band, for any S); at C = 256 mhsa.cu's split design (tc.cuh:
+//   qkv_panel_kernel, attn_head_kernel<1> -> ctx bf16 [N*S, C],
+//   epi_kernel<1>).
 // precise (lct_banded_forward_f32), all f32 on CUDA cores (common.cuh):
-//   proj_kernel -> qkv f32, banded_attn_kernel -> ctx f32, proj_kernel -> out.
+//   proj_kernel -> qkv f32, banded_attn_kernel -> ctx f32, proj_kernel -> out
+//   (at C = 256 heads of 128 and 256 channels take attn_warp_kernel<1> with
+//   the band instead of banded_attn_kernel, whose thread a row would hold 2
+//   HDP floats).
 //
 // Bound on the H100 at C = 64: at the banded time block of the
 // 196,608-sample bucket (N = 20*33 sequences of S = 772, W = 64) the
@@ -740,17 +745,20 @@ cudaError_t launch_banded_f32(const float* qkv, const float* key_bias,
 // null; lookback >= 0; c_true true channels (the rest of each row zero) in
 // num_heads heads, scale their score scale (the f32 rounding of 1 /
 // sqrt(c_true / num_heads)). Scratch: none for lookback <= MAX_REG_W, else
-// qkv bf16 [N*S, 3C]. Returns a cudaError_t.
+// qkv bf16 [N*S, 3C], and at C = 256 ctx bf16 [N*S, C] (else null).
+// Returns a cudaError_t.
 extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
                                        const float* in_b, const float* out_w,
                                        const float* out_b,
                                        const float* key_bias, void* qkv,
-                                       float* out, long long N, int S,
+                                       void* ctx, float* out, long long N,
+                                       int S,
                                        int lookback, int c_true,
                                        int num_heads, float scale,
                                        int device, void* stream) {
   using namespace lct;
-  if (lookback < 0 || N < 0 || S < 0 || !widths_ok(c_true, num_heads, 1))
+  if (lookback < 0 || N < 0 || S < 0 || !widths_ok(c_true, num_heads, 1) ||
+      (C > 128) != (ctx != nullptr))
     return (int)cudaErrorInvalidValue;
   if (N * S == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -776,7 +784,8 @@ extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
     a.lookback = lookback;
     a.hd = hd;
     a.scale2 = scale2;
-    return (int)tc::launch_attn_tc<1>(a, st);
+    return (int)tc::launch_attn_tc<1>(a, st,
+                                      static_cast<__nv_bfloat16*>(ctx));
   }
   if constexpr (C <= 64) {
     const BandedArgs a = {x, in_w, in_b, out_w, out_b, key_bias, out,
@@ -822,7 +831,8 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
 
-  proj_kernel<false><<<(unsigned)rblocks, row_threads(3 * C), 0, st>>>(
+  proj_kernel<false><<<row_grid((unsigned)rblocks, 3 * C),
+                       row_threads(3 * C), 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
       /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -846,14 +856,26 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
         e = launch_banded_f32<64>(qkv, key_bias, ctx, N, S, lookback, hd,
                                   scale, st);
       break;
+#if LCT_C > 128
+    case 128:
+      e = launch_attn_hd<1, 128>(qkv, key_bias, ctx, N, S, lookback, 0, hd,
+                                 scale, st);
+      break;
+    case 256:
+      e = launch_attn_hd<1, 256>(qkv, key_bias, ctx, N, S, lookback, 0, hd,
+                                 scale, st);
+      break;
+#else
     case 128:
       if constexpr (C >= 128)
         e = launch_banded_f32<128>(qkv, key_bias, ctx, N, S, lookback, hd,
                                    scale, st);
       break;
+#endif
   }
   if (e != cudaSuccess) return (int)e;
-  proj_kernel<false><<<(unsigned)rblocks, row_threads(C), 0, st>>>(
+  proj_kernel<false><<<row_grid((unsigned)rblocks, C), row_threads(C), 0,
+                       st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
       /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

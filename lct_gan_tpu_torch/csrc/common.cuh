@@ -4,7 +4,7 @@
 // runs the tensor-core kernels of tc.cuh instead.
 //
 // Widths: the library is built for one kernel width C = LCT_C (16, 32,
-// 64 or 128; -DLCT_C=<C>, ops/_build.py; 64 when unset): the channels a
+// 64, 128 or 256; -DLCT_C=<C>, ops/_build.py; 64 when unset): the channels a
 // row holds in every kernel. The model's true bottleneck width c_true <= C
 // arrives at run time with each launch, and so do the heads and the score
 // scale. The Python wrappers pick C from the true width, the head count
@@ -19,8 +19,11 @@
 // The kernels are templated on a padded head width and take the true one at
 // run time: attention on the head width (8 for any hd <= 8, else 16 .. C),
 // the GRU on its slot width (16: groups of 16 or, packed block-diagonally,
-// narrower; dense slots of C, or of 64 at C = 128: wider groups packed);
-// the Python wrappers check the widths before a launch.
+// narrower; dense slots of C, or of 64 at C = 128, or of 64, 128 or C at
+// C = 256: wider groups packed); the Python wrappers check the widths
+// before a launch. C = 256 serves the forward only (ftf_bwd.cu is not
+// built there), and its wider rows take kernels of their own, each under
+// `C > 128`, so that every instance at C <= 128 is the one it was.
 //
 // Rounding: `round != 0` is the bf16 mode (the backward's). Every GEMM
 // operand is rounded to bf16 (round-to-nearest-even) exactly where the TPU
@@ -47,7 +50,8 @@ __host__ __device__ constexpr int pow2_ceil(int v) {
 
 constexpr int C = LCT_C;  // channels the kernels run at (the kernel width)
 constexpr int ROWS = 32;  // rows per block in the row-GEMM kernels
-static_assert(C == 16 || C == 32 || C == 64 || C == 128, "LCT_C");
+static_assert(C == 16 || C == 32 || C == 64 || C == 128 || C == 256,
+              "LCT_C");
 
 // The width a head of hd true channels runs at (the wrappers pad it there).
 __host__ __device__ constexpr int head_width(int hd) { return pow2_ceil(hd); }
@@ -56,18 +60,19 @@ __host__ __device__ constexpr int head_width(int hd) { return pow2_ceil(hd); }
 // (the true width at run time), else hd itself.
 __host__ __device__ constexpr int head_pad(int hd) { return hd <= 8 ? 8 : hd; }
 
-// The slot width of the GRU kernels for `slots` slots (C / 16, 1, or at
-// C = 128 also 2: slots of 64).
+// The slot width of the GRU kernels for `slots` slots (C / 16, 1, at
+// C >= 128 also C / 64: slots of 64, at C = 256 also 2: slots of 128).
 inline int gru_slot(int slots) { return C / slots; }
 
 // c_true channels (at most C) in num_heads heads, whose padded heads fit
-// C; the GRU weights come in C / 16 slots of 16, 1 of C, or at C = 128 2
-// of 64.
+// C; the GRU weights come in C / 16 slots of 16, 1 of C, at C >= 128 C / 64
+// of 64, at C = 256 2 of 128.
 inline bool widths_ok(int c_true, int num_heads, int slots) {
   return c_true > 0 && c_true <= C && num_heads > 0 &&
          c_true % num_heads == 0 &&
          num_heads * head_width(c_true / num_heads) <= C &&
-         (slots == C / 16 || slots == 1 || (C > 64 && slots == C / 64));
+         (slots == C / 16 || slots == 1 || (C > 64 && slots == C / 64) ||
+          (C > 128 && slots == C / 128));
 }
 
 // Channels of a C-wide row a lane of a warp holds (lane + 32 i; lanes past
@@ -114,13 +119,29 @@ __device__ __forceinline__ void ln_row(float (&v)[CPL], const float (&s)[CPL],
   for (int i = 0; i < CPL; ++i) v[i] = (v[i] - mu) * rs * s[i] + b[i];
 }
 
-// Threads of a row-GEMM block of M output columns: whole warps (the
-// LayerNorm above takes a warp a row).
-inline unsigned row_threads(int M) { return (unsigned)((M + 31) / 32 * 32); }
+// Output columns a row-GEMM block takes at most at C = 256 (2 blocks of
+// 768 threads for the 6C = 1,536 columns of two directions' GRU input
+// projection: a block has at most 1,024 threads).
+constexpr int PROJ_COLS = 768;
 
-// C = 128's row GEMMs run up to 6C threads a block: the register budget
-// must allow it.
-#if LCT_C > 64
+// Threads of a row-GEMM block of M output columns: whole warps (the
+// LayerNorm above takes a warp a row), at C = 256 at most PROJ_COLS.
+inline unsigned row_threads(int M) {
+  const unsigned t = (unsigned)((M + 31) / 32 * 32);
+  return C > 128 && t > (unsigned)PROJ_COLS ? (unsigned)PROJ_COLS : t;
+}
+
+// The grid of a row GEMM over `rblocks` tiles of ROWS rows and M output
+// columns: blockIdx.y picks the columns at C = 256 (row_threads).
+inline dim3 row_grid(unsigned rblocks, int M) {
+  return dim3(rblocks, (unsigned)((M + row_threads(M) - 1) / row_threads(M)));
+}
+
+// C = 128's row GEMMs run up to 6C threads a block, C = 256's PROJ_COLS:
+// the register budget must allow it.
+#if LCT_C > 128
+#define LCT_PROJ_BOUNDS __launch_bounds__(PROJ_COLS, 1)
+#elif LCT_C > 64
 #define LCT_PROJ_BOUNDS __launch_bounds__(6 * C, 1)
 #else
 #define LCT_PROJ_BOUNDS
@@ -128,7 +149,8 @@ inline unsigned row_threads(int M) { return (unsigned)((M + 31) / 32 * 32); }
 
 // out[r, c] = sum_k in[r, koff(c) + k] * W(k, c) + bias[c] over ROWS rows
 // per block, one thread per output column c (blockDim.x: M rounded up to
-// whole warps, row_threads).
+// whole warps, row_threads; at C = 256 column blockIdx.y * blockDim.x + the
+// thread, each column block taking the tile's LayerNorm itself).
 //
 // in = x (+ (add0 + add1)), optionally LayerNorm'ed (ln_s != nullptr;
 // fast-variance form max(0, E[x^2] - mu^2) over 1 / inv_c true channels,
@@ -190,7 +212,11 @@ __global__ void LCT_PROJ_BOUNDS proj_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
+#if LCT_C > 128
+  const int c = tid + (int)(blockIdx.y * blockDim.x);
+#else
   const int c = tid;
+#endif
   if (c >= M) return;
   constexpr int K = GROUPED ? GW : C;
   int koff = 0, wstride = M;
@@ -331,23 +357,100 @@ __global__ void attn_kernel(const float* __restrict__ qkv,
   }
 }
 
+// attn_kernel for heads of 128 or 256 channels at C = 256, where a
+// thread's q and context (2 HDP floats) would not fit in registers: one
+// warp a query row, lane l holding channels l + 32 i (HDP / 32 a lane), a
+// score one warp sum. The same function and passes as attn_kernel (MODE 0:
+// max, then p, den and the context; MODE 1: max, den, then the context);
+// K and V rows are read where they lie, each a coalesced row of the warp.
+// Block: (sequence, head), WARP_ROWS warps walking its query rows. Bound:
+// the L^2 hd score and context FMAs on CUDA cores, as attn_kernel.
+constexpr int WARP_ROWS = 8;
+
+template <int MODE, int HDP>
+__global__ void __launch_bounds__(32 * WARP_ROWS)
+    attn_warp_kernel(const float* __restrict__ qkv,
+                     const float* __restrict__ key_bias,
+                     float* __restrict__ ctx, int L, int lookback, int round,
+                     float scale) {
+  constexpr int PL = HDP / 32;  // channels a lane
+  constexpr int nh = C / HDP;
+  const long long n = blockIdx.x / nh;
+  const int h = blockIdx.x % nh, lane = threadIdx.x & 31;
+  const float* base = qkv + (size_t)n * L * (3 * C) + h * HDP + lane;
+  const float* kb = key_bias ? key_bias + (size_t)n * L : nullptr;
+  for (int q = threadIdx.x >> 5; q < L; q += WARP_ROWS) {
+    float qv[PL];
+#pragma unroll
+    for (int i = 0; i < PL; ++i)
+      qv[i] = rnd(base[(size_t)q * 3 * C + 32 * i], round);
+    int k0 = 0, k1 = L - 1;
+    if (lookback >= 0) {
+      k0 = max(0, q - lookback);
+      k1 = q;
+    }
+    auto score = [&](int k) {
+      const float* kr = base + (size_t)k * 3 * C + C;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < PL; ++i) s = fmaf(qv[i], rnd(kr[32 * i], round), s);
+      return warp_sum(s) * scale + (kb ? kb[k] : 0.f);
+    };
+    float m = -INFINITY;
+    for (int k = k0; k <= k1; ++k) m = fmaxf(m, score(k));
+    float acc[PL];
+#pragma unroll
+    for (int i = 0; i < PL; ++i) acc[i] = 0.f;
+    float den = 0.f;
+    auto accumulate = [&](int k, float pr) {
+      const float* vr = base + (size_t)k * 3 * C + 2 * C;
+#pragma unroll
+      for (int i = 0; i < PL; ++i)
+        acc[i] = fmaf(pr, rnd(vr[32 * i], round), acc[i]);
+    };
+    if (MODE == 0) {
+      for (int k = k0; k <= k1; ++k) {
+        const float p = expf(score(k) - m);
+        den += p;
+        accumulate(k, rnd(p, round));
+      }
+      den += 1e-20f;
+    } else {
+      for (int k = k0; k <= k1; ++k) den += expf(score(k) - m);
+      for (int k = k0; k <= k1; ++k)
+        accumulate(k, rnd(expf(score(k) - m) / den, round));
+      den = 1.f;
+    }
+    float* o = ctx + ((size_t)n * L + q) * C + h * HDP + lane;
+#pragma unroll
+    for (int i = 0; i < PL; ++i) o[32 * i] = acc[i] / den;
+  }
+}
+
 template <int MODE, int HDP>
 cudaError_t launch_attn_hd(const float* qkv, const float* key_bias,
                            float* ctx, long long N, int L, int lookback,
                            int round, int hd, float scale, cudaStream_t st) {
-  const size_t smem =
-      HDP <= 16 ? (size_t)(2 * HDP + 1) * L * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<MODE, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+  if constexpr (C > 128 && HDP >= 128) {
+    attn_warp_kernel<MODE, HDP><<<(unsigned)(N * (C / HDP)), 32 * WARP_ROWS,
+                                  0, st>>>(qkv, key_bias, ctx, L, lookback,
+                                           round, scale);
+    return cudaGetLastError();
+  } else {
+    const size_t smem =
+        HDP <= 16 ? (size_t)(2 * HDP + 1) * L * sizeof(float) : 0;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          attn_kernel<MODE, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    int threads = ((L + 31) / 32) * 32;
+    if (threads > 256) threads = 256;
+    attn_kernel<MODE, HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
+        qkv, key_bias, ctx, L, lookback, round, hd, scale);
+    return cudaGetLastError();
   }
-  int threads = ((L + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  attn_kernel<MODE, HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
-      qkv, key_bias, ctx, L, lookback, round, hd, scale);
-  return cudaGetLastError();
 }
 
 // Launch attn_kernel<MODE, head_pad(hd)> for N sequences of length L and
@@ -377,6 +480,11 @@ cudaError_t launch_attn(const float* qkv, const float* key_bias, float* ctx,
     case 128:
       if constexpr (C >= 128)
         return launch_attn_hd<MODE, 128>(qkv, key_bias, ctx, N, L, lookback,
+                                         round, hd, scale, st);
+      break;
+    case 256:
+      if constexpr (C >= 256)
+        return launch_attn_hd<MODE, 256>(qkv, key_bias, ctx, N, L, lookback,
                                          round, hd, scale, st);
       break;
   }

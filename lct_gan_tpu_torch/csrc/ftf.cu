@@ -49,6 +49,8 @@
 // design's own floor is its 1.4-2.0 GB of traffic (0.42-0.58 ms); its
 // attention takes one exp per in-band pair (the max pass needs none).
 
+#include <cooperative_groups.h>
+
 #include "tc.cuh"
 
 namespace lct {
@@ -120,42 +122,56 @@ __global__ void __launch_bounds__(256, 3)
 }
 
 // The same recurrence over dense slots of SW units (wider groups, packed
-// block-diagonally): one slot of C, or at C = 128 two of 64; all f32, or
-// with ROUND the bf16 mode's products (bf16(h) @ bf16(W_hh), f32
-// accumulation; C = 128's bf16 GRU with one slot of 128). A block takes one
-// direction and DS sequences, one thread per (sequence, unit); W_hh of the
-// direction sits in shared memory (48 KB at C = 64, 192 KB at C = SW =
-// 128; read by consecutive units: no bank conflict) and each step's hidden
-// state is traded through a double buffer of shared memory, one barrier a
-// step. Bound: latency, as gru_kernel.
+// block-diagonally): one slot of C, or at C = 128 two of 64, or at C = 256
+// four of 64 or two of 128; all f32, or with ROUND the bf16 mode's
+// products (bf16(h) @ bf16(W_hh), f32 accumulation; the bf16 GRU of C =
+// 128's slot of 128 and of C = 256's slots of 64 and 128). A block takes
+// one direction and DS sequences, one thread per (sequence, unit) of its UW
+// units: all C, or at C = 256 one slot of 128 (blockIdx.z), whose W_hh
+// alone fills the 192 KB that all of C = 128's take; W_hh of those units
+// sits in shared memory (48 KB at C = 64; read by consecutive units: no
+// bank conflict) and each step's hidden state is traded through a double
+// buffer of shared memory, one barrier a step. Bound: latency, as
+// gru_kernel.
 constexpr int DS = 4;  // sequences per block of gru_dense_kernel
+
+// The units a gru_dense_kernel block takes.
+template <int SW>
+__host__ __device__ constexpr int dense_units() {
+  return C > 128 && SW >= 128 ? SW : C;
+}
 
 template <int SW>
 inline size_t gru_dense_smem() {
-  return (size_t)(C * 3 * SW + 2 * DS * C) * sizeof(float);
+  constexpr int UW = dense_units<SW>();
+  return (size_t)(UW * 3 * SW + 2 * DS * UW) * sizeof(float);
 }
 
 template <bool ROUND, int SW>
-__global__ void __launch_bounds__(DS * C)
+__global__ void __launch_bounds__(DS * dense_units<SW>())
     gru_dense_kernel(const float* __restrict__ xp,
                      const float* __restrict__ w_hh,
                      const float* __restrict__ b_hh, float* __restrict__ hid,
                      long long N, int L, int D) {
   constexpr bool ONE = SW == C;  // one slot
+  constexpr int UW = dense_units<SW>();
   extern __shared__ float gsm[];
-  float* wsh = gsm;               // W_hh[d] [C / SW][SW][3 SW]
-  float* hs = gsm + C * 3 * SW;   // h [2][DS][C] (ROUND: rounded)
-  const int d = blockIdx.y, u = threadIdx.x % C, sq = threadIdx.x / C;
+  float* wsh = gsm;                // W_hh of the block's slots [UW / SW][SW][3 SW]
+  float* hs = gsm + UW * 3 * SW;   // h [2][DS][UW] (ROUND: rounded)
+  // u0: the block's first unit; uu the thread's among the block's, u in all
+  const int u0 = UW == C ? 0 : (int)blockIdx.z * UW;
+  const int d = blockIdx.y, uu = threadIdx.x % UW, sq = threadIdx.x / UW;
+  const int u = u0 + uu;
   const int sl = ONE ? 0 : u / SW, j = ONE ? u : u % SW;  // slot, its unit
   const long long n = (long long)blockIdx.x * DS + sq;
   const bool live = n < N;
-  const float* wp = w_hh + (size_t)d * C * (3 * SW);
-  for (int i = threadIdx.x; i < C * 3 * SW; i += blockDim.x)
+  const float* wp = w_hh + (size_t)d * C * (3 * SW) + (size_t)u0 * 3 * SW;
+  for (int i = threadIdx.x; i < UW * 3 * SW; i += blockDim.x)
     wsh[i] = rnd(wp[i], ROUND);
-  hs[sq * C + u] = 0.f;
+  hs[sq * UW + uu] = 0.f;
   const float* bp = b_hh + d * 3 * C + sl * 3 * SW;
   const float br = bp[j], bz = bp[SW + j], bn = bp[2 * SW + j];
-  const float* ws = wsh + sl * SW * 3 * SW;  // the slot's W_hh
+  const float* ws = wsh + (sl - u0 / SW) * SW * 3 * SW;  // the slot's W_hh
   const size_t xstride = (size_t)D * 3 * C;
   const size_t NL = (size_t)N * L;
   __syncthreads();
@@ -163,7 +179,7 @@ __global__ void __launch_bounds__(DS * C)
   float h = 0.f;
   for (int s = 0; s < L; ++s) {
     const int t = d ? L - 1 - s : s;
-    const float* hp = hs + (s & 1) * DS * C + sq * C + sl * SW;
+    const float* hp = hs + (s & 1) * DS * UW + sq * UW + (sl * SW - u0);
     float ar = 0.f, az = 0.f, an = 0.f;
 #pragma unroll 8
     for (int i = 0; i < SW; ++i) {
@@ -181,17 +197,141 @@ __global__ void __launch_bounds__(DS * C)
       h = (1.f - z) * nn + z * h;
       hid[((size_t)d * NL + row) * C + u] = h;
     }
-    hs[((s + 1) & 1) * DS * C + sq * C + u] = rnd(h, ROUND);
+    hs[((s + 1) & 1) * DS * UW + sq * UW + uu] = rnd(h, ROUND);
     __syncthreads();
   }
 }
 
+// The recurrence over one dense slot of C = 256 units (one GRU group of
+// 256), all f32 or with ROUND the bf16 mode's products, over xp from
+// proj_kernel<true, C>. One direction's W_hh is C x 3C f32 = 768 KB, more
+// than the 227 KB of shared memory a block may hold, so a cluster of
+// GC_CL = 8 blocks on neighbouring SMs walks the steps together: block
+// `rank` owns units [32 rank, 32 rank + 32) and keeps their three gate
+// columns of W_hh in registers (96 floats a thread: 256 threads, thread
+// (unit, k-part kq) holding inputs 4 kq + 32 i + e, i < 8, e < 4, so the 8
+// lanes of a unit read neighbouring 16-byte pieces of h: no bank conflict).
+// Each step every block forms its units' r, z, n from the whole h in its
+// own shared memory (partial sums added over a unit's 8 lanes by xor
+// shuffles), lane kq writes the unit's new h into block kq's next h buffer
+// through distributed shared memory, and the cluster crosses one barrier
+// (release / acquire: the writes are visible after it). The h buffers are
+// double-buffered, so one barrier a step is enough: a buffer is written
+// one step after its last reads, with a barrier between. A cluster takes
+// GC_DS sequences and one direction (blockIdx.y). Bound: latency, one
+// cluster barrier and a 32-deep FMA chain a step.
+#if LCT_C > 128
+constexpr int GC_CL = 8;   // blocks of a cluster
+constexpr int GC_DS = 4;   // sequences of a cluster
+
+template <bool ROUND>
+__global__ void __cluster_dims__(GC_CL, 1, 1) __launch_bounds__(256, 1)
+    gru_cluster_kernel(const float* __restrict__ xp,
+                       const float* __restrict__ w_hh,
+                       const float* __restrict__ b_hh, float* __restrict__ hid,
+                       long long N, int L, int D) {
+  namespace cg = cooperative_groups;
+  constexpr int UPC = C / GC_CL;  // units a block: 32
+  constexpr int KQ = 256 / UPC;   // lanes a unit: 8
+  constexpr int KI = C / KQ;      // inputs a lane: 32
+  static_assert(UPC == 32 && KQ == GC_CL && KI % 4 == 0, "cluster GRU");
+  __shared__ __align__(16) float hs[2][GC_DS][C];  // h (ROUND: rounded)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y, kq = threadIdx.x % KQ;
+  const int u = rank * UPC + threadIdx.x / KQ;
+  const long long n0 = (long long)(blockIdx.x / GC_CL) * GC_DS;
+  const float* wp = w_hh + (size_t)d * C * 3 * C + u;
+  float wr[KI], wz[KI], wn[KI];
+#pragma unroll
+  for (int i = 0; i < KI / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t k = (size_t)(4 * kq + 32 * i + e) * 3 * C;
+      wr[4 * i + e] = rnd(wp[k], ROUND);
+      wz[4 * i + e] = rnd(wp[k + C], ROUND);
+      wn[4 * i + e] = rnd(wp[k + 2 * C], ROUND);
+    }
+  const float* bp = b_hh + (size_t)d * 3 * C + u;
+  const float br = bp[0], bz = bp[C], bn = bp[2 * C];
+  for (int i = threadIdx.x; i < 2 * GC_DS * C; i += blockDim.x)
+    (&hs[0][0][0])[i] = 0.f;
+  cluster.sync();  // every block's buffers are zero before any remote write
+
+  const size_t xstride = (size_t)D * 3 * C;
+  const size_t NL = (size_t)N * L;
+  float h[GC_DS];
+#pragma unroll
+  for (int q = 0; q < GC_DS; ++q) h[q] = 0.f;
+  for (int s = 0; s < L; ++s) {
+    const int t = d ? L - 1 - s : s;
+    float xr[GC_DS], xz[GC_DS], xn[GC_DS];
+#pragma unroll
+    for (int q = 0; q < GC_DS; ++q) {
+      xr[q] = xz[q] = xn[q] = 0.f;
+      if (n0 + q < N) {
+        const float* x = xp + ((size_t)(n0 + q) * L + t) * xstride +
+                         (size_t)d * 3 * C + u;
+        xr[q] = x[0];
+        xz[q] = x[C];
+        xn[q] = x[2 * C];
+      }
+    }
+    const float* hb = &hs[s & 1][0][0] + 4 * kq;
+    float ar[GC_DS], az[GC_DS], an[GC_DS];
+#pragma unroll
+    for (int q = 0; q < GC_DS; ++q) ar[q] = az[q] = an[q] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KI / 4; ++i)
+#pragma unroll
+      for (int q = 0; q < GC_DS; ++q) {
+        const float4 hv =
+            *reinterpret_cast<const float4*>(hb + q * C + 32 * i);
+        ar[q] = fmaf(hv.x, wr[4 * i], ar[q]);
+        az[q] = fmaf(hv.x, wz[4 * i], az[q]);
+        an[q] = fmaf(hv.x, wn[4 * i], an[q]);
+        ar[q] = fmaf(hv.y, wr[4 * i + 1], ar[q]);
+        az[q] = fmaf(hv.y, wz[4 * i + 1], az[q]);
+        an[q] = fmaf(hv.y, wn[4 * i + 1], an[q]);
+        ar[q] = fmaf(hv.z, wr[4 * i + 2], ar[q]);
+        az[q] = fmaf(hv.z, wz[4 * i + 2], az[q]);
+        an[q] = fmaf(hv.z, wn[4 * i + 2], an[q]);
+        ar[q] = fmaf(hv.w, wr[4 * i + 3], ar[q]);
+        az[q] = fmaf(hv.w, wz[4 * i + 3], az[q]);
+        an[q] = fmaf(hv.w, wn[4 * i + 3], an[q]);
+      }
+    float* nb = cluster.map_shared_rank(&hs[(s + 1) & 1][0][0], kq);
+#pragma unroll
+    for (int q = 0; q < GC_DS; ++q) {
+#pragma unroll
+      for (int o = 1; o < KQ; o <<= 1) {
+        ar[q] += __shfl_xor_sync(0xffffffffu, ar[q], o);
+        az[q] += __shfl_xor_sync(0xffffffffu, az[q], o);
+        an[q] += __shfl_xor_sync(0xffffffffu, an[q], o);
+      }
+      const float r = sigmoidf_(xr[q] + (ar[q] + br));
+      const float z = sigmoidf_(xz[q] + (az[q] + bz));
+      const float nn = tanhf(xn[q] + r * (an[q] + bn));
+      h[q] = (1.f - z) * nn + z * h[q];
+      nb[q * C + u] = rnd(h[q], ROUND);
+      if (kq == 0 && n0 + q < N)
+        hid[((size_t)d * NL + (size_t)(n0 + q) * L + t) * C + u] = h[q];
+    }
+    cluster.sync();
+  }
+}
+#endif
+
 // a = ctx @ out_w + out_b; comb = [g @ lin_w[:C]] + a @ lin_w[C:] + lin_b
 // (the first term for the frequency block only, lin_in == 2C); out = x + g +
-// LeakyReLU(comb), all f32. One thread per output channel, ROWS rows per
-// block; the register budget keeps 8 blocks resident per SM at C = 64
+// LeakyReLU(comb), all f32. One thread per output channel, OUT_ROWS rows
+// per block; the register budget keeps 8 blocks resident per SM at C = 64
 // (nvcc's own choice, 158 registers, fits 6 and was slower despite no
-// spills), 4 at C = 128 (the same registers a thread).
+// spills), 4 at C = 128 (the same registers a thread), 2 at C = 256, whose
+// blocks take 16 rows: two tiles of 32 rows of 256 floats would pass the 48
+// KB of static shared memory.
+constexpr int OUT_ROWS = C > 128 ? 16 : ROWS;
+
 __global__ void __launch_bounds__(C, C > 64 ? 8 * 64 / C : 8)
     ftf_out_kernel(const float* __restrict__ x, const float* __restrict__ hid,
                    int D, const float* __restrict__ ctx,
@@ -200,12 +340,12 @@ __global__ void __launch_bounds__(C, C > 64 ? 8 * 64 / C : 8)
                    const float* __restrict__ lin_w,
                    const float* __restrict__ lin_b, int lin_in,
                    float* __restrict__ out, long long rows) {
-  __shared__ float gt[ROWS][C];  // g (Linear operand)
-  __shared__ float at[ROWS][C];  // ctx, then a
-  const long long row0 = (long long)blockIdx.x * ROWS;
+  __shared__ float gt[OUT_ROWS][C];  // g (Linear operand)
+  __shared__ float at[OUT_ROWS][C];  // ctx, then a
+  const long long row0 = (long long)blockIdx.x * OUT_ROWS;
   const int c = threadIdx.x;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < OUT_ROWS; ++r) {
     const long long row = row0 + r;
     float g = 0.f, cv = 0.f;
     if (row < rows) {
@@ -219,30 +359,30 @@ __global__ void __launch_bounds__(C, C > 64 ? 8 * 64 / C : 8)
   }
   __syncthreads();
 
-  float acc[ROWS];
+  float acc[OUT_ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < OUT_ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
     const float w = __ldg(out_w + k * C + c);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(at[r][k], w, acc[r]);
+    for (int r = 0; r < OUT_ROWS; ++r) acc[r] = fmaf(at[r][k], w, acc[r]);
   }
   __syncthreads();
   const float ob = out_b[c];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) at[r][c] = acc[r] + ob;
+  for (int r = 0; r < OUT_ROWS; ++r) at[r][c] = acc[r] + ob;
   __syncthreads();
 
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < OUT_ROWS; ++r) acc[r] = 0.f;
   const float* lw_a = lin_w;
   if (lin_in == 2 * C) {
 #pragma unroll 4
     for (int k = 0; k < C; ++k) {
       const float w = __ldg(lin_w + k * C + c);
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(gt[r][k], w, acc[r]);
+      for (int r = 0; r < OUT_ROWS; ++r) acc[r] = fmaf(gt[r][k], w, acc[r]);
     }
     lw_a = lin_w + C * C;
   }
@@ -250,11 +390,11 @@ __global__ void __launch_bounds__(C, C > 64 ? 8 * 64 / C : 8)
   for (int k = 0; k < C; ++k) {
     const float w = __ldg(lw_a + k * C + c);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(at[r][k], w, acc[r]);
+    for (int r = 0; r < OUT_ROWS; ++r) acc[r] = fmaf(at[r][k], w, acc[r]);
   }
   const float lb = lin_b[c];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < OUT_ROWS; ++r) {
     const long long row = row0 + r;
     if (row < rows) {
       float comb = acc[r] + lb;
@@ -288,9 +428,10 @@ struct GruArgs {
 };
 
 // Whether gru_tc_kernel<KS> takes one direction a block (dense slots at
-// C = 128) rather than all of them.
+// C = 128, and every slot at C = 256, where both directions' 32 warps would
+// pass 1,024 threads) rather than all of them.
 __host__ __device__ constexpr bool split_directions(int KS) {
-  return C > 64 && KS > 1;
+  return C > 128 || (C > 64 && KS > 1);
 }
 
 // Two chunk buffers of LN1 rows, bf16 [2][D][TS][GS][LDS], and for KS > 1
@@ -556,25 +697,40 @@ inline cudaError_t launch_gru_dense(const float* x, const float* ln1_s,
                                     cudaStream_t st) {
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
-  proj_kernel<true, SW><<<rblocks, row_threads(D * 3 * C), 0, st>>>(
+  proj_kernel<true, SW><<<row_grid(rblocks, D * 3 * C),
+                          row_threads(D * 3 * C), 0, st>>>(
       x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
       /*round=*/ROUND ? 1 : 0, inv_c);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t smem = gru_dense_smem<SW>();
-  e = cudaFuncSetAttribute(gru_dense_kernel<ROUND, SW>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  gru_dense_kernel<ROUND, SW>
-      <<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D), DS * C, smem,
-         st>>>(xp, w_hh, b_hh, hid, N, L, D);
-  return cudaGetLastError();
+#if LCT_C > 128
+  if constexpr (SW == C) {
+    // one slot of 256: the cluster kernel
+    gru_cluster_kernel<ROUND>
+        <<<dim3((unsigned)((N + GC_DS - 1) / GC_DS * GC_CL), (unsigned)D),
+           256, 0, st>>>(xp, w_hh, b_hh, hid, N, L, D);
+    return cudaGetLastError();
+  } else
+#endif
+  {
+    constexpr int UW = dense_units<SW>();
+    const size_t smem = gru_dense_smem<SW>();
+    e = cudaFuncSetAttribute(gru_dense_kernel<ROUND, SW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    gru_dense_kernel<ROUND, SW>
+        <<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D,
+                (unsigned)(C / UW)),
+           DS * UW, smem, st>>>(xp, w_hh, b_hh, hid, N, L, D);
+    return cudaGetLastError();
+  }
 }
 
 // LN1's input projection and the recurrence in all-f32 arithmetic, over
 // `slots` GRU slots: xp [N*L, D*3C], hid [D, N*L, C]. ROUND: the bf16
-// mode's rounding points instead (the dense slot of C = 128 only).
+// mode's rounding points instead (the dense slot of C = 128, and C = 256's
+// slots of 64, 128 and 256).
 template <bool ROUND = false>
 inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
                                   const float* ln1_b, const float* w_ih,
@@ -586,7 +742,7 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
   const unsigned threads = row_threads(D * 3 * C);
   if (!ROUND && gru_slot(slots) == 16) {
-    proj_kernel<true, 16><<<rblocks, threads, 0, st>>>(
+    proj_kernel<true, 16><<<row_grid(rblocks, D * 3 * C), threads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
         /*round=*/0, inv_c);
     cudaError_t e = cudaGetLastError();
@@ -596,6 +752,20 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
         xp, w_hh, b_hh, hid, N, L, D);
     return cudaGetLastError();
   }
+#if LCT_C > 128
+  switch (gru_slot(slots)) {
+    case 64:
+      return launch_gru_dense<ROUND, 64>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                                         b_hh, xp, hid, N, L, D, inv_c, st);
+    case 128:
+      return launch_gru_dense<ROUND, 128>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                                          b_hh, xp, hid, N, L, D, inv_c, st);
+    case C:
+      return launch_gru_dense<ROUND, C>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                                        b_hh, xp, hid, N, L, D, inv_c, st);
+  }
+  return cudaErrorInvalidValue;
+#else
   if constexpr (!ROUND && C > 64) {
     if (gru_slot(slots) == 64)
       return launch_gru_dense<false, 64>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
@@ -603,6 +773,7 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
   }
   return launch_gru_dense<ROUND, C>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
                                     xp, hid, N, L, D, inv_c, st);
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -691,7 +862,12 @@ __host__ __device__ constexpr int warps32(int threads) {
   return (threads + 31) / 32 * 32;
 }
 
-// One instance per slot width W (16, 32, 64, 128 = C).
+// One instance per slot width W (16, 32, 64, 128; 128 and 256 = C are
+// the cluster kernel's). A block takes SPB of the SLOTS slots (blockIdx.z
+// picks them): all of them, but at C = 256 one slot of 64 or 128, whose
+// consumers' W_hh would pass the register file (four slots of 64) or the
+// shared memory (two of 128) of one block. LN1 runs over the whole rows in
+// every block.
 template <int W>
 struct Cfg {
   static constexpr bool WSMEM = W > 64;  // W_hh in shared memory
@@ -700,26 +876,36 @@ struct Cfg {
   static constexpr int KP = WSMEM ? W : W < 32 ? W : 32;
   static constexpr int KS = W / KP;
   static constexpr int SLOTS = C / W;
+  static constexpr int SPB = C > 128 && W >= 64 ? 1 : SLOTS;  // slots a block
+  static constexpr int NB = SLOTS / SPB;                        // blocks in z
+  static constexpr int UB = SPB * W;                            // units a block
   static constexpr int W3 = 3 * W;
   static constexpr int TS = WSMEM ? 4 : 16;  // steps a chunk
-  static constexpr int CONS = warps32(C * KS);
+  static constexpr int CONS = warps32(UB * KS);
   // Producers: slots of 16 one unit a thread (its W_ih columns in
   // registers); dense slots one xp column of all TS rows a thread at a
   // time (W_ih read through L1), 96 to 192 threads.
   static constexpr int PT = W == 16 ? warps32(C) : W == 128 ? 128
-                            : 3 * C < 192 ? 3 * C : 192;
+                            : 3 * UB < 192 ? 3 * UB : 192;
   static constexpr int PW = PT / 32;  // producer warps
   static constexpr int THREADS = CONS + PT;
-  // Shared memory, floats: xp ring [2][TS][3C], hidden ring [2][TS][C], x
-  // ring [2][TS][C] (LN1 in place), a zero row (h before the first step),
-  // W_hh of the direction [C][3W] (WSMEM).
-  static constexpr int XP = 2 * TS * 3 * C, HS = 2 * TS * C, XR = 2 * TS * C;
-  static constexpr int WH = WSMEM ? C * W3 : 0;
+  // Shared memory, floats: xp ring [2][TS][3 UB] (the block's slots), hidden
+  // ring [2][TS][C], x ring [2][TS][C] (LN1 in place), a zero row (h before
+  // the first step), W_hh of the block's slot [W][3W] (WSMEM).
+  static constexpr int XP = 2 * TS * 3 * UB, HS = 2 * TS * C, XR = 2 * TS * C;
+  static constexpr int WH = WSMEM ? UB * W3 : 0;
   static constexpr size_t SMEM = (size_t)(XP + HS + XR + C + WH) * 4;
-  static_assert(C % W == 0 && TS % 4 == 0 &&
-                    (W * KS <= 32 || SLOTS <= 2) && SMEM <= 232448,
+  static_assert(C % W == 0 && TS % 4 == 0 && (!WSMEM || SPB == 1) &&
+                    (W * KS <= 32 || SPB <= 2) && SMEM <= 232448,
                 "gru_f32_kernel configuration");
 };
+
+// The first slot of the block (blockIdx.z: 0 where a block takes them all).
+template <int W>
+__device__ __forceinline__ int first_slot() {
+  using K = Cfg<W>;
+  return K::SPB == K::SLOTS ? 0 : (int)blockIdx.z * K::SPB;
+}
 
 struct Args {
   const float* x;  // [N, L, C]
@@ -762,10 +948,10 @@ __device__ __forceinline__ void consume(const Args& a, float* sm, int tid) {
   float* hss = sm + K::XP;
   const float* zr = hss + K::HS + K::XR;
   const float* whs = zr + C;
-  const int d = blockIdx.y, L = a.L;
+  const int d = blockIdx.y, L = a.L, s0 = first_slot<W>();
   const int uu = tid / KS, kq = tid % KS;
-  const bool live = uu < C;        // C = 16: the warp's upper half idles
-  const int u = live ? uu : 0;     // (walking unit 0, storing nothing)
+  const bool live = uu < K::UB;    // C = 16: the warp's upper half idles
+  const int u = (live ? uu : 0) + s0 * W;  // (walking unit 0, storing nothing)
   const int s = u / W, j = u % W;
   constexpr int KP = K::KP, NW = K::WSMEM ? 1 : KP;
   float wr[NW], wz[NW], wn[NW];
@@ -787,12 +973,13 @@ __device__ __forceinline__ void consume(const Args& a, float* sm, int tid) {
   const int nchunks = (L + TS - 1) / TS;
   for (int c = 0; c < nchunks; ++c) {
     const int ns = min(TS, L - c * TS);
-    const float* xpc = xps + (size_t)(c & 1) * TS * 3 * C + s * W3 + j;
+    const float* xpc =
+        xps + (size_t)(c & 1) * TS * 3 * K::UB + (s - s0) * W3 + j;
     float* hsc = hss + (c & 1) * TS * C;
     const float* prev = c == 0 ? zr : hss + ((c - 1) & 1) * TS * C +
                                           (TS - 1) * C;
     for (int st = 0; st < ns; ++st) {
-      const float* xr = xpc + st * 3 * C;
+      const float* xr = xpc + st * 3 * K::UB;
       const float xr0 = xr[0], xz0 = xr[W], xn0 = xr[2 * W];
       float ar0 = 0.f, ar1 = 0.f, az0 = 0.f, az1 = 0.f, an0 = 0.f, an1 = 0.f;
       if constexpr (!K::WSMEM) {
@@ -817,7 +1004,7 @@ __device__ __forceinline__ void consume(const Args& a, float* sm, int tid) {
           an1 = fmaf(hv[q].w, wn[4 * q + 3], an1);
         }
       } else {
-        const float4* hp = reinterpret_cast<const float4*>(prev);
+        const float4* hp = reinterpret_cast<const float4*>(prev + s0 * W);
         const float* wp = whs + j;
 #pragma unroll 2
         for (int q = 0; q < W / 4; ++q) {
@@ -854,7 +1041,7 @@ __device__ __forceinline__ void consume(const Args& a, float* sm, int tid) {
       if constexpr (W * KS <= 32)
         __syncwarp();  // the slot is this warp's
       else
-        named_sync(1 + s, W * KS);
+        named_sync(1 + s - s0, W * KS);
       prev = hsc + st * C;
     }
     __syncthreads();  // chunk c walked; chunk c + 1's xp is in its ring
@@ -868,7 +1055,7 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
   float* xps = sm;
   const float* hss = sm + K::XP;
   float* xrs = sm + K::XP + K::HS;
-  const int d = blockIdx.y, L = a.L;
+  const int d = blockIdx.y, L = a.L, s0 = first_slot<W>();
   const long long n = blockIdx.x;
   const size_t NL = (size_t)a.N * L;
   const int pw = p >> 5, lane = p & 31;
@@ -925,11 +1112,11 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
         if (lane_holds(lane, i)) rows[st * C + lane + 32 * i] = v[i];
     }
   };
-  // xp of chunk cc into xp ring cc & 1: [TS][3C], slot s's columns at
-  // s 3W + gate W + unit.
+  // xp of chunk cc into xp ring cc & 1: [TS][3 UB], the block's slot s's
+  // columns at (s - s0) 3W + gate W + unit.
   auto project = [&](int cc) {
     const float* n1 = xrs + (cc & 1) * TS * C;
-    float* out = xps + (size_t)(cc & 1) * TS * 3 * C;
+    float* out = xps + (size_t)(cc & 1) * TS * 3 * K::UB;
     if constexpr (W == 16) {
       constexpr int RG = 4;  // rows at a time
       if (p >= C) return;
@@ -962,10 +1149,11 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
                 acc[g][rr] + bi[g];
       }
     } else {
-      // Column o = s 3W + gate W + unit of slot s (group s), all TS rows.
+      // Column o = (s - s0) 3W + gate W + unit of slot s (group s), all TS
+      // rows.
 #pragma unroll 1
-      for (int o = p; o < 3 * C; o += PT) {
-        const int s = o / W3;
+      for (int o = p; o < 3 * K::UB; o += PT) {
+        const int s = s0 + o / W3;
         const float* wp =
             a.w_ih + (size_t)(d * K::SLOTS + s) * W * W3 + o % W3;
         const float* nr = n1 + s * W;
@@ -990,18 +1178,20 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
         const float b =
             __ldg(a.b_ih + (size_t)(d * K::SLOTS + s) * W3 + o % W3);
 #pragma unroll
-        for (int r = 0; r < TS; ++r) out[r * 3 * C + o] = acc[r] + b;
+        for (int r = 0; r < TS; ++r) out[r * 3 * K::UB + o] = acc[r] + b;
       }
     }
   };
-  // Chunk cc's hiddens from the hidden ring to hid, 16 bytes a store.
+  // Chunk cc's hiddens of the block's units from the hidden ring to hid,
+  // 16 bytes a store.
   auto store_hid = [&](int cc) {
-    const float* src = hss + (cc & 1) * TS * C;
+    const float* src = hss + (cc & 1) * TS * C + s0 * W;
     const int ns = min(TS, L - cc * TS);
-    for (int i = p; i < ns * C / 4; i += PT) {
-      const int st = i / (C / 4), q = i % (C / 4);
+    for (int i = p; i < ns * K::UB / 4; i += PT) {
+      const int st = i / (K::UB / 4), q = i % (K::UB / 4);
       const size_t row = (size_t)n * L + time_of(cc * TS + st);
-      *reinterpret_cast<float4*>(a.hid + ((size_t)d * NL + row) * C + 4 * q) =
+      *reinterpret_cast<float4*>(a.hid + ((size_t)d * NL + row) * C + s0 * W +
+                                 4 * q) =
           *reinterpret_cast<const float4*>(src + st * C + 4 * q);
     }
   };
@@ -1039,9 +1229,9 @@ __global__ void __launch_bounds__(Cfg<W>::THREADS)
   float* zr = gru_sm + K::XP + K::HS + K::XR;
   for (int i = threadIdx.x; i < C; i += blockDim.x) zr[i] = 0.f;
   if constexpr (K::WSMEM) {
-    // one group: the grouped layout is the slot's
-    const float4* src =
-        reinterpret_cast<const float4*>(a.w_hh + (size_t)blockIdx.y * K::WH);
+    // the block's group: the grouped layout is the slot's
+    const float4* src = reinterpret_cast<const float4*>(
+        a.w_hh + ((size_t)blockIdx.y * K::SLOTS + first_slot<W>()) * K::WH);
     float4* dst = reinterpret_cast<float4*>(zr + C);
     for (int i = threadIdx.x; i < K::WH / 4; i += blockDim.x) dst[i] = src[i];
   }
@@ -1058,14 +1248,15 @@ cudaError_t launch(const Args& a, int D, cudaStream_t st) {
   using K = Cfg<W>;
   cudaError_t e = tc::allow_smem(gru_f32_kernel<W>, K::SMEM);
   if (e != cudaSuccess) return e;
-  gru_f32_kernel<W><<<dim3((unsigned)a.N, (unsigned)D), K::THREADS, K::SMEM,
-                      st>>>(a);
+  gru_f32_kernel<W><<<dim3((unsigned)a.N, (unsigned)D, (unsigned)K::NB),
+                      K::THREADS, K::SMEM, st>>>(a);
   return cudaGetLastError();
 }
 
 // The instance for `groups` groups of H = C / groups units: slots of W =
-// H, or of 16 holding 16 / H groups where H < 16. A template, so that only
-// the instances of the library's C are built.
+// H, or of 16 holding 16 / H groups where H < 16 (one group of 256 is the
+// cluster kernel's, lct_grouped_gru_f32). A template, so that only the
+// instances of the library's C are built.
 template <int CC = C>
 cudaError_t launch_groups(const Args& a, int D, cudaStream_t st) {
   const int H = C / a.G;
@@ -1074,8 +1265,8 @@ cudaError_t launch_groups(const Args& a, int D, cudaStream_t st) {
     if (H == 32) return launch<32>(a, D, st);
   if constexpr (CC >= 64)
     if (H == 64) return launch<64>(a, D, st);
-  if constexpr (CC == 128)
-    if (H == 128) return launch<CC>(a, D, st);
+  if constexpr (CC >= 128)
+    if (H == 128) return launch<128>(a, D, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1098,8 +1289,10 @@ cudaError_t launch_groups(const Args& a, int D, cudaStream_t st) {
 // f32 rounding of 1 / sqrt(c_true / num_heads)). Scratch: hid [D, N*L, C]
 // f32 (the per-direction hiddens, unrounded), qkv bf16 [N*L, 3C], s f32
 // [N*L, C] (x + g), when lin_in == 2C gb bf16 [N*L, C] (bf16(g); else
-// null), for the dense slot at C = 128 xp f32 [N*L, D*3C] (else null).
-// Returns a cudaError_t.
+// null), for the GRU slots on CUDA cores (C = 128's dense slot, C = 256's
+// slots of 64, 128 and 256) xp f32 [N*L, D*3C] (else null), at C = 256 ctx
+// bf16 [N*L, C] (the attention's context, which the split epilogue reads;
+// else null). Returns a cudaError_t.
 extern "C" int lct_ftf_forward_bf16(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -1107,13 +1300,15 @@ extern "C" int lct_ftf_forward_bf16(
     const float* in_w, const float* in_b, const float* out_w,
     const float* out_b, const float* lin_w, const float* lin_b,
     const float* key_bias, float* hid, void* qkv, float* s, void* gb,
-    float* xp, float* out, long long N, int L, int D, int lin_in,
+    float* xp, void* ctx, float* out, long long N, int L, int D, int lin_in,
     int lookback, int c_true, int num_heads, float scale, int slots,
     int device, void* stream) {
   using namespace lct;
   if ((lin_in == 2 * C) != (gb != nullptr) ||
       !widths_ok(c_true, num_heads, slots) ||
-      (C > 64 && slots == 1) != (xp != nullptr))
+      (C > 128 ? gru_slot(slots) != 16 : C > 64 && slots == 1) !=
+          (xp != nullptr) ||
+      (C > 128) != (ctx != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -1128,6 +1323,11 @@ extern "C" int lct_ftf_forward_bf16(
   if (gru_slot(slots) == 16) {
     e = tc::launch_gru_tc<1>(ga, c_true, st);
   } else {
+#if LCT_C > 128
+    // C = 256: slots of 64 and 128 on CUDA cores, 256 the cluster kernel
+    e = launch_gru_f32<true>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh, slots,
+                             xp, hid, N, L, D, inv_c, st);
+#else
     if constexpr (C <= 64) {
       e = tc::launch_gru_tc<C / 16>(ga, c_true, st);
     } else if (gru_slot(slots) == 64) {
@@ -1136,6 +1336,7 @@ extern "C" int lct_ftf_forward_bf16(
       e = launch_gru_f32<true>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
                                slots, xp, hid, N, L, D, inv_c, st);
     }
+#endif
   }
   if (e != cudaSuccess) return (int)e;
   e = tc::launch_qkv({x, hid, D == 2 ? hid + (size_t)rows * C : nullptr,
@@ -1158,7 +1359,8 @@ extern "C" int lct_ftf_forward_bf16(
   a.lin_in = lin_in;
   a.hd = head_width(c_true / num_heads);
   a.scale2 = tc::qk_scale2(scale);
-  return (int)tc::launch_attn_tc<0>(a, st);
+  return (int)tc::launch_attn_tc<0>(a, st,
+                                    static_cast<__nv_bfloat16*>(ctx));
 }
 
 // LN1 and the grouped GRU alone, all f32, in one launch of gru_f32_kernel
@@ -1167,22 +1369,30 @@ extern "C" int lct_ftf_forward_bf16(
 // the GRU weights grouped, w [D, groups, H, 3H], b [D, groups, 3H], H = C /
 // groups a power of two (the caller pads other widths, ops/padding.py), of
 // which c_true channels are true (LN1's count); out hid [D, N*L, C] f32,
-// the per-direction hiddens (the caller sums them). No scratch. Returns a
-// cudaError_t.
+// the per-direction hiddens (the caller sums them). Scratch: for one group
+// of C = 256 xp f32 [N*L, D*3C] (LN1's input projection, which the cluster
+// kernel reads), else null. Returns a cudaError_t.
 extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
                                    const float* ln1_b, const float* w_ih,
                                    const float* w_hh, const float* b_ih,
-                                   const float* b_hh, float* hid,
+                                   const float* b_hh, float* hid, float* xp,
                                    long long N, int L, int D, int groups,
                                    int c_true, int device, void* stream) {
   using namespace lct;
   const int H = groups > 0 ? C / groups : 0;
   if (H < 1 || H * groups != C || (H & (H - 1)) != 0 || N < 0 || L < 1 ||
-      D < 1 || D > 2 || c_true < 1 || c_true > C)
+      D < 1 || D > 2 || c_true < 1 || c_true > C ||
+      (C > 128 && H == C) != (xp != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   if (N == 0) return 0;
+#if LCT_C > 128
+  if (H == C)
+    return (int)launch_gru_dense<false, C>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                                           b_hh, xp, hid, N, L, D,
+                                           1.f / c_true, (cudaStream_t)stream);
+#endif
   const gruf::Args a = {x,    ln1_s, ln1_b, w_ih, w_hh, b_ih,
                         b_hh, hid,   N,     L,    groups, 1.f / c_true};
   return (int)gruf::launch_groups(a, D, (cudaStream_t)stream);
@@ -1213,15 +1423,15 @@ extern "C" int lct_ftf_forward_f32(
   cudaError_t e = launch_gru_f32(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,
                                  slots, xp, hid, N, L, D, inv_c, st);
   if (e != cudaSuccess) return (int)e;
-  proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
+  proj_kernel<false><<<row_grid(rblocks, 3 * C), row_threads(3 * C), 0, st>>>(
       x, hid, D == 2 ? hid + (size_t)rows * C : nullptr, ln2_s, ln2_b, in_w,
       in_b, qkv, rows, 3 * C, /*round=*/0, inv_c);
   LCT_CHECK();
   e = launch_attn<0>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
                      head_width(c_true / num_heads), scale, st);
   if (e != cudaSuccess) return (int)e;
-  ftf_out_kernel<<<rblocks, C, 0, st>>>(x, hid, D, ctx, out_w, out_b, lin_w,
-                                        lin_b, lin_in, out, rows);
+  ftf_out_kernel<<<(unsigned)((rows + OUT_ROWS - 1) / OUT_ROWS), C, 0, st>>>(
+      x, hid, D, ctx, out_w, out_b, lin_w, lin_b, lin_in, out, rows);
   LCT_CHECK();
   return 0;
 }

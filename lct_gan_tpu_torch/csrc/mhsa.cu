@@ -8,6 +8,8 @@
 //   1. qkv_tc_kernel       qkv = bf16(x @ in_w + in_b) -> qkv bf16 [N*L, 3C]
 //   2. attn_tc_kernel<1>   C/hd-head softmax attention, band, key bias, and
 //                          out = ctx @ out_w + out_b  -> out [N*L, C]
+//   At C = 256: qkv_panel_kernel, then attn_head_kernel<1> -> ctx bf16
+//   [N*L, C] and epi_kernel<1> -> out (the split epilogue, tc.cuh).
 // precise (lct_mhsa_forward_f32), all f32 on CUDA cores (common.cuh):
 //   proj_kernel -> qkv f32, attn_kernel<1> -> ctx f32, proj_kernel -> out.
 //
@@ -31,17 +33,18 @@
 // x, out: [N, L, C]; in_w: [C, 3C]; out_w: [C, C]; key_bias: [N, L] or
 // null; lookback < 0 means no band; c_true true channels (the rest of each
 // row zero) in num_heads heads, scale their score scale (the f32 rounding
-// of 1 / sqrt(c_true / num_heads)). Scratch: qkv bf16 [N*L, 3C]. Returns a
-// cudaError_t.
+// of 1 / sqrt(c_true / num_heads)). Scratch: qkv bf16 [N*L, 3C], at C =
+// 256 ctx bf16 [N*L, C] (else null). Returns a cudaError_t.
 extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
                                      const float* in_b, const float* out_w,
                                      const float* out_b,
                                      const float* key_bias, void* qkv,
-                                     float* out, long long N, int L,
+                                     void* ctx, float* out, long long N, int L,
                                      int lookback, int c_true, int num_heads,
                                      float scale, int device, void* stream) {
   using namespace lct;
-  if (!widths_ok(c_true, num_heads, 1)) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(c_true, num_heads, 1) || (C > 128) != (ctx != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -61,7 +64,7 @@ extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
   a.lookback = lookback;
   a.hd = head_width(c_true / num_heads);
   a.scale2 = tc::qk_scale2(scale);
-  return (int)tc::launch_attn_tc<1>(a, st);
+  return (int)tc::launch_attn_tc<1>(a, st, static_cast<__nv_bfloat16*>(ctx));
 }
 
 // The same function in all-f32 arithmetic (precise mode), arguments as
@@ -81,14 +84,14 @@ extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
   const long long rows = N * L;
   const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
 
-  proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
+  proj_kernel<false><<<row_grid(rblocks, 3 * C), row_threads(3 * C), 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,
       /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   e = launch_attn<1>(qkv, key_bias, ctx, N, L, lookback, /*round=*/0,
                      head_width(c_true / num_heads), scale, st);
   if (e != cudaSuccess) return (int)e;
-  proj_kernel<false><<<rblocks, row_threads(C), 0, st>>>(
+  proj_kernel<false><<<row_grid(rblocks, C), row_threads(C), 0, st>>>(
       ctx, nullptr, nullptr, nullptr, nullptr, out_w, out_b, out, rows, C,
       /*round=*/0, /*inv_c=*/0.f);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

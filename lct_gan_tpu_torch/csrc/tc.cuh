@@ -30,7 +30,8 @@ namespace tc {
 constexpr int LDS = C + 8;        // bf16 row stride of a C-column tile
 constexpr int LDW = 3 * C + 8;    // bf16 row stride of in_w [C][3C]
 // log2 of C / 8: the 16-byte pieces of a bf16 row of C channels.
-constexpr int PIECES_LOG2 = C == 16 ? 1 : C == 32 ? 2 : C == 64 ? 3 : 4;
+constexpr int PIECES_LOG2 =
+    C == 16 ? 1 : C == 32 ? 2 : C == 64 ? 3 : C == 128 ? 4 : 5;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -390,6 +391,83 @@ struct ProjArgs {
   float inv_c;            // 1 / the true channel count (the LayerNorm's)
 };
 
+// The LayerNorm's scale and bias of the CPL channels a lane holds (1 and 0
+// without a LayerNorm; 0 and 0 past C).
+__device__ __forceinline__ void ln_params(const ProjArgs& a, int lane,
+                                          float (&ls)[CPL], float (&lb)[CPL]) {
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+    ls[i] = a.ln_s ? (lane_holds(lane, i) ? a.ln_s[lane + 32 * i] : 0.f)
+                   : 1.f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+    lb[i] = a.ln_s ? (lane_holds(lane, i) ? a.ln_b[lane + 32 * i] : 0.f)
+                   : 0.f;
+}
+
+// A warp's 16 rows from row0 of in = x (+ (add0 + add1)), LayerNorm'ed when
+// ln_s != nullptr and rounded to bf16 into its A tile aw [16][LDS], RB rows
+// at a time (every load of a batch issued before the first row's
+// LayerNorm; UNROLL batches unrolled); with `store` it also writes s and
+// bf16(g) (ProjArgs). Every C but 64 (whose qkv_tc_kernel keeps its own
+// two-channels-a-lane statements).
+template <int RB, int UNROLL>
+__device__ __forceinline__ void stage_rows(const ProjArgs& a, long long row0,
+                                           __nv_bfloat16* aw,
+                                           const float (&ls)[CPL],
+                                           const float (&lb)[CPL], int lane,
+                                           bool store) {
+#pragma unroll (UNROLL)
+  for (int r8 = 0; r8 < 16; r8 += RB) {
+    float v[RB][CPL], gv[RB][CPL];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const long long row = row0 + r8 + r;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) v[r][i] = gv[r][i] = 0.f;
+      if (row < a.rows) {
+        const size_t o = (size_t)row * C + lane;
+#pragma unroll
+        for (int i = 0; i < CPL; ++i)
+          if (lane_holds(lane, i)) v[r][i] = a.x[o + 32 * i];
+        if (a.add0) {
+#pragma unroll
+          for (int i = 0; i < CPL; ++i)
+            if (lane_holds(lane, i))
+              gv[r][i] = a.add1 ? (a.add0[o + 32 * i] + a.add1[o + 32 * i])
+                                : a.add0[o + 32 * i];
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) v[r][i] += gv[r][i];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const long long row = row0 + r8 + r;
+      if (store && row < a.rows) {
+        const size_t o = (size_t)row * C + lane;
+        if (a.s_out) {
+#pragma unroll
+          for (int i = 0; i < CPL; ++i)
+            if (lane_holds(lane, i)) a.s_out[o + 32 * i] = v[r][i];
+        }
+        if (a.g_out) {
+#pragma unroll
+          for (int i = 0; i < CPL; ++i)
+            if (lane_holds(lane, i))
+              a.g_out[o + 32 * i] = __float2bfloat16_rn(gv[r][i]);
+        }
+      }
+      if (a.ln_s) ln_row(v[r], ls, lb, a.inv_c);
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        if (lane_holds(lane, i))
+          aw[(r8 + r) * LDS + lane + 32 * i] = __float2bfloat16_rn(v[r][i]);
+    }
+  }
+}
+
+#if LCT_C <= 128
 __global__ void __launch_bounds__(PROJ_THREADS)
     qkv_tc_kernel(ProjArgs a) {
 #if LCT_C > 64
@@ -467,67 +545,11 @@ __global__ void __launch_bounds__(PROJ_THREADS)
 #else
   // Any other C: CPL channels a lane (lane + 32 i), the same steps.
   float ls[CPL], lb[CPL];
-#pragma unroll
-  for (int i = 0; i < CPL; ++i)
-    ls[i] = a.ln_s ? (lane_holds(lane, i) ? a.ln_s[lane + 32 * i] : 0.f)
-                   : 1.f;
-#pragma unroll
-  for (int i = 0; i < CPL; ++i)
-    lb[i] = a.ln_s ? (lane_holds(lane, i) ? a.ln_b[lane + 32 * i] : 0.f)
-                   : 0.f;
+  ln_params(a, lane, ls, lb);
   const long long tiles = (a.rows + 63) / 64;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * 64 + warp * 16;
-    // 8 rows at a time: every load of a batch is issued before the first
-    // row's LayerNorm.
-#pragma unroll
-    for (int r8 = 0; r8 < 16; r8 += 8) {
-      float v[8][CPL], gv[8][CPL];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const long long row = row0 + r8 + r;
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) v[r][i] = gv[r][i] = 0.f;
-        if (row < a.rows) {
-          const size_t o = (size_t)row * C + lane;
-#pragma unroll
-          for (int i = 0; i < CPL; ++i)
-            if (lane_holds(lane, i)) v[r][i] = a.x[o + 32 * i];
-          if (a.add0) {
-#pragma unroll
-            for (int i = 0; i < CPL; ++i)
-              if (lane_holds(lane, i))
-                gv[r][i] = a.add1 ? (a.add0[o + 32 * i] + a.add1[o + 32 * i])
-                                  : a.add0[o + 32 * i];
-#pragma unroll
-            for (int i = 0; i < CPL; ++i) v[r][i] += gv[r][i];
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const long long row = row0 + r8 + r;
-        if (row < a.rows) {
-          const size_t o = (size_t)row * C + lane;
-          if (a.s_out) {
-#pragma unroll
-            for (int i = 0; i < CPL; ++i)
-              if (lane_holds(lane, i)) a.s_out[o + 32 * i] = v[r][i];
-          }
-          if (a.g_out) {
-#pragma unroll
-            for (int i = 0; i < CPL; ++i)
-              if (lane_holds(lane, i))
-                a.g_out[o + 32 * i] = __float2bfloat16_rn(gv[r][i]);
-          }
-        }
-        if (a.ln_s) ln_row(v[r], ls, lb, a.inv_c);
-#pragma unroll
-        for (int i = 0; i < CPL; ++i)
-          if (lane_holds(lane, i))
-            aw[(r8 + r) * LDS + lane + 32 * i] = __float2bfloat16_rn(v[r][i]);
-      }
-    }
+    stage_rows<8, 2>(a, row0, aw, ls, lb, lane, true);
 #endif
     __syncwarp();
     uint32_t af[C / 16][4];
@@ -567,6 +589,75 @@ inline cudaError_t launch_qkv(const ProjArgs& a, cudaStream_t st) {
   qkv_tc_kernel<<<grid, PROJ_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
+#else
+// C = 256: in_w [C, 3C] is 393 KB as bf16, past the 227 KB of shared memory
+// a block may hold, so qkv_panel_kernel stages it in three panels of C
+// output columns (q, k, v: 135 KB each) and takes its rows through each
+// panel in turn, each time with qkv_tc_kernel's LayerNorm and rounding
+// (stage_rows, 4 rows at a time: CPL = 8 channels a lane); s and bf16(g)
+// are written in the first panel. Bound by bytes, as qkv_tc_kernel: x (and
+// the hiddens) are read three times here, once per panel.
+constexpr size_t PANEL_SMEM = sizeof(__nv_bfloat16) * (C * LDS + 64 * LDS);
+
+__global__ void __launch_bounds__(PROJ_THREADS)
+    qkv_panel_kernel(ProjArgs a) {
+  extern __shared__ __align__(16) unsigned char qkv_smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(qkv_smem);  // [C][LDS]
+  __nv_bfloat16* as = ws + C * LDS;                                 // [64][LDS]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  __nv_bfloat16* aw = as + warp * 16 * LDS;
+  float ls[CPL], lb[CPL];
+  ln_params(a, lane, ls, lb);
+  const long long tiles = (a.rows + 63) / 64;
+  for (int p = 0; p < 3; ++p) {
+    __syncthreads();  // the previous panel's products are done
+    for (int i = threadIdx.x; i < C * C; i += blockDim.x)
+      ws[(i / C) * LDS + i % C] = __float2bfloat16_rn(
+          __ldg(a.w + (size_t)(i / C) * (3 * C) + p * C + i % C));
+    __syncthreads();
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const long long row0 = tile * 64 + warp * 16;
+      stage_rows<4, 1>(a, row0, aw, ls, lb, lane, p == 0);
+      __syncwarp();
+      uint32_t af[C / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        load_a(af[kk], aw + kk * 16, LDS, lane);
+#pragma unroll 2
+      for (int np = 0; np < C / 16; ++np) {
+        float acc[2][4];
+        product_16cols(acc, af, ws + np * 16, LDS, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = p * C + np * 16 + j * 8 + 2 * t;
+          const float b0 = __ldg(a.bias + col), b1 = __ldg(a.bias + col + 1);
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const long long row = row0 + g + 8 * rr;
+            if (row < a.rows)
+              *reinterpret_cast<uint32_t*>(a.out + (size_t)row * (3 * C) +
+                                           col) =
+                  pack_bf16(acc[j][2 * rr] + b0, acc[j][2 * rr + 1] + b1);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+inline cudaError_t launch_qkv(const ProjArgs& a, cudaStream_t st) {
+  unsigned grid = 1;
+  cudaError_t e = allow_smem(qkv_panel_kernel, PANEL_SMEM);
+  if (e != cudaSuccess) return e;
+  e = persistent_grid(qkv_panel_kernel, PROJ_THREADS, PANEL_SMEM,
+                      (a.rows + 63) / 64, &grid);
+  if (e != cudaSuccess) return e;
+  qkv_panel_kernel<<<grid, PROJ_THREADS, PANEL_SMEM, st>>>(a);
+  return cudaGetLastError();
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // Multi-head attention (C / hd heads of hd channels) over bf16 qkv [N*L,
@@ -653,11 +744,14 @@ struct AttnShape {
 // rounding of 1 / sqrt of the true head width), taken on the host.
 inline float qk_scale2(float scale) { return scale * LOG2E; }
 
-struct KVTile {
-  __nv_bfloat16 k[AT * LDS];
-  __nv_bfloat16 v[AT * LDS];
+// A key tile: K and V rows of LD bf16, the key bias.
+template <int LD>
+struct KVTileOf {
+  __nv_bfloat16 k[AT * LD];
+  __nv_bfloat16 v[AT * LD];
   float kb[AT];
 };
+using KVTile = KVTileOf<LDS>;
 
 struct AttnArgs {
   const __nv_bfloat16* qkv;  // [N*L, 3C]
@@ -711,35 +805,40 @@ __device__ __forceinline__ Item item_at(long long item, int L, int lb) {
   return it;
 }
 
-template <int QR, int THREADS>
+// An item's Q rows into qs, rows of LD bf16: 2^PL2 16-byte pieces a row
+// from column col0 of the q section (all C channels, or one head's).
+template <int QR, int THREADS, int PL2 = PIECES_LOG2, int LD = LDS>
 __device__ __forceinline__ void load_q(const AttnArgs& a, const Item& it,
-                                       __nv_bfloat16* qs, int tid) {
-  const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C);
-  for (int c = tid; c < QR << PIECES_LOG2; c += THREADS) {
-    const int r = c >> PIECES_LOG2, part = c & ((1 << PIECES_LOG2) - 1);
+                                       __nv_bfloat16* qs, int tid,
+                                       int col0 = 0) {
+  const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C) + col0;
+  for (int c = tid; c < QR << PL2; c += THREADS) {
+    const int r = c >> PL2, part = c & ((1 << PL2) - 1);
     const bool ok = it.q0 + r < a.L;
-    cp_async16(qs + r * LDS + part * 8,
+    cp_async16(qs + r * LD + part * 8,
                base + (size_t)(ok ? it.q0 + r : 0) * (3 * C) + part * 8, ok);
   }
 }
 
 // Load number s of an item: key tile s % nkt into its buffer; V only for
-// pass B (or when the tiles stay resident for both passes).
-template <int THREADS>
+// pass B (or when the tiles stay resident for both passes). The same
+// columns as load_q, of the k and v sections.
+template <int THREADS, int PL2 = PIECES_LOG2, int LD = LDS>
 __device__ __forceinline__ void load_kv(const AttnArgs& a, const Item& it,
-                                        KVTile* kv, int s, int tid) {
+                                        KVTileOf<LD>* kv, int s, int tid,
+                                        int col0 = 0) {
   const int i = s % it.nkt;
-  KVTile& b = kv[it.resident ? i : (s & 1)];
+  KVTileOf<LD>& b = kv[it.resident ? i : (s & 1)];
   const bool with_v = it.resident || s >= it.nkt;
   const int kbase = (it.kt0 + i) * AT;
-  const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C);
-  for (int c = tid; c < AT << PIECES_LOG2; c += THREADS) {
-    const int r = c >> PIECES_LOG2, part = c & ((1 << PIECES_LOG2) - 1);
+  const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C) + col0;
+  for (int c = tid; c < AT << PL2; c += THREADS) {
+    const int r = c >> PL2, part = c & ((1 << PL2) - 1);
     const bool ok = kbase + r < a.L;
     const __nv_bfloat16* src =
         base + (size_t)(ok ? kbase + r : 0) * (3 * C) + C + part * 8;
-    cp_async16(b.k + r * LDS + part * 8, src, ok);
-    if (with_v) cp_async16(b.v + r * LDS + part * 8, src + C, ok);
+    cp_async16(b.k + r * LD + part * 8, src, ok);
+    if (with_v) cp_async16(b.v + r * LD + part * 8, src + C, ok);
   }
   if (tid < AT) {
     const bool ok = a.key_bias != nullptr && kbase + tid < a.L;
@@ -763,62 +862,124 @@ struct HeadShape {
   static constexpr int NHW = HDP >= 16 ? C / HDP : C >= 32 ? 4 : C / 8;
 };
 
+// How attn_tile sees its tiles. attn_tc_kernel (HEAD false): rows of LDS
+// bf16 holding all C channels, NHW heads a call, the context o over all C
+// channels (C / 8 n8 tiles). attn_head_kernel (HEAD true): rows of LD bf16
+// holding one head's KW channels (a head of at most 8: the 16-channel
+// k-step that holds it), one head a call, o over those KW channels.
+template <int HDP, bool HEAD>
+struct TileShape {
+  static constexpr int KW = HDP >= 16 ? HDP : 16;
+  static constexpr int LD = HEAD ? KW + 8 : LDS;
+  static constexpr int NHW = HEAD ? 1 : HeadShape<HDP>::NHW;
+  static constexpr int NO = HEAD ? KW / 8 : C / 8;
+};
+
+// A score fragment (key chunk kc, n8 half j) in log2 units: scale2 times
+// q.k plus the key bias, -inf for keys past L or outside the band unless
+// the chunk is `full`.
+template <bool FULL>
+__device__ __forceinline__ void bias_mask(float (&sj)[4], const float* kb_t,
+                                          unsigned full, int kc, int j,
+                                          int kbase, int L, int lb,
+                                          const int (&rg)[2], int t,
+                                          float scale2) {
+  // key bias of this lane's two score columns, in log2 units
+  const float2 kb = *reinterpret_cast<const float2*>(
+      kb_t + kc * 16 + j * 8 + 2 * t);
+  const float kb0 = kb.x * LOG2E, kb1 = kb.y * LOG2E;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v = fmaf(sj[e], scale2, (e & 1) ? kb1 : kb0);
+    if (!FULL && !((full >> kc) & 1u)) {
+      const int key = kbase + kc * 16 + j * 8 + 2 * t + (e & 1);
+      const int row = rg[e >> 1];
+      const bool ok = key < L && (lb < 0 || (key <= row && key >= row - lb));
+      v = ok ? v : -INFINITY;
+    }
+    sj[e] = v;
+  }
+}
+
 // One key tile for one warp's 16 query rows (Q at qw in shared memory),
-// heads h0 .. h0 + NHW - 1 (h0 = 0 but for HDP = 8). m, l are the warp's
-// running row max and sum of those heads, o its context over all 64
-// channels (C-fragment layout, n8 tile nt = channels 8 nt ..); only they
+// heads h0 .. h0 + NHW - 1 (h0 = 0 but for HDP = 8 or HEAD). m, l are the
+// warp's running row max and sum of those heads, o its context (C-fragment
+// layout, n8 tile nt = channels 8 nt .. of the tile's rows); only they
 // live across tiles, Q fragments and key bias are re-read from shared
 // memory. FULL: all four 16-key chunks are needed and need no mask
 // (`need`, `full`: per-chunk bits). scale2: the score scale in log2 units
-// (AttnArgs).
-template <int MODE, int PASS, bool FULL, int HDP>
+// (AttnArgs). HEAD streams the scores over the head's k-steps (up to 16),
+// one Q and one K fragment at a time.
+template <int MODE, int PASS, bool FULL, int HDP, bool HEAD = false,
+          typename KV>
 __device__ __forceinline__ void attn_tile(
-    const KVTile& b, const __nv_bfloat16* qw, unsigned need, unsigned full,
+    const KV& b, const __nv_bfloat16* qw, unsigned need, unsigned full,
     int kbase, int L, int lb, const int (&rg)[2],
-    float (&m)[HeadShape<HDP>::NHW][2], float (&l)[HeadShape<HDP>::NHW][2],
-    float (&o)[C / 8][4], int lane, int h0, int hd, float scale2) {
-  constexpr int KS = HeadShape<HDP>::KS, NHW = HeadShape<HDP>::NHW;
+    float (&m)[TileShape<HDP, HEAD>::NHW][2],
+    float (&l)[TileShape<HDP, HEAD>::NHW][2],
+    float (&o)[TileShape<HDP, HEAD>::NO][4], int lane, int h0, int hd,
+    float scale2) {
+  constexpr int KS = HeadShape<HDP>::KS, NHW = TileShape<HDP, HEAD>::NHW;
+  constexpr int LD = TileShape<HDP, HEAD>::LD, NO = TileShape<HDP, HEAD>::NO;
   const int t = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < NHW; ++hh) {
     const int h = h0 + hh;
-    // The head's first channel (HDP >= 16), or its 16-channel k-step's.
-    const int col0 = HDP >= 16 ? hh * HDP : ((h * hd) & ~15);
-    uint32_t qa[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      load_a(qa[ks], qw + col0 + ks * 16, LDS, lane);
-    if (HDP == 8) q_mask(qa[0], h, hd, lane);
+    // The head's first channel in the rows (HDP >= 16), or its 16-channel
+    // k-step's.
+    const int col0 = HEAD ? 0 : HDP >= 16 ? hh * HDP : ((h * hd) & ~15);
     float sc[4][2][4];
+    if constexpr (HEAD) {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      if (!FULL && !((need >> kc) & 1u)) continue;
-      uint32_t kf[KS][4];
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[kc][j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4];
+        load_a(qa, qw + ks * 16, LD, lane);
+        if (HDP == 8) q_mask(qa, h, hd, lane);
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+          if (!FULL && !((need >> kc) & 1u)) continue;
+          uint32_t kf[4];
+          load_b_nk(kf, b.k + kc * 16 * LD + ks * 16, LD, lane);
+          mma(sc[kc][0], qa, kf[0], kf[1]);
+          mma(sc[kc][1], qa, kf[2], kf[3]);
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        if (!FULL && !((need >> kc) & 1u)) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          bias_mask<FULL>(sc[kc][j], b.kb, full, kc, j, kbase, L, lb, rg, t,
+                          scale2);
+      }
+    } else {
+      uint32_t qa[KS][4];
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        load_b_nk(kf[ks], b.k + kc * 16 * LDS + col0 + ks * 16, LDS, lane);
+        load_a(qa[ks], qw + col0 + ks * 16, LD, lane);
+      if (HDP == 8) q_mask(qa[0], h, hd, lane);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float* sj = sc[kc][j];
-        sj[0] = sj[1] = sj[2] = sj[3] = 0.f;
+      for (int kc = 0; kc < 4; ++kc) {
+        if (!FULL && !((need >> kc) & 1u)) continue;
+        uint32_t kf[KS][4];
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks)
-          mma(sj, qa[ks], kf[ks][2 * j], kf[ks][2 * j + 1]);
-        // key bias of this lane's two score columns, in log2 units
-        const float2 kb = *reinterpret_cast<const float2*>(
-            b.kb + kc * 16 + j * 8 + 2 * t);
-        const float kb0 = kb.x * LOG2E, kb1 = kb.y * LOG2E;
+          load_b_nk(kf[ks], b.k + kc * 16 * LD + col0 + ks * 16, LD, lane);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float v = fmaf(sj[e], scale2, (e & 1) ? kb1 : kb0);
-          if (!FULL && !((full >> kc) & 1u)) {
-            const int key = kbase + kc * 16 + j * 8 + 2 * t + (e & 1);
-            const int row = rg[e >> 1];
-            const bool ok =
-                key < L && (lb < 0 || (key <= row && key >= row - lb));
-            v = ok ? v : -INFINITY;
-          }
-          sj[e] = v;
+        for (int j = 0; j < 2; ++j) {
+          float* sj = sc[kc][j];
+          sj[0] = sj[1] = sj[2] = sj[3] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            mma(sj, qa[ks], kf[ks][2 * j], kf[ks][2 * j + 1]);
+          bias_mask<FULL>(sc[kc][j], b.kb, full, kc, j, kbase, L, lb, rg, t,
+                          scale2);
         }
       }
     }
@@ -896,21 +1057,22 @@ __device__ __forceinline__ void attn_tile(
         if (HDP >= 16) {
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
-            load_b_kn(vf, b.v + kc * 16 * LDS + col0 + ks * 16, LDS, lane);
+            load_b_kn(vf, b.v + kc * 16 * LD + col0 + ks * 16, LD, lane);
             const int nt = col0 / 8 + 2 * ks;
             mma(o[nt], pa, vf[0], vf[1]);
             mma(o[nt + 1], pa, vf[2], vf[3]);
           }
         } else {
-          // The head's n8 tile of V, the other heads' columns zeroed.
-          load_b_kn(vf, b.v + kc * 16 * LDS + col0, LDS, lane);
-          const int nt = (h * hd) >> 3;
+          // The head's n8 tile of V, the other heads' columns zeroed (its
+          // index in o: of the C channels, or of the k-step for HEAD).
+          load_b_kn(vf, b.v + kc * 16 * LD + col0, LD, lane);
+          const int nt = (h * hd) >> 3, no = HEAD ? nt & 1 : nt;
           const uint32_t vm = v_mask(h, hd, lane);
           const uint32_t v0 = ((nt & 1) ? vf[2] : vf[0]) & vm;
           const uint32_t v1 = ((nt & 1) ? vf[3] : vf[1]) & vm;
 #pragma unroll
-          for (int q = 0; q < C / 8; ++q)
-            if (q == nt) mma(o[q], pa, v0, v1);
+          for (int q = 0; q < NO; ++q)
+            if (q == no) mma(o[q], pa, v0, v1);
         }
       }
       if (MODE == 0) {
@@ -1196,10 +1358,378 @@ cudaError_t launch_attn_tc_hd(const AttnArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// attn_tc_kernel<MODE, head_pad(a.hd)>: instances for the padded widths
-// up to C.
+
+#if LCT_C > 128
+// ---------------------------------------------------------------------------
+// C = 256's attention, in two kernels (the split epilogue). attn_tc_kernel
+// keeps a warp's whole C-channel context in registers and stages out_w and
+// lin_w in shared memory; at C = 256 that is 128 context floats a lane and
+// 405 KB of weights. So here:
+//   attn_head_kernel<MODE, HDP>  the softmax attention of one head a work
+//     item (sequence, 64 query rows, head), its scores streamed over the
+//     head's 16-channel k-steps, writing the context rounded to bf16 (the
+//     contract rounds it as the output projection's operand; MODE 0 after
+//     the division by den + 1e-20) into ctx [N*L, C];
+//   epi_kernel<MODE>  out = ctx @ out_w + out_b (MODE 1), or a = bf16(ctx @
+//     out_w + out_b), comb = [bf16(g) @ lin_w[:C]] + a @ lin_w[lin_in - C:] +
+//     lin_b, out = s + LeakyReLU(comb) (MODE 0), over tiles of 128 rows
+//     with the weights streamed through shared memory in panels of 64
+//     output columns.
+// The scores, the passes over the keys, the band, the key bias and the
+// rounding points are attn_tc_kernel's (attn_tile). Heads of hd <= 8 take
+// the 16-channel k-step that holds them with the other heads' q columns
+// zeroed (q_mask) and write only their own context columns. Every padded
+// head (the wrapper's zero heads) is computed too: its context is 0, which
+// the epilogue reads. Bound: for narrow heads the exps, as attn_tc_kernel;
+// ctx crosses device memory once each way (2 B a channel), which the fused
+// design avoided.
+constexpr int HQR = 64;        // query rows an item
+constexpr int HTHREADS = 128;  // 4 warps of 16 rows
+
+// attn_tile's HEAD tiles: rows of LD bf16, 2^PL2 16-byte pieces a row (KW
+// channels), two K/V tiles and the item's Q rows.
+template <int HDP>
+struct HeadTile {
+  using TS = TileShape<HDP, true>;
+  static constexpr int KW = TS::KW, LD = TS::LD;
+  static constexpr int PL2 =
+      KW == 16 ? 1 : KW == 32 ? 2 : KW == 64 ? 3 : KW == 128 ? 4 : 5;
+  static_assert(KW == 8 << PL2, "KW");
+  using KV = KVTileOf<LD>;
+  static constexpr size_t SMEM =
+      2 * sizeof(KV) + sizeof(__nv_bfloat16) * HQR * LD;
+};
+
+template <int MODE, int HDP>
+__global__ void __launch_bounds__(HTHREADS)
+    attn_head_kernel(AttnArgs a, __nv_bfloat16* __restrict__ ctx) {
+  using HT = HeadTile<HDP>;
+  using KV = typename HT::KV;
+  constexpr int KW = HT::KW, LD = HT::LD, PL2 = HT::PL2;
+  extern __shared__ __align__(16) unsigned char head_smem[];
+  KV* kv = reinterpret_cast<KV*>(head_smem);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(kv + 2);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int L = a.L, lb = a.lookback;
+  const int hd = HDP >= 16 ? HDP : a.hd, nh = C / hd;
+  const long long items = a.N * ((L + HQR - 1) / HQR) * nh;
+  // The head's first channel (HDP >= 16), or its 16-channel k-step's.
+  auto col0_of = [&](int h) { return HDP >= 16 ? h * HDP : (h * hd) & ~15; };
+
+  long long item = blockIdx.x;
+  if (item < items) {
+    const Item first = item_at<HQR>(item / nh, L, lb);
+    const int c0 = col0_of((int)(item % nh));
+    load_q<HQR, HTHREADS, PL2, LD>(a, first, qs, tid, c0);
+    load_kv<HTHREADS, PL2, LD>(a, first, kv, 0, tid, c0);
+    cp_async_commit();
+  }
+  for (; item < items; item += gridDim.x) {
+    const Item it = item_at<HQR>(item / nh, L, lb);
+    const int h = (int)(item % nh), col0 = col0_of(h);
+    const int nload = it.resident ? it.nkt : 2 * it.nkt;
+    const int r0 = it.q0 + warp * 16;
+    const bool active = r0 < L;
+    const int rg[2] = {r0 + g, r0 + g + 8};
+    const int need_lo = lb >= 0 ? r0 - lb : 0;
+    const int need_hi = lb >= 0 ? min(r0 + 15, L - 1) : L - 1;
+    float m[1][2] = {{-INFINITY, -INFINITY}}, l[1][2] = {{0.f, 0.f}};
+    float o[KW / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < KW / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+    const int nsteps = it.nkt == 1 ? 1 : 2 * it.nkt;
+    for (int s = 0; s < nsteps; ++s) {
+      if (s + 1 < nload) {
+        load_kv<HTHREADS, PL2, LD>(a, it, kv, s + 1, tid, col0);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (active) {
+        if (s == it.nkt) {  // between the passes
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (m[0][r] == -INFINITY) m[0][r] = 0.f;
+            if (MODE == 1) {
+              const float tot = quad_sum(l[0][r]);
+              l[0][r] = tot > 0.f ? 1.f / tot : 0.f;
+            }
+          }
+        }
+        const KV& b = kv[it.resident ? (s % it.nkt) : (s & 1)];
+        const int kbase = (it.kt0 + s % it.nkt) * AT;
+        unsigned need = 0u, full = 0u;
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+          const int ks = kbase + kc * 16, ke = ks + 15;
+          if (ke >= need_lo && ks <= need_hi) need |= 1u << kc;
+          if (ke < L && (lb < 0 || (ke <= r0 && ks >= r0 + 15 - lb)))
+            full |= 1u << kc;
+        }
+        const __nv_bfloat16* qw = qs + warp * 16 * LD;
+        const bool fast = need == 0xFu && full == 0xFu;
+#define LCT_HEAD_TILE(PASS)                                                 \
+  (fast ? attn_tile<MODE, PASS, true, HDP, true>(b, qw, need, full, kbase,  \
+                                                 L, lb, rg, m, l, o, lane,  \
+                                                 h, hd, a.scale2)           \
+        : attn_tile<MODE, PASS, false, HDP, true>(b, qw, need, full, kbase, \
+                                                  L, lb, rg, m, l, o, lane, \
+                                                  h, hd, a.scale2))
+        if (it.nkt == 1)
+          LCT_HEAD_TILE(PASS_AB);
+        else if (s >= it.nkt)
+          LCT_HEAD_TILE(PASS_B);
+        else
+          LCT_HEAD_TILE(PASS_A);
+#undef LCT_HEAD_TILE
+      }
+      __syncthreads();  // the buffer is free for the load two steps on
+    }
+    // Q and K/V are free: the next item's first loads run under this
+    // item's stores.
+    if (item + gridDim.x < items) {
+      const long long nx = item + gridDim.x;
+      const Item ni = item_at<HQR>(nx / nh, L, lb);
+      const int c0 = col0_of((int)(nx % nh));
+      load_q<HQR, HTHREADS, PL2, LD>(a, ni, qs, tid, c0);
+      load_kv<HTHREADS, PL2, LD>(a, ni, kv, 0, tid, c0);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    float den[2] = {1.f, 1.f};
+    if (MODE == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) den[r] = quad_sum(l[0][r]) + 1e-20f;
+    }
+    const int lo = HDP >= 16 ? 0 : (h * hd) & 15;  // the head in the window
+    const int hi = HDP >= 16 ? KW : lo + hd;
+#pragma unroll
+    for (int nt = 0; nt < KW / 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rg[r] >= L) continue;
+        __nv_bfloat16* dst = ctx + ((size_t)it.n * L + rg[r]) * C + col0 + col;
+        const float v0 = o[nt][2 * r] / den[r], v1 = o[nt][2 * r + 1] / den[r];
+        if (HDP >= 16) {
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+        } else {
+          if (col >= lo && col < hi) dst[0] = __float2bfloat16_rn(v0);
+          if (col + 1 >= lo && col + 1 < hi) dst[1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+template <int MODE, int HDP>
+cudaError_t launch_attn_head(const AttnArgs& a, __nv_bfloat16* ctx,
+                             cudaStream_t st) {
+  constexpr size_t smem = HeadTile<HDP>::SMEM;
+  cudaError_t e = allow_smem(attn_head_kernel<MODE, HDP>, smem);
+  if (e != cudaSuccess) return e;
+  const int hd = HDP >= 16 ? HDP : a.hd;
+  unsigned grid = 1;
+  e = persistent_grid(attn_head_kernel<MODE, HDP>, HTHREADS, smem,
+                      a.N * ((a.L + HQR - 1) / HQR) * (C / hd), &grid);
+  if (e != cudaSuccess) return e;
+  attn_head_kernel<MODE, HDP><<<grid, HTHREADS, smem, st>>>(a, ctx);
+  return cudaGetLastError();
+}
+
+constexpr int EPI_ROWS = 128;     // rows a tile: 8 warps of 16
+constexpr int EPI_THREADS = 256;
+constexpr int EPI_LDW = 64 + 8;   // bf16 row stride of a weight panel
+
+// Shared memory of epi_kernel<MODE>: for MODE 0 the tile's a [EPI_ROWS]
+// [LDS] (the Linear's operand), then one weight panel [K][EPI_LDW], K the
+// rows of out_w (C) or lin_w (up to 2C).
 template <int MODE>
-cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st) {
+constexpr size_t epi_smem() {
+  return sizeof(__nv_bfloat16) * ((MODE == 0 ? EPI_ROWS * LDS : 0) +
+                                  (MODE == 0 ? 2 * C : C) * EPI_LDW);
+}
+
+// Columns [c0, c0 + 64) of w [K][C] f32 as bf16 [K][EPI_LDW], by the block.
+__device__ __forceinline__ void stage_panel(__nv_bfloat16* wp,
+                                            const float* __restrict__ w,
+                                            int K, int c0) {
+  for (int i = threadIdx.x; i < K * 16; i += blockDim.x) {
+    const int r = i >> 4, q = i & 15;
+    const float4 v =
+        __ldg(reinterpret_cast<const float4*>(w + (size_t)r * C + c0) + q);
+    uint2 pk;
+    pk.x = pack_bf16(v.x, v.y);
+    pk.y = pack_bf16(v.z, v.w);
+    *reinterpret_cast<uint2*>(wp + r * EPI_LDW + 4 * q) = pk;
+  }
+}
+
+// The A fragment of rows r0 .. r0 + 15, channels k0 .. k0 + 15 of a bf16
+// [rows][C] matrix in device memory (rows past the end read the last).
+__device__ __forceinline__ void load_a_rows(uint32_t a[4],
+                                            const __nv_bfloat16* m,
+                                            long long r0, long long rows,
+                                            int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const long long ra = r0 + g < rows ? r0 + g : rows - 1;
+  const long long rb = r0 + g + 8 < rows ? r0 + g + 8 : rows - 1;
+  const unsigned* pa =
+      reinterpret_cast<const unsigned*>(m + (size_t)ra * C + k0 + 2 * t);
+  const unsigned* pb =
+      reinterpret_cast<const unsigned*>(m + (size_t)rb * C + k0 + 2 * t);
+  a[0] = __ldg(pa);
+  a[1] = __ldg(pb);
+  a[2] = __ldg(pa + 4);
+  a[3] = __ldg(pb + 4);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(EPI_THREADS, 1)
+    epi_kernel(AttnArgs a, const __nv_bfloat16* __restrict__ ctx) {
+  extern __shared__ __align__(16) unsigned char epi_smem_raw[];
+  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(epi_smem_raw);
+  __nv_bfloat16* wp = at + (MODE == 0 ? EPI_ROWS * LDS : 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long rows = a.N * a.L;
+  const long long tiles = (rows + EPI_ROWS - 1) / EPI_ROWS;
+  __nv_bfloat16* aw = at + warp * 16 * LDS;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * EPI_ROWS + warp * 16;
+    for (int p = 0; p < C / 64; ++p) {
+      __syncthreads();  // the previous panel's readers are done
+      stage_panel(wp, a.out_w, C, 64 * p);
+      __syncthreads();
+      float acc[8][4] = {};
+#pragma unroll 4
+      for (int kk = 0; kk < C / 16; ++kk) {
+        uint32_t af[4];
+        load_a_rows(af, ctx, r0, rows, kk * 16, lane);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t wf[4];
+          load_b_kn(wf, wp + kk * 16 * EPI_LDW + np * 16, EPI_LDW, lane);
+          mma(acc[2 * np], af, wf[0], wf[1]);
+          mma(acc[2 * np + 1], af, wf[2], wf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = 64 * p + nt * 8 + 2 * t;
+        const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float v0 = acc[nt][2 * r] + b0, v1 = acc[nt][2 * r + 1] + b1;
+          if (MODE == 1) {
+            const long long row = r0 + g + 8 * r;
+            if (row < rows)
+              *reinterpret_cast<float2*>(a.out + (size_t)row * C + col) =
+                  make_float2(v0, v1);
+          } else {
+            *reinterpret_cast<uint32_t*>(aw + (g + 8 * r) * LDS + col) =
+                pack_bf16(v0, v1);
+          }
+        }
+      }
+    }
+    if (MODE == 1) continue;
+    for (int p = 0; p < C / 64; ++p) {
+      __syncthreads();  // a is whole; the previous panel's readers are done
+      stage_panel(wp, a.lin_w, a.lin_in, 64 * p);
+      __syncthreads();
+      float acc[8][4] = {};
+      const __nv_bfloat16* wa = wp;
+      if (a.lin_in == 2 * C) {
+#pragma unroll 4
+        for (int kk = 0; kk < C / 16; ++kk) {
+          uint32_t af[4];
+          load_a_rows(af, a.g, r0, rows, kk * 16, lane);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t wf[4];
+            load_b_kn(wf, wp + kk * 16 * EPI_LDW + np * 16, EPI_LDW, lane);
+            mma(acc[2 * np], af, wf[0], wf[1]);
+            mma(acc[2 * np + 1], af, wf[2], wf[3]);
+          }
+        }
+        wa = wp + C * EPI_LDW;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < C / 16; ++kk) {
+        uint32_t af[4];
+        load_a(af, aw + kk * 16, LDS, lane);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t wf[4];
+          load_b_kn(wf, wa + kk * 16 * EPI_LDW + np * 16, EPI_LDW, lane);
+          mma(acc[2 * np], af, wf[0], wf[1]);
+          mma(acc[2 * np + 1], af, wf[2], wf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = 64 * p + nt * 8 + 2 * t;
+        const float b0 = __ldg(a.lin_b + col), b1 = __ldg(a.lin_b + col + 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long row = r0 + g + 8 * r;
+          if (row >= rows) continue;
+          float c0 = acc[nt][2 * r] + b0, c1 = acc[nt][2 * r + 1] + b1;
+          c0 = c0 >= 0.f ? c0 : 0.2f * c0;
+          c1 = c1 >= 0.f ? c1 : 0.2f * c1;
+          const float2 sv =
+              __ldg(reinterpret_cast<const float2*>(a.s + (size_t)row * C + col));
+          *reinterpret_cast<float2*>(a.out + (size_t)row * C + col) =
+              make_float2(sv.x + c0, sv.y + c1);
+        }
+      }
+    }
+  }
+}
+
+template <int MODE>
+cudaError_t launch_epi(const AttnArgs& a, const __nv_bfloat16* ctx,
+                       cudaStream_t st) {
+  constexpr size_t smem = epi_smem<MODE>();
+  cudaError_t e = allow_smem(epi_kernel<MODE>, smem);
+  if (e != cudaSuccess) return e;
+  unsigned grid = 1;
+  e = persistent_grid(epi_kernel<MODE>, EPI_THREADS, smem,
+                      (a.N * a.L + EPI_ROWS - 1) / EPI_ROWS, &grid);
+  if (e != cudaSuccess) return e;
+  epi_kernel<MODE><<<grid, EPI_THREADS, smem, st>>>(a, ctx);
+  return cudaGetLastError();
+}
+#endif
+
+// attn_tc_kernel<MODE, head_pad(a.hd)>: instances for the padded widths
+// up to C. At C = 256 attn_head_kernel<MODE, head_pad(a.hd)> into ctx bf16
+// [N*L, C] (scratch), then epi_kernel<MODE>; ctx is unused below.
+template <int MODE>
+cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st,
+                           __nv_bfloat16* ctx = nullptr) {
+#if LCT_C > 128
+  if (ctx == nullptr) return cudaErrorInvalidValue;
+  if (a.N * a.L == 0) return cudaSuccess;
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (head_pad(a.hd)) {
+    case 8: e = launch_attn_head<MODE, 8>(a, ctx, st); break;
+    case 16: e = launch_attn_head<MODE, 16>(a, ctx, st); break;
+    case 32: e = launch_attn_head<MODE, 32>(a, ctx, st); break;
+    case 64: e = launch_attn_head<MODE, 64>(a, ctx, st); break;
+    case 128: e = launch_attn_head<MODE, 128>(a, ctx, st); break;
+    case 256: e = launch_attn_head<MODE, 256>(a, ctx, st); break;
+  }
+  if (e != cudaSuccess) return e;
+  return launch_epi<MODE>(a, ctx, st);
+#else
+  (void)ctx;
   switch (head_pad(a.hd)) {
     case 8: return launch_attn_tc_hd<MODE, 8>(a, st);
     case 16: return launch_attn_tc_hd<MODE, 16>(a, st);
@@ -1214,6 +1744,7 @@ cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st) {
       break;
   }
   return cudaErrorInvalidValue;
+#endif
 }
 
 }  // namespace tc

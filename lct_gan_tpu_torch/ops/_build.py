@@ -9,15 +9,16 @@ carries a hash of every file in `csrc/`: a change to any source or header
 rebuilds, an unchanged tree reuses what is there.
 
 One set of libraries a kernel width CK (`ops/library.py::KERNEL_WIDTHS`:
-16, 32, 64, 128), which every bottleneck width whose padded layout needs it
+16, 32, 64, 128, 256), which every bottleneck width whose padded layout needs it
 shares (`ops/padding.py::kernel_width`; the true width, the heads and the
 score scale are arguments of each launch): CK = 64, the default, builds
 every source as it always has (`lib<name>-<hash>.so`); any other CK builds
 with -DLCT_C=<CK> into `lib<name>-c<CK>-<hash>.so` the forward sources
 (`FORWARD_SOURCES`) at its first use, and the FTF backward's
 (`BACKWARD_SOURCES`) at its first backward, so serving alone never builds
-the backward. All sources of all the widths asked for build in one parallel
-batch, one nvcc process each.
+the backward; CK = 256 has no backward (`BACKWARD_WIDTHS`: 16 .. 128). All
+sources of all the widths asked for build in one parallel batch, one nvcc
+process each.
 """
 
 from __future__ import annotations
@@ -84,12 +85,16 @@ def _sources():
 def library_sources(C: int = DEFAULT_C, backward: bool = False) -> List[str]:
     """The csrc/*.cu sources of kernel width C's libraries: all of them at
     the default width, the forward ones at any other, with `backward` also
-    the FTF backward's."""
-    from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS
+    the FTF backward's (raises at a width it is not built for)."""
+    from lct_gan_tpu_torch.ops.library import BACKWARD_WIDTHS, KERNEL_WIDTHS
 
     if C not in KERNEL_WIDTHS:
         raise ValueError(f"no CUDA libraries for kernel width C={C}: they "
                          f"are built for {KERNEL_WIDTHS}")
+    if backward and C not in BACKWARD_WIDTHS:
+        raise ValueError(f"no FTF backward library (csrc/ftf_bwd.cu) for "
+                         f"kernel width C={C}: it is built for "
+                         f"{BACKWARD_WIDTHS}")
     names = _sources()
     wanted = FORWARD_SOURCES + (BACKWARD_SOURCES if backward else ())
     return names if C == DEFAULT_C else [n for n in names if n in wanted]
@@ -115,17 +120,21 @@ def build_command(name: str, C: int, out: str, nvcc: str = "nvcc",
 
 def build_all(verbose: bool = False,
               widths: Iterable[int] = (DEFAULT_C,),
-              backward: bool = False) -> float:
+              backward=False) -> float:
     """Build (if needed) and load the libraries of every kernel width in
-    `widths` (default: 64's, every csrc/*.cu; with `backward` every width's
-    FTF backward too), all in one parallel batch. Returns the seconds spent;
-    raises with nvcc's stderr when a build fails. With `verbose` nvcc
-    reports each kernel's registers and spills (-Xptxas -v): printed to
-    stderr and kept in BUILD_LOGS[(name, width)]."""
+    `widths` (default: 64's, every csrc/*.cu) and the FTF backward's of
+    `backward`'s widths (True: every width in `widths`; a tuple of widths),
+    all in one parallel batch. Returns the seconds spent; raises with nvcc's
+    stderr when a build fails, and by name for a backward width it is not
+    built for. With `verbose` nvcc reports each kernel's registers and
+    spills (-Xptxas -v): printed to stderr and kept in
+    BUILD_LOGS[(name, width)]."""
+    widths = tuple(dict.fromkeys(widths))
+    bwd = set(widths if backward is True else backward or ())
     with _lock:
         t0 = time.perf_counter()
-        todo = [(n, C) for C in dict.fromkeys(widths)
-                for n in library_sources(C, backward) if (n, C) not in _libs]
+        todo = [(n, C) for C in dict.fromkeys(widths + tuple(sorted(bwd)))
+                for n in library_sources(C, C in bwd) if (n, C) not in _libs]
         if not todo:
             return 0.0
         tag = _source_hash()

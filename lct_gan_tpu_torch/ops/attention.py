@@ -114,10 +114,12 @@ def kernel_design(precise: bool) -> str:
 def mhsa_scratch(rows: int, precise: bool, C: int = 64):
     """(name, shape, dtype) of each scratch tensor the kernels of one mode
     write, in the C entry point's order: q, k, v as bf16 (the contract
-    rounds them; the context never leaves the kernel), or, precise, qkv
-    and the context in f32 (C channels, any head count)."""
+    rounds them; the context never leaves the kernel, but at C = 256, whose
+    split epilogue reads it as bf16), or, precise, qkv and the context in
+    f32 (C channels, any head count)."""
     if not precise:
-        return [("qkv", (rows, 3 * C), torch.bfloat16)]
+        return [("qkv", (rows, 3 * C), torch.bfloat16)] + (
+            [("ctx", (rows, C), torch.bfloat16)] if C > 128 else [])
     return [("qkv", (rows, 3 * C), torch.float32),
             ("ctx", (rows, C), torch.float32)]
 
@@ -129,10 +131,10 @@ _P = ctypes.c_void_p
 ATTN_WIDTHS = [ctypes.c_int, ctypes.c_int, ctypes.c_float]
 BLOCK_WIDTHS = ATTN_WIDTHS + [ctypes.c_int]
 # lct_mhsa_forward_bf16 / _f32: 6 inputs (key_bias may be null), the
-# scratch tensors of mhsa_scratch, out; N; L, lookback; the widths; device;
-# stream.
+# scratch tensors of mhsa_scratch (bf16: qkv and ctx, null below kernel
+# width 256), out; N; L, lookback; the widths; device; stream.
 _MHSA_ARGTYPES = {
-    precise: [_P] * (9 if precise else 8) + [ctypes.c_longlong]
+    precise: [_P] * 9 + [ctypes.c_longlong]
     + [ctypes.c_int] * 2 + ATTN_WIDTHS + [ctypes.c_int, _P]
     for precise in (False, True)}
 
@@ -206,11 +208,13 @@ def _mhsa_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
     EK = ops[0].shape[-1]
     scratch = [torch.empty(shape, device=dev, dtype=dtype)
                for _, shape, dtype in mhsa_scratch(N * L, precise, EK)]
+    slots = [t.data_ptr() for t in scratch]
+    slots += [None] * (2 - len(slots))  # bf16 below 256: no ctx
     out = torch.empty((N, L, EK), device=dev, dtype=torch.float32)
     entry = "lct_mhsa_forward_f32" if precise else "lct_mhsa_forward_bf16"
     fn = kernel_function("mhsa", entry, _MHSA_ARGTYPES[precise], EK)
     err = fn(*(None if t is None else t.data_ptr() for t in ops),
-             *(t.data_ptr() for t in scratch), out.data_ptr(), N, L,
+             *slots, out.data_ptr(), N, L,
              -1 if lookback is None else lookback, E, num_heads,
              padding.score_scale(E // num_heads),
              dev.index if dev.index is not None else torch.cuda.current_device(),

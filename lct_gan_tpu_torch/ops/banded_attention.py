@@ -10,8 +10,8 @@ On a CUDA tensor it launches the
 hand-written kernels of `csrc/banded.cu` (their bound on the H100 and what
 each mode's design does about it are noted there): bf16 mode one fused
 tensor-core pass for bands whose scores fit in registers (the library's
-`lct_banded_max_register_lookback` keys back; none at a kernel width of
-128), and
+`lct_banded_max_register_lookback` keys back; none at kernel widths of
+128 and 256), and
 the MHSA kernel's tensor-core design with the band above that; precise
 mode three all-f32
 CUDA-core kernels. On a CPU tensor it computes
@@ -134,23 +134,28 @@ def banded_scratch(rows: int, precise: bool, in_registers: bool = True,
     """(name, shape, dtype) of each scratch tensor the kernels of one mode
     write, in the C entry point's order: none for bf16 when the band's
     scores fit in registers (q, k, v and the context stay on the SM), q, k,
-    v as bf16 for a wider band (`in_registers` false), and, precise, qkv and
-    the context in f32 (C channels, any head count)."""
+    v as bf16 for a wider band (`in_registers` false; every band at C >=
+    128) and at C = 256 the context as bf16 (the split epilogue reads it),
+    and, precise, qkv and the context in f32 (C channels, any head
+    count)."""
     if precise:
         return [("qkv", (rows, 3 * C), torch.float32),
                 ("ctx", (rows, C), torch.float32)]
-    return [] if in_registers else [("qkv", (rows, 3 * C), torch.bfloat16)]
+    if in_registers:
+        return []
+    return [("qkv", (rows, 3 * C), torch.bfloat16)] + (
+        [("ctx", (rows, C), torch.bfloat16)] if C > 128 else [])
 
 
 _P = ctypes.c_void_p
 # The C entry point of csrc/banded.cu each mode launches, with its argtypes:
-# 6 inputs (key_bias may be null), the scratch (bf16: qkv or null; f32: qkv,
-# ctx), out; N; S, lookback; the widths (E, num_heads, score scale);
-# device; stream.
+# 6 inputs (key_bias may be null), the scratch (bf16: qkv and ctx, each may
+# be null; f32: qkv, ctx), out; N; S, lookback; the widths (E, num_heads,
+# score scale); device; stream.
 BANDED_ENTRY = {
     precise: ("lct_banded_forward_f32" if precise
               else "lct_banded_forward_bf16",
-              [_P] * (9 if precise else 8) + [ctypes.c_longlong]
+              [_P] * 9 + [ctypes.c_longlong]
               + [ctypes.c_int] * 2 + ATTN_WIDTHS + [ctypes.c_int, _P])
     for precise in (False, True)}
 
@@ -196,7 +201,8 @@ def _banded_cuda(x, in_proj_kernel, in_proj_bias, out_proj_kernel,
                                 [], EK)()
     scratch = [torch.empty(shape, device=dev, dtype=dtype) for _, shape, dtype
                in banded_scratch(N * S, precise, lookback <= max_reg_w, EK)]
-    slots = [t.data_ptr() for t in scratch] or [None]
+    slots = [t.data_ptr() for t in scratch]
+    slots += [None] * (2 - len(slots))
     out = torch.empty((N, S, EK), device=dev, dtype=torch.float32)
     fn = kernel_function("banded", *BANDED_ENTRY[precise], EK)
     err = fn(*(None if t is None else t.data_ptr() for t in ops), *slots,

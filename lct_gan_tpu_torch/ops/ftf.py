@@ -29,9 +29,10 @@ Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
 in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward and backward
 kernels take every C in any num_heads and any G that divide C whose padded
 layout fits the widest kernel (`ops/library.py::card_takes`: channels,
-heads and groups zero-padded to the kernel width of 16 .. 128, exact:
-`ops/padding.py`); a call on the card at other widths raises before any
-launch, under grad too.
+heads and groups zero-padded to the kernel width of 16 .. 256 forward, 16
+.. 128 backward, exact: `ops/padding.py`); a call on the card at other
+widths raises before any launch, under grad too (there at the backward's
+widths).
 """
 
 from __future__ import annotations
@@ -125,12 +126,12 @@ def ftf_block_reference(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh,
 _P = ctypes.c_void_p
 # lct_ftf_forward_bf16 / _f32 by mode (precise): 16 inputs (the GRU's in
 # pack_gru_slots' layout; key_bias may be null), the scratch slots of
-# ftf_scratch (bf16: four, gb may be null, then xp, null but for C = 128's
-# dense GRU slot; f32: four), out; N; L, D, lin_in, lookback; the widths
-# (BLOCK_WIDTHS: the true C, num_heads, the score scale, GRU slots);
-# device; stream.
+# ftf_scratch (bf16: six, gb may be null, xp null but for the GRU slots on
+# CUDA cores, ctx null but at kernel width 256; f32: four), out; N; L, D,
+# lin_in, lookback; the widths (BLOCK_WIDTHS: the true C, num_heads, the
+# score scale, GRU slots); device; stream.
 _FTF_ARGTYPES = {
-    precise: [_P] * (21 if precise else 22) + [ctypes.c_longlong]
+    precise: [_P] * (21 if precise else 23) + [ctypes.c_longlong]
     + [ctypes.c_int] * 4 + BLOCK_WIDTHS + [ctypes.c_int, _P]
     for precise in (False, True)}
 
@@ -144,18 +145,24 @@ def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool, C: int = 64,
     frequency block's Linear (lin_in = 2C), bf16(g), else None (a null
     pointer): the only values the attention kernel's epilogue reads besides
     q, k, v; at C = 128 with one dense GRU slot (`slots` = 1) also the GRU
-    input projection, which that slot's CUDA-core recurrence reads. precise
-    (CUDA cores, all f32): the GRU input projection, the hiddens, qkv and
-    the attention context. No head count changes the sizes."""
+    input projection, which that slot's CUDA-core recurrence reads. At C =
+    256 always six entries: those four, xp where the slots are wider than
+    16 (else None) and the attention's context as bf16, which the split
+    epilogue reads. precise (CUDA cores, all f32): the GRU input
+    projection, the hiddens, qkv and the attention context. No head count
+    changes the sizes."""
     hid = ("hid", (D, rows, C), torch.float32)
     xp = ("xp", (rows, D * 3 * C), torch.float32)
     if precise:
         return [xp, hid, ("qkv", (rows, 3 * C), torch.float32),
                 ("ctx", (rows, C), torch.float32)]
-    return [hid, ("qkv", (rows, 3 * C), torch.bfloat16),
-            ("s", (rows, C), torch.float32),
-            ("gb", (rows, C), torch.bfloat16) if lin_in == 2 * C else None,
-            *([xp] if C > 64 and slots == 1 else [])]
+    out = [hid, ("qkv", (rows, 3 * C), torch.bfloat16),
+           ("s", (rows, C), torch.float32),
+           ("gb", (rows, C), torch.bfloat16) if lin_in == 2 * C else None]
+    if C > 128:
+        return out + [xp if slots < C // 16 else None,
+                      ("ctx", (rows, C), torch.bfloat16)]
+    return out + ([xp] if C > 64 and slots == 1 else [])
 
 
 def check_kernel_shapes(name: str, x, w_ih, lin_w, num_heads: int,
@@ -268,8 +275,8 @@ def _ftf_cuda(x, ln1_scale, ln1_bias, w_ih, w_hh, b_ih, b_hh, ln2_scale,
     specs = ftf_scratch(N * L, D, lin_in // C * CK, precise, CK, slots)
     scratch = [torch.empty(spec[1], device=dev, dtype=spec[2])
                if spec else None for spec in specs]
-    if not precise and len(scratch) == 4:
-        scratch.append(None)  # no xp
+    if not precise:
+        scratch += [None] * (6 - len(scratch))  # no xp, no ctx
     out = torch.empty((N, L, CK), device=dev, dtype=torch.float32)
     entry = "lct_ftf_forward_f32" if precise else "lct_ftf_forward_bf16"
     fn = kernel_function("ftf", entry, _FTF_ARGTYPES[precise], CK)

@@ -18,8 +18,9 @@ On a CUDA tensor it launches the hand-written kernels of `csrc/ftf_bwd.cu`
 there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
 tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
 (`lct_ftf_backward_f32`, `simt-f32`), at every C in any number of heads
-and GRU groups that divides C whose padded layout fits the widest kernel
-(`check_backward_shapes`, `ops/library.py::check_kernel_widths`; each
+and GRU groups that divides C whose padded layout fits its widest kernel
+width, 128 (`check_backward_shapes`, `ops/library.py::check_kernel_widths`
+with `training`; each
 kernel width's library built at its first backward, `ops/_build.py`). The
 wrapper hands the kernels the forward's operands (`ops/ftf.py::
 kernel_operands`: zero-padded to the block's kernel width where it is not
@@ -281,14 +282,15 @@ def ftf_bwd_plain(x: torch.Tensor, ln1s: torch.Tensor, ln1b: torch.Tensor,
 def check_backward_shapes(name: str, x, w_ih, lin_w, num_heads: int,
                           bidirectional: bool) -> None:
     """Raise unless the FTF backward kernel takes these shapes: the
-    forward's (`ops/ftf.py::check_kernel_shapes`: any num_heads and GRU
-    group count that divides C whose padded layout fits the widest kernel,
-    through `ops/library.py::check_kernel_widths`); widths it does not take
-    are refused naming enc_channels, the width a user sets."""
+    forward's (`ops/ftf.py::check_kernel_shapes`) at any num_heads and GRU
+    group count that divides C whose padded layout fits the backward's
+    widest kernel width, 128 (`ops/library.py::check_kernel_widths` with
+    `training`); widths it does not take are refused naming enc_channels,
+    the width a user sets."""
     from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes
 
     check_kernel_widths(f"{name} kernel", x.shape[-1], num_heads=num_heads,
-                        groups=w_ih.shape[1],
+                        groups=w_ih.shape[1], training=True,
                         hint=" (the bottleneck, enc_channels[-1])")
     check_kernel_shapes(name, x, w_ih, lin_w, num_heads, bidirectional)
 

@@ -22,13 +22,16 @@ CUDA tensor it launches one all-f32 kernel of `csrc/ftf.cu`
 (`lct_grouped_gru_f32`, `gru_f32_kernel`: LN1, the input projection and
 the recurrence in one pass, producer warps staging x and xp in shared
 memory a chunk ahead of the consumer warps' steps; design `GRU_DESIGN`);
-on a CPU tensor it computes `grouped_gru_plain`. Its backward
-differentiates the plain version.
+on a CPU tensor it computes `grouped_gru_plain`; one group of 256 units
+(kernel width 256) takes LN1's input projection into an xp scratch and
+the thread-block-cluster recurrence (`gru_cluster_kernel`) instead. Its
+backward differentiates the plain version.
 
 The CUDA kernels take C channels in any number of groups that divides C,
 where the groups' padded layout fits the widest kernel
 (`ops/library.py::card_takes`). The FTF kernels run
-slots of 16 units, or dense ones of C (of 64 at C = 128; `gru_slot`), and
+slots of 16 units, or dense ones of C (of 64 at C = 128, of 64 or 128 at
+C = 256; `gru_slot`), and
 `pack_gru_slots` packs other group counts into them
 (`unpack_gru_slot_grads` takes the FTF backward's slot-layout gradients
 apart again); `fused_grouped_gru`'s kernel takes the groups as they are
@@ -36,7 +39,7 @@ apart again); `fused_grouped_gru`'s kernel takes the groups as they are
 the kernel). Where C is not a power of two from 16 the wrapper first
 widens each group to a power of two with zero channels and units
 (`ops/padding.py`; exact), so the kernels run at the GRU's own kernel
-width (`ops/padding.py::kernel_width(C, groups=G)`, 16 .. 128).
+width (`ops/padding.py::kernel_width(C, groups=G)`, 16 .. 256).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from lct_gan_tpu_torch.ops.library import check_kernel_widths, define_op
 __all__ = ["grouped_gru", "grouped_gru_hidden", "round_bf16", "layer_norm",
            "grouped_gru_plain", "fused_grouped_gru", "gru_op", "gru_slot",
            "pack_gru_slots", "unpack_gru_slot_grads", "gru_kernel_operands",
-           "GRU_DESIGN"]
+           "gru_xp_shape", "GRU_DESIGN"]
 
 # The design `fused_grouped_gru` runs on the card: warp-specialised, all
 # f32 on CUDA cores, one launch (csrc/ftf.cu, gru_f32_kernel).
@@ -148,11 +151,16 @@ def _check_gru_shapes(x: torch.Tensor, w_ih: torch.Tensor) -> None:
 def gru_slot(groups: int, C: int = 64) -> int:
     """The width of the slots the GRU kernels run `groups` groups of C
     channels in (C a power of two, the kernels' width): 16 units for
-    groups of 16 or fewer, else one dense slot of C, or at C = 128 slots
+    groups of 16 or fewer, else one dense slot of C, or at C >= 128 slots
     of 64 for groups of 64 or fewer (the tensor-core recurrence's register
-    budget)."""
+    budget), at C = 256 slots of 128 for groups of 128 (a slot of 256 is
+    the thread-block-cluster kernel's)."""
     width = C // groups
-    return 16 if width <= 16 else 64 if C > 64 and width <= 64 else C
+    if width <= 16:
+        return 16
+    if C > 64 and width <= 64:
+        return 64
+    return 128 if C > 128 and width <= 128 else C
 
 
 def pack_gru_slots(w_ih, w_hh, b_ih, b_hh):
@@ -229,9 +237,18 @@ def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
 
 
 _P = ctypes.c_void_p
-# lct_grouped_gru_f32: 7 inputs (the GRU's grouped), hid; N; L, D, groups,
-# the true C, device; stream.
-_GRU_ARGTYPES = [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]
+# lct_grouped_gru_f32: 7 inputs (the GRU's grouped), hid, xp (null but for
+# one group at kernel width 256); N; L, D, groups, the true C, device;
+# stream.
+_GRU_ARGTYPES = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]
+
+
+def gru_xp_shape(rows: int, D: int, CK: int, groups: int):
+    """The composed GRU kernel's xp scratch, [rows, D 3CK] f32: LN1's input
+    projection, which the cluster recurrence of one group of 256 units
+    reads (kernel width 256); None elsewhere (one launch, xp in shared
+    memory)."""
+    return (rows, D * 3 * CK) if CK > 128 and groups == 1 else None
 
 
 def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
@@ -254,8 +271,12 @@ def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
     ops, idx = gru_kernel_operands(ops)
     CK = ops[0].shape[-1]
     hid = torch.empty((D, N * L, CK), device=dev, dtype=torch.float32)
+    xp_shape = gru_xp_shape(N * L, D, CK, ops[3].shape[1])
+    xp = (None if xp_shape is None
+          else torch.empty(xp_shape, device=dev, dtype=torch.float32))
     fn = kernel_function("ftf", "lct_grouped_gru_f32", _GRU_ARGTYPES, CK)
     err = fn(*(t.data_ptr() for t in ops), hid.data_ptr(),
+             None if xp is None else xp.data_ptr(),
              N, L, D, ops[3].shape[1], C,
              dev.index if dev.index is not None else torch.cuda.current_device(),
              torch.cuda.current_stream(dev).cuda_stream)

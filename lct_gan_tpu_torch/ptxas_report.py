@@ -4,8 +4,9 @@ ptxas reports them, for one checkout or two side by side:
     python3 -m lct_gan_tpu_torch.ptxas_report [--width 64] [--json OUT]
         [TREE ...]
 
-Each TREE is the root of a checkout (default: this one); its
-`lct_gan_tpu_torch/csrc/*.cu` are compiled with the build's flags
+Each TREE is the root of a checkout (default: this one); the
+`lct_gan_tpu_torch/csrc/*.cu` of the width's libraries (at width 256 the
+forward ones) are compiled with the build's flags
 (`ops/_build.py`) and -Xptxas -v into a temporary directory, every source
 of every tree in one parallel batch of nvcc processes. Prints one JSON line
 per tree ({kernel: {registers, spill_stores, spill_loads}}, each kernel
@@ -47,15 +48,20 @@ def instance_names(names):
 
 
 def tree_usage(trees, width):
-    """{tree: {kernel: counts}} for the csrc/*.cu of each tree at `width`."""
+    """{tree: {kernel: counts}} for the sources of `width`'s libraries
+    (ops/_build.py::library_sources, the FTF backward's too where it is
+    built) in each tree."""
+    from lct_gan_tpu_torch.ops.library import BACKWARD_WIDTHS
+
     nvcc = _build._nvcc()
     define = [] if width == _build.DEFAULT_C else [f"-DLCT_C={width}"]
+    names = _build.library_sources(width, backward=width in BACKWARD_WIDTHS)
     procs = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, tree in enumerate(trees):
             csrc = os.path.join(tree, "lct_gan_tpu_torch", "csrc")
-            for src in sorted(os.listdir(csrc)):
-                if not src.endswith(".cu"):
+            for src in (n + ".cu" for n in names):
+                if not os.path.isfile(os.path.join(csrc, src)):
                     continue
                 cmd = [nvcc, *_build.NVCC_FLAGS, *define, "-I", csrc,
                        "-Xptxas", "-v", "-o",

@@ -110,13 +110,13 @@ def test_module_routes_the_band_to_the_banded_kernel(card):
 
 
 def test_banded_kernel_rejects_other_widths(card):
-    """100 channels in 5 heads of 20 (widened to 32: 160 channels) pass the
-    widest kernel, 128 channels; refused before any launch."""
-    x = torch.zeros((1, 10, 100), device="cuda")
-    p = [torch.zeros(s, device="cuda") for s in ((100, 300), (300,),
-                                                  (100, 100), (100,))]
+    """200 channels in 5 heads of 40 (widened to 64: 320 channels) pass the
+    widest kernel, 256 channels; refused before any launch."""
+    x = torch.zeros((1, 10, 200), device="cuda")
+    p = [torch.zeros(s, device="cuda") for s in ((200, 600), (600,),
+                                                  (200, 200), (200,))]
     before = banded_mhsa.launches
-    with pytest.raises(ValueError, match="got E=100, num_heads 5.*needs 160"):
+    with pytest.raises(ValueError, match="got E=200, num_heads 5.*needs 320"):
         banded_mhsa(x, *p, num_heads=5, lookback=4)
     assert banded_mhsa.launches == before
 

@@ -138,14 +138,14 @@ def test_gradients_on_the_card_are_the_plain_versions(card, D):
 
 
 def test_wrong_width_raises_on_the_card(card):
-    """144 channels (2 groups of 72, widened to 128 each) pass the widest
-    kernel, 128 channels; refused before any launch."""
-    x = torch.zeros((2, 600, 144), device="cuda")
+    """288 channels (2 groups of 144, widened to 256 each) pass the widest
+    kernel, 256 channels; refused before any launch."""
+    x = torch.zeros((2, 600, 288), device="cuda")
     p = [torch.zeros(s, device="cuda") for s in
-         ((144,), (144,), (1, 2, 72, 216), (1, 2, 72, 216), (1, 2, 216),
-          (1, 2, 216))]
+         ((288,), (288,), (1, 2, 144, 432), (1, 2, 144, 432), (1, 2, 432),
+          (1, 2, 432))]
     before = fused_grouped_gru.launches
     with pytest.raises(ValueError,
-                       match="fits 128 channels, got C=144.*needs 256"):
+                       match="fits 256 channels, got C=288.*needs 512"):
         fused_grouped_gru(x, *p, bidirectional=False)
     assert fused_grouped_gru.launches == before

@@ -80,42 +80,75 @@ def _cfg(C, nh, G):
 
 
 def test_card_takes_every_layout_that_fits_128_channels():
-    """Every C from 1 to 160 with every divisor pair of heads and groups:
-    the card takes it exactly when its padded layout (C, each group and
-    each head widened to a power of two) fits 128 channels, which is every
-    pair up to C = 64; for serving and training alike, decided from the
+    """Every C from 1 to 288 with every divisor pair of heads and groups:
+    the card serves it exactly when its padded layout (C, each group and
+    each head widened to a power of two) fits 256 channels, which is every
+    pair up to C = 128, and trains it exactly when the layout fits 128
+    channels (the FTF backward kernel's widest), every pair up to C = 64
+    (the name is kept from when both stopped at 128); decided from the
     device argument. The CPU takes everything."""
-    taken = refused = 0
-    for C in range(1, 161):
+    counts = {False: [0, 0], True: [0, 0]}
+    for C in range(1, 289):
         for nh in divisors(C):
             for G in divisors(C):
                 need = max(C, G * _pow2(C // G), nh * _pow2(C // nh))
-                fits = _pow2(need) <= 128
-                assert card_takes(C, nh, G) == fits, (C, nh, G)
-                assert fits or C > 64
-                if fits:
-                    taken += 1
-                    check_card_widths(_cfg(C, nh, G), "cuda", training=True)
-                else:
-                    refused += 1
-                    with pytest.raises(ValueError, match=(
-                            rf"enc_channels\[-1\]={C}, --num_heads {nh}, "
-                            rf"--gru_groups {G}: the padded layout needs "
-                            rf"{need} channels \(> 128\)")):
-                        check_card_widths(_cfg(C, nh, G), "cuda:0",
-                                          training=False)
-    assert taken > 0 and refused > 0
+                for training, top in ((False, 256), (True, 128)):
+                    fits = _pow2(need) <= top
+                    assert card_takes(C, nh, G, training) == fits, (
+                        C, nh, G, training)
+                    assert fits or C > top // 2
+                    counts[training][fits] += 1
+                    if fits:
+                        check_card_widths(_cfg(C, nh, G), "cuda",
+                                          training=training)
+                    else:
+                        with pytest.raises(ValueError, match=(
+                                rf"fits {top} channels, got "
+                                rf"enc_channels\[-1\]={C}, --num_heads "
+                                rf"{nh}, --gru_groups {G}: the padded "
+                                rf"layout needs {need} channels "
+                                rf"\(> {top}\)")):
+                            check_card_widths(_cfg(C, nh, G), "cuda:0",
+                                              training=training)
+                assert card_takes(C, nh, G) == card_takes(C, nh, G, False)
+    assert all(n > 0 for c in counts.values() for n in c)
+
+
+# Layouts past 256 channels: refused on the card for serving and training.
+PAST_256 = [(240, 5, 5, 320), (272, 1, 1, 512), (200, 5, 5, 320),
+            (264, 8, 8, 512)]
 
 
 @pytest.mark.parametrize("C,nh,G,need", [(100, 5, 5, 160), (120, 3, 3, 192),
-                                         (144, 4, 4, 256), (144, 1, 1, 256)])
-@pytest.mark.parametrize("training", [False, True])
-def test_card_refuses_layouts_past_128_by_name(C, nh, G, need, training):
+                                         (144, 4, 4, 256), (256, 1, 1, 256),
+                                         *PAST_256])
+def test_card_refuses_layouts_past_128_by_name(C, nh, G, need):
+    """Training on the card refuses every layout past 128 channels, the
+    FTF backward kernel's widest, by name; the layouts up to 256 of them
+    the card serves; the CPU trains them all."""
     with pytest.raises(ValueError, match=(
             rf"^the CUDA path takes widths whose padded layout fits 128 "
             rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "
             rf"--gru_groups {G}: the padded layout needs {need} channels "
-            rf"\(> 128\); ")):
+            rf"\(> 128\); train this configuration with --device cpu")):
+        check_card_widths(_cfg(C, nh, G), "cuda", training=True)
+    if need <= 256:
+        check_card_widths(_cfg(C, nh, G), "cuda", training=False)
+    check_card_widths(_cfg(C, nh, G), "cpu", training=True)
+
+
+@pytest.mark.parametrize("C,nh,G,need", PAST_256)
+@pytest.mark.parametrize("training", [False, True])
+def test_card_refuses_layouts_past_256_by_name(C, nh, G, need, training):
+    """Serving and training on the card refuse every layout past 256
+    channels, the forward kernels' widest, by name (training at its own
+    edge, 128); the CPU takes them."""
+    top = 128 if training else 256
+    with pytest.raises(ValueError, match=(
+            rf"^the CUDA path takes widths whose padded layout fits {top} "
+            rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "
+            rf"--gru_groups {G}: the padded layout needs {need} channels "
+            rf"\(> {top}\); ")):
         check_card_widths(_cfg(C, nh, G), "cuda", training=training)
     check_card_widths(_cfg(C, nh, G), "cpu", training=training)
 

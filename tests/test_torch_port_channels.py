@@ -58,7 +58,8 @@ from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference, fused_ftf_block,
 from lct_gan_tpu_torch.ops.ftf_bwd import check_backward_shapes
 from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru, grouped_gru,
                                        grouped_gru_plain, gru_kernel_operands)
-from lct_gan_tpu_torch.ops.library import KERNEL_WIDTHS, card_takes, divisors
+from lct_gan_tpu_torch.ops.library import (BACKWARD_WIDTHS, KERNEL_WIDTHS,
+                                           card_takes, divisors)
 
 from test_torch_port_widths import (ORDER, _attn_params, _ftf_params, _j,
                                     _key_bias, _t)
@@ -305,9 +306,10 @@ def test_card_widths_take_the_channel_set():
     """Serving and training on the card take every C whose padded layout
     fits 128 channels, with every such divisor pair of heads and groups
     (the name is kept from when a set of six widths was taken): C = 40, 48
-    and 96 among them; (100, 5, 5) and C = 144 are refused for both, naming
-    enc_channels, the flags and the channels the layout needs. Decided
-    from the device argument: no card is queried."""
+    and 96 among them; (100, 5, 5) and C = 144 are served (their layouts
+    fit 256 channels) and refused for training, and (200, 5, 5) is refused
+    for both, naming enc_channels, the flags and the channels the layout
+    needs. Decided from the device argument: no card is queried."""
     def cfg(C, nh=4, G=4):
         return LCTGeneratorConfig(enc_channels=(16, 32, C),
                                   dec_channels=(C, 32, 16), num_heads=nh,
@@ -320,12 +322,17 @@ def test_card_widths_take_the_channel_set():
                     if card_takes(C, nh, G):
                         check_card_widths(cfg(C, nh, G), "cuda",
                                           training=training)
-        for C, nh, G, need in ((100, 5, 5, 160), (144, 4, 4, 256)):
+        for C, nh, G, need in ((100, 5, 5, 160), (144, 4, 4, 256),
+                               (200, 5, 5, 320)):
+            top = 128 if training else 256
+            if need <= top:
+                check_card_widths(cfg(C, nh, G), "cuda:0", training=training)
+                continue
             with pytest.raises(ValueError, match=(
-                    rf"padded layout fits 128 channels, got "
+                    rf"padded layout fits {top} channels, got "
                     rf"enc_channels\[-1\]={C}, --num_heads {nh}, "
                     rf"--gru_groups {G}: the padded layout needs {need} "
-                    rf"channels \(> 128\)")):
+                    rf"channels \(> {top}\)")):
                 check_card_widths(cfg(C, nh, G), "cuda:0", training=training)
             check_card_widths(cfg(C, nh, G), "cpu", training=training)
     check_card_widths(cfg(48, 3, 3), torch.device("cuda", 0), training=True)
@@ -362,8 +369,9 @@ def test_grad_on_the_card_is_refused_before_any_launch():
 def test_per_width_build_command():
     """Kernel width 64 builds every source with the command, flags and
     library path it always had; any other kernel width builds the forward
-    sources with -DLCT_C=<width> into a library of its own, and no other
-    width has libraries (48 runs at 64). No nvcc is needed to say so."""
+    sources with -DLCT_C=<width> into a library of its own, and the FTF
+    backward's up to 128 (256 refuses it by name); no other width has
+    libraries (48 runs at 64). No nvcc is needed to say so."""
     tag = "0123456789abcdef"
     cmd64 = _build.build_command("ftf", 64, "out.so", "nvcc")
     assert cmd64 == ["nvcc", *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
@@ -380,12 +388,17 @@ def test_per_width_build_command():
         assert cmd[:len(_build.NVCC_FLAGS) + 1] == ["nvcc",
                                                     *_build.NVCC_FLAGS]
         assert _build.library_sources(C) == ["banded", "ftf", "mhsa"]
-        assert _build.library_sources(C, backward=True) == [
-            "banded", "ftf", "ftf_bwd", "mhsa"]
+        if C in BACKWARD_WIDTHS:
+            assert _build.library_sources(C, backward=True) == [
+                "banded", "ftf", "ftf_bwd", "mhsa"]
+        else:
+            with pytest.raises(ValueError,
+                               match=f"no FTF backward library.*C={C}"):
+                _build.library_sources(C, backward=True)
         path = _build.library_path("ftf", C, tag)
         assert path.endswith(f"/libftf-c{C}-{tag}.so")
         paths.add(path)
     assert len(paths) == len(KERNEL_WIDTHS)
-    for C in (40, 48, 256):
+    for C in (40, 48, 512):
         with pytest.raises(ValueError, match=f"C={C}"):
             _build.library_sources(C)

@@ -107,13 +107,13 @@ def test_fake_gives_the_output_shape_and_holds_cuda_to_the_width():
             out = OPS.fused_grouped_gru(x, *p, False)
             assert out.shape == (4, 600, 64) and out.dtype == torch.float32
             assert out.device.type == dev
-        # 144 channels in 9 groups of 16: the plain version takes it, the
-        # kernel does not (144 channels run at 256, past the widest, 128).
-        x, p = _inputs(51, 4, 600, 1, C=144)
+        # 272 channels in 17 groups of 16: the plain version takes it, the
+        # kernel does not (272 channels run at 512, past the widest, 256).
+        x, p = _inputs(51, 4, 600, 1, C=272)
         assert OPS.fused_grouped_gru(torch.empty(x.shape), *(
-            torch.empty(t.shape) for t in p), False).shape == (4, 600, 144)
+            torch.empty(t.shape) for t in p), False).shape == (4, 600, 272)
         with pytest.raises(ValueError,
-                           match="fits 128 channels, got C=144.*needs 256"):
+                           match="fits 256 channels, got C=272.*needs 512"):
             OPS.fused_grouped_gru(
                 torch.empty(x.shape, device="cuda"),
                 *(torch.empty(t.shape, device="cuda") for t in p), False)

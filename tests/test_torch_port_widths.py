@@ -283,8 +283,9 @@ def test_enhancer_matches_jax(nh, G):
 def test_kernel_checks_take_every_divisor_pair():
     """The forward kernels' checks take every (heads, groups) pair of
     divisors of 64 at C = 64, and refuse other counts and widths whose
-    padded layout passes 128 channels (144 in 4 heads or groups; 48 and 40
-    are taken since the kernels take the true width at run time)."""
+    padded layout passes 256 channels (288 in 4 heads or groups; 48 and 40
+    are taken since the kernels take the true width at run time, 144 since
+    they take layouts up to 256 channels)."""
     x = torch.zeros((2, 5, 64))
     for G in KERNEL_WIDTHS:
         H = 64 // G
@@ -302,11 +303,13 @@ def test_kernel_checks_take_every_divisor_pair():
     _check_gru_shapes(torch.zeros((2, 5, 48)), torch.zeros((1, 4, 12, 36)))
     check_attention_shapes("a", torch.zeros((2, 5, 40)), 4)
     _check_gru_shapes(torch.zeros((2, 5, 40)), torch.zeros((1, 4, 10, 30)))
-    with pytest.raises(ValueError, match="got E=144"):
-        check_attention_shapes("a", torch.zeros((2, 5, 144)), 4)
-    with pytest.raises(ValueError, match="got C=144"):
-        _check_gru_shapes(torch.zeros((2, 5, 144)),
-                          torch.zeros((1, 4, 36, 108)))
+    check_attention_shapes("a", torch.zeros((2, 5, 144)), 4)
+    _check_gru_shapes(torch.zeros((2, 5, 144)), torch.zeros((1, 4, 36, 108)))
+    with pytest.raises(ValueError, match="got E=288"):
+        check_attention_shapes("a", torch.zeros((2, 5, 288)), 4)
+    with pytest.raises(ValueError, match="got C=288"):
+        _check_gru_shapes(torch.zeros((2, 5, 288)),
+                          torch.zeros((1, 4, 72, 216)))
 
 
 def test_backward_check_takes_only_4_heads_and_4_groups():
@@ -331,17 +334,21 @@ def test_backward_check_takes_only_4_heads_and_4_groups():
 def test_c48_is_refused_on_the_card_naming_enc_channels(training):
     """C = 48 was refused on the card while a kernel lacked that width (the
     name is kept from then); serving and training both take it, and 40,
-    now that the kernels take the true width at run time, and refuse C =
-    144 instead, whose padded layout passes 128 channels, naming
-    enc_channels."""
+    now that the kernels take the true width at run time, and refuse
+    instead, naming enc_channels, C = 144 for training (its padded layout
+    passes 128 channels, the backward's widest) and C = 288 for serving
+    (past 256, the forward's)."""
     cfg = LCTGeneratorConfig(enc_channels=(16, 32, 48),
                              dec_channels=(48, 32, 16))
     c40 = LCTGeneratorConfig(enc_channels=(16, 32, 40),
                              dec_channels=(40, 32, 16))
     c144 = LCTGeneratorConfig(enc_channels=(16, 32, 144),
                               dec_channels=(144, 32, 16))
+    c288 = LCTGeneratorConfig(enc_channels=(16, 32, 288),
+                              dec_channels=(288, 32, 16))
     with pytest.raises(ValueError, match=r"enc_channels"):
-        check_card_widths(c144, "cuda", training=training)
+        check_card_widths(c144 if training else c288, "cuda",
+                          training=training)
     check_card_widths(cfg, "cuda", training=training)
     check_card_widths(c40, "cuda", training=training)
     check_card_widths(c144, "cpu", training=training)  # the plain path
