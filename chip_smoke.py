@@ -7,8 +7,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 
   device   require CUDA; print the card's nvidia-smi name and power limit
   build    build the CUDA kernels from lct_gan_tpu_torch/csrc (nvcc, sm_90a)
-           at every kernel width (16, 32, 64, 128), forward and backward, in
-           one parallel batch (one nvcc process a source and width); the
+           at every kernel width (16, 32, 64, 128, 256), forward and
+           backward, in one parallel batch (one nvcc process a source and width); the
            kernel width 64 instances' ptxas registers and spills beside the
            reference's (lct_gan_tpu_torch/ptxas_c64.json: before the true
            width and the score scale became launch arguments)
@@ -87,6 +87,14 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            50), serving and a train state refused before any launch at
            (16, 32, 100) with 5 heads and groups (a layout of 160 channels)
            and (16, 32, 144)
+  width256 kernel width 256 (layouts of 129-256 channels): the four
+           forward kernels against their plain versions on the card at C =
+           256 at W256_PAIRS and the padded W256_PADDED layouts, small N,
+           both modes; the main path's shapes at (256, 4, 4) and (256, 1,
+           1), timed with stages; enhancers at enc_channels (64, 128, 256)
+           against the plain path on the card; a train state at (64, 128,
+           256) and the FTF block under grad at C = 256 taken (launches
+           counted), a layout past 256 refused for serving and training
   banded   the same weights with max_time_context=64, bucketed batches with
            lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
            1 banded, 1 GRU launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
@@ -130,7 +138,13 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            48), (32, 64, 128), (16, 32, 40) and (16, 32, 50) at 5 heads and
            groups, B=8 x 2 s: 3 FTF forward and 3 backward launches a step
            over three steps, finite metrics, one step against the plain
-           path on the card (losses; precise also every tensor's change)
+           path on the card (losses; precise also every tensor's change).
+           Then kernel width 256: the backward at C = 256 at W256_PAIRS and
+           at W256_PADDED (frequency block N = 256, L = 33; time block N =
+           64, L = 129, band 16), both modes; at the B=64 x 2 s shapes at
+           W256_MAIN, timed with stages, scratch, peak GiB, plain and
+           library ms; the train step at enc_channels W256_ENC at (4, 4)
+           and (1, 1), counted and against the plain path as above
   eval     make_eval_step on one bucketed batch with lengths, against the CPU
   parallel data parallelism (parallel/mesh.py) with the same weights and
            TrainConfig(): 2 ranks sharing the card over gloo (spawned),
@@ -1751,13 +1765,13 @@ def check_channels(torch, np, card, seed):
         torch.cuda.empty_cache()
 
     # Training at other widths is taken on the card up to the backward's
-    # widest kernel width: train states at C = 128 and 40, blocks under grad
-    # at C = 48 and 50 (5 heads and groups; their forward launch: the
-    # backward runs in the train_channels phase). Training is refused
-    # before the card where the padded layout passes 128 channels, and
-    # serving taken there (up to 256: the width256 phase runs them):
-    # (16, 32, 100) at 5 heads and groups (160) and (16, 32, 144) (256).
-    accepted, refused = [], []
+    # widest kernel width, 256: train states at C = 128 and 40, blocks
+    # under grad at C = 48 and 50 (5 heads and groups; their forward
+    # launch: the backward runs in the train_channels phase), and serving
+    # and train states at (16, 32, 100) at 5 heads and groups (a layout of
+    # 160) and (16, 32, 144) (256), which the width256 phase runs (the
+    # width256 phase refuses a layout past 256).
+    accepted = []
     cfg = TrainConfig()
     _, mpd, msd = build_models(cfg)
     for enc in ((32, 64, 128), (16, 32, 40)):
@@ -1779,30 +1793,14 @@ def check_channels(torch, np, card, seed):
         accepted.append(f"fused_ftf_block under grad, C = {C}, {nh} heads "
                         f"and groups")
         del out, params, blk
-    for enc, nh, need in (((16, 32, 100), 5, 160), ((16, 32, 144), 4, 256)):
-        names = ("enc_channels", "--num_heads", "--gru_groups",
-                 f"needs {need} channels", "fits 128 channels")
+    for enc, nh in (((16, 32, 100), 5), ((16, 32, 144), 4)):
         make_enhance(enhancer_at(enc, None, nh, nh))
         accepted.append(f"serve {enc}, {nh} heads and groups")
-        for what, act in (
-                ("train state", lambda: _assemble(
-                    cfg, enhancer_at(enc, None, nh, nh).cpu(), mpd, msd,
-                    "cuda")),):
-            fused_ftf_block.launches = 0
-            try:
-                act()
-            except ValueError as exc:
-                if not all(n in str(exc) for n in names):
-                    raise
-                refused.append((f"{what} {enc}, {nh} heads and groups",
-                                str(exc)))
-            else:
-                raise AssertionError(f"{what} took enc_channels {enc} at "
-                                     f"{nh} heads and groups on the card")
-            if fused_ftf_block.launches:
-                raise AssertionError(f"{what} {enc}: a launch before the "
-                                     "refusal")
-    emit({"phase": "channels", "accepted": accepted, "refused": refused})
+        state = _assemble(cfg, enhancer_at(enc, None, nh, nh).cpu(), mpd,
+                          msd, "cuda")
+        accepted.append(f"train state {enc}, {nh} heads and groups")
+        del state
+    emit({"phase": "channels", "accepted": accepted})
     emit({"phase": "channels", "small_cases": len(small),
           "small_cases_s": small_s, "main_cases_s": main_s,
           "build_seconds": build_s, "seconds": time.perf_counter() - t0})
@@ -1864,9 +1862,11 @@ def check_width256(torch, np, card, seed):
     the plain path on the card, with launch counts: B = 128 x 2 s, one
     163,840-sample bucket call and a W = 64 banded call at 4 heads and
     groups, and the bucket call at 1 head and 1 group (its composed GRU the
-    cluster kernel); last, training at kernel width 256 refused by name
-    before any launch, and serving a layout past 256. Random weights from
-    `seed`. Returns (kernel cases by kernel, launches by kernel)."""
+    cluster kernel); last, training at kernel width 256 taken (a train
+    state at W256_ENC, the FTF block under grad with its forward and
+    backward launches), and a layout past 256 refused by name before any
+    launch, for training and serving. Random weights from `seed`. Returns
+    (kernel cases by kernel, launches by kernel)."""
     from lct_gan_tpu_torch.eval import make_enhance
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
@@ -2043,7 +2043,9 @@ def check_width256(torch, np, card, seed):
         torch.cuda.empty_cache()
     seconds["enhance"] = time.perf_counter() - t
 
-    refused = []
+    # Taken at kernel width 256: a train state at W256_ENC (assembling
+    # launches nothing) and the FTF block under grad at C = 256 (one
+    # forward and one backward launch, finite gradients).
     cfg = TrainConfig()
     _, mpd, msd = build_models(cfg)
     enc_cfg = LCTGeneratorConfig(enc_channels=W256_ENC,
@@ -2052,18 +2054,41 @@ def check_width256(torch, np, card, seed):
     params = [p.detach().clone().requires_grad_()
               for p in fblk.kernel_params()]
     x = torch.randn((4, 33, 256), device="cuda")
+
+    def under_grad():
+        fused_ftf_block(x, *params, bidirectional=True,
+                        num_heads=4).square().mean().backward()
+        if not all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in params):
+            raise AssertionError("width256 FTF block under grad: gradients "
+                                 "missing or not finite")
+
+    taken = []
+    for what, act, want in (
+            ("train state (64, 128, 256)",
+             lambda: _assemble(cfg, LctEnhancer(gen_cfg=enc_cfg), mpd,
+                               msd, "cuda"), (0, 0)),
+            ("fused_ftf_block under grad, C = 256", under_grad, (1, 1))):
+        fused_ftf_block.launches = fused_ftf_bwd.launches = 0
+        act()
+        torch.cuda.synchronize()
+        got = (fused_ftf_block.launches, fused_ftf_bwd.launches)
+        if got != want:
+            raise AssertionError(f"width256 {what}: FTF forward / backward "
+                                 f"launches {got}, expected {want}")
+        taken.append({"what": what, "fused_ftf_block": got[0],
+                      "fused_ftf_bwd": got[1]})
+    emit({"phase": "width256", "taken": taken})
+
+    refused = []
     past = LCTGeneratorConfig(enc_channels=(64, 128, 272),
                               dec_channels=(272, 128, 64))
     for what, act, names in (
-            ("train state (64, 128, 256)",
-             lambda: _assemble(cfg, LctEnhancer(gen_cfg=enc_cfg), mpd,
-                               msd, "cuda"),
-             ("enc_channels[-1]=256", "fits 128 channels",
-              "needs 256 channels")),
-            ("fused_ftf_block under grad, C = 256",
-             lambda: fused_ftf_block(x, *params, bidirectional=True,
-                                     num_heads=4),
-             ("C=256", "fits 128 channels", "enc_channels")),
+            ("train state (64, 128, 272)",
+             lambda: _assemble(cfg, LctEnhancer(gen_cfg=past), mpd, msd,
+                               "cuda"),
+             ("enc_channels[-1]=272", "fits 256 channels",
+              "needs 512 channels")),
             ("serve (64, 128, 272)",
              lambda: make_enhance(LctEnhancer(gen_cfg=past).cuda()),
              ("enc_channels[-1]=272", "fits 256 channels",
@@ -2746,8 +2771,14 @@ def check_train_channels(torch, np, card, seed):
         random weights from `seed`, B = 8 x 2 s: 3 FTF forward and 3
         backward launches a step over three counted steps, finite losses,
         one step against the plain path on the card (precise: losses and
-        every tensor's change; bf16: losses).
-    Returns (kernel case records, launches of the counted steps)."""
+        every tensor's change; bf16: losses);
+    then kernel width 256, kept apart: (a) at C = 256 in W256_PAIRS and at
+    W256_PADDED (frequency block N = 256, time block N = 64 with band 16),
+    (b) the training shapes at W256_MAIN (also each case's peak GiB) and
+    (c) the train step at enc_channels W256_ENC with each of W256_MAIN's
+    (heads, groups).
+    Returns (kernel case records, launches of the counted steps, and the
+    same two of kernel width 256)."""
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
     from lct_gan_tpu_torch.ops._build import build_all
@@ -2766,17 +2797,20 @@ def check_train_channels(torch, np, card, seed):
         return n_exps / exps_per_s * 1e3
 
     g = torch.Generator(device="cuda").manual_seed(seed + 19)
-    cases = []
+    cases, w256_cases = [], []
 
-    def run_case(C, nh, G, name, block, N, L, lookback, timed):
+    def run_case(C, nh, G, name, block, N, L, lookback, timed, into=cases):
         params = [p.detach().contiguous() for p in block.kernel_params()]
         D = 2 if block.bidirectional else 1
         x = torch.randn((N, L, C), generator=g, device="cuda")
         for mode in ("bf16", "precise"):
+            torch.cuda.reset_peak_memory_stats()
             res = ftf_bwd_case(torch, f"channels {name} C{C} h{nh} g{G}", x,
                                params, D, lookback, mode, g, exp_floor_ms,
                                nh, G, timed)
-            cases.append(res)
+            if timed:
+                res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            into.append(res)
             emit({"phase": "train_channels", "kernel": "fused_ftf_bwd",
                   **res})
         del x
@@ -2806,9 +2840,9 @@ def check_train_channels(torch, np, card, seed):
     t1 = time.perf_counter()
     cfg = TrainConfig()
     step = make_train_step(cfg)
-    launches = {"fused_ftf_block": 0, "fused_ftf_bwd": 0}
     rng = np.random.default_rng(seed + 19)
-    for enc, nh, G in TRAIN_CHANNEL_ENHANCERS:
+
+    def train_steps(enc, nh, G, launches):
         def fresh(precise):
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(seed + enc[-1])
@@ -2835,12 +2869,45 @@ def check_train_channels(torch, np, card, seed):
               "tol": STEP_TOL, "device": card})
         del state0
         torch.cuda.empty_cache()
+
+    launches = {"fused_ftf_block": 0, "fused_ftf_bwd": 0}
+    for enc, nh, G in TRAIN_CHANNEL_ENHANCERS:
+        train_steps(enc, nh, G, launches)
     steps_s = time.perf_counter() - t1
+
+    # Kernel width 256: (a) small N, (b) the training shapes, (c) steps.
+    t1 = time.perf_counter()
+    for C, nh, G in [(256, nh, G) for nh, G in W256_PAIRS] + list(
+            W256_PADDED):
+        freq, tblk = seeded_blocks(torch, seed, C, nh, G)
+        run_case(C, nh, G, "freq", freq, 256, 33, None, False, w256_cases)
+        run_case(C, nh, G, "time_lookback16", tblk, 64, 129, 16, False,
+                 w256_cases)
+        del freq, tblk
+    w256_small_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for nh, G in W256_MAIN:
+        freq, tblk = seeded_blocks(torch, seed, 256, nh, G)
+        run_case(256, nh, G, "freq", freq, 64 * 129, 33, None, True,
+                 w256_cases)
+        run_case(256, nh, G, "time", tblk, 64 * 33, 129, None, True,
+                 w256_cases)
+        del freq, tblk
+    w256_shapes_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    w256_launches = {"fused_ftf_block": 0, "fused_ftf_bwd": 0}
+    for nh, G in W256_MAIN:
+        train_steps(W256_ENC, nh, G, w256_launches)
+    w256_steps_s = time.perf_counter() - t1
     emit({"phase": "train_channels", "backward_build_seconds": build_s,
           "small_cases": n_small,
           "small_cases_s": small_s, "training_shapes_s": shapes_s,
-          "steps_s": steps_s, "seconds": time.perf_counter() - t0})
-    return cases, launches
+          "steps_s": steps_s, "width256_small_cases_s": w256_small_s,
+          "width256_training_shapes_s": w256_shapes_s,
+          "width256_steps_s": w256_steps_s,
+          "width256_launches_steps": w256_launches,
+          "seconds": time.perf_counter() - t0})
+    return cases, launches, w256_cases, w256_launches
 
 
 def check_eval(torch, np, card, state):
@@ -3735,7 +3802,7 @@ def main():
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # Every kernel width's libraries, the backward's too (up to 128), in one
+    # Every kernel width's libraries, the backward's too (up to 256), in one
     # parallel batch (the channels, width256 and train_channels phases then
     # find them built), and the width 64 instances' registers and spills
     # against the reference's.
@@ -3772,11 +3839,18 @@ def main():
     train_launches, state, step_ms = check_train(torch, np, card)
     for k, n in train_launches.items():
         launches[k] += n
-    for phase in (check_train_widths, check_train_channels):
-        bwd_cases, step_launches = phase(torch, np, card, args.seed)
-        kernels["fused_ftf_bwd"].extend(bwd_cases)
-        for k, n in step_launches.items():
-            launches[k] += n
+    bwd_cases, step_launches = check_train_widths(torch, np, card,
+                                                  args.seed)
+    kernels["fused_ftf_bwd"].extend(bwd_cases)
+    for k, n in step_launches.items():
+        launches[k] += n
+    # Kept apart as the width256 phase's: the kernel width 256 backward's
+    # cases and its train steps' launches.
+    bwd_cases, step_launches, w256_cases["fused_ftf_bwd"], w256_steps = (
+        check_train_channels(torch, np, card, args.seed))
+    kernels["fused_ftf_bwd"].extend(bwd_cases)
+    for k, n in step_launches.items():
+        launches[k] += n
     check_eval(torch, np, card, state)
     del state
     torch.cuda.empty_cache()
@@ -3822,7 +3896,9 @@ def main():
             "cases": kernels[name]})
     # The kernel width 256 instances (C = 256, 4 heads and groups, at the
     # main path's shapes), their launches from the width256 phase's
-    # enhancer calls.
+    # enhancer calls, the backward's from the train_channels phase's
+    # steps at W256_ENC.
+    w256_launches["fused_ftf_bwd"] = w256_steps["fused_ftf_bwd"]
     for name, src, replaces, head_L, head_mode in (
             ("fused_ftf_block", "lct_gan_tpu_torch/csrc/ftf.cu",
              "lct_gan_tpu/ops/ftf.py:132", 33, "bf16"),
@@ -3831,10 +3907,13 @@ def main():
             ("banded_mhsa", "lct_gan_tpu_torch/csrc/banded.cu",
              "lct_gan_tpu/ops/banded_attention.py:109", 772, "bf16"),
             ("fused_grouped_gru", "lct_gan_tpu_torch/csrc/ftf.cu",
-             "lct_gan_tpu/ops/gru.py:28", 644, "precise")):
+             "lct_gan_tpu/ops/gru.py:28", 644, "precise"),
+            ("fused_ftf_bwd", "lct_gan_tpu_torch/csrc/ftf_bwd.cu",
+             "lct_gan_tpu/ops/ftf_bwd.py:119", 33, "bf16")):
         head = next(r for r in w256_cases[name]
                     if r["L"] == head_L and r["mode"] == head_mode
-                    and r["num_heads"] == 4 and r["gru_groups"] == 4)
+                    and r["num_heads"] == 4 and r["gru_groups"] == 4
+                    and r.get("C", 256) == 256 and "plain_ms" in r)
         if w256_launches[name] <= 0:
             raise AssertionError(f"{name} was never launched at kernel "
                                  "width 256 on the path")

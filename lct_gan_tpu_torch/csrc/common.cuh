@@ -64,6 +64,14 @@ __host__ __device__ constexpr int head_pad(int hd) { return hd <= 8 ? 8 : hd; }
 // C >= 128 also C / 64: slots of 64, at C = 256 also 2: slots of 128).
 inline int gru_slot(int slots) { return C / slots; }
 
+// The units a block of a CUDA-core GRU walk over dense slots of SW units
+// takes (ftf.cu's gru_dense_kernel, ftf_bwd.cu's bptt_dense_kernel): all C,
+// or at C = 256 one slot of 128 (or 256) a block.
+template <int SW>
+__host__ __device__ constexpr int dense_units() {
+  return C > 128 && SW >= 128 ? SW : C;
+}
+
 // c_true channels (at most C) in num_heads heads, whose padded heads fit
 // C; the GRU weights come in C / 16 slots of 16, 1 of C, at C >= 128 C / 64
 // of 64, at C = 256 2 of 128.

@@ -135,12 +135,6 @@ __global__ void __launch_bounds__(256, 3)
 // gru_kernel.
 constexpr int DS = 4;  // sequences per block of gru_dense_kernel
 
-// The units a gru_dense_kernel block takes.
-template <int SW>
-__host__ __device__ constexpr int dense_units() {
-  return C > 128 && SW >= 128 ? SW : C;
-}
-
 template <int SW>
 inline size_t gru_dense_smem() {
   constexpr int UW = dense_units<SW>();

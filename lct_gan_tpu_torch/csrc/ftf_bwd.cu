@@ -54,6 +54,29 @@
 //     units (one group of 128, or of 65-127 padded) runs on CUDA cores with the
 //     same rounding points (bptt_simt_kernel), as ftf.cu's forward does.
 //
+// Kernel width 256 (-DLCT_C=256; every path below under LCT_C > 128, so
+// no instance at C <= 128 changes). in_w, out_w + lin_w and a direction's
+// W_ih are 393-405 KB as bf16, past the 227 KB of shared memory a block
+// may hold, and a warp's C-column rows would take 128-256 registers, so
+// stages 3, 5 and 7 are kernels of their own that stream the weights in
+// panels of 64 output channels through tiles of 64 or 128 rows
+// (comb_panel_kernel; dn_panel_kernel<W, DN2> for the qkv projection and
+// LN2 backward and, per slot width W, the input projection and LN1
+// backward); the attention's heads of 128 and 256 stream their rows
+// (attn_*_wide_kernel<HW>, a head of 256 as two 128-channel halves); the
+// GRU's slots of 16 take a direction a block (bptt_tc_kernel<1>), of 64 a
+// slot a block (bptt_tc_kernel<4>), of 128 a slot a block on CUDA cores
+// (bptt_simt_kernel), and one slot of 256 is two kernels: gate_tc_kernel
+// forms every step's gate factors on tensor cores at once, then
+// bptt_cluster_kernel walks the carry with a cluster of 8 blocks, W_hh in
+// registers, dhp through distributed shared memory (ftf.cu's
+// gru_cluster_kernel's design); wgrad_tc_kernel stages 32-row tiles and
+// takes its up to 98 product pieces in launches of 32. In precise mode the
+// same slot of 256 takes bptt_cluster_kernel<false> over gate_kernel's
+// factors, a slot of 128 bptt_dense_kernel a slot a block, heads of 128
+// and 256 attn_bwd_warp_kernel (a warp a row), and the static-shared row
+// kernels fewer rows a block.
+//
 // precise (lct_ftf_backward_f32), all f32 on CUDA cores (common.cuh), the
 // simple design of one kernel per stage:
 //   1. ln_kernel + proj_kernel<false>  recompute s = x + sum_d hid, LN2, qkv
@@ -100,8 +123,9 @@
 // time; their score scale (1 / sqrt of the true head width) comes from the
 // caller. The GRU kernels are built per slot width W (ops/gru.py::
 // gru_slot): 16 (C / 16 slots: groups of 16, or narrower ones packed
-// block-diagonally), C (one dense slot, C <= 64) or at C = 128 64 (two
-// dense slots) and 128 (one). The caller packs the GRU weights into slots
+// block-diagonally), C (one dense slot, C <= 64), at C = 128 64 (two
+// dense slots) and 128 (one), at C = 256 64 (four), 128 (two) and 256
+// (one). The caller packs the GRU weights into slots
 // (ops/gru.py::pack_gru_slots) and takes the slot-layout gradients apart
 // again (ops/gru.py::unpack_gru_slot_grads): the entries off a slot's
 // blocks are zero in the forward, so the gradients on the blocks are the
@@ -116,6 +140,10 @@
 #include <type_traits>
 
 #include "tc.cuh"
+
+#if LCT_C > 128  // bptt_cluster_kernel
+#include <cooperative_groups.h>
+#endif
 
 namespace lct {
 
@@ -243,8 +271,8 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
 #endif
 }
 
-// The combine layer's backward over ROWS rows per block, one thread per
-// channel c (blockDim.x == C):
+// The combine layer's backward over COMB_ROWS rows per block, one thread
+// per channel c (blockDim.x == C):
 //   a     = ctx @ out_w + out_b                      (recomputed)
 //   comb  = [g @ lin_w[:C]] + a @ lin_w[C or 0:] + lin_b
 //   dcomb = dout * (comb >= 0 ? 1 : 0.2)
@@ -252,6 +280,10 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
 //   dctx  = da @ out_w^T
 // Writes ga = [g | a] (the Linear's gradient operands), dcomb and da
 // (their column sums are the bias gradients), dg_lin, dctx.
+// Rows a block: its three [rows][C] f32 tiles fill the 48 KB of static
+// shared memory at C = 128, so C = 256 takes 16.
+constexpr int COMB_ROWS = C > 128 ? 16 : ROWS;
+
 __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
                                 const float* __restrict__ ctx,
                                 const float* __restrict__ dout,
@@ -264,14 +296,14 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
                                 float* __restrict__ da,
                                 float* __restrict__ dglin,
                                 float* __restrict__ dctx, long long rows) {
-  __shared__ float t0[ROWS][C];  // ctx, then dcomb
-  __shared__ float t1[ROWS][C];  // a, then da
-  __shared__ float t2[ROWS][C];  // g (frequency block)
-  const long long row0 = (long long)blockIdx.x * ROWS;
+  __shared__ float t0[COMB_ROWS][C];  // ctx, then dcomb
+  __shared__ float t1[COMB_ROWS][C];  // a, then da
+  __shared__ float t2[COMB_ROWS][C];  // g (frequency block)
+  const long long row0 = (long long)blockIdx.x * COMB_ROWS;
   const int c = threadIdx.x;
   const bool freq = lin_in == 2 * C;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < COMB_ROWS; ++r) {
     const long long row = row0 + r;
     float g = 0.f, cv = 0.f;
     if (row < rows) {
@@ -285,18 +317,18 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   }
   __syncthreads();
 
-  float acc[ROWS];
+  float acc[COMB_ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < COMB_ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
     const float w = __ldg(out_w + k * C + c);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t0[r][k], w, acc[r]);
+    for (int r = 0; r < COMB_ROWS; ++r) acc[r] = fmaf(t0[r][k], w, acc[r]);
   }
   const float ob = out_b[c];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < COMB_ROWS; ++r) {
     const float a = acc[r] + ob;
     t1[r][c] = a;
     const long long row = row0 + r;
@@ -312,14 +344,14 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   __syncthreads();
 
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < COMB_ROWS; ++r) acc[r] = 0.f;
   const float* lw_a = lin_w;
   if (freq) {
 #pragma unroll 4
     for (int k = 0; k < C; ++k) {
       const float w = __ldg(lin_w + k * C + c);
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t2[r][k], w, acc[r]);
+      for (int r = 0; r < COMB_ROWS; ++r) acc[r] = fmaf(t2[r][k], w, acc[r]);
     }
     lw_a = lin_w + C * C;
   }
@@ -327,12 +359,12 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   for (int k = 0; k < C; ++k) {
     const float w = __ldg(lw_a + k * C + c);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t1[r][k], w, acc[r]);
+    for (int r = 0; r < COMB_ROWS; ++r) acc[r] = fmaf(t1[r][k], w, acc[r]);
   }
   const float lb = lin_b[c];
   __syncthreads();  // every thread is done reading t0 (ctx)
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < COMB_ROWS; ++r) {
     const long long row = row0 + r;
     float dc = 0.f;
     if (row < rows) {
@@ -348,25 +380,25 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
   // dga[m] = sum_j dcomb[j] lin_w[m, j]: thread c computes m = c (the da
   // column of the time block, the dg_lin column of the frequency block)
   // and, for the frequency block, m = C + c (its da column).
-  float acc2[ROWS];
+  float acc2[COMB_ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = acc2[r] = 0.f;
+  for (int r = 0; r < COMB_ROWS; ++r) acc[r] = acc2[r] = 0.f;
 #pragma unroll 4
   for (int j = 0; j < C; ++j) {
     const float w = __ldg(lin_w + c * C + j);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t0[r][j], w, acc[r]);
+    for (int r = 0; r < COMB_ROWS; ++r) acc[r] = fmaf(t0[r][j], w, acc[r]);
   }
   if (freq) {
 #pragma unroll 4
     for (int j = 0; j < C; ++j) {
       const float w = __ldg(lin_w + (C + c) * C + j);
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc2[r] = fmaf(t0[r][j], w, acc2[r]);
+      for (int r = 0; r < COMB_ROWS; ++r) acc2[r] = fmaf(t0[r][j], w, acc2[r]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < COMB_ROWS; ++r) {
     const long long row = row0 + r;
     const float dav = freq ? acc2[r] : acc[r];
     if (row < rows) {
@@ -380,15 +412,15 @@ __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
 
   // dctx[c] = sum_k da[k] out_w[c, k]
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < COMB_ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < C; ++k) {
     const float w = __ldg(out_w + c * C + k);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(t1[r][k], w, acc[r]);
+    for (int r = 0; r < COMB_ROWS; ++r) acc[r] = fmaf(t1[r][k], w, acc[r]);
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < COMB_ROWS; ++r) {
     const long long row = row0 + r;
     if (row < rows) dctx[(size_t)row * C + c] = acc[r];
   }
@@ -550,23 +582,155 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
   }
 }
 
+#if LCT_C > 128
+// attn_bwd_kernel for heads of 128 or 256 channels at C = 256, where a
+// thread's q, dq, dk and dv (4 HDP floats) would not fit in registers: as
+// common.cuh's attn_warp_kernel, a warp takes one row, lane l holding
+// channels l + 32 i (HDP / 32 a lane), each dot product one warp sum. The
+// same passes as attn_bwd_kernel (precise mode: nothing rounded):
+//   pass A, a warp a query: m, den, rowsum = sum_k dp p, dq;
+//   pass B, a warp a key: dk, dv over the queries whose band holds it, p and
+//     dp recomputed from the stored m, den and rowsum.
+// Q, K, V and dctx rows are read where they lie, each a coalesced row of
+// the warp. Block: (sequence, head), WARP_ROWS warps; 3 L floats of shared
+// memory. Bound: the L^2 hd FMAs on CUDA cores and their warp sums.
+template <int HDP>
+__global__ void __launch_bounds__(32 * WARP_ROWS)
+    attn_bwd_warp_kernel(const float* __restrict__ qkv,
+                         const float* __restrict__ dctx,
+                         float* __restrict__ dqkv, int L, int lookback,
+                         float scale) {
+  constexpr int PL = HDP / 32;  // channels a lane
+  constexpr int nh = C / HDP;
+  extern __shared__ float sm[];
+  float* mq = sm;           // [L] row max
+  float* dq_den = sm + L;   // [L] sum of exps
+  float* rsum = sm + 2 * L; // [L] sum_k dp p
+  const long long n = blockIdx.x / nh;
+  const int h = blockIdx.x % nh, lane = threadIdx.x & 31;
+  const int wq = threadIdx.x >> 5;
+  const size_t off = (size_t)h * HDP + lane;
+  const float* base = qkv + (size_t)n * L * (3 * C) + off;
+  const float* dbase = dctx + (size_t)n * L * C + off;
+  float* obase = dqkv + (size_t)n * L * (3 * C) + off;
+  auto load = [&](float (&v)[PL], const float* row) {
+#pragma unroll
+    for (int i = 0; i < PL; ++i) v[i] = row[32 * i];
+  };
+  auto dot = [&](const float (&v)[PL], const float* row) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < PL; ++i) s = fmaf(v[i], row[32 * i], s);
+    return warp_sum(s);
+  };
+
+  for (int q = wq; q < L; q += WARP_ROWS) {
+    float qv[PL], ov[PL];
+    load(qv, base + (size_t)q * 3 * C);
+    load(ov, dbase + (size_t)q * C);
+    int k0 = 0, k1 = L - 1;
+    if (lookback >= 0) {
+      k0 = max(0, q - lookback);
+      k1 = q;
+    }
+    auto score = [&](int k) {
+      return dot(qv, base + (size_t)k * 3 * C + C) * scale;
+    };
+    float m = -INFINITY;
+    for (int k = k0; k <= k1; ++k) m = fmaxf(m, score(k));
+    float den = 0.f;
+    for (int k = k0; k <= k1; ++k) den += expf(score(k) - m);
+    float rs = 0.f;
+    for (int k = k0; k <= k1; ++k)
+      rs = fmaf(dot(ov, base + (size_t)k * 3 * C + 2 * C),
+                expf(score(k) - m) / den, rs);
+    float acc[PL];
+#pragma unroll
+    for (int i = 0; i < PL; ++i) acc[i] = 0.f;
+    for (int k = k0; k <= k1; ++k) {
+      const float p = expf(score(k) - m) / den;
+      const float ds = p * (dot(ov, base + (size_t)k * 3 * C + 2 * C) - rs);
+      const float* kr = base + (size_t)k * 3 * C + C;
+#pragma unroll
+      for (int i = 0; i < PL; ++i) acc[i] = fmaf(ds, kr[32 * i], acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < PL; ++i)
+      obase[(size_t)q * 3 * C + 32 * i] = acc[i] * scale;
+    if (lane == 0) {
+      mq[q] = m;
+      dq_den[q] = den;
+      rsum[q] = rs;
+    }
+  }
+  __syncthreads();
+
+  for (int k = wq; k < L; k += WARP_ROWS) {
+    float kv[PL], vv[PL];
+    load(kv, base + (size_t)k * 3 * C + C);
+    load(vv, base + (size_t)k * 3 * C + 2 * C);
+    int q0 = 0, q1 = L - 1;
+    if (lookback >= 0) {
+      q0 = k;
+      q1 = min(L - 1, k + lookback);
+    }
+    float dk[PL], dv[PL];
+#pragma unroll
+    for (int i = 0; i < PL; ++i) dk[i] = dv[i] = 0.f;
+    for (int q = q0; q <= q1; ++q) {
+      const float* qr = base + (size_t)q * 3 * C;
+      const float* dr = dbase + (size_t)q * C;
+      const float p = expf(dot(kv, qr) * scale - mq[q]) / dq_den[q];
+      const float ds = p * (dot(vv, dr) - rsum[q]);
+#pragma unroll
+      for (int i = 0; i < PL; ++i) {
+        dk[i] = fmaf(ds, qr[32 * i], dk[i]);
+        dv[i] = fmaf(p, dr[32 * i], dv[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      obase[(size_t)k * 3 * C + C + 32 * i] = dk[i] * scale;
+      obase[(size_t)k * 3 * C + 2 * C + 32 * i] = dv[i];
+    }
+  }
+}
+#endif
+
 template <int HDP>
 cudaError_t launch_attn_bwd_hd(const float* qkv, const float* dctx,
                                float* dqkv, long long N, int L, int lookback,
                                int hd, float scale, cudaStream_t st) {
-  const size_t smem =
-      (size_t)((HDP <= 16 ? 4 * HDP : 0) + 3) * L * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attn_bwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+#if LCT_C > 128
+  if constexpr (HDP >= 128) {
+    const size_t smem = (size_t)3 * L * sizeof(float);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          attn_bwd_warp_kernel<HDP>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    attn_bwd_warp_kernel<HDP><<<(unsigned)(N * (C / HDP)), 32 * WARP_ROWS,
+                                smem, st>>>(qkv, dctx, dqkv, L, lookback,
+                                            scale);
+    return cudaGetLastError();
+  } else
+#endif
+  {
+    const size_t smem =
+        (size_t)((HDP <= 16 ? 4 * HDP : 0) + 3) * L * sizeof(float);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          attn_bwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    int threads = ((L + 31) / 32) * 32;
+    if (threads > 256) threads = 256;
+    attn_bwd_kernel<HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
+        qkv, dctx, dqkv, L, lookback, /*round=*/0, hd, scale);
+    return cudaGetLastError();
   }
-  int threads = ((L + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  attn_bwd_kernel<HDP><<<(unsigned)(N * (C / hd)), threads, smem, st>>>(
-      qkv, dctx, dqkv, L, lookback, /*round=*/0, hd, scale);
-  return cudaGetLastError();
 }
 
 // attn_bwd_kernel<head_pad(hd)> for N sequences of length L: instances for
@@ -592,39 +756,48 @@ inline cudaError_t launch_attn_bwd(const float* qkv, const float* dctx,
       return launch_attn_bwd_hd<64>(qkv, dctx, dqkv, N, L, lookback, hd,
                                     scale, st);
 #endif
-#if LCT_C > 64  // C = 128
+#if LCT_C > 64  // C >= 128
     case 128:
       return launch_attn_bwd_hd<128>(qkv, dctx, dqkv, N, L, lookback, hd,
+                                     scale, st);
+#endif
+#if LCT_C > 128  // C = 256
+    case 256:
+      return launch_attn_bwd_hd<256>(qkv, dctx, dqkv, N, L, lookback, hd,
                                      scale, st);
 #endif
   }
   return cudaErrorInvalidValue;
 }
 
-// dn2 = dqkv @ in_w^T over ROWS rows per block, one thread per channel c.
+// dn2 = dqkv @ in_w^T over DN2_ROWS rows per block, one thread per channel
+// c (its [rows][3C] f32 tile within the 48 KB of static shared memory: 16
+// rows at C = 256).
+constexpr int DN2_ROWS = C > 128 ? 16 : ROWS;
+
 __global__ void dn2_kernel(const float* __restrict__ dqkv,
                            const float* __restrict__ in_w,
                            float* __restrict__ dn2, long long rows) {
-  __shared__ float tile[ROWS][3 * C];
-  const long long row0 = (long long)blockIdx.x * ROWS;
+  __shared__ float tile[DN2_ROWS][3 * C];
+  const long long row0 = (long long)blockIdx.x * DN2_ROWS;
   const int c = threadIdx.x;
-  for (int i = c; i < ROWS * 3 * C; i += blockDim.x) {
+  for (int i = c; i < DN2_ROWS * 3 * C; i += blockDim.x) {
     const int r = i / (3 * C), m = i % (3 * C);
     const long long row = row0 + r;
     tile[r][m] = row < rows ? dqkv[(size_t)row * 3 * C + m] : 0.f;
   }
   __syncthreads();
-  float acc[ROWS];
+  float acc[DN2_ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < DN2_ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int m = 0; m < 3 * C; ++m) {
     const float w = __ldg(in_w + c * 3 * C + m);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(tile[r][m], w, acc[r]);
+    for (int r = 0; r < DN2_ROWS; ++r) acc[r] = fmaf(tile[r][m], w, acc[r]);
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < DN2_ROWS; ++r) {
     const long long row = row0 + r;
     if (row < rows) dn2[(size_t)row * C + c] = acc[r];
   }
@@ -753,40 +926,47 @@ __global__ void bptt_kernel(const float* __restrict__ K,
 }
 
 // The same walk over dense slots of SW units: one slot of C (groups of 32
-// or 64 at C = 64, one group of C), or at C = 128 two of 64. A block takes
-// one direction and DS sequences, one thread per (sequence, unit u = slot
-// sl, unit j of it), as gru_dense_kernel: W_hh of the direction sits
-// transposed in shared memory (wt[sl][gate*SW + k][j], read by consecutive
-// units: no bank conflict; 192 KB at SW = C = 128), and each step's dhp is
-// traded through a double buffer of shared memory, one barrier a step.
-// Bound: latency. Like attn_bwd_kernel it keeps its run-time `round`
-// (precise mode passes 0): without it nvcc gave it one register more than
-// the 31 of C = 64's instance.
+// or 64 at C = 64, one group of C), at C = 128 two of 64, at C = 256 four
+// of 64 or two of 128. A block takes one direction and DS sequences, one
+// thread per (sequence, unit u = slot sl, unit j of it) of its UW units, as
+// gru_dense_kernel: all C, or at C = 256 one slot of 128 (blockIdx.z), whose
+// W_hh alone fills 192 KB. W_hh of those units sits transposed in shared
+// memory (wt[sl][gate*SW + k][j], read by consecutive units: no bank
+// conflict; 192 KB at SW = C = 128), and each step's dhp is traded through
+// a double buffer of shared memory, one barrier a step. A slot of 256 is
+// bptt_cluster_kernel's. Bound: latency. Like attn_bwd_kernel it keeps its
+// run-time `round` (precise mode passes 0): without it nvcc gave it one
+// register more than the 31 of C = 64's instance.
 constexpr int DS = 4;  // sequences per block of bptt_dense_kernel
 
 template <int SW>
 inline size_t bptt_dense_smem() {
-  return (size_t)(3 * C * SW + 2 * DS * 3 * C) * sizeof(float);
+  constexpr int UW = dense_units<SW>();
+  return (size_t)(3 * UW * SW + 2 * DS * 3 * UW) * sizeof(float);
 }
 
 template <int SW>
-__global__ void __launch_bounds__(DS * C)
+__global__ void __launch_bounds__(DS * dense_units<SW>())
     bptt_dense_kernel(const float* __restrict__ K,
                       const float* __restrict__ dg,
                       const float* __restrict__ w_hh,
                       float* __restrict__ dxp, float* __restrict__ dhp,
                       long long N, int L, int D, int round) {
   constexpr bool ONE = SW == C;  // one slot
+  constexpr int UW = dense_units<SW>();
   extern __shared__ float bsm[];
-  float* wt = bsm;               // [C / SW][3 SW][SW]
-  float* es = bsm + 3 * C * SW;  // dhp [2][DS][3C], slot-major
-  const int d = blockIdx.y, u = threadIdx.x % C, sq = threadIdx.x / C;
+  float* wt = bsm;                // [UW / SW][3 SW][SW]
+  float* es = bsm + 3 * UW * SW;  // dhp [2][DS][3 UW], slot-major
+  // u0: the block's first unit; uu the thread's among the block's, u in all
+  const int u0 = UW == C ? 0 : (int)blockIdx.z * UW;
+  const int d = blockIdx.y, uu = threadIdx.x % UW, sq = threadIdx.x / UW;
+  const int u = u0 + uu;
   const int j = ONE ? u : u % SW;
-  const int eo = ONE ? 0 : u / SW * 3 * SW;  // the slot's first dhp column
+  const int eo = ONE ? 0 : uu / SW * 3 * SW;  // the slot's first dhp column
   const long long n = (long long)blockIdx.x * DS + sq;
   const bool live = n < N;
-  const float* wp = w_hh + (size_t)d * C * (3 * SW);
-  for (int i = threadIdx.x; i < C * 3 * SW; i += blockDim.x) {
+  const float* wp = w_hh + (size_t)d * C * (3 * SW) + (size_t)u0 * 3 * SW;
+  for (int i = threadIdx.x; i < UW * 3 * SW; i += blockDim.x) {
     if (ONE) {
       wt[(i % (3 * C)) * C + i / (3 * C)] = rnd(wp[i], round);
     } else {  // i = (slot unit r) * 3SW + o
@@ -809,7 +989,7 @@ __global__ void __launch_bounds__(DS * C)
       er = dh * kp[0];
       ez = dh * kp[C];
       en = dh * kp[2 * C];
-      const size_t o = (size_t)row * xstride + d * 3 * C + eo + j;
+      const size_t o = (size_t)row * xstride + d * 3 * C + u0 * 3 + eo + j;
       dxp[o] = er;
       dxp[o + SW] = ez;
       dxp[o + 2 * SW] = dh * kp[3 * C];
@@ -817,7 +997,7 @@ __global__ void __launch_bounds__(DS * C)
       dhp[o + SW] = ez;
       dhp[o + 2 * SW] = en;
     }
-    float* eb = es + (s & 1) * DS * 3 * C + sq * 3 * C + eo;
+    float* eb = es + (s & 1) * DS * 3 * UW + sq * 3 * UW + eo;
     eb[j] = rnd(er, round);
     eb[SW + j] = rnd(ez, round);
     eb[2 * SW + j] = rnd(en, round);
@@ -837,19 +1017,210 @@ template <int SW>
 cudaError_t launch_bptt_dense(const float* K, const float* dg,
                               const float* w_hh, float* dxp, float* dhp,
                               long long N, int L, int D, cudaStream_t st) {
+  constexpr int UW = dense_units<SW>();
   const size_t smem = bptt_dense_smem<SW>();
   cudaError_t e = cudaFuncSetAttribute(
       bptt_dense_kernel<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  bptt_dense_kernel<SW><<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D),
-                          DS * C, smem, st>>>(K, dg, w_hh, dxp, dhp, N, L,
-                                              D, /*round=*/0);
+  bptt_dense_kernel<SW><<<dim3((unsigned)((N + DS - 1) / DS), (unsigned)D,
+                               (unsigned)(C / UW)),
+                          DS * UW, smem, st>>>(K, dg, w_hh, dxp, dhp, N, L,
+                                               D, /*round=*/0);
   return cudaGetLastError();
 }
 
-// BPTT over `slots` slots (C / 16 of 16 units, one of C, or at C = 128 two
-// of 64).
+#if LCT_C > 128
+// ---------------------------------------------------------------------------
+// BPTT through one dense GRU slot of C = 256 units (a group of 256, or of
+// 129-255 padded), both modes: W_hh of one direction is C x 3C = 768 KB as
+// f32, more than the 227 KB of shared memory a block may hold, so, as
+// ftf.cu's gru_cluster_kernel walks the forward, a cluster of BC_CL = 8
+// blocks on neighbouring SMs walks the steps together, in the order
+// opposite to the forward's (descending for direction 0). Block `rank` owns
+// units [32 rank, 32 rank + 32); thread (unit u, k-part kq) keeps row u of
+// W_hh (rounded to bf16 with ROUND), entries o = 4 kq + 32 i + e (i < 24,
+// e < 4: 96 floats), for the carry
+//   dh_t = carry + dg_t, dhp = (dh K1, dh K2, dh K3), dxp = (dh K1, dh K2,
+//   dh K4), carry = dh K5 + dhp @ W_hh^T  (ROUND: bf16(dhp), bf16(W_hh))
+// over the per-step gate factors K1..K5 [D, N*L, 5C] that an earlier pass
+// computed for every step at once (precise: gate_kernel<C>; bf16:
+// gate_tc_kernel, on tensor cores), so only the carry stays on the
+// sequential chain. Each step a block writes its units' dhp into every
+// block's double-buffered exchange through distributed shared memory (lane
+// kq into block kq), the cluster crosses one barrier (release / acquire),
+// and every thread sums its 96 products, the unit's 8 lanes added by xor
+// shuffles. A cluster takes BC_DS sequences and one direction (blockIdx.y).
+// A step's loads (its gate factors and dg) do not depend on the carry, so
+// they are issued one step ahead. Writes dxp and dhp (f32, or bf16 with
+// ROUND) and with ROUND the column sums of the unrounded dxp and dhp
+// (db_ih, db_hh), one partial row per cluster. Bound: latency, one cluster
+// barrier and a 12-deep FMA chain of 8 lanes a step.
+constexpr int BC_CL = 8;   // blocks of a cluster
+constexpr int BC_DS = 4;   // sequences of a cluster
+static_assert(BC_DS == DS, "the bf16 partial rows count DS sequences a row");
+
+struct ClusterArgs {
+  const float* K;      // [D, N*L, 5C]: K1, K2, K3, K4 = P, K5 = z
+  const float* dg;     // [N*L, C]: ds (+ dg_lin), or ds
+  const float* dglin;  // [N*L, C], added to dg, or null
+  const float* w_hh;   // [D, 1, C, 3C]
+  float* dxp;          // precise: [N*L, D*3C] f32 out
+  float* dhp;
+  __nv_bfloat16* dxp_b;  // ROUND: [N*L, D*3C] bf16 out
+  __nv_bfloat16* dhp_b;
+  float* part;         // ROUND: [clusters a direction, 2*D*3C] out
+  long long N;
+  int L;
+  int D;
+};
+
+template <bool ROUND>
+__global__ void __cluster_dims__(BC_CL, 1, 1) __launch_bounds__(256, 1)
+    bptt_cluster_kernel(ClusterArgs a) {
+  namespace cg = cooperative_groups;
+  constexpr int UPC = C / BC_CL;  // units a block: 32
+  constexpr int KQ = 256 / UPC;   // lanes a unit: 8
+  constexpr int KO = 3 * C / KQ;  // W_hh entries a lane: 96
+  static_assert(UPC == 32 && KQ == BC_CL && KO % 4 == 0, "cluster BPTT");
+  __shared__ __align__(16) float es[2][BC_DS][3 * C];  // dhp (ROUND: rounded)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y, kq = threadIdx.x % KQ;
+  const int u = rank * UPC + threadIdx.x / KQ;
+  const long long n0 = (long long)(blockIdx.x / BC_CL) * BC_DS;
+  const int L = a.L;
+  const float* wp = a.w_hh + ((size_t)d * C + u) * 3 * C + 4 * kq;
+  float w[KO];
+#pragma unroll
+  for (int i = 0; i < KO / 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(wp + 32 * i);
+    w[4 * i] = rnd(v.x, ROUND);
+    w[4 * i + 1] = rnd(v.y, ROUND);
+    w[4 * i + 2] = rnd(v.z, ROUND);
+    w[4 * i + 3] = rnd(v.w, ROUND);
+  }
+  const size_t NL = (size_t)a.N * L, ldx = (size_t)a.D * 3 * C;
+  float carry[BC_DS];
+#pragma unroll
+  for (int q = 0; q < BC_DS; ++q) carry[q] = 0.f;
+  float sr = 0.f, sz = 0.f, sxn = 0.f, shn = 0.f;
+  // Step s's gate factors and dg of the cluster's sequences (0 past N).
+  auto load = [&](int s, float (&k)[BC_DS][5], float (&g)[BC_DS]) {
+    const int t = d ? s : L - 1 - s;
+#pragma unroll
+    for (int q = 0; q < BC_DS; ++q) {
+      const long long n = n0 + q;
+#pragma unroll
+      for (int f = 0; f < 5; ++f) k[q][f] = 0.f;
+      g[q] = 0.f;
+      if (n < a.N) {
+        const size_t row = (size_t)n * L + t;
+        const float* kp = a.K + ((size_t)d * NL + row) * 5 * C + u;
+#pragma unroll
+        for (int f = 0; f < 5; ++f) k[q][f] = kp[f * C];
+        g[q] = a.dg[row * C + u];
+        if (a.dglin) g[q] += a.dglin[row * C + u];
+      }
+    }
+  };
+  float kc[BC_DS][5], gc[BC_DS];
+  load(0, kc, gc);
+  cluster.sync();  // every block of the cluster runs before a remote write
+  for (int s = 0; s < L; ++s) {
+    const int t = d ? s : L - 1 - s;
+    float kn[BC_DS][5], gn[BC_DS];
+    if (s + 1 < L) load(s + 1, kn, gn);
+    float dh[BC_DS], z[BC_DS];
+    float* nb = cluster.map_shared_rank(&es[s & 1][0][0], kq);
+#pragma unroll
+    for (int q = 0; q < BC_DS; ++q) {
+      const long long n = n0 + q;
+      const float(&k)[5] = kc[q];
+      const size_t row = (size_t)n * L + t;
+      dh[q] = carry[q] + gc[q];
+      z[q] = k[4];
+      const float er = dh[q] * k[0], ez = dh[q] * k[1], en = dh[q] * k[2];
+      const float ex = dh[q] * k[3];
+      nb[q * 3 * C + u] = rnd(er, ROUND);
+      nb[q * 3 * C + C + u] = rnd(ez, ROUND);
+      nb[q * 3 * C + 2 * C + u] = rnd(en, ROUND);
+      if (kq == 0 && n < a.N) {
+        const size_t o = row * ldx + (size_t)d * 3 * C + u;
+        if constexpr (ROUND) {
+          a.dhp_b[o] = __float2bfloat16_rn(er);
+          a.dhp_b[o + C] = __float2bfloat16_rn(ez);
+          a.dhp_b[o + 2 * C] = __float2bfloat16_rn(en);
+          a.dxp_b[o] = __float2bfloat16_rn(er);
+          a.dxp_b[o + C] = __float2bfloat16_rn(ez);
+          a.dxp_b[o + 2 * C] = __float2bfloat16_rn(ex);
+          sr += er;
+          sz += ez;
+          sxn += ex;
+          shn += en;
+        } else {
+          a.dhp[o] = er;
+          a.dhp[o + C] = ez;
+          a.dhp[o + 2 * C] = en;
+          a.dxp[o] = er;
+          a.dxp[o + C] = ez;
+          a.dxp[o + 2 * C] = ex;
+        }
+      }
+    }
+    cluster.sync();  // every block's dhp of step s is in every buffer
+    const float* eb = &es[s & 1][0][0] + 4 * kq;
+#pragma unroll
+    for (int q = 0; q < BC_DS; ++q) {
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < KO / 4; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(eb + q * 3 * C + 32 * i);
+        acc = fmaf(v.x, w[4 * i], acc);
+        acc = fmaf(v.y, w[4 * i + 1], acc);
+        acc = fmaf(v.z, w[4 * i + 2], acc);
+        acc = fmaf(v.w, w[4 * i + 3], acc);
+      }
+#pragma unroll
+      for (int o = 1; o < KQ; o <<= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      carry[q] = dh[q] * z[q] + acc;
+    }
+    if (s + 1 < L) {
+#pragma unroll
+      for (int q = 0; q < BC_DS; ++q) {
+#pragma unroll
+        for (int f = 0; f < 5; ++f) kc[q][f] = kn[q][f];
+        gc[q] = gn[q];
+      }
+    }
+  }
+  if constexpr (ROUND) {
+    if (kq == 0) {
+      float* out = a.part + (size_t)(blockIdx.x / BC_CL) * 2 * ldx +
+                   (size_t)d * 3 * C + u;
+      out[0] = sr;  // db_ih: r, z, n
+      out[C] = sz;
+      out[2 * C] = sxn;
+      out[ldx] = sr;  // db_hh: r, z, n
+      out[ldx + C] = sz;
+      out[ldx + 2 * C] = shn;
+    }
+  }
+}
+
+template <bool ROUND>
+cudaError_t launch_bptt_cluster(const ClusterArgs& a, cudaStream_t st) {
+  bptt_cluster_kernel<ROUND>
+      <<<dim3((unsigned)((a.N + BC_DS - 1) / BC_DS * BC_CL), (unsigned)a.D),
+         256, 0, st>>>(a);
+  return cudaGetLastError();
+}
+#endif
+
+// BPTT over `slots` slots (C / 16 of 16 units, one of C, at C = 128 two of
+// 64, at C = 256 four of 64 or two of 128).
 inline cudaError_t launch_bptt(const float* K, const float* dg,
                                const float* w_hh, float* dxp, float* dhp,
                                long long N, int L, int D, int slots,
@@ -864,7 +1235,15 @@ inline cudaError_t launch_bptt(const float* K, const float* dg,
   if (gru_slot(slots) == 64)
     return launch_bptt_dense<64>(K, dg, w_hh, dxp, dhp, N, L, D, st);
 #endif
+#if LCT_C > 128
+  if (gru_slot(slots) == 128)
+    return launch_bptt_dense<128>(K, dg, w_hh, dxp, dhp, N, L, D, st);
+  ClusterArgs ca = {K, dg, nullptr, w_hh, dxp, dhp, nullptr, nullptr,
+                    nullptr, N, L, D};
+  return launch_bptt_cluster<false>(ca, st);
+#else
   return launch_bptt_dense<C>(K, dg, w_hh, dxp, dhp, N, L, D, st);
+#endif
 }
 
 // dn1[row, g*W + i] = sum_d sum_m dxp[row, d, g, m] W_ih[d, g, i, m] over
@@ -904,7 +1283,8 @@ __global__ void dn1_kernel(const float* __restrict__ dxp,
 // writes at most WG_OUT of them (Wgrad::dense splits a larger product).
 enum { WG_DENSE = 0, WG_GROUPED = 1, WG_DIAG = 2, WG_COLSUM = 3 };
 constexpr int WG_THREADS = 256;
-constexpr int WG_TR = C > 64 ? 8 : 16;  // the staged pair within 48 KB
+// Rows of the staged pair, within 48 KB of static shared memory.
+constexpr int WG_TR = C > 128 ? 4 : C > 64 ? 8 : 16;
 constexpr int WG_MAXK = 48;  // 256 * 48 = 12,288 = C = 64's largest (in_w) grad
 constexpr int WG_OUT = WG_THREADS * WG_MAXK;
 constexpr int WG_MAX_BLOCKS = 264;
@@ -1066,10 +1446,15 @@ constexpr int MAX_ROW_BLOCKS = 1024;  // cap of a row-tile kernel's grid
 constexpr int WG_BLOCKS = 528;        // cap of wgrad_tc_kernel's grid
 constexpr int WG_UNITS = 12;          // 16x16 output units per warp, at most
 constexpr int WG_LDA = C + 8, WG_LDB = 3 * C + 8;
-constexpr int WG_STAGE = 64 * (WG_LDA + WG_LDB);  // bf16 per staged tile pair
+// Rows of a staged tile pair of wgrad_tc_kernel: 64, at C = 256 32 (two
+// stages of 64 rows would take 266 KB).
+constexpr int WG_ROWS = C > 128 ? 32 : 64;
+constexpr int WG_STAGE = WG_ROWS * (WG_LDA + WG_LDB);  // bf16 per tile pair
 // Products a wgrad_tc_kernel launch takes (C = 128 splits its larger
-// products into pieces of at most 4 WG_UNITS units).
+// products into pieces of at most 4 WG_UNITS units; C = 256's pieces, up
+// to 98 of them, go in several launches of at most WG_MAXP).
 constexpr int WG_MAXP = C > 64 ? 32 : 8;
+constexpr int WG_ALLP = C > 128 ? 4 * WG_MAXP : WG_MAXP;  // pieces in all
 // Column sums a thread of wgrad_tc_kernel takes (3C columns at most).
 constexpr int WG_CS = (3 * C + RT - 1) / RT;
 // log2 of the warps of a direction in bptt_tc_kernel (C / 16).
@@ -1187,6 +1572,7 @@ struct CombArgs {
   long long rows;
 };
 
+#if LCT_C <= 128  // C = 256: comb_panel_kernel
 constexpr size_t COMB_SMEM =
     LCT_C > 64 ? sizeof(__nv_bfloat16) * 3 * C * LDS : 0;
 
@@ -1355,6 +1741,7 @@ __global__ void __launch_bounds__(RT) comb_bwd_tc_kernel(CombArgs a) {
   block_colsum(cs_dc, red, out);
   block_colsum(cs_da, red, out + C);
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // The qkv projection and LN2 backward, per 16 rows:
@@ -1452,6 +1839,7 @@ __device__ __forceinline__ void ln_bwd_rows(float (&dy)[C / 8][4],
   }
 }
 
+#if LCT_C <= 128  // C = 256: dn_panel_kernel
 constexpr size_t DN2_SMEM = LCT_C > 64 ? sizeof(__nv_bfloat16) * C * LDW : 0;
 
 __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
@@ -1536,6 +1924,7 @@ __global__ void __launch_bounds__(RT) dn2_tc_kernel(Dn2Args a) {
   block_colsum(cs_s, red, out);
   block_colsum(cs_b, red, out + C);
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // The input projection and LN1 backward, per 16 rows, over GRU slots of W
@@ -1648,6 +2037,621 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
   block_colsum(cs_b, red, out + C);
 }
 
+#if LCT_C > 128
+// ---------------------------------------------------------------------------
+// C = 256's combine-layer backward: comb_bwd_tc_kernel's function, outputs
+// and rounding points. out_w and lin_w are 405 KB as bf16, and a warp's
+// C-column rows would hold 128 accumulators a product, so, as tc.cuh's
+// epi_kernel serves the forward, a block takes tiles of 128 rows (8 warps
+// of 16) and streams the weights through shared memory in panels of 64
+// output columns, keeping the tile's bf16(a), later bf16(da), and
+// bf16(dcomb) in shared memory as the next products' A operands:
+//   a     = bf16(ctx) @ out_w + out_b            panels of out_w's columns
+//   dcomb = dout * (comb >= 0 ? 1 : 0.2)          panels of lin_w's columns
+//   dga   = bf16(dcomb) @ lin_w^T -> dg_lin, da   panels of lin_w's rows
+//   dctx  = bf16(da) @ out_w^T                    panels of out_w's rows
+// The bias gradients are column sums of the unrounded dcomb and da: a
+// panel's over the lanes, then the warps in order, into the block's row in
+// shared memory. Bound: the weights' staging, 0.75-1 MB of bf16 a tile
+// from L2.
+constexpr int CB_ROWS = 128;     // rows a tile: 8 warps of 16
+constexpr int CB_THREADS = 256;
+constexpr size_t CB_SMEM =
+    sizeof(__nv_bfloat16) * (2 * CB_ROWS * LDS + 2 * C * EPI_LDW) +
+    sizeof(float) * (8 * 64 + 2 * C);
+
+// Rows [m0, m0 + 64) of w [*, C] f32 as bf16 [64][LDS], by the block: the
+// [n][k] operand of a product with w's transpose.
+__device__ __forceinline__ void stage_row_panel(__nv_bfloat16* wp,
+                                                const float* __restrict__ w,
+                                                int m0) {
+  for (int i = threadIdx.x; i < 64 * (C / 4); i += blockDim.x) {
+    const int r = i / (C / 4), q = i % (C / 4);
+    const float4 v =
+        __ldg(reinterpret_cast<const float4*>(w + (size_t)(m0 + r) * C) + q);
+    uint2 pk;
+    pk.x = pack_bf16(v.x, v.y);
+    pk.y = pack_bf16(v.z, v.w);
+    *reinterpret_cast<uint2*>(wp + r * LDS + 4 * q) = pk;
+  }
+}
+
+// sums[c0 + c] += the column sums of a panel's 64 columns over the block's
+// rows (v: each warp's 16 rows in C-fragment layout, n8 tile nt = columns
+// 8 nt ..): the lanes' two rows, the warp's 8 row groups by shuffles, then
+// the warps in order through red [warps][64]. Called by the whole block.
+__device__ __forceinline__ void panel_colsum(const float (&v)[8][4],
+                                             float* red, float* sums,
+                                             int c0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = v[nt][e] + v[nt][2 + e];
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (lane < 4) red[warp * 64 + nt * 8 + 2 * lane + e] = x;
+    }
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    float x = red[threadIdx.x];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) x += red[w * 64 + threadIdx.x];
+    sums[c0 + threadIdx.x] += x;
+  }
+  __syncthreads();
+}
+
+// acc = A @ B over the C channels of A: A the warp's 16 rows of a staged
+// bf16 tile (row stride LDS) at aw, B a staged [n][k] panel of 64 rows (n)
+// at wp: acc's 8 n8 tiles are the panel's 64 columns.
+__device__ __forceinline__ void tile_product_nk(float (&acc)[8][4],
+                                                const __nv_bfloat16* aw,
+                                                const __nv_bfloat16* wp,
+                                                int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < C / 16; ++kk) {
+    uint32_t af[4];
+    load_a(af, aw + kk * 16, LDS, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t wf[4];
+      load_b_nk(wf, wp + np * 16 * LDS + kk * 16, LDS, lane);
+      mma(acc[2 * np], af, wf[0], wf[1]);
+      mma(acc[2 * np + 1], af, wf[2], wf[3]);
+    }
+  }
+}
+
+// acc += A @ B[:, panel]: A the warp's 16 rows of a bf16 [rows][C] array in
+// device memory (ldg_a: rows past the end zero), B a staged [k][n] panel of
+// C rows at wp (stage_panel's layout).
+__device__ __forceinline__ void rows_product_kn(float (&acc)[8][4],
+                                                const __nv_bfloat16* m,
+                                                long long r0, long long rows,
+                                                const __nv_bfloat16* wp,
+                                                int lane) {
+#pragma unroll 4
+  for (int kk = 0; kk < C / 16; ++kk) {
+    uint32_t af[4];
+    ldg_a(af, m, C, r0, rows, kk * 16, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t wf[4];
+      load_b_kn(wf, wp + kk * 16 * EPI_LDW + np * 16, EPI_LDW, lane);
+      mma(acc[2 * np], af, wf[0], wf[1]);
+      mma(acc[2 * np + 1], af, wf[2], wf[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(CB_THREADS, 1) comb_panel_kernel(CombArgs a) {
+  extern __shared__ __align__(16) unsigned char comb_smem[];
+  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(comb_smem);
+  __nv_bfloat16* dt = at + CB_ROWS * LDS;     // bf16(dcomb)
+  __nv_bfloat16* wp = dt + CB_ROWS * LDS;     // a weight panel
+  float* red = reinterpret_cast<float*>(wp + 2 * C * EPI_LDW);  // [8][64]
+  float* sums = red + 8 * 64;  // [2][C]: dlin_b, dout_b
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) sums[i] = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool freq = a.lin_in == 2 * C;
+  const long long rows = a.rows;
+  const long long tiles = (rows + CB_ROWS - 1) / CB_ROWS;
+  __nv_bfloat16* aw = at + warp * 16 * LDS;
+  __nv_bfloat16* dw = dt + warp * 16 * LDS;
+  float acc[8][4];
+  auto zero = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  };
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // Every warp takes part in every barrier: rows past the end read as
+    // zero and store nothing.
+    const long long r0 = tile * CB_ROWS + warp * 16;
+    // a = bf16(ctx) @ bf16(out_w) + out_b, stored rounded.
+    for (int p = 0; p < C / 64; ++p) {
+      __syncthreads();  // the previous panel's readers are done
+      stage_panel(wp, a.out_w, C, 64 * p);
+      __syncthreads();
+      zero();
+      rows_product_kn(acc, a.ctx, r0, rows, wp, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = 64 * p + nt * 8 + 2 * t;
+        const float b0 = __ldg(a.out_b + col), b1 = __ldg(a.out_b + col + 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t v =
+              pack_bf16(acc[nt][2 * r] + b0, acc[nt][2 * r + 1] + b1);
+          *reinterpret_cast<uint32_t*>(aw + (g + 8 * r) * LDS + col) = v;
+          st_pair(a.ab, r0 + g + 8 * r, rows, C, col, v);
+        }
+      }
+    }
+    // comb = [bf16(g) @ bf16(lin_w[:C])] + bf16(a) @ bf16(lin_w[C or 0:])
+    // + lin_b; dcomb = dout * slope, stored rounded.
+    for (int p = 0; p < C / 64; ++p) {
+      __syncthreads();
+      stage_panel(wp, a.lin_w, a.lin_in, 64 * p);
+      __syncthreads();
+      zero();
+      const __nv_bfloat16* wa = wp;
+      if (freq) {
+        rows_product_kn(acc, a.gb, r0, rows, wp, lane);
+        wa = wp + C * EPI_LDW;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < C / 16; ++kk) {
+        uint32_t af[4];
+        load_a(af, aw + kk * 16, LDS, lane);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t wf[4];
+          load_b_kn(wf, wa + kk * 16 * EPI_LDW + np * 16, EPI_LDW, lane);
+          mma(acc[2 * np], af, wf[0], wf[1]);
+          mma(acc[2 * np + 1], af, wf[2], wf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = 64 * p + nt * 8 + 2 * t;
+        const float b0 = __ldg(a.lin_b + col), b1 = __ldg(a.lin_b + col + 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long row = r0 + g + 8 * r;
+          const float2 dv =
+              row < rows ? __ldg(reinterpret_cast<const float2*>(
+                               a.dout + (size_t)row * C + col))
+                         : make_float2(0.f, 0.f);
+          const float d0 = dv.x * (acc[nt][2 * r] + b0 >= 0.f ? 1.f : 0.2f);
+          const float d1 =
+              dv.y * (acc[nt][2 * r + 1] + b1 >= 0.f ? 1.f : 0.2f);
+          acc[nt][2 * r] = d0;
+          acc[nt][2 * r + 1] = d1;
+          const uint32_t v = pack_bf16(d0, d1);
+          *reinterpret_cast<uint32_t*>(dw + (g + 8 * r) * LDS + col) = v;
+          st_pair(a.dcomb, row, rows, C, col, v);
+        }
+      }
+      panel_colsum(acc, red, sums, 64 * p);  // dlin_b
+    }
+    // dga = bf16(dcomb) @ bf16(lin_w)^T: the frequency block's first C
+    // columns are dg_lin (f32), the rest (all, time block) da, stored
+    // rounded over a's place.
+    for (int p = 0; p < a.lin_in / 64; ++p) {
+      __syncthreads();
+      stage_row_panel(wp, a.lin_w, 64 * p);
+      __syncthreads();
+      tile_product_nk(acc, dw, wp, lane);
+      const bool is_da = !freq || p >= C / 64;
+      const int c0 = 64 * p - (freq && is_da ? C : 0);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = c0 + nt * 8 + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long row = r0 + g + 8 * r;
+          if (!is_da) {
+            if (row < rows)
+              *reinterpret_cast<float2*>(a.dglin + (size_t)row * C + col) =
+                  make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+            continue;
+          }
+          const uint32_t v = pack_bf16(acc[nt][2 * r], acc[nt][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(aw + (g + 8 * r) * LDS + col) = v;
+          st_pair(a.da, row, rows, C, col, v);
+        }
+      }
+      if (is_da) panel_colsum(acc, red, sums + C, c0);  // dout_b
+    }
+    // dctx = bf16(da) @ bf16(out_w)^T, stored rounded.
+    for (int p = 0; p < C / 64; ++p) {
+      __syncthreads();
+      stage_row_panel(wp, a.out_w, 64 * p);
+      __syncthreads();
+      tile_product_nk(acc, aw, wp, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          st_pair(a.dctx, r0 + g + 8 * r, rows, C, 64 * p + nt * 8 + 2 * t,
+                  pack_bf16(acc[nt][2 * r], acc[nt][2 * r + 1]));
+    }
+  }
+  __syncthreads();
+  float* out = a.part + (size_t)blockIdx.x * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) out[i] = sums[i];
+}
+
+// ---------------------------------------------------------------------------
+// C = 256's qkv-projection and LN2 backward (dn2_tc_kernel's function) and
+// input-projection and LN1 backward (dn1_tc_kernel's): in_w and a
+// direction's W_ih are 393 KB as bf16, and a warp's C-column accumulators
+// and LayerNorm operands would take 256 registers. So a block takes tiles
+// of 64 rows (4 warps of 16) and streams the weight's rows in panels of 64
+// output channels ([64][3W + 8] bf16, a direction at a time), collecting
+// the tile's f32 dn [64][C + 4] in shared memory; then each warp takes its
+// 16 rows one at a time (lane l: channels l + 32 i) through the LayerNorm
+// backward
+//   out = base + rstd (dxh - mean(dxh) - xh mean(dxh xh)),  dxh = dn scale
+// over the 1 / inv_c true channels (proj_kernel's fast-variance statistics
+// of the LayerNorm's input v):
+//   DN2: dn = dqkv @ bf16(in_w)^T (W = C, one "slot"), v = s, base = dout,
+//        out = ds; also bf16(n2) = bf16(xh ln2_s + ln2_b) and bf16(n1) =
+//        bf16(LN1(x)), the later stages' operands, as dn2_tc_kernel;
+//   dn1: dn = sum_d bf16(dxp[:, d]) @ bf16(W_ih[d])^T over slots of W
+//        units (block-diagonal), v = x, base = ds, out = dx.
+// Column sums dn xh and dn (the LayerNorm scale and bias gradients): per
+// lane, then the warps in order, one partial row per block. Bound: the
+// weight panels' staging from L2 (0.8 MB a tile for dn2, 1.6 MB for a
+// bidirectional slot of 256).
+struct DnArgs {
+  const __nv_bfloat16* A;  // dqkv [rows, 3C] or dxp [rows, D*3C]
+  const float* w;          // in_w [C][3C] or W_ih slots [D, C/W, W, 3W]
+  const float* v;          // the LayerNorm's input: s or x
+  const float* scale;      // its scale: ln2_s or ln1_s
+  const float* base;       // dout or ds
+  float* out;              // ds or dx
+  const float* ln_b;       // DN2: ln2_b, and x, ln1_s, ln1_b for n1
+  const float* x;
+  const float* ln1_s;
+  const float* ln1_b;
+  __nv_bfloat16* n2;       // DN2: [rows, C] out
+  __nv_bfloat16* n1;
+  float* part;             // [grid, 2C] out: d scale, d bias partials
+  long long rows;
+  int D;
+  float inv_c;             // 1 / the true channel count
+};
+
+constexpr int DN_LDT = C + 4;  // f32 row stride of the dn tile
+
+template <int W>
+inline size_t dn_panel_smem() {
+  return sizeof(__nv_bfloat16) * 64 * (3 * W + 8) +
+         sizeof(float) * (64 * DN_LDT + 4 * 2 * C);
+}
+
+template <int W, bool DN2>
+__global__ void __launch_bounds__(RT, 1) dn_panel_kernel(DnArgs a) {
+  constexpr int KW = 3 * W, LDK = KW + 8, S = C / W;
+  extern __shared__ __align__(16) unsigned char dn_smem[];
+  __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(dn_smem);  // [64][LDK]
+  float* dnt = reinterpret_cast<float*>(wst + 64 * LDK);  // [64][DN_LDT]
+  float* red = dnt + 64 * DN_LDT;                         // [4][2C]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long rows = a.rows;
+  const int D = DN2 ? 1 : a.D, lda = D * 3 * C;
+  const long long tiles = (rows + 63) / 64;
+  float cs_s[CPL] = {}, cs_b[CPL] = {};
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // Every warp takes part in every barrier (rows past the end read as
+    // zero and store nothing).
+    const long long r0 = tile * 64 + warp * 16;
+    for (int p = 0; p < C / 64; ++p) {
+      const int c0 = 64 * p;
+      float acc[8][4] = {};
+      for (int d = 0; d < D; ++d) {
+        __syncthreads();  // the previous panel's readers are done
+        // Row i: output channel c0 + i's weights over its slot's 3W inputs.
+        for (int i = threadIdx.x; i < 64 * (KW / 4); i += blockDim.x) {
+          const int r = i / (KW / 4), q = i % (KW / 4), c = c0 + r;
+          const float4 v = __ldg(reinterpret_cast<const float4*>(
+                                     a.w + ((size_t)(d * S + c / W) * W +
+                                            c % W) * KW) + q);
+          uint2 pk;
+          pk.x = pack_bf16(v.x, v.y);
+          pk.y = pack_bf16(v.z, v.w);
+          *reinterpret_cast<uint2*>(wst + r * LDK + 4 * q) = pk;
+        }
+        __syncthreads();
+        if constexpr (W >= 64) {  // the panel lies in one slot
+          const int colb = d * 3 * C + c0 / W * KW;
+#pragma unroll 4
+          for (int kk = 0; kk < KW / 16; ++kk) {
+            uint32_t af[4];
+            ldg_a(af, a.A, lda, r0, rows, colb + kk * 16, lane);
+#pragma unroll
+            for (int np = 0; np < 4; ++np) {
+              uint32_t wf[4];
+              load_b_nk(wf, wst + np * 16 * LDK + kk * 16, LDK, lane);
+              mma(acc[2 * np], af, wf[0], wf[1]);
+              mma(acc[2 * np + 1], af, wf[2], wf[3]);
+            }
+          }
+        } else {  // slots of 16: each 16 channels its own slot
+#pragma unroll
+          for (int np = 0; np < 4; ++np)
+#pragma unroll
+            for (int kk = 0; kk < KW / 16; ++kk) {
+              uint32_t af[4], wf[4];
+              ldg_a(af, a.A, lda, r0, rows,
+                    d * 3 * C + (c0 / W + np) * KW + kk * 16, lane);
+              load_b_nk(wf, wst + np * 16 * LDK + kk * 16, LDK, lane);
+              mma(acc[2 * np], af, wf[0], wf[1]);
+              mma(acc[2 * np + 1], af, wf[2], wf[3]);
+            }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(
+              dnt + (warp * 16 + g + 8 * r) * DN_LDT + c0 + nt * 8 + 2 * t) =
+              make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    }
+    __syncwarp();  // the warp's own rows of dnt are whole
+    for (int i = 0; i < 16; ++i) {
+      const long long row = r0 + i;
+      if (row >= rows) break;
+      const float* dr = dnt + (warp * 16 + i) * DN_LDT + lane;
+      const size_t o = (size_t)row * C + lane;
+      float dn[CPL], xh[CPL], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        dn[k] = dr[32 * k];
+        xh[k] = __ldg(a.v + o + 32 * k);
+        s1 += xh[k];
+        s2 += xh[k] * xh[k];
+      }
+      const float mu = warp_sum(s1) * a.inv_c;
+      const float ms = warp_sum(s2) * a.inv_c;
+      const float rs = rsqrtf(fmaxf(ms - mu * mu, 0.f) + 1e-6f);
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        xh[k] = (xh[k] - mu) * rs;
+        const float dxh = dn[k] * __ldg(a.scale + lane + 32 * k);
+        m1 += dxh;
+        m2 += dxh * xh[k];
+        cs_s[k] += dn[k] * xh[k];
+        cs_b[k] += dn[k];
+      }
+      m1 = warp_sum(m1) * a.inv_c;
+      m2 = warp_sum(m2) * a.inv_c;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const float dxh = dn[k] * __ldg(a.scale + lane + 32 * k);
+        a.out[o + 32 * k] =
+            __ldg(a.base + o + 32 * k) + rs * (dxh - m1 - xh[k] * m2);
+      }
+      if constexpr (DN2) {
+        float xv[CPL];
+        s1 = s2 = 0.f;
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) {
+          const int c = lane + 32 * k;
+          a.n2[o + 32 * k] = __float2bfloat16_rn(
+              xh[k] * __ldg(a.scale + c) + __ldg(a.ln_b + c));
+          xv[k] = __ldg(a.x + o + 32 * k);
+          s1 += xv[k];
+          s2 += xv[k] * xv[k];
+        }
+        const float mu1 = warp_sum(s1) * a.inv_c;
+        const float ms1 = warp_sum(s2) * a.inv_c;
+        const float rs1 = rsqrtf(fmaxf(ms1 - mu1 * mu1, 0.f) + 1e-6f);
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) {
+          const int c = lane + 32 * k;
+          a.n1[o + 32 * k] = __float2bfloat16_rn(
+              (xv[k] - mu1) * rs1 * __ldg(a.ln1_s + c) + __ldg(a.ln1_b + c));
+        }
+      }
+    }
+  }
+  // Column sums: the warps' rows in order.
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    red[warp * 2 * C + lane + 32 * k] = cs_s[k];
+    red[warp * 2 * C + C + lane + 32 * k] = cs_b[k];
+  }
+  __syncthreads();
+  float* out = a.part + (size_t)blockIdx.x * 2 * C;
+  for (int c = threadIdx.x; c < 2 * C; c += blockDim.x)
+    out[c] = ((red[c] + red[2 * C + c]) + red[4 * C + c]) + red[6 * C + c];
+}
+
+template <int W, bool DN2>
+cudaError_t launch_dn_panel(const DnArgs& a, int grid, cudaStream_t st) {
+  const size_t smem = dn_panel_smem<W>();
+  cudaError_t e = allow_smem(dn_panel_kernel<W, DN2>, smem);
+  if (e != cudaSuccess) return e;
+  dn_panel_kernel<W, DN2><<<grid, RT, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16 mode, the gate factors of one dense GRU slot of C = 256 units for
+// every step at once, before bptt_cluster_kernel walks the carry: per row
+// and direction
+//   xp = bf16(n1) @ bf16(W_ih) + b_ih, hp = bf16(h_prev) @ bf16(W_hh) + b_hh
+// on tensor cores, the gates as bptt_tc_kernel forms them (sigmoid and tanh
+// on the special-function unit), then K1..K5 as gate_kernel writes them,
+// and bf16(h_prev) (h_prev: the saved hidden one step back in the forward's
+// order, 0 at the sequence's start). A block takes one direction
+// (blockIdx.y) and GT_U = 64 units (blockIdx.z): their three gate columns
+// of W_ih and W_hh staged as bf16 [C][GT_LD] (2 x 100 KB); persistent over
+// tiles of 64 rows, each of 4 warps 16 rows, 16 units at a time. Scratch:
+// K is [D, N*L, 5C] f32, 2.79 GB at the B = 64 x 2 s shapes (272,448 rows,
+// D = 2), written once and read once by the walk: the price of taking the
+// products off the recurrence's chain.
+constexpr int GT_U = 64;
+constexpr int GT_LD = 3 * GT_U + 8;
+constexpr size_t GT_SMEM = (size_t)2 * C * GT_LD * sizeof(__nv_bfloat16);
+
+struct GateArgs {
+  const __nv_bfloat16* n1;  // [N*L, C] bf16(LN1(x))
+  const float* hid;         // [D, N*L, C]
+  const float* w_ih;        // [D, 1, C, 3C]
+  const float* w_hh;
+  const float* b_ih;        // [D, 1, 3C]
+  const float* b_hh;
+  float* K;                 // [D, N*L, 5C] out
+  __nv_bfloat16* hprev;     // [D, N*L, C] out
+  long long N;
+  int L;
+};
+
+__global__ void __launch_bounds__(RT, 1) gate_tc_kernel(GateArgs a) {
+  extern __shared__ __align__(16) unsigned char gate_smem[];
+  __nv_bfloat16* wi = reinterpret_cast<__nv_bfloat16*>(gate_smem);
+  __nv_bfloat16* wh = wi + C * GT_LD;  // both [C][GT_LD]
+  const int d = blockIdx.y, u0 = blockIdx.z * GT_U;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int L = a.L;
+  const long long rows = a.N * L;
+  // Column q GT_U + j of the staged tiles: gate q of unit u0 + j.
+  for (int i = threadIdx.x; i < C * 3 * GT_U; i += blockDim.x) {
+    const int k = i / (3 * GT_U), c = i % (3 * GT_U);
+    const size_t src =
+        ((size_t)d * C + k) * 3 * C + (c / GT_U) * C + u0 + c % GT_U;
+    wi[k * GT_LD + c] = __float2bfloat16_rn(__ldg(a.w_ih + src));
+    wh[k * GT_LD + c] = __float2bfloat16_rn(__ldg(a.w_hh + src));
+  }
+  __syncthreads();
+  const float* hd = a.hid + (size_t)d * rows * C;
+  const float* bi = a.b_ih + (size_t)d * 3 * C;
+  const float* bh = a.b_hh + (size_t)d * 3 * C;
+  const long long tiles = (rows + 63) / 64;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * 64 + warp * 16;
+    if (r0 >= rows) continue;  // no barrier below
+    // The lane's rows g, g + 8 and their h_prev rows.
+    long long prow[2];
+    bool hasp[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long long row = r0 + g + 8 * rr;
+      const int tt = (int)(row % L);
+      hasp[rr] = row < rows && (d ? tt < L - 1 : tt > 0);
+      prow[rr] = d ? row + 1 : row - 1;
+    }
+    for (int sp = 0; sp < GT_U / 16; ++sp) {
+      const int ub = u0 + sp * 16;  // the 16 units' first
+      float ar[2][4], az[2][4], xn[2][4], hn[2][4];
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = ub + 8 * jh + 2 * t + (e & 1);
+          ar[jh][e] = bi[u] + bh[u];
+          az[jh][e] = bi[C + u] + bh[C + u];
+          xn[jh][e] = bi[2 * C + u];
+          hn[jh][e] = bh[2 * C + u];
+        }
+#pragma unroll 2
+      for (int kk = 0; kk < C / 16; ++kk) {
+        uint32_t ax[4], ah[4];
+        ldg_a(ax, a.n1, C, r0, rows, kk * 16, lane);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float2 h = make_float2(0.f, 0.f);
+            if (hasp[rr])
+              h = __ldg(reinterpret_cast<const float2*>(
+                  hd + (size_t)prow[rr] * C + kk * 16 + 8 * hf + 2 * t));
+            ah[2 * hf + rr] = pack_bf16(h.x, h.y);
+          }
+        const int col = sp * 16;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          uint32_t fi[4], fh[4];
+          load_b_kn(fi, wi + kk * 16 * GT_LD + q * GT_U + col, GT_LD, lane);
+          load_b_kn(fh, wh + kk * 16 * GT_LD + q * GT_U + col, GT_LD, lane);
+          float (&xa)[2][4] = q == 0 ? ar : q == 1 ? az : xn;
+          float (&ha)[2][4] = q == 0 ? ar : q == 1 ? az : hn;
+          mma(xa[0], ax, fi[0], fi[1]);
+          mma(xa[1], ax, fi[2], fi[3]);
+          mma(ha[0], ah, fh[0], fh[1]);
+          mma(ha[1], ah, fh[2], fh[3]);
+        }
+      }
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const long long row = r0 + g + 8 * rr;
+          if (row >= rows) continue;
+          const int u = ub + 8 * jh + 2 * t;
+          const float2 hv =
+              hasp[rr] ? __ldg(reinterpret_cast<const float2*>(
+                             hd + (size_t)prow[rr] * C + u))
+                       : make_float2(0.f, 0.f);
+          float k[5][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * rr + e;
+            const float r = sigmoid_sfu(ar[jh][i]);
+            const float z = sigmoid_sfu(az[jh][i]);
+            const float nn = tanh_sfu(fmaf(r, hn[jh][i], xn[jh][i]));
+            const float P = (1.f - z) * (1.f - nn * nn);
+            k[0][e] = P * hn[jh][i] * r * (1.f - r);
+            k[1][e] = ((e ? hv.y : hv.x) - nn) * z * (1.f - z);
+            k[2][e] = P * r;
+            k[3][e] = P;
+            k[4][e] = z;
+          }
+          float* kp = a.K + ((size_t)d * rows + row) * 5 * C + u;
+#pragma unroll
+          for (int f = 0; f < 5; ++f)
+            *reinterpret_cast<float2*>(kp + f * C) =
+                make_float2(k[f][0], k[f][1]);
+          *reinterpret_cast<uint32_t*>(a.hprev + ((size_t)d * rows + row) *
+                                                     C + u) =
+              pack_bf16(hv.x, hv.y);
+        }
+    }
+  }
+}
+
+inline cudaError_t launch_gate_tc(const GateArgs& a, int D, cudaStream_t st) {
+  cudaError_t e = allow_smem(gate_tc_kernel, GT_SMEM);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (a.N * a.L + 63) / 64;
+  const int per = D * (C / GT_U);  // blocks of one row range
+  unsigned grid = 1;
+  e = persistent_grid(gate_tc_kernel, RT, GT_SMEM, tiles * per, &grid);
+  if (e != cudaSuccess) return e;
+  long long gx = ((long long)grid + per - 1) / per;
+  if (gx > tiles) gx = tiles;
+  if (gx < 1) gx = 1;
+  gate_tc_kernel<<<dim3((unsigned)gx, (unsigned)D, (unsigned)(C / GT_U)), RT,
+                   GT_SMEM, st>>>(a);
+  return cudaGetLastError();
+}
+#endif
+
 // ---------------------------------------------------------------------------
 // The GRU backward on tensor cores: the input and hidden projections, the
 // gate factors and BPTT in one pass. A block takes 16 sequences; with P =
@@ -1713,21 +2717,39 @@ struct StepIn {
   uint32_t ha[KS > 1 ? KS : 1][4];
 };
 
+// Whether bptt_tc_kernel<KS> takes one direction a block (dense slots at
+// C = 128: 8 warps of 96 fragment registers each; every slot at C = 256,
+// where both directions' 32 warps would pass 1,024 threads) rather than all
+// of them, and whether it takes one dense slot of a direction (C = 256's
+// slots of 64: the carry trades dhp within a slot only, so a block of 4
+// warps holds that slot's W_hh, 25 KB, and its exchange, not all of C's).
+__host__ __device__ constexpr bool bptt_split(int KS) {
+  return C > 128 || (C > 64 && KS > 1);
+}
+__host__ __device__ constexpr bool bptt_slot_block(int KS) {
+  return C > 128 && KS > 1;
+}
+__host__ __device__ constexpr int bptt_threads(int KS) {
+  return bptt_slot_block(KS) ? KS * 32
+                             : (bptt_split(KS) ? 1 : 2) * (C / 16) * 32;
+}
+// Row stride of bptt_tc_kernel<KS>'s staged W_hh and dhp exchange: LDW, or
+// a slot's 3W + 8 where a block takes one slot.
+__host__ __device__ constexpr int bptt_ld(int KS) {
+  return bptt_slot_block(KS) ? 3 * 16 * KS + 8 : LDW;
+}
+
 // Shared memory of bptt_tc_kernel<KS > 1>: W_hh bf16 [Db][C][LDW] (rows:
 // the slots' units, columns gate * W + input unit) and the dhp exchange
 // [2][Db][GS][LDW] (columns slot * 3W + gate * W + unit), Db the directions
-// a block takes.
+// a block takes; where a block takes one slot, that slot's alone, row
+// stride bptt_ld(KS).
+template <int KS>
 inline size_t bptt_tc_smem(int Db) {
-  return (size_t)Db * (C + 2 * GS) * LDW * sizeof(__nv_bfloat16);
-}
-
-// Whether bptt_tc_kernel<KS> takes one direction a block (dense slots at
-// C = 128: 8 warps of 96 fragment registers each) rather than all of them.
-__host__ __device__ constexpr bool bptt_split(int KS) {
-  return C > 64 && KS > 1;
-}
-__host__ __device__ constexpr int bptt_threads(int KS) {
-  return (bptt_split(KS) ? 1 : 2) * (C / 16) * 32;
+  return bptt_slot_block(KS)
+             ? (size_t)(16 * KS + 2 * GS) * bptt_ld(KS) *
+                   sizeof(__nv_bfloat16)
+             : (size_t)Db * (C + 2 * GS) * LDW * sizeof(__nv_bfloat16);
 }
 
 template <int KS>
@@ -1735,13 +2757,17 @@ __global__ void __launch_bounds__(bptt_threads(KS),
                                   KS == 1 && C <= 64 ? 2 : 1)
     bptt_tc_kernel(BpttArgs a) {
   constexpr bool SPLIT = bptt_split(KS);
+  constexpr bool SLOTB = bptt_slot_block(KS);  // a block: one dense slot
   constexpr int W = 16 * KS;       // slot width
   constexpr int SLOTS = C / W;     // KS > 1: dense slots a direction
+  constexpr int LDH = bptt_ld(KS);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   // grp: the warp's 16 units; d its direction, dl that within the block
   const int d = SPLIT ? (int)blockIdx.y : warp >> WPD_LOG2;
-  const int grp = warp & ((1 << WPD_LOG2) - 1), dl = SPLIT ? 0 : d;
+  const int grp = SLOTB ? (int)blockIdx.z * KS + warp
+                        : warp & ((1 << WPD_LOG2) - 1);
+  const int dl = SPLIT ? 0 : d;
   const int L = a.L, D = a.D;
   const int Db = SPLIT ? 1 : D;  // directions in the block
   const long long n0 = (long long)blockIdx.x * GS;
@@ -1774,12 +2800,19 @@ __global__ void __launch_bounds__(bptt_threads(KS),
   } else {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     whs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    ex = whs + (size_t)Db * C * LDW;
+    if constexpr (SLOTB)
+      ex = whs + (size_t)W * LDH;
+    else
+      ex = whs + (size_t)Db * C * LDW;
     load_gru_frags(f, a.w_ih, a.w_hh, a.b_ih, a.b_hh,
                    SLOTS == 1 ? d : d * SLOTS + grp / KS,
                    SLOTS == 1 ? grp : grp % KS, lane);
-    stage_weight(whs, LDW, a.w_hh + (SPLIT ? (size_t)d * C * 3 * W : 0),
-                 Db * C, 3 * W);
+    if constexpr (SLOTB)
+      stage_weight(whs, LDH, a.w_hh + ((size_t)d * C + slot0) * 3 * W, W,
+                   3 * W);
+    else
+      stage_weight(whs, LDW, a.w_hh + (SPLIT ? (size_t)d * C * 3 * W : 0),
+                   Db * C, 3 * W);
     __syncthreads();
   }
   const auto& bi = f.bi;
@@ -1932,29 +2965,32 @@ __global__ void __launch_bounds__(bptt_threads(KS),
       // This warp's units' dhp into the step's buffer (row: sequence,
       // column slot * 3W + gate * W + unit), then all the slot's W units'
       // as A fragments.
-      __nv_bfloat16* hb = ex + ((size_t)(s & 1) * Db + dl) * GS * LDW;
+      // SLOTB: the block's slot alone, columns gate * W + unit.
+      __nv_bfloat16* hb = ex + ((size_t)(s & 1) * Db + dl) * GS * LDH;
 #pragma unroll
       for (int jh = 0; jh < 2; ++jh)
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const int i = 2 * jh + rr;
           uint32_t* dst = reinterpret_cast<uint32_t*>(
-              hb + (g + 8 * rr) * LDW + scol + 8 * jh + 2 * t);
+              hb + (g + 8 * rr) * LDH + (SLOTB ? u16 : scol) + 8 * jh +
+              2 * t);
           dst[0] = pr[i];
           dst[W / 2] = pz[i];
           dst[W] = pn[i];
         }
       __syncthreads();
-      const __nv_bfloat16* wd = whs + (size_t)(dl * C + 16 * grp) * LDW;
-      const __nv_bfloat16* hs = hb + slot0 * 3;
+      const __nv_bfloat16* wd =
+          whs + (size_t)(SLOTB ? u16 : dl * C + 16 * grp) * LDH;
+      const __nv_bfloat16* hs = hb + (SLOTB ? 0 : slot0 * 3);
 #pragma unroll
       for (int q = 0; q < 3; ++q)
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           uint32_t af[4], wf[4];
-          load_a(af, hs + q * W + kk * 16, LDW, lane);
+          load_a(af, hs + q * W + kk * 16, LDH, lane);
           // B(k = o, n = j) = W_hh[slot][j][q*W + o], a [n][k] load.
-          load_b_nk(wf, wd + q * W + kk * 16, LDW, lane);
+          load_b_nk(wf, wd + q * W + kk * 16, LDH, lane);
           mma(carry[0], af, wf[0], wf[1]);
           mma(carry[1], af, wf[2], wf[3]);
         }
@@ -2011,56 +3047,67 @@ template <int KS>
 cudaError_t launch_bptt_tc(const BpttArgs& a, cudaStream_t st) {
   constexpr bool SPLIT = bptt_split(KS);
   const int Db = SPLIT ? 1 : a.D;
-  const size_t smem = KS == 1 ? 0 : bptt_tc_smem(Db);
+  const size_t smem = KS == 1 ? 0 : bptt_tc_smem<KS>(Db);
   cudaError_t e = allow_smem(bptt_tc_kernel<KS>, smem);
   if (e != cudaSuccess) return e;
   bptt_tc_kernel<KS><<<dim3((unsigned)((a.N + GS - 1) / GS),
-                            SPLIT ? (unsigned)a.D : 1u),
-                       Db * (C / 16) * 32, smem, st>>>(a);
+                            SPLIT ? (unsigned)a.D : 1u,
+                            bptt_slot_block(KS) ? (unsigned)(C / (16 * KS))
+                                                : 1u),
+                       bptt_slot_block(KS) ? KS * 32 : Db * (C / 16) * 32,
+                       smem, st>>>(a);
   return cudaGetLastError();
 }
 
 #if LCT_C > 64
-// bf16 mode, one dense GRU slot of C = 128 units (a group of 128, or of
-// 65-127 padded) on CUDA cores: on tensor cores a warp would hold 192 fragment
-// registers (ftf.cu runs this slot's forward on CUDA cores too).
-// bptt_tc_kernel's function, outputs and rounding points: a block takes
-// one direction and DS sequences, a thread one (sequence, unit j), walking
-// the steps as bptt_tc_kernel does. W_ih and W_hh, rounded to bf16, sit in
-// shared memory as [C][SIMT_LD] (an odd word stride: the carry's reads of
-// W_hh's row j by consecutive j fall in distinct banks); each step the
-// block's bf16(n1_t) and bf16(h_prev) rows, then its bf16(dhp), are traded
-// through shared memory, two barriers a step. Per step and thread: 3 x 128
-// products each for xp, hp and the carry, summed in the f32 order of
-// proj_kernel and gate_kernel. Bound: latency (a sequential walk).
-constexpr int SIMT_LD = 3 * C + 2;
+// bf16 mode, one dense GRU slot of SW = 128 units (a group of 128, or of
+// 65-127 padded; at C = 256 each of two such slots) on CUDA cores: on
+// tensor cores a warp would hold 192 fragment registers (ftf.cu runs this
+// slot's forward on CUDA cores too). bptt_tc_kernel's function, outputs and
+// rounding points: a block takes one direction, one slot (blockIdx.z) and
+// DS sequences, a thread one (sequence, unit j of the slot), walking the
+// steps as bptt_tc_kernel does. The slot's W_ih and W_hh, rounded to bf16,
+// sit in shared memory as [SW][SIMT_LD] (an odd word stride: the carry's
+// reads of W_hh's row j by consecutive j fall in distinct banks); each step
+// the block's bf16(n1_t) and bf16(h_prev) rows of the slot's inputs, then
+// its bf16(dhp), are traded through shared memory, two barriers a step.
+// Per step and thread: 3 x 128 products each for xp, hp and the carry,
+// summed in the f32 order of proj_kernel and gate_kernel. Bound: latency
+// (a sequential walk).
+constexpr int SIMT_SW = C > 128 ? 128 : C;  // the slot's units
+constexpr int SIMT_LD = 3 * SIMT_SW + 2;
 
 inline size_t bptt_simt_smem() {
-  return (size_t)2 * C * SIMT_LD * sizeof(__nv_bfloat16) +
-         (size_t)DS * 5 * C * sizeof(float);
+  return (size_t)2 * SIMT_SW * SIMT_LD * sizeof(__nv_bfloat16) +
+         (size_t)DS * 5 * SIMT_SW * sizeof(float);
 }
 
-__global__ void __launch_bounds__(DS * C) bptt_simt_kernel(BpttArgs a) {
+__global__ void __launch_bounds__(DS * SIMT_SW) bptt_simt_kernel(BpttArgs a) {
+  constexpr int SW = SIMT_SW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* wis = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* whs = wis + C * SIMT_LD;
-  float* xs = reinterpret_cast<float*>(whs + C * SIMT_LD);  // [DS][C] n1
-  float* hs = xs + DS * C;                                  // [DS][C] h_prev
-  float* es = hs + DS * C;                                  // [DS][3C] dhp
-  const int d = blockIdx.y, j = threadIdx.x % C, sq = threadIdx.x / C;
+  __nv_bfloat16* whs = wis + SW * SIMT_LD;
+  float* xs = reinterpret_cast<float*>(whs + SW * SIMT_LD);  // [DS][SW] n1
+  float* hs = xs + DS * SW;                                  // [DS][SW] h_prev
+  float* es = hs + DS * SW;                                  // [DS][3SW] dhp
+  const int d = blockIdx.y, j = threadIdx.x % SW, sq = threadIdx.x / SW;
+  const int u0 = SW == C ? 0 : (int)blockIdx.z * SW;  // the slot's first unit
+  const int u = u0 + j;
   const long long n = (long long)blockIdx.x * DS + sq;
   const bool live = n < a.N;
   const int L = a.L, D = a.D;
   const size_t NL = (size_t)a.N * L, ldx = (size_t)D * 3 * C;
-  stage_weight(wis, SIMT_LD, a.w_ih + (size_t)d * C * 3 * C, C, 3 * C);
-  stage_weight(whs, SIMT_LD, a.w_hh + (size_t)d * C * 3 * C, C, 3 * C);
-  const float* bi = a.b_ih + d * 3 * C;
-  const float* bh = a.b_hh + d * 3 * C;
-  const float bir = bi[j], biz = bi[C + j], bin = bi[2 * C + j];
-  const float bhr = bh[j], bhz = bh[C + j], bhn = bh[2 * C + j];
-  float* xr = xs + sq * C;
-  float* hr = hs + sq * C;
-  float* er_s = es + sq * 3 * C;
+  stage_weight(wis, SIMT_LD, a.w_ih + ((size_t)d * C + u0) * 3 * SW, SW,
+               3 * SW);
+  stage_weight(whs, SIMT_LD, a.w_hh + ((size_t)d * C + u0) * 3 * SW, SW,
+               3 * SW);
+  const float* bi = a.b_ih + d * 3 * C + u0 * 3;
+  const float* bh = a.b_hh + d * 3 * C + u0 * 3;
+  const float bir = bi[j], biz = bi[SW + j], bin = bi[2 * SW + j];
+  const float bhr = bh[j], bhz = bh[SW + j], bhn = bh[2 * SW + j];
+  float* xr = xs + sq * SW;
+  float* hr = hs + sq * SW;
+  float* er_s = es + sq * 3 * SW;
   float carry = 0.f, sr = 0.f, sz = 0.f, sxn = 0.f, shn = 0.f;
   for (int s = 0; s < L; ++s) {
     const int tt = d ? s : L - 1 - s;
@@ -2069,10 +3116,10 @@ __global__ void __launch_bounds__(DS * C) bptt_simt_kernel(BpttArgs a) {
     const size_t prow = (size_t)(live ? n : 0) * L + (d ? tt + 1 : tt - 1);
     float hp = 0.f, dg = 0.f;
     if (live) {
-      xr[j] = __bfloat162float(a.n1[row * C + j]);
-      if (hasp) hp = a.hid[((size_t)d * NL + prow) * C + j];
-      dg = a.ds[row * C + j];
-      if (a.dglin) dg += a.dglin[row * C + j];
+      xr[j] = __bfloat162float(a.n1[row * C + u]);
+      if (hasp) hp = a.hid[((size_t)d * NL + prow) * C + u];
+      dg = a.ds[row * C + u];
+      if (a.dglin) dg += a.dglin[row * C + u];
     } else {
       xr[j] = 0.f;
     }
@@ -2080,16 +3127,16 @@ __global__ void __launch_bounds__(DS * C) bptt_simt_kernel(BpttArgs a) {
     __syncthreads();
     float xa = 0.f, xz = 0.f, xn = 0.f, ha = 0.f, hz = 0.f, hn = 0.f;
 #pragma unroll 4
-    for (int i = 0; i < C; ++i) {
+    for (int i = 0; i < SW; ++i) {
       const float xi = xr[i], hi = hr[i];
       const __nv_bfloat16* wi = wis + i * SIMT_LD + j;
       const __nv_bfloat16* wh = whs + i * SIMT_LD + j;
       xa = fmaf(xi, __bfloat162float(wi[0]), xa);
-      xz = fmaf(xi, __bfloat162float(wi[C]), xz);
-      xn = fmaf(xi, __bfloat162float(wi[2 * C]), xn);
+      xz = fmaf(xi, __bfloat162float(wi[SW]), xz);
+      xn = fmaf(xi, __bfloat162float(wi[2 * SW]), xn);
       ha = fmaf(hi, __bfloat162float(wh[0]), ha);
-      hz = fmaf(hi, __bfloat162float(wh[C]), hz);
-      hn = fmaf(hi, __bfloat162float(wh[2 * C]), hn);
+      hz = fmaf(hi, __bfloat162float(wh[SW]), hz);
+      hn = fmaf(hi, __bfloat162float(wh[2 * SW]), hn);
     }
     const float r = sigmoidf_((xa + bir) + (ha + bhr));
     const float z = sigmoidf_((xz + biz) + (hz + bhz));
@@ -2106,56 +3153,57 @@ __global__ void __launch_bounds__(DS * C) bptt_simt_kernel(BpttArgs a) {
       sz += ez;
       sxn += ex;
       shn += en;
-      a.hprev[((size_t)d * NL + row) * C + j] = __float2bfloat16_rn(hp);
-      const size_t o = row * ldx + d * 3 * C + j;
+      a.hprev[((size_t)d * NL + row) * C + u] = __float2bfloat16_rn(hp);
+      const size_t o = row * ldx + d * 3 * C + u0 * 3 + j;
       a.dhp[o] = __float2bfloat16_rn(er);
-      a.dhp[o + C] = __float2bfloat16_rn(ez);
-      a.dhp[o + 2 * C] = __float2bfloat16_rn(en);
+      a.dhp[o + SW] = __float2bfloat16_rn(ez);
+      a.dhp[o + 2 * SW] = __float2bfloat16_rn(en);
       a.dxp[o] = __float2bfloat16_rn(er);
-      a.dxp[o + C] = __float2bfloat16_rn(ez);
-      a.dxp[o + 2 * C] = __float2bfloat16_rn(ex);
+      a.dxp[o + SW] = __float2bfloat16_rn(ez);
+      a.dxp[o + 2 * SW] = __float2bfloat16_rn(ex);
     }
     er_s[j] = rnd(er, 1);
-    er_s[C + j] = rnd(ez, 1);
-    er_s[2 * C + j] = rnd(en, 1);
+    er_s[SW + j] = rnd(ez, 1);
+    er_s[2 * SW + j] = rnd(en, 1);
     __syncthreads();
     float acc = 0.f;
     const __nv_bfloat16* wj = whs + j * SIMT_LD;
 #pragma unroll 8
-    for (int o = 0; o < 3 * C; ++o)
+    for (int o = 0; o < 3 * SW; ++o)
       acc = fmaf(er_s[o], __bfloat162float(wj[o]), acc);
     carry = dh * z + acc;
   }
   // Column sums over the block's sequences, in sequence order.
   __syncthreads();
-  float* red = xs;  // [4][DS][C] over xs, hs, es
-  red[(0 * DS + sq) * C + j] = sr;
-  red[(1 * DS + sq) * C + j] = sz;
-  red[(2 * DS + sq) * C + j] = sxn;
-  red[(3 * DS + sq) * C + j] = shn;
+  float* red = xs;  // [4][DS][SW] over xs, hs, es
+  red[(0 * DS + sq) * SW + j] = sr;
+  red[(1 * DS + sq) * SW + j] = sz;
+  red[(2 * DS + sq) * SW + j] = sxn;
+  red[(3 * DS + sq) * SW + j] = shn;
   __syncthreads();
   if (sq != 0) return;
   float v[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    v[k] = red[(k * DS) * C + j];
-    for (int q = 1; q < DS; ++q) v[k] += red[(k * DS + q) * C + j];
+    v[k] = red[(k * DS) * SW + j];
+    for (int q = 1; q < DS; ++q) v[k] += red[(k * DS + q) * SW + j];
   }
-  float* out = a.part + (size_t)blockIdx.x * 2 * ldx + d * 3 * C;
+  float* out = a.part + (size_t)blockIdx.x * 2 * ldx + d * 3 * C + u0 * 3;
   out[j] = v[0];              // db_ih: r, z, n
-  out[C + j] = v[1];
-  out[2 * C + j] = v[2];
+  out[SW + j] = v[1];
+  out[2 * SW + j] = v[2];
   out[ldx + j] = v[0];        // db_hh: r, z, n
-  out[ldx + C + j] = v[1];
-  out[ldx + 2 * C + j] = v[3];
+  out[ldx + SW + j] = v[1];
+  out[ldx + 2 * SW + j] = v[3];
 }
 
 inline cudaError_t launch_bptt_simt(const BpttArgs& a, cudaStream_t st) {
   const size_t smem = bptt_simt_smem();
   cudaError_t e = allow_smem(bptt_simt_kernel, smem);
   if (e != cudaSuccess) return e;
-  bptt_simt_kernel<<<dim3((unsigned)((a.N + DS - 1) / DS), (unsigned)a.D),
-                     DS * C, smem, st>>>(a);
+  bptt_simt_kernel<<<dim3((unsigned)((a.N + DS - 1) / DS), (unsigned)a.D,
+                          (unsigned)(C / SIMT_SW)),
+                     DS * SIMT_SW, smem, st>>>(a);
   return cudaGetLastError();
 }
 #endif
@@ -2684,11 +3732,14 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
 
 #if LCT_C > 64
 // ---------------------------------------------------------------------------
-// A head of 128 channels (one head of 128, or of 65-127 padded), whose
-// rows would not fit resident: work items of 64 rows (4 warps of 16), the
-// other side of the products streamed through shared memory in blocks of
-// 64 rows ([64][136] bf16 tiles, cp.async), every fragment taken from the
-// staged tiles, 16 channels at a time, so a warp holds only its outputs.
+// Heads of HW = 128 or (C = 256) 256 channels (a head of 128, or of 65-127
+// padded; at C = 256 two heads of 128, or one of 256 or of 129-255 padded),
+// whose rows would not fit resident: work items of 64 rows (4 warps of 16)
+// of one head, the other side of the products streamed through shared
+// memory in blocks of 64 rows ([64][HW + 8] bf16 tiles, cp.async), every
+// fragment taken from the staged tiles, 16 channels at a time, so a warp
+// holds only its outputs: 128 channels of them, so a head of 256 takes two
+// items (halves) a 64 rows, each forming the same scores over all 256.
 //   attn_fwd_wide_kernel  item = 64 queries; K blocks (walk 1: m, l), then
 //                         K and V blocks (walk 2: ctx); writes ctx, (m, 1/l)
 //   attn_dq_wide_kernel   item = 64 queries with their dctx; K, V blocks
@@ -2699,25 +3750,34 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
 // The arithmetic is attn_fwd_tc_kernel's and attn_bwd_tc_kernel's; blocks
 // and chunks of 16 outside the band are skipped. Each streamed block is
 // read once per item and walk: K and V of a sequence about L / 64 times
-// (two walks), from L2.
+// (two walks), from L2. Only the first half of a head writes its softmax
+// statistics and rowsums.
 constexpr int WB = 64;                       // rows of an item or a block
-constexpr int WLD = 128 + 8;                 // row stride of a staged tile
-constexpr int WTILE = WB * WLD;              // bf16 of one staged tile
 
-// acc[j] (j: the two n8 tiles of 16 columns) = A @ B^T over the 128
+template <int HW>
+struct Wide {
+  static constexpr int LD = HW + 8;          // row stride of a staged tile
+  static constexpr int TILE = WB * LD;       // bf16 of one staged tile
+  static constexpr int NH = C / HW;          // heads
+  static constexpr int HV = HW / 128;        // output halves of a head
+};
+
+// acc[j] (j: the two n8 tiles of 16 columns) = A @ B^T over the HW
 // channels: A the warp's 16 rows of a staged tile, B 16 rows of another
 // ([n][k] loads); rows of A and B at a and b.
+template <int HW>
 __device__ __forceinline__ void wide_dot16(float (&acc)[2][4],
                                            const __nv_bfloat16* a,
                                            const __nv_bfloat16* b,
                                            int lane) {
+  constexpr int LD = Wide<HW>::LD;
 #pragma unroll
   for (int j = 0; j < 2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < HW / 16; ++ks) {
     uint32_t af[4], bf[4];
-    load_a(af, a + ks * 16, WLD, lane);
-    load_b_nk(bf, b + ks * 16, WLD, lane);
+    load_a(af, a + ks * 16, LD, lane);
+    load_b_nk(bf, b + ks * 16, LD, lane);
     mma(acc[0], af, bf[0], bf[1]);
     mma(acc[1], af, bf[2], bf[3]);
   }
@@ -2725,6 +3785,7 @@ __device__ __forceinline__ void wide_dot16(float (&acc)[2][4],
 
 // out[16 n8 tiles] += P @ B: P the A fragment of 16 rows over 16 staged rows
 // (k), B those rows' 128 channels ([k][n] loads) at b.
+template <int HW>
 __device__ __forceinline__ void wide_product(float (&out)[16][4],
                                              const uint32_t (&pa)[4],
                                              const __nv_bfloat16* b,
@@ -2732,19 +3793,20 @@ __device__ __forceinline__ void wide_product(float (&out)[16][4],
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
     uint32_t bf[4];
-    load_b_kn(bf, b + ks * 16, WLD, lane);
+    load_b_kn(bf, b + ks * 16, Wide<HW>::LD, lane);
     mma(out[2 * ks], pa, bf[0], bf[1]);
     mma(out[2 * ks + 1], pa, bf[2], bf[3]);
   }
 }
 
-// Rows [r0, r0 + 64) of 128 channels from column `col` of a [N*L, ld] bf16
+// Rows [r0, r0 + 64) of HW channels from column `col` of a [N*L, ld] bf16
 // array of one sequence (`src` its row 0) into a staged tile, rows past L
 // zero.
+template <int HW>
 __device__ __forceinline__ void load_wide(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int ld,
                                           int col, int r0, int L) {
-  load_head<128>(dst, src + (size_t)r0 * ld, ld, col, min(WB, L - r0), WB);
+  load_head<HW>(dst, src + (size_t)r0 * ld, ld, col, min(WB, L - r0), WB);
 }
 
 // Masks sc (scores of rows rq against 16 keys from k0, C-fragment layout)
@@ -2770,15 +3832,21 @@ __device__ __forceinline__ void wide_key_blocks(int q0, int L, int lb,
   b1 = (lb >= 0 ? min(L - 1, q0 + WB - 1) : L - 1) / WB;
 }
 
+template <int HW>
 __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
+  using S = Wide<HW>;
+  constexpr int LD = S::LD, NH = S::NH, HV = S::HV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + WTILE;
-  __nv_bfloat16* Vs = Ks + WTILE;
+  __nv_bfloat16* Ks = Qs + S::TILE;
+  __nv_bfloat16* Vs = Ks + S::TILE;
   const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
   const float scale2 = a.scale2;
-  const long long n = blockIdx.x / nqb;
-  const int q0b = (int)(blockIdx.x % nqb) * WB;
+  // item: (sequence, block of 64 queries, head h, half oh)
+  const unsigned bx = blockIdx.x / (NH * HV);
+  const int h = (int)(blockIdx.x / HV % NH), oh = (int)(blockIdx.x % HV);
+  const long long n = bx / nqb;
+  const int q0b = (int)(bx % nqb) * WB;
   const size_t rowbase = (size_t)n * L;
   const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
@@ -2788,8 +3856,8 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
   int kc0 = 0, kc1 = -1, b0, b1;
   if (active) key_chunks(r0, L, lb, kc0, kc1);
   wide_key_blocks(q0b, L, lb, b0, b1);
-  load_wide(Qs, src, 3 * C, 0, q0b, L);
-  const __nv_bfloat16* qw = Qs + warp * 16 * WLD;
+  load_wide<HW>(Qs, src, 3 * C, h * HW, q0b, L);
+  const __nv_bfloat16* qw = Qs + warp * 16 * LD;
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float o[16][4] = {};
@@ -2807,8 +3875,8 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
     }
     for (int kb = b0; kb <= b1; ++kb) {
       __syncthreads();  // the previous block's readers are done
-      load_wide(Ks, src, 3 * C, C, kb * WB, L);
-      if (walk == 1) load_wide(Vs, src, 3 * C, 2 * C, kb * WB, L);
+      load_wide<HW>(Ks, src, 3 * C, C + h * HW, kb * WB, L);
+      if (walk == 1) load_wide<HW>(Vs, src, 3 * C, 2 * C + h * HW, kb * WB, L);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -2817,7 +3885,7 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
         const int kc = kb * 4 + c;
         if (kc < kc0 || kc > kc1) continue;
         float sc[2][4];
-        wide_dot16(sc, qw, Ks + c * 16 * WLD, lane);
+        wide_dot16<HW>(sc, qw, Ks + c * 16 * LD, lane);
         wide_mask(sc, kc * 16, rq, L, lb, scale2, lane);
         if (walk == 0) {
 #pragma unroll
@@ -2841,7 +3909,7 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
               sc[j][e] = ex2(sc[j][e] - m[e >> 1]) * l[e >> 1];
           uint32_t pa[4];
           pack_a(pa, sc);
-          wide_product(o, pa, Vs + c * 16 * WLD, lane);
+          wide_product<HW>(o, pa, Vs + c * 16 * LD + oh * 128, lane);
         }
       }
     }
@@ -2849,23 +3917,29 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
   if (!active) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    if (rq[r] < L && t == 0)
-      *reinterpret_cast<float2*>(a.stats + (rowbase + rq[r]) * 2) =
+    if (rq[r] < L && t == 0 && oh == 0)
+      *reinterpret_cast<float2*>(a.stats +
+                                 ((rowbase + rq[r]) * NH + h) * 2) =
           make_float2(m[r], l[r]);
-  store_rows<16>(a.ctx, C, rowbase, r0, L, 0, o, 1.f, lane);
+  store_rows<16>(a.ctx, C, rowbase, r0, L, h * HW + oh * 128, o, 1.f, lane);
 }
 
+template <int HW>
 __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
+  using S = Wide<HW>;
+  constexpr int LD = S::LD, NH = S::NH, HV = S::HV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + WTILE;  // dctx
-  __nv_bfloat16* Ks = Os + WTILE;
-  __nv_bfloat16* Vs = Ks + WTILE;
+  __nv_bfloat16* Os = Qs + S::TILE;  // dctx
+  __nv_bfloat16* Ks = Os + S::TILE;
+  __nv_bfloat16* Vs = Ks + S::TILE;
   const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
   const float scale2 = a.scale2;
   const float scale = a.scale;
-  const long long n = blockIdx.x / nqb;
-  const int q0b = (int)(blockIdx.x % nqb) * WB;
+  const unsigned bx = blockIdx.x / (NH * HV);
+  const int h = (int)(blockIdx.x / HV % NH), oh = (int)(blockIdx.x % HV);
+  const long long n = bx / nqb;
+  const int q0b = (int)(bx % nqb) * WB;
   const size_t rowbase = (size_t)n * L;
   const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
@@ -2875,19 +3949,19 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
   int kc0 = 0, kc1 = -1, b0, b1;
   if (active) key_chunks(r0, L, lb, kc0, kc1);
   wide_key_blocks(q0b, L, lb, b0, b1);
-  load_wide(Qs, src, 3 * C, 0, q0b, L);
-  load_wide(Os, a.dctx + rowbase * C, C, 0, q0b, L);
+  load_wide<HW>(Qs, src, 3 * C, h * HW, q0b, L);
+  load_wide<HW>(Os, a.dctx + rowbase * C, C, h * HW, q0b, L);
   float mr[2] = {0.f, 0.f}, ir[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r)
     if (active && rq[r] < L) {
       const float2 st = *reinterpret_cast<const float2*>(
-          a.stats + (rowbase + rq[r]) * 2);
+          a.stats + ((rowbase + rq[r]) * NH + h) * 2);
       mr[r] = st.x;
       ir[r] = st.y;
     }
-  const __nv_bfloat16* qw = Qs + warp * 16 * WLD;
-  const __nv_bfloat16* ow = Os + warp * 16 * WLD;
+  const __nv_bfloat16* qw = Qs + warp * 16 * LD;
+  const __nv_bfloat16* ow = Os + warp * 16 * LD;
 
   float rs[2] = {0.f, 0.f};
   float dq[16][4] = {};
@@ -2898,8 +3972,8 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
     }
     for (int kb = b0; kb <= b1; ++kb) {
       __syncthreads();
-      load_wide(Ks, src, 3 * C, C, kb * WB, L);
-      load_wide(Vs, src, 3 * C, 2 * C, kb * WB, L);
+      load_wide<HW>(Ks, src, 3 * C, C + h * HW, kb * WB, L);
+      load_wide<HW>(Vs, src, 3 * C, 2 * C + h * HW, kb * WB, L);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -2908,9 +3982,9 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
         const int kc = kb * 4 + c;
         if (kc < kc0 || kc > kc1) continue;
         float p[2][4], dp[2][4];
-        wide_dot16(p, qw, Ks + c * 16 * WLD, lane);
+        wide_dot16<HW>(p, qw, Ks + c * 16 * LD, lane);
         wide_mask(p, kc * 16, rq, L, lb, scale2, lane);
-        wide_dot16(dp, ow, Vs + c * 16 * WLD, lane);
+        wide_dot16<HW>(dp, ow, Vs + c * 16 * LD, lane);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -2930,7 +4004,7 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
               p[j][e] = p[j][e] * (dp[j][e] - rs[e >> 1]);
           uint32_t sa[4];
           pack_a(sa, p);
-          wide_product(dq, sa, Ks + c * 16 * WLD, lane);
+          wide_product<HW>(dq, sa, Ks + c * 16 * LD + oh * 128, lane);
         }
       }
     }
@@ -2938,22 +4012,29 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
   if (!active) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    if (rq[r] < L && t == 0) a.rsum[rowbase + rq[r]] = rs[r];
-  store_rows<16>(a.dqkv, 3 * C, rowbase, r0, L, 0, dq, scale, lane);
+    if (rq[r] < L && t == 0 && oh == 0)
+      a.rsum[(rowbase + rq[r]) * NH + h] = rs[r];
+  store_rows<16>(a.dqkv, 3 * C, rowbase, r0, L, h * HW + oh * 128, dq, scale,
+                 lane);
 }
 
+template <int HW>
 __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
+  using S = Wide<HW>;
+  constexpr int LD = S::LD, NH = S::NH, HV = S::HV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + WTILE;
-  __nv_bfloat16* Qs = Vs + WTILE;
-  __nv_bfloat16* Os = Qs + WTILE;  // dctx
-  float* mq = reinterpret_cast<float*>(Os + WTILE);  // [3][WB]: m, 1/l, rs
+  __nv_bfloat16* Vs = Ks + S::TILE;
+  __nv_bfloat16* Qs = Vs + S::TILE;
+  __nv_bfloat16* Os = Qs + S::TILE;  // dctx
+  float* mq = reinterpret_cast<float*>(Os + S::TILE);  // [3][WB]: m, 1/l, rs
   const int L = a.L, lb = a.lookback, nkb = (L + WB - 1) / WB;
   const float scale2 = a.scale2;
   const float scale = a.scale;
-  const long long n = blockIdx.x / nkb;
-  const int k0b = (int)(blockIdx.x % nkb) * WB;
+  const unsigned bx = blockIdx.x / (NH * HV);
+  const int h = (int)(blockIdx.x / HV % NH), oh = (int)(blockIdx.x % HV);
+  const long long n = bx / nkb;
+  const int k0b = (int)(bx % nkb) * WB;
   const size_t rowbase = (size_t)n * L;
   const __nv_bfloat16* src = a.qkv + rowbase * 3 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -2966,24 +4047,25 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
   const int b1 = (lb >= 0 ? min(L - 1, k0b + WB - 1 + lb) : L - 1) / WB;
   const int qc0 = lb >= 0 ? k0 / 16 : 0;
   const int qc1 = (lb >= 0 ? min(L - 1, k0 + 15 + lb) : L - 1) / 16;
-  load_wide(Ks, src, 3 * C, C, k0b, L);
-  load_wide(Vs, src, 3 * C, 2 * C, k0b, L);
-  const __nv_bfloat16* kw = Ks + warp * 16 * WLD;
-  const __nv_bfloat16* vw = Vs + warp * 16 * WLD;
+  load_wide<HW>(Ks, src, 3 * C, C + h * HW, k0b, L);
+  load_wide<HW>(Vs, src, 3 * C, 2 * C + h * HW, k0b, L);
+  const __nv_bfloat16* kw = Ks + warp * 16 * LD;
+  const __nv_bfloat16* vw = Vs + warp * 16 * LD;
 
   float dk[16][4] = {}, dv[16][4] = {};
   for (int qb = b0; qb <= b1; ++qb) {
     __syncthreads();
-    load_wide(Qs, src, 3 * C, 0, qb * WB, L);
-    load_wide(Os, a.dctx + rowbase * C, C, 0, qb * WB, L);
+    load_wide<HW>(Qs, src, 3 * C, h * HW, qb * WB, L);
+    load_wide<HW>(Os, a.dctx + rowbase * C, C, h * HW, qb * WB, L);
     cp_async_commit();
     for (int i = threadIdx.x; i < WB; i += blockDim.x) {
       const int q = qb * WB + i;
       float2 st = make_float2(0.f, 0.f);
       float r = 0.f;
       if (q < L) {
-        st = *reinterpret_cast<const float2*>(a.stats + (rowbase + q) * 2);
-        r = a.rsum[rowbase + q];
+        st = *reinterpret_cast<const float2*>(a.stats +
+                                              ((rowbase + q) * NH + h) * 2);
+        r = a.rsum[(rowbase + q) * NH + h];
       }
       mq[i] = st.x;
       mq[WB + i] = st.y;
@@ -2997,8 +4079,8 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
       if (qc < qc0 || qc > qc1) continue;
       // Keys as the M rows: s^T = k q^T, dp^T = v dctx^T.
       float sj[2][4], dp[2][4];
-      wide_dot16(sj, kw, Qs + c * 16 * WLD, lane);
-      wide_dot16(dp, vw, Os + c * 16 * WLD, lane);
+      wide_dot16<HW>(sj, kw, Qs + c * 16 * LD, lane);
+      wide_dot16<HW>(dp, vw, Os + c * 16 * LD, lane);
       float p[2][4], ds[2][4];
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -3017,34 +4099,40 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
       uint32_t pa[4], sa[4];
       pack_a(pa, p);
       pack_a(sa, ds);
-      wide_product(dv, pa, Os + c * 16 * WLD, lane);
-      wide_product(dk, sa, Qs + c * 16 * WLD, lane);
+      wide_product<HW>(dv, pa, Os + c * 16 * LD + oh * 128, lane);
+      wide_product<HW>(dk, sa, Qs + c * 16 * LD + oh * 128, lane);
     }
   }
   if (!active) return;
-  store_rows<16>(a.dqkv, 3 * C, rowbase, k0, L, C, dk, scale, lane);
-  store_rows<16>(a.dqkv, 3 * C, rowbase, k0, L, 2 * C, dv, 1.f, lane);
+  store_rows<16>(a.dqkv, 3 * C, rowbase, k0, L, C + h * HW + oh * 128, dk,
+                 scale, lane);
+  store_rows<16>(a.dqkv, 3 * C, rowbase, k0, L, 2 * C + h * HW + oh * 128,
+                 dv, 1.f, lane);
 }
 
-// The 128-channel head's forward recompute, or its backward (two launches),
-// for N sequences: one block per 64-row item.
+// A wide head's forward recompute, or its backward (two launches), for N
+// sequences: one block per item (64 rows, head, half).
+template <int HW>
 inline cudaError_t launch_head_wide(const HeadArgs& a, long long N,
                                     bool backward, cudaStream_t st) {
-  const unsigned items = (unsigned)(N * ((a.L + WB - 1) / WB));
-  const size_t tile = (size_t)WTILE * sizeof(__nv_bfloat16);
+  using S = Wide<HW>;
+  const unsigned items =
+      (unsigned)(N * ((a.L + WB - 1) / WB) * S::NH * S::HV);
+  const size_t tile = (size_t)S::TILE * sizeof(__nv_bfloat16);
   if (!backward) {
-    cudaError_t e = allow_smem(attn_fwd_wide_kernel, 3 * tile);
+    cudaError_t e = allow_smem(attn_fwd_wide_kernel<HW>, 3 * tile);
     if (e != cudaSuccess) return e;
-    attn_fwd_wide_kernel<<<items, 128, 3 * tile, st>>>(a);
+    attn_fwd_wide_kernel<HW><<<items, 128, 3 * tile, st>>>(a);
     return cudaGetLastError();
   }
-  cudaError_t e = allow_smem(attn_dq_wide_kernel, 4 * tile);
+  cudaError_t e = allow_smem(attn_dq_wide_kernel<HW>, 4 * tile);
   if (e != cudaSuccess) return e;
-  attn_dq_wide_kernel<<<items, 128, 4 * tile, st>>>(a);
+  attn_dq_wide_kernel<HW><<<items, 128, 4 * tile, st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t smem = 4 * tile + 3 * WB * sizeof(float);
-  if ((e = allow_smem(attn_dkv_wide_kernel, smem)) != cudaSuccess) return e;
-  attn_dkv_wide_kernel<<<items, 128, smem, st>>>(a);
+  if ((e = allow_smem(attn_dkv_wide_kernel<HW>, smem)) != cudaSuccess)
+    return e;
+  attn_dkv_wide_kernel<HW><<<items, 128, smem, st>>>(a);
   return cudaGetLastError();
 }
 #endif
@@ -3082,7 +4170,10 @@ inline cudaError_t launch_head(const HeadArgs& a, long long N, bool backward,
     case 64: return launch_head_hd<64>(a, N, backward, st);
 #endif
 #if LCT_C > 64
-    case 128: return launch_head_wide(a, N, backward, st);
+    case 128: return launch_head_wide<128>(a, N, backward, st);
+#endif
+#if LCT_C > 128
+    case 256: return launch_head_wide<256>(a, N, backward, st);
 #endif
   }
   return cudaErrorInvalidValue;
@@ -3092,7 +4183,8 @@ inline cudaError_t launch_head(const HeadArgs& a, long long N, bool backward,
 // Weight gradients on tensor cores: out[m, n] = sum over rows of A[row, m]
 // B[row, n], A and B bf16 in device memory (the contract rounds both). Each
 // block takes a fixed chunk of rows and, product after product, stages
-// tiles of 64 rows of A and B in shared memory (cp.async, double-buffered);
+// tiles of WG_ROWS rows of A and B in shared memory (cp.async,
+// double-buffered);
 // each warp keeps up to WG_UNITS 16x16 output units in f32 registers, their
 // A^T fragments from ldmatrix.trans. A product's outputs go to the block's
 // partial row; reduce_tc_kernel adds the rows in block order. `grouped`:
@@ -3127,7 +4219,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
   const int g = lane >> 2, t = lane & 3;
   const long long r0 = (long long)blockIdx.x * a.chunk;
   const long long r1 = min(a.rows, r0 + a.chunk);
-  const int ntiles = (int)((r1 - r0 + 63) / 64);
+  const int ntiles = (int)((r1 - r0 + WG_ROWS - 1) / WG_ROWS);
   float* part = a.part + (size_t)blockIdx.x * a.nout;
   for (int pi = 0; pi < a.np; ++pi) {
     const WgProd P = a.p[pi];
@@ -3135,16 +4227,16 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
     const int nunits = P.grouped ? G * 3 : (P.M / 16) * (P.N / 16);
     auto stage = [&](int buf, long long rt) {
       __nv_bfloat16* As = sm + buf * WG_STAGE;
-      __nv_bfloat16* Bs = As + 64 * lda;
+      __nv_bfloat16* Bs = As + WG_ROWS * lda;
       const int ma = P.M / 8, nb = P.N / 8;
-      for (int i = tid; i < 64 * ma; i += RT) {
+      for (int i = tid; i < WG_ROWS * ma; i += RT) {
         const int r = i / ma, c8 = i % ma;
         const long long row = rt + r;
         const bool ok = row < r1;
         cp_async16(As + r * lda + c8 * 8,
                    P.A + (size_t)(ok ? row : r0) * P.lda + P.acol + c8 * 8, ok);
       }
-      for (int i = tid; i < 64 * nb; i += RT) {
+      for (int i = tid; i < WG_ROWS * nb; i += RT) {
         const int r = i / nb, c8 = i % nb;
         const long long row = rt + r;
         const bool ok = row < r1;
@@ -3164,7 +4256,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
     cp_async_commit();
     for (int it = 0; it < ntiles; ++it) {
       if (it + 1 < ntiles) {
-        stage((it + 1) & 1, r0 + (long long)(it + 1) * 64);
+        stage((it + 1) & 1, r0 + (long long)(it + 1) * WG_ROWS);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -3172,7 +4264,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
       }
       __syncthreads();
       const __nv_bfloat16* As = sm + (it & 1) * WG_STAGE;
-      const __nv_bfloat16* Bs = As + 64 * lda;
+      const __nv_bfloat16* Bs = As + WG_ROWS * lda;
 #pragma unroll
       for (int ui = 0; ui < WG_UNITS; ++ui) {
         const int u = warp + 4 * ui;
@@ -3186,7 +4278,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
           nc = u % (P.N / 16);
         }
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < WG_ROWS / 16; ++kk) {
           uint32_t af[4], bf[4];
           load_at(af, As + kk * 16 * lda + mt * 16, lda, lane);
           load_b_kn(bf, Bs + kk * 16 * ldb + nc * 16, ldb, lane);
@@ -3200,7 +4292,8 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
           const int c = tid + k * RT;
           if (c < P.N) {
             float s = 0.f;
-            for (int r = 0; r < 64; ++r) s += __bfloat162float(Bs[r * ldb + c]);
+            for (int r = 0; r < WG_ROWS; ++r)
+              s += __bfloat162float(Bs[r * ldb + c]);
             cs[k] += s;
           }
         }
@@ -3259,7 +4352,8 @@ __global__ void reduce_tc_kernel(RedArgs a) {
 }
 
 // Sequences a block of the bf16 GRU stage takes: bptt_tc_kernel's GS, or
-// the CUDA-core walk's DS for a dense slot of 128.
+// the CUDA-core walk's DS for a dense slot of 128 (and the cluster walk's
+// BC_DS = DS, a cluster, for one of 256).
 inline int bptt_seqs(int W) { return W > 64 ? DS : GS; }
 
 // Device memory of one bf16-mode launch, in bytes from one base (each
@@ -3270,7 +4364,7 @@ struct ScratchTC {
   __nv_bfloat16 *qkv, *gb, *ctx, *ab, *dcomb, *da, *dctx, *dqkv, *n2, *n1,
       *hprev, *dxp, *dhp;
   float *s, *stats, *dglin, *ds, *p_comb, *p_dn2, *p_bptt, *p_dn1, *p_wg,
-      *rsum;
+      *rsum, *K;
   long long total;
   int grid_rows, grid_wg, nout;
   long long wg_chunk;
@@ -3322,8 +4416,10 @@ struct ScratchTC {
     p_bptt = (float*)take((N + bptt_seqs(W) - 1) / bptt_seqs(W) * 2 * D * 3 *
                           C * f32);
     p_wg = (float*)take((long long)grid_wg * nout * f32);
-    // The 128-channel head's rowsums (attn_dq_wide_kernel) at C = 128.
+    // The wide heads' rowsums (attn_dq_wide_kernel) at C >= 128.
     rsum = C > 64 ? (float*)take(rows * nh * f32) : nullptr;
+    // One slot of C = 256: the gate factors of every step (gate_tc_kernel).
+    K = C > 128 && W == C ? (float*)take(D * rows * 5 * C * f32) : nullptr;
     total = off;
   }
 };
@@ -3334,9 +4430,17 @@ struct ScratchTC {
 inline cudaError_t tc_grids(long long rows, int* grid_rows, int* grid_wg) {
   const long long tiles = (rows + 63) / 64;
   unsigned gr = 1, gw = 1;
+#if LCT_C > 128
+  // The row-tile kernels of C = 256 (combine, dn2, dn1) each fill an SM's
+  // shared memory: one grid of the combine layer's blocks for all three.
+  cudaError_t e = allow_smem(comb_panel_kernel, CB_SMEM);
+  if (e != cudaSuccess) return e;
+  e = persistent_grid(comb_panel_kernel, CB_THREADS, CB_SMEM, tiles, &gr);
+#else
   cudaError_t e = allow_smem(comb_bwd_tc_kernel, COMB_SMEM);
   if (e != cudaSuccess) return e;
   e = persistent_grid(comb_bwd_tc_kernel, RT, COMB_SMEM, tiles, &gr);
+#endif
   if (e != cudaSuccess) return e;
   const size_t wsm = (size_t)2 * WG_STAGE * sizeof(__nv_bfloat16);
   if ((e = allow_smem(wgrad_tc_kernel, wsm)) != cudaSuccess) return e;
@@ -3374,7 +4478,8 @@ extern "C" long long lct_ftf_backward_scratch_floats(long long N, int L,
 
 // x, dout, dx: [N, L, C]; hid: [D, N*L, C]; parameters as in
 // lct_ftf_forward (ftf.cu), the GRU's in `slots` slots ([D, slots, W, 3W] /
-// [D, slots, 3W], W = C / slots: slots = C / 16, 1, or at C = 128 2), their
+// [D, slots, 3W], W = C / slots: slots = C / 16, 1, at C = 128 2, at C =
+// 256 4 or 2), their
 // gradients in the same shapes; c_true true channels (the LayerNorms'
 // count; the rest of each row zero), num_heads dividing it (heads of
 // c_true / num_heads true channels at head_width of it, common.cuh), scale
@@ -3413,17 +4518,17 @@ extern "C" int lct_ftf_backward_f32(
   ln_kernel<<<wblocks, 256, 0, st>>>(x, hid, hid1, ln2_s, ln2_b, s.n2, s.xh2,
                                      s.rs2, rows, inv_c);
   LCT_CHECK();
-  proj_kernel<false><<<rblocks, row_threads(3 * C), 0, st>>>(
-      x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv, rows, 3 * C,
-      /*round=*/0, inv_c);
+  proj_kernel<false><<<row_grid(rblocks, 3 * C), row_threads(3 * C), 0,
+                       st>>>(x, hid, hid1, ln2_s, ln2_b, in_w, in_b, s.qkv,
+                             rows, 3 * C, /*round=*/0, inv_c);
   LCT_CHECK();
   LCT_TRY(launch_attn<1>(s.qkv, nullptr, s.ctx, N, L, lookback, /*round=*/0,
                          hd, scale, st));
 
   // 3. combine layer and out-proj backward.
-  comb_bwd_kernel<<<rblocks, C, 0, st>>>(hid, D, s.ctx, dout, out_w, out_b,
-                                         lin_w, lin_b, lin_in, s.ga, s.dcomb,
-                                         s.da, s.dglin, s.dctx, rows);
+  comb_bwd_kernel<<<(unsigned)((rows + COMB_ROWS - 1) / COMB_ROWS), C, 0,
+                    st>>>(hid, D, s.ctx, dout, out_w, out_b, lin_w, lin_b,
+                          lin_in, s.ga, s.dcomb, s.da, s.dglin, s.dctx, rows);
   LCT_CHECK();
 
   // 4. attention core backward.
@@ -3431,7 +4536,8 @@ extern "C" int lct_ftf_backward_f32(
                           st));
 
   // 5. qkv projection and LN2 backward: ds, and dg = ds (+ dg_lin).
-  dn2_kernel<<<rblocks, C, 0, st>>>(s.dqkv, in_w, s.dn2, rows);
+  dn2_kernel<<<(unsigned)((rows + DN2_ROWS - 1) / DN2_ROWS), C, 0, st>>>(
+      s.dqkv, in_w, s.dn2, rows);
   LCT_CHECK();
   ln_bwd_kernel<<<wblocks, 256, 0, st>>>(s.dn2, s.xh2, s.rs2, ln2_s, dout,
                                          freq ? s.dglin : nullptr, s.ds,
@@ -3446,31 +4552,32 @@ extern "C" int lct_ftf_backward_f32(
   const long long gthreads = rows * D * C;
   const unsigned gblocks = (unsigned)((gthreads + 255) / 256);
   const unsigned pthreads = row_threads(D * 3 * C);
-  if (W == 16) {
-    proj_kernel<true, 16><<<rblocks, pthreads, 0, st>>>(
+  const dim3 pgrid = row_grid(rblocks, D * 3 * C);
+  // LN1's grouped input projection and the gate factors over slots of GW.
+  auto gates = [&](auto gw) {
+    constexpr int GW = decltype(gw)::value;
+    proj_kernel<true, GW><<<pgrid, pthreads, 0, st>>>(
         x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
         /*round=*/0, inv_c);
-    LCT_CHECK();
-    gate_kernel<16><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    gate_kernel<GW><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
                                              s.hpv, N, L, D);
+    return cudaGetLastError();
+  };
+  if (W == 16) {
+    LCT_TRY(gates(std::integral_constant<int, 16>{}));
 #if LCT_C > 64
   } else if (W == 64) {
-    proj_kernel<true, 64><<<rblocks, pthreads, 0, st>>>(
-        x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-        /*round=*/0, inv_c);
-    LCT_CHECK();
-    gate_kernel<64><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
-                                             s.hpv, N, L, D);
+    LCT_TRY(gates(std::integral_constant<int, 64>{}));
+#endif
+#if LCT_C > 128
+  } else if (W == 128) {
+    LCT_TRY(gates(std::integral_constant<int, 128>{}));
 #endif
   } else {
-    proj_kernel<true, C><<<rblocks, pthreads, 0, st>>>(
-        x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, s.xp, rows, D * 3 * C,
-        /*round=*/0, inv_c);
-    LCT_CHECK();
-    gate_kernel<C><<<gblocks, 256, 0, st>>>(s.xp, hid, w_hh, b_hh, s.K,
-                                            s.hpv, N, L, D);
+    LCT_TRY(gates(std::integral_constant<int, C>{}));
   }
-  LCT_CHECK();
   LCT_TRY(launch_bptt(s.K, dg, w_hh, s.dxp, s.dhp, N, L, D, slots, st));
 
   // 9. input projection and LN1 backward: dx.
@@ -3480,6 +4587,10 @@ extern "C" int lct_ftf_backward_f32(
 #if LCT_C > 64
   } else if (W == 64) {
     dn1_kernel<64><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
+#endif
+#if LCT_C > 128
+  } else if (W == 128) {
+    dn1_kernel<128><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
 #endif
   } else {
     dn1_kernel<C><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
@@ -3502,10 +4613,21 @@ extern "C" int lct_ftf_backward_f32(
   LCT_TRY(wg(WG_DIAG, s.dn2, C, 0, s.xh2, C, 0, C, C, C, dln2_s));
   LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dn2, C, 0, C, 0, C, dln2_b));
   if (W == 16) {
+#if LCT_C > 128
+    // 2 x 12,288 outputs, past one launch's WG_OUT: a direction a launch.
+    for (int d = 0; d < D; ++d) {
+      const size_t o = (size_t)d * C * 3 * W;
+      LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, s.dxp + d * 3 * C, D3C, 0,
+                 C * 3 * W, C, 3 * C, dw_ih + o));
+      LCT_TRY(wg(WG_GROUPED, s.hpv + (size_t)d * rows * C, C, 0,
+                 s.dhp + d * 3 * C, D3C, 0, C * 3 * W, C, 3 * C, dw_hh + o));
+    }
+#else
     LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, s.dxp, D3C, 0, D * C * 3 * W, C, D3C,
                dw_ih));
     LCT_TRY(wg(WG_GROUPED, s.hpv, C, rows * C, s.dhp, D3C, 0, D * C * 3 * W,
                D * C, D3C, dw_hh));
+#endif
   } else {
     // Dense slots: the products are dense [W x 3W] per direction and slot.
     for (int d = 0; d < D; ++d)
@@ -3552,7 +4674,10 @@ extern "C" long long lct_ftf_backward_bf16_scratch_bytes(long long N, int L,
 //   attn_bwd_tc_kernel -> dn2_tc_kernel -> bptt_tc_kernel -> dn1_tc_kernel
 //   (-> dx) -> wgrad_tc_kernel -> reduce_tc_kernel (-> the 14 parameter
 //   gradients); a head of 128 channels takes attn_*_wide_kernel (one more
-//   launch), a dense GRU slot of 128 bptt_simt_kernel.
+//   launch), a dense GRU slot of 128 bptt_simt_kernel. At C = 256
+//   comb_panel_kernel, dn_panel_kernel (twice) and, for one slot of 256,
+//   gate_tc_kernel + bptt_cluster_kernel take their stages, and
+//   wgrad_tc_kernel runs in up to four launches.
 extern "C" int lct_ftf_backward_bf16(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -3592,20 +4717,60 @@ extern "C" int lct_ftf_backward_bf16(
   // Combine layer and out-projection backward.
   CombArgs ca = {s.ctx, s.gb, dout, out_w, out_b, lin_w, lin_b, lin_in,
                  s.ab, s.dcomb, s.da, s.dctx, s.dglin, s.p_comb, rows};
+#if LCT_C > 128
+  LCT_TRY(allow_smem(comb_panel_kernel, CB_SMEM));
+  comb_panel_kernel<<<gr, CB_THREADS, CB_SMEM, st>>>(ca);
+#else
   comb_bwd_tc_kernel<<<gr, RT, COMB_SMEM, st>>>(ca);
+#endif
   LCT_CHECK();
   // Attention core backward.
   LCT_TRY(launch_head(ha, N, /*backward=*/true, st));
   // qkv projection and LN2 backward.
+#if LCT_C > 128
+  const DnArgs na = {s.dqkv, in_w, s.s, ln2_s, dout, s.ds, ln2_b, x, ln1_s,
+                     ln1_b, s.n2, s.n1, s.p_dn2, rows, 1, inv_c};
+  LCT_TRY((launch_dn_panel<C, true>(na, gr, st)));
+#else
   Dn2Args na = {s.dqkv, s.s, dout, x, in_w, ln2_s, ln2_b, ln1_s, ln1_b,
                 s.n2, s.n1, s.ds, s.p_dn2, rows, inv_c};
   LCT_TRY(allow_smem(dn2_tc_kernel, DN2_SMEM));
   dn2_tc_kernel<<<gr, RT, DN2_SMEM, st>>>(na);
   LCT_CHECK();
+#endif
   // GRU: projections, gate factors and BPTT.
   BpttArgs ba = {s.n1, w_ih, w_hh, b_ih, b_hh, hid, s.ds,
                  freq ? s.dglin : nullptr, s.hprev, s.dxp, s.dhp, s.p_bptt,
                  N, L, D};
+#if LCT_C > 128
+  if (W == 16) {
+    LCT_TRY(launch_bptt_tc<1>(ba, st));
+  } else if (W == 64) {
+    LCT_TRY(launch_bptt_tc<4>(ba, st));
+  } else if (W == 128) {
+    LCT_TRY(launch_bptt_simt(ba, st));
+  } else {
+    // One slot of 256: every step's gate factors on tensor cores, then the
+    // carry's walk by clusters.
+    const GateArgs gt = {s.n1, hid, w_ih, w_hh, b_ih, b_hh, s.K, s.hprev,
+                         N, L};
+    LCT_TRY(launch_gate_tc(gt, D, st));
+    const ClusterArgs cl = {s.K, s.ds, freq ? s.dglin : nullptr, w_hh,
+                            nullptr, nullptr, s.dxp, s.dhp, s.p_bptt, N, L,
+                            D};
+    LCT_TRY(launch_bptt_cluster<true>(cl, st));
+  }
+  // Input projection and LN1 backward: dx.
+  const DnArgs da1 = {s.dxp, w_ih, x, ln1_s, s.ds, dx, nullptr, nullptr,
+                      nullptr, nullptr, nullptr, nullptr, s.p_dn1, rows, D,
+                      inv_c};
+  switch (W) {
+    case 16: LCT_TRY((launch_dn_panel<16, false>(da1, gr, st))); break;
+    case 64: LCT_TRY((launch_dn_panel<64, false>(da1, gr, st))); break;
+    case 128: LCT_TRY((launch_dn_panel<128, false>(da1, gr, st))); break;
+    default: LCT_TRY((launch_dn_panel<C, false>(da1, gr, st))); break;
+  }
+#else
   if (W == 16) {
     LCT_TRY(launch_bptt_tc<1>(ba, st));
   } else {
@@ -3634,6 +4799,7 @@ extern "C" int lct_ftf_backward_bf16(
     LCT_TRY(dn1(std::integral_constant<int, 4>{}));
 #endif
   }
+#endif
 
   // Weight gradients, then every partial sum reduced in block order. The
   // GRU's: slots of 16 as the diagonal blocks of a grouped product, dense
@@ -3642,7 +4808,7 @@ extern "C" int lct_ftf_backward_bf16(
   const int o_lin = 0, o_out = lin_in * C, o_in = o_out + C * C;
   const int o_inb = o_in + C * 3 * C, o_ih = o_inb + 3 * C;
   const int o_hh = o_ih + DG;
-  WgArgs wa = {};
+  WgProd pieces[WG_ALLP];
   int np = 0;
   // A product, in pieces of whole rows of at most 4 WG_UNITS units each
   // (one piece at C = 64).
@@ -3651,10 +4817,10 @@ extern "C" int lct_ftf_backward_bf16(
                   int grouped, int out_off, int cs_off) {
     const int mstep = grouped ? M : 16 * (4 * WG_UNITS / (Nn / 16));
     for (int m0 = 0; m0 < M; m0 += mstep, ++np)
-      if (np < WG_MAXP)
-        wa.p[np] = {A, B, lda, ldb, acol + m0, bcol,
-                    M - m0 < mstep ? M - m0 : mstep, Nn, grouped,
-                    out_off + m0 * Nn, m0 == 0 ? cs_off : -1};
+      if (np < WG_ALLP)
+        pieces[np] = {A, B, lda, ldb, acol + m0, bcol,
+                      M - m0 < mstep ? M - m0 : mstep, Nn, grouped,
+                      out_off + m0 * Nn, m0 == 0 ? cs_off : -1};
   };
   if (freq) prod(s.gb, C, 0, C, s.dcomb, C, 0, C, 0, o_lin, -1);
   prod(s.ab, C, 0, C, s.dcomb, C, 0, C, 0, o_lin + (freq ? C * C : 0), -1);
@@ -3672,16 +4838,22 @@ extern "C" int lct_ftf_backward_bf16(
            d * 3 * C + sl * 3 * W, grouped ? 3 * C : 3 * W, grouped,
            o_hh + off, -1);
     }
-  if (np > WG_MAXP) return (int)cudaErrorInvalidValue;
-  wa.np = np;
-  wa.rows = rows;
-  wa.chunk = s.wg_chunk;
-  wa.nout = s.nout;
-  wa.part = s.p_wg;
+  if (np > WG_ALLP) return (int)cudaErrorInvalidValue;
   const size_t wsm = (size_t)2 * WG_STAGE * sizeof(__nv_bfloat16);
   LCT_TRY(allow_smem(wgrad_tc_kernel, wsm));
-  wgrad_tc_kernel<<<s.grid_wg, RT, wsm, st>>>(wa);
-  LCT_CHECK();
+  // At most WG_MAXP pieces a launch (one launch below C = 256): each writes
+  // its own pieces' outputs of the partial rows.
+  for (int p0 = 0; p0 < np; p0 += WG_MAXP) {
+    WgArgs wa = {};
+    wa.np = np - p0 < WG_MAXP ? np - p0 : WG_MAXP;
+    for (int i = 0; i < wa.np; ++i) wa.p[i] = pieces[p0 + i];
+    wa.rows = rows;
+    wa.chunk = s.wg_chunk;
+    wa.nout = s.nout;
+    wa.part = s.p_wg;
+    wgrad_tc_kernel<<<s.grid_wg, RT, wsm, st>>>(wa);
+    LCT_CHECK();
+  }
 
   const int nb = (int)((N + bptt_seqs(W) - 1) / bptt_seqs(W));
   const int ldb2 = 2 * D * 3 * C;

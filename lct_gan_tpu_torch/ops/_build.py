@@ -15,10 +15,10 @@ score scale are arguments of each launch): CK = 64, the default, builds
 every source as it always has (`lib<name>-<hash>.so`); any other CK builds
 with -DLCT_C=<CK> into `lib<name>-c<CK>-<hash>.so` the forward sources
 (`FORWARD_SOURCES`) at its first use, and the FTF backward's
-(`BACKWARD_SOURCES`) at its first backward, so serving alone never builds
-the backward; CK = 256 has no backward (`BACKWARD_WIDTHS`: 16 .. 128). All
-sources of all the widths asked for build in one parallel batch, one nvcc
-process each.
+(`BACKWARD_SOURCES`) at its first backward (at `BACKWARD_WIDTHS`, every
+kernel width), so serving alone never builds the backward. A width past
+256 has no libraries and is refused by name. All sources of all the widths
+asked for build in one parallel batch, one nvcc process each.
 """
 
 from __future__ import annotations

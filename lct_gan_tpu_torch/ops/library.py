@@ -30,13 +30,14 @@ NAMESPACE = "lct_gan_tpu_torch"
 
 # The kernel widths the CUDA libraries are built for (one set of libraries
 # each, ops/_build.py): the forward kernels at every one, the FTF backward
-# at BACKWARD_WIDTHS. Any bottleneck width C in any number of attention
+# at BACKWARD_WIDTHS (today the same set; a wider forward width may come
+# before its backward). Any bottleneck width C in any number of attention
 # heads and GRU groups that divides it runs at the one its padded layout
 # fits (ops/padding.py::kernel_width), up to the widest (the JAX package's
-# kernels read all three from their shapes): serving up to 256 channels,
-# training, whose gradients reach the backward kernel, up to 128.
+# kernels read all three from their shapes): serving and training, whose
+# gradients reach the backward kernel, up to 256 channels.
 KERNEL_WIDTHS = (16, 32, 64, 128, 256)
-BACKWARD_WIDTHS = (16, 32, 64, 128)
+BACKWARD_WIDTHS = KERNEL_WIDTHS
 
 
 def divisors(C: int) -> tuple:

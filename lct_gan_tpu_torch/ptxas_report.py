@@ -5,8 +5,8 @@ ptxas reports them, for one checkout or two side by side:
         [TREE ...]
 
 Each TREE is the root of a checkout (default: this one); the
-`lct_gan_tpu_torch/csrc/*.cu` of the width's libraries (at width 256 the
-forward ones) are compiled with the build's flags
+`lct_gan_tpu_torch/csrc/*.cu` of the width's libraries (the FTF
+backward's too) are compiled with the build's flags
 (`ops/_build.py`) and -Xptxas -v into a temporary directory, every source
 of every tree in one parallel batch of nvcc processes. Prints one JSON line
 per tree ({kernel: {registers, spill_stores, spill_loads}}, each kernel

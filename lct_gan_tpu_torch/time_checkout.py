@@ -2,15 +2,18 @@
 change against its parent in one call:
 
     python3 lct_gan_tpu_torch/time_checkout.py TREE LABEL
-        [--parts fixed,b64,loop] [--timed 5] [--import_dist]
+        [--parts fixed,b64,loop,bwd64] [--timed 5] [--import_dist]
 
 TREE is the root of a checkout (e.g. a `git archive` of the parent); its
 own `lct_gan_tpu_torch` and `chip_smoke.py` are imported, so run this file
 by path, not with -m. Prints one JSON line: the fixed call (make_enhance,
 B = 128 x 2 s, five medians of 5 calls), the B = 64 x 2 s train step
-(median of --timed steps after 2 warm-up, split into its phases), and
+(median of --timed steps after 2 warm-up, split into its phases),
 run_training for 2 epochs on chip_smoke.py's synthetic corpus (epoch 2's
-median in-loop step and audio-sec/s). --import_dist imports
+median in-loop step and audio-sec/s), and with part bwd64 (not in the
+default) the bf16 FTF backward at C = 64, 4 heads and 4 groups, at the
+B = 64 x 2 s training shapes (frequency block N = 8,256 x 33, time block
+N = 2,112 x 129; five means of 5 launches each). --import_dist imports
 torch.distributed first. Run the two trees in turns (parent, change,
 change, parent, ...), one process each, and compare within one call.
 """
@@ -72,6 +75,26 @@ def main(argv=None):
                                           n_timed=args.timed)
         del state
         torch.cuda.empty_cache()
+    if "bwd64" in parts:
+        from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
+        from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+
+        g = torch.Generator(device="cuda").manual_seed(5)
+        blocks = cs.seeded_blocks(torch, 0, 64, 4, 4)
+        for name, blk, N, L in (("freq", blocks[0], 64 * 129, 33),
+                                ("time", blocks[1], 64 * 33, 129)):
+            params = [p.detach().contiguous() for p in blk.kernel_params()]
+            kw = dict(bidirectional=blk.bidirectional, num_heads=4,
+                      lookback=None, precise=False)
+            x = torch.randn((N, L, 64), generator=g, device="cuda")
+            hid = ftf_forward_with_hidden(x, *params, **kw)[1]
+            dout = torch.randn((N, L, 64), generator=g, device="cuda")
+            runs = [cs.cuda_ms(torch, lambda: fused_ftf_bwd(
+                x, *params, hid, dout, **kw), 5) for _ in range(5)]
+            out[f"bwd64_{name}_ms_runs"] = runs
+            out[f"bwd64_{name}_ms_median"] = statistics.median(runs)
+            del x, hid, dout
+            torch.cuda.empty_cache()
     if "loop" in parts:
         root = tempfile.mkdtemp(prefix="lct_time_")
         try:

@@ -1,14 +1,17 @@
-"""The four forward kernels at kernel width 256 (csrc/ftf.cu, mhsa.cu,
-banded.cu built with -DLCT_C=256; the layouts padded to 256 by the
-wrappers) on the card against their plain PyTorch versions on the same
-inputs, at the edges of their shapes: one sequence, one step, the longest
+"""The four forward kernels and the FTF backward at kernel width 256
+(csrc/ftf.cu, mhsa.cu, banded.cu, ftf_bwd.cu built with -DLCT_C=256; the
+layouts padded to 256 by the wrappers) on the card against their plain
+PyTorch versions on the same inputs, at the edges of their shapes: one sequence, one step, the longest
 fused length, a ragged sequence count (the cluster GRU takes 4 sequences a
 cluster, the epilogue 128 rows a tile), bands of 0 and past a key tile,
 and the routes of that width: GRU slots of 16, of 64 (groups of 32 packed
 two to a slot, and of 64), of 128 (a slot a block) and one of 256 (the
 thread-block cluster), head widths 4 .. 256 (heads of <= 8 masked in
 their 16-channel k-step, heads of 128 and 256 a warp a query in precise
-mode), and C = 100, 144 and 200 padded to 256.
+mode), and C = 100, 144 and 200 padded to 256. The backward at every
+(heads, groups) pair of its routes (BACKWARD_ROUTES: GRU slots of 16, 64,
+128 and the cluster's 256, heads of 4 .. 256) and at C = 100, 120 and 144
+padded to 256, bands none, 0 and 5.
 
 Skips without a GPU. On a machine with the card (no JAX needed there):
 
@@ -35,7 +38,9 @@ import torch
 from lct_gan_tpu_torch.ops.attention import fused_mhsa, mhsa_reference
 from lct_gan_tpu_torch.ops.banded_attention import (banded_mhsa,
                                                     banded_mhsa_reference)
-from lct_gan_tpu_torch.ops.ftf import ftf_block_reference, fused_ftf_block
+from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference, fused_ftf_block,
+                                       ftf_forward_with_hidden)
+from lct_gan_tpu_torch.ops.ftf_bwd import ftf_bwd_plain, fused_ftf_bwd
 from lct_gan_tpu_torch.ops.gru import fused_grouped_gru, grouped_gru_plain
 from lct_gan_tpu_torch.ops.padding import kernel_width
 
@@ -49,6 +54,11 @@ TOL_GRU = 1e-5
 ROUTES = [(256, 1, 1), (256, 4, 4), (256, 2, 8), (256, 16, 16),
           (256, 8, 2), (256, 64, 64), (100, 5, 5), (144, 4, 4),
           (200, 8, 8)]
+# (C, heads, groups) of the backward: chip_smoke.py's W256_PAIRS at C = 256
+# and its W256_PADDED layouts.
+BACKWARD_ROUTES = [(256, 1, 16), (256, 2, 8), (256, 4, 4), (256, 8, 2),
+                   (256, 16, 1), (256, 32, 32), (256, 64, 64), (100, 5, 5),
+                   (120, 3, 3), (144, 4, 4)]
 
 
 @pytest.fixture(scope="module")
@@ -57,9 +67,10 @@ def card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from lct_gan_tpu_torch.ops._build import build_all
 
-    build_all(verbose=True, widths=(256,))
+    build_all(verbose=True, widths=(256,), backward=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    assert all(kernel_width(C, nh, G) == 256 for C, nh, G in ROUTES)
+    assert all(kernel_width(C, nh, G) == 256
+               for C, nh, G in ROUTES + BACKWARD_ROUTES)
     return torch.device("cuda")
 
 
@@ -182,3 +193,47 @@ def test_bf16_attention_at_unscaled_weights(card, C, nh, G, kernel):
         f"{what}: |kernel - f32| max {dk.max().item()} mean "
         f"{dk.mean().item()} against the plain version's "
         f"{dp.max().item()} / {dp.mean().item()}")
+
+
+@pytest.mark.parametrize("mode", ["bf16", "precise"])
+@pytest.mark.parametrize("N,L", [(1, 1), (4, 33), (9, 129)])
+@pytest.mark.parametrize("kind", ["freq", "time_band0", "time_band5"])
+@pytest.mark.parametrize("C,nh,G", BACKWARD_ROUTES)
+def test_ftf_backward_at_256(card, C, nh, G, kind, N, L, mode):
+    """fused_ftf_bwd against ftf_bwd_plain on the card: every gradient
+    within TOL of its largest magnitude, or in bf16 as close to the f32
+    plain version as the bf16 plain version is (the C = 128 backward
+    cases' test, tests/test_torch_cuda_channels.py)."""
+    g = torch.Generator().manual_seed(C * 1000 + nh * 10 + G + L + 7)
+    D = 2 if kind == "freq" else 1
+    x = torch.randn((N, L, C), generator=g).cuda()
+    params = _fan_in(_ftf_params(g, C, G, D), C)
+    lookback = {"freq": None, "time_band0": 0, "time_band5": 5}[kind]
+    precise = mode == "precise"
+    out, hid = ftf_forward_with_hidden(x, *params, bidirectional=D == 2,
+                                       num_heads=nh, lookback=lookback,
+                                       precise=precise)
+    act = out - x - hid.sum(dim=0).reshape(N, L, C)
+    comb = torch.where(act >= 0, act, act / 0.2)
+    dout = torch.randn((N, L, C), generator=g).cuda()
+    dout = torch.where(comb.abs() < (1e-3 if precise else 5e-2), 0.0, dout)
+    args = (x, *params, hid, dout, D == 2, nh, lookback)
+    before = fused_ftf_bwd.launches
+    got = fused_ftf_bwd(*args[:17], bidirectional=D == 2, num_heads=nh,
+                        lookback=lookback, precise=precise)
+    torch.cuda.synchronize()
+    assert fused_ftf_bwd.launches == before + 1
+    want = ftf_bwd_plain(*args, precise)
+    ref32 = ftf_bwd_plain(*args, True) if not precise else want
+    what = f"FTF backward C={C} heads={nh} groups={G} {kind} N={N} L={L}"
+    for i, (a, b, r) in enumerate(zip(got, want, ref32)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), (what, i)
+        scale = max(b.abs().max().item(), 1e-30)
+        if (a - b).abs().max().item() <= TOL[mode] * scale:
+            continue
+        assert not precise, (what, i, (a - b).abs().max().item() / scale)
+        dk, dp = (a - r).abs(), (b - r).abs()
+        assert dk.max() <= 2 * dp.max() and dk.mean() <= 2 * dp.mean(), (
+            f"{what} gradient {i}: |kernel - f32| max {dk.max().item()} "
+            f"mean {dk.mean().item()} against the plain version's "
+            f"{dp.max().item()} / {dp.mean().item()}")

@@ -56,6 +56,8 @@ from test_torch_port_widths import (ORDER, _attn_params, _ftf_params, _j,
 # 50, so 128; C = 8 below the narrowest kernel; heads and groups of 20 at
 # C = 80, widened to 32.
 PADDED = [(40, 4, 4), (50, 5, 5), (8, 2, 2), (80, 4, 4)]
+# Layouts padded to kernel width 256: 160, 192 and 256 channels.
+PADDED_256 = [(100, 5, 5), (120, 3, 3), (144, 4, 4)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -81,18 +83,18 @@ def _cfg(C, nh, G):
 
 def test_card_takes_every_layout_that_fits_128_channels():
     """Every C from 1 to 288 with every divisor pair of heads and groups:
-    the card serves it exactly when its padded layout (C, each group and
-    each head widened to a power of two) fits 256 channels, which is every
-    pair up to C = 128, and trains it exactly when the layout fits 128
-    channels (the FTF backward kernel's widest), every pair up to C = 64
-    (the name is kept from when both stopped at 128); decided from the
+    the card serves and trains it exactly when its padded layout (C, each
+    group and each head widened to a power of two) fits 256 channels (the
+    widest kernel, the FTF backward's too), which is every pair up to C =
+    128 (the name is kept from when both stopped at 128); decided from the
     device argument. The CPU takes everything."""
     counts = {False: [0, 0], True: [0, 0]}
     for C in range(1, 289):
         for nh in divisors(C):
             for G in divisors(C):
                 need = max(C, G * _pow2(C // G), nh * _pow2(C // nh))
-                for training, top in ((False, 256), (True, 128)):
+                assert card_takes(C, nh, G, True) == card_takes(C, nh, G)
+                for training, top in ((False, 256), (True, 256)):
                     fits = _pow2(need) <= top
                     assert card_takes(C, nh, G, training) == fits, (
                         C, nh, G, training)
@@ -123,17 +125,20 @@ PAST_256 = [(240, 5, 5, 320), (272, 1, 1, 512), (200, 5, 5, 320),
                                          (144, 4, 4, 256), (256, 1, 1, 256),
                                          *PAST_256])
 def test_card_refuses_layouts_past_128_by_name(C, nh, G, need):
-    """Training on the card refuses every layout past 128 channels, the
-    FTF backward kernel's widest, by name; the layouts up to 256 of them
-    the card serves; the CPU trains them all."""
-    with pytest.raises(ValueError, match=(
-            rf"^the CUDA path takes widths whose padded layout fits 128 "
-            rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "
-            rf"--gru_groups {G}: the padded layout needs {need} channels "
-            rf"\(> 128\); train this configuration with --device cpu")):
-        check_card_widths(_cfg(C, nh, G), "cuda", training=True)
+    """Training on the card takes the layouts of 129 to 256 channels (the
+    FTF backward kernel's widest is 256 now; the name is kept from when it
+    was 128), as serving does, and refuses every layout past 256 by name;
+    the CPU trains them all."""
     if need <= 256:
+        check_card_widths(_cfg(C, nh, G), "cuda", training=True)
         check_card_widths(_cfg(C, nh, G), "cuda", training=False)
+    else:
+        with pytest.raises(ValueError, match=(
+                rf"^the CUDA path takes widths whose padded layout fits 256 "
+                rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "
+                rf"--gru_groups {G}: the padded layout needs {need} channels "
+                rf"\(> 256\); train this configuration with --device cpu")):
+            check_card_widths(_cfg(C, nh, G), "cuda", training=True)
     check_card_widths(_cfg(C, nh, G), "cpu", training=True)
 
 
@@ -141,9 +146,9 @@ def test_card_refuses_layouts_past_128_by_name(C, nh, G, need):
 @pytest.mark.parametrize("training", [False, True])
 def test_card_refuses_layouts_past_256_by_name(C, nh, G, need, training):
     """Serving and training on the card refuse every layout past 256
-    channels, the forward kernels' widest, by name (training at its own
-    edge, 128); the CPU takes them."""
-    top = 128 if training else 256
+    channels, the kernels' widest (the FTF backward's too), by name; the
+    CPU takes them."""
+    top = 256
     with pytest.raises(ValueError, match=(
             rf"^the CUDA path takes widths whose padded layout fits {top} "
             rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "
@@ -286,7 +291,7 @@ def test_padded_attention_and_gru_operands(monkeypatch, C, nh, G):
     assert got[..., pad].abs().max() == 0
 
 
-@pytest.mark.parametrize("C,nh,G", PADDED)
+@pytest.mark.parametrize("C,nh,G", PADDED + PADDED_256)
 @pytest.mark.parametrize("bidi", [True, False])
 def test_padded_backward_route_is_the_plain_backward(monkeypatch, C, nh, G,
                                                      bidi):

@@ -327,19 +327,23 @@ def test_scratch_at_256(precise):
 
 def test_build_command_at_256():
     """Kernel width 256 builds the forward sources with -DLCT_C=256 into a
-    library of its own; its FTF backward is refused by name (training
-    stops at 128), and so is any width past 256. The card serves layouts
-    up to 256 channels and trains those up to 128."""
-    assert KERNEL_WIDTHS[-1] == 256 and BACKWARD_WIDTHS[-1] == 128
+    library of its own, and at the first backward the FTF backward's
+    (csrc/ftf_bwd.cu) beside them; any width past 256 is refused by name,
+    for the forward and the backward. The card serves and trains layouts
+    up to 256 channels."""
+    assert KERNEL_WIDTHS[-1] == 256 and BACKWARD_WIDTHS[-1] == 256
     assert _build.library_sources(256) == ["banded", "ftf", "mhsa"]
-    cmd = _build.build_command("ftf", 256, "o.so", "nvcc")
-    assert "-DLCT_C=256" in cmd and cmd[-1].endswith("/ftf.cu")
+    assert _build.library_sources(256, backward=True) == [
+        "banded", "ftf", "ftf_bwd", "mhsa"]
+    for name in ("ftf", "ftf_bwd"):
+        cmd = _build.build_command(name, 256, "o.so", "nvcc")
+        assert "-DLCT_C=256" in cmd and cmd[-1].endswith(f"/{name}.cu")
     assert _build.library_path("mhsa", 256, "t").endswith("/libmhsa-c256-t.so")
-    with pytest.raises(ValueError, match=r"no FTF backward library "
-                                         r"\(csrc/ftf_bwd.cu\) for kernel "
-                                         r"width C=256"):
-        _build.library_sources(256, backward=True)
-    with pytest.raises(ValueError, match="C=512"):
-        _build.library_sources(512)
+    assert _build.library_path("ftf_bwd", 256, "t").endswith(
+        "/libftf_bwd-c256-t.so")
+    for backward in (False, True):
+        with pytest.raises(ValueError, match="C=512"):
+            _build.library_sources(512, backward=backward)
     for c, nh, G in [(256, 4, 4), (256, 1, 1), (256, 2, 8), *PADDED]:
-        assert card_takes(c, nh, G) and not card_takes(c, nh, G, True)
+        assert card_takes(c, nh, G) and card_takes(c, nh, G, True)
+    assert not card_takes(272, 1, 1) and not card_takes(272, 1, 1, True)

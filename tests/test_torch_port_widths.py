@@ -334,10 +334,10 @@ def test_backward_check_takes_only_4_heads_and_4_groups():
 def test_c48_is_refused_on_the_card_naming_enc_channels(training):
     """C = 48 was refused on the card while a kernel lacked that width (the
     name is kept from then); serving and training both take it, and 40,
-    now that the kernels take the true width at run time, and refuse
-    instead, naming enc_channels, C = 144 for training (its padded layout
-    passes 128 channels, the backward's widest) and C = 288 for serving
-    (past 256, the forward's)."""
+    now that the kernels take the true width at run time, and C = 144
+    (its padded layout, 256 channels, fits the widest kernel, forward and
+    backward alike), and refuse instead, naming enc_channels, C = 288 (past
+    256)."""
     cfg = LCTGeneratorConfig(enc_channels=(16, 32, 48),
                              dec_channels=(48, 32, 16))
     c40 = LCTGeneratorConfig(enc_channels=(16, 32, 40),
@@ -347,11 +347,11 @@ def test_c48_is_refused_on_the_card_naming_enc_channels(training):
     c288 = LCTGeneratorConfig(enc_channels=(16, 32, 288),
                               dec_channels=(288, 32, 16))
     with pytest.raises(ValueError, match=r"enc_channels"):
-        check_card_widths(c144 if training else c288, "cuda",
-                          training=training)
+        check_card_widths(c288, "cuda", training=training)
     check_card_widths(cfg, "cuda", training=training)
     check_card_widths(c40, "cuda", training=training)
-    check_card_widths(c144, "cpu", training=training)  # the plain path
+    check_card_widths(c144, "cuda", training=training)
+    check_card_widths(c288, "cpu", training=training)  # the plain path
 
 
 def test_card_widths_are_decided_from_the_device_argument():
