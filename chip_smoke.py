@@ -6,9 +6,12 @@
 Phases, each printing one JSON line (any failure raises, exit code != 0):
 
   device   require CUDA; print the card's nvidia-smi name and power limit
-  build    build the CUDA kernels from lct_gan_tpu_torch/csrc (nvcc, sm_90a)
-           at every kernel width (16, 32, 64, 128, 256), forward and
-           backward, in one parallel batch (one nvcc process a source and width); the
+  build    build the CUDA kernels from lct_gan_tpu_torch/csrc (nvcc, sm_90a,
+           one nvcc process a source and width): kernel width 64 (every
+           source) and 128's forward in one parallel batch, then every
+           other width (16 .. 512) forward and backward (up to 256) in a
+           background thread at niceness 19 under the kernels, enhance and
+           widths phases (the channels phase waits for it); the
            kernel width 64 instances' ptxas registers and spills beside the
            reference's (lct_gan_tpu_torch/ptxas_c64.json: before the true
            width and the score scale became launch arguments)
@@ -94,7 +97,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            1), timed with stages; enhancers at enc_channels (64, 128, 256)
            against the plain path on the card; a train state at (64, 128,
            256) and the FTF block under grad at C = 256 taken (launches
-           counted), a layout past 256 refused for serving and training
+           counted), serving at (64, 128, 272) taken, training there (past
+           256) refused
+  width512 kernel width 512 (layouts of 257-512 channels, serving only):
+           width 512's ptxas registers, spills and static shared memory;
+           the four forward kernels against their plain versions on the
+           card at C = 512 at W512_PAIRS (every GRU slot kind: 16, 64, 128,
+           the clusters' 256, the step kernel's 512; every head width 8 ..
+           512) and the padded W512_PADDED layouts, small N, both modes;
+           the main path's shapes at (512, 4, 4) and (512, 1, 1), timed
+           with stages, plain and library ms; enhancers at enc_channels
+           (128, 256, 512) against the plain path on the card with launch
+           counts and peak memory (B = 128 x 2 s, a 163,840-sample bucket,
+           a W = 64 banded call at 4 and 4, the bucket at 1 and 1); a
+           train state at (128, 256, 512), serving at (64, 128, 520) and at
+           (400, 5, 5) refused by name before any launch
   banded   the same weights with max_time_context=64, bucketed batches with
            lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
            1 banded, 1 GRU launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
@@ -206,6 +223,7 @@ Imports nothing of JAX or of the JAX package.
 import json
 import os
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -893,8 +911,8 @@ def ftf_bwd_case(torch, name, x, params, D, lookback, mode, g,
            "flops": flops}
     if lib[1] is not None:
         res["library_unavailable"] = lib[1]
-    if timed:
-        res.update(stage_profile(torch, call))
+    if timed:  # one call a profiled pass past C = 128: they are long
+        res.update(stage_profile(torch, call, reps=1 if C > 128 else 3))
         res["scratch_bytes"] = scratch_bytes(torch, call)
         res["plain_ms"] = cuda_ms(torch, lambda: ftf_bwd_reference(
             x, *params, hid, dout, **kw), 1)
@@ -1433,11 +1451,11 @@ def main_shape_cases(torch, g, seed, C, nh, G, exps_per_s, results, phase,
     attention's, the GRU's). With `profile`, the bf16 and GRU cases also
     carry `stages_ms` (device ms a call of each kernel the call launches,
     or None where the profiler lost kernels) and `stages_coverage`
-    (stage_profile)."""
+    (stage_profile, one call a pass)."""
 
     def staged(fn, want, **info):
-        if profile and want:
-            info.update(stage_profile(torch, fn))
+        if profile and want:  # one call a pass: these calls are long
+            info.update(stage_profile(torch, fn, reps=1))
         return info
 
     from lct_gan_tpu_torch.ops.attention import (fused_mhsa, mhsa_reference,
@@ -1850,23 +1868,21 @@ def build_usage(width):
     return {names[k]: v for k, v in now.items()}
 
 
-def check_width256(torch, np, card, seed):
-    """Serving at kernel width 256 (bottleneck layouts of 129 to 256
-    channels): the four forward kernels against their plain versions on
-    the card at small N, both modes (the composed GRU f32), at C = 256 in
-    W256_PAIRS (every GRU slot width, the group of 256 through the
-    thread-block-cluster kernel, and every head width) and at the padded
-    layouts W256_PADDED; then at the main path's shapes for (256, 4, 4)
-    and (256, 1, 1), timed beside the bound, the library call and the
-    padding ms; the enhancer at enc_channels W256_ENC end to end against
-    the plain path on the card, with launch counts: B = 128 x 2 s, one
-    163,840-sample bucket call and a W = 64 banded call at 4 heads and
-    groups, and the bucket call at 1 head and 1 group (its composed GRU the
-    cluster kernel); last, training at kernel width 256 taken (a train
-    state at W256_ENC, the FTF block under grad with its forward and
-    backward launches), and a layout past 256 refused by name before any
-    launch, for training and serving. Random weights from `seed`. Returns
-    (kernel cases by kernel, launches by kernel)."""
+def wide_cases(torch, np, card, seed, width, layouts, main_pairs, enc,
+               seed_offset):
+    """What the width256 and width512 phases share, at kernel width
+    `width`: the build's ptxas counts of its instances (registers, spills,
+    static shared memory); the four forward kernels against their plain
+    versions on the card at small N, both modes (the composed GRU f32), at
+    the (C, heads, groups) `layouts`; the main path's shapes at (width, nh,
+    G) for `main_pairs`, timed beside the bound, the library call and the
+    padding ms, with stages; the enhancer at enc_channels `enc` end to end
+    against the plain path on the card, with launch counts and the peak of
+    device memory: B = 128 x 2 s, one 163,840-sample bucket call and a W =
+    64 banded call at 4 heads and groups, and the bucket call at 1 head and
+    1 group (its composed GRU a single group of `width`). Random weights
+    and inputs from `seed` + `seed_offset`. Returns (kernel cases by
+    kernel, launches by kernel, seconds by step)."""
     from lct_gan_tpu_torch.eval import make_enhance
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
@@ -1876,23 +1892,21 @@ def check_width256(torch, np, card, seed):
                                                         banded_mhsa_reference)
     from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
                                            fused_ftf_block)
-    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
     from lct_gan_tpu_torch.ops.gru import (fused_grouped_gru,
                                            grouped_gru_plain, gru_slot)
     from lct_gan_tpu_torch.ops.padding import head_width, kernel_width
     from lct_gan_tpu_torch.ops.probe import ex2_rate
-    from lct_gan_tpu_torch.train.state import (TrainConfig, _assemble,
-                                               build_models)
 
-    t0 = time.perf_counter()
-    build_s = build_all(verbose=True, widths=(256,))
-    usage = build_usage(256)
-    emit({"phase": "width256", "build_seconds": build_s,
+    phase = f"width{width}"
+    build_s = build_all(verbose=True, widths=(width,))
+    usage = build_usage(width)
+    emit({"phase": phase, "build_seconds": build_s,
           "instances": len(usage),
           "spills": {k: v for k, v in usage.items()
                      if v.get("spill_stores") or v.get("spill_loads")},
-          "registers": {k: v["registers"] for k, v in usage.items()}})
-    g = torch.Generator(device="cuda").manual_seed(seed + 22)
+          "registers": {k: v["registers"] for k, v in usage.items()},
+          "smem": {k: v["smem"] for k, v in usage.items() if "smem" in v}})
+    g = torch.Generator(device="cuda").manual_seed(seed + seed_offset)
     results = {"fused_ftf_block": [], "fused_mhsa": [], "banded_mhsa": [],
                "fused_grouped_gru": []}
     launches = {k: 0 for k in ("fused_ftf_block", "fused_mhsa",
@@ -1902,10 +1916,9 @@ def check_width256(torch, np, card, seed):
 
     t = time.perf_counter()
     small = []
-    layouts = [(256, nh, G) for nh, G in W256_PAIRS] + list(W256_PADDED)
     for C, nh, G in layouts:
-        if kernel_width(C, nh, G) != 256:
-            raise AssertionError(f"({C}, {nh}, {G}) is not at width 256")
+        if kernel_width(C, nh, G) != width:
+            raise AssertionError(f"({C}, {nh}, {G}) is not at width {width}")
         n0 = len(small)
         fblk, tblk = seeded_blocks(torch, seed + C + nh + G, C, nh, G)
         for name, blk, N, L, with_kb, lb in (
@@ -1920,8 +1933,7 @@ def check_width256(torch, np, card, seed):
                 kw = dict(bidirectional=blk.bidirectional, num_heads=nh,
                           lookback=lb, precise=mode == "precise")
                 small.append(small_kernel_case(
-                    torch, "width256", "fused_ftf_block", C, nh, G, name,
-                    mode,
+                    torch, phase, "fused_ftf_block", C, nh, G, name, mode,
                     lambda: fused_ftf_block(x, *params, key_bias=kb,
                                             **kw),
                     lambda: ftf_block_reference(x, *params, key_bias=kb,
@@ -1939,15 +1951,14 @@ def check_width256(torch, np, card, seed):
                 if lb is not None:
                     kw["lookback"] = lb
                 small.append(small_kernel_case(
-                    torch, "width256", kernel, C, nh, G, f"L{L}", mode,
+                    torch, phase, kernel, C, nh, G, f"L{L}", mode,
                     lambda: fn(x, *aparams, key_bias=kb, **kw),
                     lambda: ref(x, *aparams, key_bias=kb, **kw)))
         gparams = [p.detach().contiguous()
                    for p in tblk.kernel_params()[:6]]
         x = torch.randn((5, 516, C), generator=g, device="cuda")
         small.append(small_kernel_case(
-            torch, "width256", "fused_grouped_gru", C, nh, G, "L516",
-            "precise",
+            torch, phase, "fused_grouped_gru", C, nh, G, "L516", "precise",
             lambda: fused_grouped_gru(x, *gparams, bidirectional=False),
             lambda: grouped_gru_plain(x, *gparams, False)))
         worst = {}
@@ -1956,10 +1967,9 @@ def check_width256(torch, np, card, seed):
             if r["max_abs_err"] >= worst.get(key, {}).get(
                     "max_abs_err", -1):
                 worst[key] = r
-        emit({"phase": "width256", "C": C, "num_heads": nh,
-              "gru_groups": G, "kernel_width": kernel_width(C, nh, G),
-              "ftf_gru_slot": gru_slot(
-                  256 // head_width(C // G), 256),
+        emit({"phase": phase, "C": C, "num_heads": nh, "gru_groups": G,
+              "kernel_width": kernel_width(C, nh, G),
+              "ftf_gru_slot": gru_slot(width // head_width(C // G), width),
               "head_width": head_width(C // nh),
               "cases": len(small) - n0,
               "worst": {k: (v["max_abs_err"], v["rel_err"])
@@ -1968,18 +1978,18 @@ def check_width256(torch, np, card, seed):
         del fblk, tblk, x
         torch.cuda.empty_cache()
     seconds["small"] = time.perf_counter() - t
-    emit({"phase": "width256", "small_cases": len(small),
+    emit({"phase": phase, "small_cases": len(small),
           "seconds": seconds["small"]})
 
     t = time.perf_counter()
     exps_per_s = ex2_rate()
-    for nh, G in W256_MAIN:
-        main_shape_cases(torch, g, seed, 256, nh, G, exps_per_s, results,
-                         "width256", profile=True)
+    for nh, G in main_pairs:
+        main_shape_cases(torch, g, seed, width, nh, G, exps_per_s, results,
+                         phase, profile=True)
     seconds["main"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    rng = np.random.default_rng(seed + 22)
+    rng = np.random.default_rng(seed + seed_offset)
     # (heads, groups, max_time_context, B, T, bucketed, launches: FTF,
     # MHSA, banded, composed GRU)
     calls = [(4, 4, None, 128, 2 * SR, False, (3, 0, 0, 0)),
@@ -1988,11 +1998,10 @@ def check_width256(torch, np, card, seed):
              (1, 1, None, 4, 163840, True, (2, 1, 0, 1))]
     for nh, G, mtc, B, T, bucketed, expect in calls:
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed + 256 + nh)
+            torch.manual_seed(seed + width + nh)
             enhancer = LctEnhancer(gen_cfg=LCTGeneratorConfig(
-                enc_channels=W256_ENC, dec_channels=W256_ENC[::-1],
-                num_heads=nh, gru_groups=G,
-                max_time_context=mtc)).cuda().eval()
+                enc_channels=enc, dec_channels=enc[::-1], num_heads=nh,
+                gru_groups=G, max_time_context=mtc)).cuda().eval()
         enhance = make_enhance(enhancer)
         if bucketed:
             wave, lens = bucket_batch(np, rng, T, B)
@@ -2001,14 +2010,15 @@ def check_width256(torch, np, card, seed):
             wave = (0.1 * rng.standard_normal((B, T))).astype(np.float32)
             ln = None
         x = torch.from_numpy(wave).cuda()
-        enhance(x) if ln is None else enhance(x, ln)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
         out, got = run_counted(torch, enhance, x, ln, dict(zip(
             ("fused_ftf_block", "fused_mhsa", "banded_mhsa",
              "fused_grouped_gru"), expect)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
         for k in launches:
             launches[k] += got[k]
         if not torch.isfinite(out).all() or tuple(out.shape) != (B, T):
-            raise AssertionError(f"width256 enhancer output bad: "
+            raise AssertionError(f"{phase} enhancer output bad: "
                                  f"{tuple(out.shape)}")
         with torch.inference_mode():
             mask = enhancer(x, ln)[1]
@@ -2020,28 +2030,54 @@ def check_width256(torch, np, card, seed):
         if not (rel <= TOL_REL_L2 and werr <= TOL_WAVE
                 and merr <= TOL_MASK):
             raise AssertionError(
-                f"width256 enhancer {nh} heads {G} groups B={B} x {T}: "
+                f"{phase} enhancer {nh} heads {G} groups B={B} x {T}: "
                 f"worst row rel L2 {rel} (tol {TOL_REL_L2}), wave {werr} "
                 f"(tol {TOL_WAVE}), mask {merr} (tol {TOL_MASK}) against "
                 "the plain path on the card")
         call = ((lambda: enhance(x)) if ln is None
                 else (lambda: enhance(x, ln)))
-        emit({"phase": "width256", "workload": f"B={B} x {T} samples" + (
+        emit({"phase": phase, "workload": f"B={B} x {T} samples" + (
                   " bucketed" if bucketed else ""),
-              "enc_channels": list(W256_ENC), "num_heads": nh,
-              "gru_groups": G, "kernel_width": 256,
-              "max_time_context": mtc, "seed": seed, "launches": got,
+              "enc_channels": list(enc), "num_heads": nh, "gru_groups": G,
+              "kernel_width": width, "max_time_context": mtc, "seed": seed,
+              "launches": got,
               "wave_worst_row_rel_l2_vs_plain_on_card": rel,
               "tol_rel_l2": TOL_REL_L2,
               "wave_max_abs_err_vs_plain_on_card": werr,
               "mask_max_abs_err_vs_plain_on_card": merr,
               "tol_wave": TOL_WAVE, "tol_mask": TOL_MASK,
-              "ms_per_call": cuda_ms(torch, call, 2),
-              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-              "device": card})
+              "ms_per_call": cuda_ms(torch, call, 1),
+              "peak_gib_counted_call": peak, "device": card})
         del enhancer, enhance, x, ln, out, mask, ref_wave, ref_mask
         torch.cuda.empty_cache()
     seconds["enhance"] = time.perf_counter() - t
+    return results, launches, seconds
+
+
+def check_width256(torch, np, card, seed):
+    """Serving at kernel width 256 (bottleneck layouts of 129 to 256
+    channels, `wide_cases`): C = 256 in W256_PAIRS (every GRU slot width,
+    the group of 256 through the thread-block-cluster kernel, and every
+    head width) and the padded layouts W256_PADDED at small N, the main
+    path's shapes at W256_MAIN, the enhancer at W256_ENC; last, training at
+    kernel width 256 taken (a train state at W256_ENC, the FTF block under
+    grad with its forward and backward launches) and serving at (64, 128,
+    272) (kernel width 512), and training at that layout, past 256,
+    refused by name before any launch. Random weights from `seed`.
+    Returns (kernel cases by kernel, launches by kernel)."""
+    from lct_gan_tpu_torch.eval import make_enhance
+    from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
+                                                    LctEnhancer)
+    from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+    from lct_gan_tpu_torch.train.state import (TrainConfig, _assemble,
+                                               build_models)
+
+    t0 = time.perf_counter()
+    results, launches, seconds = wide_cases(
+        torch, np, card, seed, 256,
+        [(256, nh, G) for nh, G in W256_PAIRS] + list(W256_PADDED),
+        W256_MAIN, W256_ENC, 22)
 
     # Taken at kernel width 256: a train state at W256_ENC (assembling
     # launches nothing) and the FTF block under grad at C = 256 (one
@@ -2063,12 +2099,17 @@ def check_width256(torch, np, card, seed):
             raise AssertionError("width256 FTF block under grad: gradients "
                                  "missing or not finite")
 
+    past = LCTGeneratorConfig(enc_channels=(64, 128, 272),
+                              dec_channels=(272, 128, 64))
     taken = []
     for what, act, want in (
             ("train state (64, 128, 256)",
              lambda: _assemble(cfg, LctEnhancer(gen_cfg=enc_cfg), mpd,
                                msd, "cuda"), (0, 0)),
-            ("fused_ftf_block under grad, C = 256", under_grad, (1, 1))):
+            ("fused_ftf_block under grad, C = 256", under_grad, (1, 1)),
+            ("serve (64, 128, 272) (kernel width 512)",
+             lambda: make_enhance(LctEnhancer(gen_cfg=past).cuda()),
+             (0, 0))):
         fused_ftf_block.launches = fused_ftf_bwd.launches = 0
         act()
         torch.cuda.synchronize()
@@ -2079,20 +2120,29 @@ def check_width256(torch, np, card, seed):
         taken.append({"what": what, "fused_ftf_block": got[0],
                       "fused_ftf_bwd": got[1]})
     emit({"phase": "width256", "taken": taken})
+    refuse_by_name(torch, "width256", [
+        ("train state (64, 128, 272)",
+         lambda: _assemble(cfg, LctEnhancer(gen_cfg=past), mpd, msd,
+                           "cuda"),
+         ("enc_channels[-1]=272", "fits 256 channels",
+          "needs 512 channels"))])
+    del fblk, params, x
+    torch.cuda.empty_cache()
+
+    emit({"phase": "width256", "seconds": time.perf_counter() - t0,
+          "steps_s": seconds})
+    return results, launches
+
+
+def refuse_by_name(torch, phase, cases):
+    """Each (what, act, names) of `cases`: `act()` raises a ValueError
+    whose message holds every one of `names`, before any FTF forward or
+    backward launch; emitted as the phase's `refused` line."""
+    from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
 
     refused = []
-    past = LCTGeneratorConfig(enc_channels=(64, 128, 272),
-                              dec_channels=(272, 128, 64))
-    for what, act, names in (
-            ("train state (64, 128, 272)",
-             lambda: _assemble(cfg, LctEnhancer(gen_cfg=past), mpd, msd,
-                               "cuda"),
-             ("enc_channels[-1]=272", "fits 256 channels",
-              "needs 512 channels")),
-            ("serve (64, 128, 272)",
-             lambda: make_enhance(LctEnhancer(gen_cfg=past).cuda()),
-             ("enc_channels[-1]=272", "fits 256 channels",
-              "needs 512 channels"))):
+    for what, act, names in cases:
         fused_ftf_block.launches = fused_ftf_bwd.launches = 0
         try:
             act()
@@ -2105,14 +2155,69 @@ def check_width256(torch, np, card, seed):
         torch.cuda.synchronize()
         if fused_ftf_block.launches or fused_ftf_bwd.launches:
             raise AssertionError(f"{what}: a launch before the refusal")
-    emit({"phase": "width256", "refused": refused})
-    del fblk, params, x
+    emit({"phase": phase, "refused": refused})
+
+
+# Kernel width 512: at C = 512 (heads, groups) pairs that run each GRU slot
+# width of the kernels (16: groups of 16 at (1, 32) and of 8 at (64, 64);
+# 64, 128, the clusters' 256 and the step kernel's 512) and each padded
+# head width (8 .. 512) once, the three padded layouts that run at 512, and
+# the main path's pairs.
+W512_PAIRS = ((1, 1), (2, 2), (4, 4), (8, 8), (1, 32), (64, 64))
+W512_PADDED = ((272, 1, 1), (300, 3, 3), (320, 5, 5))
+W512_MAIN = ((4, 4), (1, 1))
+W512_ENC = (128, 256, 512)
+
+
+def check_width512(torch, np, card, seed):
+    """Serving at kernel width 512 (bottleneck layouts of 257 to 512
+    channels, `wide_cases`): C = 512 in W512_PAIRS (every GRU slot width,
+    the groups of 256 through the thread-block-cluster kernel, the group of
+    512 through the step kernel, and every head width, 512 in four context
+    parts) and the padded layouts W512_PADDED at small N, the main path's
+    shapes at W512_MAIN, the enhancer at W512_ENC; last, refused by name
+    before any launch: a train state at W512_ENC (the backward's widest is
+    256) and serving at (64, 128, 520) and at (400, 5, 5) (heads of 80: a
+    layout of 640). Random weights from `seed`. Returns (kernel cases by
+    kernel, launches by kernel)."""
+    from lct_gan_tpu_torch.eval import make_enhance
+    from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
+                                                    LctEnhancer)
+    from lct_gan_tpu_torch.train.state import (TrainConfig, _assemble,
+                                               build_models)
+
+    t0 = time.perf_counter()
+    results, launches, seconds = wide_cases(
+        torch, np, card, seed, 512,
+        [(512, nh, G) for nh, G in W512_PAIRS] + list(W512_PADDED),
+        W512_MAIN, W512_ENC, 24)
+
+    cfg = TrainConfig()
+    _, mpd, msd = build_models(cfg)
+
+    def gen(enc, nh):
+        return LctEnhancer(gen_cfg=LCTGeneratorConfig(
+            enc_channels=enc, dec_channels=enc[::-1], num_heads=nh,
+            gru_groups=nh))
+
+    refuse_by_name(torch, "width512", [
+        ("train state (128, 256, 512)",
+         lambda: _assemble(cfg, gen(W512_ENC, 4), mpd, msd, "cuda"),
+         ("enc_channels[-1]=512", "fits 256 channels",
+          "needs 512 channels")),
+        ("serve (64, 128, 520)",
+         lambda: make_enhance(gen((64, 128, 520), 4).cuda()),
+         ("enc_channels[-1]=520", "fits 512 channels",
+          "needs 1024 channels")),
+        ("serve (64, 128, 400), 5 heads and groups",
+         lambda: make_enhance(gen((64, 128, 400), 5).cuda()),
+         ("enc_channels[-1]=400", "--num_heads 5", "fits 512 channels",
+          "needs 640 channels"))])
     torch.cuda.empty_cache()
 
-    emit({"phase": "width256", "seconds": time.perf_counter() - t0,
+    emit({"phase": "width512", "seconds": time.perf_counter() - t0,
           "steps_s": seconds})
     return results, launches
-
 
 def bucket_batch(np, rng, T, B):
     """B seeded noise rows of the T-sample bucket with lengths in
@@ -3762,9 +3867,14 @@ def ptxas_c64():
     now = build_usage(_build.DEFAULT_C)
     with open(PTXAS_REFERENCE, encoding="utf-8") as f:
         ref = json.load(f)["kernels"]
-    changed = {k: {"reference": ref.get(k), "now": now.get(k)}
+
+    def held(v):  # the counts the reference has (no shared memory)
+        return v and {k: v[k] for k in ("registers", "spill_stores",
+                                        "spill_loads") if k in v}
+
+    changed = {k: {"reference": ref.get(k), "now": held(now.get(k))}
                for k in sorted(set(ref) | set(now))
-               if ref.get(k) != now.get(k)}
+               if held(ref.get(k)) != held(now.get(k))}
     spills = sorted(k for k, v in now.items()
                     if v["spill_stores"] and not (ref.get(k) or {}).get(
                         "spill_stores"))
@@ -3802,16 +3912,28 @@ def main():
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # Every kernel width's libraries, the backward's too (up to 256), in one
-    # parallel batch (the channels, width256 and train_channels phases then
-    # find them built), and the width 64 instances' registers and spills
-    # against the reference's.
-    build_s = build_all(verbose=True, widths=KERNEL_WIDTHS,
-                        backward=BACKWARD_WIDTHS)
-    emit({"phase": "build", "seconds": build_s,
-          "kernel_widths": list(KERNEL_WIDTHS),
-          "backward_widths": list(BACKWARD_WIDTHS)})
+    # Kernel width 64's libraries (every source) and 128's forward ones
+    # (the kernels phase's GRU chains run at 128) first, with the width 64
+    # instances' registers and spills against the reference's; then every
+    # other width's (up to 512) and the backward's (up to 256) in one
+    # parallel batch in a background thread under the kernels, enhance and
+    # widths phases (which launch nothing else), its nvcc processes at
+    # niceness 19 so that they take no core those phases' host work wants.
+    # The channels phase waits for it.
+    build_s = build_all(verbose=True, widths=(64, 128))
+    emit({"phase": "build", "seconds": build_s, "kernel_widths": [64, 128]})
     emit({"phase": "build", **ptxas_c64()})
+    rest = {}
+
+    def build_rest():
+        try:
+            rest["seconds"] = build_all(verbose=True, widths=KERNEL_WIDTHS,
+                                        backward=BACKWARD_WIDTHS, nice=19)
+        except Exception as exc:  # raised in the main thread at the join
+            rest["error"] = exc
+
+    build_thread = threading.Thread(target=build_rest)
+    build_thread.start()
 
     enhancer = load_enhancer(CHECKPOINT, device="cuda")
     kernels = check_kernels(torch, enhancer)
@@ -3823,6 +3945,14 @@ def main():
         kernels[k].extend(rows)
     for k, n in width_launches.items():
         launches[k] += n
+    t = time.perf_counter()
+    build_thread.join()
+    if "error" in rest:
+        raise rest["error"]
+    emit({"phase": "build", "background_seconds": rest["seconds"],
+          "waited_seconds": time.perf_counter() - t,
+          "kernel_widths": list(KERNEL_WIDTHS),
+          "backward_widths": list(BACKWARD_WIDTHS)})
     channel_cases, channel_launches = check_channels(torch, np, card,
                                                      args.seed)
     for k, rows in channel_cases.items():
@@ -3832,6 +3962,10 @@ def main():
     # Kept apart: the kernels line's kernel width 256 entries read them.
     w256_cases, w256_launches = check_width256(torch, np, card, args.seed)
     for k, n in w256_launches.items():
+        launches[k] += n
+    # Kept apart: the kernels line's kernel width 512 entries read them.
+    w512_cases, w512_launches = check_width512(torch, np, card, args.seed)
+    for k, n in w512_launches.items():
         launches[k] += n
     for phase in (check_banded, check_stream):
         for k, n in phase(torch, np, card).items():
@@ -3926,6 +4060,34 @@ def main():
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "case": f"{head['case']} {head['mode']}",
             "cases": w256_cases[name]})
+    # The kernel width 512 instances (C = 512, 4 heads and groups, at the
+    # main path's shapes), their launches from the width512 phase's
+    # enhancer calls (the FTF backward is not built at 512).
+    for name, src, replaces, head_L, head_mode in (
+            ("fused_ftf_block", "lct_gan_tpu_torch/csrc/ftf.cu",
+             "lct_gan_tpu/ops/ftf.py:132", 33, "bf16"),
+            ("fused_mhsa", "lct_gan_tpu_torch/csrc/mhsa.cu",
+             "lct_gan_tpu/ops/attention.py:125", 644, "bf16"),
+            ("banded_mhsa", "lct_gan_tpu_torch/csrc/banded.cu",
+             "lct_gan_tpu/ops/banded_attention.py:109", 772, "bf16"),
+            ("fused_grouped_gru", "lct_gan_tpu_torch/csrc/ftf.cu",
+             "lct_gan_tpu/ops/gru.py:28", 644, "precise")):
+        head = next(r for r in w512_cases[name]
+                    if r["L"] == head_L and r["mode"] == head_mode
+                    and r["num_heads"] == 4 and r["gru_groups"] == 4
+                    and r["C"] == 512)
+        if w512_launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched at kernel "
+                                 "width 512 on the path")
+        summary.append({
+            "name": f"{name} (kernel width 512)", "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": w512_launches[name],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "case": f"{head['case']} {head['mode']}",
+            "cases": w512_cases[name]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "device": card})
     emit({"kernels": summary})

@@ -14,18 +14,18 @@
 //                           projection; q, k, v and the context never leave
 //                           the SM.
 //   W > MAX_REG_W (the band's scores no longer fit in registers), and every
-//   band at C = 128 and 256 (in_w, out_w and the key ring pass the 227 KB
-//   of shared memory a block may hold):
+//   band at C = 128, 256 and 512 (in_w, out_w and the key ring pass the 227
+//   KB of shared memory a block may hold):
 //   qkv_tc_kernel -> qkv bf16 [N*S, 3C], then attn_tc_kernel<1> with the
 //   band (mhsa.cu's kernel: it streams key tiles and skips those outside
-//   the band, for any S); at C = 256 mhsa.cu's split design (tc.cuh:
-//   qkv_panel_kernel, attn_head_kernel<1> -> ctx bf16 [N*S, C],
+//   the band, for any S); at C = 256 and 512 mhsa.cu's split design
+//   (tc.cuh: qkv_panel_kernel, attn_head_kernel<1> -> ctx bf16 [N*S, C],
 //   epi_kernel<1>).
 // precise (lct_banded_forward_f32), all f32 on CUDA cores (common.cuh):
 //   proj_kernel -> qkv f32, banded_attn_kernel -> ctx f32, proj_kernel -> out
-//   (at C = 256 heads of 128 and 256 channels take attn_warp_kernel<1> with
-//   the band instead of banded_attn_kernel, whose thread a row would hold 2
-//   HDP floats).
+//   (at C >= 256 heads of 128 to 512 channels take attn_warp_kernel<1>
+//   with the band instead of banded_attn_kernel, whose thread a row would
+//   hold 2 HDP floats).
 //
 // Bound on the H100 at C = 64: at the banded time block of the
 // 196,608-sample bucket (N = 20*33 sequences of S = 772, W = 64) the
@@ -745,7 +745,7 @@ cudaError_t launch_banded_f32(const float* qkv, const float* key_bias,
 // null; lookback >= 0; c_true true channels (the rest of each row zero) in
 // num_heads heads, scale their score scale (the f32 rounding of 1 /
 // sqrt(c_true / num_heads)). Scratch: none for lookback <= MAX_REG_W, else
-// qkv bf16 [N*S, 3C], and at C = 256 ctx bf16 [N*S, C] (else null).
+// qkv bf16 [N*S, 3C], and at C >= 256 ctx bf16 [N*S, C] (else null).
 // Returns a cudaError_t.
 extern "C" int lct_banded_forward_bf16(const float* x, const float* in_w,
                                        const float* in_b, const float* out_w,
@@ -824,7 +824,7 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
   const long long rows = N * S;
   if (rows == 0) return 0;
   const int hd = head_width(c_true / num_heads);
-  const long long rblocks = (rows + ROWS - 1) / ROWS;
+  const long long rblocks = (rows + PROJ_ROWS - 1) / PROJ_ROWS;
   if (rblocks > INT_MAX || N * (C / hd) * ((S + BT - 1) / BT) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
@@ -865,6 +865,12 @@ extern "C" int lct_banded_forward_f32(const float* x, const float* in_w,
       e = launch_attn_hd<1, 256>(qkv, key_bias, ctx, N, S, lookback, 0, hd,
                                  scale, st);
       break;
+#if LCT_C > 256
+    case 512:
+      e = launch_attn_hd<1, 512>(qkv, key_bias, ctx, N, S, lookback, 0, hd,
+                                 scale, st);
+      break;
+#endif
 #else
     case 128:
       if constexpr (C >= 128)

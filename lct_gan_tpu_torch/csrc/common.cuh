@@ -4,11 +4,12 @@
 // runs the tensor-core kernels of tc.cuh instead.
 //
 // Widths: the library is built for one kernel width C = LCT_C (16, 32,
-// 64, 128 or 256; -DLCT_C=<C>, ops/_build.py; 64 when unset): the channels a
-// row holds in every kernel. The model's true bottleneck width c_true <= C
-// arrives at run time with each launch, and so do the heads and the score
-// scale. The Python wrappers pick C from the true width, the head count
-// and the group count (ops/padding.py::kernel_width) and pad to it: each
+// 64, 128, 256 or 512; -DLCT_C=<C>, ops/_build.py; 64 when unset): the
+// channels a row holds in every kernel. The model's true bottleneck width
+// c_true <= C arrives at run time with each launch, and so do the heads
+// and the score scale. The Python wrappers pick C from the true width, the
+// head count and the group count (ops/padding.py::kernel_width) and pad to
+// it: each
 // GRU group and each attention head is widened with zero channels to a
 // power of two, which is exact (a zero channel adds 0 to every product, a
 // zero-weight GRU unit stays 0), and every LayerNorm divides by c_true, the
@@ -20,10 +21,12 @@
 // run time: attention on the head width (8 for any hd <= 8, else 16 .. C),
 // the GRU on its slot width (16: groups of 16 or, packed block-diagonally,
 // narrower; dense slots of C, or of 64 at C = 128, or of 64, 128 or C at
-// C = 256: wider groups packed); the Python wrappers check the widths
-// before a launch. C = 256 serves the forward only (ftf_bwd.cu is not
-// built there), and its wider rows take kernels of their own, each under
-// `C > 128`, so that every instance at C <= 128 is the one it was.
+// C = 256, or of 64, 128, 256 or C at C = 512: wider groups packed); the
+// Python wrappers check the widths before a launch. The wider rows of C =
+// 256 take kernels of their own, each under `C > 128`, so that every
+// instance at C <= 128 is the one it was; C = 512's, each under `C > 256`,
+// leave every instance at C <= 256 as it was. C = 512 serves the forward
+// only (ftf_bwd.cu is not built there).
 //
 // Rounding: `round != 0` is the bf16 mode (the backward's). Every GEMM
 // operand is rounded to bf16 (round-to-nearest-even) exactly where the TPU
@@ -50,7 +53,8 @@ __host__ __device__ constexpr int pow2_ceil(int v) {
 
 constexpr int C = LCT_C;  // channels the kernels run at (the kernel width)
 constexpr int ROWS = 32;  // rows per block in the row-GEMM kernels
-static_assert(C == 16 || C == 32 || C == 64 || C == 128 || C == 256,
+static_assert(C == 16 || C == 32 || C == 64 || C == 128 || C == 256 ||
+                  C == 512,
               "LCT_C");
 
 // The width a head of hd true channels runs at (the wrappers pad it there).
@@ -61,26 +65,29 @@ __host__ __device__ constexpr int head_width(int hd) { return pow2_ceil(hd); }
 __host__ __device__ constexpr int head_pad(int hd) { return hd <= 8 ? 8 : hd; }
 
 // The slot width of the GRU kernels for `slots` slots (C / 16, 1, at
-// C >= 128 also C / 64: slots of 64, at C = 256 also 2: slots of 128).
+// C >= 128 also C / 64: slots of 64, at C >= 256 also C / 128: slots of
+// 128, at C = 512 also 2: slots of 256).
 inline int gru_slot(int slots) { return C / slots; }
 
 // The units a block of a CUDA-core GRU walk over dense slots of SW units
 // takes (ftf.cu's gru_dense_kernel, ftf_bwd.cu's bptt_dense_kernel): all C,
-// or at C = 256 one slot of 128 (or 256) a block.
+// or at C >= 256 one slot of 128 (or 256) a block, or at C = 512 four
+// slots of 64 (256 units: the W_hh of all eight, 393 KB, would pass the
+// shared memory of a block).
 template <int SW>
 __host__ __device__ constexpr int dense_units() {
-  return C > 128 && SW >= 128 ? SW : C;
+  return C > 256 && SW == 64 ? 256 : C > 128 && SW >= 128 ? SW : C;
 }
 
 // c_true channels (at most C) in num_heads heads, whose padded heads fit
 // C; the GRU weights come in C / 16 slots of 16, 1 of C, at C >= 128 C / 64
-// of 64, at C = 256 2 of 128.
+// of 64, at C >= 256 C / 128 of 128, at C = 512 2 of 256.
 inline bool widths_ok(int c_true, int num_heads, int slots) {
   return c_true > 0 && c_true <= C && num_heads > 0 &&
          c_true % num_heads == 0 &&
          num_heads * head_width(c_true / num_heads) <= C &&
          (slots == C / 16 || slots == 1 || (C > 64 && slots == C / 64) ||
-          (C > 128 && slots == C / 128));
+          (C > 128 && slots == C / 128) || (C > 256 && slots == C / 256));
 }
 
 // Channels of a C-wide row a lane of a warp holds (lane + 32 i; lanes past
@@ -127,25 +134,29 @@ __device__ __forceinline__ void ln_row(float (&v)[CPL], const float (&s)[CPL],
   for (int i = 0; i < CPL; ++i) v[i] = (v[i] - mu) * rs * s[i] + b[i];
 }
 
-// Output columns a row-GEMM block takes at most at C = 256 (2 blocks of
+// Output columns a row-GEMM block takes at most at C >= 256 (2 blocks of
 // 768 threads for the 6C = 1,536 columns of two directions' GRU input
-// projection: a block has at most 1,024 threads).
+// projection at C = 256, 4 at C = 512: a block has at most 1,024 threads).
 constexpr int PROJ_COLS = 768;
 
+// Rows a row-GEMM block (proj_kernel) takes: ROWS, at C = 512 16 (a tile of
+// 32 rows of 512 floats would pass the 48 KB of static shared memory).
+constexpr int PROJ_ROWS = C > 256 ? 16 : ROWS;
+
 // Threads of a row-GEMM block of M output columns: whole warps (the
-// LayerNorm above takes a warp a row), at C = 256 at most PROJ_COLS.
+// LayerNorm above takes a warp a row), at C >= 256 at most PROJ_COLS.
 inline unsigned row_threads(int M) {
   const unsigned t = (unsigned)((M + 31) / 32 * 32);
   return C > 128 && t > (unsigned)PROJ_COLS ? (unsigned)PROJ_COLS : t;
 }
 
-// The grid of a row GEMM over `rblocks` tiles of ROWS rows and M output
-// columns: blockIdx.y picks the columns at C = 256 (row_threads).
+// The grid of a row GEMM over `rblocks` tiles of PROJ_ROWS rows and M
+// output columns: blockIdx.y picks the columns at C >= 256 (row_threads).
 inline dim3 row_grid(unsigned rblocks, int M) {
   return dim3(rblocks, (unsigned)((M + row_threads(M) - 1) / row_threads(M)));
 }
 
-// C = 128's row GEMMs run up to 6C threads a block, C = 256's PROJ_COLS:
+// C = 128's row GEMMs run up to 6C threads a block, C >= 256's PROJ_COLS:
 // the register budget must allow it.
 #if LCT_C > 128
 #define LCT_PROJ_BOUNDS __launch_bounds__(PROJ_COLS, 1)
@@ -155,10 +166,10 @@ inline dim3 row_grid(unsigned rblocks, int M) {
 #define LCT_PROJ_BOUNDS
 #endif
 
-// out[r, c] = sum_k in[r, koff(c) + k] * W(k, c) + bias[c] over ROWS rows
-// per block, one thread per output column c (blockDim.x: M rounded up to
-// whole warps, row_threads; at C = 256 column blockIdx.y * blockDim.x + the
-// thread, each column block taking the tile's LayerNorm itself).
+// out[r, c] = sum_k in[r, koff(c) + k] * W(k, c) + bias[c] over PROJ_ROWS
+// rows per block, one thread per output column c (blockDim.x: M rounded up
+// to whole warps, row_threads; at C >= 256 column blockIdx.y * blockDim.x +
+// the thread, each column block taking the tile's LayerNorm itself).
 //
 // in = x (+ (add0 + add1)), optionally LayerNorm'ed (ln_s != nullptr;
 // fast-variance form max(0, E[x^2] - mu^2) over 1 / inv_c true channels,
@@ -184,10 +195,10 @@ __global__ void LCT_PROJ_BOUNDS proj_kernel(const float* __restrict__ x,
                             const float* __restrict__ bias,
                             float* __restrict__ out, long long rows, int M,
                             int round, float inv_c) {
-  __shared__ float tile[ROWS][C];
-  const long long row0 = (long long)blockIdx.x * ROWS;
+  __shared__ float tile[PROJ_ROWS][C];
+  const long long row0 = (long long)blockIdx.x * PROJ_ROWS;
   const int tid = threadIdx.x;
-  for (int i = tid; i < ROWS * C; i += blockDim.x) {
+  for (int i = tid; i < PROJ_ROWS * C; i += blockDim.x) {
     const int r = i / C, k = i % C;
     const long long row = row0 + r;
     float v = 0.f;
@@ -200,7 +211,7 @@ __global__ void LCT_PROJ_BOUNDS proj_kernel(const float* __restrict__ x,
   }
   __syncthreads();
   const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < ROWS; r += nwarps) {
+  for (int r = warp; r < PROJ_ROWS; r += nwarps) {
     float v[CPL];
 #pragma unroll
     for (int i = 0; i < CPL; ++i)
@@ -235,18 +246,19 @@ __global__ void LCT_PROJ_BOUNDS proj_kernel(const float* __restrict__ x,
     wp = W + (size_t)(d * (C / GW) + g) * GW * (3 * GW) + j;
     wstride = 3 * GW;
   }
-  float acc[ROWS];
+  float acc[PROJ_ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+  for (int r = 0; r < PROJ_ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     const float w = rnd(__ldg(wp + (size_t)k * wstride), round);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(tile[r][koff + k], w, acc[r]);
+    for (int r = 0; r < PROJ_ROWS; ++r)
+      acc[r] = fmaf(tile[r][koff + k], w, acc[r]);
   }
   const float bc = bias[c];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < PROJ_ROWS; ++r) {
     const long long row = row0 + r;
     if (row < rows) out[(size_t)row * M + c] = acc[r] + bc;
   }
@@ -365,7 +377,7 @@ __global__ void attn_kernel(const float* __restrict__ qkv,
   }
 }
 
-// attn_kernel for heads of 128 or 256 channels at C = 256, where a
+// attn_kernel for heads of 128 to 512 channels at C >= 256, where a
 // thread's q and context (2 HDP floats) would not fit in registers: one
 // warp a query row, lane l holding channels l + 32 i (HDP / 32 a lane), a
 // score one warp sum. The same function and passes as attn_kernel (MODE 0:
@@ -493,6 +505,11 @@ cudaError_t launch_attn(const float* qkv, const float* key_bias, float* ctx,
     case 256:
       if constexpr (C >= 256)
         return launch_attn_hd<MODE, 256>(qkv, key_bias, ctx, N, L, lookback,
+                                         round, hd, scale, st);
+      break;
+    case 512:
+      if constexpr (C >= 512)
+        return launch_attn_hd<MODE, 512>(qkv, key_bias, ctx, N, L, lookback,
                                          round, hd, scale, st);
       break;
   }

@@ -196,15 +196,17 @@ __global__ void __launch_bounds__(DS * dense_units<SW>())
   }
 }
 
-// The recurrence over one dense slot of C = 256 units (one GRU group of
-// 256), all f32 or with ROUND the bf16 mode's products, over xp from
-// proj_kernel<true, C>. One direction's W_hh is C x 3C f32 = 768 KB, more
+// The recurrence over dense slots of SW = 256 units (one GRU group of 256:
+// the one slot of C = 256, or one of C = 512's two, blockIdx.z), all f32
+// or with ROUND the bf16 mode's products, over xp from proj_kernel<true,
+// SW>. One direction's W_hh of a slot is SW x 3SW f32 = 768 KB, more
 // than the 227 KB of shared memory a block may hold, so a cluster of
 // GC_CL = 8 blocks on neighbouring SMs walks the steps together: block
-// `rank` owns units [32 rank, 32 rank + 32) and keeps their three gate
-// columns of W_hh in registers (96 floats a thread: 256 threads, thread
-// (unit, k-part kq) holding inputs 4 kq + 32 i + e, i < 8, e < 4, so the 8
-// lanes of a unit read neighbouring 16-byte pieces of h: no bank conflict).
+// `rank` owns units [32 rank, 32 rank + 32) of the slot and keeps their
+// three gate columns of W_hh in registers (96 floats a thread: 256
+// threads, thread (unit, k-part kq) holding inputs 4 kq + 32 i + e, i < 8,
+// e < 4, so the 8 lanes of a unit read neighbouring 16-byte pieces of h:
+// no bank conflict).
 // Each step every block forms its units' r, z, n from the whole h in its
 // own shared memory (partial sums added over a unit's 8 lanes by xor
 // shuffles), lane kq writes the unit's new h into block kq's next h buffer
@@ -217,6 +219,7 @@ __global__ void __launch_bounds__(DS * dense_units<SW>())
 #if LCT_C > 128
 constexpr int GC_CL = 8;   // blocks of a cluster
 constexpr int GC_DS = 4;   // sequences of a cluster
+constexpr int GC_SW = 256;  // units a slot (C / GC_SW slots: blockIdx.z)
 
 template <bool ROUND>
 __global__ void __cluster_dims__(GC_CL, 1, 1) __launch_bounds__(256, 1)
@@ -225,30 +228,32 @@ __global__ void __cluster_dims__(GC_CL, 1, 1) __launch_bounds__(256, 1)
                        const float* __restrict__ b_hh, float* __restrict__ hid,
                        long long N, int L, int D) {
   namespace cg = cooperative_groups;
-  constexpr int UPC = C / GC_CL;  // units a block: 32
-  constexpr int KQ = 256 / UPC;   // lanes a unit: 8
-  constexpr int KI = C / KQ;      // inputs a lane: 32
+  constexpr int SW = GC_SW;
+  constexpr int UPC = SW / GC_CL;  // units a block: 32
+  constexpr int KQ = 256 / UPC;    // lanes a unit: 8
+  constexpr int KI = SW / KQ;      // inputs a lane: 32
   static_assert(UPC == 32 && KQ == GC_CL && KI % 4 == 0, "cluster GRU");
-  __shared__ __align__(16) float hs[2][GC_DS][C];  // h (ROUND: rounded)
+  __shared__ __align__(16) float hs[2][GC_DS][SW];  // h (ROUND: rounded)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int d = blockIdx.y, kq = threadIdx.x % KQ;
-  const int u = rank * UPC + threadIdx.x / KQ;
+  const int sl = SW == C ? 0 : (int)blockIdx.z;  // the slot
+  const int u = rank * UPC + threadIdx.x / KQ;   // the unit in the slot
   const long long n0 = (long long)(blockIdx.x / GC_CL) * GC_DS;
-  const float* wp = w_hh + (size_t)d * C * 3 * C + u;
+  const float* wp = w_hh + (size_t)(d * (C / SW) + sl) * SW * 3 * SW + u;
   float wr[KI], wz[KI], wn[KI];
 #pragma unroll
   for (int i = 0; i < KI / 4; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const size_t k = (size_t)(4 * kq + 32 * i + e) * 3 * C;
+      const size_t k = (size_t)(4 * kq + 32 * i + e) * 3 * SW;
       wr[4 * i + e] = rnd(wp[k], ROUND);
-      wz[4 * i + e] = rnd(wp[k + C], ROUND);
-      wn[4 * i + e] = rnd(wp[k + 2 * C], ROUND);
+      wz[4 * i + e] = rnd(wp[k + SW], ROUND);
+      wn[4 * i + e] = rnd(wp[k + 2 * SW], ROUND);
     }
-  const float* bp = b_hh + (size_t)d * 3 * C + u;
-  const float br = bp[0], bz = bp[C], bn = bp[2 * C];
-  for (int i = threadIdx.x; i < 2 * GC_DS * C; i += blockDim.x)
+  const float* bp = b_hh + (size_t)(d * (C / SW) + sl) * 3 * SW + u;
+  const float br = bp[0], bz = bp[SW], bn = bp[2 * SW];
+  for (int i = threadIdx.x; i < 2 * GC_DS * SW; i += blockDim.x)
     (&hs[0][0][0])[i] = 0.f;
   cluster.sync();  // every block's buffers are zero before any remote write
 
@@ -265,10 +270,10 @@ __global__ void __cluster_dims__(GC_CL, 1, 1) __launch_bounds__(256, 1)
       xr[q] = xz[q] = xn[q] = 0.f;
       if (n0 + q < N) {
         const float* x = xp + ((size_t)(n0 + q) * L + t) * xstride +
-                         (size_t)d * 3 * C + u;
+                         (size_t)d * 3 * C + sl * 3 * SW + u;
         xr[q] = x[0];
-        xz[q] = x[C];
-        xn[q] = x[2 * C];
+        xz[q] = x[SW];
+        xn[q] = x[2 * SW];
       }
     }
     const float* hb = &hs[s & 1][0][0] + 4 * kq;
@@ -280,7 +285,7 @@ __global__ void __cluster_dims__(GC_CL, 1, 1) __launch_bounds__(256, 1)
 #pragma unroll
       for (int q = 0; q < GC_DS; ++q) {
         const float4 hv =
-            *reinterpret_cast<const float4*>(hb + q * C + 32 * i);
+            *reinterpret_cast<const float4*>(hb + q * SW + 32 * i);
         ar[q] = fmaf(hv.x, wr[4 * i], ar[q]);
         az[q] = fmaf(hv.x, wz[4 * i], az[q]);
         an[q] = fmaf(hv.x, wn[4 * i], an[q]);
@@ -307,12 +312,132 @@ __global__ void __cluster_dims__(GC_CL, 1, 1) __launch_bounds__(256, 1)
       const float z = sigmoidf_(xz[q] + (az[q] + bz));
       const float nn = tanhf(xn[q] + r * (an[q] + bn));
       h[q] = (1.f - z) * nn + z * h[q];
-      nb[q * C + u] = rnd(h[q], ROUND);
+      nb[q * SW + u] = rnd(h[q], ROUND);
       if (kq == 0 && n0 + q < N)
-        hid[((size_t)d * NL + (size_t)(n0 + q) * L + t) * C + u] = h[q];
+        hid[((size_t)d * NL + (size_t)(n0 + q) * L + t) * C + sl * SW + u] =
+            h[q];
     }
     cluster.sync();
   }
+}
+#endif
+
+#if LCT_C > 256
+// The recurrence over one dense slot of C = 512 units (one GRU group of
+// 512), all f32 or with ROUND the bf16 mode's products, over xp from
+// proj_kernel<true, C>: one launch a step, for every sequence and both
+// directions at once (the shape of the TPU kernel's own step, hp =
+// dot(h, whh) over a tile of sequences, lct_gan_tpu/ops/ftf.py:190). One
+// direction's W_hh is C x 3C f32 = 3 MB: a cluster of 8 would hold 192
+// floats a thread in registers, and one of 16 (the most a cluster may
+// take) would run each step ~1,000 waves of clusters deep at the
+// frequency block's 16,512 sequences, against this design's 8,256 blocks
+// a step. So each step is a tiled product over all sequences,
+//   [h_{t-1}](N x C) @ W_hh[d](C x 3C), the gates in its epilogue:
+// a block takes GSR = 64 sequences and GSU = 32 units (their r, z and n
+// columns: 96), streams h and W_hh through shared memory in k-chunks of
+// GSK = 32 inputs, and each thread keeps 4 sequences x 2 units x 3 gates
+// of f32 sums (f32 FMAs on CUDA cores; ROUND rounds both operands to bf16
+// first, which makes each product exact in f32, the tensor cores'
+// arithmetic up to the order of the sums). h_{t-1} is read from the
+// hiddens the previous step wrote (hid, unrounded f32: the carry), W_hh
+// from L2 (3 MB a direction). Bound: each step moves the N x C hiddens in
+// and out and reads W_hh; at N = 16,512 its 26 GFLOP a direction take
+// ~0.4 ms on the f32 pipes, so the function is bound by operations (the
+// products); at small N (the banded long shape's 132 sequences) by the
+// launch a step.
+constexpr int GSR = 64;  // sequences a block
+constexpr int GSU = 32;  // units a block
+constexpr int GSK = 32;  // inputs a k-chunk
+
+template <bool ROUND>
+__global__ void __launch_bounds__(256)
+    gru_step_kernel(const float* __restrict__ xp,
+                    const float* __restrict__ w_hh,
+                    const float* __restrict__ b_hh, float* __restrict__ hid,
+                    long long N, int L, int D, int s) {
+  __shared__ __align__(16) float hsm[GSK][GSR + 4];  // h chunk, [input][seq]
+  __shared__ __align__(16) float wsm[GSK][3 * GSU];  // W_hh [in][gate, unit]
+  const int d = blockIdx.z;
+  const int t = d ? L - 1 - s : s, tp = d ? t + 1 : t - 1;  // tp: step s - 1
+  const long long n0 = (long long)blockIdx.x * GSR;
+  const int u0 = blockIdx.y * GSU;
+  // Thread (ty, tx): sequences n0 + 4 ty + r (r < 4), units u0 + 2 tx + e.
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t NL = (size_t)N * L;
+  const float* hd = hid + (size_t)d * NL * C;  // this direction's hiddens
+  float acc[3][4][2];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[g][r][0] = acc[g][r][1] = 0.f;
+  if (s > 0) {  // h before the first step is 0
+    for (int k0 = 0; k0 < C; k0 += GSK) {
+      for (int i = threadIdx.x; i < GSR * GSK; i += blockDim.x) {
+        const int r = i / GSK, k = i % GSK;
+        const long long n = n0 + r;
+        hsm[k][r] =
+            n < N ? rnd(hd[((size_t)n * L + tp) * C + k0 + k], ROUND) : 0.f;
+      }
+      for (int i = threadIdx.x; i < GSK * 3 * GSU; i += blockDim.x) {
+        const int k = i / (3 * GSU), c = i % (3 * GSU);
+        wsm[k][c] = rnd(w_hh[((size_t)d * C + k0 + k) * 3 * C +
+                             (c / GSU) * C + u0 + c % GSU],
+                        ROUND);
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < GSK; ++k) {
+        const float4 hv = *reinterpret_cast<const float4*>(&hsm[k][4 * ty]);
+        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float2 w =
+              *reinterpret_cast<const float2*>(&wsm[k][g * GSU + 2 * tx]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            acc[g][r][0] = fmaf(hr[r], w.x, acc[g][r][0]);
+            acc[g][r][1] = fmaf(hr[r], w.y, acc[g][r][1]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const float* bp = b_hh + (size_t)d * 3 * C;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long long n = n0 + 4 * ty + r;
+    if (n >= N) continue;
+    const size_t row = (size_t)n * L + t;
+    const float* xr = xp + row * ((size_t)D * 3 * C) + (size_t)d * 3 * C;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int u = u0 + 2 * tx + e;
+      const float h = s > 0 ? hd[((size_t)n * L + tp) * C + u] : 0.f;
+      const float rg = sigmoidf_(xr[u] + (acc[0][r][e] + bp[u]));
+      const float z = sigmoidf_(xr[C + u] + (acc[1][r][e] + bp[C + u]));
+      const float nn =
+          tanhf(xr[2 * C + u] + rg * (acc[2][r][e] + bp[2 * C + u]));
+      hid[((size_t)d * NL + row) * C + u] = (1.f - z) * nn + z * h;
+    }
+  }
+}
+
+// L launches of gru_step_kernel<ROUND>, one a step.
+template <bool ROUND>
+cudaError_t launch_gru_steps(const float* xp, const float* w_hh,
+                             const float* b_hh, float* hid, long long N,
+                             int L, int D, cudaStream_t st) {
+  if (N == 0) return cudaSuccess;
+  const dim3 grid((unsigned)((N + GSR - 1) / GSR), C / GSU, (unsigned)D);
+  for (int s = 0; s < L; ++s) {
+    gru_step_kernel<ROUND><<<grid, 256, 0, st>>>(xp, w_hh, b_hh, hid, N, L,
+                                                 D, s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 #endif
 
@@ -323,8 +448,8 @@ __global__ void __cluster_dims__(GC_CL, 1, 1) __launch_bounds__(256, 1)
 // (nvcc's own choice, 158 registers, fits 6 and was slower despite no
 // spills), 4 at C = 128 (the same registers a thread), 2 at C = 256, whose
 // blocks take 16 rows: two tiles of 32 rows of 256 floats would pass the 48
-// KB of static shared memory.
-constexpr int OUT_ROWS = C > 128 ? 16 : ROWS;
+// KB of static shared memory; 1 at C = 512, whose blocks take 8 rows.
+constexpr int OUT_ROWS = C > 256 ? 8 : C > 128 ? 16 : ROWS;
 
 __global__ void __launch_bounds__(C, C > 64 ? 8 * 64 / C : 8)
     ftf_out_kernel(const float* __restrict__ x, const float* __restrict__ hid,
@@ -401,9 +526,16 @@ __global__ void __launch_bounds__(C, C > 64 ? 8 * 64 / C : 8)
 
 namespace tc {
 
-constexpr int TS = 8;  // steps per chunk of staged LN1 rows
-// LN1 rows a warp stages per step (D GS / warps, C / 16 warps a direction).
-constexpr int GRU_ROWS = 256 / C;
+// Steps per chunk of staged LN1 rows: 8, at C = 512 4 (two chunks of 8
+// steps of 16 rows of 520 bf16 would pass the shared memory of a block).
+constexpr int TS = C > 256 ? 4 : 8;
+// Blocks a direction's slots of 16 take in gru_tc_kernel<1>: 1, at C = 512
+// 2 (blockIdx.z), each 16 slots (a direction's 32 warps would fill 1,024
+// threads, 64 registers a thread).
+constexpr int GRU_PARTS = C > 256 ? 2 : 1;
+// LN1 rows a warp stages per step (D GS / warps, C / 16 / GRU_PARTS warps a
+// direction).
+constexpr int GRU_ROWS = C > 256 ? 1 : 256 / C;
 constexpr int WPD_LOG2 = PIECES_LOG2 - 1;  // log2 of C / 16
 
 struct GruArgs {
@@ -422,10 +554,16 @@ struct GruArgs {
 };
 
 // Whether gru_tc_kernel<KS> takes one direction a block (dense slots at
-// C = 128, and every slot at C = 256, where both directions' 32 warps would
-// pass 1,024 threads) rather than all of them.
+// C = 128, and every slot at C >= 256, where both directions' 32 warps
+// would pass 1,024 threads) rather than all of them.
 __host__ __device__ constexpr bool split_directions(int KS) {
   return C > 128 || (C > 64 && KS > 1);
+}
+
+// The threads of a gru_tc_kernel<KS> block: 32 a warp, C / 16 warps a
+// direction (over GRU_PARTS blocks).
+__host__ __device__ constexpr int gru_tc_threads(int KS) {
+  return C > 256 ? 2 * C / GRU_PARTS : split_directions(KS) ? 2 * C : 4 * C;
 }
 
 // Two chunk buffers of LN1 rows, bf16 [2][D][TS][GS][LDS], and for KS > 1
@@ -477,7 +615,7 @@ inline size_t gru_smem(int D) {
 // gave the C = 64 slots of 16 134 registers a thread, not 116, which fits
 // one block of 256 threads an SM instead of two.
 template <int KS, bool PADDED>
-__global__ void __launch_bounds__(split_directions(KS) ? 2 * C : 4 * C)
+__global__ void __launch_bounds__(gru_tc_threads(KS))
     gru_tc_kernel(GruArgs a) {
   constexpr bool SPLIT = split_directions(KS);
   constexpr int SLOTS = C / (16 * KS);  // KS > 1: dense slots a direction
@@ -488,7 +626,10 @@ __global__ void __launch_bounds__(split_directions(KS) ? 2 * C : 4 * C)
   const int g = lane >> 2, t = lane & 3;
   // grp: the warp's 16 units; d its direction, dl that within the block
   const int d = SPLIT ? (int)blockIdx.y : warp >> WPD_LOG2;
-  const int grp = warp & ((1 << WPD_LOG2) - 1), dl = SPLIT ? 0 : d;
+  const int grp = GRU_PARTS > 1
+                      ? (int)blockIdx.z * (C / 16 / GRU_PARTS) + warp
+                      : warp & ((1 << WPD_LOG2) - 1);
+  const int dl = SPLIT ? 0 : d;
   const int L = a.L, D = SPLIT ? 1 : a.D;  // directions in the block
   const long long n0 = (long long)blockIdx.x * GS;
   const size_t NL = (size_t)a.N * L;
@@ -667,8 +808,8 @@ cudaError_t launch_gru_tc_as(const GruArgs& a, cudaStream_t st) {
   cudaError_t e = allow_smem(gru_tc_kernel<KS, PADDED>, smem);
   if (e != cudaSuccess) return e;
   gru_tc_kernel<KS, PADDED>
-      <<<dim3((unsigned)((a.N + GS - 1) / GS), SPLIT ? a.D : 1),
-         D * (C / 16) * 32, smem, st>>>(a);
+      <<<dim3((unsigned)((a.N + GS - 1) / GS), SPLIT ? a.D : 1, GRU_PARTS),
+         D * (C / 16 / GRU_PARTS) * 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -690,7 +831,7 @@ inline cudaError_t launch_gru_dense(const float* x, const float* ln1_s,
                                     long long N, int L, int D, float inv_c,
                                     cudaStream_t st) {
   const long long rows = N * L;
-  const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  const unsigned rblocks = (unsigned)((rows + PROJ_ROWS - 1) / PROJ_ROWS);
   proj_kernel<true, SW><<<row_grid(rblocks, D * 3 * C),
                           row_threads(D * 3 * C), 0, st>>>(
       x, nullptr, nullptr, ln1_s, ln1_b, w_ih, b_ih, xp, rows, D * 3 * C,
@@ -698,12 +839,19 @@ inline cudaError_t launch_gru_dense(const float* x, const float* ln1_s,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 #if LCT_C > 128
-  if constexpr (SW == C) {
-    // one slot of 256: the cluster kernel
+  if constexpr (SW == GC_SW) {
+    // slots of 256: the cluster kernel, a slot in blockIdx.z
     gru_cluster_kernel<ROUND>
-        <<<dim3((unsigned)((N + GC_DS - 1) / GC_DS * GC_CL), (unsigned)D),
+        <<<dim3((unsigned)((N + GC_DS - 1) / GC_DS * GC_CL), (unsigned)D,
+                C / GC_SW),
            256, 0, st>>>(xp, w_hh, b_hh, hid, N, L, D);
     return cudaGetLastError();
+  } else
+#endif
+#if LCT_C > 256
+  if constexpr (SW == C) {
+    // one slot of 512: a launch a step over all sequences
+    return launch_gru_steps<ROUND>(xp, w_hh, b_hh, hid, N, L, D, st);
   } else
 #endif
   {
@@ -723,8 +871,8 @@ inline cudaError_t launch_gru_dense(const float* x, const float* ln1_s,
 
 // LN1's input projection and the recurrence in all-f32 arithmetic, over
 // `slots` GRU slots: xp [N*L, D*3C], hid [D, N*L, C]. ROUND: the bf16
-// mode's rounding points instead (the dense slot of C = 128, and C = 256's
-// slots of 64, 128 and 256).
+// mode's rounding points instead (the dense slot of C = 128, C = 256's
+// slots of 64, 128 and 256, and C = 512's of 64, 128, 256 and 512).
 template <bool ROUND = false>
 inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
                                   const float* ln1_b, const float* w_ih,
@@ -733,7 +881,7 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
                                   float* hid, long long N, int L, int D,
                                   float inv_c, cudaStream_t st) {
   const long long rows = N * L;
-  const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  const unsigned rblocks = (unsigned)((rows + PROJ_ROWS - 1) / PROJ_ROWS);
   const unsigned threads = row_threads(D * 3 * C);
   if (!ROUND && gru_slot(slots) == 16) {
     proj_kernel<true, 16><<<row_grid(rblocks, D * 3 * C), threads, 0, st>>>(
@@ -754,6 +902,11 @@ inline cudaError_t launch_gru_f32(const float* x, const float* ln1_s,
     case 128:
       return launch_gru_dense<ROUND, 128>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
                                           b_hh, xp, hid, N, L, D, inv_c, st);
+#if LCT_C > 256
+    case 256:
+      return launch_gru_dense<ROUND, 256>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
+                                          b_hh, xp, hid, N, L, D, inv_c, st);
+#endif
     case C:
       return launch_gru_dense<ROUND, C>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
                                         b_hh, xp, hid, N, L, D, inv_c, st);
@@ -856,12 +1009,14 @@ __host__ __device__ constexpr int warps32(int threads) {
   return (threads + 31) / 32 * 32;
 }
 
-// One instance per slot width W (16, 32, 64, 128; 128 and 256 = C are
-// the cluster kernel's). A block takes SPB of the SLOTS slots (blockIdx.z
-// picks them): all of them, but at C = 256 one slot of 64 or 128, whose
-// consumers' W_hh would pass the register file (four slots of 64) or the
-// shared memory (two of 128) of one block. LN1 runs over the whole rows in
-// every block.
+// One instance per slot width W (16, 32, 64, 128; a group of 256 or 512
+// is the cluster or step kernel's, over an xp scratch). A block takes SPB
+// of the SLOTS slots (blockIdx.z picks them): all of them, but at C >= 256
+// one slot of 64 or 128, whose consumers' W_hh would pass the register
+// file (four slots of 64) or the shared memory (two of 128) of one block,
+// and at C = 512 half the slots of 16 or 32 (all of them would take 1,024
+// threads, or registers past a thread's share). LN1 runs over the whole
+// rows in every block.
 template <int W>
 struct Cfg {
   static constexpr bool WSMEM = W > 64;  // W_hh in shared memory
@@ -870,16 +1025,20 @@ struct Cfg {
   static constexpr int KP = WSMEM ? W : W < 32 ? W : 32;
   static constexpr int KS = W / KP;
   static constexpr int SLOTS = C / W;
-  static constexpr int SPB = C > 128 && W >= 64 ? 1 : SLOTS;  // slots a block
+  static constexpr int SPB = C > 128 && W >= 64 ? 1          // slots a block
+                             : C > 256          ? SLOTS / 2
+                                                : SLOTS;
   static constexpr int NB = SLOTS / SPB;                        // blocks in z
   static constexpr int UB = SPB * W;                            // units a block
   static constexpr int W3 = 3 * W;
-  static constexpr int TS = WSMEM ? 4 : 16;  // steps a chunk
+  // Steps a chunk (at C = 512 half, so that the rings of C-wide rows fit
+  // beside a slot of 128's W_hh).
+  static constexpr int TS = (WSMEM ? 4 : 16) / (C > 256 ? 2 : 1);
   static constexpr int CONS = warps32(UB * KS);
-  // Producers: slots of 16 one unit a thread (its W_ih columns in
-  // registers); dense slots one xp column of all TS rows a thread at a
-  // time (W_ih read through L1), 96 to 192 threads.
-  static constexpr int PT = W == 16 ? warps32(C) : W == 128 ? 128
+  // Producers: slots of 16 one unit of the block a thread (its W_ih
+  // columns in registers); dense slots one xp column of all TS rows a
+  // thread at a time (W_ih read through L1), 96 to 192 threads.
+  static constexpr int PT = W == 16 ? warps32(UB) : W == 128 ? 128
                             : 3 * UB < 192 ? 3 * UB : 192;
   static constexpr int PW = PT / 32;  // producer warps
   static constexpr int THREADS = CONS + PT;
@@ -889,8 +1048,9 @@ struct Cfg {
   static constexpr int XP = 2 * TS * 3 * UB, HS = 2 * TS * C, XR = 2 * TS * C;
   static constexpr int WH = WSMEM ? UB * W3 : 0;
   static constexpr size_t SMEM = (size_t)(XP + HS + XR + C + WH) * 4;
-  static_assert(C % W == 0 && TS % 4 == 0 && (!WSMEM || SPB == 1) &&
-                    (W * KS <= 32 || SPB <= 2) && SMEM <= 232448,
+  static_assert(C % W == 0 && (TS % 4 == 0 || (WSMEM && TS % 2 == 0)) &&
+                    (!WSMEM || SPB == 1) && (W * KS <= 32 || SPB <= 2) &&
+                    SMEM <= 232448,
                 "gru_f32_kernel configuration");
 };
 
@@ -1062,11 +1222,11 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
     ls[i] = lane_holds(lane, i) ? a.ln_s[lane + 32 * i] : 0.f;
     lb[i] = lane_holds(lane, i) ? a.ln_b[lane + 32 * i] : 0.f;
   }
-  // Slots of 16: producer p projects unit p (all three gates), its W_ih
-  // columns and biases in registers.
+  // Slots of 16: producer p projects the block's unit p (all three gates),
+  // its W_ih columns and biases in registers.
   constexpr int NW = W == 16 ? 16 : 1;
   float wi[3][NW], bi[3];
-  const int pu = p < C ? p : 0, ps = pu / 16, pj = pu % 16;
+  const int pu = s0 * 16 + (p < K::UB ? p : 0), ps = pu / 16, pj = pu % 16;
   if constexpr (W == 16) {
 #pragma unroll
     for (int k = 0; k < 16; ++k)
@@ -1113,7 +1273,7 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
     float* out = xps + (size_t)(cc & 1) * TS * 3 * K::UB;
     if constexpr (W == 16) {
       constexpr int RG = 4;  // rows at a time
-      if (p >= C) return;
+      if (p >= K::UB) return;
 #pragma unroll 1
       for (int r0 = 0; r0 < TS; r0 += RG) {
         float acc[3][RG];
@@ -1139,7 +1299,7 @@ __device__ __forceinline__ void produce(const Args& a, float* sm, int p) {
         for (int rr = 0; rr < RG; ++rr)
 #pragma unroll
           for (int g = 0; g < 3; ++g)
-            out[(r0 + rr) * 3 * C + ps * 48 + g * 16 + pj] =
+            out[(r0 + rr) * 3 * K::UB + (ps - s0) * 48 + g * 16 + pj] =
                 acc[g][rr] + bi[g];
       }
     } else {
@@ -1248,9 +1408,9 @@ cudaError_t launch(const Args& a, int D, cudaStream_t st) {
 }
 
 // The instance for `groups` groups of H = C / groups units: slots of W =
-// H, or of 16 holding 16 / H groups where H < 16 (one group of 256 is the
-// cluster kernel's, lct_grouped_gru_f32). A template, so that only the
-// instances of the library's C are built.
+// H, or of 16 holding 16 / H groups where H < 16 (groups of 256 and 512
+// are the cluster and step kernels', lct_grouped_gru_f32). A template, so
+// that only the instances of the library's C are built.
 template <int CC = C>
 cudaError_t launch_groups(const Args& a, int D, cudaStream_t st) {
   const int H = C / a.G;
@@ -1284,9 +1444,9 @@ cudaError_t launch_groups(const Args& a, int D, cudaStream_t st) {
 // f32 (the per-direction hiddens, unrounded), qkv bf16 [N*L, 3C], s f32
 // [N*L, C] (x + g), when lin_in == 2C gb bf16 [N*L, C] (bf16(g); else
 // null), for the GRU slots on CUDA cores (C = 128's dense slot, C = 256's
-// slots of 64, 128 and 256) xp f32 [N*L, D*3C] (else null), at C = 256 ctx
-// bf16 [N*L, C] (the attention's context, which the split epilogue reads;
-// else null). Returns a cudaError_t.
+// slots of 64, 128 and 256, C = 512's of 64 .. 512) xp f32 [N*L, D*3C]
+// (else null), at C >= 256 ctx bf16 [N*L, C] (the attention's context,
+// which the split epilogue reads; else null). Returns a cudaError_t.
 extern "C" int lct_ftf_forward_bf16(
     const float* x, const float* ln1_s, const float* ln1_b,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -1318,7 +1478,8 @@ extern "C" int lct_ftf_forward_bf16(
     e = tc::launch_gru_tc<1>(ga, c_true, st);
   } else {
 #if LCT_C > 128
-    // C = 256: slots of 64 and 128 on CUDA cores, 256 the cluster kernel
+    // C >= 256: slots of 64 and 128 on CUDA cores, of 256 the cluster
+    // kernel, of 512 (C = 512) the step kernel
     e = launch_gru_f32<true>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh, slots,
                              xp, hid, N, L, D, inv_c, st);
 #else
@@ -1364,8 +1525,9 @@ extern "C" int lct_ftf_forward_bf16(
 // groups a power of two (the caller pads other widths, ops/padding.py), of
 // which c_true channels are true (LN1's count); out hid [D, N*L, C] f32,
 // the per-direction hiddens (the caller sums them). Scratch: for one group
-// of C = 256 xp f32 [N*L, D*3C] (LN1's input projection, which the cluster
-// kernel reads), else null. Returns a cudaError_t.
+// of C = 256, or groups of 256 or 512 at C = 512, xp f32 [N*L, D*3C]
+// (LN1's input projection, which the cluster or step kernel reads), else
+// null. Returns a cudaError_t.
 extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
                                    const float* ln1_b, const float* w_ih,
                                    const float* w_hh, const float* b_ih,
@@ -1376,11 +1538,17 @@ extern "C" int lct_grouped_gru_f32(const float* x, const float* ln1_s,
   const int H = groups > 0 ? C / groups : 0;
   if (H < 1 || H * groups != C || (H & (H - 1)) != 0 || N < 0 || L < 1 ||
       D < 1 || D > 2 || c_true < 1 || c_true > C ||
-      (C > 128 && H == C) != (xp != nullptr))
+      (C > 128 && H > 128) != (xp != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
   LCT_CHECK();
   if (N == 0) return 0;
+#if LCT_C > 256
+  if (H == 256)
+    return (int)launch_gru_dense<false, 256>(
+        x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh, xp, hid, N, L, D,
+        1.f / c_true, (cudaStream_t)stream);
+#endif
 #if LCT_C > 128
   if (H == C)
     return (int)launch_gru_dense<false, C>(x, ln1_s, ln1_b, w_ih, w_hh, b_ih,
@@ -1411,7 +1579,7 @@ extern "C" int lct_ftf_forward_f32(
   LCT_CHECK();
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
-  const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  const unsigned rblocks = (unsigned)((rows + PROJ_ROWS - 1) / PROJ_ROWS);
   const float inv_c = 1.f / c_true;
 
   cudaError_t e = launch_gru_f32(x, ln1_s, ln1_b, w_ih, w_hh, b_ih, b_hh,

@@ -8,8 +8,8 @@
 //   1. qkv_tc_kernel       qkv = bf16(x @ in_w + in_b) -> qkv bf16 [N*L, 3C]
 //   2. attn_tc_kernel<1>   C/hd-head softmax attention, band, key bias, and
 //                          out = ctx @ out_w + out_b  -> out [N*L, C]
-//   At C = 256: qkv_panel_kernel, then attn_head_kernel<1> -> ctx bf16
-//   [N*L, C] and epi_kernel<1> -> out (the split epilogue, tc.cuh).
+//   At C = 256 and 512: qkv_panel_kernel, then attn_head_kernel<1> -> ctx
+//   bf16 [N*L, C] and epi_kernel<1> -> out (the split epilogue, tc.cuh).
 // precise (lct_mhsa_forward_f32), all f32 on CUDA cores (common.cuh):
 //   proj_kernel -> qkv f32, attn_kernel<1> -> ctx f32, proj_kernel -> out.
 //
@@ -33,7 +33,7 @@
 // x, out: [N, L, C]; in_w: [C, 3C]; out_w: [C, C]; key_bias: [N, L] or
 // null; lookback < 0 means no band; c_true true channels (the rest of each
 // row zero) in num_heads heads, scale their score scale (the f32 rounding
-// of 1 / sqrt(c_true / num_heads)). Scratch: qkv bf16 [N*L, 3C], at C =
+// of 1 / sqrt(c_true / num_heads)). Scratch: qkv bf16 [N*L, 3C], at C >=
 // 256 ctx bf16 [N*L, C] (else null). Returns a cudaError_t.
 extern "C" int lct_mhsa_forward_bf16(const float* x, const float* in_w,
                                      const float* in_b, const float* out_w,
@@ -82,7 +82,7 @@ extern "C" int lct_mhsa_forward_f32(const float* x, const float* in_w,
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = N * L;
-  const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  const unsigned rblocks = (unsigned)((rows + PROJ_ROWS - 1) / PROJ_ROWS);
 
   proj_kernel<false><<<row_grid(rblocks, 3 * C), row_threads(3 * C), 0, st>>>(
       x, nullptr, nullptr, nullptr, nullptr, in_w, in_b, qkv, rows, 3 * C,

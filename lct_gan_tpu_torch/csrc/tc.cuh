@@ -31,7 +31,7 @@ constexpr int LDS = C + 8;        // bf16 row stride of a C-column tile
 constexpr int LDW = 3 * C + 8;    // bf16 row stride of in_w [C][3C]
 // log2 of C / 8: the 16-byte pieces of a bf16 row of C channels.
 constexpr int PIECES_LOG2 =
-    C == 16 ? 1 : C == 32 ? 2 : C == 64 ? 3 : C == 128 ? 4 : 5;
+    C == 16 ? 1 : C == 32 ? 2 : C == 64 ? 3 : C == 128 ? 4 : C == 256 ? 5 : 6;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -591,33 +591,53 @@ inline cudaError_t launch_qkv(const ProjArgs& a, cudaStream_t st) {
 }
 #else
 // C = 256: in_w [C, 3C] is 393 KB as bf16, past the 227 KB of shared memory
-// a block may hold, so qkv_panel_kernel stages it in three panels of C
-// output columns (q, k, v: 135 KB each) and takes its rows through each
+// a block may hold, so qkv_panel_kernel stages it in three panels of PNW =
+// C output columns (q, k, v: 135 KB each) and takes its rows through each
 // panel in turn, each time with qkv_tc_kernel's LayerNorm and rounding
 // (stage_rows, 4 rows at a time: CPL = 8 channels a lane); s and bf16(g)
-// are written in the first panel. Bound by bytes, as qkv_tc_kernel: x (and
-// the hiddens) are read three times here, once per panel.
-constexpr size_t PANEL_SMEM = sizeof(__nv_bfloat16) * (C * LDS + 64 * LDS);
+// are written in the first panel. C = 512 (in_w 1.5 MB as bf16): twelve
+// panels of PNW = 128 columns (139 KB each), rows 2 at a time (CPL = 16),
+// and the A fragments of a row tile read from shared memory for each
+// product (all 32 k-steps' would take 128 registers a lane). Bound by
+// bytes, as qkv_tc_kernel: x (and the hiddens) are read once per panel.
+constexpr int PNW = C > 256 ? 128 : C;  // output columns a panel
+constexpr int LDP = PNW + 8;            // bf16 row stride of a panel
+constexpr size_t PANEL_SMEM = sizeof(__nv_bfloat16) * (C * LDP + 64 * LDS);
 
 __global__ void __launch_bounds__(PROJ_THREADS)
     qkv_panel_kernel(ProjArgs a) {
   extern __shared__ __align__(16) unsigned char qkv_smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(qkv_smem);  // [C][LDS]
-  __nv_bfloat16* as = ws + C * LDS;                                 // [64][LDS]
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(qkv_smem);  // [C][LDP]
+  __nv_bfloat16* as = ws + C * LDP;                                 // [64][LDS]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   __nv_bfloat16* aw = as + warp * 16 * LDS;
   float ls[CPL], lb[CPL];
   ln_params(a, lane, ls, lb);
   const long long tiles = (a.rows + 63) / 64;
-  for (int p = 0; p < 3; ++p) {
+  for (int p = 0; p < 3 * C / PNW; ++p) {
     __syncthreads();  // the previous panel's products are done
-    for (int i = threadIdx.x; i < C * C; i += blockDim.x)
-      ws[(i / C) * LDS + i % C] = __float2bfloat16_rn(
-          __ldg(a.w + (size_t)(i / C) * (3 * C) + p * C + i % C));
+    for (int i = threadIdx.x; i < C * PNW; i += blockDim.x)
+      ws[(i / PNW) * LDP + i % PNW] = __float2bfloat16_rn(
+          __ldg(a.w + (size_t)(i / PNW) * (3 * C) + p * PNW + i % PNW));
     __syncthreads();
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const long long row0 = tile * 64 + warp * 16;
+#if LCT_C > 256
+      stage_rows<2, 1>(a, row0, aw, ls, lb, lane, p == 0);
+      __syncwarp();
+#pragma unroll 1
+      for (int np = 0; np < PNW / 16; ++np) {
+        float acc[2][4] = {};
+#pragma unroll 4
+        for (int kk = 0; kk < C / 16; ++kk) {
+          uint32_t af[4], wb[4];
+          load_a(af, aw + kk * 16, LDS, lane);
+          load_b_kn(wb, ws + kk * 16 * LDP + np * 16, LDP, lane);
+          mma(acc[0], af, wb[0], wb[1]);
+          mma(acc[1], af, wb[2], wb[3]);
+        }
+#else
       stage_rows<4, 1>(a, row0, aw, ls, lb, lane, p == 0);
       __syncwarp();
       uint32_t af[C / 16][4];
@@ -628,9 +648,10 @@ __global__ void __launch_bounds__(PROJ_THREADS)
       for (int np = 0; np < C / 16; ++np) {
         float acc[2][4];
         product_16cols(acc, af, ws + np * 16, LDS, lane);
+#endif
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int col = p * C + np * 16 + j * 8 + 2 * t;
+          const int col = p * PNW + np * 16 + j * 8 + 2 * t;
           const float b0 = __ldg(a.bias + col), b1 = __ldg(a.bias + col + 1);
 #pragma unroll
           for (int rr = 0; rr < 2; ++rr) {
@@ -744,11 +765,12 @@ struct AttnShape {
 // rounding of 1 / sqrt of the true head width), taken on the host.
 inline float qk_scale2(float scale) { return scale * LOG2E; }
 
-// A key tile: K and V rows of LD bf16, the key bias.
-template <int LD>
+// A key tile: K rows of LD bf16, V rows of LDV (LD but for a head of 512,
+// whose context a call takes in parts), the key bias.
+template <int LD, int LDV = LD>
 struct KVTileOf {
   __nv_bfloat16 k[AT * LD];
-  __nv_bfloat16 v[AT * LD];
+  __nv_bfloat16 v[AT * LDV];
   float kb[AT];
 };
 using KVTile = KVTileOf<LDS>;
@@ -822,23 +844,47 @@ __device__ __forceinline__ void load_q(const AttnArgs& a, const Item& it,
 
 // Load number s of an item: key tile s % nkt into its buffer; V only for
 // pass B (or when the tiles stay resident for both passes). The same
-// columns as load_q, of the k and v sections.
-template <int THREADS, int PL2 = PIECES_LOG2, int LD = LDS>
+// columns as load_q, of the k and v sections; with PL2V != PL2 (a head of
+// 512 in parts) V's 2^PL2V pieces a row from column vcol0 of the v
+// section instead.
+template <int THREADS, int PL2 = PIECES_LOG2, int LD = LDS, int PL2V = PL2,
+          int LDV = LD>
 __device__ __forceinline__ void load_kv(const AttnArgs& a, const Item& it,
-                                        KVTileOf<LD>* kv, int s, int tid,
-                                        int col0 = 0) {
+                                        KVTileOf<LD, LDV>* kv, int s, int tid,
+                                        int col0 = 0, int vcol0 = 0) {
   const int i = s % it.nkt;
-  KVTileOf<LD>& b = kv[it.resident ? i : (s & 1)];
+  KVTileOf<LD, LDV>& b = kv[it.resident ? i : (s & 1)];
   const bool with_v = it.resident || s >= it.nkt;
   const int kbase = (it.kt0 + i) * AT;
   const __nv_bfloat16* base = a.qkv + (size_t)it.n * a.L * (3 * C) + col0;
-  for (int c = tid; c < AT << PL2; c += THREADS) {
-    const int r = c >> PL2, part = c & ((1 << PL2) - 1);
-    const bool ok = kbase + r < a.L;
-    const __nv_bfloat16* src =
-        base + (size_t)(ok ? kbase + r : 0) * (3 * C) + C + part * 8;
-    cp_async16(b.k + r * LD + part * 8, src, ok);
-    if (with_v) cp_async16(b.v + r * LD + part * 8, src + C, ok);
+  if constexpr (PL2V == PL2 && LDV == LD) {
+    for (int c = tid; c < AT << PL2; c += THREADS) {
+      const int r = c >> PL2, part = c & ((1 << PL2) - 1);
+      const bool ok = kbase + r < a.L;
+      const __nv_bfloat16* src =
+          base + (size_t)(ok ? kbase + r : 0) * (3 * C) + C + part * 8;
+      cp_async16(b.k + r * LD + part * 8, src, ok);
+      if (with_v) cp_async16(b.v + r * LD + part * 8, src + C, ok);
+    }
+  } else {
+    for (int c = tid; c < AT << PL2; c += THREADS) {
+      const int r = c >> PL2, part = c & ((1 << PL2) - 1);
+      const bool ok = kbase + r < a.L;
+      cp_async16(b.k + r * LD + part * 8,
+                 base + (size_t)(ok ? kbase + r : 0) * (3 * C) + C + part * 8,
+                 ok);
+    }
+    if (with_v) {
+      const __nv_bfloat16* vbase =
+          a.qkv + (size_t)it.n * a.L * (3 * C) + 2 * C + vcol0;
+      for (int c = tid; c < AT << PL2V; c += THREADS) {
+        const int r = c >> PL2V, part = c & ((1 << PL2V) - 1);
+        const bool ok = kbase + r < a.L;
+        cp_async16(b.v + r * LDV + part * 8,
+                   vbase + (size_t)(ok ? kbase + r : 0) * (3 * C) + part * 8,
+                   ok);
+      }
+    }
   }
   if (tid < AT) {
     const bool ok = a.key_bias != nullptr && kbase + tid < a.L;
@@ -866,13 +912,18 @@ struct HeadShape {
 // bf16 holding all C channels, NHW heads a call, the context o over all C
 // channels (C / 8 n8 tiles). attn_head_kernel (HEAD true): rows of LD bf16
 // holding one head's KW channels (a head of at most 8: the 16-channel
-// k-step that holds it), one head a call, o over those KW channels.
+// k-step that holds it), one head a call, o over VW of those channels in V
+// rows of LDV: all KW, but a head of 512 in parts of VW = 128 (its whole
+// context, 256 floats a lane, would pass the register file), each call
+// scoring over all 512 channels.
 template <int HDP, bool HEAD>
 struct TileShape {
   static constexpr int KW = HDP >= 16 ? HDP : 16;
   static constexpr int LD = HEAD ? KW + 8 : LDS;
   static constexpr int NHW = HEAD ? 1 : HeadShape<HDP>::NHW;
-  static constexpr int NO = HEAD ? KW / 8 : C / 8;
+  static constexpr int VW = HEAD && KW > 256 ? 128 : KW;
+  static constexpr int LDV = HEAD ? VW + 8 : LDS;
+  static constexpr int NO = HEAD ? VW / 8 : C / 8;
 };
 
 // A score fragment (key chunk kc, n8 half j) in log2 units: scale2 times
@@ -921,6 +972,10 @@ __device__ __forceinline__ void attn_tile(
     float scale2) {
   constexpr int KS = HeadShape<HDP>::KS, NHW = TileShape<HDP, HEAD>::NHW;
   constexpr int LD = TileShape<HDP, HEAD>::LD, NO = TileShape<HDP, HEAD>::NO;
+  // V's row stride and the k-steps of the context a call takes (KS but for
+  // a head of 512, whose call takes a part of VW channels).
+  constexpr int LDV = TileShape<HDP, HEAD>::LDV;
+  constexpr int VS = HEAD ? TileShape<HDP, HEAD>::VW / 16 : KS;
   const int t = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < NHW; ++hh) {
@@ -936,18 +991,37 @@ __device__ __forceinline__ void attn_tile(
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[kc][j][e] = 0.f;
+      if constexpr (KS > 16) {
+        // A head of 512: its 32 k-steps unrolled by 2 (fully unrolled,
+        // ptxas took ~16 s on each instance of the head kernel).
+#pragma unroll 2
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qa[4];
+          load_a(qa, qw + ks * 16, LD, lane);
+          if (HDP == 8) q_mask(qa, h, hd, lane);
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t qa[4];
-        load_a(qa, qw + ks * 16, LD, lane);
-        if (HDP == 8) q_mask(qa, h, hd, lane);
+          for (int kc = 0; kc < 4; ++kc) {
+            if (!FULL && !((need >> kc) & 1u)) continue;
+            uint32_t kf[4];
+            load_b_nk(kf, b.k + kc * 16 * LD + ks * 16, LD, lane);
+            mma(sc[kc][0], qa, kf[0], kf[1]);
+            mma(sc[kc][1], qa, kf[2], kf[3]);
+          }
+        }
+      } else {
 #pragma unroll
-        for (int kc = 0; kc < 4; ++kc) {
-          if (!FULL && !((need >> kc) & 1u)) continue;
-          uint32_t kf[4];
-          load_b_nk(kf, b.k + kc * 16 * LD + ks * 16, LD, lane);
-          mma(sc[kc][0], qa, kf[0], kf[1]);
-          mma(sc[kc][1], qa, kf[2], kf[3]);
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qa[4];
+          load_a(qa, qw + ks * 16, LD, lane);
+          if (HDP == 8) q_mask(qa, h, hd, lane);
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc) {
+            if (!FULL && !((need >> kc) & 1u)) continue;
+            uint32_t kf[4];
+            load_b_nk(kf, b.k + kc * 16 * LD + ks * 16, LD, lane);
+            mma(sc[kc][0], qa, kf[0], kf[1]);
+            mma(sc[kc][1], qa, kf[2], kf[3]);
+          }
         }
       }
 #pragma unroll
@@ -1056,8 +1130,8 @@ __device__ __forceinline__ void attn_tile(
         uint32_t vf[4];
         if (HDP >= 16) {
 #pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
-            load_b_kn(vf, b.v + kc * 16 * LD + col0 + ks * 16, LD, lane);
+          for (int ks = 0; ks < VS; ++ks) {
+            load_b_kn(vf, b.v + kc * 16 * LDV + col0 + ks * 16, LDV, lane);
             const int nt = col0 / 8 + 2 * ks;
             mma(o[nt], pa, vf[0], vf[1]);
             mma(o[nt + 1], pa, vf[2], vf[3]);
@@ -1361,10 +1435,10 @@ cudaError_t launch_attn_tc_hd(const AttnArgs& a, cudaStream_t st) {
 
 #if LCT_C > 128
 // ---------------------------------------------------------------------------
-// C = 256's attention, in two kernels (the split epilogue). attn_tc_kernel
-// keeps a warp's whole C-channel context in registers and stages out_w and
-// lin_w in shared memory; at C = 256 that is 128 context floats a lane and
-// 405 KB of weights. So here:
+// C = 256's and 512's attention, in two kernels (the split epilogue).
+// attn_tc_kernel keeps a warp's whole C-channel context in registers and
+// stages out_w and lin_w in shared memory; at C = 256 that is 128 context
+// floats a lane and 405 KB of weights. So here:
 //   attn_head_kernel<MODE, HDP>  the softmax attention of one head a work
 //     item (sequence, 64 query rows, head), its scores streamed over the
 //     head's 16-channel k-steps, writing the context rounded to bf16 (the
@@ -1372,9 +1446,9 @@ cudaError_t launch_attn_tc_hd(const AttnArgs& a, cudaStream_t st) {
 //     the division by den + 1e-20) into ctx [N*L, C];
 //   epi_kernel<MODE>  out = ctx @ out_w + out_b (MODE 1), or a = bf16(ctx @
 //     out_w + out_b), comb = [bf16(g) @ lin_w[:C]] + a @ lin_w[lin_in - C:] +
-//     lin_b, out = s + LeakyReLU(comb) (MODE 0), over tiles of 128 rows
-//     with the weights streamed through shared memory in panels of 64
-//     output columns.
+//     lin_b, out = s + LeakyReLU(comb) (MODE 0), over tiles of 128 rows (64
+//     at C = 512) with the weights streamed through shared memory in panels
+//     of 64 output columns.
 // The scores, the passes over the keys, the band, the key bias and the
 // rounding points are attn_tc_kernel's (attn_tile). Heads of hd <= 8 take
 // the 16-channel k-step that holds them with the other heads' q columns
@@ -1382,30 +1456,45 @@ cudaError_t launch_attn_tc_hd(const AttnArgs& a, cudaStream_t st) {
 // head (the wrapper's zero heads) is computed too: its context is 0, which
 // the epilogue reads. Bound: for narrow heads the exps, as attn_tc_kernel;
 // ctx crosses device memory once each way (2 B a channel), which the fused
-// design avoided.
+// design avoided. A head of 512 (C = 512) takes its context in NP = 4 parts
+// of 128 channels, a work item each, every part scoring over all 512
+// channels (4x the score products: slow and right), in items of 48 query
+// rows, so that Q, two K tiles and two V parts fit (213 KB).
 constexpr int HQR = 64;        // query rows an item
 constexpr int HTHREADS = 128;  // 4 warps of 16 rows
 
 // attn_tile's HEAD tiles: rows of LD bf16, 2^PL2 16-byte pieces a row (KW
-// channels), two K/V tiles and the item's Q rows.
+// channels), two K/V tiles (V rows of LDV, 2^PL2V pieces: a part of VW
+// channels, NP parts a head) and the item's QR Q rows, THREADS threads.
 template <int HDP>
 struct HeadTile {
   using TS = TileShape<HDP, true>;
   static constexpr int KW = TS::KW, LD = TS::LD;
-  static constexpr int PL2 =
-      KW == 16 ? 1 : KW == 32 ? 2 : KW == 64 ? 3 : KW == 128 ? 4 : 5;
+  static constexpr int PL2 = KW == 16    ? 1
+                             : KW == 32  ? 2
+                             : KW == 64  ? 3
+                             : KW == 128 ? 4
+                             : KW == 256 ? 5
+                                         : 6;
   static_assert(KW == 8 << PL2, "KW");
-  using KV = KVTileOf<LD>;
+  static constexpr int VW = TS::VW, LDV = TS::LDV, NP = KW / VW;
+  static constexpr int PL2V = PL2 - (NP == 1 ? 0 : 2);
+  static_assert(VW == 8 << PL2V && (NP == 1 || NP == 4), "VW");
+  static constexpr int QR = KW > 256 ? 48 : HQR;
+  static constexpr int THREADS = KW > 256 ? 96 : HTHREADS;
+  using KV = KVTileOf<LD, LDV>;
   static constexpr size_t SMEM =
-      2 * sizeof(KV) + sizeof(__nv_bfloat16) * HQR * LD;
+      2 * sizeof(KV) + sizeof(__nv_bfloat16) * QR * LD;
 };
 
 template <int MODE, int HDP>
-__global__ void __launch_bounds__(HTHREADS)
+__global__ void __launch_bounds__(HeadTile<HDP>::THREADS)
     attn_head_kernel(AttnArgs a, __nv_bfloat16* __restrict__ ctx) {
   using HT = HeadTile<HDP>;
   using KV = typename HT::KV;
   constexpr int KW = HT::KW, LD = HT::LD, PL2 = HT::PL2;
+  constexpr int QR = HT::QR, THREADS = HT::THREADS, NP = HT::NP;
+  constexpr int PL2V = HT::PL2V, LDV = HT::LDV, NO = HT::VW / 8;
   extern __shared__ __align__(16) unsigned char head_smem[];
   KV* kv = reinterpret_cast<KV*>(head_smem);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(kv + 2);
@@ -1413,21 +1502,26 @@ __global__ void __launch_bounds__(HTHREADS)
   const int g = lane >> 2, t = lane & 3;
   const int L = a.L, lb = a.lookback;
   const int hd = HDP >= 16 ? HDP : a.hd, nh = C / hd;
-  const long long items = a.N * ((L + HQR - 1) / HQR) * nh;
+  const long long items = a.N * ((L + QR - 1) / QR) * nh * NP;
   // The head's first channel (HDP >= 16), or its 16-channel k-step's.
   auto col0_of = [&](int h) { return HDP >= 16 ? h * HDP : (h * hd) & ~15; };
+  // An item: (query item, head, part): part the fastest (NP == 1: none).
+  auto head_of = [&](long long i) { return (int)((i / NP) % nh); };
+  auto part_of = [&](long long i) { return NP == 1 ? 0 : (int)(i % NP); };
 
   long long item = blockIdx.x;
   if (item < items) {
-    const Item first = item_at<HQR>(item / nh, L, lb);
-    const int c0 = col0_of((int)(item % nh));
-    load_q<HQR, HTHREADS, PL2, LD>(a, first, qs, tid, c0);
-    load_kv<HTHREADS, PL2, LD>(a, first, kv, 0, tid, c0);
+    const Item first = item_at<QR>(item / NP / nh, L, lb);
+    const int c0 = col0_of(head_of(item));
+    load_q<QR, THREADS, PL2, LD>(a, first, qs, tid, c0);
+    load_kv<THREADS, PL2, LD, PL2V, LDV>(
+        a, first, kv, 0, tid, c0, c0 + part_of(item) * HT::VW);
     cp_async_commit();
   }
   for (; item < items; item += gridDim.x) {
-    const Item it = item_at<HQR>(item / nh, L, lb);
-    const int h = (int)(item % nh), col0 = col0_of(h);
+    const Item it = item_at<QR>(item / NP / nh, L, lb);
+    const int h = head_of(item), col0 = col0_of(h);
+    const int vcol0 = col0 + part_of(item) * HT::VW;
     const int nload = it.resident ? it.nkt : 2 * it.nkt;
     const int r0 = it.q0 + warp * 16;
     const bool active = r0 < L;
@@ -1435,15 +1529,16 @@ __global__ void __launch_bounds__(HTHREADS)
     const int need_lo = lb >= 0 ? r0 - lb : 0;
     const int need_hi = lb >= 0 ? min(r0 + 15, L - 1) : L - 1;
     float m[1][2] = {{-INFINITY, -INFINITY}}, l[1][2] = {{0.f, 0.f}};
-    float o[KW / 8][4];
+    float o[NO][4];
 #pragma unroll
-    for (int nt = 0; nt < KW / 8; ++nt)
+    for (int nt = 0; nt < NO; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
     const int nsteps = it.nkt == 1 ? 1 : 2 * it.nkt;
     for (int s = 0; s < nsteps; ++s) {
       if (s + 1 < nload) {
-        load_kv<HTHREADS, PL2, LD>(a, it, kv, s + 1, tid, col0);
+        load_kv<THREADS, PL2, LD, PL2V, LDV>(a, it, kv, s + 1, tid, col0,
+                                             vcol0);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -1494,10 +1589,11 @@ __global__ void __launch_bounds__(HTHREADS)
     // item's stores.
     if (item + gridDim.x < items) {
       const long long nx = item + gridDim.x;
-      const Item ni = item_at<HQR>(nx / nh, L, lb);
-      const int c0 = col0_of((int)(nx % nh));
-      load_q<HQR, HTHREADS, PL2, LD>(a, ni, qs, tid, c0);
-      load_kv<HTHREADS, PL2, LD>(a, ni, kv, 0, tid, c0);
+      const Item ni = item_at<QR>(nx / NP / nh, L, lb);
+      const int c0 = col0_of(head_of(nx));
+      load_q<QR, THREADS, PL2, LD>(a, ni, qs, tid, c0);
+      load_kv<THREADS, PL2, LD, PL2V, LDV>(a, ni, kv, 0, tid, c0,
+                                           c0 + part_of(nx) * HT::VW);
       cp_async_commit();
     }
     if (!active) continue;
@@ -1509,12 +1605,13 @@ __global__ void __launch_bounds__(HTHREADS)
     const int lo = HDP >= 16 ? 0 : (h * hd) & 15;  // the head in the window
     const int hi = HDP >= 16 ? KW : lo + hd;
 #pragma unroll
-    for (int nt = 0; nt < KW / 8; ++nt) {
+    for (int nt = 0; nt < NO; ++nt) {
       const int col = nt * 8 + 2 * t;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (rg[r] >= L) continue;
-        __nv_bfloat16* dst = ctx + ((size_t)it.n * L + rg[r]) * C + col0 + col;
+        __nv_bfloat16* dst =
+            ctx + ((size_t)it.n * L + rg[r]) * C + vcol0 + col;
         const float v0 = o[nt][2 * r] / den[r], v1 = o[nt][2 * r + 1] / den[r];
         if (HDP >= 16) {
           *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
@@ -1530,20 +1627,24 @@ __global__ void __launch_bounds__(HTHREADS)
 template <int MODE, int HDP>
 cudaError_t launch_attn_head(const AttnArgs& a, __nv_bfloat16* ctx,
                              cudaStream_t st) {
-  constexpr size_t smem = HeadTile<HDP>::SMEM;
+  using HT = HeadTile<HDP>;
+  constexpr size_t smem = HT::SMEM;
   cudaError_t e = allow_smem(attn_head_kernel<MODE, HDP>, smem);
   if (e != cudaSuccess) return e;
   const int hd = HDP >= 16 ? HDP : a.hd;
   unsigned grid = 1;
-  e = persistent_grid(attn_head_kernel<MODE, HDP>, HTHREADS, smem,
-                      a.N * ((a.L + HQR - 1) / HQR) * (C / hd), &grid);
+  e = persistent_grid(attn_head_kernel<MODE, HDP>, HT::THREADS, smem,
+                      a.N * ((a.L + HT::QR - 1) / HT::QR) * (C / hd) * HT::NP,
+                      &grid);
   if (e != cudaSuccess) return e;
-  attn_head_kernel<MODE, HDP><<<grid, HTHREADS, smem, st>>>(a, ctx);
+  attn_head_kernel<MODE, HDP><<<grid, HT::THREADS, smem, st>>>(a, ctx);
   return cudaGetLastError();
 }
 
-constexpr int EPI_ROWS = 128;     // rows a tile: 8 warps of 16
-constexpr int EPI_THREADS = 256;
+// Rows a tile (8 warps of 16; at C = 512 4, whose tile of a [64][LDS] and
+// lin_w panel [2C][EPI_LDW] take 209 KB) and the block's threads.
+constexpr int EPI_ROWS = C > 256 ? 64 : 128;
+constexpr int EPI_THREADS = 2 * EPI_ROWS;
 constexpr int EPI_LDW = 64 + 8;   // bf16 row stride of a weight panel
 
 // Shared memory of epi_kernel<MODE>: for MODE 0 the tile's a [EPI_ROWS]
@@ -1709,7 +1810,7 @@ cudaError_t launch_epi(const AttnArgs& a, const __nv_bfloat16* ctx,
 #endif
 
 // attn_tc_kernel<MODE, head_pad(a.hd)>: instances for the padded widths
-// up to C. At C = 256 attn_head_kernel<MODE, head_pad(a.hd)> into ctx bf16
+// up to C. At C >= 256 attn_head_kernel<MODE, head_pad(a.hd)> into ctx bf16
 // [N*L, C] (scratch), then epi_kernel<MODE>; ctx is unused below.
 template <int MODE>
 cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st,
@@ -1725,6 +1826,9 @@ cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st,
     case 64: e = launch_attn_head<MODE, 64>(a, ctx, st); break;
     case 128: e = launch_attn_head<MODE, 128>(a, ctx, st); break;
     case 256: e = launch_attn_head<MODE, 256>(a, ctx, st); break;
+#if LCT_C > 256
+    case 512: e = launch_attn_head<MODE, 512>(a, ctx, st); break;
+#endif
   }
   if (e != cudaSuccess) return e;
   return launch_epi<MODE>(a, ctx, st);

@@ -26,7 +26,7 @@ def make_enhance(enhancer: LctEnhancer
     enhancer's device. `noisy` and `lengths` may be numpy arrays or tensors;
     the result stays on the device. On the card the enhancer's widths must
     be the kernels' (`check_card_widths`: num_heads and gru_groups
-    dividing enc_channels[-1], their padded layout within 256 channels);
+    dividing enc_channels[-1], their padded layout within 512 channels);
     it raises here otherwise."""
     enhancer.eval()
     device = next(enhancer.parameters()).device

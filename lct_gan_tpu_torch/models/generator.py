@@ -17,12 +17,12 @@ card) -> LayerNorm -> MultiHeadSelfAttention (the MHSA kernel up to L = 1024,
 the banded one from BANDED_KERNEL_MIN_SEQ with a band) -> Linear ->
 LeakyReLU, as in the JAX package.
 
-On the card the kernels serve and train a bottleneck of enc_channels[-1]
-channels in any num_heads and gru_groups that divide it whose padded layout
-(each head and group widened to a power of two) fits 256 channels (the
-widest kernel, the FTF backward's too; `ops/library.py::card_takes`):
-`check_card_widths` refuses anything else before a model runs or trains
-there.
+On the card the kernels serve a bottleneck of enc_channels[-1] channels in
+any num_heads and gru_groups that divide it whose padded layout (each head
+and group widened to a power of two) fits 512 channels (the widest
+kernel), and train one whose layout fits 256 (the FTF backward's widest;
+`ops/library.py::card_takes`): `check_card_widths` refuses anything else
+before a model runs or trains there.
 """
 
 from __future__ import annotations
@@ -76,10 +76,11 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
     device argument alone (no card is queried): a bottleneck of
     enc_channels[-1] channels in num_heads heads and gru_groups groups that
     divide it, whose padded layout fits the widest kernel
-    (`ops/library.py::card_takes`): 256 channels, for serving and, with
-    `training`, for the FTF backward kernel alike. The message names
-    enc_channels, --num_heads and --gru_groups. Nothing is refused on the
-    CPU, whose plain path takes every width."""
+    (`ops/library.py::card_takes`): 512 channels for serving, and with
+    `training` 256, the FTF backward kernel's widest. The message names
+    enc_channels, --num_heads and --gru_groups and the width the layout
+    must fit. Nothing is refused on the CPU, whose plain path takes every
+    width."""
     if torch.device(device).type != "cuda":
         return
     check_kernel_widths("the CUDA path", cfg.enc_channels[-1],

@@ -9,16 +9,18 @@ carries a hash of every file in `csrc/`: a change to any source or header
 rebuilds, an unchanged tree reuses what is there.
 
 One set of libraries a kernel width CK (`ops/library.py::KERNEL_WIDTHS`:
-16, 32, 64, 128, 256), which every bottleneck width whose padded layout needs it
-shares (`ops/padding.py::kernel_width`; the true width, the heads and the
-score scale are arguments of each launch): CK = 64, the default, builds
-every source as it always has (`lib<name>-<hash>.so`); any other CK builds
-with -DLCT_C=<CK> into `lib<name>-c<CK>-<hash>.so` the forward sources
-(`FORWARD_SOURCES`) at its first use, and the FTF backward's
-(`BACKWARD_SOURCES`) at its first backward (at `BACKWARD_WIDTHS`, every
-kernel width), so serving alone never builds the backward. A width past
-256 has no libraries and is refused by name. All sources of all the widths
-asked for build in one parallel batch, one nvcc process each.
+16, 32, 64, 128, 256, 512), which every bottleneck width whose padded
+layout needs it shares (`ops/padding.py::kernel_width`; the true width, the
+heads and the score scale are arguments of each launch): CK = 64, the
+default, builds every source as it always has (`lib<name>-<hash>.so`); any
+other CK builds with -DLCT_C=<CK> into `lib<name>-c<CK>-<hash>.so` the
+forward sources (`FORWARD_SOURCES`) at its first use, and the FTF
+backward's (`BACKWARD_SOURCES`) at its first backward (at
+`BACKWARD_WIDTHS`: every kernel width but 512, which builds the forward
+sources only), so serving alone never builds the backward. A width past
+512, or a backward past 256, has no libraries and is refused by name. All
+sources of all the widths asked for build in one parallel batch, one nvcc
+process each.
 """
 
 from __future__ import annotations
@@ -120,7 +122,7 @@ def build_command(name: str, C: int, out: str, nvcc: str = "nvcc",
 
 def build_all(verbose: bool = False,
               widths: Iterable[int] = (DEFAULT_C,),
-              backward=False) -> float:
+              backward=False, nice: int = 0) -> float:
     """Build (if needed) and load the libraries of every kernel width in
     `widths` (default: 64's, every csrc/*.cu) and the FTF backward's of
     `backward`'s widths (True: every width in `widths`; a tuple of widths),
@@ -128,7 +130,9 @@ def build_all(verbose: bool = False,
     stderr when a build fails, and by name for a backward width it is not
     built for. With `verbose` nvcc reports each kernel's registers and
     spills (-Xptxas -v): printed to stderr and kept in
-    BUILD_LOGS[(name, width)]."""
+    BUILD_LOGS[(name, width)]. `nice` > 0 runs the nvcc processes at that
+    niceness (a build in a background thread beside running work: another
+    thread that needs a library it builds waits for it here)."""
     widths = tuple(dict.fromkeys(widths))
     bwd = set(widths if backward is True else backward or ())
     with _lock:
@@ -146,6 +150,8 @@ def build_all(verbose: bool = False,
                 continue
             tmp = f"{paths[k]}.{os.getpid()}.tmp"
             cmd = build_command(*k, tmp, _nvcc(), verbose)
+            if nice > 0:
+                cmd = ["nice", "-n", str(nice), *cmd]
             procs[k] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
@@ -170,8 +176,9 @@ def build_all(verbose: bool = False,
 
 
 def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
-    """{kernel: {"registers", "spill_stores", "spill_loads"}} of every entry
-    function in nvcc's -Xptxas -v output `log` (mangled names)."""
+    """{kernel: {"registers", "spill_stores", "spill_loads", "smem"}} of
+    every entry function in nvcc's -Xptxas -v output `log` (mangled names;
+    smem: the bytes of static shared memory, where ptxas reports them)."""
     usage: Dict[str, Dict[str, int]] = {}
     name = None
     for line in log.splitlines():
@@ -189,6 +196,9 @@ def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             usage.setdefault(name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                usage[name]["smem"] = int(m.group(1))
     return {k: v for k, v in usage.items() if "registers" in v}
 
 

@@ -114,8 +114,9 @@ def kernel_design(precise: bool) -> str:
 def mhsa_scratch(rows: int, precise: bool, C: int = 64):
     """(name, shape, dtype) of each scratch tensor the kernels of one mode
     write, in the C entry point's order: q, k, v as bf16 (the contract
-    rounds them; the context never leaves the kernel, but at C = 256, whose
-    split epilogue reads it as bf16), or, precise, qkv and the context in
+    rounds them; the context never leaves the kernel, but at C >= 256,
+    whose split epilogue reads it as bf16), or, precise, qkv and the
+    context in
     f32 (C channels, any head count)."""
     if not precise:
         return [("qkv", (rows, 3 * C), torch.bfloat16)] + (

@@ -11,7 +11,7 @@ hand-written kernels of `csrc/banded.cu` (their bound on the H100 and what
 each mode's design does about it are noted there): bf16 mode one fused
 tensor-core pass for bands whose scores fit in registers (the library's
 `lct_banded_max_register_lookback` keys back; none at kernel widths of
-128 and 256), and
+128, 256 and 512), and
 the MHSA kernel's tensor-core design with the band above that; precise
 mode three all-f32
 CUDA-core kernels. On a CPU tensor it computes
@@ -135,7 +135,7 @@ def banded_scratch(rows: int, precise: bool, in_registers: bool = True,
     write, in the C entry point's order: none for bf16 when the band's
     scores fit in registers (q, k, v and the context stay on the SM), q, k,
     v as bf16 for a wider band (`in_registers` false; every band at C >=
-    128) and at C = 256 the context as bf16 (the split epilogue reads it),
+    128) and at C >= 256 the context as bf16 (the split epilogue reads it),
     and, precise, qkv and the context in f32 (C channels, any head
     count)."""
     if precise:

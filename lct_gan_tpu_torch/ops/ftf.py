@@ -29,9 +29,9 @@ Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
 in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward and backward
 kernels take every C in any num_heads and any G that divide C whose padded
 layout fits the widest kernel (`ops/library.py::card_takes`: channels,
-heads and groups zero-padded to the kernel width of 16 .. 256, forward and
-backward, exact: `ops/padding.py`); a call on the card at other widths
-raises before any launch, under grad too (there at the backward's
+heads and groups zero-padded to the kernel width of 16 .. 512 forward,
+16 .. 256 backward, exact: `ops/padding.py`); a call on the card at other
+widths raises before any launch, under grad too (there at the backward's
 widths).
 """
 
@@ -127,7 +127,7 @@ _P = ctypes.c_void_p
 # lct_ftf_forward_bf16 / _f32 by mode (precise): 16 inputs (the GRU's in
 # pack_gru_slots' layout; key_bias may be null), the scratch slots of
 # ftf_scratch (bf16: six, gb may be null, xp null but for the GRU slots on
-# CUDA cores, ctx null but at kernel width 256; f32: four), out; N; L, D,
+# CUDA cores, ctx null below kernel width 256; f32: four), out; N; L, D,
 # lin_in, lookback; the widths (BLOCK_WIDTHS: the true C, num_heads, the
 # score scale, GRU slots); device; stream.
 _FTF_ARGTYPES = {
@@ -145,10 +145,10 @@ def ftf_scratch(rows: int, D: int, lin_in: int, precise: bool, C: int = 64,
     frequency block's Linear (lin_in = 2C), bf16(g), else None (a null
     pointer): the only values the attention kernel's epilogue reads besides
     q, k, v; at C = 128 with one dense GRU slot (`slots` = 1) also the GRU
-    input projection, which that slot's CUDA-core recurrence reads. At C =
+    input projection, which that slot's CUDA-core recurrence reads. At C >=
     256 always six entries: those four, xp where the slots are wider than
-    16 (else None) and the attention's context as bf16, which the split
-    epilogue reads. precise (CUDA cores, all f32): the GRU input
+    16 (else None; 6.7 GB at C = 512 at the frequency block's main shape)
+    and the attention's context as bf16, which the split epilogue reads. precise (CUDA cores, all f32): the GRU input
     projection, the hiddens, qkv and the attention context. No head count
     changes the sizes."""
     hid = ("hid", (D, rows, C), torch.float32)

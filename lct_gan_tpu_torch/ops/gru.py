@@ -22,16 +22,18 @@ CUDA tensor it launches one all-f32 kernel of `csrc/ftf.cu`
 (`lct_grouped_gru_f32`, `gru_f32_kernel`: LN1, the input projection and
 the recurrence in one pass, producer warps staging x and xp in shared
 memory a chunk ahead of the consumer warps' steps; design `GRU_DESIGN`);
-on a CPU tensor it computes `grouped_gru_plain`; one group of 256 units
-(kernel width 256) takes LN1's input projection into an xp scratch and
-the thread-block-cluster recurrence (`gru_cluster_kernel`) instead. Its
-backward differentiates the plain version.
+on a CPU tensor it computes `grouped_gru_plain`; groups of 256 units
+(kernel widths 256 and 512) take LN1's input projection into an xp scratch
+and the thread-block-cluster recurrence (`gru_cluster_kernel`) instead, and
+one group of 512 (kernel width 512) the same scratch and a launch a step
+over all sequences (`gru_step_kernel`). Its backward differentiates the
+plain version.
 
 The CUDA kernels take C channels in any number of groups that divides C,
 where the groups' padded layout fits the widest kernel
 (`ops/library.py::card_takes`). The FTF kernels run
 slots of 16 units, or dense ones of C (of 64 at C = 128, of 64 or 128 at
-C = 256; `gru_slot`), and
+C = 256, of 64, 128 or 256 at C = 512; `gru_slot`), and
 `pack_gru_slots` packs other group counts into them
 (`unpack_gru_slot_grads` takes the FTF backward's slot-layout gradients
 apart again); `fused_grouped_gru`'s kernel takes the groups as they are
@@ -39,7 +41,7 @@ apart again); `fused_grouped_gru`'s kernel takes the groups as they are
 the kernel). Where C is not a power of two from 16 the wrapper first
 widens each group to a power of two with zero channels and units
 (`ops/padding.py`; exact), so the kernels run at the GRU's own kernel
-width (`ops/padding.py::kernel_width(C, groups=G)`, 16 .. 256).
+width (`ops/padding.py::kernel_width(C, groups=G)`, 16 .. 512).
 """
 
 from __future__ import annotations
@@ -153,14 +155,17 @@ def gru_slot(groups: int, C: int = 64) -> int:
     channels in (C a power of two, the kernels' width): 16 units for
     groups of 16 or fewer, else one dense slot of C, or at C >= 128 slots
     of 64 for groups of 64 or fewer (the tensor-core recurrence's register
-    budget), at C = 256 slots of 128 for groups of 128 (a slot of 256 is
-    the thread-block-cluster kernel's)."""
+    budget), at C >= 256 slots of 128 for groups of 128, at C = 512 slots
+    of 256 for groups of 256 (a slot of 256 is the thread-block-cluster
+    kernel's, one of 512 the step kernel's)."""
     width = C // groups
     if width <= 16:
         return 16
     if C > 64 and width <= 64:
         return 64
-    return 128 if C > 128 and width <= 128 else C
+    if C > 128 and width <= 128:
+        return 128
+    return 256 if C > 256 and width <= 256 else C
 
 
 def pack_gru_slots(w_ih, w_hh, b_ih, b_hh):
@@ -238,17 +243,19 @@ def _gru_fake(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):
 
 _P = ctypes.c_void_p
 # lct_grouped_gru_f32: 7 inputs (the GRU's grouped), hid, xp (null but for
-# one group at kernel width 256); N; L, D, groups, the true C, device;
+# groups of 256 or 512, gru_xp_shape); N; L, D, groups, the true C, device;
 # stream.
 _GRU_ARGTYPES = [_P] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_P]
 
 
 def gru_xp_shape(rows: int, D: int, CK: int, groups: int):
     """The composed GRU kernel's xp scratch, [rows, D 3CK] f32: LN1's input
-    projection, which the cluster recurrence of one group of 256 units
-    reads (kernel width 256); None elsewhere (one launch, xp in shared
-    memory)."""
-    return (rows, D * 3 * CK) if CK > 128 and groups == 1 else None
+    projection, which the recurrence of groups of 256 or 512 units reads
+    (the cluster kernel at kernel widths 256 and 512, the step kernel at
+    512); None elsewhere (one launch, xp in shared memory). At kernel width
+    512 that is 6 KB a row and direction: 6.7 GB at the frequency block's
+    main shape (544,896 rows, two directions)."""
+    return (rows, D * 3 * CK) if CK // groups > 128 else None
 
 
 def _gru_cuda(x, ln_scale, ln_bias, w_ih, w_hh, b_ih, b_hh, bidirectional):

@@ -30,14 +30,15 @@ NAMESPACE = "lct_gan_tpu_torch"
 
 # The kernel widths the CUDA libraries are built for (one set of libraries
 # each, ops/_build.py): the forward kernels at every one, the FTF backward
-# at BACKWARD_WIDTHS (today the same set; a wider forward width may come
-# before its backward). Any bottleneck width C in any number of attention
-# heads and GRU groups that divides it runs at the one its padded layout
-# fits (ops/padding.py::kernel_width), up to the widest (the JAX package's
-# kernels read all three from their shapes): serving and training, whose
-# gradients reach the backward kernel, up to 256 channels.
-KERNEL_WIDTHS = (16, 32, 64, 128, 256)
-BACKWARD_WIDTHS = KERNEL_WIDTHS
+# at BACKWARD_WIDTHS (a wider forward width comes before its backward:
+# 512 serves, and training stops at 256). Any bottleneck width C in any
+# number of attention heads and GRU groups that divides it runs at the one
+# its padded layout fits (ops/padding.py::kernel_width), up to the widest
+# (the JAX package's kernels read all three from their shapes): serving up
+# to 512 channels, training, whose gradients reach the backward kernel, up
+# to 256.
+KERNEL_WIDTHS = (16, 32, 64, 128, 256, 512)
+BACKWARD_WIDTHS = (16, 32, 64, 128, 256)
 
 
 def divisors(C: int) -> tuple:

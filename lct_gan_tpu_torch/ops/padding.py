@@ -3,9 +3,8 @@ num_heads attention heads and G GRU groups, to the CUDA kernels, which run
 at a power of two: the kernel width CK = `kernel_width(C, num_heads, G)`.
 
 A library built for the kernel width CK (`ops/_build.py`, -DLCT_C=<CK>; CK
-in 16, 32, 64, 128, 256, the FTF backward's too) takes the true C,
-the head count and the score scale at
-run time, and divides every LayerNorm by the true C (`csrc/common.cuh`).
+in 16, 32, 64, 128, 256, 512, the FTF backward's in 16 .. 256) takes the
+true C, the head count and the score scale at run time, and divides every LayerNorm by the true C (`csrc/common.cuh`).
 The wrappers widen what they hand it:
 
   * each GRU group of gw channels to gw' = the next power of two, so group

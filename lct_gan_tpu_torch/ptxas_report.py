@@ -1,15 +1,17 @@
-"""Registers and spills of every kernel instance of a width's libraries, as
-ptxas reports them, for one checkout or two side by side:
+"""Registers, spills and static shared memory of every kernel instance of a
+width's libraries (16 .. 512), as ptxas reports them, for one checkout or
+two side by side:
 
     python3 -m lct_gan_tpu_torch.ptxas_report [--width 64] [--json OUT]
         [TREE ...]
 
 Each TREE is the root of a checkout (default: this one); the
 `lct_gan_tpu_torch/csrc/*.cu` of the width's libraries (the FTF
-backward's too) are compiled with the build's flags
+backward's too, at the widths it is built for) are compiled with the
+build's flags
 (`ops/_build.py`) and -Xptxas -v into a temporary directory, every source
 of every tree in one parallel batch of nvcc processes. Prints one JSON line
-per tree ({kernel: {registers, spill_stores, spill_loads}}, each kernel
+per tree ({kernel: {registers, spill_stores, spill_loads, smem}}, each kernel
 named by its instance: demangled where cu++filt is found, without the
 return type and the parameter list) and, for two trees, a line of the
 kernels whose counts differ (the second against the first). Needs nvcc,

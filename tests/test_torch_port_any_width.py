@@ -82,19 +82,21 @@ def _cfg(C, nh, G):
 
 
 def test_card_takes_every_layout_that_fits_128_channels():
-    """Every C from 1 to 288 with every divisor pair of heads and groups:
-    the card serves and trains it exactly when its padded layout (C, each
-    group and each head widened to a power of two) fits 256 channels (the
-    widest kernel, the FTF backward's too), which is every pair up to C =
-    128 (the name is kept from when both stopped at 128); decided from the
-    device argument. The CPU takes everything."""
+    """Every C from 1 to 288, and 520, 544 and 576 (each past 512), with
+    every divisor pair of heads and groups:
+    the card serves it exactly when its padded layout (C, each group and
+    each head widened to a power of two) fits 512 channels (the widest
+    forward kernel), and trains it when the layout fits 256 (the FTF
+    backward's widest), which is every pair up to C = 128 (the name is kept
+    from when both stopped at 128); decided from the device argument. The
+    CPU takes everything."""
     counts = {False: [0, 0], True: [0, 0]}
-    for C in range(1, 289):
+    for C in (*range(1, 289), 520, 544, 576):
         for nh in divisors(C):
             for G in divisors(C):
                 need = max(C, G * _pow2(C // G), nh * _pow2(C // nh))
-                assert card_takes(C, nh, G, True) == card_takes(C, nh, G)
-                for training, top in ((False, 256), (True, 256)):
+                assert card_takes(C, nh, G, True) <= card_takes(C, nh, G)
+                for training, top in ((False, 512), (True, 256)):
                     fits = _pow2(need) <= top
                     assert card_takes(C, nh, G, training) == fits, (
                         C, nh, G, training)
@@ -116,7 +118,8 @@ def test_card_takes_every_layout_that_fits_128_channels():
     assert all(n > 0 for c in counts.values() for n in c)
 
 
-# Layouts past 256 channels: refused on the card for serving and training.
+# Layouts past 256 channels: refused on the card for training (and served:
+# each fits 512, the forward kernels' widest).
 PAST_256 = [(240, 5, 5, 320), (272, 1, 1, 512), (200, 5, 5, 320),
             (264, 8, 8, 512)]
 
@@ -145,10 +148,15 @@ def test_card_refuses_layouts_past_128_by_name(C, nh, G, need):
 @pytest.mark.parametrize("C,nh,G,need", PAST_256)
 @pytest.mark.parametrize("training", [False, True])
 def test_card_refuses_layouts_past_256_by_name(C, nh, G, need, training):
-    """Serving and training on the card refuse every layout past 256
-    channels, the kernels' widest (the FTF backward's too), by name; the
-    CPU takes them."""
+    """Training on the card refuses every layout past 256 channels, the FTF
+    backward kernel's widest, by name, and serving takes them (their
+    layouts fit 512, the forward kernels' widest) but refuses the same
+    layouts at twice the channels, past 512, by name; the CPU takes them
+    all."""
     top = 256
+    if not training:
+        check_card_widths(_cfg(C, nh, G), "cuda", training=False)
+        C, need, top = 2 * C, 2 * need, 512
     with pytest.raises(ValueError, match=(
             rf"^the CUDA path takes widths whose padded layout fits {top} "
             rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "

@@ -303,13 +303,14 @@ def test_zero_padded_gru_units_compute_the_same_gru(C, G):
 
 
 def test_card_widths_take_the_channel_set():
-    """Serving and training on the card take every C whose padded layout
-    fits 256 channels, with every such divisor pair of heads and groups
-    (the name is kept from when a set of six widths was taken): C = 40, 48
-    and 96 among them, and (100, 5, 5) and C = 144 (their layouts fit 256
-    channels); (200, 5, 5) is refused for both, naming enc_channels, the
-    flags and the channels the layout needs. Decided from the device
-    argument: no card is queried."""
+    """Training on the card takes every C whose padded layout fits 256
+    channels, serving every C whose layout fits 512, with every such
+    divisor pair of heads and groups (the name is kept from when a set of
+    six widths was taken): C = 40, 48 and 96 among them, and (100, 5, 5)
+    and C = 144 (their layouts fit 256 channels); (200, 5, 5) (320) is
+    refused for training and served, (400, 5, 5) (640) refused for both,
+    naming enc_channels, the flags and the channels the layout needs.
+    Decided from the device argument: no card is queried."""
     def cfg(C, nh=4, G=4):
         return LCTGeneratorConfig(enc_channels=(16, 32, C),
                                   dec_channels=(C, 32, 16), num_heads=nh,
@@ -323,8 +324,8 @@ def test_card_widths_take_the_channel_set():
                         check_card_widths(cfg(C, nh, G), "cuda",
                                           training=training)
         for C, nh, G, need in ((100, 5, 5, 160), (144, 4, 4, 256),
-                               (200, 5, 5, 320)):
-            top = 256
+                               (200, 5, 5, 320), (400, 5, 5, 640)):
+            top = 256 if training else 512
             if need <= top:
                 check_card_widths(cfg(C, nh, G), "cuda:0", training=training)
                 continue
@@ -371,8 +372,9 @@ def test_per_width_build_command():
     """Kernel width 64 builds every source with the command, flags and
     library path it always had; any other kernel width builds the forward
     sources with -DLCT_C=<width> into a library of its own, and the FTF
-    backward's at every one of them (BACKWARD_WIDTHS, 256 included); no
-    other width has libraries (48 runs at 64, 512 is refused by name). No
+    backward's at every one of them up to 256 (BACKWARD_WIDTHS; 512 builds
+    the forward sources only, and its backward is refused by name); no
+    other width has libraries (48 runs at 64, 1024 is refused by name). No
     nvcc is needed to say so."""
     tag = "0123456789abcdef"
     cmd64 = _build.build_command("ftf", 64, "out.so", "nvcc")
@@ -390,15 +392,20 @@ def test_per_width_build_command():
         assert cmd[:len(_build.NVCC_FLAGS) + 1] == ["nvcc",
                                                     *_build.NVCC_FLAGS]
         assert _build.library_sources(C) == ["banded", "ftf", "mhsa"]
-        assert C in BACKWARD_WIDTHS
-        assert _build.library_sources(C, backward=True) == [
-            "banded", "ftf", "ftf_bwd", "mhsa"]
+        if C > 256:
+            assert C not in BACKWARD_WIDTHS
+            with pytest.raises(ValueError, match=f"ftf_bwd.*C={C}"):
+                _build.library_sources(C, backward=True)
+        else:
+            assert C in BACKWARD_WIDTHS
+            assert _build.library_sources(C, backward=True) == [
+                "banded", "ftf", "ftf_bwd", "mhsa"]
         path = _build.library_path("ftf", C, tag)
         assert path.endswith(f"/libftf-c{C}-{tag}.so")
         paths.add(path)
     assert len(paths) == len(KERNEL_WIDTHS)
-    assert BACKWARD_WIDTHS == KERNEL_WIDTHS
-    for C in (40, 48, 512):
+    assert BACKWARD_WIDTHS == KERNEL_WIDTHS[:-1]
+    for C in (40, 48, 1024):
         with pytest.raises(ValueError, match=f"C={C}"):
             _build.library_sources(C)
         with pytest.raises(ValueError, match=f"C={C}"):

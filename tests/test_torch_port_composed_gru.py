@@ -107,13 +107,13 @@ def test_fake_gives_the_output_shape_and_holds_cuda_to_the_width():
             out = OPS.fused_grouped_gru(x, *p, False)
             assert out.shape == (4, 600, 64) and out.dtype == torch.float32
             assert out.device.type == dev
-        # 272 channels in 17 groups of 16: the plain version takes it, the
-        # kernel does not (272 channels run at 512, past the widest, 256).
-        x, p = _inputs(51, 4, 600, 1, C=272)
+        # 544 channels in 34 groups of 16: the plain version takes it, the
+        # kernel does not (544 channels run at 1024, past the widest, 512).
+        x, p = _inputs(51, 4, 600, 1, C=544)
         assert OPS.fused_grouped_gru(torch.empty(x.shape), *(
-            torch.empty(t.shape) for t in p), False).shape == (4, 600, 272)
+            torch.empty(t.shape) for t in p), False).shape == (4, 600, 544)
         with pytest.raises(ValueError,
-                           match="fits 256 channels, got C=272.*needs 512"):
+                           match="fits 512 channels, got C=544.*needs 1024"):
             OPS.fused_grouped_gru(
                 torch.empty(x.shape, device="cuda"),
                 *(torch.empty(t.shape, device="cuda") for t in p), False)

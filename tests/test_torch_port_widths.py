@@ -283,9 +283,10 @@ def test_enhancer_matches_jax(nh, G):
 def test_kernel_checks_take_every_divisor_pair():
     """The forward kernels' checks take every (heads, groups) pair of
     divisors of 64 at C = 64, and refuse other counts and widths whose
-    padded layout passes 256 channels (288 in 4 heads or groups; 48 and 40
+    padded layout passes 512 channels (576 in 4 heads or groups; 48 and 40
     are taken since the kernels take the true width at run time, 144 since
-    they take layouts up to 256 channels)."""
+    they take layouts up to 256 channels, 288 since they take them up to
+    512)."""
     x = torch.zeros((2, 5, 64))
     for G in KERNEL_WIDTHS:
         H = 64 // G
@@ -305,11 +306,13 @@ def test_kernel_checks_take_every_divisor_pair():
     _check_gru_shapes(torch.zeros((2, 5, 40)), torch.zeros((1, 4, 10, 30)))
     check_attention_shapes("a", torch.zeros((2, 5, 144)), 4)
     _check_gru_shapes(torch.zeros((2, 5, 144)), torch.zeros((1, 4, 36, 108)))
-    with pytest.raises(ValueError, match="got E=288"):
-        check_attention_shapes("a", torch.zeros((2, 5, 288)), 4)
-    with pytest.raises(ValueError, match="got C=288"):
-        _check_gru_shapes(torch.zeros((2, 5, 288)),
-                          torch.zeros((1, 4, 72, 216)))
+    check_attention_shapes("a", torch.zeros((2, 5, 288)), 4)
+    _check_gru_shapes(torch.zeros((2, 5, 288)), torch.zeros((1, 4, 72, 216)))
+    with pytest.raises(ValueError, match="got E=576"):
+        check_attention_shapes("a", torch.zeros((2, 5, 576)), 4)
+    with pytest.raises(ValueError, match="got C=576"):
+        _check_gru_shapes(torch.zeros((2, 5, 576)),
+                          torch.zeros((1, 4, 144, 432)))
 
 
 def test_backward_check_takes_only_4_heads_and_4_groups():
@@ -336,8 +339,9 @@ def test_c48_is_refused_on_the_card_naming_enc_channels(training):
     name is kept from then); serving and training both take it, and 40,
     now that the kernels take the true width at run time, and C = 144
     (its padded layout, 256 channels, fits the widest kernel, forward and
-    backward alike), and refuse instead, naming enc_channels, C = 288 (past
-    256)."""
+    backward alike), and refuse instead, naming enc_channels, C = 288 for
+    training (its layout of 512 passes the backward's 256; serving takes
+    it) and C = 576 for serving (past 512)."""
     cfg = LCTGeneratorConfig(enc_channels=(16, 32, 48),
                              dec_channels=(48, 32, 16))
     c40 = LCTGeneratorConfig(enc_channels=(16, 32, 40),
@@ -346,12 +350,17 @@ def test_c48_is_refused_on_the_card_naming_enc_channels(training):
                               dec_channels=(144, 32, 16))
     c288 = LCTGeneratorConfig(enc_channels=(16, 32, 288),
                               dec_channels=(288, 32, 16))
+    c576 = LCTGeneratorConfig(enc_channels=(16, 32, 576),
+                              dec_channels=(576, 32, 16))
+    refused = c288 if training else c576
     with pytest.raises(ValueError, match=r"enc_channels"):
-        check_card_widths(c288, "cuda", training=training)
+        check_card_widths(refused, "cuda", training=training)
+    if not training:
+        check_card_widths(c288, "cuda", training=False)
     check_card_widths(cfg, "cuda", training=training)
     check_card_widths(c40, "cuda", training=training)
     check_card_widths(c144, "cuda", training=training)
-    check_card_widths(c288, "cpu", training=training)  # the plain path
+    check_card_widths(refused, "cpu", training=training)  # the plain path
 
 
 def test_card_widths_are_decided_from_the_device_argument():
