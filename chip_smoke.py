@@ -9,9 +9,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
   build    build the CUDA kernels from lct_gan_tpu_torch/csrc (nvcc, sm_90a,
            one nvcc process a source and width): kernel width 64 (every
            source) and 128's forward in one parallel batch, then every
-           other width (16 .. 512) forward and backward (up to 256) in a
+           other width (16 .. 512) forward and backward in a
            background thread at niceness 19 under the kernels, enhance and
-           widths phases (the channels phase waits for it); the
+           widths phases (the channels phase waits for it), with the
+           seconds and ptxas counts of the kernel width 512 backward; the
            kernel width 64 instances' ptxas registers and spills beside the
            reference's (lct_gan_tpu_torch/ptxas_c64.json: before the true
            width and the score scale became launch arguments)
@@ -87,9 +88,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            against the plain path on the card (worst row's relative L2
            error); training taken at other widths (train states at (32,
            64, 128) and (16, 32, 40), FTF blocks under grad at C = 48 and
-           50), serving and a train state refused before any launch at
-           (16, 32, 100) with 5 heads and groups (a layout of 160 channels)
-           and (16, 32, 144)
+           50), serving and a train state taken at (16, 32, 100) with 5
+           heads and groups (a layout of 160 channels) and (16, 32, 144)
   width256 kernel width 256 (layouts of 129-256 channels): the four
            forward kernels against their plain versions on the card at C =
            256 at W256_PAIRS and the padded W256_PADDED layouts, small N,
@@ -97,9 +97,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            1), timed with stages; enhancers at enc_channels (64, 128, 256)
            against the plain path on the card; a train state at (64, 128,
            256) and the FTF block under grad at C = 256 taken (launches
-           counted), serving at (64, 128, 272) taken, training there (past
-           256) refused
-  width512 kernel width 512 (layouts of 257-512 channels, serving only):
+           counted), serving and a train state at (64, 128, 272) (kernel
+           width 512) taken
+  width512 kernel width 512 (layouts of 257-512 channels), serving:
            width 512's ptxas registers, spills and static shared memory;
            the four forward kernels against their plain versions on the
            card at C = 512 at W512_PAIRS (every GRU slot kind: 16, 64, 128,
@@ -110,8 +110,10 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            (128, 256, 512) against the plain path on the card with launch
            counts and peak memory (B = 128 x 2 s, a 163,840-sample bucket,
            a W = 64 banded call at 4 and 4, the bucket at 1 and 1); a
-           train state at (128, 256, 512), serving at (64, 128, 520) and at
-           (400, 5, 5) refused by name before any launch
+           train state at (128, 256, 512) (no launch) and the FTF block
+           under grad at C = 512 (1 + 1 launches) taken; a train state at
+           (64, 128, 520), serving at (64, 128, 520) and at (400, 5, 5)
+           refused by name before any launch
   banded   the same weights with max_time_context=64, bucketed batches with
            lengths: 196,608 samples x 20 and 917,504 x 4 (2 FTF, 0 MHSA,
            1 banded, 1 GRU launches each) and 163,840 x 25 (2 FTF, 1 MHSA, 0
@@ -160,8 +162,15 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
            at W256_PADDED (frequency block N = 256, L = 33; time block N =
            64, L = 129, band 16), both modes; at the B=64 x 2 s shapes at
            W256_MAIN, timed with stages, scratch, peak GiB, plain and
-           library ms; the train step at enc_channels W256_ENC at (4, 4)
-           and (1, 1), counted and against the plain path as above
+           library ms (precise timed once a case); the train step at enc_channels W256_ENC at (4, 4)
+           and (1, 1), counted and against the plain path as above. Then
+           kernel width 512 in the same way: the backward at C = 512 at
+           W512_PAIRS (GRU slots of 16 .. 512: the cluster walk on slots
+           of 256, the step-synchronous walk on one of 512) and at
+           W512_PADDED, both modes; the saved hiddens of the width-512
+           forward under grad at W512_MAIN against the plain forward; the
+           B=64 x 2 s shapes at W512_MAIN (precise timed once a case); the
+           train step at enc_channels W512_ENC at W512_MAIN
   eval     make_eval_step on one bucketed batch with lengths, against the CPU
   parallel data parallelism (parallel/mesh.py) with the same weights and
            TrainConfig(): 2 ranks sharing the card over gloo (spawned),
@@ -292,7 +301,7 @@ def stage_of(kernel_name):
     return "wgrad" if name.startswith(("wgrad", "reduce")) else name
 
 
-def stage_profile(torch, fn, prefix="", reps=3):
+def stage_profile(torch, fn, prefix="", reps=3, event_ms=None, passes=3):
     """{prefix + "stages_ms": device ms per call of each stage of `fn`,
     largest first, or None; prefix + "stages_coverage": the share of the
     calls' device time (CUDA events around `reps` calls, unprofiled) the
@@ -301,22 +310,24 @@ def stage_profile(torch, fn, prefix="", reps=3):
     it kept from none to all of a pass's), so a pass counts only if each
     stage shows a multiple of `reps` launches and its stages cover 85% to
     110% of the events' ms (below 100%: idle between launches); up to
-    three passes, else stages_ms is None and the coverage the best
-    pass's."""
+    `passes` passes, else stages_ms is None and the coverage the best
+    pass's. `event_ms`: the events' ms a call, measured by the caller
+    (no warm-up or events here)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    if event_ms is None:
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    event_ms = start.elapsed_time(end) / reps
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end) / reps
     best = 0.0
-    for _ in range(3):
+    for _ in range(passes):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -763,19 +774,21 @@ def check_grouped_gru(torch, block, x, exp_floor_ms):
             "flops": flops}
 
 
-def check_saved_hidden(torch, name, params, N, L, lookback, g):
+def check_saved_hidden(torch, name, params, N, L, lookback, g, num_heads=4,
+                       phase="kernels"):
     """Under grad the FTF forward keeps the hiddens its kernels write: its
     output is bit-equal to the no-grad forward's, and the hiddens match the
-    plain forward's."""
+    plain forward's (C from lin_w, params[12]: [2C or C, C])."""
     from lct_gan_tpu_torch.ops.ftf import (ftf_block_reference,
                                            ftf_forward_with_hidden,
                                            fused_ftf_block)
 
-    D = 2 if params[12].shape[0] == 128 else 1
-    x = torch.randn((N, L, 64), generator=g, device="cuda")
+    C = params[12].shape[1]
+    D = 2 if params[12].shape[0] == 2 * C else 1
+    x = torch.randn((N, L, C), generator=g, device="cuda")
     for mode in ("bf16", "precise"):
-        kw = dict(bidirectional=D == 2, num_heads=4, lookback=lookback,
-                  precise=mode == "precise")
+        kw = dict(bidirectional=D == 2, num_heads=num_heads,
+                  lookback=lookback, precise=mode == "precise")
         with torch.no_grad():
             plain_out = fused_ftf_block(x, *params, **kw)
         leaves = [t.detach().clone().requires_grad_() for t in [x] + params]
@@ -791,8 +804,9 @@ def check_saved_hidden(torch, name, params, N, L, lookback, g):
         if not err <= TOL[mode]:
             raise AssertionError(f"saved hid {name} {mode}: max|diff| {err} "
                                  f"> {TOL[mode]}")
-        emit({"phase": "kernels", "check": "save-hidden forward",
-              "case": name, "mode": mode, "output_bit_equal": True,
+        emit({"phase": phase, "check": "save-hidden forward",
+              "case": name, "C": C, "num_heads": num_heads, "mode": mode,
+              "output_bit_equal": True,
               "hid_max_abs_err": err, "tol": TOL[mode]})
         del hid, ref_hid
     del x
@@ -848,7 +862,9 @@ def ftf_bwd_case(torch, name, x, params, D, lookback, mode, g,
     """fused_ftf_bwd against ftf_bwd_reference on the card, all 15
     outputs within TOL[mode] of each one's largest magnitude; its ms,
     bound and library time (with `timed`, also the plain version's ms,
-    device ms per stage and scratch bytes). Returns the case's record."""
+    device ms per stage and scratch bytes; precise mode past C = 128,
+    0.4-6 s a call, times one call after the checked one, its scratch
+    too, and profiles one). Returns the case's record."""
     from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
     from lct_gan_tpu_torch.ops.ftf_bwd import (ftf_bwd_reference,
                                                fused_ftf_bwd)
@@ -888,7 +904,21 @@ def ftf_bwd_case(torch, name, x, params, D, lookback, mode, g,
     def call():
         return fused_ftf_bwd(x, *params, hid, dout, **kw)
 
-    ms = cuda_ms(torch, call, 3)
+    once = timed and C > 128 and mode == "precise"
+    if once:  # the checked call was the warm-up; as scratch_bytes measures
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        result = call()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        scratch = (torch.cuda.max_memory_allocated()
+                   - torch.cuda.memory_allocated())
+        del result
+    else:
+        ms = cuda_ms(torch, call, 3)
     flops = ftf_bwd_flops(N, L, D, lin_in, lookback, groups, C)
     nbytes = (rows * C * 4 * (2 + D)           # x, dout, hid
               + rows * C * 4                   # dx
@@ -912,8 +942,14 @@ def ftf_bwd_case(torch, name, x, params, D, lookback, mode, g,
     if lib[1] is not None:
         res["library_unavailable"] = lib[1]
     if timed:  # one call a profiled pass past C = 128: they are long
-        res.update(stage_profile(torch, call, reps=1 if C > 128 else 3))
-        res["scratch_bytes"] = scratch_bytes(torch, call)
+        if once:
+            res.update(stage_profile(torch, call, reps=1, event_ms=ms,
+                                     passes=1))
+            res["scratch_bytes"] = scratch
+        else:
+            res.update(stage_profile(torch, call,
+                                     reps=1 if C > 128 else 3))
+            res["scratch_bytes"] = scratch_bytes(torch, call)
         res["plain_ms"] = cuda_ms(torch, lambda: ftf_bwd_reference(
             x, *params, hid, dout, **kw), 1)
     del hid, dout
@@ -1611,8 +1647,8 @@ def check_channels(torch, np, card, seed):
     (16, 32, 40) and (16, 32, 50) at 5 heads and groups against the plain
     path on the card, with launch counts; training taken at (32, 64, 128)
     and (16, 32, 40) (train states), 48 and 50 (blocks under grad);
-    training refused (and serving taken: their layouts fit 256 channels)
-    at (16, 32, 100) in 5 heads and groups and at (16, 32, 144). Random
+    serving and training taken (their layouts fit 256 channels) at (16,
+    32, 100) in 5 heads and groups and at (16, 32, 144). Random
     weights from `seed`. Returns (kernel cases by kernel, launches by
     kernel)."""
     from lct_gan_tpu_torch.eval import make_enhance
@@ -1782,13 +1818,13 @@ def check_channels(torch, np, card, seed):
         del enhancer, enhance, x, ln, out, mask, ref_wave, ref_mask
         torch.cuda.empty_cache()
 
-    # Training at other widths is taken on the card up to the backward's
-    # widest kernel width, 256: train states at C = 128 and 40, blocks
+    # Training at other widths is taken on the card (up to the backward's
+    # widest kernel width, 512): train states at C = 128 and 40, blocks
     # under grad at C = 48 and 50 (5 heads and groups; their forward
     # launch: the backward runs in the train_channels phase), and serving
     # and train states at (16, 32, 100) at 5 heads and groups (a layout of
     # 160) and (16, 32, 144) (256), which the width256 phase runs (the
-    # width256 phase refuses a layout past 256).
+    # width512 phase refuses layouts past 512).
     accepted = []
     cfg = TrainConfig()
     _, mpd, msd = build_models(cfg)
@@ -1853,16 +1889,17 @@ def small_kernel_case(torch, phase, kernel, C, nh, G, name, mode, fn, plain):
             "rel_err": rel}
 
 
-def build_usage(width):
+def build_usage(width, source=None):
     """{kernel: registers and spill bytes} of kernel width `width`'s
-    libraries from this process's verbose build (ops/_build.py::
-    BUILD_LOGS), demangled; empty where they were built before."""
+    libraries (or of csrc/<source>.cu's alone) from this process's verbose
+    build (ops/_build.py::BUILD_LOGS), demangled; empty where they were
+    built before."""
     from lct_gan_tpu_torch.ops import _build
     from lct_gan_tpu_torch.ptxas_report import instance_names
 
     now = {}
-    for (_, w), log in _build.BUILD_LOGS.items():
-        if w == width:
+    for (name, w), log in _build.BUILD_LOGS.items():
+        if w == width and source in (None, name):
             now.update(_build.ptxas_usage(log))
     names = instance_names(now) if now else {}
     return {names[k]: v for k, v in now.items()}
@@ -2061,10 +2098,9 @@ def check_width256(torch, np, card, seed):
     head width) and the padded layouts W256_PADDED at small N, the main
     path's shapes at W256_MAIN, the enhancer at W256_ENC; last, training at
     kernel width 256 taken (a train state at W256_ENC, the FTF block under
-    grad with its forward and backward launches) and serving at (64, 128,
-    272) (kernel width 512), and training at that layout, past 256,
-    refused by name before any launch. Random weights from `seed`.
-    Returns (kernel cases by kernel, launches by kernel)."""
+    grad with its forward and backward launches) and serving and a train
+    state at (64, 128, 272) (kernel width 512; no launch). Random weights
+    from `seed`. Returns (kernel cases by kernel, launches by kernel)."""
     from lct_gan_tpu_torch.eval import make_enhance
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
@@ -2109,7 +2145,10 @@ def check_width256(torch, np, card, seed):
             ("fused_ftf_block under grad, C = 256", under_grad, (1, 1)),
             ("serve (64, 128, 272) (kernel width 512)",
              lambda: make_enhance(LctEnhancer(gen_cfg=past).cuda()),
-             (0, 0))):
+             (0, 0)),
+            ("train state (64, 128, 272) (kernel width 512)",
+             lambda: _assemble(cfg, LctEnhancer(gen_cfg=past), mpd, msd,
+                               "cuda"), (0, 0))):
         fused_ftf_block.launches = fused_ftf_bwd.launches = 0
         act()
         torch.cuda.synchronize()
@@ -2120,12 +2159,6 @@ def check_width256(torch, np, card, seed):
         taken.append({"what": what, "fused_ftf_block": got[0],
                       "fused_ftf_bwd": got[1]})
     emit({"phase": "width256", "taken": taken})
-    refuse_by_name(torch, "width256", [
-        ("train state (64, 128, 272)",
-         lambda: _assemble(cfg, LctEnhancer(gen_cfg=past), mpd, msd,
-                           "cuda"),
-         ("enc_channels[-1]=272", "fits 256 channels",
-          "needs 512 channels"))])
     del fblk, params, x
     torch.cuda.empty_cache()
 
@@ -2175,14 +2208,18 @@ def check_width512(torch, np, card, seed):
     the groups of 256 through the thread-block-cluster kernel, the group of
     512 through the step kernel, and every head width, 512 in four context
     parts) and the padded layouts W512_PADDED at small N, the main path's
-    shapes at W512_MAIN, the enhancer at W512_ENC; last, refused by name
-    before any launch: a train state at W512_ENC (the backward's widest is
-    256) and serving at (64, 128, 520) and at (400, 5, 5) (heads of 80: a
-    layout of 640). Random weights from `seed`. Returns (kernel cases by
-    kernel, launches by kernel)."""
+    shapes at W512_MAIN, the enhancer at W512_ENC; then taken: a train
+    state at W512_ENC (assembling launches nothing) and the FTF block
+    under grad at C = 512 (one forward and one backward launch, finite
+    gradients); last, refused by name before any launch: a train state
+    and serving at (64, 128, 520) (a layout of 1,024) and serving at (400,
+    5, 5) (heads of 80: a layout of 640). Random weights from `seed`.
+    Returns (kernel cases by kernel, launches by kernel)."""
     from lct_gan_tpu_torch.eval import make_enhance
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
+    from lct_gan_tpu_torch.ops.ftf import fused_ftf_block
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
     from lct_gan_tpu_torch.train.state import (TrainConfig, _assemble,
                                                build_models)
 
@@ -2200,11 +2237,41 @@ def check_width512(torch, np, card, seed):
             enc_channels=enc, dec_channels=enc[::-1], num_heads=nh,
             gru_groups=nh))
 
+    fblk = seeded_blocks(torch, seed, 512, 4, 4)[0]
+    params = [p.detach().clone().requires_grad_()
+              for p in fblk.kernel_params()]
+    x = torch.randn((4, 33, 512), device="cuda")
+
+    def under_grad():
+        fused_ftf_block(x, *params, bidirectional=True,
+                        num_heads=4).square().mean().backward()
+        if not all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in params):
+            raise AssertionError("width512 FTF block under grad: gradients "
+                                 "missing or not finite")
+
+    taken = []
+    for what, act, want in (
+            ("train state (128, 256, 512)",
+             lambda: _assemble(cfg, gen(W512_ENC, 4), mpd, msd, "cuda"),
+             (0, 0)),
+            ("fused_ftf_block under grad, C = 512", under_grad, (1, 1))):
+        fused_ftf_block.launches = fused_ftf_bwd.launches = 0
+        act()
+        torch.cuda.synchronize()
+        got = (fused_ftf_block.launches, fused_ftf_bwd.launches)
+        if got != want:
+            raise AssertionError(f"width512 {what}: FTF forward / backward "
+                                 f"launches {got}, expected {want}")
+        taken.append({"what": what, "fused_ftf_block": got[0],
+                      "fused_ftf_bwd": got[1]})
+    emit({"phase": "width512", "taken": taken})
+    del fblk, params, x
     refuse_by_name(torch, "width512", [
-        ("train state (128, 256, 512)",
-         lambda: _assemble(cfg, gen(W512_ENC, 4), mpd, msd, "cuda"),
-         ("enc_channels[-1]=512", "fits 256 channels",
-          "needs 512 channels")),
+        ("train state (64, 128, 520)",
+         lambda: _assemble(cfg, gen((64, 128, 520), 4), mpd, msd, "cuda"),
+         ("enc_channels[-1]=520", "fits 512 channels",
+          "needs 1024 channels")),
         ("serve (64, 128, 520)",
          lambda: make_enhance(gen((64, 128, 520), 4).cuda()),
          ("enc_channels[-1]=520", "fits 512 channels",
@@ -2879,11 +2946,17 @@ def check_train_channels(torch, np, card, seed):
         every tensor's change; bf16: losses);
     then kernel width 256, kept apart: (a) at C = 256 in W256_PAIRS and at
     W256_PADDED (frequency block N = 256, time block N = 64 with band 16),
-    (b) the training shapes at W256_MAIN (also each case's peak GiB) and
+    (b) the training shapes at W256_MAIN (also each case's peak GiB;
+    precise timed once a case) and
     (c) the train step at enc_channels W256_ENC with each of W256_MAIN's
-    (heads, groups).
+    (heads, groups);
+    then kernel width 512 in the same way: (a) at C = 512 in W512_PAIRS and
+    at W512_PADDED, (b) the saved hiddens of the forward under grad at
+    W512_MAIN (`check_saved_hidden`) and the training shapes there
+    (precise timed once a case: seconds a call), (c) the train step at
+    W512_ENC with each of W512_MAIN's (heads, groups).
     Returns (kernel case records, launches of the counted steps, and the
-    same two of kernel width 256)."""
+    same two of kernel widths 256 and 512)."""
     from lct_gan_tpu_torch.models.generator import (LCTGeneratorConfig,
                                                     LctEnhancer)
     from lct_gan_tpu_torch.ops._build import build_all
@@ -2902,7 +2975,7 @@ def check_train_channels(torch, np, card, seed):
         return n_exps / exps_per_s * 1e3
 
     g = torch.Generator(device="cuda").manual_seed(seed + 19)
-    cases, w256_cases = [], []
+    cases, w256_cases, w512_cases = [], [], []
 
     def run_case(C, nh, G, name, block, N, L, lookback, timed, into=cases):
         params = [p.detach().contiguous() for p in block.kernel_params()]
@@ -3004,6 +3077,40 @@ def check_train_channels(torch, np, card, seed):
     for nh, G in W256_MAIN:
         train_steps(W256_ENC, nh, G, w256_launches)
     w256_steps_s = time.perf_counter() - t1
+
+    # Kernel width 512: (a) small N, (b) the saved hiddens and the training
+    # shapes, (c) steps.
+    t1 = time.perf_counter()
+    for C, nh, G in [(512, nh, G) for nh, G in W512_PAIRS] + list(
+            W512_PADDED):
+        freq, tblk = seeded_blocks(torch, seed, C, nh, G)
+        run_case(C, nh, G, "freq", freq, 256, 33, None, False, w512_cases)
+        run_case(C, nh, G, "time_lookback16", tblk, 64, 129, 16, False,
+                 w512_cases)
+        del freq, tblk
+    walks = check_slot_walks(torch, seed, g)
+    w512_small_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for nh, G in W512_MAIN:
+        freq, tblk = seeded_blocks(torch, seed, 512, nh, G)
+        for name, block, N, L, lookback in (
+                ("freq", freq, 64, 33, None),
+                ("time_lookback16", tblk, 16, 129, 16)):
+            check_saved_hidden(
+                torch, f"C512 h{nh} g{G} {name}",
+                [p.detach().contiguous() for p in block.kernel_params()],
+                N, L, lookback, g, nh, "train_channels")
+        run_case(512, nh, G, "freq", freq, 64 * 129, 33, None, True,
+                 w512_cases)
+        run_case(512, nh, G, "time", tblk, 64 * 33, 129, None, True,
+                 w512_cases)
+        del freq, tblk
+    w512_shapes_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    w512_launches = {"fused_ftf_block": 0, "fused_ftf_bwd": 0}
+    for nh, G in W512_MAIN:
+        train_steps(W512_ENC, nh, G, w512_launches)
+    w512_steps_s = time.perf_counter() - t1
     emit({"phase": "train_channels", "backward_build_seconds": build_s,
           "small_cases": n_small,
           "small_cases_s": small_s, "training_shapes_s": shapes_s,
@@ -3011,8 +3118,58 @@ def check_train_channels(torch, np, card, seed):
           "width256_training_shapes_s": w256_shapes_s,
           "width256_steps_s": w256_steps_s,
           "width256_launches_steps": w256_launches,
+          "width512_small_cases_s": w512_small_s,
+          "width512_training_shapes_s": w512_shapes_s,
+          "width512_steps_s": w512_steps_s,
+          "width512_launches_steps": w512_launches,
+          "width512_slot_walks": walks,
           "seconds": time.perf_counter() - t0})
-    return cases, launches, w256_cases, w256_launches
+    return (cases, launches, w256_cases, w256_launches, w512_cases,
+            w512_launches)
+
+
+def check_slot_walks(torch, seed, g):
+    """At kernel width 512 one GRU group of 512 takes the step-synchronous
+    walk (`bptt_step_kernel`, a launch a step) and two groups of 256 the
+    cluster walk (`bptt_cluster_kernel`, one launch), in both modes: the
+    walks' launches in one fused_ftf_bwd call at N = 5, L = 9 (frequency
+    block), from the library's own counts (`csrc/ftf_bwd.cu`'s
+    lct_ftf_backward_walk_launches, counted on the host at each launch).
+    Returns {case: {walk: launches}}."""
+    import ctypes
+
+    from lct_gan_tpu_torch.ops import _build
+    from lct_gan_tpu_torch.ops.ftf import ftf_forward_with_hidden
+    from lct_gan_tpu_torch.ops.ftf_bwd import fused_ftf_bwd
+
+    count = _build.load_library("ftf_bwd", 512).lct_ftf_backward_walk_launches
+    count.argtypes = [ctypes.c_int]
+    count.restype = ctypes.c_longlong
+    names = ("bptt_cluster_kernel", "bptt_step_kernel")
+    walks = {}
+    for nh, G, want in ((1, 1, (0, 9)), (2, 2, (1, 0))):
+        freq = seeded_blocks(torch, seed, 512, nh, G)[0]
+        params = [p.detach().contiguous() for p in freq.kernel_params()]
+        x = torch.randn((5, 9, 512), generator=g, device="cuda")
+        dout = torch.randn((5, 9, 512), generator=g, device="cuda")
+        for mode in ("bf16", "precise"):
+            kw = dict(bidirectional=True, num_heads=nh, lookback=None,
+                      precise=mode == "precise")
+            _, hid = ftf_forward_with_hidden(x, *params, **kw)
+            before = [count(w) for w in (0, 1)]
+            fused_ftf_bwd(x, *params, hid, dout, **kw)
+            torch.cuda.synchronize()
+            got = tuple(count(w) - before[w] for w in (0, 1))
+            if got != want:
+                raise AssertionError(
+                    f"slot walk C=512 heads={nh} groups={G} {mode}: "
+                    f"launches {dict(zip(names, got))}, expected "
+                    f"{dict(zip(names, want))}")
+            walks[f"C512 h{nh} g{G} {mode}"] = dict(zip(names, got))
+        del freq, params, x, dout, hid
+    emit({"phase": "train_channels", "check": "slot walks at 512",
+          "launches": walks})
+    return walks
 
 
 def check_eval(torch, np, card, state):
@@ -3899,6 +4056,7 @@ def main():
         sys.exit("chip_smoke: no CUDA GPU visible")
     sys.path.insert(0, ROOT)
     from lct_gan_tpu_torch.convert import load_enhancer
+    from lct_gan_tpu_torch.ops import _build
     from lct_gan_tpu_torch.ops._build import build_all
     from lct_gan_tpu_torch.ops.library import BACKWARD_WIDTHS, KERNEL_WIDTHS
     from lct_gan_tpu_torch.utils import (disable_tf32,
@@ -3915,7 +4073,7 @@ def main():
     # Kernel width 64's libraries (every source) and 128's forward ones
     # (the kernels phase's GRU chains run at 128) first, with the width 64
     # instances' registers and spills against the reference's; then every
-    # other width's (up to 512) and the backward's (up to 256) in one
+    # other width's (up to 512) and the backward's (up to 512) in one
     # parallel batch in a background thread under the kernels, enhance and
     # widths phases (which launch nothing else), its nvcc processes at
     # niceness 19 so that they take no core those phases' host work wants.
@@ -3952,7 +4110,14 @@ def main():
     emit({"phase": "build", "background_seconds": rest["seconds"],
           "waited_seconds": time.perf_counter() - t,
           "kernel_widths": list(KERNEL_WIDTHS),
-          "backward_widths": list(BACKWARD_WIDTHS)})
+          "backward_widths": list(BACKWARD_WIDTHS),
+          "nvcc_seconds": {f"{n} C={c}": v for (n, c), v
+                           in sorted(_build.BUILD_SECONDS.items())}})
+    # The kernel width 512 backward's instances: registers, spills and
+    # static shared memory (empty where it was built before this run).
+    emit({"phase": "build", "ftf_bwd_c512_seconds":
+          _build.BUILD_SECONDS.get(("ftf_bwd", 512)),
+          "ftf_bwd_c512_ptxas": build_usage(512, "ftf_bwd")})
     channel_cases, channel_launches = check_channels(torch, np, card,
                                                      args.seed)
     for k, rows in channel_cases.items():
@@ -3978,10 +4143,11 @@ def main():
     kernels["fused_ftf_bwd"].extend(bwd_cases)
     for k, n in step_launches.items():
         launches[k] += n
-    # Kept apart as the width256 phase's: the kernel width 256 backward's
-    # cases and its train steps' launches.
-    bwd_cases, step_launches, w256_cases["fused_ftf_bwd"], w256_steps = (
-        check_train_channels(torch, np, card, args.seed))
+    # Kept apart as the width256 and width512 phases': the kernel width 256
+    # and 512 backward's cases and their train steps' launches.
+    (bwd_cases, step_launches, w256_cases["fused_ftf_bwd"], w256_steps,
+     w512_cases["fused_ftf_bwd"], w512_steps) = check_train_channels(
+        torch, np, card, args.seed)
     kernels["fused_ftf_bwd"].extend(bwd_cases)
     for k, n in step_launches.items():
         launches[k] += n
@@ -4062,7 +4228,9 @@ def main():
             "cases": w256_cases[name]})
     # The kernel width 512 instances (C = 512, 4 heads and groups, at the
     # main path's shapes), their launches from the width512 phase's
-    # enhancer calls (the FTF backward is not built at 512).
+    # enhancer calls, the backward's from the train_channels phase's steps
+    # at W512_ENC.
+    w512_launches["fused_ftf_bwd"] = w512_steps["fused_ftf_bwd"]
     for name, src, replaces, head_L, head_mode in (
             ("fused_ftf_block", "lct_gan_tpu_torch/csrc/ftf.cu",
              "lct_gan_tpu/ops/ftf.py:132", 33, "bf16"),
@@ -4071,11 +4239,13 @@ def main():
             ("banded_mhsa", "lct_gan_tpu_torch/csrc/banded.cu",
              "lct_gan_tpu/ops/banded_attention.py:109", 772, "bf16"),
             ("fused_grouped_gru", "lct_gan_tpu_torch/csrc/ftf.cu",
-             "lct_gan_tpu/ops/gru.py:28", 644, "precise")):
+             "lct_gan_tpu/ops/gru.py:28", 644, "precise"),
+            ("fused_ftf_bwd", "lct_gan_tpu_torch/csrc/ftf_bwd.cu",
+             "lct_gan_tpu/ops/ftf_bwd.py:119", 33, "bf16")):
         head = next(r for r in w512_cases[name]
                     if r["L"] == head_L and r["mode"] == head_mode
                     and r["num_heads"] == 4 and r["gru_groups"] == 4
-                    and r["C"] == 512)
+                    and r["C"] == 512 and "plain_ms" in r)
         if w512_launches[name] <= 0:
             raise AssertionError(f"{name} was never launched at kernel "
                                  "width 512 on the path")

@@ -77,6 +77,30 @@
 // and 256 attn_bwd_warp_kernel (a warp a row), and the static-shared row
 // kernels fewer rows a block.
 //
+// Kernel width 512 (-DLCT_C=512; every path new there under LCT_C > 256,
+// or a constant that equals the old one below 512, so no instance at C <=
+// 256 changes). A row of C channels is 1 KB as bf16 and W_hh of one
+// direction's slot of 512 is 3 MB as f32, so: comb_panel_kernel takes
+// tiles of 32 rows (2 warps: its tile pair and a lin_w panel fill 215 KB);
+// dn_panel_kernel tiles of 32 rows, and a slot of 512 streams its 1,536
+// k-columns in two halves; the heads of 512 stream key and query blocks of
+// 32 rows (Wide<HW>::SB) beside their 64-row items, a head in four
+// 128-channel output parts; wgrad_tc_kernel stages 16-row tiles and
+// splits a product of more than 48 units a 16-row tile by columns too
+// (WgProd::ldo), the grouped one by 16 slots (WG_ALLP counts every piece
+// of every slot width: 416 at most); the GRU's slots of 16 take half a
+// direction's slots a block (BPTT_PARTS, grid z), of 64 and 128 a slot a
+// block as at 256, of 256 gate_tc_kernel (32-unit panels of one slot) and
+// bptt_cluster_kernel with the slot in grid z (BC_SW), and one slot of 512
+// the step-synchronous walk: gate_tc_kernel (or precise gate_kernel<512>)
+// forms every step's factors, then bptt_step_kernel takes one launch a
+// step, a block 64 sequences x 32 units of the carry product dhp_t @
+// W_hh^T over all 3C columns (f32 FMAs, W_hh from L2), the carry in two
+// [D, N, C] f32 buffers. Precise mode: comb_bwd_kernel and dn2_kernel 8
+// rows a block, wgrad_kernel 2, attn_bwd_warp_kernel<512>, the precise
+// GRU's slots of 64 four a block (dense_units), the cluster and step
+// kernels over gate_kernel<256 / 512>.
+//
 // precise (lct_ftf_backward_f32), all f32 on CUDA cores (common.cuh), the
 // simple design of one kernel per stage:
 //   1. ln_kernel + proj_kernel<false>  recompute s = x + sum_d hid, LN2, qkv
@@ -146,6 +170,12 @@
 #endif
 
 namespace lct {
+
+// Launches of the dense-slot GRU walks by this library, counted on the host
+// where each launch succeeds (read by lct_ftf_backward_walk_launches): 0
+// bptt_cluster_kernel (slots of 256), 1 bptt_step_kernel (a slot of 512,
+// one a step).
+static long long walk_launches[2] = {0, 0};
 
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
@@ -281,8 +311,8 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
 // Writes ga = [g | a] (the Linear's gradient operands), dcomb and da
 // (their column sums are the bias gradients), dg_lin, dctx.
 // Rows a block: its three [rows][C] f32 tiles fill the 48 KB of static
-// shared memory at C = 128, so C = 256 takes 16.
-constexpr int COMB_ROWS = C > 128 ? 16 : ROWS;
+// shared memory at C = 128, so C = 256 takes 16 and C = 512 8.
+constexpr int COMB_ROWS = C > 256 ? 8 : C > 128 ? 16 : ROWS;
 
 __global__ void comb_bwd_kernel(const float* __restrict__ hid, int D,
                                 const float* __restrict__ ctx,
@@ -583,7 +613,7 @@ __global__ void attn_bwd_kernel(const float* __restrict__ qkv,
 }
 
 #if LCT_C > 128
-// attn_bwd_kernel for heads of 128 or 256 channels at C = 256, where a
+// attn_bwd_kernel for heads of 128 to 512 channels at C >= 256, where a
 // thread's q, dq, dk and dv (4 HDP floats) would not fit in registers: as
 // common.cuh's attn_warp_kernel, a warp takes one row, lane l holding
 // channels l + 32 i (HDP / 32 a lane), each dot product one warp sum. The
@@ -761,9 +791,14 @@ inline cudaError_t launch_attn_bwd(const float* qkv, const float* dctx,
       return launch_attn_bwd_hd<128>(qkv, dctx, dqkv, N, L, lookback, hd,
                                      scale, st);
 #endif
-#if LCT_C > 128  // C = 256
+#if LCT_C > 128  // C >= 256
     case 256:
       return launch_attn_bwd_hd<256>(qkv, dctx, dqkv, N, L, lookback, hd,
+                                     scale, st);
+#endif
+#if LCT_C > 256  // C = 512
+    case 512:
+      return launch_attn_bwd_hd<512>(qkv, dctx, dqkv, N, L, lookback, hd,
                                      scale, st);
 #endif
   }
@@ -772,8 +807,8 @@ inline cudaError_t launch_attn_bwd(const float* qkv, const float* dctx,
 
 // dn2 = dqkv @ in_w^T over DN2_ROWS rows per block, one thread per channel
 // c (its [rows][3C] f32 tile within the 48 KB of static shared memory: 16
-// rows at C = 256).
-constexpr int DN2_ROWS = C > 128 ? 16 : ROWS;
+// rows at C = 256, 8 at C = 512).
+constexpr int DN2_ROWS = C > 256 ? 8 : C > 128 ? 16 : ROWS;
 
 __global__ void dn2_kernel(const float* __restrict__ dqkv,
                            const float* __restrict__ in_w,
@@ -1032,15 +1067,16 @@ cudaError_t launch_bptt_dense(const float* K, const float* dg,
 
 #if LCT_C > 128
 // ---------------------------------------------------------------------------
-// BPTT through one dense GRU slot of C = 256 units (a group of 256, or of
-// 129-255 padded), both modes: W_hh of one direction is C x 3C = 768 KB as
+// BPTT through one dense GRU slot of BC_SW = 256 units (a group of 256, or
+// of 129-255 padded; at C = 512 each of two such slots, blockIdx.z), both
+// modes: W_hh of one direction's slot is 256 x 768 = 768 KB as
 // f32, more than the 227 KB of shared memory a block may hold, so, as
 // ftf.cu's gru_cluster_kernel walks the forward, a cluster of BC_CL = 8
 // blocks on neighbouring SMs walks the steps together, in the order
 // opposite to the forward's (descending for direction 0). Block `rank` owns
-// units [32 rank, 32 rank + 32); thread (unit u, k-part kq) keeps row u of
-// W_hh (rounded to bf16 with ROUND), entries o = 4 kq + 32 i + e (i < 24,
-// e < 4: 96 floats), for the carry
+// the slot's units [32 rank, 32 rank + 32); thread (unit u, k-part kq)
+// keeps row u of the slot's W_hh (rounded to bf16 with ROUND), entries o =
+// 4 kq + 32 i + e (i < 24, e < 4: 96 floats), for the carry
 //   dh_t = carry + dg_t, dhp = (dh K1, dh K2, dh K3), dxp = (dh K1, dh K2,
 //   dh K4), carry = dh K5 + dhp @ W_hh^T  (ROUND: bf16(dhp), bf16(W_hh))
 // over the per-step gate factors K1..K5 [D, N*L, 5C] that an earlier pass
@@ -1058,18 +1094,21 @@ cudaError_t launch_bptt_dense(const float* K, const float* dg,
 // barrier and a 12-deep FMA chain of 8 lanes a step.
 constexpr int BC_CL = 8;   // blocks of a cluster
 constexpr int BC_DS = 4;   // sequences of a cluster
+constexpr int BC_SW = 256;  // units a slot (C / BC_SW slots: blockIdx.z)
 static_assert(BC_DS == DS, "the bf16 partial rows count DS sequences a row");
 
+// The arguments of the walks over one dense slot's gate factors (the
+// cluster walk, and at C = 512 the step walk).
 struct ClusterArgs {
   const float* K;      // [D, N*L, 5C]: K1, K2, K3, K4 = P, K5 = z
   const float* dg;     // [N*L, C]: ds (+ dg_lin), or ds
   const float* dglin;  // [N*L, C], added to dg, or null
-  const float* w_hh;   // [D, 1, C, 3C]
+  const float* w_hh;   // slots [D, C/SW, SW, 3SW]
   float* dxp;          // precise: [N*L, D*3C] f32 out
   float* dhp;
   __nv_bfloat16* dxp_b;  // ROUND: [N*L, D*3C] bf16 out
   __nv_bfloat16* dhp_b;
-  float* part;         // ROUND: [clusters a direction, 2*D*3C] out
+  float* part;         // ROUND: [sequence groups, 2*D*3C] out
   long long N;
   int L;
   int D;
@@ -1079,18 +1118,22 @@ template <bool ROUND>
 __global__ void __cluster_dims__(BC_CL, 1, 1) __launch_bounds__(256, 1)
     bptt_cluster_kernel(ClusterArgs a) {
   namespace cg = cooperative_groups;
-  constexpr int UPC = C / BC_CL;  // units a block: 32
-  constexpr int KQ = 256 / UPC;   // lanes a unit: 8
-  constexpr int KO = 3 * C / KQ;  // W_hh entries a lane: 96
+  constexpr int SW = BC_SW;
+  constexpr int UPC = SW / BC_CL;  // units a block: 32
+  constexpr int KQ = 256 / UPC;    // lanes a unit: 8
+  constexpr int KO = 3 * SW / KQ;  // W_hh entries a lane: 96
   static_assert(UPC == 32 && KQ == BC_CL && KO % 4 == 0, "cluster BPTT");
-  __shared__ __align__(16) float es[2][BC_DS][3 * C];  // dhp (ROUND: rounded)
+  __shared__ __align__(16) float es[2][BC_DS][3 * SW];  // dhp (ROUND: rounded)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int d = blockIdx.y, kq = threadIdx.x % KQ;
-  const int u = rank * UPC + threadIdx.x / KQ;
+  const int sl = SW == C ? 0 : (int)blockIdx.z;  // the slot
+  const int u = rank * UPC + threadIdx.x / KQ;   // the unit in the slot
+  const int uc = sl * SW + u;                    // its channel
   const long long n0 = (long long)(blockIdx.x / BC_CL) * BC_DS;
   const int L = a.L;
-  const float* wp = a.w_hh + ((size_t)d * C + u) * 3 * C + 4 * kq;
+  const float* wp =
+      a.w_hh + ((size_t)(d * (C / SW) + sl) * SW + u) * 3 * SW + 4 * kq;
   float w[KO];
 #pragma unroll
   for (int i = 0; i < KO / 4; ++i) {
@@ -1116,11 +1159,11 @@ __global__ void __cluster_dims__(BC_CL, 1, 1) __launch_bounds__(256, 1)
       g[q] = 0.f;
       if (n < a.N) {
         const size_t row = (size_t)n * L + t;
-        const float* kp = a.K + ((size_t)d * NL + row) * 5 * C + u;
+        const float* kp = a.K + ((size_t)d * NL + row) * 5 * C + uc;
 #pragma unroll
         for (int f = 0; f < 5; ++f) k[q][f] = kp[f * C];
-        g[q] = a.dg[row * C + u];
-        if (a.dglin) g[q] += a.dglin[row * C + u];
+        g[q] = a.dg[row * C + uc];
+        if (a.dglin) g[q] += a.dglin[row * C + uc];
       }
     }
   };
@@ -1142,29 +1185,29 @@ __global__ void __cluster_dims__(BC_CL, 1, 1) __launch_bounds__(256, 1)
       z[q] = k[4];
       const float er = dh[q] * k[0], ez = dh[q] * k[1], en = dh[q] * k[2];
       const float ex = dh[q] * k[3];
-      nb[q * 3 * C + u] = rnd(er, ROUND);
-      nb[q * 3 * C + C + u] = rnd(ez, ROUND);
-      nb[q * 3 * C + 2 * C + u] = rnd(en, ROUND);
+      nb[q * 3 * SW + u] = rnd(er, ROUND);
+      nb[q * 3 * SW + SW + u] = rnd(ez, ROUND);
+      nb[q * 3 * SW + 2 * SW + u] = rnd(en, ROUND);
       if (kq == 0 && n < a.N) {
-        const size_t o = row * ldx + (size_t)d * 3 * C + u;
+        const size_t o = row * ldx + (size_t)d * 3 * C + sl * 3 * SW + u;
         if constexpr (ROUND) {
           a.dhp_b[o] = __float2bfloat16_rn(er);
-          a.dhp_b[o + C] = __float2bfloat16_rn(ez);
-          a.dhp_b[o + 2 * C] = __float2bfloat16_rn(en);
+          a.dhp_b[o + SW] = __float2bfloat16_rn(ez);
+          a.dhp_b[o + 2 * SW] = __float2bfloat16_rn(en);
           a.dxp_b[o] = __float2bfloat16_rn(er);
-          a.dxp_b[o + C] = __float2bfloat16_rn(ez);
-          a.dxp_b[o + 2 * C] = __float2bfloat16_rn(ex);
+          a.dxp_b[o + SW] = __float2bfloat16_rn(ez);
+          a.dxp_b[o + 2 * SW] = __float2bfloat16_rn(ex);
           sr += er;
           sz += ez;
           sxn += ex;
           shn += en;
         } else {
           a.dhp[o] = er;
-          a.dhp[o + C] = ez;
-          a.dhp[o + 2 * C] = en;
+          a.dhp[o + SW] = ez;
+          a.dhp[o + 2 * SW] = en;
           a.dxp[o] = er;
-          a.dxp[o + C] = ez;
-          a.dxp[o + 2 * C] = ex;
+          a.dxp[o + SW] = ez;
+          a.dxp[o + 2 * SW] = ex;
         }
       }
     }
@@ -1176,7 +1219,7 @@ __global__ void __cluster_dims__(BC_CL, 1, 1) __launch_bounds__(256, 1)
 #pragma unroll
       for (int i = 0; i < KO / 4; ++i) {
         const float4 v =
-            *reinterpret_cast<const float4*>(eb + q * 3 * C + 32 * i);
+            *reinterpret_cast<const float4*>(eb + q * 3 * SW + 32 * i);
         acc = fmaf(v.x, w[4 * i], acc);
         acc = fmaf(v.y, w[4 * i + 1], acc);
         acc = fmaf(v.z, w[4 * i + 2], acc);
@@ -1199,32 +1242,215 @@ __global__ void __cluster_dims__(BC_CL, 1, 1) __launch_bounds__(256, 1)
   if constexpr (ROUND) {
     if (kq == 0) {
       float* out = a.part + (size_t)(blockIdx.x / BC_CL) * 2 * ldx +
-                   (size_t)d * 3 * C + u;
+                   (size_t)d * 3 * C + sl * 3 * SW + u;
       out[0] = sr;  // db_ih: r, z, n
-      out[C] = sz;
-      out[2 * C] = sxn;
+      out[SW] = sz;
+      out[2 * SW] = sxn;
       out[ldx] = sr;  // db_hh: r, z, n
-      out[ldx + C] = sz;
-      out[ldx + 2 * C] = shn;
+      out[ldx + SW] = sz;
+      out[ldx + 2 * SW] = shn;
     }
   }
 }
 
+// Refuses the launch unless the card can hold a cluster of BC_CL blocks of
+// the kernel (its compile-time cluster size) at once.
 template <bool ROUND>
 cudaError_t launch_bptt_cluster(const ClusterArgs& a, cudaStream_t st) {
-  bptt_cluster_kernel<ROUND>
-      <<<dim3((unsigned)((a.N + BC_DS - 1) / BC_DS * BC_CL), (unsigned)a.D),
-         256, 0, st>>>(a);
-  return cudaGetLastError();
+  const dim3 grid((unsigned)((a.N + BC_DS - 1) / BC_DS * BC_CL),
+                  (unsigned)a.D, (unsigned)(C / BC_SW));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(256);
+  cfg.stream = st;
+  int clusters = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &clusters, bptt_cluster_kernel<ROUND>, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  bptt_cluster_kernel<ROUND><<<grid, 256, 0, st>>>(a);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++walk_launches[0];
+  return e;
+}
+#endif
+
+#if LCT_C > 256
+// ---------------------------------------------------------------------------
+// BPTT through one dense GRU slot of C = 512 units (a group of 512, or of
+// 257-511 padded), both modes: the step-synchronous walk, the backward of
+// ftf.cu's gru_step_kernel. One direction's W_hh is 512 x 1,536 = 3 MB as
+// f32: a cluster of 8 blocks would hold 192 floats a thread, and the
+// cluster walk's one cluster a 4 sequences would run each step in ~1,000
+// waves at the frequency block's 8,256 sequences. So the per-step gate
+// factors K1..K5 [D, N*L, 5C] come first, for every step at once
+// (gate_tc_kernel on tensor cores, or precise gate_kernel<512>), and then
+// each step is one launch over all sequences and both directions, a tiled
+// product in the backward's order (t descending for direction 0):
+//   dh_t  = carry_t + dg_t                       (carry_0 = 0)
+//   dhp_t = (dh K1, dh K2, dh K3)                over all 3C columns
+//   carry_{t-1} = dh K5 + dhp_t @ W_hh^T         (ROUND: bf16 operands)
+// A block takes BS_R = 64 sequences and BS_U = 32 units j of the carry:
+// it forms its sequences' dhp in k-chunks of BS_K = 32 of the 3C columns
+// as it stages them (dh recomputed from the carry and dg; each dhp entry,
+// and W_hh, rounded to bf16 with ROUND), stages W_hh[j][o] of its units
+// for the chunk beside them (W_hh stays in L2: 3 MB a direction), and
+// each thread keeps 4 sequences x 2 units of f32 sums (f32 FMAs on CUDA cores, as gru_step_kernel: bf16
+// operands make each product exact in f32, the tensor cores' arithmetic up
+// to the order of the sums). Its epilogue writes carry_{t-1} of its units
+// and their dxp = (dh K1, dh K2, dh K4) and dhp columns (f32, or bf16 with
+// ROUND); the carry ping-pongs between two [D, N, C] f32 buffers. With
+// ROUND the column sums of the unrounded dxp and dhp (db_ih, db_hh) are
+// taken over the block's sequences in a fixed order and added to the
+// block's own partial row (one a BS_R sequences) step after step: no
+// atomics. Bound: the carry product, 2 N D L x 3C x C FLOP (0.86 TFLOP at
+// the frequency block's B = 64 x 2 s shape) on the f32 pipes.
+constexpr int BS_R = 64;  // sequences a block
+constexpr int BS_U = 32;  // units a block
+constexpr int BS_K = 32;  // dhp columns a k-chunk
+
+template <bool ROUND>
+__global__ void __launch_bounds__(256)
+    bptt_step_kernel(ClusterArgs a, const float* __restrict__ carry_in,
+                     float* __restrict__ carry_out, int s) {
+  __shared__ __align__(16) float esm[BS_K][BS_R + 4];  // dhp [col][seq]
+  __shared__ __align__(16) float wsm[BS_K][BS_U + 2];  // W_hh [col][unit]
+  __shared__ float red[16][4][BS_U];  // column sums [ty][quantity][unit]
+  const int d = blockIdx.z, L = a.L;
+  const int t = d ? s : L - 1 - s;
+  const long long N = a.N, n0 = (long long)blockIdx.x * BS_R;
+  const int u0 = blockIdx.y * BS_U;
+  // Thread (ty, tx): sequences n0 + 4 ty + r (r < 4), units u0 + 2 tx + e.
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t NL = (size_t)N * L, ldx = (size_t)a.D * 3 * C;
+  const float* cin = carry_in + (size_t)d * N * C;
+  const float* Kd = a.K + (size_t)d * NL * 5 * C;
+  // dh of sequence n (< N) at channel u in this step.
+  auto dh_at = [&](long long n, int u) {
+    const size_t row = (size_t)n * L + t;
+    float g = a.dg[row * C + u];
+    if (a.dglin) g += a.dglin[row * C + u];
+    return (s > 0 ? cin[(size_t)n * C + u] : 0.f) + g;
+  };
+  float acc[4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int o0 = 0; o0 < 3 * C; o0 += BS_K) {
+    const int q = o0 / C;  // the chunk's gate: K1, K2 or K3
+    for (int i = threadIdx.x; i < BS_R * BS_K; i += blockDim.x) {
+      const int r = i / BS_K, k = i % BS_K, u = o0 % C + k;
+      const long long n = n0 + r;
+      float v = 0.f;
+      if (n < N)
+        v = dh_at(n, u) * Kd[((size_t)n * L + t) * 5 * C + q * C + u];
+      esm[k][r] = rnd(v, ROUND);
+    }
+    for (int i = threadIdx.x; i < BS_K * BS_U; i += blockDim.x) {
+      const int c = i / BS_K, k = i % BS_K;
+      wsm[k][c] = rnd(a.w_hh[((size_t)d * C + u0 + c) * 3 * C + o0 + k],
+                      ROUND);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < BS_K; ++k) {
+      const float4 ev = *reinterpret_cast<const float4*>(&esm[k][4 * ty]);
+      const float2 w = *reinterpret_cast<const float2*>(&wsm[k][2 * tx]);
+      const float er[4] = {ev.x, ev.y, ev.z, ev.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r][0] = fmaf(er[r], w.x, acc[r][0]);
+        acc[r][1] = fmaf(er[r], w.y, acc[r][1]);
+      }
+    }
+    __syncthreads();
+  }
+  float cs[4][2] = {};  // sr, sz, sxn, shn of the thread's two units
+  float* cout = carry_out + (size_t)d * N * C;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long long n = n0 + 4 * ty + r;
+    if (n >= N) continue;
+    const size_t row = (size_t)n * L + t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int u = u0 + 2 * tx + e;
+      const float dh = dh_at(n, u);
+      const float* kp = Kd + row * 5 * C + u;
+      const float er = dh * kp[0], ez = dh * kp[C], en = dh * kp[2 * C];
+      const float ex = dh * kp[3 * C];
+      cout[(size_t)n * C + u] = dh * kp[4 * C] + acc[r][e];
+      const size_t o = row * ldx + (size_t)d * 3 * C + u;
+      if constexpr (ROUND) {
+        a.dhp_b[o] = __float2bfloat16_rn(er);
+        a.dhp_b[o + C] = __float2bfloat16_rn(ez);
+        a.dhp_b[o + 2 * C] = __float2bfloat16_rn(en);
+        a.dxp_b[o] = __float2bfloat16_rn(er);
+        a.dxp_b[o + C] = __float2bfloat16_rn(ez);
+        a.dxp_b[o + 2 * C] = __float2bfloat16_rn(ex);
+        cs[0][e] += er;
+        cs[1][e] += ez;
+        cs[2][e] += ex;
+        cs[3][e] += en;
+      } else {
+        a.dhp[o] = er;
+        a.dhp[o + C] = ez;
+        a.dhp[o + 2 * C] = en;
+        a.dxp[o] = er;
+        a.dxp[o + C] = ez;
+        a.dxp[o + 2 * C] = ex;
+      }
+    }
+  }
+  if constexpr (ROUND) {
+    // The block's sums over its sequences, ty in order, added to its row.
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red[ty][f][2 * tx + e] = cs[f][e];
+    __syncthreads();
+    if (threadIdx.x < 4 * BS_U) {
+      const int f = threadIdx.x / BS_U, j = threadIdx.x % BS_U;
+      float v = red[0][f][j];
+      for (int y = 1; y < 16; ++y) v += red[y][f][j];
+      float* out = a.part + (size_t)blockIdx.x * 2 * ldx + (size_t)d * 3 * C +
+                   u0 + j;
+      // f: r -> db_ih and db_hh r, z -> both z, xn -> db_ih n, hn -> db_hh n
+      const int o1 = f == 0 ? 0 : f == 1 ? C : f == 2 ? 2 * C : -1;
+      const int o2 = f == 0 ? (int)ldx : f == 1 ? (int)ldx + C
+                   : f == 3 ? (int)ldx + 2 * C : -1;
+      if (o1 >= 0) out[o1] = s > 0 ? out[o1] + v : v;
+      if (o2 >= 0) out[o2] = s > 0 ? out[o2] + v : v;
+    }
+  }
+}
+
+// L launches of bptt_step_kernel<ROUND>, one a step; carry: 2 x [D, N, C]
+// f32 scratch.
+template <bool ROUND>
+cudaError_t launch_bptt_steps(const ClusterArgs& a, float* carry,
+                              cudaStream_t st) {
+  if (a.N == 0) return cudaSuccess;
+  const dim3 grid((unsigned)((a.N + BS_R - 1) / BS_R), C / BS_U,
+                  (unsigned)a.D);
+  const size_t nc = (size_t)a.D * a.N * C;
+  for (int s = 0; s < a.L; ++s) {
+    bptt_step_kernel<ROUND><<<grid, 256, 0, st>>>(
+        a, carry + (s & 1) * nc, carry + ((s + 1) & 1) * nc, s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    ++walk_launches[1];
+  }
+  return cudaSuccess;
 }
 #endif
 
 // BPTT over `slots` slots (C / 16 of 16 units, one of C, at C = 128 two of
-// 64, at C = 256 four of 64 or two of 128).
+// 64, at C = 256 four of 64 or two of 128, at C = 512 also two of 256);
+// carry: the step walk's scratch (one slot of 512).
 inline cudaError_t launch_bptt(const float* K, const float* dg,
                                const float* w_hh, float* dxp, float* dhp,
                                long long N, int L, int D, int slots,
-                               cudaStream_t st) {
+                               float* carry, cudaStream_t st) {
   if (gru_slot(slots) == 16) {
     const long long bthreads = N * D * C;
     bptt_kernel<<<(unsigned)((bthreads + 255) / 256), 256, 0, st>>>(
@@ -1240,6 +1466,9 @@ inline cudaError_t launch_bptt(const float* K, const float* dg,
     return launch_bptt_dense<128>(K, dg, w_hh, dxp, dhp, N, L, D, st);
   ClusterArgs ca = {K, dg, nullptr, w_hh, dxp, dhp, nullptr, nullptr,
                     nullptr, N, L, D};
+#if LCT_C > 256
+  if (gru_slot(slots) == C) return launch_bptt_steps<false>(ca, carry, st);
+#endif
   return launch_bptt_cluster<false>(ca, st);
 #else
   return launch_bptt_dense<C>(K, dg, w_hh, dxp, dhp, N, L, D, st);
@@ -1284,7 +1513,7 @@ __global__ void dn1_kernel(const float* __restrict__ dxp,
 enum { WG_DENSE = 0, WG_GROUPED = 1, WG_DIAG = 2, WG_COLSUM = 3 };
 constexpr int WG_THREADS = 256;
 // Rows of the staged pair, within 48 KB of static shared memory.
-constexpr int WG_TR = C > 128 ? 4 : C > 64 ? 8 : 16;
+constexpr int WG_TR = C > 256 ? 2 : C > 128 ? 4 : C > 64 ? 8 : 16;
 constexpr int WG_MAXK = 48;  // 256 * 48 = 12,288 = C = 64's largest (in_w) grad
 constexpr int WG_OUT = WG_THREADS * WG_MAXK;
 constexpr int WG_MAX_BLOCKS = 264;
@@ -1412,10 +1641,11 @@ struct Wgrad {
 struct Scratch {
   float *n2, *xh2, *rs2, *qkv, *ctx, *ga, *dcomb, *da, *dglin, *dctx, *dqkv,
       *dn2, *ds, *dgt, *n1, *xh1, *rs1, *xp, *K, *hpv, *dxp, *dhp, *dn1,
-      *partial;
+      *partial, *carry;
   long long total;
 
-  Scratch(float* base, long long rows, int D) {
+  Scratch(float* base, long long N, int L, int D) {
+    const long long rows = N * L;
     long long off = 0;
     auto take = [&](long long n) {
       float* p = base ? base + off : nullptr;
@@ -1432,6 +1662,8 @@ struct Scratch {
     hpv = take((long long)D * rc); dxp = take(rows * D * 3 * C);
     dhp = take(rows * D * 3 * C); dn1 = take(rc);
     partial = take((long long)WG_MAX_BLOCKS * WG_MAXK * WG_THREADS);
+    // The step walk's carry (C = 512: one slot of 512), 2 x [D, N, C].
+    carry = C > 256 ? take(2 * (long long)D * N * C) : nullptr;
     total = off;
   }
 };
@@ -1447,14 +1679,19 @@ constexpr int WG_BLOCKS = 528;        // cap of wgrad_tc_kernel's grid
 constexpr int WG_UNITS = 12;          // 16x16 output units per warp, at most
 constexpr int WG_LDA = C + 8, WG_LDB = 3 * C + 8;
 // Rows of a staged tile pair of wgrad_tc_kernel: 64, at C = 256 32 (two
-// stages of 64 rows would take 266 KB).
-constexpr int WG_ROWS = C > 128 ? 32 : 64;
+// stages of 64 rows would take 266 KB), at C = 512 16.
+constexpr int WG_ROWS = C > 256 ? 16 : C > 128 ? 32 : 64;
 constexpr int WG_STAGE = WG_ROWS * (WG_LDA + WG_LDB);  // bf16 per tile pair
 // Products a wgrad_tc_kernel launch takes (C = 128 splits its larger
 // products into pieces of at most 4 WG_UNITS units; C = 256's pieces, up
 // to 98 of them, go in several launches of at most WG_MAXP).
 constexpr int WG_MAXP = C > 64 ? 32 : 8;
-constexpr int WG_ALLP = C > 128 ? 4 * WG_MAXP : WG_MAXP;  // pieces in all
+// Pieces in all. C = 512's, for a frequency block (two Linear products)
+// in 16-row pieces: the Linear 2 x 32, out_w 32, in_w 2 x 32 (its 96
+// units a 16-row tile in two column parts), and the GRU's ih and hh of
+// both directions: slots of 16 8 (16 slots a piece), of 64 32, of 128 64,
+// of 256 128, one of 512 256 (two column parts): 416 at most.
+constexpr int WG_ALLP = C > 256 ? 416 : C > 128 ? 4 * WG_MAXP : WG_MAXP;
 // Column sums a thread of wgrad_tc_kernel takes (3C columns at most).
 constexpr int WG_CS = (3 * C + RT - 1) / RT;
 // log2 of the warps of a direction in bptt_tc_kernel (C / 16).
@@ -2053,9 +2290,10 @@ __global__ void __launch_bounds__(RT) dn1_tc_kernel(Dn1Args a) {
 // The bias gradients are column sums of the unrounded dcomb and da: a
 // panel's over the lanes, then the warps in order, into the block's row in
 // shared memory. Bound: the weights' staging, 0.75-1 MB of bf16 a tile
-// from L2.
-constexpr int CB_ROWS = 128;     // rows a tile: 8 warps of 16
-constexpr int CB_THREADS = 256;
+// from L2. C = 512 takes tiles of 32 rows (2 warps): two tiles of 64 rows
+// and a lin_w panel [2C][EPI_LDW] would take 281 KB.
+constexpr int CB_ROWS = C > 256 ? 32 : 128;  // rows a tile: warps of 16
+constexpr int CB_THREADS = 2 * CB_ROWS;
 constexpr size_t CB_SMEM =
     sizeof(__nv_bfloat16) * (2 * CB_ROWS * LDS + 2 * C * EPI_LDW) +
     sizeof(float) * (8 * 64 + 2 * C);
@@ -2312,7 +2550,10 @@ __global__ void __launch_bounds__(CB_THREADS, 1) comb_panel_kernel(CombArgs a) {
 // Column sums dn xh and dn (the LayerNorm scale and bias gradients): per
 // lane, then the warps in order, one partial row per block. Bound: the
 // weight panels' staging from L2 (0.8 MB a tile for dn2, 1.6 MB for a
-// bidirectional slot of 256).
+// bidirectional slot of 256). C = 512 takes tiles of DN_ROWS = 32 rows (2
+// warps; the dn tile [32][516] f32 is 66 KB), and a slot of 512 (and
+// DN2's in_w) stages a panel's 3W = 1,536 k-columns in two halves
+// (dn_kparts): a [64][1544] panel would take 198 KB.
 struct DnArgs {
   const __nv_bfloat16* A;  // dqkv [rows, 3C] or dxp [rows, D*3C]
   const float* w;          // in_w [C][3C] or W_ih slots [D, C/W, W, 3W]
@@ -2333,41 +2574,51 @@ struct DnArgs {
 };
 
 constexpr int DN_LDT = C + 4;  // f32 row stride of the dn tile
+constexpr int DN_ROWS = C > 256 ? 32 : 64;  // rows a tile: warps of 16
+constexpr int DN_THREADS = 2 * DN_ROWS;
+
+// Parts a panel's 3W k-columns are staged in.
+__host__ __device__ constexpr int dn_kparts(int W) {
+  return C > 256 && W > 256 ? 2 : 1;
+}
 
 template <int W>
 inline size_t dn_panel_smem() {
-  return sizeof(__nv_bfloat16) * 64 * (3 * W + 8) +
-         sizeof(float) * (64 * DN_LDT + 4 * 2 * C);
+  return sizeof(__nv_bfloat16) * 64 * (3 * W / dn_kparts(W) + 8) +
+         sizeof(float) * (DN_ROWS * DN_LDT + DN_ROWS / 16 * 2 * C);
 }
 
 template <int W, bool DN2>
-__global__ void __launch_bounds__(RT, 1) dn_panel_kernel(DnArgs a) {
-  constexpr int KW = 3 * W, LDK = KW + 8, S = C / W;
+__global__ void __launch_bounds__(DN_THREADS, 1) dn_panel_kernel(DnArgs a) {
+  constexpr int KW = 3 * W, KP = dn_kparts(W), KWP = KW / KP;
+  constexpr int LDK = KWP + 8, S = C / W;
   extern __shared__ __align__(16) unsigned char dn_smem[];
   __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(dn_smem);  // [64][LDK]
-  float* dnt = reinterpret_cast<float*>(wst + 64 * LDK);  // [64][DN_LDT]
-  float* red = dnt + 64 * DN_LDT;                         // [4][2C]
+  float* dnt = reinterpret_cast<float*>(wst + 64 * LDK);  // [DN_ROWS][DN_LDT]
+  float* red = dnt + DN_ROWS * DN_LDT;                    // [warps][2C]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const long long rows = a.rows;
   const int D = DN2 ? 1 : a.D, lda = D * 3 * C;
-  const long long tiles = (rows + 63) / 64;
+  const long long tiles = (rows + DN_ROWS - 1) / DN_ROWS;
   float cs_s[CPL] = {}, cs_b[CPL] = {};
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     // Every warp takes part in every barrier (rows past the end read as
     // zero and store nothing).
-    const long long r0 = tile * 64 + warp * 16;
+    const long long r0 = tile * DN_ROWS + warp * 16;
     for (int p = 0; p < C / 64; ++p) {
       const int c0 = 64 * p;
       float acc[8][4] = {};
-      for (int d = 0; d < D; ++d) {
+      for (int dk = 0; dk < D * KP; ++dk) {
+        const int d = dk / KP, kp = dk % KP;  // direction, k-part
         __syncthreads();  // the previous panel's readers are done
-        // Row i: output channel c0 + i's weights over its slot's 3W inputs.
-        for (int i = threadIdx.x; i < 64 * (KW / 4); i += blockDim.x) {
-          const int r = i / (KW / 4), q = i % (KW / 4), c = c0 + r;
+        // Row i: output channel c0 + i's weights over its slot's 3W inputs
+        // (k-part kp of them).
+        for (int i = threadIdx.x; i < 64 * (KWP / 4); i += blockDim.x) {
+          const int r = i / (KWP / 4), q = i % (KWP / 4), c = c0 + r;
           const float4 v = __ldg(reinterpret_cast<const float4*>(
                                      a.w + ((size_t)(d * S + c / W) * W +
-                                            c % W) * KW) + q);
+                                            c % W) * KW + kp * KWP) + q);
           uint2 pk;
           pk.x = pack_bf16(v.x, v.y);
           pk.y = pack_bf16(v.z, v.w);
@@ -2375,9 +2626,9 @@ __global__ void __launch_bounds__(RT, 1) dn_panel_kernel(DnArgs a) {
         }
         __syncthreads();
         if constexpr (W >= 64) {  // the panel lies in one slot
-          const int colb = d * 3 * C + c0 / W * KW;
+          const int colb = d * 3 * C + c0 / W * KW + kp * KWP;
 #pragma unroll 4
-          for (int kk = 0; kk < KW / 16; ++kk) {
+          for (int kk = 0; kk < KWP / 16; ++kk) {
             uint32_t af[4];
             ldg_a(af, a.A, lda, r0, rows, colb + kk * 16, lane);
 #pragma unroll
@@ -2477,8 +2728,12 @@ __global__ void __launch_bounds__(RT, 1) dn_panel_kernel(DnArgs a) {
   }
   __syncthreads();
   float* out = a.part + (size_t)blockIdx.x * 2 * C;
-  for (int c = threadIdx.x; c < 2 * C; c += blockDim.x)
-    out[c] = ((red[c] + red[2 * C + c]) + red[4 * C + c]) + red[6 * C + c];
+  for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) {
+    float v = red[c];
+#pragma unroll
+    for (int w = 1; w < DN_ROWS / 16; ++w) v += red[w * 2 * C + c];
+    out[c] = v;
+  }
 }
 
 template <int W, bool DN2>
@@ -2486,7 +2741,7 @@ cudaError_t launch_dn_panel(const DnArgs& a, int grid, cudaStream_t st) {
   const size_t smem = dn_panel_smem<W>();
   cudaError_t e = allow_smem(dn_panel_kernel<W, DN2>, smem);
   if (e != cudaSuccess) return e;
-  dn_panel_kernel<W, DN2><<<grid, RT, smem, st>>>(a);
+  dn_panel_kernel<W, DN2><<<grid, DN_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -2503,45 +2758,79 @@ cudaError_t launch_dn_panel(const DnArgs& a, int grid, cudaStream_t st) {
 // tiles of 64 rows, each of 4 warps 16 rows, 16 units at a time. Scratch:
 // K is [D, N*L, 5C] f32, 2.79 GB at the B = 64 x 2 s shapes (272,448 rows,
 // D = 2), written once and read once by the walk: the price of taking the
-// products off the recurrence's chain.
-constexpr int GT_U = 64;
+// products off the recurrence's chain. At C = 512 a slot is of sw = 256
+// (two slots) or 512 units (GateArgs::sw), and a block GT_U = 32 of its
+// units (blockIdx.z: 32-unit panels over all C channels): the slot's sw
+// input rows staged, 2 x 512 x 104 x 2 = 208 KB at sw = 512. K at the
+// frequency block's B = 64 x 2 s shape: 5.58 GB.
+constexpr int GT_U = C > 256 ? 32 : 64;
 constexpr int GT_LD = 3 * GT_U + 8;
+// Shared memory of a block over a slot of sw units.
+inline size_t gate_tc_smem(int sw) {
+  return (size_t)2 * sw * GT_LD * sizeof(__nv_bfloat16);
+}
 constexpr size_t GT_SMEM = (size_t)2 * C * GT_LD * sizeof(__nv_bfloat16);
 
 struct GateArgs {
   const __nv_bfloat16* n1;  // [N*L, C] bf16(LN1(x))
   const float* hid;         // [D, N*L, C]
-  const float* w_ih;        // [D, 1, C, 3C]
+  const float* w_ih;        // slots [D, C/sw, sw, 3sw]
   const float* w_hh;
-  const float* b_ih;        // [D, 1, 3C]
+  const float* b_ih;        // [D, C/sw, 3sw]
   const float* b_hh;
   float* K;                 // [D, N*L, 5C] out
   __nv_bfloat16* hprev;     // [D, N*L, C] out
   long long N;
   int L;
+#if LCT_C > 256
+  int sw;                   // units a slot: 256 or 512
+#endif
 };
 
 __global__ void __launch_bounds__(RT, 1) gate_tc_kernel(GateArgs a) {
   extern __shared__ __align__(16) unsigned char gate_smem[];
   __nv_bfloat16* wi = reinterpret_cast<__nv_bfloat16*>(gate_smem);
+#if LCT_C > 256
+  // A slot of sw units (256 or 512): the block's GT_U units from su0 in
+  // slot sl, whose inputs are channels [k0, k0 + sw).
+  const int sw = a.sw;
+  __nv_bfloat16* wh = wi + sw * GT_LD;  // both [sw][GT_LD]
+  const int d = blockIdx.y, u0 = blockIdx.z * GT_U;
+  const int sl = u0 / sw, su0 = u0 % sw, k0 = sl * sw;
+#else
   __nv_bfloat16* wh = wi + C * GT_LD;  // both [C][GT_LD]
   const int d = blockIdx.y, u0 = blockIdx.z * GT_U;
+#endif
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int L = a.L;
   const long long rows = a.N * L;
+#if LCT_C > 256
+  const size_t slot = (size_t)d * (C / sw) + sl;
+  // Column q GT_U + j of the staged tiles: gate q of unit su0 + j.
+  for (int i = threadIdx.x; i < sw * 3 * GT_U; i += blockDim.x) {
+    const int k = i / (3 * GT_U), c = i % (3 * GT_U);
+    const size_t src =
+        (slot * sw + k) * 3 * sw + (c / GT_U) * sw + su0 + c % GT_U;
+#else
   // Column q GT_U + j of the staged tiles: gate q of unit u0 + j.
   for (int i = threadIdx.x; i < C * 3 * GT_U; i += blockDim.x) {
     const int k = i / (3 * GT_U), c = i % (3 * GT_U);
     const size_t src =
         ((size_t)d * C + k) * 3 * C + (c / GT_U) * C + u0 + c % GT_U;
+#endif
     wi[k * GT_LD + c] = __float2bfloat16_rn(__ldg(a.w_ih + src));
     wh[k * GT_LD + c] = __float2bfloat16_rn(__ldg(a.w_hh + src));
   }
   __syncthreads();
   const float* hd = a.hid + (size_t)d * rows * C;
+#if LCT_C > 256
+  const float* bi = a.b_ih + slot * 3 * sw;
+  const float* bh = a.b_hh + slot * 3 * sw;
+#else
   const float* bi = a.b_ih + (size_t)d * 3 * C;
   const float* bh = a.b_hh + (size_t)d * 3 * C;
+#endif
   const long long tiles = (rows + 63) / 64;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long r0 = tile * 64 + warp * 16;
@@ -2557,6 +2846,36 @@ __global__ void __launch_bounds__(RT, 1) gate_tc_kernel(GateArgs a) {
       prow[rr] = d ? row + 1 : row - 1;
     }
     for (int sp = 0; sp < GT_U / 16; ++sp) {
+#if LCT_C > 256
+      const int ub = u0 + sp * 16;  // the 16 units' first (a channel)
+      const int bb = su0 + sp * 16;  // the same in the slot
+      float ar[2][4], az[2][4], xn[2][4], hn[2][4];
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = bb + 8 * jh + 2 * t + (e & 1);
+          ar[jh][e] = bi[u] + bh[u];
+          az[jh][e] = bi[sw + u] + bh[sw + u];
+          xn[jh][e] = bi[2 * sw + u];
+          hn[jh][e] = bh[2 * sw + u];
+        }
+#pragma unroll 2
+      for (int kk = 0; kk < sw / 16; ++kk) {
+        uint32_t ax[4], ah[4];
+        ldg_a(ax, a.n1, C, r0, rows, k0 + kk * 16, lane);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float2 h = make_float2(0.f, 0.f);
+            if (hasp[rr])
+              h = __ldg(reinterpret_cast<const float2*>(
+                  hd + (size_t)prow[rr] * C + k0 + kk * 16 + 8 * hf +
+                  2 * t));
+            ah[2 * hf + rr] = pack_bf16(h.x, h.y);
+          }
+#else
       const int ub = u0 + sp * 16;  // the 16 units' first
       float ar[2][4], az[2][4], xn[2][4], hn[2][4];
 #pragma unroll
@@ -2583,6 +2902,7 @@ __global__ void __launch_bounds__(RT, 1) gate_tc_kernel(GateArgs a) {
                   hd + (size_t)prow[rr] * C + kk * 16 + 8 * hf + 2 * t));
             ah[2 * hf + rr] = pack_bf16(h.x, h.y);
           }
+#endif
         const int col = sp * 16;
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
@@ -2636,18 +2956,23 @@ __global__ void __launch_bounds__(RT, 1) gate_tc_kernel(GateArgs a) {
 }
 
 inline cudaError_t launch_gate_tc(const GateArgs& a, int D, cudaStream_t st) {
-  cudaError_t e = allow_smem(gate_tc_kernel, GT_SMEM);
+#if LCT_C > 256
+  const size_t smem = gate_tc_smem(a.sw);
+#else
+  const size_t smem = GT_SMEM;
+#endif
+  cudaError_t e = allow_smem(gate_tc_kernel, smem);
   if (e != cudaSuccess) return e;
   const long long tiles = (a.N * a.L + 63) / 64;
   const int per = D * (C / GT_U);  // blocks of one row range
   unsigned grid = 1;
-  e = persistent_grid(gate_tc_kernel, RT, GT_SMEM, tiles * per, &grid);
+  e = persistent_grid(gate_tc_kernel, RT, smem, tiles * per, &grid);
   if (e != cudaSuccess) return e;
   long long gx = ((long long)grid + per - 1) / per;
   if (gx > tiles) gx = tiles;
   if (gx < 1) gx = 1;
   gate_tc_kernel<<<dim3((unsigned)gx, (unsigned)D, (unsigned)(C / GT_U)), RT,
-                   GT_SMEM, st>>>(a);
+                   smem, st>>>(a);
   return cudaGetLastError();
 }
 #endif
@@ -2729,9 +3054,13 @@ __host__ __device__ constexpr bool bptt_split(int KS) {
 __host__ __device__ constexpr bool bptt_slot_block(int KS) {
   return C > 128 && KS > 1;
 }
+// Blocks a direction's slots of 16 are split over (grid z): at C = 512 a
+// direction's 32 warps would be 1,024 threads of at most 64 registers.
+constexpr int BPTT_PARTS = C > 256 ? 2 : 1;
 __host__ __device__ constexpr int bptt_threads(int KS) {
   return bptt_slot_block(KS) ? KS * 32
-                             : (bptt_split(KS) ? 1 : 2) * (C / 16) * 32;
+                             : (bptt_split(KS) ? 1 : 2) * (C / 16) * 32 /
+                                   BPTT_PARTS;
 }
 // Row stride of bptt_tc_kernel<KS>'s staged W_hh and dhp exchange: LDW, or
 // a slot's 3W + 8 where a block takes one slot.
@@ -2766,7 +3095,9 @@ __global__ void __launch_bounds__(bptt_threads(KS),
   // grp: the warp's 16 units; d its direction, dl that within the block
   const int d = SPLIT ? (int)blockIdx.y : warp >> WPD_LOG2;
   const int grp = SLOTB ? (int)blockIdx.z * KS + warp
-                        : warp & ((1 << WPD_LOG2) - 1);
+                  : BPTT_PARTS > 1
+                      ? (int)blockIdx.z * (C / 16 / BPTT_PARTS) + warp
+                      : warp & ((1 << WPD_LOG2) - 1);
   const int dl = SPLIT ? 0 : d;
   const int L = a.L, D = a.D;
   const int Db = SPLIT ? 1 : D;  // directions in the block
@@ -3053,8 +3384,10 @@ cudaError_t launch_bptt_tc(const BpttArgs& a, cudaStream_t st) {
   bptt_tc_kernel<KS><<<dim3((unsigned)((a.N + GS - 1) / GS),
                             SPLIT ? (unsigned)a.D : 1u,
                             bptt_slot_block(KS) ? (unsigned)(C / (16 * KS))
-                                                : 1u),
-                       bptt_slot_block(KS) ? KS * 32 : Db * (C / 16) * 32,
+                                                : (unsigned)BPTT_PARTS),
+                       bptt_slot_block(KS)
+                           ? KS * 32
+                           : Db * (C / 16) * 32 / BPTT_PARTS,
                        smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -3751,15 +4084,20 @@ __global__ void attn_bwd_tc_kernel(HeadArgs a) {
 // and chunks of 16 outside the band are skipped. Each streamed block is
 // read once per item and walk: K and V of a sequence about L / 64 times
 // (two walks), from L2. Only the first half of a head writes its softmax
-// statistics and rowsums.
-constexpr int WB = 64;                       // rows of an item or a block
+// statistics and rowsums. A head of 512 (C = 512: one head, or of 257-511
+// padded) takes four 128-channel output parts, and streams its blocks in
+// 32 rows (SB) beside its items of 64: two [64][520] tiles and two
+// streamed [32][520] ones take 200 KB.
+constexpr int WB = 64;                       // rows of an item
 
 template <int HW>
 struct Wide {
   static constexpr int LD = HW + 8;          // row stride of a staged tile
-  static constexpr int TILE = WB * LD;       // bf16 of one staged tile
+  static constexpr int TILE = WB * LD;       // bf16 of an item's tile
+  static constexpr int SB = HW > 256 ? 32 : WB;  // rows of a streamed block
+  static constexpr int STILE = SB * LD;      // bf16 of a streamed tile
   static constexpr int NH = C / HW;          // heads
-  static constexpr int HV = HW / 128;        // output halves of a head
+  static constexpr int HV = HW / 128;        // output parts of a head
 };
 
 // acc[j] (j: the two n8 tiles of 16 columns) = A @ B^T over the HW
@@ -3799,14 +4137,14 @@ __device__ __forceinline__ void wide_product(float (&out)[16][4],
   }
 }
 
-// Rows [r0, r0 + 64) of HW channels from column `col` of a [N*L, ld] bf16
+// Rows [r0, r0 + R) of HW channels from column `col` of a [N*L, ld] bf16
 // array of one sequence (`src` its row 0) into a staged tile, rows past L
 // zero.
-template <int HW>
+template <int HW, int R = WB>
 __device__ __forceinline__ void load_wide(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int ld,
                                           int col, int r0, int L) {
-  load_head<HW>(dst, src + (size_t)r0 * ld, ld, col, min(WB, L - r0), WB);
+  load_head<HW>(dst, src + (size_t)r0 * ld, ld, col, min(R, L - r0), R);
 }
 
 // Masks sc (scores of rows rq against 16 keys from k0, C-fragment layout)
@@ -3825,24 +4163,25 @@ __device__ __forceinline__ void wide_mask(float (&sc)[2][4], int k0,
     }
 }
 
-// The blocks of 64 keys that queries [q0, q0 + 64) need.
+// The blocks of SB keys that queries [q0, q0 + 64) need.
+template <int SB>
 __device__ __forceinline__ void wide_key_blocks(int q0, int L, int lb,
                                                 int& b0, int& b1) {
-  b0 = (lb >= 0 ? max(0, q0 - lb) : 0) / WB;
-  b1 = (lb >= 0 ? min(L - 1, q0 + WB - 1) : L - 1) / WB;
+  b0 = (lb >= 0 ? max(0, q0 - lb) : 0) / SB;
+  b1 = (lb >= 0 ? min(L - 1, q0 + WB - 1) : L - 1) / SB;
 }
 
 template <int HW>
 __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
   using S = Wide<HW>;
-  constexpr int LD = S::LD, NH = S::NH, HV = S::HV;
+  constexpr int LD = S::LD, NH = S::NH, HV = S::HV, SB = S::SB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + S::TILE;
-  __nv_bfloat16* Vs = Ks + S::TILE;
+  __nv_bfloat16* Vs = Ks + S::STILE;
   const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
   const float scale2 = a.scale2;
-  // item: (sequence, block of 64 queries, head h, half oh)
+  // item: (sequence, block of 64 queries, head h, part oh)
   const unsigned bx = blockIdx.x / (NH * HV);
   const int h = (int)(blockIdx.x / HV % NH), oh = (int)(blockIdx.x % HV);
   const long long n = bx / nqb;
@@ -3855,7 +4194,7 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
   const int rq[2] = {r0 + (lane >> 2), r0 + (lane >> 2) + 8};
   int kc0 = 0, kc1 = -1, b0, b1;
   if (active) key_chunks(r0, L, lb, kc0, kc1);
-  wide_key_blocks(q0b, L, lb, b0, b1);
+  wide_key_blocks<SB>(q0b, L, lb, b0, b1);
   load_wide<HW>(Qs, src, 3 * C, h * HW, q0b, L);
   const __nv_bfloat16* qw = Qs + warp * 16 * LD;
 
@@ -3875,14 +4214,15 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
     }
     for (int kb = b0; kb <= b1; ++kb) {
       __syncthreads();  // the previous block's readers are done
-      load_wide<HW>(Ks, src, 3 * C, C + h * HW, kb * WB, L);
-      if (walk == 1) load_wide<HW>(Vs, src, 3 * C, 2 * C + h * HW, kb * WB, L);
+      load_wide<HW, SB>(Ks, src, 3 * C, C + h * HW, kb * SB, L);
+      if (walk == 1)
+        load_wide<HW, SB>(Vs, src, 3 * C, 2 * C + h * HW, kb * SB, L);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
       if (!active) continue;
-      for (int c = 0; c < 4; ++c) {
-        const int kc = kb * 4 + c;
+      for (int c = 0; c < SB / 16; ++c) {
+        const int kc = kb * (SB / 16) + c;
         if (kc < kc0 || kc > kc1) continue;
         float sc[2][4];
         wide_dot16<HW>(sc, qw, Ks + c * 16 * LD, lane);
@@ -3927,12 +4267,12 @@ __global__ void __launch_bounds__(128) attn_fwd_wide_kernel(HeadArgs a) {
 template <int HW>
 __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
   using S = Wide<HW>;
-  constexpr int LD = S::LD, NH = S::NH, HV = S::HV;
+  constexpr int LD = S::LD, NH = S::NH, HV = S::HV, SB = S::SB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Os = Qs + S::TILE;  // dctx
   __nv_bfloat16* Ks = Os + S::TILE;
-  __nv_bfloat16* Vs = Ks + S::TILE;
+  __nv_bfloat16* Vs = Ks + S::STILE;
   const int L = a.L, lb = a.lookback, nqb = (L + WB - 1) / WB;
   const float scale2 = a.scale2;
   const float scale = a.scale;
@@ -3948,7 +4288,7 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
   const int rq[2] = {r0 + (lane >> 2), r0 + (lane >> 2) + 8};
   int kc0 = 0, kc1 = -1, b0, b1;
   if (active) key_chunks(r0, L, lb, kc0, kc1);
-  wide_key_blocks(q0b, L, lb, b0, b1);
+  wide_key_blocks<SB>(q0b, L, lb, b0, b1);
   load_wide<HW>(Qs, src, 3 * C, h * HW, q0b, L);
   load_wide<HW>(Os, a.dctx + rowbase * C, C, h * HW, q0b, L);
   float mr[2] = {0.f, 0.f}, ir[2] = {0.f, 0.f};
@@ -3972,14 +4312,14 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
     }
     for (int kb = b0; kb <= b1; ++kb) {
       __syncthreads();
-      load_wide<HW>(Ks, src, 3 * C, C + h * HW, kb * WB, L);
-      load_wide<HW>(Vs, src, 3 * C, 2 * C + h * HW, kb * WB, L);
+      load_wide<HW, SB>(Ks, src, 3 * C, C + h * HW, kb * SB, L);
+      load_wide<HW, SB>(Vs, src, 3 * C, 2 * C + h * HW, kb * SB, L);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
       if (!active) continue;
-      for (int c = 0; c < 4; ++c) {
-        const int kc = kb * 4 + c;
+      for (int c = 0; c < SB / 16; ++c) {
+        const int kc = kb * (SB / 16) + c;
         if (kc < kc0 || kc > kc1) continue;
         float p[2][4], dp[2][4];
         wide_dot16<HW>(p, qw, Ks + c * 16 * LD, lane);
@@ -4021,13 +4361,13 @@ __global__ void __launch_bounds__(128) attn_dq_wide_kernel(HeadArgs a) {
 template <int HW>
 __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
   using S = Wide<HW>;
-  constexpr int LD = S::LD, NH = S::NH, HV = S::HV;
+  constexpr int LD = S::LD, NH = S::NH, HV = S::HV, SB = S::SB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Vs = Ks + S::TILE;
   __nv_bfloat16* Qs = Vs + S::TILE;
-  __nv_bfloat16* Os = Qs + S::TILE;  // dctx
-  float* mq = reinterpret_cast<float*>(Os + S::TILE);  // [3][WB]: m, 1/l, rs
+  __nv_bfloat16* Os = Qs + S::STILE;  // dctx
+  float* mq = reinterpret_cast<float*>(Os + S::STILE);  // [3][SB]: m, 1/l, rs
   const int L = a.L, lb = a.lookback, nkb = (L + WB - 1) / WB;
   const float scale2 = a.scale2;
   const float scale = a.scale;
@@ -4043,8 +4383,8 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
   const bool active = k0 < L;
   const int kr[2] = {k0 + g, k0 + g + 8};
   // The queries that see some key of the item, and of the warp's keys.
-  const int b0 = lb >= 0 ? k0b / WB : 0;
-  const int b1 = (lb >= 0 ? min(L - 1, k0b + WB - 1 + lb) : L - 1) / WB;
+  const int b0 = lb >= 0 ? k0b / SB : 0;
+  const int b1 = (lb >= 0 ? min(L - 1, k0b + WB - 1 + lb) : L - 1) / SB;
   const int qc0 = lb >= 0 ? k0 / 16 : 0;
   const int qc1 = (lb >= 0 ? min(L - 1, k0 + 15 + lb) : L - 1) / 16;
   load_wide<HW>(Ks, src, 3 * C, C + h * HW, k0b, L);
@@ -4055,11 +4395,11 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
   float dk[16][4] = {}, dv[16][4] = {};
   for (int qb = b0; qb <= b1; ++qb) {
     __syncthreads();
-    load_wide<HW>(Qs, src, 3 * C, h * HW, qb * WB, L);
-    load_wide<HW>(Os, a.dctx + rowbase * C, C, h * HW, qb * WB, L);
+    load_wide<HW, SB>(Qs, src, 3 * C, h * HW, qb * SB, L);
+    load_wide<HW, SB>(Os, a.dctx + rowbase * C, C, h * HW, qb * SB, L);
     cp_async_commit();
-    for (int i = threadIdx.x; i < WB; i += blockDim.x) {
-      const int q = qb * WB + i;
+    for (int i = threadIdx.x; i < SB; i += blockDim.x) {
+      const int q = qb * SB + i;
       float2 st = make_float2(0.f, 0.f);
       float r = 0.f;
       if (q < L) {
@@ -4068,14 +4408,14 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
         r = a.rsum[(rowbase + q) * NH + h];
       }
       mq[i] = st.x;
-      mq[WB + i] = st.y;
-      mq[2 * WB + i] = r;
+      mq[SB + i] = st.y;
+      mq[2 * SB + i] = r;
     }
     cp_async_wait<0>();
     __syncthreads();
     if (!active) continue;
-    for (int c = 0; c < 4; ++c) {
-      const int qc = qb * 4 + c;
+    for (int c = 0; c < SB / 16; ++c) {
+      const int qc = qb * (SB / 16) + c;
       if (qc < qc0 || qc > qc1) continue;
       // Keys as the M rows: s^T = k q^T, dp^T = v dctx^T.
       float sj[2][4], dp[2][4];
@@ -4087,14 +4427,14 @@ __global__ void __launch_bounds__(128) attn_dkv_wide_kernel(HeadArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = c * 16 + 8 * j + 2 * t + (e & 1);
-          const int q = qb * WB + qi, key = kr[e >> 1];
+          const int q = qb * SB + qi, key = kr[e >> 1];
           const bool ok =
               q < L && key < L && (lb < 0 || (key <= q && key >= q - lb));
           const float pe = ok ? bf16r(ex2(sj[j][e] * scale2 - mq[qi]) *
-                                      mq[WB + qi])
+                                      mq[SB + qi])
                               : 0.f;
           p[j][e] = pe;
-          ds[j][e] = pe * (dp[j][e] - mq[2 * WB + qi]);
+          ds[j][e] = pe * (dp[j][e] - mq[2 * SB + qi]);
         }
       uint32_t pa[4], sa[4];
       pack_a(pa, p);
@@ -4119,17 +4459,19 @@ inline cudaError_t launch_head_wide(const HeadArgs& a, long long N,
   const unsigned items =
       (unsigned)(N * ((a.L + WB - 1) / WB) * S::NH * S::HV);
   const size_t tile = (size_t)S::TILE * sizeof(__nv_bfloat16);
+  const size_t stile = (size_t)S::STILE * sizeof(__nv_bfloat16);
   if (!backward) {
-    cudaError_t e = allow_smem(attn_fwd_wide_kernel<HW>, 3 * tile);
+    const size_t smem = tile + 2 * stile;
+    cudaError_t e = allow_smem(attn_fwd_wide_kernel<HW>, smem);
     if (e != cudaSuccess) return e;
-    attn_fwd_wide_kernel<HW><<<items, 128, 3 * tile, st>>>(a);
+    attn_fwd_wide_kernel<HW><<<items, 128, smem, st>>>(a);
     return cudaGetLastError();
   }
-  cudaError_t e = allow_smem(attn_dq_wide_kernel<HW>, 4 * tile);
+  cudaError_t e = allow_smem(attn_dq_wide_kernel<HW>, 2 * tile + 2 * stile);
   if (e != cudaSuccess) return e;
-  attn_dq_wide_kernel<HW><<<items, 128, 4 * tile, st>>>(a);
+  attn_dq_wide_kernel<HW><<<items, 128, 2 * tile + 2 * stile, st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t smem = 4 * tile + 3 * WB * sizeof(float);
+  const size_t smem = 2 * tile + 2 * stile + 3 * S::SB * sizeof(float);
   if ((e = allow_smem(attn_dkv_wide_kernel<HW>, smem)) != cudaSuccess)
     return e;
   attn_dkv_wide_kernel<HW><<<items, 128, smem, st>>>(a);
@@ -4175,6 +4517,9 @@ inline cudaError_t launch_head(const HeadArgs& a, long long N, bool backward,
 #if LCT_C > 128
     case 256: return launch_head_wide<256>(a, N, backward, st);
 #endif
+#if LCT_C > 256
+    case 512: return launch_head_wide<512>(a, N, backward, st);
+#endif
   }
   return cudaErrorInvalidValue;
 }
@@ -4191,7 +4536,9 @@ inline cudaError_t launch_head(const HeadArgs& a, long long N, bool backward,
 // only the C / 16 diagonal [16 x 48] blocks of a [C x 3C] product (the GRU
 // weights in slots of 16, out[slot][i][m]; a dense slot is a dense
 // product). `cs_off >= 0`: also the column sums of B. The caller splits a
-// product of more than 4 WG_UNITS 16x16 units into pieces of whole rows.
+// product of more than 4 WG_UNITS 16x16 units into pieces of whole rows,
+// at C = 512 also of columns (a piece's output rows `ldo` apart), and the
+// grouped one into pieces of 16 slots.
 struct WgProd {
   const __nv_bfloat16* A;
   const __nv_bfloat16* B;
@@ -4200,6 +4547,7 @@ struct WgProd {
   int grouped;
   int out_off;   // first output in the partial row
   int cs_off;    // first column sum in the partial row, or -1
+  int ldo;       // C = 512: the whole product's columns (N below 512)
 };
 
 struct WgArgs {
@@ -4224,7 +4572,8 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
   for (int pi = 0; pi < a.np; ++pi) {
     const WgProd P = a.p[pi];
     const int lda = P.M + 8, ldb = P.N + 8;
-    const int nunits = P.grouped ? G * 3 : (P.M / 16) * (P.N / 16);
+    const int nunits = P.grouped ? (C > 256 ? P.M / 16 : G) * 3
+                                 : (P.M / 16) * (P.N / 16);
     auto stage = [&](int buf, long long rt) {
       __nv_bfloat16* As = sm + buf * WG_STAGE;
       __nv_bfloat16* Bs = As + WG_ROWS * lda;
@@ -4315,7 +4664,7 @@ __global__ void __launch_bounds__(RT) wgrad_tc_kernel(WgArgs a) {
             o = (u / 3) * H * 3 * H + i * 3 * H + (u % 3) * 16 + c;
           } else {
             const int mt = u / (P.N / 16), nc = u % (P.N / 16);
-            o = (mt * 16 + i) * P.N + nc * 16 + c;
+            o = (mt * 16 + i) * (C > 256 ? P.ldo : P.N) + nc * 16 + c;
           }
           part[P.out_off + o] = acc[ui][j][e];
         }
@@ -4353,8 +4702,14 @@ __global__ void reduce_tc_kernel(RedArgs a) {
 
 // Sequences a block of the bf16 GRU stage takes: bptt_tc_kernel's GS, or
 // the CUDA-core walk's DS for a dense slot of 128 (and the cluster walk's
-// BC_DS = DS, a cluster, for one of 256).
-inline int bptt_seqs(int W) { return W > 64 ? DS : GS; }
+// BC_DS = DS, a cluster, for one of 256), the step walk's BS_R for one of
+// 512.
+inline int bptt_seqs(int W) {
+#if LCT_C > 256
+  if (W == C) return BS_R;
+#endif
+  return W > 64 ? DS : GS;
+}
 
 // Device memory of one bf16-mode launch, in bytes from one base (each
 // buffer 256-byte aligned). The front region holds qkv, s, the softmax
@@ -4364,7 +4719,7 @@ struct ScratchTC {
   __nv_bfloat16 *qkv, *gb, *ctx, *ab, *dcomb, *da, *dctx, *dqkv, *n2, *n1,
       *hprev, *dxp, *dhp;
   float *s, *stats, *dglin, *ds, *p_comb, *p_dn2, *p_bptt, *p_dn1, *p_wg,
-      *rsum, *K;
+      *rsum, *K, *carry;
   long long total;
   int grid_rows, grid_wg, nout;
   long long wg_chunk;
@@ -4418,8 +4773,10 @@ struct ScratchTC {
     p_wg = (float*)take((long long)grid_wg * nout * f32);
     // The wide heads' rowsums (attn_dq_wide_kernel) at C >= 128.
     rsum = C > 64 ? (float*)take(rows * nh * f32) : nullptr;
-    // One slot of C = 256: the gate factors of every step (gate_tc_kernel).
-    K = C > 128 && W == C ? (float*)take(D * rows * 5 * C * f32) : nullptr;
+    // Slots of 256 or 512: the gate factors of every step (gate_tc_kernel).
+    K = C > 128 && W >= 256 ? (float*)take(D * rows * 5 * C * f32) : nullptr;
+    // One slot of 512: the step walk's carry, 2 x [D, N, C].
+    carry = C > 256 && W == C ? (float*)take(2 * D * N * C * f32) : nullptr;
     total = off;
   }
 };
@@ -4465,6 +4822,12 @@ inline cudaError_t tc_grids(long long rows, int* grid_rows, int* grid_wg) {
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
+// Launches of GRU walk `walk` (0 the cluster walk, 1 the step walk) this
+// library has made, or -1 for another walk.
+extern "C" long long lct_ftf_backward_walk_launches(int walk) {
+  return walk == 0 || walk == 1 ? lct::walk_launches[walk] : -1;
+}
+
 // Floats of scratch `lct_ftf_backward_f32` needs for N sequences of length
 // L (the same at every head and group count), or -1 for widths the kernels
 // do not take.
@@ -4473,7 +4836,7 @@ extern "C" long long lct_ftf_backward_scratch_floats(long long N, int L,
                                                      int num_heads,
                                                      int slots) {
   if (!lct::widths_ok(c_true, num_heads, slots)) return -1;
-  return lct::Scratch(nullptr, N * L, D).total;
+  return lct::Scratch(nullptr, N, L, D).total;
 }
 
 // x, dout, dx: [N, L, C]; hid: [D, N*L, C]; parameters as in
@@ -4508,8 +4871,8 @@ extern "C" int lct_ftf_backward_f32(
   const int hd = head_width(c_true / num_heads);
   const float inv_c = 1.f / c_true;
   const int W = gru_slot(slots);
-  Scratch s(scratch, rows, D);
-  const unsigned rblocks = (unsigned)((rows + ROWS - 1) / ROWS);
+  Scratch s(scratch, N, L, D);
+  const unsigned rblocks = (unsigned)((rows + PROJ_ROWS - 1) / PROJ_ROWS);
   const unsigned wblocks = (unsigned)((rows + 7) / 8);  // a warp per row
   const float* hid1 = D == 2 ? hid + (size_t)rows * C : nullptr;
   const bool freq = lin_in == 2 * C;
@@ -4575,10 +4938,15 @@ extern "C" int lct_ftf_backward_f32(
   } else if (W == 128) {
     LCT_TRY(gates(std::integral_constant<int, 128>{}));
 #endif
+#if LCT_C > 256
+  } else if (W == 256) {
+    LCT_TRY(gates(std::integral_constant<int, 256>{}));
+#endif
   } else {
     LCT_TRY(gates(std::integral_constant<int, C>{}));
   }
-  LCT_TRY(launch_bptt(s.K, dg, w_hh, s.dxp, s.dhp, N, L, D, slots, st));
+  LCT_TRY(launch_bptt(s.K, dg, w_hh, s.dxp, s.dhp, N, L, D, slots, s.carry,
+                      st));
 
   // 9. input projection and LN1 backward: dx.
   const unsigned cblocks = (unsigned)((rows * C + 255) / 256);
@@ -4591,6 +4959,10 @@ extern "C" int lct_ftf_backward_f32(
 #if LCT_C > 128
   } else if (W == 128) {
     dn1_kernel<128><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
+#endif
+#if LCT_C > 256
+  } else if (W == 256) {
+    dn1_kernel<256><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
 #endif
   } else {
     dn1_kernel<C><<<cblocks, 256, 0, st>>>(s.dxp, w_ih, s.dn1, rows, D);
@@ -4614,14 +4986,19 @@ extern "C" int lct_ftf_backward_f32(
   LCT_TRY(wg(WG_COLSUM, nullptr, 0, 0, s.dn2, C, 0, C, 0, C, dln2_b));
   if (W == 16) {
 #if LCT_C > 128
-    // 2 x 12,288 outputs, past one launch's WG_OUT: a direction a launch.
-    for (int d = 0; d < D; ++d) {
-      const size_t o = (size_t)d * C * 3 * W;
-      LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, s.dxp + d * 3 * C, D3C, 0,
-                 C * 3 * W, C, 3 * C, dw_ih + o));
-      LCT_TRY(wg(WG_GROUPED, s.hpv + (size_t)d * rows * C, C, 0,
-                 s.dhp + d * 3 * C, D3C, 0, C * 3 * W, C, 3 * C, dw_hh + o));
-    }
+    // 2 x 12,288 outputs at C = 256, past one launch's WG_OUT: a direction
+    // a launch; at C = 512 (24,576 a direction) 16 slots a launch.
+    constexpr int GP = C > 256 ? 16 : C / 16;  // slots a launch
+    for (int d = 0; d < D; ++d)
+      for (int g0 = 0; g0 < C / 16; g0 += GP) {
+        const size_t o = (size_t)d * C * 3 * W + (size_t)g0 * W * 3 * W;
+        const int a0 = g0 * 16, b0 = d * 3 * C + g0 * 48;
+        LCT_TRY(wg(WG_GROUPED, s.n1 + a0, C, 0, s.dxp + b0, D3C, 0,
+                   GP * W * 3 * W, GP * 16, GP * 48, dw_ih + o));
+        LCT_TRY(wg(WG_GROUPED, s.hpv + (size_t)d * rows * C + a0, C, 0,
+                   s.dhp + b0, D3C, 0, GP * W * 3 * W, GP * 16, GP * 48,
+                   dw_hh + o));
+      }
 #else
     LCT_TRY(wg(WG_GROUPED, s.n1, C, 0, s.dxp, D3C, 0, D * C * 3 * W, C, D3C,
                dw_ih));
@@ -4750,14 +5127,21 @@ extern "C" int lct_ftf_backward_bf16(
   } else if (W == 128) {
     LCT_TRY(launch_bptt_simt(ba, st));
   } else {
-    // One slot of 256: every step's gate factors on tensor cores, then the
-    // carry's walk by clusters.
-    const GateArgs gt = {s.n1, hid, w_ih, w_hh, b_ih, b_hh, s.K, s.hprev,
-                         N, L};
+    // Slots of 256: every step's gate factors on tensor cores, then the
+    // carry's walk by clusters; one slot of 512: the step walk.
+    GateArgs gt = {s.n1, hid, w_ih, w_hh, b_ih, b_hh, s.K, s.hprev, N, L};
+#if LCT_C > 256
+    gt.sw = W;
+#endif
     LCT_TRY(launch_gate_tc(gt, D, st));
     const ClusterArgs cl = {s.K, s.ds, freq ? s.dglin : nullptr, w_hh,
                             nullptr, nullptr, s.dxp, s.dhp, s.p_bptt, N, L,
                             D};
+#if LCT_C > 256
+    if (W == C) {
+      LCT_TRY(launch_bptt_steps<true>(cl, s.carry, st));
+    } else
+#endif
     LCT_TRY(launch_bptt_cluster<true>(cl, st));
   }
   // Input projection and LN1 backward: dx.
@@ -4768,6 +5152,9 @@ extern "C" int lct_ftf_backward_bf16(
     case 16: LCT_TRY((launch_dn_panel<16, false>(da1, gr, st))); break;
     case 64: LCT_TRY((launch_dn_panel<64, false>(da1, gr, st))); break;
     case 128: LCT_TRY((launch_dn_panel<128, false>(da1, gr, st))); break;
+#if LCT_C > 256
+    case 256: LCT_TRY((launch_dn_panel<256, false>(da1, gr, st))); break;
+#endif
     default: LCT_TRY((launch_dn_panel<C, false>(da1, gr, st))); break;
   }
 #else
@@ -4811,16 +5198,29 @@ extern "C" int lct_ftf_backward_bf16(
   WgProd pieces[WG_ALLP];
   int np = 0;
   // A product, in pieces of whole rows of at most 4 WG_UNITS units each
-  // (one piece at C = 64).
+  // (one piece at C = 64); at C = 512 a 16-row tile of more units in
+  // column parts of 4 WG_UNITS units, and the grouped one in pieces of 16
+  // slots (16 x 16 rows, 16 x 48 columns).
   auto prod = [&](const __nv_bfloat16* A, int lda, int acol, int M,
                   const __nv_bfloat16* B, int ldb, int bcol, int Nn,
                   int grouped, int out_off, int cs_off) {
-    const int mstep = grouped ? M : 16 * (4 * WG_UNITS / (Nn / 16));
-    for (int m0 = 0; m0 < M; m0 += mstep, ++np)
-      if (np < WG_ALLP)
-        pieces[np] = {A, B, lda, ldb, acol + m0, bcol,
-                      M - m0 < mstep ? M - m0 : mstep, Nn, grouped,
-                      out_off + m0 * Nn, m0 == 0 ? cs_off : -1};
+    if (grouped) {
+      const int gm = C > 256 ? 256 : M;  // rows (16 a slot) of a piece
+      for (int m0 = 0; m0 < M; m0 += gm, ++np)
+        if (np < WG_ALLP)
+          pieces[np] = {A, B, lda, ldb, acol + m0, bcol + 3 * m0, gm,
+                        3 * gm, grouped, out_off + m0 * 48, -1, 3 * gm};
+      return;
+    }
+    const int cw = Nn < 64 * WG_UNITS ? Nn : 64 * WG_UNITS;  // part columns
+    const int mstep = 16 * (4 * WG_UNITS / (cw / 16));
+    for (int c0 = 0; c0 < Nn; c0 += cw)
+      for (int m0 = 0; m0 < M; m0 += mstep, ++np)
+        if (np < WG_ALLP)
+          pieces[np] = {A, B, lda, ldb, acol + m0, bcol + c0,
+                        M - m0 < mstep ? M - m0 : mstep, cw, grouped,
+                        out_off + m0 * Nn + c0,
+                        m0 == 0 && cs_off >= 0 ? cs_off + c0 : -1, Nn};
   };
   if (freq) prod(s.gb, C, 0, C, s.dcomb, C, 0, C, 0, o_lin, -1);
   prod(s.ab, C, 0, C, s.dcomb, C, 0, C, 0, o_lin + (freq ? C * C : 0), -1);

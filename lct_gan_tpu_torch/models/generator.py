@@ -20,8 +20,8 @@ LeakyReLU, as in the JAX package.
 On the card the kernels serve a bottleneck of enc_channels[-1] channels in
 any num_heads and gru_groups that divide it whose padded layout (each head
 and group widened to a power of two) fits 512 channels (the widest
-kernel), and train one whose layout fits 256 (the FTF backward's widest;
-`ops/library.py::card_takes`): `check_card_widths` refuses anything else
+kernel, the FTF backward's too), and train the same layouts
+(`ops/library.py::card_takes`): `check_card_widths` refuses anything else
 before a model runs or trains there.
 """
 
@@ -76,8 +76,9 @@ def check_card_widths(cfg: LCTGeneratorConfig, device, *,
     device argument alone (no card is queried): a bottleneck of
     enc_channels[-1] channels in num_heads heads and gru_groups groups that
     divide it, whose padded layout fits the widest kernel
-    (`ops/library.py::card_takes`): 512 channels for serving, and with
-    `training` 256, the FTF backward kernel's widest. The message names
+    (`ops/library.py::card_takes`): 512 channels, for serving and with
+    `training` alike (the FTF backward kernel's widest is 512 too). The
+    message names
     enc_channels, --num_heads and --gru_groups and the width the layout
     must fit. Nothing is refused on the CPU, whose plain path takes every
     width."""

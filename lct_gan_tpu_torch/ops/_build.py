@@ -16,11 +16,10 @@ default, builds every source as it always has (`lib<name>-<hash>.so`); any
 other CK builds with -DLCT_C=<CK> into `lib<name>-c<CK>-<hash>.so` the
 forward sources (`FORWARD_SOURCES`) at its first use, and the FTF
 backward's (`BACKWARD_SOURCES`) at its first backward (at
-`BACKWARD_WIDTHS`: every kernel width but 512, which builds the forward
-sources only), so serving alone never builds the backward. A width past
-512, or a backward past 256, has no libraries and is refused by name. All
-sources of all the widths asked for build in one parallel batch, one nvcc
-process each.
+`BACKWARD_WIDTHS`: every kernel width, 512 included), so serving alone
+never builds the backward. A width past 512 has no libraries and is
+refused by name. All sources of all the widths asked for build in one
+parallel batch, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, List, Tuple
 
 import torch
@@ -41,7 +41,7 @@ import torch
 __all__ = ["load_library", "build_all", "kernel_function", "raise_on_error",
            "f32_operand", "build_command", "library_path", "library_sources",
            "CSRC_DIR", "BUILD_DIR", "DEFAULT_C", "FORWARD_SOURCES",
-           "BACKWARD_SOURCES", "BUILD_LOGS", "ptxas_usage"]
+           "BACKWARD_SOURCES", "BUILD_LOGS", "BUILD_SECONDS", "ptxas_usage"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -60,6 +60,9 @@ _lock = threading.Lock()
 _libs: Dict[Tuple[str, int], ctypes.CDLL] = {}
 # nvcc's output of each verbose build of this process, by (source, width).
 BUILD_LOGS: Dict[Tuple[str, int], str] = {}
+# Seconds from the start of its batch to the end of each nvcc process of
+# this process's builds, by (source, width).
+BUILD_SECONDS: Dict[Tuple[str, int], float] = {}
 
 
 def _nvcc() -> str:
@@ -130,7 +133,8 @@ def build_all(verbose: bool = False,
     stderr when a build fails, and by name for a backward width it is not
     built for. With `verbose` nvcc reports each kernel's registers and
     spills (-Xptxas -v): printed to stderr and kept in
-    BUILD_LOGS[(name, width)]. `nice` > 0 runs the nvcc processes at that
+    BUILD_LOGS[(name, width)]; each nvcc process's seconds are kept in
+    BUILD_SECONDS[(name, width)]. `nice` > 0 runs the nvcc processes at that
     niceness (a build in a background thread beside running work: another
     thread that needs a library it builds waits for it here)."""
     widths = tuple(dict.fromkeys(widths))
@@ -155,9 +159,16 @@ def build_all(verbose: bool = False,
             procs[k] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
+        def finish(k):  # in a thread a process: each end is its own
+            out, err = procs[k][1].communicate()
+            BUILD_SECONDS[k] = time.perf_counter() - t0
+            return out, err
+
+        with ThreadPoolExecutor(max(1, len(procs))) as pool:
+            ends = dict(zip(procs, pool.map(finish, procs)))
         errors = []
         for (n, C), (tmp, proc) in procs.items():
-            out, err = proc.communicate()
+            out, err = ends[(n, C)]
             what = f"csrc/{n}.cu" + ("" if C == DEFAULT_C else f" (C={C})")
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {what} "

@@ -29,8 +29,8 @@ Parameter layouts are the JAX package's: GRU [D, G, H, 3H] / [D, G, 3H],
 in_w [C, 3C], out_w [C, C], lin_w [2C or C, C]. The forward and backward
 kernels take every C in any num_heads and any G that divide C whose padded
 layout fits the widest kernel (`ops/library.py::card_takes`: channels,
-heads and groups zero-padded to the kernel width of 16 .. 512 forward,
-16 .. 256 backward, exact: `ops/padding.py`); a call on the card at other
+heads and groups zero-padded to the kernel width of 16 .. 512, forward
+and backward alike, exact: `ops/padding.py`); a call on the card at other
 widths raises before any launch, under grad too (there at the backward's
 widths).
 """

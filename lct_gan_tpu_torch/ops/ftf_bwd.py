@@ -19,7 +19,7 @@ there): in bf16 mode the tensor-core design (`lct_ftf_backward_bf16`, design
 tag `tc-bf16`), in precise mode the all-f32 CUDA-core one
 (`lct_ftf_backward_f32`, `simt-f32`), at every C in any number of heads
 and GRU groups that divides C whose padded layout fits its widest kernel
-width, 256 (`check_backward_shapes`, `ops/library.py::check_kernel_widths`
+width, 512 (`check_backward_shapes`, `ops/library.py::check_kernel_widths`
 with `training`; each
 kernel width's library built at its first backward, `ops/_build.py`). The
 wrapper hands the kernels the forward's operands (`ops/ftf.py::
@@ -284,7 +284,7 @@ def check_backward_shapes(name: str, x, w_ih, lin_w, num_heads: int,
     """Raise unless the FTF backward kernel takes these shapes: the
     forward's (`ops/ftf.py::check_kernel_shapes`) at any num_heads and GRU
     group count that divides C whose padded layout fits the backward's
-    widest kernel width, 256 (`ops/library.py::check_kernel_widths` with
+    widest kernel width, 512 (`ops/library.py::check_kernel_widths` with
     `training`); widths it does not take are refused naming enc_channels,
     the width a user sets."""
     from lct_gan_tpu_torch.ops.ftf import check_kernel_shapes

@@ -30,15 +30,16 @@ NAMESPACE = "lct_gan_tpu_torch"
 
 # The kernel widths the CUDA libraries are built for (one set of libraries
 # each, ops/_build.py): the forward kernels at every one, the FTF backward
-# at BACKWARD_WIDTHS (a wider forward width comes before its backward:
-# 512 serves, and training stops at 256). Any bottleneck width C in any
-# number of attention heads and GRU groups that divides it runs at the one
-# its padded layout fits (ops/padding.py::kernel_width), up to the widest
-# (the JAX package's kernels read all three from their shapes): serving up
-# to 512 channels, training, whose gradients reach the backward kernel, up
-# to 256.
+# at BACKWARD_WIDTHS (the same widths: a width's backward is built at its
+# first backward). Any bottleneck width C in any number of attention heads
+# and GRU groups that divides it runs at the one its padded layout fits
+# (ops/padding.py::kernel_width), up to the widest (the JAX package's
+# kernels read all three from their shapes): serving and training, whose
+# gradients reach the backward kernel, up to 512 channels. A layout past
+# 512 would need a kernel width of 1,024, past a block's 1,024 threads in
+# the row kernels: it is refused by name.
 KERNEL_WIDTHS = (16, 32, 64, 128, 256, 512)
-BACKWARD_WIDTHS = (16, 32, 64, 128, 256)
+BACKWARD_WIDTHS = (16, 32, 64, 128, 256, 512)
 
 
 def divisors(C: int) -> tuple:

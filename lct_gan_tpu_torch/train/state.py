@@ -130,7 +130,7 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor],
 
 def _assemble(cfg, enhancer, mpd, msd, device):
     # Before anything moves: the card trains only the widths its backward
-    # kernel takes, layouts within 256 channels (raises on the device
+    # kernel takes, layouts within 512 channels (raises on the device
     # argument, with or without a card).
     check_card_widths(enhancer.gen.cfg, device, training=True)
     dev = resolve_device(device)

@@ -86,8 +86,8 @@ def test_card_takes_every_layout_that_fits_128_channels():
     every divisor pair of heads and groups:
     the card serves it exactly when its padded layout (C, each group and
     each head widened to a power of two) fits 512 channels (the widest
-    forward kernel), and trains it when the layout fits 256 (the FTF
-    backward's widest), which is every pair up to C = 128 (the name is kept
+    forward kernel), and trains it when the layout fits 512 too (the FTF
+    backward's widest), which is every pair up to C = 256 (the name is kept
     from when both stopped at 128); decided from the device argument. The
     CPU takes everything."""
     counts = {False: [0, 0], True: [0, 0]}
@@ -96,7 +96,7 @@ def test_card_takes_every_layout_that_fits_128_channels():
             for G in divisors(C):
                 need = max(C, G * _pow2(C // G), nh * _pow2(C // nh))
                 assert card_takes(C, nh, G, True) <= card_takes(C, nh, G)
-                for training, top in ((False, 512), (True, 256)):
+                for training, top in ((False, 512), (True, 512)):
                     fits = _pow2(need) <= top
                     assert card_takes(C, nh, G, training) == fits, (
                         C, nh, G, training)
@@ -118,8 +118,8 @@ def test_card_takes_every_layout_that_fits_128_channels():
     assert all(n > 0 for c in counts.values() for n in c)
 
 
-# Layouts past 256 channels: refused on the card for training (and served:
-# each fits 512, the forward kernels' widest).
+# Layouts past 256 channels: each fits 512, the widest kernel width of the
+# forward and the backward alike, so the card serves and trains them.
 PAST_256 = [(240, 5, 5, 320), (272, 1, 1, 512), (200, 5, 5, 320),
             (264, 8, 8, 512)]
 
@@ -128,19 +128,19 @@ PAST_256 = [(240, 5, 5, 320), (272, 1, 1, 512), (200, 5, 5, 320),
                                          (144, 4, 4, 256), (256, 1, 1, 256),
                                          *PAST_256])
 def test_card_refuses_layouts_past_128_by_name(C, nh, G, need):
-    """Training on the card takes the layouts of 129 to 256 channels (the
-    FTF backward kernel's widest is 256 now; the name is kept from when it
-    was 128), as serving does, and refuses every layout past 256 by name;
+    """Training on the card takes the layouts of 129 to 512 channels (the
+    FTF backward kernel's widest is 512 now; the name is kept from when it
+    was 128), as serving does, and refuses every layout past 512 by name;
     the CPU trains them all."""
-    if need <= 256:
+    if need <= 512:
         check_card_widths(_cfg(C, nh, G), "cuda", training=True)
         check_card_widths(_cfg(C, nh, G), "cuda", training=False)
     else:
         with pytest.raises(ValueError, match=(
-                rf"^the CUDA path takes widths whose padded layout fits 256 "
+                rf"^the CUDA path takes widths whose padded layout fits 512 "
                 rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "
                 rf"--gru_groups {G}: the padded layout needs {need} channels "
-                rf"\(> 256\); train this configuration with --device cpu")):
+                rf"\(> 512\); train this configuration with --device cpu")):
             check_card_widths(_cfg(C, nh, G), "cuda", training=True)
     check_card_widths(_cfg(C, nh, G), "cpu", training=True)
 
@@ -148,15 +148,13 @@ def test_card_refuses_layouts_past_128_by_name(C, nh, G, need):
 @pytest.mark.parametrize("C,nh,G,need", PAST_256)
 @pytest.mark.parametrize("training", [False, True])
 def test_card_refuses_layouts_past_256_by_name(C, nh, G, need, training):
-    """Training on the card refuses every layout past 256 channels, the FTF
-    backward kernel's widest, by name, and serving takes them (their
-    layouts fit 512, the forward kernels' widest) but refuses the same
-    layouts at twice the channels, past 512, by name; the CPU takes them
-    all."""
-    top = 256
-    if not training:
-        check_card_widths(_cfg(C, nh, G), "cuda", training=False)
-        C, need, top = 2 * C, 2 * need, 512
+    """Training and serving on the card take every layout past 256
+    channels that fits 512, the widest kernel width of the FTF backward and
+    forward alike (the name is kept from when training stopped at 256),
+    and refuse the same layouts at twice the channels, past 512, by name;
+    the CPU takes them all."""
+    check_card_widths(_cfg(C, nh, G), "cuda", training=training)
+    C, need, top = 2 * C, 2 * need, 512
     with pytest.raises(ValueError, match=(
             rf"^the CUDA path takes widths whose padded layout fits {top} "
             rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "

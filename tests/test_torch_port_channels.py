@@ -303,12 +303,11 @@ def test_zero_padded_gru_units_compute_the_same_gru(C, G):
 
 
 def test_card_widths_take_the_channel_set():
-    """Training on the card takes every C whose padded layout fits 256
-    channels, serving every C whose layout fits 512, with every such
-    divisor pair of heads and groups (the name is kept from when a set of
-    six widths was taken): C = 40, 48 and 96 among them, and (100, 5, 5)
-    and C = 144 (their layouts fit 256 channels); (200, 5, 5) (320) is
-    refused for training and served, (400, 5, 5) (640) refused for both,
+    """Training and serving on the card take every C whose padded layout
+    fits 512 channels, with every such divisor pair of heads and groups
+    (the name is kept from when a set of six widths was taken): C = 40, 48
+    and 96 among them, and (100, 5, 5), C = 144 and (200, 5, 5) (their
+    layouts fit 512 channels); (400, 5, 5) (640) is refused for both,
     naming enc_channels, the flags and the channels the layout needs.
     Decided from the device argument: no card is queried."""
     def cfg(C, nh=4, G=4):
@@ -325,7 +324,7 @@ def test_card_widths_take_the_channel_set():
                                           training=training)
         for C, nh, G, need in ((100, 5, 5, 160), (144, 4, 4, 256),
                                (200, 5, 5, 320), (400, 5, 5, 640)):
-            top = 256 if training else 512
+            top = 512
             if need <= top:
                 check_card_widths(cfg(C, nh, G), "cuda:0", training=training)
                 continue
@@ -342,25 +341,26 @@ def test_card_widths_take_the_channel_set():
 
 def test_grad_on_the_card_is_refused_before_any_launch():
     """fused_ftf_block under grad on a CUDA tensor at widths whose padded
-    layout passes 256 channels ((200, 5, 5): 320) raises in the backward
+    layout passes 512 channels ((400, 5, 5): 640) raises in the backward
     kernel's check (naming enc_channels) before the forward launches; on
     shapes alone (fake CUDA tensors). The same check takes C = 48 at 3
-    heads and 3 groups, 40 at 4 and 4, 50 at 5 and 5, and (100, 5, 5),
-    whose layout of 160 channels runs at kernel width 256."""
+    heads and 3 groups, 40 at 4 and 4, 50 at 5 and 5, (100, 5, 5), whose
+    layout of 160 channels runs at kernel width 256, and (200, 5, 5),
+    whose layout of 320 runs at 512."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     kw = dict(bidirectional=True, lookback=None)
     shapes = {C: [_ftf_params(np.random.default_rng(0), True, G, C)[k].shape
-                  for k in ORDER] for C, G in ((200, 5), (48, 3), (40, 4),
-                                               (50, 5), (100, 5))}
+                  for k in ORDER] for C, G in ((400, 5), (48, 3), (40, 4),
+                                               (50, 5), (100, 5), (200, 5))}
     with FakeTensorMode():
-        xs = torch.empty((12, 17, 200), device="cuda")
+        xs = torch.empty((12, 17, 400), device="cuda")
         ps = [torch.empty(s, device="cuda").requires_grad_()
-              for s in shapes[200]]
+              for s in shapes[400]]
         with pytest.raises(ValueError,
-                           match=r"C=200.*320 channels.*enc_channels"):
+                           match=r"C=400.*640 channels.*enc_channels"):
             fused_ftf_block(xs, *ps, precise=False, num_heads=5, **kw)
-    for C, nh in ((48, 3), (40, 4), (50, 5), (100, 5)):
+    for C, nh in ((48, 3), (40, 4), (50, 5), (100, 5), (200, 5)):
         check_backward_shapes(
             "fused_ftf_block under grad",
             torch.zeros((12, 17, C), device="meta"),
@@ -372,8 +372,7 @@ def test_per_width_build_command():
     """Kernel width 64 builds every source with the command, flags and
     library path it always had; any other kernel width builds the forward
     sources with -DLCT_C=<width> into a library of its own, and the FTF
-    backward's at every one of them up to 256 (BACKWARD_WIDTHS; 512 builds
-    the forward sources only, and its backward is refused by name); no
+    backward's at every one of them, 512 included (BACKWARD_WIDTHS); no
     other width has libraries (48 runs at 64, 1024 is refused by name). No
     nvcc is needed to say so."""
     tag = "0123456789abcdef"
@@ -392,19 +391,16 @@ def test_per_width_build_command():
         assert cmd[:len(_build.NVCC_FLAGS) + 1] == ["nvcc",
                                                     *_build.NVCC_FLAGS]
         assert _build.library_sources(C) == ["banded", "ftf", "mhsa"]
-        if C > 256:
-            assert C not in BACKWARD_WIDTHS
-            with pytest.raises(ValueError, match=f"ftf_bwd.*C={C}"):
-                _build.library_sources(C, backward=True)
-        else:
-            assert C in BACKWARD_WIDTHS
-            assert _build.library_sources(C, backward=True) == [
-                "banded", "ftf", "ftf_bwd", "mhsa"]
+        assert C in BACKWARD_WIDTHS
+        assert _build.library_sources(C, backward=True) == [
+            "banded", "ftf", "ftf_bwd", "mhsa"]
         path = _build.library_path("ftf", C, tag)
         assert path.endswith(f"/libftf-c{C}-{tag}.so")
         paths.add(path)
     assert len(paths) == len(KERNEL_WIDTHS)
-    assert BACKWARD_WIDTHS == KERNEL_WIDTHS[:-1]
+    assert BACKWARD_WIDTHS == KERNEL_WIDTHS
+    with pytest.raises(ValueError, match="ftf_bwd.*C=1024|C=1024"):
+        _build.library_sources(1024, backward=True)
     for C in (40, 48, 1024):
         with pytest.raises(ValueError, match=f"C={C}"):
             _build.library_sources(C)

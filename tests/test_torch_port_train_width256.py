@@ -65,7 +65,7 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(nh, G, bidi, seed):
+def _inputs(nh, G, bidi, seed, C=C):
     N, L = (2, 4) if bidi else (1, 7)
     rng = np.random.default_rng(seed + 7 * nh + G)
     x = rng.standard_normal((N, L, C)).astype(np.float32)
@@ -76,10 +76,11 @@ def _inputs(nh, G, bidi, seed):
     return x, w, [p[k] for k in ORDER]
 
 
-def _backward_pair(nh, G, bidi, lookback, precise, seed):
-    """(port, JAX) backward on the same inputs and the port's hiddens; in
-    bf16 mode the cotangent is zeroed near the LeakyReLU's kink."""
-    x, w, p = _inputs(nh, G, bidi, seed)
+def _backward_pair(nh, G, bidi, lookback, precise, seed, C=C):
+    """(port, JAX) backward on the same inputs and the port's hiddens, at
+    C channels; in bf16 mode the cotangent is zeroed near the LeakyReLU's
+    kink."""
+    x, w, p = _inputs(nh, G, bidi, seed, C)
     N, L, _ = x.shape
     tp = [torch.from_numpy(a) for a in p]
     kw = dict(bidirectional=bidi, num_heads=nh, lookback=lookback)

@@ -1,11 +1,12 @@
 """The port at kernel width 512 (bottleneck layouts of 257 to 512 channels,
-served on the card; training there stops at 256), on the CPU: the FTF
+served and trained on the card), on the CPU: the FTF
 block, the MHSA, banded and grouped-GRU functions and the enhancer at
 C = 512 against the JAX package on the same seeded numpy inputs, the
 operands the CUDA wrappers hand the kernels at the layouts padded to 512,
 the GRU slots and scratch the wrappers pick there, the build command of
-that width (forward sources only), and the card's widths: taken up to 512
-for serving and 256 for training, refused by name past them.
+that width (the forward sources, and the backward's at the first
+backward), and the card's widths: taken up to 512 for serving and
+training alike, refused by name past them.
 
 Inputs: seeded numpy as tests/test_torch_port_width256.py makes them, the
 weight matrices at the scale of a fan-in init, 0.25 sqrt(64 / C) (0.088
@@ -342,14 +343,17 @@ def test_scratch_at_512(precise):
 
 def test_build_command_at_512():
     """Kernel width 512 builds the forward sources alone with -DLCT_C=512
-    into libraries of its own; its FTF backward (csrc/ftf_bwd.cu) is
-    refused by name, and so is any width past 512."""
-    assert KERNEL_WIDTHS[-1] == 512 and BACKWARD_WIDTHS[-1] == 256
-    assert 512 not in BACKWARD_WIDTHS
+    into libraries of its own, and its FTF backward (csrc/ftf_bwd.cu)
+    beside them at the first backward; any width past 512 is refused by
+    name."""
+    assert KERNEL_WIDTHS[-1] == 512 and BACKWARD_WIDTHS[-1] == 512
+    assert 512 in BACKWARD_WIDTHS
     assert _build.library_sources(512) == ["banded", "ftf", "mhsa"]
-    with pytest.raises(ValueError, match=r"ftf_bwd.*C=512.*\(16, 32, 64, "
-                                         r"128, 256\)"):
-        _build.library_sources(512, backward=True)
+    assert _build.library_sources(512, backward=True) == [
+        "banded", "ftf", "ftf_bwd", "mhsa"]
+    with pytest.raises(ValueError, match=r"C=1024.*\(16, 32, 64, "
+                                         r"128, 256, 512\)"):
+        _build.library_sources(1024, backward=True)
     for name in ("banded", "ftf", "mhsa"):
         cmd = _build.build_command(name, 512, "o.so", "nvcc")
         assert "-DLCT_C=512" in cmd and cmd[-1].endswith(f"/{name}.cu")
@@ -366,19 +370,22 @@ def _cfg(enc, nh=4, G=4):
 @pytest.mark.parametrize("C,nh,G", [(512, 1, 1), (512, 4, 4), (512, 2, 2),
                                     (512, 64, 64), *PADDED])
 def test_card_serves_layouts_up_to_512(C, nh, G):
-    """The card serves every layout whose padded width fits 512 channels
-    and refuses to train any past 256, naming enc_channels, the flags and
-    the backward's width, before a model runs; the CPU takes them all."""
-    assert card_takes(C, nh, G) and not card_takes(C, nh, G, True)
+    """The card serves and trains every layout whose padded width fits
+    512 channels and refuses to train the same heads and groups at twice
+    the channels, past 512, naming enc_channels, the flags and the
+    backward's width, before a model runs; the CPU takes them all."""
+    assert card_takes(C, nh, G) and card_takes(C, nh, G, True)
     check_card_widths(_cfg((64, 128, C), nh, G), "cuda", training=False)
-    need = padding.layout_width(C, nh, G)
+    check_card_widths(_cfg((64, 128, C), nh, G), "cuda", training=True)
+    need = padding.layout_width(2 * C, nh, G)
     with pytest.raises(ValueError, match=(
-            rf"^the CUDA path takes widths whose padded layout fits 256 "
-            rf"channels, got enc_channels\[-1\]={C}, --num_heads {nh}, "
+            rf"^the CUDA path takes widths whose padded layout fits 512 "
+            rf"channels, got enc_channels\[-1\]={2 * C}, --num_heads {nh}, "
             rf"--gru_groups {G}: the padded layout needs {need} channels "
-            rf"\(> 256\); train this configuration with --device cpu")):
-        check_card_widths(_cfg((64, 128, C), nh, G), "cuda", training=True)
-    check_card_widths(_cfg((64, 128, C), nh, G), "cpu", training=True)
+            rf"\(> 512\); train this configuration with --device cpu")):
+        check_card_widths(_cfg((64, 128, 2 * C), nh, G), "cuda",
+                          training=True)
+    check_card_widths(_cfg((64, 128, 2 * C), nh, G), "cpu", training=True)
 
 
 @pytest.mark.parametrize("enc,nh,G,need", [((64, 128, 520), 4, 4, 1024),

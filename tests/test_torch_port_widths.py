@@ -339,9 +339,9 @@ def test_c48_is_refused_on_the_card_naming_enc_channels(training):
     name is kept from then); serving and training both take it, and 40,
     now that the kernels take the true width at run time, and C = 144
     (its padded layout, 256 channels, fits the widest kernel, forward and
-    backward alike), and refuse instead, naming enc_channels, C = 288 for
-    training (its layout of 512 passes the backward's 256; serving takes
-    it) and C = 576 for serving (past 512)."""
+    backward alike) and C = 288 (its layout of 512 fits the widest, 512,
+    for training since the backward took that width), and refuse instead,
+    naming enc_channels, C = 576 (past 512) for both."""
     cfg = LCTGeneratorConfig(enc_channels=(16, 32, 48),
                              dec_channels=(48, 32, 16))
     c40 = LCTGeneratorConfig(enc_channels=(16, 32, 40),
@@ -352,11 +352,10 @@ def test_c48_is_refused_on_the_card_naming_enc_channels(training):
                               dec_channels=(288, 32, 16))
     c576 = LCTGeneratorConfig(enc_channels=(16, 32, 576),
                               dec_channels=(576, 32, 16))
-    refused = c288 if training else c576
+    refused = c576
     with pytest.raises(ValueError, match=r"enc_channels"):
         check_card_widths(refused, "cuda", training=training)
-    if not training:
-        check_card_widths(c288, "cuda", training=False)
+    check_card_widths(c288, "cuda", training=training)
     check_card_widths(cfg, "cuda", training=training)
     check_card_widths(c40, "cuda", training=training)
     check_card_widths(c144, "cuda", training=training)
